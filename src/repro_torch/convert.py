@@ -1,0 +1,48 @@
+"""Reference parameters -> the port's parameters.
+
+The reference's parameter pytree, as numpy arrays, is how weights reach
+the port (no JAX PRNG stream is re-derived in torch).  The key layout
+is the reference's: ``embed``, ``final_norm``, ``lm_head`` and
+``slot0_attn/{norm, wq (R, D, H, Dh), wk, wv, wo (R, H, Dh, D),
+ffn_norm, ffn_w_gate, ffn_w_up, ffn_w_down}``.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.schema import ParamSpec, model_schema, param_dtype
+
+
+def params_from_numpy(tree: Mapping, cfg: ModelConfig,
+                      device: str | torch.device = "cuda") -> dict:
+    """Copy a reference parameter tree of numpy arrays onto ``device``,
+    in ``cfg.dtype``.
+
+    Every leaf of the port's schema must be present with its shape;
+    extra keys raise too, so nothing is dropped silently.
+    """
+    dev = resolve_device(device)
+    dtype = param_dtype(cfg)
+
+    def walk(spec, node, path):
+        if isinstance(spec, ParamSpec):
+            a = np.asarray(node)
+            if tuple(a.shape) != tuple(spec.shape):
+                raise ValueError(f"{path}: shape {a.shape} != schema "
+                                 f"{spec.shape}")
+            return torch.from_numpy(np.array(a, copy=True)).to(
+                device=dev, dtype=dtype)
+        extra = set(node) - set(spec)
+        missing = set(spec) - set(node)
+        if extra or missing:
+            raise ValueError(f"{path or 'params'}: missing {sorted(missing)}"
+                             f", unexpected {sorted(extra)}")
+        return {k: walk(spec[k], node[k], f"{path}/{k}".lstrip("/"))
+                for k in spec}
+
+    return walk(model_schema(cfg), tree, "")

@@ -1,0 +1,128 @@
+"""Whole-model CIM deployment: model params -> stacked CimDeployments.
+
+Port of the dense part of ``repro.deploy.engine``: every attention
+q/k/v/o and SwiGLU projection of every layer is quantised, planned
+(:mod:`repro_torch.deploy.planner`, one matrix at a time) and packaged;
+each slot's deployments are stacked over its pattern repeats, the layout
+``repro_torch.models.model.apply_model`` walks.  Embeddings, the LM
+head and norms stay digital.  Ideal devices only: the nonideal,
+lifetime and plan-cache parts of the reference are later slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, check_supported
+from repro_torch.core.tiling import CrossbarSpec
+from repro_torch.deploy.planner import plan_matrix
+from repro_torch.device import check_on, resolve_device
+from repro_torch.kernels.cim_mvm.ops import CimDeployment, package_deployment
+
+_QKV_NAMES = ("wq", "wk", "wv")
+_OUT_NAMES = ("wo",)
+_MLP_NAMES = ("ffn_w_gate", "ffn_w_up", "ffn_w_down")
+DEPLOYABLE = _QKV_NAMES + _OUT_NAMES + _MLP_NAMES
+
+
+def _as_matrix(name: str, w: torch.Tensor) -> torch.Tensor:
+    """Per-layer projection tensor -> its (in_dim, out_dim) matmul view."""
+    if name in _QKV_NAMES:        # (D, H, Dh) -> (D, H*Dh)
+        return w.reshape(w.shape[0], -1)
+    if name in _OUT_NAMES:        # (H, Dh, D) -> (H*Dh, D)
+        return w.reshape(-1, w.shape[-1])
+    return w                      # MLP projections are already 2-D
+
+
+def spec_from_config(cfg: ModelConfig) -> CrossbarSpec:
+    c = cfg.cim
+    return CrossbarSpec(rows=c.rows, cols=c.cols, n_bits=c.n_bits,
+                        r=c.r, r_on=c.r_on, r_off=c.r_off)
+
+
+def collect_model_matrices(params: dict, cfg: ModelConfig
+                           ) -> tuple[dict[str, torch.Tensor], dict]:
+    """Every deployable matrix as ``"slot/param/repeat"`` -> (I, N) view,
+    in deterministic order, and a summary of what stays digital."""
+    mats: dict[str, torch.Tensor] = {}
+    skipped: dict[str, str] = {}
+    for top in params:
+        if not top.startswith("slot"):
+            skipped[top] = "embedding/head/final-norm (digital by design)"
+    for i, bt in enumerate(cfg.block_pattern):
+        slot = f"slot{i}_{bt}"
+        slot_params = params.get(slot, {})
+        for pname in DEPLOYABLE:
+            if pname not in slot_params:
+                continue
+            stacked = slot_params[pname]
+            for r in range(stacked.shape[0]):
+                mats[f"{slot}/{pname}/{r}"] = _as_matrix(pname, stacked[r])
+        for pname in slot_params:
+            if pname not in DEPLOYABLE:
+                skipped[f"{slot}/{pname}"] = "norm (digital)"
+    summary = {"deployed": list(mats), "skipped": skipped,
+               "n_deployed": len(mats), "n_skipped": len(skipped)}
+    return mats, summary
+
+
+def deploy_model_params(params: dict, cfg: ModelConfig,
+                        device: str | torch.device = "cuda"
+                        ) -> tuple[dict, dict]:
+    """Deploy every projection matrix of a model onto crossbars.
+
+    Returns (cim_tree, report): ``cim_tree[slot][param]`` is one
+    :class:`CimDeployment` whose codes / pos / scale are stacked over the
+    slot's pattern repeats.  The parameters must lie on ``device``;
+    quantisation, planning and packaging run there, one matrix at a
+    time.  The report carries matrix and tile counts and the summed NF
+    before and after planning.
+    """
+    dev = resolve_device(device)
+    check_supported(cfg)
+    spec = spec_from_config(cfg)
+    mats, summary = collect_model_matrices(params, cfg)
+    check_on(dev, **{name.replace("/", "_"): w for name, w in mats.items()})
+
+    nf_before = torch.zeros((), dtype=torch.float64, device=dev)
+    nf_after = torch.zeros((), dtype=torch.float64, device=dev)
+    tiles = 0
+    cim_tree: dict = {}
+    for i, bt in enumerate(cfg.block_pattern):
+        slot = f"slot{i}_{bt}"
+        slot_deps: dict = {}
+        for pname in DEPLOYABLE:
+            if pname not in params.get(slot, {}):
+                continue
+            reps = params[slot][pname].shape[0]
+            stacked = None
+            for r in range(reps):
+                plan, codes, sign, scale = plan_matrix(
+                    mats[f"{slot}/{pname}/{r}"], spec, cfg.cim.mode)
+                dep = package_deployment(codes, sign, scale, plan, spec,
+                                         cfg.cim.eta)
+                nf_before += plan.nf_before.sum(dtype=torch.float64)
+                nf_after += plan.nf_after.sum(dtype=torch.float64)
+                tiles += plan.nf_before.numel()
+                del plan, codes, sign
+                if stacked is None:
+                    stacked = CimDeployment(
+                        codes=torch.empty((reps,) + dep.codes.shape,
+                                          dtype=dep.codes.dtype, device=dev),
+                        pos=torch.empty((reps,) + dep.pos.shape,
+                                        dtype=dep.pos.dtype, device=dev),
+                        scale=torch.empty((reps,), dtype=torch.float32,
+                                          device=dev),
+                        n_bits=dep.n_bits, wpt=dep.wpt, cols=dep.cols,
+                        eta=dep.eta, reversed_df=dep.reversed_df,
+                        in_dim=dep.in_dim, out_dim=dep.out_dim)
+                stacked.codes[r].copy_(dep.codes)
+                stacked.pos[r].copy_(dep.pos)
+                stacked.scale[r] = dep.scale
+            slot_deps[pname] = stacked
+        cim_tree[slot] = slot_deps
+    b, a = float(nf_before), float(nf_after)
+    report = {"n_matrices": len(mats), "tiles_planned": tiles,
+              "nf_before": b, "nf_after": a,
+              "nf_reduction": (b - a) / max(b, 1e-30),
+              "matrices": summary, "n_slots": len(cim_tree)}
+    return cim_tree, report

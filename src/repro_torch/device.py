@@ -1,0 +1,32 @@
+"""Device resolution for the port's entry points.
+
+Entry points default to ``device="cuda"`` and raise when no CUDA device
+exists; the CPU is used only when a caller asks for it explicitly (the
+tests do).  Nothing here falls back silently.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """``device`` as a ``torch.device``; raises when CUDA is missing."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch: CUDA device requested but torch.cuda is not "
+            "available; pass device='cpu' to run the plain PyTorch "
+            "versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def check_on(dev: torch.device, **tensors) -> None:
+    """Raise unless every named tensor lies on ``dev`` (type and index)."""
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device.type != dev.type or (
+                dev.index is not None and t.device.index != dev.index):
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")

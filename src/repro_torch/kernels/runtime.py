@@ -1,0 +1,192 @@
+"""Build, load, check and count the port's hand-written CUDA kernels.
+
+The three ``kernel.cu`` sources under ``repro_torch/kernels/<name>/``
+compile with ``nvcc`` for ``sm_90a`` into one shared library with a
+plain C interface, loaded through ``ctypes`` (no PyTorch headers, so a
+build takes seconds).  The build runs at first use, one ``nvcc`` per
+source started together, into ``build/repro_torch_kernels/`` at the
+root of the checkout (listed in ``.gitignore``); the library's file name
+carries a hash of the sources and flags, so an edited source rebuilds.
+
+Right after loading, every kernel is launched once on a tiny input and
+any CUDA error raises: this is the port's counterpart of the
+reference's Pallas lowering probe (``repro/compat.py``), except that
+there is no dispatch decision behind it — on CUDA tensors the port
+always runs its kernels.
+
+Each wrapper counts its launches (:func:`count_launch`), so a run can
+show that the main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+KERNEL_DIR = Path(__file__).resolve().parent
+SOURCES = ("cim_mvm/kernel.cu", "flash_attention/kernel.cu",
+           "manhattan_score/kernel.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNELS = ("cim_mvm", "flash_attention", "manhattan_score")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the launchers (each returns cudaGetLastError()).
+_ARGTYPES = {
+    "cim_mvm_launch": [_P, _P, _P, _P, _P, _P] + [_I] * 8 + [_F] + [_I] * 5
+    + [_P],
+    "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _P],
+    "manhattan_score_launch": [_P] * 5 + [_I] * 4 + [_F, _P],
+}
+
+_LAUNCHES = {name: 0 for name in KERNELS}
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+_BUILD_INFO: dict = {}
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``; called by its wrapper only."""
+    _LAUNCHES[name] += 1
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def build_dir() -> Path:
+    """``build/repro_torch_kernels`` at the root of the checkout."""
+    return KERNEL_DIR.parents[2] / "build" / "repro_torch_kernels"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    if cand and os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("repro_torch: nvcc not found; the CUDA kernels "
+                           "are built from source at first use")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.blake2b(digest_size=8)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update((KERNEL_DIR / src).read_bytes())
+    return h.hexdigest()
+
+
+def _compile(lib_path: Path) -> str:
+    """Compile every source in parallel, then link; returns the log."""
+    nvcc = _nvcc()
+    out = lib_path.parent
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = out / (src.split("/")[0] + f".{os.getpid()}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(KERNEL_DIR / src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    log, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        text, _ = proc.communicate()
+        log.append(f"== {src}\n{text}")
+        if proc.returncode:
+            failed.append(src)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode:
+        raise RuntimeError("nvcc link failed:\n" + link.stdout)
+    os.replace(tmp, lib_path)
+    return "\n".join(log)
+
+
+def _self_check(lib: ctypes.CDLL) -> None:
+    """Launch every kernel once on a tiny input; raise on any error."""
+    dev = torch.device("cuda")
+    stream = _P(torch.cuda.current_stream().cuda_stream)
+    z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt,
+                                                     device=dev)
+    x, codes, pos, scale = (z(1, 8), z(8, 8, dt=torch.int16),
+                            z(8, 1, dt=torch.int32), z(1))
+    out = z(1, 8)
+    rc = {"cim_mvm": lib.cim_mvm_launch(
+        x.data_ptr(), codes.data_ptr(), pos.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), None, 1, 8, 8, 8, 8, 1, 1, 8, 0.0, 8, 8, 64, 1, 1,
+        stream)}
+    q, qp = z(1, 1, 1, 32), z(1, 1, dt=torch.int32)
+    o = z(1, 1, 1, 32)
+    rc["flash_attention"] = lib.flash_attention_launch(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), qp.data_ptr(),
+        qp.data_ptr(), o.data_ptr(), 1, 1, 1, 1, 1, 32, 1, 1, 0, 1.0,
+        stream)
+    m = z(1, 4, 4, dt=torch.uint8)
+    s, n, nf = z(1, 4), z(1, 4), z(1)
+    rc["manhattan_score"] = lib.manhattan_score_launch(
+        m.data_ptr(), None, s.data_ptr(), n.data_ptr(), nf.data_ptr(), 1, 4,
+        4, 0, 1.0, stream)
+    torch.cuda.synchronize()
+    bad = {k: v for k, v in rc.items() if v}
+    if bad:
+        raise RuntimeError(f"CUDA kernel self-check failed: {bad}")
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built and checked at first call."""
+    global _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        if not torch.cuda.is_available():
+            raise RuntimeError("repro_torch kernels need a CUDA device")
+        out = build_dir()
+        out.mkdir(parents=True, exist_ok=True)
+        lib_path = out / f"librepro_torch_kernels.{_digest()}.so"
+        built = not lib_path.exists()
+        log = _compile(lib_path) if built else ""
+        lib = ctypes.CDLL(str(lib_path))
+        for fn, argtypes in _ARGTYPES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _self_check(lib)
+        _BUILD_INFO.update(path=str(lib_path), built=built, log=log)
+        _LIB = lib
+        return lib
+
+
+def build_info() -> dict:
+    """Path of the loaded library, whether this process built it, and
+    the compiler log (``-Xptxas -v`` register and shared-memory use)."""
+    return dict(_BUILD_INFO)
+
+
+def check_status(name: str, rc: int) -> None:
+    if rc:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def stream_arg() -> ctypes.c_void_p:
+    return _P(torch.cuda.current_stream().cuda_stream)

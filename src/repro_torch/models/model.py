@@ -1,0 +1,213 @@
+"""Model assembly of the port: the dense ``"attn"`` decoder stack.
+
+Port of the dense path of ``repro.models.model``.  The reference scans
+its stacked layers with ``lax.scan``; here a Python loop walks the
+repeats and takes each layer's views of the stacked parameters, decode
+state and deployments.  One ``apply_model`` serves prefill (all prompt
+positions) and decode (one position); attention caches are ring
+buffers keyed by absolute positions.
+
+With a ``cim`` deployment tree (``cfg.cim.enabled`` serving, built by
+``repro_torch.deploy.deploy_model_params``), every q/k/v/o and SwiGLU
+projection runs through ``cim_mvm`` and every attention through
+``flash_attention``: the hand-written kernels on CUDA tensors.  Which
+two functions a forward calls is one :class:`Ops` pair handed to
+:func:`apply_model`: :data:`KERNELS` (the default) or :data:`PLAIN`,
+the plain PyTorch versions, which validate the kernels on the card.
+
+Unlike the reference's pure functions, the decode state is updated in
+place: the cache write of each step goes into the state's tensors, so a
+step never copies the whole cache.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, check_supported
+from repro_torch.kernels.cim_mvm.ops import cim_mvm
+from repro_torch.kernels.cim_mvm.ref import cim_mvm_plain
+from repro_torch.models import schema as sch
+from repro_torch.models.attention import (
+    EMPTY_POS,
+    flash_attention,
+    flash_attention_plain,
+    rope,
+)
+
+ModelState = dict[str, Any]
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    n = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (n * w.to(torch.float32)).to(x.dtype)
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+class Ops(NamedTuple):
+    """The two kernels a forward pass calls.
+
+    ``matmul(x, dep)``: x (..., in_dim) through one ``CimDeployment``;
+    ``attention(q, k, v, q_pos, k_pos, window, chunk)``: causal
+    attention over absolute positions.
+    """
+    matmul: Callable[..., torch.Tensor]
+    attention: Callable[..., torch.Tensor]
+
+
+def _matmul_kernel(x: torch.Tensor, dep) -> torch.Tensor:
+    return cim_mvm(x, dep, device=x.device)
+
+
+def _matmul_plain(x: torch.Tensor, dep) -> torch.Tensor:
+    y = cim_mvm_plain(x.reshape(-1, dep.in_dim), dep)
+    return y.reshape(*x.shape[:-1], dep.out_dim)
+
+
+def _attention_kernel(q, k, v, q_pos, k_pos, window, chunk):
+    return flash_attention(q, k, v, q_positions=q_pos, k_positions=k_pos,
+                           window=window, chunk=chunk, device=q.device)
+
+
+KERNELS = Ops(_matmul_kernel, _attention_kernel)
+PLAIN = Ops(_matmul_plain, flash_attention_plain)
+
+
+def _cim_matmul(x: torch.Tensor, w: torch.Tensor, dep,
+                ops: Ops) -> torch.Tensor:
+    """x @ w, through the deployed crossbars when a deployment exists."""
+    if dep is None:
+        return x @ w
+    return ops.matmul(x, dep).to(x.dtype)
+
+
+def dense_mlp(p: dict, x: torch.Tensor, cim: dict | None = None,
+              ops: Ops = KERNELS) -> torch.Tensor:
+    """SwiGLU MLP: silu(x Wg) * (x Wu), then Wd."""
+    c = (lambda n: None) if cim is None else cim.get
+    h = (_silu(_cim_matmul(x, p["ffn_w_gate"], c("ffn_w_gate"), ops))
+         * _cim_matmul(x, p["ffn_w_up"], c("ffn_w_up"), ops))
+    return _cim_matmul(h, p["ffn_w_down"], c("ffn_w_down"), ops)
+
+
+def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, cache: dict | None,
+               cim: dict | None = None, ops: Ops = KERNELS):
+    """Attention sublayer.  ``cache`` holds one layer's ring buffers
+    {k (B, C, Hkv, Dh), v, kpos (C,)}, written in place at
+    ``positions % C``.  Returns y (B, S, D)."""
+    c = (lambda n: None) if cim is None else cim.get
+    B, S, _ = x.shape
+
+    def qkv_proj(name):
+        w, dep = p[name], c(name)
+        if dep is None:
+            return torch.einsum("bsd,dhk->bshk", x, w)
+        return _cim_matmul(x, w, dep, ops).reshape(B, S, *w.shape[-2:])
+
+    q = rope(qkv_proj("wq"), positions, cfg.rope_theta)
+    k = rope(qkv_proj("wk"), positions, cfg.rope_theta)
+    v = qkv_proj("wv")
+
+    if cache is None:
+        k_all, v_all, k_pos = k, v, positions
+    else:
+        C = cache["k"].shape[1]
+        Sw = min(S, C)
+        pw = positions[S - Sw:]
+        idx = (pw % C).to(torch.int64)
+        cache["k"][:, idx] = k[:, S - Sw:].to(cache["k"].dtype)
+        cache["v"][:, idx] = v[:, S - Sw:].to(cache["v"].dtype)
+        cache["kpos"][idx] = pw
+        k_all, v_all, k_pos = cache["k"], cache["v"], cache["kpos"]
+
+    out = ops.attention(q, k_all, v_all, positions, k_pos,
+                        cfg.sliding_window, cfg.attn_chunk)
+    if c("wo") is None:
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return _cim_matmul(out.reshape(B, S, -1), p["wo"], c("wo"), ops)
+
+
+def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, cache: dict | None,
+                cim: dict | None = None, ops: Ops = KERNELS) -> torch.Tensor:
+    """One ``"attn"`` block: pre-norm attention, then pre-norm SwiGLU."""
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    x = x + attn_apply(p, h, cfg, positions, cache, cim=cim, ops=ops)
+    hf = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
+    return x + dense_mlp(p, hf, cim=cim, ops=ops)
+
+
+def apply_model(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                state: ModelState | None = None, cim: dict | None = None,
+                ops: Ops = KERNELS):
+    """tokens (B, S) -> (logits (B, S, V) f32, new_state).
+
+    ``state`` (from :func:`init_decode_state`) is advanced in place;
+    the returned dict shares its tensors with a new ``pos``.
+    """
+    check_supported(cfg)
+    x = params["embed"][tokens.to(torch.int64)]
+    S = x.shape[1]
+    pos0 = 0 if state is None else int(state["pos"])
+    positions = torch.arange(pos0, pos0 + S, dtype=torch.int32,
+                             device=x.device)
+    slot = "slot0_attn"
+    p_all = params[slot]
+    c_all = None if cim is None else cim.get(slot, {})
+    for r in range(cfg.pattern_repeats):
+        p = {k: v[r] for k, v in p_all.items()}
+        ci = None if c_all is None else {k: d.layer(r)
+                                         for k, d in c_all.items()}
+        cache = (None if state is None
+                 else {k: v[r] for k, v in state[slot].items()})
+        x = block_apply(p, x, cfg, positions, cache, cim=ci, ops=ops)
+
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    new_state = None if state is None else dict(state, pos=pos0 + S)
+    return lm_logits(params, cfg, x), new_state
+
+
+def lm_logits(params: dict, cfg: ModelConfig,
+              hidden: torch.Tensor) -> torch.Tensor:
+    logits = (hidden @ params["lm_head"]).to(torch.float32)
+    if cfg.padded_vocab > cfg.vocab_size:
+        pad = (torch.arange(cfg.padded_vocab, device=logits.device)
+               >= cfg.vocab_size).to(torch.float32)
+        logits = logits - 1e9 * pad
+    return logits
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
+                      device: str | torch.device) -> ModelState:
+    """Fresh decode state: per-slot (R, B, C, Hkv, Dh) ring buffers with
+    C = min(cache_len, sliding_window or cache_len), ``kpos`` (R, C)
+    starting at EMPTY_POS (self-masking), and ``pos`` 0."""
+    check_supported(cfg)
+    R, Hkv, Dh = cfg.pattern_repeats, cfg.n_kv_heads, cfg.resolved_head_dim
+    C = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
+         else cache_len)
+    kv = (R, batch, C, Hkv, Dh)
+    dtype = sch.param_dtype(cfg)
+    return {
+        "slot0_attn": {
+            "k": torch.zeros(kv, dtype=dtype, device=device),
+            "v": torch.zeros(kv, dtype=dtype, device=device),
+            "kpos": torch.full((R, C), EMPTY_POS, dtype=torch.int32,
+                               device=device),
+        },
+        "pos": 0,
+    }
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: str | torch.device) -> dict:
+    """Random parameters at the config's widths, in ``cfg.dtype`` (see
+    ``schema``)."""
+    return sch.materialize(cfg, generator, device)
+

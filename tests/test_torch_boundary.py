@@ -1,0 +1,109 @@
+"""The port's import boundary and its device defaults.
+
+``src/repro_torch/`` and ``chip_smoke.py`` import neither ``jax`` nor
+any module of the reference package ``repro``; importing the port
+leaves both out of ``sys.modules``; and its entry points run on the
+card unless the caller asks for the CPU, raising where there is none.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PORT):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _banned(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_imports(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _banned(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and _banned(node.module):
+                bad.append(node.module)
+        elif isinstance(node, ast.Attribute) and isinstance(
+                node.value, ast.Name) and node.value.id == "jax":
+            bad.append(f"jax.{node.attr}")
+    assert bad == [], f"{path}: {bad}"
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.serve, repro_torch.deploy\n"
+        "import repro_torch.convert, repro_torch.kernels.runtime\n"
+        "import repro_torch.kernels.cim_mvm, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.manhattan_score, repro_torch.models.model\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_default_to_the_card():
+    """Without device="cpu" the entry points refuse to run on a box with
+    no CUDA device instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from repro_torch.configs import CimConfig, ModelConfig
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.tiling import CrossbarSpec
+    from repro_torch.deploy import deploy_model_params
+    from repro_torch.kernels.cim_mvm import cim_mvm, deploy
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.manhattan_score import manhattan_score
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = ModelConfig(n_layers=1, d_model=16, n_heads=2, n_kv_heads=2,
+                      d_ff=32, vocab_size=64, dtype="float32",
+                      cim=CimConfig(enabled=True, rows=16, cols=16))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dep, _ = deploy(torch.randn(16, 8), CrossbarSpec(16, 16, 8))
+    x = torch.randn(2, 16)
+    q = torch.randn(1, 2, 2, 16)
+    pos = torch.arange(2, dtype=torch.int32)
+    calls = [
+        lambda: ServeEngine(cfg, params, max_seq=8),
+        lambda: cim_mvm(x, dep),
+        lambda: flash_attention(q, q, q, q_positions=pos, k_positions=pos),
+        lambda: manhattan_score(torch.zeros(1, 4, 4, dtype=torch.uint8)),
+        lambda: deploy_model_params(params, cfg),
+        lambda: params_from_numpy({}, cfg),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # The explicit CPU request runs the plain versions.
+    assert cim_mvm(x, dep, device="cpu").shape == (2, 8)
+
+
+def test_tensors_on_another_device_are_refused():
+    from repro_torch.core.tiling import CrossbarSpec
+    from repro_torch.kernels.cim_mvm import cim_mvm, deploy
+
+    dep, _ = deploy(torch.randn(16, 8), CrossbarSpec(16, 16, 8))
+    with pytest.raises(ValueError):
+        cim_mvm(torch.randn(2, 16, device="meta"), dep, device="cpu")

@@ -1,0 +1,124 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU and skip elsewhere (the CUDA kernels have
+no CPU mode).  They import no JAX, so on a machine without it they run
+with
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Bounds: cim_mvm max|kernel - plain| <= 1e-5 * max|plain|, normwise, as
+in chip_smoke.py.  This test first held the per-element bound rtol 1e-5
++ atol 1e-6 of the CPU parity tests; on the H100 9 of its 16 cases
+failed it, the largest miss 3.1e-6 absolute on an output near zero with
+|y| ~ 3 elsewhere in the row.  The kernel's W' is bit-identical to the
+plain version's and only the f32 summation order differs from cuBLAS's,
+which moves outputs near zero by ~1e-6 of the output scale, so the
+bound was made normwise.  A wrong eta, pos or M1 still misses it by
+orders of magnitude.  Flash attention rtol = atol = 2e-5 (the
+reference's), manhattan_score exact (integer sums).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.mdm import MODES
+from repro_torch.core.tiling import CrossbarSpec
+from repro_torch.kernels.cim_mvm.ops import cim_mvm, deploy
+from repro_torch.kernels.cim_mvm.ref import cim_mvm_plain
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import (
+    EMPTY_POS,
+    flash_attention_plain,
+)
+from repro_torch.kernels.manhattan_score.ops import manhattan_score
+from repro_torch.kernels.manhattan_score.ref import manhattan_score_plain
+
+NF_UNIT = 2.5 / 300e3
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip: the CUDA kernels have no CPU mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel runs only there")
+    return torch.device("cuda")
+
+
+def _qkv(B, Sq, Skv, H, Hkv, Dh, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return f(B, Sq, H, Dh), f(B, Skv, Hkv, Dh), f(B, Skv, Hkv, Dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("I,N,M", [(70, 13, 5), (256, 192, 1),
+                                   (256, 192, 40), (640, 96, 8)])
+def test_cim_mvm_kernel_vs_plain(cuda, mode, I, N, M):
+    g = torch.Generator(device=cuda).manual_seed(I + N + M)
+    w = torch.randn((I, N), generator=g, device=cuda) * 0.2
+    x = torch.randn((M, I), generator=g, device=cuda)
+    dep, _ = deploy(w, CrossbarSpec(64, 64, 8), mode)
+    y = cim_mvm(x, dep, device=cuda)
+    y_plain = cim_mvm_plain(x, dep)
+    err = (y - y_plain).abs().max().item()
+    assert err <= 1e-5 * y_plain.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 64, 64, 4, 2, 32, 0),
+                                  (1, 40, 72, 6, 3, 16, 24),
+                                  (2, 1, 96, 4, 4, 96, 0),
+                                  (2, 33, 50, 4, 4, 128, 0)])
+def test_flash_kernel_vs_plain(cuda, case):
+    B, Sq, Skv, H, Hkv, Dh, win = case
+    q, k, v = (torch.from_numpy(a).to(cuda)
+               for a in _qkv(B, Sq, Skv, H, Hkv, Dh, 0))
+    qpos = torch.arange(Sq, dtype=torch.int32, device=cuda) + max(0, Skv - Sq)
+    kpos = torch.arange(Skv, dtype=torch.int32, device=cuda)
+    out = flash_attention(q, k, v, q_positions=qpos, k_positions=kpos,
+                          window=win, device=cuda)
+    ref = flash_attention_plain(q, k, v, qpos, kpos, window=win)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_manhattan_score_kernel_vs_plain(cuda):
+    m = torch.from_numpy((np.random.default_rng(4).random((33, 64, 64)) < 0.3)
+                         .astype(np.uint8)).to(cuda)
+    pos = torch.argsort(torch.rand((33, 64), device=cuda), -1).to(torch.int32)
+    for rev, rp in ((False, None), (True, None), (True, pos)):
+        got = manhattan_score(m, NF_UNIT, reverse=rev, row_position=rp,
+                              device=cuda)
+        want = manhattan_score_plain(m, NF_UNIT, rev, rp)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_per_lane_positions_and_masked_rows(cuda):
+    """(B, S) positions with EMPTY_POS slots, and a fully masked row
+    (returns 0, not NaN), kernel vs plain."""
+    B, Sq, C, H, Dh = 3, 2, 40, 4, 96
+    q, k, v = (torch.from_numpy(a).to(cuda)
+               for a in _qkv(B, Sq, C, H, H, Dh, 9))
+    kpos = torch.full((B, C), EMPTY_POS, dtype=torch.int32, device=cuda)
+    qpos = torch.zeros((B, Sq), dtype=torch.int32, device=cuda)
+    for b, n in enumerate((0, 17, 40)):
+        kpos[b, :n] = torch.arange(n, dtype=torch.int32)
+        qpos[b] = torch.arange(n - Sq, n, dtype=torch.int32)
+    out = flash_attention(q, k, v, q_positions=qpos, k_positions=kpos,
+                          device=cuda)
+    ref = flash_attention_plain(q, k, v, qpos, kpos)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    assert (out[0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_kernel_launches_are_counted(cuda):
+    from repro_torch.kernels import runtime
+
+    dep, _ = deploy(torch.randn((64, 16), device=cuda), CrossbarSpec())
+    runtime.reset_launch_counts()
+    cim_mvm(torch.randn((2, 64), device=cuda), dep, device=cuda)
+    assert runtime.launch_counts()["cim_mvm"] == 1
