@@ -1,17 +1,27 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MDM serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's MDM serving and export paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the port's hand-written CUDA kernels from the sources in this
-checkout, holds each kernel against its plain PyTorch version at the
-shapes of full-width phi3-mini, then drives the main path through the
-entry points a user calls: random full-width phi3-mini weights (seed 0,
-f32, all 32 layers), ``ServeEngine`` with ``cim.enabled`` (quantise,
-MDM-plan and package every projection on the card) and greedy
-generation for a batch of prompts.  It checks the plans built on the
-card against the port's CPU mirror, the kernel path's logits and tokens
-against the plain path, and that every kernel of the path was launched.
+Builds the port's five hand-written CUDA kernels from the sources in
+this checkout and holds each against its plain PyTorch version at the
+shapes of the paths below.  Then it drives three paths through the
+entry points a user calls, each with the launch counts set to 0 just
+before it and read just after:
+
+1. phi3-mini serving: random full-width weights (seed 0, f32, all 32
+   layers), ``ServeEngine`` with ``cim.enabled`` (quantise, MDM-plan and
+   package every projection on the card) and greedy generation for a
+   batch of prompts (cim_mvm, flash_attention, manhattan_score);
+2. the deployment-image export of phi3's ``lm_head``: quantise, signed
+   codes, ``bitslice_pack`` (bitslice_pack);
+3. xlstm-1.3b serving: random full-width weights (seed 0, f32, all 48
+   layers), deploy (the reference deploys the mLSTM q/k/v) and greedy
+   generation (slstm_scan, manhattan_score).
+
+For each serving path it checks plans built on the card against the
+port's CPU mirror, the kernel path's logits and tokens against the
+plain path, and that every kernel of the path was launched.
 
 Every phase prints its result; any failure raises and exits non-zero.
 The line before the last is the kernels' JSON record, the last line
@@ -21,6 +31,7 @@ of JAX.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -36,11 +47,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
-B, PROMPT, NEW = 4, 128, 32          # requests served in the main path
+B, PROMPT, NEW = 4, 128, 32          # requests served in each path
 MAX_SEQ = PROMPT + NEW
 CIM_TOL = 1e-5       # max|kernel - plain| <= CIM_TOL * max|plain|
 FLASH_TOL = 2e-5     # |kernel - plain| <= FLASH_TOL * (1 + |plain|)
+SLSTM_TOL = 1e-5     # |kernel - plain| <= SLSTM_TOL * (1 + |plain|)
 LOGIT_TOL = 1e-3     # max|kernel - plain| logits <= LOGIT_TOL * max|plain|
+# Kernels each path must launch.
+PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
+                "export": ("bitslice_pack",),
+                "xlstm": ("slstm_scan", "manhattan_score")}
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -235,23 +251,71 @@ def phase_kernels() -> list[dict]:
         replaces="src/repro/kernels/manhattan_score/kernel.py:34",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None))
+    records.append(_check_slstm_scan(g))
     return records
 
 
-def phase_main_path():
-    """Init, deploy and serve full-width phi3-mini through the kernels."""
-    from repro_torch.configs import CimConfig
-    from repro_torch.configs.phi3_mini_38b import CONFIG
+def _check_slstm_scan(g) -> dict:
+    """slstm_scan at xlstm-1.3b shapes: B lanes, H = 4, Dh = 512, the
+    prefill (T = PROMPT) and a decode step (T = 1)."""
+    from repro_torch.kernels.slstm_scan.ops import slstm_scan
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
+
+    H, Dh = 4, 512
+    r = torch.randn((H, Dh, 4 * Dh), generator=g, device="cuda") * 0.02
+    rep = None
+    for name, T in (("prefill", PROMPT), ("decode", 1)):
+        gx = torch.randn((B, T, H, 4 * Dh), generator=g, device="cuda") * 0.5
+        h0 = torch.randn((B, H, Dh), generator=g, device="cuda") * 0.1
+        c0 = torch.randn((B, H, Dh), generator=g, device="cuda") * 0.1
+        got = slstm_scan(gx, r, h0, c0)
+        want = slstm_scan_plain(gx, r, h0, c0)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        ok = all(((a - b).abs() <= SLSTM_TOL * (1 + b.abs())).all().item()
+                 for a, b in zip(got, want))
+        ms = cuda_ms(lambda: slstm_scan(gx, r, h0, c0))
+        plain_ms = cuda_ms(lambda: slstm_scan_plain(gx, r, h0, c0), iters=3)
+        n_bytes = 4 * (gx.numel() + r.numel() + 4 * h0.numel()
+                       + B * T * H * Dh)
+        # h @ R per step (2 Dh ops a gate column), ~20 for the gates.
+        b_ms, b_by = bound(n_bytes, B * T * H * (2.0 * Dh * 4 * Dh + 20 * Dh))
+        print(f"slstm_scan {name} B={B} T={T} H={H} Dh={Dh}: max_abs_err "
+              f"{err:.3e} (tol {SLSTM_TOL:g}(1+|ref|)) "
+              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms "
+              f"({1e3 * ms / T:.2f} us a step), plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        if not ok:
+            raise AssertionError(f"slstm_scan disagrees ({name})")
+        if name == "prefill":
+            rep = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return dict(name="slstm_scan", route="cuda",
+                source="src/repro_torch/kernels/slstm_scan/kernel.cu",
+                replaces="src/repro/kernels/slstm_scan/kernel.py:66", **rep)
+
+
+def _launches(path: str) -> dict:
+    """The launch counts of the path just driven; raises unless every
+    kernel of the path was launched."""
+    from repro_torch.kernels import runtime
+
+    counts = runtime.launch_counts()
+    print(f"{path} path launches: {counts}")
+    missing = [k for k in PATH_KERNELS[path] if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path} path: "
+                             f"{missing}")
+    return counts
+
+
+def phase_serve(path: str, cfg):
+    """Init, deploy and serve a full-width model through the kernels."""
     from repro_torch.kernels import runtime
     from repro_torch.models.model import init_params
     from repro_torch.serve import ServeEngine
 
-    cfg = CONFIG.replace(dtype="float32", cim=CimConfig(enabled=True,
-                                                        mode="mdm"))
-    print(f"config {cfg.name}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
-          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab_size} (padded {cfg.padded_vocab}); no depth cut")
+    torch.cuda.reset_peak_memory_stats()
     runtime.reset_launch_counts()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -262,10 +326,17 @@ def phase_main_path():
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     rep = eng.deploy_report
-    print(f"phase deploy: init {t1 - t0:.2f} s, deploy {t2 - t1:.2f} s: "
-          f"{rep['n_matrices']} matrices, {rep['tiles_planned']} tiles, "
-          f"mean NF reduction {100 * rep['nf_reduction']:.3f}% "
-          f"(NF {rep['nf_before']:.6g} -> {rep['nf_after']:.6g})")
+    print(f"phase deploy ({path}): init {t1 - t0:.2f} s, deploy "
+          f"{t2 - t1:.2f} s: {rep['n_matrices']} matrices, "
+          f"{rep['tiles_planned']} tiles, mean NF reduction "
+          f"{100 * rep['nf_reduction']:.3f}% (NF {rep['nf_before']:.6g} "
+          f"-> {rep['nf_after']:.6g})")
+    summary = rep["matrices"]
+    reasons: dict = {}
+    for reason in summary["skipped"].values():
+        reasons[reason] = reasons.get(reason, 0) + 1
+    print(f"  deploy summary: {summary['n_deployed']} deployed, "
+          f"{summary['n_skipped']} skipped {reasons}")
 
     prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT),
                             generator=torch.Generator().manual_seed(1))
@@ -280,21 +351,17 @@ def phase_main_path():
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
     step = (t_all - t_prefill) / (NEW - 1)
-    print(f"phase serve: B={B} prompt {PROMPT} new {NEW}: prefill "
+    print(f"phase serve ({path}): B={B} prompt {PROMPT} new {NEW}: prefill "
           f"{t_prefill * 1e3:.1f} ms, decode {step * 1e3:.2f} ms/step, "
           f"{B * NEW / t_all:.1f} tokens/s "
           f"(peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB)")
-    counts = runtime.launch_counts()
-    print(f"main-path launches: {counts}")
-    missing = [k for k, n in counts.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    counts = _launches(path)
     if not torch.isfinite(eng.teacher_forced_logits(
             torch.cat([prompts.cuda(), tokens.long()], 1)[:, :PROMPT + 1],
             PROMPT)).all():
         raise AssertionError("non-finite logits")
     phase_profile(eng, prompts, step * 1e3)
-    return cfg, eng, prompts, tokens, counts
+    return eng, prompts, tokens, counts
 
 
 def phase_profile(eng, prompts, step_ms: float, steps: int = 3):
@@ -313,7 +380,7 @@ def phase_profile(eng, prompts, step_ms: float, steps: int = 3):
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             logits, state = apply_model(eng.params, cfg, tok, state=state,
-                                        cim=eng.cim)
+                                        decode=True, cim=eng.cim)
             tok = logits[:, 0].argmax(-1)[:, None]
         torch.cuda.synchronize()
     rows = []
@@ -336,19 +403,21 @@ def phase_profile(eng, prompts, step_ms: float, steps: int = 3):
         print(f"  {ms:8.3f} ms/step {n:5d} launches/step  {key[:70]}")
 
 
-def phase_plans(cfg, eng):
-    """Plans built on the card vs the port's CPU mirror, bit for bit."""
+def phase_plans(eng, names):
+    """Plans built on the card vs the port's CPU mirror, bit for bit, for
+    the first repeat of each (slot, parameter) in ``names``."""
     import numpy as np
 
     from repro_torch.core.bitslice import magnitude_scale_host
     from repro_torch.deploy import plan_matrix, quantize_codes_host
     from repro_torch.deploy import spec_from_config
 
+    cfg = eng.cfg
     spec = spec_from_config(cfg)
-    slot = eng.params["slot0_attn"]
-    for name, w in (("wq", slot["wq"][0].reshape(cfg.d_model, -1)),
-                    ("ffn_w_gate", slot["ffn_w_gate"][0]),
-                    ("ffn_w_down", slot["ffn_w_down"][0])):
+    for slot, name in names:
+        w = eng.params[slot][name][0]
+        if w.ndim == 3:                           # q/k/v (I, H, Dh)
+            w = w.reshape(w.shape[0], -1)
         gpu = plan_matrix(w, spec, cfg.cim.mode)
         cpu = plan_matrix(w.cpu(), spec, cfg.cim.mode)
         for a, b in zip(gpu[0], cpu[0]):
@@ -360,15 +429,68 @@ def phase_plans(cfg, eng):
         if not (np.array_equal(gpu[1].cpu().numpy(), host_codes)
                 and gpu[3].cpu().numpy().tobytes() == scale.tobytes()):
             raise AssertionError(f"{name}: card codes/scale != numpy mirror")
-        dep = eng.cim["slot0_attn"][name].layer(0)
+        dep = eng.cim[slot][name].layer(0)
         I, N = w.shape
         if not torch.equal(dep.codes[:I, :N].abs().to(torch.int32), gpu[1]):
             raise AssertionError(f"{name}: packaged codes != planned codes")
         plan = gpu[0]
         red = 1 - plan.nf_after.sum().item() / plan.nf_before.sum().item()
-        print(f"plan {name} {I}x{N}: {plan.nf_before.numel()} tiles, card == "
-              f"CPU mirror (row_perm, row_position, nf_before, nf_after, "
-              f"scale, codes); NF reduction {100 * red:.3f}%")
+        print(f"plan {slot}/{name} {I}x{N}: {plan.nf_before.numel()} tiles, "
+              f"card == CPU mirror (row_perm, row_position, nf_before, "
+              f"nf_after, scale, codes); NF reduction {100 * red:.3f}%")
+
+
+def phase_export(eng) -> tuple[dict, dict]:
+    """The deployment image of phi3's lm_head (quantise, signed codes,
+    ``bitslice_pack``), then the kernel against its plain version on
+    those codes, int32 and int16, in both orientations."""
+    from repro_torch.core.bitslice import quantize_magnitude
+    from repro_torch.deploy import spec_from_config
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.bitslice_pack import bitslice_pack
+    from repro_torch.kernels.bitslice_pack.ref import bitslice_pack_plain
+    from repro_torch.mapping import resolve_pipeline
+
+    K = spec_from_config(eng.cfg).n_bits
+    rev = resolve_pipeline(eng.cfg.cim.mode).reversed_dataflow
+    w = eng.params["lm_head"]
+    runtime.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codes, sign, _ = quantize_magnitude(w, K)
+    img = bitslice_pack(codes * sign, K, reversed_df=rev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"phase export: lm_head {tuple(w.shape)} f32 -> image "
+          f"{tuple(img.shape)} {str(img.dtype).split('.')[-1]} "
+          f"({img.numel() / 1e6:.1f} MB, reversed dataflow {rev}) in "
+          f"{dt * 1e3:.1f} ms")
+    counts = _launches("export")
+    signed = codes * sign
+    del img, codes, sign
+    for dtype in (torch.int32, torch.int16):
+        c = signed.to(dtype)
+        for r in (False, True):
+            if not torch.equal(bitslice_pack(c, K, r),
+                               bitslice_pack_plain(c, K, r)):
+                raise AssertionError(f"bitslice_pack disagrees ({dtype}, "
+                                     f"reversed {r})")
+    c16 = signed.to(torch.int16)
+    ms = cuda_ms(lambda: bitslice_pack(signed, K, rev))
+    ms16 = cuda_ms(lambda: bitslice_pack(c16, K, rev))
+    plain_ms = cuda_ms(lambda: bitslice_pack_plain(signed, K, rev), iters=3)
+    n = signed.numel()
+    # Integer shift/and/or per plane, counted at the f32 rate.
+    b_ms, b_by = bound(n * 4 + n * K, 3.0 * K * n)
+    print(f"bitslice_pack {tuple(signed.shape)} K={K}: exact in both "
+          f"orientations, int32 and int16 codes; kernel {ms:.4f} ms "
+          f"(int16 codes {ms16:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    return dict(name="bitslice_pack", route="cuda",
+                source="src/repro_torch/kernels/bitslice_pack/kernel.cu",
+                replaces="src/repro/kernels/bitslice_pack/kernel.py:26",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None), counts
 
 
 def phase_compare(eng, prompts, tokens):
@@ -389,6 +511,22 @@ def phase_compare(eng, prompts, tokens):
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("kernel-path logits disagree with plain path")
+    if "slstm" in eng.cfg.block_pattern:
+        # How far f32 rounding in the recurrence alone moves the logits:
+        # the plain path again with the scan in f64.
+        from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
+
+        def scan64(*args):
+            out = slstm_scan_plain(*(a.to(torch.float64) for a in args))
+            return tuple(t.to(torch.float32) for t in out)
+
+        f64_eng = copy.copy(eng)
+        f64_eng.ops = PLAIN._replace(slstm_scan=scan64)
+        l64 = f64_eng.teacher_forced_logits(seq, PROMPT)[..., :V]
+        print(f"  f32 rounding floor: max|plain - plain with an f64 scan| "
+              f"{(lp - l64).abs().max().item():.3e}, max|kernel - plain "
+              f"with an f64 scan| {(lk - l64).abs().max().item():.3e}")
+        del l64
     plain_tokens = plain_eng.generate(prompts, NEW)
     same = (plain_tokens == tokens)
     top2 = lp.topk(2, dim=-1).values
@@ -417,11 +555,46 @@ def main() -> int:
     card = phase_card()
     phase_build()
     records = phase_kernels()
-    cfg, eng, prompts, tokens, counts = phase_main_path()
-    phase_plans(cfg, eng)
+    from repro_torch.configs import CimConfig
+    from repro_torch.configs.phi3_mini_38b import CONFIG as PHI3
+    from repro_torch.configs.xlstm_13b import CONFIG as XLSTM
+
+    cim = CimConfig(enabled=True, mode="mdm")
+    launches: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    cfg = PHI3.replace(dtype="float32", cim=cim)
+    print(f"config {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} (padded {cfg.padded_vocab}); no depth cut")
+    eng, prompts, tokens, counts = phase_serve("phi3", cfg)
+    add(counts)
+    phase_plans(eng, [("slot0_attn", "wq"), ("slot0_attn", "ffn_w_gate"),
+                      ("slot0_attn", "ffn_w_down")])
+    phase_compare(eng, prompts, tokens)
+    rec, counts = phase_export(eng)
+    records.append(rec)
+    add(counts)
+    del eng, prompts, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = XLSTM.replace(dtype="float32", cim=cim)
+    print(f"config {cfg.name}: {cfg.n_layers} layers "
+          f"{cfg.block_pattern} x {cfg.pattern_repeats}, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}, mLSTM inner "
+          f"{cfg.d_model * cfg.ssm_expand}, vocab {cfg.vocab_size} (padded "
+          f"{cfg.padded_vocab}); no depth cut")
+    eng, prompts, tokens, counts = phase_serve("xlstm", cfg)
+    add(counts)
+    phase_plans(eng, [("slot0_mlstm", "wq")])
     phase_compare(eng, prompts, tokens)
     for r in records:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = launches[r["name"]]
     if "jax" in sys.modules or "repro" in sys.modules:
         raise AssertionError("the port imported jax or repro")
     print(f"card {card}; total {time.perf_counter() - t_start:.1f} s")

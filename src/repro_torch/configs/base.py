@@ -35,7 +35,8 @@ class ModelConfig:
 
     ``block_pattern`` is the repeating unit of per-layer block types;
     n_layers must be a multiple of its length.  The port serves
-    ``("attn",)`` with a SwiGLU MLP.
+    ``("attn",)`` with a SwiGLU MLP and ``("mlstm", "slstm")`` without
+    one (``mlp_type="none"``).
     """
 
     name: str = "model"
@@ -54,6 +55,8 @@ class ModelConfig:
     attn_chunk: int = 512        # KV chunk of the plain flash attention
     mlp_type: str = "swiglu"
     norm_eps: float = 1e-5
+    ssm_expand: int = 1          # mLSTM inner width = d_model * ssm_expand
+    mlstm_chunk: int = 128       # mLSTM chunkwise length
     dtype: str = "bfloat16"
     cim: CimConfig = field(default_factory=CimConfig)
 
@@ -77,12 +80,20 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+# Block patterns the port serves, each with the MLP type it takes.
+SUPPORTED_PATTERNS = {("attn",): "swiglu", ("mlstm", "slstm"): "none"}
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configurations outside this slice of the port."""
-    if tuple(cfg.block_pattern) != ("attn",):
+    """Raise for configurations outside the port's slices so far."""
+    pattern = tuple(cfg.block_pattern)
+    if cfg.family == "moe" or pattern not in SUPPORTED_PATTERNS:
         raise NotImplementedError(
-            f"block_pattern={cfg.block_pattern!r}: the port serves "
-            "('attn',) only so far")
-    if cfg.mlp_type != "swiglu" or cfg.qkv_bias:
+            f"{cfg.name}: family={cfg.family!r}, block_pattern="
+            f"{cfg.block_pattern!r}: the port serves "
+            f"{sorted(SUPPORTED_PATTERNS)} without MoE so far")
+    if cfg.mlp_type != SUPPORTED_PATTERNS[pattern] or cfg.qkv_bias:
         raise NotImplementedError(
-            "the port serves SwiGLU MLPs without qkv bias so far")
+            f"{cfg.name}: block_pattern={cfg.block_pattern!r} is served "
+            f"with mlp_type={SUPPORTED_PATTERNS[pattern]!r} and no qkv "
+            "bias so far")

@@ -2,9 +2,14 @@
 
 The reference's parameter pytree, as numpy arrays, is how weights reach
 the port (no JAX PRNG stream is re-derived in torch).  The key layout
-is the reference's: ``embed``, ``final_norm``, ``lm_head`` and
+is the reference's, walked from the port's schema
+(``repro_torch.models.schema.model_schema``): ``embed``, ``final_norm``,
+``lm_head`` and one dict per pattern slot, for the dense decoder
 ``slot0_attn/{norm, wq (R, D, H, Dh), wk, wv, wo (R, H, Dh, D),
-ffn_norm, ffn_w_gate, ffn_w_up, ffn_w_down}``.
+ffn_norm, ffn_w_gate, ffn_w_up, ffn_w_down}``, for xLSTM
+``slot0_mlstm/{norm, w_up, wq (R, Di, H, Dh), wk, wv, w_if, b_if,
+w_down}`` and ``slot1_slstm/{norm, w_gates (R, D, H, 4Dh), r_gates
+(R, H, Dh, 4Dh), b_gates, w_out}``.
 """
 from __future__ import annotations
 

@@ -1,12 +1,14 @@
 """Whole-model CIM deployment: model params -> stacked CimDeployments.
 
-Port of the dense part of ``repro.deploy.engine``: every attention
-q/k/v/o and SwiGLU projection of every layer is quantised, planned
+Port of the dense part of ``repro.deploy.engine``: every parameter of
+every pattern slot whose name the reference deploys (attention and
+mLSTM q/k/v, attention o, SwiGLU projections) is quantised, planned
 (:mod:`repro_torch.deploy.planner`, one matrix at a time) and packaged;
 each slot's deployments are stacked over its pattern repeats, the layout
-``repro_torch.models.model.apply_model`` walks.  Embeddings, the LM
-head and norms stay digital.  Ideal devices only: the nonideal,
-lifetime and plan-cache parts of the reference are later slices.
+``repro_torch.models.model.apply_model`` walks.  Every other parameter
+stays digital and is recorded with the reference's reason.  Ideal
+devices only: the nonideal, lifetime and plan-cache parts of the
+reference are later slices.
 """
 from __future__ import annotations
 
@@ -18,10 +20,12 @@ from repro_torch.deploy.planner import plan_matrix
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels.cim_mvm.ops import CimDeployment, package_deployment
 
-_QKV_NAMES = ("wq", "wk", "wv")
-_OUT_NAMES = ("wo",)
+# The reference's name lists (``repro/deploy/engine.py``).
+_QKV_NAMES = ("wq", "wk", "wv", "attn_wq", "attn_wk", "attn_wv")
+_OUT_NAMES = ("wo", "attn_wo")
 _MLP_NAMES = ("ffn_w_gate", "ffn_w_up", "ffn_w_down")
 DEPLOYABLE = _QKV_NAMES + _OUT_NAMES + _MLP_NAMES
+MOE_EXPERT_NAMES = ("ffn_we_gate", "ffn_we_up", "ffn_we_down")
 
 
 def _as_matrix(name: str, w: torch.Tensor) -> torch.Tensor:
@@ -37,6 +41,22 @@ def spec_from_config(cfg: ModelConfig) -> CrossbarSpec:
     c = cfg.cim
     return CrossbarSpec(rows=c.rows, cols=c.cols, n_bits=c.n_bits,
                         r=c.r, r_on=c.r_on, r_off=c.r_off)
+
+
+def _skip_reason(pname: str) -> str:
+    """Why a parameter stays digital: the reference's ``_skip_reason``
+    without an expert-axis partition (the port has none yet)."""
+    if pname in MOE_EXPERT_NAMES:
+        return ("moe-expert-bank: select an expert-axis partition "
+                "(e.g. pipeline 'mdm_expert') to deploy")
+    if "norm" in pname or pname in ("bq", "bk", "bv"):
+        return "norm/bias (digital)"
+    if pname.startswith(("ffn_router", "ffn_shared", "ffn_ws")):
+        return "moe routing / shared expert (digital)"
+    if pname.startswith(("ssm_", "mlstm_", "slstm_", "conv_")) \
+            or pname.startswith(("w_in", "w_x", "w_h", "a_log", "dt_")):
+        return "recurrent/SSM state path (digital)"
+    return "no crossbar mapping for this parameter"
 
 
 def collect_model_matrices(params: dict, cfg: ModelConfig
@@ -59,7 +79,7 @@ def collect_model_matrices(params: dict, cfg: ModelConfig
                 mats[f"{slot}/{pname}/{r}"] = _as_matrix(pname, stacked[r])
         for pname in slot_params:
             if pname not in DEPLOYABLE:
-                skipped[f"{slot}/{pname}"] = "norm (digital)"
+                skipped[f"{slot}/{pname}"] = _skip_reason(pname)
     summary = {"deployed": list(mats), "skipped": skipped,
                "n_deployed": len(mats), "n_skipped": len(skipped)}
     return mats, summary

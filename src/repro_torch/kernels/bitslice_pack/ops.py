@@ -1,0 +1,39 @@
+"""Wrapper of the bit-plane packing kernel (``kernel.cu``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import check_on, resolve_device
+from repro_torch.kernels import runtime
+from repro_torch.kernels.bitslice_pack.ref import bitslice_pack_plain
+
+_CODE_BYTES = {torch.int16: 2, torch.int32: 4}
+
+
+def bitslice_pack(codes: torch.Tensor, n_bits: int,
+                  reversed_df: bool = False, *,
+                  device: str | torch.device = "cuda") -> torch.Tensor:
+    """(I, N) int16 or int32 signed codes -> (I, N, n_bits) uint8 bit
+    planes of ``|code|``, most significant first, mirrored along the
+    last axis under reversed dataflow: the crossbar programming image."""
+    dev = resolve_device(device)
+    check_on(dev, codes=codes)
+    if codes.dtype not in _CODE_BYTES:
+        raise TypeError(f"bitslice_pack takes int16 or int32 codes, got "
+                        f"{codes.dtype}")
+    if not 1 <= n_bits <= 31:
+        raise ValueError(f"n_bits must lie in [1, 31], got {n_bits}")
+    if dev.type == "cpu":
+        return bitslice_pack_plain(codes, n_bits, reversed_df)
+    codes = codes.contiguous()
+    out = torch.empty(codes.shape + (n_bits,), dtype=torch.uint8,
+                      device=dev)
+    if codes.numel() == 0:
+        return out
+    lib = runtime.library()
+    rc = lib.bitslice_pack_launch(
+        codes.data_ptr(), _CODE_BYTES[codes.dtype], out.data_ptr(),
+        codes.numel(), n_bits, int(reversed_df), runtime.stream_arg())
+    runtime.count_launch("bitslice_pack")
+    runtime.check_status("bitslice_pack", rc)
+    return out

@@ -1,6 +1,6 @@
 """Build, load, check and count the port's hand-written CUDA kernels.
 
-The three ``kernel.cu`` sources under ``repro_torch/kernels/<name>/``
+The ``kernel.cu`` sources under ``repro_torch/kernels/<name>/``
 compile with ``nvcc`` for ``sm_90a`` into one shared library with a
 plain C interface, loaded through ``ctypes`` (no PyTorch headers, so a
 build takes seconds).  The build runs at first use, one ``nvcc`` per
@@ -31,13 +31,16 @@ import torch
 
 KERNEL_DIR = Path(__file__).resolve().parent
 SOURCES = ("cim_mvm/kernel.cu", "flash_attention/kernel.cu",
-           "manhattan_score/kernel.cu")
+           "manhattan_score/kernel.cu", "slstm_scan/kernel.cu",
+           "bitslice_pack/kernel.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("cim_mvm", "flash_attention", "manhattan_score")
+KERNELS = ("cim_mvm", "flash_attention", "manhattan_score", "slstm_scan",
+           "bitslice_pack")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the launchers (each returns cudaGetLastError()).
 _ARGTYPES = {
@@ -45,6 +48,8 @@ _ARGTYPES = {
     + [_P],
     "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _P],
     "manhattan_score_launch": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "slstm_scan_launch": [_P] * 7 + [_I] * 4 + [_P],
+    "bitslice_pack_launch": [_P, _I, _P, _L, _I, _I, _P],
 }
 
 _LAUNCHES = {name: 0 for name in KERNELS}
@@ -148,6 +153,14 @@ def _self_check(lib: ctypes.CDLL) -> None:
     rc["manhattan_score"] = lib.manhattan_score_launch(
         m.data_ptr(), None, s.data_ptr(), n.data_ptr(), nf.data_ptr(), 1, 4,
         4, 0, 1.0, stream)
+    g, r = z(1, 1, 1, 16), z(1, 4, 16)
+    h, hs, hT, cT = z(1, 1, 4), z(1, 1, 1, 4), z(1, 1, 4), z(1, 1, 4)
+    rc["slstm_scan"] = lib.slstm_scan_launch(
+        g.data_ptr(), r.data_ptr(), h.data_ptr(), h.data_ptr(),
+        hs.data_ptr(), hT.data_ptr(), cT.data_ptr(), 1, 1, 1, 4, stream)
+    img = z(2, dt=torch.int64)
+    rc["bitslice_pack"] = lib.bitslice_pack_launch(
+        codes.data_ptr(), 2, img.data_ptr(), 2, 8, 0, stream)
     torch.cuda.synchronize()
     bad = {k: v for k, v in rc.items() if v}
     if bad:

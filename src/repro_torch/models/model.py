@@ -1,23 +1,29 @@
-"""Model assembly of the port: the dense ``"attn"`` decoder stack.
+"""Model assembly of the port: the dense ``"attn"`` decoder and the
+xLSTM ``("mlstm", "slstm")`` stack.
 
-Port of the dense path of ``repro.models.model``.  The reference scans
-its stacked layers with ``lax.scan``; here a Python loop walks the
-repeats and takes each layer's views of the stacked parameters, decode
+Port of the dense and xLSTM paths of ``repro.models.model``.  The
+reference scans its stacked layers with ``lax.scan``; here a Python loop
+walks ``for r in repeats: for slot in pattern`` (the reference's scan
+order) and takes each layer's views of the stacked parameters, decode
 state and deployments.  One ``apply_model`` serves prefill (all prompt
-positions) and decode (one position); attention caches are ring
-buffers keyed by absolute positions.
+positions) and decode (one position, ``decode=True``): attention caches
+are ring buffers keyed by absolute positions, recurrent blocks carry
+O(1) states (mLSTM ``S``/``n``, sLSTM ``h``/``c``).
 
 With a ``cim`` deployment tree (``cfg.cim.enabled`` serving, built by
-``repro_torch.deploy.deploy_model_params``), every q/k/v/o and SwiGLU
-projection runs through ``cim_mvm`` and every attention through
-``flash_attention``: the hand-written kernels on CUDA tensors.  Which
-two functions a forward calls is one :class:`Ops` pair handed to
+``repro_torch.deploy.deploy_model_params``), every attention q/k/v/o
+and SwiGLU projection runs through ``cim_mvm`` and every attention
+through ``flash_attention``: the hand-written kernels on CUDA tensors.
+As in the reference, the mLSTM and sLSTM blocks take no deployment:
+their projections stay digital even where the deploy planned them.
+Every sLSTM recurrence runs through ``slstm_scan``.  Which three
+functions a forward calls is one :class:`Ops` triple handed to
 :func:`apply_model`: :data:`KERNELS` (the default) or :data:`PLAIN`,
 the plain PyTorch versions, which validate the kernels on the card.
 
 Unlike the reference's pure functions, the decode state is updated in
-place: the cache write of each step goes into the state's tensors, so a
-step never copies the whole cache.
+place: the cache write of each step and each new recurrent state goes
+into the state's tensors, so a step never copies the whole state.
 """
 from __future__ import annotations
 
@@ -28,12 +34,19 @@ import torch
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.kernels.cim_mvm.ops import cim_mvm
 from repro_torch.kernels.cim_mvm.ref import cim_mvm_plain
+from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
 from repro_torch.models import schema as sch
 from repro_torch.models.attention import (
     EMPTY_POS,
     flash_attention,
     flash_attention_plain,
     rope,
+)
+from repro_torch.models.recurrent import (
+    mlstm_decode,
+    mlstm_mixer,
+    slstm_mixer,
+    slstm_scan_kernel,
 )
 
 ModelState = dict[str, Any]
@@ -50,14 +63,17 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Ops(NamedTuple):
-    """The two kernels a forward pass calls.
+    """The three kernels a forward pass calls.
 
     ``matmul(x, dep)``: x (..., in_dim) through one ``CimDeployment``;
     ``attention(q, k, v, q_pos, k_pos, window, chunk)``: causal
-    attention over absolute positions.
+    attention over absolute positions;
+    ``slstm_scan(gx, r_gates, h0, c0) -> (hs, hT, cT)``: the sLSTM
+    recurrence.
     """
     matmul: Callable[..., torch.Tensor]
     attention: Callable[..., torch.Tensor]
+    slstm_scan: Callable[..., tuple]
 
 
 def _matmul_kernel(x: torch.Tensor, dep) -> torch.Tensor:
@@ -74,8 +90,8 @@ def _attention_kernel(q, k, v, q_pos, k_pos, window, chunk):
                            window=window, chunk=chunk, device=q.device)
 
 
-KERNELS = Ops(_matmul_kernel, _attention_kernel)
-PLAIN = Ops(_matmul_plain, flash_attention_plain)
+KERNELS = Ops(_matmul_kernel, _attention_kernel, slstm_scan_kernel)
+PLAIN = Ops(_matmul_plain, flash_attention_plain, slstm_scan_plain)
 
 
 def _cim_matmul(x: torch.Tensor, w: torch.Tensor, dep,
@@ -133,23 +149,48 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return _cim_matmul(out.reshape(B, S, -1), p["wo"], c("wo"), ops)
 
 
-def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor, cache: dict | None,
+def block_apply(bt: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, state: dict | None, decode: bool,
                 cim: dict | None = None, ops: Ops = KERNELS) -> torch.Tensor:
-    """One ``"attn"`` block: pre-norm attention, then pre-norm SwiGLU."""
+    """One block of type ``bt``: pre-norm mixer, then (``"attn"`` only)
+    pre-norm SwiGLU.  ``state`` is the block's slice of the decode state,
+    advanced in place."""
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    x = x + attn_apply(p, h, cfg, positions, cache, cim=cim, ops=ops)
-    hf = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-    return x + dense_mlp(p, hf, cim=cim, ops=ops)
+    if bt == "attn":
+        y = attn_apply(p, h, cfg, positions, state, cim=cim, ops=ops)
+    elif bt == "mlstm":
+        st = None if state is None else (state["S"], state["n"])
+        if decode:
+            y, new = mlstm_decode(p, h, st)
+        else:
+            y, new = mlstm_mixer(p, h, st, chunk=cfg.mlstm_chunk)
+        if state is not None:
+            state["S"].copy_(new[0])
+            state["n"].copy_(new[1])
+    elif bt == "slstm":
+        st = None if state is None else (state["h"], state["c"])
+        y, new = slstm_mixer(p, h, st, scan=ops.slstm_scan)
+        if state is not None:
+            state["h"].copy_(new[0])
+            state["c"].copy_(new[1])
+    else:
+        raise ValueError(f"unknown block type {bt}")
+    x = x + y
+    if bt == "attn" and cfg.mlp_type != "none":
+        hf = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
+        x = x + dense_mlp(p, hf, cim=cim, ops=ops)
+    return x
 
 
 def apply_model(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-                state: ModelState | None = None, cim: dict | None = None,
-                ops: Ops = KERNELS):
+                state: ModelState | None = None, decode: bool = False,
+                cim: dict | None = None, ops: Ops = KERNELS):
     """tokens (B, S) -> (logits (B, S, V) f32, new_state).
 
     ``state`` (from :func:`init_decode_state`) is advanced in place;
     the returned dict shares its tensors with a new ``pos``.
+    ``decode`` selects the one-step mLSTM form (one token after a
+    prefill), as the reference's ``decode`` flag does.
     """
     check_supported(cfg)
     x = params["embed"][tokens.to(torch.int64)]
@@ -157,16 +198,16 @@ def apply_model(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     pos0 = 0 if state is None else int(state["pos"])
     positions = torch.arange(pos0, pos0 + S, dtype=torch.int32,
                              device=x.device)
-    slot = "slot0_attn"
-    p_all = params[slot]
-    c_all = None if cim is None else cim.get(slot, {})
+    slots = [f"slot{i}_{bt}" for i, bt in enumerate(cfg.block_pattern)]
     for r in range(cfg.pattern_repeats):
-        p = {k: v[r] for k, v in p_all.items()}
-        ci = None if c_all is None else {k: d.layer(r)
-                                         for k, d in c_all.items()}
-        cache = (None if state is None
-                 else {k: v[r] for k, v in state[slot].items()})
-        x = block_apply(p, x, cfg, positions, cache, cim=ci, ops=ops)
+        for bt, slot in zip(cfg.block_pattern, slots):
+            p = {k: v[r] for k, v in params[slot].items()}
+            ci = None if cim is None else {
+                k: d.layer(r) for k, d in cim.get(slot, {}).items()}
+            st = (None if state is None
+                  else {k: v[r] for k, v in state[slot].items()})
+            x = block_apply(bt, p, x, cfg, positions, st, decode, cim=ci,
+                            ops=ops)
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     new_state = None if state is None else dict(state, pos=pos0 + S)
@@ -185,24 +226,37 @@ def lm_logits(params: dict, cfg: ModelConfig,
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       device: str | torch.device) -> ModelState:
-    """Fresh decode state: per-slot (R, B, C, Hkv, Dh) ring buffers with
-    C = min(cache_len, sliding_window or cache_len), ``kpos`` (R, C)
-    starting at EMPTY_POS (self-masking), and ``pos`` 0."""
+    """Fresh decode state, one dict per pattern slot, stacked over the
+    repeats R: ``"attn"`` ring buffers k, v (R, B, C, Hkv, Dh) with
+    C = min(cache_len, sliding_window or cache_len) and ``kpos`` (R, C)
+    starting at EMPTY_POS (self-masking); mLSTM ``S`` (R, B, H, Dh, Dh)
+    and ``n`` (R, B, H, Dh) with Dh = d_model * ssm_expand / H; sLSTM
+    ``h`` and ``c`` (R, B, H, d_model / H); recurrent states f32 and
+    zero.  ``cache_len`` sizes only attention caches.  ``pos`` is 0."""
     check_supported(cfg)
-    R, Hkv, Dh = cfg.pattern_repeats, cfg.n_kv_heads, cfg.resolved_head_dim
-    C = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
-         else cache_len)
-    kv = (R, batch, C, Hkv, Dh)
-    dtype = sch.param_dtype(cfg)
-    return {
-        "slot0_attn": {
-            "k": torch.zeros(kv, dtype=dtype, device=device),
-            "v": torch.zeros(kv, dtype=dtype, device=device),
-            "kpos": torch.full((R, C), EMPTY_POS, dtype=torch.int32,
-                               device=device),
-        },
-        "pos": 0,
-    }
+    R, H = cfg.pattern_repeats, cfg.n_heads
+    zeros = lambda *shape, dtype=torch.float32: torch.zeros(
+        (R, batch) + shape, dtype=dtype, device=device)
+    state: ModelState = {}
+    for i, bt in enumerate(cfg.block_pattern):
+        if bt == "attn":
+            Hkv, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+            C = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
+                 else cache_len)
+            dtype = sch.param_dtype(cfg)
+            st = {"k": zeros(C, Hkv, Dh, dtype=dtype),
+                  "v": zeros(C, Hkv, Dh, dtype=dtype),
+                  "kpos": torch.full((R, C), EMPTY_POS, dtype=torch.int32,
+                                     device=device)}
+        elif bt == "mlstm":
+            Dh = cfg.d_model * cfg.ssm_expand // H
+            st = {"S": zeros(H, Dh, Dh), "n": zeros(H, Dh)}
+        else:                                   # "slstm"
+            Dh = cfg.d_model // H
+            st = {"h": zeros(H, Dh), "c": zeros(H, Dh)}
+        state[f"slot{i}_{bt}"] = st
+    state["pos"] = 0
+    return state
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,

@@ -1,10 +1,12 @@
-"""Parameter schema of the dense decoder: names, shapes, initialisation.
+"""Parameter schema of the served models: names, shapes, initialisation.
 
-Port of the dense ``"attn"`` part of ``repro.models.schema``.  Names and
-shapes map 1:1 onto the reference's parameter tree:
-``embed``, ``final_norm``, ``lm_head`` and ``slot0_attn/{norm, wq, wk,
-wv, wo, ffn_norm, ffn_w_gate, ffn_w_up, ffn_w_down}``, the block
-parameters stacked over the pattern repeats.
+Port of the ``"attn"``, ``"mlstm"`` and ``"slstm"`` parts of
+``repro.models.schema``.  Names and shapes map 1:1 onto the reference's
+parameter tree: ``embed``, ``final_norm``, ``lm_head`` and one
+``slot{i}_{block}`` dict per entry of the block pattern (for the dense
+decoder ``slot0_attn/{norm, wq, wk, wv, wo, ffn_norm, ffn_w_gate,
+ffn_w_up, ffn_w_down}``; for xLSTM ``slot0_mlstm`` and ``slot1_slstm``),
+the block parameters stacked over the pattern repeats.
 
 The init draws from an explicit ``torch.Generator`` (its numbers differ
 from JAX's for the same seed; reference weights reach the port through
@@ -12,7 +14,8 @@ from JAX's for the same seed; reference weights reach the port through
 reference's ``ParamSpec.stddev()`` exactly as the reference applies it
 to the *stacked* shapes: the repeat axis enters the fan-in, so ``wq``
 (R, D, H, Dh) gets (R*D*H)^-1/2 and the 3-D ``ffn_w_*`` (R, D, F) get
-R^-1/2.  That is a reference quirk, kept here on purpose.
+R^-1/2 (so do the mLSTM ``wq``/``wk``/``wv`` and the sLSTM
+``w_gates``).  That is a reference quirk, kept here on purpose.
 """
 from __future__ import annotations
 
@@ -58,17 +61,54 @@ def attn_block_schema(cfg: ModelConfig) -> dict:
     }
 
 
+def mlstm_schema(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    Di = D * cfg.ssm_expand
+    H = cfg.n_heads
+    Dh = Di // H
+    return {
+        "norm": ParamSpec((D,), "ones"),
+        "w_up": ParamSpec((D, 2 * Di)),
+        "wq": ParamSpec((Di, H, Dh)),
+        "wk": ParamSpec((Di, H, Dh)),
+        "wv": ParamSpec((Di, H, Dh)),
+        "w_if": ParamSpec((Di, 2 * H), "normal", 0.01),
+        "b_if": ParamSpec((2 * H,), "zeros"),
+        "w_down": ParamSpec((Di, D)),
+    }
+
+
+def slstm_schema(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    H = cfg.n_heads
+    Dh = D // H
+    return {
+        "norm": ParamSpec((D,), "ones"),
+        "w_gates": ParamSpec((D, H, 4 * Dh)),
+        "r_gates": ParamSpec((H, Dh, 4 * Dh), "normal", 0.02),
+        "b_gates": ParamSpec((H, 4 * Dh), "zeros"),
+        "w_out": ParamSpec((D, D)),
+    }
+
+
+_BLOCK_SCHEMAS = {"attn": attn_block_schema, "mlstm": mlstm_schema,
+                  "slstm": slstm_schema}
+
+
 def model_schema(cfg: ModelConfig) -> dict:
     """Full parameter schema; blocks stacked over pattern repeats."""
     check_supported(cfg)
     V, D, R = cfg.padded_vocab, cfg.d_model, cfg.pattern_repeats
-    return {
+    schema = {
         "embed": ParamSpec((V, D), "normal", 0.02),
         "final_norm": ParamSpec((D,), "ones"),
         "lm_head": ParamSpec((D, V)),
-        "slot0_attn": {k: ParamSpec((R,) + s.shape, s.init, s.scale)
-                       for k, s in attn_block_schema(cfg).items()},
     }
+    for i, bt in enumerate(cfg.block_pattern):
+        schema[f"slot{i}_{bt}"] = {
+            k: ParamSpec((R,) + s.shape, s.init, s.scale)
+            for k, s in _BLOCK_SCHEMAS[bt](cfg).items()}
+    return schema
 
 
 def param_dtype(cfg: ModelConfig) -> torch.dtype:

@@ -4,8 +4,12 @@ caches, with greedy or temperature sampling.
 Port of ``repro.serve.engine.ServeEngine``.  With ``cfg.cim.enabled`` the
 engine deploys every projection matrix onto crossbars at init
 (``repro_torch.deploy.deploy_model_params``: quantise, plan, package, on
-the engine's device), and generation runs every projection through
-``cim_mvm`` and every attention through ``flash_attention``.
+the engine's device), and generation runs every deployed attention and
+MLP projection through ``cim_mvm`` and every attention through
+``flash_attention``.  An xLSTM model serves every sLSTM recurrence
+through ``slstm_scan``; its mLSTM q/k/v are deployed but, as in the
+reference, served digitally, and ``max_seq`` sizes nothing for it (the
+recurrent state is O(1) in the sequence).
 
 Greedy decoding is the parity target with the reference
 (``torch.argmax`` returns the first maximum, as ``jnp.argmax`` does).
@@ -39,7 +43,7 @@ class ServeEngine:
     ``params`` (from ``repro_torch.convert.params_from_numpy`` or
     ``repro_torch.models.model.init_params``) must lie on ``device``;
     the default is the card, and a CPU run has to be asked for.
-    ``ops`` is the pair of kernels every forward calls
+    ``ops`` is the triple of kernels every forward calls
     (``repro_torch.models.model.KERNELS``); a copy of the engine with
     ``PLAIN`` there serves the same deployments through the plain
     PyTorch versions, to validate the kernels on the card.
@@ -89,8 +93,8 @@ class ServeEngine:
         out = [tok]
         for _ in range(n_tokens - 1):
             logits, state = apply_model(self.params, self.cfg, tok[:, None],
-                                        state=state, cim=self.cim,
-                                        ops=self.ops)
+                                        state=state, decode=True,
+                                        cim=self.cim, ops=self.ops)
             tok = sample_tokens(logits[:, 0], self.temperature, gen)
             out.append(tok)
         return torch.stack(out, dim=1)
@@ -114,6 +118,7 @@ class ServeEngine:
         for t in range(n_prompt, S):
             logits, state = apply_model(self.params, self.cfg,
                                         tokens[:, t:t + 1], state=state,
-                                        cim=self.cim, ops=self.ops)
+                                        decode=True, cim=self.cim,
+                                        ops=self.ops)
             rows.append(logits[:, 0])
         return torch.stack(rows, dim=1)

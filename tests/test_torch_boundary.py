@@ -54,6 +54,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.convert, repro_torch.kernels.runtime\n"
         "import repro_torch.kernels.cim_mvm, repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.manhattan_score, repro_torch.models.model\n"
+        "import repro_torch.kernels.slstm_scan, repro_torch.kernels.bitslice_pack\n"
+        "import repro_torch.models.recurrent, repro_torch.configs.xlstm_13b\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -73,7 +75,9 @@ def test_entry_points_default_to_the_card():
     from repro_torch.deploy import deploy_model_params
     from repro_torch.kernels.cim_mvm import cim_mvm, deploy
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.bitslice_pack import bitslice_pack
     from repro_torch.kernels.manhattan_score import manhattan_score
+    from repro_torch.kernels.slstm_scan import slstm_scan
     from repro_torch.models.model import init_params
     from repro_torch.serve import ServeEngine
 
@@ -92,6 +96,10 @@ def test_entry_points_default_to_the_card():
         lambda: manhattan_score(torch.zeros(1, 4, 4, dtype=torch.uint8)),
         lambda: deploy_model_params(params, cfg),
         lambda: params_from_numpy({}, cfg),
+        lambda: slstm_scan(*(torch.zeros(s) for s in ((1, 1, 1, 16),
+                                                      (1, 4, 16), (1, 1, 4),
+                                                      (1, 1, 4)))),
+        lambda: bitslice_pack(torch.zeros((2, 2), dtype=torch.int16), 8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -15,7 +15,12 @@ plain version's and only the f32 summation order differs from cuBLAS's,
 which moves outputs near zero by ~1e-6 of the output scale, so the
 bound was made normwise.  A wrong eta, pos or M1 still misses it by
 orders of magnitude.  Flash attention rtol = atol = 2e-5 (the
-reference's), manhattan_score exact (integer sums).
+reference's), manhattan_score and bitslice_pack exact (integer work).
+slstm_scan |kernel - plain| <= 1e-5 (1 + |plain|): the kernel sums
+h @ R in another order than the plain version's matmul and uses CUDA's
+expf/tanhf (a few ulps), and the recurrence carries those ulps on over
+the steps; a wrong gate, column or state misses it by orders of
+magnitude.
 """
 import numpy as np
 import pytest
@@ -31,7 +36,11 @@ from repro_torch.kernels.flash_attention.ref import (
     flash_attention_plain,
 )
 from repro_torch.kernels.manhattan_score.ops import manhattan_score
+from repro_torch.kernels.bitslice_pack.ops import bitslice_pack
+from repro_torch.kernels.bitslice_pack.ref import bitslice_pack_plain
 from repro_torch.kernels.manhattan_score.ref import manhattan_score_plain
+from repro_torch.kernels.slstm_scan.ops import slstm_scan
+from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
 
 NF_UNIT = 2.5 / 300e3
 
@@ -114,6 +123,42 @@ def test_flash_kernel_per_lane_positions_and_masked_rows(cuda):
     assert (out[0] == 0).all()
 
 
+SLSTM_TOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,dh,seed", [
+    (1, 3, 1, 4, 0), (5, 70, 4, 16, 1), (2, 16, 2, 8, 2), (3, 17, 1, 16, 3),
+    (1, 33, 4, 4, 42), (4, 15, 2, 8, 99),   # the reference's sweep
+    (4, 1, 4, 512, 7), (4, 20, 4, 512, 8),   # xlstm-1.3b decode, prefill
+])
+def test_slstm_scan_kernel_vs_plain(cuda, b, t, h, dh, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda s, *shape: torch.from_numpy(
+        (rng.standard_normal(shape) * s).astype(np.float32)).to(cuda)
+    gx, r = f(0.5, b, t, h, 4 * dh), f(0.1, h, dh, 4 * dh)
+    h0, c0 = f(0.1, b, h, dh), f(0.1, b, h, dh)
+    got = slstm_scan(gx, r, h0, c0, device=cuda)
+    want = slstm_scan_plain(gx, r, h0, c0)
+    for a, w in zip(got, want):
+        assert ((a - w).abs() <= SLSTM_TOL * (1 + w.abs())).all(), \
+            (a - w).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("i,n,n_bits,rev,seed", [
+    (1, 1, 4, False, 0), (130, 70, 12, True, 1), (128, 64, 8, False, 2),
+    (129, 65, 8, True, 3), (17, 33, 4, True, 4), (64, 1, 12, False, 5),
+    (1, 70, 8, True, 42), (100, 23, 4, False, 99),
+])
+def test_bitslice_pack_kernel_vs_plain(cuda, i, n, n_bits, rev, seed, dtype):
+    codes = torch.from_numpy(np.random.default_rng(seed).integers(
+        -(2 ** n_bits) + 1, 2 ** n_bits, (i, n))).to(dtype).to(cuda)
+    got = bitslice_pack(codes, n_bits, rev, device=cuda)
+    assert torch.equal(got, bitslice_pack_plain(codes, n_bits, rev))
+
+
 @pytest.mark.cuda
 def test_kernel_launches_are_counted(cuda):
     from repro_torch.kernels import runtime
@@ -122,3 +167,11 @@ def test_kernel_launches_are_counted(cuda):
     runtime.reset_launch_counts()
     cim_mvm(torch.randn((2, 64), device=cuda), dep, device=cuda)
     assert runtime.launch_counts()["cim_mvm"] == 1
+    z = torch.zeros((2, 3, 1, 16), device=cuda)
+    slstm_scan(z, torch.zeros((1, 4, 16), device=cuda),
+               torch.zeros((2, 1, 4), device=cuda),
+               torch.zeros((2, 1, 4), device=cuda), device=cuda)
+    bitslice_pack(torch.ones((4, 4), dtype=torch.int16, device=cuda), 8,
+                  device=cuda)
+    counts = runtime.launch_counts()
+    assert counts["slstm_scan"] == 1 and counts["bitslice_pack"] == 1
