@@ -31,9 +31,11 @@ of JAX.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -46,6 +48,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # f32 operations/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# Dense TF32 tensor-core operations/s; a 3xTF32 product counts 3.
+PEAK_TF32 = 495e12
+# A torch.cuda._sleep that outlasts the host's enqueue of a timed run
+# (~10 ms at the H100's ~1.98 GHz boost clock).
+SLEEP_CYCLES = 20_000_000
+# Decode timings rotate over copies of the weights this large in all,
+# three times the 50 MB L2, so every call finds its weights cold.
+COLD_BYTES = 150 * 2 ** 20
 
 B, PROMPT, NEW = 4, 128, 32          # requests served in each path
 MAX_SEQ = PROMPT + NEW
@@ -73,8 +83,45 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
+def device_ms(fn, iters: int = 20, args=None) -> float:
+    """Device time of ``fn`` in ms a launch: ``iters`` launches (of
+    ``fn(a)`` for ``a`` in ``args`` in turn, if given) queued behind a
+    ``torch.cuda._sleep``, so the events time the card's back-to-back
+    work and not the host's enqueue."""
+    calls = ([lambda: fn()] if args is None
+             else [lambda a=a: fn(a) for a in args])
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    n = max(iters, len(calls))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for i in range(n):
+        calls[i % len(calls)]()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host time of one call of ``fn`` in us (the enqueue: the card is
+    kept busy by a ``torch.cuda._sleep`` so it never waits on it)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def bound(n_bytes: float, n_ops: float,
+          peak_ops: float = PEAK_F32) -> tuple[float, str]:
+    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / peak_ops
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -90,7 +137,11 @@ def phase_card() -> str:
 
 
 def phase_build():
+    """Build the kernels; print, per compiled kernel, its target,
+    registers and spills (``-Xptxas -v``) and the tensor-core
+    instructions in its SASS (``cuobjdump``, where the toolkit has it)."""
     from repro_torch.kernels import runtime
+    from torch.utils.cpp_extension import CUDA_HOME
 
     t0 = time.perf_counter()
     runtime.library()
@@ -99,9 +150,49 @@ def phase_build():
     print(f"phase build: {'built' if info['built'] else 'loaded'} "
           f"{os.path.relpath(info['path'], ROOT)} in {dt:.1f} s "
           "(nvcc sm_90a, one process per source)")
+
+    def name(mangled: str) -> str:
+        """A kernel's name and template arguments from its mangled
+        name, e.g. ``cim_decode_kernel<Li4ELb1>``: an identifier ending
+        in ``kernel`` whose length prefixes it."""
+        for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?kernel))", mangled):
+            digits, ident = m.groups()
+            if int(digits) == len(ident):
+                rest = mangled[m.start() + len(digits) + len(ident):]
+                args = re.match(r"I(.*?)EE", rest)
+                return ident + (f"<{args.group(1)}>" if args else "")
+        return mangled
+
+    mma: dict = {}
+    cuobjdump = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin",
+                             "cuobjdump")
+    if os.path.exists(cuobjdump):
+        fn = None
+        sass = subprocess.run([cuobjdump, "-sass", info["path"]],
+                              capture_output=True, text=True).stdout
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+            elif fn and ("HMMA" in line or "HGMMA" in line):
+                op = "HGMMA" if "HGMMA" in line else "HMMA"
+                mma.setdefault(fn, {}).setdefault(op, 0)
+                mma[fn][op] += 1
+    kernel = None
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("  " + line.strip())
+        m = re.search(r"entry function '(\S+)' for '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+            print(f"  {name(kernel)} for {m.group(2)}: "
+                  f"{mma.get(kernel, {}) or 'no tensor-core instructions'}",
+                  end="")
+        elif kernel and ("registers" in line or "spill" in line):
+            print("; " + line.split(":")[-1].strip(), end="")
+            if "registers" in line:
+                print()
+                kernel = None
+    print(f"  (SASS tensor-core counts from {os.path.basename(cuobjdump)}"
+          f"{'' if mma or os.path.exists(cuobjdump) else ': not found'})")
 
 
 def _deploy_random(I: int, N: int, seed: int):
@@ -116,33 +207,32 @@ def _deploy_random(I: int, N: int, seed: int):
     return dep, plan
 
 
-def phase_kernels() -> list[dict]:
-    """Each kernel against its plain version at the slice's shapes."""
-    from repro_torch.kernels.cim_mvm.ops import cim_mvm
+def _check_cim(g) -> dict:
+    """cim_mvm at the three matrix shapes of phi3 and the path's row
+    counts (decode M = 1 and M = B, prefill M = B * PROMPT): against its
+    plain version, device time warm and, at decode, cold (rotating over
+    copies of the deployment larger than L2 together, as a decode step
+    finds its weights), beside ``x @ W'`` on the materialised f32 W'
+    timed the same way."""
+    from repro_torch.kernels.cim_mvm.ops import DECODE_MAX_M, cim_mvm
     from repro_torch.kernels.cim_mvm.ref import (
         cim_effective_weights,
         cim_mvm_plain,
     )
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import (
-        EMPTY_POS,
-        flash_attention_plain,
-    )
-    from repro_torch.kernels.manhattan_score.ops import manhattan_score
-    from repro_torch.kernels.manhattan_score.ref import manhattan_score_plain
-    from repro_torch.core.bitslice import codes_to_bits, quantize_magnitude
-    from repro_torch.core.tiling import CrossbarSpec, tile_masks
 
-    records = []
-    g = torch.Generator(device="cuda").manual_seed(1)
-
-    # cim_mvm: the three matrix shapes x (decode M=1, M=B, prefill B*S).
-    rep = None
+    regimes = {}
     for (I, N) in ((3072, 3072), (3072, 8192), (8192, 3072)):
         dep, _ = _deploy_random(I, N, seed=I + N)
         w_eff = cim_effective_weights(
             dep.codes, dep.pos, dep.scale, n_bits=dep.n_bits, wpt=dep.wpt,
             cols=dep.cols, eta=dep.eta, reversed_df=dep.reversed_df)
+        dep_bytes = dep.codes.numel() * 2 + dep.pos.numel() * 4
+        n_dep = max(2, -(-COLD_BYTES // dep_bytes))
+        deps = [dep] + [dataclasses.replace(
+            dep, codes=dep.codes.clone(), pos=dep.pos.clone(),
+            scale=dep.scale.clone()) for _ in range(n_dep - 1)]
+        n_w = max(2, -(-COLD_BYTES // (w_eff.numel() * 4)))
+        ws = [w_eff] + [w_eff.clone() for _ in range(n_w - 1)]
         for M in (1, B, B * PROMPT):
             x = torch.randn((M, I), generator=g, device="cuda")
             y_k = cim_mvm(x, dep)
@@ -151,34 +241,95 @@ def phase_kernels() -> list[dict]:
             err = (y_k - y_p).abs().max().item()
             ref = y_p.abs().max().item()
             ok = err <= CIM_TOL * ref
-            ms = cuda_ms(lambda: cim_mvm(x, dep))
+            ms = device_ms(lambda: cim_mvm(x, dep))
             plain_ms = cuda_ms(lambda: cim_mvm_plain(x, dep), iters=5)
-            lib_ms = cuda_ms(lambda: x @ w_eff)
-            n_bytes = (x.numel() * 4 + dep.codes.numel() * 2
-                       + dep.pos.numel() * 4 + 4 + M * N * 4)
-            b_ms, b_by = bound(n_bytes, 2.0 * M * I * N)
-            print(f"cim_mvm M={M:4d} I={I} N={N}: max_abs_err {err:.3e} "
-                  f"(tol {CIM_TOL:g} x max|y| {ref:.3e}) "
-                  f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, matmul on W' {lib_ms:.4f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by})")
+            lib_ms = device_ms(lambda: x @ w_eff)
+            n_bytes = (x.numel() * 4 + dep_bytes + 4 + M * N * 4)
+            flops = 2.0 * M * I * N
+            b_ms, b_by = bound(n_bytes, flops)
+            tc_ms, tc_by = bound(n_bytes, 3 * flops, PEAK_TF32)
+            line = (f"cim_mvm M={M:4d} I={I} N={N}: max_abs_err {err:.3e} "
+                    f"(tol {CIM_TOL:g} x max|y| {ref:.3e}) "
+                    f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms warm, "
+                    f"plain {plain_ms:.4f} ms, x @ W' {lib_ms:.4f} ms warm; "
+                    f"bound {b_ms:.4f} ms ({b_by}, f32), {tc_ms:.4f} ms "
+                    f"({tc_by}, 3xTF32)")
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            if M <= DECODE_MAX_M:
+                cold = device_ms(lambda d: cim_mvm(x, d), args=deps)
+                lib_cold = device_ms(lambda w: x @ w, args=ws)
+                line += (f"; cold ({n_dep} copies): kernel {cold:.4f} ms, "
+                         f"x @ W' {lib_cold:.4f} ms")
+                rec.update(ms=cold, library_ms=lib_cold, ms_warm=ms,
+                           library_ms_warm=lib_ms)
+            else:
+                rec.update(bound_ms=tc_ms, bound_by=tc_by,
+                           bound_f32_ms=b_ms)
+            print(line)
             if not ok:
                 raise AssertionError(f"cim_mvm disagrees at M={M} I={I} N={N}")
-            if (M, I, N) == (B, 3072, 8192):
-                rep = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        del dep, w_eff
-    records.append(dict(
-        name="cim_mvm", route="cuda",
-        source="src/repro_torch/kernels/cim_mvm/kernel.cu",
-        replaces="src/repro/kernels/cim_mvm/kernel.py:82", **rep))
+            if (I, N) == (3072, 8192) and M in (B, B * PROMPT):
+                regimes["decode" if M == B else "prefill"] = dict(
+                    M=M, I=I, N=N, **rec)
+        if (I, N) == (3072, 3072):
+            x = torch.randn((B, I), generator=g, device="cuda")
+            print(f"  cim_mvm wrapper host time (M={B}, {I}x{N}): "
+                  f"{host_us(lambda: cim_mvm(x, dep)):.1f} us a call, of "
+                  f"which the C launch alone "
+                  f"{host_us(_bare_cim_launch(x, dep)):.1f} us")
+        del dep, deps, w_eff, ws
+    return dict(name="cim_mvm", route="cuda",
+                source="src/repro_torch/kernels/cim_mvm/kernel.cu",
+                replaces="src/repro/kernels/cim_mvm/kernel.py:82",
+                **{k: v for k, v in regimes["decode"].items()
+                   if k not in ("M", "I", "N")},
+                regimes=regimes)
 
-    # flash attention: prefill (Sq = 128) and decode (Sq = 1), Dh = 96,
-    # against a MAX_SEQ-long cache whose unwritten slots hold EMPTY_POS.
+
+def _bare_cim_launch(x, dep):
+    """The cim_mvm launcher called directly (geometry, output and
+    stream prepared once): the part of a call no Python can cut."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.cim_mvm.ops import _sm_count, cim_geometry
+
+    out = torch.empty((x.shape[0], dep.out_dim), device="cuda")
+    geom = cim_geometry(x.shape[0], dep.in_dim, dep.out_dim,
+                        *dep.codes.shape, dep.wpt, dep.n_bits, dep.cols,
+                        dep.reversed_df, _sm_count(0),
+                        dep.codes.data_ptr() % 16 == 0)
+    args = (x.data_ptr(), dep.codes.data_ptr(), dep.pos.data_ptr(),
+            dep.scale.data_ptr(), out.data_ptr(), geom.array, dep.eta,
+            runtime.stream_arg(out.device))
+    launch = runtime.library().cim_mvm_launch
+    return lambda: launch(*args)
+
+
+def _sdpa_kernels(fn) -> list[str]:
+    """Names of the CUDA kernels one call of ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def _check_flash(g) -> dict:
+    """flash attention at phi3's shapes: prefill (Sq = 128) and decode
+    (Sq = 1), Dh = 96, against a MAX_SEQ-long cache whose unwritten
+    slots hold EMPTY_POS; device time beside SDPA on the same inputs."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        EMPTY_POS,
+        flash_attention_plain,
+    )
+
     H, Dh = 32, 96
     k = torch.randn((B, MAX_SEQ, H, Dh), generator=g, device="cuda")
     v = torch.randn((B, MAX_SEQ, H, Dh), generator=g, device="cuda")
-    rep = None
+    regimes = {}
     for name, Sq, filled in (("prefill", PROMPT, PROMPT),
                              ("decode", 1, MAX_SEQ - 1)):
         q = torch.randn((B, Sq, H, Dh), generator=g, device="cuda")
@@ -187,37 +338,65 @@ def phase_kernels() -> list[dict]:
         kpos[:filled] = torch.arange(filled, dtype=torch.int32)
         qpos = torch.arange(filled - Sq, filled, dtype=torch.int32,
                             device="cuda")
-        o_k = flash_attention(q, k, v, q_positions=qpos, k_positions=kpos)
+        run = lambda: flash_attention(q, k, v, q_positions=qpos,
+                                      k_positions=kpos)
+        o_k = run()
         o_p = flash_attention_plain(q, k, v, qpos, kpos)
         torch.cuda.synchronize()
         err = (o_k - o_p).abs().max().item()
         excess = ((o_k - o_p).abs() - FLASH_TOL * (1 + o_p.abs())).max()
         ok = excess.item() <= 0
-        ms = cuda_ms(lambda: flash_attention(q, k, v, q_positions=qpos,
-                                             k_positions=kpos))
+        ms = device_ms(run)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, qpos, kpos))
         mask = (kpos[None, :] <= qpos[:, None])
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)
+        lib_ms = device_ms(sdpa)
         pairs = int(mask.sum().item()) * B * H
-        n_bytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 4 \
+        # Q read and O written once; K and V only at the slots some query
+        # can see (EMPTY_POS slots and keys past every query need no read).
+        seen = int(mask.any(0).sum().item())
+        n_bytes = (2 * q.numel() + 2 * B * seen * H * Dh) * 4 \
             + (qpos.numel() + kpos.numel()) * 4
+        # Q.K^T and P.V over the valid pairs, 2 Dh operations each.
         b_ms, b_by = bound(n_bytes, pairs * 4.0 * Dh)
+        tc_ms, tc_by = bound(n_bytes, 3 * pairs * 4.0 * Dh, PEAK_TF32)
         print(f"flash {name} B={B} Sq={Sq} C={MAX_SEQ} H={H} Dh={Dh}: "
               f"max_abs_err {err:.3e} (tol {FLASH_TOL:g}(1+|ref|)) "
               f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by})")
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} "
+              f"ms ({b_by}, f32), {tc_ms:.4f} ms ({tc_by}, 3xTF32); "
+              f"host {host_us(run):.1f} us a call")
+        print(f"  sdpa kernels: {_sdpa_kernels(sdpa)}")
         if not ok:
             raise AssertionError(f"flash attention disagrees ({name})")
+        # The prefill form runs its products in 3xTF32 on tensor cores,
+        # the decode form in f32 on the CUDA cores.
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=tc_ms if name == "prefill" else b_ms,
+                   bound_by=tc_by if name == "prefill" else b_by,
+                   library_ms=lib_ms)
         if name == "prefill":
-            rep = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    records.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/flash_attention/kernel.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:75", **rep))
+            rec["bound_f32_ms"] = b_ms
+        regimes[name] = dict(Sq=Sq, C=MAX_SEQ, **rec)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/flash_attention/kernel.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:75",
+                **{k: v for k, v in regimes["prefill"].items()
+                   if k not in ("Sq", "C")},
+                regimes=regimes)
+
+
+def phase_kernels() -> list[dict]:
+    """Each kernel against its plain version at the slice's shapes."""
+    from repro_torch.kernels.manhattan_score.ops import manhattan_score
+    from repro_torch.kernels.manhattan_score.ref import manhattan_score_plain
+    from repro_torch.core.bitslice import codes_to_bits, quantize_magnitude
+    from repro_torch.core.tiling import CrossbarSpec, tile_masks
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    records = [_check_cim(g), _check_flash(g)]
 
     # manhattan_score: one full 3072 x 8192 matrix's tile population.
     spec = CrossbarSpec(64, 64, 8)
@@ -551,6 +730,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    print(f"torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32} (yardsticks in full f32)")
     t_start = time.perf_counter()
     card = phase_card()
     phase_build()

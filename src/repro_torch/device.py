@@ -6,11 +6,15 @@ tests do).  Nothing here falls back silently.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
+@functools.lru_cache(maxsize=None)
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """``device`` as a ``torch.device``; raises when CUDA is missing."""
+    """``device`` as a ``torch.device``; raises when CUDA is missing.
+    Cached: the kernels' wrappers call it on every launch."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -33,7 +33,8 @@ def bitslice_pack(codes: torch.Tensor, n_bits: int,
     lib = runtime.library()
     rc = lib.bitslice_pack_launch(
         codes.data_ptr(), _CODE_BYTES[codes.dtype], out.data_ptr(),
-        codes.numel(), n_bits, int(reversed_df), runtime.stream_arg())
+        codes.numel(), n_bits, int(reversed_df),
+        runtime.stream_arg(out.device))
     runtime.count_launch("bitslice_pack")
     runtime.check_status("bitslice_pack", rc)
     return out

@@ -13,36 +13,75 @@
 //
 // The weights travel from device memory once, as int16 codes plus the
 // int32 row-position table (2 + 4/wpt bytes a weight); no W' and no bit
-// plane ever exists in device memory.
+// plane ever exists in device memory.  The TPU kernel accumulates its
+// output block across a sequential grid axis over I; Hopper runs blocks
+// in parallel and in no order, so every reduction over I here is inside
+// a block or a cluster, in a fixed order, with no atomics: two calls
+// give bit-identical results.  The wrapper (ops.py) picks one of two
+// forms by the number of rows M and computes the launch geometry.
 //
-// Design.  The TPU kernel accumulates its output block across a
-// sequential grid axis over I.  Hopper runs blocks in parallel and in
-// no order, so here one block owns one (BM x BN) output tile and loops
-// over its slice of I itself.  Each step stages a BK-row slab of x (f32)
-// and of the codes, expands the codes to W' in shared memory with the
-// formula above, and accumulates x * W' in f32 FMAs (no TF32, no tensor
-// cores).  Where the (M, N) grid alone would leave SMs idle (decode, M
-// <= 8), the I range is split over gridDim.z: each split writes its
-// partial tile to a scratch buffer and a second kernel sums the splits
-// in a fixed order, so results do not depend on scheduling.
+// Decode form (M <= 16).  Bound by device memory in principle (each
+// weight serves M rows only, 2.5 bytes for 2M flops), by the expansion's
+// ALU work in practice (~2.3x the byte bound at M = 4, PERF.md).  A
+// thread owns 8 consecutive columns and reads them with one 16-byte code
+// load and one pos load a row of I (wpt = 8: one pos covers the 8
+// columns), the next four rows' loads issued before this four's math.
+// The M rows of x sit in shared memory, read as broadcasts; the M x 8
+// sums stay in registers.  Each weight is expanded once, in registers:
+// 1 + eta*p once a row, M0 exactly on the FP32 pipe (magic-number
+// conversion), eta*M1 from a per-(slot, magnitude) table in shared
+// memory built with the same rounded operations, so W' is bit-identical
+// to the plain version's.  The 256 threads of a block split their I
+// slice into KS interleaved slices; a cluster of 8 blocks splits I
+// eight ways; the slices meet in shared memory and the 8 blocks through
+// distributed shared memory, each sum in a fixed order, so no partial
+// ever goes to device memory and no second kernel runs.
 //
-// What bounds it.  At decode (M <= 8) each weight is used by M rows only:
-// the kernel streams ~2.5 bytes a weight for 2*M flops, far below the
-// card's ~20 flop/byte balance point, so it is bound by device memory
-// (the whole model's codes are ~7.2 GB a token at phi3-mini width).  At
-// prefill (M = B*S in the hundreds) the f32 FMAs and the expansion bound
-// it; a tensor-core (wgmma) version is later work.
+// Prefill form (M > 16).  Bound by the products and by the expansion:
+// tensor cores in 3xTF32 (../tf32_mma.cuh), wgmma m64n128k8.  The
+// product runs transposed, y^T = W'^T x^T, so that W'^T is wgmma's A
+// operand and goes from the codes straight into registers, expanded
+// exactly (the eta*M1 table again) and split into TF32 hi and lo; x is
+// the B operand, split once a block into shared memory in wgmma's
+// K-major core-matrix layout.  A block covers 128 columns of W' by 128
+// rows of x, so a weight is expanded M / 128 times; slabs of x, codes
+// and pos stream in by cp.async two slabs ahead.  wgmma runs
+// asynchronously, so the expansion of a k step and the conversion of
+// the next slab's x overlap the products of the step before.  Measured
+// on the H100 (PERF.md): ~200 registers a thread leave one block (8
+// warps) a SM, and that ALU work, not the tensor cores, sets the pace.
 //
 // Rounding.  M0 and M1 are exact (integers times 2^-K); the rest of the
 // expansion uses __fmul_rn / __fadd_rn so that nvcc cannot contract it
 // into FMAs: W' is rounded op by op in the same order as the reference's
 // XLA expression and the plain version.  No fast-math division is used.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cstring>
+
+#include "../tf32_mma.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-// W'[i,n] from one code, without a loop over the K bit planes.
+constexpr int THREADS = 256;
+constexpr int CLUSTER = 8;     // decode: blocks splitting I
+constexpr int DEC_RM = 4;      // decode: output rows per reduction round
+constexpr int PF_BM = 128;     // prefill: rows of x a block
+constexpr int PF_BN = 128;     // prefill: columns a block
+constexpr int PF_BK = 32;      // prefill: rows of I a step
+constexpr int PF_STAGES = 3;   // prefill: ring of staged slabs
+
+// Launch geometry, computed by ops.py::cim_geometry (same order).
+struct Geom {
+  int form, M, I, N, n_pad, n_tiles, wpt, n_bits, cols, reversed, fast,
+      tile, rps, gx, gy, smem, off_t, off_p, mt;
+};
+
+// M1 * 2^K as an exact integer, without a loop over the K bit planes.
 //
 // M1 = sum_k b_k 2^-(k+1) col(k) with col(k) = c0 + k (forward dataflow,
 // c0 = slot * K) or c0 - k (reversed, c0 = cols - 1 - slot * K), where
@@ -53,175 +92,512 @@ namespace {
 // bit positions j whose bit t is set (K <= 16).  Everything is an exact
 // integer below 2^24 (the wrapper checks cols * 2^K < 2^24), so M0 and
 // M1 are exact floats, bit-identical to the reference's K-step sum.
-//
-// ``c0`` is (n mod wpt) * K for output column n and ``unit`` is 2^-K;
-// both are per-thread constants of the kernel below.
+// ``c0`` is (n mod wpt) * K for output column n.
+__device__ __forceinline__ int m1_int(int mag, int c0, int n_bits, int cols,
+                                      int reversed) {
+  int wsum = (mag & 0xAAAA) + 2 * (mag & 0xCCCC) + 4 * (mag & 0xF0F0) +
+             8 * (mag & 0xFF00);
+  int g = (n_bits - 1) * mag - wsum;
+  return reversed ? (cols - 1 - c0) * mag - g : c0 * mag + g;
+}
+
+// W'[i,n] from one code; ``unit`` is 2^-K.
 __device__ __forceinline__ float expand_weight(
     int code, int p, int c0, float unit, float scale, float eta,
     int n_bits, int cols, int reversed) {
   int mag = code < 0 ? -code : code;
   float sgn_scale = code < 0 ? -scale : scale;
-  int wsum = (mag & 0xAAAA) + 2 * (mag & 0xCCCC) + 4 * (mag & 0xF0F0) +
-             8 * (mag & 0xFF00);
-  int g = (n_bits - 1) * mag - wsum;
-  int m1_int = reversed ? (cols - 1 - c0) * mag - g : c0 * mag + g;
   float m0 = __fmul_rn((float)mag, unit);
-  float m1 = __fmul_rn((float)m1_int, unit);
+  float m1 = __fmul_rn((float)m1_int(mag, c0, n_bits, cols, reversed), unit);
   float row = __fadd_rn(1.0f, __fmul_rn(eta, (float)p));
   float mag_eff = __fadd_rn(__fmul_rn(row, m0), __fmul_rn(eta, m1));
   return __fmul_rn(sgn_scale, mag_eff);
 }
 
-// BM x BN output tile per block, BK rows of I per step, each thread
-// owns TM x TN outputs spread with strides (BM/TM, BN/TN) so that shared
-// memory reads are conflict-free or broadcast.
-template <int BM, int BN, int BK, int TM, int TN>
-__global__ void cim_mvm_kernel(
-    const float* __restrict__ x, const int16_t* __restrict__ codes,
-    const int32_t* __restrict__ pos, const float* __restrict__ scale_ptr,
-    float* __restrict__ out, int M, int I, int N, int n_pad, int n_tiles,
-    int i_pad, int k_per_split, float eta, int n_bits, int wpt, int cols,
-    int reversed) {
-  constexpr int TX = BN / TN;
-  constexpr int TY = BM / TM;
-  constexpr int NT = TX * TY;
-  __shared__ float xs[BK][BM];
-  __shared__ float ws[BK][BN];
+// The eta*M1 table: for each slot (n mod wpt) a row of 2^K floats, entry
+// mag holding eta * M1(mag), computed with the same rounded operations
+// as expand_weight.
+__device__ void build_table(float* table, int wpt, int n_bits, int cols,
+                            int reversed, float eta, float unit) {
+  const int n_mag = 1 << n_bits;
+  for (int e = threadIdx.x; e < wpt * n_mag; e += blockDim.x) {
+    int slot = e >> n_bits, mag = e & (n_mag - 1);
+    table[e] = __fmul_rn(
+        eta, __fmul_rn((float)m1_int(mag, slot * n_bits, n_bits, cols,
+                                     reversed), unit));
+  }
+}
 
+// Slot ``slot``'s table row, indexed by the magnitude.
+__device__ __forceinline__ const float* table_row(const float* table,
+                                                  int slot, int n_bits) {
+  return table + (slot << n_bits);
+}
+
+// The same W' from the row factor 1 + eta*p, the slot's table row and
+// the code: M0 = mag * 2^-K through the bits of 2^23 + mag (exact for
+// mag < 2^23, one FFMA instead of an int->float conversion), and the
+// sign applied by flipping the sign bit (round-to-nearest is symmetric,
+// so -scale * m == -(scale * m) bit for bit).
+__device__ __forceinline__ float expand_fast(int code, float row,
+                                             const float* tab_row,
+                                             float unit, float scale) {
+  int mag = abs(code);
+  float m0 = __fmaf_rn(__int_as_float(0x4B000000 | mag), unit,
+                       -8388608.0f * unit);
+  float mag_eff = __fadd_rn(__fmul_rn(row, m0), tab_row[mag]);
+  return __int_as_float(__float_as_int(__fmul_rn(scale, mag_eff)) ^
+                        (code & 0x80000000));
+}
+
+// ---------------------------------------------------------------- decode
+
+// Block: 8G columns (G threads of 8), KS = 256 / G slices of the
+// block's I range; cluster rank r owns rows [r*rps, min((r+1)*rps, I)),
+// slice s the rows k0 + s + KS*j.  MT: M rounded up to a power of two.
+template <int MT, bool FAST>
+__global__ void __cluster_dims__(1, CLUSTER, 1) __launch_bounds__(THREADS)
+cim_decode_kernel(const float* __restrict__ x,
+                  const int16_t* __restrict__ codes,
+                  const int32_t* __restrict__ pos,
+                  const float* __restrict__ scale_ptr,
+                  float* __restrict__ out, Geom g, float eta) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* xs = smem;                 // [rows][MT], later the reduction
+  float* table = smem + g.off_t;    // [wpt][2^K] eta * M1   (FAST)
+  float* part = smem + g.off_p;     // [MT][8G] the block's sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+
+  const int G = g.tile, KS = THREADS / G, W = 8 * G;
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int m_base = blockIdx.y * BM;
-  const int n_base = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(k_begin + k_per_split, i_pad);
+  const int gi_col = tid % G, sl = tid / G;
+  const int n0 = blockIdx.x * W + 8 * gi_col;
+  const int k0 = rank * g.rps;
+  const int k1 = min(k0 + g.rps, g.I);
+  const int rows = max(k1 - k0, 0);
   const float scale = *scale_ptr;
-  const float unit = ldexpf(1.0f, -n_bits);
-  // Every W' element a thread expands lies in one column of the tile
-  // (NT is a multiple of BN), so its column constants are computed once.
-  static_assert(NT % BN == 0, "a thread's W' elements share one column");
-  const int gn = n_base + tid % BN;
-  const int c0 = (gn % wpt) * n_bits;
-  const int tile_n = gn / wpt;
-  const bool col_ok = gn < n_pad;
+  const float unit = ldexpf(1.0f, -g.n_bits);
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int b = 0; b < TN; ++b) acc[a][b] = 0.0f;
+  // x slab, transposed to [row][m]: coalesced reads along I.
+  for (int e = tid; e < MT * rows; e += THREADS) {
+    int m = e / rows, r = e % rows;
+    xs[r * MT + m] = m < g.M ? x[(size_t)m * g.I + k0 + r] : 0.0f;
+  }
+  if (FAST)
+    build_table(table, g.wpt, g.n_bits, g.cols, g.reversed, eta, unit);
+  __syncthreads();
 
-  static_assert((BM * BK) % NT == 0 && (BK * BN) % NT == 0,
-                "tile loads must divide evenly over the block");
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    // Fixed trip counts, unrolled: every thread issues all its loads of
-    // the step before the first use, instead of one load-use round trip
-    // per element.
+  float acc[MT][8];
 #pragma unroll
-    for (int it = 0; it < BM * BK / NT; ++it) {
-      int e = tid + it * NT;
-      int r = e / BK, c = e % BK;
-      int gm = m_base + r, gi = k0 + c;
-      xs[c][r] = (gm < M && gi < I && gi < k_end) ? x[(size_t)gm * I + gi]
-                                                   : 0.0f;
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[m][j] = 0.0f;
+
+  if (FAST) {
+    // n_pad % 8 == 0 and wpt % 8 == 0: the 8 columns share one pos and
+    // their slots are slot0 .. slot0 + 7.
+    const bool col_ok = n0 < g.n_pad;
+    const int slot0 = n0 % g.wpt;
+    const int tile_n = n0 / g.wpt;
+    // Four rows a step, the next step's loads issued before this step's
+    // arithmetic, so a thread keeps 8 rows of loads in flight.
+    int4 cv[4];
+    int pv[4];
+    auto load4 = [&](int i, int4 (&c)[4], int (&p)[4]) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        int ii = i + u * KS;
+        bool ok = col_ok && ii < k1;
+        c[u] = ok ? __ldg(reinterpret_cast<const int4*>(
+                        codes + (size_t)ii * g.n_pad + n0))
+                  : make_int4(0, 0, 0, 0);
+        p[u] = ok ? __ldg(pos + (size_t)ii * g.n_tiles + tile_n) : 0;
+      }
+    };
+    load4(k0 + sl, cv, pv);
+    for (int i = k0 + sl; i < k1; i += 4 * KS) {
+      int4 ncv[4];
+      int npv[4];
+      load4(i + 4 * KS, ncv, npv);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        int ii = i + u * KS;
+        if (ii >= k1) break;
+        float row = __fadd_rn(1.0f, __fmul_rn(eta, (float)pv[u]));
+        const int words[4] = {cv[u].x, cv[u].y, cv[u].z, cv[u].w};
+        float w[8];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          int lo = (int)(int16_t)(words[q] & 0xFFFF);
+          int hi = words[q] >> 16;
+          w[2 * q] = expand_fast(
+              lo, row, table_row(table, slot0 + 2 * q, g.n_bits), unit, scale);
+          w[2 * q + 1] = expand_fast(
+              hi, row, table_row(table, slot0 + 2 * q + 1, g.n_bits), unit,
+              scale);
+        }
+        const float* xr = xs + (ii - k0) * MT;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          float xv = xr[m];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        cv[u] = ncv[u];
+        pv[u] = npv[u];
+      }
     }
-    int16_t code[BK * BN / NT];
-    int32_t p[BK * BN / NT];
+  } else {
+    // Any wpt and n_pad: one code and one pos a column.
+    int c0[8], tn[8];
 #pragma unroll
-    for (int it = 0; it < BK * BN / NT; ++it) {
-      int gi = k0 + tid / BN + it * (NT / BN);
-      bool ok = col_ok && gi < k_end;
-      code[it] = ok ? codes[(size_t)gi * n_pad + gn] : (int16_t)0;
-      p[it] = ok ? pos[(size_t)gi * n_tiles + tile_n] : 0;
+    for (int j = 0; j < 8; ++j) {
+      c0[j] = ((n0 + j) % g.wpt) * g.n_bits;
+      tn[j] = (n0 + j) / g.wpt;
     }
+    for (int i = k0 + sl; i < k1; i += KS) {
+      float w[8];
 #pragma unroll
-    for (int it = 0; it < BK * BN / NT; ++it) {
-      ws[tid / BN + it * (NT / BN)][tid % BN] = expand_weight(
-          code[it], p[it], c0, unit, scale, eta, n_bits, cols, reversed);
+      for (int j = 0; j < 8; ++j) {
+        bool ok = n0 + j < g.n_pad;
+        int code = ok ? codes[(size_t)i * g.n_pad + n0 + j] : 0;
+        int p = ok ? pos[(size_t)i * g.n_tiles + tn[j]] : 0;
+        w[j] = expand_weight(code, p, c0[j], unit, scale, eta, g.n_bits,
+                             g.cols, g.reversed);
+      }
+      const float* xr = xs + (i - k0) * MT;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        float xv = xr[m];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
+      }
+    }
+  }
+
+  // The KS slices of the block, summed in slice order, DEC_RM output
+  // rows a round, through the (now free) x slab.
+  float* red = xs;
+#pragma unroll
+  for (int m0 = 0; m0 < MT; m0 += DEC_RM) {
+    if (m0 >= g.M) break;
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < DEC_RM && r < MT; ++r) {
+      float4* dst = reinterpret_cast<float4*>(
+          red + (sl * DEC_RM + r) * W + 8 * gi_col);
+      dst[0] = make_float4(acc[m0 + r][0], acc[m0 + r][1], acc[m0 + r][2],
+                           acc[m0 + r][3]);
+      dst[1] = make_float4(acc[m0 + r][4], acc[m0 + r][5], acc[m0 + r][6],
+                           acc[m0 + r][7]);
     }
     __syncthreads();
+    for (int e = tid; e < DEC_RM * W; e += THREADS) {
+      int r = e / W, c = e % W;
+      if (m0 + r >= MT) continue;
+      float s = 0.0f;
+      for (int q = 0; q < KS; ++q) s += red[(q * DEC_RM + r) * W + c];
+      part[(m0 + r) * W + c] = s;
+    }
+  }
+
+  // The cluster's 8 blocks, summed in rank order; block r writes the
+  // elements e = r*256 + tid (mod 8*256) of the M x 8G tile.
+  cluster.sync();
+  for (int e = rank * THREADS + tid; e < g.M * W; e += CLUSTER * THREADS) {
+    int m = e / W, c = e % W;
+    int n = blockIdx.x * W + c;
+    if (n >= g.N) continue;
+    float s = *cluster.map_shared_rank(part + e, 0);
+#pragma unroll
+    for (int q = 1; q < CLUSTER; ++q) s += *cluster.map_shared_rank(part + e, q);
+    out[(size_t)m * g.N + n] = s;
+  }
+  cluster.sync();   // no block leaves while another reads its part
+}
+
+// --------------------------------------------------------------- prefill
+
+// The product runs transposed, y^T = W'^T x^T: W'^T is wgmma's A operand
+// and is expanded straight into registers, x is the B operand in shared
+// memory.  Block: 128 columns of W' (two warpgroups of 64) by 128 rows
+// of x, all of the block's part of I in slabs of BK = 32 rows.  Shared
+// memory holds x's TF32 hi and lo parts in wgmma's K-major core-matrix
+// layout (two buffers), the rows' factors 1 + eta*p (two buffers), and
+// a ring of PF_STAGES staged raw slabs (x, codes, pos) that cp.async
+// fills ahead.  A k step of 8: expand the thread's 4 weights of W'^T,
+// split them, issue 3 wgmma, and convert a piece of the next slab's x
+// while the previous step's products run.
+//
+// The tensor core adds products into its f32 accumulator with
+// truncation, not rounding: summed over all of I in the accumulator,
+// that bias grows with I and misses the 1e-5 bound at phi3's widths.
+// So each slab's products start from zero (the first wgmma of a slab
+// overwrites d), and d is added to the running sums with
+// round-to-nearest adds.
+template <bool FAST>
+__global__ void __launch_bounds__(THREADS, 1)
+cim_prefill_kernel(const float* __restrict__ x,
+                   const int16_t* __restrict__ codes,
+                   const int32_t* __restrict__ pos,
+                   const float* __restrict__ scale_ptr,
+                   float* __restrict__ out, Geom g, float eta) {
+  constexpr int BM = PF_BM, BN = PF_BN, BK = PF_BK;
+  constexpr int SBO = BK / 4 * 128;            // bytes between 8-row groups
+  constexpr int PART = BM * BK;                // floats of x's hi or lo part
+  constexpr int XLD = BK + 4;                  // staged x row (floats)
+  constexpr int CLD = BN + 8;                  // staged codes row (int16)
+  constexpr int TILES = BN / 8;                // pos entries a row (wpt 8)
+  constexpr int ST = BM * XLD * 4 + BK * CLD * 2 + BK * TILES * 4;
+  extern __shared__ float4 smem4[];
+  float* px = reinterpret_cast<float*>(smem4);  // [2 buf][hi, lo][PART]
+  float* rowf = px + 4 * PART;                  // [2 buf][BK][TILES]
+  char* ring = reinterpret_cast<char*>(rowf + 2 * BK * TILES);
+  float* table = reinterpret_cast<float*>(ring + PF_STAGES * ST);
+  auto xst_of = [&](int kt) {
+    return reinterpret_cast<float*>(ring + (kt % PF_STAGES) * ST);
+  };
+  auto cst_of = [&](int kt) {
+    return reinterpret_cast<int16_t*>(xst_of(kt) + BM * XLD);
+  };
+  auto pst_of = [&](int kt) {
+    return reinterpret_cast<int*>(cst_of(kt) + BK * CLD);
+  };
+  // Float offset of (row, k) in a core-matrix part.
+  auto core = [](int r, int k) {
+    return (r >> 3) * (SBO / 4) + (k >> 2) * 32 + (r & 7) * 4 + (k & 3);
+  };
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wg = warp / 4, gq = lane / 4, tq = lane % 4;
+  const int n_base = blockIdx.x * BN, m_base = blockIdx.y * BM;
+  // The thread's two columns of W' (its A-fragment rows).
+  const int c_lo = wg * 64 + (warp % 4) * 16 + gq, c_hi = c_lo + 8;
+  const float scale = *scale_ptr;
+  const float unit = ldexpf(1.0f, -g.n_bits);
+  const int n_steps = (g.I + BK - 1) / BK;
+  const bool xvec = (g.I % 4 == 0) &&
+                    ((reinterpret_cast<uintptr_t>(x) & 15) == 0);
+
+  // Slab kt's raw x, codes and pos into its ring slot: one commit group,
+  // empty past the last slab.
+  auto stage = [&](int kt) {
+    if (kt < n_steps) {
+      const int k0 = kt * BK;
+      float* xst = xst_of(kt);
+      if (xvec) {
+#pragma unroll
+        for (int it = 0; it < BM * BK / 4 / THREADS; ++it) {
+          int q = tid + it * THREADS;
+          int r = q / (BK / 4), c = 4 * (q % (BK / 4));
+          int gm = m_base + r, gi = k0 + c;
+          bool ok = gm < g.M && gi < g.I;
+          tf32::cp_async16(xst + r * XLD + c,
+                           ok ? x + (size_t)gm * g.I + gi : x, ok ? 16 : 0);
+        }
+      } else {
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
+        for (int it = 0; it < BM * BK / THREADS; ++it) {
+          int q = tid + it * THREADS;
+          int r = q / BK, c = q % BK;
+          int gm = m_base + r, gi = k0 + c;
+          bool ok = gm < g.M && gi < g.I;
+          tf32::cp_async4(xst + r * XLD + c,
+                          ok ? x + (size_t)gm * g.I + gi : x, ok ? 4 : 0);
+        }
+      }
+      if (FAST) {
+        int16_t* cst = cst_of(kt);
+        int* pst = pst_of(kt);
 #pragma unroll
-      for (int a = 0; a < TM; ++a) av[a] = xs[kk][ty + a * TY];
-#pragma unroll
-      for (int b = 0; b < TN; ++b) bv[b] = ws[kk][tx + b * TX];
-#pragma unroll
-      for (int a = 0; a < TM; ++a)
-#pragma unroll
-        for (int b = 0; b < TN; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+        for (int it = 0; it < BK * TILES / THREADS; ++it) {
+          int q = tid + it * THREADS;
+          int r = q / TILES, tile = q % TILES;
+          int gi = k0 + r, gn = n_base + 8 * tile;
+          bool ok = gi < g.I && gn < g.n_pad;
+          tf32::cp_async16(cst + r * CLD + 8 * tile,
+                           ok ? codes + (size_t)gi * g.n_pad + gn : codes,
+                           ok ? 16 : 0);
+          tf32::cp_async4(
+              pst + q, ok ? pos + (size_t)gi * g.n_tiles + gn / g.wpt : pos,
+              ok ? 4 : 0);
+        }
+      }
     }
+    tf32::cp_async_commit();
+  };
+
+  // Piece ``it`` (of 4) of slab kt's x as hi / lo parts of buffer
+  // ``buf``: 4 values of one row, one 16-byte core-matrix row each; and,
+  // for it < 2, 256 of the slab's 512 row factors.
+  auto convert = [&](int kt, int buf, int it) {
+    const float* xst = xst_of(kt);
+    float* xh = px + buf * 2 * PART;
+    int q = tid + it * THREADS;
+    int r = q % BM, kc = q / BM;
+    float4 v = *reinterpret_cast<const float4*>(xst + r * XLD + 4 * kc);
+    uint4 hi, lo;
+    tf32::split(v.x, hi.x, lo.x);
+    tf32::split(v.y, hi.y, lo.y);
+    tf32::split(v.z, hi.z, lo.z);
+    tf32::split(v.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(xh + core(r, 4 * kc)) = hi;
+    *reinterpret_cast<uint4*>(xh + PART + core(r, 4 * kc)) = lo;
+    if (FAST && it < BK * TILES / THREADS) {
+      rowf[buf * BK * TILES + q] =
+          __fadd_rn(1.0f, __fmul_rn(eta, (float)pst_of(kt)[q]));
+    }
+  };
+
+  // The thread's A fragment of k step k8 of slab kt: W'[k][c] for
+  // (c, k) = (c_lo, t), (c_hi, t), (c_lo, t + 4), (c_hi, t + 4).
+  auto expand_a = [&](int kt, int k8, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    float w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = e % 2 ? c_hi : c_lo, k = k8 * 8 + tq + 4 * (e / 2);
+      const int gn = n_base + c;
+      if constexpr (FAST) {
+        w[e] = expand_fast(cst_of(kt)[k * CLD + c],
+                           rowf[(kt & 1) * BK * TILES + k * TILES + c / 8],
+                           table_row(table, gn % g.wpt, g.n_bits), unit,
+                           scale);
+      } else {
+        const int gi = kt * BK + k;
+        const bool ok = gi < g.I && gn < g.n_pad;
+        int code = ok ? codes[(size_t)gi * g.n_pad + gn] : 0;
+        int p = ok ? pos[(size_t)gi * g.n_tiles + gn / g.wpt] : 0;
+        w[e] = expand_weight(code, p, (gn % g.wpt) * g.n_bits, unit, scale,
+                             eta, g.n_bits, g.cols, g.reversed);
+      }
+      tf32::split(w[e], ah[e], al[e]);
+    }
+  };
+
+  if (FAST)
+    build_table(table, g.wpt, g.n_bits, g.cols, g.reversed, eta, unit);
+  // Slab kt + PF_STAGES - 1 is staged while slab kt runs.
+  for (int kt = 0; kt < PF_STAGES - 1; ++kt) stage(kt);
+  tf32::cp_async_wait<PF_STAGES - 2>();
+  __syncthreads();                  // the table and slab 0's staging
+#pragma unroll
+  for (int it = 0; it < 4; ++it) convert(0, 0, it);
+  tf32::cp_async_wait<PF_STAGES - 3>();
+  tf32::fence_proxy_async();
+  __syncthreads();
+
+  float acc[64], d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = d[i] = 0.0f;
+  uint32_t ah[2][4], al[2][4];
+
+  for (int kt = 0; kt < n_steps; ++kt) {
+    const int buf = kt & 1;
+    const bool more = kt + 1 < n_steps;
+    stage(kt + PF_STAGES - 1);
+    const float* xh = px + buf * 2 * PART;
+#pragma unroll
+    for (int k8 = 0; k8 < BK / 8; ++k8) {
+      expand_a(kt, k8, ah[k8 % 2], al[k8 % 2]);
+      tf32::wg_fence();
+      tf32::wg_fence_operand(d);
+      const uint64_t b_hi = tf32::wg_desc(xh + 64 * k8, SBO);
+      const uint64_t b_lo = tf32::wg_desc(xh + PART + 64 * k8, SBO);
+      tf32::wgmma_m64n128k8_rs(d, al[k8 % 2], b_hi, k8 > 0);
+      tf32::wgmma_m64n128k8_rs(d, ah[k8 % 2], b_lo, 1);
+      tf32::wgmma_m64n128k8_rs(d, ah[k8 % 2], b_hi, 1);
+      tf32::wg_commit();
+      if (more) convert(kt + 1, buf ^ 1, k8);
+      tf32::wg_wait<1>();           // step k8 - 1 is done with its A
+    }
+    tf32::wg_wait<0>();
+    tf32::wg_fence_operand(d);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+    tf32::cp_async_wait<PF_STAGES - 3>();   // slab kt + 2 has landed
+    tf32::fence_proxy_async();
     __syncthreads();
   }
 
-  float* dst = out + (size_t)blockIdx.z * M * N;
+  // d[4j + e] is D[c][m]: W' column c_lo (e < 2) or c_hi, x row
+  // 8j + 2t + e % 2.
+  auto store = [&](int i, float v) {
+    int gn = n_base + (i % 4 < 2 ? c_lo : c_hi);
+    int gm = m_base + 8 * (i / 4) + 2 * tq + (i % 2);
+    if (gm < g.M && gn < g.N) out[(size_t)gm * g.N + gn] = v;
+  };
 #pragma unroll
-  for (int a = 0; a < TM; ++a) {
-    int gm = m_base + ty + a * TY;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int b = 0; b < TN; ++b) {
-      int gn = n_base + tx + b * TX;
-      if (gn < N) dst[(size_t)gm * N + gn] = acc[a][b];
-    }
+  for (int i = 0; i < 64; ++i) store(i, acc[i]);
+}
+
+// Set a kernel's dynamic shared-memory limit once, then launch.
+template <auto Kernel>
+cudaError_t launch(const Geom& g, const float* x, const int16_t* codes,
+                   const int32_t* pos, const float* scale, float* out,
+                   float eta, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  Kernel<<<dim3(g.gx, g.gy), THREADS, g.smem, stream>>>(x, codes, pos, scale,
+                                                        out, g, eta);
+  return cudaGetLastError();
+}
+
+template <bool FAST>
+cudaError_t launch_decode(const Geom& g, const float* x,
+                          const int16_t* codes, const int32_t* pos,
+                          const float* scale, float* out, float eta,
+                          cudaStream_t s) {
+  switch (g.mt) {
+    case 1: return launch<cim_decode_kernel<1, FAST>>(g, x, codes, pos, scale, out, eta, s);
+    case 2: return launch<cim_decode_kernel<2, FAST>>(g, x, codes, pos, scale, out, eta, s);
+    case 4: return launch<cim_decode_kernel<4, FAST>>(g, x, codes, pos, scale, out, eta, s);
+    case 8: return launch<cim_decode_kernel<8, FAST>>(g, x, codes, pos, scale, out, eta, s);
+    case 16: return launch<cim_decode_kernel<16, FAST>>(g, x, codes, pos, scale, out, eta, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-// out[j] = sum over splits s (in order) of partial[s, j].
-__global__ void sum_splits_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ out, int splits,
-                                  size_t count) {
-  size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= count) return;
-  float s = 0.0f;
-  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * count + j];
-  out[j] = s;
-}
-
-template <int BM, int BN, int BK, int TM, int TN>
-void launch_tile(const float* x, const int16_t* codes, const int32_t* pos,
-                 const float* scale, float* dst, int M, int I, int N,
-                 int n_pad, int n_tiles, int i_pad, int splits,
-                 int k_per_split, float eta, int n_bits, int wpt, int cols,
-                 int reversed, cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  dim3 block((BM / TM) * (BN / TN));
-  cim_mvm_kernel<BM, BN, BK, TM, TN><<<grid, block, 0, stream>>>(
-      x, codes, pos, scale, dst, M, I, N, n_pad, n_tiles, i_pad,
-      k_per_split, eta, n_bits, wpt, cols, reversed);
+cudaError_t launch_prefill(const Geom& g, const float* x,
+                           const int16_t* codes, const int32_t* pos,
+                           const float* scale, float* out, float eta,
+                           cudaStream_t s) {
+  return g.fast
+      ? launch<cim_prefill_kernel<true>>(g, x, codes, pos, scale, out, eta, s)
+      : launch<cim_prefill_kernel<false>>(g, x, codes, pos, scale, out, eta, s);
 }
 
 }  // namespace
 
-// Tile configurations, mirrored by repro_torch/kernels/cim_mvm/ops.py:
-//   small_m = 1 (M <= 16): BM 8,  BN 64, BK 64, 1 x 2 outputs a thread
-//   small_m = 0          : BM 64, BN 64, BK 16, 4 x 4 outputs a thread
-// ``partial`` holds splits * M * N floats when splits > 1 (else unused).
+// ``geom`` holds the Geom fields in order (ops.py::cim_geometry); returns
+// cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
+// geometry no kernel takes.
 extern "C" int cim_mvm_launch(const float* x, const int16_t* codes,
                               const int32_t* pos, const float* scale,
-                              float* out, float* partial, int M, int I,
-                              int N, int i_pad, int n_pad, int n_tiles,
-                              int splits, int k_per_split, float eta,
-                              int n_bits, int wpt, int cols, int reversed,
-                              int small_m, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  float* dst = splits > 1 ? partial : out;
-  if (small_m) {
-    launch_tile<8, 64, 64, 1, 2>(x, codes, pos, scale, dst, M, I, N, n_pad,
-                                 n_tiles, i_pad, splits, k_per_split, eta,
-                                 n_bits, wpt, cols, reversed, stream);
+                              float* out, const int* geom, float eta,
+                              void* stream_ptr) {
+  Geom g;
+  static_assert(sizeof(Geom) == 19 * sizeof(int), "Geom is 19 ints");
+  memcpy(&g, geom, sizeof(Geom));
+  cudaStream_t s = (cudaStream_t)stream_ptr;
+  cudaError_t err;
+  if (g.form == 0) {
+    if (g.gy != CLUSTER || THREADS % g.tile) return (int)cudaErrorInvalidValue;
+    err = g.fast ? launch_decode<true>(g, x, codes, pos, scale, out, eta, s)
+                 : launch_decode<false>(g, x, codes, pos, scale, out, eta, s);
+  } else if (g.tile == PF_BN) {
+    err = launch_prefill(g, x, codes, pos, scale, out, eta, s);
   } else {
-    launch_tile<64, 64, 16, 4, 4>(x, codes, pos, scale, dst, M, I, N, n_pad,
-                                  n_tiles, i_pad, splits, k_per_split, eta,
-                                  n_bits, wpt, cols, reversed, stream);
+    err = cudaErrorInvalidValue;
   }
-  if (splits > 1) {
-    size_t count = (size_t)M * N;
-    int threads = 256;
-    unsigned blocks = (unsigned)((count + threads - 1) / threads);
-    sum_splits_kernel<<<blocks, threads, 0, stream>>>(partial, out, splits,
-                                                      count);
-  }
-  return (int)cudaGetLastError();
+  return (int)err;
 }

@@ -8,9 +8,11 @@ CUDA tensors, the plain PyTorch version (``ref.py``) on CPU tensors.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -54,13 +56,20 @@ class CimDeployment:
     gain: torch.Tensor | None = None
     col_pos: torch.Tensor | None = None
     sigma_read: float = 0.0
+    _layers: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     def layer(self, r: int) -> "CimDeployment":
-        """Repeat ``r`` of a stacked deployment (views, no copy)."""
-        return dataclasses.replace(
-            self, codes=self.codes[r], pos=self.pos[r], scale=self.scale[r],
-            gain=None if self.gain is None else self.gain[r],
-            col_pos=None if self.col_pos is None else self.col_pos[r])
+        """Repeat ``r`` of a stacked deployment (views, no copy), made
+        once: a forward asks for every layer's view."""
+        view = self._layers.get(r)
+        if view is None:
+            view = self._layers[r] = dataclasses.replace(
+                self, codes=self.codes[r], pos=self.pos[r],
+                scale=self.scale[r],
+                gain=None if self.gain is None else self.gain[r],
+                col_pos=None if self.col_pos is None else self.col_pos[r])
+        return view
 
 
 def package_deployment(codes: torch.Tensor, sign: torch.Tensor,
@@ -101,9 +110,114 @@ def deploy(w: torch.Tensor, spec: CrossbarSpec, mode="mdm",
     return package_deployment(codes, sign, scale, plan, spec, eta), plan
 
 
-# Tile configurations of kernel.cu (BM, BK); BN is 64 in both.
-_BN = 64
-_SMALL_M = 16
+# Launch geometry of kernel.cu.  The decode form serves M <= DECODE_MAX_M
+# rows; a cluster of DECODE_CLUSTER blocks of THREADS threads splits I,
+# each block 8 * G columns.  The prefill form tiles (M, N) by
+# PREFILL_BM x PREFILL_BN and walks I in slabs of PREFILL_BK.
+THREADS = 256
+DECODE_MAX_M = 16
+DECODE_CLUSTER = 8
+DECODE_RM = 4                      # output rows a reduction round
+TABLE_MAX = 4096                   # eta*M1 table entries (wpt * 2^K)
+PREFILL_BM, PREFILL_BN, PREFILL_BK = 128, 128, 32
+PREFILL_STAGES = 3                 # ring of staged x, codes, pos slabs
+SMEM_MAX = 227 * 1024
+# The fields of kernel.cu's ``Geom``, in order.
+_GEOM_FIELDS = ("form", "M", "I", "N", "n_pad", "n_tiles", "wpt", "n_bits",
+                "cols", "reversed", "fast", "tile", "rps", "gx", "gy",
+                "smem", "off_t", "off_p", "mt")
+
+
+class CimGeometry(NamedTuple):
+    """One launch of kernel.cu: the ``Geom`` fields, and the same as a
+    ctypes int array for the launcher."""
+
+    geom: dict
+    array: ctypes.Array
+
+    def __getattr__(self, name):
+        try:
+            return self.geom[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _table(wpt: int, n_bits: int) -> int:
+    """Entries of the eta*M1 table: a row of 2^K a slot."""
+    return wpt << n_bits
+
+
+def _fast(aligned, n_pad, wpt, n_bits) -> bool:
+    """16-byte code loads, one pos per 8 columns, the eta*M1 table."""
+    return (aligned and n_pad % 8 == 0 and wpt % 8 == 0
+            and _table(wpt, n_bits) <= TABLE_MAX)
+
+
+def _decode_geometry(M, I, n_pad, wpt, n_bits, sm_count, aligned):
+    """Decode-form fields, or None where its shared memory would not
+    fit (a very long I)."""
+    fast = _fast(aligned, n_pad, wpt, n_bits)
+    mt = 1 << (M - 1).bit_length()
+    # The widest block (G column groups of 8) that still gives two
+    # blocks a SM; else G = 8.
+    for G in (32, 16, 8):
+        gx = math.ceil(n_pad / (8 * G))
+        if gx * DECODE_CLUSTER >= 2 * sm_count:
+            break
+    rps = math.ceil(I / DECODE_CLUSTER)
+    # x slab [rps][mt], reused for the slices' sums [KS][RM][8G]; the
+    # eta*M1 table; the block's sums [mt][8G] (offsets in floats).
+    slab = max(rps * mt, (THREADS // G) * DECODE_RM * 8 * G)
+    off_t = _round4(slab)
+    off_p = off_t + (_table(wpt, n_bits) if fast else 0)
+    smem = 4 * (off_p + mt * 8 * G)
+    if smem > SMEM_MAX:
+        return None
+    return dict(form=0, fast=int(fast), tile=G, rps=rps, gx=gx,
+                gy=DECODE_CLUSTER, smem=smem, off_t=off_t, off_p=off_p,
+                mt=mt)
+
+
+@functools.lru_cache(maxsize=None)
+def cim_geometry(M: int, I: int, N: int, i_pad: int, n_pad: int, wpt: int,
+                 n_bits: int, cols: int, reversed_df: bool, sm_count: int,
+                 aligned: bool) -> CimGeometry:
+    """The launch of ``cim_mvm`` for x (M, I) and a deployment with
+    (i_pad, n_pad) codes, on a card with ``sm_count`` SMs; ``aligned``
+    says whether the codes start on 16 bytes.  Cached per shape: a
+    decode step pays for it once per matrix shape.
+
+    Decode form (M <= 16): grid (gx, 8), cluster rank r sums the rows
+    [r*rps, min((r+1)*rps, I)), slice s of a block the rows r*rps + s +
+    KS*j (KS = 256 / G).  Prefill form: grid (ceil(N/128), ceil(M/128)),
+    each block all of I in slabs of 32 rows.  ``fast``: 16-byte code
+    loads and one pos per 8 columns (wpt % 8 == 0, n_pad % 8 == 0)."""
+    del i_pad                       # rows past I hold zero codes
+    g = _decode_geometry(M, I, n_pad, wpt, n_bits, sm_count, aligned) \
+        if M <= DECODE_MAX_M else None
+    if g is None:
+        fast = _fast(aligned, n_pad, wpt, n_bits)
+        # x as TF32 hi / lo parts and the rows' factors, two buffers each;
+        # a ring of staged raw x, codes and pos slabs; the eta*M1 table
+        # (dropped, with the 16-byte code path, where it would not fit).
+        bm, bn, bk = PREFILL_BM, PREFILL_BN, PREFILL_BK
+        stage = bm * (bk + 4) * 4 + bk * (bn + 8) * 2 + bk * (bn // 8) * 4
+        smem = (2 * 2 * bm * bk * 4 + 2 * bk * (bn // 8) * 4
+                + PREFILL_STAGES * stage)
+        if fast and smem + 4 * _table(wpt, n_bits) > SMEM_MAX:
+            fast = False
+        smem += 4 * _table(wpt, n_bits) if fast else 0
+        g = dict(form=1, fast=int(fast), tile=bn, rps=0,
+                 gx=math.ceil(N / bn), gy=math.ceil(M / bm), smem=smem,
+                 off_t=0, off_p=0, mt=0)
+    g.update(M=M, I=I, N=N, n_pad=n_pad, n_tiles=n_pad // wpt, wpt=wpt,
+             n_bits=n_bits, cols=cols, reversed=int(reversed_df))
+    values = [g[f] for f in _GEOM_FIELDS]
+    return CimGeometry(g, (ctypes.c_int * len(values))(*values))
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,24 +246,14 @@ def _launch(x: torch.Tensor, dep: CimDeployment) -> torch.Tensor:
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return out
-    small = M <= _SMALL_M
-    bm, bk = (8, 64) if small else (64, 16)
-    blocks = math.ceil(N / _BN) * math.ceil(M / bm)
-    # Enough blocks for ~8 resident a SM: decode's few output tiles
-    # split I, the splits summed in order by a second kernel.
-    splits = max(1, min(math.ceil(8 * _sm_count(x.device.index or 0)
-                                  / blocks), i_pad // bk))
-    k_per = math.ceil(math.ceil(i_pad / splits) / bk) * bk
-    splits = math.ceil(i_pad / k_per)
-    partial = (torch.empty((splits, M, N), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
-    lib = runtime.library()
-    rc = lib.cim_mvm_launch(
-        x.data_ptr(), codes.data_ptr(), pos.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), None if partial is None else partial.data_ptr(),
-        M, I, N, i_pad, n_pad, n_tiles, splits, k_per, float(dep.eta),
-        dep.n_bits, dep.wpt, dep.cols, int(dep.reversed_df), int(small),
-        runtime.stream_arg())
+    codes_ptr = codes.data_ptr()
+    geom = cim_geometry(M, I, N, i_pad, n_pad, dep.wpt, dep.n_bits,
+                        dep.cols, dep.reversed_df,
+                        _sm_count(x.device.index or 0), codes_ptr % 16 == 0)
+    rc = runtime.library().cim_mvm_launch(
+        x.data_ptr(), codes_ptr, pos.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), geom.array, dep.eta,
+        runtime.stream_arg(out.device))
     runtime.count_launch("cim_mvm")
     runtime.check_status("cim_mvm", rc)
     return out
@@ -174,9 +278,11 @@ def cim_mvm(x: torch.Tensor, dep: CimDeployment,
         raise ValueError(f"x feature dim {x.shape[-1]} != deployed in_dim "
                          f"{dep.in_dim}")
     batch = x.shape[:-1]
-    x2 = x.reshape(-1, dep.in_dim).to(torch.float32).contiguous()
+    x2 = x if x.ndim == 2 else x.reshape(-1, dep.in_dim)
+    if x2.dtype != torch.float32 or not x2.is_contiguous():
+        x2 = x2.to(torch.float32).contiguous()
     if dev.type == "cpu":
         y = cim_mvm_plain(x2, dep)
     else:
         y = _launch(x2, dep)
-    return y.reshape(*batch, dep.out_dim)
+    return y if x.ndim == 2 else y.reshape(*batch, dep.out_dim)

@@ -12,168 +12,468 @@
 //   normalisation as repro/models/attention.py), so per-lane positions
 //   need no other kernel.  Empty cache slots carry EMPTY_POS = 2^30 and
 //   mask themselves out.  GQA maps query head h to KV head h / (H/Hkv)
-//   without copying K or V.
+//   without copying K or V.  Dh is any value in 1..128, zero-padded to
+//   DP = 32 * ceil(Dh / 32) in registers and shared memory.
 //
 // Guards kept from the reference: the running max is clamped at
 // NEG_INF/2 before exponentiation and the denominator is floored at
 // 1e-30, so a fully masked query row returns 0, not NaN.
 //
-// Design.  One block serves QB = 8 queries of one (batch, head), one warp
-// a query.  Keys stream through shared memory in tiles of 32: lane L
-// computes the score of key L of the tile (a full Dh-long dot product
-// against the query, read as a broadcast), the warp reduces the tile's
-// max and sum with shuffles, and then every lane updates the output
-// dims it owns (d = lane + 32 j) with the 32 probabilities, broadcast by
-// shuffle.  The K tile rows are padded to Dh + 1 floats so that 32
-// lanes reading 32 rows hit 32 banks.  Dh may be any value up to 128;
-// phi3-mini's 96 is three dims a lane.
+// The wrapper (ops.py::flash_geometry) picks one of two forms by Sq.
 //
-// What bounds it.  At decode (Sq = 1) every K/V element is used once:
-// the kernel is bound by reading the cache (memory).  At the slice's
-// prefill (Sq = 128 against a short cache) it is bound by its scalar f32
-// FMAs and shuffles; a tensor-core version is later work.
+// Prefill form (Sq > 16).  Bound by the products.  A block takes 64
+// queries of one (b, h), four warps of 16 rows; K/V tiles of 32 keys
+// arrive by cp.async into the second of two shared-memory buffers while
+// the first is in use, so each (b, h) streams its K/V into shared memory
+// once per 64 queries.  S = Q.K^T and O += P.V run on tensor cores in
+// 3xTF32 (../tf32_mma.cuh), mma.sync m16n8k8: S stays in the mma's
+// accumulator registers, where the online softmax runs (row max and sum
+// over the 4 lanes of a quad), and P feeds the P.V product from the same
+// registers without a shuffle, by pairing the accumulator's columns
+// (2t, 2t+1) with the A operand's k indices (t, t+4) and reading V's
+// rows in the same order.  wgmma would need P in shared memory or in its
+// own register layout and 64-row tiles per warpgroup; at the slice's
+// Sq = 128 that is two tiles per head.  A tile is skipped, from the
+// positions and not the indices, when its smallest key position is above
+// every query position of the block or, with window > 0, every key lies
+// outside the window of every query: EMPTY_POS slots and the causal
+// upper half cost nothing.
+//
+// Decode form (Sq <= 16).  Bound by reading the cache.  A block serves
+// one query of one (b, h); its 8 warps x 4 lane groups of 8 lanes split
+// the keys (key c goes to warp (c / 4) mod 8, lane group c mod 4), a group
+// reads a key with 16-byte loads (4 floats a lane, DP / 32 loads) and
+// skips the loads of masked keys.  The 32 partial (m, l, acc) meet in
+// shared memory and merge in a fixed order.
+//
+// No atomics and fixed reduction orders: two calls give bit-identical
+// results.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../tf32_mma.cuh"
+
 namespace {
 
-constexpr int QB = 8;      // queries (warps) per block
-constexpr int KT = 32;     // keys per shared-memory tile
 constexpr float NEG_INF = -1e30f;
+constexpr int EMPTY_POS = 1 << 30;
+constexpr int PF_QB = 64;       // prefill: queries a block (4 warps x 16)
+constexpr int PF_KT = 32;       // prefill: keys a tile
+constexpr int DEC_WARPS = 8;    // decode: warps a block
+constexpr int DEC_PARTS = DEC_WARPS * 4;
 
-template <int DC>  // dims per lane: Dh <= 32 * DC
-__global__ void flash_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const int32_t* __restrict__ q_pos,
-                             const int32_t* __restrict__ k_pos,
-                             float* __restrict__ out, int Sq, int C, int H,
-                             int Hkv, int Dh, int q_pos_stride,
-                             int k_pos_stride, int window, float scale) {
-  constexpr int DMAX = 32 * DC;
-  __shared__ float q_s[QB][DMAX];
-  __shared__ float k_s[KT][DMAX + 1];
-  __shared__ float v_s[KT][DMAX];
-  __shared__ int kp_s[KT];
+__device__ __forceinline__ bool key_valid(int kpos, int qpos, int window) {
+  return kpos <= qpos && (window <= 0 || qpos - kpos < window);
+}
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// ---------------------------------------------------------------- prefill
+
+template <int DC>
+__global__ void __launch_bounds__(128)
+flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const int32_t* __restrict__ q_pos,
+                     const int32_t* __restrict__ k_pos,
+                     float* __restrict__ out, int Sq, int C, int H, int Hkv,
+                     int Dh, int q_pos_stride, int k_pos_stride, int window,
+                     float scale) {
+  constexpr int DP = 32 * DC, LD = DP + 4, KT = PF_KT;
+  constexpr int K8 = DP / 8;          // k steps of Q.K^T, n tiles of P.V
+  constexpr int TS = KT * LD;         // one K or V tile
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);   // [2][KT][LD]
+  float* vs = ks + 2 * TS;                       // [2][KT][LD]
+  int* kp = reinterpret_cast<int*>(vs + 2 * TS); // [2][KT]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const int qi = blockIdx.x * QB + warp;
-  const bool active = qi < Sq;
+  const int q0 = blockIdx.x * PF_QB;
+  const int ra = q0 + warp * 16 + gq, rb = ra + 8;
+  const int32_t* qp_row = q_pos + (size_t)b * q_pos_stride;
+  const int32_t* kp_row = k_pos + (size_t)b * k_pos_stride;
+  // A row past Sq gets a position no key is valid for.
+  const int qpa = ra < Sq ? qp_row[ra] : INT32_MIN;
+  const int qpb = rb < Sq ? qp_row[rb] : INT32_MIN;
 
-  for (int e = threadIdx.x; e < QB * DMAX; e += blockDim.x) {
-    int r = e / DMAX, d = e % DMAX;
-    int s = blockIdx.x * QB + r;
-    q_s[r][d] = (s < Sq && d < Dh)
-                    ? q[(((size_t)b * Sq + s) * H + h) * Dh + d]
-                    : 0.0f;
+  // The block's smallest and largest query position (rows < Sq).
+  int qmin = INT32_MAX, qmax = INT32_MIN;
+  for (int r = lane; r < PF_QB; r += 32) {
+    if (q0 + r < Sq) {
+      int p = qp_row[q0 + r];
+      qmin = min(qmin, p);
+      qmax = max(qmax, p);
+    }
   }
-  const int qpos = active ? q_pos[(size_t)b * q_pos_stride + qi] : 0;
-
-  float m = NEG_INF, l = 0.0f;
-  float acc[DC];
 #pragma unroll
-  for (int j = 0; j < DC; ++j) acc[j] = 0.0f;
-
-  for (int c0 = 0; c0 < C; c0 += KT) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < KT * DMAX; e += blockDim.x) {
-      int r = e / DMAX, d = e % DMAX;
-      int c = c0 + r;
-      bool ok = c < C && d < Dh;
-      size_t off = (((size_t)b * C + c) * Hkv + hk) * Dh + d;
-      k_s[r][d] = ok ? k[off] : 0.0f;
-      v_s[r][d] = ok ? v[off] : 0.0f;
+  for (int o = 16; o > 0; o >>= 1) {
+    qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, o));
+    qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, o));
+  }
+  const int n_tiles = (C + KT - 1) / KT;
+  // First tile >= t that some key of some query of the block needs;
+  // every warp finds the same answer.
+  auto next_tile = [&](int t) {
+    for (; t < n_tiles; ++t) {
+      int c = t * KT + lane;
+      int p = c < C ? kp_row[c] : EMPTY_POS;
+      bool need = p <= qmax && (window <= 0 || qmin - p < window);
+      if (__any_sync(0xffffffffu, need)) break;
     }
-    if (threadIdx.x < KT) {
-      int c = c0 + threadIdx.x;
-      kp_s[threadIdx.x] =
-          c < C ? k_pos[(size_t)b * k_pos_stride + c] : (1 << 30);
-    }
-    __syncthreads();
-    if (!active) continue;
+    return t;
+  };
 
-    // Score of key `lane` of this tile.
-    float dot = 0.0f;
-    for (int d = 0; d < Dh; ++d) dot = fmaf(q_s[warp][d], k_s[lane][d], dot);
-    int kpos = kp_s[lane];
-    bool valid = (c0 + lane < C) && kpos <= qpos;
-    if (window > 0) valid = valid && (qpos - kpos) < window;
-    float s = valid ? dot * scale : NEG_INF;
-
-    float m_cur = s;
+  // Q fragments (raw f32, split per use): rows ra / rb, dims k8*8 + tq
+  // and + 4, zero past Sq and Dh.
+  float qa[K8][4];
+  {
+    const float* qra = q + (((size_t)b * Sq + ra) * H + h) * Dh;
+    const float* qrb = q + (((size_t)b * Sq + rb) * H + h) * Dh;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, o));
-    float m_new = fmaxf(m, m_cur);
-    float m_safe = fmaxf(m_new, NEG_INF / 2);
-    float p = expf(s - m_safe);
-    float corr = expf(fminf(m - m_safe, 0.0f));
-    float p_sum = p;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      p_sum += __shfl_xor_sync(0xffffffffu, p_sum, o);
-    m = m_new;
-    l = l * corr + p_sum;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[j] *= corr;
-    for (int key = 0; key < KT; ++key) {
-      float pk = __shfl_sync(0xffffffffu, p, key);
-#pragma unroll
-      for (int j = 0; j < DC; ++j)
-        acc[j] = fmaf(pk, v_s[key][lane + 32 * j], acc[j]);
+    for (int k8 = 0; k8 < K8; ++k8) {
+      int d0 = k8 * 8 + tq, d1 = d0 + 4;
+      qa[k8][0] = ra < Sq && d0 < Dh ? qra[d0] : 0.0f;
+      qa[k8][1] = rb < Sq && d0 < Dh ? qrb[d0] : 0.0f;
+      qa[k8][2] = ra < Sq && d1 < Dh ? qra[d1] : 0.0f;
+      qa[k8][3] = rb < Sq && d1 < Dh ? qrb[d1] : 0.0f;
     }
   }
 
-  if (!active) return;
-  float denom = fmaxf(l, 1e-30f);
+  const bool vec = Dh % 4 == 0 && aligned16(k) && aligned16(v);
+  auto load_tile = [&](int t, int buf) {
+    float* kd = ks + buf * TS;
+    float* vd = vs + buf * TS;
+    if (vec) {
 #pragma unroll
-  for (int j = 0; j < DC; ++j) {
-    int d = lane + 32 * j;
-    if (d < Dh) out[(((size_t)b * Sq + qi) * H + h) * Dh + d] = acc[j] / denom;
+      for (int it = 0; it < KT * DP / 4 / 128; ++it) {
+        int e = tid + it * 128;
+        int r = e / (DP / 4), d = 4 * (e % (DP / 4));
+        int c = t * KT + r;
+        bool ok = c < C && d < Dh;
+        size_t off = (((size_t)b * C + c) * Hkv + hk) * Dh + d;
+        tf32::cp_async16(kd + r * LD + d, ok ? k + off : k, ok ? 16 : 0);
+        tf32::cp_async16(vd + r * LD + d, ok ? v + off : v, ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll 4
+      for (int it = 0; it < KT * DP / 128; ++it) {
+        int e = tid + it * 128;
+        int r = e / DP, d = e % DP;
+        int c = t * KT + r;
+        bool ok = c < C && d < Dh;
+        size_t off = (((size_t)b * C + c) * Hkv + hk) * Dh + d;
+        tf32::cp_async4(kd + r * LD + d, ok ? k + off : k, ok ? 4 : 0);
+        tf32::cp_async4(vd + r * LD + d, ok ? v + off : v, ok ? 4 : 0);
+      }
+    }
+    if (tid < KT) {
+      int c = t * KT + tid;
+      kp[buf * KT + tid] = c < C ? kp_row[c] : EMPTY_POS;
+    }
+  };
+
+  float oacc[K8][4];
+#pragma unroll
+  for (int n = 0; n < K8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.0f;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.0f, l_b = 0.0f;
+
+  int cur = next_tile(0), buf = 0;
+  if (cur < n_tiles) load_tile(cur, 0);
+  tf32::cp_async_commit();
+  while (cur < n_tiles) {
+    const int nxt = next_tile(cur + 1);
+    if (nxt < n_tiles) load_tile(nxt, buf ^ 1);
+    tf32::cp_async_commit();
+    tf32::cp_async_wait<1>();
+    __syncthreads();
+
+    const float* kb = ks + buf * TS;
+    const float* vb = vs + buf * TS;
+    const int* kpb = kp + buf * KT;
+    // S = Q K^T for 16 rows x 32 keys a warp.
+    float s[4][4];
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nj][e] = 0.0f;
+#pragma unroll
+    for (int k8 = 0; k8 < K8; ++k8) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tf32::split(qa[k8][e], ah[e], al[e]);
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        const float* kr = kb + (nj * 8 + gq) * LD + k8 * 8 + tq;
+        uint32_t bh[2], bl[2];
+        tf32::split(kr[0], bh[0], bl[0]);
+        tf32::split(kr[4], bh[1], bl[1]);
+        tf32::mma3(s[nj], ah, al, bh, bl);
+      }
+    }
+    // Mask, scale and the online softmax of rows ra (e = 0, 1) and rb.
+    float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int kpos = kpb[nj * 8 + 2 * tq + (e & 1)];
+        bool ok = key_valid(kpos, e < 2 ? qpa : qpb, window);
+        s[nj][e] = ok ? s[nj][e] * scale : NEG_INF;
+        if (e < 2) mx_a = fmaxf(mx_a, s[nj][e]);
+        else mx_b = fmaxf(mx_b, s[nj][e]);
+      }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float ms_a = fmaxf(mn_a, NEG_INF / 2), ms_b = fmaxf(mn_b, NEG_INF / 2);
+    const float corr_a = expf(fminf(m_a - ms_a, 0.0f));
+    const float corr_b = expf(fminf(m_b - ms_b, 0.0f));
+    float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = expf(s[nj][e] - (e < 2 ? ms_a : ms_b));
+        s[nj][e] = p;
+        if (e < 2) sum_a += p;
+        else sum_b += p;
+      }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      sum_a += __shfl_xor_sync(0xffffffffu, sum_a, o);
+      sum_b += __shfl_xor_sync(0xffffffffu, sum_b, o);
+    }
+    l_a = l_a * corr_a + sum_a;
+    l_b = l_b * corr_b + sum_b;
+    m_a = mn_a;
+    m_b = mn_b;
+#pragma unroll
+    for (int n = 0; n < K8; ++n) {
+      oacc[n][0] *= corr_a;
+      oacc[n][1] *= corr_a;
+      oacc[n][2] *= corr_b;
+      oacc[n][3] *= corr_b;
+    }
+    // O += P V: keys 8kk + 2t and 8kk + 2t + 1 are the A operand's k
+    // indices t and t + 4, and V's rows are read in that order.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ah[4], al[4];
+      tf32::split(s[kk][0], ah[0], al[0]);
+      tf32::split(s[kk][2], ah[1], al[1]);
+      tf32::split(s[kk][1], ah[2], al[2]);
+      tf32::split(s[kk][3], ah[3], al[3]);
+      const float* vr = vb + (kk * 8 + 2 * tq) * LD + gq;
+#pragma unroll
+      for (int n = 0; n < K8; ++n) {
+        uint32_t bh[2], bl[2];
+        tf32::split(vr[n * 8], bh[0], bl[0]);
+        tf32::split(vr[LD + n * 8], bh[1], bl[1]);
+        tf32::mma3(oacc[n], ah, al, bh, bl);
+      }
+    }
+    __syncthreads();
+    cur = nxt;
+    buf ^= 1;
+  }
+
+  const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < K8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      int r = e < 2 ? ra : rb;
+      int d = n * 8 + 2 * tq + (e & 1);
+      if (r < Sq && d < Dh)
+        out[(((size_t)b * Sq + r) * H + h) * Dh + d] =
+            oacc[n][e] / (e < 2 ? den_a : den_b);
+    }
+}
+
+// ----------------------------------------------------------------- decode
+
+template <int DC>
+__device__ __forceinline__ void load_row(float (&dst)[DC][4],
+                                         const float* row, int j, int Dh,
+                                         bool vec, bool ok) {
+#pragma unroll
+  for (int i = 0; i < DC; ++i) {
+    int d = 4 * (j + 8 * i);
+    if (vec) {
+      float4 t = ok && d < Dh ? *reinterpret_cast<const float4*>(row + d)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      dst[i][0] = t.x;
+      dst[i][1] = t.y;
+      dst[i][2] = t.z;
+      dst[i][3] = t.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dst[i][e] = ok && d + e < Dh ? row[d + e] : 0.0f;
+    }
   }
 }
 
 template <int DC>
-void launch(const float* q, const float* k, const float* v,
-            const int32_t* q_pos, const int32_t* k_pos, float* out, int B,
-            int Sq, int C, int H, int Hkv, int Dh, int q_pos_stride,
-            int k_pos_stride, int window, float scale, cudaStream_t stream) {
-  dim3 grid((Sq + QB - 1) / QB, H, B);
-  flash_kernel<DC><<<grid, QB * 32, 0, stream>>>(
-      q, k, v, q_pos, k_pos, out, Sq, C, H, Hkv, Dh, q_pos_stride,
-      k_pos_stride, window, scale);
+__global__ void __launch_bounds__(DEC_WARPS * 32)
+flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const int32_t* __restrict__ q_pos,
+                    const int32_t* __restrict__ k_pos,
+                    float* __restrict__ out, int Sq, int C, int H, int Hkv,
+                    int Dh, int q_pos_stride, int k_pos_stride, int window,
+                    float scale) {
+  constexpr int DP = 32 * DC;
+  __shared__ float pacc[DEC_PARTS][DP];
+  __shared__ float pm[DEC_PARTS], pl[DEC_PARTS];
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int grp = lane / 8, j = lane % 8;
+  const int part = warp * 4 + grp;
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int qpos = q_pos[(size_t)b * q_pos_stride + s];
+  const int32_t* kp_row = k_pos + (size_t)b * k_pos_stride;
+  const bool vec = Dh % 4 == 0 && aligned16(q) && aligned16(k) &&
+                   aligned16(v);
+
+  float qv[DC][4];
+  load_row<DC>(qv, q + (((size_t)b * Sq + s) * H + h) * Dh, j, Dh, vec,
+               true);
+  float m = NEG_INF, l = 0.0f;
+  float acc[DC][4];
+#pragma unroll
+  for (int i = 0; i < DC; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+
+  // Keys c = 4 * (warp + 8 * it) + grp, two rounds in flight; the loop
+  // runs on the warp's base key, so all 32 lanes take every shuffle.
+  for (int c0 = 4 * warp; c0 < C; c0 += 2 * 4 * DEC_WARPS) {
+    int cs[2] = {c0 + grp, c0 + grp + 4 * DEC_WARPS};
+    bool ok[2];
+    float kv[2][DC][4], vv[2][DC][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      int c = cs[u];
+      ok[u] = c < C && key_valid(kp_row[c], qpos, window);
+      size_t off = (((size_t)b * C + c) * Hkv + hk) * Dh;
+      load_row<DC>(kv[u], k + off, j, Dh, vec, ok[u]);
+      load_row<DC>(vv[u], v + off, j, Dh, vec, ok[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float dot = 0.0f;
+#pragma unroll
+      for (int i = 0; i < DC; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dot = fmaf(qv[i][e], kv[u][i][e], dot);
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      if (!ok[u]) continue;      // a masked key changes nothing
+      float sc = dot * scale;
+      float m_new = fmaxf(m, sc);
+      float m_safe = fmaxf(m_new, NEG_INF / 2);
+      float p = expf(sc - m_safe);
+      float corr = expf(fminf(m - m_safe, 0.0f));
+      l = l * corr + p;
+      m = m_new;
+#pragma unroll
+      for (int i = 0; i < DC; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][e] = fmaf(p, vv[u][i][e], acc[i][e] * corr);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < DC; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pacc[part][4 * (j + 8 * i) + e] = acc[i][e];
+  if (j == 0) {
+    pm[part] = fmaxf(m, NEG_INF / 2);
+    pl[part] = l;
+  }
+  __syncthreads();
+  // Merge the partials in order 0 .. DEC_PARTS - 1.
+  float ms = NEG_INF / 2;
+  for (int i = 0; i < DEC_PARTS; ++i) ms = fmaxf(ms, pm[i]);
+  for (int d = tid; d < Dh; d += DEC_WARPS * 32) {
+    float L = 0.0f, o = 0.0f;
+    for (int i = 0; i < DEC_PARTS; ++i) {
+      float f = expf(pm[i] - ms);
+      L += pl[i] * f;
+      o += pacc[i][d] * f;
+    }
+    out[(((size_t)b * Sq + s) * H + h) * Dh + d] = o / fmaxf(L, 1e-30f);
+  }
+}
+
+template <auto Kernel>
+cudaError_t set_smem_once(int bytes) {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done = true;
+  return err;
+}
+
+template <int DC>
+cudaError_t launch(int form, int gx, const float* q, const float* k,
+                   const float* v, const int32_t* q_pos,
+                   const int32_t* k_pos, float* out, int B, int Sq, int C,
+                   int H, int Hkv, int Dh, int qs, int kps, int window,
+                   float scale, cudaStream_t stream) {
+  dim3 grid(gx, H, B);
+  if (form == 0) {
+    flash_decode_kernel<DC><<<grid, DEC_WARPS * 32, 0, stream>>>(
+        q, k, v, q_pos, k_pos, out, Sq, C, H, Hkv, Dh, qs, kps, window,
+        scale);
+  } else {
+    constexpr int LD = 32 * DC + 4;
+    const int smem = (4 * PF_KT * LD + 2 * PF_KT) * 4;
+    cudaError_t err = set_smem_once<flash_prefill_kernel<DC>>(smem);
+    if (err != cudaSuccess) return err;
+    flash_prefill_kernel<DC><<<grid, 128, smem, stream>>>(
+        q, k, v, q_pos, k_pos, out, Sq, C, H, Hkv, Dh, qs, kps, window,
+        scale);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns cudaErrorInvalidValue for Dh outside 1..128 or H not a
-// multiple of Hkv (the wrapper checks both first).
+// form 0 (decode, grid x = Sq) or 1 (prefill, grid x = query blocks of
+// 64), as ops.py::flash_geometry picks.  Returns cudaErrorInvalidValue
+// for Dh outside 1..128 or H not a multiple of Hkv (the wrapper checks
+// both first).
 extern "C" int flash_attention_launch(const float* q, const float* k,
                                       const float* v, const int32_t* q_pos,
                                       const int32_t* k_pos, float* out,
                                       int B, int Sq, int C, int H, int Hkv,
                                       int Dh, int q_pos_stride,
                                       int k_pos_stride, int window,
-                                      float scale, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
+                                      float scale, int form, int gx,
+                                      void* stream_ptr) {
+  cudaStream_t s = (cudaStream_t)stream_ptr;
   if (Dh < 1 || Dh > 128 || Hkv < 1 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
-  int dc = (Dh + 31) / 32;
-  if (dc == 1)
-    launch<1>(q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, q_pos_stride,
-              k_pos_stride, window, scale, stream);
-  else if (dc == 2)
-    launch<2>(q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, q_pos_stride,
-              k_pos_stride, window, scale, stream);
-  else if (dc == 3)
-    launch<3>(q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, q_pos_stride,
-              k_pos_stride, window, scale, stream);
-  else
-    launch<4>(q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, q_pos_stride,
-              k_pos_stride, window, scale, stream);
-  return (int)cudaGetLastError();
+  switch ((Dh + 31) / 32) {
+    case 1: return (int)launch<1>(form, gx, q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, q_pos_stride, k_pos_stride, window, scale, s);
+    case 2: return (int)launch<2>(form, gx, q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, q_pos_stride, k_pos_stride, window, scale, s);
+    case 3: return (int)launch<3>(form, gx, q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, q_pos_stride, k_pos_stride, window, scale, s);
+    default: return (int)launch<4>(form, gx, q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, q_pos_stride, k_pos_stride, window, scale, s);
+  }
 }

@@ -1,11 +1,37 @@
 """Wrapper of the flash-attention kernel (``kernel.cu``)."""
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+
+# Launch geometry of kernel.cu: the decode form for Sq <= DECODE_MAX_SQ
+# (one block a query and head, DECODE_WARPS * 4 partial states over the
+# keys), else the prefill form (PREFILL_QB queries a block, key tiles of
+# PREFILL_KT).
+DECODE_MAX_SQ = 16
+DECODE_WARPS = 8
+PREFILL_QB, PREFILL_KT = 64, 32
+
+
+class FlashGeometry(NamedTuple):
+    form: int        # 0 decode, 1 prefill
+    grid_x: int      # grid (grid_x, H, B)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_geometry(Sq: int) -> FlashGeometry:
+    """The form and grid of one flash launch for Sq queries."""
+    if Sq <= DECODE_MAX_SQ:
+        return FlashGeometry(0, Sq)
+    return FlashGeometry(1, math.ceil(Sq / PREFILL_QB))
 
 
 def _pos_rows(p: torch.Tensor, B: int, S: int, name: str):
@@ -51,11 +77,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    lib = runtime.library()
-    rc = lib.flash_attention_launch(
+    geom = flash_geometry(Sq)
+    rc = runtime.library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
         kp.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, Dh, q_stride,
-        k_stride, int(window), float(Dh ** -0.5), runtime.stream_arg())
+        k_stride, int(window), float(Dh ** -0.5), geom.form, geom.grid_x,
+        runtime.stream_arg(out.device))
     runtime.count_launch("flash_attention")
     runtime.check_status("flash_attention", rc)
     return out

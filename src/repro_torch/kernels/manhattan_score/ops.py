@@ -43,7 +43,7 @@ def manhattan_score(masks: torch.Tensor, nf_unit: float = 1.0, *,
         rc = lib.manhattan_score_launch(
             flat.data_ptr(), None if rp is None else rp.data_ptr(),
             s.data_ptr(), n.data_ptr(), nf.data_ptr(), T, R, C,
-            int(reverse), float(nf_unit), runtime.stream_arg())
+            int(reverse), float(nf_unit), runtime.stream_arg(s.device))
         runtime.count_launch("manhattan_score")
         runtime.check_status("manhattan_score", rc)
     return s.reshape(*batch, R), n.reshape(*batch, R), nf.reshape(batch)

@@ -33,6 +33,7 @@ KERNEL_DIR = Path(__file__).resolve().parent
 SOURCES = ("cim_mvm/kernel.cu", "flash_attention/kernel.cu",
            "manhattan_score/kernel.cu", "slstm_scan/kernel.cu",
            "bitslice_pack/kernel.cu")
+HEADERS = ("tf32_mma.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("cim_mvm", "flash_attention", "manhattan_score", "slstm_scan",
@@ -44,9 +45,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the launchers (each returns cudaGetLastError()).
 _ARGTYPES = {
-    "cim_mvm_launch": [_P, _P, _P, _P, _P, _P] + [_I] * 8 + [_F] + [_I] * 5
-    + [_P],
-    "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _P],
+    "cim_mvm_launch": [_P] * 6 + [_F, _P],
+    "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P],
     "manhattan_score_launch": [_P] * 5 + [_I] * 4 + [_F, _P],
     "slstm_scan_launch": [_P] * 7 + [_I] * 4 + [_P],
     "bitslice_pack_launch": [_P, _I, _P, _L, _I, _I, _P],
@@ -93,7 +93,7 @@ def _nvcc() -> str:
 def _digest() -> str:
     h = hashlib.blake2b(digest_size=8)
     h.update(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update((KERNEL_DIR / src).read_bytes())
     return h.hexdigest()
 
@@ -135,19 +135,26 @@ def _self_check(lib: ctypes.CDLL) -> None:
     stream = _P(torch.cuda.current_stream().cuda_stream)
     z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt,
                                                      device=dev)
-    x, codes, pos, scale = (z(1, 8), z(8, 8, dt=torch.int16),
-                            z(8, 1, dt=torch.int32), z(1))
-    out = z(1, 8)
-    rc = {"cim_mvm": lib.cim_mvm_launch(
-        x.data_ptr(), codes.data_ptr(), pos.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), None, 1, 8, 8, 8, 8, 1, 1, 8, 0.0, 8, 8, 64, 1, 1,
-        stream)}
-    q, qp = z(1, 1, 1, 32), z(1, 1, dt=torch.int32)
-    o = z(1, 1, 1, 32)
-    rc["flash_attention"] = lib.flash_attention_launch(
-        q.data_ptr(), q.data_ptr(), q.data_ptr(), qp.data_ptr(),
-        qp.data_ptr(), o.data_ptr(), 1, 1, 1, 1, 1, 32, 1, 1, 0, 1.0,
-        stream)
+    from repro_torch.kernels.cim_mvm.ops import cim_geometry
+    from repro_torch.kernels.flash_attention.ops import flash_geometry
+
+    codes, pos, scale = (z(8, 8, dt=torch.int16), z(8, 1, dt=torch.int32),
+                         z(1))
+    rc = {}
+    for M in (1, 17):                  # the decode and the prefill form
+        x, out = z(M, 8), z(M, 8)
+        geom = cim_geometry(M, 8, 8, 8, 8, 8, 8, 64, False, 1, True)
+        rc[f"cim_mvm M={M}"] = lib.cim_mvm_launch(
+            x.data_ptr(), codes.data_ptr(), pos.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), geom.array, 0.0, stream)
+    for Sq in (1, 17):
+        q, qp = z(1, Sq, 1, 32), z(1, Sq, dt=torch.int32)
+        o = z(1, Sq, 1, 32)
+        fg = flash_geometry(Sq)
+        rc[f"flash_attention Sq={Sq}"] = lib.flash_attention_launch(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), qp.data_ptr(),
+            qp.data_ptr(), o.data_ptr(), 1, Sq, Sq, 1, 1, 32, Sq, Sq, 0, 1.0,
+            fg.form, fg.grid_x, stream)
     m = z(1, 4, 4, dt=torch.uint8)
     s, n, nf = z(1, 4), z(1, 4), z(1)
     rc["manhattan_score"] = lib.manhattan_score_launch(
@@ -170,6 +177,8 @@ def _self_check(lib: ctypes.CDLL) -> None:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built and checked at first call."""
     global _LIB
+    if _LIB is not None:             # loaded: no lock on the launch path
+        return _LIB
     with _LOCK:
         if _LIB is not None:
             return _LIB
@@ -201,5 +210,7 @@ def check_status(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def stream_arg() -> ctypes.c_void_p:
-    return _P(torch.cuda.current_stream().cuda_stream)
+def stream_arg(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as a raw handle (the
+    launchers take it as ``void*``)."""
+    return torch._C._cuda_getCurrentRawStream(device.index or 0)

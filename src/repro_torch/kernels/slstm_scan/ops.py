@@ -46,7 +46,7 @@ def slstm_scan(gx: torch.Tensor, r_gates: torch.Tensor, h0: torch.Tensor,
     rc = lib.slstm_scan_launch(
         gx.data_ptr(), r_gates.data_ptr(), h0.data_ptr(), c0.data_ptr(),
         hs.data_ptr(), hT.data_ptr(), cT.data_ptr(), B, T, H, Dh,
-        runtime.stream_arg())
+        runtime.stream_arg(hs.device))
     runtime.count_launch("slstm_scan")
     runtime.check_status("slstm_scan", rc)
     return hs, hT, cT

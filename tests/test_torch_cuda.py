@@ -92,6 +92,75 @@ def test_flash_kernel_vs_plain(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("spec", [(64, 64, 8), (16, 16, 8)])
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 512])
+@pytest.mark.parametrize("I", [1000, 1001])
+def test_cim_mvm_kernel_both_forms(cuda, mode, spec, M, I):
+    """Both sides of the decode/prefill dispatch (M <= 16 | M > 16), I
+    and N not multiples of any tile; spec (16, 16, 8) has wpt = 2 and
+    n_pad % 8 != 0, the kernels' general (not 16-byte) code path; an odd
+    I makes the prefill form stage x a float at a time (no 16-byte rows)."""
+    N = 300
+    g = torch.Generator(device=cuda).manual_seed(M + spec[0] + I)
+    w = torch.randn((I, N), generator=g, device=cuda) * 0.2
+    x = torch.randn((M, I), generator=g, device=cuda)
+    dep, _ = deploy(w, CrossbarSpec(*spec), mode)
+    y = cim_mvm(x, dep, device=cuda)
+    y_plain = cim_mvm_plain(x, dep)
+    err = (y - y_plain).abs().max().item()
+    assert err <= 1e-5 * y_plain.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_kernels_are_bit_identical_across_calls(cuda):
+    """No atomics and fixed reduction orders: a second call on the same
+    inputs gives the same bits, for both forms of both kernels."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dep, _ = deploy(torch.randn((3072, 1024), generator=g, device=cuda)
+                    * 0.02, CrossbarSpec(64, 64, 8), "mdm")
+    for M in (4, 512):
+        x = torch.randn((M, 3072), generator=g, device=cuda)
+        assert torch.equal(cim_mvm(x, dep, device=cuda),
+                           cim_mvm(x, dep, device=cuda))
+    for Sq in (1, 128):
+        q, k, v = (torch.from_numpy(a).to(cuda)
+                   for a in _qkv(4, Sq, 160, 8, 8, 96, Sq))
+        kpos = torch.arange(160, dtype=torch.int32, device=cuda)
+        qpos = torch.arange(160 - Sq, 160, dtype=torch.int32, device=cuda)
+        a = flash_attention(q, k, v, q_positions=qpos, k_positions=kpos,
+                            device=cuda)
+        b = flash_attention(q, k, v, q_positions=qpos, k_positions=kpos,
+                            device=cuda)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("Sq", [3, 70])
+@pytest.mark.parametrize("Dh", [20, 33, 96, 128])
+def test_flash_kernel_forms_and_masks(cuda, Dh, Sq, window):
+    """Decode (Sq = 3) and prefill (Sq = 70) forms against the plain
+    version: Sq and C = 100 not multiples of the tiles, EMPTY_POS slots,
+    GQA (H / Hkv = 2), per-lane positions with one lane fully masked,
+    Dh not a multiple of 8 (20) or of 4 (33)."""
+    B, C, H, Hkv = 3, 100, 4, 2
+    q, k, v = (torch.from_numpy(a).to(cuda)
+               for a in _qkv(B, Sq, C, H, Hkv, Dh, Dh + Sq))
+    kpos = torch.full((B, C), EMPTY_POS, dtype=torch.int32, device=cuda)
+    qpos = torch.zeros((B, Sq), dtype=torch.int32, device=cuda)
+    for b, n in enumerate((0, 77, 100)):
+        kpos[b, :n] = torch.arange(n, dtype=torch.int32)
+        qpos[b] = torch.arange(n - Sq, n, dtype=torch.int32)
+    kpos[2, 5] = EMPTY_POS                 # an evicted slot mid-ring
+    out = flash_attention(q, k, v, q_positions=qpos, k_positions=kpos,
+                          window=window, device=cuda)
+    ref = flash_attention_plain(q, k, v, qpos, kpos, window=window)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    assert (out[0] == 0).all()
+
+
+@pytest.mark.cuda
 def test_manhattan_score_kernel_vs_plain(cuda):
     m = torch.from_numpy((np.random.default_rng(4).random((33, 64, 64)) < 0.3)
                          .astype(np.uint8)).to(cuda)

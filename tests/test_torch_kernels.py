@@ -222,3 +222,219 @@ def test_flash_fully_masked_row_is_zero():
     out = flash_attention_plain(q, k, v, torch.arange(2, dtype=torch.int32),
                                 kpos, chunk=4)
     assert torch.isfinite(out).all() and (out == 0).all()
+
+
+# ------------------------- launch geometry (CPU) --------------------------
+
+import re
+from pathlib import Path
+
+from repro_torch.kernels.cim_mvm import ops as cim_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+
+
+def _cu_constant(path, name):
+    text = Path(path).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+# The kernels' index loops, restated from kernel.cu: their constants are
+# held to the sources by test_geometry_constants_mirror_the_kernels, and
+# the card tests (tests/test_torch_cuda.py) check the kernels themselves.
+
+def _cim_decode_rows(geom):
+    """The rows of I each (cluster rank, block slice) of the cim_mvm
+    decode form sums, in the kernel's order of reduction: ranks 0..7,
+    and within a rank slices 0..KS-1; each list in the order its thread
+    visits the rows."""
+    ks = cim_ops.THREADS // geom.tile
+    out = []
+    for r in range(cim_ops.DECODE_CLUSTER):
+        k0, k1 = r * geom.rps, min((r + 1) * geom.rps, geom.I)
+        out += [list(range(k0 + s, k1, ks)) for s in range(ks)]
+    return out
+
+
+def _cim_prefill_tiles(geom):
+    """The cim_mvm prefill form's output tiles (row range, column range)
+    and the I slabs each block sums, in order."""
+    bm, bn, bk = cim_ops.PREFILL_BM, geom.tile, cim_ops.PREFILL_BK
+    tiles = [((by * bm, min((by + 1) * bm, geom.M)),
+              (bx * bn, min((bx + 1) * bn, geom.N)))
+             for by in range(geom.gy) for bx in range(geom.gx)]
+    slabs = [(k, min(k + bk, geom.I)) for k in range(0, geom.I, bk)]
+    return tiles, slabs
+
+
+def _flash_decode_parts(C):
+    """The keys of each of the flash decode form's partial states, in the
+    order the partials merge; key c goes to warp (c // 4) % 8, lane
+    group c % 4, two rounds of 32 keys a loop step."""
+    warps = flash_ops.DECODE_WARPS
+    parts = [[] for _ in range(4 * warps)]
+    for w in range(warps):
+        for g in range(4):
+            c0 = 4 * w + g
+            while c0 < C:
+                parts[4 * w + g] += [c for c in (c0, c0 + 4 * warps)
+                                     if c < C]
+                c0 += 2 * 4 * warps
+    return parts
+
+
+def test_geometry_constants_mirror_the_kernels():
+    """The Python geometry mirrors kernel.cu: constants and field order."""
+    cim_cu = Path(cim_ops.__file__).with_name("kernel.cu")
+    assert _cu_constant(cim_cu, "THREADS") == cim_ops.THREADS
+    assert _cu_constant(cim_cu, "CLUSTER") == cim_ops.DECODE_CLUSTER
+    assert _cu_constant(cim_cu, "DEC_RM") == cim_ops.DECODE_RM
+    assert _cu_constant(cim_cu, "PF_BM") == cim_ops.PREFILL_BM
+    assert _cu_constant(cim_cu, "PF_BN") == cim_ops.PREFILL_BN
+    assert _cu_constant(cim_cu, "PF_BK") == cim_ops.PREFILL_BK
+    assert _cu_constant(cim_cu, "PF_STAGES") == cim_ops.PREFILL_STAGES
+    fields = re.search(r"struct Geom \{\s*int ([^;]*);",
+                       cim_cu.read_text()).group(1)
+    assert tuple(f.strip() for f in fields.split(",")) == \
+        cim_ops._GEOM_FIELDS
+    fl_cu = Path(flash_ops.__file__).with_name("kernel.cu")
+    assert _cu_constant(fl_cu, "PF_QB") == flash_ops.PREFILL_QB
+    assert _cu_constant(fl_cu, "PF_KT") == flash_ops.PREFILL_KT
+    assert _cu_constant(fl_cu, "DEC_WARPS") == flash_ops.DECODE_WARPS
+
+
+@pytest.mark.parametrize("M,I,N,wpt,n_bits", [
+    (1, 3072, 8192, 8, 8), (4, 3072, 3072, 8, 8), (16, 8192, 3072, 8, 8),
+    (4, 1000, 300, 2, 8), (3, 70, 13, 8, 8), (16, 33, 7, 8, 4),
+])
+def test_cim_decode_geometry_covers_each_row_once(M, I, N, wpt, n_bits):
+    """Decode form: the (cluster rank, slice) row sets, in the order the
+    kernel reduces them, cover every row of I exactly once; each thread
+    visits its rows in increasing order; the blocks cover every column
+    of n_pad, and the shared memory fits."""
+    n_pad = -(-N // wpt) * wpt
+    geom = cim_ops.cim_geometry(M, I, N, I, n_pad, wpt, n_bits, 8 * wpt,
+                                True, 132, True)
+    assert geom.form == 0 and geom.mt >= M and geom.gy == 8
+    assert geom.smem <= cim_ops.SMEM_MAX
+    parts = _cim_decode_rows(geom)
+    assert len(parts) == 8 * (cim_ops.THREADS // geom.tile)
+    flat = [i for rows in parts for i in rows]
+    assert sorted(flat) == list(range(I))
+    assert all(rows == sorted(rows) for rows in parts)
+    # Rank-major order: a rank's rows all come before the next rank's.
+    ks = cim_ops.THREADS // geom.tile
+    firsts = [min(sum(parts[r * ks:(r + 1) * ks], []), default=None)
+              for r in range(8)]
+    firsts = [f for f in firsts if f is not None]
+    assert firsts == sorted(firsts)
+    assert geom.gx * 8 * geom.tile >= n_pad > (geom.gx - 1) * 8 * geom.tile
+    assert geom.fast == int(wpt % 8 == 0 and n_pad % 8 == 0)
+
+
+@pytest.mark.parametrize("M,I,N", [(17, 3072, 8192), (512, 3072, 3072),
+                                   (512, 8192, 3072), (40, 70, 13)])
+def test_cim_prefill_geometry_covers_each_output_once(M, I, N):
+    n_pad = -(-N // 8) * 8
+    geom = cim_ops.cim_geometry(M, I, N, I, n_pad, 8, 8, 64, True, 132,
+                                True)
+    assert geom.form == 1 and geom.smem <= cim_ops.SMEM_MAX
+    tiles, slabs = _cim_prefill_tiles(geom)
+    hits = np.zeros((M, N), np.int32)
+    for (r0, r1), (c0, c1) in tiles:
+        hits[r0:r1, c0:c1] += 1
+    assert (hits == 1).all()
+    assert [i for a, b in slabs for i in range(a, b)] == list(range(I))
+
+
+def test_cim_geometry_dispatch_by_rows():
+    g = lambda M: cim_ops.cim_geometry(M, 256, 64, 256, 64, 8, 8, 64, False,
+                                       132, True)
+    assert [g(M).form for M in (1, 4, 16, 17, 512)] == [0, 0, 0, 1, 1]
+    # A decode-sized M whose x slab would not fit goes to the prefill form.
+    big = cim_ops.cim_geometry(16, 1 << 17, 64, 1 << 17, 64, 8, 8, 64,
+                               False, 132, True)
+    assert big.form == 1
+
+
+@pytest.mark.parametrize("C", [1, 31, 32, 100, 160, 1000])
+def test_flash_geometry_covers_each_key_once(C):
+    parts = _flash_decode_parts(C)
+    assert len(parts) == 4 * flash_ops.DECODE_WARPS
+    assert sorted(c for p in parts for c in p) == list(range(C))
+    assert all(p == sorted(p) for p in parts)
+    assert flash_ops.flash_geometry(1) == (0, 1)
+    assert flash_ops.flash_geometry(16) == (0, 16)
+    assert flash_ops.flash_geometry(17) == (1, 1)
+    assert flash_ops.flash_geometry(128) == (1, 2)
+
+
+# ---------------- why the tensor-core kernels pay for 3xTF32 ---------------
+
+def _tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits), nearest, ties away from
+    zero: cvt.rna.tf32.f32, by bit operations."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(t):
+    hi = _tf32_rna(t)
+    return hi, _tf32_rna(t - hi)
+
+
+def _mm3(a, b):
+    """a @ b in 3xTF32: each product of TF32 parts exact in f32, sums in
+    f32, the small products first."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def test_tf32_rounding_is_rna():
+    x = torch.tensor([1.0 + 2 ** -11, 1.0 + 2 ** -12, -(1.0 + 2 ** -11),
+                      1.0 + 3 * 2 ** -12], dtype=torch.float32)
+    assert _tf32_rna(x).tolist() == [1.0 + 2 ** -10, 1.0,
+                                     -(1.0 + 2 ** -10), 1.0 + 2 ** -10]
+
+
+def test_3xtf32_meets_the_cim_bound_and_one_pass_does_not():
+    """At I = 8192 (phi3's ffn_w_down) the card bound max|kernel - plain|
+    <= 1e-5 max|plain| holds for 3xTF32 and fails for one TF32 pass."""
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy((rng.standard_normal((8192, 256)) * 0.02)
+                         .astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((8, 8192)).astype(np.float32))
+    dep, _ = deploy(w, CrossbarSpec(64, 64, 8), "mdm")
+    from repro_torch.kernels.cim_mvm.ref import cim_effective_weights
+
+    w_eff = cim_effective_weights(dep.codes, dep.pos, dep.scale,
+                                  n_bits=8, wpt=8, cols=64, eta=dep.eta,
+                                  reversed_df=dep.reversed_df)
+    plain = x @ w_eff
+    tol = 1e-5 * plain.abs().max()
+    assert (_mm3(x, w_eff) - plain).abs().max() <= tol
+    assert (_tf32_rna(x) @ _tf32_rna(w_eff) - plain).abs().max() > tol
+
+
+def _attention(q, k, v, qpos, kpos, mm):
+    """Masked softmax attention, B x H heads, products through ``mm``."""
+    s = mm(q.transpose(1, 2), k.permute(0, 2, 3, 1)) * q.shape[-1] ** -0.5
+    valid = kpos[None, :] <= qpos[:, None]
+    s = torch.where(valid, s, torch.tensor(-1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = mm(p, v.transpose(1, 2)) / p.sum(-1, keepdim=True)
+    return o.transpose(1, 2)
+
+
+def test_3xtf32_meets_the_flash_bound_and_one_pass_does_not():
+    """phi3 prefill (B=4, Sq=128, C=160 with 32 EMPTY_POS slots, H=32,
+    Dh=96): |kernel - plain| <= 2e-5 (1 + |plain|) holds for 3xTF32 and
+    fails for one TF32 pass."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(4, 128, 160, 32, 32, 96, 0))
+    kpos = torch.full((160,), EMPTY_POS, dtype=torch.int32)
+    kpos[:128] = torch.arange(128, dtype=torch.int32)
+    qpos = torch.arange(128, dtype=torch.int32)
+    plain = flash_attention_plain(q, k, v, qpos, kpos)
+    excess = lambda o: ((o - plain).abs() - 2e-5 * (1 + plain.abs())).max()
+    assert excess(_attention(q, k, v, qpos, kpos, _mm3)) <= 0
+    one = lambda a, b: _tf32_rna(a) @ _tf32_rna(b)
+    assert excess(_attention(q, k, v, qpos, kpos, one)) > 0
