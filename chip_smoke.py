@@ -67,6 +67,10 @@ LOGIT_TOL = 1e-3     # max|kernel - plain| logits <= LOGIT_TOL * max|plain|
 PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                 "export": ("bitslice_pack",),
                 "xlstm": ("slstm_scan", "manhattan_score")}
+# Substrings of the port's CUDA kernel names, as the profiler shows them.
+PORT_KERNEL_NAMES = ("cim_decode", "cim_prefill", "flash_decode",
+                     "flash_prefill", "score_vec", "score_byte", "slstm_",
+                     "pack8_", "pack_kernel")
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -398,7 +402,21 @@ def phase_kernels() -> list[dict]:
     g = torch.Generator(device="cuda").manual_seed(1)
     records = [_check_cim(g), _check_flash(g)]
 
-    # manhattan_score: one full 3072 x 8192 matrix's tile population.
+    records.append(_check_manhattan(g))
+    records.append(_check_slstm_scan(g))
+    return records
+
+
+def _check_manhattan(g) -> dict:
+    """manhattan_score on one full 3072 x 8192 matrix's tile population
+    (T = 49,152 tiles of 64x64), in the planner's three forms (raw,
+    reversed, reversed and placed): bit for bit against the plain
+    version, device time of each beside its byte bound."""
+    from repro_torch.core.bitslice import codes_to_bits, quantize_magnitude
+    from repro_torch.core.tiling import CrossbarSpec, tile_masks
+    from repro_torch.kernels.manhattan_score.ops import manhattan_score
+    from repro_torch.kernels.manhattan_score.ref import manhattan_score_plain
+
     spec = CrossbarSpec(64, 64, 8)
     w = torch.randn((3072, 8192), generator=g, device="cuda") * 0.02
     codes, _, _ = quantize_magnitude(w, spec.n_bits)
@@ -408,41 +426,96 @@ def phase_kernels() -> list[dict]:
     perm = torch.argsort(torch.rand((T, 64), generator=g, device="cuda"), -1)
     position = torch.empty_like(perm).scatter_(
         -1, perm, torch.arange(64, device="cuda").expand(T, 64)).to(torch.int32)
-    err = 0.0
-    for rev, rp in ((False, None), (True, None), (True, position)):
+    err, forms = 0.0, {}
+    for name, rev, rp in (("raw", False, None), ("reversed", True, None),
+                          ("placed", True, position)):
         got = manhattan_score(masks, spec.nf_unit, reverse=rev, row_position=rp)
         want = manhattan_score_plain(masks, spec.nf_unit, rev, rp)
         for a, b in zip(got, want):
             err = max(err, (a - b).abs().max().item())
+        ms = device_ms(lambda: manhattan_score(masks, spec.nf_unit,
+                                               reverse=rev, row_position=rp))
+        plain_ms = cuda_ms(lambda: manhattan_score_plain(masks, spec.nf_unit,
+                                                         rev, rp), iters=5)
+        # Masks in, scores and counts and NF out (and the placement in).
+        n_bytes = (masks.numel() + T * 64 * 4 * 2 + T * 4
+                   + (0 if rp is None else rp.numel() * 4))
+        b_ms, b_by = bound(n_bytes, 3.0 * masks.numel())
+        forms[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by)
+        print(f"manhattan_score {name} T={T} 64x64: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{100 * b_ms / ms:.1f}% of it)")
     ok = err == 0.0
-    ms = cuda_ms(lambda: manhattan_score(masks, spec.nf_unit))
-    plain_ms = cuda_ms(lambda: manhattan_score_plain(masks, spec.nf_unit))
-    n_bytes = masks.numel() + T * 64 * 4 * 2 + T * 4
-    b_ms, b_by = bound(n_bytes, 3.0 * masks.numel())
-    print(f"manhattan_score T={T} 64x64: max_abs_err {err:.3e} (exact, "
-          f"three variants) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(f"manhattan_score: max_abs_err {err:.3e} (exact, three forms) "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("manhattan_score disagrees")
-    records.append(dict(
-        name="manhattan_score", route="cuda",
-        source="src/repro_torch/kernels/manhattan_score/kernel.cu",
-        replaces="src/repro/kernels/manhattan_score/kernel.py:34",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None))
-    records.append(_check_slstm_scan(g))
-    return records
+    return dict(name="manhattan_score", route="cuda",
+                source="src/repro_torch/kernels/manhattan_score/kernel.cu",
+                replaces="src/repro/kernels/manhattan_score/kernel.py:34",
+                max_abs_err=err, **forms["raw"], library_ms=None,
+                forms=forms)
+
+
+def phase_layer_deploy(eng):
+    """manhattan_score's device time over the deploy of one layer's 7
+    matrices (torch.profiler), on a second deploy of layer 0 of the
+    served model, so the timed deploy is not perturbed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.deploy import plan_matrix, spec_from_config
+    from repro_torch.deploy.engine import collect_model_matrices
+
+    spec = spec_from_config(eng.cfg)
+    mats, _ = collect_model_matrices(eng.params, eng.cfg)
+    layer0 = {k: w for k, w in mats.items() if k.endswith("/0")}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for w in layer0.values():
+            plan_matrix(w, spec, eng.cfg.cim.mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    score_us, n, busy_us = 0.0, 0, 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy_us += e.self_device_time_total
+        if "score_" in e.key:
+            score_us += e.self_device_time_total
+            n += e.count
+    if busy_us == 0:
+        print("phase layer deploy: the profiler saw no device time: "
+              "not measured")
+        return
+    print(f"phase layer deploy: {len(layer0)} matrices of layer 0, "
+          f"{wall * 1e3:.1f} ms wall (profiled); device busy "
+          f"{busy_us / 1e3:.3f} ms, manhattan_score {score_us / 1e3:.3f} ms "
+          f"in {n} launches ({100 * score_us / busy_us:.1f}% of busy)")
 
 
 def _check_slstm_scan(g) -> dict:
     """slstm_scan at xlstm-1.3b shapes: B lanes, H = 4, Dh = 512, the
     prefill (T = PROMPT) and a decode step (T = 1)."""
-    from repro_torch.kernels.slstm_scan.ops import slstm_scan
+    from repro_torch.kernels.slstm_scan.ops import (
+        CLUSTER,
+        max_active_clusters,
+        slstm_geometry,
+        slstm_scan,
+    )
     from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
 
     H, Dh = 4, 512
     r = torch.randn((H, Dh, 4 * Dh), generator=g, device="cuda") * 0.02
-    rep = None
+    geom = slstm_geometry(B, Dh)
+    print(f"slstm_scan launch (B={B}, Dh={Dh}): {H * geom.groups} clusters "
+          f"of {CLUSTER} blocks, {geom.smem} bytes of shared memory a "
+          f"block, R rows a slice: {geom.reg_rows} in registers, "
+          f"{geom.sm_rows} in shared memory, "
+          f"{geom.kper - geom.reg_rows - geom.sm_rows} from L2; "
+          f"cudaOccupancyMaxActiveClusters {max_active_clusters(B, Dh)}")
+    regimes = {}
     for name, T in (("prefill", PROMPT), ("decode", 1)):
         gx = torch.randn((B, T, H, 4 * Dh), generator=g, device="cuda") * 0.5
         h0 = torch.randn((B, H, Dh), generator=g, device="cuda") * 0.1
@@ -453,7 +526,7 @@ def _check_slstm_scan(g) -> dict:
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
         ok = all(((a - b).abs() <= SLSTM_TOL * (1 + b.abs())).all().item()
                  for a, b in zip(got, want))
-        ms = cuda_ms(lambda: slstm_scan(gx, r, h0, c0))
+        ms = device_ms(lambda: slstm_scan(gx, r, h0, c0))
         plain_ms = cuda_ms(lambda: slstm_scan_plain(gx, r, h0, c0), iters=3)
         n_bytes = 4 * (gx.numel() + r.numel() + 4 * h0.numel()
                        + B * T * H * Dh)
@@ -461,17 +534,22 @@ def _check_slstm_scan(g) -> dict:
         b_ms, b_by = bound(n_bytes, B * T * H * (2.0 * Dh * 4 * Dh + 20 * Dh))
         print(f"slstm_scan {name} B={B} T={T} H={H} Dh={Dh}: max_abs_err "
               f"{err:.3e} (tol {SLSTM_TOL:g}(1+|ref|)) "
-              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms "
-              f"({1e3 * ms / T:.2f} us a step), plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         if not ok:
             raise AssertionError(f"slstm_scan disagrees ({name})")
-        if name == "prefill":
-            rep = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        regimes[name] = dict(T=T, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    step_us = 1e3 * (regimes["prefill"]["ms"] - regimes["decode"]["ms"]) \
+        / (PROMPT - 1)
+    print(f"  slstm_scan: {step_us:.3f} us a step (slope of T={PROMPT} over "
+          f"T=1), {1e3 * regimes['decode']['ms'] - step_us:.3f} us a launch "
+          f"besides (R loaded on chip, state in and out)")
+    rep = {k: v for k, v in regimes["prefill"].items() if k != "T"}
     return dict(name="slstm_scan", route="cuda",
                 source="src/repro_torch/kernels/slstm_scan/kernel.cu",
-                replaces="src/repro/kernels/slstm_scan/kernel.py:66", **rep)
+                replaces="src/repro/kernels/slstm_scan/kernel.py:66", **rep,
+                step_us=step_us, regimes=regimes)
 
 
 def _launches(path: str) -> dict:
@@ -578,8 +656,11 @@ def phase_profile(eng, prompts, step_ms: float, steps: int = 3):
     print(f"phase profile ({steps} decode steps): device busy {busy:.2f} ms "
           f"of a {step_ms:.2f} ms step (unprofiled) -> idle share "
           f"{100 * max(0.0, 1 - busy / step_ms):.1f}%")
-    for ms, n, key in rows[:8]:
-        print(f"  {ms:8.3f} ms/step {n:5d} launches/step  {key[:70]}")
+    for i, (ms, n, key) in enumerate(rows):
+        # The 8 largest, and every kernel of the port.
+        if i < 8 or any(k in key for k in PORT_KERNEL_NAMES):
+            print(f"  {ms:8.3f} ms/step {n:5d} launches/step "
+                  f"({1e3 * ms / max(n, 1):.2f} us each)  {key[:70]}")
 
 
 def phase_plans(eng, names):
@@ -757,6 +838,7 @@ def main() -> int:
     add(counts)
     phase_plans(eng, [("slot0_attn", "wq"), ("slot0_attn", "ffn_w_gate"),
                       ("slot0_attn", "ffn_w_down")])
+    phase_layer_deploy(eng)
     phase_compare(eng, prompts, tokens)
     rec, counts = phase_export(eng)
     records.append(rec)

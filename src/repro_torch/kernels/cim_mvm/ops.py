@@ -8,11 +8,9 @@ CUDA tensors, the plain PyTorch version (``ref.py``) on CPU tensors.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 import math
-from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -128,24 +126,6 @@ _GEOM_FIELDS = ("form", "M", "I", "N", "n_pad", "n_tiles", "wpt", "n_bits",
                 "smem", "off_t", "off_p", "mt")
 
 
-class CimGeometry(NamedTuple):
-    """One launch of kernel.cu: the ``Geom`` fields, and the same as a
-    ctypes int array for the launcher."""
-
-    geom: dict
-    array: ctypes.Array
-
-    def __getattr__(self, name):
-        try:
-            return self.geom[name]
-        except KeyError:
-            raise AttributeError(name) from None
-
-
-def _round4(n: int) -> int:
-    return -(-n // 4) * 4
-
-
 def _table(wpt: int, n_bits: int) -> int:
     """Entries of the eta*M1 table: a row of 2^K a slot."""
     return wpt << n_bits
@@ -172,7 +152,7 @@ def _decode_geometry(M, I, n_pad, wpt, n_bits, sm_count, aligned):
     # x slab [rps][mt], reused for the slices' sums [KS][RM][8G]; the
     # eta*M1 table; the block's sums [mt][8G] (offsets in floats).
     slab = max(rps * mt, (THREADS // G) * DECODE_RM * 8 * G)
-    off_t = _round4(slab)
+    off_t = runtime.round4(slab)
     off_p = off_t + (_table(wpt, n_bits) if fast else 0)
     smem = 4 * (off_p + mt * 8 * G)
     if smem > SMEM_MAX:
@@ -185,7 +165,7 @@ def _decode_geometry(M, I, n_pad, wpt, n_bits, sm_count, aligned):
 @functools.lru_cache(maxsize=None)
 def cim_geometry(M: int, I: int, N: int, i_pad: int, n_pad: int, wpt: int,
                  n_bits: int, cols: int, reversed_df: bool, sm_count: int,
-                 aligned: bool) -> CimGeometry:
+                 aligned: bool) -> runtime.Geometry:
     """The launch of ``cim_mvm`` for x (M, I) and a deployment with
     (i_pad, n_pad) codes, on a card with ``sm_count`` SMs; ``aligned``
     says whether the codes start on 16 bytes.  Cached per shape: a
@@ -216,8 +196,7 @@ def cim_geometry(M: int, I: int, N: int, i_pad: int, n_pad: int, wpt: int,
                  off_t=0, off_p=0, mt=0)
     g.update(M=M, I=I, N=N, n_pad=n_pad, n_tiles=n_pad // wpt, wpt=wpt,
              n_bits=n_bits, cols=cols, reversed=int(reversed_df))
-    values = [g[f] for f in _GEOM_FIELDS]
-    return CimGeometry(g, (ctypes.c_int * len(values))(*values))
+    return runtime.Geometry.of(_GEOM_FIELDS, g)
 
 
 @functools.lru_cache(maxsize=None)

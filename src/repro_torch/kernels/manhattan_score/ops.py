@@ -7,6 +7,18 @@ from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import runtime
 from repro_torch.kernels.manhattan_score.ref import manhattan_score_plain
 
+# The forms of kernel.cu: one byte at a time, or 16-byte loads and SIMD
+# byte arithmetic (packed column indices must fit a byte; a row's lanes
+# must be an aligned power-of-two group of a warp).
+BYTE_FORM, VECTOR_FORM = 0, 1
+VECTOR_COLS = (16, 32, 64, 128, 256)
+
+
+def score_form(cols: int, aligned: bool) -> int:
+    """The kernel form for tiles of ``cols`` columns (any row count);
+    ``aligned`` says whether the masks start on 16 bytes."""
+    return VECTOR_FORM if aligned and cols in VECTOR_COLS else BYTE_FORM
+
 
 def manhattan_score(masks: torch.Tensor, nf_unit: float = 1.0, *,
                     reverse: bool = False,
@@ -43,7 +55,9 @@ def manhattan_score(masks: torch.Tensor, nf_unit: float = 1.0, *,
         rc = lib.manhattan_score_launch(
             flat.data_ptr(), None if rp is None else rp.data_ptr(),
             s.data_ptr(), n.data_ptr(), nf.data_ptr(), T, R, C,
-            int(reverse), float(nf_unit), runtime.stream_arg(s.device))
+            int(reverse), float(nf_unit),
+            score_form(C, flat.data_ptr() % 16 == 0),
+            runtime.stream_arg(s.device))
         runtime.count_launch("manhattan_score")
         runtime.check_status("manhattan_score", rc)
     return s.reshape(*batch, R), n.reshape(*batch, R), nf.reshape(batch)

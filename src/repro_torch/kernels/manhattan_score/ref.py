@@ -7,7 +7,8 @@ import torch
 def manhattan_score_plain(masks: torch.Tensor, nf_unit: float,
                           reverse: bool = False,
                           row_position: torch.Tensor | None = None):
-    """masks (T, R, C) 0/1 -> (scores (T, R), counts (T, R), nf (T,)) f32.
+    """masks (T, R, C) -> (scores (T, R), counts (T, R), nf (T,)) f32;
+    any nonzero mask entry counts as 1, as in the kernel.
 
     ``reverse`` scores the tiles in their mirrored column layout;
     ``row_position`` (T, R) int32 places logical row j at physical row
@@ -15,7 +16,7 @@ def manhattan_score_plain(masks: torch.Tensor, nf_unit: float,
     f32, as in the kernel and in the reference.
     """
     T, R, C = masks.shape
-    m = masks.to(torch.float32)
+    m = (masks != 0).to(torch.float32)
     col = torch.arange(C, dtype=torch.float32, device=masks.device)
     if reverse:
         col = (C - 1) - col

@@ -26,6 +26,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -47,10 +48,35 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "cim_mvm_launch": [_P] * 6 + [_F, _P],
     "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P],
-    "manhattan_score_launch": [_P] * 5 + [_I] * 4 + [_F, _P],
-    "slstm_scan_launch": [_P] * 7 + [_I] * 4 + [_P],
+    "manhattan_score_launch": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    "slstm_scan_launch": [_P] * 7 + [_I] * 4 + [_P, _P],
+    "slstm_scan_max_clusters": [_I, _P],
     "bitslice_pack_launch": [_P, _I, _P, _L, _I, _I, _P],
 }
+
+class Geometry(NamedTuple):
+    """One launch of a kernel whose launcher takes its geometry as an int
+    array: the fields by name, and the same values as a ctypes array in
+    the order of the kernel's ``Geom`` struct."""
+
+    geom: dict
+    array: ctypes.Array
+
+    @classmethod
+    def of(cls, fields: tuple[str, ...], geom: dict) -> "Geometry":
+        values = [geom[f] for f in fields]
+        return cls(geom, (ctypes.c_int * len(values))(*values))
+
+    def __getattr__(self, name):
+        try:
+            return self.geom[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+
+def round4(n: int) -> int:
+    return -(-n // 4) * 4
+
 
 _LAUNCHES = {name: 0 for name in KERNELS}
 _LOCK = threading.Lock()
@@ -137,6 +163,7 @@ def _self_check(lib: ctypes.CDLL) -> None:
                                                      device=dev)
     from repro_torch.kernels.cim_mvm.ops import cim_geometry
     from repro_torch.kernels.flash_attention.ops import flash_geometry
+    from repro_torch.kernels.slstm_scan.ops import slstm_geometry
 
     codes, pos, scale = (z(8, 8, dt=torch.int16), z(8, 1, dt=torch.int32),
                          z(1))
@@ -155,16 +182,18 @@ def _self_check(lib: ctypes.CDLL) -> None:
             q.data_ptr(), q.data_ptr(), q.data_ptr(), qp.data_ptr(),
             qp.data_ptr(), o.data_ptr(), 1, Sq, Sq, 1, 1, 32, Sq, Sq, 0, 1.0,
             fg.form, fg.grid_x, stream)
-    m = z(1, 4, 4, dt=torch.uint8)
+    m = z(1, 4, 16, dt=torch.uint8)
     s, n, nf = z(1, 4), z(1, 4), z(1)
-    rc["manhattan_score"] = lib.manhattan_score_launch(
-        m.data_ptr(), None, s.data_ptr(), n.data_ptr(), nf.data_ptr(), 1, 4,
-        4, 0, 1.0, stream)
+    for form in (0, 1):                # the byte and the vector form
+        rc[f"manhattan_score form={form}"] = lib.manhattan_score_launch(
+            m.data_ptr(), None, s.data_ptr(), n.data_ptr(), nf.data_ptr(),
+            1, 4, 16, 0, 1.0, form, stream)
     g, r = z(1, 1, 1, 16), z(1, 4, 16)
     h, hs, hT, cT = z(1, 1, 4), z(1, 1, 1, 4), z(1, 1, 4), z(1, 1, 4)
     rc["slstm_scan"] = lib.slstm_scan_launch(
         g.data_ptr(), r.data_ptr(), h.data_ptr(), h.data_ptr(),
-        hs.data_ptr(), hT.data_ptr(), cT.data_ptr(), 1, 1, 1, 4, stream)
+        hs.data_ptr(), hT.data_ptr(), cT.data_ptr(), 1, 1, 1, 4,
+        slstm_geometry(1, 4).array, stream)
     img = z(2, dt=torch.int64)
     rc["bitslice_pack"] = lib.bitslice_pack_launch(
         codes.data_ptr(), 2, img.data_ptr(), 2, 8, 0, stream)

@@ -1,13 +1,83 @@
 """Wrapper of the sLSTM scan kernel (``kernel.cu``)."""
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
+
 import torch
 
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import runtime
 from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
 
-MAX_HEAD_DIM = 512       # 4 dims x 16 groups x 8 blocks of a cluster
+# Launch geometry of kernel.cu: a cluster of CLUSTER blocks of THREADS
+# threads per (head, group of up to MAX_LANES batch lanes); a block owns
+# up to MAX_PER hidden dims, cuts the k range into KS slices and holds
+# up to REG_ROWS rows of each slice in registers, the next rows in
+# shared memory as far as SMEM_MAX allows, and reads the rest from L2.
+CLUSTER = 16
+THREADS = 512
+MAX_PER = 32
+KS = 16
+LANES = 4
+MAX_LANES = 8
+REG_ROWS = 10
+SMEM_MAX = 232448
+MBAR_BYTES = 24             # an mbarrier per h buffer, one for staging R
+MAX_HEAD_DIM = CLUSTER * MAX_PER          # 512
+# The fields of kernel.cu's ``Geom``, in order.
+_GEOM_FIELDS = ("per", "kper", "reg_rows", "sm_rows", "lanes", "lanes_p",
+                "groups", "smem")
+
+
+def _smem(other: int, sm_rows: int, per: int) -> int:
+    """Bytes of shared memory: KS x 4 TMA boxes of sm_rows x per floats,
+    each padded to 32 floats (128 bytes), then ``other`` floats and the
+    mbarriers."""
+    box = -(-sm_rows * per // 32) * 32
+    return 4 * (KS * 4 * box + other) + MBAR_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def slstm_geometry(B: int, Dh: int) -> runtime.Geometry:
+    """The launch of ``slstm_scan`` for B lanes and head dim Dh.
+
+    Block ``rank`` of a cluster owns the dims [rank * per, (rank + 1) *
+    per); k slice s (warp s) the rows [s * kper, (s + 1) * kper), of
+    which the first ``reg_rows`` sit in registers, the next ``sm_rows``
+    in shared memory (loaded as one TMA box a gate) and the rest are
+    read from L2 each step.  Shared memory holds those rows, two h
+    buffers of ``lanes_p`` lanes, the slices' partial sums, the c state
+    and three 8-byte mbarriers; ``smem`` bytes in all."""
+    if Dh < 4 or Dh % 4 or Dh > MAX_HEAD_DIM or B < 1:
+        raise ValueError(f"slstm_scan kernel takes B >= 1 and a head dim "
+                         f"that is a multiple of 4 up to {MAX_HEAD_DIM}, "
+                         f"got B={B}, Dh={Dh}")
+    per = runtime.round4(math.ceil(Dh / CLUSTER))
+    kper = math.ceil(Dh / KS)
+    reg_rows = min(REG_ROWS, kper)
+    lanes = min(B, MAX_LANES)
+    lanes_p = runtime.round4(lanes)
+    ncols = 4 * per
+    other = 2 * Dh * lanes_p + KS * LANES * ncols + per * lanes_p
+    sm_rows = kper - reg_rows
+    while sm_rows and _smem(other, sm_rows, per) > SMEM_MAX:
+        sm_rows -= 1
+    g = dict(per=per, kper=kper, reg_rows=reg_rows, sm_rows=sm_rows,
+             lanes=lanes, lanes_p=lanes_p, groups=math.ceil(B / lanes),
+             smem=_smem(other, sm_rows, per))
+    return runtime.Geometry.of(_GEOM_FIELDS, g)
+
+
+def max_active_clusters(B: int, Dh: int) -> int:
+    """Clusters of the scan's launch for (B, Dh) that the card holds at
+    once (``cudaOccupancyMaxActiveClusters``)."""
+    n = ctypes.c_int(0)
+    rc = runtime.library().slstm_scan_max_clusters(
+        slstm_geometry(B, Dh).smem, ctypes.byref(n))
+    runtime.check_status("slstm_scan occupancy", rc)
+    return n.value
 
 
 def slstm_scan(gx: torch.Tensor, r_gates: torch.Tensor, h0: torch.Tensor,
@@ -16,7 +86,8 @@ def slstm_scan(gx: torch.Tensor, r_gates: torch.Tensor, h0: torch.Tensor,
 
     gx (B, T, H, 4Dh), r_gates (H, Dh, 4Dh), h0 / c0 (B, H, Dh) ->
     (hs (B, T, H, Dh), hT, cT), f32.  The kernel takes f32 and Dh a
-    multiple of 4 up to 512; the CPU runs the plain version.
+    multiple of 4 up to 512 (:func:`slstm_geometry`); the CPU runs the
+    plain version.
     """
     dev = resolve_device(device)
     check_on(dev, gx=gx, r_gates=r_gates, h0=h0, c0=c0)
@@ -31,9 +102,7 @@ def slstm_scan(gx: torch.Tensor, r_gates: torch.Tensor, h0: torch.Tensor,
         return slstm_scan_plain(gx, r_gates, h0, c0)
     if any(t.dtype != torch.float32 for t in (gx, r_gates, h0, c0)):
         raise TypeError("slstm_scan kernel takes f32 gx, r_gates, h0, c0")
-    if Dh % 4 or Dh > MAX_HEAD_DIM:
-        raise ValueError(f"slstm_scan kernel takes a head dim that is a "
-                         f"multiple of 4 up to {MAX_HEAD_DIM}, got {Dh}")
+    geom = slstm_geometry(max(B, 1), Dh)
     gx, h0, c0 = gx.contiguous(), h0.contiguous(), c0.contiguous()
     r_gates = r_gates.contiguous()
     if r_gates.data_ptr() % 16:            # the kernel loads R as float4s
@@ -46,7 +115,7 @@ def slstm_scan(gx: torch.Tensor, r_gates: torch.Tensor, h0: torch.Tensor,
     rc = lib.slstm_scan_launch(
         gx.data_ptr(), r_gates.data_ptr(), h0.data_ptr(), c0.data_ptr(),
         hs.data_ptr(), hT.data_ptr(), cT.data_ptr(), B, T, H, Dh,
-        runtime.stream_arg(hs.device))
+        geom.array, runtime.stream_arg(hs.device))
     runtime.count_launch("slstm_scan")
     runtime.check_status("slstm_scan", rc)
     return hs, hT, cT

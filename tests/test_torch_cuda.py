@@ -115,7 +115,8 @@ def test_cim_mvm_kernel_both_forms(cuda, mode, spec, M, I):
 @pytest.mark.cuda
 def test_kernels_are_bit_identical_across_calls(cuda):
     """No atomics and fixed reduction orders: a second call on the same
-    inputs gives the same bits, for both forms of both kernels."""
+    inputs gives the same bits, for both forms of cim_mvm and flash
+    attention, both forms of manhattan_score and slstm_scan."""
     g = torch.Generator(device=cuda).manual_seed(5)
     dep, _ = deploy(torch.randn((3072, 1024), generator=g, device=cuda)
                     * 0.02, CrossbarSpec(64, 64, 8), "mdm")
@@ -132,6 +133,19 @@ def test_kernels_are_bit_identical_across_calls(cuda):
                             device=cuda)
         b = flash_attention(q, k, v, q_positions=qpos, k_positions=kpos,
                             device=cuda)
+        assert torch.equal(a, b)
+    for shape in ((64, 64, 64), (9, 13, 70)):
+        m = torch.from_numpy(_byte_masks(shape, 6)).to(cuda)
+        for a, b in zip(manhattan_score(m, NF_UNIT, device=cuda),
+                        manhattan_score(m, NF_UNIT, device=cuda)):
+            assert torch.equal(a, b)
+    rng = np.random.default_rng(6)
+    f = lambda s, *shape: torch.from_numpy(
+        (rng.standard_normal(shape) * s).astype(np.float32)).to(cuda)
+    args = (f(0.5, 4, 128, 4, 2048), f(0.02, 4, 512, 2048),
+            f(0.1, 4, 4, 512), f(0.1, 4, 4, 512))
+    for a, b in zip(slstm_scan(*args, device=cuda),
+                    slstm_scan(*args, device=cuda)):
         assert torch.equal(a, b)
 
 
@@ -160,17 +174,56 @@ def test_flash_kernel_forms_and_masks(cuda, Dh, Sq, window):
     assert (out[0] == 0).all()
 
 
+MASK_BYTES = np.array([0, 1, 2, 255], dtype=np.uint8)
+
+
+def _byte_masks(shape, seed):
+    """Masks whose nonzero bytes are 1, 2 or 255 (all count as 1)."""
+    return np.random.default_rng(seed).choice(MASK_BYTES, size=shape,
+                                              p=[0.6, 0.2, 0.1, 0.1])
+
+
+def _score_both(m, variant, seed):
+    rev = variant != "plain"
+    pos = None
+    if variant == "placed":
+        rng = np.random.default_rng(seed)
+        pos = torch.from_numpy(np.argsort(rng.random(m.shape[:2]), -1)
+                               .astype(np.int32)).to(m.device)
+    got = manhattan_score(m, NF_UNIT, reverse=rev, row_position=pos,
+                          device=m.device)
+    want = manhattan_score_plain(m, NF_UNIT, rev, pos)
+    return got, want
+
+
 @pytest.mark.cuda
-def test_manhattan_score_kernel_vs_plain(cuda):
-    m = torch.from_numpy((np.random.default_rng(4).random((33, 64, 64)) < 0.3)
-                         .astype(np.uint8)).to(cuda)
-    pos = torch.argsort(torch.rand((33, 64), device=cuda), -1).to(torch.int32)
-    for rev, rp in ((False, None), (True, None), (True, pos)):
-        got = manhattan_score(m, NF_UNIT, reverse=rev, row_position=rp,
-                              device=cuda)
-        want = manhattan_score_plain(m, NF_UNIT, rev, rp)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
+@pytest.mark.parametrize("variant", ["plain", "reverse", "placed"])
+@pytest.mark.parametrize("t,r,c", [(1, 64, 64), (33, 64, 64),
+                                   (20_000, 64, 64), (7, 32, 32),
+                                   (5, 16, 16), (3, 13, 70)])
+def test_manhattan_score_kernel_vs_plain(cuda, t, r, c, variant):
+    """The vector form (C in 16..256, aligned) and the byte form (C = 70)
+    in the planner's three variants, bit for bit."""
+    m = torch.from_numpy(_byte_masks((t, r, c), t + r + c)).to(cuda)
+    for a, b in zip(*_score_both(m, variant, t)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["plain", "reverse", "placed"])
+@pytest.mark.parametrize("r,c", [(13, 70), (64, 64)])
+def test_manhattan_score_kernel_on_unaligned_views(cuda, r, c, variant):
+    """Masks that do not start on 16 bytes (``masks[1:]`` of a 13x70
+    population; a 64x64 population one byte into its buffer) take the
+    byte form, bit for bit."""
+    if (r, c) == (13, 70):
+        m = torch.from_numpy(_byte_masks((9, r, c), 3)).to(cuda)[1:]
+    else:
+        buf = torch.from_numpy(_byte_masks((5 * r * c + 1,), 4)).to(cuda)
+        m = buf[1:].view(5, r, c)
+    assert m.data_ptr() % 16
+    for a, b in zip(*_score_both(m, variant, 5)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -200,6 +253,10 @@ SLSTM_TOL = 1e-5
     (1, 3, 1, 4, 0), (5, 70, 4, 16, 1), (2, 16, 2, 8, 2), (3, 17, 1, 16, 3),
     (1, 33, 4, 4, 42), (4, 15, 2, 8, 99),   # the reference's sweep
     (4, 1, 4, 512, 7), (4, 20, 4, 512, 8),   # xlstm-1.3b decode, prefill
+    (4, 128, 4, 512, 9),                      # the path's prefill
+    (5, 9, 4, 512, 10),      # two lane passes, rows read from L2
+    (2, 7, 3, 100, 11),      # blocks with fewer dims and none
+    (9, 3, 2, 64, 12),       # two lane groups (clusters) a head
 ])
 def test_slstm_scan_kernel_vs_plain(cuda, b, t, h, dh, seed):
     rng = np.random.default_rng(seed)

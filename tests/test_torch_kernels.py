@@ -438,3 +438,217 @@ def test_3xtf32_meets_the_flash_bound_and_one_pass_does_not():
     assert excess(_attention(q, k, v, qpos, kpos, _mm3)) <= 0
     one = lambda a, b: _tf32_rna(a) @ _tf32_rna(b)
     assert excess(_attention(q, k, v, qpos, kpos, one)) > 0
+
+
+# ------------- manhattan_score: the vector form's integer arithmetic --------
+
+from repro_torch.kernels.manhattan_score import ops as score_ops
+from repro_torch.kernels.slstm_scan import ops as scan_ops
+
+
+def _bytes(w, e):
+    return (w >> np.uint32(8 * e)) & np.uint32(0xFF)
+
+
+def _dp4a(a, b, c):
+    """__dp4a on uint32 arrays: c + the sum of the four byte products."""
+    return c + sum(_bytes(a, e) * _bytes(b, e) for e in range(4))
+
+
+def _vcmpne4_zero(w):
+    """__vcmpne4(w, 0) & 0x01010101: 1 in each byte that is nonzero."""
+    return sum(((_bytes(w, e) != 0).astype(np.uint32) << np.uint32(8 * e))
+               for e in range(4))
+
+
+def _score_vector_form(masks, nf_unit, reverse=False, row_position=None):
+    """kernel.cu's vector form restated in numpy: each row read as
+    16-byte chunks of four little-endian words, bytes normalised with
+    vcmpne4, counts and column sums by dp4a against 0x01010101 and the
+    packed column indices, the row's chunks summed (its lanes'
+    shuffles), s_rev = n (C - 1) - s, then the integer distance."""
+    T, R, C = masks.shape
+    assert C in score_ops.VECTOR_COLS
+    words = np.ascontiguousarray(masks).view("<u4").reshape(T, R, C // 4)
+    col0 = 4 * np.arange(C // 4, dtype=np.uint32)
+    idx = col0 * np.uint32(0x01010101) + np.uint32(0x03020100)
+    b = _vcmpne4_zero(words)
+    zero = np.zeros_like(words)
+    n = _dp4a(b, np.uint32(0x01010101), zero).sum(-1, dtype=np.int64)
+    s = _dp4a(b, idx, zero).sum(-1, dtype=np.int64)
+    if reverse:
+        s = n * (C - 1) - s
+    p = (np.arange(R)[None, :] if row_position is None
+         else row_position.astype(np.int64))
+    dist = (p * n + s).sum(-1)
+    return ((n + s).astype(np.float32), n.astype(np.float32),
+            np.float32(nf_unit) * dist.astype(np.float32))
+
+
+@pytest.mark.parametrize("t,r,c,seed", [
+    (3, 64, 64, 0), (5, 32, 32, 1), (4, 16, 16, 2), (2, 8, 128, 3),
+    (2, 4, 256, 4), (6, 64, 16, 5),
+])
+def test_manhattan_vector_form_arithmetic_matches_reference(t, r, c, seed):
+    """The vector form's arithmetic on masks with bytes 0, 1, 2 and 255
+    equals the JAX reference on their 0/1 normalisation, bit for bit, in
+    the planner's three variants: raw, reversed (the reference on the
+    mirrored masks) and reversed and placed (on the mirrored, permuted
+    masks)."""
+    rng = np.random.default_rng(seed)
+    m = rng.choice(np.array([0, 1, 2, 255], np.uint8), size=(t, r, c),
+                   p=[0.6, 0.2, 0.1, 0.1])
+    ones = (m != 0).astype(np.uint8)
+    mirrored = ones[..., ::-1].copy()
+    perm = np.stack([rng.permutation(r) for _ in range(t)])
+    position = np.argsort(perm, -1).astype(np.int32)
+    placed = np.take_along_axis(mirrored, perm[..., None], axis=1)
+    cases = [(dict(), j_score(jnp.asarray(ones), nf_unit=NF_UNIT)),
+             (dict(reverse=True), j_score(jnp.asarray(mirrored),
+                                          nf_unit=NF_UNIT))]
+    s_rev, n_rev, _ = cases[1][1]
+    _, _, nf_placed = j_score(jnp.asarray(placed), nf_unit=NF_UNIT)
+    cases.append((dict(reverse=True, row_position=position),
+                  (s_rev, n_rev, nf_placed)))
+    for kw, want in cases:
+        got = _score_vector_form(m, NF_UNIT, **kw)
+        for a, w in zip(got, want):
+            np.testing.assert_array_equal(a, np.asarray(w))
+        # The plain version, on the CPU, counts any nonzero byte as 1 too.
+        tp = manhattan_score(
+            torch.from_numpy(m), NF_UNIT, reverse=kw.get("reverse", False),
+            row_position=(None if "row_position" not in kw
+                          else torch.from_numpy(kw["row_position"])),
+            device=CPU)
+        for a, w in zip(tp, got):
+            np.testing.assert_array_equal(a.numpy(), w)
+
+
+def test_manhattan_score_form_by_shape_and_alignment():
+    """16-byte loads where a row is whole chunks of a power-of-two lane
+    group and packed indices fit a byte; bytes elsewhere."""
+    vec, byte = score_ops.VECTOR_FORM, score_ops.BYTE_FORM
+    for c in (16, 32, 64, 128, 256):
+        assert score_ops.score_form(c, True) == vec
+        assert score_ops.score_form(c, False) == byte
+    for c in (4, 8, 48, 70, 80, 96, 512):
+        assert score_ops.score_form(c, True) == byte
+    # kernel.cu takes form 1 as the vector form, anything else as bytes.
+    cu = Path(score_ops.__file__).with_name("kernel.cu").read_text()
+    assert "if (form == 1) {" in cu and (byte, vec) == (0, 1)
+
+
+# ------------------------ slstm_scan launch geometry ------------------------
+
+def test_slstm_geometry_constants_mirror_the_kernel():
+    cu = Path(scan_ops.__file__).with_name("kernel.cu")
+    assert _cu_constant(cu, "CLUSTER") == scan_ops.CLUSTER
+    assert _cu_constant(cu, "COLG") == scan_ops.MAX_PER
+    assert _cu_constant(cu, "KS") == scan_ops.KS
+    assert _cu_constant(cu, "LANES") == scan_ops.LANES
+    assert _cu_constant(cu, "MAX_LANES") == scan_ops.MAX_LANES
+    assert _cu_constant(cu, "RR") == scan_ops.REG_ROWS
+    assert _cu_constant(cu, "SMEM_MAX") == scan_ops.SMEM_MAX
+    assert scan_ops.KS * scan_ops.MAX_PER == scan_ops.THREADS
+    fields = re.search(r"struct Geom \{\s*int ([^;]*);",
+                       cu.read_text()).group(1)
+    assert tuple(f.strip() for f in fields.split(",")) == \
+        scan_ops._GEOM_FIELDS
+
+
+def _scan_tiers(geom, Dh):
+    """kernel.cu's split of R[h]: for each block rank, its dims, and for
+    each k slice, its register, shared and L2 rows."""
+    ranks = []
+    for rank in range(scan_ops.CLUSTER):
+        d0 = min(Dh, rank * geom.per)
+        ranks.append(range(d0, min(Dh, d0 + geom.per)))
+    slices = []
+    for s in range(scan_ops.KS):
+        k0 = min(Dh, s * geom.kper)
+        k1 = min(Dh, k0 + geom.kper)
+        nreg = min(geom.reg_rows, k1 - k0)
+        nsm = min(geom.sm_rows, k1 - k0 - nreg)
+        slices.append((range(k0, k0 + nreg), range(k0 + nreg, k0 + nreg + nsm),
+                       range(k0 + nreg + nsm, k1)))
+    return ranks, slices
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 5, 8, 9, 33])
+def test_slstm_geometry_fits_and_covers_every_head_dim(B):
+    """For every Dh a multiple of 4 up to 512: the shared memory fits a
+    block, the blocks' dims cover [0, Dh) once in multiples of 4, the
+    slices' register, shared and L2 rows cover [0, Dh) once, the lane
+    groups cover B."""
+    for Dh in range(4, scan_ops.MAX_HEAD_DIM + 1, 4):
+        g = scan_ops.slstm_geometry(B, Dh)
+        assert g.smem <= scan_ops.SMEM_MAX
+        assert 0 < g.per <= scan_ops.MAX_PER and g.per % 4 == 0
+        assert 0 <= g.reg_rows <= scan_ops.REG_ROWS and g.sm_rows >= 0
+        assert g.lanes <= scan_ops.MAX_LANES and g.lanes_p % 4 == 0
+        assert g.lanes_p >= g.lanes and g.groups * g.lanes >= B
+        assert (g.groups - 1) * g.lanes < B
+        ranks, slices = _scan_tiers(g, Dh)
+        dims = [d for r in ranks for d in r]
+        assert dims == list(range(Dh))
+        assert all(len(r) % 4 == 0 for r in ranks)
+        rows = [k for tiers in slices for tier in tiers for k in tier]
+        assert rows == list(range(Dh))
+        ncols = 4 * g.per
+        box = -(-g.sm_rows * g.per // 32) * 32       # 128-byte TMA boxes
+        assert g.smem == 4 * (scan_ops.KS * 4 * box
+                              + 2 * Dh * g.lanes_p
+                              + scan_ops.KS * scan_ops.LANES * ncols
+                              + g.per * g.lanes_p) + scan_ops.MBAR_BYTES
+        # As many shared rows as fit, the rest from L2.
+        if g.reg_rows + g.sm_rows < g.kper:
+            other = (2 * Dh * g.lanes_p + scan_ops.KS * scan_ops.LANES * ncols
+                     + g.per * g.lanes_p)
+            assert scan_ops._smem(other, g.sm_rows + 1, g.per) \
+                > scan_ops.SMEM_MAX
+
+
+
+def test_slstm_geometry_keeps_xlstm_r_on_chip():
+    """At xlstm-1.3b's decode and prefill shape (B = 4, Dh = 512) no row
+    of R is read from L2: 10 rows a slice in registers, 22 in shared
+    memory; with 5-8 lanes two rows a slice come from L2."""
+    g = scan_ops.slstm_geometry(4, 512)
+    assert (g.per, g.kper, g.reg_rows, g.sm_rows) == (32, 32, 10, 22)
+    _, slices = _scan_tiers(g, 512)
+    assert all(len(l2) == 0 for _, _, l2 in slices)
+    g8 = scan_ops.slstm_geometry(8, 512)
+    assert g8.sm_rows == 20 and g8.groups == 1
+    assert scan_ops.slstm_geometry(9, 512).groups == 2
+
+
+def test_slstm_tiled_sum_matches_the_plain_step():
+    """One step's h @ R summed as kernel.cu sums it (per block rank and
+    gate column, slice by slice in order, each slice's register, shared
+    and L2 rows in order) equals the plain version's product within the
+    card bound."""
+    rng = np.random.default_rng(3)
+    B, Dh = 3, 100
+    g = scan_ops.slstm_geometry(B, Dh)
+    h = rng.standard_normal((B, Dh)).astype(np.float32)
+    r = (rng.standard_normal((Dh, 4 * Dh)) * 0.1).astype(np.float32)
+    ranks, slices = _scan_tiers(g, Dh)
+    pre = np.zeros((B, 4 * Dh), np.float32)
+    for dims in ranks:
+        cols = [q * Dh + d for q in range(4) for d in dims]
+        total = np.zeros((B, len(cols)), np.float32)
+        for tiers in slices:
+            acc = np.zeros((B, len(cols)), np.float32)
+            for tier in tiers:
+                for k in tier:
+                    acc = acc + h[:, k:k + 1] * r[k, cols]
+            total = total + acc
+        pre[:, cols] = total
+    plain = (torch.from_numpy(h) @ torch.from_numpy(r)).numpy()
+    assert (np.abs(pre - plain) <= 1e-5 * (1 + np.abs(plain))).all()
+
+
+@pytest.mark.parametrize("B,Dh", [(4, 2), (4, 6), (4, 516), (4, 0), (0, 64)])
+def test_slstm_geometry_refuses_what_the_kernel_does_not_take(B, Dh):
+    with pytest.raises(ValueError, match="slstm_scan kernel takes"):
+        scan_ops.slstm_geometry(B, Dh)
