@@ -5,23 +5,36 @@
 
 Builds the port's five hand-written CUDA kernels from the sources in
 this checkout and holds each against its plain PyTorch version at the
-shapes of the paths below.  Then it drives three paths through the
+shapes of the paths below.  Then it drives four paths through the
 entry points a user calls, each with the launch counts set to 0 just
 before it and read just after:
 
 1. phi3-mini serving: random full-width weights (seed 0, f32, all 32
    layers), ``ServeEngine`` with ``cim.enabled`` (quantise, MDM-plan and
-   package every projection on the card) and greedy generation for a
-   batch of prompts (cim_mvm, flash_attention, manhattan_score);
-2. the deployment-image export of phi3's ``lm_head``: quantise, signed
+   package every projection on the card, through a plan cache) and
+   greedy generation for a batch of prompts (cim_mvm, flash_attention,
+   manhattan_score);
+2. phi3-continuous: the same weights through ``ContinuousEngine``
+   (capacity 8, a cold deploy through a fresh plan cache), 16 requests
+   of mixed lengths, half greedy, served three times: in order,
+   reversed on a fresh engine over the same bank, and with a hot swap
+   to the same checkpoint (cim_mvm, per-lane flash_attention,
+   manhattan_score);
+3. the deployment-image export of phi3's ``lm_head``: quantise, signed
    codes, ``bitslice_pack`` (bitslice_pack);
-3. xlstm-1.3b serving: random full-width weights (seed 0, f32, all 48
+4. xlstm-1.3b serving: random full-width weights (seed 0, f32, all 48
    layers), deploy (the reference deploys the mLSTM q/k/v) and greedy
    generation (slstm_scan, manhattan_score).
 
 For each serving path it checks plans built on the card against the
 port's CPU mirror, the kernel path's logits and tokens against the
-plain path, and that every kernel of the path was launched.
+plain path, and that every kernel of the path was launched.  The
+continuous path must give every request the same tokens in all three
+runs, one call signature each for prefill, decode, join and evict,
+greedy tokens equal to ``ServeEngine`` alone (a flip passes only
+inside the logits' tolerance, and is listed with its gap), and banks
+(cold, and warm from the manifest) bit-identical to ``ServeEngine``'s.
+Plan caches live in a temporary directory removed at the end.
 
 Every phase prints its result; any failure raises and exits non-zero.
 The line before the last is the kernels' JSON record, the last line
@@ -36,8 +49,10 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -59,12 +74,16 @@ COLD_BYTES = 150 * 2 ** 20
 
 B, PROMPT, NEW = 4, 128, 32          # requests served in each path
 MAX_SEQ = PROMPT + NEW
+# The continuous-batching path: slots, padded prompt length, requests.
+CAPACITY, CONT_PROMPT, N_REQUESTS = 8, 128, 16
 CIM_TOL = 1e-5       # max|kernel - plain| <= CIM_TOL * max|plain|
 FLASH_TOL = 2e-5     # |kernel - plain| <= FLASH_TOL * (1 + |plain|)
 SLSTM_TOL = 1e-5     # |kernel - plain| <= SLSTM_TOL * (1 + |plain|)
 LOGIT_TOL = 1e-3     # max|kernel - plain| logits <= LOGIT_TOL * max|plain|
 # Kernels each path must launch.
 PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
+                "phi3-continuous": ("cim_mvm", "flash_attention",
+                                    "manhattan_score"),
                 "export": ("bitslice_pack",),
                 "xlstm": ("slstm_scan", "manhattan_score")}
 # Substrings of the port's CUDA kernel names, as the profiler shows them.
@@ -212,8 +231,10 @@ def _deploy_random(I: int, N: int, seed: int):
 
 
 def _check_cim(g) -> dict:
-    """cim_mvm at the three matrix shapes of phi3 and the path's row
-    counts (decode M = 1 and M = B, prefill M = B * PROMPT): against its
+    """cim_mvm at the three matrix shapes of phi3 and the paths' row
+    counts (ServeEngine's decode M = 1 and M = B and prefill M = B *
+    PROMPT; ContinuousEngine's decode M = CAPACITY and prefill M =
+    CONT_PROMPT): against its
     plain version, device time warm and, at decode, cold (rotating over
     copies of the deployment larger than L2 together, as a decode step
     finds its weights), beside ``x @ W'`` on the materialised f32 W'
@@ -237,7 +258,7 @@ def _check_cim(g) -> dict:
             scale=dep.scale.clone()) for _ in range(n_dep - 1)]
         n_w = max(2, -(-COLD_BYTES // (w_eff.numel() * 4)))
         ws = [w_eff] + [w_eff.clone() for _ in range(n_w - 1)]
-        for M in (1, B, B * PROMPT):
+        for M in (1, B, CAPACITY, CONT_PROMPT, B * PROMPT):
             x = torch.randn((M, I), generator=g, device="cuda")
             y_k = cim_mvm(x, dep)
             y_p = cim_mvm_plain(x, dep)
@@ -273,9 +294,11 @@ def _check_cim(g) -> dict:
             print(line)
             if not ok:
                 raise AssertionError(f"cim_mvm disagrees at M={M} I={I} N={N}")
-            if (I, N) == (3072, 8192) and M in (B, B * PROMPT):
-                regimes["decode" if M == B else "prefill"] = dict(
-                    M=M, I=I, N=N, **rec)
+            regime = {B: "decode", B * PROMPT: "prefill",
+                      CAPACITY: "decode_continuous",
+                      CONT_PROMPT: "prefill_continuous"}.get(M)
+            if (I, N) == (3072, 8192) and regime:
+                regimes[regime] = dict(M=M, I=I, N=N, **rec)
         if (I, N) == (3072, 3072):
             x = torch.randn((B, I), generator=g, device="cuda")
             print(f"  cim_mvm wrapper host time (M={B}, {I}x{N}): "
@@ -320,28 +343,56 @@ def _sdpa_kernels(fn) -> list[str]:
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
-def _check_flash(g) -> dict:
-    """flash attention at phi3's shapes: prefill (Sq = 128) and decode
-    (Sq = 1), Dh = 96, against a MAX_SEQ-long cache whose unwritten
-    slots hold EMPTY_POS; device time beside SDPA on the same inputs."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import (
-        EMPTY_POS,
-        flash_attention_plain,
-    )
+def _flash_cases():
+    """(name, B, Sq, q positions, k positions) of the flash checks, at
+    phi3's heads over a MAX_SEQ-long cache whose unwritten slots hold
+    EMPTY_POS: the shared-position prefill and decode of ServeEngine,
+    and the per-lane forms of ContinuousEngine: one padded prompt's
+    prefill (B = 1, Sq = CONT_PROMPT), and a decode over CAPACITY lanes
+    at staggered clocks, two of them dead (all EMPTY_POS)."""
+    from repro_torch.kernels.flash_attention.ref import EMPTY_POS
 
-    H, Dh = 32, 96
-    k = torch.randn((B, MAX_SEQ, H, Dh), generator=g, device="cuda")
-    v = torch.randn((B, MAX_SEQ, H, Dh), generator=g, device="cuda")
-    regimes = {}
+    def kpos_rows(filled):
+        kp = torch.full((len(filled), MAX_SEQ), EMPTY_POS, dtype=torch.int32,
+                        device="cuda")
+        for b, n in enumerate(filled):
+            kp[b, :n] = torch.arange(n, dtype=torch.int32)
+        return kp
+
+    cases = []
     for name, Sq, filled in (("prefill", PROMPT, PROMPT),
                              ("decode", 1, MAX_SEQ - 1)):
-        q = torch.randn((B, Sq, H, Dh), generator=g, device="cuda")
-        kpos = torch.full((MAX_SEQ,), EMPTY_POS, dtype=torch.int32,
-                          device="cuda")
-        kpos[:filled] = torch.arange(filled, dtype=torch.int32)
         qpos = torch.arange(filled - Sq, filled, dtype=torch.int32,
                             device="cuda")
+        cases.append((name, B, Sq, qpos, kpos_rows([filled])[0]))
+    cases.append(("prefill_lanes", 1, CONT_PROMPT,
+                  torch.arange(CONT_PROMPT, dtype=torch.int32,
+                               device="cuda")[None],
+                  kpos_rows([CONT_PROMPT])))
+    filled = [0, 0, 17, 40, 77, 128, 150, MAX_SEQ - 1][:CAPACITY]
+    cases.append(("decode_lanes", CAPACITY, 1,
+                  torch.tensor([max(n - 1, 0) for n in filled],
+                               dtype=torch.int32, device="cuda")[:, None],
+                  kpos_rows(filled)))
+    return cases
+
+
+def _check_flash(g) -> dict:
+    """flash attention at the paths' shapes (``_flash_cases``), Dh = 96,
+    against its plain version; device time beside SDPA on the same
+    inputs."""
+    from repro_torch.kernels.flash_attention.ops import (
+        DECODE_MAX_SQ,
+        flash_attention,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    H, Dh = 32, 96
+    regimes = {}
+    for name, Bq, Sq, qpos, kpos in _flash_cases():
+        k = torch.randn((Bq, MAX_SEQ, H, Dh), generator=g, device="cuda")
+        v = torch.randn((Bq, MAX_SEQ, H, Dh), generator=g, device="cuda")
+        q = torch.randn((Bq, Sq, H, Dh), generator=g, device="cuda")
         run = lambda: flash_attention(q, k, v, q_positions=qpos,
                                       k_positions=kpos)
         o_k = run()
@@ -352,43 +403,52 @@ def _check_flash(g) -> dict:
         ok = excess.item() <= 0
         ms = device_ms(run)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, qpos, kpos))
-        mask = (kpos[None, :] <= qpos[:, None])
+        qp = qpos if qpos.ndim == 2 else qpos[None]
+        kp = kpos if kpos.ndim == 2 else kpos[None]
+        mask = (kp[:, None, :] <= qp[:, :, None])           # (b, Sq, C)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask)
+            qt, kt, vt, attn_mask=mask[:, None])
         lib_ms = device_ms(sdpa)
-        pairs = int(mask.sum().item()) * B * H
+        pairs = int(mask.sum().item()) * H * (Bq if mask.shape[0] == 1
+                                              else 1)
         # Q read and O written once; K and V only at the slots some query
-        # can see (EMPTY_POS slots and keys past every query need no read).
-        seen = int(mask.any(0).sum().item())
-        n_bytes = (2 * q.numel() + 2 * B * seen * H * Dh) * 4 \
+        # of the lane can see (EMPTY_POS slots and keys past every query
+        # need no read).
+        seen = int(mask.any(1).sum().item()) * (Bq if mask.shape[0] == 1
+                                                else 1)
+        n_bytes = (2 * q.numel() + 2 * seen * H * Dh) * 4 \
             + (qpos.numel() + kpos.numel()) * 4
         # Q.K^T and P.V over the valid pairs, 2 Dh operations each.
         b_ms, b_by = bound(n_bytes, pairs * 4.0 * Dh)
         tc_ms, tc_by = bound(n_bytes, 3 * pairs * 4.0 * Dh, PEAK_TF32)
-        print(f"flash {name} B={B} Sq={Sq} C={MAX_SEQ} H={H} Dh={Dh}: "
+        print(f"flash {name} B={Bq} Sq={Sq} C={MAX_SEQ} H={H} Dh={Dh} "
+              f"positions {tuple(qpos.shape)}/{tuple(kpos.shape)}: "
               f"max_abs_err {err:.3e} (tol {FLASH_TOL:g}(1+|ref|)) "
               f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} "
               f"ms ({b_by}, f32), {tc_ms:.4f} ms ({tc_by}, 3xTF32); "
               f"host {host_us(run):.1f} us a call")
-        print(f"  sdpa kernels: {_sdpa_kernels(sdpa)}")
+        if name in ("prefill", "decode"):
+            print(f"  sdpa kernels: {_sdpa_kernels(sdpa)}")
         if not ok:
             raise AssertionError(f"flash attention disagrees ({name})")
+        if name == "decode_lanes" and not (o_k[:2] == 0).all():
+            raise AssertionError("dead lanes attend to something")
         # The prefill form runs its products in 3xTF32 on tensor cores,
         # the decode form in f32 on the CUDA cores.
+        pre = Sq > DECODE_MAX_SQ
         rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=tc_ms if name == "prefill" else b_ms,
-                   bound_by=tc_by if name == "prefill" else b_by,
-                   library_ms=lib_ms)
-        if name == "prefill":
+                   bound_ms=tc_ms if pre else b_ms,
+                   bound_by=tc_by if pre else b_by, library_ms=lib_ms)
+        if pre:
             rec["bound_f32_ms"] = b_ms
-        regimes[name] = dict(Sq=Sq, C=MAX_SEQ, **rec)
+        regimes[name] = dict(B=Bq, Sq=Sq, C=MAX_SEQ, **rec)
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/flash_attention/kernel.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:75",
                 **{k: v for k, v in regimes["prefill"].items()
-                   if k not in ("Sq", "C")},
+                   if k not in ("B", "Sq", "C")},
                 regimes=regimes)
 
 
@@ -566,8 +626,11 @@ def _launches(path: str) -> dict:
     return counts
 
 
-def phase_serve(path: str, cfg):
-    """Init, deploy and serve a full-width model through the kernels."""
+def phase_serve(path: str, cfg, cache_dir: str):
+    """Init, deploy (through a plan cache in the fresh ``cache_dir``)
+    and serve a full-width model through the kernels; then the
+    uncached deploy alone, for comparison."""
+    from repro_torch.deploy import PlanCache, deploy_model_params
     from repro_torch.kernels import runtime
     from repro_torch.models.model import init_params
     from repro_torch.serve import ServeEngine
@@ -579,12 +642,14 @@ def phase_serve(path: str, cfg):
                          "cuda")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    eng = ServeEngine(cfg, params, max_seq=MAX_SEQ, device="cuda")
+    eng = ServeEngine(cfg, params, max_seq=MAX_SEQ,
+                      plan_cache=PlanCache(cache_dir), device="cuda")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     rep = eng.deploy_report
     print(f"phase deploy ({path}): init {t1 - t0:.2f} s, deploy "
-          f"{t2 - t1:.2f} s: {rep['n_matrices']} matrices, "
+          f"{t2 - t1:.2f} s through a cold plan cache "
+          f"({rep['cache_misses']} misses): {rep['n_matrices']} matrices, "
           f"{rep['tiles_planned']} tiles, mean NF reduction "
           f"{100 * rep['nf_reduction']:.3f}% (NF {rep['nf_before']:.6g} "
           f"-> {rep['nf_after']:.6g})")
@@ -613,12 +678,20 @@ def phase_serve(path: str, cfg):
           f"{B * NEW / t_all:.1f} tokens/s "
           f"(peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB)")
     counts = _launches(path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cim, _ = deploy_model_params(params, cfg, device="cuda")
+    torch.cuda.synchronize()
+    uncached_s = time.perf_counter() - t0
+    print(f"  uncached deploy_model_params ({path}): {uncached_s:.2f} s "
+          f"(the deploy timed up to PR 14)")
+    del cim
     if not torch.isfinite(eng.teacher_forced_logits(
             torch.cat([prompts.cuda(), tokens.long()], 1)[:, :PROMPT + 1],
             PROMPT)).all():
         raise AssertionError("non-finite logits")
     phase_profile(eng, prompts, step * 1e3)
-    return eng, prompts, tokens, counts
+    return eng, prompts, tokens, counts, uncached_s
 
 
 def phase_profile(eng, prompts, step_ms: float, steps: int = 3):
@@ -802,6 +875,316 @@ def phase_compare(eng, prompts, tokens):
                   f"{gap[b, t].item():.3e}")
 
 
+def _requests(vocab: int) -> list[tuple]:
+    """The continuous path's traffic, from a numpy seed: N_REQUESTS
+    (prompt, max_tokens, temperature, seed), prompts of 16-CONT_PROMPT
+    tokens, 8-32 new tokens with prompt + new <= MAX_SEQ, even indices
+    greedy and odd ones at temperature 0.8, distinct seeds."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    out = []
+    for i in range(N_REQUESTS):
+        L = int(rng.integers(16, CONT_PROMPT + 1))
+        n = min(int(rng.integers(8, 33)), MAX_SEQ - L)
+        out.append((rng.integers(0, vocab, L), n,
+                    0.0 if i % 2 == 0 else 0.8, 1000 + i))
+    return out
+
+
+def _serve_continuous(eng, reqs, order, swap_at=None, params=None) -> dict:
+    """Submit ``reqs`` in ``order`` up front and step ``eng`` until all
+    finish; with ``swap_at``, ``begin_redeploy(params)`` after that many
+    iterations.  Returns the tokens by request index and the run's
+    numbers (host wall times around work that ends in a sync)."""
+    times = {"_admit": [], "_decode_iteration": []}
+    for name in times:
+        fn = getattr(eng, name)
+
+        def timed(*a, fn=fn, name=name):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            times[name].append(time.perf_counter() - t0)
+            return out
+
+        setattr(eng, name, timed)
+    rids = {i: eng.submit(reqs[i][0], max_tokens=reqs[i][1],
+                          temperature=reqs[i][2], seed=reqs[i][3])
+            for i in order}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    swap = {}
+    while eng.scheduler.pending:
+        if swap_at is not None and eng.iterations == swap_at:
+            t_swap = time.perf_counter()
+            thread = eng.begin_redeploy(params)
+            n0 = len(times["_decode_iteration"])
+            # Serve meanwhile, but leave requests queued for the new bank.
+            while thread.is_alive() and eng.scheduler.queue_depth > 2:
+                eng.step()
+            during = times["_decode_iteration"][n0:]
+            thread.join()
+            swap = dict(ready_s=time.perf_counter() - t_swap,
+                        iterations_meanwhile=len(during),
+                        decode_ms_meanwhile=1e3 * sum(during)
+                        / max(1, len(during)))
+        eng.step()
+    wall = time.perf_counter() - t0
+    out = {i: eng.results[r] for i, r in rids.items()}
+    tokens = sum(len(t) for t in out.values())
+    decoded = tokens - len(reqs)
+    return dict(tokens_by_request=out, wall_s=wall,
+                iterations=eng.iterations, tokens=tokens,
+                tokens_per_s=tokens / wall,
+                occupancy=decoded / max(1, len(times["_decode_iteration"])
+                                        * eng.capacity),
+                prefill_ms=1e3 * sum(times["_admit"])
+                / max(1, len(times["_admit"])),
+                decode_ms=1e3 * sum(times["_decode_iteration"])
+                / max(1, len(times["_decode_iteration"])), swap=swap)
+
+
+def _print_run(name: str, run: dict) -> None:
+    print(f"  run {name}: {run['wall_s']:.3f} s, {run['iterations']} "
+          f"iterations, {run['tokens']} tokens, {run['tokens_per_s']:.1f} "
+          f"tokens/s, mean occupancy {run['occupancy']:.3f}; prefill "
+          f"{run['prefill_ms']:.2f} ms an admission, decode "
+          f"{run['decode_ms']:.2f} ms an iteration"
+          + (f"; redeploy ready {run['swap']['ready_s']:.2f} s after "
+             f"begin_redeploy, {run['swap']['iterations_meanwhile']} "
+             f"iterations served meanwhile at "
+             f"{run['swap']['decode_ms_meanwhile']:.2f} ms each"
+             if run["swap"] else ""))
+
+
+def _same_bank(a: dict, b: dict, what: str) -> None:
+    for slot, deps in b.items():
+        for pname, d in deps.items():
+            for f in ("codes", "pos", "scale"):
+                if not torch.equal(getattr(a[slot][pname], f),
+                                   getattr(d, f)):
+                    raise AssertionError(f"{what}: {slot}/{pname}.{f} "
+                                         "differs")
+
+
+def _check_greedy_parity(cont, serve_eng, reqs, tokens_by_request) -> None:
+    """Each greedy request against ServeEngine alone (B = 1, the exact
+    prompt): tokens equal, or each flip listed with the top-2 gap of
+    ServeEngine's logits there and failing if the gap is outside the
+    logits' tolerance; and the largest first-step logit difference
+    between the padded per-lane prefill and ServeEngine's."""
+    from repro_torch.models.model import apply_model, init_decode_state
+
+    bank, dev = cont.banks[0], cont.device
+    V = cont.cfg.vocab_size
+    worst, flips, n_tok = 0.0, [], 0
+    for i, (prompt, n, temp, _) in enumerate(reqs):
+        if temp > 0:
+            continue
+        p = torch.as_tensor(prompt)[None].to(dev)
+        L = p.shape[1]
+        ref = serve_eng.generate(p, n)[0].tolist()
+        got = tokens_by_request[i]
+        n_tok += n
+        padded = torch.zeros((1, cont.max_prompt), dtype=torch.int64,
+                             device=dev)
+        padded[0, :L] = p[0]
+        st = init_decode_state(cont.cfg, 1, cont.max_seq, dev,
+                               per_slot=True)
+        lc = apply_model(bank.params, cont.cfg, padded, state=st,
+                         cim=bank.cim)[0][0, L - 1, :V]
+        st = init_decode_state(cont.cfg, 1, cont.max_seq, dev)
+        ls = apply_model(serve_eng.params, cont.cfg, p, state=st,
+                         cim=serve_eng.cim)[0][0, -1, :V]
+        worst = max(worst, (lc - ls).abs().max().item())
+        if got != ref:
+            t = next(j for j in range(n) if got[j] != ref[j])
+            seq = torch.cat([p[0], torch.tensor(ref[:-1], device=dev)])
+            lg = serve_eng.teacher_forced_logits(seq[None], L)[0, t, :V]
+            top = lg.topk(2).values
+            gap = (top[0] - top[1]).item()
+            flips.append((i, t, ref[t], got[t], gap,
+                          gap <= LOGIT_TOL * lg.abs().max().item()))
+    print(f"  greedy parity with ServeEngine alone: "
+          f"{(N_REQUESTS + 1) // 2 - len(flips)}/{(N_REQUESTS + 1) // 2} "
+          f"requests equal ({n_tok} tokens); largest first-step logit "
+          f"difference {worst:.3e}")
+    for i, t, a, b, gap, ok in flips:
+        print(f"  flip request {i} step {t}: ServeEngine {a}, continuous "
+              f"{b}, ServeEngine top-2 gap {gap:.3e} "
+              f"({'within' if ok else 'OUTSIDE'} {LOGIT_TOL:g} x max|logit|)")
+    if not all(f[-1] for f in flips):
+        raise AssertionError("a greedy flip outside the logits' tolerance")
+
+
+def phase_continuous(cfg, params, serve_eng, cache_dir: str,
+                     uncached_s: float) -> dict:
+    """phi3-mini through ContinuousEngine at full width: a cold deploy
+    through a fresh plan cache (beside ``uncached_s``, the same deploy
+    without a cache), then N_REQUESTS requests served three
+    times (submission order, reversed order on a fresh engine over the
+    same bank, and with a hot swap to the same checkpoint after 5
+    iterations), each held to the first run bit for bit; the receipt
+    of one call signature a function; greedy parity with ServeEngine;
+    the banks' codes and pos against ServeEngine's."""
+    from repro_torch.deploy import (
+        PlanCache,
+        collect_model_matrices,
+        fingerprint_matrices,
+        spec_from_config,
+    )
+    from repro_torch.kernels import runtime
+    from repro_torch.serve import ContinuousEngine, deploy_serving_bank
+
+    reqs = _requests(cfg.vocab_size)
+    cache = PlanCache(cache_dir)
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kw = dict(capacity=CAPACITY, max_seq=MAX_SEQ, max_prompt=CONT_PROMPT,
+              plan_cache=cache, device=serve_eng.device)
+    eng1 = ContinuousEngine(cfg, params, **kw)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    rep = eng1.deploy_report
+    bank = eng1.banks[0].cim
+    run1 = _serve_continuous(eng1, reqs, range(N_REQUESTS))
+    eng2 = ContinuousEngine(cfg, params, cim=bank, **kw)
+    run2 = _serve_continuous(eng2, reqs, reversed(range(N_REQUESTS)))
+    eng3 = ContinuousEngine(cfg, params, cim=bank, **kw)
+    run3 = _serve_continuous(eng3, reqs, range(N_REQUESTS), swap_at=5,
+                             params=params)
+    torch.cuda.synchronize()
+    counts = _launches("phi3-continuous")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    print(f"phase phi3-continuous: capacity {CAPACITY}, max_seq {MAX_SEQ}, "
+          f"max_prompt {CONT_PROMPT}, {N_REQUESTS} requests (prompts "
+          f"{min(len(r[0]) for r in reqs)}-{max(len(r[0]) for r in reqs)}, "
+          f"{sum(r[1] for r in reqs)} tokens asked); cold deploy "
+          f"{cold_s:.2f} s through a fresh plan cache ({rep['cache_misses']}"
+          f" misses, {cache.bytes_written / 1e9:.3f} GB written in "
+          f"{cache.stats.puts} entries and a manifest): plan/package "
+          f"{uncached_s:.2f} s (the uncached deploy), fingerprint/write "
+          f"{cold_s - uncached_s:.2f} s")
+    for name, run in (("1 (in order)", run1), ("2 (reversed)", run2),
+                      ("3 (hot swap)", run3)):
+        _print_run(name, run)
+    print(f"  peak memory {peak:.1f} GiB")
+
+    for name, run, eng in (("reversed", run2, eng2), ("hot swap", run3, eng3),
+                           ("in order", run1, eng1)):
+        if run["tokens_by_request"] != run1["tokens_by_request"]:
+            bad = [i for i in range(N_REQUESTS)
+                   if run["tokens_by_request"][i]
+                   != run1["tokens_by_request"][i]]
+            raise AssertionError(f"run {name}: requests {bad} not "
+                                 "bit-identical to run 1")
+        if eng.traces != {"prefill": 1, "decode": 1} or \
+                eng.pool.traces["join"] != 1 or eng.pool.traces["evict"] != 1:
+            raise AssertionError(f"run {name}: call signatures "
+                                 f"{eng.traces} {eng.pool.traces}")
+    rep3 = eng3.deploy_report
+    print(f"  composition determinism: all {N_REQUESTS} requests "
+          f"bit-identical in runs 1-3; signatures {eng1.traces}, join "
+          f"{eng1.pool.traces['join']}, evict {eng1.pool.traces['evict']}")
+    print(f"  hot swap: epoch {eng3.serving_epoch} installed, "
+          f"{eng3.fanout_iterations} iterations decoded over two epochs, "
+          f"merge signatures {eng3.pool.traces['merge']}; redeploy "
+          f"manifest hit {rep3['manifest_hit']}, {rep3['cache_hits']}/"
+          f"{rep3['n_matrices']} cached")
+    if not (eng3.serving_epoch == 1 and eng3.fanout_iterations > 0
+            and rep3["manifest_hit"]
+            and rep3["cache_hits"] == rep3["n_matrices"]):
+        raise AssertionError("the hot swap did not run as planned")
+
+    _same_bank(bank, serve_eng.cim, "cold continuous bank vs ServeEngine")
+    _same_bank(eng3.banks[1].cim, serve_eng.cim,
+               "warm manifest-hit bank vs ServeEngine")
+    print("  cache parity: the cold and the warm (manifest-hit) banks' "
+          "codes, pos and scale bit-identical to ServeEngine's")
+    _check_greedy_parity(eng1, serve_eng, reqs, run1["tokens_by_request"])
+    del eng2, eng3
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The cache's costs alone: the fingerprint pass, and a warm
+    # manifest-hit deploy with nothing else running.
+    mats, _ = collect_model_matrices(params, cfg)
+    t0 = time.perf_counter()
+    fingerprint_matrices(mats, spec_from_config(cfg), cfg.cim.mode)
+    fp_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm, wrep = deploy_serving_bank(cfg, params, cache, serve_eng.device)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    if not wrep["manifest_hit"]:
+        raise AssertionError("the warm deploy missed the manifest")
+    print(f"  plan cache at full width: fingerprint pass {fp_s:.2f} s "
+          f"({_gb(mats):.2f} GB to the host and blake2b), warm "
+          f"manifest-hit deploy {warm_s:.2f} s, cold cached deploy "
+          f"{cold_s:.2f} s")
+    del warm
+    _cache_costs(mats, cfg, cache, cache_dir)
+    return counts
+
+
+def _gb(mats) -> float:
+    return sum(w.numel() * w.element_size() for w in mats.values()) / 1e9
+
+
+def _cache_costs(mats, cfg, cache, cache_dir: str) -> None:
+    """Where a cached deploy's host time goes: copy and hash rates on
+    layer 0's matrices (pageable and pinned copies, blake2b on one
+    core), and over the whole plan set the manifest's read and decode,
+    the entries' encoding and their writing (to a scratch directory)."""
+    import hashlib
+
+    from repro_torch.deploy import PlanCache, fingerprint_matrices
+    from repro_torch.deploy import spec_from_config
+    from repro_torch.deploy.cache import encode_plan
+
+    layer0 = [w for k, w in mats.items() if k.endswith("/0")]
+    n = _gb({i: w for i, w in enumerate(layer0)})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = [w.cpu() for w in layer0]
+    pageable = n / (time.perf_counter() - t0)
+    pinned = [torch.empty(w.shape, pin_memory=True) for w in layer0]
+    t0 = time.perf_counter()
+    for h, w in zip(pinned, layer0):
+        h.copy_(w, non_blocking=True)
+    torch.cuda.synchronize()
+    pinned_rate = n / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for h in host:
+        hashlib.blake2b(h.numpy().data, digest_size=32)
+    hash_rate = n / (time.perf_counter() - t0)
+    del host, pinned
+    keys = fingerprint_matrices(mats, spec_from_config(cfg), cfg.cim.mode)
+    t0 = time.perf_counter()
+    plans = cache.get_manifest(keys)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blobs = {name: encode_plan(p) for name, p in plans.items()}
+    enc_s = time.perf_counter() - t0
+    scratch = PlanCache(os.path.join(cache_dir, "scratch"))
+    t0 = time.perf_counter()
+    for name, key in keys.items():
+        scratch.put(key, blobs[name])
+    scratch.put_manifest(keys, blobs)
+    write_s = time.perf_counter() - t0
+    shutil.rmtree(scratch.root)
+    print(f"  cache costs: layer 0 ({n:.3f} GB) to the host at "
+          f"{pageable:.2f} GB/s pageable, {pinned_rate:.2f} GB/s pinned; "
+          f"blake2b {hash_rate:.2f} GB/s on one core; whole plan set: "
+          f"manifest read + decode {read_s:.2f} s, encode {enc_s:.2f} s, "
+          f"{scratch.bytes_written / 1e9:.3f} GB written with fsync "
+          f"{write_s:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -818,31 +1201,50 @@ def main() -> int:
     card = phase_card()
     phase_build()
     records = phase_kernels()
+    # Plan caches live in fresh directories under TMPDIR, so every
+    # deploy here starts cold and nothing outlives the run.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plans_") as tmp:
+        phase_paths(records, tmp)
+    bad = [m for m in ("jax", "repro", "ml_dtypes") if m in sys.modules]
+    if bad:
+        raise AssertionError(f"the port imported {bad}")
+    print(f"card {card}; total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def phase_paths(records: list[dict], tmp: str) -> None:
+    """Drive every path, each with the launch counts set to 0 just
+    before it and read just after; record each kernel's launches."""
     from repro_torch.configs import CimConfig
     from repro_torch.configs.phi3_mini_38b import CONFIG as PHI3
     from repro_torch.configs.xlstm_13b import CONFIG as XLSTM
 
     cim = CimConfig(enabled=True, mode="mdm")
-    launches: dict = {}
-
-    def add(counts):
-        for k, n in counts.items():
-            launches[k] = launches.get(k, 0) + n
-
+    by_path: dict = {}
     cfg = PHI3.replace(dtype="float32", cim=cim)
     print(f"config {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size} (padded {cfg.padded_vocab}); no depth cut")
-    eng, prompts, tokens, counts = phase_serve("phi3", cfg)
-    add(counts)
+    eng, prompts, tokens, counts, uncached_s = phase_serve(
+        "phi3", cfg, os.path.join(tmp, "phi3"))
+    by_path["phi3"] = counts
+    by_path["phi3-continuous"] = phase_continuous(
+        cfg, eng.params, eng, os.path.join(tmp, "phi3-continuous"),
+        uncached_s)
+    for d in ("phi3", "phi3-continuous"):
+        shutil.rmtree(os.path.join(tmp, d))
     phase_plans(eng, [("slot0_attn", "wq"), ("slot0_attn", "ffn_w_gate"),
                       ("slot0_attn", "ffn_w_down")])
     phase_layer_deploy(eng)
     phase_compare(eng, prompts, tokens)
     rec, counts = phase_export(eng)
     records.append(rec)
-    add(counts)
+    by_path["export"] = counts
     del eng, prompts, tokens
     gc.collect()
     torch.cuda.empty_cache()
@@ -853,20 +1255,16 @@ def main() -> int:
           f"{cfg.d_model}, heads {cfg.n_heads}, mLSTM inner "
           f"{cfg.d_model * cfg.ssm_expand}, vocab {cfg.vocab_size} (padded "
           f"{cfg.padded_vocab}); no depth cut")
-    eng, prompts, tokens, counts = phase_serve("xlstm", cfg)
-    add(counts)
+    eng, prompts, tokens, counts, _ = phase_serve(
+        "xlstm", cfg, os.path.join(tmp, "xlstm"))
+    by_path["xlstm"] = counts
     phase_plans(eng, [("slot0_mlstm", "wq")])
     phase_compare(eng, prompts, tokens)
     for r in records:
-        r["launches"] = launches[r["name"]]
-    if "jax" in sys.modules or "repro" in sys.modules:
-        raise AssertionError("the port imported jax or repro")
-    print(f"card {card}; total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": records}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+        name = r["name"]
+        r["launches"] = sum(c[name] for c in by_path.values())
+        r["launches_by_path"] = {p: c[name] for p, c in by_path.items()
+                                 if c[name]}
 
 
 if __name__ == "__main__":

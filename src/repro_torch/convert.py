@@ -9,7 +9,9 @@ is the reference's, walked from the port's schema
 ffn_norm, ffn_w_gate, ffn_w_up, ffn_w_down}``, for xLSTM
 ``slot0_mlstm/{norm, w_up, wq (R, Di, H, Dh), wk, wv, w_if, b_if,
 w_down}`` and ``slot1_slstm/{norm, w_gates (R, D, H, 4Dh), r_gates
-(R, H, Dh, 4Dh), b_gates, w_out}``.
+(R, H, Dh, 4Dh), b_gates, w_out}``.  A checkpoint the reference saved
+(``repro.checkpoint.save_checkpoint``) loads the same way through
+:func:`params_from_checkpoint`.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import load_checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.schema import ParamSpec, model_schema, param_dtype
@@ -29,19 +32,20 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     in ``cfg.dtype``.
 
     Every leaf of the port's schema must be present with its shape;
-    extra keys raise too, so nothing is dropped silently.
+    extra keys raise too, so nothing is dropped silently.  Leaves may
+    also be tensors (any device and dtype).
     """
     dev = resolve_device(device)
     dtype = param_dtype(cfg)
 
     def walk(spec, node, path):
         if isinstance(spec, ParamSpec):
-            a = np.asarray(node)
+            a = (node if isinstance(node, torch.Tensor)
+                 else torch.from_numpy(np.array(node, copy=True)))
             if tuple(a.shape) != tuple(spec.shape):
-                raise ValueError(f"{path}: shape {a.shape} != schema "
-                                 f"{spec.shape}")
-            return torch.from_numpy(np.array(a, copy=True)).to(
-                device=dev, dtype=dtype)
+                raise ValueError(f"{path}: shape {tuple(a.shape)} != "
+                                 f"schema {spec.shape}")
+            return a.to(device=dev, dtype=dtype)
         extra = set(node) - set(spec)
         missing = set(spec) - set(node)
         if extra or missing:
@@ -51,3 +55,15 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                 for k in spec}
 
     return walk(model_schema(cfg), tree, "")
+
+
+def params_from_checkpoint(directory: str, cfg: ModelConfig,
+                           step: int | None = None,
+                           device: str | torch.device = "cuda") -> dict:
+    """The parameters of a reference checkpoint (default: its latest
+    step) on ``device`` in ``cfg.dtype``, with :func:`params_from_numpy`'s
+    checks.  A trainer checkpoint keeps them under ``"params"``."""
+    tree = load_checkpoint(directory, step, device=device)
+    if "embed" not in tree and "params" in tree:
+        tree = tree["params"]
+    return params_from_numpy(tree, cfg, device=device)

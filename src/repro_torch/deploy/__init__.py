@@ -1,4 +1,16 @@
-"""Whole-model CIM deployment of the port (dense, ideal devices)."""
+"""Whole-model CIM deployment of the port (dense, ideal devices): the
+plan cache (``cache``), planning one matrix at a time through it
+(``planner``) and packaging into the stacked deployments the serving
+path reads (``engine``)."""
+from repro_torch.deploy.cache import (  # noqa: F401
+    PLAN_CACHE_VERSION,
+    CacheStats,
+    PlanCache,
+    default_cache_dir,
+    manifest_key,
+    plan_key,
+    weight_fingerprint,
+)
 from repro_torch.deploy.engine import (  # noqa: F401
     DEPLOYABLE,
     collect_model_matrices,
@@ -6,6 +18,8 @@ from repro_torch.deploy.engine import (  # noqa: F401
     spec_from_config,
 )
 from repro_torch.deploy.planner import (  # noqa: F401
+    fingerprint_matrices,
+    plan_matrices,
     plan_matrix,
     quantize_codes_host,
 )

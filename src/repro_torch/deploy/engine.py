@@ -3,20 +3,23 @@
 Port of the dense part of ``repro.deploy.engine``: every parameter of
 every pattern slot whose name the reference deploys (attention and
 mLSTM q/k/v, attention o, SwiGLU projections) is quantised, planned
-(:mod:`repro_torch.deploy.planner`, one matrix at a time) and packaged;
-each slot's deployments are stacked over its pattern repeats, the layout
+(:mod:`repro_torch.deploy.planner`, one matrix at a time, through a
+plan cache when one is given) and packaged; each slot's deployments are
+stacked over its pattern repeats, the layout
 ``repro_torch.models.model.apply_model`` walks.  Every other parameter
 stays digital and is recorded with the reference's reason.  Ideal
-devices only: the nonideal, lifetime and plan-cache parts of the
-reference are later slices.
+devices only: the nonideal and lifetime parts of the reference are
+later slices.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, check_supported
+from repro_torch.core.bitslice import quantize_magnitude
 from repro_torch.core.tiling import CrossbarSpec
-from repro_torch.deploy.planner import plan_matrix
+from repro_torch.deploy.cache import PlanCache
+from repro_torch.deploy.planner import plan_matrices
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels.cim_mvm.ops import CimDeployment, package_deployment
 
@@ -86,6 +89,7 @@ def collect_model_matrices(params: dict, cfg: ModelConfig
 
 
 def deploy_model_params(params: dict, cfg: ModelConfig,
+                        cache: PlanCache | None = None,
                         device: str | torch.device = "cuda"
                         ) -> tuple[dict, dict]:
     """Deploy every projection matrix of a model onto crossbars.
@@ -93,15 +97,17 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
     Returns (cim_tree, report): ``cim_tree[slot][param]`` is one
     :class:`CimDeployment` whose codes / pos / scale are stacked over the
     slot's pattern repeats.  The parameters must lie on ``device``;
-    quantisation, planning and packaging run there, one matrix at a
-    time.  The report carries matrix and tile counts and the summed NF
-    before and after planning.
+    quantisation, planning (of the cache's misses, with ``cache``) and
+    packaging run there, one matrix at a time.  The report carries
+    matrix and tile counts, the cache's hits and misses, and the summed
+    NF before and after planning.
     """
     dev = resolve_device(device)
     check_supported(cfg)
     spec = spec_from_config(cfg)
     mats, summary = collect_model_matrices(params, cfg)
     check_on(dev, **{name.replace("/", "_"): w for name, w in mats.items()})
+    plans, report = plan_matrices(mats, spec, cfg.cim.mode, cache)
 
     nf_before = torch.zeros((), dtype=torch.float64, device=dev)
     nf_after = torch.zeros((), dtype=torch.float64, device=dev)
@@ -116,12 +122,16 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
             reps = params[slot][pname].shape[0]
             stacked = None
             for r in range(reps):
-                plan, codes, sign, scale = plan_matrix(
-                    mats[f"{slot}/{pname}/{r}"], spec, cfg.cim.mode)
-                dep = package_deployment(codes, sign, scale, plan, spec,
-                                         cfg.cim.eta)
-                nf_before += plan.nf_before.sum(dtype=torch.float64)
-                nf_after += plan.nf_after.sum(dtype=torch.float64)
+                name = f"{slot}/{pname}/{r}"
+                plan = plans.pop(name)
+                codes, sign, scale = quantize_magnitude(mats[name],
+                                                        spec.n_bits)
+                dep = package_deployment(
+                    codes, sign, scale,
+                    plan._replace(row_position=plan.row_position.to(dev)),
+                    spec, cfg.cim.eta)
+                nf_before += plan.nf_before.sum(dtype=torch.float64).to(dev)
+                nf_after += plan.nf_after.sum(dtype=torch.float64).to(dev)
                 tiles += plan.nf_before.numel()
                 del plan, codes, sign
                 if stacked is None:
@@ -141,8 +151,7 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
             slot_deps[pname] = stacked
         cim_tree[slot] = slot_deps
     b, a = float(nf_before), float(nf_after)
-    report = {"n_matrices": len(mats), "tiles_planned": tiles,
-              "nf_before": b, "nf_after": a,
-              "nf_reduction": (b - a) / max(b, 1e-30),
-              "matrices": summary, "n_slots": len(cim_tree)}
+    report.update(tiles=tiles, nf_before=b, nf_after=a,
+                  nf_reduction=(b - a) / max(b, 1e-30),
+                  matrices=summary, n_slots=len(cim_tree))
     return cim_tree, report

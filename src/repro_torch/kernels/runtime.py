@@ -79,6 +79,7 @@ def round4(n: int) -> int:
 
 
 _LAUNCHES = {name: 0 for name in KERNELS}
+_COUNT_LOCK = threading.Lock()      # a redeploy thread launches too
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 _BUILD_INFO: dict = {}
@@ -86,16 +87,19 @@ _BUILD_INFO: dict = {}
 
 def count_launch(name: str) -> None:
     """One launch of kernel ``name``; called by its wrapper only."""
-    _LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        _LAUNCHES[name] += 1
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    with _COUNT_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
 
 
 def build_dir() -> Path:

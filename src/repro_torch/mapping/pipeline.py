@@ -34,6 +34,15 @@ class MappingPipeline:
     def reversed_dataflow(self) -> bool:
         return self.dataflow == "reversed"
 
+    def cache_token(self) -> str:
+        """The string that enters per-matrix plan-cache keys: the
+        historical mode string of each legacy pipeline, as the
+        reference's ``MappingPipeline.cache_token`` returns for them,
+        so both packages address the same cache entries."""
+        if self.rows == IdentityRows():
+            return "reverse" if self.reversed_dataflow else "baseline"
+        return "mdm" if self.reversed_dataflow else "sort"
+
 
 _NAMED = {
     "baseline": MappingPipeline(dataflow="conventional", rows=IdentityRows()),

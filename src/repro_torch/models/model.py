@@ -116,7 +116,8 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
                cim: dict | None = None, ops: Ops = KERNELS):
     """Attention sublayer.  ``cache`` holds one layer's ring buffers
     {k (B, C, Hkv, Dh), v, kpos (C,)}, written in place at
-    ``positions % C``.  Returns y (B, S, D)."""
+    ``positions % C``; with per-lane positions (B, S), ``kpos`` is
+    (B, C) and each lane writes its own slots.  Returns y (B, S, D)."""
     c = (lambda n: None) if cim is None else cim.get
     B, S, _ = x.shape
 
@@ -135,11 +136,22 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         C = cache["k"].shape[1]
         Sw = min(S, C)
-        pw = positions[S - Sw:]
+        pw = positions[..., S - Sw:]
         idx = (pw % C).to(torch.int64)
-        cache["k"][:, idx] = k[:, S - Sw:].to(cache["k"].dtype)
-        cache["v"][:, idx] = v[:, S - Sw:].to(cache["v"].dtype)
-        cache["kpos"][idx] = pw
+        kw = k[:, S - Sw:].to(cache["k"].dtype)
+        vw = v[:, S - Sw:].to(cache["v"].dtype)
+        if positions.ndim == 2:
+            # Per-slot state: every lane has its own clock and kpos row,
+            # so the write is a per-lane scatter, one slot a (lane,
+            # position).
+            b = torch.arange(B, device=idx.device)[:, None]
+            cache["k"][b, idx] = kw
+            cache["v"][b, idx] = vw
+            cache["kpos"][b, idx] = pw
+        else:
+            cache["k"][:, idx] = kw
+            cache["v"][:, idx] = vw
+            cache["kpos"][idx] = pw
         k_all, v_all, k_pos = cache["k"], cache["v"], cache["kpos"]
 
     out = ops.attention(q, k_all, v_all, positions, k_pos,
@@ -188,16 +200,22 @@ def apply_model(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     """tokens (B, S) -> (logits (B, S, V) f32, new_state).
 
     ``state`` (from :func:`init_decode_state`) is advanced in place;
-    the returned dict shares its tensors with a new ``pos``.
+    the returned dict shares its tensors with a new ``pos``.  A shared
+    clock ``pos`` is a Python int; a per-slot one (``per_slot=True``)
+    a (B,) tensor, which gives lane b the positions ``pos[b] + arange(S)``.
     ``decode`` selects the one-step mLSTM form (one token after a
     prefill), as the reference's ``decode`` flag does.
     """
     check_supported(cfg)
     x = params["embed"][tokens.to(torch.int64)]
     S = x.shape[1]
-    pos0 = 0 if state is None else int(state["pos"])
-    positions = torch.arange(pos0, pos0 + S, dtype=torch.int32,
-                             device=x.device)
+    pos0 = 0 if state is None else state["pos"]
+    if isinstance(pos0, torch.Tensor):          # per-slot clocks (B,)
+        positions = pos0[:, None] + torch.arange(S, dtype=torch.int32,
+                                                 device=x.device)
+    else:
+        positions = torch.arange(pos0, pos0 + S, dtype=torch.int32,
+                                 device=x.device)
     slots = [f"slot{i}_{bt}" for i, bt in enumerate(cfg.block_pattern)]
     for r in range(cfg.pattern_repeats):
         for bt, slot in zip(cfg.block_pattern, slots):
@@ -225,14 +243,19 @@ def lm_logits(params: dict, cfg: ModelConfig,
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
-                      device: str | torch.device) -> ModelState:
+                      device: str | torch.device,
+                      per_slot: bool = False) -> ModelState:
     """Fresh decode state, one dict per pattern slot, stacked over the
     repeats R: ``"attn"`` ring buffers k, v (R, B, C, Hkv, Dh) with
     C = min(cache_len, sliding_window or cache_len) and ``kpos`` (R, C)
     starting at EMPTY_POS (self-masking); mLSTM ``S`` (R, B, H, Dh, Dh)
     and ``n`` (R, B, H, Dh) with Dh = d_model * ssm_expand / H; sLSTM
     ``h`` and ``c`` (R, B, H, d_model / H); recurrent states f32 and
-    zero.  ``cache_len`` sizes only attention caches.  ``pos`` is 0."""
+    zero.  ``cache_len`` sizes only attention caches.  ``pos`` is 0.
+
+    ``per_slot=True`` is the slot-pool layout of continuous batching:
+    ``pos`` is a (B,) int32 tensor of zeros and ``kpos`` (R, B, C), so
+    each lane keeps its own clock and ring occupancy."""
     check_supported(cfg)
     R, H = cfg.pattern_repeats, cfg.n_heads
     zeros = lambda *shape, dtype=torch.float32: torch.zeros(
@@ -246,7 +269,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
             dtype = sch.param_dtype(cfg)
             st = {"k": zeros(C, Hkv, Dh, dtype=dtype),
                   "v": zeros(C, Hkv, Dh, dtype=dtype),
-                  "kpos": torch.full((R, C), EMPTY_POS, dtype=torch.int32,
+                  "kpos": torch.full((R,) + ((batch,) if per_slot else ())
+                                     + (C,), EMPTY_POS, dtype=torch.int32,
                                      device=device)}
         elif bt == "mlstm":
             Dh = cfg.d_model * cfg.ssm_expand // H
@@ -255,7 +279,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
             Dh = cfg.d_model // H
             st = {"h": zeros(H, Dh), "c": zeros(H, Dh)}
         state[f"slot{i}_{bt}"] = st
-    state["pos"] = 0
+    state["pos"] = (torch.zeros(batch, dtype=torch.int32, device=device)
+                    if per_slot else 0)
     return state
 
 

@@ -11,19 +11,29 @@ through ``slstm_scan``; its mLSTM q/k/v are deployed but, as in the
 reference, served digitally, and ``max_seq`` sizes nothing for it (the
 recurrent state is O(1) in the sequence).
 
+The deployment goes through a plan cache (``plan_cache``; by default a
+:class:`repro_torch.deploy.PlanCache` at its default root, as in the
+reference), so an unchanged checkpoint redeploys from it.
+
 Greedy decoding is the parity target with the reference
 (``torch.argmax`` returns the first maximum, as ``jnp.argmax`` does).
 Temperature sampling draws from a ``torch.Generator`` seeded per
 ``generate`` call; its numbers differ from JAX's, and no parity is
-claimed for them.
+claimed for them.  :func:`sample_tokens_batch` is the row-independent
+sampler of continuous batching: a counter-based hash of (request seed,
+token count, vocabulary index) gives each row its own Gumbel noise,
+the same integers on the CPU and on the card.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, check_supported
+from repro_torch.deploy import PlanCache, deploy_model_params
 from repro_torch.device import check_on, resolve_device
 from repro_torch.models.model import KERNELS, apply_model, init_decode_state
+
+_M32 = 0xFFFFFFFF
 
 
 def sample_tokens(logits: torch.Tensor, temperature: float = 0.0,
@@ -37,12 +47,85 @@ def sample_tokens(logits: torch.Tensor, temperature: float = 0.0,
         torch.int32)
 
 
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for x in [0, 2^32) (int64), by 16-bit halves of
+    ``c`` so that no product leaves the int64 range."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (lowbias32) on int64 tensors."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def sample_uniforms(seeds: torch.Tensor, counts: torch.Tensor,
+                    vocab: int) -> torch.Tensor:
+    """(B, vocab) f32 uniforms in (0, 1): entry (b, v) is a hash of
+    (seeds[b], counts[b], v) alone, exact in integers on any device."""
+    s = seeds.to(torch.int64)
+    key = _mix32(_mix32((s & _M32) ^ 0x9E3779B9) ^ ((s >> 32) & _M32))
+    key = _mix32(key ^ _mix32((counts.to(torch.int64) & _M32)
+                              ^ 0x85EBCA6B))
+    v = _mix32(torch.arange(vocab, dtype=torch.int64, device=seeds.device)
+               ^ 0x632BE5AB)
+    h = _mix32(key[:, None] ^ v[None, :])
+    return ((h >> 8).to(torch.float32) + 0.5) * (2.0 ** -24)
+
+
+def sample_tokens_batch(logits: torch.Tensor, seeds: torch.Tensor,
+                        counts: torch.Tensor,
+                        temps: torch.Tensor) -> torch.Tensor:
+    """Row-independent sampling: logits (B, V), request seeds (B,),
+    tokens emitted so far (B,), temperatures (B,) -> (B,) int32.
+
+    Row b's token depends only on its logits row, seed, count and
+    temperature (the Gumbel-max trick over :func:`sample_uniforms`), so
+    a request's tokens do not depend on its slot or its batchmates.
+    Rows with t <= 0 take the argmax."""
+    t = temps.to(torch.float32)
+    g = -torch.log(-torch.log(sample_uniforms(seeds, counts,
+                                              logits.shape[-1])))
+    scores = logits.to(torch.float32) / torch.clamp(t, min=1e-6)[:, None] + g
+    return torch.where(t > 0.0, scores.argmax(-1),
+                       logits.argmax(-1)).to(torch.int32)
+
+
+def deploy_serving_bank(cfg: ModelConfig, params: dict, plan_cache=None,
+                        device: str | torch.device = "cuda"):
+    """Deploy one checkpoint's crossbar bank for serving: (cim, report),
+    both None unless ``cfg.cim.enabled``.  Goes through ``plan_cache``,
+    a default :class:`repro_torch.deploy.PlanCache` when None.  The
+    shared init path of :class:`ServeEngine` and
+    :class:`repro_torch.serve.continuous.ContinuousEngine` (whose async
+    redeploy runs it in a background thread)."""
+    if not cfg.cim.enabled:
+        return None, None
+    cache = plan_cache if plan_cache is not None else PlanCache()
+    return deploy_model_params(params, cfg, cache=cache, device=device)
+
+
+def check_ideal(nonideal, health) -> None:
+    """The port serves ideal devices only so far."""
+    if nonideal is not None or health is not None:
+        raise NotImplementedError(
+            "nonideal devices and health monitoring are not ported yet")
+
+
 class ServeEngine:
     """Batched engine: deploy at init, prefill a batch of prompts, decode.
 
     ``params`` (from ``repro_torch.convert.params_from_numpy`` or
     ``repro_torch.models.model.init_params``) must lie on ``device``;
     the default is the card, and a CPU run has to be asked for.
+    ``plan_cache`` is the deployment's :class:`repro_torch.deploy.PlanCache`
+    (a default one when None); ``nonideal`` and ``health`` are the
+    reference's imperfect-device options, not ported yet (they raise).
     ``ops`` is the triple of kernels every forward calls
     (``repro_torch.models.model.KERNELS``); a copy of the engine with
     ``PLAIN`` there serves the same deployments through the plain
@@ -50,9 +133,10 @@ class ServeEngine:
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, max_seq: int = 2048,
-                 temperature: float = 0.0,
-                 device: str | torch.device = "cuda"):
+                 temperature: float = 0.0, plan_cache=None, nonideal=None,
+                 health=None, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
+        check_ideal(nonideal, health)
         check_supported(cfg)
         if cfg.dtype != "float32":
             raise NotImplementedError(
@@ -64,12 +148,8 @@ class ServeEngine:
         self.max_seq = max_seq
         self.temperature = temperature
         self.ops = KERNELS
-        self.cim, self.deploy_report = None, None
-        if cfg.cim.enabled:
-            from repro_torch.deploy import deploy_model_params
-
-            self.cim, self.deploy_report = deploy_model_params(
-                params, cfg, device=self.device)
+        self.cim, self.deploy_report = deploy_serving_bank(
+            cfg, params, plan_cache, self.device)
 
     def _prompts(self, prompts) -> torch.Tensor:
         p = torch.as_tensor(prompts)

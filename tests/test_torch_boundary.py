@@ -1,8 +1,8 @@
 """The port's import boundary and its device defaults.
 
-``src/repro_torch/`` and ``chip_smoke.py`` import neither ``jax`` nor
-any module of the reference package ``repro``; importing the port
-leaves both out of ``sys.modules``; and its entry points run on the
+``src/repro_torch/`` and ``chip_smoke.py`` import neither ``jax``, nor
+any module of the reference package ``repro``, nor ``ml_dtypes``;
+importing the port leaves them out of ``sys.modules``; and its entry points run on the
 card unless the caller asks for the CPU, raising where there is none.
 """
 import ast
@@ -26,7 +26,7 @@ def _port_files():
 
 def _banned(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -56,7 +56,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.kernels.manhattan_score, repro_torch.models.model\n"
         "import repro_torch.kernels.slstm_scan, repro_torch.kernels.bitslice_pack\n"
         "import repro_torch.models.recurrent, repro_torch.configs.xlstm_13b\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+        "import repro_torch.checkpoint, repro_torch.serve.continuous\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -70,7 +72,8 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")
     from repro_torch.configs import CimConfig, ModelConfig
-    from repro_torch.convert import params_from_numpy
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.convert import params_from_checkpoint, params_from_numpy
     from repro_torch.core.tiling import CrossbarSpec
     from repro_torch.deploy import deploy_model_params
     from repro_torch.kernels.cim_mvm import cim_mvm, deploy
@@ -79,7 +82,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.kernels.manhattan_score import manhattan_score
     from repro_torch.kernels.slstm_scan import slstm_scan
     from repro_torch.models.model import init_params
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import ContinuousEngine, ServeEngine
 
     cfg = ModelConfig(n_layers=1, d_model=16, n_heads=2, n_kv_heads=2,
                       d_ff=32, vocab_size=64, dtype="float32",
@@ -91,6 +94,9 @@ def test_entry_points_default_to_the_card():
     pos = torch.arange(2, dtype=torch.int32)
     calls = [
         lambda: ServeEngine(cfg, params, max_seq=8),
+        lambda: ContinuousEngine(cfg, params, max_seq=8, max_prompt=4),
+        lambda: load_checkpoint("no-such-directory"),
+        lambda: params_from_checkpoint("no-such-directory", cfg),
         lambda: cim_mvm(x, dep),
         lambda: flash_attention(q, q, q, q_positions=pos, k_positions=pos),
         lambda: manhattan_score(torch.zeros(1, 4, 4, dtype=torch.uint8)),

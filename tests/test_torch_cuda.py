@@ -20,7 +20,11 @@ slstm_scan |kernel - plain| <= 1e-5 (1 + |plain|): the kernel sums
 h @ R in another order than the plain version's matmul and uses CUDA's
 expf/tanhf (a few ulps), and the recurrence carries those ulps on over
 the steps; a wrong gate, column or state misses it by orders of
-magnitude.
+magnitude.  A narrow ContinuousEngine: tokens exact across two batch
+compositions and against the plain versions' path (greedy).
+sample_tokens_batch: uniforms exact on both devices, tokens exact where
+the top two Gumbel-perturbed scores are more than 1e-5 apart (CUDA's
+and the CPU's log may differ by an ulp).
 """
 import numpy as np
 import pytest
@@ -301,3 +305,78 @@ def test_kernel_launches_are_counted(cuda):
                   device=cuda)
     counts = runtime.launch_counts()
     assert counts["slstm_scan"] == 1 and counts["bitslice_pack"] == 1
+
+
+def _narrow_engine(cuda, tmp_path, **kw):
+    from repro_torch.configs import CimConfig, ModelConfig
+    from repro_torch.deploy import PlanCache
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ContinuousEngine
+
+    cfg = ModelConfig(name="narrow", n_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=2, d_ff=128, vocab_size=256,
+                      dtype="float32",
+                      cim=CimConfig(enabled=True, rows=32, cols=32, n_bits=8))
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    return ContinuousEngine(cfg, params, capacity=4, max_seq=48,
+                            max_prompt=24, device=cuda,
+                            plan_cache=PlanCache(str(tmp_path)), **kw)
+
+
+@pytest.mark.cuda
+def test_continuous_engine_on_the_card(cuda, tmp_path):
+    """A narrow ContinuousEngine: per-request tokens bit-identical across
+    two submission orders (so two batch compositions), and greedy
+    tokens equal to the plain versions' path."""
+    from repro_torch.models.model import PLAIN
+
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(0, 256, int(rng.integers(3, 25))),
+             int(rng.integers(4, 12)), 0.0 if i % 2 == 0 else 0.8, 100 + i)
+            for i in range(7)]
+
+    def serve(order, ops=None):
+        eng = _narrow_engine(cuda, tmp_path)
+        if ops is not None:
+            eng.ops = ops
+        rids = {i: eng.submit(reqs[i][0], max_tokens=reqs[i][1],
+                              temperature=reqs[i][2], seed=reqs[i][3])
+                for i in order}
+        out = eng.run()
+        assert eng.traces == {"prefill": 1, "decode": 1}
+        return {i: out[r] for i, r in rids.items()}
+
+    a = serve(range(7))
+    b = serve(reversed(range(7)))
+    assert a == b
+    plain = serve(range(7), PLAIN)
+    for i in range(0, 7, 2):
+        assert a[i] == plain[i], i
+
+
+@pytest.mark.cuda
+def test_sample_tokens_batch_cpu_equals_card(cuda):
+    """The same uniforms on both; where the top two Gumbel-perturbed
+    scores are more than 1e-5 apart, the same token."""
+    from repro_torch.serve.engine import sample_tokens_batch, sample_uniforms
+
+    rng = np.random.default_rng(0)
+    B, V = 64, 32064
+    logits = torch.from_numpy(rng.standard_normal((B, V)).astype(np.float32))
+    seeds = torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, B))
+    counts = torch.from_numpy(rng.integers(0, 200, B))
+    temps = torch.from_numpy(rng.uniform(-0.5, 1.5, B).astype(np.float32))
+    u = sample_uniforms(seeds, counts, V)
+    assert torch.equal(sample_uniforms(seeds.to(cuda), counts.to(cuda),
+                                       V).cpu(), u)
+    cpu = sample_tokens_batch(logits, seeds, counts, temps)
+    card = sample_tokens_batch(*(t.to(cuda) for t in (logits, seeds, counts,
+                                                      temps))).cpu()
+    scores = torch.where(temps[:, None] > 0,
+                         logits / temps.clamp(min=1e-6)[:, None]
+                         - torch.log(-torch.log(u)), logits)
+    top2 = scores.topk(2, -1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-5
+    assert clear.sum() > B // 2
+    assert torch.equal(cpu[clear], card[clear])

@@ -26,6 +26,7 @@ from repro.models import model as jmodel
 from repro.serve import ServeEngine as JEngine
 from repro_torch.configs import CimConfig, ModelConfig
 from repro_torch.convert import params_from_numpy
+from repro_torch.deploy import PlanCache as TPlanCache
 from repro_torch.core.mdm import MODES
 from repro_torch.serve import ServeEngine, sample_tokens
 
@@ -57,7 +58,9 @@ def _engines(jcfg, tmp_path):
     tparams = params_from_numpy(tree, tcfg, device="cpu")
     jeng = JEngine(jcfg, jparams, max_seq=MAX_SEQ,
                    plan_cache=PlanCache(str(tmp_path)))
-    teng = ServeEngine(tcfg, tparams, max_seq=MAX_SEQ, device="cpu")
+    teng = ServeEngine(tcfg, tparams, max_seq=MAX_SEQ,
+                       plan_cache=TPlanCache(str(tmp_path / "port")),
+                       device="cpu")
     return jeng, teng
 
 

@@ -32,6 +32,7 @@ from repro.serve import ServeEngine as JEngine
 from repro_torch.configs import CimConfig, ModelConfig, check_supported
 from repro_torch.configs.xlstm_13b import CONFIG as T_XLSTM
 from repro_torch.convert import params_from_numpy
+from repro_torch.deploy import PlanCache as TPlanCache
 from repro_torch.deploy import collect_model_matrices
 from repro_torch.models.model import init_decode_state, init_params
 from repro_torch.serve import ServeEngine
@@ -89,7 +90,9 @@ def test_xlstm_slice_matches_reference(mode, spec, tmp_path):
     jeng = JEngine(jcfg, jparams, max_seq=PROMPT + NEW,
                    plan_cache=PlanCache(str(tmp_path)))
     teng = ServeEngine(tcfg, params_from_numpy(tree, tcfg, device="cpu"),
-                       max_seq=PROMPT + NEW, device="cpu")
+                       max_seq=PROMPT + NEW,
+                       plan_cache=TPlanCache(str(tmp_path / "port")),
+                       device="cpu")
 
     # Deploy: the same summary, skip reasons included, and the mLSTM
     # q/k/v deployments bit-identical.
