@@ -5,9 +5,11 @@
 
 Builds the port's five hand-written CUDA kernels from the sources in
 this checkout and holds each against its plain PyTorch version at the
-shapes of the paths below.  Then it drives four paths through the
-entry points a user calls, each with the launch counts set to 0 just
-before it and read just after:
+shapes of the paths below, their nonideal-operand (cim_mvm: gain,
+column permutation, in-kernel read noise, bf16 x) and bf16
+(flash_attention, slstm_scan) forms included.  Then it drives five paths
+through the entry points a user calls, each with the launch counts set
+to 0 just before it and read just after:
 
 1. phi3-mini serving: random full-width weights (seed 0, f32, all 32
    layers), ``ServeEngine`` with ``cim.enabled`` (quantise, MDM-plan and
@@ -22,18 +24,32 @@ before it and read just after:
    manhattan_score);
 3. the deployment-image export of phi3's ``lm_head``: quantise, signed
    codes, ``bitslice_pack`` (bitslice_pack);
-4. xlstm-1.3b serving: random full-width weights (seed 0, f32, all 48
-   layers), deploy (the reference deploys the mLSTM q/k/v) and greedy
-   generation (slstm_scan, manhattan_score).
+4. phi3-nonideal: full-width phi3-mini at its config dtype (bf16),
+   random weights from seed 0, on imperfect devices (stuck cells,
+   i.i.d. and correlated variation, drift, line opens, read noise;
+   ``NONIDEAL``) under the ``spare_line`` mapping, through
+   ``ServeEngine`` (cim_mvm with all three nonideal operands and bf16
+   x, flash_attention in bf16, manhattan_score);
+5. xlstm-1.3b serving at its config dtype (bf16): random full-width
+   weights (seed 0, all 48 layers), deploy (the reference deploys the
+   mLSTM q/k/v) and greedy generation (slstm_scan in bf16,
+   manhattan_score).
 
 For each serving path it checks plans built on the card against the
 port's CPU mirror, the kernel path's logits and tokens against the
-plain path, and that every kernel of the path was launched.  The
+plain path (a bf16 path: every kernel call of a teacher-forced pass
+against its plain version on the same inputs, and its deployments
+served in f32 end to end), and that every kernel of the path was
+launched.  The
 continuous path must give every request the same tokens in all three
 runs, one call signature each for prefill, decode, join and evict,
 greedy tokens equal to ``ServeEngine`` alone (a flip passes only
 inside the logits' tolerance, and is listed with its gap), and banks
 (cold, and warm from the manifest) bit-identical to ``ServeEngine``'s.
+The nonideal path must launch cim_mvm once a forward for every matrix
+its open lines did not degrade, give bit-identical tokens in two
+``generate`` calls with the same seeds, pass the bf16 checks above at
+one read seed, and hold its bf16 logits within 5e-2 x max|logit|.
 Plan caches live in a temporary directory removed at the end.
 
 Every phase prints its result; any failure raises and exits non-zero.
@@ -80,12 +96,54 @@ CIM_TOL = 1e-5       # max|kernel - plain| <= CIM_TOL * max|plain|
 FLASH_TOL = 2e-5     # |kernel - plain| <= FLASH_TOL * (1 + |plain|)
 SLSTM_TOL = 1e-5     # |kernel - plain| <= SLSTM_TOL * (1 + |plain|)
 LOGIT_TOL = 1e-3     # max|kernel - plain| logits <= LOGIT_TOL * max|plain|
+# bf16 outputs: kernel and plain version each round once from f32, so a
+# value near a rounding boundary may differ by one bf16 ulp (at most
+# 2^-7 of it) beyond the f32 tolerance.  A bf16 path is held call by
+# call (every kernel launch of a teacher-forced pass against its plain
+# version on the same inputs, at the tolerances above plus that ulp) and
+# end to end in f32 (its deployments served with f32 activations, at
+# LOGIT_TOL): its bf16 logits differ from the plain path's far more than
+# any kernel error, because bf16 roundings that flip with the f32
+# summation order compound over the layers and steps.
+BF16_ULP = 2.0 ** -7
+# phi3-nonideal's bf16 logits against the plain path's, a fixed bound:
+# the plain path against itself with its crossbar products in f64 moved
+# them by 3.67e-2 x max|logit| on an H100 (no kernel involved), so a
+# sound kernel path may differ by about that much; 5e-2 leaves margin.
+# xlstm's bf16 logits have no such bound: that floor is 0.39 there.
+NONIDEAL_BF16_LOGIT_TOL = 5e-2
+# The phi3-nonideal path's devices (the paper's setting beyond parasitic
+# resistance: stuck cells, i.i.d. and correlated programming variation,
+# drift to 10 t0, line opens, per-read noise), seed and mapping.  With
+# these line-open rates every full-width matrix keeps programmed bits on
+# an open line after the spare-line remap (its random weights leave no
+# all-zero row, and a dead wordline severs 8 weights), so every matrix
+# would serve digitally: the path deploys this model once to count the
+# demotions, and serves the same devices without line opens.
+NONIDEAL = dict(p_stuck_off=0.01, p_stuck_on=0.001, sigma_program=0.05,
+                sigma_corr=0.05, drift_nu=0.05, drift_time=10.0,
+                p_open_wordline=0.002, p_open_bitline=0.002, sigma_read=0.01)
+NONIDEAL_SEED, NONIDEAL_PIPELINE = 0, "spare_line"
+TF_STEPS = 4         # decode steps of the kernel-vs-plain logits check
 # Kernels each path must launch.
 PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                 "phi3-continuous": ("cim_mvm", "flash_attention",
                                     "manhattan_score"),
                 "export": ("bitslice_pack",),
+                "phi3-nonideal": ("cim_mvm", "flash_attention",
+                                  "manhattan_score"),
                 "xlstm": ("slstm_scan", "manhattan_score")}
+# The paths each kernel record's form runs on (its launches are its
+# kernel's launches there).
+RECORD_PATHS = {
+    "cim_mvm": ("phi3", "phi3-continuous"),
+    "flash_attention": ("phi3", "phi3-continuous"),
+    "manhattan_score": tuple(PATH_KERNELS),
+    "slstm_scan": (),                 # the xlstm path now serves bf16
+    "bitslice_pack": ("export",),
+    "flash_attention[bf16]": ("phi3-nonideal",),
+    "slstm_scan[bf16]": ("xlstm",),
+}
 # Substrings of the port's CUDA kernel names, as the profiler shows them.
 PORT_KERNEL_NAMES = ("cim_decode", "cim_prefill", "flash_decode",
                      "flash_prefill", "score_vec", "score_byte", "slstm_",
@@ -273,14 +331,17 @@ def _check_cim(g) -> dict:
             flops = 2.0 * M * I * N
             b_ms, b_by = bound(n_bytes, flops)
             tc_ms, tc_by = bound(n_bytes, 3 * flops, PEAK_TF32)
+            bytes_ms = n_bytes / PEAK_BYTES * 1e3
             line = (f"cim_mvm M={M:4d} I={I} N={N}: max_abs_err {err:.3e} "
                     f"(tol {CIM_TOL:g} x max|y| {ref:.3e}) "
                     f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms warm, "
                     f"plain {plain_ms:.4f} ms, x @ W' {lib_ms:.4f} ms warm; "
                     f"bound {b_ms:.4f} ms ({b_by}, f32), {tc_ms:.4f} ms "
-                    f"({tc_by}, 3xTF32)")
+                    f"({tc_by}, 3xTF32); bytes alone {bytes_ms:.4f} ms "
+                    f"({n_bytes / 1e6:.1f} MB)")
             rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                       bound_bytes_ms=bytes_ms)
             if M <= DECODE_MAX_M:
                 cold = device_ms(lambda d: cim_mvm(x, d), args=deps)
                 lib_cold = device_ms(lambda w: x @ w, args=ws)
@@ -327,9 +388,146 @@ def _bare_cim_launch(x, dep):
                         dep.codes.data_ptr() % 16 == 0)
     args = (x.data_ptr(), dep.codes.data_ptr(), dep.pos.data_ptr(),
             dep.scale.data_ptr(), out.data_ptr(), geom.array, dep.eta,
-            runtime.stream_arg(out.device))
+            None, None, 0, 0, 0.0, runtime.stream_arg(out.device))
     launch = runtime.library().cim_mvm_launch
     return lambda: launch(*args)
+
+
+# Operations a weight of the read noise, counted at the f32 rate as the
+# other integer work here.  One Philox4x32-10 call (10 rounds of 2 high
+# and 2 low 32-bit products, 4 xors and 2 key adds: 100) gives four
+# weights their words: 25 a weight.  One Box-Muller (2 shifts, 2
+# int->float conversions, 2 FMAs, log, sqrt, sincospi and 4 multiplies:
+# ~15) gives two normals: 8 a weight.  Scaling eps and adding it to W':
+# 2.  So 35 a weight, each weight's noise drawn once whatever M.
+NOISE_OPS = 35
+NONIDEAL_FORMS = ("gain", "colpos", "noise", "all")
+
+
+def _nonideal_dep(I: int, N: int, form: str, seed: int):
+    """A deployment of a random (I, N) matrix with phi3's spec carrying
+    the operands of ``form``: a log-normal gain (sigma 0.05), the
+    bitline permutation of the X-CHANGR column sort, read noise
+    (sigma_read 0.01, tag 3)."""
+    from repro_torch.configs.phi3_mini_38b import CONFIG
+    from repro_torch.deploy import spec_from_config
+    from repro_torch.kernels.cim_mvm import deploy
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((I, N), generator=g, device="cuda") * 0.02
+    mode = "xchangr" if form in ("colpos", "all") else "mdm"
+    dep, _ = deploy(w, spec_from_config(CONFIG), mode, eta=CONFIG.cim.eta)
+    extra = {}
+    if form in ("gain", "all"):
+        extra["gain"] = torch.exp(0.05 * torch.randn(
+            dep.codes.shape, generator=g, device="cuda"))
+    if form in ("noise", "all"):
+        extra.update(noise_tag=torch.tensor(3, dtype=torch.int32),
+                     sigma_read=0.01)
+    return dataclasses.replace(dep, **extra)
+
+
+def _check_cim_nonideal(g) -> list[dict]:
+    """cim_mvm's nonideal-operand forms (gain, column permutation,
+    in-kernel read noise, all three) at phi3's shapes and the paths' row
+    counts, x in bf16 as the bf16 engines give it: against the plain
+    version on the same read seed, device time beside ``x @ W_eff``
+    (the f32 W' with gain and noise materialised).  One record for the
+    decode form (M = B, cold) and one for the prefill form (M = B *
+    PROMPT), each with every form and shape as a regime."""
+    from repro_torch.kernels.cim_mvm.ops import DECODE_MAX_M, cim_mvm
+    from repro_torch.kernels.cim_mvm.ref import (
+        cim_mvm_plain,
+        deployment_weights,
+    )
+
+    seed = 21
+    regimes = {"decode": {}, "prefill": {}}
+    for (I, N) in ((3072, 8192), (3072, 3072), (8192, 3072)):
+        for form in NONIDEAL_FORMS:
+            if (I, N) != (3072, 8192) and form != "all":
+                continue
+            dep = _nonideal_dep(I, N, form, I + N)
+            w_eff = deployment_weights(dep, seed)
+            dep_bytes = (dep.codes.numel() * 2 + dep.pos.numel() * 4
+                         + (0 if dep.gain is None else dep.gain.numel() * 4)
+                         + (0 if dep.col_pos is None
+                            else dep.col_pos.numel() * 4))
+            n_dep = max(2, -(-COLD_BYTES // dep_bytes))
+            deps = [dep] + [dataclasses.replace(
+                dep, codes=dep.codes.clone(), pos=dep.pos.clone(),
+                scale=dep.scale.clone(),
+                gain=None if dep.gain is None else dep.gain.clone(),
+                col_pos=None if dep.col_pos is None else dep.col_pos.clone())
+                for _ in range(n_dep - 1)]
+            n_w = max(2, -(-COLD_BYTES // (w_eff.numel() * 4)))
+            ws = [w_eff] + [w_eff.clone() for _ in range(n_w - 1)]
+            rows = ((1, B, CAPACITY, CONT_PROMPT, B * PROMPT)
+                    if form == "all" else (B, B * PROMPT))
+            for M in rows:
+                x = torch.randn((M, I), generator=g, device="cuda").to(
+                    torch.bfloat16)
+                xf = x.float()
+                y_k = cim_mvm(x, dep, seed)
+                y_p = cim_mvm_plain(x, dep, seed)
+                torch.cuda.synchronize()
+                err = (y_k - y_p).abs().max().item()
+                ref = y_p.abs().max().item()
+                ok = err <= CIM_TOL * ref
+                ms = device_ms(lambda: cim_mvm(x, dep, seed))
+                plain_ms = cuda_ms(lambda: cim_mvm_plain(x, dep, seed),
+                                   iters=3)
+                lib_ms = device_ms(lambda: xf @ w_eff)
+                n_bytes = x.numel() * 2 + dep_bytes + 4 + M * N * 4
+                flops = 2.0 * M * I * N
+                extra_ops = NOISE_OPS * I * N if dep.sigma_read else 0.0
+                b_ms, b_by = bound(n_bytes, flops + extra_ops)
+                # Prefill: the products on the tensor cores (3xTF32), the
+                # noise on the CUDA cores beside them.
+                t_b, t_tc, t_alu = (n_bytes / PEAK_BYTES,
+                                    3 * flops / PEAK_TF32,
+                                    extra_ops / PEAK_F32)
+                tc_ms = max(t_b, t_tc, t_alu) * 1e3
+                tc_by = "bytes" if t_b >= max(t_tc, t_alu) else "operations"
+                line = (f"cim_mvm[{form}] M={M:4d} I={I} N={N} x bf16: "
+                        f"max_abs_err {err:.3e} (tol {CIM_TOL:g} x max|y| "
+                        f"{ref:.3e}) {'ok' if ok else 'FAIL'}; kernel "
+                        f"{ms:.4f} ms warm, plain {plain_ms:.4f} ms, "
+                        f"x @ W_eff {lib_ms:.4f} ms warm; bound {b_ms:.4f} "
+                        f"ms ({b_by}, f32), {tc_ms:.4f} ms ({tc_by}, "
+                        f"3xTF32 products)")
+                rec = dict(M=M, I=I, N=N, max_abs_err=err, ms=ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=lib_ms)
+                decode = M <= DECODE_MAX_M
+                if decode:
+                    cold = device_ms(lambda d: cim_mvm(x, d, seed), args=deps)
+                    lib_cold = device_ms(lambda w: xf @ w, args=ws)
+                    line += (f"; cold ({n_dep} copies): kernel {cold:.4f} "
+                             f"ms, x @ W_eff {lib_cold:.4f} ms")
+                    rec.update(ms=cold, library_ms=lib_cold, ms_warm=ms,
+                               library_ms_warm=lib_ms)
+                else:
+                    rec.update(bound_ms=tc_ms, bound_by=tc_by,
+                               bound_f32_ms=b_ms)
+                print(line)
+                if not ok:
+                    raise AssertionError(f"cim_mvm[{form}] disagrees at "
+                                         f"M={M} I={I} N={N}")
+                regimes["decode" if decode else "prefill"][
+                    f"{form} M={M} {I}x{N}"] = rec
+            del dep, deps, w_eff, ws
+    out = []
+    for form, key in (("decode", f"all M={B} 3072x8192"),
+                      ("prefill", f"all M={B * PROMPT} 3072x8192")):
+        main = {k: v for k, v in regimes[form][key].items()
+                if k not in ("M", "I", "N")}
+        out.append(dict(
+            name=f"cim_mvm[gain+col_pos+read_noise, bf16 x, {form}]",
+            route="cuda", source="src/repro_torch/kernels/cim_mvm/kernel.cu",
+            replaces="src/repro/kernels/cim_mvm/kernel.py:82", **main,
+            regimes=regimes[form]))
+    return out
 
 
 def _sdpa_kernels(fn) -> list[str]:
@@ -377,10 +575,12 @@ def _flash_cases():
     return cases
 
 
-def _check_flash(g) -> dict:
+def _check_flash(g, dtype=torch.float32) -> dict:
     """flash attention at the paths' shapes (``_flash_cases``), Dh = 96,
-    against its plain version; device time beside SDPA on the same
-    inputs."""
+    q, k and v in ``dtype``, against its plain version; device time
+    beside SDPA on the same inputs.  bf16 outputs: both sides round once
+    from f32, so a value near a rounding boundary may differ by one bf16
+    ulp (2^-7 relative) beyond the f32 tolerance."""
     from repro_torch.kernels.flash_attention.ops import (
         DECODE_MAX_SQ,
         flash_attention,
@@ -388,18 +588,24 @@ def _check_flash(g) -> dict:
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
     H, Dh = 32, 96
+    bf = dtype == torch.bfloat16
+    esize = 2 if bf else 4
     regimes = {}
     for name, Bq, Sq, qpos, kpos in _flash_cases():
-        k = torch.randn((Bq, MAX_SEQ, H, Dh), generator=g, device="cuda")
-        v = torch.randn((Bq, MAX_SEQ, H, Dh), generator=g, device="cuda")
-        q = torch.randn((Bq, Sq, H, Dh), generator=g, device="cuda")
+        k = torch.randn((Bq, MAX_SEQ, H, Dh), generator=g,
+                        device="cuda").to(dtype)
+        v = torch.randn((Bq, MAX_SEQ, H, Dh), generator=g,
+                        device="cuda").to(dtype)
+        q = torch.randn((Bq, Sq, H, Dh), generator=g,
+                        device="cuda").to(dtype)
         run = lambda: flash_attention(q, k, v, q_positions=qpos,
                                       k_positions=kpos)
-        o_k = run()
-        o_p = flash_attention_plain(q, k, v, qpos, kpos)
+        o_k = run().float()
+        o_p = flash_attention_plain(q, k, v, qpos, kpos).float()
         torch.cuda.synchronize()
         err = (o_k - o_p).abs().max().item()
-        excess = ((o_k - o_p).abs() - FLASH_TOL * (1 + o_p.abs())).max()
+        excess = ((o_k - o_p).abs() - FLASH_TOL * (1 + o_p.abs())
+                  - (BF16_ULP * o_p.abs() if bf else 0)).max()
         ok = excess.item() <= 0
         ms = device_ms(run)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, qpos, kpos))
@@ -417,19 +623,24 @@ def _check_flash(g) -> dict:
         # need no read).
         seen = int(mask.any(1).sum().item()) * (Bq if mask.shape[0] == 1
                                                 else 1)
-        n_bytes = (2 * q.numel() + 2 * seen * H * Dh) * 4 \
+        n_bytes = (2 * q.numel() + 2 * seen * H * Dh) * esize \
             + (qpos.numel() + kpos.numel()) * 4
         # Q.K^T and P.V over the valid pairs, 2 Dh operations each.
         b_ms, b_by = bound(n_bytes, pairs * 4.0 * Dh)
-        tc_ms, tc_by = bound(n_bytes, 3 * pairs * 4.0 * Dh, PEAK_TF32)
-        print(f"flash {name} B={Bq} Sq={Sq} C={MAX_SEQ} H={H} Dh={Dh} "
+        # TF32 products: 3 a product in f32; in bf16 1 for Q.K^T and 2
+        # for P.V (a bf16 operand has no lo part).
+        tc_ms, tc_by = bound(n_bytes, (1.5 if bf else 3) * pairs * 4.0 * Dh,
+                             PEAK_TF32)
+        print(f"flash{'[bf16]' if bf else ''} {name} B={Bq} Sq={Sq} "
+              f"C={MAX_SEQ} H={H} Dh={Dh} "
               f"positions {tuple(qpos.shape)}/{tuple(kpos.shape)}: "
-              f"max_abs_err {err:.3e} (tol {FLASH_TOL:g}(1+|ref|)) "
+              f"max_abs_err {err:.3e} (tol {FLASH_TOL:g}(1+|ref|)"
+              f"{' + 2^-7|ref|' if bf else ''}) "
               f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} "
               f"ms ({b_by}, f32), {tc_ms:.4f} ms ({tc_by}, 3xTF32); "
               f"host {host_us(run):.1f} us a call")
-        if name in ("prefill", "decode"):
+        if name in ("prefill", "decode") and not bf:
             print(f"  sdpa kernels: {_sdpa_kernels(sdpa)}")
         if not ok:
             raise AssertionError(f"flash attention disagrees ({name})")
@@ -444,7 +655,8 @@ def _check_flash(g) -> dict:
         if pre:
             rec["bound_f32_ms"] = b_ms
         regimes[name] = dict(B=Bq, Sq=Sq, C=MAX_SEQ, **rec)
-    return dict(name="flash_attention", route="cuda",
+    return dict(name="flash_attention[bf16]" if bf else "flash_attention",
+                route="cuda",
                 source="src/repro_torch/kernels/flash_attention/kernel.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:75",
                 **{k: v for k, v in regimes["prefill"].items()
@@ -464,6 +676,9 @@ def phase_kernels() -> list[dict]:
 
     records.append(_check_manhattan(g))
     records.append(_check_slstm_scan(g))
+    records += _check_cim_nonideal(g)
+    records.append(_check_flash(g, torch.bfloat16))
+    records.append(_check_slstm_scan(g, torch.bfloat16))
     return records
 
 
@@ -555,9 +770,11 @@ def phase_layer_deploy(eng):
           f"in {n} launches ({100 * score_us / busy_us:.1f}% of busy)")
 
 
-def _check_slstm_scan(g) -> dict:
+def _check_slstm_scan(g, dtype=torch.float32) -> dict:
     """slstm_scan at xlstm-1.3b shapes: B lanes, H = 4, Dh = 512, the
-    prefill (T = PROMPT) and a decode step (T = 1)."""
+    prefill (T = PROMPT) and a decode step (T = 1); gx and R in
+    ``dtype``, the state f32 (the serving form: the outputs are f32, so
+    the f32 tolerance holds)."""
     from repro_torch.kernels.slstm_scan.ops import (
         CLUSTER,
         max_active_clusters,
@@ -567,8 +784,10 @@ def _check_slstm_scan(g) -> dict:
     from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
 
     H, Dh = 4, 512
-    r = torch.randn((H, Dh, 4 * Dh), generator=g, device="cuda") * 0.02
-    geom = slstm_geometry(B, Dh)
+    bf = dtype == torch.bfloat16
+    r = (torch.randn((H, Dh, 4 * Dh), generator=g, device="cuda")
+         * 0.02).to(dtype)
+    geom = slstm_geometry(B, Dh, bf)
     print(f"slstm_scan launch (B={B}, Dh={Dh}): {H * geom.groups} clusters "
           f"of {CLUSTER} blocks, {geom.smem} bytes of shared memory a "
           f"block, R rows a slice: {geom.reg_rows} in registers, "
@@ -577,7 +796,8 @@ def _check_slstm_scan(g) -> dict:
           f"cudaOccupancyMaxActiveClusters {max_active_clusters(B, Dh)}")
     regimes = {}
     for name, T in (("prefill", PROMPT), ("decode", 1)):
-        gx = torch.randn((B, T, H, 4 * Dh), generator=g, device="cuda") * 0.5
+        gx = (torch.randn((B, T, H, 4 * Dh), generator=g, device="cuda")
+              * 0.5).to(dtype)
         h0 = torch.randn((B, H, Dh), generator=g, device="cuda") * 0.1
         c0 = torch.randn((B, H, Dh), generator=g, device="cuda") * 0.1
         got = slstm_scan(gx, r, h0, c0)
@@ -588,11 +808,12 @@ def _check_slstm_scan(g) -> dict:
                  for a, b in zip(got, want))
         ms = device_ms(lambda: slstm_scan(gx, r, h0, c0))
         plain_ms = cuda_ms(lambda: slstm_scan_plain(gx, r, h0, c0), iters=3)
-        n_bytes = 4 * (gx.numel() + r.numel() + 4 * h0.numel()
-                       + B * T * H * Dh)
+        n_bytes = ((2 if bf else 4) * (gx.numel() + r.numel())
+                   + 4 * (4 * h0.numel() + B * T * H * Dh))
         # h @ R per step (2 Dh ops a gate column), ~20 for the gates.
         b_ms, b_by = bound(n_bytes, B * T * H * (2.0 * Dh * 4 * Dh + 20 * Dh))
-        print(f"slstm_scan {name} B={B} T={T} H={H} Dh={Dh}: max_abs_err "
+        print(f"slstm_scan{'[bf16]' if bf else ''} {name} B={B} T={T} "
+              f"H={H} Dh={Dh}: max_abs_err "
               f"{err:.3e} (tol {SLSTM_TOL:g}(1+|ref|)) "
               f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -606,7 +827,8 @@ def _check_slstm_scan(g) -> dict:
           f"T=1), {1e3 * regimes['decode']['ms'] - step_us:.3f} us a launch "
           f"besides (R loaded on chip, state in and out)")
     rep = {k: v for k, v in regimes["prefill"].items() if k != "T"}
-    return dict(name="slstm_scan", route="cuda",
+    return dict(name="slstm_scan[bf16]" if bf else "slstm_scan",
+                route="cuda",
                 source="src/repro_torch/kernels/slstm_scan/kernel.cu",
                 replaces="src/repro/kernels/slstm_scan/kernel.py:66", **rep,
                 step_us=step_us, regimes=regimes)
@@ -695,22 +917,25 @@ def phase_serve(path: str, cfg, cache_dir: str):
 
 
 def phase_profile(eng, prompts, step_ms: float, steps: int = 3):
-    """Device time by kernel over a few decode steps (torch.profiler)."""
+    """Device time by kernel over a few decode steps (torch.profiler),
+    reading the crossbars as ``generate`` does."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.model import apply_model, init_decode_state
 
     cfg = eng.cfg
+    read = getattr(eng, "_read", lambda seed, t: None)
     state = init_decode_state(cfg, B, MAX_SEQ, "cuda")
     logits, state = apply_model(eng.params, cfg, prompts.cuda(), state=state,
-                                cim=eng.cim)
+                                cim=eng.cim, read_seed=read(0, 0))
     tok = logits[:, -1].argmax(-1)[:, None]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
+        for t in range(steps):
             logits, state = apply_model(eng.params, cfg, tok, state=state,
-                                        decode=True, cim=eng.cim)
+                                        decode=True, cim=eng.cim,
+                                        read_seed=read(0, t + 1))
             tok = logits[:, 0].argmax(-1)[:, None]
         torch.cuda.synchronize()
     rows = []
@@ -725,15 +950,17 @@ def phase_profile(eng, prompts, step_ms: float, steps: int = 3):
     busy = sum(r[0] for r in rows)
     if busy == 0:
         print("phase profile: the profiler saw no device time: not measured")
-        return
+        return None
     print(f"phase profile ({steps} decode steps): device busy {busy:.2f} ms "
-          f"of a {step_ms:.2f} ms step (unprofiled) -> idle share "
+          f"of a {step_ms:.2f} ms step (unprofiled) -> busy share "
+          f"{100 * min(1.0, busy / step_ms):.1f}%, idle share "
           f"{100 * max(0.0, 1 - busy / step_ms):.1f}%")
     for i, (ms, n, key) in enumerate(rows):
         # The 8 largest, and every kernel of the port.
         if i < 8 or any(k in key for k in PORT_KERNEL_NAMES):
             print(f"  {ms:8.3f} ms/step {n:5d} launches/step "
                   f"({1e3 * ms / max(n, 1):.2f} us each)  {key[:70]}")
+    return busy
 
 
 def phase_plans(eng, names):
@@ -756,7 +983,7 @@ def phase_plans(eng, names):
         for a, b in zip(gpu[0], cpu[0]):
             if isinstance(a, torch.Tensor) and not torch.equal(a.cpu(), b):
                 raise AssertionError(f"{name}: card plan != CPU plan")
-        w_np = w.cpu().numpy()
+        w_np = w.float().cpu().numpy()
         scale = magnitude_scale_host(w_np, spec.n_bits)
         host_codes = quantize_codes_host(w_np, scale, spec.n_bits)
         if not (np.array_equal(gpu[1].cpu().numpy(), host_codes)
@@ -827,39 +1054,36 @@ def phase_export(eng) -> tuple[dict, dict]:
 
 
 def phase_compare(eng, prompts, tokens):
-    """Kernel path vs plain path: teacher-forced logits, greedy tokens."""
+    """Kernel path vs plain path.  f32: teacher-forced logits within
+    LOGIT_TOL x max|logit|, greedy tokens listed.  bf16: every kernel
+    call of a teacher-forced pass against its plain version
+    (:func:`_check_calls`), the same deployments served in f32 at
+    LOGIT_TOL (:func:`_check_f32`), and the bf16 paths' logits and
+    greedy tokens printed beside each other (no bound: module
+    constants)."""
     from repro_torch.models.model import PLAIN
 
     plain_eng = copy.copy(eng)           # same params and deployments
     plain_eng.ops = PLAIN
     seq = torch.cat([prompts.cuda(), tokens.long()], 1)[:, :PROMPT + NEW - 1]
     V = eng.cfg.vocab_size       # padded columns sit at -1e9; left out
-    lk = eng.teacher_forced_logits(seq, PROMPT)[..., :V]
-    lp = plain_eng.teacher_forced_logits(seq, PROMPT)[..., :V]
+    f32 = eng.cfg.dtype == "float32"
+    if f32:
+        lk = eng.teacher_forced_logits(seq, PROMPT)[..., :V].float()
+    else:
+        lk = _check_calls(eng, seq, "xlstm")[..., :V].float()
+        _check_f32(eng, seq)
+    lp = plain_eng.teacher_forced_logits(seq, PROMPT)[..., :V].float()
     err = (lk - lp).abs().max().item()
     ref = lp.abs().max().item()
-    ok = err <= LOGIT_TOL * ref
-    print(f"teacher-forced logits ({lk.shape[1]} steps): max_abs_err "
-          f"{err:.3e}, max|logit| {ref:.3e} (tol {LOGIT_TOL:g} x max) "
-          f"{'ok' if ok else 'FAIL'}")
-    if not ok:
+    tol = LOGIT_TOL * ref
+    ok = err <= tol
+    print(f"teacher-forced logits ({lk.shape[1]} steps, {eng.cfg.dtype}): "
+          f"max_abs_err {err:.3e} ({err / ref:.3e} of max|logit| "
+          f"{ref:.3e})" + (f", tol {tol:.3e} {'ok' if ok else 'FAIL'}"
+                           if f32 else " (bf16: a reading, no bound)"))
+    if f32 and not ok:
         raise AssertionError("kernel-path logits disagree with plain path")
-    if "slstm" in eng.cfg.block_pattern:
-        # How far f32 rounding in the recurrence alone moves the logits:
-        # the plain path again with the scan in f64.
-        from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
-
-        def scan64(*args):
-            out = slstm_scan_plain(*(a.to(torch.float64) for a in args))
-            return tuple(t.to(torch.float32) for t in out)
-
-        f64_eng = copy.copy(eng)
-        f64_eng.ops = PLAIN._replace(slstm_scan=scan64)
-        l64 = f64_eng.teacher_forced_logits(seq, PROMPT)[..., :V]
-        print(f"  f32 rounding floor: max|plain - plain with an f64 scan| "
-              f"{(lp - l64).abs().max().item():.3e}, max|kernel - plain "
-              f"with an f64 scan| {(lk - l64).abs().max().item():.3e}")
-        del l64
     plain_tokens = plain_eng.generate(prompts, NEW)
     same = (plain_tokens == tokens)
     top2 = lp.topk(2, dim=-1).values
@@ -873,6 +1097,251 @@ def phase_compare(eng, prompts, tokens):
             print(f"  flip row {b} step {t}: kernel {int(tokens[b, t])} "
                   f"plain {int(plain_tokens[b, t])}, plain top-2 gap "
                   f"{gap[b, t].item():.3e}")
+
+
+def _checked_ops(worst: dict):
+    """The kernels of a forward (``KERNELS``), each call also run
+    through its plain version on the same inputs; ``worst[kernel]``
+    gathers (calls, largest |kernel - plain| / its limit).  The limits
+    are the kernel checks': CIM_TOL x max|plain| for cim_mvm (f32
+    outputs), FLASH_TOL and SLSTM_TOL x (1 + |plain|) plus one bf16 ulp
+    for bf16 outputs.  The kernel's result flows on."""
+    from repro_torch.models.model import KERNELS, PLAIN, Ops
+
+    def held(name, got, want, limit):
+        r = ((got.float() - want.float()).abs() / limit).max().item()
+        n, w = worst.get(name, (0, 0.0))
+        worst[name] = (n + 1, max(w, r))
+
+    def elementwise(tol, want):
+        w = want.float().abs()
+        return tol * (1 + w) + (BF16_ULP * w
+                                if want.dtype == torch.bfloat16 else 0.0)
+
+    def matmul(x, dep, read_seed=None):
+        y = KERNELS.matmul(x, dep, read_seed)
+        p = PLAIN.matmul(x, dep, read_seed)
+        held("cim_mvm", y, p, CIM_TOL * p.abs().max().clamp_min(1e-30))
+        return y
+
+    def attention(q, k, v, q_pos, k_pos, window, chunk):
+        o = KERNELS.attention(q, k, v, q_pos, k_pos, window, chunk)
+        p = PLAIN.attention(q, k, v, q_pos, k_pos, window, chunk)
+        held("flash_attention", o, p, elementwise(FLASH_TOL, p))
+        return o
+
+    def scan(gx, r, h0, c0):
+        out = KERNELS.slstm_scan(gx, r, h0, c0)
+        for a, p in zip(out, PLAIN.slstm_scan(gx, r, h0, c0)):
+            held("slstm_scan", a, p, elementwise(SLSTM_TOL, p))
+        return out
+
+    return Ops(matmul, attention, scan)
+
+
+def _check_calls(eng, seq, path: str, seed: int = 0) -> torch.Tensor:
+    """A teacher-forced pass of ``eng`` (prefill, then a decode step a
+    token: both forms of every kernel) with every kernel call held
+    against its plain version on its own inputs (:func:`_checked_ops`);
+    raises if any call is off its limit or a kernel of ``path`` was not
+    called.  Returns the pass's logits (the kernel path's)."""
+    worst: dict = {}
+    checked = copy.copy(eng)
+    checked.ops = _checked_ops(worst)
+    logits = checked.teacher_forced_logits(seq, PROMPT, seed=seed)
+    want = [k for k in PATH_KERNELS[path] if k != "manhattan_score"]
+    print(f"  kernel calls of a teacher-forced pass ({eng.cfg.dtype}, "
+          f"{seq.shape[1] - PROMPT} decode steps), each against its plain "
+          f"version on the same inputs: " + ", ".join(
+              f"{k} {n} calls, worst |kernel - plain| {w:.3f} of its limit"
+              for k, (n, w) in sorted(worst.items())))
+    bad = [k for k in want if k not in worst or worst[k][1] > 1.0]
+    if bad:
+        raise AssertionError(f"kernel calls off their plain version or "
+                             f"missing on the {path} path: {bad}")
+    return logits
+
+
+def _check_f32(eng, seq, seed: int = 0) -> None:
+    """The bf16 engine's deployments served with f32 activations (its
+    params widened, the same banks and read seeds): kernel path vs plain
+    path, teacher-forced logits within LOGIT_TOL x max|logit|, and the
+    argmax flips listed with the plain path's top-2 gap (a flip needs a
+    gap within twice the error)."""
+    from repro_torch.models.model import PLAIN
+
+    twin = copy.copy(eng)
+    twin.cfg = eng.cfg.replace(dtype="float32")
+    twin.params = _widen(eng.params)
+    plain = copy.copy(twin)
+    plain.ops = PLAIN
+    V = eng.cfg.vocab_size
+    lk = twin.teacher_forced_logits(seq, PROMPT, seed=seed)[..., :V]
+    lp = plain.teacher_forced_logits(seq, PROMPT, seed=seed)[..., :V]
+    err = (lk - lp).abs().max().item()
+    ref = lp.abs().max().item()
+    top2 = lp.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    flips = lk.argmax(-1) != lp.argmax(-1)
+    ok = err <= LOGIT_TOL * ref
+    print(f"  the same deployments in f32: teacher-forced logits "
+          f"({lk.shape[1]} steps) max_abs_err {err:.3e} ({err / ref:.3e} of "
+          f"max|logit| {ref:.3e}), tol {LOGIT_TOL:g} x max "
+          f"{'ok' if ok else 'FAIL'}; argmax differs at {int(flips.sum())} "
+          f"of {flips.numel()} (plain top-2 gaps "
+          f"{[float(f'{g:.3e}') for g in gap[flips].tolist()][:8]})")
+    del twin, plain
+    if not ok:
+        raise AssertionError("f32 kernel-path logits disagree with the "
+                             "plain path")
+
+
+def _widen(tree):
+    """A params tree with every floating leaf in f32."""
+    if isinstance(tree, dict):
+        return {k: _widen(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def phase_nonideal(cfg, cache_dir: str) -> dict:
+    """Full-width phi3-mini at its config dtype (bf16) on imperfect
+    devices (``NONIDEAL``) under the ``spare_line`` mapping: deploy
+    through a cold plan cache (its stages timed), serve greedily, and
+    hold the kernel path against the plain path at one read seed, call
+    by call in bf16, end to end in f32, and its bf16 logits within
+    NONIDEAL_BF16_LOGIT_TOL x max|logit|."""
+    from repro_torch.deploy import PlanCache, deploy_model_params
+    from repro_torch.kernels import runtime
+    from repro_torch.models.model import PLAIN, init_params
+    from repro_torch.nonideal import NonidealModel
+    from repro_torch.serve import ServeEngine
+
+    full = NonidealModel(**NONIDEAL)
+    model = dataclasses.replace(full, p_open_wordline=0.0,
+                                p_open_bitline=0.0)
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launch_counts()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cim, rep = deploy_model_params(params, cfg, device="cuda", nonideal=full,
+                                   nonideal_key=NONIDEAL_SEED,
+                                   pipeline=NONIDEAL_PIPELINE)
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    print(f"phase deploy (phi3-nonideal, with line opens): {full}: "
+          f"{t_full:.2f} s uncached; n_degraded "
+          f"{rep['n_degraded']} of {rep['n_matrices']} matrices (programmed "
+          f"bits left on open lines after the {NONIDEAL_PIPELINE} remap, "
+          f"{sum(int(d.degraded.sum()) for sl in cim.values() for d in sl.values())} "
+          f"in all), {rep['stuck_cells']} stuck or open cells")
+    del cim
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, params, max_seq=MAX_SEQ,
+                      plan_cache=PlanCache(cache_dir), nonideal=model,
+                      nonideal_seed=NONIDEAL_SEED,
+                      pipeline=NONIDEAL_PIPELINE, timed_deploy=True,
+                      device="cuda")
+    torch.cuda.synchronize()
+    t_deploy = time.perf_counter() - t0
+    rep = eng.deploy_report
+    n_mats = rep["n_matrices"]
+    sec = rep["seconds"]
+    print(f"phase deploy (phi3-nonideal, served): {cfg.dtype}, {model}, seed "
+          f"{NONIDEAL_SEED}, pipeline {NONIDEAL_PIPELINE}: {t_deploy:.2f} s "
+          f"through a cold plan cache ({rep['cache_misses']} misses): "
+          f"{n_mats} matrices, {rep['tiles_planned']} tiles, "
+          f"{rep['stuck_cells']} stuck or open cells, n_degraded "
+          f"{rep['n_degraded']}, fault-aware {rep['fault_aware']}, NF "
+          f"reduction {100 * rep['nf_reduction']:.3f}%")
+    print(f"  deploy stages (the engine's deploy, the card synchronised "
+          f"between stages): sample {sec.get('sample', 0.0):.2f} s, inject "
+          f"{sec.get('inject', 0.0):.2f} s, plan {sec.get('plan', 0.0):.2f} s "
+          f"(the plan cache and its fault-map draws included), package "
+          f"{sec.get('package', 0.0):.2f} s; "
+          f"{t_deploy - sum(sec.values()):.2f} s besides")
+    for name, why in list(rep["degraded"].items())[:4]:
+        print(f"  demoted {name}: {why}")
+    bank = sum(t.numel() * t.element_size()
+               for slot in eng.cim.values() for d in slot.values()
+               for t in (d.codes, d.pos, d.gain, d.col_pos) if t is not None)
+    print(f"  bank: {bank / 1e9:.2f} GB on the card (codes, pos, gain, "
+          f"col_pos); params {sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB")
+
+    prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    eng.generate(prompts, 2)                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(prompts, 1)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompts, NEW)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    step = (t_all - t_prefill) / (NEW - 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase serve (phi3-nonideal): B={B} prompt {PROMPT} new {NEW}: "
+          f"prefill {t_prefill * 1e3:.1f} ms, decode {step * 1e3:.2f} "
+          f"ms/step, {B * NEW / t_all:.1f} tokens/s (peak memory "
+          f"{peak:.1f} GiB)")
+    counts = _launches("phi3-nonideal")
+    forwards = 2 + 1 + NEW
+    live = n_mats - rep["n_degraded"]
+    if counts["cim_mvm"] != live * forwards:
+        raise AssertionError(f"cim_mvm launches {counts['cim_mvm']} != "
+                             f"{live} non-degraded matrices x {forwards} "
+                             "forwards")
+    print(f"  cim_mvm: {counts['cim_mvm']} launches = {live} non-degraded "
+          f"matrices x {forwards} forwards, each with gain, col_pos and "
+          f"read noise; {rep['n_degraded']} degraded served digitally")
+    phase_profile(eng, prompts, step * 1e3)
+
+    again = eng.generate(prompts, NEW)
+    if not torch.equal(again, tokens):
+        raise AssertionError("two generate calls with the same sampling "
+                             "and read seeds gave different tokens")
+    print(f"  two generate calls (sampling seed 0, read seeds of nonideal "
+          f"seed {NONIDEAL_SEED}): tokens bit-identical ({tokens.numel()})")
+
+    seq = torch.cat([prompts.cuda(), tokens.long()], 1)[
+        :, :PROMPT + TF_STEPS]
+    V = cfg.vocab_size
+    lk = _check_calls(eng, seq, "phi3-nonideal", seed=5)[..., :V].float()
+    if not (torch.isfinite(lk).all() and lk.shape == (B, TF_STEPS + 1, V)):
+        raise AssertionError("non-finite or misshapen logits")
+    _check_f32(eng, seq, seed=5)
+    plain_eng = copy.copy(eng)
+    plain_eng.ops = PLAIN
+    lp = plain_eng.teacher_forced_logits(seq, PROMPT, seed=5)[..., :V].float()
+    err = (lk - lp).abs().max().item()
+    ref = lp.abs().max().item()
+    ok = err <= NONIDEAL_BF16_LOGIT_TOL * ref
+    flips = int((lk.argmax(-1) != lp.argmax(-1)).sum())
+    print(f"teacher-forced logits, kernel vs plain path at read seed 5 "
+          f"({lk.shape[1]} steps, bf16): max_abs_err {err:.3e} "
+          f"({err / ref:.3e} of max|logit| {ref:.3e}), tol "
+          f"{NONIDEAL_BF16_LOGIT_TOL:g} x max {'ok' if ok else 'FAIL'}; "
+          f"argmax differs at {flips} of {lk.shape[0] * lk.shape[1]}")
+    if not ok:
+        raise AssertionError("nonideal bf16 kernel-path logits disagree")
+    del plain_eng, lk, lp, eng
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _requests(vocab: int) -> list[tuple]:
@@ -1249,8 +1718,15 @@ def phase_paths(records: list[dict], tmp: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg = XLSTM.replace(dtype="float32", cim=cim)
-    print(f"config {cfg.name}: {cfg.n_layers} layers "
+    cfg = PHI3.replace(cim=cim)
+    print(f"config {cfg.name} ({cfg.dtype}, its CONFIG dtype): imperfect "
+          f"devices; no depth cut")
+    by_path["phi3-nonideal"] = phase_nonideal(
+        cfg, os.path.join(tmp, "phi3-nonideal"))
+    shutil.rmtree(os.path.join(tmp, "phi3-nonideal"), ignore_errors=True)
+
+    cfg = XLSTM.replace(cim=cim)
+    print(f"config {cfg.name} ({cfg.dtype}): {cfg.n_layers} layers "
           f"{cfg.block_pattern} x {cfg.pattern_repeats}, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}, mLSTM inner "
           f"{cfg.d_model * cfg.ssm_expand}, vocab {cfg.vocab_size} (padded "
@@ -1262,9 +1738,11 @@ def phase_paths(records: list[dict], tmp: str) -> None:
     phase_compare(eng, prompts, tokens)
     for r in records:
         name = r["name"]
-        r["launches"] = sum(c[name] for c in by_path.values())
-        r["launches_by_path"] = {p: c[name] for p, c in by_path.items()
-                                 if c[name]}
+        kernel = name.split("[")[0]
+        paths = RECORD_PATHS.get(name, ("phi3-nonideal",))
+        r["launches"] = sum(by_path[p][kernel] for p in paths)
+        r["launches_by_path"] = {p: by_path[p][kernel] for p in paths
+                                 if by_path[p][kernel]}
 
 
 if __name__ == "__main__":

@@ -33,15 +33,16 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
 
     Every leaf of the port's schema must be present with its shape;
     extra keys raise too, so nothing is dropped silently.  Leaves may
-    also be tensors (any device and dtype).
+    also be tensors (any device and dtype).  A bf16 leaf of the
+    reference (an ml_dtypes array, from ``np.asarray(jax_array)``)
+    crosses as its uint16 bits, so no ``ml_dtypes`` import is needed.
     """
     dev = resolve_device(device)
     dtype = param_dtype(cfg)
 
     def walk(spec, node, path):
         if isinstance(spec, ParamSpec):
-            a = (node if isinstance(node, torch.Tensor)
-                 else torch.from_numpy(np.array(node, copy=True)))
+            a = node if isinstance(node, torch.Tensor) else _tensor(node)
             if tuple(a.shape) != tuple(spec.shape):
                 raise ValueError(f"{path}: shape {tuple(a.shape)} != "
                                  f"schema {spec.shape}")
@@ -55,6 +56,14 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                 for k in spec}
 
     return walk(model_schema(cfg), tree, "")
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array (bf16 of ml_dtypes included) as a CPU tensor copy."""
+    a = np.asarray(a)
+    if str(a.dtype) == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
 
 
 def params_from_checkpoint(directory: str, cfg: ModelConfig,

@@ -86,3 +86,101 @@ def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
     pos = torch.empty_like(perm, dtype=torch.int32)
     ar = torch.arange(perm.shape[-1], dtype=torch.int32, device=perm.device)
     return pos.scatter_(-1, perm.to(torch.int64), ar.expand_as(pos))
+
+
+def optimal_col_order(active: torch.Tensor) -> torch.Tensor:
+    """Column permutation minimising the Manhattan-model NF: the
+    transpose of :func:`optimal_row_order` (densest columns nearest the
+    rail, ties by column score, then index).  Returns ``perm`` with
+    ``active[..., :, perm]`` the remapped tile."""
+    return optimal_row_order(active.transpose(-1, -2))
+
+
+def _sort_desc(primary: torch.Tensor,
+               secondary: torch.Tensor) -> torch.Tensor:
+    """Permutations sorting the last axis by ``primary`` descending, then
+    ``secondary`` descending, then index (the reference's
+    ``lexsort((-secondary, -primary))``)."""
+    by_sec = torch.argsort(-secondary, dim=-1, stable=True)
+    by_pri = torch.argsort(-torch.gather(primary, -1, by_sec), dim=-1,
+                           stable=True)
+    return torch.gather(by_sec, -1, by_pri)
+
+
+def fault_aware_row_order(active: torch.Tensor, stuck: torch.Tensor,
+                          nf_unit: float,
+                          col_weights: torch.Tensor | None = None,
+                          open_penalty: float = 0.0,
+                          line_weights: torch.Tensor | None = None,
+                          off_current: float = 0.0) -> torch.Tensor:
+    """Row permutations (..., J) minimising Manhattan NF plus expected
+    fault loss, batched over leading dims (reference
+    ``repro.core.manhattan.fault_aware_row_order``).
+
+    ``active`` (..., J, K) holds the placed masks and ``stuck`` the
+    physical cell states.  Importance is the MDM density ranking, or
+    with ``line_weights`` the line's significance times its total
+    current ``n + (K - n) * off_current`` (ties by Manhattan score, then
+    index); :func:`steer_rows` then assigns positions.  Every value is
+    computed in f32 with the reference's operations in its order."""
+    K = active.shape[-1]
+    f32 = torch.float32
+    a = (active > 0).to(f32)
+    if line_weights is None:
+        rank = row_order_from_keys(a.sum(-1), row_scores(a), K)
+    else:
+        n = a.sum(-1)
+        s = (a * (1.0 + torch.arange(K, dtype=f32,
+                                     device=active.device))).sum(-1)
+        cur = n + (K - n) * torch.tensor(off_current, dtype=f32,
+                                         device=active.device)
+        rank = _sort_desc(line_weights.to(f32) * cur, s)
+    return steer_rows(rank, stuck, nf_unit, col_weights, open_penalty)
+
+
+def steer_rows(row_rank: torch.Tensor, stuck: torch.Tensor, nf_unit: float,
+               col_weights: torch.Tensor | None = None,
+               open_penalty: float = 0.0) -> torch.Tensor:
+    """Assign the rows ranked by ``row_rank`` (..., J) (most important
+    first) to the physical positions of the cell states ``stuck``
+    (..., J, K: 1 stuck-OFF, 2 stuck-ON, 3 OPEN) by ascending
+    ``phi_p = nf_unit * p + pen_p``: ``pen_p`` is the position's
+    stuck-OFF and OPEN minus stuck-ON cells over K (weighted by
+    ``col_weights`` where given), plus ``open_penalty`` per OPEN cell
+    over K.  Hosting line j at p costs importance_j * phi_p, so by the
+    rearrangement inequality this is the optimum.  With no stuck cells
+    phi rises with p and the rank is kept."""
+    J, K = stuck.shape[-2], stuck.shape[-1]
+    dev = stuck.device
+    f32 = torch.float32
+    off_like = ((stuck == 1) | (stuck == 3)).to(f32)
+    on = (stuck == 2).to(f32)
+    if col_weights is None:
+        pen = (off_like.sum(-1) - on.sum(-1)) / K
+    else:
+        w = col_weights.to(f32)[..., None, :]
+        pen = (((w * off_like).sum(-1) - (w * on).sum(-1))
+               / torch.clamp(w.sum(-1), min=1e-30))
+    if open_penalty:
+        pen = pen + (torch.tensor(open_penalty, dtype=f32, device=dev)
+                     * (stuck == 3).to(f32).sum(-1) / K)
+    phi = (torch.tensor(nf_unit, dtype=f32, device=dev)
+           * torch.arange(J, dtype=f32, device=dev) + pen)
+    pos_rank = torch.argsort(phi, dim=-1, stable=True)
+    return torch.empty_like(row_rank).scatter_(-1, pos_rank, row_rank)
+
+
+def fault_aware_col_order(active: torch.Tensor, stuck: torch.Tensor,
+                          nf_unit: float,
+                          col_weights: torch.Tensor | None = None,
+                          open_penalty: float = 0.0,
+                          off_current: float = 0.0) -> torch.Tensor:
+    """Column permutations steering logical columns off faulty bitlines:
+    :func:`fault_aware_row_order` of the transposed tiles, with the
+    columns' significance ``col_weights`` (where given) weighting each
+    column's total current."""
+    return fault_aware_row_order(active.transpose(-1, -2),
+                                 stuck.transpose(-1, -2), nf_unit,
+                                 open_penalty=open_penalty,
+                                 line_weights=col_weights,
+                                 off_current=off_current)

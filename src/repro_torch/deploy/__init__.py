@@ -1,7 +1,8 @@
-"""Whole-model CIM deployment of the port (dense, ideal devices): the
-plan cache (``cache``), planning one matrix at a time through it
-(``planner``) and packaging into the stacked deployments the serving
-path reads (``engine``)."""
+"""Whole-model CIM deployment of the port (dense models, ideal or
+imperfect devices): the plan cache (``cache``), planning one matrix at
+a time through it (``planner``) and packaging, with the devices' faults
+and variation injected, into the stacked deployments the serving path
+reads (``engine``)."""
 from repro_torch.deploy.cache import (  # noqa: F401
     PLAN_CACHE_VERSION,
     CacheStats,
@@ -15,6 +16,7 @@ from repro_torch.deploy.engine import (  # noqa: F401
     DEPLOYABLE,
     collect_model_matrices,
     deploy_model_params,
+    package_deployment_host,
     spec_from_config,
 )
 from repro_torch.deploy.planner import (  # noqa: F401

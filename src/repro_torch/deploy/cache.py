@@ -16,9 +16,11 @@ read each other's entries:
   length]`` entries, then the entries' bytes back to back.
 
 Flags bit 0 is the reversed dataflow.  Bit 1 marks a column-permuted
-plan of the reference's non-legacy pipelines, which the port does not
-serve yet: such an entry is a miss here, never a partial decode.
-Decoded plans hold CPU tensors; packaging moves them to its device.
+plan: a ``cols`` u32-LE field follows the header, and ``col_perm`` and
+``col_position`` (in the smallest unsigned dtype that holds ``cols``)
+follow the NF block.  Decoded plans hold CPU tensors; packaging moves
+them to its device.  A plan keyed on a fault map adds the map's
+fingerprint to the key (``plan_key(fault_fingerprint=...)``).
 
 Writes are atomic (tmp file, fsync, ``os.replace``) and best-effort: a
 full or read-only disk costs the cache, not the deployment.  The
@@ -56,22 +58,34 @@ def weight_fingerprint(w) -> str:
 
     ``w`` is a numpy array or a tensor (copied to the host first); the
     header names numpy's dtype (``'float32'``), as the reference's
-    does.  Hashing releases the GIL, so a thread pool overlaps it.
+    does.  A bf16 tensor is hashed as its int16 view under the name
+    ``'bfloat16'``: byte for byte what the reference hashes for the
+    same ml_dtypes array.  Hashing releases the GIL, so a thread pool
+    overlaps it.
     """
+    name = None
     if isinstance(w, torch.Tensor):
-        w = w.detach().cpu().numpy()
+        w = w.detach().cpu()
+        if w.dtype == torch.bfloat16:
+            w, name = w.contiguous().view(torch.int16), "bfloat16"
+        w = w.numpy()
     arr = np.ascontiguousarray(w)
     h = hashlib.blake2b(digest_size=32)
-    h.update(repr((arr.shape, str(arr.dtype))).encode())
+    h.update(repr((arr.shape, name or str(arr.dtype))).encode())
     h.update(arr.data)
     return h.hexdigest()
 
 
-def plan_key(w_fingerprint: str, spec: CrossbarSpec, mode: str) -> str:
+def plan_key(w_fingerprint: str, spec: CrossbarSpec, mode: str,
+             fault_fingerprint: str | None = None) -> str:
     """Content address of one matrix's plan; ``mode`` is the pipeline's
-    cache token (``MappingPipeline.cache_token``)."""
+    cache token (``MappingPipeline.cache_token``) and
+    ``fault_fingerprint`` the :func:`weight_fingerprint` of the int8
+    physical fault map, when a fault-consuming pass planned it."""
     payload = {"version": PLAN_CACHE_VERSION, "weights": w_fingerprint,
                "spec": list(spec), "mode": mode}
+    if fault_fingerprint is not None:
+        payload["faults"] = fault_fingerprint
     return hashlib.sha256(
         json.dumps(payload, sort_keys=True).encode()).hexdigest()
 
@@ -100,45 +114,67 @@ def encode_plan(plan: MdmPlan) -> bytes:
     """One plan as the bytes of a cache entry."""
     perm = plan.row_perm.cpu().numpy()
     ti, tn, rows = perm.shape
-    flags = int(bool(plan.reversed_dataflow))
+    has_cols = plan.col_perm is not None
+    flags = int(bool(plan.reversed_dataflow)) | (2 if has_cols else 0)
     nf = [t.detach().cpu().numpy().astype(np.float32).ravel()
           for t in (plan.nf_before, plan.nf_after)]
     scale = np.asarray(torch.as_tensor(plan.scale).cpu(),
                        np.float32).reshape(1)
-    return b"".join([
-        bytes([flags, PLAN_CACHE_VERSION, 0, 0, 0]),
-        np.asarray([ti, tn, rows], "<u4").tobytes(),
-        np.stack([perm, plan.row_position.cpu().numpy()]
-                 ).astype(_perm_dtype(rows)).tobytes(),
-        np.concatenate(nf + [scale]).astype("<f4").tobytes(),
-    ])
+    parts = [bytes([flags, PLAN_CACHE_VERSION, 0, 0, 0]),
+             np.asarray([ti, tn, rows], "<u4").tobytes()]
+    if has_cols:
+        cols = plan.col_perm.shape[-1]
+        parts.append(np.asarray([cols], "<u4").tobytes())
+    parts += [np.stack([perm, plan.row_position.cpu().numpy()]
+                       ).astype(_perm_dtype(rows)).tobytes(),
+              np.concatenate(nf + [scale]).astype("<f4").tobytes()]
+    if has_cols:
+        parts.append(np.stack([plan.col_perm.cpu().numpy(),
+                               plan.col_position.cpu().numpy()]
+                              ).astype(_perm_dtype(cols)).tobytes())
+    return b"".join(parts)
 
 
 def decode_plan(buf: bytes) -> MdmPlan:
     """An entry's bytes as a plan of CPU tensors; ``ValueError`` for a
-    bad header, a column-permuted plan or a length that does not match
-    the header exactly."""
+    bad header or a length that does not match the header exactly."""
     if len(buf) < _HEADER or buf[1] != PLAN_CACHE_VERSION:
         raise ValueError("bad plan entry header")
     flags = buf[0]
-    if flags & 2:
-        raise ValueError("column-permuted plan: not served by the port")
+    has_cols = bool(flags & 2)
     ti, tn, rows = (int(v) for v in np.frombuffer(buf, "<u4", 3, offset=5))
+    off = _HEADER
+    cols = 0
+    if has_cols:
+        if len(buf) < off + 4:
+            raise ValueError("plan entry length mismatch")
+        cols = int(np.frombuffer(buf, "<u4", 1, offset=off)[0])
+        off += 4
     dt = _perm_dtype(rows)
     n_perm = 2 * ti * tn * rows
     n_nf = 2 * ti * tn + 1
-    off_nf = _HEADER + n_perm * np.dtype(dt).itemsize
-    if off_nf + 4 * n_nf != len(buf):
+    off_nf = off + n_perm * np.dtype(dt).itemsize
+    off_col = off_nf + 4 * n_nf
+    cdt = _perm_dtype(cols)
+    n_col = 2 * ti * tn * cols
+    if off_col + n_col * np.dtype(cdt).itemsize != len(buf):
         raise ValueError("plan entry length mismatch")
-    perms = np.frombuffer(buf, dt, n_perm, offset=_HEADER)
+    perms = np.frombuffer(buf, dt, n_perm, offset=off)
     perms = torch.from_numpy(perms.astype(np.int32).reshape(2, ti, tn, rows))
     nfs = torch.from_numpy(np.frombuffer(buf, "<f4", n_nf, offset=off_nf)
                            .astype(np.float32))
+    col_perm = col_position = None
+    if has_cols:
+        cperms = torch.from_numpy(
+            np.frombuffer(buf, cdt, n_col, offset=off_col)
+            .astype(np.int32).reshape(2, ti, tn, cols))
+        col_perm, col_position = cperms[0], cperms[1]
     return MdmPlan(row_perm=perms[0], row_position=perms[1],
                    reversed_dataflow=bool(flags & 1),
                    nf_before=nfs[:ti * tn].reshape(ti, tn),
                    nf_after=nfs[ti * tn:2 * ti * tn].reshape(ti, tn),
-                   scale=nfs[-1].clone())
+                   scale=nfs[-1].clone(), col_perm=col_perm,
+                   col_position=col_position)
 
 
 class PlanCache:
@@ -206,8 +242,8 @@ class PlanCache:
 
     def get_manifest(self, keys) -> dict[str, MdmPlan] | None:
         """The whole ``{name: key}`` plan set from one read, or None when
-        the manifest is absent, corrupt, holds a plan the port does not
-        serve, or does not cover exactly these entries."""
+        the manifest is absent, corrupt, or does not cover exactly these
+        entries."""
         keys = dict(keys)
         try:
             with open(self._manifest_path(manifest_key(keys)), "rb") as f:

@@ -7,21 +7,50 @@ mLSTM q/k/v, attention o, SwiGLU projections) is quantised, planned
 plan cache when one is given) and packaged; each slot's deployments are
 stacked over its pattern repeats, the layout
 ``repro_torch.models.model.apply_model`` walks.  Every other parameter
-stays digital and is recorded with the reference's reason.  Ideal
-devices only: the nonideal and lifetime parts of the reference are
-later slices.
+stays digital and is recorded with the reference's reason.
+
+Imperfect devices (``nonideal``): every matrix's physical cells are
+drawn on the device from (seed, its traversal index) — one matrix at a
+time, never the whole checkpoint's population, which at phi3-mini's
+width would not fit the card — or taken from a ``cells`` mapping (the
+seam the parity tests feed the reference's draws through).  Known
+stuck cells steer the fault-consuming mapping passes and key their
+plans; packaging folds stuck bits into the codes and variation and
+drift into the deployment's ``gain``, and counts the programmed bits
+that line opens still hold after the remap (``degraded``).  The
+lifetime and health parts of the reference come with a later slice.
 """
 from __future__ import annotations
 
+import contextlib
+import time
+from collections.abc import Mapping
+
 import torch
+import torch.nn.functional as F
+
+import numpy as np
 
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.core.bitslice import quantize_magnitude
+from repro_torch.core.mdm import MdmPlan
 from repro_torch.core.tiling import CrossbarSpec
 from repro_torch.deploy.cache import PlanCache
 from repro_torch.deploy.planner import plan_matrices
 from repro_torch.device import check_on, resolve_device
-from repro_torch.kernels.cim_mvm.ops import CimDeployment, package_deployment
+from repro_torch.kernels.cim_mvm.ops import CimDeployment, package_padded
+from repro_torch.mapping import FaultAwareRows, MdmRows, resolve_pipeline
+from repro_torch.nonideal.inject import (
+    HostCells,
+    aged_gain_host,
+    gather_physical_host,
+    has_faults,
+    matrix_cells,
+    matrix_stuck,
+    open_bit_overlap_host,
+    perturb_codes_host,
+)
+from repro_torch.nonideal.models import NonidealModel
 
 # The reference's name lists (``repro/deploy/engine.py``).
 _QKV_NAMES = ("wq", "wk", "wv", "attn_wq", "attn_wk", "attn_wv")
@@ -88,70 +117,275 @@ def collect_model_matrices(params: dict, cfg: ModelConfig
     return mats, summary
 
 
+class StageClock:
+    """Seconds a deploy stage on the host clock, the device synchronised
+    at each stage boundary; a stage's time excludes the stages nested in
+    it.  Stages run on the calling thread (the planner's fault-map
+    draws, made in its thread pool, count under "plan")."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.seconds: dict[str, float] = {}
+        self._inner: list[float] = []
+
+    def _mark(self) -> float:
+        """The host clock once the device has drained its queue."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()  # reprolint: disable=RPL006 -- the port imports nothing of repro, whose telemetry owns the clocks
+
+    @contextlib.contextmanager
+    def __call__(self, stage: str):
+        t0 = self._mark()
+        self._inner.append(0.0)
+        try:
+            yield
+        finally:
+            dt = self._mark() - t0
+            inner = self._inner.pop()
+            self.seconds[stage] = self.seconds.get(stage, 0.0) + dt - inner
+            if self._inner:
+                self._inner[-1] += dt
+
+
+def _untimed(stage: str):
+    return contextlib.nullcontext()
+
+
+# Logical rows a packaging step injects at once: the gathered fault and
+# gain fields of 256 rows of a 8192-wide matrix are ~120 MB.
+_INJECT_ROWS = 256
+
+
+def package_deployment_host(w: torch.Tensor, spec: CrossbarSpec, mode,
+                            eta: float, plan: MdmPlan,
+                            cells: HostCells | None = None,
+                            nonideal: NonidealModel | None = None,
+                            noise_tag: int | None = None,
+                            stats: dict | None = None,
+                            clock=_untimed) -> CimDeployment:
+    """Quantise and package one planned (I, N) matrix on its device (the
+    reference's host packaging, run where ``w`` lies; ``mode`` is kept
+    for its signature, the layout comes from the plan).
+
+    ``cells`` (physical fields on ``w``'s device) inject the device
+    state, a few tiles of rows at a time: stuck bits fold into the
+    padded codes (padding included, as in the reference), the
+    programmed bits on OPEN cells before that fold are the deployment's
+    ``degraded`` count (also ``stats["open_bits"]``), and variation and
+    drift (at the model's ``drift_time``) fold into ``gain``.  With
+    ``nonideal.sigma_read > 0`` the deployment carries ``noise_tag``.
+    ``clock`` (a :class:`StageClock`) times the injection as "inject".
+    """
+    del mode
+    I, N = w.shape
+    ti, tn = spec.grid(I, N)
+    i_pad, n_pad = ti * spec.rows, tn * spec.weights_per_tile
+    codes, sign, scale = quantize_magnitude(w, spec.n_bits)
+    codes = F.pad(codes, (0, n_pad - N, 0, i_pad - I))
+    sign = F.pad(sign.to(torch.int32), (0, n_pad - N, 0, i_pad - I), value=1)
+    gain = degraded = None
+    if cells is not None and any(f is not None for f in cells):
+        rev, K = bool(plan.reversed_dataflow), spec.n_bits
+        model = nonideal if nonideal is not None else NonidealModel()
+        want_gain = cells.gamma is not None or cells.relax is not None
+        if want_gain:
+            gain = torch.empty(codes.shape, dtype=torch.float32,
+                               device=codes.device)
+        open_bits = 0
+        with clock("inject"):
+            for r0 in range(0, i_pad, _INJECT_ROWS):
+                sl = slice(r0, r0 + _INJECT_ROWS)
+                log = lambda f: None if f is None else gather_physical_host(
+                    f, plan.row_position, rev, spec, plan.col_position, sl)
+                stuck_log = log(cells.stuck)
+                if stuck_log is not None:
+                    open_bits += open_bit_overlap_host(codes[sl], stuck_log,
+                                                       K)
+                    codes[sl] = perturb_codes_host(codes[sl], stuck_log, K)
+                if want_gain:
+                    gain[sl] = aged_gain_host(
+                        codes[sl], stuck_log, log(cells.gamma),
+                        log(cells.relax), K, model, model.drift_time)
+        if cells.stuck is not None:
+            degraded = torch.tensor(open_bits, dtype=torch.int32)
+            if stats is not None:
+                stats["open_bits"] = open_bits
+    sigma_read = 0.0 if nonideal is None else float(nonideal.sigma_read)
+    tag = (torch.tensor(noise_tag, dtype=torch.int32)
+           if noise_tag is not None and sigma_read > 0.0 else None)
+    signed = (codes * sign).to(torch.int16)
+    return package_padded(signed, scale, plan, spec, eta, I, N, gain=gain,
+                          degraded=degraded, noise_tag=tag,
+                          sigma_read=sigma_read)
+
+
+class _LazyFaults(Mapping):
+    """name -> fault map, drawn when the planner asks for it."""
+
+    def __init__(self, names, draw):
+        self._names, self._draw = list(names), draw
+
+    def __getitem__(self, name):
+        if name not in self._names:
+            raise KeyError(name)
+        return self._draw(name)
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def __len__(self):
+        return len(self._names)
+
+
+def _cells_on(c, dev) -> HostCells:
+    """Cells from numpy arrays (the reference's) or tensors, on ``dev``."""
+    move = lambda f: None if f is None else (
+        f if isinstance(f, torch.Tensor)
+        else torch.from_numpy(np.array(f, copy=True))).to(dev)
+    return HostCells(move(c.stuck), move(c.gamma),
+                     move(getattr(c, "relax", None)))
+
+
+def _stack(reps: int, dep: CimDeployment, dev) -> CimDeployment:
+    """An empty stacked deployment shaped like ``dep`` over ``reps``."""
+    new = lambda t, where: None if t is None else torch.empty(
+        (reps,) + tuple(t.shape), dtype=t.dtype, device=where)
+    return CimDeployment(
+        codes=new(dep.codes, dev), pos=new(dep.pos, dev),
+        scale=torch.empty((reps,), dtype=torch.float32, device=dev),
+        n_bits=dep.n_bits, wpt=dep.wpt, cols=dep.cols, eta=dep.eta,
+        reversed_df=dep.reversed_df, in_dim=dep.in_dim, out_dim=dep.out_dim,
+        gain=new(dep.gain, dev), col_pos=new(dep.col_pos, dev),
+        degraded=new(dep.degraded, "cpu"),
+        noise_tag=new(dep.noise_tag, "cpu"), sigma_read=dep.sigma_read)
+
+
 def deploy_model_params(params: dict, cfg: ModelConfig,
                         cache: PlanCache | None = None,
-                        device: str | torch.device = "cuda"
+                        device: str | torch.device = "cuda",
+                        nonideal: NonidealModel | None = None,
+                        nonideal_key: int | None = None,
+                        fault_aware: bool = True, pipeline=None,
+                        cells: Mapping | None = None, timed: bool = False
                         ) -> tuple[dict, dict]:
     """Deploy every projection matrix of a model onto crossbars.
 
     Returns (cim_tree, report): ``cim_tree[slot][param]`` is one
-    :class:`CimDeployment` whose codes / pos / scale are stacked over the
-    slot's pattern repeats.  The parameters must lie on ``device``;
+    :class:`CimDeployment` whose tensors are stacked over the slot's
+    pattern repeats.  The parameters must lie on ``device``;
     quantisation, planning (of the cache's misses, with ``cache``) and
-    packaging run there, one matrix at a time.  The report carries
-    matrix and tile counts, the cache's hits and misses, and the summed
-    NF before and after planning.
+    packaging run there, one matrix at a time.  ``pipeline`` (a
+    :class:`repro_torch.mapping.MappingPipeline`, a named pipeline or a
+    spec string) defaults to ``cfg.cim.mode``.
+
+    ``nonideal`` deploys onto imperfect devices keyed by the int
+    ``nonideal_key`` (default 0): each matrix's cells are drawn on the
+    device from (key, traversal index), or taken from ``cells`` (name ->
+    cells with ``stuck`` / ``gamma`` / ``relax`` fields, numpy or
+    tensors).  With ``fault_aware`` the stuck cells steer the planning,
+    an MDM row pass becoming the fault-aware one, and key the plans.
+    The report carries matrix and tile counts, the cache's hits and
+    misses and the summed NF before and after planning, and with
+    ``nonideal`` the stuck cells, the ``degraded`` matrices (each with
+    the reference's reason) and ``n_degraded``.  ``timed`` synchronises
+    the device at every stage boundary and adds ``seconds``: the time
+    spent drawing the packaged cells ("sample"), planning ("plan": the
+    cache and the fault maps it keys on included), injecting ("inject")
+    and the rest of packaging ("package").
     """
     dev = resolve_device(device)
     check_supported(cfg)
     spec = spec_from_config(cfg)
+    mode = pipeline if pipeline is not None else cfg.cim.mode
     mats, summary = collect_model_matrices(params, cfg)
     check_on(dev, **{name.replace("/", "_"): w for name, w in mats.items()})
-    plans, report = plan_matrices(mats, spec, cfg.cim.mode, cache)
+    clock = StageClock(dev) if timed else _untimed
+
+    cells_of = fault_maps = None
+    if nonideal is not None and not nonideal.is_ideal:
+        key = 0 if nonideal_key is None else int(nonideal_key)
+        index = {name: t for t, name in enumerate(mats)}
+        grids = {name: spec.grid(*w.shape) for name, w in mats.items()}
+        if cells is None:
+            draw = lambda name: matrix_cells(
+                key, index[name], grids[name], spec, nonideal, dev)
+            draw_stuck = lambda name: matrix_stuck(
+                key, index[name], grids[name], spec, nonideal, dev)
+            faulty = has_faults(nonideal)
+        else:
+            draw = lambda name: _cells_on(cells[name], dev)
+            draw_stuck = lambda name: draw(name).stuck
+            faulty = any(c.stuck is not None for c in cells.values())
+
+        def cells_of(name):
+            with clock("sample"):
+                return draw(name)
+
+        if fault_aware and faulty:
+            fault_maps = _LazyFaults(mats, draw_stuck)
+    if fault_maps is not None:
+        pipe = resolve_pipeline(mode, True)
+        if isinstance(pipe.rows, MdmRows):
+            pipe = pipe.replace(rows=FaultAwareRows())
+        mode = pipe
+    with clock("plan"):
+        plans, report = plan_matrices(mats, spec, mode, cache, fault_maps)
 
     nf_before = torch.zeros((), dtype=torch.float64, device=dev)
     nf_after = torch.zeros((), dtype=torch.float64, device=dev)
-    tiles = 0
+    tiles = stuck_cells = 0
+    degraded: dict[str, int] = {}
     cim_tree: dict = {}
+    for t, name in enumerate(mats):
+        slot, pname, r = name.split("/")
+        r = int(r)
+        plan = plans.pop(name)
+        c = None if cells_of is None else cells_of(name)
+        if c is not None and c.stuck is not None:
+            stuck_cells += int((c.stuck != 0).sum())
+        stats: dict = {}
+        col_position = (None if plan.col_position is None
+                        else plan.col_position.to(dev))
+        with clock("package"):
+            dep = package_deployment_host(
+                mats[name], spec, mode, cfg.cim.eta,
+                plan._replace(row_position=plan.row_position.to(dev),
+                              col_position=col_position),
+                cells=c, nonideal=nonideal, noise_tag=t, stats=stats,
+                clock=clock)
+        if stats.get("open_bits"):
+            degraded[name] = stats["open_bits"]
+        nf_before += plan.nf_before.sum(dtype=torch.float64).to(dev)
+        nf_after += plan.nf_after.sum(dtype=torch.float64).to(dev)
+        tiles += plan.nf_before.numel()
+        del plan, c
+        slot_deps = cim_tree.setdefault(slot, {})
+        if pname not in slot_deps:
+            slot_deps[pname] = _stack(params[slot][pname].shape[0], dep, dev)
+        stacked = slot_deps[pname]
+        for f in ("codes", "pos", "scale", "gain", "col_pos", "degraded",
+                  "noise_tag"):
+            if getattr(dep, f) is not None:
+                getattr(stacked, f)[r].copy_(getattr(dep, f))
     for i, bt in enumerate(cfg.block_pattern):
-        slot = f"slot{i}_{bt}"
-        slot_deps: dict = {}
-        for pname in DEPLOYABLE:
-            if pname not in params.get(slot, {}):
-                continue
-            reps = params[slot][pname].shape[0]
-            stacked = None
-            for r in range(reps):
-                name = f"{slot}/{pname}/{r}"
-                plan = plans.pop(name)
-                codes, sign, scale = quantize_magnitude(mats[name],
-                                                        spec.n_bits)
-                dep = package_deployment(
-                    codes, sign, scale,
-                    plan._replace(row_position=plan.row_position.to(dev)),
-                    spec, cfg.cim.eta)
-                nf_before += plan.nf_before.sum(dtype=torch.float64).to(dev)
-                nf_after += plan.nf_after.sum(dtype=torch.float64).to(dev)
-                tiles += plan.nf_before.numel()
-                del plan, codes, sign
-                if stacked is None:
-                    stacked = CimDeployment(
-                        codes=torch.empty((reps,) + dep.codes.shape,
-                                          dtype=dep.codes.dtype, device=dev),
-                        pos=torch.empty((reps,) + dep.pos.shape,
-                                        dtype=dep.pos.dtype, device=dev),
-                        scale=torch.empty((reps,), dtype=torch.float32,
-                                          device=dev),
-                        n_bits=dep.n_bits, wpt=dep.wpt, cols=dep.cols,
-                        eta=dep.eta, reversed_df=dep.reversed_df,
-                        in_dim=dep.in_dim, out_dim=dep.out_dim)
-                stacked.codes[r].copy_(dep.codes)
-                stacked.pos[r].copy_(dep.pos)
-                stacked.scale[r] = dep.scale
-            slot_deps[pname] = stacked
-        cim_tree[slot] = slot_deps
+        cim_tree.setdefault(f"slot{i}_{bt}", {})
     b, a = float(nf_before), float(nf_after)
     report.update(tiles=tiles, nf_before=b, nf_after=a,
                   nf_reduction=(b - a) / max(b, 1e-30),
                   matrices=summary, n_slots=len(cim_tree))
+    if timed:
+        report["seconds"] = dict(clock.seconds)
+    if cells_of is not None:
+        report["nonideal"] = True
+        report["fault_aware"] = (fault_maps is not None
+                                 and resolve_pipeline(mode, True)
+                                 .rows.uses_faults)
+        report["stuck_cells"] = stuck_cells
+        report["degraded"] = {
+            name: (f"degraded: {n} programmed bit(s) on open lines "
+                   "after remap (spares exhausted); serving via "
+                   "digital fallback")
+            for name, n in sorted(degraded.items())}
+        report["n_degraded"] = len(degraded)
     return cim_tree, report

@@ -14,6 +14,12 @@ probes in a thread pool, one manifest read for a checkpoint deployed
 before, else one probe an entry), plans only the misses and writes
 their entries and the manifest.  Keys and entries are the reference's.
 
+Fault maps (name -> (Ti, Tn, rows, cols) int8 physical cell states)
+feed the fault-consuming passes and enter each key as the reference's
+fault fingerprint; a mapping may produce them lazily (the deployment
+engine draws a matrix's cells when it is reached).  A bf16 matrix is
+keyed on its f32 widening, as the reference keys its f32 host copy.
+
 ``quantize_codes_host`` is the numpy mirror of the code rounding; with
 the scale fixed, numpy, XLA and PyTorch agree on it bit for bit.
 """
@@ -49,8 +55,10 @@ def quantize_codes_host(w: np.ndarray, scale: np.float32,
 
 
 def plan_matrix(w: torch.Tensor, spec: CrossbarSpec,
-                mode: str | MappingPipeline = "mdm"):
-    """Quantise and plan one (I, N) matrix on its device.
+                mode: str | MappingPipeline = "mdm",
+                fault_map: torch.Tensor | None = None):
+    """Quantise and plan one (I, N) matrix on its device (``fault_map``:
+    its (Ti, Tn, rows, cols) physical cell states, or None).
 
     Returns (plan, codes, sign, scale); the codes and signs feed
     packaging without a second quantisation pass.
@@ -59,30 +67,44 @@ def plan_matrix(w: torch.Tensor, spec: CrossbarSpec,
         raise ValueError(f"expected a 2-D matrix, got {tuple(w.shape)}")
     codes, sign, scale = quantize_magnitude(w, spec.n_bits)
     plan = plan_from_bits(codes_to_bits(codes, spec.n_bits), scale, spec,
-                          mode)
+                          mode, fault_map)
     return plan, codes, sign, scale
 
 
+def _f32_fingerprint(w: torch.Tensor) -> str:
+    return weight_fingerprint(w if w.dtype == torch.float32
+                              else w.to(torch.float32))
+
+
 def fingerprint_matrices(mats: Mapping[str, torch.Tensor],
-                         spec: CrossbarSpec, mode) -> dict[str, str]:
-    """The plan-cache key of every matrix, fingerprinted in a thread
-    pool, one host copy a thread at a time."""
-    token = resolve_pipeline(mode).cache_token()
+                         spec: CrossbarSpec, mode,
+                         fault_maps: Mapping | None = None
+                         ) -> dict[str, str]:
+    """The plan-cache key of every matrix (of its f32 values, and of its
+    fault map where one is given), fingerprinted in a thread pool, one
+    host copy a thread at a time."""
+    token = resolve_pipeline(mode, fault_maps is not None).cache_token()
+
+    def key_of(name):
+        ffp = (None if fault_maps is None or name not in fault_maps
+               else weight_fingerprint(fault_maps[name].to(torch.int8)))
+        return plan_key(_f32_fingerprint(mats[name]), spec, token, ffp)
+
     workers = max(1, min(os.cpu_count() or 1, len(mats)))
     with ThreadPoolExecutor(max_workers=workers) as ex:
-        fps = ex.map(weight_fingerprint, mats.values())
-        return {name: plan_key(fp, spec, token)
-                for name, fp in zip(mats, fps)}
+        return dict(zip(mats, ex.map(key_of, mats)))
 
 
 def _host_plan(plan: MdmPlan) -> MdmPlan:
     return plan._replace(**{f: getattr(plan, f).cpu() for f in (
-        "row_perm", "row_position", "nf_before", "nf_after", "scale")})
+        "row_perm", "row_position", "nf_before", "nf_after", "scale",
+        "col_perm", "col_position") if getattr(plan, f) is not None})
 
 
 def plan_matrices(mats: Mapping[str, torch.Tensor], spec: CrossbarSpec,
                   mode: str | MappingPipeline = "mdm",
-                  cache: PlanCache | None = None
+                  cache: PlanCache | None = None,
+                  fault_maps: Mapping | None = None
                   ) -> tuple[dict[str, MdmPlan], dict]:
     """Plan every (I, N) matrix of ``mats``, through ``cache`` if given.
 
@@ -91,7 +113,14 @@ def plan_matrices(mats: Mapping[str, torch.Tensor], spec: CrossbarSpec,
     (decoded hits, and misses copied back after planning on the
     device).  The report counts tiles planned (misses only), cache hits
     and misses, and whether one manifest read resolved the whole set.
+    ``fault_maps`` (name -> (Ti, Tn, rows, cols) int8 on the matrix's
+    device) steers the fault-consuming passes (the legacy sorting
+    modes resolve to fault-aware rows) and keys their plans; a pipeline
+    none of whose passes consumes faults drops them, as the reference's.
     """
+    pipe = resolve_pipeline(mode, fault_maps is not None)
+    if not (pipe.rows.uses_faults or pipe.cols.uses_faults):
+        fault_maps = None
     for name, w in mats.items():
         if w.ndim != 2:
             raise ValueError(f"{name}: expected a 2-D matrix, got "
@@ -101,7 +130,7 @@ def plan_matrices(mats: Mapping[str, torch.Tensor], spec: CrossbarSpec,
     misses = list(mats)
     manifest_hit = False
     if cache is not None:
-        keys = fingerprint_matrices(mats, spec, mode)
+        keys = fingerprint_matrices(mats, spec, pipe, fault_maps)
         hit_all = cache.get_manifest(keys)
         if hit_all is not None:
             plans, misses, manifest_hit = hit_all, [], True
@@ -119,7 +148,8 @@ def plan_matrices(mats: Mapping[str, torch.Tensor], spec: CrossbarSpec,
     tiles = 0
     blobs: dict[str, bytes] = {}
     for name in misses:
-        plan = plan_matrix(mats[name], spec, mode)[0]
+        fm = None if fault_maps is None else fault_maps.get(name)
+        plan = plan_matrix(mats[name], spec, pipe, fm)[0]
         tiles += plan.nf_before.numel()
         if cache is not None:
             plan = _host_plan(plan)

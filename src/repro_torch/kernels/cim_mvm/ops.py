@@ -5,6 +5,10 @@
 deployment time; ``cim_mvm()`` then computes the PR-distorted matmul
 for any activation batch: the hand-written kernel (``kernel.cu``) on
 CUDA tensors, the plain PyTorch version (``ref.py``) on CPU tensors.
+A deployment onto imperfect devices (``repro_torch.deploy``) also
+carries a per-weight ``gain``, a per-tile bitline permutation
+``col_pos`` and per-read noise (``sigma_read``, ``noise_tag``, and a
+``read_seed`` a call); the kernel takes all three as operands.
 """
 from __future__ import annotations
 
@@ -32,13 +36,18 @@ class CimDeployment:
     codes: (I_tiles*rows, N_tiles*wpt) int16 signed codes (sign*magnitude).
     pos:   (I_tiles*rows, N_tiles)     int32 physical row positions.
     scale: ()                          f32 quantisation scale.
-    A stacked deployment carries a leading repeat axis on all three;
+    gain:  (I_tiles*rows, N_tiles*wpt) f32 per-weight conductance gain
+           (programming variation and drift), or None.
+    col_pos: (I_tiles, N_tiles, cols) int32 physical bitline of each
+           dataflow-layout column a tile, or None (fixed layout).
+    degraded: () int32 CPU tensor, programmed bits left on open lines
+           after the remap (> 0: the model serves this matrix digitally),
+           or None (no fault injection).
+    noise_tag: () int32 CPU tensor, this matrix's read-noise tag, or None.
+    sigma_read: relative per-read conductance noise std; applied only
+           when ``cim_mvm`` gets a ``read_seed`` and the tag is set.
+    A stacked deployment carries a leading repeat axis on every tensor;
     :meth:`layer` takes one repeat's views.
-
-    ``gain``, ``col_pos`` and ``sigma_read`` are the reference's
-    nonideal-device operands; this slice serves ideal devices only, and
-    :func:`cim_mvm` raises ``NotImplementedError`` on a deployment that
-    carries any of them.
     """
 
     codes: torch.Tensor
@@ -53,6 +62,8 @@ class CimDeployment:
     out_dim: int
     gain: torch.Tensor | None = None
     col_pos: torch.Tensor | None = None
+    degraded: torch.Tensor | None = None
+    noise_tag: torch.Tensor | None = None
     sigma_read: float = 0.0
     _layers: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False, compare=False)
@@ -65,8 +76,9 @@ class CimDeployment:
             view = self._layers[r] = dataclasses.replace(
                 self, codes=self.codes[r], pos=self.pos[r],
                 scale=self.scale[r],
-                gain=None if self.gain is None else self.gain[r],
-                col_pos=None if self.col_pos is None else self.col_pos[r])
+                **{f: None if getattr(self, f) is None
+                   else getattr(self, f)[r]
+                   for f in ("gain", "col_pos", "degraded", "noise_tag")})
         return view
 
 
@@ -76,22 +88,36 @@ def package_deployment(codes: torch.Tensor, sign: torch.Tensor,
     """Lay out quantised codes and a plan as a :class:`CimDeployment`.
 
     ``codes`` (I, N) magnitudes and ``sign`` (I, N) +-1; the codes are
-    padded with zeros to whole tiles, and ``pos[i, tn]`` is the physical
-    row of input i in column tile tn.
-    """
+    padded with zeros to whole tiles (:func:`package_padded`)."""
     I, N = codes.shape
     ti, tn = spec.grid(I, N)
-    rows, wpt = spec.rows, spec.weights_per_tile
-    i_pad, n_pad = ti * rows, tn * wpt
+    i_pad, n_pad = ti * spec.rows, tn * spec.weights_per_tile
     signed = (codes.to(torch.int32) * sign.to(torch.int32)).to(torch.int16)
     signed = F.pad(signed, (0, n_pad - N, 0, i_pad - I))
-    i = torch.arange(i_pad, device=codes.device)
-    pos = plan.row_position[i // rows, :, i % rows].to(torch.int32)
+    return package_padded(signed, scale, plan, spec, eta, I, N)
+
+
+def package_padded(signed: torch.Tensor, scale: torch.Tensor, plan: MdmPlan,
+                   spec: CrossbarSpec, eta: float, in_dim: int, out_dim: int,
+                   **operands) -> CimDeployment:
+    """A :class:`CimDeployment` of signed int16 codes already padded to
+    whole tiles: ``pos[i, tn]`` is the physical row of input i in column
+    tile tn, and a column-permuting plan's ``col_position`` becomes
+    ``col_pos``; ``operands`` are the nonideal fields (gain, degraded,
+    noise_tag, sigma_read)."""
+    rows = spec.rows
+    i = torch.arange(signed.shape[0], device=signed.device)
+    pos = plan.row_position.to(signed.device)[i // rows, :, i % rows].to(
+        torch.int32)
+    col_pos = (None if plan.col_position is None
+               else plan.col_position.to(signed.device, torch.int32)
+               .contiguous())
     return CimDeployment(
         codes=signed.contiguous(), pos=pos.contiguous(),
-        scale=scale.to(torch.float32), n_bits=spec.n_bits, wpt=wpt,
-        cols=spec.cols, eta=float(eta),
-        reversed_df=bool(plan.reversed_dataflow), in_dim=I, out_dim=N)
+        scale=scale.to(torch.float32), n_bits=spec.n_bits,
+        wpt=spec.weights_per_tile, cols=spec.cols, eta=float(eta),
+        reversed_df=bool(plan.reversed_dataflow), in_dim=in_dim,
+        out_dim=out_dim, col_pos=col_pos, **operands)
 
 
 def deploy(w: torch.Tensor, spec: CrossbarSpec, mode="mdm",
@@ -119,11 +145,16 @@ DECODE_RM = 4                      # output rows a reduction round
 TABLE_MAX = 4096                   # eta*M1 table entries (wpt * 2^K)
 PREFILL_BM, PREFILL_BN, PREFILL_BK = 128, 128, 32
 PREFILL_STAGES = 3                 # ring of staged x, codes, pos slabs
+PREFILL_GLD = PREFILL_BN + 8       # a staged gain row (floats)
 SMEM_MAX = 227 * 1024
+# Geom.ext bits: the nonideal operands of a call, and (prefill) whether
+# the gain is staged in the ring or read from L2.
+EXT_GAIN, EXT_COLP, EXT_NOISE, EXT_GAIN_STAGED = 1, 2, 4, 8
 # The fields of kernel.cu's ``Geom``, in order.
 _GEOM_FIELDS = ("form", "M", "I", "N", "n_pad", "n_tiles", "wpt", "n_bits",
                 "cols", "reversed", "fast", "tile", "rps", "gx", "gy",
-                "smem", "off_t", "off_p", "mt")
+                "smem", "off_t", "off_p", "mt", "xbf16", "ext", "rows",
+                "n_ti", "cp_ti", "cp_tn")
 
 
 def _table(wpt: int, n_bits: int) -> int:
@@ -137,9 +168,26 @@ def _fast(aligned, n_pad, wpt, n_bits) -> bool:
             and _table(wpt, n_bits) <= TABLE_MAX)
 
 
-def _decode_geometry(M, I, n_pad, wpt, n_bits, sm_count, aligned):
+def _cps_stride(cols: int) -> int:
+    """Entries of a tile's col_pos row in shared memory: ``cols`` rounded
+    up to 4, plus 4 (16-byte rows, spread over the banks)."""
+    return runtime.round4(cols) + 4
+
+
+def _span_tiles(length: int, stride: int, end: int, unit: int) -> int:
+    """The most tiles of ``unit`` that one span [a, min(a + length, end))
+    covers, over the spans a = 0, stride, 2 * stride, ... below end."""
+    most = 0
+    for a in range(0, end, stride):
+        b = min(a + length, end)
+        most = max(most, (b - 1) // unit - a // unit + 1)
+    return most
+
+
+def _decode_geometry(M, I, n_pad, wpt, n_bits, cols, sm_count, aligned,
+                     rows, colp):
     """Decode-form fields, or None where its shared memory would not
-    fit (a very long I)."""
+    fit (a very long I, or col_pos tiles that do not fit)."""
     fast = _fast(aligned, n_pad, wpt, n_bits)
     mt = 1 << (M - 1).bit_length()
     # The widest block (G column groups of 8) that still gives two
@@ -150,52 +198,93 @@ def _decode_geometry(M, I, n_pad, wpt, n_bits, sm_count, aligned):
             break
     rps = math.ceil(I / DECODE_CLUSTER)
     # x slab [rps][mt], reused for the slices' sums [KS][RM][8G]; the
-    # eta*M1 table; the block's sums [mt][8G] (offsets in floats).
+    # eta*M1 table, or the block's col_pos tiles; the block's sums
+    # [mt][8G] (offsets in floats).
+    cp_ti = _span_tiles(rps, rps, I, rows) if colp else 0
+    cp_tn = _span_tiles(8 * G, 8 * G, n_pad, wpt) if colp else 0
     slab = max(rps * mt, (THREADS // G) * DECODE_RM * 8 * G)
     off_t = runtime.round4(slab)
-    off_p = off_t + (_table(wpt, n_bits) if fast else 0)
+    region = (cp_ti * cp_tn * _cps_stride(cols) if colp
+              else _table(wpt, n_bits) if fast else 0)
+    off_p = off_t + runtime.round4(region)
     smem = 4 * (off_p + mt * 8 * G)
     if smem > SMEM_MAX:
         return None
     return dict(form=0, fast=int(fast), tile=G, rps=rps, gx=gx,
                 gy=DECODE_CLUSTER, smem=smem, off_t=off_t, off_p=off_p,
-                mt=mt)
+                mt=mt, cp_ti=cp_ti, cp_tn=cp_tn)
+
+
+def _prefill_geometry(M, I, N, n_pad, wpt, n_bits, cols, aligned, rows,
+                      ext):
+    """Prefill-form fields (any M and I); ``ext`` gains EXT_GAIN_STAGED
+    where the gain ring fits beside the rest."""
+    bm, bn, bk = PREFILL_BM, PREFILL_BN, PREFILL_BK
+    colp = bool(ext & EXT_COLP)
+    cp_ti = _span_tiles(bk, bk, I, rows) if colp else 0
+    cp_tn = _span_tiles(bn, bn, n_pad, wpt) if colp else 0
+    # x as TF32 hi / lo parts and the rows' factors, two buffers each;
+    # a ring of staged raw x, codes and pos slabs; then the eta*M1 table
+    # (the 16-byte code path without col_pos) or a ring of the slabs'
+    # col_pos tiles; then a ring of the slabs' gain where it fits.  The
+    # 16-byte code path is dropped where its part does not fit.
+    stage = bm * (bk + 4) * 4 + bk * (bn + 8) * 2 + bk * (bn // 8) * 4
+    base = (2 * 2 * bm * bk * 4 + 2 * bk * (bn // 8) * 4
+            + PREFILL_STAGES * stage)
+    colp_ring = 4 * PREFILL_STAGES * cp_ti * cp_tn * _cps_stride(cols)
+    fast = _fast(aligned, n_pad, wpt, n_bits)
+    region = colp_ring if colp else 4 * _table(wpt, n_bits) if fast else 0
+    if fast and base + region > SMEM_MAX:
+        fast = False
+        region = colp_ring
+    off_p = base + -(-region // 16) * 16          # the gain ring's 16-byte
+    smem = off_p                                   # cp.async needs alignment
+    gain_ring = 4 * PREFILL_STAGES * bk * PREFILL_GLD
+    if fast and ext & EXT_GAIN and smem + gain_ring <= SMEM_MAX:
+        ext |= EXT_GAIN_STAGED
+        smem += gain_ring
+    if smem > SMEM_MAX:
+        raise ValueError(f"cim_mvm: no prefill geometry fits {smem} bytes "
+                         f"of shared memory (col_pos tiles of {rows} rows)")
+    return dict(form=1, fast=int(fast), tile=bn, rps=0,
+                gx=math.ceil(N / bn), gy=math.ceil(M / bm), smem=smem,
+                off_t=base, off_p=off_p, mt=0, ext=ext, cp_ti=cp_ti,
+                cp_tn=cp_tn)
 
 
 @functools.lru_cache(maxsize=None)
 def cim_geometry(M: int, I: int, N: int, i_pad: int, n_pad: int, wpt: int,
                  n_bits: int, cols: int, reversed_df: bool, sm_count: int,
-                 aligned: bool) -> runtime.Geometry:
+                 aligned: bool, xbf16: bool = False, ext: int = 0,
+                 rows: int = 0) -> runtime.Geometry:
     """The launch of ``cim_mvm`` for x (M, I) and a deployment with
     (i_pad, n_pad) codes, on a card with ``sm_count`` SMs; ``aligned``
-    says whether the codes start on 16 bytes.  Cached per shape: a
-    decode step pays for it once per matrix shape.
+    says whether the codes (and a gain) start on 16 bytes, ``xbf16``
+    whether x is bf16, ``ext`` which nonideal operands the call carries
+    (EXT_GAIN | EXT_COLP | EXT_NOISE) and ``rows`` the crossbar rows of
+    a tile (with col_pos).  Cached per shape: a decode step pays for it
+    once per matrix shape.
 
     Decode form (M <= 16): grid (gx, 8), cluster rank r sums the rows
     [r*rps, min((r+1)*rps, I)), slice s of a block the rows r*rps + s +
     KS*j (KS = 256 / G).  Prefill form: grid (ceil(N/128), ceil(M/128)),
     each block all of I in slabs of 32 rows.  ``fast``: 16-byte code
-    loads and one pos per 8 columns (wpt % 8 == 0, n_pad % 8 == 0)."""
-    del i_pad                       # rows past I hold zero codes
-    g = _decode_geometry(M, I, n_pad, wpt, n_bits, sm_count, aligned) \
-        if M <= DECODE_MAX_M else None
+    loads and one pos per 8 columns (wpt % 8 == 0, n_pad % 8 == 0).
+    With col_pos, ``cp_ti`` x ``cp_tn`` is the most tiles a block (or a
+    prefill slab) touches, loaded into shared memory."""
+    colp = bool(ext & EXT_COLP)
+    if colp and rows < 1:
+        raise ValueError("cim_geometry: col_pos needs the tile rows")
+    g = _decode_geometry(M, I, n_pad, wpt, n_bits, cols, sm_count, aligned,
+                         rows, colp) if M <= DECODE_MAX_M else None
     if g is None:
-        fast = _fast(aligned, n_pad, wpt, n_bits)
-        # x as TF32 hi / lo parts and the rows' factors, two buffers each;
-        # a ring of staged raw x, codes and pos slabs; the eta*M1 table
-        # (dropped, with the 16-byte code path, where it would not fit).
-        bm, bn, bk = PREFILL_BM, PREFILL_BN, PREFILL_BK
-        stage = bm * (bk + 4) * 4 + bk * (bn + 8) * 2 + bk * (bn // 8) * 4
-        smem = (2 * 2 * bm * bk * 4 + 2 * bk * (bn // 8) * 4
-                + PREFILL_STAGES * stage)
-        if fast and smem + 4 * _table(wpt, n_bits) > SMEM_MAX:
-            fast = False
-        smem += 4 * _table(wpt, n_bits) if fast else 0
-        g = dict(form=1, fast=int(fast), tile=bn, rps=0,
-                 gx=math.ceil(N / bn), gy=math.ceil(M / bm), smem=smem,
-                 off_t=0, off_p=0, mt=0)
+        g = _prefill_geometry(M, I, N, n_pad, wpt, n_bits, cols, aligned,
+                              rows, ext)
+    g.setdefault("ext", ext)
     g.update(M=M, I=I, N=N, n_pad=n_pad, n_tiles=n_pad // wpt, wpt=wpt,
-             n_bits=n_bits, cols=cols, reversed=int(reversed_df))
+             n_bits=n_bits, cols=cols, reversed=int(reversed_df),
+             xbf16=int(xbf16), rows=rows,
+             n_ti=i_pad // rows if rows else 0)
     return runtime.Geometry.of(_GEOM_FIELDS, g)
 
 
@@ -204,7 +293,21 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch(x: torch.Tensor, dep: CimDeployment) -> torch.Tensor:
+def read_noise_amplitude(dep: CimDeployment) -> float:
+    """sigma_read * sqrt((1 - 4^-K) / 3): the per-weight read-noise std
+    before the scale, the first-order aggregate of K independent bit
+    planes (the reference's ``cim_mvm_xla``)."""
+    return dep.sigma_read * float(((1.0 - 4.0 ** -dep.n_bits) / 3.0) ** 0.5)
+
+
+def noisy(dep: CimDeployment, read_seed) -> bool:
+    """Does this read of ``dep`` draw read noise?"""
+    return (read_seed is not None and dep.sigma_read > 0.0
+            and dep.noise_tag is not None)
+
+
+def _launch(x: torch.Tensor, dep: CimDeployment,
+            read_seed: int | None) -> torch.Tensor:
     codes, pos, scale = dep.codes, dep.pos, dep.scale
     if codes.dtype != torch.int16 or pos.dtype != torch.int32 \
             or scale.dtype != torch.float32:
@@ -221,47 +324,73 @@ def _launch(x: torch.Tensor, dep: CimDeployment) -> torch.Tensor:
     if dep.n_bits > 16 or dep.cols << dep.n_bits >= 1 << 24:
         raise ValueError("cim_mvm kernel takes n_bits <= 16 and "
                          "cols * 2^n_bits < 2^24 (exact integer moments)")
+    gain, col_pos = dep.gain, dep.col_pos
+    ext, rows, aligned = 0, 0, codes.data_ptr() % 16 == 0
+    if gain is not None:
+        if gain.dtype != torch.float32 or gain.shape != codes.shape \
+                or not gain.is_contiguous():
+            raise ValueError("cim_mvm kernel takes a contiguous f32 gain "
+                             "shaped like the codes")
+        ext |= EXT_GAIN
+        aligned = aligned and gain.data_ptr() % 16 == 0
+    if col_pos is not None:
+        if col_pos.dtype != torch.int32 or not col_pos.is_contiguous() \
+                or col_pos.ndim != 3 or col_pos.shape[1] != n_tiles \
+                or col_pos.shape[2] != dep.cols \
+                or i_pad % col_pos.shape[0]:
+            raise ValueError(f"col_pos {tuple(col_pos.shape)} does not fit "
+                             f"codes {tuple(codes.shape)}")
+        ext |= EXT_COLP
+        rows = i_pad // col_pos.shape[0]
+    nsig, seed, tag = 0.0, 0, 0
+    if noisy(dep, read_seed):
+        ext |= EXT_NOISE
+        nsig = read_noise_amplitude(dep)
+        seed, tag = int(read_seed) & 0xFFFFFFFF, int(dep.noise_tag) & 0xFFFFFFFF
     M, I, N = x.shape[0], dep.in_dim, dep.out_dim
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return out
-    codes_ptr = codes.data_ptr()
     geom = cim_geometry(M, I, N, i_pad, n_pad, dep.wpt, dep.n_bits,
                         dep.cols, dep.reversed_df,
-                        _sm_count(x.device.index or 0), codes_ptr % 16 == 0)
+                        _sm_count(x.device.index or 0), aligned,
+                        x.dtype == torch.bfloat16, ext, rows)
     rc = runtime.library().cim_mvm_launch(
-        x.data_ptr(), codes_ptr, pos.data_ptr(), scale.data_ptr(),
+        x.data_ptr(), codes.data_ptr(), pos.data_ptr(), scale.data_ptr(),
         out.data_ptr(), geom.array, dep.eta,
+        None if gain is None else gain.data_ptr(),
+        None if col_pos is None else col_pos.data_ptr(), seed, tag, nsig,
         runtime.stream_arg(out.device))
     runtime.count_launch("cim_mvm")
     runtime.check_status("cim_mvm", rc)
     return out
 
 
-def cim_mvm(x: torch.Tensor, dep: CimDeployment,
+def cim_mvm(x: torch.Tensor, dep: CimDeployment, read_seed: int | None = None,
             device: str | torch.device = "cuda") -> torch.Tensor:
     """y = x @ W_effective for a CIM-deployed weight matrix.
 
-    x: (..., in_dim); returns (..., out_dim) f32.  ``x`` and the
-    deployment must lie on ``device``: the kernel runs on CUDA, the
-    plain version on the CPU.
+    x: (..., in_dim) f32 or bf16 (read as is; other types are cast to
+    f32); returns (..., out_dim) f32.  ``read_seed`` draws this read's
+    noise when the deployment carries ``sigma_read > 0`` and a
+    ``noise_tag``: eps is a function of (read_seed, noise_tag, i, n)
+    alone; None is the noiseless read.  ``x`` and the deployment must
+    lie on ``device``: the kernel runs on CUDA, the plain version on the
+    CPU.
     """
     dev = resolve_device(device)
-    check_on(dev, x=x, codes=dep.codes, pos=dep.pos, scale=dep.scale)
-    if dep.gain is not None or dep.col_pos is not None \
-            or dep.sigma_read > 0.0:
-        raise NotImplementedError(
-            "cim_mvm: gain, column-permuted and read-noise deployments "
-            "are not ported yet")
+    check_on(dev, x=x, codes=dep.codes, pos=dep.pos, scale=dep.scale,
+             gain=dep.gain, col_pos=dep.col_pos)
     if x.shape[-1] != dep.in_dim:
         raise ValueError(f"x feature dim {x.shape[-1]} != deployed in_dim "
                          f"{dep.in_dim}")
     batch = x.shape[:-1]
     x2 = x if x.ndim == 2 else x.reshape(-1, dep.in_dim)
-    if x2.dtype != torch.float32 or not x2.is_contiguous():
-        x2 = x2.to(torch.float32).contiguous()
+    if x2.dtype not in (torch.float32, torch.bfloat16):
+        x2 = x2.to(torch.float32)
+    x2 = x2.contiguous()
     if dev.type == "cpu":
-        y = cim_mvm_plain(x2, dep)
+        y = cim_mvm_plain(x2, dep, read_seed)
     else:
-        y = _launch(x2, dep)
+        y = _launch(x2, dep, read_seed)
     return y if x.ndim == 2 else y.reshape(*batch, dep.out_dim)

@@ -5,7 +5,10 @@
 //   src/repro/kernels/flash_attention/kernel.py::_flash_kernel /
 //   flash_attention_pallas (wrapper ops.py::flash_attention_tpu).
 //
-//   q (B, Sq, H, Dh), k / v (B, C, Hkv, Dh), all f32; out (B, Sq, H, Dh).
+//   q (B, Sq, H, Dh), k / v (B, C, Hkv, Dh), all f32 or all bf16; out
+//   (B, Sq, H, Dh) in their type.  Arithmetic is f32 throughout: bf16
+//   values are loaded as they are (half the bytes of a KV cache) and
+//   widened exactly, the output rounded to bf16 at the store.
 //   A key is valid for a query when kpos <= qpos and, with window > 0,
 //   qpos - kpos < window.  Positions are (b, Sq) and (b, C) with b in
 //   {1, B}: a stride of 0 shares one row over the batch (the same
@@ -46,8 +49,15 @@
 // skips the loads of masked keys.  The 32 partial (m, l, acc) meet in
 // shared memory and merge in a fixed order.
 //
+// bf16 operands.  A bf16 value is exact in TF32 (8 significant bits
+// against 11), so its lo part is 0: Q.K^T takes one product a tile
+// instead of three, and P.V two (P is f32), each the same sum as the
+// f32 path's 3xTF32 on the same values.  Tiles stay bf16 in shared
+// memory and are widened when read.
+//
 // No atomics and fixed reduction orders: two calls give bit-identical
 // results.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -70,23 +80,38 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 // ---------------------------------------------------------------- prefill
 
-template <int DC>
+template <int DC, typename T>
 __global__ void __launch_bounds__(128)
-flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
+flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
                      const int32_t* __restrict__ q_pos,
                      const int32_t* __restrict__ k_pos,
-                     float* __restrict__ out, int Sq, int C, int H, int Hkv,
+                     T* __restrict__ out, int Sq, int C, int H, int Hkv,
                      int Dh, int q_pos_stride, int k_pos_stride, int window,
                      float scale) {
-  constexpr int DP = 32 * DC, LD = DP + 4, KT = PF_KT;
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int VW = 16 / sizeof(T);  // elements a 16-byte copy
+  constexpr int DP = 32 * DC, LD = DP + (BF ? 8 : 4), KT = PF_KT;
   constexpr int K8 = DP / 8;          // k steps of Q.K^T, n tiles of P.V
   constexpr int TS = KT * LD;         // one K or V tile
   extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);   // [2][KT][LD]
-  float* vs = ks + 2 * TS;                       // [2][KT][LD]
+  T* ks = reinterpret_cast<T*>(smem4);           // [2][KT][LD]
+  T* vs = ks + 2 * TS;                           // [2][KT][LD]
   int* kp = reinterpret_cast<int*>(vs + 2 * TS); // [2][KT]
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -132,32 +157,43 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // and + 4, zero past Sq and Dh.
   float qa[K8][4];
   {
-    const float* qra = q + (((size_t)b * Sq + ra) * H + h) * Dh;
-    const float* qrb = q + (((size_t)b * Sq + rb) * H + h) * Dh;
+    const T* qra = q + (((size_t)b * Sq + ra) * H + h) * Dh;
+    const T* qrb = q + (((size_t)b * Sq + rb) * H + h) * Dh;
 #pragma unroll
     for (int k8 = 0; k8 < K8; ++k8) {
       int d0 = k8 * 8 + tq, d1 = d0 + 4;
-      qa[k8][0] = ra < Sq && d0 < Dh ? qra[d0] : 0.0f;
-      qa[k8][1] = rb < Sq && d0 < Dh ? qrb[d0] : 0.0f;
-      qa[k8][2] = ra < Sq && d1 < Dh ? qra[d1] : 0.0f;
-      qa[k8][3] = rb < Sq && d1 < Dh ? qrb[d1] : 0.0f;
+      qa[k8][0] = ra < Sq && d0 < Dh ? to_f(qra[d0]) : 0.0f;
+      qa[k8][1] = rb < Sq && d0 < Dh ? to_f(qrb[d0]) : 0.0f;
+      qa[k8][2] = ra < Sq && d1 < Dh ? to_f(qra[d1]) : 0.0f;
+      qa[k8][3] = rb < Sq && d1 < Dh ? to_f(qrb[d1]) : 0.0f;
     }
   }
 
-  const bool vec = Dh % 4 == 0 && aligned16(k) && aligned16(v);
+  const bool vec = Dh % VW == 0 && aligned16(k) && aligned16(v);
   auto load_tile = [&](int t, int buf) {
-    float* kd = ks + buf * TS;
-    float* vd = vs + buf * TS;
+    T* kd = ks + buf * TS;
+    T* vd = vs + buf * TS;
     if (vec) {
 #pragma unroll
-      for (int it = 0; it < KT * DP / 4 / 128; ++it) {
+      for (int it = 0; it < KT * DP / VW / 128; ++it) {
         int e = tid + it * 128;
-        int r = e / (DP / 4), d = 4 * (e % (DP / 4));
+        int r = e / (DP / VW), d = VW * (e % (DP / VW));
         int c = t * KT + r;
         bool ok = c < C && d < Dh;
         size_t off = (((size_t)b * C + c) * Hkv + hk) * Dh + d;
         tf32::cp_async16(kd + r * LD + d, ok ? k + off : k, ok ? 16 : 0);
         tf32::cp_async16(vd + r * LD + d, ok ? v + off : v, ok ? 16 : 0);
+      }
+    } else if (BF) {
+      // Rows of bf16 not on 16 bytes: plain loads (visible to the
+      // block after the __syncthreads that precedes the tile's use).
+      for (int e = tid; e < KT * DP; e += 128) {
+        int r = e / DP, d = e % DP;
+        int c = t * KT + r;
+        bool ok = c < C && d < Dh;
+        size_t off = (((size_t)b * C + c) * Hkv + hk) * Dh + d;
+        kd[r * LD + d] = ok ? k[off] : from_f<T>(0.0f);
+        vd[r * LD + d] = ok ? v[off] : from_f<T>(0.0f);
       }
     } else {
 #pragma unroll 4
@@ -194,8 +230,8 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
     tf32::cp_async_wait<1>();
     __syncthreads();
 
-    const float* kb = ks + buf * TS;
-    const float* vb = vs + buf * TS;
+    const T* kb = ks + buf * TS;
+    const T* vb = vs + buf * TS;
     const int* kpb = kp + buf * KT;
     // S = Q K^T for 16 rows x 32 keys a warp.
     float s[4][4];
@@ -210,11 +246,14 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) tf32::split(qa[k8][e], ah[e], al[e]);
 #pragma unroll
       for (int nj = 0; nj < 4; ++nj) {
-        const float* kr = kb + (nj * 8 + gq) * LD + k8 * 8 + tq;
+        const T* kr = kb + (nj * 8 + gq) * LD + k8 * 8 + tq;
         uint32_t bh[2], bl[2];
-        tf32::split(kr[0], bh[0], bl[0]);
-        tf32::split(kr[4], bh[1], bl[1]);
-        tf32::mma3(s[nj], ah, al, bh, bl);
+        tf32::split(to_f(kr[0]), bh[0], bl[0]);
+        tf32::split(to_f(kr[4]), bh[1], bl[1]);
+        if (BF)
+          tf32::mma(s[nj], ah, bh);      // al = bl = 0
+        else
+          tf32::mma3(s[nj], ah, al, bh, bl);
       }
     }
     // Mask, scale and the online softmax of rows ra (e = 0, 1) and rb.
@@ -273,13 +312,18 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
       tf32::split(s[kk][2], ah[1], al[1]);
       tf32::split(s[kk][1], ah[2], al[2]);
       tf32::split(s[kk][3], ah[3], al[3]);
-      const float* vr = vb + (kk * 8 + 2 * tq) * LD + gq;
+      const T* vr = vb + (kk * 8 + 2 * tq) * LD + gq;
 #pragma unroll
       for (int n = 0; n < K8; ++n) {
         uint32_t bh[2], bl[2];
-        tf32::split(vr[n * 8], bh[0], bl[0]);
-        tf32::split(vr[LD + n * 8], bh[1], bl[1]);
-        tf32::mma3(oacc[n], ah, al, bh, bl);
+        tf32::split(to_f(vr[n * 8]), bh[0], bl[0]);
+        tf32::split(to_f(vr[LD + n * 8]), bh[1], bl[1]);
+        if (BF) {                        // bl = 0
+          tf32::mma(oacc[n], al, bh);
+          tf32::mma(oacc[n], ah, bh);
+        } else {
+          tf32::mma3(oacc[n], ah, al, bh, bl);
+        }
       }
     }
     __syncthreads();
@@ -296,21 +340,34 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
       int d = n * 8 + 2 * tq + (e & 1);
       if (r < Sq && d < Dh)
         out[(((size_t)b * Sq + r) * H + h) * Dh + d] =
-            oacc[n][e] / (e < 2 ? den_a : den_b);
+            from_f<T>(oacc[n][e] / (e < 2 ? den_a : den_b));
     }
 }
 
 // ----------------------------------------------------------------- decode
 
-template <int DC>
+// Four values of a row as floats: one 16-byte (f32) or 8-byte (bf16)
+// load where ``vec``, else one load a value.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(raw.x << 16),
+                     __uint_as_float(raw.x & 0xFFFF0000u),
+                     __uint_as_float(raw.y << 16),
+                     __uint_as_float(raw.y & 0xFFFF0000u));
+}
+
+template <int DC, typename T>
 __device__ __forceinline__ void load_row(float (&dst)[DC][4],
-                                         const float* row, int j, int Dh,
+                                         const T* row, int j, int Dh,
                                          bool vec, bool ok) {
 #pragma unroll
   for (int i = 0; i < DC; ++i) {
     int d = 4 * (j + 8 * i);
     if (vec) {
-      float4 t = ok && d < Dh ? *reinterpret_cast<const float4*>(row + d)
+      float4 t = ok && d < Dh ? load4(row + d)
                               : make_float4(0.f, 0.f, 0.f, 0.f);
       dst[i][0] = t.x;
       dst[i][1] = t.y;
@@ -319,18 +376,18 @@ __device__ __forceinline__ void load_row(float (&dst)[DC][4],
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        dst[i][e] = ok && d + e < Dh ? row[d + e] : 0.0f;
+        dst[i][e] = ok && d + e < Dh ? to_f(row[d + e]) : 0.0f;
     }
   }
 }
 
-template <int DC>
+template <int DC, typename T>
 __global__ void __launch_bounds__(DEC_WARPS * 32)
-flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v,
                     const int32_t* __restrict__ q_pos,
                     const int32_t* __restrict__ k_pos,
-                    float* __restrict__ out, int Sq, int C, int H, int Hkv,
+                    T* __restrict__ out, int Sq, int C, int H, int Hkv,
                     int Dh, int q_pos_stride, int k_pos_stride, int window,
                     float scale) {
   constexpr int DP = 32 * DC;
@@ -344,12 +401,16 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int hk = h / (H / Hkv);
   const int qpos = q_pos[(size_t)b * q_pos_stride + s];
   const int32_t* kp_row = k_pos + (size_t)b * k_pos_stride;
-  const bool vec = Dh % 4 == 0 && aligned16(q) && aligned16(k) &&
-                   aligned16(v);
+  // 16 (f32) or 8 (bf16) bytes a load: 4 values, aligned.
+  const uintptr_t am = 4 * sizeof(T) - 1;
+  const bool vec = Dh % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) |
+                     reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v)) & am) == 0;
 
   float qv[DC][4];
-  load_row<DC>(qv, q + (((size_t)b * Sq + s) * H + h) * Dh, j, Dh, vec,
-               true);
+  load_row<DC, T>(qv, q + (((size_t)b * Sq + s) * H + h) * Dh, j, Dh, vec,
+                  true);
   float m = NEG_INF, l = 0.0f;
   float acc[DC][4];
 #pragma unroll
@@ -368,8 +429,8 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       int c = cs[u];
       ok[u] = c < C && key_valid(kp_row[c], qpos, window);
       size_t off = (((size_t)b * C + c) * Hkv + hk) * Dh;
-      load_row<DC>(kv[u], k + off, j, Dh, vec, ok[u]);
-      load_row<DC>(vv[u], v + off, j, Dh, vec, ok[u]);
+      load_row<DC, T>(kv[u], k + off, j, Dh, vec, ok[u]);
+      load_row<DC, T>(vv[u], v + off, j, Dh, vec, ok[u]);
     }
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
@@ -416,7 +477,8 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       L += pl[i] * f;
       o += pacc[i][d] * f;
     }
-    out[(((size_t)b * Sq + s) * H + h) * Dh + d] = o / fmaxf(L, 1e-30f);
+    out[(((size_t)b * Sq + s) * H + h) * Dh + d] =
+        from_f<T>(o / fmaxf(L, 1e-30f));
   }
 }
 
@@ -430,50 +492,64 @@ cudaError_t set_smem_once(int bytes) {
   return err;
 }
 
-template <int DC>
-cudaError_t launch(int form, int gx, const float* q, const float* k,
-                   const float* v, const int32_t* q_pos,
-                   const int32_t* k_pos, float* out, int B, int Sq, int C,
+template <int DC, typename T>
+cudaError_t launch(int form, int gx, const void* q, const void* k,
+                   const void* v, const int32_t* q_pos,
+                   const int32_t* k_pos, void* out, int B, int Sq, int C,
                    int H, int Hkv, int Dh, int qs, int kps, int window,
                    float scale, cudaStream_t stream) {
   dim3 grid(gx, H, B);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(out);
   if (form == 0) {
-    flash_decode_kernel<DC><<<grid, DEC_WARPS * 32, 0, stream>>>(
-        q, k, v, q_pos, k_pos, out, Sq, C, H, Hkv, Dh, qs, kps, window,
+    flash_decode_kernel<DC, T><<<grid, DEC_WARPS * 32, 0, stream>>>(
+        qt, kt, vt, q_pos, k_pos, ot, Sq, C, H, Hkv, Dh, qs, kps, window,
         scale);
   } else {
-    constexpr int LD = 32 * DC + 4;
-    const int smem = (4 * PF_KT * LD + 2 * PF_KT) * 4;
-    cudaError_t err = set_smem_once<flash_prefill_kernel<DC>>(smem);
+    constexpr int LD = 32 * DC + (sizeof(T) == 2 ? 8 : 4);
+    const int smem = 4 * PF_KT * LD * (int)sizeof(T) + 2 * PF_KT * 4;
+    cudaError_t err = set_smem_once<flash_prefill_kernel<DC, T>>(smem);
     if (err != cudaSuccess) return err;
-    flash_prefill_kernel<DC><<<grid, 128, smem, stream>>>(
-        q, k, v, q_pos, k_pos, out, Sq, C, H, Hkv, Dh, qs, kps, window,
+    flash_prefill_kernel<DC, T><<<grid, 128, smem, stream>>>(
+        qt, kt, vt, q_pos, k_pos, ot, Sq, C, H, Hkv, Dh, qs, kps, window,
         scale);
   }
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_dc(int form, int gx, const void* q, const void* k,
+                      const void* v, const int32_t* q_pos,
+                      const int32_t* k_pos, void* out, int B, int Sq, int C,
+                      int H, int Hkv, int Dh, int qs, int kps, int window,
+                      float scale, cudaStream_t s) {
+  switch ((Dh + 31) / 32) {
+    case 1: return launch<1, T>(form, gx, q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, qs, kps, window, scale, s);
+    case 2: return launch<2, T>(form, gx, q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, qs, kps, window, scale, s);
+    case 3: return launch<3, T>(form, gx, q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, qs, kps, window, scale, s);
+    default: return launch<4, T>(form, gx, q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, qs, kps, window, scale, s);
+  }
+}
+
 }  // namespace
 
 // form 0 (decode, grid x = Sq) or 1 (prefill, grid x = query blocks of
-// 64), as ops.py::flash_geometry picks.  Returns cudaErrorInvalidValue
-// for Dh outside 1..128 or H not a multiple of Hkv (the wrapper checks
-// both first).
-extern "C" int flash_attention_launch(const float* q, const float* k,
-                                      const float* v, const int32_t* q_pos,
-                                      const int32_t* k_pos, float* out,
+// 64), as ops.py::flash_geometry picks; q, k, v and out are f32, or bf16
+// with ``bf16`` set.  Returns cudaErrorInvalidValue for Dh outside
+// 1..128 or H not a multiple of Hkv (the wrapper checks both first).
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, const int32_t* q_pos,
+                                      const int32_t* k_pos, void* out,
                                       int B, int Sq, int C, int H, int Hkv,
                                       int Dh, int q_pos_stride,
                                       int k_pos_stride, int window,
                                       float scale, int form, int gx,
-                                      void* stream_ptr) {
+                                      int bf16, void* stream_ptr) {
   cudaStream_t s = (cudaStream_t)stream_ptr;
   if (Dh < 1 || Dh > 128 || Hkv < 1 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
-  switch ((Dh + 31) / 32) {
-    case 1: return (int)launch<1>(form, gx, q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, q_pos_stride, k_pos_stride, window, scale, s);
-    case 2: return (int)launch<2>(form, gx, q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, q_pos_stride, k_pos_stride, window, scale, s);
-    case 3: return (int)launch<3>(form, gx, q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, q_pos_stride, k_pos_stride, window, scale, s);
-    default: return (int)launch<4>(form, gx, q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, q_pos_stride, k_pos_stride, window, scale, s);
-  }
+  return (int)(bf16 ? launch_dc<__nv_bfloat16>(form, gx, q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, q_pos_stride, k_pos_stride, window, scale, s)
+                    : launch_dc<float>(form, gx, q, k, v, q_pos, k_pos, out, B, Sq, C, H, Hkv, Dh, q_pos_stride, k_pos_stride, window, scale, s));
 }

@@ -51,9 +51,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     device: str | torch.device = "cuda") -> torch.Tensor:
     """Causal attention over absolute positions.
 
-    q: (B, Sq, H, Dh); k, v: (B, Skv, Hkv, Dh) -> (B, Sq, H, Dh).  The
-    kernel runs on CUDA (f32, Dh <= 128); on the CPU the plain version
-    runs with KV chunks of ``chunk``, which the kernel does not need.
+    q: (B, Sq, H, Dh); k, v: (B, Skv, Hkv, Dh) -> (B, Sq, H, Dh) in q's
+    dtype.  The kernel runs on CUDA (q, k, v all f32 or all bf16, f32
+    arithmetic, Dh <= 128); on the CPU the plain version runs with KV
+    chunks of ``chunk``, which the kernel does not need.
     """
     dev = resolve_device(device)
     check_on(dev, q=q, k=k, v=v, q_positions=q_positions,
@@ -66,9 +67,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, q_positions, k_positions,
                                      window=window, chunk=chunk)
-    if q.dtype != torch.float32 or k.dtype != torch.float32 \
-            or v.dtype != torch.float32:
-        raise TypeError("flash kernel takes f32 q, k, v")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash kernel takes q, k, v all f32 or all bf16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if not 1 <= Dh <= 128:
         raise ValueError(f"flash kernel takes head_dim <= 128, got {Dh}")
     qp, q_stride = _pos_rows(q_positions, B, Sq, "q_positions")
@@ -82,7 +84,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
         kp.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, Dh, q_stride,
         k_stride, int(window), float(Dh ** -0.5), geom.form, geom.grid_x,
-        runtime.stream_arg(out.device))
+        int(q.dtype == torch.bfloat16), runtime.stream_arg(out.device))
     runtime.count_launch("flash_attention")
     runtime.check_status("flash_attention", rc)
     return out

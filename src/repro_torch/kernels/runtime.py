@@ -44,12 +44,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # C signatures of the launchers (each returns cudaGetLastError()).
 _ARGTYPES = {
-    "cim_mvm_launch": [_P] * 6 + [_F, _P],
-    "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P],
+    "cim_mvm_launch": [_P] * 6 + [_F, _P, _P, _U, _U, _F, _P],
+    "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _I, _P],
     "manhattan_score_launch": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
-    "slstm_scan_launch": [_P] * 7 + [_I] * 4 + [_P, _P],
+    "slstm_scan_launch": [_P] * 7 + [_I] * 4 + [_P, _I, _P],
     "slstm_scan_max_clusters": [_I, _P],
     "bitslice_pack_launch": [_P, _I, _P, _L, _I, _I, _P],
 }
@@ -171,13 +172,19 @@ def _self_check(lib: ctypes.CDLL) -> None:
 
     codes, pos, scale = (z(8, 8, dt=torch.int16), z(8, 1, dt=torch.int32),
                          z(1))
+    gain, colp = z(8, 8), z(1, 1, 64, dt=torch.int32)
     rc = {}
     for M in (1, 17):                  # the decode and the prefill form
-        x, out = z(M, 8), z(M, 8)
-        geom = cim_geometry(M, 8, 8, 8, 8, 8, 8, 64, False, 1, True)
-        rc[f"cim_mvm M={M}"] = lib.cim_mvm_launch(
-            x.data_ptr(), codes.data_ptr(), pos.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), geom.array, 0.0, stream)
+        for ext in (0, 7):             # ideal, and gain + col_pos + noise
+            x, out = z(M, 8), z(M, 8)
+            geom = cim_geometry(M, 8, 8, 8, 8, 8, 8, 64, False, 1, True,
+                                False, ext, 8 if ext else 0)
+            rc[f"cim_mvm M={M} ext={ext}"] = lib.cim_mvm_launch(
+                x.data_ptr(), codes.data_ptr(), pos.data_ptr(),
+                scale.data_ptr(), out.data_ptr(), geom.array, 0.0,
+                gain.data_ptr() if ext else None,
+                colp.data_ptr() if ext else None, 0, 0, 0.1 if ext else 0.0,
+                stream)
     for Sq in (1, 17):
         q, qp = z(1, Sq, 1, 32), z(1, Sq, dt=torch.int32)
         o = z(1, Sq, 1, 32)
@@ -185,7 +192,13 @@ def _self_check(lib: ctypes.CDLL) -> None:
         rc[f"flash_attention Sq={Sq}"] = lib.flash_attention_launch(
             q.data_ptr(), q.data_ptr(), q.data_ptr(), qp.data_ptr(),
             qp.data_ptr(), o.data_ptr(), 1, Sq, Sq, 1, 1, 32, Sq, Sq, 0, 1.0,
-            fg.form, fg.grid_x, stream)
+            fg.form, fg.grid_x, 0, stream)
+        qb = q.to(torch.bfloat16)
+        ob = torch.empty_like(qb)
+        rc[f"flash_attention bf16 Sq={Sq}"] = lib.flash_attention_launch(
+            qb.data_ptr(), qb.data_ptr(), qb.data_ptr(), qp.data_ptr(),
+            qp.data_ptr(), ob.data_ptr(), 1, Sq, Sq, 1, 1, 32, Sq, Sq, 0,
+            1.0, fg.form, fg.grid_x, 1, stream)
     m = z(1, 4, 16, dt=torch.uint8)
     s, n, nf = z(1, 4), z(1, 4), z(1)
     for form in (0, 1):                # the byte and the vector form
@@ -197,7 +210,13 @@ def _self_check(lib: ctypes.CDLL) -> None:
     rc["slstm_scan"] = lib.slstm_scan_launch(
         g.data_ptr(), r.data_ptr(), h.data_ptr(), h.data_ptr(),
         hs.data_ptr(), hT.data_ptr(), cT.data_ptr(), 1, 1, 1, 4,
-        slstm_geometry(1, 4).array, stream)
+        slstm_geometry(1, 4).array, 0, stream)
+    gb, rb, hb = (t.to(torch.bfloat16) for t in (g, r, h))
+    hsb, hTb, cTb = (t.to(torch.bfloat16) for t in (hs, hT, cT))
+    rc["slstm_scan bf16"] = lib.slstm_scan_launch(
+        gb.data_ptr(), rb.data_ptr(), hb.data_ptr(), hb.data_ptr(),
+        hsb.data_ptr(), hTb.data_ptr(), cTb.data_ptr(), 1, 1, 1, 4,
+        slstm_geometry(1, 4, True).array, 7, stream)
     img = z(2, dt=torch.int64)
     rc["bitslice_pack"] = lib.bitslice_pack_launch(
         codes.data_ptr(), 2, img.data_ptr(), 2, 8, 0, stream)
@@ -226,8 +245,8 @@ def library() -> ctypes.CDLL:
         for fn, argtypes in _ARGTYPES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        _self_check(lib)
         _BUILD_INFO.update(path=str(lib_path), built=built, log=log)
+        _self_check(lib)
         _LIB = lib
         return lib
 

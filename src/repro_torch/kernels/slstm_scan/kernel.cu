@@ -5,13 +5,19 @@
 //   slstm_scan_pallas.
 //
 // For gx (B, T, H, 4Dh), recurrent weights R (H, Dh, 4Dh) and initial
-// state h0, c0 (B, H, Dh), all f32, per step t and head h, with the
-// gate columns split as [i | f | z | o]:
+// state h0, c0 (B, H, Dh), per step t and head h, with the gate columns
+// split as [i | f | z | o]:
 //   pre = gx[:, t, h] + h_{t-1} @ R[h]
 //   c_t = sigmoid(f) c_{t-1} + sigmoid(i) tanh(z)
 //   h_t = sigmoid(o) tanh(c_t)
 // writing hs[:, t, h] = h_t, and hT, cT after the last step.  Any T >= 1
-// runs in one launch; the state is never padded.
+// runs in one launch; the state is never padded.  gx, R and the state
+// (h0, c0 and the outputs hs, hT, cT) are each f32 or bf16 (``flags``):
+// bf16 operands are loaded as they are and widened exactly, all
+// arithmetic and the carried state are f32, and bf16 outputs are rounded
+// at the store (the reference's Pallas kernel upcasts the same way).  A
+// bf16 R is staged as bf16 (half the shared memory a row, so more rows
+// stay on chip) and widened when read.
 //
 // What bounds it.  The T steps depend on each other, so the card can
 // never run faster than T times the latency of one step, and a step is
@@ -54,6 +60,7 @@
 // up to 4 * 8 * CLUSTER = 512 and any B (clusters of 8 lanes).
 #include <cooperative_groups.h>
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -75,6 +82,28 @@ constexpr int H0_LOADS = CLUSTER * MAX_PER * MAX_LANES / THREADS;  // h0 a threa
 struct Geom {
   int per, kper, reg_rows, sm_rows, lanes, lanes_p, groups, smem;
 };
+
+// flags: which operands are bf16.
+constexpr int GX_BF16 = 1, R_BF16 = 2, STATE_BF16 = 4;
+
+__device__ __forceinline__ float ld_val(const void* p, size_t i, bool bf) {
+  return bf ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
+            : reinterpret_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void st_val(void* p, size_t i, float v, bool bf) {
+  if (bf)
+    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  else
+    reinterpret_cast<float*>(p)[i] = v;
+}
+
+__device__ __forceinline__ float4 widen4(uint2 raw) {
+  return make_float4(__uint_as_float(raw.x << 16),
+                     __uint_as_float(raw.x & 0xFFFF0000u),
+                     __uint_as_float(raw.y << 16),
+                     __uint_as_float(raw.y & 0xFFFF0000u));
+}
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -137,6 +166,28 @@ __device__ __forceinline__ float4 ld_keep(const float* p) {
   return v;
 }
 
+__device__ __forceinline__ float4 ld_keep(const __nv_bfloat16* p) {
+  uint2 v;
+  asm volatile("ld.global.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p));
+  return widen4(v);
+}
+
+// Four adjacent values of R as floats: from shared memory, and from L2.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  return widen4(*reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
+  return widen4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+
 __device__ __forceinline__ void fma4x4(float (&acc)[LANES][4], float4 h,
                                        float4 w) {
   const float hl[LANES] = {h.x, h.y, h.z, h.w};
@@ -149,12 +200,14 @@ __device__ __forceinline__ void fma4x4(float (&acc)[LANES][4], float4 h,
   }
 }
 
+template <typename TR>
 __global__ void __launch_bounds__(THREADS, 1)
-slstm_kernel(const float* __restrict__ gx, const float* __restrict__ r,
-             const float* __restrict__ h0, const float* __restrict__ c0,
-             float* __restrict__ hs, float* __restrict__ hT,
-             float* __restrict__ cT, int B, int T, int H, int Dh, Geom g,
-             const __grid_constant__ CUtensorMap rmap) {
+slstm_kernel(const void* __restrict__ gx, const TR* __restrict__ r,
+             const void* __restrict__ h0, const void* __restrict__ c0,
+             void* __restrict__ hs, void* __restrict__ hT,
+             void* __restrict__ cT, int B, int T, int H, int Dh, Geom g,
+             int flags, const __grid_constant__ CUtensorMap rmap) {
+  const bool gbf = flags & GX_BF16, sbf = flags & STATE_BF16;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int cid = blockIdx.x / CLUSTER;
@@ -171,9 +224,10 @@ slstm_kernel(const float* __restrict__ gx, const float* __restrict__ r,
 
   extern __shared__ __align__(128) float smem[];
   // A TMA box's rows, padded to 128 bytes (a box lands 128-aligned).
-  const int box = (sm_rows * per + 31) / 32 * 32;
-  float* r_s = smem;                          // [KS][4][box]
-  float* hbuf = r_s + KS * 4 * box;           // [2][Dh][Bp]
+  constexpr int BOX_ALIGN = 128 / (int)sizeof(TR);
+  const int box = (sm_rows * per + BOX_ALIGN - 1) / BOX_ALIGN * BOX_ALIGN;
+  TR* r_s = reinterpret_cast<TR*>(smem);      // [KS][4][box]
+  float* hbuf = reinterpret_cast<float*>(r_s + KS * 4 * box);  // [2][Dh][Bp]
   float* part = hbuf + 2 * Dh * Bp;           // [KS][LANES][ncols]
   float* c_s = part + KS * LANES * ncols;     // [per][Bp]
   // mbar[j] counts the bytes of h arriving in buffer j each step.
@@ -181,7 +235,7 @@ slstm_kernel(const float* __restrict__ gx, const float* __restrict__ r,
   const unsigned stage_bar = mbar + 16;              // R's bulk copies
 
   const int tid = threadIdx.x;
-  const float* rhead = r + (size_t)head * Dh * G;
+  const TR* rhead = r + (size_t)head * Dh * G;
 
   // This thread's k slice (its warp) and 4 columns of one gate.
   const int ks = tid / COLG;
@@ -192,7 +246,7 @@ slstm_kernel(const float* __restrict__ gx, const float* __restrict__ r,
   const int k0 = min(Dh, ks * g.kper), k1 = min(Dh, k0 + g.kper);
   const int nreg = min(g.reg_rows, k1 - k0);
   const int nsm = min(sm_rows, k1 - k0 - nreg);
-  const float* rcol = rhead + q * Dh + d0 + dl;
+  const TR* rcol = rhead + q * Dh + d0 + dl;
 
   // Coherent loads: a read-only (ld.global.nc) load may be re-issued
   // by the compiler inside the step loop instead of being kept.
@@ -210,7 +264,8 @@ slstm_kernel(const float* __restrict__ gx, const float* __restrict__ r,
     for (int u = 0; u < H0_LOADS; ++u) {
       const int i = tid + u * THREADS, b = i % Bp;
       hv[u] = (i < Dh * Bp && b < nb)
-                  ? h0[((size_t)(bbase + b) * H + head) * Dh + i / Bp]
+                  ? ld_val(h0, ((size_t)(bbase + b) * H + head) * Dh + i / Bp,
+                           sbf)
                   : 0.0f;
     }
 #pragma unroll
@@ -223,7 +278,8 @@ slstm_kernel(const float* __restrict__ gx, const float* __restrict__ r,
   for (int i = tid; i < per * Bp; i += THREADS) {
     const int b = i % Bp, e = i / Bp;
     c_s[i] = (e < nd && b < nb)
-                 ? c0[((size_t)(bbase + b) * H + head) * Dh + d0 + e]
+                 ? ld_val(c0, ((size_t)(bbase + b) * H + head) * Dh + d0 + e,
+                          sbf)
                  : 0.0f;
   }
   // Each step's h: Dh dims x 16 bytes (4 lanes) a pass with live lanes.
@@ -238,7 +294,8 @@ slstm_kernel(const float* __restrict__ gx, const float* __restrict__ r,
     // Every block loads KS x 4 boxes of sm_rows x per floats (rows or
     // columns past R's edge arrive as zeros; past the block's slice they
     // are loaded and never used).
-    mbar_expect(stage_bar, 16u * KS * sm_rows * per);
+    mbar_expect(stage_bar,
+                (unsigned)sizeof(TR) * 4u * KS * sm_rows * per);
   }
   __syncthreads();
   // R's shared rows: one 2-D TMA box per (slice, gate), sm_rows rows of
@@ -276,7 +333,8 @@ slstm_kernel(const float* __restrict__ gx, const float* __restrict__ r,
   auto gx_at = [&](int t, int b0) -> float {
     const int b = b0 + rj;
     return (red_live && b < nb)
-               ? __ldg(gx + ((size_t)(bbase + b) * T + t) * H * G + gx_col)
+               ? ld_val(gx, ((size_t)(bbase + b) * T + t) * H * G + gx_col,
+                        gbf)
                : 0.0f;
   };
   float gxv = gx_at(0, 0);
@@ -308,21 +366,21 @@ slstm_kernel(const float* __restrict__ gx, const float* __restrict__ r,
         // Shared rows, the next row's loads issued before this row's
         // products (the one load past the last row stays in shared
         // memory and is not used).
-        const float* rs = r_s + (size_t)(4 * ks + q) * box + dl;
+        const TR* rs = r_s + (size_t)(4 * ks + q) * box + dl;
         const float* hk = hcur + (k0 + nreg) * Bp + b0;
         float4 hn = *reinterpret_cast<const float4*>(hk);
-        float4 wn = *reinterpret_cast<const float4*>(rs);
+        float4 wn = ld4(rs);
 #pragma unroll 2
         for (int j = 0; j < nsm; ++j) {
           const float4 hv = hn, w = wn;
           hn = *reinterpret_cast<const float4*>(hk + (j + 1) * Bp);
-          wn = *reinterpret_cast<const float4*>(rs + (j + 1) * per);
+          wn = ld4(rs + (j + 1) * per);
           fma4x4(acc, hv, w);
         }
 #pragma unroll 8
         for (int k = k0 + nreg + nsm; k < k1; ++k)
           fma4x4(acc, *reinterpret_cast<const float4*>(hcur + k * Bp + b0),
-                 __ldg(reinterpret_cast<const float4*>(rcol + (size_t)k * G)));
+                 ldg4(rcol + (size_t)k * G));
 #pragma unroll
         for (int j = 0; j < LANES; ++j)
           *reinterpret_cast<float4*>(part + (ks * LANES + j) * ncols +
@@ -349,10 +407,11 @@ slstm_kernel(const float* __restrict__ gx, const float* __restrict__ r,
         c_s[ge * Bp + b] = c;
         const int d = d0 + ge;
         const size_t bh = ((size_t)(bbase + b) * H + head) * Dh + d;
-        hs[((size_t)(bbase + b) * T + t) * H * Dh + (size_t)head * Dh + d] = h;
+        st_val(hs, ((size_t)(bbase + b) * T + t) * H * Dh + (size_t)head * Dh + d,
+               h, sbf);
         if (t == T - 1) {
-          hT[bh] = h;
-          cT[bh] = c;
+          st_val(hT, bh, h, sbf);
+          st_val(cT, bh, c, sbf);
         }
       }
       if (t == 0 && b0 == 0)
@@ -400,30 +459,35 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// R (H Dh rows of 4 Dh floats) as a 2-D tensor, boxes of sm_rows x per.
-bool r_tensor_map(CUtensorMap* map, const float* r, int H, int Dh,
+// R (H Dh rows of 4 Dh values, f32 or bf16) as a 2-D tensor, boxes of
+// sm_rows x per.
+bool r_tensor_map(CUtensorMap* map, const void* r, bool bf, int H, int Dh,
                   const Geom& g) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)4 * Dh, (cuuint64_t)H * Dh};
-  const cuuint64_t strides[1] = {(cuuint64_t)16 * Dh};
+  const cuuint64_t strides[1] = {(cuuint64_t)(bf ? 8 : 16) * Dh};
   const cuuint32_t box[2] = {(cuuint32_t)g.per,
                              (cuuint32_t)(g.sm_rows > 0 ? g.sm_rows : 1)};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-            const_cast<float*>(r), dims, strides, box, elem,
+  return fn(map,
+            bf ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+               : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+            2, const_cast<void*>(r), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <typename TR>
 cudaError_t set_attributes() {
   static cudaError_t err = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        slstm_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        slstm_kernel<TR>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(
-        slstm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    return cudaFuncSetAttribute(slstm_kernel<TR>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                SMEM_MAX);
   }();
   return err;
 }
@@ -444,14 +508,35 @@ cudaLaunchConfig_t config(int clusters, int smem, cudaStream_t stream,
   return cfg;
 }
 
+template <typename TR>
+cudaError_t launch_scan(const void* gx, const void* r, const void* h0,
+                        const void* c0, void* hs, void* hT, void* cT, int B,
+                        int T, int H, int Dh, const Geom& g, int flags,
+                        cudaStream_t stream) {
+  cudaError_t err = set_attributes<TR>();
+  if (err != cudaSuccess) return err;
+  CUtensorMap rmap;
+  if (!r_tensor_map(&rmap, r, sizeof(TR) == 2, H, Dh, g))
+    return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = config(H * g.groups, g.smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, slstm_kernel<TR>, gx,
+                           static_cast<const TR*>(r), h0, c0, hs, hT, cT, B,
+                           T, H, Dh, g, flags, rmap);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// ``geom``: the fields of Geom, in order (ops.py's slstm_geometry).
-extern "C" int slstm_scan_launch(const float* gx, const float* r,
-                                 const float* h0, const float* c0,
-                                 float* hs, float* hT, float* cT, int B,
+// ``geom``: the fields of Geom, in order (ops.py's slstm_geometry);
+// ``flags``: GX_BF16 | R_BF16 | STATE_BF16 for the bf16 operands (the
+// state's type is also the outputs').
+extern "C" int slstm_scan_launch(const void* gx, const void* r,
+                                 const void* h0, const void* c0,
+                                 void* hs, void* hT, void* cT, int B,
                                  int T, int H, int Dh, const int* geom,
-                                 void* stream_ptr) {
+                                 int flags, void* stream_ptr) {
   Geom g = {geom[0], geom[1], geom[2], geom[3],
             geom[4], geom[5], geom[6], geom[7]};
   if (Dh % 4 || Dh < 4 || Dh > CLUSTER * MAX_PER || B < 1 || T < 1 ||
@@ -460,25 +545,20 @@ extern "C" int slstm_scan_launch(const float* gx, const float* r,
       g.lanes_p % LANES || g.lanes_p < g.lanes ||
       g.groups * g.lanes < B || g.smem > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = set_attributes();
-  if (err != cudaSuccess) return (int)err;
-  CUtensorMap rmap;
-  if (!r_tensor_map(&rmap, r, H, Dh, g)) return (int)cudaErrorInvalidValue;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg =
-      config(H * g.groups, g.smem, (cudaStream_t)stream_ptr, &attr);
-  err = cudaLaunchKernelEx(&cfg, slstm_kernel, gx, r, h0, c0, hs, hT, cT,
-                           B, T, H, Dh, g, rmap);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream_ptr;
+  return (int)(flags & R_BF16
+                   ? launch_scan<__nv_bfloat16>(gx, r, h0, c0, hs, hT, cT, B,
+                                                T, H, Dh, g, flags, s)
+                   : launch_scan<float>(gx, r, h0, c0, hs, hT, cT, B, T, H,
+                                        Dh, g, flags, s));
 }
 
 // How many clusters of the scan can be resident at once with ``smem``
 // bytes of shared memory a block (cudaOccupancyMaxActiveClusters).
 extern "C" int slstm_scan_max_clusters(int smem, int* out) {
-  cudaError_t err = set_attributes();
+  cudaError_t err = set_attributes<float>();
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = config(1, smem, 0, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(out, slstm_kernel, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(out, slstm_kernel<float>, &cfg);
 }

@@ -9,7 +9,9 @@ def slstm_scan_plain(gx: torch.Tensor, r_gates: torch.Tensor,
     """The sequential sLSTM recurrence, one step at a time.
 
     gx (B, T, H, 4Dh), r_gates (H, Dh, 4Dh), h0 / c0 (B, H, Dh) ->
-    (hs (B, T, H, Dh), hT, cT), in f32 (f64 for f64 inputs).  Per step
+    (hs (B, T, H, Dh), hT, cT), computed in f32 (f64 for f64 inputs)
+    with the state carried in that type; with a bf16 state (h0, c0) the
+    outputs are rounded to bf16, as the kernel stores them.  Per step
     t, with the gate columns split as [i | f | z | o]:
 
         pre = gx[:, t] + h @ r_gates[head]
@@ -29,4 +31,6 @@ def slstm_scan_plain(gx: torch.Tensor, r_gates: torch.Tensor,
     B, _, H, Dh4 = gx.shape
     out = (torch.stack(hs, dim=1) if hs
            else gx.new_zeros((B, 0, H, Dh4 // 4), dtype=dt))
+    if h0.dtype == torch.bfloat16:
+        return tuple(t.to(torch.bfloat16) for t in (out, h, c))
     return out, h, c

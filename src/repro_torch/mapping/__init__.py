@@ -1,8 +1,29 @@
-"""Mapping strategies of the port: the four legacy pipelines."""
-from repro_torch.mapping.columns import IdentityCols  # noqa: F401
+"""Mapping strategies of the port: the reference's registry of row and
+column passes composed into named pipelines (``repro.mapping``)."""
+from repro_torch.mapping.base import (  # noqa: F401
+    KINDS,
+    Strategy,
+    available,
+    get_strategy,
+    register,
+    unregister,
+)
+from repro_torch.mapping.columns import (  # noqa: F401
+    IdentityCols,
+    SpareLineCols,
+    XChangrCols,
+)
+from repro_torch.mapping.partition import DensePartition  # noqa: F401
 from repro_torch.mapping.pipeline import (  # noqa: F401
     LEGACY_MODES,
     MappingPipeline,
+    named_pipelines,
     resolve_pipeline,
 )
-from repro_torch.mapping.rows import IdentityRows, MdmRows  # noqa: F401
+from repro_torch.mapping.rows import (  # noqa: F401
+    FaultAwareRows,
+    IdentityRows,
+    MdmRows,
+    SignificanceWeightedRows,
+    SpareLineRows,
+)

@@ -21,6 +21,15 @@ functions a forward calls is one :class:`Ops` triple handed to
 :func:`apply_model`: :data:`KERNELS` (the default) or :data:`PLAIN`,
 the plain PyTorch versions, which validate the kernels on the card.
 
+Activations, parameters and the KV cache are in ``cfg.dtype`` (f32 or
+bf16); each ``cim_mvm`` result (f32) is cast to the activation dtype,
+as in the reference, and logits are f32.  A deployment that lost
+programmed bits to open lines (``degraded != 0``) is served digitally,
+``x @ w`` on the full-precision weight; the reference decides that
+with ``lax.cond`` in its traced graph, the port on the host.  A
+forward's ``read_seed`` draws this read's noise in every deployment
+that carries read noise (each with its own tag).
+
 Unlike the reference's pure functions, the decode state is updated in
 place: the cache write of each step and each new recurrent state goes
 into the state's tensors, so a step never copies the whole state.
@@ -65,7 +74,8 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 class Ops(NamedTuple):
     """The three kernels a forward pass calls.
 
-    ``matmul(x, dep)``: x (..., in_dim) through one ``CimDeployment``;
+    ``matmul(x, dep, read_seed)``: x (..., in_dim) through one
+    ``CimDeployment`` (``read_seed`` None: a noiseless read);
     ``attention(q, k, v, q_pos, k_pos, window, chunk)``: causal
     attention over absolute positions;
     ``slstm_scan(gx, r_gates, h0, c0) -> (hs, hT, cT)``: the sLSTM
@@ -76,12 +86,12 @@ class Ops(NamedTuple):
     slstm_scan: Callable[..., tuple]
 
 
-def _matmul_kernel(x: torch.Tensor, dep) -> torch.Tensor:
-    return cim_mvm(x, dep, device=x.device)
+def _matmul_kernel(x: torch.Tensor, dep, read_seed=None) -> torch.Tensor:
+    return cim_mvm(x, dep, read_seed, device=x.device)
 
 
-def _matmul_plain(x: torch.Tensor, dep) -> torch.Tensor:
-    y = cim_mvm_plain(x.reshape(-1, dep.in_dim), dep)
+def _matmul_plain(x: torch.Tensor, dep, read_seed=None) -> torch.Tensor:
+    y = cim_mvm_plain(x.reshape(-1, dep.in_dim), dep, read_seed)
     return y.reshape(*x.shape[:-1], dep.out_dim)
 
 
@@ -94,26 +104,32 @@ KERNELS = Ops(_matmul_kernel, _attention_kernel, slstm_scan_kernel)
 PLAIN = Ops(_matmul_plain, flash_attention_plain, slstm_scan_plain)
 
 
-def _cim_matmul(x: torch.Tensor, w: torch.Tensor, dep,
-                ops: Ops) -> torch.Tensor:
-    """x @ w, through the deployed crossbars when a deployment exists."""
+def _cim_matmul(x: torch.Tensor, w: torch.Tensor, dep, ops: Ops,
+                read_seed: int | None = None) -> torch.Tensor:
+    """x @ w, through the deployed crossbars when a deployment exists;
+    a degraded deployment (programmed bits on open lines) is served
+    digitally on the full-precision weight."""
     if dep is None:
         return x @ w
-    return ops.matmul(x, dep).to(x.dtype)
+    if dep.degraded is not None and int(dep.degraded) != 0:
+        return (x @ w.reshape(dep.in_dim, dep.out_dim)).to(x.dtype)
+    return ops.matmul(x, dep, read_seed).to(x.dtype)
 
 
 def dense_mlp(p: dict, x: torch.Tensor, cim: dict | None = None,
-              ops: Ops = KERNELS) -> torch.Tensor:
+              ops: Ops = KERNELS, read_seed: int | None = None
+              ) -> torch.Tensor:
     """SwiGLU MLP: silu(x Wg) * (x Wu), then Wd."""
     c = (lambda n: None) if cim is None else cim.get
-    h = (_silu(_cim_matmul(x, p["ffn_w_gate"], c("ffn_w_gate"), ops))
-         * _cim_matmul(x, p["ffn_w_up"], c("ffn_w_up"), ops))
-    return _cim_matmul(h, p["ffn_w_down"], c("ffn_w_down"), ops)
+    mm = lambda a, n: _cim_matmul(a, p[n], c(n), ops, read_seed)
+    h = _silu(mm(x, "ffn_w_gate")) * mm(x, "ffn_w_up")
+    return mm(h, "ffn_w_down")
 
 
 def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor, cache: dict | None,
-               cim: dict | None = None, ops: Ops = KERNELS):
+               cim: dict | None = None, ops: Ops = KERNELS,
+               read_seed: int | None = None):
     """Attention sublayer.  ``cache`` holds one layer's ring buffers
     {k (B, C, Hkv, Dh), v, kpos (C,)}, written in place at
     ``positions % C``; with per-lane positions (B, S), ``kpos`` is
@@ -125,7 +141,8 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
         w, dep = p[name], c(name)
         if dep is None:
             return torch.einsum("bsd,dhk->bshk", x, w)
-        return _cim_matmul(x, w, dep, ops).reshape(B, S, *w.shape[-2:])
+        return _cim_matmul(x, w, dep, ops, read_seed).reshape(
+            B, S, *w.shape[-2:])
 
     q = rope(qkv_proj("wq"), positions, cfg.rope_theta)
     k = rope(qkv_proj("wk"), positions, cfg.rope_theta)
@@ -158,18 +175,21 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
                         cfg.sliding_window, cfg.attn_chunk)
     if c("wo") is None:
         return torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return _cim_matmul(out.reshape(B, S, -1), p["wo"], c("wo"), ops)
+    return _cim_matmul(out.reshape(B, S, -1), p["wo"], c("wo"), ops,
+                       read_seed)
 
 
 def block_apply(bt: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, state: dict | None, decode: bool,
-                cim: dict | None = None, ops: Ops = KERNELS) -> torch.Tensor:
+                cim: dict | None = None, ops: Ops = KERNELS,
+                read_seed: int | None = None) -> torch.Tensor:
     """One block of type ``bt``: pre-norm mixer, then (``"attn"`` only)
     pre-norm SwiGLU.  ``state`` is the block's slice of the decode state,
     advanced in place."""
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     if bt == "attn":
-        y = attn_apply(p, h, cfg, positions, state, cim=cim, ops=ops)
+        y = attn_apply(p, h, cfg, positions, state, cim=cim, ops=ops,
+                       read_seed=read_seed)
     elif bt == "mlstm":
         st = None if state is None else (state["S"], state["n"])
         if decode:
@@ -190,13 +210,14 @@ def block_apply(bt: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
     x = x + y
     if bt == "attn" and cfg.mlp_type != "none":
         hf = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-        x = x + dense_mlp(p, hf, cim=cim, ops=ops)
+        x = x + dense_mlp(p, hf, cim=cim, ops=ops, read_seed=read_seed)
     return x
 
 
 def apply_model(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                 state: ModelState | None = None, decode: bool = False,
-                cim: dict | None = None, ops: Ops = KERNELS):
+                cim: dict | None = None, ops: Ops = KERNELS,
+                read_seed: int | None = None):
     """tokens (B, S) -> (logits (B, S, V) f32, new_state).
 
     ``state`` (from :func:`init_decode_state`) is advanced in place;
@@ -204,7 +225,8 @@ def apply_model(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     clock ``pos`` is a Python int; a per-slot one (``per_slot=True``)
     a (B,) tensor, which gives lane b the positions ``pos[b] + arange(S)``.
     ``decode`` selects the one-step mLSTM form (one token after a
-    prefill), as the reference's ``decode`` flag does.
+    prefill), as the reference's ``decode`` flag does.  ``read_seed``
+    is this forward's crossbar read (None: noiseless).
     """
     check_supported(cfg)
     x = params["embed"][tokens.to(torch.int64)]
@@ -225,7 +247,7 @@ def apply_model(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             st = (None if state is None
                   else {k: v[r] for k, v in state[slot].items()})
             x = block_apply(bt, p, x, cfg, positions, st, decode, cim=ci,
-                            ops=ops)
+                            ops=ops, read_seed=read_seed)
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     new_state = None if state is None else dict(state, pos=pos0 + S)

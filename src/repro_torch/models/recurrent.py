@@ -137,7 +137,9 @@ def slstm_mixer(p: dict, x: torch.Tensor, state: tuple | None,
           if state is None else state[0])
     c0 = (torch.zeros((B, H, Dh), dtype=F32, device=x.device)
           if state is None else state[1])
-    hs, h, c = scan(gx.to(F32), p["r_gates"].to(F32), h0, c0)
+    # gx and R in the parameters' dtype (the scan widens bf16 exactly),
+    # the state f32: hs, h and c come back f32, as the reference's scan.
+    hs, h, c = scan(gx, p["r_gates"], h0, c0)
     y = hs.reshape(B, S, H * Dh) @ p["w_out"].to(F32)
     return y.to(x.dtype), (h, c)
 

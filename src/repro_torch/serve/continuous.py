@@ -40,11 +40,17 @@ row on its own in a fixed order, so a request's tokens are
 bit-identical whatever its slot, its batchmates or a swap to an
 identical bank.
 
-Ideal devices and the ``"attn"`` pattern only: the reference's
-``nonideal``, ``health``, ``advance`` and ``check_health`` belong to
-later slices, and a recurrent pattern would run the padded prefill's
-pad tokens through its state (a defect of the reference's tier, which
-the port does not mirror).
+**Imperfect devices.**  ``nonideal``, ``nonideal_seed``, ``fault_aware``
+and ``pipeline`` deploy every bank as ``ServeEngine`` does.  With
+``sigma_read > 0`` each forward (an admission's prefill, an
+iteration's decode) reads the crossbars with the seed of (nonideal
+seed, forward counter), so noisy tokens depend on the order of the
+forwards, unlike noiseless ones.
+
+The ``"attn"`` pattern only: the reference's ``health``, ``advance``
+and ``check_health`` belong to a later slice, and a recurrent pattern
+would run the padded prefill's pad tokens through its state (a defect
+of the reference's tier, which the port does not mirror).
 """
 from __future__ import annotations
 
@@ -63,6 +69,8 @@ from repro_torch.models.model import KERNELS, Ops, apply_model
 from repro_torch.serve.engine import (
     check_ideal,
     deploy_serving_bank,
+    read_seed,
+    reads_noise,
     sample_tokens_batch,
 )
 from repro_torch.serve.kvcache import SignatureCounter, SlotPool
@@ -87,9 +95,10 @@ def make_slot_prefill(cfg: ModelConfig, ops: Ops = KERNELS):
     the request's stream.
     """
 
-    def prefill(params, state, tokens, length, seed, temp, cim=None):
+    def prefill(params, state, tokens, length, seed, temp, cim=None,
+                read=None):
         logits, _ = apply_model(params, cfg, tokens, state=state, cim=cim,
-                                ops=ops)
+                                ops=ops, read_seed=read)
         lg = logits[:, length - 1]
         return sample_tokens_batch(lg, seed, torch.zeros_like(seed), temp)
 
@@ -105,10 +114,11 @@ def make_slot_decode(cfg: ModelConfig, ops: Ops = KERNELS):
     EMPTY_POS lanes: their tokens are discarded.
     """
 
-    def decode(params, state, tokens, seeds, counts, temps, cim=None):
+    def decode(params, state, tokens, seeds, counts, temps, cim=None,
+               read=None):
         logits, state = apply_model(params, cfg, tokens[:, None],
                                     state=state, decode=True, cim=cim,
-                                    ops=ops)
+                                    ops=ops, read_seed=read)
         return sample_tokens_batch(logits[:, 0], seeds, counts, temps), state
 
     return decode
@@ -124,19 +134,17 @@ class ContinuousEngine:
 
     def __init__(self, cfg: ModelConfig, params: dict, capacity: int = 4,
                  max_seq: int = 256, max_prompt: int = 32, plan_cache=None,
-                 nonideal=None, health=None, cim=None,
-                 device: str | torch.device = "cuda"):
+                 nonideal=None, nonideal_seed: int = 0,
+                 fault_aware: bool = True, pipeline=None, health=None,
+                 cim=None, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
-        check_ideal(nonideal, health)
+        check_ideal(health)
         check_supported(cfg)
         if tuple(cfg.block_pattern) != ("attn",):
             raise NotImplementedError(
                 f"{cfg.name}: continuous batching serves the 'attn' "
                 "pattern; a recurrent state would take in the padded "
                 "prefill's pad tokens")
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype={cfg.dtype!r}: the port's kernels serve float32")
         if max_prompt > max_seq:
             raise ValueError("max_prompt must be <= max_seq")
         check_on(self.device, embed=params["embed"],
@@ -150,9 +158,13 @@ class ContinuousEngine:
             self.plan_cache = (plan_cache if plan_cache is not None
                                else PlanCache())
         self.deploy_report = None
+        self._nonideal = (nonideal, int(nonideal_seed), fault_aware,
+                          pipeline)
         if cim is None:
             cim, self.deploy_report = deploy_serving_bank(
-                cfg, params, self.plan_cache, self.device)
+                cfg, params, self.plan_cache, self.device, *self._nonideal)
+        self.read_noise = reads_noise(cim, nonideal)
+        self._forwards = 0               # read-seed counter
         self.banks: dict[int, Bank] = {0: Bank(0, params, cim)}
         self.serving_epoch = 0
         self._next_epoch = 1
@@ -215,11 +227,19 @@ class ContinuousEngine:
 
     # -- admission -----------------------------------------------------
 
+    def _read(self) -> int | None:
+        """The next forward's read seed, or None without read noise."""
+        if not self.read_noise:
+            return None
+        self._forwards += 1
+        return read_seed(self._nonideal[1], self._forwards)
+
     def _prefill(self, bank: Bank, state, tokens, length, seed, temp):
         self._sigs.note("prefill", bank.params, state, tokens, seed, temp,
                         bank.cim)
         return make_slot_prefill(self.cfg, self.ops)(
-            bank.params, state, tokens, length, seed, temp, bank.cim)
+            bank.params, state, tokens, length, seed, temp, bank.cim,
+            self._read())
 
     def _admit(self, req: Request) -> None:
         bank = self.banks[self.serving_epoch]
@@ -255,10 +275,10 @@ class ContinuousEngine:
 
     # -- decode --------------------------------------------------------
 
-    def _decode(self, bank: Bank, state, operands):
+    def _decode(self, bank: Bank, state, operands, read=None):
         self._sigs.note("decode", bank.params, state, *operands, bank.cim)
         return make_slot_decode(self.cfg, self.ops)(
-            bank.params, state, *operands, bank.cim)
+            bank.params, state, *operands, bank.cim, read)
 
     def _decode_iteration(self) -> None:
         live = self.scheduler.live
@@ -283,13 +303,15 @@ class ContinuousEngine:
         """
         epochs = self.scheduler.epochs_live()
         dev = self.device
+        read = self._read()
         operands = (torch.from_numpy(self._tok).to(dev),
                     torch.from_numpy(self._seed).to(dev),
                     torch.from_numpy(self._nem).to(dev),
                     torch.from_numpy(self._temp).to(dev))
         if len(epochs) == 1:
             tok, self.pool.state = self._decode(self.banks[epochs[0]],
-                                                self.pool.state, operands)
+                                                self.pool.state, operands,
+                                                read)
             return tok.cpu().numpy()
 
         self.fanout_iterations += 1
@@ -298,7 +320,7 @@ class ContinuousEngine:
         for i, e in enumerate(epochs):
             st_in = (self.pool.fork() if i < len(epochs) - 1
                      else self.pool.state)
-            tok, st_out = self._decode(self.banks[e], st_in, operands)
+            tok, st_out = self._decode(self.banks[e], st_in, operands, read)
             per_epoch[e] = tok.cpu().numpy()
             if merged is None:
                 merged = st_out
@@ -350,7 +372,8 @@ class ContinuousEngine:
             try:
                 with torch.no_grad():
                     pending = (params, *deploy_serving_bank(
-                        self.cfg, params, self.plan_cache, self.device))
+                        self.cfg, params, self.plan_cache, self.device,
+                        *self._nonideal))
             except Exception as exc:          # raised again by step()
                 pending = exc
             with self._lock:

@@ -13,7 +13,20 @@ recurrent state is O(1) in the sequence).
 
 The deployment goes through a plan cache (``plan_cache``; by default a
 :class:`repro_torch.deploy.PlanCache` at its default root, as in the
-reference), so an unchanged checkpoint redeploys from it.
+reference), so an unchanged checkpoint redeploys from it.  The engine
+serves ``cfg.dtype`` (f32 or bf16: activations, parameters and KV
+cache; logits f32).
+
+Imperfect devices (``nonideal``, a
+:class:`repro_torch.nonideal.NonidealModel`): the cells are drawn at
+deployment from ``nonideal_seed``, steered around by the mapping with
+``fault_aware``, and folded into the deployments (stuck bits into the
+codes, variation and drift into the gain; matrices whose open lines
+outran the spares serve digitally).  With ``sigma_read > 0`` every
+forward reads the crossbars afresh: forward t of a ``generate(seed)``
+call reads with the seed :func:`read_seed` (nonideal_seed, seed, t),
+so two calls with one seed give the same tokens.  ``health`` (lifetime
+monitoring) is a later slice and raises.
 
 Greedy decoding is the parity target with the reference
 (``torch.argmax`` returns the first maximum, as ``jnp.argmax`` does).
@@ -32,6 +45,7 @@ from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.deploy import PlanCache, deploy_model_params
 from repro_torch.device import check_on, resolve_device
 from repro_torch.models.model import KERNELS, apply_model, init_decode_state
+from repro_torch.nonideal.models import derive_key
 
 _M32 = 0xFFFFFFFF
 
@@ -97,24 +111,43 @@ def sample_tokens_batch(logits: torch.Tensor, seeds: torch.Tensor,
 
 
 def deploy_serving_bank(cfg: ModelConfig, params: dict, plan_cache=None,
-                        device: str | torch.device = "cuda"):
+                        device: str | torch.device = "cuda", nonideal=None,
+                        nonideal_seed: int = 0, fault_aware: bool = True,
+                        pipeline=None, timed: bool = False):
     """Deploy one checkpoint's crossbar bank for serving: (cim, report),
     both None unless ``cfg.cim.enabled``.  Goes through ``plan_cache``,
-    a default :class:`repro_torch.deploy.PlanCache` when None.  The
-    shared init path of :class:`ServeEngine` and
+    a default :class:`repro_torch.deploy.PlanCache` when None, onto the
+    devices ``nonideal`` describes (cells keyed by ``nonideal_seed``).
+    ``timed`` puts each deploy stage's seconds in the report
+    (``deploy_model_params``).  The shared init path of
+    :class:`ServeEngine` and
     :class:`repro_torch.serve.continuous.ContinuousEngine` (whose async
     redeploy runs it in a background thread)."""
     if not cfg.cim.enabled:
         return None, None
     cache = plan_cache if plan_cache is not None else PlanCache()
-    return deploy_model_params(params, cfg, cache=cache, device=device)
+    return deploy_model_params(params, cfg, cache=cache, device=device,
+                               nonideal=nonideal, nonideal_key=nonideal_seed,
+                               fault_aware=fault_aware, pipeline=pipeline,
+                               timed=timed)
 
 
-def check_ideal(nonideal, health) -> None:
-    """The port serves ideal devices only so far."""
-    if nonideal is not None or health is not None:
-        raise NotImplementedError(
-            "nonideal devices and health monitoring are not ported yet")
+def check_ideal(health) -> None:
+    """Lifetime and health monitoring are not ported yet."""
+    if health is not None:
+        raise NotImplementedError("health monitoring is not ported yet")
+
+
+def read_seed(nonideal_seed: int, *counters: int) -> int:
+    """The 32-bit crossbar read seed of one forward, a function of the
+    deployment's ``nonideal_seed`` and the forward's counters alone."""
+    return derive_key(nonideal_seed, 0x5EAD, *counters) & 0xFFFFFFFF
+
+
+def reads_noise(cim, nonideal) -> bool:
+    """Does a forward through ``cim`` draw read noise?"""
+    return (cim is not None and nonideal is not None
+            and nonideal.sigma_read > 0.0)
 
 
 class ServeEngine:
@@ -124,8 +157,12 @@ class ServeEngine:
     ``repro_torch.models.model.init_params``) must lie on ``device``;
     the default is the card, and a CPU run has to be asked for.
     ``plan_cache`` is the deployment's :class:`repro_torch.deploy.PlanCache`
-    (a default one when None); ``nonideal`` and ``health`` are the
-    reference's imperfect-device options, not ported yet (they raise).
+    (a default one when None); ``nonideal``, ``nonideal_seed``,
+    ``fault_aware`` and ``pipeline`` are the reference's imperfect-device
+    and mapping options (module docstring); ``health`` raises.
+    ``timed_deploy`` records the deploy's stage seconds in
+    ``deploy_report["seconds"]``, synchronising the device between
+    stages.
     ``ops`` is the triple of kernels every forward calls
     (``repro_torch.models.model.KERNELS``); a copy of the engine with
     ``PLAIN`` there serves the same deployments through the plain
@@ -134,13 +171,12 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params: dict, max_seq: int = 2048,
                  temperature: float = 0.0, plan_cache=None, nonideal=None,
-                 health=None, device: str | torch.device = "cuda"):
+                 nonideal_seed: int = 0, fault_aware: bool = True,
+                 pipeline=None, health=None, timed_deploy: bool = False,
+                 device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
-        check_ideal(nonideal, health)
+        check_ideal(health)
         check_supported(cfg)
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype={cfg.dtype!r}: the port's kernels serve float32")
         check_on(self.device, embed=params["embed"],
                  lm_head=params["lm_head"])
         self.cfg = cfg
@@ -148,8 +184,17 @@ class ServeEngine:
         self.max_seq = max_seq
         self.temperature = temperature
         self.ops = KERNELS
+        self.nonideal_seed = int(nonideal_seed)
         self.cim, self.deploy_report = deploy_serving_bank(
-            cfg, params, plan_cache, self.device)
+            cfg, params, plan_cache, self.device, nonideal, nonideal_seed,
+            fault_aware, pipeline, timed_deploy)
+        self.read_noise = reads_noise(self.cim, nonideal)
+
+    def _read(self, seed: int, t: int) -> int | None:
+        """Forward t's read seed under ``generate(seed=seed)``, or None
+        when the deployment draws no read noise."""
+        return read_seed(self.nonideal_seed, seed, t) if self.read_noise \
+            else None
 
     def _prompts(self, prompts) -> torch.Tensor:
         p = torch.as_tensor(prompts)
@@ -168,37 +213,43 @@ class ServeEngine:
         gen.manual_seed(seed)
         state = init_decode_state(self.cfg, B, self.max_seq, self.device)
         logits, state = apply_model(self.params, self.cfg, prompts,
-                                    state=state, cim=self.cim, ops=self.ops)
+                                    state=state, cim=self.cim, ops=self.ops,
+                                    read_seed=self._read(seed, 0))
         tok = sample_tokens(logits[:, -1], self.temperature, gen)
         out = [tok]
-        for _ in range(n_tokens - 1):
+        for t in range(1, n_tokens):
             logits, state = apply_model(self.params, self.cfg, tok[:, None],
                                         state=state, decode=True,
-                                        cim=self.cim, ops=self.ops)
+                                        cim=self.cim, ops=self.ops,
+                                        read_seed=self._read(seed, t))
             tok = sample_tokens(logits[:, 0], self.temperature, gen)
             out.append(tok)
         return torch.stack(out, dim=1)
 
     @torch.no_grad()
-    def teacher_forced_logits(self, tokens,
-                              n_prompt: int) -> torch.Tensor:
+    def teacher_forced_logits(self, tokens, n_prompt: int,
+                              seed: int = 0) -> torch.Tensor:
         """Per-step logits through the serving path with given tokens.
 
         Prefills ``tokens[:, :n_prompt]``, then decodes the remaining
-        tokens one at a time.  Returns (B, S - n_prompt + 1, V): the
-        prefill's last-position logits, then one row per decode step.
+        tokens one at a time, reading the crossbars as
+        ``generate(seed=seed)`` does.  Returns (B, S - n_prompt + 1, V):
+        the prefill's last-position logits, then one row per decode step.
         """
         tokens = self._prompts(tokens)
         B, S = tokens.shape
         state = init_decode_state(self.cfg, B, self.max_seq, self.device)
         logits, state = apply_model(self.params, self.cfg,
                                     tokens[:, :n_prompt], state=state,
-                                    cim=self.cim, ops=self.ops)
+                                    cim=self.cim, ops=self.ops,
+                                    read_seed=self._read(seed, 0))
         rows = [logits[:, -1]]
         for t in range(n_prompt, S):
             logits, state = apply_model(self.params, self.cfg,
                                         tokens[:, t:t + 1], state=state,
                                         decode=True, cim=self.cim,
-                                        ops=self.ops)
+                                        ops=self.ops,
+                                        read_seed=self._read(
+                                            seed, t - n_prompt + 1))
             rows.append(logits[:, 0])
         return torch.stack(rows, dim=1)

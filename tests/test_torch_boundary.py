@@ -82,6 +82,19 @@ def test_entry_points_default_to_the_card():
     from repro_torch.kernels.manhattan_score import manhattan_score
     from repro_torch.kernels.slstm_scan import slstm_scan
     from repro_torch.models.model import init_params
+    from repro_torch.nonideal import (
+        NonidealModel,
+        sample_cell_state,
+        sample_corr_field,
+        sample_line_open,
+        sample_stuck,
+    )
+    from repro_torch.nonideal.inject import (
+        matrix_cells,
+        matrix_stuck,
+        sample_deployment_cells,
+    )
+    from repro_torch.nonideal.models import generator
     from repro_torch.serve import ContinuousEngine, ServeEngine
 
     cfg = ModelConfig(n_layers=1, d_model=16, n_heads=2, n_kv_heads=2,
@@ -92,6 +105,8 @@ def test_entry_points_default_to_the_card():
     x = torch.randn(2, 16)
     q = torch.randn(1, 2, 2, 16)
     pos = torch.arange(2, dtype=torch.int32)
+    spec = CrossbarSpec(16, 16, 8)
+    ideal, faulty = NonidealModel(), NonidealModel(p_stuck_off=0.1)
     calls = [
         lambda: ServeEngine(cfg, params, max_seq=8),
         lambda: ContinuousEngine(cfg, params, max_seq=8, max_prompt=4),
@@ -106,6 +121,14 @@ def test_entry_points_default_to_the_card():
                                                       (1, 4, 16), (1, 1, 4),
                                                       (1, 1, 4)))),
         lambda: bitslice_pack(torch.zeros((2, 2), dtype=torch.int16), 8),
+        lambda: generator(0),
+        lambda: sample_stuck(0, (1, 4, 4), 0.1, 0.0),
+        lambda: sample_line_open(0, (1, 4, 4), 0.1, 0.1),
+        lambda: sample_corr_field(0, (1, 4, 4), 2.0),
+        lambda: sample_cell_state(0, (1, 4, 4), ideal),
+        lambda: matrix_cells(0, 0, (1, 1), spec, faulty),
+        lambda: matrix_stuck(0, 0, (1, 1), spec, faulty),
+        lambda: sample_deployment_cells(0, {"w": (1, 1)}, spec, faulty),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -39,6 +39,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.deploy import PlanCache
 from repro_torch.models.attention import EMPTY_POS
 from repro_torch.models.model import apply_model
+from repro_torch.nonideal import NonidealModel
 from repro_torch.serve import (
     ContinuousEngine,
     RequestScheduler,
@@ -50,6 +51,7 @@ from repro_torch.serve import (
 
 VOCAB = 128
 LOGIT_RTOL = 1e-4
+BF16_LOGIT_RTOL = 3e-2       # the bf16 bound of tests/test_torch_serve.py
 
 
 def _jcfg(cim: bool = False) -> JModel:
@@ -277,6 +279,57 @@ def test_engine_greedy_matches_serve_engine(cim, tmp_path):
                     tcont.banks[0].cim["slot0_attn"][pname], f))
 
 
+def test_bf16_engine_greedy_matches_reference(tmp_path):
+    """The reference's default dtype through the continuous tier: bf16
+    params, activations and slot-pool KV cache.  The port's continuous
+    engine equals the port's ServeEngine token for token, and the
+    reference's continuous engine up to each request's first flip; a
+    flip passes only where the reference's top-2 logit gap lies inside
+    the bf16 logits' bound (3e-2 * max|logit|, tests/test_torch_serve.py).
+    Listed: request 2 flips at token 1, where the reference's gap is
+    0.03125 (two bf16 ulps) against a logit difference of 0.03125."""
+    jcfg = _jcfg(True).replace(dtype="bfloat16")
+    cfg = _tcfg(jcfg)
+    jparams, params = _params(jcfg)
+    assert params["embed"].dtype == torch.bfloat16
+    prompts, n = _prompts(3), 6
+    jcache = JPlanCache(str(tmp_path / "ref"))
+    jcont = JContinuous(jcfg, jparams, capacity=2, max_seq=64,
+                        max_prompt=16, plan_cache=jcache)
+    jserve = JServe(jcfg, jparams, max_seq=64, plan_cache=jcache)
+    tcont = _engine(cfg, params, tmp_path, capacity=2)
+    tserve = ServeEngine(cfg, params, max_seq=64, plan_cache=PlanCache(
+        str(tmp_path / "port")), device="cpu")
+    jrids = [jcont.submit(p, max_tokens=n) for p in prompts]
+    trids = [tcont.submit(p, max_tokens=n) for p in prompts]
+    jout, tout = jcont.run(), tcont.run()
+    flips = []
+    for i, p in enumerate(prompts):
+        ref, port = jout[jrids[i]], tout[trids[i]]
+        assert port == tserve.generate(torch.from_numpy(p[None]),
+                                       n)[0].tolist()
+        if port == ref:
+            continue
+        s = next(k for k in range(n) if port[k] != ref[k])
+        seq = np.concatenate([p, ref[:s]]).astype(np.int32)[None]
+        lg = _ref_logits(jserve, seq)[0, :VOCAB]   # the reference's, at s
+        top = np.sort(lg)[-2:]
+        flips.append((i, s, ref[s], port[s], float(top[1] - top[0])))
+        assert top[1] - top[0] <= BF16_LOGIT_RTOL * np.abs(lg).max(), flips
+    assert [f[:2] for f in flips] == [(2, 1)], flips
+
+
+def _ref_logits(jserve, seq):
+    """The reference's last-position logits after prefilling ``seq``."""
+    from repro.distributed.sharding import ShardingCtx
+
+    state = jmodel.init_decode_state(jserve.cfg, 1, jserve.max_seq)
+    logits, _, _ = jmodel.apply_model(jserve.params, jserve.cfg,
+                                      ShardingCtx(), tokens=jnp.asarray(seq),
+                                      state=state, cim=jserve.cim)
+    return np.asarray(logits[:, -1], np.float32)
+
+
 def test_composition_determinism_and_single_trace(tmp_path):
     """Per-request outputs don't depend on batchmates, admission order
     or slot placement; all the churn shares one call signature each."""
@@ -423,11 +476,34 @@ def test_engine_rejects_oversized_prompts_and_bad_configs(tmp_path):
         _engine(cfg, params, tmp_path, capacity=1, max_seq=8, max_prompt=16)
     with pytest.raises(NotImplementedError):     # the reference's defect
         _engine(XLSTM.replace(dtype="float32"), params, tmp_path)
-    for kw in ({"nonideal": object()}, {"health": object()}):
-        with pytest.raises(NotImplementedError):
-            _engine(cfg, params, tmp_path, **kw)
-        with pytest.raises(NotImplementedError):
-            ServeEngine(cfg, params, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):     # health: a later slice
+        _engine(cfg, params, tmp_path, health=object())
+    with pytest.raises(NotImplementedError):
+        ServeEngine(cfg, params, device="cpu", health=object())
+    # Once refused, imperfect devices now serve: the same bank in both
+    # engines (one seed, one cell draw), and the continuous engine's
+    # greedy tokens equal the single-batch engine's.
+    jcfg = _jcfg(True)
+    cfg = _tcfg(jcfg)
+    _, params = _params(jcfg)
+    model = NonidealModel(p_stuck_off=0.02, p_stuck_on=0.01,
+                          sigma_program=0.05)
+    cont = _engine(cfg, params, tmp_path, capacity=2, nonideal=model,
+                   nonideal_seed=3)
+    serve = ServeEngine(cfg, params, max_seq=64, nonideal=model,
+                        nonideal_seed=3, plan_cache=PlanCache(
+                            str(tmp_path / "port")), device="cpu")
+    assert cont.deploy_report["nonideal"] and serve.deploy_report["nonideal"]
+    for pname, d in serve.cim["slot0_attn"].items():
+        for f in ("codes", "pos", "gain"):
+            assert torch.equal(getattr(d, f), getattr(
+                cont.banks[0].cim["slot0_attn"][pname], f)), (pname, f)
+    prompts = _prompts(2)
+    rids = [cont.submit(p, max_tokens=6) for p in prompts]
+    out = cont.run()
+    for rid, p in zip(rids, prompts):
+        assert out[rid] == serve.generate(torch.from_numpy(p[None]),
+                                          6)[0].tolist()
 
 
 def test_launch_counts_hold_under_threads():

@@ -26,6 +26,8 @@ sample_tokens_batch: uniforms exact on both devices, tokens exact where
 the top two Gumbel-perturbed scores are more than 1e-5 apart (CUDA's
 and the CPU's log may differ by an ulp).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -380,3 +382,144 @@ def test_sample_tokens_batch_cpu_equals_card(cuda):
     clear = (top2[:, 0] - top2[:, 1]) > 1e-5
     assert clear.sum() > B // 2
     assert torch.equal(cpu[clear], card[clear])
+
+
+def _nonideal_dep(cuda, I, N, spec, ops, seed):
+    """A deployment of a random (I, N) matrix carrying the nonideal
+    operands named in ``ops``: a log-normal gain, random per-tile bitline
+    permutations, read noise at sigma_read 0.05 (tag 3)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn((I, N), generator=g, device=cuda) * 0.2
+    dep, _ = deploy(w, CrossbarSpec(*spec), "mdm")
+    extra = {}
+    if ops in ("gain", "all"):
+        extra["gain"] = torch.exp(0.1 * torch.randn(
+            dep.codes.shape, generator=g, device=cuda))
+    if ops in ("colpos", "all"):
+        ti, tn = dep.codes.shape[0] // spec[0], dep.pos.shape[1]
+        extra["col_pos"] = torch.argsort(torch.rand(
+            (ti, tn, spec[1]), generator=g, device=cuda), dim=-1).to(
+                torch.int32)
+    if ops in ("noise", "all"):
+        extra.update(noise_tag=torch.tensor(3, dtype=torch.int32),
+                     sigma_read=0.05)
+    return dataclasses.replace(dep, **extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops", ["gain", "colpos", "noise", "all"])
+@pytest.mark.parametrize("spec", [(64, 64, 8), (16, 64, 8), (16, 16, 8)])
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 128, 512])
+def test_cim_mvm_nonideal_operands_vs_plain(cuda, ops, spec, M):
+    """Gain, column permutation and in-kernel read noise in both forms
+    (decode M <= 16, prefill), on the 16-byte path (wpt 8) and the
+    general one (spec (16, 16, 8): wpt 2); rows 16 make a prefill slab
+    span two tiles of col_pos.  Same normwise bound as the ideal form:
+    W' is bit-identical but for the normals' last bits (the plain
+    version's log / cos on the card are CUDA's too)."""
+    I, N = 640, 384
+    dep = _nonideal_dep(cuda, I, N, spec, ops, M + spec[0] + spec[1])
+    x = torch.randn((M, I), generator=torch.Generator(device=cuda)
+                    .manual_seed(M), device=cuda)
+    y = cim_mvm(x, dep, read_seed=11, device=cuda)
+    y_plain = cim_mvm_plain(x, dep, 11)
+    err = (y - y_plain).abs().max().item()
+    assert err <= 1e-5 * y_plain.abs().max().item(), err
+    if ops in ("noise", "all"):
+        # The noise is drawn: another seed gives another y.
+        y2 = cim_mvm(x, dep, read_seed=12, device=cuda)
+        assert not torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 8, 128])
+def test_cim_mvm_read_noise_is_a_function_of_seed_tag_and_position(cuda, M):
+    """Row r of y is the same at M and at M = 1 (every row sees the
+    same W' in one read; the decode and prefill forms draw the same
+    eps), and two calls with one seed are bit-identical."""
+    dep = _nonideal_dep(cuda, 640, 384, (64, 64, 8), "all", 5)
+    x = torch.randn((M, 640), generator=torch.Generator(device=cuda)
+                    .manual_seed(3), device=cuda)
+    y = cim_mvm(x, dep, read_seed=9, device=cuda)
+    assert torch.equal(y, cim_mvm(x, dep, read_seed=9, device=cuda))
+    y1 = cim_mvm(x[:1], dep, read_seed=9, device=cuda)
+    err = (y[:1] - y1).abs().max().item()
+    assert err <= 1e-5 * y1.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops", ["none", "all"])
+@pytest.mark.parametrize("M", [1, 8, 128])
+def test_cim_mvm_bf16_x(cuda, ops, M):
+    """bf16 x is read as it is: the same y as its exact f32 widening."""
+    dep = _nonideal_dep(cuda, 640, 384, (64, 64, 8), ops, 7)
+    x = torch.randn((M, 640), device=cuda).to(torch.bfloat16)
+    y = cim_mvm(x, dep, read_seed=4, device=cuda)
+    assert y.dtype == torch.float32
+    y32 = cim_mvm(x.to(torch.float32), dep, read_seed=4, device=cuda)
+    assert torch.equal(y, y32)
+    y_plain = cim_mvm_plain(x, dep, 4)
+    err = (y - y_plain).abs().max().item()
+    assert err <= 1e-5 * y_plain.abs().max().item(), err
+
+
+# bf16 outputs: both sides compute in f32 and round once; results that
+# straddle a rounding boundary differ by one bf16 ulp (2^-7 relative).
+BF16_RTOL = 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 64, 64, 4, 2, 32, 0),
+                                  (1, 40, 72, 6, 3, 16, 24),
+                                  (2, 1, 96, 4, 4, 96, 0),
+                                  (4, 4, 160, 32, 32, 96, 0),
+                                  (2, 33, 50, 4, 4, 128, 0),
+                                  (1, 70, 70, 2, 2, 20, 0)])
+def test_flash_kernel_bf16_vs_plain(cuda, case):
+    """bf16 q, k, v in both forms (decode Sq <= 16, prefill), Dh = 20 on
+    the per-value load path: against the plain version on the same bf16
+    inputs, and bit-identical to the f32 kernel on their widening
+    rounded to bf16 (a bf16 value is exact in TF32, so the lo-part
+    products the bf16 form skips are zeros)."""
+    B, Sq, Skv, H, Hkv, Dh, win = case
+    q, k, v = (torch.from_numpy(a).to(cuda).to(torch.bfloat16)
+               for a in _qkv(B, Sq, Skv, H, Hkv, Dh, 1))
+    qpos = torch.arange(Sq, dtype=torch.int32, device=cuda) + max(0, Skv - Sq)
+    kpos = torch.arange(Skv, dtype=torch.int32, device=cuda)
+    out = flash_attention(q, k, v, q_positions=qpos, k_positions=kpos,
+                          window=win, device=cuda)
+    assert out.dtype == torch.bfloat16
+    ref = flash_attention_plain(q, k, v, qpos, kpos, window=win)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_RTOL,
+                               atol=2e-5)
+    out32 = flash_attention(q.float(), k.float(), v.float(), q_positions=qpos,
+                            k_positions=kpos, window=win, device=cuda)
+    assert torch.equal(out, out32.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,dh,seed", [
+    (1, 3, 1, 4, 0), (5, 70, 4, 16, 1), (4, 1, 4, 512, 7),
+    (4, 128, 4, 512, 9), (5, 9, 4, 512, 10), (2, 7, 3, 100, 11),
+    (9, 3, 2, 64, 12),
+])
+@pytest.mark.parametrize("state", ["f32", "bf16"])
+def test_slstm_scan_kernel_bf16_vs_plain(cuda, b, t, h, dh, seed, state):
+    """bf16 gx and R (the serving form: the state f32), and everything
+    bf16 (outputs rounded to bf16 at the store), against the plain
+    version on the same inputs."""
+    rng = np.random.default_rng(seed)
+    f = lambda s, *shape: torch.from_numpy(
+        (rng.standard_normal(shape) * s).astype(np.float32)).to(cuda)
+    gx = f(0.5, b, t, h, 4 * dh).to(torch.bfloat16)
+    r = f(0.1, h, dh, 4 * dh).to(torch.bfloat16)
+    st = torch.float32 if state == "f32" else torch.bfloat16
+    h0, c0 = f(0.1, b, h, dh).to(st), f(0.1, b, h, dh).to(st)
+    got = slstm_scan(gx, r, h0, c0, device=cuda)
+    want = slstm_scan_plain(gx, r, h0, c0)
+    rtol = SLSTM_TOL if state == "f32" else BF16_RTOL
+    for a, w in zip(got, want):
+        assert a.dtype == st
+        a, w = a.float(), w.float()
+        assert ((a - w).abs() <= SLSTM_TOL + rtol * w.abs()).all(), \
+            (a - w).abs().max().item()

@@ -146,16 +146,34 @@ def test_cim_mvm_batched_input_and_layer_views():
 
 
 def test_cim_mvm_refuses_nonideal_deployments():
+    """Once a refusal, now parity: deployments carrying a gain, a column
+    permutation, or both, against the reference's ``cim_mvm(impl="xla")``
+    (the only reference path that applies them) at its three-way bound,
+    for x in f32 and bf16 (both packages upcast x to f32)."""
     import dataclasses
 
-    w = torch.randn(16, 8, generator=torch.Generator().manual_seed(3))
-    dep, _ = deploy(w, CrossbarSpec(16, 16, 8))
-    x = torch.randn(2, 16)
-    for extra in ({"gain": torch.ones_like(dep.codes, dtype=torch.float32)},
-                  {"col_pos": torch.zeros((1, 1, 16), dtype=torch.int32)},
-                  {"sigma_read": 0.01}):
-        with pytest.raises(NotImplementedError):
-            cim_mvm(x, dataclasses.replace(dep, **extra), device=CPU)
+    spec = (16, 16, 8)
+    rng = np.random.default_rng(3)
+    w = (rng.standard_normal((40, 24)) * 0.2).astype(np.float32)
+    x = rng.standard_normal((5, 40)).astype(np.float32)
+    dep, _ = deploy(torch.from_numpy(w), CrossbarSpec(*spec), "mdm")
+    j_dep, _ = j_deploy(jnp.asarray(w), JSpec(*spec), "mdm")
+    gain = np.exp(0.1 * rng.standard_normal(dep.codes.shape)).astype(
+        np.float32)
+    ti, tn = dep.codes.shape[0] // spec[0], dep.pos.shape[1]
+    col_pos = np.argsort(rng.random((ti, tn, spec[1])), -1).astype(np.int32)
+    for extra in ({"gain": gain}, {"col_pos": col_pos},
+                  {"gain": gain, "col_pos": col_pos}):
+        d = dataclasses.replace(dep, **{k: torch.from_numpy(v)
+                                        for k, v in extra.items()})
+        jd = dataclasses.replace(j_dep, **{k: jnp.asarray(v)
+                                           for k, v in extra.items()})
+        want = np.asarray(j_cim_mvm(jnp.asarray(x), jd, impl="xla"))
+        for xt in (torch.from_numpy(x), torch.from_numpy(x).bfloat16()):
+            xw = xt.float().numpy()
+            want = np.asarray(j_cim_mvm(jnp.asarray(xw), jd, impl="xla"))
+            got = cim_mvm(xt, d, device=CPU).numpy()
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------- flash attention ----------------------------
@@ -192,6 +210,39 @@ def test_flash_matches_reference(case):
     for ref in (kern, exact):
         np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-5,
                                    atol=2e-5)
+
+
+@pytest.mark.parametrize("case", [
+    (2, 20, 20, 4, 2, 32, 0),
+    (1, 40, 72, 6, 3, 16, 24),
+    (2, 1, 96, 4, 4, 32, 0),        # decode shape
+    (2, 12, 40, 4, 4, 96, 0),       # phi3-mini head_dim
+])
+def test_flash_bf16_matches_reference(case):
+    """bf16 q, k, v (the reference's default dtype): the plain version
+    against the reference's Pallas kernel in interpret mode on the same
+    bf16 inputs, compared in f32.  Both compute in f32 and round the
+    output to bf16 once, so a value near a rounding boundary may differ
+    by one bf16 ulp: rtol 2^-7 beside the f32 atol 2e-5."""
+    B, Sq, Skv, H, Hkv, Dh, win = case
+    q, k, v = _qkv(B, Sq, Skv, H, Hkv, Dh, sum(case) + 1)
+    qpos = np.arange(Sq, dtype=np.int32) + max(0, Skv - Sq)
+    kpos = np.arange(Skv, dtype=np.int32)
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = flash_attention(*t, q_positions=torch.from_numpy(qpos),
+                          k_positions=torch.from_numpy(kpos), window=win,
+                          chunk=16, device=CPU)
+    assert got.dtype == torch.bfloat16
+    j = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    assert np.array_equal(np.asarray(j[0]).view(np.uint16),
+                          t[0].view(torch.int16).numpy().view(np.uint16))
+    kern = flash_attention_tpu(*j, q_positions=jnp.asarray(qpos),
+                               k_positions=jnp.asarray(kpos), window=win,
+                               block_q=32, block_k=32)
+    assert kern.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(kern, np.float32),
+                               rtol=2.0 ** -7, atol=2e-5)
 
 
 def test_flash_per_lane_positions_and_empty_slots():
@@ -344,6 +395,53 @@ def test_cim_prefill_geometry_covers_each_output_once(M, I, N):
         hits[r0:r1, c0:c1] += 1
     assert (hits == 1).all()
     assert [i for a, b in slabs for i in range(a, b)] == list(range(I))
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 128, 512])
+@pytest.mark.parametrize("I,N,rows", [(3072, 8192, 64), (8192, 3072, 64),
+                                      (640, 384, 16), (1000, 300, 16)])
+@pytest.mark.parametrize("ext", [cim_ops.EXT_GAIN, cim_ops.EXT_COLP,
+                                 cim_ops.EXT_NOISE, 7])
+def test_cim_geometry_with_nonideal_operands(M, I, N, rows, ext):
+    """The nonideal forms' launch: shared memory fits; the col_pos tiles
+    a decode block or a prefill slab touches (cp_ti x cp_tn) cover what
+    the kernel indexes; the prefill gain ring, where staged, starts on
+    16 bytes (its cp.async copies 16); x bf16 changes nothing else."""
+    wpt = 8
+    n_pad = -(-N // wpt) * wpt
+    i_pad = -(-I // rows) * rows
+    geom = cim_ops.cim_geometry(M, I, N, i_pad, n_pad, wpt, 8, 64, True, 132,
+                                True, True, ext, rows)
+    assert geom.smem <= cim_ops.SMEM_MAX and geom.xbf16 == 1
+    assert geom.ext & 7 == ext and geom.n_ti == i_pad // rows
+    colp = bool(ext & cim_ops.EXT_COLP)
+    if geom.form == 0:
+        W = 8 * geom.tile
+        if colp:
+            for r in range(8):
+                k0, k1 = r * geom.rps, min((r + 1) * geom.rps, I)
+                if k0 < k1:
+                    assert (k1 - 1) // rows - k0 // rows < geom.cp_ti
+            for bx in range(geom.gx):
+                c1 = min((bx + 1) * W, n_pad) - 1
+                assert c1 // wpt - bx * W // wpt < geom.cp_tn
+    else:
+        assert geom.off_p % 16 == 0 and geom.off_t % 16 == 0
+        staged = bool(geom.ext & cim_ops.EXT_GAIN_STAGED)
+        assert staged <= bool(ext & cim_ops.EXT_GAIN and geom.fast)
+        if colp:
+            bk, bn = cim_ops.PREFILL_BK, cim_ops.PREFILL_BN
+            for k0 in range(0, I, bk):
+                k1 = min(k0 + bk, I) - 1
+                assert k1 // rows - k0 // rows < geom.cp_ti
+            for n0 in range(0, n_pad, bn):
+                n1 = min(n0 + bn, n_pad) - 1
+                assert n1 // wpt - n0 // wpt < geom.cp_tn
+    if not colp:
+        assert geom.cp_ti == geom.cp_tn == 0
+    ideal = cim_ops.cim_geometry(M, I, N, i_pad, n_pad, wpt, 8, 64, True,
+                                 132, True)
+    assert geom.form == ideal.form or colp
 
 
 def test_cim_geometry_dispatch_by_rows():

@@ -123,20 +123,30 @@ def test_reference_writes_port_reads(mode, tmp_path):
 
 
 def test_column_plans_of_the_reference_are_misses(tmp_path):
-    """A non-legacy reference pipeline stores column plans (flags bit 1):
-    the port serves none yet, so each entry and the manifest miss."""
-    jcfg, _, jmats, _, _ = _matrices()
+    """Once misses, now hits: a non-legacy reference pipeline stores
+    column plans (flags bit 1), and the port decodes every entry and the
+    manifest, column permutations included, equal to the reference's;
+    its own keys for the pipeline are the reference's."""
+    jcfg, tcfg, jmats, tmats, _ = _matrices()
     pipe = JPipeline(cols=XChangrCols())
     j_plan_matrices(jmats, j_spec(jcfg), pipe,
                     cache=JPlanCache(str(tmp_path)))
     keys = j_fingerprints(jmats, j_spec(jcfg), pipe)
+    assert fingerprint_matrices(tmats, spec_from_config(tcfg),
+                                "xchangr") == keys
     ref = JPlanCache(str(tmp_path))
-    assert ref.get(next(iter(keys.values()))).col_perm is not None
     cache = PlanCache(str(tmp_path))
-    assert cache.get_manifest(keys) is None
-    assert all(cache.get(k) is None for k in keys.values())
-    assert cache.stats.misses == len(keys)
-    assert cache.stats.manifest_misses == 1
+    plans = cache.get_manifest(keys)
+    assert plans is not None and cache.stats.manifest_hits == 1
+    for name, key in keys.items():
+        want, got = ref.get(key), cache.get(key)
+        assert got.col_perm is not None
+        for p in (got, plans[name]):
+            for f in ("row_perm", "row_position", "col_perm",
+                      "col_position", "nf_before", "nf_after"):
+                np.testing.assert_array_equal(getattr(p, f).numpy(),
+                                              np.asarray(getattr(want, f)))
+    assert cache.stats.misses == 0
 
 
 @pytest.mark.parametrize("damage", ["torn", "trailing", "header"])

@@ -80,6 +80,33 @@ def test_slstm_scan_matches_reference(b, t, h, dh, seed):
                                        rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("b,t,h,dh,seed", SLSTM_CASES[:4])
+@pytest.mark.parametrize("state", ["f32", "bf16"])
+def test_slstm_scan_bf16_matches_reference(b, t, h, dh, seed, state):
+    """bf16 gx and R (the reference's default dtype) with an f32 state
+    (the serving form) or a bf16 one: the plain version against the
+    reference's Pallas kernel in interpret mode on the same inputs,
+    compared in f32.  Both widen bf16 exactly and compute in f32; the
+    reference writes f32 outputs, the port the state's dtype, so with a
+    bf16 state the port's outputs carry one more rounding (2^-8
+    relative) beside the f32 bound."""
+    args = slstm_inputs(b, t, h, dh, seed)
+    dt = torch.bfloat16 if state == "bf16" else torch.float32
+    targs = [torch.from_numpy(a).to(torch.bfloat16) for a in args[:2]] + \
+        [torch.from_numpy(a).to(dt) for a in args[2:]]
+    got = slstm_scan(*targs, device=CPU)
+    jdt = jnp.bfloat16 if state == "bf16" else jnp.float32
+    j = [jnp.asarray(a, jnp.bfloat16) for a in args[:2]] + \
+        [jnp.asarray(a, jdt) for a in args[2:]]
+    kern = j_scan(*j, block_b=2, chunk=16, interpret=True)
+    rtol = 1e-5 if state == "f32" else 2.0 ** -8
+    for a, r in zip(got, kern):
+        assert a.dtype == dt
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(r, np.float32), rtol=rtol,
+                                   atol=1e-6)
+
+
 def test_slstm_scan_wrapper_checks_and_empty_sequence():
     gx, r, h0, c0 = map(torch.from_numpy, slstm_inputs(2, 0, 2, 4, 0))
     hs, hT, cT = slstm_scan(gx, r, h0, c0, device=CPU)

@@ -38,6 +38,7 @@ from repro_torch.models.model import init_decode_state, init_params
 from repro_torch.serve import ServeEngine
 
 LOGIT_RTOL = 1e-4
+BF16_LOGIT_RTOL = 3e-2       # the bf16 bound of tests/test_torch_serve.py
 PROMPT, NEW = 24, 6          # prompt longer than mlstm_chunk = 16
 
 
@@ -83,7 +84,22 @@ def _flips(a, b, logits):
 @pytest.mark.parametrize("mode,spec", [("mdm", (64, 64, 8)),
                                        ("reverse", (16, 16, 4))])
 def test_xlstm_slice_matches_reference(mode, spec, tmp_path):
-    jcfg = xlstm_config(mode, spec)
+    assert _check_xlstm(xlstm_config(mode, spec), tmp_path, LOGIT_RTOL) == []
+
+
+def test_xlstm_bf16_slice_matches_reference(tmp_path):
+    """The reference's default dtype: bf16 parameters and activations,
+    the sLSTM scan's bf16 form (gx and R bf16, the state f32), at the
+    bf16 bound of the dense slice (tests/test_torch_serve.py).  One flip
+    is known and listed: row 0, step 2, where the reference's bf16
+    logits tie exactly (top-2 gap 0.0) and the two roundings pick
+    different tokens."""
+    flips = _check_xlstm(xlstm_config().replace(dtype="bfloat16"), tmp_path,
+                         BF16_LOGIT_RTOL)
+    assert [f[:2] for f in flips] == [(0, 2)], flips
+
+
+def _check_xlstm(jcfg, tmp_path, rtol):
     jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
     tree = jax.tree_util.tree_map(np.asarray, jparams)
     tcfg = port_config(jcfg)
@@ -118,10 +134,21 @@ def test_xlstm_slice_matches_reference(mode, spec, tmp_path):
     assert t_logits.shape == j_logits.shape
     V = jcfg.vocab_size
     err = np.abs(t_logits[..., :V] - j_logits[..., :V]).max()
-    assert err <= LOGIT_RTOL * np.abs(j_logits[..., :V]).max(), err
+    bound = rtol * np.abs(j_logits[..., :V]).max()
+    assert err <= bound, err
 
-    flips = _flips(j_tok, t_tok, j_logits)
-    assert flips == [], f"greedy flips (row, step, ref, port, gap): {flips}"
+    # Greedy: the port's argmax under teacher forcing against the
+    # reference's tokens (so one flip does not cascade).  Every flip is
+    # listed; one passes only where the reference's top-2 gap lies
+    # inside the logits' bound (a near-tie the two roundings split).
+    # The generated tokens agree up to each row's first flip.
+    flips = _flips(j_tok, t_logits.argmax(-1), j_logits)
+    assert all(f[4] <= bound for f in flips), \
+        f"greedy flips (row, step, ref, port, gap) beyond {bound}: {flips}"
+    for r in range(j_tok.shape[0]):
+        first = min([f[1] for f in flips if f[0] == r], default=NEW)
+        np.testing.assert_array_equal(t_tok[r, :first], j_tok[r, :first])
+    return flips
 
 
 @pytest.mark.parametrize("name", ["phi3", "xlstm"])
