@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's five hand-written CUDA kernels from the sources in
-this checkout and holds each against its plain PyTorch version at the
-shapes of the paths below, their nonideal-operand (cim_mvm: gain,
-column permutation, in-kernel read noise, bf16 x) and bf16
-(flash_attention, slstm_scan) forms included.  Then it drives five paths
+Builds the port's hand-written CUDA kernels from the sources in this
+checkout and holds each against its plain PyTorch version at the shapes
+of the paths below: the five counterparts of the TPU kernels, cim_mvm's
+folded forms (gain, column permutation, in-kernel read noise, bf16 x)
+and the bf16 forms of flash_attention and slstm_scan included, and the
+fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives five paths
 through the entry points a user calls, each with the launch counts set
 to 0 just before it and read just after:
 
@@ -28,8 +29,9 @@ to 0 just before it and read just after:
    random weights from seed 0, on imperfect devices (stuck cells,
    i.i.d. and correlated variation, drift, line opens, read noise;
    ``NONIDEAL``) under the ``spare_line`` mapping, through
-   ``ServeEngine`` (cim_mvm with all three nonideal operands and bf16
-   x, flash_attention in bf16, manhattan_score);
+   ``ServeEngine`` (cim_fold once a served matrix at deploy, cim_mvm's
+   folded forms with read noise and bf16 x, flash_attention in bf16,
+   manhattan_score);
 5. xlstm-1.3b serving at its config dtype (bf16): random full-width
    weights (seed 0, all 48 layers), deploy (the reference deploys the
    mLSTM q/k/v) and greedy generation (slstm_scan in bf16,
@@ -47,7 +49,9 @@ greedy tokens equal to ``ServeEngine`` alone (a flip passes only
 inside the logits' tolerance, and is listed with its gap), and banks
 (cold, and warm from the manifest) bit-identical to ``ServeEngine``'s.
 The nonideal path must launch cim_mvm once a forward for every matrix
-its open lines did not degrade, give bit-identical tokens in two
+its open lines did not degrade, fold every such matrix bit-identically
+to the fold's plain version (the plain path itself reads the devices'
+state, never the fold), give bit-identical tokens in two
 ``generate`` calls with the same seeds, pass the bf16 checks above at
 one read seed, and hold its bf16 logits within 5e-2 x max|logit|.
 Plan caches live in a temporary directory removed at the end.
@@ -63,6 +67,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -130,7 +135,7 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                 "phi3-continuous": ("cim_mvm", "flash_attention",
                                     "manhattan_score"),
                 "export": ("bitslice_pack",),
-                "phi3-nonideal": ("cim_mvm", "flash_attention",
+                "phi3-nonideal": ("cim_mvm", "cim_fold", "flash_attention",
                                   "manhattan_score"),
                 "xlstm": ("slstm_scan", "manhattan_score")}
 # The paths each kernel record's form runs on (its launches are its
@@ -142,12 +147,13 @@ RECORD_PATHS = {
     "slstm_scan": (),                 # the xlstm path now serves bf16
     "bitslice_pack": ("export",),
     "flash_attention[bf16]": ("phi3-nonideal",),
+    "cim_fold": ("phi3-nonideal",),
     "slstm_scan[bf16]": ("xlstm",),
 }
 # Substrings of the port's CUDA kernel names, as the profiler shows them.
-PORT_KERNEL_NAMES = ("cim_decode", "cim_prefill", "flash_decode",
-                     "flash_prefill", "score_vec", "score_byte", "slstm_",
-                     "pack8_", "pack_kernel")
+PORT_KERNEL_NAMES = ("cim_decode", "cim_prefill", "cim_fold",
+                     "flash_decode", "flash_prefill", "score_vec",
+                     "score_byte", "slstm_", "pack8_", "pack_kernel")
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -217,10 +223,24 @@ def phase_card() -> str:
     return line
 
 
-def phase_build():
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name, e.g.
+    ``cim_decode_kernel<Li4ELb1>``: an identifier ending in ``kernel``
+    whose length prefixes it."""
+    for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?kernel))", mangled):
+        digits, ident = m.groups()
+        if int(digits) == len(ident):
+            rest = mangled[m.start() + len(digits) + len(ident):]
+            args = re.match(r"I(.*?)EE", rest)
+            return ident + (f"<{args.group(1)}>" if args else "")
+    return mangled
+
+
+def phase_build() -> dict:
     """Build the kernels; print, per compiled kernel, its target,
-    registers and spills (``-Xptxas -v``) and the tensor-core
-    instructions in its SASS (``cuobjdump``, where the toolkit has it)."""
+    registers and spills (``-Xptxas -v``), the tensor-core instructions
+    in its SASS and its SASS instruction count (``cuobjdump``, where the
+    toolkit has it).  Returns kernel name -> {"regs", "spill", "sass"}."""
     from repro_torch.kernels import runtime
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -232,19 +252,8 @@ def phase_build():
           f"{os.path.relpath(info['path'], ROOT)} in {dt:.1f} s "
           "(nvcc sm_90a, one process per source)")
 
-    def name(mangled: str) -> str:
-        """A kernel's name and template arguments from its mangled
-        name, e.g. ``cim_decode_kernel<Li4ELb1>``: an identifier ending
-        in ``kernel`` whose length prefixes it."""
-        for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?kernel))", mangled):
-            digits, ident = m.groups()
-            if int(digits) == len(ident):
-                rest = mangled[m.start() + len(digits) + len(ident):]
-                args = re.match(r"I(.*?)EE", rest)
-                return ident + (f"<{args.group(1)}>" if args else "")
-        return mangled
-
     mma: dict = {}
+    sass_n: dict = {}
     cuobjdump = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin",
                              "cuobjdump")
     if os.path.exists(cuobjdump):
@@ -255,25 +264,39 @@ def phase_build():
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = m.group(1)
-            elif fn and ("HMMA" in line or "HGMMA" in line):
+                sass_n[fn] = 0
+                continue
+            if fn and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line) \
+                    and " NOP" not in line:
+                sass_n[fn] += 1
+            if fn and ("HMMA" in line or "HGMMA" in line):
                 op = "HGMMA" if "HGMMA" in line else "HMMA"
                 mma.setdefault(fn, {}).setdefault(op, 0)
                 mma[fn][op] += 1
+    built: dict = {}
     kernel = None
     for line in info["log"].splitlines():
         m = re.search(r"entry function '(\S+)' for '(\w+)'", line)
         if m:
             kernel = m.group(1)
-            print(f"  {name(kernel)} for {m.group(2)}: "
-                  f"{mma.get(kernel, {}) or 'no tensor-core instructions'}",
-                  end="")
+            built[kernel_name(kernel)] = {"sass": sass_n.get(kernel)}
+            print(f"  {kernel_name(kernel)} for {m.group(2)}: "
+                  f"{mma.get(kernel, {}) or 'no tensor-core instructions'}, "
+                  f"{sass_n.get(kernel, '?')} SASS instructions", end="")
         elif kernel and ("registers" in line or "spill" in line):
             print("; " + line.split(":")[-1].strip(), end="")
+            entry = built[kernel_name(kernel)]
+            if "spill" in line:
+                entry["spill"] = sum(int(n) for n in re.findall(
+                    r"(\d+) bytes spill", line))
             if "registers" in line:
+                entry["regs"] = int(re.search(r"Used (\d+) registers",
+                                              line).group(1))
                 print()
                 kernel = None
-    print(f"  (SASS tensor-core counts from {os.path.basename(cuobjdump)}"
-          f"{'' if mma or os.path.exists(cuobjdump) else ': not found'})")
+    print(f"  (SASS counts from {os.path.basename(cuobjdump)}"
+          f"{'' if os.path.exists(cuobjdump) else ': not found'})")
+    return built
 
 
 def _deploy_random(I: int, N: int, seed: int):
@@ -388,27 +411,51 @@ def _bare_cim_launch(x, dep):
                         dep.codes.data_ptr() % 16 == 0)
     args = (x.data_ptr(), dep.codes.data_ptr(), dep.pos.data_ptr(),
             dep.scale.data_ptr(), out.data_ptr(), geom.array, dep.eta,
-            None, None, 0, 0, 0.0, runtime.stream_arg(out.device))
+            None, 0, 0, 0.0, runtime.stream_arg(out.device))
     launch = runtime.library().cim_mvm_launch
     return lambda: launch(*args)
 
 
-# Operations a weight of the read noise, counted at the f32 rate as the
-# other integer work here.  One Philox4x32-10 call (10 rounds of 2 high
-# and 2 low 32-bit products, 4 xors and 2 key adds: 100) gives four
-# weights their words: 25 a weight.  One Box-Muller (2 shifts, 2
-# int->float conversions, 2 FMAs, log, sqrt, sincospi and 4 multiplies:
-# ~15) gives two normals: 8 a weight.  Scaling eps and adding it to W':
-# 2.  So 35 a weight, each weight's noise drawn once whatever M.
-NOISE_OPS = 35
+# Operations a weight of the read noise before the SASS count: one
+# Philox4x32-10 call (10 rounds of 2 high and 2 low 32-bit products, 4
+# xors and 2 key adds: 100) for four weights, one Box-Muller (~15) for
+# two normals, and 2 to scale eps and add it: 35 a weight, the estimate
+# the unfolded forms' bounds used.  The run replaces it by the count from
+# the SASS (:func:`noise_ops`).
+NOISE_OPS_ESTIMATE = 35
 NONIDEAL_FORMS = ("gain", "colpos", "noise", "all")
+
+
+def noise_ops(built: dict) -> tuple[float, dict]:
+    """SASS instructions a weight of the read noise, counted at the f32
+    rate as the other integer work here: the SASS of the folded forms
+    with noise less the SASS of the same forms without, over the weights
+    whose noise their unrolled code draws (the decode form at MT = 4:
+    2 rows a step, 8 columns each; the prefill form: 8 pieces of a slab,
+    4 weights each).  The decode form's count is the one used; the
+    estimate where no SASS was read."""
+    counts = {}
+    for name, pair, weights in (
+            ("decode", ("cim_decode_folded_kernel<Li4ELb1>",
+                        "cim_decode_folded_kernel<Li4ELb0>"), 2 * 8),
+            ("prefill", ("cim_prefill_folded_kernel<Lb1>",
+                         "cim_prefill_folded_kernel<Lb0>"), 8 * 4)):
+        n = [built.get(k, {}).get("sass") for k in pair]
+        if None not in n:
+            counts[name] = (n[0] - n[1]) / weights
+    ops = counts.get("decode", NOISE_OPS_ESTIMATE)
+    print(f"  read noise: {counts or 'no SASS'} SASS instructions a weight "
+          f"(noise form less noiseless form, over the weights drawn); "
+          f"bounds use {ops:.2f} (the earlier estimate: "
+          f"{NOISE_OPS_ESTIMATE})")
+    return ops, counts
 
 
 def _nonideal_dep(I: int, N: int, form: str, seed: int):
     """A deployment of a random (I, N) matrix with phi3's spec carrying
     the operands of ``form``: a log-normal gain (sigma 0.05), the
     bitline permutation of the X-CHANGR column sort, read noise
-    (sigma_read 0.01, tag 3)."""
+    (sigma_read 0.01, tag 3); not folded."""
     from repro_torch.configs.phi3_mini_38b import CONFIG
     from repro_torch.deploy import spec_from_config
     from repro_torch.kernels.cim_mvm import deploy
@@ -427,39 +474,117 @@ def _nonideal_dep(I: int, N: int, form: str, seed: int):
     return dataclasses.replace(dep, **extra)
 
 
-def _check_cim_nonideal(g) -> list[dict]:
-    """cim_mvm's nonideal-operand forms (gain, column permutation,
-    in-kernel read noise, all three) at phi3's shapes and the paths' row
-    counts, x in bf16 as the bf16 engines give it: against the plain
-    version on the same read seed, device time beside ``x @ W_eff``
+def _operand_bytes(dep) -> int:
+    """Bytes of a deployment's unfolded operands: codes, pos, gain and
+    col_pos (what the unfolded nonideal forms read)."""
+    return sum(t.numel() * t.element_size()
+               for t in (dep.codes, dep.pos, dep.gain, dep.col_pos)
+               if t is not None)
+
+
+def _occupancy(built: dict, kernel: str, geom) -> dict:
+    """``kernel``'s registers and spills (this run's ``-Xptxas -v``) and
+    its occupancy at ``geom``'s launch, from the CUDA runtime's occupancy
+    calculator in the built library (``ops.occupancy``): blocks a SM and,
+    for a cluster launch, clusters the card holds at once."""
+    from repro_torch.kernels.cim_mvm.ops import occupancy
+
+    return dict(kernel=kernel, registers=built.get(kernel, {}).get("regs"),
+                spill_bytes=built.get(kernel, {}).get("spill"),
+                **occupancy(geom))
+
+
+def _occ_text(occ: dict) -> str:
+    return (f"{occ['registers']} registers, {occ['blocks_per_sm']} blocks "
+            f"a SM" + (f", {occ['clusters']} clusters on the card"
+                       if occ["clusters"] else ""))
+
+
+def _check_cim_fold(built: dict) -> dict:
+    """The fold kernel (W'(col_pos) * gain, once a deployment) on phi3's
+    three matrix shapes with every operand: bit for bit against its plain
+    version, device time a matrix beside its byte bound and the plain
+    version's time.  No single PyTorch call computes it."""
+    from repro_torch.kernels.cim_mvm.ops import fold_geometry, fold_weights
+    from repro_torch.kernels.cim_mvm.ref import folded_weights
+
+    regimes = {}
+    for (I, N) in ((3072, 8192), (3072, 3072), (8192, 3072)):
+        dep = _nonideal_dep(I, N, "all", I + N)
+        got = fold_weights(dep)
+        want = folded_weights(dep)
+        torch.cuda.synchronize()
+        exact = torch.equal(got, want)
+        ms = device_ms(lambda: fold_weights(dep))
+        plain_ms = cuda_ms(lambda: folded_weights(dep), iters=3)
+        n_bytes = _operand_bytes(dep) + 4 + got.numel() * 4
+        b_ms, b_by = bound(n_bytes, 0.0)
+        rows = dep.codes.shape[0] // dep.col_pos.shape[0]
+        geom = fold_geometry(*dep.codes.shape, dep.wpt, dep.n_bits,
+                             dep.cols, dep.reversed_df, True, rows)
+        occ = _occupancy(built, f"cim_fold_kernel<Lb{geom.fast}ELb"
+                                f"{int(geom.rows > 0)}>", geom)
+        print(f"cim_fold {I}x{N} (gain, col_pos): bit-identical to the "
+              f"plain version {'ok' if exact else 'FAIL'}; kernel {ms:.4f} "
+              f"ms a matrix, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}, {n_bytes / 1e6:.1f} MB); {_occ_text(occ)}")
+        if not exact:
+            raise AssertionError(f"cim_fold differs from its plain version "
+                                 f"at {I}x{N}")
+        regimes[f"{I}x{N}"] = dict(max_abs_err=0.0, ms=ms,
+                                   plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=None, **occ)
+        del dep, got, want
+    return dict(name="cim_fold", route="cuda",
+                source="src/repro_torch/kernels/cim_mvm/kernel.cu",
+                replaces="src/repro/kernels/cim_mvm/xla.py:101 "
+                         "(cim_effective_weights * gain in cim_mvm_xla; "
+                         "not a TPU kernel)",
+                **{k: v for k, v in regimes["3072x8192"].items()
+                   if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")},
+                regimes=regimes)
+
+
+def _check_cim_nonideal(g, built: dict) -> list[dict]:
+    """cim_mvm's folded forms on deployments with nonideal operands (gain,
+    column permutation, in-kernel read noise, all three) at phi3's shapes
+    and the paths' row counts, x in bf16 as the bf16 engines give it: the
+    kernel on the folded deployment against the plain version on the
+    unfolded one at the same read seed, device time beside ``x @ W_eff``
     (the f32 W' with gain and noise materialised).  One record for the
     decode form (M = B, cold) and one for the prefill form (M = B *
-    PROMPT), each with every form and shape as a regime."""
-    from repro_torch.kernels.cim_mvm.ops import DECODE_MAX_M, cim_mvm
+    PROMPT), each with every form and shape as a regime, its registers
+    and blocks a SM."""
+    from repro_torch.kernels.cim_mvm.ops import (
+        DECODE_MAX_M,
+        _sm_count,
+        cim_geometry,
+        cim_mvm,
+        fold,
+    )
     from repro_torch.kernels.cim_mvm.ref import (
         cim_mvm_plain,
         deployment_weights,
     )
 
+    n_ops, _ = noise_ops(built)
     seed = 21
     regimes = {"decode": {}, "prefill": {}}
     for (I, N) in ((3072, 8192), (3072, 3072), (8192, 3072)):
         for form in NONIDEAL_FORMS:
             if (I, N) != (3072, 8192) and form != "all":
                 continue
-            dep = _nonideal_dep(I, N, form, I + N)
-            w_eff = deployment_weights(dep, seed)
-            dep_bytes = (dep.codes.numel() * 2 + dep.pos.numel() * 4
-                         + (0 if dep.gain is None else dep.gain.numel() * 4)
-                         + (0 if dep.col_pos is None
-                            else dep.col_pos.numel() * 4))
+            raw = _nonideal_dep(I, N, form, I + N)
+            dep = fold(raw)
+            w_eff = deployment_weights(raw, seed)
+            old_bytes = _operand_bytes(raw)
+            dep_bytes = dep.folded.numel() * 4
             n_dep = max(2, -(-COLD_BYTES // dep_bytes))
-            deps = [dep] + [dataclasses.replace(
-                dep, codes=dep.codes.clone(), pos=dep.pos.clone(),
-                scale=dep.scale.clone(),
-                gain=None if dep.gain is None else dep.gain.clone(),
-                col_pos=None if dep.col_pos is None else dep.col_pos.clone())
-                for _ in range(n_dep - 1)]
+            deps = [dep]
+            for _ in range(n_dep - 1):
+                deps.append(dataclasses.replace(dep))
+                deps[-1].folded = dep.folded.clone()
             n_w = max(2, -(-COLD_BYTES // (w_eff.numel() * 4)))
             ws = [w_eff] + [w_eff.clone() for _ in range(n_w - 1)]
             rows = ((1, B, CAPACITY, CONT_PROMPT, B * PROMPT)
@@ -469,37 +594,54 @@ def _check_cim_nonideal(g) -> list[dict]:
                     torch.bfloat16)
                 xf = x.float()
                 y_k = cim_mvm(x, dep, seed)
-                y_p = cim_mvm_plain(x, dep, seed)
+                y_p = cim_mvm_plain(x, raw, seed)
                 torch.cuda.synchronize()
                 err = (y_k - y_p).abs().max().item()
                 ref = y_p.abs().max().item()
                 ok = err <= CIM_TOL * ref
                 ms = device_ms(lambda: cim_mvm(x, dep, seed))
-                plain_ms = cuda_ms(lambda: cim_mvm_plain(x, dep, seed),
+                plain_ms = cuda_ms(lambda: cim_mvm_plain(x, raw, seed),
                                    iters=3)
                 lib_ms = device_ms(lambda: xf @ w_eff)
-                n_bytes = x.numel() * 2 + dep_bytes + 4 + M * N * 4
+                io = x.numel() * 2 + 4 + M * N * 4
+                n_bytes, unf_bytes = io + dep_bytes, io + old_bytes
                 flops = 2.0 * M * I * N
-                extra_ops = NOISE_OPS * I * N if dep.sigma_read else 0.0
+                extra_ops = n_ops * I * N if dep.sigma_read else 0.0
                 b_ms, b_by = bound(n_bytes, flops + extra_ops)
-                # Prefill: the products on the tensor cores (3xTF32), the
+                # Prefill: the products on the tensor cores (3xTF32 with
+                # f32 x; bf16 x has no lo part: 2 TF32 products), the
                 # noise on the CUDA cores beside them.
                 t_b, t_tc, t_alu = (n_bytes / PEAK_BYTES,
-                                    3 * flops / PEAK_TF32,
+                                    2 * flops / PEAK_TF32,
                                     extra_ops / PEAK_F32)
                 tc_ms = max(t_b, t_tc, t_alu) * 1e3
                 tc_by = "bytes" if t_b >= max(t_tc, t_alu) else "operations"
+                decode = M <= DECODE_MAX_M
+                geom = cim_geometry(M, I, N, *dep.codes.shape, dep.wpt,
+                                    dep.n_bits, dep.cols, dep.reversed_df,
+                                    _sm_count(0), True, True, True,
+                                    bool(dep.sigma_read))
+                noise = int(bool(dep.sigma_read))
+                kname = (f"cim_decode_folded_kernel<Li{geom.mt}ELb{noise}>"
+                         if geom.form == 2
+                         else f"cim_prefill_folded_kernel<Lb{noise}>")
+                occ = _occupancy(built, kname, geom)
                 line = (f"cim_mvm[{form}] M={M:4d} I={I} N={N} x bf16: "
                         f"max_abs_err {err:.3e} (tol {CIM_TOL:g} x max|y| "
                         f"{ref:.3e}) {'ok' if ok else 'FAIL'}; kernel "
                         f"{ms:.4f} ms warm, plain {plain_ms:.4f} ms, "
                         f"x @ W_eff {lib_ms:.4f} ms warm; bound {b_ms:.4f} "
-                        f"ms ({b_by}, f32), {tc_ms:.4f} ms ({tc_by}, "
-                        f"3xTF32 products)")
+                        f"ms ({b_by}, f32; {n_bytes / 1e6:.1f} MB; the "
+                        f"unfolded operands {unf_bytes / 1e6:.1f} MB, "
+                        f"{unf_bytes / PEAK_BYTES * 1e3:.4f} ms), "
+                        f"{tc_ms:.4f} ms ({tc_by}, TF32 products); "
+                        f"{_occ_text(occ)}")
                 rec = dict(M=M, I=I, N=N, max_abs_err=err, ms=ms,
                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                           library_ms=lib_ms)
-                decode = M <= DECODE_MAX_M
+                           library_ms=lib_ms,
+                           bound_unfolded_bytes_ms=unf_bytes / PEAK_BYTES
+                           * 1e3,
+                           **occ)
                 if decode:
                     cold = device_ms(lambda d: cim_mvm(x, d, seed), args=deps)
                     lib_cold = device_ms(lambda w: xf @ w, args=ws)
@@ -516,7 +658,18 @@ def _check_cim_nonideal(g) -> list[dict]:
                                          f"M={M} I={I} N={N}")
                 regimes["decode" if decode else "prefill"][
                     f"{form} M={M} {I}x{N}"] = rec
-            del dep, deps, w_eff, ws
+            if form == "all" and (I, N) == (3072, 8192):
+                xb = torch.randn((B, I), generator=g, device="cuda").to(
+                    torch.bfloat16)
+                same = all(torch.equal(cim_mvm(xs, dep, seed),
+                                       cim_mvm(xs, dep, seed))
+                           for xs in (xb, torch.cat([xb] * PROMPT)))
+                print(f"  read noise bit-identical across two calls "
+                      f"(M = {B}, {B * PROMPT}): {'ok' if same else 'FAIL'}")
+                if not same:
+                    raise AssertionError("two noisy reads with one seed "
+                                         "differ")
+            del dep, raw, deps, w_eff, ws
     out = []
     for form, key in (("decode", f"all M={B} 3072x8192"),
                       ("prefill", f"all M={B * PROMPT} 3072x8192")):
@@ -526,7 +679,7 @@ def _check_cim_nonideal(g) -> list[dict]:
             name=f"cim_mvm[gain+col_pos+read_noise, bf16 x, {form}]",
             route="cuda", source="src/repro_torch/kernels/cim_mvm/kernel.cu",
             replaces="src/repro/kernels/cim_mvm/kernel.py:82", **main,
-            regimes=regimes[form]))
+            regimes=regimes[form], noise_ops=n_ops))
     return out
 
 
@@ -664,8 +817,9 @@ def _check_flash(g, dtype=torch.float32) -> dict:
                 regimes=regimes)
 
 
-def phase_kernels() -> list[dict]:
-    """Each kernel against its plain version at the slice's shapes."""
+def phase_kernels(built: dict) -> list[dict]:
+    """Each kernel against its plain version at the slice's shapes;
+    ``built``: registers and SASS counts (:func:`phase_build`)."""
     from repro_torch.kernels.manhattan_score.ops import manhattan_score
     from repro_torch.kernels.manhattan_score.ref import manhattan_score_plain
     from repro_torch.core.bitslice import codes_to_bits, quantize_magnitude
@@ -676,7 +830,8 @@ def phase_kernels() -> list[dict]:
 
     records.append(_check_manhattan(g))
     records.append(_check_slstm_scan(g))
-    records += _check_cim_nonideal(g)
+    records.append(_check_cim_fold(built))
+    records += _check_cim_nonideal(g, built)
     records.append(_check_flash(g, torch.bfloat16))
     records.append(_check_slstm_scan(g, torch.bfloat16))
     return records
@@ -1053,6 +1208,19 @@ def phase_export(eng) -> tuple[dict, dict]:
                 bound_by=b_by, library_ms=None), counts
 
 
+def _plain_ops():
+    """The plain versions of a forward's kernels (``PLAIN``), every
+    deployment read from the devices' state (codes, pos, gain, col_pos):
+    ``dataclasses.replace`` drops the fold, so a check's reference never
+    reads the fold kernel's output."""
+    from repro_torch.models.model import PLAIN, Ops
+
+    def matmul(x, dep, read_seed=None):
+        return PLAIN.matmul(x, dataclasses.replace(dep), read_seed)
+
+    return Ops(matmul, PLAIN.attention, PLAIN.slstm_scan)
+
+
 def phase_compare(eng, prompts, tokens):
     """Kernel path vs plain path.  f32: teacher-forced logits within
     LOGIT_TOL x max|logit|, greedy tokens listed.  bf16: every kernel
@@ -1061,10 +1229,8 @@ def phase_compare(eng, prompts, tokens):
     LOGIT_TOL (:func:`_check_f32`), and the bf16 paths' logits and
     greedy tokens printed beside each other (no bound: module
     constants)."""
-    from repro_torch.models.model import PLAIN
-
     plain_eng = copy.copy(eng)           # same params and deployments
-    plain_eng.ops = PLAIN
+    plain_eng.ops = _plain_ops()
     seq = torch.cat([prompts.cuda(), tokens.long()], 1)[:, :PROMPT + NEW - 1]
     V = eng.cfg.vocab_size       # padded columns sit at -1e9; left out
     f32 = eng.cfg.dtype == "float32"
@@ -1105,11 +1271,16 @@ def _checked_ops(worst: dict):
     gathers (calls, largest |kernel - plain| / its limit).  The limits
     are the kernel checks': CIM_TOL x max|plain| for cim_mvm (f32
     outputs), FLASH_TOL and SLSTM_TOL x (1 + |plain|) plus one bf16 ulp
-    for bf16 outputs.  The kernel's result flows on."""
-    from repro_torch.models.model import KERNELS, PLAIN, Ops
+    for bf16 outputs; cim_mvm's reference reads no fold
+    (:func:`_plain_ops`).  The kernel's result flows on."""
+    from repro_torch.models.model import KERNELS, Ops
+
+    plain = _plain_ops()
 
     def held(name, got, want, limit):
         r = ((got.float() - want.float()).abs() / limit).max().item()
+        if not math.isfinite(r):        # a NaN or inf is off any limit
+            r = math.inf
         n, w = worst.get(name, (0, 0.0))
         worst[name] = (n + 1, max(w, r))
 
@@ -1120,19 +1291,19 @@ def _checked_ops(worst: dict):
 
     def matmul(x, dep, read_seed=None):
         y = KERNELS.matmul(x, dep, read_seed)
-        p = PLAIN.matmul(x, dep, read_seed)
+        p = plain.matmul(x, dep, read_seed)
         held("cim_mvm", y, p, CIM_TOL * p.abs().max().clamp_min(1e-30))
         return y
 
     def attention(q, k, v, q_pos, k_pos, window, chunk):
         o = KERNELS.attention(q, k, v, q_pos, k_pos, window, chunk)
-        p = PLAIN.attention(q, k, v, q_pos, k_pos, window, chunk)
+        p = plain.attention(q, k, v, q_pos, k_pos, window, chunk)
         held("flash_attention", o, p, elementwise(FLASH_TOL, p))
         return o
 
     def scan(gx, r, h0, c0):
         out = KERNELS.slstm_scan(gx, r, h0, c0)
-        for a, p in zip(out, PLAIN.slstm_scan(gx, r, h0, c0)):
+        for a, p in zip(out, plain.slstm_scan(gx, r, h0, c0)):
             held("slstm_scan", a, p, elementwise(SLSTM_TOL, p))
         return out
 
@@ -1149,7 +1320,8 @@ def _check_calls(eng, seq, path: str, seed: int = 0) -> torch.Tensor:
     checked = copy.copy(eng)
     checked.ops = _checked_ops(worst)
     logits = checked.teacher_forced_logits(seq, PROMPT, seed=seed)
-    want = [k for k in PATH_KERNELS[path] if k != "manhattan_score"]
+    want = [k for k in PATH_KERNELS[path]
+            if k not in ("manhattan_score", "cim_fold")]   # deploy only
     print(f"  kernel calls of a teacher-forced pass ({eng.cfg.dtype}, "
           f"{seq.shape[1] - PROMPT} decode steps), each against its plain "
           f"version on the same inputs: " + ", ".join(
@@ -1168,13 +1340,11 @@ def _check_f32(eng, seq, seed: int = 0) -> None:
     path, teacher-forced logits within LOGIT_TOL x max|logit|, and the
     argmax flips listed with the plain path's top-2 gap (a flip needs a
     gap within twice the error)."""
-    from repro_torch.models.model import PLAIN
-
     twin = copy.copy(eng)
     twin.cfg = eng.cfg.replace(dtype="float32")
     twin.params = _widen(eng.params)
     plain = copy.copy(twin)
-    plain.ops = PLAIN
+    plain.ops = _plain_ops()
     V = eng.cfg.vocab_size
     lk = twin.teacher_forced_logits(seq, PROMPT, seed=seed)[..., :V]
     lp = plain.teacher_forced_logits(seq, PROMPT, seed=seed)[..., :V]
@@ -1206,13 +1376,15 @@ def _widen(tree):
 def phase_nonideal(cfg, cache_dir: str) -> dict:
     """Full-width phi3-mini at its config dtype (bf16) on imperfect
     devices (``NONIDEAL``) under the ``spare_line`` mapping: deploy
-    through a cold plan cache (its stages timed), serve greedily, and
-    hold the kernel path against the plain path at one read seed, call
-    by call in bf16, end to end in f32, and its bf16 logits within
-    NONIDEAL_BF16_LOGIT_TOL x max|logit|."""
+    through a cold plan cache (its stages timed), hold every served
+    matrix's fold bit for bit against its plain version, serve greedily,
+    and hold the kernel path against the plain path (which reads no
+    fold) at one read seed, call by call in bf16, end to end in f32, and
+    its bf16 logits within NONIDEAL_BF16_LOGIT_TOL x max|logit|."""
     from repro_torch.deploy import PlanCache, deploy_model_params
     from repro_torch.kernels import runtime
-    from repro_torch.models.model import PLAIN, init_params
+    from repro_torch.kernels.cim_mvm.ref import folded_weights
+    from repro_torch.models.model import init_params
     from repro_torch.nonideal import NonidealModel
     from repro_torch.serve import ServeEngine
 
@@ -1261,15 +1433,41 @@ def phase_nonideal(cfg, cache_dir: str) -> dict:
           f"between stages): sample {sec.get('sample', 0.0):.2f} s, inject "
           f"{sec.get('inject', 0.0):.2f} s, plan {sec.get('plan', 0.0):.2f} s "
           f"(the plan cache and its fault-map draws included), package "
-          f"{sec.get('package', 0.0):.2f} s; "
+          f"{sec.get('package', 0.0):.2f} s (a fold launch a served "
+          f"matrix included); "
           f"{t_deploy - sum(sec.values()):.2f} s besides")
     for name, why in list(rep["degraded"].items())[:4]:
         print(f"  demoted {name}: {why}")
-    bank = sum(t.numel() * t.element_size()
-               for slot in eng.cim.values() for d in slot.values()
-               for t in (d.codes, d.pos, d.gain, d.col_pos) if t is not None)
-    print(f"  bank: {bank / 1e9:.2f} GB on the card (codes, pos, gain, "
-          f"col_pos); params {sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB")
+    size = lambda fields: sum(
+        t.numel() * t.element_size() for slot in eng.cim.values()
+        for d in slot.values() for t in (getattr(d, f) for f in fields)
+        if t is not None)
+    operands = size(("codes", "pos", "gain", "col_pos"))
+    folded = size(("folded",))
+    print(f"  bank: {(operands + folded) / 1e9:.2f} GB on the card: the "
+          f"folded W' * gain the reads take {folded / 1e9:.2f} GB, the "
+          f"devices' state kept beside it (codes, pos, gain, col_pos; "
+          f"the checks' plain reference reads it) {operands / 1e9:.2f} GB; "
+          f"params "
+          f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB")
+    n_folds = 0
+    for slot in eng.cim.values():
+        for d in slot.values():
+            for r in range(d.codes.shape[0]):
+                if d.degraded is not None and int(d.degraded[r]):
+                    continue
+                view = d.layer(r)
+                if view.folded is None or not torch.equal(
+                        view.folded, folded_weights(view)):
+                    raise AssertionError("a served matrix's fold differs "
+                                         "from its plain version")
+                n_folds += 1
+    if n_folds != n_mats - rep["n_degraded"]:
+        raise AssertionError(f"{n_folds} folds != {n_mats} matrices less "
+                             f"{rep['n_degraded']} degraded")
+    print(f"  the fold of every served matrix ({n_folds}) bit-identical to "
+          f"its plain version on the devices' state (codes, pos, gain, "
+          f"col_pos)")
 
     prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT),
                             generator=torch.Generator().manual_seed(1))
@@ -1297,8 +1495,13 @@ def phase_nonideal(cfg, cache_dir: str) -> dict:
                              f"{live} non-degraded matrices x {forwards} "
                              "forwards")
     print(f"  cim_mvm: {counts['cim_mvm']} launches = {live} non-degraded "
-          f"matrices x {forwards} forwards, each with gain, col_pos and "
-          f"read noise; {rep['n_degraded']} degraded served digitally")
+          f"matrices x {forwards} forwards, each through the folded forms "
+          f"with read noise; {rep['n_degraded']} degraded served "
+          f"digitally; cim_fold: {counts['cim_fold']} launches (one a "
+          f"served matrix, in the deploy's package stage)")
+    if counts["cim_fold"] != live:
+        raise AssertionError(f"cim_fold launches {counts['cim_fold']} != "
+                             f"{live} non-degraded matrices")
     phase_profile(eng, prompts, step * 1e3)
 
     again = eng.generate(prompts, NEW)
@@ -1316,7 +1519,7 @@ def phase_nonideal(cfg, cache_dir: str) -> dict:
         raise AssertionError("non-finite or misshapen logits")
     _check_f32(eng, seq, seed=5)
     plain_eng = copy.copy(eng)
-    plain_eng.ops = PLAIN
+    plain_eng.ops = _plain_ops()
     lp = plain_eng.teacher_forced_logits(seq, PROMPT, seed=5)[..., :V].float()
     err = (lk - lp).abs().max().item()
     ref = lp.abs().max().item()
@@ -1668,8 +1871,7 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32} (yardsticks in full f32)")
     t_start = time.perf_counter()
     card = phase_card()
-    phase_build()
-    records = phase_kernels()
+    records = phase_kernels(phase_build())
     # Plan caches live in fresh directories under TMPDIR, so every
     # deploy here starts cold and nothing outlives the run.
     with tempfile.TemporaryDirectory(prefix="chip_smoke_plans_") as tmp:

@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Time cim_mvm's forms at phi3-mini's shapes in one checkout of the port.
+
+    python3 cim_ab.py [--src DIR] [--label NAME]
+
+Imports ``repro_torch`` from ``DIR`` (default: the ``src`` beside this
+script), builds its kernels there and times its public ``cim_mvm`` on
+one CUDA card with ``chip_smoke.device_ms`` (decode rows cold, rotating
+over copies of the deployment larger than ``chip_smoke.COLD_BYTES``):
+
+* the ideal forms, x f32: 3072x8192 at M = 4, 128 and 512, 8192x3072 at
+  M = 128;
+* the nonideal forms, x bf16, on ``chip_smoke._nonideal_dep``'s
+  deployment with a gain, the X-CHANGR bitline permutation and read
+  noise: 3072x8192 and 8192x3072 at M = 4, 128 and 512, folded where the
+  checkout has ``ops.fold``.
+
+Prints one JSON line.  Run it for two checkouts in one call (parent,
+change, change, parent) to compare them on one card.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+import torch
+
+from chip_smoke import COLD_BYTES, _nonideal_dep, device_ms
+
+
+def copies(dep, nbytes: int) -> list:
+    """``dep`` and enough copies of it to exceed COLD_BYTES together."""
+    out = [dep]
+    for _ in range(max(2, -(-COLD_BYTES // nbytes)) - 1):
+        c = dataclasses.replace(dep, **{
+            f: getattr(dep, f).clone() for f in ("codes", "pos", "scale",
+                                                 "gain", "col_pos")
+            if getattr(dep, f) is not None})
+        if getattr(dep, "folded", None) is not None:
+            c.folded = dep.folded.clone()
+        out.append(c)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src"))
+    ap.add_argument("--label", default="")
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("cim_ab: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(a.src))
+    from repro_torch.configs.phi3_mini_38b import CONFIG
+    from repro_torch.deploy import spec_from_config
+    from repro_torch.kernels.cim_mvm import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {"label": a.label, "src": a.src,
+           "card": torch.cuda.get_device_name(0), "ms": {}}
+
+    def run(name, x, dep, nbytes, seed=None):
+        deps = copies(dep, nbytes) if x.shape[0] <= ops.DECODE_MAX_M \
+            else [dep]
+        out["ms"][name] = device_ms(lambda d: ops.cim_mvm(x, d, seed),
+                                    args=deps)
+
+    for (I, N), rows in (((3072, 8192), (4, 128, 512)),
+                         ((8192, 3072), (128,))):
+        w = torch.randn((I, N), generator=g, device="cuda") * 0.02
+        dep, _ = ops.deploy(w, spec_from_config(CONFIG), "mdm",
+                            eta=CONFIG.cim.eta)
+        for M in rows:
+            x = torch.randn((M, I), generator=g, device="cuda")
+            run(f"ideal M={M} {I}x{N}", x, dep,
+                dep.codes.numel() * 2 + dep.pos.numel() * 4)
+        del dep
+    for (I, N) in ((3072, 8192), (8192, 3072)):
+        dep = _nonideal_dep(I, N, "all", I + N)
+        if hasattr(ops, "fold"):
+            dep = ops.fold(dep)
+            nbytes = dep.folded.numel() * 4
+        else:
+            nbytes = sum(t.numel() * t.element_size() for t in (
+                dep.codes, dep.pos, dep.gain, dep.col_pos))
+        for M in (4, 128, 512):
+            x = torch.randn((M, I), generator=g, device="cuda").to(
+                torch.bfloat16)
+            run(f"nonideal M={M} {I}x{N}", x, dep, nbytes, 21)
+        del dep
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

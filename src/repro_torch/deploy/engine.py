@@ -16,9 +16,11 @@ width would not fit the card — or taken from a ``cells`` mapping (the
 seam the parity tests feed the reference's draws through).  Known
 stuck cells steer the fault-consuming mapping passes and key their
 plans; packaging folds stuck bits into the codes and variation and
-drift into the deployment's ``gain``, and counts the programmed bits
-that line opens still hold after the remap (``degraded``).  The
-lifetime and health parts of the reference come with a later slice.
+drift into the deployment's ``gain``, counts the programmed bits that
+line opens still hold after the remap (``degraded``), and folds each
+served matrix's W'(col_pos) * gain once (``CimDeployment.folded``, the
+fold kernel on the card), which its reads take instead of the codes.
+The lifetime and health parts of the reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -261,6 +263,23 @@ def _stack(reps: int, dep: CimDeployment, dev) -> CimDeployment:
         noise_tag=new(dep.noise_tag, "cpu"), sigma_read=dep.sigma_read)
 
 
+def _put(stacked: CimDeployment, r: int, dep: CimDeployment) -> None:
+    """Repeat ``r`` of ``stacked`` from ``dep``.  The folded W' * gain is
+    allocated at the slot's first served (non-degraded) repeat; a
+    degraded repeat's stays zero (its reads are digital)."""
+    for f in ("codes", "pos", "scale", "gain", "col_pos", "degraded",
+              "noise_tag"):
+        if getattr(dep, f) is not None:
+            getattr(stacked, f)[r].copy_(getattr(dep, f))
+    if dep.folded is not None:
+        if stacked.folded is None:
+            reps = stacked.codes.shape[0]
+            stacked.folded = torch.zeros((reps,) + tuple(dep.folded.shape),
+                                         dtype=torch.float32,
+                                         device=dep.folded.device)
+        stacked.folded[r].copy_(dep.folded)
+
+
 def deploy_model_params(params: dict, cfg: ModelConfig,
                         cache: PlanCache | None = None,
                         device: str | torch.device = "cuda",
@@ -363,11 +382,7 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
         slot_deps = cim_tree.setdefault(slot, {})
         if pname not in slot_deps:
             slot_deps[pname] = _stack(params[slot][pname].shape[0], dep, dev)
-        stacked = slot_deps[pname]
-        for f in ("codes", "pos", "scale", "gain", "col_pos", "degraded",
-                  "noise_tag"):
-            if getattr(dep, f) is not None:
-                getattr(stacked, f)[r].copy_(getattr(dep, f))
+        _put(slot_deps[pname], r, dep)
     for i, bt in enumerate(cfg.block_pattern):
         cim_tree.setdefault(f"slot{i}_{bt}", {})
     b, a = float(nf_before), float(nf_after)

@@ -51,32 +51,38 @@
 // on the H100 (PERF.md): ~200 registers a thread leave one block (8
 // warps) a SM, and that ALU work, not the tensor cores, sets the pace.
 //
-// Nonideal-device operands (the reference applies them in its fused XLA
-// path only, src/repro/kernels/cim_mvm/xla.py::cim_mvm_xla; here both
-// forms take them, so nothing falls back to a plain path):
-//   W' = sign*scale*[(1 + eta*p)*M0 + eta*M1] * gain + nz * eps(i, n)
-// * gain (I_pad, N_pad) f32 is read beside the codes (the decode form
-//   loads it with the codes, the prefill form stages it in its ring when
-//   shared memory allows, else reads it from L2); it multiplies W' after
-//   the expansion, as the reference does.
-// * col_pos (Ti, Tn, cols) int32 moves bit k of weight n to the physical
-//   bitline col_pos[ti, tn, col(n, k)]: M1 * 2^K = sum_k b_k col_pos_k
-//   2^(K-1-k), an exact integer below cols * 2^K, so W' stays bit-identical
-//   to the plain version.  The eta*M1 table assumes the fixed layout and
-//   is not used; the tiles a block touches are loaded into shared memory
-//   (the decode form once, the prefill form a slab at a time, in its
-//   ring) in dataflow order, so a weight's K entries are contiguous and
-//   (K = 8) come in two 16-byte loads.
-// * Read noise: eps(i, n) is a standard normal from a counter-based
-//   Philox4x32-10 written into the kernel (key = (read_seed, noise_tag),
-//   counter = (i, n >> 2, 0, 0); Box-Muller on the top 24 bits of words
-//   0, 1 and of words 2, 3 gives four normals, one a column n & 3), a
-//   function of (read_seed, tag, i, n) alone: every row of x sees the
-//   same W' in one read, whatever M, form or block shape.
-//   nz = (sigma_read * agg) * scale with agg = sqrt((1 - 4^-K) / 3).  No
-//   eps tensor exists in device memory.  The plain version (ref.py)
-//   computes the same Philox words in int64 arithmetic, so the uniforms
-//   are bit-identical; the normal differs by the last bits of log / cos.
+// Nonideal devices (the reference applies their operands in its fused
+// XLA path only, src/repro/kernels/cim_mvm/xla.py::cim_mvm_xla):
+//   W_eff = W'(col_pos) * gain + nz * eps(i, n)
+// * The deterministic part, Wg = W'(col_pos) * gain, is folded once a
+//   deployment by the fold kernel below (cim_fold_kernel, at deploy):
+//   with an f32 gain it costs the same 4 bytes a weight that the gain
+//   alone would, and it takes the expansion and the col_pos moment off
+//   every read.  col_pos (Ti, Tn, cols) int32 moves bit k of weight n to
+//   the physical bitline col_pos[ti, tn, col(n, k)]: M1 * 2^K = sum_k b_k
+//   col_pos_k 2^(K-1-k), an exact integer below cols * 2^K, and the rest
+//   of the expansion is the ideal forms' rounded operations, so Wg is
+//   bit-identical to the plain version's W' * gain.
+// * Read noise is the only part that depends on the read: eps(i, n) is a
+//   standard normal from a counter-based Philox4x32-10 written into the
+//   kernel (key = (read_seed, noise_tag), counter = (i, n >> 2, 0, 0);
+//   Box-Muller on the top 24 bits of words 0, 1 and of words 2, 3 gives
+//   four normals, one a column n & 3), a function of (read_seed, tag, i,
+//   n) alone: every row of x sees the same W_eff in one read, whatever M,
+//   form or block shape.  nz = (sigma_read * agg) * scale with agg =
+//   sqrt((1 - 4^-K) / 3).  No eps tensor exists in device memory.  The
+//   plain version (ref.py) computes the same Philox words in int64
+//   arithmetic, so the uniforms are bit-identical; the normal differs by
+//   the last bits of log / cos (here the SFU's __logf and __sincosf).
+// * Two forms read Wg (f32, rows of ``ld`` floats, ld a multiple of 8):
+//   the folded decode form (M <= 16) keeps the decode form's layout and
+//   cluster reduction, a thread's 8 columns in two 16-byte loads a row
+//   and their noise in two Philox calls a row; the folded prefill form
+//   stages BK x BN slabs of Wg by cp.async beside x and adds the noise in
+//   one cooperative pass a slab (one Philox call for four consecutive
+//   columns of a slab row, four a thread a slab), overlapped with the
+//   products of the slab before.  With bf16 x the TF32 lo part of x is
+//   exactly zero, so that product is skipped: two wgmma a k step.
 // x may be f32 or bf16 (read directly, exact in f32); y is f32.
 //
 // Rounding.  M0 and M1 are exact (integers times 2^-K); the rest of the
@@ -103,25 +109,32 @@ constexpr int PF_BM = 128;     // prefill: rows of x a block
 constexpr int PF_BN = 128;     // prefill: columns a block
 constexpr int PF_BK = 32;      // prefill: rows of I a step
 constexpr int PF_STAGES = 3;   // prefill: ring of staged slabs
-constexpr int PF_GLD = PF_BN + 8;  // prefill: staged gain row (floats)
-// Geom.ext bits: which nonideal operands the call carries.
-constexpr int EXT_GAIN = 1, EXT_COLP = 2, EXT_NOISE = 4;
-constexpr int EXT_GAIN_STAGED = 8;  // prefill: gain staged in the ring
+constexpr int PF_WLD = PF_BN + 8;  // folded prefill: a staged row of Wg
+constexpr int FOLD_COLS = 256;     // fold: columns a block (32 threads of 8)
+// Geom.form: the ideal decode and prefill forms, the folded ones, the fold.
+constexpr int FORM_DECODE = 0, FORM_PREFILL = 1, FORM_DECODE_FOLDED = 2,
+              FORM_PREFILL_FOLDED = 3, FORM_FOLD = 4;
 
-// Launch geometry, computed by ops.py::cim_geometry (same order).
+// Launch geometry, computed by ops.py::cim_geometry / fold_geometry (same
+// order).  ``gz``: the folded prefill form's split of I (a cluster of gz
+// blocks, 1 elsewhere); ``ld``: the row stride of Wg (folded forms and
+// the fold);
+// ``noise``: the read draws noise; ``rows``, ``n_ti``, ``cp_ti``,
+// ``cp_tn``: the fold's col_pos tiles.
 struct Geom {
   int form, M, I, N, n_pad, n_tiles, wpt, n_bits, cols, reversed, fast,
-      tile, rps, gx, gy, smem, off_t, off_p, mt, xbf16, ext, rows, n_ti,
-      cp_ti, cp_tn;
+      tile, rps, gx, gy, gz, smem, off_t, off_p, mt, xbf16, ld, noise, rows,
+      n_ti, cp_ti, cp_tn;
 };
 
-// The nonideal operands: gain (strided like the codes) or null, col_pos
-// (n_ti, n_tiles, cols) or null, the read noise's Philox key and its
-// amplitude sigma_read * agg before the scale (0: no noise).
-struct Ext {
-  const float* gain;
-  const int32_t* colp;
-  uint32_t seed, tag;
+// The read noise: Philox4x32-10's round keys for key (read_seed, tag),
+// k0[r] = read_seed + r * 0x9E3779B9 and k1[r] = tag + r * 0xBB67AE85
+// (mod 2^32), made once a launch on the host so that a round reads them
+// as kernel parameters, and the amplitude sigma_read * agg before the
+// scale.
+constexpr int PHILOX_ROUNDS = 10;
+struct Noise {
+  uint32_t k0[PHILOX_ROUNDS], k1[PHILOX_ROUNDS];
   float nsig;
 };
 
@@ -167,6 +180,44 @@ __device__ __forceinline__ float row_factor(int p, float eta) {
   return __fadd_rn(1.0f, __fmul_rn(eta, (float)p));
 }
 
+// The eta*M1 table: for each slot (n mod wpt) a row of 2^K floats, entry
+// mag holding eta * M1(mag), computed with the same rounded operations
+// as expand_row.
+__device__ void build_table(float* table, int wpt, int n_bits, int cols,
+                            int reversed, float eta, float unit) {
+  const int n_mag = 1 << n_bits;
+  for (int e = threadIdx.x; e < wpt * n_mag; e += blockDim.x) {
+    int slot = e >> n_bits, mag = e & (n_mag - 1);
+    table[e] = __fmul_rn(
+        eta, __fmul_rn((float)m1_int(mag, slot * n_bits, n_bits, cols,
+                                     reversed), unit));
+  }
+}
+
+// Slot ``slot``'s table row, indexed by the magnitude.
+__device__ __forceinline__ const float* table_row(const float* table,
+                                                  int slot, int n_bits) {
+  return table + (slot << n_bits);
+}
+
+// The same W' from the row factor 1 + eta*p, the slot's table row and
+// the code: M0 = mag * 2^-K through the bits of 2^23 + mag (exact for
+// mag < 2^23, one FFMA instead of an int->float conversion), and the
+// sign applied by flipping the sign bit (round-to-nearest is symmetric,
+// so -scale * m == -(scale * m) bit for bit).
+__device__ __forceinline__ float expand_fast(int code, float row,
+                                             const float* tab_row,
+                                             float unit, float scale) {
+  int mag = abs(code);
+  float m0 = __fmaf_rn(__int_as_float(0x4B000000 | mag), unit,
+                       -8388608.0f * unit);
+  float mag_eff = __fadd_rn(__fmul_rn(row, m0), tab_row[mag]);
+  return __int_as_float(__float_as_int(__fmul_rn(scale, mag_eff)) ^
+                        (code & 0x80000000));
+}
+
+// ------------------------------------------------------------ the fold
+
 // A tile's row of col_pos entries in shared memory: cols rounded up to 4,
 // plus 4, so rows start on 16 bytes (two 16-byte loads fetch a weight's 8
 // entries) and the lanes of a warp reading neighbouring tiles spread over
@@ -206,140 +257,251 @@ __device__ __forceinline__ float expand_colp(int code, float row,
   return __fmul_rn(sgn_scale, mag_eff);
 }
 
-// Two standard normals from two 32-bit words: Box-Muller on their top 24
-// bits (u1 in (0, 1), so the log is finite), r cos(2 pi u2) and
-// r sin(2 pi u2).
-__device__ __forceinline__ void box_muller(uint32_t a, uint32_t b,
-                                           float& z0, float& z1) {
-  const float u1 = ((float)(a >> 8) + 0.5f) * 5.9604644775390625e-08f;
-  const float u2 = ((float)(b >> 8) + 0.5f) * 5.9604644775390625e-08f;
-  const float r = sqrtf(-2.0f * logf(u1));
-  float s, c;
-  sincospif(2.0f * u2, &s, &c);
-  z0 = r * c;
-  z1 = r * s;
-}
-
-// Four standard normals from one Philox4x32-10 call at key (k0, k1) and
-// counter (c0, c1, 0, 0): words 0, 1 give z[0], z[1] and words 2, 3 give
-// z[2], z[3].  The read noise of weight (i, n) is z[n & 3] at counter
-// (i, n >> 2): four neighbouring columns share a call.
-__device__ __forceinline__ void philox_normal4(uint32_t k0, uint32_t k1,
-                                               uint32_t c0, uint32_t c1,
-                                               float (&z)[4]) {
-  uint32_t c2 = 0, c3 = 0;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  box_muller(c0, c1, z[0], z[1]);
-  box_muller(c2, c3, z[2], z[3]);
-}
-
-// eps(i, n) alone (a thread that needs one weight of a group of four).
-__device__ __forceinline__ float read_normal(const Ext& e, int i, int n) {
-  float z[4];
-  philox_normal4(e.seed, e.tag, (uint32_t)i, (uint32_t)n >> 2, z);
-  const int q = n & 3;
-  return q == 0 ? z[0] : q == 1 ? z[1] : q == 2 ? z[2] : z[3];
-}
-
-// Gain and read noise on one expanded weight W'[i][n], in the
-// reference's order: W' * gain, then + nz * eps(i, n).
-__device__ __forceinline__ float apply_ext(float w, float gain, int ext,
-                                           const Ext& e, float nz, int i,
-                                           int n) {
-  if (ext & EXT_GAIN) w = __fmul_rn(w, gain);
-  if (ext & EXT_NOISE) w = __fadd_rn(w, __fmul_rn(nz, read_normal(e, i, n)));
-  return w;
-}
-
 // col_pos tiles [ti0, ti0 + cp_ti) x [tn0, tn0 + cp_tn) into shared
 // memory as cps[(a * cp_tn + b) * cps_stride + slot * K + k] =
 // col_pos[ti0 + a][tn0 + b][col(slot, k)] (mirrored under reversed
-// dataflow), zeros past the grid.  ``async`` issues cp.async copies (the
-// caller commits).
+// dataflow), zeros past the grid.
 __device__ __forceinline__ void load_colp(int* cps, const int32_t* colp,
-                                          const Geom& g, int ti0, int tn0,
-                                          bool async) {
+                                          const Geom& g, int ti0, int tn0) {
   const int n = g.cp_ti * g.cp_tn * g.cols;
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     const int c = e % g.cols, t = e / g.cols;
     const int ti = ti0 + t / g.cp_tn, tn = tn0 + t % g.cp_tn;
     const bool ok = ti < g.n_ti && tn < g.n_tiles;
-    const int32_t* src =
-        colp + ((size_t)ti * g.n_tiles + tn) * g.cols +
-        (g.reversed ? g.cols - 1 - c : c);
-    int* dst = cps + t * cps_stride(g) + c;
-    if (async)
-      tf32::cp_async4(dst, ok ? src : colp, ok ? 4 : 0);
-    else
-      *dst = ok ? src[0] : 0;
+    cps[t * cps_stride(g) + c] =
+        ok ? colp[((size_t)ti * g.n_tiles + tn) * g.cols +
+                  (g.reversed ? g.cols - 1 - c : c)]
+           : 0;
   }
 }
 
-// The eta*M1 table: for each slot (n mod wpt) a row of 2^K floats, entry
-// mag holding eta * M1(mag), computed with the same rounded operations
-// as expand_row.
-__device__ void build_table(float* table, int wpt, int n_bits, int cols,
-                            int reversed, float eta, float unit) {
-  const int n_mag = 1 << n_bits;
-  for (int e = threadIdx.x; e < wpt * n_mag; e += blockDim.x) {
-    int slot = e >> n_bits, mag = e & (n_mag - 1);
-    table[e] = __fmul_rn(
-        eta, __fmul_rn((float)m1_int(mag, slot * n_bits, n_bits, cols,
-                                     reversed), unit));
+// Wg = W'(col_pos) * gain, (I_pad, ld) f32 with zero columns past n_pad,
+// once a deployment.  Geom: I = I_pad, rps rows a block, FOLD_COLS
+// columns a block; thread t owns the 8 columns 8 (t % 32) of the block
+// and the rows t / 32 + 8 j.  FAST (wpt % 8 == 0, n_pad % 8 == 0, codes
+// and gain on 16 bytes): 16-byte code and gain loads, one pos a row, the
+// eta*M1 table (without col_pos).  COLP: the block's col_pos tiles in
+// shared memory.  Bound by bytes: 2 (codes) + 4/wpt (pos) + 4 (gain) read
+// and 4 written a weight.
+template <bool FAST, bool COLP>
+__global__ void __launch_bounds__(THREADS)
+cim_fold_kernel(const int16_t* __restrict__ codes,
+                const int32_t* __restrict__ pos,
+                const float* __restrict__ scale_ptr,
+                const float* __restrict__ gain,
+                const int32_t* __restrict__ colp, float* __restrict__ wf,
+                Geom g, float eta) {
+  extern __shared__ float4 smem4[];
+  float* table = reinterpret_cast<float*>(smem4);     // FAST, no col_pos
+  int* cps = reinterpret_cast<int*>(smem4);           // COLP
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * FOLD_COLS + 8 * (tid % 32);
+  const int k0 = blockIdx.y * g.rps, k1 = min(k0 + g.rps, g.I);
+  const float scale = *scale_ptr;
+  const float unit = ldexpf(1.0f, -g.n_bits);
+  const int ti0 = COLP ? k0 / g.rows : 0;
+  const int tn0 = blockIdx.x * FOLD_COLS / g.wpt;
+  if (COLP)
+    load_colp(cps, colp, g, ti0, tn0);
+  else if (FAST)
+    build_table(table, g.wpt, g.n_bits, g.cols, g.reversed, eta, unit);
+  __syncthreads();
+  if (n0 >= g.ld) return;
+  const int stride = cps_stride(g);
+  for (int i = k0 + tid / 32; i < k1; i += THREADS / 32) {
+    float w[8];
+    if (FAST) {
+      const int4 cv = __ldg(reinterpret_cast<const int4*>(
+          codes + (size_t)i * g.n_pad + n0));
+      const int slot0 = n0 % g.wpt, tile = n0 / g.wpt;
+      const float row = row_factor(__ldg(pos + (size_t)i * g.n_tiles + tile),
+                                   eta);
+      const int words[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int lo = (int)(int16_t)(words[q] & 0xFFFF), hi = words[q] >> 16;
+        if (COLP) {
+          const int* cp = cps + ((i / g.rows - ti0) * g.cp_tn + (tile - tn0)) *
+                                    stride + (slot0 + 2 * q) * g.n_bits;
+          w[2 * q] = expand_colp(lo, row, cp, unit, scale, eta, g.n_bits);
+          w[2 * q + 1] =
+              expand_colp(hi, row, cp + g.n_bits, unit, scale, eta, g.n_bits);
+        } else {
+          w[2 * q] = expand_fast(lo, row, table_row(table, slot0 + 2 * q,
+                                                    g.n_bits), unit, scale);
+          w[2 * q + 1] = expand_fast(
+              hi, row, table_row(table, slot0 + 2 * q + 1, g.n_bits), unit,
+              scale);
+        }
+      }
+      if (gain) {
+        const float4* gp =
+            reinterpret_cast<const float4*>(gain + (size_t)i * g.n_pad + n0);
+        const float4 a = __ldg(gp), b = __ldg(gp + 1);
+        const float gv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) w[j] = __fmul_rn(w[j], gv[j]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + j;
+        w[j] = 0.0f;
+        if (n >= g.n_pad) continue;
+        const int code = codes[(size_t)i * g.n_pad + n];
+        const int tn = n / g.wpt, slot = n % g.wpt;
+        const float row = row_factor(pos[(size_t)i * g.n_tiles + tn], eta);
+        if (COLP) {
+          const int* cp = cps + ((i / g.rows - ti0) * g.cp_tn + (tn - tn0)) *
+                                    stride + slot * g.n_bits;
+          w[j] = expand_colp(code, row, cp, unit, scale, eta, g.n_bits);
+        } else {
+          w[j] = expand_row(code, row, slot * g.n_bits, unit, scale, eta,
+                            g.n_bits, g.cols, g.reversed);
+        }
+        if (gain) w[j] = __fmul_rn(w[j], gain[(size_t)i * g.n_pad + n]);
+      }
+    }
+    float4* dst = reinterpret_cast<float4*>(wf + (size_t)i * g.ld + n0);
+    dst[0] = make_float4(w[0], w[1], w[2], w[3]);
+    dst[1] = make_float4(w[4], w[5], w[6], w[7]);
   }
 }
 
-// Slot ``slot``'s table row, indexed by the magnitude.
-__device__ __forceinline__ const float* table_row(const float* table,
-                                                  int slot, int n_bits) {
-  return table + (slot << n_bits);
+// ------------------------------------------------------------ read noise
+
+// Two standard normals from two 32-bit words: Box-Muller on their top 24
+// bits (u1 in (0, 1), so the log is finite and -2 ln u1 > 0), r cos(2 pi
+// u2) and r sin(2 pi u2).  u = (m + 1/2) 2^-24 for m = w >> 8 (rounded
+// as the plain version rounds m + 1/2) is one FMA, m 2^-24 + 2^-25:
+// scaling by 2^-24 commutes with rounding.  u1 rounds to exactly 1 for m
+// = 2^24 - 1 (one word in 2^24), so t = -2 ln u1 may be 0: r = t
+// rsqrt(max(t, FLT_MIN)) is 0 there, where t rsqrt(t) would be 0 * inf.
+// The SFU's __logf, rsqrtf and __sincosf: 2 pi (u2 - 1/2) lies in (-pi,
+// pi), where __sincosf is accurate to 2^-21.4, and cos(2 pi u2) = -cos(2
+// pi (u2 - 1/2)) (u2 - 1/2 is exact).
+__device__ __forceinline__ void box_muller(uint32_t a, uint32_t b,
+                                           float& z0, float& z1) {
+  const float u1 = __fmaf_rn((float)(a >> 8), 5.9604644775390625e-08f,
+                             2.98023223876953125e-08f);
+  const float u2 = __fmaf_rn((float)(b >> 8), 5.9604644775390625e-08f,
+                             2.98023223876953125e-08f);
+  const float t = fmaxf(-2.0f * __logf(u1), 0.0f);
+  const float r = t * rsqrtf(fmaxf(t, 1.17549435e-38f));
+  float s, c;
+  __sincosf(6.28318530717958648f * (u2 - 0.5f), &s, &c);
+  z0 = -r * c;
+  z1 = -r * s;
 }
 
-// The same W' from the row factor 1 + eta*p, the slot's table row and
-// the code: M0 = mag * 2^-K through the bits of 2^23 + mag (exact for
-// mag < 2^23, one FFMA instead of an int->float conversion), and the
-// sign applied by flipping the sign bit (round-to-nearest is symmetric,
-// so -scale * m == -(scale * m) bit for bit).
-__device__ __forceinline__ float expand_fast(int code, float row,
-                                             const float* tab_row,
-                                             float unit, float scale) {
-  int mag = abs(code);
-  float m0 = __fmaf_rn(__int_as_float(0x4B000000 | mag), unit,
-                       -8388608.0f * unit);
-  float mag_eff = __fadd_rn(__fmul_rn(row, m0), tab_row[mag]);
-  return __int_as_float(__float_as_int(__fmul_rn(scale, mag_eff)) ^
-                        (code & 0x80000000));
+// Four standard normals from one Philox4x32-10 call at the key of ``e``
+// and counter (c0, c1, 0, 0): words 0, 1 give z[0], z[1] and words 2, 3
+// give z[2], z[3].  The read noise of weight (i, n) is z[n & 3] at
+// counter (i, n >> 2): four neighbouring columns share a call.
+__device__ __forceinline__ void philox_normal4(const Noise& e, uint32_t c0,
+                                               uint32_t c1, float (&z)[4]) {
+  uint32_t c2 = 0, c3 = 0;
+#pragma unroll
+  for (int r = 0; r < PHILOX_ROUNDS; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ e.k0[r];
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ e.k1[r];
+    c3 = lo0;
+  }
+  box_muller(c0, c1, z[0], z[1]);
+  box_muller(c2, c3, z[2], z[3]);
+}
+
+// w[j] + nz * z[j], the plain version's order (W_eff = Wg + nz * eps).
+__device__ __forceinline__ float4 add_noise(float4 w, float nz,
+                                            const float (&z)[4]) {
+  return make_float4(__fadd_rn(w.x, __fmul_rn(nz, z[0])),
+                     __fadd_rn(w.y, __fmul_rn(nz, z[1])),
+                     __fadd_rn(w.z, __fmul_rn(nz, z[2])),
+                     __fadd_rn(w.w, __fmul_rn(nz, z[3])));
 }
 
 // ---------------------------------------------------------------- decode
 
+// The folded decode form's reduction: the KS slices of a block summed in
+// slice order (DEC_RM output rows a round, through the x slab ``red``)
+// into ``part`` [MT][W], then the cluster's 8 blocks summed in rank order
+// into ``out``; block r writes the elements q = r*256 + tid (mod 8*256)
+// of the M x W tile.  The ideal decode kernel keeps the same steps (and
+// the x slab's load below) inline: through these helpers it measured ~2%
+// slower at M = 4 on the H100 (PERF.md).
+template <int MT>
+__device__ __forceinline__ void decode_reduce(float (&acc)[MT][8],
+                                              float* red, float* part,
+                                              float* __restrict__ out,
+                                              const Geom& g, int W, int KS,
+                                              int sl, int gi_col) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), tid = threadIdx.x;
+#pragma unroll
+  for (int m0 = 0; m0 < MT; m0 += DEC_RM) {
+    if (m0 >= g.M) break;
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < DEC_RM && r < MT; ++r) {
+      float4* dst = reinterpret_cast<float4*>(
+          red + (sl * DEC_RM + r) * W + 8 * gi_col);
+      dst[0] = make_float4(acc[m0 + r][0], acc[m0 + r][1], acc[m0 + r][2],
+                           acc[m0 + r][3]);
+      dst[1] = make_float4(acc[m0 + r][4], acc[m0 + r][5], acc[m0 + r][6],
+                           acc[m0 + r][7]);
+    }
+    __syncthreads();
+    for (int q = tid; q < DEC_RM * W; q += THREADS) {
+      int r = q / W, c = q % W;
+      if (m0 + r >= MT) continue;
+      float s = 0.0f;
+      for (int k = 0; k < KS; ++k) s += red[(k * DEC_RM + r) * W + c];
+      part[(m0 + r) * W + c] = s;
+    }
+  }
+  cluster.sync();
+  for (int q = rank * THREADS + tid; q < g.M * W; q += CLUSTER * THREADS) {
+    int m = q / W, c = q % W;
+    int n = blockIdx.x * W + c;
+    if (n >= g.N) continue;
+    float s = *cluster.map_shared_rank(part + q, 0);
+#pragma unroll
+    for (int k = 1; k < CLUSTER; ++k) s += *cluster.map_shared_rank(part + q, k);
+    out[(size_t)m * g.N + n] = s;
+  }
+  cluster.sync();   // no block leaves while another reads its part
+}
+
+// The x slab of rank r's rows [k0, k0 + rows), transposed to [row][m]:
+// coalesced reads along I.
+template <int MT>
+__device__ __forceinline__ void decode_load_x(float* xs, const void* x,
+                                              const Geom& g, int k0,
+                                              int rows) {
+  for (int q = threadIdx.x; q < MT * rows; q += THREADS) {
+    int m = q / rows, r = q % rows;
+    xs[r * MT + m] =
+        m < g.M ? load_x(x, (size_t)m * g.I + k0 + r, g.xbf16) : 0.0f;
+  }
+}
+
 // Block: 8G columns (G threads of 8), KS = 256 / G slices of the
 // block's I range; cluster rank r owns rows [r*rps, min((r+1)*rps, I)),
 // slice s the rows k0 + s + KS*j.  MT: M rounded up to a power of two.
-// EXT: the nonideal operands (gain, col_pos, read noise) as Geom.ext
-// says; the ideal instantiations carry none of their code.
-template <int MT, bool FAST, bool EXT>
+template <int MT, bool FAST>
 __global__ void __cluster_dims__(1, CLUSTER, 1) __launch_bounds__(THREADS)
 cim_decode_kernel(const void* __restrict__ x,
                   const int16_t* __restrict__ codes,
                   const int32_t* __restrict__ pos,
                   const float* __restrict__ scale_ptr,
-                  float* __restrict__ out, Geom g, float eta, Ext e) {
+                  float* __restrict__ out, Geom g, float eta) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* xs = smem;                 // [rows][MT], later the reduction
-  float* table = smem + g.off_t;    // [wpt][2^K] eta * M1   (FAST, no colp)
-  int* cps = reinterpret_cast<int*>(smem + g.off_t);  // col_pos tiles
+  float* table = smem + g.off_t;    // [wpt][2^K] eta * M1   (FAST)
   float* part = smem + g.off_p;     // [MT][8G] the block's sums
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -353,10 +515,6 @@ cim_decode_kernel(const void* __restrict__ x,
   const int rows = max(k1 - k0, 0);
   const float scale = *scale_ptr;
   const float unit = ldexpf(1.0f, -g.n_bits);
-  const int ext = EXT ? g.ext : 0;
-  const bool colp = ext & EXT_COLP;
-  const float nz = __fmul_rn(e.nsig, scale);
-  const int ti0 = k0 / max(g.rows, 1), tn0 = blockIdx.x * W / g.wpt;
 
   // x slab, transposed to [row][m]: coalesced reads along I.
   for (int q = tid; q < MT * rows; q += THREADS) {
@@ -364,9 +522,7 @@ cim_decode_kernel(const void* __restrict__ x,
     xs[r * MT + m] =
         m < g.M ? load_x(x, (size_t)m * g.I + k0 + r, g.xbf16) : 0.0f;
   }
-  if (colp)
-    load_colp(cps, e.colp, g, ti0, tn0, false);
-  else if (FAST)
+  if (FAST)
     build_table(table, g.wpt, g.n_bits, g.cols, g.reversed, eta, unit);
   __syncthreads();
 
@@ -386,9 +542,7 @@ cim_decode_kernel(const void* __restrict__ x,
     // arithmetic, so a thread keeps 8 rows of loads in flight.
     int4 cv[4];
     int pv[4];
-    float4 gv[EXT ? 4 : 1][2];
-    auto load4 = [&](int i, int4 (&c)[4], int (&p)[4],
-                     float4 (&gg)[EXT ? 4 : 1][2]) {
+    auto load4 = [&](int i, int4 (&c)[4], int (&p)[4]) {
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         int ii = i + u * KS;
@@ -397,22 +551,14 @@ cim_decode_kernel(const void* __restrict__ x,
                         codes + (size_t)ii * g.n_pad + n0))
                   : make_int4(0, 0, 0, 0);
         p[u] = ok ? __ldg(pos + (size_t)ii * g.n_tiles + tile_n) : 0;
-        if constexpr (EXT) {
-          const float4* gp = reinterpret_cast<const float4*>(
-              e.gain + (size_t)ii * g.n_pad + n0);
-          bool gok = ok && (ext & EXT_GAIN);
-          gg[u][0] = gok ? __ldg(gp) : make_float4(1.f, 1.f, 1.f, 1.f);
-          gg[u][1] = gok ? __ldg(gp + 1) : make_float4(1.f, 1.f, 1.f, 1.f);
-        }
       }
     };
-    load4(k0 + sl, cv, pv, gv);
-    // A thread past n_pad has nothing to add (and no col_pos tile).
+    load4(k0 + sl, cv, pv);
+    // A thread past n_pad has nothing to add.
     for (int i = col_ok ? k0 + sl : k1; i < k1; i += 4 * KS) {
       int4 ncv[4];
       int npv[4];
-      float4 ngv[EXT ? 4 : 1][2];
-      load4(i + 4 * KS, ncv, npv, ngv);
+      load4(i + 4 * KS, ncv, npv);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         int ii = i + u * KS;
@@ -424,41 +570,12 @@ cim_decode_kernel(const void* __restrict__ x,
         for (int q = 0; q < 4; ++q) {
           int lo = (int)(int16_t)(words[q] & 0xFFFF);
           int hi = words[q] >> 16;
-          if (EXT && colp) {
-            const int* cp = cps + ((ii / g.rows - ti0) * g.cp_tn +
-                                   (tile_n - tn0)) * cps_stride(g) +
-                            (slot0 + 2 * q) * g.n_bits;
-            w[2 * q] = expand_colp(lo, row, cp, unit, scale, eta, g.n_bits);
-            w[2 * q + 1] = expand_colp(hi, row, cp + g.n_bits, unit, scale,
-                                       eta, g.n_bits);
-          } else {
-            w[2 * q] = expand_fast(
-                lo, row, table_row(table, slot0 + 2 * q, g.n_bits), unit,
-                scale);
-            w[2 * q + 1] = expand_fast(
-                hi, row, table_row(table, slot0 + 2 * q + 1, g.n_bits), unit,
-                scale);
-          }
-        }
-        if constexpr (EXT) {
-          const float gw[8] = {gv[u][0].x, gv[u][0].y, gv[u][0].z,
-                               gv[u][0].w, gv[u][1].x, gv[u][1].y,
-                               gv[u][1].z, gv[u][1].w};
-          // The thread's 8 columns are two groups of four: two Philox
-          // calls give their noise.
-          float z[2][4];
-          if (ext & EXT_NOISE) {
-            philox_normal4(e.seed, e.tag, (uint32_t)ii, (uint32_t)n0 >> 2,
-                           z[0]);
-            philox_normal4(e.seed, e.tag, (uint32_t)ii,
-                           ((uint32_t)n0 >> 2) + 1, z[1]);
-          }
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            if (ext & EXT_GAIN) w[j] = __fmul_rn(w[j], gw[j]);
-            if (ext & EXT_NOISE)
-              w[j] = __fadd_rn(w[j], __fmul_rn(nz, z[j / 4][j % 4]));
-          }
+          w[2 * q] = expand_fast(lo, row,
+                                 table_row(table, slot0 + 2 * q, g.n_bits),
+                                 unit, scale);
+          w[2 * q + 1] = expand_fast(
+              hi, row, table_row(table, slot0 + 2 * q + 1, g.n_bits), unit,
+              scale);
         }
         const float* xr = xs + (ii - k0) * MT;
 #pragma unroll
@@ -472,10 +589,6 @@ cim_decode_kernel(const void* __restrict__ x,
       for (int u = 0; u < 4; ++u) {
         cv[u] = ncv[u];
         pv[u] = npv[u];
-        if constexpr (EXT) {
-          gv[u][0] = ngv[u][0];
-          gv[u][1] = ngv[u][1];
-        }
       }
     }
   } else {
@@ -493,21 +606,8 @@ cim_decode_kernel(const void* __restrict__ x,
         bool ok = n0 + j < g.n_pad;
         int code = ok ? codes[(size_t)i * g.n_pad + n0 + j] : 0;
         int p = ok ? pos[(size_t)i * g.n_tiles + tn[j]] : 0;
-        if (EXT && colp) {
-          const int* cp = cps + ((i / g.rows - ti0) * g.cp_tn +
-                                 (tn[j] - tn0)) * cps_stride(g) + c0[j];
-          w[j] = ok ? expand_colp(code, row_factor(p, eta), cp, unit, scale,
-                                  eta, g.n_bits)
-                    : 0.0f;
-        } else {
-          w[j] = expand_row(code, row_factor(p, eta), c0[j], unit, scale, eta,
-                            g.n_bits, g.cols, g.reversed);
-        }
-        if (EXT && ok) {
-          float gn = (ext & EXT_GAIN)
-                         ? e.gain[(size_t)i * g.n_pad + n0 + j] : 1.0f;
-          w[j] = apply_ext(w[j], gn, ext, e, nz, i, n0 + j);
-        }
+        w[j] = expand_row(code, row_factor(p, eta), c0[j], unit, scale, eta,
+                          g.n_bits, g.cols, g.reversed);
       }
       const float* xr = xs + (i - k0) * MT;
 #pragma unroll
@@ -560,21 +660,120 @@ cim_decode_kernel(const void* __restrict__ x,
   cluster.sync();   // no block leaves while another reads its part
 }
 
+// The folded decode form: the decode form's blocks, slices and cluster
+// reduction over Wg (rows of ld floats) instead of the codes.  A thread
+// reads its 8 columns in two 16-byte loads a row, U = 2 rows a step with
+// the next step's loads issued before this step's arithmetic, and (NOISE)
+// draws their noise in two Philox calls a row (on the H100, 2 rows a
+// step with no branch in it beat 4 rows: PERF.md).  Bound by
+// bytes: 4 a weight, against 2.5 for the codes and pos of the ideal form
+// plus 4 for a gain and 0.5 for col_pos that the unfolded operands would
+// cost.  At most 128 registers for MT <= 8, so that two blocks fit on an
+// SM.
+template <int MT, bool NOISE>
+__global__ void __cluster_dims__(1, CLUSTER, 1)
+__launch_bounds__(THREADS, MT <= 8 ? 2 : 1)
+cim_decode_folded_kernel(const void* __restrict__ x,
+                         const float* __restrict__ wf,
+                         const float* __restrict__ scale_ptr,
+                         float* __restrict__ out, Geom g, Noise e) {
+  constexpr int U = 2;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* xs = smem;                 // [rows][MT], later the reduction
+  float* part = smem + g.off_p;     // [MT][8G] the block's sums
+  const int rank = (int)cg::this_cluster().block_rank();
+
+  const int G = g.tile, KS = THREADS / G, W = 8 * G;
+  const int tid = threadIdx.x;
+  const int gi_col = tid % G, sl = tid / G;
+  const int n0 = blockIdx.x * W + 8 * gi_col;
+  const int k0 = rank * g.rps;
+  const int k1 = min(k0 + g.rps, g.I);
+  const int rows = max(k1 - k0, 0);
+  const float nz = __fmul_rn(e.nsig, *scale_ptr);
+
+  decode_load_x<MT>(xs, x, g, k0, rows);
+  __syncthreads();
+
+  float acc[MT][8];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[m][j] = 0.0f;
+
+  // ld % 8 == 0: a thread's 8 columns are all in or all past the rows.
+  const bool col_ok = n0 < g.ld;
+  float4 wv[U][2];
+  auto load = [&](int i, float4 (&w)[U][2]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int ii = i + u * KS;
+      const float4* p =
+          reinterpret_cast<const float4*>(wf + (size_t)ii * g.ld + n0);
+      const bool ok = ii < k1;
+      w[u][0] = ok ? __ldg(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+      w[u][1] = ok ? __ldg(p + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  if (col_ok) load(k0 + sl, wv);
+  for (int i = col_ok ? k0 + sl : k1; i < k1; i += U * KS) {
+    float4 nw[U][2];
+    load(i + U * KS, nw);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      // A row past the rank's adds zeros (no branch: the U rows' noise
+      // draws interleave).
+      const int ii = i + u * KS;
+      const bool ok = ii < k1;
+      float4 a = wv[u][0], b = wv[u][1];
+      if constexpr (NOISE) {
+        float z[4];
+        philox_normal4(e, (uint32_t)ii, (uint32_t)n0 >> 2, z);
+        a = add_noise(a, nz, z);
+        philox_normal4(e, (uint32_t)ii, ((uint32_t)n0 >> 2) + 1, z);
+        b = add_noise(b, nz, z);
+        if (!ok) a = b = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      const float w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      const float* xr = xs + (ok ? ii - k0 : 0) * MT;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float xv = xr[m];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      wv[u][0] = nw[u][0];
+      wv[u][1] = nw[u][1];
+    }
+  }
+  decode_reduce<MT>(acc, xs, part, out, g, W, KS, sl, gi_col);
+}
+
 // --------------------------------------------------------------- prefill
+
+// Both prefill forms: x (the B operand) in shared memory as TF32 hi and
+// lo parts in wgmma's K-major core-matrix layout (two buffers), and a
+// ring of PF_STAGES staged raw slabs that cp.async fills two slabs ahead.
+constexpr int SBO = PF_BK / 4 * 128;   // bytes between 8-row groups
+constexpr int PART = PF_BM * PF_BK;    // floats of x's hi or lo part
+constexpr int XLD = PF_BK + 4;         // staged x row (floats)
+constexpr int XLDB = PF_BK + 8;        // staged bf16 x row
 
 // The product runs transposed, y^T = W'^T x^T: W'^T is wgmma's A operand
 // and is expanded straight into registers, x is the B operand in shared
 // memory.  Block: 128 columns of W' (two warpgroups of 64) by 128 rows
 // of x, all of the block's part of I in slabs of BK = 32 rows.  Shared
-// memory holds x's TF32 hi and lo parts in wgmma's K-major core-matrix
-// layout (two buffers), the rows' factors 1 + eta*p (two buffers), and
-// a ring of PF_STAGES staged raw slabs (x, codes, pos) that cp.async
-// fills ahead; after the ring, the eta*M1 table (FAST, no col_pos) or a
-// ring of the slabs' col_pos tiles, then (EXT_GAIN_STAGED) a ring of the
-// slabs' gain.  A k step of 8: expand the thread's 4 weights of W'^T,
-// split them, issue 3 wgmma, and convert a piece of the next slab's x
-// while the previous step's products run.  bf16 x is staged as bf16 and
-// widened (exactly) when it is split.
+// memory holds x's TF32 hi and lo parts (two buffers), the rows' factors
+// 1 + eta*p (two buffers), and a ring of PF_STAGES staged raw slabs (x,
+// codes, pos) that cp.async fills ahead; after the ring, the eta*M1 table
+// (FAST).  A k step of 8: expand the thread's 4 weights of W'^T, split
+// them, issue 3 wgmma, and convert a piece of the next slab's x while the
+// previous step's products run.  bf16 x is staged as bf16 and widened
+// (exactly) when it is split.
 //
 // The tensor core adds products into its f32 accumulator with
 // truncation, not rounding: summed over all of I in the accumulator,
@@ -582,18 +781,14 @@ cim_decode_kernel(const void* __restrict__ x,
 // So each slab's products start from zero (the first wgmma of a slab
 // overwrites d), and d is added to the running sums with
 // round-to-nearest adds.
-template <bool FAST, bool EXT>
+template <bool FAST>
 __global__ void __launch_bounds__(THREADS, 1)
 cim_prefill_kernel(const void* __restrict__ x,
                    const int16_t* __restrict__ codes,
                    const int32_t* __restrict__ pos,
                    const float* __restrict__ scale_ptr,
-                   float* __restrict__ out, Geom g, float eta, Ext e) {
+                   float* __restrict__ out, Geom g, float eta) {
   constexpr int BM = PF_BM, BN = PF_BN, BK = PF_BK;
-  constexpr int SBO = BK / 4 * 128;            // bytes between 8-row groups
-  constexpr int PART = BM * BK;                // floats of x's hi or lo part
-  constexpr int XLD = BK + 4;                  // staged x row (floats)
-  constexpr int XLDB = BK + 8;                 // staged bf16 x row
   constexpr int CLD = BN + 8;                  // staged codes row (int16)
   constexpr int TILES = BN / 8;                // pos entries a row (wpt 8)
   constexpr int ST = BM * XLD * 4 + BK * CLD * 2 + BK * TILES * 4;
@@ -602,9 +797,6 @@ cim_prefill_kernel(const void* __restrict__ x,
   float* rowf = px + 4 * PART;                  // [2 buf][BK][TILES]
   char* ring = reinterpret_cast<char*>(rowf + 2 * BK * TILES);
   float* table = reinterpret_cast<float*>(ring + PF_STAGES * ST);
-  int* cring = reinterpret_cast<int*>(table);   // [STAGES][cp_ti*cp_tn*cols]
-  float* gring = reinterpret_cast<float*>(
-      reinterpret_cast<char*>(smem4) + g.off_p);  // [STAGES][BK][PF_GLD]
   auto xst_of = [&](int kt) {
     return reinterpret_cast<float*>(ring + (kt % PF_STAGES) * ST);
   };
@@ -614,9 +806,6 @@ cim_prefill_kernel(const void* __restrict__ x,
   auto pst_of = [&](int kt) {
     return reinterpret_cast<int*>(cst_of(kt) + BK * CLD);
   };
-  const int cp_n = g.cp_ti * g.cp_tn * cps_stride(g);
-  auto cps_of = [&](int kt) { return cring + (kt % PF_STAGES) * cp_n; };
-  auto gst_of = [&](int kt) { return gring + (kt % PF_STAGES) * BK * PF_GLD; };
   // Float offset of (row, k) in a core-matrix part.
   auto core = [](int r, int k) {
     return (r >> 3) * (SBO / 4) + (k >> 2) * 32 + (r & 7) * 4 + (k & 3);
@@ -630,10 +819,6 @@ cim_prefill_kernel(const void* __restrict__ x,
   const float scale = *scale_ptr;
   const float unit = ldexpf(1.0f, -g.n_bits);
   const int n_steps = (g.I + BK - 1) / BK;
-  const int ext = EXT ? g.ext : 0;
-  const bool colp = ext & EXT_COLP;
-  const float nz = __fmul_rn(e.nsig, scale);
-  const int tn0 = n_base / g.wpt;
   const bool xbf = g.xbf16;
   const bool xvec = xbf ? (g.I % 8 == 0) &&
                               ((reinterpret_cast<uintptr_t>(x) & 15) == 0)
@@ -642,8 +827,8 @@ cim_prefill_kernel(const void* __restrict__ x,
   const float* xf = reinterpret_cast<const float*>(x);
   const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
 
-  // Slab kt's raw x, codes, pos (and col_pos tiles, gain) into its ring
-  // slot: one commit group, empty past the last slab.
+  // Slab kt's raw x, codes and pos into its ring slot: one commit group,
+  // empty past the last slab.
   auto stage = [&](int kt) {
     if (kt < n_steps) {
       const int k0 = kt * BK;
@@ -706,20 +891,6 @@ cim_prefill_kernel(const void* __restrict__ x,
               ok ? 4 : 0);
         }
       }
-      if (EXT && colp) load_colp(cps_of(kt), e.colp, g, k0 / g.rows, tn0, true);
-      if (EXT && (ext & EXT_GAIN_STAGED)) {
-        float* gst = gst_of(kt);
-#pragma unroll
-        for (int it = 0; it < BK * BN / 4 / THREADS; ++it) {
-          int q = tid + it * THREADS;
-          int r = q / (BN / 4), c = 4 * (q % (BN / 4));
-          int gi = k0 + r, gn = n_base + c;
-          bool ok = gi < g.I && gn < g.n_pad;
-          tf32::cp_async16(gst + r * PF_GLD + c,
-                           ok ? e.gain + (size_t)gi * g.n_pad + gn : e.gain,
-                           ok ? 16 : 0);
-        }
-      }
     }
     tf32::cp_async_commit();
   };
@@ -775,33 +946,18 @@ cim_prefill_kernel(const void* __restrict__ x,
         int p = ok ? pos[(size_t)gi * g.n_tiles + gn / g.wpt] : 0;
         row = row_factor(p, eta);
       }
-      if (EXT && colp) {
-        const int* cp = cps_of(kt) +
-                        ((gi / g.rows - (kt * BK) / g.rows) * g.cp_tn +
-                         (gn / g.wpt - tn0)) * cps_stride(g) +
-                        (gn % g.wpt) * g.n_bits;
-        w[q] = ok ? expand_colp(code, row, cp, unit, scale, eta, g.n_bits)
-                  : 0.0f;
-      } else if constexpr (FAST) {
+      if constexpr (FAST) {
         w[q] = expand_fast(code, row, table_row(table, gn % g.wpt, g.n_bits),
                            unit, scale);
       } else {
         w[q] = expand_row(code, row, (gn % g.wpt) * g.n_bits, unit, scale,
                           eta, g.n_bits, g.cols, g.reversed);
       }
-      if (EXT && ok) {
-        float gn_v = 1.0f;
-        if (ext & EXT_GAIN_STAGED)
-          gn_v = gst_of(kt)[k * PF_GLD + c];
-        else if (ext & EXT_GAIN)
-          gn_v = e.gain[(size_t)gi * g.n_pad + gn];
-        w[q] = apply_ext(w[q], gn_v, ext, e, nz, gi, gn);
-      }
       tf32::split(w[q], ah[q], al[q]);
     }
   };
 
-  if (FAST && !colp)   // the col_pos ring takes the table's place
+  if (FAST)
     build_table(table, g.wpt, g.n_bits, g.cols, g.reversed, eta, unit);
   // Slab kt + PF_STAGES - 1 is staged while slab kt runs.
   for (int kt = 0; kt < PF_STAGES - 1; ++kt) stage(kt);
@@ -857,11 +1013,242 @@ cim_prefill_kernel(const void* __restrict__ x,
   for (int i = 0; i < 64; ++i) store(i, acc[i]);
 }
 
-// Set a kernel's dynamic shared-memory limit once, then launch.
-template <auto Kernel>
-cudaError_t launch(const Geom& g, const void* x, const int16_t* codes,
-                   const int32_t* pos, const float* scale, float* out,
-                   float eta, const Ext& e, cudaStream_t stream) {
+// The folded prefill form: the prefill form's blocks, x parts and
+// per-slab rounding over Wg.  The ring holds slabs of x and of Wg (BK
+// rows of PF_WLD floats, 16-byte cp.async); while the products of slab
+// kt run, each k step converts a piece of slab kt + 1's x and (NOISE)
+// adds a piece of its noise in place, one Philox call a thread for four
+// consecutive columns of one slab row (1024 calls a slab); the A
+// fragments are then four shared loads and splits a k step.  bf16 x
+// (g.xbf16) has no lo part: two wgmma a k step.  Rows past I and
+// columns past n_pad stage as zeros; the noise on them meets zero x or
+// lands in discarded outputs.  Where the (gx, gy) grid would leave SMs
+// idle (few rows of x, or N = 3072), a cluster of S = gz blocks (z) splits
+// the slabs of I S ways; their sums meet through distributed shared
+// memory, each block adding 64 / S of a thread's 64 outputs over the
+// ranks in order (a fixed order: two calls stay bit-identical).
+template <bool NOISE>
+__global__ void __launch_bounds__(THREADS, 1)
+cim_prefill_folded_kernel(const void* __restrict__ x,
+                          const float* __restrict__ wf,
+                          const float* __restrict__ scale_ptr,
+                          float* __restrict__ out, Geom g, Noise e) {
+  constexpr int BM = PF_BM, BN = PF_BN, BK = PF_BK;
+  constexpr int ST = BM * XLD * 4 + BK * PF_WLD * 4;
+  extern __shared__ float4 smem4[];
+  float* px = reinterpret_cast<float*>(smem4);  // [2 buf][hi, lo][PART]
+  char* ring = reinterpret_cast<char*>(px + 4 * PART);
+  auto xst_of = [&](int kt) {
+    return reinterpret_cast<float*>(ring + (kt % PF_STAGES) * ST);
+  };
+  auto wst_of = [&](int kt) { return xst_of(kt) + BM * XLD; };
+  auto core = [](int r, int k) {
+    return (r >> 3) * (SBO / 4) + (k >> 2) * 32 + (r & 7) * 4 + (k & 3);
+  };
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wg = warp / 4, gq = lane / 4, tq = lane % 4;
+  const int n_base = blockIdx.x * BN, m_base = blockIdx.y * BM;
+  const int c_lo = wg * 64 + (warp % 4) * 16 + gq, c_hi = c_lo + 8;
+  const int n_steps = (g.I + BK - 1) / BK;
+  const bool xbf = g.xbf16;
+  const bool xvec = xbf ? (g.I % 8 == 0) &&
+                              ((reinterpret_cast<uintptr_t>(x) & 15) == 0)
+                        : (g.I % 4 == 0) &&
+                              ((reinterpret_cast<uintptr_t>(x) & 15) == 0);
+  const float* xf = reinterpret_cast<const float*>(x);
+  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+  const float nz = __fmul_rn(e.nsig, *scale_ptr);
+  // This block's slabs [kt0, kt1) of the split.
+  const int S = g.gz, z = blockIdx.z;
+  const int kt0 = n_steps * z / S, kt1 = n_steps * (z + 1) / S;
+
+  // Slab kt's raw x and Wg into its ring slot: one commit group, empty
+  // past the block's last slab.
+  auto stage = [&](int kt) {
+    if (kt < kt1) {
+      const int k0 = kt * BK;
+      float* xst = xst_of(kt);
+      __nv_bfloat16* xsb = reinterpret_cast<__nv_bfloat16*>(xst);
+      if (xbf && xvec) {
+#pragma unroll
+        for (int it = 0; it < BM * BK / 8 / THREADS; ++it) {
+          int q = tid + it * THREADS;
+          int r = q / (BK / 8), c = 8 * (q % (BK / 8));
+          int gm = m_base + r, gi = k0 + c;
+          bool ok = gm < g.M && gi < g.I;
+          tf32::cp_async16(xsb + r * XLDB + c,
+                           ok ? xb + (size_t)gm * g.I + gi : xb, ok ? 16 : 0);
+        }
+      } else if (xbf) {
+        for (int it = 0; it < BM * BK / THREADS; ++it) {
+          int q = tid + it * THREADS;
+          int r = q / BK, c = q % BK;
+          int gm = m_base + r, gi = k0 + c;
+          xsb[r * XLDB + c] = gm < g.M && gi < g.I
+                                  ? xb[(size_t)gm * g.I + gi]
+                                  : __float2bfloat16_rn(0.0f);
+        }
+      } else if (xvec) {
+#pragma unroll
+        for (int it = 0; it < BM * BK / 4 / THREADS; ++it) {
+          int q = tid + it * THREADS;
+          int r = q / (BK / 4), c = 4 * (q % (BK / 4));
+          int gm = m_base + r, gi = k0 + c;
+          bool ok = gm < g.M && gi < g.I;
+          tf32::cp_async16(xst + r * XLD + c,
+                           ok ? xf + (size_t)gm * g.I + gi : xf, ok ? 16 : 0);
+        }
+      } else {
+#pragma unroll 4
+        for (int it = 0; it < BM * BK / THREADS; ++it) {
+          int q = tid + it * THREADS;
+          int r = q / BK, c = q % BK;
+          int gm = m_base + r, gi = k0 + c;
+          bool ok = gm < g.M && gi < g.I;
+          tf32::cp_async4(xst + r * XLD + c,
+                          ok ? xf + (size_t)gm * g.I + gi : xf, ok ? 4 : 0);
+        }
+      }
+      float* wst = wst_of(kt);
+#pragma unroll
+      for (int it = 0; it < BK * BN / 4 / THREADS; ++it) {
+        const int q = tid + it * THREADS;
+        const int r = q / (BN / 4), c = 4 * (q % (BN / 4));
+        const int gi = k0 + r, gn = n_base + c;
+        const bool ok = gi < g.I && gn < g.ld;
+        tf32::cp_async16(wst + r * PF_WLD + c,
+                         ok ? wf + (size_t)gi * g.ld + gn : wf, ok ? 16 : 0);
+      }
+    }
+    tf32::cp_async_commit();
+  };
+
+  // Piece ``it`` (of 4) of slab kt: 4 values of one row of its x into
+  // buffer ``buf`` as TF32 hi / lo parts (bf16 x: hi only, its lo part is
+  // exactly zero), and (NOISE) the noise of the four columns 4 (q % 32)
+  // of its Wg row q / 32, added in place.
+  auto prepare = [&](int kt, int buf, int it) {
+    const float* xst = xst_of(kt);
+    float* xh = px + buf * 2 * PART;
+    int q = tid + it * THREADS;
+    int r = q % BM, kc = q / BM;
+    float4 v;
+    if (xbf) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(
+          reinterpret_cast<const __nv_bfloat16*>(xst) + r * XLDB + 4 * kc);
+      v = make_float4(__uint_as_float(raw.x << 16),
+                      __uint_as_float(raw.x & 0xFFFF0000u),
+                      __uint_as_float(raw.y << 16),
+                      __uint_as_float(raw.y & 0xFFFF0000u));
+    } else {
+      v = *reinterpret_cast<const float4*>(xst + r * XLD + 4 * kc);
+    }
+    uint4 hi, lo;
+    tf32::split(v.x, hi.x, lo.x);
+    tf32::split(v.y, hi.y, lo.y);
+    tf32::split(v.z, hi.z, lo.z);
+    tf32::split(v.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(xh + core(r, 4 * kc)) = hi;
+    if (!xbf) *reinterpret_cast<uint4*>(xh + PART + core(r, 4 * kc)) = lo;
+    if constexpr (NOISE) {
+      const int wr = q / (BN / 4), c = 4 * (q % (BN / 4));
+      float z[4];
+      philox_normal4(e, (uint32_t)(kt * BK + wr), (uint32_t)(n_base + c) >> 2,
+                     z);
+      float4* p = reinterpret_cast<float4*>(wst_of(kt) + wr * PF_WLD + c);
+      *p = add_noise(*p, nz, z);
+    }
+  };
+
+  // The thread's A fragment of k step k8 of slab kt: Wg[k][c] for (c, k)
+  // = (c_lo, t), (c_hi, t), (c_lo, t + 4), (c_hi, t + 4), split.
+  auto load_a = [&](int kt, int k8, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    const float* wst = wst_of(kt);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = q % 2 ? c_hi : c_lo, k = k8 * 8 + tq + 4 * (q / 2);
+      tf32::split(wst[k * PF_WLD + c], ah[q], al[q]);
+    }
+  };
+
+  for (int kt = kt0; kt < kt0 + PF_STAGES - 1; ++kt) stage(kt);
+  tf32::cp_async_wait<PF_STAGES - 2>();
+  __syncthreads();
+#pragma unroll
+  for (int it = 0; it < 4; ++it) prepare(kt0, kt0 & 1, it);
+  tf32::cp_async_wait<PF_STAGES - 3>();
+  tf32::fence_proxy_async();
+  __syncthreads();
+
+  float acc[64], d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = d[i] = 0.0f;
+  uint32_t ah[2][4], al[2][4];
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int buf = kt & 1;
+    const bool more = kt + 1 < kt1;
+    stage(kt + PF_STAGES - 1);
+    const float* xh = px + buf * 2 * PART;
+#pragma unroll
+    for (int k8 = 0; k8 < BK / 8; ++k8) {
+      load_a(kt, k8, ah[k8 % 2], al[k8 % 2]);
+      tf32::wg_fence();
+      tf32::wg_fence_operand(d);
+      const uint64_t b_hi = tf32::wg_desc(xh + 64 * k8, SBO);
+      tf32::wgmma_m64n128k8_rs(d, al[k8 % 2], b_hi, k8 > 0);
+      if (!xbf) {
+        const uint64_t b_lo = tf32::wg_desc(xh + PART + 64 * k8, SBO);
+        tf32::wgmma_m64n128k8_rs(d, ah[k8 % 2], b_lo, 1);
+      }
+      tf32::wgmma_m64n128k8_rs(d, ah[k8 % 2], b_hi, 1);
+      tf32::wg_commit();
+      if (more) prepare(kt + 1, buf ^ 1, k8);
+      tf32::wg_wait<1>();
+    }
+    tf32::wg_wait<0>();
+    tf32::wg_fence_operand(d);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+    tf32::cp_async_wait<PF_STAGES - 3>();
+    tf32::fence_proxy_async();
+    __syncthreads();
+  }
+  // acc[4j + q] is D[c][m]: W' column c_lo (q < 2) or c_hi, x row
+  // 8j + 2t + q % 2.
+  auto store = [&](int i, float v) {
+    int gn = n_base + (i % 4 < 2 ? c_lo : c_hi);
+    int gm = m_base + 8 * (i / 4) + 2 * tq + (i % 2);
+    if (gm < g.M && gn < g.N) out[(size_t)gm * g.N + gn] = v;
+  };
+  if (S == 1) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) store(i, acc[i]);
+    return;
+  }
+  // The split's partial sums, [64][THREADS] in the (now free) x parts;
+  // rank z adds outputs [z * 64 / S, (z + 1) * 64 / S) of each thread
+  // over the ranks 0 .. S-1 in order.
+  cg::cluster_group cluster = cg::this_cluster();
+  float* part = px;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) part[i * THREADS + tid] = acc[i];
+  cluster.sync();
+  const int share = 64 / S;
+  for (int i = z * share; i < (z + 1) * share; ++i) {
+    float v = *cluster.map_shared_rank(part + i * THREADS + tid, 0);
+    for (int r = 1; r < S; ++r)
+      v += *cluster.map_shared_rank(part + i * THREADS + tid, r);
+    store(i, v);
+  }
+  cluster.sync();   // no block leaves while another reads its part
+}
+
+// Set a kernel's dynamic shared-memory limit once, then launch it with
+// (g.gx, g.gy) blocks of THREADS.
+template <auto Kernel, typename... Args>
+cudaError_t launch(const Geom& g, cudaStream_t stream, Args... args) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -869,67 +1256,231 @@ cudaError_t launch(const Geom& g, const void* x, const int16_t* codes,
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  Kernel<<<dim3(g.gx, g.gy), THREADS, g.smem, stream>>>(x, codes, pos, scale,
-                                                        out, g, eta, e);
+  Kernel<<<dim3(g.gx, g.gy), THREADS, g.smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-template <bool FAST, bool EXT>
-cudaError_t launch_decode(const Geom& g, const void* x,
-                          const int16_t* codes, const int32_t* pos,
-                          const float* scale, float* out, float eta,
-                          const Ext& e, cudaStream_t s) {
+// The same as a cluster launch of (1, 1, g.gz) blocks (gz > 1).
+template <auto Kernel, typename... Args>
+cudaError_t launch_split(const Geom& g, cudaStream_t stream, Args... args) {
+  if (g.gz == 1) return launch<Kernel>(g, stream, args...);
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.gx, g.gy, g.gz);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = g.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = g.gz;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, Kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The runtime's occupancy calculator for Kernel at g's shared memory:
+// out[0] resident blocks a SM; out[1] for a cluster launch of ``cluster``
+// blocks (``fixed``: the kernel's own __cluster_dims__) the clusters the
+// card holds at once, else 0.
+template <auto Kernel>
+cudaError_t occupancy(const Geom& g, int cluster, bool fixed, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], Kernel,
+                                                        THREADS, g.smem);
+  out[1] = 0;
+  if (err != cudaSuccess || cluster <= 1) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.gx, g.gy, g.gz);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = g.smem;
+  cudaLaunchAttribute attr[1];
+  if (!fixed) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = cluster;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  return cudaOccupancyMaxActiveClusters(&out[1], Kernel, &cfg);
+}
+
+// The decode forms' occupancy: B is FAST (ideal) or NOISE (folded).
+template <bool B>
+cudaError_t occupancy_decode(const Geom& g, bool folded, int* out) {
   switch (g.mt) {
-    case 1: return launch<cim_decode_kernel<1, FAST, EXT>>(g, x, codes, pos, scale, out, eta, e, s);
-    case 2: return launch<cim_decode_kernel<2, FAST, EXT>>(g, x, codes, pos, scale, out, eta, e, s);
-    case 4: return launch<cim_decode_kernel<4, FAST, EXT>>(g, x, codes, pos, scale, out, eta, e, s);
-    case 8: return launch<cim_decode_kernel<8, FAST, EXT>>(g, x, codes, pos, scale, out, eta, e, s);
-    case 16: return launch<cim_decode_kernel<16, FAST, EXT>>(g, x, codes, pos, scale, out, eta, e, s);
+    case 1: return folded ? occupancy<cim_decode_folded_kernel<1, B>>(g, CLUSTER, true, out)
+                          : occupancy<cim_decode_kernel<1, B>>(g, CLUSTER, true, out);
+    case 2: return folded ? occupancy<cim_decode_folded_kernel<2, B>>(g, CLUSTER, true, out)
+                          : occupancy<cim_decode_kernel<2, B>>(g, CLUSTER, true, out);
+    case 4: return folded ? occupancy<cim_decode_folded_kernel<4, B>>(g, CLUSTER, true, out)
+                          : occupancy<cim_decode_kernel<4, B>>(g, CLUSTER, true, out);
+    case 8: return folded ? occupancy<cim_decode_folded_kernel<8, B>>(g, CLUSTER, true, out)
+                          : occupancy<cim_decode_kernel<8, B>>(g, CLUSTER, true, out);
+    case 16: return folded ? occupancy<cim_decode_folded_kernel<16, B>>(g, CLUSTER, true, out)
+                           : occupancy<cim_decode_kernel<16, B>>(g, CLUSTER, true, out);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool EXT>
-cudaError_t launch_form(const Geom& g, const void* x, const int16_t* codes,
-                        const int32_t* pos, const float* scale, float* out,
-                        float eta, const Ext& e, cudaStream_t s) {
-  if (g.form == 0) {
-    return g.fast ? launch_decode<true, EXT>(g, x, codes, pos, scale, out, eta, e, s)
-                  : launch_decode<false, EXT>(g, x, codes, pos, scale, out, eta, e, s);
+template <bool FAST>
+cudaError_t launch_decode(const Geom& g, const void* x, const int16_t* codes,
+                          const int32_t* pos, const float* scale, float* out,
+                          float eta, cudaStream_t s) {
+  switch (g.mt) {
+    case 1: return launch<cim_decode_kernel<1, FAST>>(g, s, x, codes, pos, scale, out, g, eta);
+    case 2: return launch<cim_decode_kernel<2, FAST>>(g, s, x, codes, pos, scale, out, g, eta);
+    case 4: return launch<cim_decode_kernel<4, FAST>>(g, s, x, codes, pos, scale, out, g, eta);
+    case 8: return launch<cim_decode_kernel<8, FAST>>(g, s, x, codes, pos, scale, out, g, eta);
+    case 16: return launch<cim_decode_kernel<16, FAST>>(g, s, x, codes, pos, scale, out, g, eta);
+    default: return cudaErrorInvalidValue;
   }
-  return g.fast
-      ? launch<cim_prefill_kernel<true, EXT>>(g, x, codes, pos, scale, out, eta, e, s)
-      : launch<cim_prefill_kernel<false, EXT>>(g, x, codes, pos, scale, out, eta, e, s);
+}
+
+template <bool NOISE>
+cudaError_t launch_decode_folded(const Geom& g, const void* x, const float* wf,
+                                 const float* scale, float* out,
+                                 const Noise& e, cudaStream_t s) {
+  switch (g.mt) {
+    case 1: return launch<cim_decode_folded_kernel<1, NOISE>>(g, s, x, wf, scale, out, g, e);
+    case 2: return launch<cim_decode_folded_kernel<2, NOISE>>(g, s, x, wf, scale, out, g, e);
+    case 4: return launch<cim_decode_folded_kernel<4, NOISE>>(g, s, x, wf, scale, out, g, e);
+    case 8: return launch<cim_decode_folded_kernel<8, NOISE>>(g, s, x, wf, scale, out, g, e);
+    case 16: return launch<cim_decode_folded_kernel<16, NOISE>>(g, s, x, wf, scale, out, g, e);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // ``geom`` holds the Geom fields in order (ops.py::cim_geometry); x is
-// f32 or (geom xbf16) bf16.  ``gain`` / ``colp`` may be null, and
-// ``nsig`` = sigma_read * agg is 0 without read noise (Geom.ext says
-// which operands the call carries).  Returns cudaGetLastError() of the
-// launch, or cudaErrorInvalidValue for a geometry no kernel takes.
+// f32 or (geom xbf16) bf16.  The ideal forms read codes, pos and scale;
+// the folded forms (geom form 2, 3) read ``wf`` (rows of geom ld floats)
+// and the scale, and with geom noise draw read noise at key (seed, tag)
+// and amplitude nsig * scale.  Returns cudaGetLastError() of the launch,
+// or cudaErrorInvalidValue for a geometry no kernel takes.
 extern "C" int cim_mvm_launch(const void* x, const int16_t* codes,
                               const int32_t* pos, const float* scale,
                               float* out, const int* geom, float eta,
-                              const float* gain, const int32_t* colp,
-                              unsigned seed, unsigned tag, float nsig,
-                              void* stream_ptr) {
+                              const float* wf, unsigned seed, unsigned tag,
+                              float nsig, void* stream_ptr) {
   Geom g;
-  static_assert(sizeof(Geom) == 25 * sizeof(int), "Geom is 25 ints");
+  static_assert(sizeof(Geom) == 27 * sizeof(int), "Geom is 27 ints");
   memcpy(&g, geom, sizeof(Geom));
-  const Ext e = {gain, colp, seed, tag, nsig};
+  Noise e;
+  for (int r = 0; r < PHILOX_ROUNDS; ++r) {
+    e.k0[r] = seed + (uint32_t)r * 0x9E3779B9u;
+    e.k1[r] = tag + (uint32_t)r * 0xBB67AE85u;
+  }
+  e.nsig = nsig;
   cudaStream_t s = (cudaStream_t)stream_ptr;
-  if (((g.ext & EXT_GAIN) && !gain) || ((g.ext & EXT_COLP) && !colp) ||
-      ((g.ext & EXT_COLP) && g.rows < 1) ||
-      ((g.ext & EXT_GAIN_STAGED) && !(g.form == 1 && g.fast)))
+  const bool folded = g.form == FORM_DECODE_FOLDED ||
+                      g.form == FORM_PREFILL_FOLDED;
+  if (folded && (!wf || g.ld % 8 || (reinterpret_cast<uintptr_t>(wf) & 15)))
     return (int)cudaErrorInvalidValue;
-  if (g.form == 0) {
+  if (g.form == FORM_DECODE || g.form == FORM_DECODE_FOLDED) {
     if (g.gy != CLUSTER || THREADS % g.tile) return (int)cudaErrorInvalidValue;
   } else if (g.tile != PF_BN) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = g.ext ? launch_form<true>(g, x, codes, pos, scale, out, eta, e, s)
-                          : launch_form<false>(g, x, codes, pos, scale, out, eta, e, s);
+  cudaError_t err;
+  switch (g.form) {
+    case FORM_DECODE:
+      err = g.fast ? launch_decode<true>(g, x, codes, pos, scale, out, eta, s)
+                   : launch_decode<false>(g, x, codes, pos, scale, out, eta, s);
+      break;
+    case FORM_PREFILL:
+      err = g.fast ? launch<cim_prefill_kernel<true>>(g, s, x, codes, pos, scale, out, g, eta)
+                   : launch<cim_prefill_kernel<false>>(g, s, x, codes, pos, scale, out, g, eta);
+      break;
+    case FORM_DECODE_FOLDED:
+      err = g.noise ? launch_decode_folded<true>(g, x, wf, scale, out, e, s)
+                    : launch_decode_folded<false>(g, x, wf, scale, out, e, s);
+      break;
+    case FORM_PREFILL_FOLDED:
+      if (g.gz < 1 || g.gz > CLUSTER || 64 % g.gz)
+        return (int)cudaErrorInvalidValue;
+      err = g.noise ? launch_split<cim_prefill_folded_kernel<true>>(g, s, x, wf, scale, out, g, e)
+                    : launch_split<cim_prefill_folded_kernel<false>>(g, s, x, wf, scale, out, g, e);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
+// Wg = W'(col_pos) * gain into ``wf`` (geom I = I_pad rows of geom ld
+// floats), once a deployment: ``gain`` and ``colp`` may be null.
+// Geometry from ops.py::fold_geometry (geom form 4).
+extern "C" int cim_fold_launch(const int16_t* codes, const int32_t* pos,
+                               const float* scale, const float* gain,
+                               const int32_t* colp, float* wf,
+                               const int* geom, float eta, void* stream_ptr) {
+  Geom g;
+  memcpy(&g, geom, sizeof(Geom));
+  cudaStream_t s = (cudaStream_t)stream_ptr;
+  if (g.form != FORM_FOLD || g.ld % 8 || (colp && g.rows < 1) ||
+      (reinterpret_cast<uintptr_t>(wf) & 15))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (g.fast)
+    err = colp ? launch<cim_fold_kernel<true, true>>(g, s, codes, pos, scale, gain, colp, wf, g, eta)
+               : launch<cim_fold_kernel<true, false>>(g, s, codes, pos, scale, gain, colp, wf, g, eta);
+  else
+    err = colp ? launch<cim_fold_kernel<false, true>>(g, s, codes, pos, scale, gain, colp, wf, g, eta)
+               : launch<cim_fold_kernel<false, false>>(g, s, codes, pos, scale, gain, colp, wf, g, eta);
+  return (int)err;
+}
+
+// The occupancy of the kernel that a launch with ``geom`` runs (any form;
+// the fold's col_pos instantiation where geom rows > 0), from the CUDA
+// runtime's occupancy calculator: out[0] resident blocks a SM, out[1] clusters the card holds
+// at once for a cluster launch (the decode forms, a split folded
+// prefill), else 0.  A failed query leaves no error behind for the next
+// launch's cudaGetLastError().
+extern "C" int cim_occupancy(const int* geom, int* out) {
+  Geom g;
+  memcpy(&g, geom, sizeof(Geom));
+  cudaError_t err;
+  switch (g.form) {
+    case FORM_DECODE:
+      err = g.fast ? occupancy_decode<true>(g, false, out)
+                   : occupancy_decode<false>(g, false, out);
+      break;
+    case FORM_PREFILL:
+      err = g.fast ? occupancy<cim_prefill_kernel<true>>(g, 1, false, out)
+                   : occupancy<cim_prefill_kernel<false>>(g, 1, false, out);
+      break;
+    case FORM_DECODE_FOLDED:
+      err = g.noise ? occupancy_decode<true>(g, true, out)
+                    : occupancy_decode<false>(g, true, out);
+      break;
+    case FORM_PREFILL_FOLDED:
+      err = g.noise ? occupancy<cim_prefill_folded_kernel<true>>(g, g.gz, false, out)
+                    : occupancy<cim_prefill_folded_kernel<false>>(g, g.gz, false, out);
+      break;
+    case FORM_FOLD:
+      if (g.fast)
+        err = g.rows ? occupancy<cim_fold_kernel<true, true>>(g, 1, false, out)
+                     : occupancy<cim_fold_kernel<true, false>>(g, 1, false, out);
+      else
+        err = g.rows ? occupancy<cim_fold_kernel<false, true>>(g, 1, false, out)
+                     : occupancy<cim_fold_kernel<false, false>>(g, 1, false, out);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) cudaGetLastError();
   return (int)err;
 }

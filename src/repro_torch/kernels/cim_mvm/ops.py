@@ -8,10 +8,14 @@ CUDA tensors, the plain PyTorch version (``ref.py``) on CPU tensors.
 A deployment onto imperfect devices (``repro_torch.deploy``) also
 carries a per-weight ``gain``, a per-tile bitline permutation
 ``col_pos`` and per-read noise (``sigma_read``, ``noise_tag``, and a
-``read_seed`` a call); the kernel takes all three as operands.
+``read_seed`` a call).  Such a deployment is folded once, when it is
+packaged (:func:`fold`): ``folded`` holds W'(col_pos) * gain in f32,
+computed by the fold kernel on the card (its plain version on the
+CPU), and the kernel's folded forms read it and add the read's noise.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -25,7 +29,7 @@ from repro_torch.core.noise import PAPER_ETA
 from repro_torch.core.tiling import CrossbarSpec
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import runtime
-from repro_torch.kernels.cim_mvm.ref import cim_mvm_plain
+from repro_torch.kernels.cim_mvm.ref import cim_mvm_plain, folded_weights
 from repro_torch.mapping import resolve_pipeline
 
 
@@ -46,6 +50,11 @@ class CimDeployment:
     noise_tag: () int32 CPU tensor, this matrix's read-noise tag, or None.
     sigma_read: relative per-read conductance noise std; applied only
            when ``cim_mvm`` gets a ``read_seed`` and the tag is set.
+    folded: (I_tiles*rows, ld) f32 W'(col_pos) * gain, ld = N_pad rounded
+           up to 8 (zero columns past N_pad), or None: derived from the
+           codes, pos, scale, gain and col_pos by :func:`fold`, never
+           cached; not an init field, so ``dataclasses.replace`` drops it
+           (a replaced deployment is folded again, never stale).
     A stacked deployment carries a leading repeat axis on every tensor;
     :meth:`layer` takes one repeat's views.
     """
@@ -65,6 +74,8 @@ class CimDeployment:
     degraded: torch.Tensor | None = None
     noise_tag: torch.Tensor | None = None
     sigma_read: float = 0.0
+    folded: torch.Tensor | None = dataclasses.field(default=None,
+                                                    init=False, repr=False)
     _layers: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False, compare=False)
 
@@ -79,6 +90,8 @@ class CimDeployment:
                 **{f: None if getattr(self, f) is None
                    else getattr(self, f)[r]
                    for f in ("gain", "col_pos", "degraded", "noise_tag")})
+            if self.folded is not None:
+                view.folded = self.folded[r]
         return view
 
 
@@ -104,7 +117,9 @@ def package_padded(signed: torch.Tensor, scale: torch.Tensor, plan: MdmPlan,
     whole tiles: ``pos[i, tn]`` is the physical row of input i in column
     tile tn, and a column-permuting plan's ``col_position`` becomes
     ``col_pos``; ``operands`` are the nonideal fields (gain, degraded,
-    noise_tag, sigma_read)."""
+    noise_tag, sigma_read).  A deployment that carries a gain, a col_pos
+    or read noise is folded (:func:`fold`) unless it is degraded (served
+    digitally)."""
     rows = spec.rows
     i = torch.arange(signed.shape[0], device=signed.device)
     pos = plan.row_position.to(signed.device)[i // rows, :, i % rows].to(
@@ -112,12 +127,14 @@ def package_padded(signed: torch.Tensor, scale: torch.Tensor, plan: MdmPlan,
     col_pos = (None if plan.col_position is None
                else plan.col_position.to(signed.device, torch.int32)
                .contiguous())
-    return CimDeployment(
+    dep = CimDeployment(
         codes=signed.contiguous(), pos=pos.contiguous(),
         scale=scale.to(torch.float32), n_bits=spec.n_bits,
         wpt=spec.weights_per_tile, cols=spec.cols, eta=float(eta),
         reversed_df=bool(plan.reversed_dataflow), in_dim=in_dim,
         out_dim=out_dim, col_pos=col_pos, **operands)
+    degraded = dep.degraded is not None and int(dep.degraded) != 0
+    return fold(dep) if needs_fold(dep) and not degraded else dep
 
 
 def deploy(w: torch.Tensor, spec: CrossbarSpec, mode="mdm",
@@ -145,16 +162,19 @@ DECODE_RM = 4                      # output rows a reduction round
 TABLE_MAX = 4096                   # eta*M1 table entries (wpt * 2^K)
 PREFILL_BM, PREFILL_BN, PREFILL_BK = 128, 128, 32
 PREFILL_STAGES = 3                 # ring of staged x, codes, pos slabs
-PREFILL_GLD = PREFILL_BN + 8       # a staged gain row (floats)
+PREFILL_WLD = PREFILL_BN + 8       # a staged row of W' * gain (floats)
+FOLD_COLS = 256                    # the fold: columns a block
+FOLD_ROWS = (32, 8, 1)             # the fold: rows a block, widest first
+PREFILL_SPLITS = (8, 4, 2)         # folded prefill: splits of I, widest first
 SMEM_MAX = 227 * 1024
-# Geom.ext bits: the nonideal operands of a call, and (prefill) whether
-# the gain is staged in the ring or read from L2.
-EXT_GAIN, EXT_COLP, EXT_NOISE, EXT_GAIN_STAGED = 1, 2, 4, 8
+# kernel.cu's Geom.form: the ideal forms, the folded forms, the fold.
+FORM_DECODE, FORM_PREFILL, FORM_DECODE_FOLDED, FORM_PREFILL_FOLDED, \
+    FORM_FOLD = range(5)
 # The fields of kernel.cu's ``Geom``, in order.
 _GEOM_FIELDS = ("form", "M", "I", "N", "n_pad", "n_tiles", "wpt", "n_bits",
-                "cols", "reversed", "fast", "tile", "rps", "gx", "gy",
-                "smem", "off_t", "off_p", "mt", "xbf16", "ext", "rows",
-                "n_ti", "cp_ti", "cp_tn")
+                "cols", "reversed", "fast", "tile", "rps", "gx", "gy", "gz",
+                "smem", "off_t", "off_p", "mt", "xbf16", "ld", "noise",
+                "rows", "n_ti", "cp_ti", "cp_tn")
 
 
 def _table(wpt: int, n_bits: int) -> int:
@@ -166,6 +186,12 @@ def _fast(aligned, n_pad, wpt, n_bits) -> bool:
     """16-byte code loads, one pos per 8 columns, the eta*M1 table."""
     return (aligned and n_pad % 8 == 0 and wpt % 8 == 0
             and _table(wpt, n_bits) <= TABLE_MAX)
+
+
+def folded_ld(n_pad: int) -> int:
+    """Row stride of a folded deployment: n_pad rounded up to 8 (a
+    thread's 8 columns in two 16-byte loads)."""
+    return -(-n_pad // 8) * 8
 
 
 def _cps_stride(cols: int) -> int:
@@ -184,108 +210,146 @@ def _span_tiles(length: int, stride: int, end: int, unit: int) -> int:
     return most
 
 
-def _decode_geometry(M, I, n_pad, wpt, n_bits, cols, sm_count, aligned,
-                     rows, colp):
-    """Decode-form fields, or None where its shared memory would not
-    fit (a very long I, or col_pos tiles that do not fit)."""
-    fast = _fast(aligned, n_pad, wpt, n_bits)
+def _decode_geometry(M, I, n_cols, wpt, n_bits, sm_count, fast, folded):
+    """Decode-form fields over ``n_cols`` columns (n_pad, or the folded
+    rows' ld), or None where its shared memory would not fit (a very long
+    I)."""
     mt = 1 << (M - 1).bit_length()
     # The widest block (G column groups of 8) that still gives two
     # blocks a SM; else G = 8.
     for G in (32, 16, 8):
-        gx = math.ceil(n_pad / (8 * G))
+        gx = math.ceil(n_cols / (8 * G))
         if gx * DECODE_CLUSTER >= 2 * sm_count:
             break
     rps = math.ceil(I / DECODE_CLUSTER)
     # x slab [rps][mt], reused for the slices' sums [KS][RM][8G]; the
-    # eta*M1 table, or the block's col_pos tiles; the block's sums
+    # eta*M1 table (the ideal form's 16-byte path); the block's sums
     # [mt][8G] (offsets in floats).
-    cp_ti = _span_tiles(rps, rps, I, rows) if colp else 0
-    cp_tn = _span_tiles(8 * G, 8 * G, n_pad, wpt) if colp else 0
     slab = max(rps * mt, (THREADS // G) * DECODE_RM * 8 * G)
     off_t = runtime.round4(slab)
-    region = (cp_ti * cp_tn * _cps_stride(cols) if colp
-              else _table(wpt, n_bits) if fast else 0)
+    region = _table(wpt, n_bits) if fast and not folded else 0
     off_p = off_t + runtime.round4(region)
     smem = 4 * (off_p + mt * 8 * G)
     if smem > SMEM_MAX:
         return None
-    return dict(form=0, fast=int(fast), tile=G, rps=rps, gx=gx,
-                gy=DECODE_CLUSTER, smem=smem, off_t=off_t, off_p=off_p,
-                mt=mt, cp_ti=cp_ti, cp_tn=cp_tn)
+    return dict(form=FORM_DECODE_FOLDED if folded else FORM_DECODE,
+                fast=int(fast and not folded), tile=G, rps=rps, gx=gx,
+                gy=DECODE_CLUSTER, gz=1, smem=smem, off_t=off_t,
+                off_p=off_p, mt=mt)
 
 
-def _prefill_geometry(M, I, N, n_pad, wpt, n_bits, cols, aligned, rows,
-                      ext):
-    """Prefill-form fields (any M and I); ``ext`` gains EXT_GAIN_STAGED
-    where the gain ring fits beside the rest."""
+def _prefill_geometry(M, I, N, wpt, n_bits, sm_count, fast, folded):
+    """Prefill-form fields (any M and I).  The folded form splits I ``gz``
+    ways (a cluster of gz blocks) where one block a (gx, gy) tile would
+    leave SMs idle: the widest split whose blocks all fit one at a time
+    on the SMs, each with a slab of I at least."""
     bm, bn, bk = PREFILL_BM, PREFILL_BN, PREFILL_BK
-    colp = bool(ext & EXT_COLP)
-    cp_ti = _span_tiles(bk, bk, I, rows) if colp else 0
-    cp_tn = _span_tiles(bn, bn, n_pad, wpt) if colp else 0
-    # x as TF32 hi / lo parts and the rows' factors, two buffers each;
-    # a ring of staged raw x, codes and pos slabs; then the eta*M1 table
-    # (the 16-byte code path without col_pos) or a ring of the slabs'
-    # col_pos tiles; then a ring of the slabs' gain where it fits.  The
-    # 16-byte code path is dropped where its part does not fit.
-    stage = bm * (bk + 4) * 4 + bk * (bn + 8) * 2 + bk * (bn // 8) * 4
-    base = (2 * 2 * bm * bk * 4 + 2 * bk * (bn // 8) * 4
-            + PREFILL_STAGES * stage)
-    colp_ring = 4 * PREFILL_STAGES * cp_ti * cp_tn * _cps_stride(cols)
-    fast = _fast(aligned, n_pad, wpt, n_bits)
-    region = colp_ring if colp else 4 * _table(wpt, n_bits) if fast else 0
-    if fast and base + region > SMEM_MAX:
-        fast = False
-        region = colp_ring
-    off_p = base + -(-region // 16) * 16          # the gain ring's 16-byte
-    smem = off_p                                   # cp.async needs alignment
-    gain_ring = 4 * PREFILL_STAGES * bk * PREFILL_GLD
-    if fast and ext & EXT_GAIN and smem + gain_ring <= SMEM_MAX:
-        ext |= EXT_GAIN_STAGED
-        smem += gain_ring
-    if smem > SMEM_MAX:
-        raise ValueError(f"cim_mvm: no prefill geometry fits {smem} bytes "
-                         f"of shared memory (col_pos tiles of {rows} rows)")
-    return dict(form=1, fast=int(fast), tile=bn, rps=0,
-                gx=math.ceil(N / bn), gy=math.ceil(M / bm), smem=smem,
-                off_t=base, off_p=off_p, mt=0, ext=ext, cp_ti=cp_ti,
-                cp_tn=cp_tn)
+    # x as TF32 hi / lo parts, two buffers; the ideal form: the rows'
+    # factors, two buffers, a ring of staged raw x, codes and pos slabs,
+    # then the eta*M1 table (the 16-byte code path); the folded form: a
+    # ring of staged raw x and W' * gain slabs.
+    x_parts = 2 * 2 * bm * bk * 4
+    if folded:
+        stage = bm * (bk + 4) * 4 + bk * PREFILL_WLD * 4
+        smem = x_parts + PREFILL_STAGES * stage
+    else:
+        stage = bm * (bk + 4) * 4 + bk * (bn + 8) * 2 + bk * (bn // 8) * 4
+        base = x_parts + 2 * bk * (bn // 8) * 4 + PREFILL_STAGES * stage
+        table = 4 * _table(wpt, n_bits)
+        if fast and base + table > SMEM_MAX:
+            fast = False
+        smem = base + (table if fast else 0)
+    gx, gy, gz = math.ceil(N / bn), math.ceil(M / bm), 1
+    if folded:
+        gz = next((s for s in PREFILL_SPLITS
+                   if gx * gy * s <= sm_count and math.ceil(I / bk) >= s), 1)
+    return dict(form=FORM_PREFILL_FOLDED if folded else FORM_PREFILL,
+                fast=int(fast and not folded), tile=bn, rps=0, gx=gx, gy=gy,
+                gz=gz, smem=smem, off_t=0, off_p=0, mt=0)
 
 
 @functools.lru_cache(maxsize=None)
 def cim_geometry(M: int, I: int, N: int, i_pad: int, n_pad: int, wpt: int,
                  n_bits: int, cols: int, reversed_df: bool, sm_count: int,
-                 aligned: bool, xbf16: bool = False, ext: int = 0,
-                 rows: int = 0) -> runtime.Geometry:
+                 aligned: bool, xbf16: bool = False, folded: bool = False,
+                 noise: bool = False) -> runtime.Geometry:
     """The launch of ``cim_mvm`` for x (M, I) and a deployment with
     (i_pad, n_pad) codes, on a card with ``sm_count`` SMs; ``aligned``
-    says whether the codes (and a gain) start on 16 bytes, ``xbf16``
-    whether x is bf16, ``ext`` which nonideal operands the call carries
-    (EXT_GAIN | EXT_COLP | EXT_NOISE) and ``rows`` the crossbar rows of
-    a tile (with col_pos).  Cached per shape: a decode step pays for it
+    says whether the codes start on 16 bytes, ``xbf16`` whether x is
+    bf16, ``folded`` whether the call reads the folded W' * gain (rows of
+    ``folded_ld(n_pad)`` floats) and ``noise`` whether it draws read
+    noise (folded only).  Cached per shape: a decode step pays for it
     once per matrix shape.
 
-    Decode form (M <= 16): grid (gx, 8), cluster rank r sums the rows
+    Decode forms (M <= 16): grid (gx, 8), cluster rank r sums the rows
     [r*rps, min((r+1)*rps, I)), slice s of a block the rows r*rps + s +
-    KS*j (KS = 256 / G).  Prefill form: grid (ceil(N/128), ceil(M/128)),
-    each block all of I in slabs of 32 rows.  ``fast``: 16-byte code
-    loads and one pos per 8 columns (wpt % 8 == 0, n_pad % 8 == 0).
-    With col_pos, ``cp_ti`` x ``cp_tn`` is the most tiles a block (or a
-    prefill slab) touches, loaded into shared memory."""
-    colp = bool(ext & EXT_COLP)
-    if colp and rows < 1:
-        raise ValueError("cim_geometry: col_pos needs the tile rows")
-    g = _decode_geometry(M, I, n_pad, wpt, n_bits, cols, sm_count, aligned,
-                         rows, colp) if M <= DECODE_MAX_M else None
+    KS*j (KS = 256 / G).  Prefill forms: grid (ceil(N/128),
+    ceil(M/128), gz), each block all of I in slabs of 32 rows (the folded
+    form: the slabs [s * z / gz, s * (z + 1) / gz) of the s slabs, in a
+    cluster of gz blocks).  ``fast`` (the ideal forms): 16-byte code
+    loads and one pos per 8 columns (wpt % 8 == 0, n_pad % 8 == 0)."""
+    if noise and not folded:
+        raise ValueError("cim_geometry: read noise is drawn by the folded "
+                         "forms only")
+    fast = _fast(aligned, n_pad, wpt, n_bits)
+    ld = folded_ld(n_pad) if folded else 0
+    g = _decode_geometry(M, I, ld or n_pad, wpt, n_bits, sm_count, fast,
+                         folded) if M <= DECODE_MAX_M else None
     if g is None:
-        g = _prefill_geometry(M, I, N, n_pad, wpt, n_bits, cols, aligned,
-                              rows, ext)
-    g.setdefault("ext", ext)
+        g = _prefill_geometry(M, I, N, wpt, n_bits, sm_count, fast, folded)
     g.update(M=M, I=I, N=N, n_pad=n_pad, n_tiles=n_pad // wpt, wpt=wpt,
              n_bits=n_bits, cols=cols, reversed=int(reversed_df),
-             xbf16=int(xbf16), rows=rows,
-             n_ti=i_pad // rows if rows else 0)
+             xbf16=int(xbf16), ld=ld, noise=int(noise), rows=0, n_ti=0,
+             cp_ti=0, cp_tn=0)
     return runtime.Geometry.of(_GEOM_FIELDS, g)
+
+
+@functools.lru_cache(maxsize=None)
+def fold_geometry(i_pad: int, n_pad: int, wpt: int, n_bits: int, cols: int,
+                  reversed_df: bool, aligned: bool, rows: int = 0
+                  ) -> runtime.Geometry:
+    """The fold kernel's launch for (i_pad, n_pad) codes: grid
+    (ceil(ld / 256), ceil(i_pad / rps)), a block ``rps`` rows by 256
+    columns (32 threads of 8 columns, 8 rows at a time).  ``rows``: the
+    crossbar rows of a tile where the deployment has col_pos (0: none);
+    the col_pos tiles a block touches (cp_ti x cp_tn) go to shared
+    memory, ``rps`` the most rows (of 32, 8, 1) whose tiles fit.
+    ``fast``: 16-byte code and gain loads (``aligned``: both start on 16
+    bytes), one pos a row and, without col_pos, the eta*M1 table."""
+    colp = rows > 0
+    ld = folded_ld(n_pad)
+    fast = (aligned and n_pad % 8 == 0 and wpt % 8 == 0
+            and (colp or _table(wpt, n_bits) <= TABLE_MAX))
+    for rps in FOLD_ROWS:
+        cp_ti = _span_tiles(rps, rps, i_pad, rows) if colp else 0
+        cp_tn = _span_tiles(FOLD_COLS, FOLD_COLS, n_pad, wpt) if colp else 0
+        smem = 4 * (cp_ti * cp_tn * _cps_stride(cols) if colp
+                    else _table(wpt, n_bits) if fast else 0)
+        if smem <= SMEM_MAX:
+            break
+    else:
+        raise ValueError(f"cim_mvm fold: col_pos tiles of {rows} rows do "
+                         f"not fit in shared memory ({smem} bytes)")
+    g = dict(form=FORM_FOLD, M=0, I=i_pad, N=n_pad, n_pad=n_pad,
+             n_tiles=n_pad // wpt, wpt=wpt, n_bits=n_bits, cols=cols,
+             reversed=int(reversed_df), fast=int(fast), tile=0, rps=rps,
+             gx=math.ceil(ld / FOLD_COLS), gy=math.ceil(i_pad / rps), gz=1,
+             smem=smem, off_t=0, off_p=0, mt=0, xbf16=0, ld=ld, noise=0,
+             rows=rows, n_ti=i_pad // rows if colp else 0, cp_ti=cp_ti,
+             cp_tn=cp_tn)
+    return runtime.Geometry.of(_GEOM_FIELDS, g)
+
+
+def occupancy(geom: runtime.Geometry) -> dict:
+    """Occupancy of the kernel that a launch with ``geom`` runs
+    (:func:`cim_geometry`, :func:`fold_geometry`), from the CUDA
+    runtime's occupancy calculator: ``blocks_per_sm`` resident blocks a
+    SM and, for a cluster launch, ``clusters`` the card holds at once
+    (else None)."""
+    out = (ctypes.c_int * 2)()
+    rc = runtime.library().cim_occupancy(geom.array, out)
+    runtime.check_status("cim_mvm occupancy", rc)
+    return dict(blocks_per_sm=out[0], clusters=out[1] or None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -306,16 +370,21 @@ def noisy(dep: CimDeployment, read_seed) -> bool:
             and dep.noise_tag is not None)
 
 
-def _launch(x: torch.Tensor, dep: CimDeployment,
-            read_seed: int | None) -> torch.Tensor:
+def needs_fold(dep: CimDeployment) -> bool:
+    """Does ``dep`` carry a gain, a col_pos or read noise (so that the
+    kernel reads it folded)?"""
+    return (dep.gain is not None or dep.col_pos is not None
+            or (dep.sigma_read > 0.0 and dep.noise_tag is not None))
+
+
+def _check_codes(dep: CimDeployment) -> None:
     codes, pos, scale = dep.codes, dep.pos, dep.scale
     if codes.dtype != torch.int16 or pos.dtype != torch.int32 \
             or scale.dtype != torch.float32:
         raise TypeError("cim_mvm kernel takes int16 codes, int32 pos and "
                         "an f32 scale")
     i_pad, n_pad = codes.shape
-    n_tiles = n_pad // dep.wpt
-    if pos.shape != (i_pad, n_tiles) or scale.numel() != 1:
+    if pos.shape != (i_pad, n_pad // dep.wpt) or scale.numel() != 1:
         raise ValueError(f"pos {tuple(pos.shape)} / scale "
                          f"{tuple(scale.shape)} do not fit codes "
                          f"{tuple(codes.shape)}")
@@ -324,27 +393,83 @@ def _launch(x: torch.Tensor, dep: CimDeployment,
     if dep.n_bits > 16 or dep.cols << dep.n_bits >= 1 << 24:
         raise ValueError("cim_mvm kernel takes n_bits <= 16 and "
                          "cols * 2^n_bits < 2^24 (exact integer moments)")
-    gain, col_pos = dep.gain, dep.col_pos
-    ext, rows, aligned = 0, 0, codes.data_ptr() % 16 == 0
+
+
+def _fold_launch(dep: CimDeployment) -> torch.Tensor:
+    _check_codes(dep)
+    codes, gain, col_pos = dep.codes, dep.gain, dep.col_pos
+    i_pad, n_pad = codes.shape
+    aligned = codes.data_ptr() % 16 == 0
     if gain is not None:
         if gain.dtype != torch.float32 or gain.shape != codes.shape \
                 or not gain.is_contiguous():
-            raise ValueError("cim_mvm kernel takes a contiguous f32 gain "
+            raise ValueError("cim_mvm fold takes a contiguous f32 gain "
                              "shaped like the codes")
-        ext |= EXT_GAIN
         aligned = aligned and gain.data_ptr() % 16 == 0
+    rows = 0
     if col_pos is not None:
         if col_pos.dtype != torch.int32 or not col_pos.is_contiguous() \
-                or col_pos.ndim != 3 or col_pos.shape[1] != n_tiles \
+                or col_pos.ndim != 3 \
+                or col_pos.shape[1] != n_pad // dep.wpt \
                 or col_pos.shape[2] != dep.cols \
                 or i_pad % col_pos.shape[0]:
             raise ValueError(f"col_pos {tuple(col_pos.shape)} does not fit "
                              f"codes {tuple(codes.shape)}")
-        ext |= EXT_COLP
         rows = i_pad // col_pos.shape[0]
+    geom = fold_geometry(i_pad, n_pad, dep.wpt, dep.n_bits, dep.cols,
+                         dep.reversed_df, aligned, rows)
+    out = torch.empty((i_pad, geom.ld), dtype=torch.float32,
+                      device=codes.device)
+    if out.numel() == 0:
+        return out
+    rc = runtime.library().cim_fold_launch(
+        codes.data_ptr(), dep.pos.data_ptr(), dep.scale.data_ptr(),
+        None if gain is None else gain.data_ptr(),
+        None if col_pos is None else col_pos.data_ptr(), out.data_ptr(),
+        geom.array, dep.eta, runtime.stream_arg(out.device))
+    runtime.count_launch("cim_fold")
+    runtime.check_status("cim_fold", rc)
+    return out
+
+
+def fold_weights(dep: CimDeployment) -> torch.Tensor:
+    """W'(col_pos) * gain of one (unstacked) deployment as (I_pad, ld)
+    f32 with zero columns past N_pad, on the codes' device: the fold
+    kernel on CUDA tensors, its plain version (bit-identical) on the
+    CPU."""
+    if dep.codes.device.type == "cpu":
+        return folded_weights(dep)
+    return _fold_launch(dep)
+
+
+def fold(dep: CimDeployment) -> CimDeployment:
+    """A copy of ``dep`` with its ``folded`` W'(col_pos) * gain
+    (:func:`fold_weights`), which the kernel's folded forms read instead
+    of the codes, pos, gain and col_pos."""
+    out = dataclasses.replace(dep)
+    out.folded = fold_weights(dep)
+    return out
+
+
+def _launch(x: torch.Tensor, dep: CimDeployment,
+            read_seed: int | None) -> torch.Tensor:
+    codes, wf = dep.codes, dep.folded
+    i_pad, n_pad = codes.shape
+    if wf is None:
+        if needs_fold(dep):
+            raise ValueError("cim_mvm kernel: a deployment with a gain, a "
+                             "col_pos or read noise is read folded; fold "
+                             "it first (ops.fold)")
+        _check_codes(dep)
+    elif wf.dtype != torch.float32 or wf.shape != (i_pad, folded_ld(n_pad)) \
+            or not wf.is_contiguous() or wf.data_ptr() % 16 \
+            or dep.scale.dtype != torch.float32 or dep.scale.numel() != 1:
+        raise ValueError(f"cim_mvm kernel takes a contiguous 16-byte aligned "
+                         f"f32 folded W' of {(i_pad, folded_ld(n_pad))} and "
+                         f"an f32 scale, not {tuple(wf.shape)}")
     nsig, seed, tag = 0.0, 0, 0
-    if noisy(dep, read_seed):
-        ext |= EXT_NOISE
+    noise = wf is not None and noisy(dep, read_seed)
+    if noise:
         nsig = read_noise_amplitude(dep)
         seed, tag = int(read_seed) & 0xFFFFFFFF, int(dep.noise_tag) & 0xFFFFFFFF
     M, I, N = x.shape[0], dep.in_dim, dep.out_dim
@@ -353,13 +478,13 @@ def _launch(x: torch.Tensor, dep: CimDeployment,
         return out
     geom = cim_geometry(M, I, N, i_pad, n_pad, dep.wpt, dep.n_bits,
                         dep.cols, dep.reversed_df,
-                        _sm_count(x.device.index or 0), aligned,
-                        x.dtype == torch.bfloat16, ext, rows)
+                        _sm_count(x.device.index or 0),
+                        codes.data_ptr() % 16 == 0,
+                        x.dtype == torch.bfloat16, wf is not None, noise)
     rc = runtime.library().cim_mvm_launch(
-        x.data_ptr(), codes.data_ptr(), pos.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), geom.array, dep.eta,
-        None if gain is None else gain.data_ptr(),
-        None if col_pos is None else col_pos.data_ptr(), seed, tag, nsig,
+        x.data_ptr(), codes.data_ptr(), dep.pos.data_ptr(),
+        dep.scale.data_ptr(), out.data_ptr(), geom.array, dep.eta,
+        None if wf is None else wf.data_ptr(), seed, tag, nsig,
         runtime.stream_arg(out.device))
     runtime.count_launch("cim_mvm")
     runtime.check_status("cim_mvm", rc)
@@ -380,7 +505,7 @@ def cim_mvm(x: torch.Tensor, dep: CimDeployment, read_seed: int | None = None,
     """
     dev = resolve_device(device)
     check_on(dev, x=x, codes=dep.codes, pos=dep.pos, scale=dep.scale,
-             gain=dep.gain, col_pos=dep.col_pos)
+             gain=dep.gain, col_pos=dep.col_pos, folded=dep.folded)
     if x.shape[-1] != dep.in_dim:
         raise ValueError(f"x feature dim {x.shape[-1]} != deployed in_dim "
                          f"{dep.in_dim}")

@@ -107,18 +107,31 @@ def read_noise(read_seed: int, tag: int, n_rows: int, n_cols: int,
     return z.reshape(n_rows, 4 * groups)[:, :n_cols]
 
 
-def deployment_weights(dep, read_seed: int | None = None) -> torch.Tensor:
-    """A deployment's W' (I_pad, N_pad) f32 for one read: the Eq-17
-    expansion (with its column permutation), times the gain, plus
-    (sigma_read * agg) * scale * eps when the read is noisy."""
-    from repro_torch.kernels.cim_mvm.ops import noisy, read_noise_amplitude
-
+def folded_weights(dep) -> torch.Tensor:
+    """The fold's plain version: a deployment's W'(col_pos) * gain as
+    (I_pad, ld) f32, ld = N_pad rounded up to 8, zero columns past N_pad
+    (what ``deployment_weights(dep, None)`` gives, padded)."""
     w = cim_effective_weights(dep.codes, dep.pos, dep.scale,
                               n_bits=dep.n_bits, wpt=dep.wpt, cols=dep.cols,
                               eta=dep.eta, reversed_df=dep.reversed_df,
                               col_pos=dep.col_pos)
     if dep.gain is not None:
         w = w * dep.gain
+    n_pad = w.shape[1]
+    ld = -(-n_pad // 8) * 8
+    return w if ld == n_pad else F.pad(w, (0, ld - n_pad))
+
+
+def deployment_weights(dep, read_seed: int | None = None) -> torch.Tensor:
+    """A deployment's W' (I_pad, N_pad) f32 for one read: the Eq-17
+    expansion (with its column permutation), times the gain — read from
+    ``dep.folded`` where the deployment is folded — plus (sigma_read *
+    agg) * scale * eps when the read is noisy."""
+    from repro_torch.kernels.cim_mvm.ops import noisy, read_noise_amplitude
+
+    n_pad = dep.codes.shape[1]
+    w = (dep.folded if dep.folded is not None
+         else folded_weights(dep))[:, :n_pad]
     if noisy(dep, read_seed):
         eps = read_noise(read_seed, int(dep.noise_tag), *w.shape, w.device)
         w = w + read_noise_amplitude(dep) * dep.scale * eps

@@ -37,8 +37,8 @@ SOURCES = ("cim_mvm/kernel.cu", "flash_attention/kernel.cu",
 HEADERS = ("tf32_mma.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("cim_mvm", "flash_attention", "manhattan_score", "slstm_scan",
-           "bitslice_pack")
+KERNELS = ("cim_mvm", "cim_fold", "flash_attention", "manhattan_score",
+           "slstm_scan", "bitslice_pack")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,7 +47,9 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 # C signatures of the launchers (each returns cudaGetLastError()).
 _ARGTYPES = {
-    "cim_mvm_launch": [_P] * 6 + [_F, _P, _P, _U, _U, _F, _P],
+    "cim_mvm_launch": [_P] * 6 + [_F, _P, _U, _U, _F, _P],
+    "cim_fold_launch": [_P] * 7 + [_F, _P],
+    "cim_occupancy": [_P, _P],
     "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _I, _P],
     "manhattan_score_launch": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     "slstm_scan_launch": [_P] * 7 + [_I] * 4 + [_P, _I, _P],
@@ -166,25 +168,31 @@ def _self_check(lib: ctypes.CDLL) -> None:
     stream = _P(torch.cuda.current_stream().cuda_stream)
     z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt,
                                                      device=dev)
-    from repro_torch.kernels.cim_mvm.ops import cim_geometry
+    from repro_torch.kernels.cim_mvm.ops import cim_geometry, fold_geometry
     from repro_torch.kernels.flash_attention.ops import flash_geometry
     from repro_torch.kernels.slstm_scan.ops import slstm_geometry
 
     codes, pos, scale = (z(8, 8, dt=torch.int16), z(8, 1, dt=torch.int32),
                          z(1))
-    gain, colp = z(8, 8), z(1, 1, 64, dt=torch.int32)
+    gain, colp, wf = z(8, 8), z(1, 1, 64, dt=torch.int32), z(8, 8)
     rc = {}
-    for M in (1, 17):                  # the decode and the prefill form
-        for ext in (0, 7):             # ideal, and gain + col_pos + noise
+    for rows in (0, 8):                # the fold without and with col_pos
+        rc[f"cim_fold rows={rows}"] = lib.cim_fold_launch(
+            codes.data_ptr(), pos.data_ptr(), scale.data_ptr(),
+            gain.data_ptr(), colp.data_ptr() if rows else None,
+            wf.data_ptr(), fold_geometry(8, 8, 8, 8, 64, False, True,
+                                         rows).array, 0.0, stream)
+    for M in (1, 17):                  # the decode and the prefill forms
+        for folded, noise in ((False, False), (True, False), (True, True)):
             x, out = z(M, 8), z(M, 8)
             geom = cim_geometry(M, 8, 8, 8, 8, 8, 8, 64, False, 1, True,
-                                False, ext, 8 if ext else 0)
-            rc[f"cim_mvm M={M} ext={ext}"] = lib.cim_mvm_launch(
-                x.data_ptr(), codes.data_ptr(), pos.data_ptr(),
-                scale.data_ptr(), out.data_ptr(), geom.array, 0.0,
-                gain.data_ptr() if ext else None,
-                colp.data_ptr() if ext else None, 0, 0, 0.1 if ext else 0.0,
-                stream)
+                                False, folded, noise)
+            rc[f"cim_mvm M={M} folded={folded} noise={noise}"] = \
+                lib.cim_mvm_launch(
+                    x.data_ptr(), codes.data_ptr(), pos.data_ptr(),
+                    scale.data_ptr(), out.data_ptr(), geom.array, 0.0,
+                    wf.data_ptr() if folded else None, 0, 0,
+                    0.1 if noise else 0.0, stream)
     for Sq in (1, 17):
         q, qp = z(1, Sq, 1, 32), z(1, Sq, dt=torch.int32)
         o = z(1, Sq, 1, 32)

@@ -34,8 +34,8 @@ import torch
 
 from repro_torch.core.mdm import MODES
 from repro_torch.core.tiling import CrossbarSpec
-from repro_torch.kernels.cim_mvm.ops import cim_mvm, deploy
-from repro_torch.kernels.cim_mvm.ref import cim_mvm_plain
+from repro_torch.kernels.cim_mvm.ops import cim_mvm, deploy, fold
+from repro_torch.kernels.cim_mvm.ref import cim_mvm_plain, folded_weights
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import (
     EMPTY_POS,
@@ -299,6 +299,11 @@ def test_kernel_launches_are_counted(cuda):
     runtime.reset_launch_counts()
     cim_mvm(torch.randn((2, 64), device=cuda), dep, device=cuda)
     assert runtime.launch_counts()["cim_mvm"] == 1
+    folded = fold(dataclasses.replace(dep, gain=torch.ones_like(
+        dep.codes, dtype=torch.float32)))
+    assert runtime.launch_counts()["cim_fold"] == 1
+    cim_mvm(torch.randn((2, 64), device=cuda), folded, device=cuda)
+    assert runtime.launch_counts()["cim_mvm"] == 2
     z = torch.zeros((2, 3, 1, 16), device=cuda)
     slstm_scan(z, torch.zeros((1, 4, 16), device=cuda),
                torch.zeros((2, 1, 4), device=cuda),
@@ -384,13 +389,13 @@ def test_sample_tokens_batch_cpu_equals_card(cuda):
     assert torch.equal(cpu[clear], card[clear])
 
 
-def _nonideal_dep(cuda, I, N, spec, ops, seed):
+def _nonideal_dep(cuda, I, N, spec, ops, seed, mode="mdm"):
     """A deployment of a random (I, N) matrix carrying the nonideal
     operands named in ``ops``: a log-normal gain, random per-tile bitline
-    permutations, read noise at sigma_read 0.05 (tag 3)."""
+    permutations, read noise at sigma_read 0.05 (tag 3); not folded."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     w = torch.randn((I, N), generator=g, device=cuda) * 0.2
-    dep, _ = deploy(w, CrossbarSpec(*spec), "mdm")
+    dep, _ = deploy(w, CrossbarSpec(*spec), mode)
     extra = {}
     if ops in ("gain", "all"):
         extra["gain"] = torch.exp(0.1 * torch.randn(
@@ -411,24 +416,93 @@ def _nonideal_dep(cuda, I, N, spec, ops, seed):
 @pytest.mark.parametrize("spec", [(64, 64, 8), (16, 64, 8), (16, 16, 8)])
 @pytest.mark.parametrize("M", [1, 4, 8, 16, 128, 512])
 def test_cim_mvm_nonideal_operands_vs_plain(cuda, ops, spec, M):
-    """Gain, column permutation and in-kernel read noise in both forms
-    (decode M <= 16, prefill), on the 16-byte path (wpt 8) and the
-    general one (spec (16, 16, 8): wpt 2); rows 16 make a prefill slab
-    span two tiles of col_pos.  Same normwise bound as the ideal form:
-    W' is bit-identical but for the normals' last bits (the plain
-    version's log / cos on the card are CUDA's too)."""
+    """Gain, column permutation and in-kernel read noise through the
+    fold kernel and the folded forms (decode M <= 16, prefill), on the
+    fold's 16-byte path (wpt 8) and its general one (spec (16, 16, 8):
+    wpt 2); rows 16 make a fold block span two tiles of col_pos.  The
+    kernel reads the folded deployment, the plain version expands the
+    unfolded one.  Same normwise bound as the ideal form: W' * gain is
+    bit-identical and the noise differs in the normals' last bits (the
+    kernel's SFU log / sincos against CUDA's log / cos in the plain
+    version)."""
     I, N = 640, 384
     dep = _nonideal_dep(cuda, I, N, spec, ops, M + spec[0] + spec[1])
     x = torch.randn((M, I), generator=torch.Generator(device=cuda)
                     .manual_seed(M), device=cuda)
-    y = cim_mvm(x, dep, read_seed=11, device=cuda)
+    with pytest.raises(ValueError, match="fold"):
+        cim_mvm(x, dep, read_seed=11, device=cuda)
+    folded = fold(dep)
+    y = cim_mvm(x, folded, read_seed=11, device=cuda)
     y_plain = cim_mvm_plain(x, dep, 11)
     err = (y - y_plain).abs().max().item()
     assert err <= 1e-5 * y_plain.abs().max().item(), err
     if ops in ("noise", "all"):
         # The noise is drawn: another seed gives another y.
-        y2 = cim_mvm(x, dep, read_seed=12, device=cuda)
+        y2 = cim_mvm(x, folded, read_seed=12, device=cuda)
         assert not torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops", ["gain", "colpos", "all"])
+@pytest.mark.parametrize("spec,N", [((64, 64, 8), 384), ((16, 64, 8), 384),
+                                    ((16, 16, 8), 384), ((16, 16, 8), 13),
+                                    ((32, 32, 4), 100)])
+@pytest.mark.parametrize("mode", MODES)
+def test_cim_fold_kernel_is_exact(cuda, ops, spec, N, mode):
+    """The fold kernel against its plain version, bit for bit: the
+    16-byte path (wpt 8) and the general one (wpt 2, and N = 13, whose
+    rows pad from n_pad 14 to ld 16 with zeros), K = 4, all four modes
+    (two with reversed dataflow), col_pos tiles of 64 and of 16 rows."""
+    dep = _nonideal_dep(cuda, 200, N, spec, ops, N + spec[0], mode)
+    got = fold(dep).folded
+    assert torch.equal(got, folded_weights(dep))
+    assert torch.equal(got.cpu(), folded_weights(dataclasses.replace(
+        dep, **{f: None if getattr(dep, f) is None
+                else getattr(dep, f).cpu()
+                for f in ("codes", "pos", "scale", "gain", "col_pos")})))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("M", [4, 128, 512])
+def test_cim_occupancy_of_every_form(cuda, M, folded):
+    """The occupancy query (CUDA's occupancy calculator in the built
+    library) at a launch's geometry: at least one resident block a SM for
+    every form and the fold, clusters for a cluster launch (the decode
+    forms, a split folded prefill) and for no other, and no error left
+    behind for the next launch."""
+    from repro_torch.kernels.cim_mvm.ops import (
+        FORM_DECODE,
+        FORM_DECODE_FOLDED,
+        _sm_count,
+        cim_geometry,
+        fold_geometry,
+        occupancy,
+    )
+
+    spec = (64, 64, 8)
+    I, N = 1024, 2048
+    dep = _nonideal_dep(cuda, I, N, spec, "all" if folded else "none", M)
+    geoms = [cim_geometry(M, I, N, *dep.codes.shape, dep.wpt, dep.n_bits,
+                          dep.cols, dep.reversed_df, _sm_count(0), True,
+                          True, folded, folded)]
+    if folded:
+        geoms.append(fold_geometry(*dep.codes.shape, dep.wpt, dep.n_bits,
+                                   dep.cols, dep.reversed_df, True,
+                                   spec[0]))
+    for geom in geoms:
+        occ = occupancy(geom)
+        assert occ["blocks_per_sm"] >= 1, (geom.form, occ)
+        cluster = geom.form in (FORM_DECODE, FORM_DECODE_FOLDED) \
+            or geom.gz > 1
+        assert (occ["clusters"] is not None) == cluster, (geom.form, occ)
+        assert not cluster or occ["clusters"] >= 1
+    x = torch.randn((M, I), device=cuda).to(torch.bfloat16)
+    run = fold(dep) if folded else dep
+    y = cim_mvm(x, run, read_seed=11, device=cuda)
+    y_plain = cim_mvm_plain(x, dep, 11)
+    assert (y - y_plain).abs().max().item() \
+        <= 1e-5 * y_plain.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -437,7 +511,7 @@ def test_cim_mvm_read_noise_is_a_function_of_seed_tag_and_position(cuda, M):
     """Row r of y is the same at M and at M = 1 (every row sees the
     same W' in one read; the decode and prefill forms draw the same
     eps), and two calls with one seed are bit-identical."""
-    dep = _nonideal_dep(cuda, 640, 384, (64, 64, 8), "all", 5)
+    dep = fold(_nonideal_dep(cuda, 640, 384, (64, 64, 8), "all", 5))
     x = torch.randn((M, 640), generator=torch.Generator(device=cuda)
                     .manual_seed(3), device=cuda)
     y = cim_mvm(x, dep, read_seed=9, device=cuda)
@@ -448,11 +522,29 @@ def test_cim_mvm_read_noise_is_a_function_of_seed_tag_and_position(cuda, M):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 128])
+def test_cim_mvm_read_noise_is_finite_at_every_draw(cuda, M):
+    """16 noisy reads of a 3072 x 8192 folded deployment draw ~2e8
+    uniforms u1; about one in 2^24 rounds to exactly 1 (ln u1 = 0), so
+    these reads meet that case ~12 times: every output stays finite."""
+    dep = fold(_nonideal_dep(cuda, 3072, 8192, (64, 64, 8), "noise", 2))
+    x = torch.randn((M, 3072), generator=torch.Generator(device=cuda)
+                    .manual_seed(M), device=cuda)
+    for seed in range(16):
+        assert torch.isfinite(cim_mvm(x, dep, read_seed=seed,
+                                      device=cuda)).all(), seed
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ops", ["none", "all"])
 @pytest.mark.parametrize("M", [1, 8, 128])
 def test_cim_mvm_bf16_x(cuda, ops, M):
-    """bf16 x is read as it is: the same y as its exact f32 widening."""
+    """bf16 x is read as it is: the same y as its exact f32 widening (the
+    folded prefill form skips the product with x's lo part, exactly zero
+    for bf16 x, and runs it for f32 x)."""
     dep = _nonideal_dep(cuda, 640, 384, (64, 64, 8), ops, 7)
+    if ops == "all":
+        dep = fold(dep)
     x = torch.randn((M, 640), device=cuda).to(torch.bfloat16)
     y = cim_mvm(x, dep, read_seed=4, device=cuda)
     assert y.dtype == torch.float32

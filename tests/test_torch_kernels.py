@@ -7,6 +7,8 @@ attention rtol = atol = 2e-5 (tests/test_kernels_perf.py).  The JAX
 Pallas kernels run in interpret mode, as the reference's tests run them.
 The CUDA kernels against their plain versions: tests/test_torch_cuda.py.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,8 +25,14 @@ from repro.models.attention import flash_attention as j_flash
 from repro_torch.core.bitslice import bitslice, unbitslice
 from repro_torch.core.mdm import MODES
 from repro_torch.core.tiling import CrossbarSpec
-from repro_torch.kernels.cim_mvm.ops import cim_mvm, deploy
-from repro_torch.kernels.cim_mvm.ref import cim_mvm_ref
+from repro_torch.kernels.cim_mvm.ops import cim_mvm, deploy, fold
+from repro_torch.kernels.cim_mvm.ref import (
+    cim_effective_weights,
+    cim_mvm_plain,
+    cim_mvm_ref,
+    deployment_weights,
+    read_noise,
+)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import (
     EMPTY_POS,
@@ -150,8 +158,6 @@ def test_cim_mvm_refuses_nonideal_deployments():
     permutation, or both, against the reference's ``cim_mvm(impl="xla")``
     (the only reference path that applies them) at its three-way bound,
     for x in f32 and bf16 (both packages upcast x to f32)."""
-    import dataclasses
-
     spec = (16, 16, 8)
     rng = np.random.default_rng(3)
     w = (rng.standard_normal((40, 24)) * 0.2).astype(np.float32)
@@ -172,8 +178,113 @@ def test_cim_mvm_refuses_nonideal_deployments():
         for xt in (torch.from_numpy(x), torch.from_numpy(x).bfloat16()):
             xw = xt.float().numpy()
             want = np.asarray(j_cim_mvm(jnp.asarray(xw), jd, impl="xla"))
-            got = cim_mvm(xt, d, device=CPU).numpy()
-            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+            for dd in (d, fold(d)):       # as given, and folded
+                got = cim_mvm(xt, dd, device=CPU).numpy()
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _with_operands(dep, ops, rows, rng):
+    """``dep`` carrying the operands named in ``ops``: a log-normal gain,
+    random per-tile bitline permutations, read noise (sigma_read 0.05,
+    tag 3)."""
+    extra = {}
+    if "gain" in ops:
+        extra["gain"] = torch.from_numpy(np.exp(0.1 * rng.standard_normal(
+            dep.codes.shape)).astype(np.float32))
+    if "colpos" in ops:
+        ti, tn = dep.codes.shape[0] // rows, dep.pos.shape[1]
+        extra["col_pos"] = torch.from_numpy(np.argsort(
+            rng.random((ti, tn, dep.cols)), -1).astype(np.int32))
+    if "noise" in ops:
+        extra.update(noise_tag=torch.tensor(3, dtype=torch.int32),
+                     sigma_read=0.05)
+    return dataclasses.replace(dep, **extra)
+
+
+OPERANDS = ("gain", "colpos", "gain+colpos", "noise", "gain+colpos+noise")
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("spec,shape", [((16, 16, 8), (40, 13)),
+                                        ((64, 64, 8), (70, 80))])
+@pytest.mark.parametrize("ops", OPERANDS)
+def test_fold_plain_is_the_expansion_times_gain(mode, spec, shape, ops):
+    """The fold's plain version (which the card's fold kernel is held to
+    bit for bit) is W'(col_pos) * gain exactly, the expansion computed
+    here directly, in all four modes (two with reversed dataflow), as
+    (i_pad, ld) with ld = n_pad rounded up to 8 (n_pad 14 under wpt 2)
+    and zero columns past n_pad; an ideal deployment is not folded."""
+    rng = np.random.default_rng(len(ops) + shape[0])
+    w = torch.from_numpy((rng.standard_normal(shape) * 0.2).astype(
+        np.float32))
+    dep, _ = deploy(w, CrossbarSpec(*spec), mode)
+    assert dep.folded is None
+    d = _with_operands(dep, ops, spec[0], rng)
+    f = fold(d)
+    i_pad, n_pad = d.codes.shape
+    assert f.folded.shape == (i_pad, -(-n_pad // 8) * 8)
+    assert (f.folded[:, n_pad:] == 0).all()
+    want = cim_effective_weights(d.codes, d.pos, d.scale, n_bits=d.n_bits,
+                                 wpt=d.wpt, cols=d.cols, eta=d.eta,
+                                 reversed_df=d.reversed_df,
+                                 col_pos=d.col_pos)
+    if d.gain is not None:
+        want = want * d.gain
+    assert torch.equal(f.folded[:, :n_pad], want)
+    assert torch.equal(deployment_weights(d, None), want)
+    assert torch.equal(deployment_weights(f, None), want)
+
+
+@pytest.mark.parametrize("ops", OPERANDS)
+@pytest.mark.parametrize("read_seed", [None, 7])
+def test_cim_mvm_plain_reads_the_fold_bit_for_bit(ops, read_seed):
+    """The plain version on a folded deployment reads its ``folded`` W'
+    (the codes no longer matter) and gives the unfolded result bit for
+    bit, with and without a read's noise."""
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy((rng.standard_normal((70, 45)) * 0.2).astype(
+        np.float32))
+    dep, _ = deploy(w, CrossbarSpec(16, 16, 8), "mdm")
+    d = _with_operands(dep, ops, 16, rng)
+    f = fold(d)
+    x = torch.from_numpy(rng.standard_normal((5, 70)).astype(np.float32))
+    want = cim_mvm_plain(x, d, read_seed)
+    assert torch.equal(cim_mvm_plain(x, f, read_seed), want)
+    assert torch.equal(cim_mvm(x, f, read_seed, device=CPU), want)
+    blank = dataclasses.replace(f, codes=torch.zeros_like(f.codes))
+    assert blank.folded is None        # replace drops the fold
+    blank.folded = f.folded
+    assert torch.equal(cim_mvm_plain(x, blank, read_seed), want)
+
+
+@pytest.mark.parametrize("ops", ["noise", "gain+colpos+noise"])
+def test_folded_read_noise_matches_reference_formula(ops):
+    """A folded deployment's noisy read against the reference's
+    ``cim_mvm(impl="xla")``, its gain and col_pos moved across and the
+    port's eps moved into the reference's noise term (sigma_read * agg)
+    * scale * eps, at the reference's three-way bound; x f32 and bf16."""
+    spec = (16, 16, 8)
+    rng = np.random.default_rng(5)
+    w = (rng.standard_normal((40, 24)) * 0.2).astype(np.float32)
+    dep, _ = deploy(torch.from_numpy(w), CrossbarSpec(*spec), "mdm")
+    j_dep, _ = j_deploy(jnp.asarray(w), JSpec(*spec), "mdm")
+    d = _with_operands(dep, ops, spec[0], rng)
+    jd = dataclasses.replace(j_dep, **{
+        k: jnp.asarray(getattr(d, k).numpy()) for k in ("gain", "col_pos")
+        if getattr(d, k) is not None})
+    f = fold(d)
+    i_pad, n_pad = d.codes.shape
+    eps = read_noise(7, 3, i_pad, n_pad, "cpu").numpy()[:40, :24]
+    agg = float(((1.0 - 4.0 ** -spec[2]) / 3.0) ** 0.5)
+    nz = np.float32(0.05 * agg) * np.float32(d.scale)
+    x = rng.standard_normal((5, 40)).astype(np.float32)
+    for xt in (torch.from_numpy(x), torch.from_numpy(x).bfloat16()):
+        xw = xt.float().numpy()
+        clean = np.asarray(j_cim_mvm(jnp.asarray(xw), jd, impl="xla"))
+        want = clean + xw.astype(np.float64) @ (nz * eps).astype(np.float64)
+        got = cim_mvm(xt, f, read_seed=7, device=CPU).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        assert np.abs(got - clean).max() > 1e-3 * np.abs(clean).max()
 
 
 # ---------------------------- flash attention ----------------------------
@@ -307,13 +418,16 @@ def _cim_decode_rows(geom):
 
 
 def _cim_prefill_tiles(geom):
-    """The cim_mvm prefill form's output tiles (row range, column range)
-    and the I slabs each block sums, in order."""
+    """The cim_mvm prefill forms' output tiles (row range, column range)
+    and the I slabs each tile's blocks sum, in order: split z of gz (a
+    cluster rank) the slabs [s * z / gz, s * (z + 1) / gz) of s."""
     bm, bn, bk = cim_ops.PREFILL_BM, geom.tile, cim_ops.PREFILL_BK
     tiles = [((by * bm, min((by + 1) * bm, geom.M)),
               (bx * bn, min((bx + 1) * bn, geom.N)))
              for by in range(geom.gy) for bx in range(geom.gx)]
-    slabs = [(k, min(k + bk, geom.I)) for k in range(0, geom.I, bk)]
+    n = -(-geom.I // bk)
+    slabs = [(kt * bk, min((kt + 1) * bk, geom.I)) for z in range(geom.gz)
+             for kt in range(n * z // geom.gz, n * (z + 1) // geom.gz)]
     return tiles, slabs
 
 
@@ -343,6 +457,16 @@ def test_geometry_constants_mirror_the_kernels():
     assert _cu_constant(cim_cu, "PF_BN") == cim_ops.PREFILL_BN
     assert _cu_constant(cim_cu, "PF_BK") == cim_ops.PREFILL_BK
     assert _cu_constant(cim_cu, "PF_STAGES") == cim_ops.PREFILL_STAGES
+    assert _cu_constant(cim_cu, "FOLD_COLS") == cim_ops.FOLD_COLS
+    assert re.search(r"constexpr int PF_WLD = PF_BN \+ (\d+);",
+                     cim_cu.read_text()).group(1) == str(
+        cim_ops.PREFILL_WLD - cim_ops.PREFILL_BN)
+    forms = re.search(r"constexpr int FORM_DECODE = 0, FORM_PREFILL = 1, "
+                      r"FORM_DECODE_FOLDED = 2,\s*FORM_PREFILL_FOLDED = 3, "
+                      r"FORM_FOLD = 4;", cim_cu.read_text())
+    assert forms and (cim_ops.FORM_DECODE, cim_ops.FORM_PREFILL,
+                      cim_ops.FORM_DECODE_FOLDED, cim_ops.FORM_PREFILL_FOLDED,
+                      cim_ops.FORM_FOLD) == (0, 1, 2, 3, 4)
     fields = re.search(r"struct Geom \{\s*int ([^;]*);",
                        cim_cu.read_text()).group(1)
     assert tuple(f.strip() for f in fields.split(",")) == \
@@ -400,48 +524,63 @@ def test_cim_prefill_geometry_covers_each_output_once(M, I, N):
 @pytest.mark.parametrize("M", [1, 4, 8, 16, 128, 512])
 @pytest.mark.parametrize("I,N,rows", [(3072, 8192, 64), (8192, 3072, 64),
                                       (640, 384, 16), (1000, 300, 16)])
-@pytest.mark.parametrize("ext", [cim_ops.EXT_GAIN, cim_ops.EXT_COLP,
-                                 cim_ops.EXT_NOISE, 7])
+@pytest.mark.parametrize("ext", [1, 2, 4, 7])   # gain, col_pos, noise, all
 def test_cim_geometry_with_nonideal_operands(M, I, N, rows, ext):
-    """The nonideal forms' launch: shared memory fits; the col_pos tiles
-    a decode block or a prefill slab touches (cp_ti x cp_tn) cover what
-    the kernel indexes; the prefill gain ring, where staged, starts on
-    16 bytes (its cp.async copies 16); x bf16 changes nothing else."""
+    """A deployment carrying a gain (1), a col_pos (2), read noise (4) or
+    all three is read through the folded forms: the ideal form's choice
+    by M, rows of ld = n_pad rounded up to 8 floats, every row of I and
+    column of ld covered once, shared memory that fits, noise drawn
+    where it is armed, x bf16 changing nothing else.  Its fold's blocks
+    cover (i_pad, ld) once, and the col_pos tiles a fold block touches
+    (cp_ti x cp_tn) cover what the fold kernel indexes."""
     wpt = 8
     n_pad = -(-N // wpt) * wpt
     i_pad = -(-I // rows) * rows
+    noise, colp = bool(ext & 4), bool(ext & 2)
     geom = cim_ops.cim_geometry(M, I, N, i_pad, n_pad, wpt, 8, 64, True, 132,
-                                True, True, ext, rows)
-    assert geom.smem <= cim_ops.SMEM_MAX and geom.xbf16 == 1
-    assert geom.ext & 7 == ext and geom.n_ti == i_pad // rows
-    colp = bool(ext & cim_ops.EXT_COLP)
-    if geom.form == 0:
-        W = 8 * geom.tile
-        if colp:
-            for r in range(8):
-                k0, k1 = r * geom.rps, min((r + 1) * geom.rps, I)
-                if k0 < k1:
-                    assert (k1 - 1) // rows - k0 // rows < geom.cp_ti
-            for bx in range(geom.gx):
-                c1 = min((bx + 1) * W, n_pad) - 1
-                assert c1 // wpt - bx * W // wpt < geom.cp_tn
-    else:
-        assert geom.off_p % 16 == 0 and geom.off_t % 16 == 0
-        staged = bool(geom.ext & cim_ops.EXT_GAIN_STAGED)
-        assert staged <= bool(ext & cim_ops.EXT_GAIN and geom.fast)
-        if colp:
-            bk, bn = cim_ops.PREFILL_BK, cim_ops.PREFILL_BN
-            for k0 in range(0, I, bk):
-                k1 = min(k0 + bk, I) - 1
-                assert k1 // rows - k0 // rows < geom.cp_ti
-            for n0 in range(0, n_pad, bn):
-                n1 = min(n0 + bn, n_pad) - 1
-                assert n1 // wpt - n0 // wpt < geom.cp_tn
-    if not colp:
-        assert geom.cp_ti == geom.cp_tn == 0
+                                True, True, True, noise)
     ideal = cim_ops.cim_geometry(M, I, N, i_pad, n_pad, wpt, 8, 64, True,
                                  132, True)
-    assert geom.form == ideal.form or colp
+    assert geom.smem <= cim_ops.SMEM_MAX and geom.xbf16 == 1
+    assert geom.noise == int(noise) and geom.fast == 0
+    assert geom.ld % 8 == 0 and n_pad <= geom.ld < n_pad + 8
+    assert geom.form == ideal.form + 2
+    if geom.form == cim_ops.FORM_DECODE_FOLDED:
+        flat = [i for part in _cim_decode_rows(geom) for i in part]
+        assert sorted(flat) == list(range(I))
+        assert geom.gx * 8 * geom.tile >= geom.ld \
+            > (geom.gx - 1) * 8 * geom.tile
+    else:
+        tiles, slabs = _cim_prefill_tiles(geom)
+        hits = np.zeros((M, N), np.int32)
+        for (r0, r1), (c0, c1) in tiles:
+            hits[r0:r1, c0:c1] += 1
+        assert (hits == 1).all()
+        assert [i for a, b in slabs for i in range(a, b)] == list(range(I))
+        # A split of I fills idle SMs, a cluster of at most 8, each rank
+        # with a slab and 64 / gz of a thread's sums to add.
+        assert geom.gz in (1, 2, 4, 8) and ideal.gz == 1
+        blocks = geom.gx * geom.gy
+        assert geom.gz == 1 or blocks * geom.gz <= 132
+        assert blocks * 2 * geom.gz > 132 or geom.gz == 8 \
+            or -(-I // cim_ops.PREFILL_BK) < 2 * geom.gz
+    fold = cim_ops.fold_geometry(i_pad, n_pad, wpt, 8, 64, False, True,
+                                 rows if colp else 0)
+    assert fold.form == cim_ops.FORM_FOLD and fold.ld == geom.ld
+    assert fold.smem <= cim_ops.SMEM_MAX and fold.I == i_pad
+    assert fold.gy * fold.rps >= i_pad > (fold.gy - 1) * fold.rps
+    cw = cim_ops.FOLD_COLS
+    assert fold.gx * cw >= fold.ld > (fold.gx - 1) * cw
+    if colp:
+        assert fold.n_ti == i_pad // rows
+        for k0 in range(0, i_pad, fold.rps):
+            k1 = min(k0 + fold.rps, i_pad) - 1
+            assert k1 // rows - k0 // rows < fold.cp_ti
+        for n0 in range(0, n_pad, cw):
+            n1 = min(n0 + cw, n_pad) - 1
+            assert n1 // wpt - n0 // wpt < fold.cp_tn
+    else:
+        assert fold.cp_ti == fold.cp_tn == 0
 
 
 def test_cim_geometry_dispatch_by_rows():
@@ -502,8 +641,6 @@ def test_3xtf32_meets_the_cim_bound_and_one_pass_does_not():
                          .astype(np.float32))
     x = torch.from_numpy(rng.standard_normal((8, 8192)).astype(np.float32))
     dep, _ = deploy(w, CrossbarSpec(64, 64, 8), "mdm")
-    from repro_torch.kernels.cim_mvm.ref import cim_effective_weights
-
     w_eff = cim_effective_weights(dep.codes, dep.pos, dep.scale,
                                   n_bits=8, wpt=8, cols=64, eta=dep.eta,
                                   reversed_df=dep.reversed_df)

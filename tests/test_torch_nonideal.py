@@ -401,10 +401,46 @@ def test_timed_deploy_reports_stage_seconds_and_changes_nothing():
     assert all(s >= 0.0 for s in rb["seconds"].values())
     for pname, da in a["slot0_attn"].items():
         db = b["slot0_attn"][pname]
-        for f in ("codes", "pos", "scale", "gain", "col_pos", "degraded"):
+        for f in ("codes", "pos", "scale", "gain", "col_pos", "degraded",
+                  "folded"):
             x, y = getattr(da, f), getattr(db, f)
             assert (x is None) == (y is None) and (
                 x is None or torch.equal(x, y)), (pname, f)
+
+
+@pytest.mark.parametrize("opens", [0.0, 0.02])
+def test_deploy_folds_every_served_matrix(opens):
+    """A whole-model deploy on imperfect devices (the "all" scenario,
+    line opens at ``opens``: none, or every matrix degraded) folds each
+    served (non-degraded) repeat of a stacked deployment once: its
+    ``layer(r)`` view's ``folded`` is the fold of that repeat bit for
+    bit, a degraded repeat's stays zero, and a slot with no served
+    repeat has none."""
+    from repro_torch.kernels.cim_mvm.ops import needs_fold
+    from repro_torch.kernels.cim_mvm.ref import folded_weights
+
+    kw, pipeline = SCENARIOS["all"]
+    kw = dict(kw, p_open_wordline=opens, p_open_bitline=opens)
+    jcfg = _smoke((16, 64, 8))
+    tree = jax.tree_util.tree_map(
+        np.asarray, jmodel.init_params(jcfg, jax.random.PRNGKey(0)))
+    tcfg = _port_cfg(jcfg)
+    cim, rep = deploy_model_params(
+        params_from_numpy(tree, tcfg, CPU), tcfg, device=CPU,
+        nonideal=tni.NonidealModel(**kw), nonideal_key=3, pipeline=pipeline)
+    served = 0
+    for slot in cim.values():
+        for dep in slot.values():
+            assert needs_fold(dep)
+            for r in range(dep.codes.shape[0]):
+                view = dep.layer(r)
+                if view.degraded is not None and int(view.degraded):
+                    assert dep.folded is None or not view.folded.any()
+                    continue
+                served += 1
+                assert torch.equal(view.folded, folded_weights(view))
+    assert served == rep["n_matrices"] - rep["n_degraded"]
+    assert served == (rep["n_matrices"] if opens == 0.0 else 0)
 
 
 def test_nonideal_weights_match_reference():
