@@ -7,8 +7,9 @@ Builds the port's hand-written CUDA kernels from the sources in this
 checkout and holds each against its plain PyTorch version at the shapes
 of the paths below: the five counterparts of the TPU kernels, cim_mvm's
 folded forms (gain, column permutation, in-kernel read noise, bf16 x)
-and the bf16 forms of flash_attention and slstm_scan included, and the
-fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives five paths
+and the bf16 forms of flash_attention (its decode form also over a
+LONG_C-slot cache, split across a cluster) and slstm_scan included, and
+the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives five paths
 through the entry points a user calls, each with the launch counts set
 to 0 just before it and read just after:
 
@@ -86,6 +87,12 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 # Dense TF32 tensor-core operations/s; a 3xTF32 product counts 3.
 PEAK_TF32 = 495e12
+# Dense bf16 tensor-core operations/s; flash's bf16 prefill form counts 1
+# product for Q.K^T and 3 for P.V (P in three bf16 pieces).
+PEAK_BF16 = 989e12
+# The long-cache decode case of the bf16 flash check: a cache this long
+# splits over a cluster (about 200 MB of K/V at phi3's heads).
+LONG_C = 4096
 # A torch.cuda._sleep that outlasts the host's enqueue of a timed run
 # (~10 ms at the H100's ~1.98 GHz boost clock).
 SLEEP_CYCLES = 20_000_000
@@ -279,7 +286,8 @@ def phase_build() -> dict:
         m = re.search(r"entry function '(\S+)' for '(\w+)'", line)
         if m:
             kernel = m.group(1)
-            built[kernel_name(kernel)] = {"sass": sass_n.get(kernel)}
+            built[kernel_name(kernel)] = {"sass": sass_n.get(kernel),
+                                          "mma": mma.get(kernel, {})}
             print(f"  {kernel_name(kernel)} for {m.group(2)}: "
                   f"{mma.get(kernel, {}) or 'no tensor-core instructions'}, "
                   f"{sass_n.get(kernel, '?')} SASS instructions", end="")
@@ -694,46 +702,87 @@ def _sdpa_kernels(fn) -> list[str]:
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
-def _flash_cases():
-    """(name, B, Sq, q positions, k positions) of the flash checks, at
+def _flash_cases(long: bool = False):
+    """(name, B, Sq, C, q positions, k positions) of the flash checks, at
     phi3's heads over a MAX_SEQ-long cache whose unwritten slots hold
     EMPTY_POS: the shared-position prefill and decode of ServeEngine,
     and the per-lane forms of ContinuousEngine: one padded prompt's
     prefill (B = 1, Sq = CONT_PROMPT), and a decode over CAPACITY lanes
-    at staggered clocks, two of them dead (all EMPTY_POS)."""
+    at staggered clocks, two of them dead (all EMPTY_POS); with ``long``
+    also a decode of B lanes over a LONG_C-long cache."""
     from repro_torch.kernels.flash_attention.ref import EMPTY_POS
 
-    def kpos_rows(filled):
-        kp = torch.full((len(filled), MAX_SEQ), EMPTY_POS, dtype=torch.int32,
+    def kpos_rows(filled, C=MAX_SEQ):
+        kp = torch.full((len(filled), C), EMPTY_POS, dtype=torch.int32,
                         device="cuda")
         for b, n in enumerate(filled):
             kp[b, :n] = torch.arange(n, dtype=torch.int32)
         return kp
 
     cases = []
-    for name, Sq, filled in (("prefill", PROMPT, PROMPT),
-                             ("decode", 1, MAX_SEQ - 1)):
+    for name, Sq, filled, C in (("prefill", PROMPT, PROMPT, MAX_SEQ),
+                                ("decode", 1, MAX_SEQ - 1, MAX_SEQ),
+                                ("decode_long", 1, LONG_C - 1, LONG_C)):
+        if name == "decode_long" and not long:
+            continue
         qpos = torch.arange(filled - Sq, filled, dtype=torch.int32,
                             device="cuda")
-        cases.append((name, B, Sq, qpos, kpos_rows([filled])[0]))
-    cases.append(("prefill_lanes", 1, CONT_PROMPT,
+        cases.append((name, B, Sq, C, qpos, kpos_rows([filled], C)[0]))
+    cases.append(("prefill_lanes", 1, CONT_PROMPT, MAX_SEQ,
                   torch.arange(CONT_PROMPT, dtype=torch.int32,
                                device="cuda")[None],
                   kpos_rows([CONT_PROMPT])))
     filled = [0, 0, 17, 40, 77, 128, 150, MAX_SEQ - 1][:CAPACITY]
-    cases.append(("decode_lanes", CAPACITY, 1,
+    cases.append(("decode_lanes", CAPACITY, 1, MAX_SEQ,
                   torch.tensor([max(n - 1, 0) for n in filled],
                                dtype=torch.int32, device="cuda")[:, None],
                   kpos_rows(filled)))
     return cases
 
 
-def _check_flash(g, dtype=torch.float32) -> dict:
-    """flash attention at the paths' shapes (``_flash_cases``), Dh = 96,
-    q, k and v in ``dtype``, against its plain version; device time
-    beside SDPA on the same inputs.  bf16 outputs: both sides round once
-    from f32, so a value near a rounding boundary may differ by one bf16
-    ulp (2^-7 relative) beyond the f32 tolerance."""
+def _flash_variants(run_geom, o_p, geom, built: dict, Dh: int) -> dict:
+    """A bf16 form's launch ``geom`` (chosen by ``flash_geometry``) and,
+    for the decode form, its other cluster splits (1 and 2 blocks, or 4
+    and 8): each one's device time, occupancy, registers and error
+    against the plain version ``o_p``, held to the same tolerance."""
+    from repro_torch.kernels.flash_attention import ops
+
+    g = geom.geom
+    pre = g["form"] == ops.FORM_PREFILL_BF16
+    key, values = (("warps", (ops.BF16_PREFILL_WARPS,)) if pre else
+                   ("split", (1, 2) if g["gx"] <= 2 else (4, 8)))
+    dc = -(-Dh // 32)
+    out = {}
+    for val in values:
+        vg = run_geom() if pre else run_geom(split=val)
+        o = vg[1]().float()
+        err = (o - o_p).abs().max().item()
+        if ((o - o_p).abs() - FLASH_TOL * (1 + o_p.abs())
+                - BF16_ULP * o_p.abs()).max().item() > 0:
+            raise AssertionError(f"flash bf16 disagrees at {key}={val}")
+        kern = (f"flash_prefill_bf16_kernel<Li{dc}>" if pre
+                else f"flash_decode_bf16_kernel<Li{dc}>")
+        occ = ops.occupancy(vg[0], Dh)
+        out[f"{key}={val}"] = dict(
+            ms=device_ms(vg[1]), max_abs_err=err, kernel=kern,
+            registers=built.get(kern, {}).get("regs"),
+            spill_bytes=built.get(kern, {}).get("spill"),
+            sass=built.get(kern, {}).get("sass"),
+            mma=built.get(kern, {}).get("mma"), **occ,
+            chosen=pre or val == g["gx"])
+    return out
+
+
+def _check_flash(g, dtype=torch.float32, built: dict | None = None) -> dict:
+    """flash attention at the paths' shapes (``_flash_cases``; bf16 also
+    at a LONG_C-long cache), Dh = 96, q, k and v in ``dtype``, against
+    its plain version; device time beside SDPA on the same inputs, the
+    byte bound and the tensor-core bound of the form's products.  bf16
+    outputs: both sides round once from f32, so a value near a rounding
+    boundary may differ by one bf16 ulp (2^-7 relative) beyond the f32
+    tolerance.  bf16: each case also at the form's other geometries
+    (:func:`_flash_variants`), with registers, SASS and blocks a SM."""
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ops import (
         DECODE_MAX_SQ,
         flash_attention,
@@ -744,11 +793,9 @@ def _check_flash(g, dtype=torch.float32) -> dict:
     bf = dtype == torch.bfloat16
     esize = 2 if bf else 4
     regimes = {}
-    for name, Bq, Sq, qpos, kpos in _flash_cases():
-        k = torch.randn((Bq, MAX_SEQ, H, Dh), generator=g,
-                        device="cuda").to(dtype)
-        v = torch.randn((Bq, MAX_SEQ, H, Dh), generator=g,
-                        device="cuda").to(dtype)
+    for name, Bq, Sq, C, qpos, kpos in _flash_cases(long=bf):
+        k = torch.randn((Bq, C, H, Dh), generator=g, device="cuda").to(dtype)
+        v = torch.randn((Bq, C, H, Dh), generator=g, device="cuda").to(dtype)
         q = torch.randn((Bq, Sq, H, Dh), generator=g,
                         device="cuda").to(dtype)
         run = lambda: flash_attention(q, k, v, q_positions=qpos,
@@ -759,9 +806,10 @@ def _check_flash(g, dtype=torch.float32) -> dict:
         err = (o_k - o_p).abs().max().item()
         excess = ((o_k - o_p).abs() - FLASH_TOL * (1 + o_p.abs())
                   - (BF16_ULP * o_p.abs() if bf else 0)).max()
-        ok = excess.item() <= 0
+        ok = excess.item() <= 0 and torch.equal(run(), run())
         ms = device_ms(run)
-        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, qpos, kpos))
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, qpos, kpos),
+                           iters=3 if C > MAX_SEQ else 20)
         qp = qpos if qpos.ndim == 2 else qpos[None]
         kp = kpos if kpos.ndim == 2 else kpos[None]
         mask = (kp[:, None, :] <= qp[:, :, None])           # (b, Sq, C)
@@ -780,18 +828,21 @@ def _check_flash(g, dtype=torch.float32) -> dict:
             + (qpos.numel() + kpos.numel()) * 4
         # Q.K^T and P.V over the valid pairs, 2 Dh operations each.
         b_ms, b_by = bound(n_bytes, pairs * 4.0 * Dh)
-        # TF32 products: 3 a product in f32; in bf16 1 for Q.K^T and 2
-        # for P.V (a bf16 operand has no lo part).
-        tc_ms, tc_by = bound(n_bytes, (1.5 if bf else 3) * pairs * 4.0 * Dh,
-                             PEAK_TF32)
+        # Tensor-core products: f32 3xTF32 (3 a product); bf16 1 for
+        # Q.K^T and 3 for P.V.
+        tc_ops, tc_peak = ((2 * pairs * 4.0 * Dh, PEAK_BF16) if bf
+                           else (3 * pairs * 4.0 * Dh, PEAK_TF32))
+        tc_ms, tc_by = bound(n_bytes, tc_ops, tc_peak)
         print(f"flash{'[bf16]' if bf else ''} {name} B={Bq} Sq={Sq} "
-              f"C={MAX_SEQ} H={H} Dh={Dh} "
+              f"C={C} H={H} Dh={Dh} "
               f"positions {tuple(qpos.shape)}/{tuple(kpos.shape)}: "
               f"max_abs_err {err:.3e} (tol {FLASH_TOL:g}(1+|ref|)"
-              f"{' + 2^-7|ref|' if bf else ''}) "
+              f"{' + 2^-7|ref|' if bf else ''}, two calls bit-identical) "
               f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} "
-              f"ms ({b_by}, f32), {tc_ms:.4f} ms ({tc_by}, 3xTF32); "
+              f"ms ({b_by}, f32), {tc_ms:.4f} ms ({tc_by}, "
+              f"{'bf16 1+3 products' if bf else '3xTF32'}; the products "
+              f"alone {tc_ops / tc_peak * 1e3:.4f} ms); "
               f"host {host_us(run):.1f} us a call")
         if name in ("prefill", "decode") and not bf:
             print(f"  sdpa kernels: {_sdpa_kernels(sdpa)}")
@@ -799,21 +850,43 @@ def _check_flash(g, dtype=torch.float32) -> dict:
             raise AssertionError(f"flash attention disagrees ({name})")
         if name == "decode_lanes" and not (o_k[:2] == 0).all():
             raise AssertionError("dead lanes attend to something")
-        # The prefill form runs its products in 3xTF32 on tensor cores,
-        # the decode form in f32 on the CUDA cores.
+        # The prefill forms run their products on tensor cores, the
+        # decode forms in f32 on the CUDA cores.
         pre = Sq > DECODE_MAX_SQ
         rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=tc_ms if pre else b_ms,
-                   bound_by=tc_by if pre else b_by, library_ms=lib_ms)
+                   bound_by=tc_by if pre else b_by, library_ms=lib_ms,
+                   bound_bytes_ms=n_bytes / PEAK_BYTES * 1e3)
         if pre:
             rec["bound_f32_ms"] = b_ms
-        regimes[name] = dict(B=Bq, Sq=Sq, C=MAX_SEQ, **rec)
+        if bf:
+            rec["bound_bf16_ms"] = tc_ms
+            rec["bf16_products_ms"] = tc_ops / tc_peak * 1e3
+            geom = ops.flash_geometry(Sq, True, Bq, H, H, C, Dh)
+
+            def run_geom(**kw):
+                vg = ops.flash_geometry(Sq, True, Bq, H, H, C, Dh, **kw)
+                return vg, lambda: ops.launch(q, k, v, qpos, kpos, 0, vg)
+
+            rec["geometry"] = geom.geom
+            rec["variants"] = _flash_variants(run_geom, o_p, geom,
+                                              built or {}, Dh)
+            for key, var in rec["variants"].items():
+                print(f"  {key}{' (chosen)' if var['chosen'] else ''}: "
+                      f"{var['ms']:.4f} ms, max_abs_err "
+                      f"{var['max_abs_err']:.3e}; {var['kernel']}: "
+                      f"{var['registers']} registers, {var['spill_bytes']} "
+                      f"bytes spilled, {var['sass']} SASS, {var['mma']}, "
+                      f"{var['blocks_per_sm']} blocks a SM"
+                      + (f", {var['clusters']} clusters on the card"
+                         if var["clusters"] else ""))
+        regimes[name] = dict(B=Bq, Sq=Sq, C=C, **rec)
     return dict(name="flash_attention[bf16]" if bf else "flash_attention",
                 route="cuda",
                 source="src/repro_torch/kernels/flash_attention/kernel.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:75",
                 **{k: v for k, v in regimes["prefill"].items()
-                   if k not in ("B", "Sq", "C")},
+                   if k not in ("B", "Sq", "C", "geometry", "variants")},
                 regimes=regimes)
 
 
@@ -832,7 +905,7 @@ def phase_kernels(built: dict) -> list[dict]:
     records.append(_check_slstm_scan(g))
     records.append(_check_cim_fold(built))
     records += _check_cim_nonideal(g, built)
-    records.append(_check_flash(g, torch.bfloat16))
+    records.append(_check_flash(g, torch.bfloat16, built))
     records.append(_check_slstm_scan(g, torch.bfloat16))
     return records
 

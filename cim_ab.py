@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time cim_mvm's forms at phi3-mini's shapes in one checkout of the port.
+"""Time cim_mvm's or flash_attention's forms at phi3-mini's shapes in one
+checkout of the port.
 
-    python3 cim_ab.py [--src DIR] [--label NAME]
+    python3 cim_ab.py [--src DIR] [--label NAME] [--flash]
 
 Imports ``repro_torch`` from ``DIR`` (default: the ``src`` beside this
 script), builds its kernels there and times its public ``cim_mvm`` on
@@ -14,6 +15,11 @@ over copies of the deployment larger than ``chip_smoke.COLD_BYTES``):
   deployment with a gain, the X-CHANGR bitline permutation and read
   noise: 3072x8192 and 8192x3072 at M = 4, 128 and 512, folded where the
   checkout has ``ops.fold``.
+
+With ``--flash`` it times the public ``flash_attention`` instead, f32
+and bf16, at ``chip_smoke._flash_cases``'s shapes (the bf16 forms also
+at the long-cache decode), and adds the checkout's flash kernels'
+registers, spills, SASS and tensor-core counts (``chip_smoke.phase_build``).
 
 Prints one JSON line.  Run it for two checkouts in one call (parent,
 change, change, parent) to compare them on one card.
@@ -28,7 +34,8 @@ import sys
 
 import torch
 
-from chip_smoke import COLD_BYTES, _nonideal_dep, device_ms
+from chip_smoke import (COLD_BYTES, _flash_cases, _nonideal_dep, device_ms,
+                        phase_build)
 
 
 def copies(dep, nbytes: int) -> list:
@@ -45,11 +52,34 @@ def copies(dep, nbytes: int) -> list:
     return out
 
 
+def time_flash(out: dict) -> None:
+    """flash_attention's forms at the flash checks' shapes, f32 and bf16
+    (H = 32, Dh = 96, random q, k, v from seed 0), and the checkout's
+    flash kernels as its build reports them."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    built = phase_build()
+    out["kernels"] = {k: v for k, v in built.items() if "flash" in k}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    H, Dh = 32, 96
+    for dtype in (torch.float32, torch.bfloat16):
+        bf = dtype == torch.bfloat16
+        for name, Bq, Sq, C, qpos, kpos in _flash_cases(long=bf):
+            q, k, v = (torch.randn((Bq, S, H, Dh), generator=g,
+                                   device="cuda").to(dtype)
+                       for S in (Sq, C, C))
+            out["ms"][f"flash{'[bf16]' if bf else ''} {name}"] = device_ms(
+                lambda: flash_attention(q, k, v, q_positions=qpos,
+                                        k_positions=kpos))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "src"))
     ap.add_argument("--label", default="")
+    ap.add_argument("--flash", action="store_true",
+                    help="time flash_attention's forms, not cim_mvm's")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("cim_ab: no CUDA device", file=sys.stderr)
@@ -63,6 +93,11 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {"label": a.label, "src": a.src,
            "card": torch.cuda.get_device_name(0), "ms": {}}
+
+    if a.flash:
+        time_flash(out)
+        print(json.dumps(out))
+        return 0
 
     def run(name, x, dep, nbytes, seed=None):
         deps = copies(dep, nbytes) if x.shape[0] <= ops.DECODE_MAX_M \

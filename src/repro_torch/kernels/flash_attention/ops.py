@@ -1,9 +1,9 @@
 """Wrapper of the flash-attention kernel (``kernel.cu``)."""
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
-from typing import NamedTuple
 
 import torch
 
@@ -12,26 +12,112 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
 
-# Launch geometry of kernel.cu: the decode form for Sq <= DECODE_MAX_SQ
-# (one block a query and head, DECODE_WARPS * 4 partial states over the
-# keys), else the prefill form (PREFILL_QB queries a block, key tiles of
-# PREFILL_KT).
+# Launch geometry of kernel.cu.  f32: the decode form for Sq <=
+# DECODE_MAX_SQ (one block a query and head, DECODE_WARPS * 4 partial
+# states over the keys), else the prefill form (PREFILL_QB queries a
+# block, key tiles of PREFILL_KT).  bf16: the prefill form takes 16
+# queries a warp, BF16_PREFILL_WARPS warps a block, key tiles of BF16_KT
+# in a ring of BF16_STAGES; the decode form serves one query
+# of one KV head and up to BF16_DECODE_HEADS of its query heads a block
+# (BF16_DECODE_GROUPS lane groups split over them; group u of a head
+# takes keys u + gph t), keeps BF16_ROUNDS rounds of BF16_ROUND keys a
+# group in flight, and splits C over a cluster of up to BF16_MAX_SPLIT
+# blocks where a cache holds more than BF16_DECODE_KEYS keys.
 DECODE_MAX_SQ = 16
 DECODE_WARPS = 8
 PREFILL_QB, PREFILL_KT = 64, 32
+FORM_DECODE, FORM_PREFILL, FORM_PREFILL_BF16, FORM_DECODE_BF16 = 0, 1, 2, 3
+BF16_KT, BF16_STAGES = 32, 3
+BF16_PREFILL_WARPS = 4
+BF16_DECODE_WARPS = 8
+BF16_DECODE_GROUPS = BF16_DECODE_WARPS * 4
+BF16_DECODE_HEADS = 8
+BF16_MAX_SPLIT = 8
+BF16_ROUND, BF16_ROUNDS = 2, 3
+BF16_DECODE_KEYS = BF16_DECODE_GROUPS * BF16_ROUND * BF16_ROUNDS
+_GEOM_FIELDS = ("form", "gx", "gy", "gz", "threads", "smem", "kpr", "heads")
 
 
-class FlashGeometry(NamedTuple):
-    form: int        # 0 decode, 1 prefill
-    grid_x: int      # grid (grid_x, H, B)
+def _padded(Dh: int) -> tuple[int, int]:
+    """DP (Dh padded to 32) and the bf16 forms' row pitch DP + 8."""
+    dp = 32 * math.ceil(Dh / 32)
+    return dp, dp + 8
+
+
+def decode_bf16_smem(dp: int) -> int:
+    """Shared memory of the bf16 decode form (kernel.cu's
+    ``decode_bf16_smem``): the warps' partials, the block's and the
+    cluster's merge, and the staging of BF16_ROUNDS rounds of K and V
+    rows at a pitch of DP (DP + 32 where DP * 2 bytes is a multiple of
+    128)."""
+    w, hd = BF16_DECODE_WARPS, BF16_DECODE_HEADS
+    floats = w * dp + 2 * w + 2 * hd + hd * dp + BF16_MAX_SPLIT * hd + hd
+    pitch = dp + (32 if dp % 64 == 0 else 0)
+    return 4 * floats + (BF16_ROUNDS * BF16_ROUND * BF16_DECODE_GROUPS
+                         * pitch * 4)
+
+
+def groups_per_head(heads: int) -> int:
+    """Lane groups of the bf16 decode form a query head, for ``heads``
+    heads a block: a multiple of 4, so that a warp's 4 groups share one
+    head (kernel.cu's ``gph``)."""
+    return 4 * (BF16_DECODE_GROUPS // (4 * heads))
+
+
+def decode_split(C: int) -> int:
+    """Blocks of the bf16 decode form's cluster for a cache of C slots:
+    1 where a block keeps every key in flight (BF16_DECODE_KEYS), else
+    enough for that, at most BF16_MAX_SPLIT."""
+    return min(BF16_MAX_SPLIT, max(1, math.ceil(C / BF16_DECODE_KEYS)))
 
 
 @functools.lru_cache(maxsize=None)
-def flash_geometry(Sq: int) -> FlashGeometry:
-    """The form and grid of one flash launch for Sq queries."""
-    if Sq <= DECODE_MAX_SQ:
-        return FlashGeometry(0, Sq)
-    return FlashGeometry(1, math.ceil(Sq / PREFILL_QB))
+def flash_geometry(Sq: int, bf16: bool = False, B: int = 1, H: int = 1,
+                   Hkv: int = 1, C: int = 1, Dh: int = 32,
+                   split: int | None = None) -> runtime.Geometry:
+    """The form and launch of one flash call: Sq queries of B x H heads
+    over C cache slots of Hkv heads.
+
+    bf16 decode: a cluster of :func:`decode_split` blocks along C;
+    ``split`` overrides it (for measurements)."""
+    g = dict(gy=H, gz=B, smem=0, kpr=0, heads=0)
+    dp, ld = _padded(Dh)
+    if not bf16:
+        if Sq <= DECODE_MAX_SQ:
+            g.update(form=FORM_DECODE, gx=Sq, threads=DECODE_WARPS * 32)
+        else:
+            g.update(form=FORM_PREFILL, gx=math.ceil(Sq / PREFILL_QB),
+                     threads=128)
+    elif Sq > DECODE_MAX_SQ:
+        qb = 16 * BF16_PREFILL_WARPS
+        g.update(form=FORM_PREFILL_BF16, gx=math.ceil(Sq / qb),
+                 threads=32 * BF16_PREFILL_WARPS,
+                 smem=(qb * ld + 2 * BF16_STAGES * BF16_KT * ld) * 2
+                 + BF16_STAGES * BF16_KT * 4)
+    else:
+        split = split or decode_split(C)
+        if not 1 <= split <= BF16_MAX_SPLIT:
+            raise ValueError(f"bf16 decode splits C over 1..{BF16_MAX_SPLIT}"
+                             f" blocks, not {split}")
+        G = H // Hkv
+        heads = min(G, BF16_DECODE_HEADS)
+        kpr = math.ceil(C / split)
+        g.update(form=FORM_DECODE_BF16, gx=split,
+                 gy=Sq * Hkv * math.ceil(G / heads), threads=32 *
+                 BF16_DECODE_WARPS, kpr=kpr, heads=heads,
+                 smem=decode_bf16_smem(dp))
+    return runtime.Geometry.of(_GEOM_FIELDS, g)
+
+
+def occupancy(geom: runtime.Geometry, Dh: int) -> dict:
+    """Occupancy of the kernel a launch with ``geom`` runs at head size
+    ``Dh``, from the CUDA runtime's occupancy calculator:
+    ``blocks_per_sm`` and, for a cluster launch, ``clusters`` the card
+    holds at once (else None)."""
+    out = (ctypes.c_int * 2)()
+    rc = runtime.library().flash_occupancy(geom.array, Dh, out)
+    runtime.check_status("flash_attention occupancy", rc)
+    return dict(blocks_per_sm=out[0], clusters=out[1] or None)
 
 
 def _pos_rows(p: torch.Tensor, B: int, S: int, name: str):
@@ -53,8 +139,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, Sq, H, Dh); k, v: (B, Skv, Hkv, Dh) -> (B, Sq, H, Dh) in q's
     dtype.  The kernel runs on CUDA (q, k, v all f32 or all bf16, f32
-    arithmetic, Dh <= 128); on the CPU the plain version runs with KV
-    chunks of ``chunk``, which the kernel does not need.
+    arithmetic, Dh <= 128) with :func:`flash_geometry`'s launch; on the
+    CPU the plain version runs with KV chunks of ``chunk``, which the
+    kernel does not need.
     """
     dev = resolve_device(device)
     check_on(dev, q=q, k=k, v=v, q_positions=q_positions,
@@ -73,18 +160,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if not 1 <= Dh <= 128:
         raise ValueError(f"flash kernel takes head_dim <= 128, got {Dh}")
+    geom = flash_geometry(Sq, q.dtype == torch.bfloat16, B, H, Hkv, Skv, Dh)
+    return launch(q, k, v, q_positions, k_positions, window, geom)
+
+
+def launch(q, k, v, q_positions, k_positions, window: int,
+           geom: runtime.Geometry) -> torch.Tensor:
+    """One launch of the kernel with ``geom`` (:func:`flash_geometry` of
+    these shapes and dtype, or one of its overrides) on CUDA tensors that
+    :func:`flash_attention` has checked."""
+    B, Sq, H, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     qp, q_stride = _pos_rows(q_positions, B, Sq, "q_positions")
     kp, k_stride = _pos_rows(k_positions, B, Skv, "k_positions")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    geom = flash_geometry(Sq)
     rc = runtime.library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
         kp.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, Dh, q_stride,
-        k_stride, int(window), float(Dh ** -0.5), geom.form, geom.grid_x,
-        int(q.dtype == torch.bfloat16), runtime.stream_arg(out.device))
+        k_stride, int(window), float(Dh ** -0.5), geom.array,
+        runtime.stream_arg(out.device))
     runtime.count_launch("flash_attention")
     runtime.check_status("flash_attention", rc)
     return out

@@ -50,7 +50,8 @@ _ARGTYPES = {
     "cim_mvm_launch": [_P] * 6 + [_F, _P, _U, _U, _F, _P],
     "cim_fold_launch": [_P] * 7 + [_F, _P],
     "cim_occupancy": [_P, _P],
-    "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _I, _P],
+    "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _P, _P],
+    "flash_occupancy": [_P, _I, _P],
     "manhattan_score_launch": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     "slstm_scan_launch": [_P] * 7 + [_I] * 4 + [_P, _I, _P],
     "slstm_scan_max_clusters": [_I, _P],
@@ -193,20 +194,19 @@ def _self_check(lib: ctypes.CDLL) -> None:
                     scale.data_ptr(), out.data_ptr(), geom.array, 0.0,
                     wf.data_ptr() if folded else None, 0, 0,
                     0.1 if noise else 0.0, stream)
-    for Sq in (1, 17):
-        q, qp = z(1, Sq, 1, 32), z(1, Sq, dt=torch.int32)
-        o = z(1, Sq, 1, 32)
-        fg = flash_geometry(Sq)
-        rc[f"flash_attention Sq={Sq}"] = lib.flash_attention_launch(
-            q.data_ptr(), q.data_ptr(), q.data_ptr(), qp.data_ptr(),
-            qp.data_ptr(), o.data_ptr(), 1, Sq, Sq, 1, 1, 32, Sq, Sq, 0, 1.0,
-            fg.form, fg.grid_x, 0, stream)
-        qb = q.to(torch.bfloat16)
-        ob = torch.empty_like(qb)
-        rc[f"flash_attention bf16 Sq={Sq}"] = lib.flash_attention_launch(
-            qb.data_ptr(), qb.data_ptr(), qb.data_ptr(), qp.data_ptr(),
-            qp.data_ptr(), ob.data_ptr(), 1, Sq, Sq, 1, 1, 32, Sq, Sq, 0,
-            1.0, fg.form, fg.grid_x, 1, stream)
+    # Both forms in f32 and in bf16, and the bf16 decode split over a
+    # cluster of 2.
+    for Sq, bf16, split in ((1, False, None), (17, False, None),
+                            (1, True, None), (17, True, None), (1, True, 2)):
+        dt = torch.bfloat16 if bf16 else torch.float32
+        q, o = z(1, Sq, 1, 32, dt=dt), z(1, Sq, 1, 32, dt=dt)
+        qp = z(1, Sq, dt=torch.int32)
+        fg = flash_geometry(Sq, bf16, 1, 1, 1, Sq, 32, split=split)
+        rc[f"flash_attention Sq={Sq} bf16={bf16} split={split}"] = \
+            lib.flash_attention_launch(
+                q.data_ptr(), q.data_ptr(), q.data_ptr(), qp.data_ptr(),
+                qp.data_ptr(), o.data_ptr(), 1, Sq, Sq, 1, 1, 32, Sq, Sq, 0,
+                1.0, fg.array, stream)
     m = z(1, 4, 16, dt=torch.uint8)
     s, n, nf = z(1, 4), z(1, 4), z(1)
     for form in (0, 1):                # the byte and the vector form

@@ -566,27 +566,80 @@ BF16_RTOL = 2.0 ** -7
                                   (2, 1, 96, 4, 4, 96, 0),
                                   (4, 4, 160, 32, 32, 96, 0),
                                   (2, 33, 50, 4, 4, 128, 0),
-                                  (1, 70, 70, 2, 2, 20, 0)])
+                                  (1, 70, 70, 2, 2, 20, 0),
+                                  (2, 1, 160, 6, 2, 96, 0),
+                                  (2, 3, 100, 24, 2, 96, 0),
+                                  (2, 1, 4096, 8, 4, 96, 0),
+                                  (2, 70, 100, 4, 2, 96, 17)])
 def test_flash_kernel_bf16_vs_plain(cuda, case):
     """bf16 q, k, v in both forms (decode Sq <= 16, prefill), Dh = 20 on
-    the per-value load path: against the plain version on the same bf16
-    inputs, and bit-identical to the f32 kernel on their widening
-    rounded to bf16 (a bf16 value is exact in TF32, so the lo-part
-    products the bf16 form skips are zeros)."""
+    the per-value load path, GQA decode with G = 3 and G = 12 (two head
+    chunks of a KV head), the long-cache decode split over a cluster (C =
+    4096), a prefill with a window: against the plain version on the same
+    bf16 inputs, and bit-identical across two calls.  (The bf16 forms run
+    bf16 tensor-core products, k16 steps, so they no longer equal the f32
+    kernel on the widened inputs bit for bit.)"""
     B, Sq, Skv, H, Hkv, Dh, win = case
     q, k, v = (torch.from_numpy(a).to(cuda).to(torch.bfloat16)
                for a in _qkv(B, Sq, Skv, H, Hkv, Dh, 1))
     qpos = torch.arange(Sq, dtype=torch.int32, device=cuda) + max(0, Skv - Sq)
     kpos = torch.arange(Skv, dtype=torch.int32, device=cuda)
-    out = flash_attention(q, k, v, q_positions=qpos, k_positions=kpos,
-                          window=win, device=cuda)
+    run = lambda: flash_attention(q, k, v, q_positions=qpos,
+                                  k_positions=kpos, window=win, device=cuda)
+    out = run()
     assert out.dtype == torch.bfloat16
     ref = flash_attention_plain(q, k, v, qpos, kpos, window=win)
     torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_RTOL,
                                atol=2e-5)
-    out32 = flash_attention(q.float(), k.float(), v.float(), q_positions=qpos,
-                            k_positions=kpos, window=win, device=cuda)
-    assert torch.equal(out, out32.to(torch.bfloat16))
+    assert torch.equal(out, run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("Sq", [3, 70])
+@pytest.mark.parametrize("Dh", [1, 20, 33, 96, 128])
+def test_flash_kernel_bf16_forms_and_masks(cuda, Dh, Sq, window):
+    """The bf16 forms over what the f32 test covers: Sq and C = 100 not
+    multiples of the tiles, EMPTY_POS slots, GQA (H / Hkv = 2), per-lane
+    positions with one lane fully masked (exactly 0), Dh from 1 to 128."""
+    B, C, H, Hkv = 3, 100, 4, 2
+    q, k, v = (torch.from_numpy(a).to(cuda).to(torch.bfloat16)
+               for a in _qkv(B, Sq, C, H, Hkv, Dh, Dh + Sq + 1))
+    kpos = torch.full((B, C), EMPTY_POS, dtype=torch.int32, device=cuda)
+    qpos = torch.zeros((B, Sq), dtype=torch.int32, device=cuda)
+    for b, n in enumerate((0, 77, 100)):
+        kpos[b, :n] = torch.arange(n, dtype=torch.int32)
+        qpos[b] = torch.arange(n - Sq, n, dtype=torch.int32)
+    kpos[2, 5] = EMPTY_POS                 # an evicted slot mid-ring
+    out = flash_attention(q, k, v, q_positions=qpos, k_positions=kpos,
+                          window=window, device=cuda)
+    ref = flash_attention_plain(q, k, v, qpos, kpos, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_RTOL,
+                               atol=2e-5)
+    assert (out[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [160, 4096])
+def test_flash_kernel_bf16_per_lane_decode_dead_lanes(cuda, C):
+    """The continuous engine's decode in bf16: one query a lane at its
+    own clock over a ring of C slots, two lanes dead (every slot
+    EMPTY_POS) that give exactly 0; C = 4096 runs the cluster split."""
+    B, H, Dh = 8, 8, 96
+    q, k, v = (torch.from_numpy(a).to(cuda).to(torch.bfloat16)
+               for a in _qkv(B, 1, C, H, H, Dh, C))
+    filled = [0, 0, 17, 40, 77, C // 2, C - 10, C - 1]
+    kpos = torch.full((B, C), EMPTY_POS, dtype=torch.int32, device=cuda)
+    for b, n in enumerate(filled):
+        kpos[b, :n] = torch.arange(n, dtype=torch.int32)
+    qpos = torch.tensor([max(n - 1, 0) for n in filled], dtype=torch.int32,
+                        device=cuda)[:, None]
+    out = flash_attention(q, k, v, q_positions=qpos, k_positions=kpos,
+                          device=cuda)
+    ref = flash_attention_plain(q, k, v, qpos, kpos)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_RTOL,
+                               atol=2e-5)
+    assert (out[:2] == 0).all()
 
 
 @pytest.mark.cuda

@@ -475,6 +475,23 @@ def test_geometry_constants_mirror_the_kernels():
     assert _cu_constant(fl_cu, "PF_QB") == flash_ops.PREFILL_QB
     assert _cu_constant(fl_cu, "PF_KT") == flash_ops.PREFILL_KT
     assert _cu_constant(fl_cu, "DEC_WARPS") == flash_ops.DECODE_WARPS
+    assert _cu_constant(fl_cu, "BP_KT") == flash_ops.BF16_KT
+    assert _cu_constant(fl_cu, "BP_STAGES") == flash_ops.BF16_STAGES
+    assert _cu_constant(fl_cu, "BD_WARPS") == flash_ops.BF16_DECODE_WARPS
+    assert _cu_constant(fl_cu, "BD_HEADS") == flash_ops.BF16_DECODE_HEADS
+    assert _cu_constant(fl_cu, "BD_MAX_SPLIT") == flash_ops.BF16_MAX_SPLIT
+    assert _cu_constant(fl_cu, "BD_ROUND") == flash_ops.BF16_ROUND
+    assert _cu_constant(fl_cu, "BD_ROUNDS") == flash_ops.BF16_ROUNDS
+    text = fl_cu.read_text()
+    forms = re.search(r"constexpr int FORM_DECODE = 0, FORM_PREFILL = 1, "
+                      r"FORM_PREFILL_BF16 = 2,\s*FORM_DECODE_BF16 = 3;", text)
+    assert forms and (flash_ops.FORM_DECODE, flash_ops.FORM_PREFILL,
+                      flash_ops.FORM_PREFILL_BF16,
+                      flash_ops.FORM_DECODE_BF16) == (0, 1, 2, 3)
+    fields = re.search(r"struct Geom \{\s*int ([^;]*);", text).group(1)
+    assert tuple(f.strip() for f in fields.split(",")) == \
+        flash_ops._GEOM_FIELDS
+    assert _cu_constant(fl_cu, "BP_WARPS") == flash_ops.BF16_PREFILL_WARPS
 
 
 @pytest.mark.parametrize("M,I,N,wpt,n_bits", [
@@ -599,10 +616,166 @@ def test_flash_geometry_covers_each_key_once(C):
     assert len(parts) == 4 * flash_ops.DECODE_WARPS
     assert sorted(c for p in parts for c in p) == list(range(C))
     assert all(p == sorted(p) for p in parts)
-    assert flash_ops.flash_geometry(1) == (0, 1)
-    assert flash_ops.flash_geometry(16) == (0, 16)
-    assert flash_ops.flash_geometry(17) == (1, 1)
-    assert flash_ops.flash_geometry(128) == (1, 2)
+    for Sq, form, gx in ((1, 0, 1), (16, 0, 16), (17, 1, 1), (128, 1, 2)):
+        geom = flash_ops.flash_geometry(Sq)
+        assert (geom.form, geom.gx) == (form, gx)
+
+
+def _flash_bf16_decode_keys(geom, C):
+    """The keys each lane group of the bf16 decode form sums, in the
+    order the partials merge: cluster ranks 0..split-1, then groups
+    0..gph-1 of a head; each list in the group's order of visits.  Rank
+    r owns [r * kpr, (r + 1) * kpr); its group u takes keys k0 + u + gph
+    t, in rounds of BF16_ROUND keys."""
+    gph = flash_ops.groups_per_head(geom.heads)
+    out = []
+    for rank in range(geom.gx):
+        k0 = min(rank * geom.kpr, C)
+        k1 = min(k0 + geom.kpr, C)
+        nk = [max(0, -(-(k1 - k0 - u) // gph)) for u in range(gph)]
+        rounds = -(-max(nk) // flash_ops.BF16_ROUND) if nk else 0
+        for u in range(gph):
+            out.append([k0 + u + gph * t
+                        for r in range(rounds)
+                        for t in range(r * flash_ops.BF16_ROUND,
+                                       (r + 1) * flash_ops.BF16_ROUND)
+                        if t < nk[u]])
+    return out
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 12])
+@pytest.mark.parametrize("C", [1, 31, 160, 1000, 4096])
+def test_flash_bf16_decode_split_covers_each_key_once(C, G):
+    """The bf16 decode form: every key once, in rank order, for every
+    query head of a KV head; within the card's shared memory; a cluster
+    of at most 8 blocks."""
+    Dh, Hkv = 96, 2
+    geom = flash_ops.flash_geometry(1, True, 4, G * Hkv, Hkv, C, Dh)
+    assert geom.form == flash_ops.FORM_DECODE_BF16
+    parts = _flash_bf16_decode_keys(geom, C)
+    assert sorted(c for p in parts for c in p) == list(range(C))
+    assert all(p == sorted(p) for p in parts)
+    gph = flash_ops.groups_per_head(geom.heads)
+    ranks = [sorted(c for p in parts[r * gph:(r + 1) * gph] for c in p)
+             for r in range(geom.gx)]
+    flat = [c for r in ranks for c in r]
+    assert flat == sorted(flat)                  # rank order
+    # Query heads: head chunks of ``heads`` cover the G heads once.
+    n_hc = geom.gy // Hkv
+    heads = [hc * geom.heads + i for hc in range(n_hc)
+             for i in range(min(geom.heads, G - hc * geom.heads))]
+    assert heads == list(range(G))
+    assert 1 <= geom.gx <= flash_ops.BF16_MAX_SPLIT
+    assert geom.smem == flash_ops.decode_bf16_smem(96)
+    assert geom.smem <= 227 * 1024 // 2          # two blocks a SM
+    # The whole slab in flight where a group's keys fit its rounds:
+    # phi3's decode (C = 160) is one block, 5 keys a group in 3 rounds of
+    # 2; the long cache a cluster of 8 blocks of 512 keys.
+    per_group = max(len(p) for p in parts)
+    if C <= flash_ops.BF16_DECODE_KEYS:
+        assert geom.gx == 1
+        if G == 1:
+            assert per_group <= flash_ops.BF16_ROUND * flash_ops.BF16_ROUNDS
+    if C == 4096:
+        assert (geom.gx, geom.kpr) == (8, 512)
+
+
+@pytest.mark.parametrize("B,Sq,H", [(4, 128, 32), (1, 128, 32), (3, 70, 4),
+                                   (2, 17, 6), (64, 1000, 32)])
+def test_flash_bf16_prefill_geometry_covers_each_query_once(B, Sq, H):
+    """The bf16 prefill form: warp w of block x owns rows x * QB + 16 w
+    .. + 15, every query row once."""
+    geom = flash_ops.flash_geometry(Sq, True, B, H, H, 160, 96)
+    assert geom.form == flash_ops.FORM_PREFILL_BF16
+    warps = flash_ops.BF16_PREFILL_WARPS
+    assert geom.threads == 32 * warps
+    qb = 16 * warps
+    rows = [x * qb + 16 * w + r for x in range(geom.gx)
+            for w in range(warps) for r in range(16)]
+    assert [r for r in rows if r < Sq] == list(range(Sq))
+    assert (geom.gy, geom.gz) == (H, B)
+    assert geom.smem <= 227 * 1024
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _pieces(p: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """p as n bf16 pieces, largest first: each the rounding of what the
+    pieces before it leave (kernel.cu's split3)."""
+    out = []
+    for _ in range(n):
+        out.append(_bf16(p))
+        p = p - out[-1]
+    return out
+
+
+def test_bf16_three_pieces_are_exact():
+    """hi + mid + lo == P bit for bit for P in (0, 1] over 60 binades;
+    lo is itself a bf16 value (its rounding changes nothing)."""
+    rng = np.random.default_rng(3)
+    p = torch.from_numpy((rng.random(200_000) * 2.0 ** -rng.integers(
+        0, 60, 200_000)).astype(np.float32))
+    p = p[p > 0]
+    hi, mid, lo = _pieces(p, 3)
+    assert torch.equal(hi + mid + lo, p)
+    assert torch.equal((hi.double() + mid.double() + lo.double()),
+                       p.double())
+    assert torch.equal(_bf16(p - hi - mid), p - hi - mid)
+    assert not torch.equal(hi + mid, p)           # two pieces lose bits
+
+
+def test_bf16_qk_products_are_exact():
+    """Q.K^T in one bf16 product: every product of two bf16 values is
+    exact in f32 (8 + 8 significant bits), so the tensor core sums the
+    same terms as the reference's f32 arithmetic on the widened values;
+    only the order of the f32 additions differs, within f32's rounding of
+    the sum."""
+    q, k, _ = (_bf16(torch.from_numpy(a)) for a in _qkv(1, 64, 64, 1, 1,
+                                                          96, 4))
+    q, k = q[0, :, 0], k[0, :, 0]
+    terms = q[:, None, :] * k[None, :, :]
+    assert torch.equal(terms.double(), q.double()[:, None, :]
+                       * k.double()[None, :, :])
+    exact = q.double() @ k.double().T
+    s32 = q @ k.T
+    assert ((s32.double() - exact).abs()
+            <= 96 * 2.0 ** -24 * terms.abs().sum(-1).double()).all()
+
+
+def test_bf16_pieces_meet_the_flash_bound_and_fewer_do_not():
+    """phi3's prefill (B=4, Sq=128, C=160 with 32 EMPTY_POS slots, H=32,
+    Dh=96), q, k, v rounded to bf16, V x 16: O = P.V with P in three
+    bf16 pieces (products exact, f32 sums, the small pieces first) meets
+    |o - y| <= 2e-5 (1 + |y|) against the float64 attention; one or two
+    pieces do not."""
+    q, k, v = (_bf16(torch.from_numpy(a))
+               for a in _qkv(4, 128, 160, 32, 32, 96, 0))
+    v = v * 16
+    kpos = torch.full((160,), EMPTY_POS, dtype=torch.int32)
+    kpos[:128] = torch.arange(128, dtype=torch.int32)
+    qpos = torch.arange(128, dtype=torch.int32)
+    valid = kpos[None, :] <= qpos[:, None]
+    s = torch.einsum("bqhd,bchd->bhqc", q, k) * 96 ** -0.5
+    s = torch.where(valid, s, torch.tensor(-1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    qd, kd, vd = q.double(), k.double(), v.double()
+    sd = torch.einsum("bqhd,bchd->bhqc", qd, kd) * 96 ** -0.5
+    sd = torch.where(valid, sd, torch.tensor(-1e30, dtype=torch.float64))
+    pd = torch.exp(sd - sd.amax(-1, keepdim=True))
+    y = torch.einsum("bhqc,bchd->bhqd", pd, vd) / pd.sum(-1, keepdim=True)
+
+    def excess(n):
+        o = torch.zeros_like(y, dtype=torch.float32)
+        for piece in reversed(_pieces(p, n)):
+            o = o + torch.einsum("bhqc,bchd->bhqd", piece, v)
+        return ((o / l).double() - y).abs().sub(2e-5 * (1 + y.abs())).max()
+
+    assert excess(3) <= 0
+    assert excess(2) > 0
+    assert excess(1) > 0
 
 
 # ---------------- why the tensor-core kernels pay for 3xTF32 ---------------
