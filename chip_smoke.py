@@ -9,9 +9,10 @@ of the paths below: the five counterparts of the TPU kernels, cim_mvm's
 folded forms (gain, column permutation, in-kernel read noise, bf16 x)
 and the bf16 forms of flash_attention (its decode form also over a
 LONG_C-slot cache, split across a cluster) and slstm_scan included, and
-the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives five paths
+the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives six paths
 through the entry points a user calls, each with the launch counts set
-to 0 just before it and read just after:
+to 0 just before it and read just after (a check's own launches inside
+a path left out):
 
 1. phi3-mini serving: random full-width weights (seed 0, f32, all 32
    layers), ``ServeEngine`` with ``cim.enabled`` (quantise, MDM-plan and
@@ -33,7 +34,16 @@ to 0 just before it and read just after:
    ``ServeEngine`` (cim_fold once a served matrix at deploy, cim_mvm's
    folded forms with read noise and bf16 x, flash_attention in bf16,
    manhattan_score);
-5. xlstm-1.3b serving at its config dtype (bf16): random full-width
+5. phi3-health: the same model and devices without line opens, plus
+   relaxation (``HEALTH``), aging and healing through
+   ``ServeEngine(health=...)`` and then ``ContinuousEngine(health=...)``
+   with the same seed: the reference's escalation arc (warm-up probe
+   rounds, then advances of the drift clock that trip recalibration,
+   reprogramming and demotion), with batches served between rounds,
+   and a heal swap under load at full depth (cim_mvm's batched
+   folded decode form for the probes, cim_fold at every refresh,
+   cim_mvm's folded forms, flash_attention in bf16, manhattan_score);
+6. xlstm-1.3b serving at its config dtype (bf16): random full-width
    weights (seed 0, all 48 layers), deploy (the reference deploys the
    mLSTM q/k/v) and greedy generation (slstm_scan in bf16,
    manhattan_score).
@@ -55,6 +65,12 @@ to the fold's plain version (the plain path itself reads the devices'
 state, never the fold), give bit-identical tokens in two
 ``generate`` calls with the same seeds, pass the bf16 checks above at
 one read seed, and hold its bf16 logits within 5e-2 x max|logit|.
+The health path must give the two engines identical event histories,
+every refreshed fold bit-identical to its plain version, every batched
+probe read within the cim_mvm tolerance of its plain loop (with and
+without read noise), each recalibrated matrix a lower probe error, and
+after demotion no cim_mvm launch for a demoted matrix; a heal under
+load must leave the sequences in flight their tokens.
 Plan caches live in a temporary directory removed at the end.
 
 Every phase prints its result; any failure raises and exits non-zero.
@@ -144,6 +160,8 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                 "export": ("bitslice_pack",),
                 "phi3-nonideal": ("cim_mvm", "cim_fold", "flash_attention",
                                   "manhattan_score"),
+                "phi3-health": ("cim_mvm", "cim_fold", "cim_mvm_batched",
+                                "flash_attention", "manhattan_score"),
                 "xlstm": ("slstm_scan", "manhattan_score")}
 # The paths each kernel record's form runs on (its launches are its
 # kernel's launches there).
@@ -153,8 +171,9 @@ RECORD_PATHS = {
     "manhattan_score": tuple(PATH_KERNELS),
     "slstm_scan": (),                 # the xlstm path now serves bf16
     "bitslice_pack": ("export",),
-    "flash_attention[bf16]": ("phi3-nonideal",),
-    "cim_fold": ("phi3-nonideal",),
+    "flash_attention[bf16]": ("phi3-nonideal", "phi3-health"),
+    "cim_fold": ("phi3-nonideal", "phi3-health"),
+    "cim_mvm_batched": ("phi3-health",),
     "slstm_scan[bf16]": ("xlstm",),
 }
 # Substrings of the port's CUDA kernel names, as the profiler shows them.
@@ -1063,11 +1082,12 @@ def _check_slstm_scan(g, dtype=torch.float32) -> dict:
 
 
 def _launches(path: str) -> dict:
-    """The launch counts of the path just driven; raises unless every
-    kernel of the path was launched."""
+    """The launch counts of the path just driven, less a check's
+    (EXCLUDED); raises unless every kernel of the path was launched."""
     from repro_torch.kernels import runtime
 
-    counts = runtime.launch_counts()
+    counts = {k: n - EXCLUDED.pop(k, 0)
+              for k, n in runtime.launch_counts().items()}
     print(f"{path} path launches: {counts}")
     missing = [k for k in PATH_KERNELS[path] if counts[k] <= 0]
     if missing:
@@ -1862,7 +1882,8 @@ def phase_continuous(cfg, params, serve_eng, cache_dir: str,
     fp_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    warm, wrep = deploy_serving_bank(cfg, params, cache, serve_eng.device)
+    warm, wrep, _, _ = deploy_serving_bank(cfg, params, cache,
+                                           serve_eng.device)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     if not wrep["manifest_hit"]:
@@ -1930,6 +1951,459 @@ def _cache_costs(mats, cfg, cache, cache_dir: str) -> None:
           f"{write_s:.2f} s")
 
 
+# The phi3-health path: phi3-nonideal's devices without line opens, plus
+# relaxation (so that the drift clock moves every gain); seed, mapping,
+# probe batch and endurance budget.
+HEALTH = dict(p_stuck_off=0.01, p_stuck_on=0.001, sigma_program=0.05,
+              sigma_corr=0.05, drift_nu=0.05, drift_time=10.0,
+              sigma_relax=0.08, sigma_read=0.01)
+HEALTH_SEED, HEALTH_PROBES, HEALTH_REPROGRAMS = 0, 16, 1
+# The detector of that reference test (warmup 3, z_trip 6, z_clear 2):
+# the default's warmup of 8 rounds would still be learning its baseline
+# at the arc's fifth round.
+HEALTH_DETECTOR = dict(warmup=3, z_trip=6.0, z_clear=2.0)
+# The reference's escalation arc (tests/test_health.py::
+# test_escalation_ladder_deterministic_per_seed) at full width: a number
+# is an advance of the drift clock (t0 units) before a probe round, 0 a
+# round alone, "serve" a batch served (B prompts, NEW tokens) between
+# rounds.
+HEALTH_ARC = (0, 0, 0, 0, 1e4, "serve", 1e8, 1e4, 1e8, "serve")
+
+
+# Launches made by a check inside a path (a kernel against its plain
+# version, a re-read), which the path's counts leave out.
+EXCLUDED: dict = {}
+
+
+class _Uncounted:
+    """Launches inside the block are a check's: they go to EXCLUDED."""
+
+    def __enter__(self):
+        from repro_torch.kernels import runtime
+
+        self.before = runtime.launch_counts()
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import runtime
+
+        for k, n in runtime.launch_counts().items():
+            EXCLUDED[k] = EXCLUDED.get(k, 0) + n - self.before[k]
+        return False
+
+
+def _health_groups(eng):
+    """(slot, pname) -> (stacked bank, probes (G, M, I), live repeats) of
+    the engine's live lifetimes."""
+    groups = {}
+    for name, lt in eng.lifetime.items():
+        if lt.demoted:
+            continue
+        key = tuple(name.split("/")[:2])
+        bank, probes, reps = groups.setdefault(key, (lt.bank, [], []))
+        probes.append(eng.health.monitors[name].probes_dev)
+        reps.append(lt.rep)
+    return {k: (b, torch.stack(p), r) for k, (b, p, r) in groups.items()}
+
+
+def _check_batched_reads(eng, seed, what: str) -> float:
+    """Every live group's batched probe read against the plain loop over
+    its members at ``seed`` (None: noiseless), normwise; returns the
+    worst error over the limit."""
+    from repro_torch.kernels.cim_mvm.ops import cim_mvm_batched
+    from repro_torch.kernels.cim_mvm.ref import cim_mvm_batched_plain
+
+    worst = 0.0
+    for (slot, pname), (bank, probes, reps) in _health_groups(eng).items():
+        y = cim_mvm_batched(probes, bank, seed, reps, probes.device)
+        want = cim_mvm_batched_plain(probes, bank, seed, reps)
+        for g in range(len(reps)):
+            err = (y[g] - want[g]).abs().max().item()
+            lim = CIM_TOL * want[g].abs().max().item()
+            worst = max(worst, err / lim)
+            if err > lim:
+                raise AssertionError(f"batched read of {slot}/{pname} "
+                                     f"member {reps[g]} ({what}): {err:.3e}"
+                                     f" > {lim:.3e}")
+    print(f"  batched probe reads ({what}, read seed {seed}): every live "
+          f"group's one launch against the plain loop over its members, "
+          f"worst {worst:.3f} of the limit {CIM_TOL:g} x max|y|")
+    return worst
+
+
+def _check_refolds(eng, what: str) -> None:
+    """Every live matrix's fold bit-identical to the fold's plain version
+    of its current gain."""
+    from repro_torch.kernels.cim_mvm.ref import folded_weights
+
+    n = 0
+    for lt in eng.lifetime.values():
+        if lt.demoted:
+            continue
+        if not torch.equal(lt.dep.folded, folded_weights(lt.dep)):
+            raise AssertionError(f"{lt.name}: refreshed fold differs from "
+                                 f"its plain version ({what})")
+        n += 1
+    print(f"  folds after {what}: {n} live matrices bit-identical to the "
+          f"plain fold of their gain")
+
+
+def _batched_record(eng, built: dict) -> dict:
+    """The batched folded decode form at phi3's largest group (a probe
+    read of G = 32 members, M = 16, 3072x8192, every member's Wg read
+    once: bound by bytes): device time with and without read noise
+    beside the byte bound, the plain loop and ``torch.bmm`` on W_eff with
+    the noise materialised; registers and blocks a SM."""
+    from repro_torch.kernels.cim_mvm.ops import (
+        _sm_count,
+        batched_geometry,
+        cim_mvm_batched,
+    )
+    from repro_torch.kernels.cim_mvm.ref import (
+        cim_mvm_batched_plain,
+        deployment_weights,
+    )
+
+    n_ops, _ = noise_ops(built)
+    bank, probes, reps = _health_groups(eng)[("slot0_attn", "ffn_w_up")]
+    G, M, I = probes.shape
+    seed = 31
+    dev = probes.device
+    y = cim_mvm_batched(probes, bank, seed, reps, dev)
+    want = cim_mvm_batched_plain(probes, bank, seed, reps)
+    err = (y - want).abs().max().item()
+    ms = device_ms(lambda: cim_mvm_batched(probes, bank, seed, reps, dev))
+    ms_clean = device_ms(lambda: cim_mvm_batched(probes, bank, None, reps,
+                                                 dev))
+    plain_ms = cuda_ms(lambda: cim_mvm_batched_plain(probes, bank, seed,
+                                                     reps), iters=1)
+    w_eff = torch.stack([deployment_weights(bank.layer(r), seed)
+                         for r in reps])
+    lib_ms = device_ms(lambda: torch.bmm(probes, w_eff))
+    del w_eff
+    i_pad, ld = bank.folded.shape[1:]
+    N = bank.out_dim
+    n_bytes = G * i_pad * ld * 4 + probes.numel() * 4 + G * M * N * 4 + 4 * G
+    b_ms, b_by = bound(n_bytes, 2.0 * G * M * I * N + n_ops * G * I * N)
+    geom = batched_geometry(G, M, I, N, *bank.codes.shape[1:], bank.wpt,
+                            bank.n_bits, bank.cols, bank.reversed_df,
+                            _sm_count(0), False, True)
+    occ = _occupancy(built, f"cim_decode_batched_kernel<Li{geom.mt}ELb1>",
+                     geom)
+    print(f"cim_mvm_batched G={G} M={M} {I}x{N} (ffn_w_up, the phi3 bank's "
+          f"own folds): max_abs_err {err:.3e} against the plain loop (tol "
+          f"{CIM_TOL:g} x max|y| {want.abs().max().item():.3e}); kernel "
+          f"{ms:.4f} ms with read noise, {ms_clean:.4f} ms without; plain "
+          f"{plain_ms:.4f} ms; torch.bmm on W_eff {lib_ms:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB); "
+          f"{_occ_text(occ)}, tile {geom.tile}, grid ({geom.gx}, {geom.gy}, "
+          f"{geom.gz})")
+    if err > CIM_TOL * want.abs().max().item():
+        raise AssertionError("the batched form disagrees with its plain "
+                             "loop at phi3's largest group")
+    return dict(name="cim_mvm_batched", route="cuda",
+                source="src/repro_torch/kernels/cim_mvm/kernel.cu",
+                replaces="src/repro/kernels/cim_mvm/kernel.py:82 (vmapped "
+                         "over a stacked group, src/repro/health/"
+                         "controller.py:155-162)",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, ms_noiseless=ms_clean,
+                G=G, M=M, I=I, N=N, **occ)
+
+
+def _round_launches(eng) -> None:
+    """Device time of a probe round's batched launches (one a group, the
+    round's own arguments), each timed with CUDA events behind a
+    ``torch.cuda._sleep``, beside its byte bound (every member's Wg
+    read once)."""
+    from repro_torch.kernels.cim_mvm.ops import cim_mvm_batched
+    from repro_torch.serve.engine import probe_seed
+
+    seed = probe_seed(HEALTH_SEED, eng.health.rounds)
+    total = bound_total = 0.0
+    parts = []
+    for (slot, pname), (bank, probes, reps) in _health_groups(eng).items():
+        ms = device_ms(lambda: cim_mvm_batched(probes, bank, seed, reps,
+                                               probes.device), iters=5)
+        b_ms, _ = bound(len(reps) * bank.folded[0].numel() * 4, 0.0)
+        total, bound_total = total + ms, bound_total + b_ms
+        parts.append(f"{pname} {ms:.3f}")
+    print(f"  a probe round's {len(parts)} batched launches: {total:.3f} ms "
+          f"of device time ({', '.join(parts)} ms), byte bound "
+          f"{bound_total:.3f} ms")
+
+
+def _health_arc(eng, serve, check=None) -> dict:
+    """Drive HEALTH_ARC on ``eng``: ``serve(eng)`` serves a batch and
+    returns (tokens, seconds); ``check(eng, what)`` runs after every
+    advance and round.  Prints counters and events by kind after each
+    round and the seconds of each step (and, with the engine's swap
+    clock, the swaps' draw, aged-gain and fold seconds).  Returns the
+    (matrix, event) history, the served runs, the rounds' times and each
+    round's probe error a matrix."""
+    clock = getattr(eng, "swap_clock", None)
+    split = lambda: dict(getattr(clock, "seconds", {}))
+    served, rounds, errs = [], [], []
+    for i, step in enumerate(HEALTH_ARC):
+        if step == "serve":
+            served.append(serve(eng))
+            continue
+        if step:
+            s0 = split()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.advance(step)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            s1 = split()
+            parts = ", ".join(f"{k} {s1[k] - s0.get(k, 0.0):.2f} s"
+                              for k in s1)
+            print(f"  advance({step:g}): {dt:.2f} s"
+                  + (f" ({parts})" if parts else ""))
+            if check:
+                check(eng, f"advance({step:g})")
+        n_ev = len(eng.health.events)
+        s0 = split()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = eng.check_health()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        s1 = split()
+        rounds.append(dt)
+        errs.append({n: m["last_err"] for n, m in rep.matrices.items()})
+        kinds: dict = {}
+        for e in rep.events[n_ev:]:
+            kinds[e["event"]] = kinds.get(e["event"], 0) + 1
+        parts = ", ".join(f"{k} {s1[k] - s0.get(k, 0.0):.2f} s" for k in s1
+                          if s1[k] - s0.get(k, 0.0) > 0)
+        print(f"  round {rep.rounds}: {dt * 1e3:.1f} ms (swaps: "
+              f"{parts or 'none'}); counters {rep.counters}; events "
+              f"{kinds or 'none'}")
+        if check:
+            check(eng, f"round {rep.rounds}")
+    hist = [(e["round"], e["matrix"], e["event"])
+            for e in eng.health.events]
+    return dict(history=hist, served=served, rounds=rounds, errs=errs)
+
+
+def phase_health(cfg, built: dict, records: list) -> dict:
+    """Full-width phi3-mini (bf16) ageing and healing on imperfect
+    devices (``HEALTH``, ``spare_line``) through ``ServeEngine(health=)``
+    and ``ContinuousEngine(health=)`` with the same seed: the reference's
+    escalation arc on each, the two event histories identical and each
+    round's probe errors equal; on each, every refreshed fold bit for bit
+    against its plain version, the batched probe reads against their
+    plain loop with and without read noise, recalibration lowering each
+    tripped matrix's probe error, and after demotion cim_mvm launched
+    for the live matrices only.  Then one heal swap under load at full
+    depth.  Returns the launch counts of the path (both full-width arcs
+    and the run under load), less the checks'."""
+    from repro_torch.health import DetectorConfig, HealthConfig, probe_error
+    from repro_torch.kernels import runtime
+    from repro_torch.models.model import init_params
+    from repro_torch.nonideal import NonidealModel
+    from repro_torch.serve import ContinuousEngine, ServeEngine
+    from repro_torch.serve.engine import probe_seed
+
+    model = NonidealModel(**HEALTH)
+    health = HealthConfig(n_probes=HEALTH_PROBES,
+                          max_reprograms=HEALTH_REPROGRAMS,
+                          detector=DetectorConfig(**HEALTH_DETECTOR))
+    kw = dict(nonideal=model, nonideal_seed=HEALTH_SEED,
+              pipeline=NONIDEAL_PIPELINE, health=health, plan_cache=False,
+              device="cuda")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, params, max_seq=MAX_SEQ, timed_deploy=True, **kw)
+    torch.cuda.synchronize()
+    n_mats = len(eng.lifetime)
+    print(f"phase deploy (phi3-health): {cfg.dtype}, {model}, seed "
+          f"{HEALTH_SEED}, {NONIDEAL_PIPELINE}, no plan cache: "
+          f"{time.perf_counter() - t0:.2f} s, {n_mats} lifetimes, "
+          f"{health}; stages "
+          f"{ {k: round(v, 2) for k, v in eng.deploy_report['seconds'].items()} }")
+    with _Uncounted():
+        records.append(_batched_record(eng, built))
+        _check_batched_reads(eng, None, "fresh bank, noiseless")
+        _check_batched_reads(eng, probe_seed(HEALTH_SEED, 0),
+                             "fresh bank, with read noise")
+
+    def serve(e):
+        e.generate(prompts, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = runtime.launch_counts()["cim_mvm"]
+        tokens = e.generate(prompts, NEW)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = runtime.launch_counts()["cim_mvm"] - before
+        live = sum(not lt.demoted for lt in e.lifetime.values())
+        print(f"  serve: B={B} prompt {PROMPT} new {NEW}: {dt:.2f} s, "
+              f"{B * NEW / dt:.1f} tokens/s; cim_mvm {launches} launches = "
+              f"{live} live matrices x {NEW} forwards"
+              f"{'' if launches == live * NEW else ' FAIL'}")
+        if launches != live * NEW:
+            raise AssertionError("cim_mvm launches != live matrices x "
+                                 "forwards")
+        if not torch.isfinite(e.teacher_forced_logits(torch.cat(
+                [prompts.to(e.device), tokens.long()], 1)[:, :PROMPT + 1],
+                PROMPT)).all():
+            raise AssertionError("non-finite logits")
+        return dict(tokens=tokens, tokens_per_s=B * NEW / dt)
+
+    def check(e, what):
+        with _Uncounted():
+            _check_refolds(e, what)
+            if what == "round 5":       # the recalibration round
+                _check_recalibration(e)
+            if what == "round 6":       # after the reprogram
+                _check_batched_reads(e, probe_seed(HEALTH_SEED, 5),
+                                     "reprogrammed bank, with read noise")
+
+    def _check_recalibration(e):
+        tripped = [ev["matrix"] for ev in e.health.events
+                   if ev["round"] == e.health.rounds
+                   and ev["event"] == "recalibrate"]
+        live = [(n, e.lifetime[n]) for n in tripped]
+        ys = e.health._probe_reads(live, probe_seed(HEALTH_SEED,
+                                                    e.health.rounds - 1))
+        worse = [n for n in tripped if probe_error(
+            ys[n], e.health.monitors[n].y_ref)
+            >= e.health.monitors[n].last_err]
+        print(f"  recalibration: {len(tripped)} tripped matrices "
+              f"re-read at the round's read seed, probe error lower for "
+              f"{len(tripped) - len(worse)}")
+        if worse:
+            raise AssertionError(f"recalibration did not lower the probe "
+                                 f"error of {worse[:4]}")
+
+    print(f"phase phi3-health (ServeEngine): the arc {HEALTH_ARC}")
+    with _Uncounted():
+        _round_launches(eng)
+    serve_arc = _health_arc(eng, serve, check)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rep = eng.health_report
+    print(f"  ServeEngine arc: counters {rep.counters}, flaps {rep.flaps}, "
+          f"tokens/s before the heals {serve_arc['served'][0]['tokens_per_s']:.1f}"
+          f", after {serve_arc['served'][1]['tokens_per_s']:.1f}; probe "
+          f"rounds {[round(r * 1e3, 1) for r in serve_arc['rounds']]} "
+          f"ms; peak memory {peak:.1f} GiB")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The second engine, same seed: ContinuousEngine, its swaps landing
+    # between batches (no sequence in flight holds the old bank).
+    cont = ContinuousEngine(cfg, params, capacity=2 * B, max_seq=MAX_SEQ,
+                            max_prompt=PROMPT, **kw)
+
+    def serve_cont(e):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [e.submit(p.numpy(), max_tokens=NEW) for p in prompts]
+        e.run()
+        dt = time.perf_counter() - t0
+        if e.banks.keys() != {e.serving_epoch}:
+            raise AssertionError("an old bank outlived its sequences")
+        print(f"  serve (ContinuousEngine): {B} requests, {dt:.2f} s, "
+              f"{B * NEW / dt:.1f} tokens/s, epoch {e.serving_epoch}")
+        return dict(tokens=[e.results[r] for r in rids],
+                    tokens_per_s=B * NEW / dt)
+
+    print("phase phi3-health (ContinuousEngine, same seed)")
+    cont_arc = _health_arc(cont, serve_cont, check)
+    if cont_arc["history"] != serve_arc["history"]:
+        raise AssertionError("two same-seed engines gave different event "
+                             "histories")
+    _same_errors(serve_arc["errs"], cont_arc["errs"])
+    print(f"  event histories identical across the two engines "
+          f"({len(serve_arc['history'])} events: "
+          f"{ {k: sum(1 for h in serve_arc['history'] if h[2] == k) for k in ('trip', 'recalibrate', 'reprogram', 'demote', 'clear')} })")
+    del cont
+    gc.collect()
+    torch.cuda.empty_cache()
+    _health_under_load(cfg, params, kw)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _launches("phi3-health")
+
+
+def _same_errors(a: list, b: list, rtol: float = 1e-4) -> None:
+    """Each round's probe error a matrix of two same-seed engines
+    (``_health_arc``'s ``errs``) equal at ``rtol``, the CPU parity
+    tests' bound against the reference."""
+    worst, n = 0.0, 0
+    for r, (ra, rb) in enumerate(zip(a, b, strict=True), 1):
+        if ra.keys() != rb.keys():
+            raise AssertionError(f"round {r}: the engines' matrices differ")
+        for name, ea in ra.items():
+            eb = rb[name]
+            if (ea is None) != (eb is None):
+                raise AssertionError(f"round {r}, {name}: probed on one "
+                                     "engine only")
+            if ea is None:
+                continue
+            rel = abs(ea - eb) / max(abs(eb), 1e-30)
+            worst, n = max(worst, rel), n + 1
+            if rel > rtol:
+                raise AssertionError(f"round {r}, {name}: probe error "
+                                     f"{ea!r} against {eb!r}")
+    print(f"  probe errors of the two engines: {n} (round, matrix) pairs, "
+          f"worst relative difference {worst:.3e} (limit {rtol:g})")
+
+
+def _health_under_load(cfg, params, kw) -> None:
+    """A heal swap under load at the config's depth: two requests in
+    flight at epoch 0 while ``advance`` lands every refreshed group as a
+    new epoch; their tokens equal a same-seed engine's without the swap,
+    the pinned bank is dropped when they finish, and the peak memory of
+    the two banks (the pinned one whole, the healed one's new gains and
+    folds) is printed."""
+    from repro_torch.serve import ContinuousEngine
+
+    prompts = torch.randint(0, cfg.vocab_size, (2, PROMPT),
+                            generator=torch.Generator().manual_seed(2))
+    outs = []
+    for swap in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        eng = ContinuousEngine(cfg, params, capacity=2, max_seq=MAX_SEQ,
+                               max_prompt=PROMPT, **kw)
+        base = torch.cuda.max_memory_allocated() / 2 ** 30
+        rids = [eng.submit(p.numpy(), max_tokens=NEW) for p in prompts]
+        eng.step()
+        if swap:
+            eng.advance(1e4)
+            held = sorted(eng.banks)
+        eng.run()
+        outs.append([eng.results[r] for r in rids])
+        if swap:
+            print(f"  heal under load ({cfg.n_layers} layers): advance(1e4) "
+                  f"with 2 requests in flight: banks {held} held, "
+                  f"{list(eng.banks)} after they finished; peak "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB "
+                  f"allocated, {torch.cuda.max_memory_reserved() / 2 ** 30:.1f}"
+                  f" GiB reserved, of the card's "
+                  f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}"
+                  f" GiB (one bank deployed: {base:.1f} GiB)")
+            if list(eng.banks) != [eng.serving_epoch] or held[0] != 0:
+                raise AssertionError("the pinned bank was not dropped")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    if outs[0] != outs[1]:
+        raise AssertionError("a heal swap under load changed the tokens of "
+                             "sequences in flight")
+    print("  tokens of the sequences in flight bit-identical to a same-seed "
+          "engine without the swap")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1944,11 +2418,12 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32} (yardsticks in full f32)")
     t_start = time.perf_counter()
     card = phase_card()
-    records = phase_kernels(phase_build())
+    built = phase_build()
+    records = phase_kernels(built)
     # Plan caches live in fresh directories under TMPDIR, so every
     # deploy here starts cold and nothing outlives the run.
     with tempfile.TemporaryDirectory(prefix="chip_smoke_plans_") as tmp:
-        phase_paths(records, tmp)
+        phase_paths(records, built, tmp)
     bad = [m for m in ("jax", "repro", "ml_dtypes") if m in sys.modules]
     if bad:
         raise AssertionError(f"the port imported {bad}")
@@ -1960,7 +2435,7 @@ def main() -> int:
     return 0
 
 
-def phase_paths(records: list[dict], tmp: str) -> None:
+def phase_paths(records: list[dict], built: dict, tmp: str) -> None:
     """Drive every path, each with the launch counts set to 0 just
     before it and read just after; record each kernel's launches."""
     from repro_torch.configs import CimConfig
@@ -1999,6 +2474,9 @@ def phase_paths(records: list[dict], tmp: str) -> None:
     by_path["phi3-nonideal"] = phase_nonideal(
         cfg, os.path.join(tmp, "phi3-nonideal"))
     shutil.rmtree(os.path.join(tmp, "phi3-nonideal"), ignore_errors=True)
+    print(f"config {cfg.name} ({cfg.dtype}): ageing and self-healing; no "
+          f"depth cut")
+    by_path["phi3-health"] = phase_health(cfg, built, records)
 
     cfg = XLSTM.replace(cim=cim)
     print(f"config {cfg.name} ({cfg.dtype}): {cfg.n_layers} layers "
@@ -2014,7 +2492,7 @@ def phase_paths(records: list[dict], tmp: str) -> None:
     for r in records:
         name = r["name"]
         kernel = name.split("[")[0]
-        paths = RECORD_PATHS.get(name, ("phi3-nonideal",))
+        paths = RECORD_PATHS.get(name, ("phi3-nonideal", "phi3-health"))
         r["launches"] = sum(by_path[p][kernel] for p in paths)
         r["launches_by_path"] = {p: by_path[p][kernel] for p in paths
                                  if by_path[p][kernel]}

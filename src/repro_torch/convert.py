@@ -12,10 +12,18 @@ w_down}`` and ``slot1_slstm/{norm, w_gates (R, D, H, 4Dh), r_gates
 (R, H, Dh, 4Dh), b_gates, w_out}``.  A checkpoint the reference saved
 (``repro.checkpoint.save_checkpoint``) loads the same way through
 :func:`params_from_checkpoint`.
+
+Health state crosses too: the reference's ``HealthConfig`` and
+``DetectorConfig`` (:func:`health_config_from_reference`), and its
+lifetime draws (:func:`take_reference_draws`): JAX's ``fold_in`` streams
+cannot be reproduced in torch, so a parity test makes the port's
+lifetimes read the reference's logical cell fields instead of drawing
+their own.
 """
 from __future__ import annotations
 
-from typing import Mapping
+import dataclasses
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
@@ -23,6 +31,7 @@ import torch
 from repro_torch.checkpoint import load_checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.health import DetectorConfig, HealthConfig
 from repro_torch.models.schema import ParamSpec, model_schema, param_dtype
 
 
@@ -76,3 +85,48 @@ def params_from_checkpoint(directory: str, cfg: ModelConfig,
     if "embed" not in tree and "params" in tree:
         tree = tree["params"]
     return params_from_numpy(tree, cfg, device=device)
+
+
+def _fields(cls, obj) -> dict:
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+
+
+def detector_config_from_reference(c) -> DetectorConfig:
+    """The port's :class:`DetectorConfig` with the fields of the
+    reference's ``c``."""
+    return DetectorConfig(**_fields(DetectorConfig, c))
+
+
+def health_config_from_reference(c) -> HealthConfig:
+    """The port's :class:`HealthConfig` (its detector included) with the
+    fields of the reference's ``c``."""
+    kw = _fields(HealthConfig, c)
+    kw["detector"] = detector_config_from_reference(c.detector)
+    return HealthConfig(**kw)
+
+
+def reference_draws(ref_lifetime, device="cuda") -> Callable[[int], tuple]:
+    """A :class:`repro_torch.deploy.lifetime.MatrixLifetime` ``draws``
+    hook that reads the reference's lifetime ``ref_lifetime`` live: for
+    reprogram count n, its logical ``stuck_log``, ``gamma_log`` and
+    ``relax_log`` (the deploy's captured cells, or the draws of its n-th
+    reprogram) as tensors on ``device``.  The reference must have made
+    its n-th reprogram first."""
+    dev = resolve_device(device)
+
+    def draws(n: int) -> tuple:
+        if ref_lifetime.reprograms != n:
+            raise ValueError(f"{ref_lifetime.name}: the reference has made "
+                             f"{ref_lifetime.reprograms} reprograms, not {n}")
+        return tuple(None if f is None else _tensor(f).to(dev) for f in (
+            ref_lifetime.stuck_log, ref_lifetime.gamma_log,
+            ref_lifetime.relax_log))
+
+    return draws
+
+
+def take_reference_draws(lifetimes: Mapping, ref_lifetimes: Mapping) -> None:
+    """Make every port lifetime of ``lifetimes`` read its cells from the
+    reference's lifetime of the same name (:func:`reference_draws`)."""
+    for name, lt in lifetimes.items():
+        lt.draws = reference_draws(ref_lifetimes[name], lt.dep.codes.device)

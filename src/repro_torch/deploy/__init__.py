@@ -2,7 +2,8 @@
 imperfect devices): the plan cache (``cache``), planning one matrix at
 a time through it (``planner``) and packaging, with the devices' faults
 and variation injected, into the stacked deployments the serving path
-reads (``engine``)."""
+reads (``engine``), and the per-matrix lifetime state that ages and heals
+them while they serve (``lifetime``)."""
 from repro_torch.deploy.cache import (  # noqa: F401
     PLAN_CACHE_VERSION,
     CacheStats,
@@ -11,6 +12,13 @@ from repro_torch.deploy.cache import (  # noqa: F401
     manifest_key,
     plan_key,
     weight_fingerprint,
+)
+from repro_torch.deploy.lifetime import (  # noqa: F401
+    DEMOTED_RUNTIME,
+    MatrixLifetime,
+    group_key,
+    pad_host_deployment,
+    restack_group,
 )
 from repro_torch.deploy.engine import (  # noqa: F401
     DEPLOYABLE,

@@ -20,7 +20,8 @@ drift into the deployment's ``gain``, counts the programmed bits that
 line opens still hold after the remap (``degraded``), and folds each
 served matrix's W'(col_pos) * gain once (``CimDeployment.folded``, the
 fold kernel on the card), which its reads take instead of the codes.
-The lifetime and health parts of the reference are not ported yet.
+With ``lifetime`` it captures what serving-time aging and self-healing
+need (:mod:`repro_torch.deploy.lifetime`), as the reference does.
 """
 from __future__ import annotations
 
@@ -31,8 +32,6 @@ from collections.abc import Mapping
 import torch
 import torch.nn.functional as F
 
-import numpy as np
-
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.core.bitslice import quantize_magnitude
 from repro_torch.core.mdm import MdmPlan
@@ -40,11 +39,13 @@ from repro_torch.core.tiling import CrossbarSpec
 from repro_torch.deploy.cache import PlanCache
 from repro_torch.deploy.planner import plan_matrices
 from repro_torch.device import check_on, resolve_device
-from repro_torch.kernels.cim_mvm.ops import CimDeployment, package_padded
+from repro_torch.deploy.lifetime import MatrixLifetime, _untimed
+from repro_torch.kernels.cim_mvm.ops import CimDeployment, fold, package_padded
 from repro_torch.mapping import FaultAwareRows, MdmRows, resolve_pipeline
 from repro_torch.nonideal.inject import (
     HostCells,
     aged_gain_host,
+    cells_on,
     gather_physical_host,
     has_faults,
     matrix_cells,
@@ -150,10 +151,6 @@ class StageClock:
                 self._inner[-1] += dt
 
 
-def _untimed(stage: str):
-    return contextlib.nullcontext()
-
-
 # Logical rows a packaging step injects at once: the gathered fault and
 # gain fields of 256 rows of a 8192-wide matrix are ~120 MB.
 _INJECT_ROWS = 256
@@ -165,7 +162,8 @@ def package_deployment_host(w: torch.Tensor, spec: CrossbarSpec, mode,
                             nonideal: NonidealModel | None = None,
                             noise_tag: int | None = None,
                             stats: dict | None = None,
-                            clock=_untimed) -> CimDeployment:
+                            clock=_untimed,
+                            capture: bool = False) -> CimDeployment:
     """Quantise and package one planned (I, N) matrix on its device (the
     reference's host packaging, run where ``w`` lies; ``mode`` is kept
     for its signature, the layout comes from the plan).
@@ -178,6 +176,11 @@ def package_deployment_host(w: torch.Tensor, spec: CrossbarSpec, mode,
     drift (at the model's ``drift_time``) fold into ``gain``.  With
     ``nonideal.sigma_read > 0`` the deployment carries ``noise_tag``.
     ``clock`` (a :class:`StageClock`) times the injection as "inject".
+    ``capture`` (a deployment whose lifetime is kept,
+    :mod:`repro_torch.deploy.lifetime`) always carries a ``gain`` (ones
+    where nothing perturbs it) and ``degraded`` (0), and is folded even
+    where degraded (the health probes read it), as the reference's
+    captured deployments keep one structure across hot swaps.
     """
     del mode
     I, N = w.shape
@@ -213,13 +216,20 @@ def package_deployment_host(w: torch.Tensor, spec: CrossbarSpec, mode,
             degraded = torch.tensor(open_bits, dtype=torch.int32)
             if stats is not None:
                 stats["open_bits"] = open_bits
+    if capture:
+        if gain is None:
+            gain = torch.ones(codes.shape, dtype=torch.float32,
+                              device=codes.device)
+        if degraded is None:
+            degraded = torch.tensor(0, dtype=torch.int32)
     sigma_read = 0.0 if nonideal is None else float(nonideal.sigma_read)
     tag = (torch.tensor(noise_tag, dtype=torch.int32)
            if noise_tag is not None and sigma_read > 0.0 else None)
     signed = (codes * sign).to(torch.int16)
-    return package_padded(signed, scale, plan, spec, eta, I, N, gain=gain,
-                          degraded=degraded, noise_tag=tag,
-                          sigma_read=sigma_read)
+    dep = package_padded(signed, scale, plan, spec, eta, I, N, gain=gain,
+                         degraded=degraded, noise_tag=tag,
+                         sigma_read=sigma_read)
+    return fold(dep) if capture and dep.folded is None else dep
 
 
 class _LazyFaults(Mapping):
@@ -238,15 +248,6 @@ class _LazyFaults(Mapping):
 
     def __len__(self):
         return len(self._names)
-
-
-def _cells_on(c, dev) -> HostCells:
-    """Cells from numpy arrays (the reference's) or tensors, on ``dev``."""
-    move = lambda f: None if f is None else (
-        f if isinstance(f, torch.Tensor)
-        else torch.from_numpy(np.array(f, copy=True))).to(dev)
-    return HostCells(move(c.stuck), move(c.gamma),
-                     move(getattr(c, "relax", None)))
 
 
 def _stack(reps: int, dep: CimDeployment, dev) -> CimDeployment:
@@ -286,8 +287,8 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
                         nonideal: NonidealModel | None = None,
                         nonideal_key: int | None = None,
                         fault_aware: bool = True, pipeline=None,
-                        cells: Mapping | None = None, timed: bool = False
-                        ) -> tuple[dict, dict]:
+                        cells: Mapping | None = None, timed: bool = False,
+                        lifetime: dict | None = None) -> tuple[dict, dict]:
     """Deploy every projection matrix of a model onto crossbars.
 
     Returns (cim_tree, report): ``cim_tree[slot][param]`` is one
@@ -312,6 +313,14 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
     spent drawing the packaged cells ("sample"), planning ("plan": the
     cache and the fault maps it keys on included), injecting ("inject")
     and the rest of packaging ("package").
+
+    ``lifetime`` (a dict, filled in place; with a non-ideal ``nonideal``
+    only) captures a :class:`repro_torch.deploy.lifetime.MatrixLifetime`
+    a matrix: its key, traversal index, crossbar spec and model, a view
+    of its weight and its repeat of the stacked bank (whose codes,
+    ``pos`` and ``col_pos`` are what a refresh re-draws and gathers
+    through), aged at the model's ``drift_time``.  Every captured
+    deployment carries a gain and ``degraded`` and is folded.
     """
     dev = resolve_device(device)
     check_supported(cfg)
@@ -333,7 +342,7 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
                 key, index[name], grids[name], spec, nonideal, dev)
             faulty = has_faults(nonideal)
         else:
-            draw = lambda name: _cells_on(cells[name], dev)
+            draw = lambda name: cells_on(cells[name], dev)
             draw_stuck = lambda name: draw(name).stuck
             faulty = any(c.stuck is not None for c in cells.values())
 
@@ -343,6 +352,7 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
 
         if fault_aware and faulty:
             fault_maps = _LazyFaults(mats, draw_stuck)
+    capture = lifetime is not None and cells_of is not None
     if fault_maps is not None:
         pipe = resolve_pipeline(mode, True)
         if isinstance(pipe.rows, MdmRows):
@@ -372,7 +382,7 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
                 plan._replace(row_position=plan.row_position.to(dev),
                               col_position=col_position),
                 cells=c, nonideal=nonideal, noise_tag=t, stats=stats,
-                clock=clock)
+                clock=clock, capture=capture)
         if stats.get("open_bits"):
             degraded[name] = stats["open_bits"]
         nf_before += plan.nf_before.sum(dtype=torch.float64).to(dev)
@@ -385,6 +395,16 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
         _put(slot_deps[pname], r, dep)
     for i, bt in enumerate(cfg.block_pattern):
         cim_tree.setdefault(f"slot{i}_{bt}", {})
+    if capture:
+        for t, name in enumerate(mats):
+            slot, pname, r = name.split("/")
+            bank = cim_tree[slot][pname]
+            lifetime[name] = MatrixLifetime(
+                name=name, noise_tag=t, spec=spec, model=nonideal,
+                eta=cfg.cim.eta, key=key, w=mats[name],
+                dep=bank.layer(int(r)), bank=bank, rep=int(r),
+                cells=None if cells is None else cells_on(cells[name], dev),
+                age=float(nonideal.drift_time))
     b, a = float(nf_before), float(nf_after)
     report.update(tiles=tiles, nf_before=b, nf_after=a,
                   nf_reduction=(b - a) / max(b, 1e-30),

@@ -111,14 +111,16 @@ constexpr int PF_BK = 32;      // prefill: rows of I a step
 constexpr int PF_STAGES = 3;   // prefill: ring of staged slabs
 constexpr int PF_WLD = PF_BN + 8;  // folded prefill: a staged row of Wg
 constexpr int FOLD_COLS = 256;     // fold: columns a block (32 threads of 8)
-// Geom.form: the ideal decode and prefill forms, the folded ones, the fold.
+// Geom.form: the ideal decode and prefill forms, the folded ones, the fold,
+// the batched folded decode form.
 constexpr int FORM_DECODE = 0, FORM_PREFILL = 1, FORM_DECODE_FOLDED = 2,
-              FORM_PREFILL_FOLDED = 3, FORM_FOLD = 4;
+              FORM_PREFILL_FOLDED = 3, FORM_FOLD = 4,
+              FORM_DECODE_BATCHED = 5;
 
 // Launch geometry, computed by ops.py::cim_geometry / fold_geometry (same
 // order).  ``gz``: the folded prefill form's split of I (a cluster of gz
-// blocks, 1 elsewhere); ``ld``: the row stride of Wg (folded forms and
-// the fold);
+// blocks), the batched form's members, 1 elsewhere; ``ld``: the row
+// stride of Wg (folded forms and the fold);
 // ``noise``: the read draws noise; ``rows``, ``n_ti``, ``cp_ti``,
 // ``cp_tn``: the fold's col_pos tiles.
 struct Geom {
@@ -408,6 +410,27 @@ __device__ __forceinline__ void philox_normal4(const Noise& e, uint32_t c0,
     c0 = hi1 ^ c1 ^ e.k0[r];
     c1 = lo1;
     c2 = hi0 ^ c3 ^ e.k1[r];
+    c3 = lo0;
+  }
+  box_muller(c0, c1, z[0], z[1]);
+  box_muller(c2, c3, z[2], z[3]);
+}
+
+// The same four normals at key (read_seed, tag): the first word's round
+// keys from ``e``, the second's tag + r * 0xBB67AE85 (the batched form's
+// per-member tag).
+__device__ __forceinline__ void philox_normal4_tag(const Noise& e,
+                                                   uint32_t tag, uint32_t c0,
+                                                   uint32_t c1,
+                                                   float (&z)[4]) {
+  uint32_t c2 = 0, c3 = 0;
+#pragma unroll
+  for (int r = 0; r < PHILOX_ROUNDS; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ e.k0[r];
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ (tag + (uint32_t)r * 0xBB67AE85u);
     c3 = lo0;
   }
   box_muller(c0, c1, z[0], z[1]);
@@ -733,6 +756,110 @@ cim_decode_folded_kernel(const void* __restrict__ x,
         a = add_noise(a, nz, z);
         philox_normal4(e, (uint32_t)ii, ((uint32_t)n0 >> 2) + 1, z);
         b = add_noise(b, nz, z);
+        if (!ok) a = b = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      const float w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      const float* xr = xs + (ok ? ii - k0 : 0) * MT;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float xv = xr[m];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      wv[u][0] = nw[u][0];
+      wv[u][1] = nw[u][1];
+    }
+  }
+  decode_reduce<MT>(acc, xs, part, out, g, W, KS, sl, gi_col);
+}
+
+// The batched folded decode form: one launch reads a whole group of
+// members of a stacked folded deployment (the port's counterpart of the
+// reference's jax.vmap(cim_mvm) over a stacked group, which the health
+// controller's probe rounds run, src/repro/health/controller.py).  Grid
+// (gx, 8, G): block z of the grid's third axis runs the folded decode
+// form's blocks, slices and cluster reduction for member z, whose Wg is
+// repeat reps[z] of the stack (rows of ld floats, wstride floats a
+// repeat), scale scale[reps[z]], read-noise tag tags[z] (the tags need
+// not be consecutive), x and y slab z of (G, M, I) and (G, M, N).  The
+// Philox key's second word is the member's: k1 of round r is tag + r *
+// 0xBB67AE85, an add a round, so no per-member key table is held.
+// Bound by bytes, as the single form: 4 a weight of every member.
+template <int MT, bool NOISE>
+__global__ void __cluster_dims__(1, CLUSTER, 1)
+__launch_bounds__(THREADS, MT <= 8 ? 2 : 1)
+cim_decode_batched_kernel(const void* __restrict__ x_all,
+                          const float* __restrict__ wf_all,
+                          long long wstride,
+                          const float* __restrict__ scale_all,
+                          const int32_t* __restrict__ reps,
+                          const int32_t* __restrict__ tags,
+                          float* __restrict__ out_all, Geom g, Noise e) {
+  constexpr int U = 2;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* xs = smem;                 // [rows][MT], later the reduction
+  float* part = smem + g.off_p;     // [MT][8G] the block's sums
+  const int rank = (int)cg::this_cluster().block_rank();
+
+  const int z = blockIdx.z;
+  const int rep = __ldg(reps + z);
+  const float* __restrict__ wf = wf_all + (size_t)rep * wstride;
+  const void* x = reinterpret_cast<const char*>(x_all) +
+                  (size_t)z * g.M * g.I * (g.xbf16 ? 2 : 4);
+  float* out = out_all + (size_t)z * g.M * g.N;
+  const uint32_t tag = NOISE ? (uint32_t)__ldg(tags + z) : 0u;
+
+  const int G = g.tile, KS = THREADS / G, W = 8 * G;
+  const int tid = threadIdx.x;
+  const int gi_col = tid % G, sl = tid / G;
+  const int n0 = blockIdx.x * W + 8 * gi_col;
+  const int k0 = rank * g.rps;
+  const int k1 = min(k0 + g.rps, g.I);
+  const int rows = max(k1 - k0, 0);
+  const float nz = __fmul_rn(e.nsig, __ldg(scale_all + rep));
+
+  decode_load_x<MT>(xs, x, g, k0, rows);
+  __syncthreads();
+
+  float acc[MT][8];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[m][j] = 0.0f;
+
+  const bool col_ok = n0 < g.ld;
+  float4 wv[U][2];
+  auto load = [&](int i, float4 (&w)[U][2]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int ii = i + u * KS;
+      const float4* p =
+          reinterpret_cast<const float4*>(wf + (size_t)ii * g.ld + n0);
+      const bool ok = ii < k1;
+      w[u][0] = ok ? __ldg(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+      w[u][1] = ok ? __ldg(p + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  if (col_ok) load(k0 + sl, wv);
+  for (int i = col_ok ? k0 + sl : k1; i < k1; i += U * KS) {
+    float4 nw[U][2];
+    load(i + U * KS, nw);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int ii = i + u * KS;
+      const bool ok = ii < k1;
+      float4 a = wv[u][0], b = wv[u][1];
+      if constexpr (NOISE) {
+        float zz[4];
+        philox_normal4_tag(e, tag, (uint32_t)ii, (uint32_t)n0 >> 2, zz);
+        a = add_noise(a, nz, zz);
+        philox_normal4_tag(e, tag, (uint32_t)ii, ((uint32_t)n0 >> 2) + 1,
+                           zz);
+        b = add_noise(b, nz, zz);
         if (!ok) a = b = make_float4(0.f, 0.f, 0.f, 0.f);
       }
       const float w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
@@ -1246,7 +1373,7 @@ cim_prefill_folded_kernel(const void* __restrict__ x,
 }
 
 // Set a kernel's dynamic shared-memory limit once, then launch it with
-// (g.gx, g.gy) blocks of THREADS.
+// (g.gx, g.gy, g.gz) blocks of THREADS.
 template <auto Kernel, typename... Args>
 cudaError_t launch(const Geom& g, cudaStream_t stream, Args... args) {
   static bool attr_set = false;
@@ -1256,7 +1383,7 @@ cudaError_t launch(const Geom& g, cudaStream_t stream, Args... args) {
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  Kernel<<<dim3(g.gx, g.gy), THREADS, g.smem, stream>>>(args...);
+  Kernel<<<dim3(g.gx, g.gy, g.gz), THREADS, g.smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -1314,6 +1441,34 @@ cudaError_t occupancy(const Geom& g, int cluster, bool fixed, int* out) {
     cfg.numAttrs = 1;
   }
   return cudaOccupancyMaxActiveClusters(&out[1], Kernel, &cfg);
+}
+
+// The batched form's occupancy (B: NOISE).
+template <bool B>
+cudaError_t occupancy_batched(const Geom& g, int* out) {
+  switch (g.mt) {
+    case 1: return occupancy<cim_decode_batched_kernel<1, B>>(g, CLUSTER, true, out);
+    case 2: return occupancy<cim_decode_batched_kernel<2, B>>(g, CLUSTER, true, out);
+    case 4: return occupancy<cim_decode_batched_kernel<4, B>>(g, CLUSTER, true, out);
+    case 8: return occupancy<cim_decode_batched_kernel<8, B>>(g, CLUSTER, true, out);
+    case 16: return occupancy<cim_decode_batched_kernel<16, B>>(g, CLUSTER, true, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool NOISE>
+cudaError_t launch_decode_batched(const Geom& g, const void* x, const float* wf,
+                                  long long wstride, const float* scale,
+                                  const int32_t* reps, const int32_t* tags,
+                                  float* out, const Noise& e, cudaStream_t s) {
+  switch (g.mt) {
+    case 1: return launch<cim_decode_batched_kernel<1, NOISE>>(g, s, x, wf, wstride, scale, reps, tags, out, g, e);
+    case 2: return launch<cim_decode_batched_kernel<2, NOISE>>(g, s, x, wf, wstride, scale, reps, tags, out, g, e);
+    case 4: return launch<cim_decode_batched_kernel<4, NOISE>>(g, s, x, wf, wstride, scale, reps, tags, out, g, e);
+    case 8: return launch<cim_decode_batched_kernel<8, NOISE>>(g, s, x, wf, wstride, scale, reps, tags, out, g, e);
+    case 16: return launch<cim_decode_batched_kernel<16, NOISE>>(g, s, x, wf, wstride, scale, reps, tags, out, g, e);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The decode forms' occupancy: B is FAST (ideal) or NOISE (folded).
@@ -1420,6 +1575,36 @@ extern "C" int cim_mvm_launch(const void* x, const int16_t* codes,
   return (int)err;
 }
 
+// The batched folded decode form (geom form 5, ops.py::batched_geometry):
+// member z of geom gz reads x slab z of (gz, M, I), repeat reps[z] of
+// ``wf`` (wstride floats a repeat, rows of geom ld floats) with scale
+// scale[reps[z]], draws (with geom noise) read noise at key (seed,
+// tags[z]) and amplitude nsig * scale, and writes y slab z of (gz, M, N).
+extern "C" int cim_mvm_batched_launch(const void* x, const float* wf,
+                                      long long wstride, const float* scale,
+                                      const int32_t* reps,
+                                      const int32_t* tags, float* out,
+                                      const int* geom, unsigned seed,
+                                      float nsig, void* stream_ptr) {
+  Geom g;
+  memcpy(&g, geom, sizeof(Geom));
+  Noise e;
+  for (int r = 0; r < PHILOX_ROUNDS; ++r) {
+    e.k0[r] = seed + (uint32_t)r * 0x9E3779B9u;
+    e.k1[r] = 0;
+  }
+  e.nsig = nsig;
+  if (g.form != FORM_DECODE_BATCHED || g.gy != CLUSTER || THREADS % g.tile ||
+      g.gz < 1 || g.gz > 65535 || !wf || !reps || (g.noise && !tags) ||
+      g.ld % 8 || wstride % 4 || (reinterpret_cast<uintptr_t>(wf) & 15))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream_ptr;
+  cudaError_t err = g.noise
+      ? launch_decode_batched<true>(g, x, wf, wstride, scale, reps, tags, out, e, s)
+      : launch_decode_batched<false>(g, x, wf, wstride, scale, reps, tags, out, e, s);
+  return (int)err;
+}
+
 // Wg = W'(col_pos) * gain into ``wf`` (geom I = I_pad rows of geom ld
 // floats), once a deployment: ``gain`` and ``colp`` may be null.
 // Geometry from ops.py::fold_geometry (geom form 4).
@@ -1469,6 +1654,10 @@ extern "C" int cim_occupancy(const int* geom, int* out) {
     case FORM_PREFILL_FOLDED:
       err = g.noise ? occupancy<cim_prefill_folded_kernel<true>>(g, g.gz, false, out)
                     : occupancy<cim_prefill_folded_kernel<false>>(g, g.gz, false, out);
+      break;
+    case FORM_DECODE_BATCHED:
+      err = g.noise ? occupancy_batched<true>(g, out)
+                    : occupancy_batched<false>(g, out);
       break;
     case FORM_FOLD:
       if (g.fast)

@@ -29,7 +29,11 @@ from repro_torch.core.noise import PAPER_ETA
 from repro_torch.core.tiling import CrossbarSpec
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import runtime
-from repro_torch.kernels.cim_mvm.ref import cim_mvm_plain, folded_weights
+from repro_torch.kernels.cim_mvm.ref import (
+    cim_mvm_batched_plain,
+    cim_mvm_plain,
+    folded_weights,
+)
 from repro_torch.mapping import resolve_pipeline
 
 
@@ -167,9 +171,10 @@ FOLD_COLS = 256                    # the fold: columns a block
 FOLD_ROWS = (32, 8, 1)             # the fold: rows a block, widest first
 PREFILL_SPLITS = (8, 4, 2)         # folded prefill: splits of I, widest first
 SMEM_MAX = 227 * 1024
-# kernel.cu's Geom.form: the ideal forms, the folded forms, the fold.
+# kernel.cu's Geom.form: the ideal forms, the folded forms, the fold, the
+# batched folded decode form.
 FORM_DECODE, FORM_PREFILL, FORM_DECODE_FOLDED, FORM_PREFILL_FOLDED, \
-    FORM_FOLD = range(5)
+    FORM_FOLD, FORM_DECODE_BATCHED = range(6)
 # The fields of kernel.cu's ``Geom``, in order.
 _GEOM_FIELDS = ("form", "M", "I", "N", "n_pad", "n_tiles", "wpt", "n_bits",
                 "cols", "reversed", "fast", "tile", "rps", "gx", "gy", "gz",
@@ -210,16 +215,17 @@ def _span_tiles(length: int, stride: int, end: int, unit: int) -> int:
     return most
 
 
-def _decode_geometry(M, I, n_cols, wpt, n_bits, sm_count, fast, folded):
+def _decode_geometry(M, I, n_cols, wpt, n_bits, sm_count, fast, folded,
+                     members=1):
     """Decode-form fields over ``n_cols`` columns (n_pad, or the folded
     rows' ld), or None where its shared memory would not fit (a very long
-    I)."""
+    I).  ``members``: the batched form's grid z."""
     mt = 1 << (M - 1).bit_length()
     # The widest block (G column groups of 8) that still gives two
     # blocks a SM; else G = 8.
     for G in (32, 16, 8):
         gx = math.ceil(n_cols / (8 * G))
-        if gx * DECODE_CLUSTER >= 2 * sm_count:
+        if gx * DECODE_CLUSTER * members >= 2 * sm_count:
             break
     rps = math.ceil(I / DECODE_CLUSTER)
     # x slab [rps][mt], reused for the slices' sums [KS][RM][8G]; the
@@ -301,6 +307,31 @@ def cim_geometry(M: int, I: int, N: int, i_pad: int, n_pad: int, wpt: int,
              n_bits=n_bits, cols=cols, reversed=int(reversed_df),
              xbf16=int(xbf16), ld=ld, noise=int(noise), rows=0, n_ti=0,
              cp_ti=0, cp_tn=0)
+    return runtime.Geometry.of(_GEOM_FIELDS, g)
+
+
+@functools.lru_cache(maxsize=None)
+def batched_geometry(members: int, M: int, I: int, N: int, i_pad: int,
+                     n_pad: int, wpt: int, n_bits: int, cols: int,
+                     reversed_df: bool, sm_count: int, xbf16: bool = False,
+                     noise: bool = False) -> runtime.Geometry:
+    """The batched folded decode form's launch: ``members`` deployments of
+    one shape, x (members, M, I) with M <= DECODE_MAX_M; grid (gx, 8,
+    members), each member's blocks those of the folded decode form (the
+    block width chosen over all members' blocks)."""
+    if not 1 <= M <= DECODE_MAX_M:
+        raise ValueError(f"the batched cim_mvm form takes 1..{DECODE_MAX_M} "
+                         f"rows a member, not {M}")
+    g = _decode_geometry(M, I, folded_ld(n_pad), wpt, n_bits, sm_count,
+                         False, True, members)
+    if g is None:
+        raise ValueError(f"the batched cim_mvm form: I = {I} does not fit "
+                         "in shared memory")
+    g.update(form=FORM_DECODE_BATCHED, gz=members, M=M, I=I, N=N,
+             n_pad=n_pad, n_tiles=n_pad // wpt, wpt=wpt, n_bits=n_bits,
+             cols=cols, reversed=int(reversed_df), xbf16=int(xbf16),
+             ld=folded_ld(n_pad), noise=int(noise), rows=0, n_ti=0, cp_ti=0,
+             cp_tn=0)
     return runtime.Geometry.of(_GEOM_FIELDS, g)
 
 
@@ -489,6 +520,77 @@ def _launch(x: torch.Tensor, dep: CimDeployment,
     runtime.count_launch("cim_mvm")
     runtime.check_status("cim_mvm", rc)
     return out
+
+
+def _launch_batched(x: torch.Tensor, dep: CimDeployment,
+                    read_seed: int | None, reps: list[int]) -> torch.Tensor:
+    wf = dep.folded
+    R, i_pad, n_pad = dep.codes.shape
+    ld = folded_ld(n_pad)
+    if wf is None or wf.dtype != torch.float32 or wf.shape != (R, i_pad, ld) \
+            or not wf.is_contiguous() or wf.data_ptr() % 16 \
+            or dep.scale.dtype != torch.float32 or dep.scale.shape != (R,) \
+            or not dep.scale.is_contiguous():
+        raise ValueError("the batched cim_mvm form takes a stacked folded "
+                         f"deployment: folded (R, I_pad, ld) = "
+                         f"{(R, i_pad, ld)} contiguous f32 on 16 bytes and "
+                         "scale (R,) f32")
+    G, M = x.shape[0], x.shape[1]
+    if not all(0 <= r < R for r in reps):
+        raise ValueError(f"members {reps} out of the stack's {R} repeats")
+    noise = noisy(dep, read_seed)
+    seed = int(read_seed) & 0xFFFFFFFF if noise else 0
+    dev = x.device
+    rep_t = torch.tensor(reps, dtype=torch.int32, device=dev)
+    tags = (dep.noise_tag.reshape(-1)[reps].to(dev, torch.int32)
+            if noise else None)
+    out = torch.empty((G, M, dep.out_dim), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    geom = batched_geometry(G, M, dep.in_dim, dep.out_dim, i_pad, n_pad,
+                            dep.wpt, dep.n_bits, dep.cols, dep.reversed_df,
+                            _sm_count(dev.index or 0),
+                            x.dtype == torch.bfloat16, noise)
+    rc = runtime.library().cim_mvm_batched_launch(
+        x.data_ptr(), wf.data_ptr(), i_pad * ld, dep.scale.data_ptr(),
+        rep_t.data_ptr(), None if tags is None else tags.data_ptr(),
+        out.data_ptr(), geom.array, seed,
+        read_noise_amplitude(dep) if noise else 0.0,
+        runtime.stream_arg(dev))
+    runtime.count_launch("cim_mvm_batched")
+    runtime.check_status("cim_mvm_batched", rc)
+    return out
+
+
+def cim_mvm_batched(x: torch.Tensor, dep: CimDeployment,
+                    read_seed: int | None = None, members=None,
+                    device: str | torch.device = "cuda") -> torch.Tensor:
+    """y[g] = x[g] @ W_effective of member g of a stacked deployment, in
+    one launch: the counterpart of the reference's ``jax.vmap(cim_mvm)``
+    over a stacked group.
+
+    x: (G, M, in_dim) f32 or bf16 (other types are cast to f32), M <=
+    ``DECODE_MAX_M``; ``dep``: a stacked deployment (a leading repeat
+    axis), folded (:func:`fold`, or ``repro_torch.deploy`` at deploy);
+    ``members``: the G repeats read, in order (default all; need not be
+    consecutive).  Each member reads with its own noise tag under one
+    ``read_seed``, as :func:`cim_mvm` does.  Returns (G, M, out_dim) f32:
+    the batched folded decode form on CUDA, its plain version (a loop of
+    :func:`cim_mvm`'s) on the CPU.
+    """
+    dev = resolve_device(device)
+    check_on(dev, x=x, codes=dep.codes, scale=dep.scale, folded=dep.folded)
+    reps = (list(range(dep.codes.shape[0])) if members is None
+            else [int(r) for r in members])
+    if x.ndim != 3 or x.shape[0] != len(reps) or x.shape[2] != dep.in_dim:
+        raise ValueError(f"x {tuple(x.shape)} is not ({len(reps)}, M, "
+                         f"{dep.in_dim})")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    x = x.contiguous()
+    if dev.type == "cpu":
+        return cim_mvm_batched_plain(x, dep, read_seed, reps)
+    return _launch_batched(x, dep, read_seed, reps)
 
 
 def cim_mvm(x: torch.Tensor, dep: CimDeployment, read_seed: int | None = None,

@@ -155,3 +155,13 @@ def cim_mvm_ref(x: torch.Tensor, codes_signed: torch.Tensor, plan: MdmPlan,
     bits = codes_to_bits(mag, spec.n_bits)
     w_eff = sign * noisy_magnitude(bits, plan.scale, plan, spec, eta)
     return x.to(torch.float32) @ w_eff
+
+
+def cim_mvm_batched_plain(x: torch.Tensor, dep, read_seed: int | None = None,
+                          members=None) -> torch.Tensor:
+    """The batched form's plain version: y[g] = x[g] @ W'(member g) for x
+    (G, M, in_dim) and a stacked deployment ``dep``, ``members`` its G
+    repeats read (default all); returns (G, M, out_dim) f32."""
+    reps = range(dep.codes.shape[0]) if members is None else members
+    return torch.stack([cim_mvm_plain(x[g], dep.layer(int(r)), read_seed)
+                        for g, r in enumerate(reps)])

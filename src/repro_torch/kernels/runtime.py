@@ -37,8 +37,8 @@ SOURCES = ("cim_mvm/kernel.cu", "flash_attention/kernel.cu",
 HEADERS = ("tf32_mma.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("cim_mvm", "cim_fold", "flash_attention", "manhattan_score",
-           "slstm_scan", "bitslice_pack")
+KERNELS = ("cim_mvm", "cim_fold", "cim_mvm_batched", "flash_attention",
+           "manhattan_score", "slstm_scan", "bitslice_pack")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +49,7 @@ _U = ctypes.c_uint
 _ARGTYPES = {
     "cim_mvm_launch": [_P] * 6 + [_F, _P, _U, _U, _F, _P],
     "cim_fold_launch": [_P] * 7 + [_F, _P],
+    "cim_mvm_batched_launch": [_P, _P, _L] + [_P] * 5 + [_U, _F, _P],
     "cim_occupancy": [_P, _P],
     "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _P, _P],
     "flash_occupancy": [_P, _I, _P],
@@ -169,7 +170,11 @@ def _self_check(lib: ctypes.CDLL) -> None:
     stream = _P(torch.cuda.current_stream().cuda_stream)
     z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt,
                                                      device=dev)
-    from repro_torch.kernels.cim_mvm.ops import cim_geometry, fold_geometry
+    from repro_torch.kernels.cim_mvm.ops import (
+        batched_geometry,
+        cim_geometry,
+        fold_geometry,
+    )
     from repro_torch.kernels.flash_attention.ops import flash_geometry
     from repro_torch.kernels.slstm_scan.ops import slstm_geometry
 
@@ -194,6 +199,15 @@ def _self_check(lib: ctypes.CDLL) -> None:
                     scale.data_ptr(), out.data_ptr(), geom.array, 0.0,
                     wf.data_ptr() if folded else None, 0, 0,
                     0.1 if noise else 0.0, stream)
+    wf2, reps, tags = z(2, 8, 8), z(2, dt=torch.int32), z(2, dt=torch.int32)
+    for noise in (False, True):        # the batched folded decode form
+        x, out = z(2, 1, 8), z(2, 1, 8)
+        geom = batched_geometry(2, 1, 8, 8, 8, 8, 8, 8, 64, False, 1,
+                                False, noise)
+        rc[f"cim_mvm_batched noise={noise}"] = lib.cim_mvm_batched_launch(
+            x.data_ptr(), wf2.data_ptr(), 64, scale.data_ptr(),
+            reps.data_ptr(), tags.data_ptr(), out.data_ptr(), geom.array, 0,
+            0.1 if noise else 0.0, stream)
     # Both forms in f32 and in bf16, and the bf16 decode split over a
     # cluster of 2.
     for Sq, bf16, split in ((1, False, None), (17, False, None),

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import Mapping, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.tiling import CrossbarSpec
@@ -38,6 +39,10 @@ from repro_torch.nonideal.models import (
     sample_stuck_state,
 )
 
+# The reprogram draws' tag under (key, index): outside the samplers'
+# term tags (0-5), as the reference's fold_in branch 7.
+TAG_REPROGRAM = 7
+
 
 class HostCells(NamedTuple):
     """One matrix's sampled physical cell state (the reference's name; the
@@ -51,6 +56,16 @@ class HostCells(NamedTuple):
     stuck: torch.Tensor | None
     gamma: torch.Tensor | None
     relax: torch.Tensor | None = None
+
+
+def cells_on(c, device) -> HostCells:
+    """Cells (fields ``stuck``, ``gamma``, ``relax``: numpy arrays, the
+    reference's, or tensors) on ``device``."""
+    move = lambda f: None if f is None else (
+        f if isinstance(f, torch.Tensor)
+        else torch.from_numpy(np.array(f, copy=True))).to(device)
+    return HostCells(move(c.stuck), move(c.gamma),
+                     move(getattr(c, "relax", None)))
 
 
 def has_faults(model: NonidealModel) -> bool:
@@ -76,6 +91,23 @@ def matrix_cells(key: int, index: int, grid: tuple[int, int],
                           device=device, read=False)
     return HostCells(s.stuck if has_faults(model) else None,
                      s.gamma if has_gain(model) else None,
+                     s.relax if model.sigma_relax > 0.0 else None)
+
+
+def reprogram_cells(key: int, index: int, n: int, grid: tuple[int, int],
+                    spec: CrossbarSpec, model: NonidealModel,
+                    stuck: torch.Tensor | None, device="cuda") -> HostCells:
+    """The cells of the ``index``-th matrix after its ``n``-th reprogram
+    (n >= 1): fresh variation and relaxation drawn from (key, index,
+    ``TAG_REPROGRAM``, n), the deploy's ``stuck`` map pinned (defects
+    are hardware).  The reference keys the same draw by ``fold_in(key,
+    n)``, a stream torch cannot reproduce."""
+    device = resolve_device(device)
+    ti, tn = grid
+    s = sample_cell_state(derive_key(key, index, TAG_REPROGRAM, n),
+                          (ti, tn, spec.rows, spec.cols), model,
+                          stuck=stuck, device=device, read=False)
+    return HostCells(stuck, s.gamma if has_gain(model) else None,
                      s.relax if model.sigma_relax > 0.0 else None)
 
 

@@ -47,10 +47,17 @@ iteration's decode) reads the crossbars with the seed of (nonideal
 seed, forward counter), so noisy tokens depend on the order of the
 forwards, unlike noiseless ones.
 
-The ``"attn"`` pattern only: the reference's ``health``, ``advance``
-and ``check_health`` belong to a later slice, and a recurrent pattern
-would run the padded prefill's pad tokens through its state (a defect
-of the reference's tier, which the port does not mirror).
+**Lifetime resilience.**  ``health`` arms the reference's monitoring
+(``ServeEngine``'s): ``advance(dt)`` and ``check_health()`` refresh
+deployments, and every changed (slot, pname) group lands as a new bank
+epoch of its own, so an epoch that no sequence holds is freed group by
+group while one pinned by sequences in flight keeps its bank.
+``begin_redeploy(..., health=)`` captures fresh lifetime state for the
+new checkpoint.
+
+The ``"attn"`` pattern only: a recurrent pattern would run the padded
+prefill's pad tokens through its state (a defect of the reference's
+tier, which the port does not mirror).
 """
 from __future__ import annotations
 
@@ -62,19 +69,22 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, check_supported
-from repro_torch.deploy import PlanCache
+from repro_torch.deploy import PlanCache, restack_group
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import runtime
 from repro_torch.models.model import KERNELS, Ops, apply_model
 from repro_torch.serve.engine import (
-    check_ideal,
     deploy_serving_bank,
+    probe_seed,
     read_seed,
     reads_noise,
     sample_tokens_batch,
 )
 from repro_torch.serve.kvcache import SignatureCounter, SlotPool
 from repro_torch.serve.scheduler import Request, RequestScheduler
+
+
+_UNSET = object()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,7 +139,8 @@ class ContinuousEngine:
 
     ``params`` must lie on ``device`` (default the card).  ``cim``, a
     deployment of ``params`` made earlier (``deploy_serving_bank``),
-    serves as bank 0 instead of deploying again.
+    serves as bank 0 instead of deploying again (not with ``health``,
+    whose lifetime state the deploy captures).
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, capacity: int = 4,
@@ -138,8 +149,10 @@ class ContinuousEngine:
                  fault_aware: bool = True, pipeline=None, health=None,
                  cim=None, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
-        check_ideal(health)
         check_supported(cfg)
+        if cim is not None and health is not None:
+            raise ValueError("health needs the engine's own deploy (it "
+                             "captures the lifetime state): pass no cim")
         if tuple(cfg.block_pattern) != ("attn",):
             raise NotImplementedError(
                 f"{cfg.name}: continuous batching serves the 'attn' "
@@ -160,9 +173,13 @@ class ContinuousEngine:
         self.deploy_report = None
         self._nonideal = (nonideal, int(nonideal_seed), fault_aware,
                           pipeline)
+        self._health_cfg = health
+        self.lifetime, self.health = {}, None
         if cim is None:
-            cim, self.deploy_report = deploy_serving_bank(
-                cfg, params, self.plan_cache, self.device, *self._nonideal)
+            cim, self.deploy_report, self.lifetime, self.health = \
+                deploy_serving_bank(cfg, params, self.plan_cache,
+                                    self.device, *self._nonideal, False,
+                                    health)
         self.read_noise = reads_noise(cim, nonideal)
         self._forwards = 0               # read-seed counter
         self.banks: dict[int, Bank] = {0: Bank(0, params, cim)}
@@ -352,13 +369,48 @@ class ContinuousEngine:
         for e in [e for e in self.banks if e not in held]:
             del self.banks[e]
 
-    def begin_redeploy(self, params: dict) -> threading.Thread:
+    # -- lifetime resilience -------------------------------------------
+
+    def _swap(self, dirty: set) -> None:
+        """Restack each refreshed group into a new bank epoch of its own
+        (fresh dicts; in-flight sequences keep their admission epoch)."""
+        for slot, pname in sorted(dirty):
+            cur = self.banks[self.serving_epoch]
+            cim = {s: dict(sub) for s, sub in cur.cim.items()}
+            cim[slot][pname] = restack_group(self.lifetime, slot, pname)
+            self._install_bank(cur.params, cim)
+
+    def advance(self, dt: float) -> None:
+        """Advance the drift clock; heal-swaps land as new epochs."""
+        if self.health is not None:
+            self._swap(self.health.advance(dt))
+
+    def check_health(self, read_seed: int | None = None):
+        """One probe round + remediation (the probe read seed as
+        ``ServeEngine``'s); swaps land as new epochs.  Returns a
+        HealthReport, or None without health."""
+        if self.health is None:
+            return None
+        if read_seed is None and self.read_noise:
+            read_seed = probe_seed(self._nonideal[1], self.health.rounds)
+        self._swap(self.health.probe(read_seed))
+        return self.health.report()
+
+    @property
+    def health_report(self):
+        """Current HealthReport, or None when health is not armed."""
+        return None if self.health is None else self.health.report()
+
+    def begin_redeploy(self, params: dict, *,
+                       health=_UNSET) -> threading.Thread:
         """Deploy a new checkpoint in the background; swap when ready.
 
         Planning and packaging run in a worker thread through the
         shared plan cache while the current bank serves; the new bank
-        is installed at the next ``step()`` boundary.  Returns the
-        thread (``join()`` it to rendezvous; serving never has to).
+        (with fresh lifetime capture and controller when ``health``,
+        by default the engine's, is armed) is installed at the next
+        ``step()`` boundary.  Returns the thread (``join()`` it to
+        rendezvous; serving never has to).
         """
         if (self._redeploy_thread is not None
                 and self._redeploy_thread.is_alive()):
@@ -367,13 +419,14 @@ class ContinuousEngine:
                  lm_head=params["lm_head"])
         if self.device.type == "cuda":
             runtime.library()            # built before two threads launch
+        health = self._health_cfg if health is _UNSET else health
 
         def work():
             try:
                 with torch.no_grad():
                     pending = (params, *deploy_serving_bank(
                         self.cfg, params, self.plan_cache, self.device,
-                        *self._nonideal))
+                        *self._nonideal, False, health))
             except Exception as exc:          # raised again by step()
                 pending = exc
             with self._lock:
@@ -396,9 +449,11 @@ class ContinuousEngine:
             return
         if isinstance(pending, Exception):
             raise RuntimeError("the background redeploy failed") from pending
-        params, cim, report = pending
+        params, cim, report, lifetime, controller = pending
         self._install_bank(params, cim)
         self.deploy_report = report
+        # The old lifetime state describes the retired checkpoint.
+        self.lifetime, self.health = lifetime, controller
 
 
 def _seed64(seed: int) -> int:

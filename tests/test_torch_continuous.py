@@ -37,6 +37,7 @@ from repro_torch.configs import CimConfig, ModelConfig
 from repro_torch.configs.xlstm_13b import CONFIG as XLSTM
 from repro_torch.convert import params_from_numpy
 from repro_torch.deploy import PlanCache
+from repro_torch.health import HealthConfig
 from repro_torch.models.attention import EMPTY_POS
 from repro_torch.models.model import apply_model
 from repro_torch.nonideal import NonidealModel
@@ -476,10 +477,13 @@ def test_engine_rejects_oversized_prompts_and_bad_configs(tmp_path):
         _engine(cfg, params, tmp_path, capacity=1, max_seq=8, max_prompt=16)
     with pytest.raises(NotImplementedError):     # the reference's defect
         _engine(XLSTM.replace(dtype="float32"), params, tmp_path)
-    with pytest.raises(NotImplementedError):     # health: a later slice
-        _engine(cfg, params, tmp_path, health=object())
-    with pytest.raises(NotImplementedError):
-        ServeEngine(cfg, params, device="cpu", health=object())
+    # health= without a non-ideal model arms nothing (the reference's
+    # tests/test_health.py::test_health_requires_nonideal_model).
+    eng = _engine(cfg, params, tmp_path, health=HealthConfig())
+    assert eng.health is None and eng.check_health() is None
+    eng = ServeEngine(cfg, params, plan_cache=PlanCache(
+        str(tmp_path / "serve")), device="cpu", health=HealthConfig())
+    assert eng.health is None and eng.check_health() is None
     # Once refused, imperfect devices now serve: the same bank in both
     # engines (one seed, one cell draw), and the continuous engine's
     # greedy tokens equal the single-batch engine's.

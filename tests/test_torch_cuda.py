@@ -668,3 +668,125 @@ def test_slstm_scan_kernel_bf16_vs_plain(cuda, b, t, h, dh, seed, state):
         a, w = a.float(), w.float()
         assert ((a - w).abs() <= SLSTM_TOL + rtol * w.abs()).all(), \
             (a - w).abs().max().item()
+
+
+def _stacked_nonideal(cuda, G, I, N, seed, noise):
+    """G folded deployments of random (I, N) matrices with gain and
+    col_pos (and read noise at non-consecutive tags 5 + 7g), stacked."""
+    from repro_torch.deploy.lifetime import stack_deployments
+
+    deps = []
+    for g in range(G):
+        dep = _nonideal_dep(cuda, I, N, (64, 64, 8),
+                            "all" if noise else "gain", seed + g)
+        if noise:
+            dep = dataclasses.replace(
+                dep, noise_tag=torch.tensor(5 + 7 * g, dtype=torch.int32))
+        deps.append(fold(dep))
+    return stack_deployments(deps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 3, 32])
+@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("noise", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cim_mvm_batched_vs_plain_loop(cuda, G, M, noise, dtype):
+    """The batched folded decode form, one launch for the group, against
+    its plain loop over the members: every member at the folded forms'
+    normwise bound (1e-5 x max|y|); members read out of order (a
+    reversed subset where G > 1), each with its own tag; two calls
+    bit-identical; one launch counted."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.cim_mvm.ops import cim_mvm_batched
+    from repro_torch.kernels.cim_mvm.ref import cim_mvm_batched_plain
+
+    I, N = 320, 200
+    st = _stacked_nonideal(cuda, G, I, N, 10 * G + M, noise)
+    members = list(range(G))[::-1][:max(1, G - 1)]
+    x = torch.randn((len(members), M, I), generator=torch.Generator(
+        device=cuda).manual_seed(G + M), device=cuda).to(dtype)
+    seed = 21 if noise else None
+    runtime.reset_launch_counts()
+    y = cim_mvm_batched(x, st, seed, members, device=cuda)
+    assert runtime.launch_counts()["cim_mvm_batched"] == 1
+    want = cim_mvm_batched_plain(x, st, seed, members)
+    for g in range(len(members)):
+        err = (y[g] - want[g]).abs().max().item()
+        assert err <= 1e-5 * want[g].abs().max().item(), (g, err)
+    assert torch.equal(y, cim_mvm_batched(x, st, seed, members, device=cuda))
+    if noise and len(members) > 1:      # each member its own tag's noise
+        assert not torch.equal(
+            y[0], cim_mvm_batched(x[:1], st, seed, members[1:2],
+                                  device=cuda)[0])
+
+
+@pytest.mark.cuda
+def test_cim_mvm_batched_occupancy_and_refusals(cuda):
+    """The batched form's occupancy at phi3's probe batch (M = 16, the
+    MT = 16 instance) and its refusals: M > 16, an unfolded stack."""
+    from repro_torch.kernels.cim_mvm.ops import (
+        _sm_count,
+        batched_geometry,
+        cim_mvm_batched,
+        occupancy,
+    )
+
+    st = _stacked_nonideal(cuda, 3, 320, 200, 1, True)
+    geom = batched_geometry(3, 16, 320, 200, *st.codes.shape[1:], st.wpt,
+                            st.n_bits, st.cols, st.reversed_df, _sm_count(0),
+                            False, True)
+    assert geom.mt == 16 and geom.gz == 3
+    occ = occupancy(geom)
+    assert occ["blocks_per_sm"] >= 1 and occ["clusters"] >= 1
+    with pytest.raises(ValueError):
+        cim_mvm_batched(torch.zeros((3, 17, 320), device=cuda), st,
+                        device=cuda)
+    unfolded = dataclasses.replace(st)
+    with pytest.raises(ValueError, match="folded"):
+        cim_mvm_batched(torch.zeros((3, 4, 320), device=cuda), unfolded,
+                        device=cuda)
+
+
+@pytest.mark.cuda
+def test_refold_after_recalibrate_is_bit_identical(cuda):
+    """A lifetime-captured deploy on the card: recalibrate, reprogram and
+    a plain age advance of members restacked through the fold kernel,
+    every refreshed fold bit-identical to the fold's plain version of its
+    new gain, and the refresh at the deploy's age rebuilding the
+    deployed fold bit for bit (the cells drawn again on the card)."""
+    import numpy as np
+
+    from repro_torch.configs import CimConfig, ModelConfig
+    from repro_torch.deploy import deploy_model_params, restack_group
+    from repro_torch.models.model import init_params
+    from repro_torch.nonideal import NonidealModel
+
+    cfg = ModelConfig(name="narrow", n_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=2, d_ff=128, vocab_size=256,
+                      dtype="float32",
+                      cim=CimConfig(enabled=True, rows=32, cols=32, n_bits=8))
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    model = NonidealModel(p_stuck_off=0.01, sigma_program=0.05,
+                          sigma_corr=0.05, drift_nu=0.05, drift_time=10.0,
+                          sigma_relax=0.08, sigma_read=0.01)
+    lifetime: dict = {}
+    cim, _ = deploy_model_params(params, cfg, device=cuda, nonideal=model,
+                                 lifetime=lifetime)
+    deployed = {k: d.folded.clone() for k, d in cim["slot0_attn"].items()}
+    for lt in lifetime.values():
+        lt.stale = True
+    for pname in deployed:
+        assert torch.equal(restack_group(lifetime, "slot0_attn",
+                                         pname).folded, deployed[pname])
+    up = [lifetime[f"slot0_attn/ffn_w_up/{r}"] for r in range(2)]
+    up[0].recalibrate(np.linspace(0.9, 1.1, up[0].dep.out_dim))
+    up[1].reprogram()
+    restack_group(lifetime, "slot0_attn", "ffn_w_up")
+    for lt in lifetime.values():
+        lt.advance(1e4)
+    for pname in deployed:
+        restack_group(lifetime, "slot0_attn", pname)
+    for lt in lifetime.values():
+        assert torch.equal(lt.dep.folded, folded_weights(lt.dep)), lt.name

@@ -463,10 +463,12 @@ def test_geometry_constants_mirror_the_kernels():
         cim_ops.PREFILL_WLD - cim_ops.PREFILL_BN)
     forms = re.search(r"constexpr int FORM_DECODE = 0, FORM_PREFILL = 1, "
                       r"FORM_DECODE_FOLDED = 2,\s*FORM_PREFILL_FOLDED = 3, "
-                      r"FORM_FOLD = 4;", cim_cu.read_text())
+                      r"FORM_FOLD = 4,\s*FORM_DECODE_BATCHED = 5;",
+                      cim_cu.read_text())
     assert forms and (cim_ops.FORM_DECODE, cim_ops.FORM_PREFILL,
                       cim_ops.FORM_DECODE_FOLDED, cim_ops.FORM_PREFILL_FOLDED,
-                      cim_ops.FORM_FOLD) == (0, 1, 2, 3, 4)
+                      cim_ops.FORM_FOLD, cim_ops.FORM_DECODE_BATCHED) == (
+                          0, 1, 2, 3, 4, 5)
     fields = re.search(r"struct Geom \{\s*int ([^;]*);",
                        cim_cu.read_text()).group(1)
     assert tuple(f.strip() for f in fields.split(",")) == \
