@@ -2047,12 +2047,21 @@ def _check_refolds(eng, what: str) -> None:
           f"plain fold of their gain")
 
 
+# The earlier batched form (a grid z over the folded decode form, f32
+# FMAs) at the same group, for comparison: NVIDIA H100 80GB HBM3, 700 W.
+BATCHED_EARLIER = ("the earlier form: 254 registers, no spills, 1 block a "
+                   "SM, 15 clusters, no HMMA; 2.8830 ms with noise, 2.0751 "
+                   "without")
+
+
 def _batched_record(eng, built: dict) -> dict:
     """The batched folded decode form at phi3's largest group (a probe
     read of G = 32 members, M = 16, 3072x8192, every member's Wg read
     once: bound by bytes): device time with and without read noise
     beside the byte bound, the plain loop and ``torch.bmm`` on W_eff with
-    the noise materialised; registers and blocks a SM."""
+    the noise materialised; registers, spills, blocks a SM, clusters and
+    tensor-core instructions of the f32-x instances with and without
+    noise, beside the earlier form's."""
     from repro_torch.kernels.cim_mvm.ops import (
         _sm_count,
         batched_geometry,
@@ -2084,19 +2093,28 @@ def _batched_record(eng, built: dict) -> dict:
     N = bank.out_dim
     n_bytes = G * i_pad * ld * 4 + probes.numel() * 4 + G * M * N * 4 + 4 * G
     b_ms, b_by = bound(n_bytes, 2.0 * G * M * I * N + n_ops * G * I * N)
-    geom = batched_geometry(G, M, I, N, *bank.codes.shape[1:], bank.wpt,
-                            bank.n_bits, bank.cols, bank.reversed_df,
-                            _sm_count(0), False, True)
-    occ = _occupancy(built, f"cim_decode_batched_kernel<Li{geom.mt}ELb1>",
-                     geom)
+    occs = {}
+    for noise in (True, False):
+        geom = batched_geometry(G, M, I, N, *bank.codes.shape[1:], bank.wpt,
+                                bank.n_bits, bank.cols, bank.reversed_df,
+                                _sm_count(0), False, noise)
+        name = f"cim_decode_batched_kernel<Lb{int(noise)}ELb0>"
+        occs[noise] = dict(_occupancy(built, name, geom),
+                           hmma=built.get(name, {}).get("mma", {}).get(
+                               "HMMA"))
+    occ = occs[True]
     print(f"cim_mvm_batched G={G} M={M} {I}x{N} (ffn_w_up, the phi3 bank's "
           f"own folds): max_abs_err {err:.3e} against the plain loop (tol "
           f"{CIM_TOL:g} x max|y| {want.abs().max().item():.3e}); kernel "
           f"{ms:.4f} ms with read noise, {ms_clean:.4f} ms without; plain "
           f"{plain_ms:.4f} ms; torch.bmm on W_eff {lib_ms:.4f} ms; bound "
-          f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB); "
-          f"{_occ_text(occ)}, tile {geom.tile}, grid ({geom.gx}, {geom.gy}, "
-          f"{geom.gz})")
+          f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB); tile "
+          f"{geom.tile}, {geom.gx} persistent blocks in clusters of "
+          f"{geom.gy}")
+    for o in occs.values():
+        print(f"  {o['kernel']}: {_occ_text(o)}, {o['spill_bytes']} bytes "
+              f"spilled, {o['hmma']} HMMA in its SASS")
+    print(f"  {BATCHED_EARLIER}")
     if err > CIM_TOL * want.abs().max().item():
         raise AssertionError("the batched form disagrees with its plain "
                              "loop at phi3's largest group")
@@ -2107,7 +2125,8 @@ def _batched_record(eng, built: dict) -> dict:
                          "controller.py:155-162)",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, ms_noiseless=ms_clean,
-                G=G, M=M, I=I, N=N, **occ)
+                G=G, M=M, I=I, N=N, **occ,
+                blocks_per_sm_noiseless=occs[False]["blocks_per_sm"])
 
 
 def _round_launches(eng) -> None:

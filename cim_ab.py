@@ -2,7 +2,7 @@
 """Time cim_mvm's or flash_attention's forms at phi3-mini's shapes in one
 checkout of the port.
 
-    python3 cim_ab.py [--src DIR] [--label NAME] [--flash]
+    python3 cim_ab.py [--src DIR] [--label NAME] [--flash | --batched]
 
 Imports ``repro_torch`` from ``DIR`` (default: the ``src`` beside this
 script), builds its kernels there and times its public ``cim_mvm`` on
@@ -21,6 +21,16 @@ and bf16, at ``chip_smoke._flash_cases``'s shapes (the bf16 forms also
 at the long-cache decode), and adds the checkout's flash kernels'
 registers, spills, SASS and tensor-core counts (``chip_smoke.phase_build``).
 
+With ``--batched`` it times the public ``cim_mvm_batched`` at a phi3
+probe round's group shapes (G = 32 members, M = 16 f32 probes): 3072x3072
+(wq, wk, wv, wo), 3072x8192 (ffn_w_gate, ffn_w_up), 8192x3072
+(ffn_w_down), each on a stack of 32 folds of ``chip_smoke._nonideal_dep``'s
+deployment (``stack_deployments``, noise tag g for member g), with and
+without read noise, beside ``torch.bmm`` on the materialised W_eff and
+the byte bound (every member's fold read once); ``round`` sums the
+round's seven launches (4, 2 and 1 of the three shapes); plus the
+checkout's batched kernels as its build reports them.
+
 Prints one JSON line.  Run it for two checkouts in one call (parent,
 change, change, parent) to compare them on one card.
 """
@@ -34,8 +44,8 @@ import sys
 
 import torch
 
-from chip_smoke import (COLD_BYTES, _flash_cases, _nonideal_dep, device_ms,
-                        phase_build)
+from chip_smoke import (COLD_BYTES, _flash_cases, _nonideal_dep, bound,
+                        device_ms, phase_build)
 
 
 def copies(dep, nbytes: int) -> list:
@@ -73,6 +83,46 @@ def time_flash(out: dict) -> None:
                                         k_positions=kpos))
 
 
+def time_batched(out: dict) -> None:
+    """cim_mvm_batched at a probe round's group shapes (module docstring)."""
+    from repro_torch.deploy.lifetime import stack_deployments
+    from repro_torch.kernels.cim_mvm.ops import cim_mvm_batched
+    from repro_torch.kernels.cim_mvm.ref import deployment_weights
+
+    built = phase_build()
+    out["kernels"] = {k: v for k, v in built.items() if "batched" in k}
+    G, M, seed = 32, 16, 31
+    reps = list(range(G))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    out.update(bound_ms={}, err={})
+    for (I, N), per_round in (((3072, 3072), 4), ((3072, 8192), 2),
+                              ((8192, 3072), 1)):
+        dep = _nonideal_dep(I, N, "all", I + N)
+        bank = stack_deployments([dataclasses.replace(
+            dep, noise_tag=torch.tensor(t, dtype=torch.int32))
+            for t in reps])
+        del dep
+        x = torch.randn((G, M, I), generator=g, device="cuda")
+        key = f"{I}x{N}"
+        for s, what in ((seed, "noise"), (None, "clean")):
+            out["ms"][f"batched {what} {key}"] = device_ms(
+                lambda s=s: cim_mvm_batched(x, bank, s, reps))
+        w_eff = torch.stack([deployment_weights(bank.layer(r), seed)
+                             for r in reps])[:, :I, :N]
+        out["ms"][f"bmm {key}"] = device_ms(lambda: torch.bmm(x, w_eff))
+        want = torch.bmm(x, w_eff)
+        out["err"][key] = ((cim_mvm_batched(x, bank, seed, reps) - want)
+                           .abs().max() / want.abs().max()).item()
+        n_bytes = 4 * (G * bank.folded[0].numel() + x.numel() + want.numel())
+        out["bound_ms"][key] = bound(n_bytes, 0.0)[0]
+        for what in ("batched noise", "batched clean", "bmm"):
+            out["ms"][f"{what} round"] = out["ms"].get(
+                f"{what} round", 0.0) + per_round * out["ms"][f"{what} {key}"]
+        out["bound_ms"]["round"] = out["bound_ms"].get("round", 0.0) + \
+            per_round * out["bound_ms"][key]
+        del bank, w_eff, want
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(
@@ -80,6 +130,8 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--flash", action="store_true",
                     help="time flash_attention's forms, not cim_mvm's")
+    ap.add_argument("--batched", action="store_true",
+                    help="time cim_mvm_batched at a probe round's shapes")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("cim_ab: no CUDA device", file=sys.stderr)
@@ -94,8 +146,8 @@ def main() -> int:
     out = {"label": a.label, "src": a.src,
            "card": torch.cuda.get_device_name(0), "ms": {}}
 
-    if a.flash:
-        time_flash(out)
+    if a.flash or a.batched:
+        (time_flash if a.flash else time_batched)(out)
         print(json.dumps(out))
         return 0
 

@@ -82,7 +82,9 @@
 //   one cooperative pass a slab (one Philox call for four consecutive
 //   columns of a slab row, four a thread a slab), overlapped with the
 //   products of the slab before.  With bf16 x the TF32 lo part of x is
-//   exactly zero, so that product is skipped: two wgmma a k step.
+//   exactly zero, so that product is skipped: two wgmma a k step.  The
+//   batched folded decode form (a group of members in one launch) stages
+//   Wg slabs the same way and runs its product on mma.sync tensor cores.
 // x may be f32 or bf16 (read directly, exact in f32); y is f32.
 //
 // Rounding.  M0 and M1 are exact (integers times 2^-K); the rest of the
@@ -111,16 +113,24 @@ constexpr int PF_BK = 32;      // prefill: rows of I a step
 constexpr int PF_STAGES = 3;   // prefill: ring of staged slabs
 constexpr int PF_WLD = PF_BN + 8;  // folded prefill: a staged row of Wg
 constexpr int FOLD_COLS = 256;     // fold: columns a block (32 threads of 8)
+constexpr int BT_BN = 128;     // batched: columns a work item
+constexpr int BT_BK = 32;      // batched: rows of I a slab
+constexpr int BT_STAGES = 4;   // batched: ring of staged slabs
+constexpr int BT_BLOCKS = 2;   // batched: blocks a SM it is built for
+constexpr int BT_WLD = BT_BN + 8;  // batched: a staged row of Wg (floats)
+constexpr int BT_XLD = BT_BK + 4;  // batched: a staged or split row of x
 // Geom.form: the ideal decode and prefill forms, the folded ones, the fold,
 // the batched folded decode form.
 constexpr int FORM_DECODE = 0, FORM_PREFILL = 1, FORM_DECODE_FOLDED = 2,
               FORM_PREFILL_FOLDED = 3, FORM_FOLD = 4,
               FORM_DECODE_BATCHED = 5;
 
-// Launch geometry, computed by ops.py::cim_geometry / fold_geometry (same
-// order).  ``gz``: the folded prefill form's split of I (a cluster of gz
-// blocks), the batched form's members, 1 elsewhere; ``ld``: the row
-// stride of Wg (folded forms and the fold);
+// Launch geometry, computed by ops.py::cim_geometry / fold_geometry /
+// batched_geometry (same order).  ``gz``: the folded prefill form's split
+// of I (a cluster of gz blocks), the batched form's members, 1
+// elsewhere; the batched form's ``gx`` blocks are persistent, in
+// clusters of ``gy`` that split I; ``ld``: the row stride of Wg (folded
+// forms and the fold);
 // ``noise``: the read draws noise; ``rows``, ``n_ti``, ``cp_ti``,
 // ``cp_tn``: the fold's col_pos tiles.
 struct Geom {
@@ -381,15 +391,25 @@ cim_fold_kernel(const int16_t* __restrict__ codes,
 // rsqrt(max(t, FLT_MIN)) is 0 there, where t rsqrt(t) would be 0 * inf.
 // The SFU's __logf, rsqrtf and __sincosf: 2 pi (u2 - 1/2) lies in (-pi,
 // pi), where __sincosf is accurate to 2^-21.4, and cos(2 pi u2) = -cos(2
-// pi (u2 - 1/2)) (u2 - 1/2 is exact).
+// pi (u2 - 1/2)) (u2 - 1/2 is exact).  u1 >= 2^-25 and the rsqrt's
+// argument >= FLT_MIN are normal, so lg2.approx.ftz and rsqrt.approx.ftz
+// give what __logf (lg2 * ln 2) and rsqrtf give without their subnormal
+// handling, and -2 (lg2 * ln 2) is one multiply by -2 fl(ln 2) (exact;
+// scaling by 2 commutes with rounding): the same normals, bit for bit,
+// seven instructions fewer.
 __device__ __forceinline__ void box_muller(uint32_t a, uint32_t b,
                                            float& z0, float& z1) {
   const float u1 = __fmaf_rn((float)(a >> 8), 5.9604644775390625e-08f,
                              2.98023223876953125e-08f);
   const float u2 = __fmaf_rn((float)(b >> 8), 5.9604644775390625e-08f,
                              2.98023223876953125e-08f);
-  const float t = fmaxf(-2.0f * __logf(u1), 0.0f);
-  const float r = t * rsqrtf(fmaxf(t, 1.17549435e-38f));
+  float lg, rs;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(lg) : "f"(u1));
+  const float t = fmaxf(lg * -1.38629436492919921875f, 0.0f);
+  asm("rsqrt.approx.ftz.f32 %0, %1;"
+      : "=f"(rs)
+      : "f"(fmaxf(t, 1.17549435e-38f)));
+  const float r = t * rs;
   float s, c;
   __sincosf(6.28318530717958648f * (u2 - 0.5f), &s, &c);
   z0 = -r * c;
@@ -779,18 +799,79 @@ cim_decode_folded_kernel(const void* __restrict__ x,
 // The batched folded decode form: one launch reads a whole group of
 // members of a stacked folded deployment (the port's counterpart of the
 // reference's jax.vmap(cim_mvm) over a stacked group, which the health
-// controller's probe rounds run, src/repro/health/controller.py).  Grid
-// (gx, 8, G): block z of the grid's third axis runs the folded decode
-// form's blocks, slices and cluster reduction for member z, whose Wg is
-// repeat reps[z] of the stack (rows of ld floats, wstride floats a
-// repeat), scale scale[reps[z]], read-noise tag tags[z] (the tags need
-// not be consecutive), x and y slab z of (G, M, I) and (G, M, N).  The
-// Philox key's second word is the member's: k1 of round r is tag + r *
-// 0xBB67AE85, an add a round, so no per-member key table is held.
-// Bound by bytes, as the single form: 4 a weight of every member.
-template <int MT, bool NOISE>
-__global__ void __cluster_dims__(1, CLUSTER, 1)
-__launch_bounds__(THREADS, MT <= 8 ? 2 : 1)
+// controller's probe rounds run, src/repro/health/controller.py).
+// Member z reads repeat reps[z] of the stack (rows of ld floats, wstride
+// floats a repeat) with scale scale[reps[z]] and read-noise tag tags[z]
+// (the tags need not be consecutive), x and y slab z of (G, M, I) and
+// (G, M, N).  The Philox key's second word is the member's: k1 of round
+// r is tag + r * 0xBB67AE85, an add a round, so no key table is held.
+//
+// Bound by bytes: 4 a weight of every member (3.24 GB at phi3's largest
+// probe group, G = 32 members of 3072x8192, 0.97 ms at 3.35 TB/s).  The
+// read noise costs ~26 SASS instructions a weight and the product 16
+// FMAs a weight on the f32 pipe, so the design keeps the product off it
+// and many bytes in flight without registers:
+// * Persistent blocks over work items (member, BT_BN columns): block c
+//   of the gx / gy clusters takes items c, c + gx / gy, ...  (member-
+//   major, so neighbouring blocks share a member's x in L2), each over
+//   all of I.  Where members x column tiles would leave SMs idle, a
+//   cluster of gy blocks splits the slabs of I (rank r the slabs [s r /
+//   gy, s (r + 1) / gy) of s) and merges its sums through distributed
+//   shared memory, each output summed over the ranks in order.
+// * A ring of BT_STAGES staged slabs (BT_BK rows of Wg by BT_BN columns,
+//   and x's BT_BK columns), filled by 16-byte cp.async: the block walks
+//   the flat sequence of its items' slabs, so the ring keeps loading
+//   across an item's epilogue, and two to three slabs (35-52 KB a block,
+//   two blocks a SM) are in flight without holding registers.
+// * Noise on the staged slab: in the phase that runs slab q's products,
+//   slab q + 1's noise is added in place, a thread four neighbouring
+//   columns of one row from one Philox call at counter (i, n >> 2), in
+//   the plain version's order (add_noise); x's slab is split into TF32
+//   hi and lo parts (rows past M zero) in the same pass.
+// * The product on tensor cores: mma.sync m16n8k8 TF32, x (16 rows, M of
+//   them live) the A operand by ldmatrix from the split parts, the noisy
+//   Wg the B operand split into hi and lo as it is read; 3xTF32 for f32
+//   x, two products for bf16 x (its lo part is exactly zero).  Warp w
+//   owns columns 16w .. 16w + 15 of the item: two m16n8 tiles.  As in
+//   the prefill forms, each slab's products start from zero and are
+//   added to the running sums with round-to-nearest adds (the tensor
+//   core truncates as it accumulates).
+// Every sum runs in a fixed order and nothing is atomic, so two calls
+// give bit-identical results; rows past M and columns past N are never
+// written.  Measured on the H100 (PERF.md, row 1f): without noise it
+// reads at ~85% of the memory rate; with noise the loop's ~690
+// instructions a thread a slab (the read noise ~60% of them) bound it
+// at ~1.9x its byte bound: neither a deeper ring, three blocks a SM nor
+// the product on wgmma moved it.
+constexpr int BT_SMEM_X = 16 * BT_XLD;   // floats of a staged or split x
+constexpr int BT_SMEM_W = BT_BK * BT_WLD;  // floats of a staged Wg slab
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((uint32_t)__cvta_generic_to_shared(p))
+      : "memory");
+}
+
+// cvt.rna.tf32.f32 of a finite a by integer ops (round half away from
+// zero at bit 13), without the conversion's non-finite checks.
+__device__ __forceinline__ uint32_t rna_finite(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
+}
+
+// Wg's B-operand parts: hi = rna(a), lo = a - hi (exact) handed to the
+// tensor core raw: it keeps lo's top bits (|lo| <= 2^-11 |a|), so the
+// product misses a * b by at most 2^-21 |a b|, and lo's sign follows a's
+// residue, so no bias.
+__device__ __forceinline__ void split_b(float a, uint32_t& hi,
+                                        uint32_t& lo) {
+  hi = rna_finite(a);
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+template <bool NOISE, bool XBF>
+__global__ void __launch_bounds__(THREADS, BT_BLOCKS)
 cim_decode_batched_kernel(const void* __restrict__ x_all,
                           const float* __restrict__ wf_all,
                           long long wstride,
@@ -798,86 +879,266 @@ cim_decode_batched_kernel(const void* __restrict__ x_all,
                           const int32_t* __restrict__ reps,
                           const int32_t* __restrict__ tags,
                           float* __restrict__ out_all, Geom g, Noise e) {
-  constexpr int U = 2;
+  constexpr int BN = BT_BN, BK = BT_BK, WLD = BT_WLD, XLD = BT_XLD;
+  constexpr int ST = BT_SMEM_W + BT_SMEM_X;    // floats of a ring stage
+  constexpr int xes = XBF ? 2 : 4;             // bytes a value of x
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* xs = smem;                 // [rows][MT], later the reduction
-  float* part = smem + g.off_p;     // [MT][8G] the block's sums
-  const int rank = (int)cg::this_cluster().block_rank();
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* xsp = ring + BT_STAGES * ST;     // [2 buf][hi, lo][16][XLD]
+  float* part = xsp + 4 * BT_SMEM_X;      // [16][BN] (a split of I)
 
-  const int z = blockIdx.z;
-  const int rep = __ldg(reps + z);
-  const float* __restrict__ wf = wf_all + (size_t)rep * wstride;
-  const void* x = reinterpret_cast<const char*>(x_all) +
-                  (size_t)z * g.M * g.I * (g.xbf16 ? 2 : 4);
-  float* out = out_all + (size_t)z * g.M * g.N;
-  const uint32_t tag = NOISE ? (uint32_t)__ldg(tags + z) : 0u;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int S = g.gy;
+  const int rank = S > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int c0 = blockIdx.x / S, nc = gridDim.x / S;
+  const int n_tiles = (g.N + BN - 1) / BN, n_items = g.gz * n_tiles;
+  const int n_slabs = (g.I + BK - 1) / BK;
+  const int s0 = n_slabs * rank / S, ns = n_slabs * (rank + 1) / S - s0;
+  const int items = c0 < n_items ? (n_items - c0 + nc - 1) / nc : 0;
+  const int Q = ns > 0 ? items * ns : 0;
+  const bool xvec = g.I % (16 / xes) == 0 &&
+                    (reinterpret_cast<uintptr_t>(x_all) & 15) == 0;
 
-  const int G = g.tile, KS = THREADS / G, W = 8 * G;
-  const int tid = threadIdx.x;
-  const int gi_col = tid % G, sl = tid / G;
-  const int n0 = blockIdx.x * W + 8 * gi_col;
-  const int k0 = rank * g.rps;
-  const int k1 = min(k0 + g.rps, g.I);
-  const int rows = max(k1 - k0, 0);
-  const float nz = __fmul_rn(e.nsig, __ldg(scale_all + rep));
+  // Wg rows and columns of this thread's staging: rows wr + 8 it, the 4
+  // columns from wc; its 16 bytes of x's staging (vector rows), if any.
+  const int wr = tid / (BN / 4), wc = 4 * (tid % (BN / 4));
+  constexpr int CH = BK * xes / 16;       // 16-byte pieces of an x row
+  const int xsm = tid / CH, xsc = (tid % CH) * (16 / xes);
+  const bool xs_on = xvec && xsm < g.M;
 
-  decode_load_x<MT>(xs, x, g, k0, rows);
-  __syncthreads();
-
-  float acc[MT][8];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] = 0.0f;
-
-  const bool col_ok = n0 < g.ld;
-  float4 wv[U][2];
-  auto load = [&](int i, float4 (&w)[U][2]) {
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int ii = i + u * KS;
-      const float4* p =
-          reinterpret_cast<const float4*>(wf + (size_t)ii * g.ld + n0);
-      const bool ok = ii < k1;
-      w[u][0] = ok ? __ldg(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-      w[u][1] = ok ? __ldg(p + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
+  // A place in the block's sequence of slabs: slab s of item w (member
+  // z, repeat rep, first column nb), first row of I k0, and this thread's
+  // first Wg and x source of the slab; a division and the member's loads
+  // an item only.
+  struct Cursor {
+    int q, s, w, z, nb, k0;
+    const float* src;
+    const char* xsrc;
+    uint32_t tag;
+    float nz;
+  };
+  const char* x_bytes = reinterpret_cast<const char*>(x_all);
+  auto locate = [&](Cursor& c) {
+    c.z = c.w / n_tiles;
+    c.nb = (c.w - c.z * n_tiles) * BN;
+    c.k0 = s0 * BK;
+    if (c.w >= n_items) return;
+    const int rep = __ldg(reps + c.z);
+    c.src = wf_all + (size_t)rep * wstride + (size_t)(c.k0 + wr) * g.ld +
+            c.nb + wc;
+    c.xsrc = x_bytes +
+             (((size_t)c.z * g.M + xsm) * g.I + c.k0 + xsc) * xes;
+    if constexpr (NOISE) {
+      c.tag = (uint32_t)__ldg(tags + c.z);
+      c.nz = __fmul_rn(e.nsig, __ldg(scale_all + rep));
     }
   };
-  if (col_ok) load(k0 + sl, wv);
-  for (int i = col_ok ? k0 + sl : k1; i < k1; i += U * KS) {
-    float4 nw[U][2];
-    load(i + U * KS, nw);
+  const size_t slab_ld = (size_t)BK * g.ld;
+  auto step = [&](Cursor& c) {
+    ++c.q;
+    c.k0 += BK;
+    c.src += slab_ld;
+    c.xsrc += BK * xes;
+    if (++c.s == ns) {
+      c.s = 0;
+      c.w += nc;
+      locate(c);
+    }
+  };
+  Cursor cs = {0, 0, c0, 0, 0, 0, wf_all, x_bytes, 0u, 0.0f};
+  locate(cs);                              // the next slab staged
+  Cursor cp = cs, cm = cs;                 // the next prepared, multiplied
+  auto stage_of = [&](int q) { return ring + (q % BT_STAGES) * ST; };
+
+  // The slab at ``cs`` into its ring slot: Wg rows past I and columns past
+  // ld as zeros (stored, visible after the barrier that precedes their
+  // use), x's M rows; one commit group, empty past the last slab.
+  const size_t ld8 = (size_t)8 * g.ld;
+  auto stage = [&]() {
+    if (cs.q < Q) {
+      float* ws = stage_of(cs.q);
+      const int rows = cs.nb + wc < g.ld ? g.I - cs.k0 - wr : 0;
+      const float* src = cs.src;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int ii = i + u * KS;
-      const bool ok = ii < k1;
-      float4 a = wv[u][0], b = wv[u][1];
-      if constexpr (NOISE) {
+      for (int it = 0; it < BK * BN / 4 / THREADS; ++it) {
+        float* dst = ws + (wr + 8 * it) * WLD + wc;
+        if (8 * it < rows)
+          tf32::cp_async16(dst, src, 16);
+        else
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+        src += ld8;
+      }
+      char* xst = reinterpret_cast<char*>(ws + BT_SMEM_W);
+      if (xs_on) {
+        const bool ok = cs.k0 + xsc < g.I;
+        tf32::cp_async16(xst + xsm * XLD * 4 + xsc * xes,
+                         ok ? cs.xsrc : x_bytes, ok ? 16 : 0);
+      } else if (!xvec) {
+        const char* xg = x_bytes + (size_t)cs.z * g.M * g.I * xes;
+        for (int qq = tid; qq < g.M * BK; qq += THREADS) {
+          const int m = qq / BK, c = qq % BK;
+          const bool ok = cs.k0 + c < g.I;
+          const size_t at = (size_t)m * g.I + cs.k0 + c;
+          if constexpr (XBF) {    // rows of odd length: plain loads
+            reinterpret_cast<__nv_bfloat16*>(xst + m * XLD * 4)[c] =
+                ok ? reinterpret_cast<const __nv_bfloat16*>(xg)[at]
+                   : __float2bfloat16_rn(0.0f);
+          } else {
+            tf32::cp_async4(xst + (m * XLD + c) * 4, ok ? xg + at * 4 : xg,
+                            ok ? 4 : 0);
+          }
+        }
+      }
+    }
+    tf32::cp_async_commit();
+    step(cs);
+  };
+
+  // The slab at ``cp``, landed: its x split into TF32 hi / lo parts of
+  // buffer q & 1 (two values a thread; rows past M zero; bf16 x: hi
+  // only, exact) and (NOISE) its member's noise added to its Wg in place.
+  const int xm = tid / (BK / 2), xc = 2 * (tid % (BK / 2));
+  auto prepare = [&]() {
+    float* ws = stage_of(cp.q);
+    float* xh = xsp + (cp.q & 1) * 2 * BT_SMEM_X;
+    const char* xst =
+        reinterpret_cast<const char*>(ws + BT_SMEM_W) + xm * XLD * 4;
+    float2 v = make_float2(0.f, 0.f);
+    if (xm < g.M) {
+      if constexpr (XBF) {
+        const uint32_t raw = *reinterpret_cast<const uint32_t*>(xst + xc * 2);
+        v = make_float2(__uint_as_float(raw << 16),
+                        __uint_as_float(raw & 0xFFFF0000u));
+      } else {
+        v = *reinterpret_cast<const float2*>(xst + xc * 4);
+      }
+    }
+    uint2 hi, lo;
+    tf32::split(v.x, hi.x, lo.x);
+    tf32::split(v.y, hi.y, lo.y);
+    *reinterpret_cast<uint2*>(xh + xm * XLD + xc) = hi;
+    if constexpr (!XBF)
+      *reinterpret_cast<uint2*>(xh + BT_SMEM_X + xm * XLD + xc) = lo;
+    if constexpr (NOISE) {
+      // Rows past I draw too (no branch between the draws): their Wg and
+      // x are zero.
+#pragma unroll
+      for (int it = 0; it < BK * BN / 4 / THREADS; ++it) {
         float zz[4];
-        philox_normal4_tag(e, tag, (uint32_t)ii, (uint32_t)n0 >> 2, zz);
-        a = add_noise(a, nz, zz);
-        philox_normal4_tag(e, tag, (uint32_t)ii, ((uint32_t)n0 >> 2) + 1,
-                           zz);
-        b = add_noise(b, nz, zz);
-        if (!ok) a = b = make_float4(0.f, 0.f, 0.f, 0.f);
+        philox_normal4_tag(e, cp.tag, (uint32_t)(cp.k0 + wr + 8 * it),
+                           (uint32_t)(cp.nb + wc) >> 2, zz);
+        float4* p = reinterpret_cast<float4*>(ws + (wr + 8 * it) * WLD + wc);
+        *p = add_noise(*p, cp.nz, zz);
       }
-      const float w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-      const float* xr = xs + (ok ? ii - k0 : 0) * MT;
+    }
+    step(cp);
+  };
+
+  // The slab at ``cm``'s products added to d: 4 k steps of 8, each an A
+  // fragment of x by ldmatrix and the warp's two B fragments of Wg; the
+  // even and odd k steps in two accumulators (two shorter chains of
+  // dependent mma), added at the end.
+  const int a_off = (lane % 8 + 8 * (lane / 8 % 2)) * XLD + 4 * (lane / 16);
+  const int b_off = tq * WLD + 16 * warp + gq;
+  auto product = [&](float (&d)[2][4]) {
+    float d2[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    const float* ws = stage_of(cm.q) + b_off;
+    const float* xh = xsp + (cm.q & 1) * 2 * BT_SMEM_X + a_off;
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float xv = xr[m];
+    for (int k8 = 0; k8 < BK / 8; ++k8) {
+      uint32_t ah[4], al[4];
+      ldsm_x4(ah, xh + 8 * k8);
+      if constexpr (!XBF) ldsm_x4(al, xh + BT_SMEM_X + 8 * k8);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
+      for (int j = 0; j < 2; ++j) {
+        const float* wp = ws + 8 * k8 * WLD + 8 * j;
+        uint32_t bh[2], bl[2];
+        split_b(wp[0], bh[0], bl[0]);
+        split_b(wp[4 * WLD], bh[1], bl[1]);
+        float (&dd)[4] = k8 & 1 ? d2[j] : d[j];
+        tf32::mma(dd, ah, bl);
+        if constexpr (!XBF) tf32::mma(dd, al, bh);
+        tf32::mma(dd, ah, bh);
       }
     }
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      wv[u][0] = nw[u][0];
-      wv[u][1] = nw[u][1];
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) d[j][u] = __fadd_rn(d[j][u], d2[j][u]);
+  };
+
+  // The item at ``cm``'s sums: stored (a cluster of 1), or merged over
+  // the cluster's ranks in order, rank r adding the elements r * 256 +
+  // tid (mod gy * 256) of the 16 x BN tile.  acc[j][u] is row gq + 8 (u /
+  // 2), column 16 warp + 8 j + 2 tq + u % 2 of the tile.
+  auto finish = [&](const float (&acc)[2][4]) {
+    float* out = out_all + (size_t)cm.z * g.M * g.N;
+    if (S == 1) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int m = gq + 8 * (u / 2);
+          const int n = cm.nb + 16 * warp + 8 * j + 2 * tq + u % 2;
+          if (m < g.M && n < g.N) out[(size_t)m * g.N + n] = acc[j][u];
+        }
+      return;
     }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        part[(gq + 8 * (u / 2)) * BN + 16 * warp + 8 * j + 2 * tq + u % 2] =
+            acc[j][u];
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    for (int q = rank * THREADS + tid; q < 16 * BN; q += S * THREADS) {
+      const int m = q / BN, n = cm.nb + q % BN;
+      if (m >= g.M || n >= g.N) continue;
+      float v = *cluster.map_shared_rank(part + q, 0);
+      for (int r = 1; r < S; ++r) v += *cluster.map_shared_rank(part + q, r);
+      out[(size_t)m * g.N + n] = v;
+    }
+    cluster.sync();   // no block reuses its part while another reads it
+  };
+
+  for (int q = 0; q < BT_STAGES - 1; ++q) stage();
+  tf32::cp_async_wait<BT_STAGES - 2>();
+  __syncthreads();                        // slab 0 has landed
+  if (Q > 0) prepare();
+  tf32::cp_async_wait<BT_STAGES - 3>();   // slab 1 has landed
+  __syncthreads();
+
+  float acc[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[j][u] = 0.0f;
+  for (int q = 0; q < Q; ++q) {
+    stage();                              // into slab q - 1's slot
+    float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    product(d);
+    // No branch between the products and the next slab's noise, so the
+    // two interleave: past the last slab, prepare works on a free ring
+    // slot and x buffer that no product reads.
+    prepare();
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[j][u] = __fadd_rn(acc[j][u], d[j][u]);
+    if (cm.s == ns - 1) {
+      finish(acc);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[j][u] = 0.0f;
+    }
+    step(cm);
+    tf32::cp_async_wait<BT_STAGES - 3>();   // slab q + 2 has landed
+    __syncthreads();
   }
-  decode_reduce<MT>(acc, xs, part, out, g, W, KS, sl, gi_col);
+  tf32::cp_async_wait<0>();
 }
 
 // --------------------------------------------------------------- prefill
@@ -1372,10 +1633,12 @@ cim_prefill_folded_kernel(const void* __restrict__ x,
   cluster.sync();   // no block leaves while another reads its part
 }
 
-// Set a kernel's dynamic shared-memory limit once, then launch it with
-// (g.gx, g.gy, g.gz) blocks of THREADS.
+// Set a kernel's dynamic shared-memory limit once, then launch ``grid``
+// blocks of THREADS in clusters of ``cluster`` blocks (a plain launch for
+// a cluster of 1: the kernel's own __cluster_dims__, if any).
 template <auto Kernel, typename... Args>
-cudaError_t launch(const Geom& g, cudaStream_t stream, Args... args) {
+cudaError_t launch_grid(dim3 grid, dim3 cluster, int smem,
+                        cudaStream_t stream, Args... args) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1383,108 +1646,117 @@ cudaError_t launch(const Geom& g, cudaStream_t stream, Args... args) {
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  Kernel<<<dim3(g.gx, g.gy, g.gz), THREADS, g.smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
-// The same as a cluster launch of (1, 1, g.gz) blocks (gz > 1).
-template <auto Kernel, typename... Args>
-cudaError_t launch_split(const Geom& g, cudaStream_t stream, Args... args) {
-  if (g.gz == 1) return launch<Kernel>(g, stream, args...);
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
+  if (cluster.x * cluster.y * cluster.z == 1) {
+    Kernel<<<grid, THREADS, smem, stream>>>(args...);
+    return cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(g.gx, g.gy, g.gz);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = g.smem;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = g.gz;
+  attr[0].val.clusterDim.x = cluster.x;
+  attr[0].val.clusterDim.y = cluster.y;
+  attr[0].val.clusterDim.z = cluster.z;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(&cfg, Kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// (g.gx, g.gy, g.gz) blocks.
+template <auto Kernel, typename... Args>
+cudaError_t launch(const Geom& g, cudaStream_t stream, Args... args) {
+  return launch_grid<Kernel>(dim3(g.gx, g.gy, g.gz), dim3(1, 1, 1), g.smem,
+                             stream, args...);
+}
+
+// The same in clusters of (1, 1, g.gz) blocks.
+template <auto Kernel, typename... Args>
+cudaError_t launch_split(const Geom& g, cudaStream_t stream, Args... args) {
+  return launch_grid<Kernel>(dim3(g.gx, g.gy, g.gz), dim3(1, 1, g.gz),
+                             g.smem, stream, args...);
+}
+
 // The runtime's occupancy calculator for Kernel at g's shared memory:
-// out[0] resident blocks a SM; out[1] for a cluster launch of ``cluster``
-// blocks (``fixed``: the kernel's own __cluster_dims__) the clusters the
-// card holds at once, else 0.
+// out[0] resident blocks a SM; out[1] for a launch of ``grid`` in
+// clusters of ``cluster`` blocks (``fixed``: the kernel's own
+// __cluster_dims__) the clusters the card holds at once, else 0.
 template <auto Kernel>
-cudaError_t occupancy(const Geom& g, int cluster, bool fixed, int* out) {
+cudaError_t occupancy(const Geom& g, dim3 grid, dim3 cluster, bool fixed,
+                      int* out) {
   cudaError_t err = cudaFuncSetAttribute(
       Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], Kernel,
                                                         THREADS, g.smem);
   out[1] = 0;
-  if (err != cudaSuccess || cluster <= 1) return err;
+  if (err != cudaSuccess || cluster.x * cluster.y * cluster.z <= 1)
+    return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(g.gx, g.gy, g.gz);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = g.smem;
   cudaLaunchAttribute attr[1];
   if (!fixed) {
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 1;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = cluster;
+    attr[0].val.clusterDim.x = cluster.x;
+    attr[0].val.clusterDim.y = cluster.y;
+    attr[0].val.clusterDim.z = cluster.z;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
   }
   return cudaOccupancyMaxActiveClusters(&out[1], Kernel, &cfg);
 }
 
-// The batched form's occupancy (B: NOISE).
-template <bool B>
-cudaError_t occupancy_batched(const Geom& g, int* out) {
-  switch (g.mt) {
-    case 1: return occupancy<cim_decode_batched_kernel<1, B>>(g, CLUSTER, true, out);
-    case 2: return occupancy<cim_decode_batched_kernel<2, B>>(g, CLUSTER, true, out);
-    case 4: return occupancy<cim_decode_batched_kernel<4, B>>(g, CLUSTER, true, out);
-    case 8: return occupancy<cim_decode_batched_kernel<8, B>>(g, CLUSTER, true, out);
-    case 16: return occupancy<cim_decode_batched_kernel<16, B>>(g, CLUSTER, true, out);
-    default: return cudaErrorInvalidValue;
-  }
+// Occupancy at g's own grid: unclustered, or in clusters of (1, 1, g.gz).
+template <auto Kernel>
+cudaError_t occupancy(const Geom& g, int split, int* out) {
+  return occupancy<Kernel>(g, dim3(g.gx, g.gy, g.gz), dim3(1, 1, split),
+                           false, out);
 }
 
-template <bool NOISE>
-cudaError_t launch_decode_batched(const Geom& g, const void* x, const float* wf,
-                                  long long wstride, const float* scale,
-                                  const int32_t* reps, const int32_t* tags,
-                                  float* out, const Noise& e, cudaStream_t s) {
-  switch (g.mt) {
-    case 1: return launch<cim_decode_batched_kernel<1, NOISE>>(g, s, x, wf, wstride, scale, reps, tags, out, g, e);
-    case 2: return launch<cim_decode_batched_kernel<2, NOISE>>(g, s, x, wf, wstride, scale, reps, tags, out, g, e);
-    case 4: return launch<cim_decode_batched_kernel<4, NOISE>>(g, s, x, wf, wstride, scale, reps, tags, out, g, e);
-    case 8: return launch<cim_decode_batched_kernel<8, NOISE>>(g, s, x, wf, wstride, scale, reps, tags, out, g, e);
-    case 16: return launch<cim_decode_batched_kernel<16, NOISE>>(g, s, x, wf, wstride, scale, reps, tags, out, g, e);
-    default: return cudaErrorInvalidValue;
-  }
+// The decode forms' fixed clusters of (1, CLUSTER, 1).
+template <auto Kernel>
+cudaError_t occupancy_fixed(const Geom& g, int* out) {
+  return occupancy<Kernel>(g, dim3(g.gx, g.gy, g.gz), dim3(1, CLUSTER, 1),
+                           true, out);
+}
+
+// The batched form: (gx, 1, 1) persistent blocks in clusters of (gy, 1,
+// 1); template instance (NOISE, x bf16).
+template <bool NOISE, bool XBF>
+cudaError_t launch_batched(const Geom& g, const void* x, const float* wf,
+                           long long wstride, const float* scale,
+                           const int32_t* reps, const int32_t* tags,
+                           float* out, const Noise& e, cudaStream_t s) {
+  return launch_grid<cim_decode_batched_kernel<NOISE, XBF>>(
+      dim3(g.gx), dim3(g.gy), g.smem, s, x, wf, wstride, scale, reps, tags,
+      out, g, e);
+}
+
+template <bool NOISE, bool XBF>
+cudaError_t occupancy_batched(const Geom& g, int* out) {
+  return occupancy<cim_decode_batched_kernel<NOISE, XBF>>(
+      g, dim3(g.gx), dim3(g.gy), false, out);
 }
 
 // The decode forms' occupancy: B is FAST (ideal) or NOISE (folded).
 template <bool B>
 cudaError_t occupancy_decode(const Geom& g, bool folded, int* out) {
   switch (g.mt) {
-    case 1: return folded ? occupancy<cim_decode_folded_kernel<1, B>>(g, CLUSTER, true, out)
-                          : occupancy<cim_decode_kernel<1, B>>(g, CLUSTER, true, out);
-    case 2: return folded ? occupancy<cim_decode_folded_kernel<2, B>>(g, CLUSTER, true, out)
-                          : occupancy<cim_decode_kernel<2, B>>(g, CLUSTER, true, out);
-    case 4: return folded ? occupancy<cim_decode_folded_kernel<4, B>>(g, CLUSTER, true, out)
-                          : occupancy<cim_decode_kernel<4, B>>(g, CLUSTER, true, out);
-    case 8: return folded ? occupancy<cim_decode_folded_kernel<8, B>>(g, CLUSTER, true, out)
-                          : occupancy<cim_decode_kernel<8, B>>(g, CLUSTER, true, out);
-    case 16: return folded ? occupancy<cim_decode_folded_kernel<16, B>>(g, CLUSTER, true, out)
-                           : occupancy<cim_decode_kernel<16, B>>(g, CLUSTER, true, out);
+    case 1: return folded ? occupancy_fixed<cim_decode_folded_kernel<1, B>>(g, out)
+                          : occupancy_fixed<cim_decode_kernel<1, B>>(g, out);
+    case 2: return folded ? occupancy_fixed<cim_decode_folded_kernel<2, B>>(g, out)
+                          : occupancy_fixed<cim_decode_kernel<2, B>>(g, out);
+    case 4: return folded ? occupancy_fixed<cim_decode_folded_kernel<4, B>>(g, out)
+                          : occupancy_fixed<cim_decode_kernel<4, B>>(g, out);
+    case 8: return folded ? occupancy_fixed<cim_decode_folded_kernel<8, B>>(g, out)
+                          : occupancy_fixed<cim_decode_kernel<8, B>>(g, out);
+    case 16: return folded ? occupancy_fixed<cim_decode_folded_kernel<16, B>>(g, out)
+                           : occupancy_fixed<cim_decode_kernel<16, B>>(g, out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1576,10 +1848,11 @@ extern "C" int cim_mvm_launch(const void* x, const int16_t* codes,
 }
 
 // The batched folded decode form (geom form 5, ops.py::batched_geometry):
-// member z of geom gz reads x slab z of (gz, M, I), repeat reps[z] of
-// ``wf`` (wstride floats a repeat, rows of geom ld floats) with scale
-// scale[reps[z]], draws (with geom noise) read noise at key (seed,
-// tags[z]) and amplitude nsig * scale, and writes y slab z of (gz, M, N).
+// member z of geom gz reads x slab z of (gz, M, I) (f32, or bf16 with geom
+// xbf16), repeat reps[z] of ``wf`` (wstride floats a repeat, rows of geom
+// ld floats) with scale scale[reps[z]], draws (with geom noise) read
+// noise at key (seed, tags[z]) and amplitude nsig * scale, and writes y
+// slab z of (gz, M, N).
 extern "C" int cim_mvm_batched_launch(const void* x, const float* wf,
                                       long long wstride, const float* scale,
                                       const int32_t* reps,
@@ -1594,14 +1867,19 @@ extern "C" int cim_mvm_batched_launch(const void* x, const float* wf,
     e.k1[r] = 0;
   }
   e.nsig = nsig;
-  if (g.form != FORM_DECODE_BATCHED || g.gy != CLUSTER || THREADS % g.tile ||
-      g.gz < 1 || g.gz > 65535 || !wf || !reps || (g.noise && !tags) ||
+  if (g.form != FORM_DECODE_BATCHED || g.tile != BT_BN || g.M < 1 ||
+      g.M > 16 || g.I < 1 || g.gy < 1 || g.gy > CLUSTER || g.gx < g.gy ||
+      g.gx % g.gy || g.gz < 1 || !wf || !reps || (g.noise && !tags) ||
       g.ld % 8 || wstride % 4 || (reinterpret_cast<uintptr_t>(wf) & 15))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream_ptr;
-  cudaError_t err = g.noise
-      ? launch_decode_batched<true>(g, x, wf, wstride, scale, reps, tags, out, e, s)
-      : launch_decode_batched<false>(g, x, wf, wstride, scale, reps, tags, out, e, s);
+  cudaError_t err;
+  if (g.noise)
+    err = g.xbf16 ? launch_batched<true, true>(g, x, wf, wstride, scale, reps, tags, out, e, s)
+                  : launch_batched<true, false>(g, x, wf, wstride, scale, reps, tags, out, e, s);
+  else
+    err = g.xbf16 ? launch_batched<false, true>(g, x, wf, wstride, scale, reps, tags, out, e, s)
+                  : launch_batched<false, false>(g, x, wf, wstride, scale, reps, tags, out, e, s);
   return (int)err;
 }
 
@@ -1644,28 +1922,30 @@ extern "C" int cim_occupancy(const int* geom, int* out) {
                    : occupancy_decode<false>(g, false, out);
       break;
     case FORM_PREFILL:
-      err = g.fast ? occupancy<cim_prefill_kernel<true>>(g, 1, false, out)
-                   : occupancy<cim_prefill_kernel<false>>(g, 1, false, out);
+      err = g.fast ? occupancy<cim_prefill_kernel<true>>(g, 1, out)
+                   : occupancy<cim_prefill_kernel<false>>(g, 1, out);
       break;
     case FORM_DECODE_FOLDED:
       err = g.noise ? occupancy_decode<true>(g, true, out)
                     : occupancy_decode<false>(g, true, out);
       break;
     case FORM_PREFILL_FOLDED:
-      err = g.noise ? occupancy<cim_prefill_folded_kernel<true>>(g, g.gz, false, out)
-                    : occupancy<cim_prefill_folded_kernel<false>>(g, g.gz, false, out);
+      err = g.noise ? occupancy<cim_prefill_folded_kernel<true>>(g, g.gz, out)
+                    : occupancy<cim_prefill_folded_kernel<false>>(g, g.gz, out);
       break;
     case FORM_DECODE_BATCHED:
-      err = g.noise ? occupancy_batched<true>(g, out)
-                    : occupancy_batched<false>(g, out);
+      err = g.noise ? (g.xbf16 ? occupancy_batched<true, true>(g, out)
+                               : occupancy_batched<true, false>(g, out))
+                    : (g.xbf16 ? occupancy_batched<false, true>(g, out)
+                               : occupancy_batched<false, false>(g, out));
       break;
     case FORM_FOLD:
       if (g.fast)
-        err = g.rows ? occupancy<cim_fold_kernel<true, true>>(g, 1, false, out)
-                     : occupancy<cim_fold_kernel<true, false>>(g, 1, false, out);
+        err = g.rows ? occupancy<cim_fold_kernel<true, true>>(g, 1, out)
+                     : occupancy<cim_fold_kernel<true, false>>(g, 1, out);
       else
-        err = g.rows ? occupancy<cim_fold_kernel<false, true>>(g, 1, false, out)
-                     : occupancy<cim_fold_kernel<false, false>>(g, 1, false, out);
+        err = g.rows ? occupancy<cim_fold_kernel<false, true>>(g, 1, out)
+                     : occupancy<cim_fold_kernel<false, false>>(g, 1, out);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -170,6 +170,12 @@ PREFILL_WLD = PREFILL_BN + 8       # a staged row of W' * gain (floats)
 FOLD_COLS = 256                    # the fold: columns a block
 FOLD_ROWS = (32, 8, 1)             # the fold: rows a block, widest first
 PREFILL_SPLITS = (8, 4, 2)         # folded prefill: splits of I, widest first
+# The batched folded decode form: work items of BATCHED_BN columns of a
+# member, slabs of BATCHED_BK rows in a ring of BATCHED_STAGES, built for
+# BATCHED_BLOCKS blocks a SM; x (16 rows) staged and split at rows of
+# BATCHED_XLD floats, Wg at BATCHED_WLD.
+BATCHED_BN, BATCHED_BK, BATCHED_STAGES, BATCHED_BLOCKS = 128, 32, 4, 2
+BATCHED_WLD, BATCHED_XLD = BATCHED_BN + 8, BATCHED_BK + 4
 SMEM_MAX = 227 * 1024
 # kernel.cu's Geom.form: the ideal forms, the folded forms, the fold, the
 # batched folded decode form.
@@ -215,17 +221,16 @@ def _span_tiles(length: int, stride: int, end: int, unit: int) -> int:
     return most
 
 
-def _decode_geometry(M, I, n_cols, wpt, n_bits, sm_count, fast, folded,
-                     members=1):
+def _decode_geometry(M, I, n_cols, wpt, n_bits, sm_count, fast, folded):
     """Decode-form fields over ``n_cols`` columns (n_pad, or the folded
     rows' ld), or None where its shared memory would not fit (a very long
-    I).  ``members``: the batched form's grid z."""
+    I)."""
     mt = 1 << (M - 1).bit_length()
     # The widest block (G column groups of 8) that still gives two
     # blocks a SM; else G = 8.
     for G in (32, 16, 8):
         gx = math.ceil(n_cols / (8 * G))
-        if gx * DECODE_CLUSTER * members >= 2 * sm_count:
+        if gx * DECODE_CLUSTER >= 2 * sm_count:
             break
     rps = math.ceil(I / DECODE_CLUSTER)
     # x slab [rps][mt], reused for the slices' sums [KS][RM][8G]; the
@@ -316,22 +321,31 @@ def batched_geometry(members: int, M: int, I: int, N: int, i_pad: int,
                      reversed_df: bool, sm_count: int, xbf16: bool = False,
                      noise: bool = False) -> runtime.Geometry:
     """The batched folded decode form's launch: ``members`` deployments of
-    one shape, x (members, M, I) with M <= DECODE_MAX_M; grid (gx, 8,
-    members), each member's blocks those of the folded decode form (the
-    block width chosen over all members' blocks)."""
+    one shape, x (members, M, I) with M <= DECODE_MAX_M.  Work items are
+    (member, BATCHED_BN columns), member-major; gx persistent blocks, in
+    clusters of gy, take every (gx / gy)-th item.  Where the items would
+    leave SMs idle, a cluster of gy blocks splits the n_slabs slabs of I
+    (rank r the slabs [n_slabs * r / gy, n_slabs * (r + 1) / gy)): the
+    widest split whose blocks fit BATCHED_BLOCKS a SM, each with a slab."""
     if not 1 <= M <= DECODE_MAX_M:
         raise ValueError(f"the batched cim_mvm form takes 1..{DECODE_MAX_M} "
                          f"rows a member, not {M}")
-    g = _decode_geometry(M, I, folded_ld(n_pad), wpt, n_bits, sm_count,
-                         False, True, members)
-    if g is None:
-        raise ValueError(f"the batched cim_mvm form: I = {I} does not fit "
-                         "in shared memory")
-    g.update(form=FORM_DECODE_BATCHED, gz=members, M=M, I=I, N=N,
-             n_pad=n_pad, n_tiles=n_pad // wpt, wpt=wpt, n_bits=n_bits,
-             cols=cols, reversed=int(reversed_df), xbf16=int(xbf16),
-             ld=folded_ld(n_pad), noise=int(noise), rows=0, n_ti=0, cp_ti=0,
-             cp_tn=0)
+    items = members * math.ceil(N / BATCHED_BN)
+    slots = BATCHED_BLOCKS * sm_count
+    split = next((s for s in PREFILL_SPLITS if items * s <= slots
+                  and math.ceil(I / BATCHED_BK) >= s), 1)
+    # The ring (Wg slab and x slab a stage), x's split hi / lo parts in
+    # two buffers, and a split's partial sums [16][BATCHED_BN].
+    ring = BATCHED_STAGES * (BATCHED_BK * BATCHED_WLD + 16 * BATCHED_XLD)
+    floats = ring + 4 * 16 * BATCHED_XLD + (
+        16 * BATCHED_BN if split > 1 else 0)
+    g = dict(form=FORM_DECODE_BATCHED, M=M, I=I, N=N, n_pad=n_pad,
+             n_tiles=n_pad // wpt, wpt=wpt, n_bits=n_bits, cols=cols,
+             reversed=int(reversed_df), fast=0, tile=BATCHED_BN, rps=0,
+             gx=min(items, slots // split) * split, gy=split, gz=members,
+             smem=4 * floats, off_t=0, off_p=0, mt=DECODE_MAX_M,
+             xbf16=int(xbf16), ld=folded_ld(n_pad), noise=int(noise),
+             rows=0, n_ti=0, cp_ti=0, cp_tn=0)
     return runtime.Geometry.of(_GEOM_FIELDS, g)
 
 

@@ -199,15 +199,20 @@ def _self_check(lib: ctypes.CDLL) -> None:
                     scale.data_ptr(), out.data_ptr(), geom.array, 0.0,
                     wf.data_ptr() if folded else None, 0, 0,
                     0.1 if noise else 0.0, stream)
-    wf2, reps, tags = z(2, 8, 8), z(2, dt=torch.int32), z(2, dt=torch.int32)
-    for noise in (False, True):        # the batched folded decode form
-        x, out = z(2, 1, 8), z(2, 1, 8)
-        geom = batched_geometry(2, 1, 8, 8, 8, 8, 8, 8, 64, False, 1,
-                                False, noise)
-        rc[f"cim_mvm_batched noise={noise}"] = lib.cim_mvm_batched_launch(
-            x.data_ptr(), wf2.data_ptr(), 64, scale.data_ptr(),
-            reps.data_ptr(), tags.data_ptr(), out.data_ptr(), geom.array, 0,
-            0.1 if noise else 0.0, stream)
+    # The batched folded decode form's four instances, bf16 x split over
+    # a cluster of 2 (two slabs of I on a card of 4 SMs).
+    wf2, reps, tags = z(2, 64, 8), z(2, dt=torch.int32), z(2, dt=torch.int32)
+    for noise in (False, True):
+        for bf16 in (False, True):
+            x = z(2, 1, 64, dt=torch.bfloat16 if bf16 else torch.float32)
+            out = z(2, 1, 8)
+            geom = batched_geometry(2, 1, 64, 8, 64, 8, 8, 8, 64, False,
+                                    4 if bf16 else 1, bf16, noise)
+            rc[f"cim_mvm_batched noise={noise} bf16={bf16}"] = \
+                lib.cim_mvm_batched_launch(
+                    x.data_ptr(), wf2.data_ptr(), 512, scale.data_ptr(),
+                    reps.data_ptr(), tags.data_ptr(), out.data_ptr(),
+                    geom.array, 0, 0.1 if noise else 0.0, stream)
     # Both forms in f32 and in bf16, and the bf16 decode split over a
     # cluster of 2.
     for Sq, bf16, split in ((1, False, None), (17, False, None),

@@ -687,26 +687,38 @@ def _stacked_nonideal(cuda, G, I, N, seed, noise):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", [1, 3, 32])
-@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("G,I,N", [(1, 320, 200), (3, 330, 200),
+                                   (32, 320, 200), (40, 330, 900)])
+@pytest.mark.parametrize("M", [1, 5, 16])
 @pytest.mark.parametrize("noise", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cim_mvm_batched_vs_plain_loop(cuda, G, M, noise, dtype):
+def test_cim_mvm_batched_vs_plain_loop(cuda, G, I, N, M, noise, dtype):
     """The batched folded decode form, one launch for the group, against
     its plain loop over the members: every member at the folded forms'
     normwise bound (1e-5 x max|y|); members read out of order (a
     reversed subset where G > 1), each with its own tag; two calls
-    bit-identical; one launch counted."""
+    bit-identical; one launch counted.  The groups of 1, 3 and 32 at
+    N = 200 leave SMs idle, so a cluster splits I (8, 8 and 4 ways); 39
+    members of 8 column tiles (N = 900) do not.  I = 330 is no multiple
+    of the 32-row slab, and its rows of x are not on 16 bytes (per-value
+    staging); N is ragged against the 128-column tile."""
     from repro_torch.kernels import runtime
-    from repro_torch.kernels.cim_mvm.ops import cim_mvm_batched
+    from repro_torch.kernels.cim_mvm.ops import (
+        _sm_count,
+        batched_geometry,
+        cim_mvm_batched,
+    )
     from repro_torch.kernels.cim_mvm.ref import cim_mvm_batched_plain
 
-    I, N = 320, 200
     st = _stacked_nonideal(cuda, G, I, N, 10 * G + M, noise)
     members = list(range(G))[::-1][:max(1, G - 1)]
     x = torch.randn((len(members), M, I), generator=torch.Generator(
         device=cuda).manual_seed(G + M), device=cuda).to(dtype)
     seed = 21 if noise else None
+    geom = batched_geometry(len(members), M, I, N, *st.codes.shape[1:],
+                            st.wpt, st.n_bits, st.cols, st.reversed_df,
+                            _sm_count(0), dtype == torch.bfloat16, noise)
+    assert (geom.gy > 1) == (N == 200)
     runtime.reset_launch_counts()
     y = cim_mvm_batched(x, st, seed, members, device=cuda)
     assert runtime.launch_counts()["cim_mvm_batched"] == 1
@@ -723,8 +735,10 @@ def test_cim_mvm_batched_vs_plain_loop(cuda, G, M, noise, dtype):
 
 @pytest.mark.cuda
 def test_cim_mvm_batched_occupancy_and_refusals(cuda):
-    """The batched form's occupancy at phi3's probe batch (M = 16, the
-    MT = 16 instance) and its refusals: M > 16, an unfolded stack."""
+    """The batched form's occupancy and its refusals: M > 16, an unfolded
+    stack.  A split of I runs in clusters; at phi3's largest probe group
+    (32 members of 3072x8192, M = 16) there is no split and the form fits
+    two blocks a SM, with and without noise, f32 and bf16 x."""
     from repro_torch.kernels.cim_mvm.ops import (
         _sm_count,
         batched_geometry,
@@ -736,9 +750,16 @@ def test_cim_mvm_batched_occupancy_and_refusals(cuda):
     geom = batched_geometry(3, 16, 320, 200, *st.codes.shape[1:], st.wpt,
                             st.n_bits, st.cols, st.reversed_df, _sm_count(0),
                             False, True)
-    assert geom.mt == 16 and geom.gz == 3
+    assert geom.mt == 16 and geom.gz == 3 and geom.gy == 8
     occ = occupancy(geom)
-    assert occ["blocks_per_sm"] >= 1 and occ["clusters"] >= 1
+    assert occ["blocks_per_sm"] >= 2 and occ["clusters"] >= 1
+    for noise in (False, True):
+        for bf16 in (False, True):
+            big = batched_geometry(32, 16, 3072, 8192, 3072, 8192, 8, 8, 64,
+                                   False, _sm_count(0), bf16, noise)
+            occ = occupancy(big)
+            assert big.gy == 1 and occ["clusters"] is None
+            assert occ["blocks_per_sm"] >= 2, (noise, bf16, occ)
     with pytest.raises(ValueError):
         cim_mvm_batched(torch.zeros((3, 17, 320), device=cuda), st,
                         device=cuda)

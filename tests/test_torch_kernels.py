@@ -431,6 +431,22 @@ def _cim_prefill_tiles(geom):
     return tiles, slabs
 
 
+def _cim_batched_work(geom):
+    """The batched folded decode form's work, from its persistent loops:
+    for each cluster c of gx / gy, its items w = c, c + gx / gy, ...
+    (member w // tiles, columns from (w % tiles) * tile), and for each
+    rank of the cluster, in rank order (the order of the merge), the
+    rows of I its slabs cover."""
+    bk, split = cim_ops.BATCHED_BK, geom.gy
+    tiles = -(-geom.N // geom.tile)
+    n_items, nc, n = geom.gz * tiles, geom.gx // split, -(-geom.I // bk)
+    ranks = [[i for kt in range(n * r // split, n * (r + 1) // split)
+              for i in range(kt * bk, min((kt + 1) * bk, geom.I))]
+             for r in range(split)]
+    return [[(w // tiles, (w % tiles) * geom.tile)
+             for w in range(c, n_items, nc)] for c in range(nc)], ranks
+
+
 def _flash_decode_parts(C):
     """The keys of each of the flash decode form's partial states, in the
     order the partials merge; key c goes to warp (c // 4) % 8, lane
@@ -458,6 +474,15 @@ def test_geometry_constants_mirror_the_kernels():
     assert _cu_constant(cim_cu, "PF_BK") == cim_ops.PREFILL_BK
     assert _cu_constant(cim_cu, "PF_STAGES") == cim_ops.PREFILL_STAGES
     assert _cu_constant(cim_cu, "FOLD_COLS") == cim_ops.FOLD_COLS
+    assert _cu_constant(cim_cu, "BT_BN") == cim_ops.BATCHED_BN
+    assert _cu_constant(cim_cu, "BT_BK") == cim_ops.BATCHED_BK
+    assert _cu_constant(cim_cu, "BT_STAGES") == cim_ops.BATCHED_STAGES
+    assert _cu_constant(cim_cu, "BT_BLOCKS") == cim_ops.BATCHED_BLOCKS
+    for name, base, value in (
+            ("BT_WLD", "BT_BN", cim_ops.BATCHED_WLD - cim_ops.BATCHED_BN),
+            ("BT_XLD", "BT_BK", cim_ops.BATCHED_XLD - cim_ops.BATCHED_BK)):
+        assert re.search(rf"constexpr int {name} = {base} \+ (\d+);",
+                         cim_cu.read_text()).group(1) == str(value)
     assert re.search(r"constexpr int PF_WLD = PF_BN \+ (\d+);",
                      cim_cu.read_text()).group(1) == str(
         cim_ops.PREFILL_WLD - cim_ops.PREFILL_BN)
@@ -610,6 +635,66 @@ def test_cim_geometry_dispatch_by_rows():
     big = cim_ops.cim_geometry(16, 1 << 17, 64, 1 << 17, 64, 8, 8, 64,
                                False, 132, True)
     assert big.form == 1
+
+
+@pytest.mark.parametrize("G", [1, 3, 32, 40])
+@pytest.mark.parametrize("M", [1, 5, 16])
+@pytest.mark.parametrize("I,N", [(320, 200), (330, 900), (3072, 8192),
+                                 (8192, 3072), (33, 7)])
+def test_cim_batched_geometry_covers_each_output_once(G, M, I, N):
+    """The batched folded decode form: its persistent clusters' items
+    cover every (member, output column) exactly once, each cluster's
+    ranks every row of I once in rank order, each rank with a slab; a
+    split of I (a cluster of gy blocks) exactly where the items alone
+    would leave blocks of BATCHED_BLOCKS a SM idle; the grid no wider
+    than the card holds at once; shared memory that fits BATCHED_BLOCKS
+    blocks a SM (228 KB an SM, 1 KB of it reserved a block)."""
+    sm = 132
+    n_pad = -(-N // 8) * 8
+    geom = cim_ops.batched_geometry(G, M, I, N, I, n_pad, 8, 8, 64, False,
+                                    sm, False, True)
+    assert geom.form == cim_ops.FORM_DECODE_BATCHED and geom.gz == G
+    assert geom.M == M and geom.ld == n_pad and geom.tile == \
+        cim_ops.BATCHED_BN
+    per_cluster, ranks = _cim_batched_work(geom)
+    hits = np.zeros((G, N), np.int32)
+    for items in per_cluster:
+        assert items
+        for z, nb in items:
+            hits[z, nb:min(nb + geom.tile, N)] += 1
+    assert (hits == 1).all()
+    assert all(ranks) and [i for r in ranks for i in r] == list(range(I))
+    items = G * -(-N // cim_ops.BATCHED_BN)
+    slots = cim_ops.BATCHED_BLOCKS * sm
+    assert geom.gx % geom.gy == 0 and geom.gx <= slots
+    assert geom.gy in (1, 2, 4, 8)
+    if geom.gy > 1:
+        assert items * geom.gy <= slots
+    assert geom.gy == 8 or items * 2 * geom.gy > slots \
+        or -(-I // cim_ops.BATCHED_BK) < 2 * geom.gy
+    assert geom.smem <= cim_ops.SMEM_MAX
+    assert cim_ops.BATCHED_BLOCKS * (geom.smem + 1024) <= 228 * 1024
+    bf = cim_ops.batched_geometry(G, M, I, N, I, n_pad, 8, 8, 64, False, sm,
+                                  True, False)
+    assert bf.xbf16 == 1 and bf.noise == 0
+    assert (bf.gx, bf.gy, bf.smem) == (geom.gx, geom.gy, geom.smem)
+
+
+def test_cim_batched_geometry_split_by_shape():
+    """A split of I only where members x column tiles leave SMs idle:
+    phi3's probe groups (32 members, 3072 and 8192 wide) run unsplit,
+    one or three small members split 8 ways, 32 small members 4 ways; a
+    group of 17 rows a member is refused."""
+    g = lambda G, I, N: cim_ops.batched_geometry(
+        G, 16, I, N, I, -(-N // 8) * 8, 8, 8, 64, False, 132)
+    assert [g(32, I, N).gy for I, N in ((3072, 3072), (3072, 8192),
+                                        (8192, 3072))] == [1, 1, 1]
+    assert [g(G, 320, 200).gy for G in (1, 3, 32, 40)] == [8, 8, 4, 2]
+    assert g(40, 330, 900).gy == 1 and g(1, 40, 200).gy == 2
+    assert g(32, 3072, 8192).gx == 2 * 132
+    with pytest.raises(ValueError):
+        cim_ops.batched_geometry(3, 17, 320, 200, 320, 200, 8, 8, 64, False,
+                                 132)
 
 
 @pytest.mark.parametrize("C", [1, 31, 32, 100, 160, 1000])
