@@ -9,7 +9,7 @@ of the paths below: the five counterparts of the TPU kernels, cim_mvm's
 folded forms (gain, column permutation, in-kernel read noise, bf16 x)
 and the bf16 forms of flash_attention (its decode form also over a
 LONG_C-slot cache, split across a cluster) and slstm_scan included, and
-the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives six paths
+the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives seven paths
 through the entry points a user calls, each with the launch counts set
 to 0 just before it and read just after (a check's own launches inside
 a path left out):
@@ -36,14 +36,21 @@ a path left out):
    manhattan_score);
 5. phi3-health: the same model and devices without line opens, plus
    relaxation (``HEALTH``), aging and healing through
-   ``ServeEngine(health=...)`` and then ``ContinuousEngine(health=...)``
-   with the same seed: the reference's escalation arc (warm-up probe
+   ``ServeEngine(health=...)``, then at ``CROSS_LAYERS`` layers through
+   ``ServeEngine`` and ``ContinuousEngine(health=...)`` with the same
+   seed: the reference's escalation arc (warm-up probe
    rounds, then advances of the drift clock that trip recalibration,
    reprogramming and demotion), with batches served between rounds,
    and a heal swap under load at full depth (cim_mvm's batched
    folded decode form for the probes, cim_fold at every refresh,
    cim_mvm's folded forms, flash_attention in bf16, manhattan_score);
-6. xlstm-1.3b serving at its config dtype (bf16): random full-width
+6. phi3-circuit: the circuit solver (the repo's SPICE replacement) on
+   the crossbar-placed masks of path 1's layer-0 ffn_w_gate (49,152
+   tiles of 64x64) under the baseline and MDM placements, through the
+   checked batched PCG in mixed and f64 precision; then 512-tile
+   throughput, calibrate_eta and a Monte-Carlo NF ensemble (line_solve,
+   the line preconditioner's chain solve; manhattan_score);
+7. xlstm-1.3b serving at its config dtype (bf16): random full-width
    weights (seed 0, all 48 layers), deploy (the reference deploys the
    mLSTM q/k/v) and greedy generation (slstm_scan in bf16,
    manhattan_score).
@@ -70,7 +77,11 @@ every refreshed fold bit-identical to its plain version, every batched
 probe read within the cim_mvm tolerance of its plain loop (with and
 without read noise), each recalibrated matrix a lower probe error, and
 after demotion no cim_mvm launch for a demoted matrix; a heal under
-load must leave the sequences in flight their tokens.
+load must leave the sequences in flight their tokens.  The circuit path
+must hold line_solve to its plain version, leave no tile unconverged,
+keep mixed within 1e-6 of f64 and 64 tiles within 1e-7 of the CPU's
+f64 solve, 4 small tiles within 1e-7 of the dense oracle, and
+calibrate_eta's two policies within 1e-8.
 Plan caches live in a temporary directory removed at the end.
 
 Every phase prints its result; any failure raises and exits non-zero.
@@ -162,7 +173,8 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                                   "manhattan_score"),
                 "phi3-health": ("cim_mvm", "cim_fold", "cim_mvm_batched",
                                 "flash_attention", "manhattan_score"),
-                "xlstm": ("slstm_scan", "manhattan_score")}
+                "xlstm": ("slstm_scan", "manhattan_score"),
+                "phi3-circuit": ("line_solve", "manhattan_score")}
 # The paths each kernel record's form runs on (its launches are its
 # kernel's launches there).
 RECORD_PATHS = {
@@ -175,6 +187,7 @@ RECORD_PATHS = {
     "cim_fold": ("phi3-nonideal", "phi3-health"),
     "cim_mvm_batched": ("phi3-health",),
     "slstm_scan[bf16]": ("xlstm",),
+    "line_solve": ("phi3-circuit",),
 }
 # Substrings of the port's CUDA kernel names, as the profiler shows them.
 PORT_KERNEL_NAMES = ("cim_decode", "cim_prefill", "cim_fold",
@@ -1968,6 +1981,10 @@ HEALTH_DETECTOR = dict(warmup=3, z_trip=6.0, z_clear=2.0)
 # round alone, "serve" a batch served (B prompts, NEW tokens) between
 # rounds.
 HEALTH_ARC = (0, 0, 0, 0, 1e4, "serve", 1e8, 1e4, 1e8, "serve")
+# Depth of the cross-engine check (ServeEngine and ContinuousEngine with
+# one seed, the arc on each): the run's time limit.  The ServeEngine arc
+# and the heal swap under load run at full depth.
+CROSS_LAYERS = 8
 
 
 # Launches made by a check inside a path (a kernel against its plain
@@ -2208,15 +2225,17 @@ def _health_arc(eng, serve, check=None) -> dict:
 def phase_health(cfg, built: dict, records: list) -> dict:
     """Full-width phi3-mini (bf16) ageing and healing on imperfect
     devices (``HEALTH``, ``spare_line``) through ``ServeEngine(health=)``
-    and ``ContinuousEngine(health=)`` with the same seed: the reference's
-    escalation arc on each, the two event histories identical and each
-    round's probe errors equal; on each, every refreshed fold bit for bit
+    at full depth, then at ``CROSS_LAYERS`` layers through
+    ``ServeEngine(health=)`` and ``ContinuousEngine(health=)`` with the
+    same seed: the reference's escalation arc on each, the two
+    same-depth event histories identical and each round's probe errors
+    equal; on each, every refreshed fold bit for bit
     against its plain version, the batched probe reads against their
     plain loop with and without read noise, recalibration lowering each
     tripped matrix's probe error, and after demotion cim_mvm launched
     for the live matrices only.  Then one heal swap under load at full
-    depth.  Returns the launch counts of the path (both full-width arcs
-    and the run under load), less the checks'."""
+    depth.  Returns the launch counts of the path (the three arcs and
+    the run under load), less the checks'."""
     from repro_torch.health import DetectorConfig, HealthConfig, probe_error
     from repro_torch.kernels import runtime
     from repro_torch.models.model import init_params
@@ -2317,10 +2336,19 @@ def phase_health(cfg, built: dict, records: list) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # The second engine, same seed: ContinuousEngine, its swaps landing
-    # between batches (no sequence in flight holds the old bank).
-    cont = ContinuousEngine(cfg, params, capacity=2 * B, max_seq=MAX_SEQ,
-                            max_prompt=PROMPT, **kw)
+    # The cross-engine check at CROSS_LAYERS layers: ServeEngine, then
+    # ContinuousEngine (its swaps landing between batches: no sequence in
+    # flight holds the old bank) with the same seed.
+    cfg_x = cfg.replace(n_layers=CROSS_LAYERS)
+    params_x = {k: {n: t[:CROSS_LAYERS] for n, t in v.items()}
+                if k.startswith("slot") else v for k, v in params.items()}
+    print(f"phase phi3-health (ServeEngine, {CROSS_LAYERS} layers, same "
+          f"seed)")
+    eng = ServeEngine(cfg_x, params_x, max_seq=MAX_SEQ, **kw)
+    serve_arc = _health_arc(eng, serve, check)
+    del eng
+    cont = ContinuousEngine(cfg_x, params_x, capacity=2 * B,
+                            max_seq=MAX_SEQ, max_prompt=PROMPT, **kw)
 
     def serve_cont(e):
         torch.cuda.synchronize()
@@ -2335,7 +2363,8 @@ def phase_health(cfg, built: dict, records: list) -> dict:
         return dict(tokens=[e.results[r] for r in rids],
                     tokens_per_s=B * NEW / dt)
 
-    print("phase phi3-health (ContinuousEngine, same seed)")
+    print(f"phase phi3-health (ContinuousEngine, {CROSS_LAYERS} layers, "
+          f"same seed)")
     cont_arc = _health_arc(cont, serve_cont, check)
     if cont_arc["history"] != serve_arc["history"]:
         raise AssertionError("two same-seed engines gave different event "
@@ -2344,7 +2373,7 @@ def phase_health(cfg, built: dict, records: list) -> dict:
     print(f"  event histories identical across the two engines "
           f"({len(serve_arc['history'])} events: "
           f"{ {k: sum(1 for h in serve_arc['history'] if h[2] == k) for k in ('trip', 'recalibrate', 'reprogram', 'demote', 'clear')} })")
-    del cont
+    del cont, params_x
     gc.collect()
     torch.cuda.empty_cache()
     _health_under_load(cfg, params, kw)
@@ -2423,6 +2452,289 @@ def _health_under_load(cfg, params, kw) -> None:
           "engine without the swap")
 
 
+# ---------------------------------------------------------------- circuit
+
+# Published f64 peak of one H100 SXM outside the tensor cores (NVIDIA
+# data sheet); the line-solve kernel's arithmetic runs there.
+PEAK_F64 = 34e12
+# Operations a node of the line solve takes: its diagonal (2), the
+# pivot (2), one reciprocal, c (1), y (3) and the back sweep (2).
+LINE_OPS = 11
+LINE_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# The phi3-circuit path's Monte-Carlo devices: phi3-nonideal's without
+# line opens.
+CIRCUIT_MC = {k: v for k, v in NONIDEAL.items() if not k.startswith("p_open")}
+MIXED_TOL = 1e-6     # mixed vs f64 currents (tests/test_solver_shard.py:77)
+
+
+def _line_bound(T: int, J: int, K: int, dtype) -> tuple[float, str]:
+    """r (two planes) and g read once, z (two planes) written once; the
+    operations at the f64 (or f32) rate outside the tensor cores."""
+    n = T * J * K
+    f64 = dtype == torch.float64
+    return bound(5 * n * (8 if f64 else 4), 2 * n * LINE_OPS,
+                 PEAK_F64 if f64 else PEAK_F32)
+
+
+def _check_line_solve(g64: torch.Tensor, built: dict, card: str) -> dict:
+    """line_solve against its plain version at the population's shape
+    (g64: the MDM-placed ffn_w_gate tiles, 49,152 of 64x64) and, at the
+    same number of nodes, 32x32 and the paper's 128x10 tiles of random
+    masks, in f64 and f32: max|dz| <= LINE_TOL * max|z|; device ms beside
+    the byte bound and the plain version; registers (this run's
+    -Xptxas -v), shared memory, threads and blocks a SM."""
+    from repro_torch.kernels.line_solve import line_solve
+    from repro_torch.kernels.line_solve.ops import occupancy
+    from repro_torch.kernels.line_solve.ref import line_solve_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    nodes = g64.numel()
+    forms, worst = {}, 0.0
+    for J, K in ((64, 64), (32, 32), (128, 10)):
+        T = nodes // (J * K)
+        if (J, K) == (64, 64):
+            g = g64
+        else:
+            on = torch.rand((T, J, K), generator=gen, device="cuda") < 0.2
+            g = torch.where(on, 1 / 300e3, 1 / 3e6).to(torch.float64)
+        r = torch.randn((T, 2, J, K), generator=gen, device="cuda",
+                        dtype=torch.float64)
+        for dtype in (torch.float64, torch.float32):
+            gd, rd = g.to(dtype), r.to(dtype)
+            with _Uncounted():
+                z = line_solve(gd, rd, 0.4)
+                want = line_solve_plain(gd, rd, 0.4)
+                err = (z - want).abs().max().item()
+                scale = want.abs().max().item()
+                ms = device_ms(lambda: line_solve(gd, rd, 0.4), iters=10)
+                plain_ms = cuda_ms(lambda: line_solve_plain(gd, rd, 0.4),
+                                   iters=2)
+            del z, want
+            b_ms, b_by = _line_bound(T, J, K, dtype)
+            dt = "f64" if dtype == torch.float64 else "f32"
+            kname = ("line_solve_kernel<d>" if dtype == torch.float64
+                     else "line_solve_kernel<f>")
+            occ = occupancy(J, K, dtype)
+            ok = err <= LINE_TOL[dtype] * scale
+            name = f"{J}x{K} {dt}"
+            forms[name] = dict(T=T, max_abs_err=err, max_abs=scale, ms=ms,
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, registers=built.get(
+                                   kname, {}).get("regs"), **occ)
+            print(f"line_solve {name} T={T}: max|dz| {err:.3e} (limit "
+                  f"{LINE_TOL[dtype] * scale:.3e}) {'ok' if ok else 'FAIL'}; "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}; {100 * b_ms / ms:.1f}% of it); "
+                  f"{forms[name]['registers']} registers, "
+                  f"{occ['smem_bytes']} B shared, {occ['threads']} threads, "
+                  f"{occ['blocks_per_sm']} blocks a SM [{card}]")
+            if not ok:
+                raise AssertionError(f"line_solve disagrees at {name}")
+            if (J, K) == (64, 64) and dtype == torch.float64:
+                worst = err
+        del g, r
+    main = forms["64x64 f64"]
+    return dict(name="line_solve", route="cuda",
+                source="src/repro_torch/kernels/line_solve/kernel.cu",
+                replaces="src/repro/crossbar/batched.py:312 (not a TPU "
+                         "kernel: jax.lax.linalg.tridiagonal_solve)",
+                max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=None, forms=forms)
+
+
+def _solve_population(masks, spec, precision: str, card: str, what: str):
+    """One checked batched solve of the whole population, timed, with
+    its iterations, line-solve launches and peak memory."""
+    from repro_torch.crossbar import measured_nf_batched_checked
+    from repro_torch.kernels import runtime
+
+    T, J, K = masks.shape
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = runtime.launch_counts()["line_solve"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, rep = measured_nf_batched_checked(masks, spec, precision=precision,
+                                           device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = runtime.launch_counts()["line_solve"] - n0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # An iteration reads g and the (T, 2, J, K) state x, r, p once and
+    # writes x, r, p once: 13 words a node.
+    word = 8 if precision == "f64" else 4
+    it_ms, _ = bound(13 * T * J * K * word, 0.0)
+    print(f"  solve {what} {precision}: {dt:.3f} s, {T / dt:,.0f} tiles/s, "
+          f"{rep.iterations} PCG iterations, {n} line_solve launches, "
+          f"{rep.escalations} escalations, n_failed {rep.n_failed}; peak "
+          f"{peak:.1f} GiB; byte bound {it_ms:.3f} ms an iteration "
+          f"({1e3 * dt / max(rep.iterations, 1):.2f} ms measured) [{card}]")
+    if rep.n_failed:
+        raise AssertionError(f"{rep.n_failed} tiles unconverged ({what}, "
+                             f"{precision})")
+    return res, dict(seconds=dt, tiles_per_s=T / dt,
+                     iterations=rep.iterations, launches=n, peak_gib=peak)
+
+
+def phase_circuit(w: torch.Tensor, built: dict, card: str):
+    """phi3-circuit: the circuit solver on the placed masks of one
+    full-width phi3 projection (layer 0's ffn_w_gate, 3072x8192, the f32
+    path's seed-0 weights: 49,152 tiles of 64x64) under the baseline and
+    the MDM placements, through the checked batched solver (MIXED, and
+    F64 under MDM); the line-solve kernel against its plain version
+    first; then throughput at benchmarks/solver_throughput.py's shapes,
+    calibrate_eta and a Monte-Carlo ensemble.  Returns (the kernel's
+    record, the path's launch counts)."""
+    from repro_torch.core.bitslice import bitslice
+    from repro_torch.core.manhattan import nonideality_factor
+    from repro_torch.core.mdm import placed_masks, plan_layer
+    from repro_torch.core.noise import PAPER_ETA, calibrate_eta
+    from repro_torch.core.tiling import CrossbarSpec
+    from repro_torch.crossbar import (
+        column_currents_dense,
+        conductances,
+        measured_nf_batched,
+        measured_nf_sequential,
+    )
+    from repro_torch.kernels import runtime
+    from repro_torch.nonideal import NonidealModel, mc_nf, summarize
+
+    spec = CrossbarSpec(64, 64, 8)
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    bits = bitslice(w, spec.n_bits).bits
+    masks = {}
+    for placement in ("baseline", "mdm"):
+        plan = plan_layer(w, spec, placement)
+        masks[placement] = placed_masks(bits, plan, spec).reshape(
+            -1, spec.rows, spec.cols).contiguous()
+    del bits
+    torch.cuda.synchronize()
+    T = masks["mdm"].shape[0]
+    print(f"phase phi3-circuit: layer 0 ffn_w_gate {tuple(w.shape)} -> "
+          f"{T} tiles of 64x64, placed masks (baseline, mdm) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rec = _check_line_solve(conductances(masks["mdm"], spec), built, card)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    # At tests/test_solver.py's density (its rand_mask, p = 0.2).
+    small = torch.rand((4, 16, 16), generator=gen, device="cuda") < 0.2
+    spec16 = CrossbarSpec(16, 16, 8)
+    res = measured_nf_batched(small, spec16, device="cuda")
+    err = max(float(abs(res.currents[i].cpu().numpy() / column_currents_dense(
+        small[i].cpu().numpy(), [spec16.v_read] * 16, spec16) - 1).max())
+        for i in range(4))
+    print(f"  4 tiles of 16x16 against the dense numpy oracle: max rel "
+          f"{err:.3e} (limit 1e-7) {'ok' if err <= 1e-7 else 'FAIL'}")
+    if err > 1e-7:
+        raise AssertionError("the card's solve disagrees with the oracle")
+
+    solves, nf = {}, {}
+    for placement, precision in (("baseline", "mixed"), ("mdm", "mixed"),
+                                 ("mdm", "f64")):
+        r, solves[f"{placement} {precision}"] = _solve_population(
+            masks[placement], spec, precision, card, placement)
+        if precision == "mixed":
+            nf[placement] = r.nf_total
+        if placement == "mdm":
+            if precision == "mixed":
+                mixed = r.currents
+            else:
+                rel = ((mixed - r.currents).abs()
+                       / r.currents.abs()).max().item()
+                print(f"  mixed vs f64 currents (mdm): max rel {rel:.3e} "
+                      f"(limit {MIXED_TOL}) "
+                      f"{'ok' if rel <= MIXED_TOL else 'FAIL'}")
+                if rel > MIXED_TOL:
+                    raise AssertionError("mixed and f64 solves disagree")
+                sub = masks["mdm"][:64].cpu()
+                cpu = measured_nf_batched(sub, spec, device="cpu")
+                rel = (cpu.currents - r.currents[:64].cpu()).abs().div(
+                    cpu.currents.abs()).max().item()
+                print(f"  64 tiles against the CPU port's f64 solve: max "
+                      f"rel {rel:.3e} (limit 1e-7) "
+                      f"{'ok' if rel <= 1e-7 else 'FAIL'}")
+                if rel > 1e-7:
+                    raise AssertionError("card and CPU solves disagree")
+                del mixed
+        del r
+    total = {k: v.sum().item() for k, v in nf.items()}
+    corr = {}
+    for k, v in nf.items():
+        pred = nonideality_factor(masks[k], spec.r, spec.r_on).double()
+        corr[k] = torch.corrcoef(torch.stack([v, pred]))[0, 1].item()
+    print(f"  sum NF over {T} tiles: baseline {total['baseline']:.6f}, mdm "
+          f"{total['mdm']:.6f}: {100 * (1 - total['mdm'] / total['baseline']):.2f}"
+          f"% lower under MDM; correlation with the analytic NF "
+          f"(Eq 16): baseline {corr['baseline']:.4f}, mdm {corr['mdm']:.4f}")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for J in (32, 64):
+        m = (torch.rand((512, J, J), generator=gen, device="cuda")
+             < 0.2).to(torch.float32)
+        sp = CrossbarSpec(J, J, 8)
+        line = []
+        for precision in ("f64", "mixed"):
+            measured_nf_batched(m, sp, precision=precision,
+                                device="cuda")                # warm
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = measured_nf_batched(m, sp, precision=precision, device="cuda")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            line.append(f"{precision} {dt * 1e3:.1f} ms ({512 / dt:,.0f} "
+                        f"tiles/s, {r.iterations} iterations)")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        seq = measured_nf_sequential(m[:8], sp, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        rel = ((seq.currents - r.currents[:8]).abs()
+               / r.currents[:8].abs()).max().item()
+        print(f"  throughput, 512 tiles of {J}x{J} at 20% density: "
+              f"{', '.join(line)}; sequential Jacobi CG on 8 of them "
+              f"{dt:.3f} s ({8 / dt:,.1f} tiles/s; currents within "
+              f"{rel:.1e} of the batched solve) [{card}]")
+        if rel > 1e-5:
+            raise AssertionError("sequential and batched solves disagree")
+
+    etas = {}
+    for precision in (None, "mixed"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        etas[precision] = calibrate_eta(spec, n_tiles=16, precision=precision,
+                                        device="cuda")
+        torch.cuda.synchronize()
+        etas[f"{precision} s"] = time.perf_counter() - t1
+    rel = abs(etas["mixed"] - etas[None]) / etas[None]
+    print(f"  calibrate_eta (64x64x8, 16 tiles): f64 {etas[None]:.6e} "
+          f"({etas['None s']:.3f} s), mixed {etas['mixed']:.6e} "
+          f"({etas['mixed s']:.3f} s), PAPER_ETA {PAPER_ETA:.1e}; policies "
+          f"within {rel:.1e} (limit 1e-8) {'ok' if rel <= 1e-8 else 'FAIL'}")
+    if rel > 1e-8:
+        raise AssertionError("calibrate_eta's policies disagree")
+
+    model = NonidealModel(**CIRCUIT_MC)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mc = mc_nf(masks["mdm"][:512], spec, model, 4, 0, precision="mixed",
+               device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    print(f"  mc_nf: {model}, S=4 x 512 tiles, mixed: {dt:.3f} s, "
+          f"{mc.iterations} iterations, unconverged {mc.unconverged}; NF "
+          f"{summarize(mc.nf_total)}, weighted error "
+          f"{summarize(mc.weighted_err)} [{card}]")
+    if mc.unconverged:
+        raise AssertionError("mc_nf left tiles unconverged")
+    counts = _launches("phi3-circuit")
+    rec.update(solves=solves, sum_nf=total, nf_correlation=corr,
+               eta=etas[None], eta_mixed=etas["mixed"])
+    return rec, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2442,7 +2754,7 @@ def main() -> int:
     # Plan caches live in fresh directories under TMPDIR, so every
     # deploy here starts cold and nothing outlives the run.
     with tempfile.TemporaryDirectory(prefix="chip_smoke_plans_") as tmp:
-        phase_paths(records, built, tmp)
+        phase_paths(records, built, tmp, card)
     bad = [m for m in ("jax", "repro", "ml_dtypes") if m in sys.modules]
     if bad:
         raise AssertionError(f"the port imported {bad}")
@@ -2454,7 +2766,8 @@ def main() -> int:
     return 0
 
 
-def phase_paths(records: list[dict], built: dict, tmp: str) -> None:
+def phase_paths(records: list[dict], built: dict, tmp: str,
+                card: str) -> None:
     """Drive every path, each with the launch counts set to 0 just
     before it and read just after; record each kernel's launches."""
     from repro_torch.configs import CimConfig
@@ -2483,9 +2796,13 @@ def phase_paths(records: list[dict], built: dict, tmp: str) -> None:
     rec, counts = phase_export(eng)
     records.append(rec)
     by_path["export"] = counts
+    w_gate = eng.params["slot0_attn"]["ffn_w_gate"][0].clone()
     del eng, prompts, tokens
     gc.collect()
     torch.cuda.empty_cache()
+    rec, by_path["phi3-circuit"] = phase_circuit(w_gate, built, card)
+    records.append(rec)
+    del w_gate
 
     cfg = PHI3.replace(cim=cim)
     print(f"config {cfg.name} ({cfg.dtype}, its CONFIG dtype): imperfect "

@@ -18,7 +18,8 @@ Health state crosses too: the reference's ``HealthConfig`` and
 lifetime draws (:func:`take_reference_draws`): JAX's ``fold_in`` streams
 cannot be reproduced in torch, so a parity test makes the port's
 lifetimes read the reference's logical cell fields instead of drawing
-their own.
+their own.  So do Monte-Carlo cell samples
+(:func:`cell_sample_from_reference`).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.health import DetectorConfig, HealthConfig
 from repro_torch.models.schema import ParamSpec, model_schema, param_dtype
+from repro_torch.nonideal.models import CellSample
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
@@ -130,3 +132,12 @@ def take_reference_draws(lifetimes: Mapping, ref_lifetimes: Mapping) -> None:
     reference's lifetime of the same name (:func:`reference_draws`)."""
     for name, lt in lifetimes.items():
         lt.draws = reference_draws(ref_lifetimes[name], lt.dep.codes.device)
+
+
+def cell_sample_from_reference(sample, device="cuda") -> CellSample:
+    """The port's :class:`repro_torch.nonideal.models.CellSample` with
+    the fields of a reference ``CellSample`` (arrays: stuck int8, gamma,
+    read and relax f32, relax possibly None) on ``device``."""
+    dev = resolve_device(device)
+    return CellSample(*(None if f is None else _tensor(f).to(dev)
+                        for f in sample))

@@ -1,9 +1,9 @@
 """Position-dependent PR distortion (paper Eq 17), materialised.
 
 Port of ``repro.core.noise`` (``noisy_magnitude``, ``noisy_weights``,
-``tree_noisy_weights``; ``calibrate_eta`` needs the circuit solver and
-comes with it), the oracle that ``kernels/cim_mvm/ref.py::cim_mvm_ref``
-builds on:
+``tree_noisy_weights``, and ``calibrate_eta`` against the circuit
+solver), the oracle that ``kernels/cim_mvm/ref.py::cim_mvm_ref`` builds
+on:
 
     |w'| = scale * [(1 + eta * p) * M0 + eta * M1]
     M0   = sum_k b_k 2^-(k+1)            (clean magnitude)
@@ -84,3 +84,43 @@ def tree_noisy_weights(params, spec: CrossbarSpec, mode="mdm",
         return x
 
     return visit(params)
+
+
+def calibrate_eta(spec: CrossbarSpec, key: int = 0, n_tiles: int = 16,
+                  sparsity: float = 0.8, precision=None, *,
+                  device: str | torch.device = "cuda") -> float:
+    """Calibrate eta against the circuit solver (paper §V-C: the paper
+    does this in SPICE and finds eta = 2e-3 for r = 2.5 ohm).
+
+    Random (n_tiles, rows, cols) masks of the given sparsity, drawn from
+    a torch generator seeded with ``key``, are solved in one batched
+    call (``precision``: a ``repro_torch.crossbar.SolverPrecision``, its
+    name, or None for f64), and eta is the least-squares fit of the
+    Eq-17 deficit ``eta * sum_cells d(j, k)`` to the measured |sum di|
+    per cell current (:func:`_fit_eta`)."""
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    u = torch.rand((n_tiles, spec.rows, spec.cols), device=dev,
+                   generator=torch.Generator(dev).manual_seed(int(key)))
+    return _fit_eta((u < (1 - sparsity)).to(torch.float32), spec, precision,
+                   device=dev)
+
+
+def _fit_eta(masks: torch.Tensor, spec: CrossbarSpec, precision=None, *,
+            device: str | torch.device = "cuda") -> float:
+    """The least-squares eta of :func:`calibrate_eta` on given masks
+    (T, rows, cols): measured ~= eta * predicted, with measured the
+    circuit's sum of |di| over the cell current v_read / r_on and
+    predicted the tile's aggregate Manhattan distance."""
+    from repro_torch.core.manhattan import aggregate_distance
+    from repro_torch.crossbar.batched import measured_nf_batched
+
+    res = measured_nf_batched(masks, spec, precision=precision,
+                              device=device)
+    i_cell = spec.v_read / spec.r_on
+    measured = ((res.currents - res.ideal).abs().sum(-1) / i_cell)
+    predicted = aggregate_distance(torch.as_tensor(masks, device=device)
+                                   ).to(torch.float64)
+    return float((measured * predicted).sum()
+                 / (predicted ** 2).sum().clamp_min(1e-30))

@@ -33,17 +33,18 @@ import torch
 KERNEL_DIR = Path(__file__).resolve().parent
 SOURCES = ("cim_mvm/kernel.cu", "flash_attention/kernel.cu",
            "manhattan_score/kernel.cu", "slstm_scan/kernel.cu",
-           "bitslice_pack/kernel.cu")
+           "bitslice_pack/kernel.cu", "line_solve/kernel.cu")
 HEADERS = ("tf32_mma.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("cim_mvm", "cim_fold", "cim_mvm_batched", "flash_attention",
-           "manhattan_score", "slstm_scan", "bitslice_pack")
+           "manhattan_score", "slstm_scan", "bitslice_pack", "line_solve")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 _U = ctypes.c_uint
 # C signatures of the launchers (each returns cudaGetLastError()).
 _ARGTYPES = {
@@ -57,7 +58,11 @@ _ARGTYPES = {
     "slstm_scan_launch": [_P] * 7 + [_I] * 4 + [_P, _I, _P],
     "slstm_scan_max_clusters": [_I, _P],
     "bitslice_pack_launch": [_P, _I, _P, _L, _I, _I, _P],
+    "line_solve_launch": [_P, _P, _P, _L, _I, _I, _D, _I, _P],
+    "line_solve_smem": [_I, _I, _I],
+    "line_solve_occupancy": [_I, _I, _I, _P],
 }
+_RESTYPES = {"line_solve_smem": ctypes.c_longlong}
 
 class Geometry(NamedTuple):
     """One launch of a kernel whose launcher takes its geometry as an int
@@ -247,6 +252,12 @@ def _self_check(lib: ctypes.CDLL) -> None:
     img = z(2, dt=torch.int64)
     rc["bitslice_pack"] = lib.bitslice_pack_launch(
         codes.data_ptr(), 2, img.data_ptr(), 2, 8, 0, stream)
+    for dt in (torch.float64, torch.float32):
+        g, r, zz = z(1, 64, 64, dt=dt), z(1, 2, 64, 64, dt=dt), z(
+            1, 2, 64, 64, dt=dt)
+        rc[f"line_solve {dt}"] = lib.line_solve_launch(
+            g.data_ptr(), r.data_ptr(), zz.data_ptr(), 1, 64, 64, 0.4,
+            int(dt == torch.float64), stream)
     torch.cuda.synchronize()
     bad = {k: v for k, v in rc.items() if v}
     if bad:
@@ -271,7 +282,7 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path))
         for fn, argtypes in _ARGTYPES.items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
         _BUILD_INFO.update(path=str(lib_path), built=built, log=log)
         _self_check(lib)
         _LIB = lib

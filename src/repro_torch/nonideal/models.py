@@ -270,3 +270,43 @@ def cell_values(bits: torch.Tensor, stuck: torch.Tensor,
         drift, dtype=torch.float32, device=bits.device)
     c = torch.where(stuck == STUCK_ON, 1.0, c)
     return torch.where((stuck == STUCK_OFF) | (stuck == OPEN), 0.0, c)
+
+
+def conductances_from_masks(active: torch.Tensor,
+                            spec) -> torch.Tensor:
+    """Clean (intended) conductance field of activity masks, f32 [S]."""
+    on = torch.tensor(1.0 / spec.r_on, dtype=torch.float32,
+                      device=active.device)
+    off = torch.tensor(1.0 / spec.r_off, dtype=torch.float32,
+                       device=active.device)
+    return torch.where(active > 0, on, off)
+
+
+def apply_to_conductances(active: torch.Tensor, sample: CellSample, spec,
+                          model: NonidealModel,
+                          age: float | None = None) -> torch.Tensor:
+    """Perturbed conductance field (f32) of a tile population.
+
+    ``active`` (..., J, K) holds the clean masks; the sample's fields
+    broadcast against it (the Monte-Carlo engine passes (S, T, J, K)
+    samples against (T, J, K) masks).  Drift scales what was programmed,
+    variation spreads it, stuck cells override everything, read noise
+    perturbs what is read back; conductances clip at 0 (the solver's
+    operator stays positive semi-definite) and OPEN cells conduct
+    nothing.  ``age`` evaluates drift and relaxation at a runtime clock
+    instead of ``model.drift_time``."""
+    t = model.drift_time if age is None else age
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa: E731
+                                 device=active.device)
+    g_on, g_off = f32(1.0 / spec.r_on), f32(1.0 / spec.r_off)
+    g = torch.where(active > 0, g_on * f32(model.drift_factor_at(t)), g_off)
+    g = g * sample.gamma
+    s_relax = model.relax_sigma_at(t)
+    if sample.relax is not None and s_relax > 0.0:
+        g = g * torch.exp(f32(s_relax) * sample.relax)
+    g = torch.where(sample.stuck == STUCK_ON, g_on, g)
+    g = torch.where(sample.stuck == STUCK_OFF, g_off, g)
+    if model.sigma_read > 0.0:
+        g = g + f32(model.sigma_read) * g_on * sample.read
+    g = g.clamp_min(0.0)
+    return torch.where(sample.stuck == OPEN, f32(0.0), g)

@@ -401,16 +401,19 @@ class ContinuousEngine:
         """Current HealthReport, or None when health is not armed."""
         return None if self.health is None else self.health.report()
 
-    def begin_redeploy(self, params: dict, *,
-                       health=_UNSET) -> threading.Thread:
+    def begin_redeploy(self, params: dict, *, nonideal=_UNSET,
+                       nonideal_seed=_UNSET, fault_aware=_UNSET,
+                       pipeline=_UNSET, health=_UNSET) -> threading.Thread:
         """Deploy a new checkpoint in the background; swap when ready.
 
         Planning and packaging run in a worker thread through the
         shared plan cache while the current bank serves; the new bank
-        (with fresh lifetime capture and controller when ``health``,
-        by default the engine's, is armed) is installed at the next
-        ``step()`` boundary.  Returns the thread (``join()`` it to
-        rendezvous; serving never has to).
+        (with fresh lifetime capture and controller when ``health`` is
+        armed) is installed at the next ``step()`` boundary.  Each
+        keyword left unset inherits the engine's init-time setting; the
+        engine's own settings (read seeds among them) stay as they
+        were.  Returns the thread (``join()`` it to rendezvous; serving
+        never has to).
         """
         if (self._redeploy_thread is not None
                 and self._redeploy_thread.is_alive()):
@@ -419,6 +422,9 @@ class ContinuousEngine:
                  lm_head=params["lm_head"])
         if self.device.type == "cuda":
             runtime.library()            # built before two threads launch
+        given = (nonideal, nonideal_seed, fault_aware, pipeline)
+        deploy = tuple(own if v is _UNSET else v
+                       for v, own in zip(given, self._nonideal))
         health = self._health_cfg if health is _UNSET else health
 
         def work():
@@ -426,7 +432,8 @@ class ContinuousEngine:
                 with torch.no_grad():
                     pending = (params, *deploy_serving_bank(
                         self.cfg, params, self.plan_cache, self.device,
-                        *self._nonideal, False, health))
+                        deploy[0], int(deploy[1]), *deploy[2:], False,
+                        health))
             except Exception as exc:          # raised again by step()
                 pending = exc
             with self._lock:

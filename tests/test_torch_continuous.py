@@ -465,6 +465,115 @@ def test_redeploy_failure_surfaces_at_the_next_step(tmp_path,
     assert eng.serving_epoch == 0
 
 
+# Stuck cells and programming variation (gain), no read noise: greedy
+# decoding is then deterministic on both sides.
+REDEPLOY_DEVICES = dict(p_stuck_off=0.02, p_stuck_on=0.005,
+                        sigma_program=0.05)
+
+
+def _with_reference_cells(monkeypatch, jcfg, trees):
+    """Make the port's deploys take the cells the reference's deploy
+    draws for the same (nonideal_key, pipeline), on the reference
+    checkpoint ``trees[nonideal_key]``: JAX's key streams cannot be
+    reproduced in torch."""
+    from repro.core.tiling import CrossbarSpec as JSpec
+    from repro.deploy.engine import collect_model_matrices as j_collect
+    from repro.nonideal import models as jni
+    from repro.nonideal.inject import sample_deployment_cells
+    import repro_torch.serve.engine as tengine
+
+    deploy = tengine.deploy_model_params
+    spec = JSpec(jcfg.cim.rows, jcfg.cim.cols, jcfg.cim.n_bits,
+                 jcfg.cim.r, jcfg.cim.r_on, jcfg.cim.r_off)
+
+    def with_cells(params, cfg, **kw):
+        pipeline = kw["pipeline"] or cfg.cim.mode
+        mats, _ = j_collect(trees[kw["nonideal_key"]], jcfg, pipeline)
+        grids = {name: spec.grid(*w.shape) for name, w in mats.items()}
+        jm = jni.NonidealModel(**dataclasses.asdict(kw["nonideal"]))
+        kw["cells"] = sample_deployment_cells(
+            jax.random.PRNGKey(kw["nonideal_key"]), grids, spec, jm)
+        return deploy(params, cfg, **kw)
+
+    monkeypatch.setattr(tengine, "deploy_model_params", with_cells)
+
+
+def test_redeploy_overrides_match_reference(tmp_path, monkeypatch):
+    """A redeploy to a second checkpoint on other devices (another
+    nonideal seed) under another pipeline, in the port and in the
+    reference: the new bank's codes, pos and col_pos bit-identical, and
+    requests admitted after the swap the same greedy tokens.  The
+    engines' own settings are unchanged by the swap."""
+    from repro.nonideal import models as jni
+
+    jcfg = _jcfg(cim=True)
+    cfg = _tcfg(jcfg)
+    jparams, params = _params(jcfg)
+    jparams2, params2 = _params(jcfg, seed=1)
+    tree2 = jax.tree_util.tree_map(np.asarray, jparams2)
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    jm = jni.NonidealModel(**REDEPLOY_DEVICES)
+    tm = NonidealModel(**REDEPLOY_DEVICES)
+    _with_reference_cells(monkeypatch, jcfg, {0: tree, 3: tree2})
+    jeng = JContinuous(jcfg, jparams, capacity=2, max_seq=64, max_prompt=16,
+                       plan_cache=JPlanCache(str(tmp_path / "ref")),
+                       nonideal=jm, nonideal_seed=0, pipeline="mdm")
+    teng = _engine(cfg, params, tmp_path, capacity=2, nonideal=tm,
+                   nonideal_seed=0, pipeline="mdm")
+    jeng.begin_redeploy(jparams2, nonideal_seed=3,
+                        pipeline="spare_line").join()
+    teng.begin_redeploy(params2, nonideal_seed=3,
+                        pipeline="spare_line").join()
+    prompts = _prompts(2, seed=21)
+    jr = [jeng.submit(p, max_tokens=6) for p in prompts]
+    tr = [teng.submit(p, max_tokens=6) for p in prompts]
+    jout, tout = jeng.run(), teng.run()
+    assert teng.serving_epoch == jeng.serving_epoch == 1
+    n_col_pos = 0
+    for pname, jdep in jeng.banks[1].cim["slot0_attn"].items():
+        tdep = teng.banks[1].cim["slot0_attn"][pname]
+        for f in ("codes", "pos", "col_pos"):
+            a, b = getattr(jdep, f), getattr(tdep, f)
+            assert (a is None) == (b is None), (pname, f)
+            if a is not None:
+                np.testing.assert_array_equal(np.asarray(a), b.numpy(),
+                                              err_msg=f"{pname}.{f}")
+        n_col_pos += jdep.col_pos is not None
+    assert n_col_pos > 0                    # spare_line's column plans
+    assert [tout[r] for r in tr] == [jout[r] for r in jr]
+    assert (teng._nonideal[1], teng._nonideal[3]) == (
+        jeng._nonideal_seed, jeng._pipeline) == (0, "mdm")
+
+
+def test_redeploy_keywords_inherit_engine_settings(tmp_path, monkeypatch):
+    """Each keyword left unset takes the engine's own setting; one that
+    is given replaces only itself."""
+    jcfg = _jcfg(cim=True)
+    cfg = _tcfg(jcfg)
+    _, params = _params(jcfg)
+    tm = NonidealModel(**REDEPLOY_DEVICES)
+    eng = _engine(cfg, params, tmp_path, nonideal=tm, nonideal_seed=5,
+                  fault_aware=False, pipeline="spare_line")
+    seen = []
+
+    def record(cfg, params, cache, device, *args):
+        seen.append(args)
+        return None, None, {}, None
+
+    monkeypatch.setattr("repro_torch.serve.continuous.deploy_serving_bank",
+                        record)
+    eng.begin_redeploy(params).join()
+    eng.step()
+    other = NonidealModel(p_stuck_on=0.01)
+    eng.begin_redeploy(params, nonideal=other, fault_aware=True).join()
+    eng.step()
+    eng.begin_redeploy(params, nonideal_seed=9, pipeline="mdm").join()
+    assert seen == [(tm, 5, False, "spare_line", False, None),
+                    (other, 5, True, "spare_line", False, None),
+                    (tm, 9, False, "mdm", False, None)]
+    assert eng._nonideal == (tm, 5, False, "spare_line")
+
+
 def test_engine_rejects_oversized_prompts_and_bad_configs(tmp_path):
     jcfg = _jcfg()
     cfg = _tcfg(jcfg)

@@ -24,7 +24,12 @@ magnitude.  A narrow ContinuousEngine: tokens exact across two batch
 compositions and against the plain versions' path (greedy).
 sample_tokens_batch: uniforms exact on both devices, tokens exact where
 the top two Gumbel-perturbed scores are more than 1e-5 apart (CUDA's
-and the CPU's log may differ by an ulp).
+and the CPU's log may differ by an ulp).  line_solve (the circuit
+solver's line preconditioner): max|kernel - plain| <= 1e-12 * max|plain|
+in f64 and 1e-5 * max|plain| in f32 (the kernel rounds every step as the
+plain version does, so they agree bit for bit; the bounds are what a
+reordering would be held to), and the kernel-preconditioned batched
+solve against the dense oracle at the reference's rtol 1e-7.
 """
 import dataclasses
 
@@ -46,6 +51,9 @@ from repro_torch.kernels.bitslice_pack.ops import bitslice_pack
 from repro_torch.kernels.bitslice_pack.ref import bitslice_pack_plain
 from repro_torch.kernels.manhattan_score.ref import manhattan_score_plain
 from repro_torch.kernels.slstm_scan.ops import slstm_scan
+from repro_torch.kernels.line_solve.ops import line_solve
+from repro_torch.kernels.line_solve.ops import occupancy as line_occupancy
+from repro_torch.kernels.line_solve.ref import line_solve_plain
 from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
 
 NF_UNIT = 2.5 / 300e3
@@ -811,3 +819,56 @@ def test_refold_after_recalibrate_is_bit_identical(cuda):
         restack_group(lifetime, "slot0_attn", pname)
     for lt in lifetime.values():
         assert torch.equal(lt.dep.folded, folded_weights(lt.dep)), lt.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,J,K", [(7, 64, 64), (5, 32, 32), (3, 128, 10),
+                                   (4, 3, 5), (2, 17, 40), (3, 40, 17)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_line_solve_kernel_vs_plain(cuda, T, J, K, dtype, tol):
+    rng = np.random.default_rng(J * K + T)
+    g = np.where(rng.random((T, J, K)) < 0.3, 1 / 300e3, 1 / 3e6)
+    g[0, 0, 0] = 0.0                        # an open cell
+    r = rng.standard_normal((T, 2, J, K))
+    g, r = (torch.tensor(a, dtype=dtype, device=cuda) for a in (g, r))
+    z = line_solve(g, r, 0.4)
+    want = line_solve_plain(g, r, 0.4)
+    err = (z - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+    assert torch.equal(z, line_solve(g, r, 0.4))     # deterministic
+
+
+@pytest.mark.cuda
+def test_line_solve_refusals_and_occupancy(cuda):
+    g = torch.zeros((1, 128, 128), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        line_solve(g, torch.zeros((1, 2, 128, 128), dtype=torch.float64,
+                                  device=cuda), 0.4)
+    with pytest.raises(TypeError):
+        line_solve(g.half(), g.half()[:, None].expand(1, 2, 128, 128), 0.4)
+    occ = line_occupancy(64, 64)
+    assert occ["blocks_per_sm"] == 2 and occ["threads"] == 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f64", "mixed"])
+def test_batched_solve_on_card_matches_dense_oracle(cuda, precision):
+    from repro_torch.crossbar import (
+        column_currents_dense,
+        measured_nf_batched_checked,
+    )
+
+    spec = CrossbarSpec(12, 12, 8)      # tests/test_solver.py's batch
+    rng = np.random.default_rng(13)
+    masks = (rng.random((6, 12, 12)) < np.array(
+        [0.05, 0.1, 0.2, 0.3, 0.5, 0.8])[:, None, None]).astype(np.float32)
+    res, rep = measured_nf_batched_checked(
+        torch.tensor(masks, device=cuda), spec, precision=precision,
+        device=cuda)
+    assert rep.n_failed == 0 and rep.escalations == 0
+    for i in range(6):
+        dense = column_currents_dense(masks[i], np.full(12, spec.v_read),
+                                      spec)
+        np.testing.assert_allclose(res.currents[i].cpu().numpy(), dense,
+                                   rtol=1e-7)
