@@ -47,9 +47,11 @@ a path left out):
 6. phi3-circuit: the circuit solver (the repo's SPICE replacement) on
    the crossbar-placed masks of path 1's layer-0 ffn_w_gate (49,152
    tiles of 64x64) under the baseline and MDM placements, through the
-   checked batched PCG in mixed and f64 precision; then 512-tile
-   throughput, calibrate_eta and a Monte-Carlo NF ensemble (line_solve,
-   the line preconditioner's chain solve; manhattan_score);
+   checked batched PCG in mixed and f64 precision, one of the solves
+   profiled by kernel; then 512-tile throughput up to the paper's
+   128x128 crossbar (a checked mixed solve there), calibrate_eta and a
+   Monte-Carlo NF ensemble (line_solve, the line preconditioner's chain
+   solve; manhattan_score);
 7. xlstm-1.3b serving at its config dtype (bf16): random full-width
    weights (seed 0, all 48 layers), deploy (the reference deploys the
    mLSTM q/k/v) and greedy generation (slstm_scan in bf16,
@@ -78,7 +80,9 @@ probe read within the cim_mvm tolerance of its plain loop (with and
 without read noise), each recalibrated matrix a lower probe error, and
 after demotion no cim_mvm launch for a demoted matrix; a heal under
 load must leave the sequences in flight their tokens.  The circuit path
-must hold line_solve to its plain version, leave no tile unconverged,
+must hold line_solve to its plain version (64x64, 32x32, 128x10 and
+128x128, f64 and f32), leave no tile unconverged (512 tiles of 128x128
+too),
 keep mixed within 1e-6 of f64 and 64 tiles within 1e-7 of the CPU's
 f64 solve, 4 small tiles within 1e-7 of the dense oracle, and
 calibrate_eta's two policies within 1e-8.
@@ -2476,21 +2480,33 @@ def _line_bound(T: int, J: int, K: int, dtype) -> tuple[float, str]:
                  PEAK_F64 if f64 else PEAK_F32)
 
 
+def _line_kernel(geom: dict) -> str:
+    """The compiled name (as ``phase_build`` keys it) of the line-solve
+    kernel a geometry launches."""
+    from repro_torch.kernels.line_solve.ops import FORMS
+
+    t = "d" if geom["f64"] else "f"
+    if FORMS[geom["form"]] == "stream":
+        return f"line_stream_kernel<{t}>"
+    return f"line_fast_kernel<{t}Li{geom['reg_len']}>"
+
+
 def _check_line_solve(g64: torch.Tensor, built: dict, card: str) -> dict:
     """line_solve against its plain version at the population's shape
     (g64: the MDM-placed ffn_w_gate tiles, 49,152 of 64x64) and, at the
-    same number of nodes, 32x32 and the paper's 128x10 tiles of random
-    masks, in f64 and f32: max|dz| <= LINE_TOL * max|z|; device ms beside
-    the byte bound and the plain version; registers (this run's
-    -Xptxas -v), shared memory, threads and blocks a SM."""
+    same number of nodes, 32x32, the paper's 128x10 tiles and its 128x128
+    crossbar, of random masks, in f64 and f32: max|dz| <= LINE_TOL *
+    max|z| (and whether bit for bit); device ms beside the byte bound and
+    the plain version; the form, registers (this run's -Xptxas -v),
+    shared memory, threads, blocks a SM and sweeping warps a SM."""
     from repro_torch.kernels.line_solve import line_solve
-    from repro_torch.kernels.line_solve.ops import occupancy
+    from repro_torch.kernels.line_solve.ops import geometry, occupancy
     from repro_torch.kernels.line_solve.ref import line_solve_plain
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     nodes = g64.numel()
     forms, worst = {}, 0.0
-    for J, K in ((64, 64), (32, 32), (128, 10)):
+    for J, K in ((64, 64), (32, 32), (128, 10), (128, 128)):
         T = nodes // (J * K)
         if (J, K) == (64, 64):
             g = g64
@@ -2504,6 +2520,7 @@ def _check_line_solve(g64: torch.Tensor, built: dict, card: str) -> dict:
             with _Uncounted():
                 z = line_solve(gd, rd, 0.4)
                 want = line_solve_plain(gd, rd, 0.4)
+                same = bool(torch.equal(z, want))
                 err = (z - want).abs().max().item()
                 scale = want.abs().max().item()
                 ms = device_ms(lambda: line_solve(gd, rd, 0.4), iters=10)
@@ -2512,22 +2529,27 @@ def _check_line_solve(g64: torch.Tensor, built: dict, card: str) -> dict:
             del z, want
             b_ms, b_by = _line_bound(T, J, K, dtype)
             dt = "f64" if dtype == torch.float64 else "f32"
-            kname = ("line_solve_kernel<d>" if dtype == torch.float64
-                     else "line_solve_kernel<f>")
             occ = occupancy(J, K, dtype)
+            kname = _line_kernel(geometry(J, K, dtype))
             ok = err <= LINE_TOL[dtype] * scale
             name = f"{J}x{K} {dt}"
-            forms[name] = dict(T=T, max_abs_err=err, max_abs=scale, ms=ms,
-                               plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, registers=built.get(
-                                   kname, {}).get("regs"), **occ)
+            forms[name] = dict(T=T, max_abs_err=err, max_abs=scale,
+                               bit_for_bit=same, ms=ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by, kernel=kname,
+                               registers=built.get(kname, {}).get("regs"),
+                               spill=built.get(kname, {}).get("spill"),
+                               **occ)
             print(f"line_solve {name} T={T}: max|dz| {err:.3e} (limit "
-                  f"{LINE_TOL[dtype] * scale:.3e}) {'ok' if ok else 'FAIL'}; "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by}; {100 * b_ms / ms:.1f}% of it); "
-                  f"{forms[name]['registers']} registers, "
-                  f"{occ['smem_bytes']} B shared, {occ['threads']} threads, "
-                  f"{occ['blocks_per_sm']} blocks a SM [{card}]")
+                  f"{LINE_TOL[dtype] * scale:.3e}; bit for bit {same}) "
+                  f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                  f"{100 * b_ms / ms:.1f}% of it); {occ['form']} form "
+                  f"{kname}, {forms[name]['registers']} registers "
+                  f"({forms[name]['spill']} B spilled), {occ['stages']} "
+                  f"slot(s), {occ['smem_bytes']} B shared, "
+                  f"{occ['threads']} threads, {occ['blocks_per_sm']} blocks "
+                  f"a SM, {occ['sweeping_warps_per_sm']} sweeping warps a "
+                  f"SM [{card}]")
             if not ok:
                 raise AssertionError(f"line_solve disagrees at {name}")
             if (J, K) == (64, 64) and dtype == torch.float64:
@@ -2578,6 +2600,43 @@ def _solve_population(masks, spec, precision: str, card: str, what: str):
                      iterations=rep.iterations, launches=n, peak_gib=peak)
 
 
+def _profile_solve(masks, spec, seconds: float, iters: int, card: str):
+    """Device time by kernel of one MDM mixed population solve
+    (torch.profiler): the 10 largest, line_solve's share of the busy
+    time, and the idle share against the unprofiled solve's seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.crossbar import measured_nf_batched_checked
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        measured_nf_batched_checked(masks, spec, precision="mixed",
+                                    device="cuda")
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    if busy == 0:
+        print("  profile: the profiler saw no device time: not measured")
+        return None
+    line = sum(r[0] for r in rows if "line_" in r[2])
+    wall = 1e3 * seconds
+    print(f"  profile of one MDM mixed solve ({iters} PCG iterations): "
+          f"device busy {busy:.2f} ms of {wall:.2f} ms (unprofiled) -> "
+          f"idle share {100 * max(0.0, 1 - busy / wall):.1f}%; line_solve "
+          f"{line:.2f} ms ({100 * line / busy:.1f}% of busy); "
+          f"{len(rows)} kernels [{card}]")
+    for ms, n, key in rows[:10]:
+        print(f"    {ms:9.3f} ms {n:5d} launches ({1e3 * ms / max(n, 1):8.1f}"
+              f" us each, {100 * ms / busy:5.1f}%)  {key[:80]}")
+    return dict(busy_ms=busy, line_solve_ms=line, wall_ms=wall,
+                top=[dict(ms=ms, launches=n, kernel=key[:120])
+                     for ms, n, key in rows[:10]])
+
+
 def phase_circuit(w: torch.Tensor, built: dict, card: str):
     """phi3-circuit: the circuit solver on the placed masks of one
     full-width phi3 projection (layer 0's ffn_w_gate, 3072x8192, the f32
@@ -2596,6 +2655,7 @@ def phase_circuit(w: torch.Tensor, built: dict, card: str):
         column_currents_dense,
         conductances,
         measured_nf_batched,
+        measured_nf_batched_checked,
         measured_nf_sequential,
     )
     from repro_torch.kernels import runtime
@@ -2669,9 +2729,12 @@ def phase_circuit(w: torch.Tensor, built: dict, card: str):
           f"{total['mdm']:.6f}: {100 * (1 - total['mdm'] / total['baseline']):.2f}"
           f"% lower under MDM; correlation with the analytic NF "
           f"(Eq 16): baseline {corr['baseline']:.4f}, mdm {corr['mdm']:.4f}")
+    mdm = solves["mdm mixed"]
+    prof = _profile_solve(masks["mdm"], spec, mdm["seconds"],
+                          mdm["iterations"], card)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for J in (32, 64):
+    for J in (32, 64, 128):
         m = (torch.rand((512, J, J), generator=gen, device="cuda")
              < 0.2).to(torch.float32)
         sp = CrossbarSpec(J, J, 8)
@@ -2686,6 +2749,20 @@ def phase_circuit(w: torch.Tensor, built: dict, card: str):
             dt = time.perf_counter() - t1
             line.append(f"{precision} {dt * 1e3:.1f} ms ({512 / dt:,.0f} "
                         f"tiles/s, {r.iterations} iterations)")
+        if J == 128:
+            # The paper's crossbar, checked: no tile left unconverged.
+            res, rep = measured_nf_batched_checked(m, sp, precision="mixed",
+                                                   device="cuda")
+            rel = ((res.currents - r.currents).abs()
+                   / r.currents.abs()).max().item()
+            print(f"  throughput, 512 tiles of {J}x{J} at 20% density: "
+                  f"{', '.join(line)}; checked mixed: {rep.iterations} "
+                  f"iterations, {rep.escalations} escalations, n_failed "
+                  f"{rep.n_failed}, currents within {rel:.1e} of the "
+                  f"unchecked mixed solve [{card}]")
+            if rep.n_failed or rel > MIXED_TOL:
+                raise AssertionError("the checked 128x128 solve failed")
+            continue
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         seq = measured_nf_sequential(m[:8], sp, device="cuda")
@@ -2731,7 +2808,7 @@ def phase_circuit(w: torch.Tensor, built: dict, card: str):
         raise AssertionError("mc_nf left tiles unconverged")
     counts = _launches("phi3-circuit")
     rec.update(solves=solves, sum_nf=total, nf_correlation=corr,
-               eta=etas[None], eta_mixed=etas["mixed"])
+               eta=etas[None], eta_mixed=etas["mixed"], profile=prof)
     return rec, counts
 
 

@@ -58,11 +58,9 @@ _ARGTYPES = {
     "slstm_scan_launch": [_P] * 7 + [_I] * 4 + [_P, _I, _P],
     "slstm_scan_max_clusters": [_I, _P],
     "bitslice_pack_launch": [_P, _I, _P, _L, _I, _I, _P],
-    "line_solve_launch": [_P, _P, _P, _L, _I, _I, _D, _I, _P],
-    "line_solve_smem": [_I, _I, _I],
-    "line_solve_occupancy": [_I, _I, _I, _P],
+    "line_solve_launch": [_P, _P, _P, _P, _L, _I, _I, _D, _P, _P],
+    "line_solve_occupancy": [_P, _P],
 }
-_RESTYPES = {"line_solve_smem": ctypes.c_longlong}
 
 class Geometry(NamedTuple):
     """One launch of a kernel whose launcher takes its geometry as an int
@@ -181,6 +179,8 @@ def _self_check(lib: ctypes.CDLL) -> None:
         fold_geometry,
     )
     from repro_torch.kernels.flash_attention.ops import flash_geometry
+    from repro_torch.kernels.line_solve.ops import GEOM_FIELDS as LINE_FIELDS
+    from repro_torch.kernels.line_solve.ops import line_geometry
     from repro_torch.kernels.slstm_scan.ops import slstm_geometry
 
     codes, pos, scale = (z(8, 8, dt=torch.int16), z(8, 1, dt=torch.int32),
@@ -252,12 +252,17 @@ def _self_check(lib: ctypes.CDLL) -> None:
     img = z(2, dt=torch.int64)
     rc["bitslice_pack"] = lib.bitslice_pack_launch(
         codes.data_ptr(), 2, img.data_ptr(), 2, 8, 0, stream)
+    # line_solve's forms in both dtypes: the factor in registers (64x64),
+    # in shared memory (3x5), and the stream form (8x8, forced).
     for dt in (torch.float64, torch.float32):
-        g, r, zz = z(1, 64, 64, dt=dt), z(1, 2, 64, 64, dt=dt), z(
-            1, 2, 64, 64, dt=dt)
-        rc[f"line_solve {dt}"] = lib.line_solve_launch(
-            g.data_ptr(), r.data_ptr(), zz.data_ptr(), 1, 64, 64, 0.4,
-            int(dt == torch.float64), stream)
+        for J, K, form in ((64, 64, None), (3, 5, None), (8, 8, "stream")):
+            g, r, zz = z(1, J, K, dt=dt), z(1, 2, J, K, dt=dt), z(
+                1, 2, J, K, dt=dt)
+            lg = dict(line_geometry(J, K, dt, form=form), grid=1)
+            scr = z(1, 3, J, K, dt=dt)      # the stream form's scratch
+            rc[f"line_solve {dt} {J}x{K} {form}"] = lib.line_solve_launch(
+                g.data_ptr(), r.data_ptr(), zz.data_ptr(), scr.data_ptr(), 1,
+                J, K, 0.4, Geometry.of(LINE_FIELDS, lg).array, stream)
     torch.cuda.synchronize()
     bad = {k: v for k, v in rc.items() if v}
     if bad:
@@ -282,7 +287,7 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path))
         for fn, argtypes in _ARGTYPES.items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
+            getattr(lib, fn).restype = ctypes.c_int
         _BUILD_INFO.update(path=str(lib_path), built=built, log=log)
         _self_check(lib)
         _LIB = lib

@@ -32,6 +32,7 @@ reordering would be held to), and the kernel-preconditioned batched
 solve against the dense oracle at the reference's rtol 1e-7.
 """
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -821,17 +822,32 @@ def test_refold_after_recalibrate_is_bit_identical(cuda):
         assert torch.equal(lt.dep.folded, folded_weights(lt.dep)), lt.name
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("T,J,K", [(7, 64, 64), (5, 32, 32), (3, 128, 10),
-                                   (4, 3, 5), (2, 17, 40), (3, 40, 17)])
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
-                                       (torch.float32, 1e-5)])
-def test_line_solve_kernel_vs_plain(cuda, T, J, K, dtype, tol):
+def _line_inputs(T, J, K, dtype, device):
     rng = np.random.default_rng(J * K + T)
     g = np.where(rng.random((T, J, K)) < 0.3, 1 / 300e3, 1 / 3e6)
     g[0, 0, 0] = 0.0                        # an open cell
     r = rng.standard_normal((T, 2, J, K))
-    g, r = (torch.tensor(a, dtype=dtype, device=cuda) for a in (g, r))
+    return (torch.tensor(a, dtype=dtype, device=device) for a in (g, r))
+
+
+# Every form in both dtypes: the factor in registers (64x64, 32x32; 128x128
+# in f32), in shared memory (the other fast shapes), the stream form
+# (128x128 in f64, 256x256).  T=None: one tile more than two rounds of the
+# persistent grid.
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,J,K", [(7, 64, 64), (5, 32, 32), (3, 128, 10),
+                                   (4, 3, 5), (2, 17, 40), (3, 40, 17),
+                                   (2, 128, 128), (1, 256, 256), (2, 256, 3),
+                                   (2, 3, 256), (None, 64, 64),
+                                   (None, 100, 100)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_line_solve_kernel_vs_plain(cuda, T, J, K, dtype, tol):
+    if T is None:
+        occ = line_occupancy(J, K, dtype)
+        T = 2 * torch.cuda.get_device_properties(
+            0).multi_processor_count * occ["blocks_per_sm"] + 1
+    g, r = _line_inputs(T, J, K, dtype, cuda)
     z = line_solve(g, r, 0.4)
     want = line_solve_plain(g, r, 0.4)
     err = (z - want).abs().max().item()
@@ -840,15 +856,123 @@ def test_line_solve_kernel_vs_plain(cuda, T, J, K, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["fast", "stream"])
+@pytest.mark.parametrize("J,K", [(64, 64), (9, 33), (33, 9)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_line_solve_forms_agree_bit_for_bit(cuda, form, J, K, dtype):
+    """Each form (forced) keeps the plain version's rounding, bit for bit:
+    on the fast one, one and two slots, a 16-byte pitch, and the factor
+    in registers or in shared planes."""
+    from repro_torch.kernels.line_solve.ops import launch, line_geometry
+
+    g, r = _line_inputs(3 * 132 + 5, J, K, dtype, cuda)
+    want = line_solve_plain(g, r, 0.4)
+    geoms = [line_geometry(J, K, dtype, form=form)]
+    vec = 2 if dtype == torch.float64 else 4
+    for s, p, f in itertools.product((1, 2), (None, -(-K // vec) * vec),
+                                     (True, False)):
+        if form == "fast" and (not f or J == K):
+            try:
+                geoms.append(line_geometry(J, K, dtype, form=form, stages=s,
+                                           pitch=p, registers=f))
+            except ValueError:          # more shared memory than a block has
+                continue
+    for geom in geoms:
+        assert torch.equal(launch(g, r, 0.4, geom), want), geom
+
+
+@pytest.mark.cuda
 def test_line_solve_refusals_and_occupancy(cuda):
+    from repro_torch.kernels.line_solve.ops import MAX_SMEM, line_geometry
+
+    for J, K in ((257, 4), (4, 257)):
+        g = torch.zeros((1, J, K), dtype=torch.float64, device=cuda)
+        with pytest.raises(ValueError, match="256"):
+            line_solve(g, g[:, None].expand(1, 2, J, K), 0.4)
     g = torch.zeros((1, 128, 128), dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        line_solve(g, torch.zeros((1, 2, 128, 128), dtype=torch.float64,
-                                  device=cuda), 0.4)
     with pytest.raises(TypeError):
         line_solve(g.half(), g.half()[:, None].expand(1, 2, 128, 128), 0.4)
-    occ = line_occupancy(64, 64)
-    assert occ["blocks_per_sm"] == 2 and occ["threads"] == 256
+    # The 64x64 fast forms keep the factor in registers: three planes a
+    # slot; one slot in f64 (two fit a block, but then one block a SM),
+    # two in f32 (its registers hold it to two blocks a SM either way).
+    for dtype, stages in ((torch.float64, 1), (torch.float32, 2)):
+        occ = line_occupancy(64, 64, dtype)
+        word = 8 if dtype == torch.float64 else 4
+        assert occ["form"] == "fast" and occ["reg_len"] == 64
+        assert occ["stages"] == stages and occ["threads"] == 128
+        assert occ["smem_bytes"] == 3 * stages * 64 * 65 * word
+        assert occ["blocks_per_sm"] == 2
+        assert occ["sweeping_warps_per_sm"] == 8
+    occ = line_occupancy(128, 128, torch.float64)
+    assert occ["form"] == "stream" and occ["blocks_per_sm"] >= 1
+    assert line_occupancy(128, 128, torch.float32)["form"] == "fast"
+    for dtype in (torch.float64, torch.float32):
+        assert line_geometry(256, 256, dtype)["smem"] <= MAX_SMEM
+
+
+def _dense_currents_on_card(active, spec, device):
+    """``column_currents_dense``'s nodal system, stamped and solved on the
+    card in f64 (at 128x128 it is 32768 x 32768: 8.6 GB, ~1e13 flops, too
+    large for the host oracle)."""
+    J, K = active.shape
+    JK, cw = J * K, 1.0 / spec.r
+    f64 = torch.float64
+    g = torch.where(torch.as_tensor(active, device=device).flatten() > 0,
+                    1.0 / spec.r_on, 1.0 / spec.r_off).to(f64)
+    idx = torch.arange(JK, device=device)
+    w, bl, j, k = idx, JK + idx, idx // K, idx % K
+    A = torch.zeros((2 * JK, 2 * JK), dtype=f64, device=device)
+    b = torch.zeros(2 * JK, dtype=f64, device=device)
+
+    def tie(a, c, cond):
+        cond = torch.as_tensor(cond, dtype=f64, device=device).expand(
+            a.shape)
+        for p, q, s in ((a, a, 1), (c, c, 1), (a, c, -1), (c, a, -1)):
+            A.index_put_((p, q), s * cond, accumulate=True)
+
+    tie(w, bl, g)                                   # the devices
+    src, gnd = k == 0, j == 0
+    A.index_put_((w[src], w[src]), torch.full((J,), cw, dtype=f64,
+                                              device=device), accumulate=True)
+    b[w[src]] += cw * spec.v_read
+    tie(w[~src], w[~src] - 1, cw)                   # wordline wires
+    A.index_put_((bl[gnd], bl[gnd]), torch.full((K,), cw, dtype=f64,
+                                                device=device),
+                 accumulate=True)
+    tie(bl[~gnd], bl[~gnd] - K, cw)                 # bitline wires
+    x = torch.linalg.solve(A, b)
+    return (cw * x[JK:].reshape(J, K)[0]).cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_checked_solve_128x128_matches_dense_oracle(cuda):
+    """The paper's 128x128 crossbar, checked F64 on the card (the stream
+    form), against the dense nodal solve at the reference's rtol 1e-7;
+    that solve is ``column_currents_dense``'s own system, held to it at
+    16x16 at rtol 1e-8 (two LU solvers on a system of condition ~1e7:
+    2.5e-9 apart on the H100)."""
+    from repro_torch.crossbar import (
+        column_currents_dense,
+        measured_nf_batched_checked,
+    )
+
+    rng = np.random.default_rng(128)
+    small = (rng.random((16, 16)) < 0.2).astype(np.float32)
+    spec16 = CrossbarSpec(16, 16, 8)
+    np.testing.assert_allclose(
+        _dense_currents_on_card(small, spec16, cuda),
+        column_currents_dense(small, np.full(16, spec16.v_read), spec16),
+        rtol=1e-8)
+    spec = CrossbarSpec(128, 128, 8)
+    masks = (rng.random((2, 128, 128)) < 0.2).astype(np.float32)
+    res, rep = measured_nf_batched_checked(
+        torch.tensor(masks, device=cuda), spec, precision="f64", device=cuda)
+    assert rep.n_failed == 0 and rep.escalations == 0
+    for i in range(2):
+        dense = _dense_currents_on_card(masks[i], spec, cuda)
+        torch.cuda.empty_cache()
+        np.testing.assert_allclose(res.currents[i].cpu().numpy(), dense,
+                                   rtol=1e-7)
 
 
 @pytest.mark.cuda

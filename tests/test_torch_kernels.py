@@ -1147,3 +1147,93 @@ def test_slstm_tiled_sum_matches_the_plain_step():
 def test_slstm_geometry_refuses_what_the_kernel_does_not_take(B, Dh):
     with pytest.raises(ValueError, match="slstm_scan kernel takes"):
         scan_ops.slstm_geometry(B, Dh)
+
+
+# ------------------------ line_solve launch geometry ------------------------
+
+from repro_torch.kernels.line_solve import ops as line_ops
+
+LINE_SIDES = (1, 2, 3, 10, 17, 31, 32, 33, 63, 64, 65, 100, 127, 128, 129,
+              200, 255, 256)
+
+
+def test_line_geometry_mirrors_the_kernel():
+    """The Python geometry mirrors kernel.cu: the Geom struct's fields in
+    order, the forms' numbers and the threads a block the kernel allows."""
+    text = Path(line_ops.__file__).with_name("kernel.cu").read_text()
+    fields = re.search(r"struct Geom \{\s*int ([^;]*);", text).group(1)
+    assert tuple(f.strip() for f in fields.split(",")) == line_ops.GEOM_FIELDS
+    assert re.search(r"constexpr int FAST = 0, STREAM = 1;", text)
+    assert line_ops.FORMS == ("fast", "stream")
+    assert _cu_constant(Path(line_ops.__file__).with_name("kernel.cu"),
+                        "MAX_THREADS") == 16 * 32 == 2 * line_ops.MAX_SIDE
+    assert re.search(rf"J > {line_ops.MAX_SIDE} \|\| K > {line_ops.MAX_SIDE}",
+                     text)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("J", LINE_SIDES)
+def test_line_geometry_fits_every_crossbar(J, dtype):
+    """Every crossbar up to 256x256 gets a launch whose shared memory fits
+    a block: the fast form where its planes fit (factor in registers for
+    the compiled squares; an odd pitch, or K for short aligned rows),
+    else the stream form; a second slot only where it fits too."""
+    word = 8 if dtype == torch.float64 else 4
+    for K in range(1, line_ops.MAX_SIDE + 1):
+        geom = line_ops.line_geometry(J, K, dtype)
+        assert 0 < geom["smem"] <= line_ops.MAX_SMEM
+        assert geom["threads"] == 32 * (-(-J // 32) + -(-K // 32)) <= 512
+        assert geom["f64"] == (word == 8) and geom["grid"] == 0
+        reg = J == K and J in line_ops.REG_LENGTHS[dtype]
+        planes = 3 if reg else 5
+        vec = 16 // word
+        short = K <= line_ops.SHORT_ROW and K % vec == 0
+        pitch = K if short else K | 1
+        if planes * J * pitch * word <= line_ops.MAX_SMEM:
+            assert line_ops.FORMS[geom["form"]] == "fast"
+            assert geom["reg_len"] == (J if reg else 0)
+            assert geom["pitch"] == pitch and geom["stages"] == 1
+            assert geom["smem"] == planes * J * pitch * word
+            assert geom["vec_load"] == (vec if short else 1)
+            assert geom["vec_store"] == (vec if K % vec == 0 else 1)
+            try:
+                two = line_ops.line_geometry(J, K, dtype, stages=2)
+            except ValueError:
+                assert (planes + 3) * J * pitch * word > line_ops.MAX_SMEM
+            else:
+                assert two["smem"] == (planes + 3) * J * pitch * word
+        else:
+            assert line_ops.FORMS[geom["form"]] == "stream"
+            assert geom["chunk"] == min(K, 128 // word)
+            assert geom["reg_len"] == 0
+            assert geom["smem"] == 4 * J * (geom["chunk"] + 1) * word
+
+
+@pytest.mark.parametrize("J,K", [(257, 4), (4, 257), (0, 8), (300, 300)])
+def test_line_geometry_refuses_past_the_limit(J, K):
+    with pytest.raises(ValueError, match="at most 256x256"):
+        line_ops.line_geometry(J, K, torch.float64)
+
+
+def test_line_geometry_forms_on_request():
+    """Forced forms and the checks on them: the stream form at any side,
+    a fast form that does not fit and registers off the compiled squares
+    refused."""
+    g = line_ops.line_geometry(64, 64, torch.float64, form="stream")
+    assert line_ops.FORMS[g["form"]] == "stream" and g["chunk"] == 16
+    assert line_ops.line_geometry(128, 10, torch.float64,
+                                  form="stream")["chunk"] == 10
+    assert line_ops.line_geometry(128, 128, torch.float32)["reg_len"] == 128
+    assert line_ops.FORMS[line_ops.line_geometry(
+        128, 128, torch.float64)["form"]] == "stream"
+    with pytest.raises(ValueError, match="shared memory"):
+        line_ops.line_geometry(128, 128, torch.float64, form="fast")
+    with pytest.raises(ValueError, match="registers"):
+        line_ops.line_geometry(64, 32, torch.float64, registers=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        line_ops.line_geometry(64, 64, torch.float64, registers=False,
+                               stages=2)
+    g = line_ops.line_geometry(64, 64, torch.float32, registers=False)
+    assert g["reg_len"] == 0 and g["smem"] == 5 * 64 * 65 * 4
+    with pytest.raises(ValueError, match="form"):
+        line_ops.line_geometry(8, 8, torch.float64, form="slow")

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.compat import enable_x64
+from repro.compat import enable_x64, has_batched_tridiagonal_solve
 from repro.core.tiling import CrossbarSpec as JSpec
 from repro.crossbar import batched as jb
 from repro.crossbar import solver as js
@@ -125,6 +125,30 @@ def test_batched_matches_reference(precision, chain, shape):
         assert res.iterations == int(ref.iterations)
     if precision != "f32":
         assert float(res.residual.max()) < 1e-9
+
+
+@pytest.mark.parametrize("precision", ["f64", "mixed"])
+@pytest.mark.parametrize("shape", [(128, 128), (128, 10)])
+def test_paper_crossbars_match_reference(shape, precision):
+    """The paper's 128x128 crossbar and its 128x10 tile, 2 tiles at 20%
+    density, against the reference's engine in x64 on JAX's CPU (its
+    "lax" route where the batched tridiagonal solve lowers here, else
+    "assoc"), at the reference's bounds."""
+    J, K = shape
+    rng = np.random.default_rng(J * K)
+    masks = (rng.random((2, J, K)) < 0.2).astype(np.float32)
+    chain = "lax" if has_batched_tridiagonal_solve() else "assoc"
+    ref = jb.measured_nf_batched(jnp.asarray(masks), JSpec(J, K, 8),
+                                 precision=precision, chain_impl=chain)
+    res = tb.measured_nf_batched(masks, CrossbarSpec(J, K, 8),
+                                 precision=precision, device=CPU)
+    np.testing.assert_allclose(res.currents.numpy(), np_(ref.currents),
+                               rtol=1e-7)
+    np.testing.assert_allclose(res.nf_total.numpy(), np_(ref.nf_total),
+                               rtol=1e-3)
+    if precision == "f64" and chain == "lax":
+        assert res.iterations == int(ref.iterations)
+    assert float(res.residual.max()) < 1e-9
 
 
 def test_batched_matches_dense_oracle_and_sequential():
