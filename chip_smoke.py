@@ -98,6 +98,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -178,11 +179,13 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                 "phi3-health": ("cim_mvm", "cim_fold", "cim_mvm_batched",
                                 "flash_attention", "manhattan_score"),
                 "xlstm": ("slstm_scan", "manhattan_score"),
-                "phi3-circuit": ("line_solve", "manhattan_score")}
+                "phi3-circuit": ("line_solve", "manhattan_score"),
+                "qwen2-moe": ("cim_mvm", "cim_mvm_grouped",
+                              "flash_attention", "manhattan_score")}
 # The paths each kernel record's form runs on (its launches are its
 # kernel's launches there).
 RECORD_PATHS = {
-    "cim_mvm": ("phi3", "phi3-continuous"),
+    "cim_mvm": ("phi3", "phi3-continuous", "qwen2-moe"),
     "flash_attention": ("phi3", "phi3-continuous"),
     "manhattan_score": tuple(PATH_KERNELS),
     "slstm_scan": (),                 # the xlstm path now serves bf16
@@ -192,9 +195,11 @@ RECORD_PATHS = {
     "cim_mvm_batched": ("phi3-health",),
     "slstm_scan[bf16]": ("xlstm",),
     "line_solve": ("phi3-circuit",),
+    "cim_mvm_grouped": ("qwen2-moe",),
+    "flash_attention[bf16,Dh=128]": ("qwen2-moe",),
 }
 # Substrings of the port's CUDA kernel names, as the profiler shows them.
-PORT_KERNEL_NAMES = ("cim_decode", "cim_prefill", "cim_fold",
+PORT_KERNEL_NAMES = ("cim_decode", "cim_prefill", "cim_fold", "cim_grouped",
                      "flash_decode", "flash_prefill", "score_vec",
                      "score_byte", "slstm_", "pack8_", "pack_kernel")
 
@@ -809,9 +814,12 @@ def _flash_variants(run_geom, o_p, geom, built: dict, Dh: int) -> dict:
     return out
 
 
-def _check_flash(g, dtype=torch.float32, built: dict | None = None) -> dict:
-    """flash attention at the paths' shapes (``_flash_cases``; bf16 also
-    at a LONG_C-long cache), Dh = 96, q, k and v in ``dtype``, against
+def _check_flash(g, dtype=torch.float32, built: dict | None = None,
+                 H: int = 32, Dh: int = 96, cases=None,
+                 name: str | None = None) -> dict:
+    """flash attention at the paths' shapes (``_flash_cases``, or those of
+    them named in ``cases``; bf16 also at a LONG_C-long cache), H heads of
+    Dh (phi3's 32 of 96 by default), q, k and v in ``dtype``, against
     its plain version; device time beside SDPA on the same inputs, the
     byte bound and the tensor-core bound of the form's products.  bf16
     outputs: both sides round once from f32, so a value near a rounding
@@ -825,11 +833,13 @@ def _check_flash(g, dtype=torch.float32, built: dict | None = None) -> dict:
     )
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
-    H, Dh = 32, 96
     bf = dtype == torch.bfloat16
     esize = 2 if bf else 4
     regimes = {}
+    record = name or ("flash_attention[bf16]" if bf else "flash_attention")
     for name, Bq, Sq, C, qpos, kpos in _flash_cases(long=bf):
+        if cases is not None and name not in cases:
+            continue
         k = torch.randn((Bq, C, H, Dh), generator=g, device="cuda").to(dtype)
         v = torch.randn((Bq, C, H, Dh), generator=g, device="cuda").to(dtype)
         q = torch.randn((Bq, Sq, H, Dh), generator=g,
@@ -917,8 +927,7 @@ def _check_flash(g, dtype=torch.float32, built: dict | None = None) -> dict:
                       + (f", {var['clusters']} clusters on the card"
                          if var["clusters"] else ""))
         regimes[name] = dict(B=Bq, Sq=Sq, C=C, **rec)
-    return dict(name="flash_attention[bf16]" if bf else "flash_attention",
-                route="cuda",
+    return dict(name=record, route="cuda",
                 source="src/repro_torch/kernels/flash_attention/kernel.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:75",
                 **{k: v for k, v in regimes["prefill"].items()
@@ -1230,7 +1239,8 @@ def phase_profile(eng, prompts, step_ms: float, steps: int = 3):
 
 def phase_plans(eng, names):
     """Plans built on the card vs the port's CPU mirror, bit for bit, for
-    the first repeat of each (slot, parameter) in ``names``."""
+    the first repeat of each (slot, parameter) in ``names``, or of expert
+    e of an expert bank for a (slot, parameter, e)."""
     import numpy as np
 
     from repro_torch.core.bitslice import magnitude_scale_host
@@ -1239,9 +1249,12 @@ def phase_plans(eng, names):
 
     cfg = eng.cfg
     spec = spec_from_config(cfg)
-    for slot, name in names:
+    for slot, name, *expert in names:
         w = eng.params[slot][name][0]
-        if w.ndim == 3:                           # q/k/v (I, H, Dh)
+        dep = eng.cim[slot][name].layer(0)
+        if expert:                                # one expert's matrix
+            w, dep = w[expert[0]], dep.layer(expert[0])
+        elif w.ndim == 3:                         # q/k/v (I, H, Dh)
             w = w.reshape(w.shape[0], -1)
         gpu = plan_matrix(w, spec, cfg.cim.mode)
         cpu = plan_matrix(w.cpu(), spec, cfg.cim.mode)
@@ -1254,13 +1267,13 @@ def phase_plans(eng, names):
         if not (np.array_equal(gpu[1].cpu().numpy(), host_codes)
                 and gpu[3].cpu().numpy().tobytes() == scale.tobytes()):
             raise AssertionError(f"{name}: card codes/scale != numpy mirror")
-        dep = eng.cim[slot][name].layer(0)
         I, N = w.shape
         if not torch.equal(dep.codes[:I, :N].abs().to(torch.int32), gpu[1]):
             raise AssertionError(f"{name}: packaged codes != planned codes")
         plan = gpu[0]
         red = 1 - plan.nf_after.sum().item() / plan.nf_before.sum().item()
-        print(f"plan {slot}/{name} {I}x{N}: {plan.nf_before.numel()} tiles, "
+        what = f"{slot}/{name}/0" + (f"/e{expert[0]}" if expert else "")
+        print(f"plan {what} {I}x{N}: {plan.nf_before.numel()} tiles, "
               f"card == CPU mirror (row_perm, row_position, nf_before, "
               f"nf_after, scale, codes); NF reduction {100 * red:.3f}%")
 
@@ -1328,7 +1341,7 @@ def _plain_ops():
     def matmul(x, dep, read_seed=None):
         return PLAIN.matmul(x, dataclasses.replace(dep), read_seed)
 
-    return Ops(matmul, PLAIN.attention, PLAIN.slstm_scan)
+    return Ops(matmul, PLAIN.attention, PLAIN.slstm_scan, PLAIN.grouped)
 
 
 def phase_compare(eng, prompts, tokens):
@@ -1379,8 +1392,8 @@ def _checked_ops(worst: dict):
     """The kernels of a forward (``KERNELS``), each call also run
     through its plain version on the same inputs; ``worst[kernel]``
     gathers (calls, largest |kernel - plain| / its limit).  The limits
-    are the kernel checks': CIM_TOL x max|plain| for cim_mvm (f32
-    outputs), FLASH_TOL and SLSTM_TOL x (1 + |plain|) plus one bf16 ulp
+    are the kernel checks': CIM_TOL x max|plain| for cim_mvm and its
+    grouped form (f32 outputs), FLASH_TOL and SLSTM_TOL x (1 + |plain|) plus one bf16 ulp
     for bf16 outputs; cim_mvm's reference reads no fold
     (:func:`_plain_ops`).  The kernel's result flows on."""
     from repro_torch.models.model import KERNELS, Ops
@@ -1417,7 +1430,14 @@ def _checked_ops(worst: dict):
             held("slstm_scan", a, p, elementwise(SLSTM_TOL, p))
         return out
 
-    return Ops(matmul, attention, scan)
+    def grouped(x, dep, offsets, cap):
+        y = KERNELS.grouped(x, dep, offsets, cap)
+        p = plain.grouped(x, dep, offsets, cap)
+        held("cim_mvm_grouped", y, p,
+             CIM_TOL * p.abs().max().clamp_min(1e-30))
+        return y
+
+    return Ops(matmul, attention, scan, grouped)
 
 
 def _check_calls(eng, seq, path: str, seed: int = 0) -> torch.Tensor:
@@ -2812,6 +2832,377 @@ def phase_circuit(w: torch.Tensor, built: dict, card: str):
     return rec, counts
 
 
+# The qwen2-moe path: the depth cut of its f32 end-to-end check and that
+# check's greedy tokens.
+MOE_F32_LAYERS, MOE_F32_NEW = 4, 8
+
+
+def _bank_bytes(dep) -> int:
+    return sum(getattr(dep, f).numel() * getattr(dep, f).element_size()
+               for f in ("codes", "pos", "scale"))
+
+
+class _GroupedCalls:
+    """An ``Ops.grouped`` that records every call, around the kernel:
+    (assignments, the offsets on the host, cap, x, the offsets).  Its
+    host syncs make it a measuring tool only, never the timed path."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, []
+
+    def __call__(self, x, dep, offsets, cap):
+        self.calls.append((x.shape[0] - 1, offsets.tolist(), cap, x,
+                           offsets))
+        return self.inner(x, dep, offsets, cap)
+
+
+def _routing_stats(eng, prompts, steps: int = 3):
+    """Routing of a generate call (prefill, then ``steps`` - 1 decode
+    steps): tokens' assignments dropped at prefill (all layers), distinct
+    experts a decode step a layer hits, and the recorded calls."""
+    from repro_torch.models.model import KERNELS
+
+    rec = _GroupedCalls(KERNELS.grouped)
+    probe = copy.copy(eng)
+    probe.ops = KERNELS._replace(grouped=rec)
+    probe.generate(prompts, steps)
+    R = eng.cfg.pattern_repeats
+    per_forward = 3 * R                   # gate, up, down a layer
+    fw = [rec.calls[i:i + per_forward]
+          for i in range(0, len(rec.calls), per_forward)]
+    E = eng.cfg.n_experts
+    drop = [n - off[E] for n, off, _, *_ in fw[0][::3]]
+    hits = [[sum(1 for e in range(E) if off[e + 1] > off[e])
+             for _, off, _, *_ in f[::3]] for f in fw[1:]]
+    return drop, hits, fw
+
+
+def _check_grouped(eng, fw, g) -> dict:
+    """The grouped form against its plain version on layer 0's real
+    calls (the prefill's and a decode step's gate and down products,
+    ``fw`` from :func:`_routing_stats`) and on two forced routings (one
+    expert with every row, the others empty; one expert at exactly the
+    capacity): CIM_TOL x max|y|, rows no expert computes exactly 0.  Its
+    device time cold (each call reads another layer's bank), beside the
+    byte / f32 bound of this call's hit experts and rows, the plain
+    version and ``torch.bmm`` of the (E, cap, I) capacity buffer on the
+    materialised f32 (E, I, N) W'."""
+    from repro_torch.kernels.cim_mvm.ops import cim_mvm_grouped, occupancy
+    from repro_torch.kernels.cim_mvm.ops import grouped_geometry
+    from repro_torch.kernels.cim_mvm.ref import (
+        cim_effective_weights,
+        cim_mvm_grouped_plain,
+    )
+
+    slot = eng.cim["slot0_attn"]
+    R, E = eng.cfg.pattern_repeats, eng.cfg.n_experts
+    cases = []
+    for regime, f in (("prefill", fw[0]), ("decode", fw[1])):
+        for j, pname in ((0, "ffn_we_gate"), (2, "ffn_we_down")):
+            _, _, cap, x, offsets = f[j]
+            cases.append((f"{regime} {pname}", pname, x, offsets, cap))
+    cap = fw[0][0][2]
+    for regime, counts in (("one expert", [0] * 3 + [cap] + [0] * (E - 4)),
+                           ("at cap", [cap // 3] * 7 + [cap]
+                            + [cap // 5] * (E - 8))):
+        offsets = torch.tensor([0] + list(itertools.accumulate(counts)),
+                               dtype=torch.int32, device="cuda")
+        A = sum(counts) + 1
+        x = torch.randn((A, eng.cfg.d_model), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        cases.append((regime, "ffn_we_gate", x, offsets, cap))
+    regimes = {}
+    w_eff = {}
+    for regime, pname, x, offsets, cap in cases:
+        dep = slot[pname].layer(0)
+        y = cim_mvm_grouped(x, dep, offsets, cap, device="cuda")
+        p = cim_mvm_grouped_plain(x, dep, offsets, cap)
+        torch.cuda.synchronize()
+        err = (y - p).abs().max().item()
+        ref = p.abs().max().item()
+        off = offsets.tolist()
+        done = torch.zeros(x.shape[0], dtype=torch.bool, device="cuda")
+        counts = []
+        for e in range(E):
+            done[off[e]:min(off[e + 1], off[e] + cap)] = True
+            counts.append(min(off[e + 1] - off[e], cap))
+        ok = (err <= CIM_TOL * ref and (y[~done] == 0).all().item()
+              and torch.equal(y, cim_mvm_grouped(x, dep, offsets, cap, device="cuda")))
+        banks = [slot[pname].layer(r) for r in range(R)]
+        ms = device_ms(lambda d: cim_mvm_grouped(x, d, offsets, cap, device="cuda"),
+                       args=banks)
+        plain_ms = cuda_ms(lambda: cim_mvm_grouped_plain(x, dep, offsets,
+                                                         cap), iters=2)
+        if pname not in w_eff:
+            w_eff[pname] = torch.stack([cim_effective_weights(
+                d.codes, d.pos, d.scale, n_bits=d.n_bits, wpt=d.wpt,
+                cols=d.cols, eta=d.eta, reversed_df=d.reversed_df)[
+                    :d.in_dim, :d.out_dim]
+                for d in (dep.layer(e) for e in range(E))])
+        W = w_eff[pname]
+        buf = torch.zeros((E, cap, dep.in_dim), device="cuda")
+        for e in range(E):
+            buf[e, :counts[e]] = x[off[e]:off[e] + counts[e]].float()
+        lib_ms = device_ms(lambda: torch.bmm(buf, W))
+        hit = sum(1 for c in counts if c)
+        rows = sum(counts)
+        per_expert = _bank_bytes(dep.layer(0))
+        n_bytes = (hit * per_expert + x.numel() * x.element_size()
+                   + x.shape[0] * dep.out_dim * 4 + (E + 1) * 4)
+        b_ms, b_by = bound(n_bytes, 2.0 * rows * dep.in_dim * dep.out_dim)
+        geom = grouped_geometry(E, cap, dep.in_dim, dep.out_dim,
+                                dep.codes.shape[1], dep.wpt, dep.n_bits,
+                                dep.cols, dep.reversed_df,
+                                dep.codes.data_ptr() % 16 == 0,
+                                x.dtype == torch.bfloat16)
+        occ = occupancy(geom)
+        print(f"cim_mvm_grouped {regime} E={E} {dep.in_dim}x{dep.out_dim} "
+              f"cap {cap}: {rows} rows on {hit} experts, max_abs_err "
+              f"{err:.3e} (tol {CIM_TOL:g} x max|y| {ref:.3e}, rows no "
+              f"expert computes 0, two calls bit-identical) "
+              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms cold (a layer "
+              f"a call), plain {plain_ms:.4f} ms, bmm on W' {lib_ms:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by}; {n_bytes / 1e6:.1f} MB, "
+              f"{100 * b_ms / ms:.1f}% of it); grid {geom.gx}x{geom.gy}x"
+              f"{geom.gz}, {occ['blocks_per_sm']} blocks a SM")
+        if not ok:
+            raise AssertionError(f"cim_mvm_grouped disagrees ({regime})")
+        regimes[regime] = dict(rows=rows, hit=hit, cap=cap, max_abs_err=err,
+                               ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=lib_ms,
+                               blocks_per_sm=occ["blocks_per_sm"])
+        del buf
+    del w_eff
+    top = regimes["decode ffn_we_gate"]
+    return dict(name="cim_mvm_grouped", route="cuda",
+                source="src/repro_torch/kernels/cim_mvm/kernel.cu",
+                replaces="src/repro/kernels/cim_mvm/kernel.py:82",
+                vmapped_at="src/repro/models/moe.py:50-61",
+                max_abs_err=max(r["max_abs_err"] for r in regimes.values()),
+                **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+                regimes=regimes)
+
+
+def _moe_f32_twin(eng, n_layers: int):
+    """The engine at its first ``n_layers`` layers with f32 activations:
+    its params sliced and widened, its bank's first repeats (views)."""
+    cfg = eng.cfg.replace(n_layers=n_layers, dtype="float32")
+    params = {k: (v.float() if isinstance(v, torch.Tensor) else
+                  {n: t[:n_layers].float() for n, t in v.items()})
+              for k, v in eng.params.items()}
+    cim = {slot: {k: dataclasses.replace(d, codes=d.codes[:n_layers],
+                                         pos=d.pos[:n_layers],
+                                         scale=d.scale[:n_layers])
+                  for k, d in deps.items()}
+           for slot, deps in eng.cim.items()}
+    twin = copy.copy(eng)
+    twin.cfg, twin.params, twin.cim = cfg, params, cim
+    return twin
+
+
+def phase_moe(records: list, built: dict, card: str) -> dict:
+    """qwen2-moe-a2.7b at full width and depth in its config dtype
+    (bf16), random weights from seed 0, through ``ServeEngine`` with
+    ``mdm_expert`` (every expert bank deployed, one matrix an expert; no
+    plan cache: one deploy, its stages timed), B x PROMPT-token prompts
+    and NEW greedy tokens: the attention projections through cim_mvm's
+    ideal forms, the expert banks through its grouped form, attention
+    through flash in bf16 at Dh = 128.  Then the grouped form against its
+    plain version on real and forced routings, flash's Dh = 128 bf16
+    forms, every kernel call of a teacher-forced pass against its plain
+    version, one expert's plan against the CPU mirror, and the first
+    MOE_F32_LAYERS layers with f32 activations end to end against the
+    plain path."""
+    from repro_torch.configs import CimConfig
+    from repro_torch.configs.qwen2_moe_a27b import CONFIG as QWEN
+    from repro_torch.kernels import runtime
+    from repro_torch.models.model import apply_model, init_decode_state
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = QWEN.replace(cim=CimConfig(enabled=True, mode="mdm_expert"))
+    E, K = cfg.n_experts, cfg.n_experts_per_token
+    print(f"config {cfg.name} ({cfg.dtype}, its CONFIG dtype): "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}, "
+          f"{E} experts top-{K} of width {cfg.moe_d_ff}, "
+          f"{cfg.n_shared_experts} fused shared experts of {cfg.d_ff}, qkv "
+          f"bias, vocab {cfg.vocab_size}; pipeline mdm_expert; no depth cut")
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng = ServeEngine(cfg, params, max_seq=MAX_SEQ, plan_cache=False,
+                      timed_deploy=True, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rep = eng.deploy_report
+    summary = rep["matrices"]
+    reasons: dict = {}
+    for reason in summary["skipped"].values():
+        reasons[reason] = reasons.get(reason, 0) + 1
+    n_exp = sum(1 for n in summary["deployed"] if "/e" in n)
+    print(f"phase deploy (qwen2-moe): init {t1 - t0:.2f} s, deploy "
+          f"{t2 - t1:.2f} s uncached (by stage "
+          f"{ {k: round(v, 3) for k, v in rep['seconds'].items()} }): "
+          f"{summary['n_deployed']} matrices deployed ({n_exp} expert, "
+          f"{summary['n_deployed'] - n_exp} attention), "
+          f"{summary['n_skipped']} skipped {reasons}; {rep['tiles']} tiles, "
+          f"NF reduction {100 * rep['nf_reduction']:.3f}%")
+    fields = {"codes": 0, "pos": 0, "scale": 0}
+    expert_gb = 0
+    for deps in eng.cim.values():
+        for pname, d in deps.items():
+            for f in fields:
+                n = getattr(d, f).numel() * getattr(d, f).element_size()
+                fields[f] += n
+                expert_gb += n if pname.startswith("ffn_we") else 0
+    param_gb = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"  bank {sum(fields.values()) / 1e9:.2f} GB "
+          f"({ {f: round(n / 1e9, 3) for f, n in fields.items()} }; "
+          f"experts {expert_gb / 1e9:.2f} GB), params "
+          f"{param_gb / 1e9:.2f} GB; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB, "
+          f"reserved {torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB")
+
+    prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    eng.generate(prompts, 2)                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(prompts, 1)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompts, NEW)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    step = (t_all - t_prefill) / (NEW - 1)
+    print(f"phase serve (qwen2-moe): B={B} prompt {PROMPT} new {NEW}: "
+          f"prefill {t_prefill * 1e3:.1f} ms, decode {step * 1e3:.2f} "
+          f"ms/step, {B * NEW / t_all:.1f} tokens/s (peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f})")
+    counts = _launches("qwen2-moe")
+    forwards = 2 + 1 + NEW
+    if counts["cim_mvm_grouped"] != 3 * cfg.n_layers * forwards \
+            or counts["cim_mvm"] != 4 * cfg.n_layers * forwards:
+        raise AssertionError(f"launches {counts} != 3 grouped and 4 "
+                             f"cim_mvm a layer x {forwards} forwards")
+    print(f"  cim_mvm_grouped {counts['cim_mvm_grouped']} launches = 3 "
+          f"expert banks x {cfg.n_layers} layers x {forwards} forwards; "
+          f"cim_mvm {counts['cim_mvm']} = 4 attention projections x "
+          f"{cfg.n_layers} x {forwards}")
+    if not torch.isfinite(eng.teacher_forced_logits(
+            torch.cat([prompts.cuda(), tokens.long()], 1)[:, :PROMPT + 1],
+            PROMPT)).all():
+        raise AssertionError("non-finite logits")
+    busy = phase_profile(eng, prompts, step * 1e3)
+
+    # Launches of one decode step by kernel.
+    state = init_decode_state(cfg, B, MAX_SEQ, "cuda")
+    logits, state = apply_model(eng.params, cfg, prompts.cuda(), state=state,
+                                cim=eng.cim)
+    runtime.reset_launch_counts()
+    apply_model(eng.params, cfg, logits[:, -1].argmax(-1)[:, None],
+                state=state, decode=True, cim=eng.cim)
+    torch.cuda.synchronize()
+    per_step = {k: n for k, n in runtime.launch_counts().items() if n}
+    del state, logits
+    drop, hits, fw = _routing_stats(eng, prompts)
+    flat = [h for f in hits for h in f]
+    n_assign = B * PROMPT * K
+    print(f"  launches a decode step: {per_step}; prefill drops "
+          f"{sum(drop)} of {n_assign * cfg.n_layers} assignments "
+          f"({n_assign} a layer, capacity {fw[0][0][2]} an expert; per "
+          f"layer {drop}); distinct experts hit a decode step a layer: "
+          f"mean {sum(flat) / len(flat):.2f}, max {max(flat)} of {E} "
+          f"(B x top-{K} = {B * K})")
+    # The decode step's byte bound: every hit expert's three banks, the
+    # attention bank, the digital shared experts, router and biases, and
+    # lm_head, each read once (embedding rows and the KV cache left out).
+    slot = eng.cim["slot0_attn"]
+    per_expert = sum(_bank_bytes(slot[n].layer(0).layer(0))
+                     for n in ("ffn_we_gate", "ffn_we_up", "ffn_we_down"))
+    attn = sum(_bank_bytes(slot[n]) for n in ("wq", "wk", "wv", "wo"))
+    digital = sum(t.numel() * t.element_size()
+                  for n, t in params["slot0_attn"].items()
+                  if not n.startswith("ffn_we") and n not in (
+                      "wq", "wk", "wv", "wo"))
+    head = params["lm_head"].numel() * params["lm_head"].element_size()
+    rest = attn + digital + head
+    run_bytes = sum(flat) / len(hits) * per_expert + rest
+    worst = cfg.n_layers * B * K * per_expert + rest
+    print(f"  decode step {step * 1e3:.2f} ms against its byte bound "
+          f"{run_bytes / PEAK_BYTES * 1e3:.3f} ms at this run's hits "
+          f"({run_bytes / 1e9:.2f} GB: experts "
+          f"{(run_bytes - rest) / 1e9:.2f}, attention bank {attn / 1e9:.2f}, "
+          f"shared experts / router / norms / biases {digital / 1e9:.2f}, "
+          f"lm_head {head / 1e9:.2f}) and "
+          f"{worst / PEAK_BYTES * 1e3:.3f} ms at {B * K} experts a layer "
+          f"({worst / 1e9:.2f} GB); device busy "
+          + (f"{busy:.2f} ms a step" if busy else "not measured"))
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    records.append(_check_grouped(eng, fw, g))
+    del fw
+    records.append(_check_flash(g, torch.bfloat16, built, H=cfg.n_heads,
+                                Dh=cfg.resolved_head_dim,
+                                cases=("prefill", "decode"),
+                                name="flash_attention[bf16,Dh=128]"))
+    phase_plans(eng, [("slot0_attn", "ffn_we_gate", 7), ("slot0_attn", "wq")])
+    seq = torch.cat([prompts.cuda(), tokens.long()], 1)[:, :PROMPT + TF_STEPS]
+    lk = _check_calls(eng, seq, "qwen2-moe")
+    if not (torch.isfinite(lk).all()
+            and lk.shape == (B, TF_STEPS + 1, cfg.padded_vocab)):
+        raise AssertionError("non-finite or misshapen logits")
+    del lk
+
+    # f32 activations at a depth cut: the bf16 params are freed first.
+    twin = _moe_f32_twin(eng, MOE_F32_LAYERS)
+    eng.params = None
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = copy.copy(twin)
+    plain.ops = _plain_ops()
+    seq = torch.cat([prompts.cuda(), tokens.long()], 1)[
+        :, :PROMPT + MOE_F32_NEW - 1]
+    V = cfg.vocab_size
+    lk = twin.teacher_forced_logits(seq, PROMPT)[..., :V]
+    lp = plain.teacher_forced_logits(seq, PROMPT)[..., :V]
+    err = (lk - lp).abs().max().item()
+    ref = lp.abs().max().item()
+    ok = err <= LOGIT_TOL * ref
+    tk, tp = twin.generate(prompts, MOE_F32_NEW), plain.generate(
+        prompts, MOE_F32_NEW)
+    top2 = lp.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    flips = [(b, t, int(tk[b, t]), int(tp[b, t]), gap[b, t].item())
+             for b, t in (tk != tp).nonzero().tolist()]
+    print(f"  f32 activations, first {MOE_F32_LAYERS} of {cfg.n_layers} "
+          f"layers (same bank): teacher-forced logits ({lk.shape[1]} steps) "
+          f"max_abs_err {err:.3e} ({err / ref:.3e} of max|logit| "
+          f"{ref:.3e}), tol {LOGIT_TOL:g} x max {'ok' if ok else 'FAIL'}; "
+          f"greedy tokens {int((tk == tp).sum())}/{tk.numel()} equal"
+          + (f"; flips (row, step, kernel, plain, plain top-2 gap): {flips}"
+             if flips else ""))
+    if not ok:
+        raise AssertionError("f32 kernel-path logits disagree with the "
+                             "plain path (qwen2-moe)")
+    if flips:
+        raise AssertionError(f"qwen2-moe f32 greedy tokens flip: {flips}")
+    del twin, plain, eng, lk, lp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2902,6 +3293,12 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
     by_path["xlstm"] = counts
     phase_plans(eng, [("slot0_mlstm", "wq")])
     phase_compare(eng, prompts, tokens)
+    del eng, prompts, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("config qwen2-moe-a2.7b: MoE serving, alone on the card")
+    by_path["qwen2-moe"] = phase_moe(records, built, card)
     for r in records:
         name = r["name"]
         kernel = name.split("[")[0]

@@ -2,9 +2,10 @@
 
 The port's own copy of ``repro.configs.base``: the field names and
 defaults match the reference, so a reference config converts field by
-field.  Only the fields the port's dense ``"attn"`` serving path reads
-are kept; MoE, recurrent, frontend and sharding knobs arrive with the
-slices that port those paths.
+field.  Only the fields the port's serving paths read are kept: the
+``"attn"`` decoder (dense or MoE, with or without qkv bias) and the
+xLSTM stack; the mamba / hybrid, frontend and sharding knobs arrive
+with the slices that port those paths.
 """
 from __future__ import annotations
 
@@ -17,8 +18,9 @@ class CimConfig:
     """CIM deployment of matmuls onto memristive crossbars (the paper)."""
 
     enabled: bool = False
-    # Mapping strategy.  This slice resolves the four legacy pipelines
-    # "baseline" | "reverse" | "sort" | "mdm" (repro_torch.mapping).
+    # Mapping strategy: a named pipeline ("baseline" | "reverse" |
+    # "sort" | "mdm" | "mdm_expert" | ...) or a spec string, resolved by
+    # repro_torch.mapping.resolve_pipeline.
     mode: str = "mdm"
     eta: float = 2e-3            # PR noise coefficient (Eq 17)
     rows: int = 64
@@ -31,12 +33,13 @@ class CimConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Dense decoder description (the reference's field names).
+    """Decoder description (the reference's field names).
 
     ``block_pattern`` is the repeating unit of per-layer block types;
     n_layers must be a multiple of its length.  The port serves
-    ``("attn",)`` with a SwiGLU MLP and ``("mlstm", "slstm")`` without
-    one (``mlp_type="none"``).
+    ``("attn",)`` with a SwiGLU MLP or, with ``n_experts``, a routed
+    SwiGLU MoE (plus fused shared experts), and ``("mlstm", "slstm")``
+    without an MLP (``mlp_type="none"``).
     """
 
     name: str = "model"
@@ -53,6 +56,15 @@ class ModelConfig:
     qkv_bias: bool = False
     sliding_window: int = 0      # 0 = global attention
     attn_chunk: int = 512        # KV chunk of the plain flash attention
+    # MoE
+    n_experts: int = 0
+    n_experts_per_token: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0            # routed-expert hidden width (0 -> d_ff)
+    capacity_factor: float = 1.25
+    # "global" sorts all B*S tokens into one capacity space; "grouped"
+    # sorts each sequence on its own (models/moe.py).
+    moe_dispatch: str = "global"
     mlp_type: str = "swiglu"
     norm_eps: float = 1e-5
     ssm_expand: int = 1          # mLSTM inner width = d_model * ssm_expand
@@ -82,18 +94,36 @@ class ModelConfig:
 
 # Block patterns the port serves, each with the MLP type it takes.
 SUPPORTED_PATTERNS = {("attn",): "swiglu", ("mlstm", "slstm"): "none"}
+MOE_DISPATCH = ("global", "grouped")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configurations outside the port's slices so far."""
+    """Raise for configurations outside the port's slices so far: the
+    mamba and hybrid blocks, frontends and other MLP types are still to
+    be ported."""
     pattern = tuple(cfg.block_pattern)
-    if cfg.family == "moe" or pattern not in SUPPORTED_PATTERNS:
+    if pattern not in SUPPORTED_PATTERNS:
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family!r}, block_pattern="
             f"{cfg.block_pattern!r}: the port serves "
-            f"{sorted(SUPPORTED_PATTERNS)} without MoE so far")
-    if cfg.mlp_type != SUPPORTED_PATTERNS[pattern] or cfg.qkv_bias:
+            f"{sorted(SUPPORTED_PATTERNS)} so far; mamba and hybrid "
+            "blocks are still to be ported")
+    if cfg.mlp_type != SUPPORTED_PATTERNS[pattern]:
         raise NotImplementedError(
             f"{cfg.name}: block_pattern={cfg.block_pattern!r} is served "
-            f"with mlp_type={SUPPORTED_PATTERNS[pattern]!r} and no qkv "
-            "bias so far")
+            f"with mlp_type={SUPPORTED_PATTERNS[pattern]!r} so far")
+    moe = cfg.family == "moe" or cfg.n_experts
+    if moe and (pattern != ("attn",) or cfg.n_experts < 1
+                or not 1 <= cfg.n_experts_per_token <= cfg.n_experts):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE is served on the ('attn',) pattern with "
+            f"1 <= n_experts_per_token <= n_experts, not n_experts="
+            f"{cfg.n_experts}, top-{cfg.n_experts_per_token} on "
+            f"{cfg.block_pattern!r}")
+    if moe and cfg.moe_dispatch not in MOE_DISPATCH:
+        raise NotImplementedError(
+            f"{cfg.name}: moe_dispatch={cfg.moe_dispatch!r} not in "
+            f"{MOE_DISPATCH}")
+    if cfg.qkv_bias and pattern != ("attn",):
+        raise NotImplementedError(
+            f"{cfg.name}: qkv bias is served on the ('attn',) pattern only")

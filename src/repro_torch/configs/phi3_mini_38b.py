@@ -15,3 +15,5 @@ CONFIG = ModelConfig(
     block_pattern=("attn",),
 )
 
+SMOKE = CONFIG.replace(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+                       d_ff=128, vocab_size=256, attn_chunk=16)

@@ -17,3 +17,6 @@ CONFIG = ModelConfig(
     mlp_type="none",
     ssm_expand=2,
 )
+
+SMOKE = CONFIG.replace(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2,
+                       vocab_size=256, attn_chunk=16)

@@ -6,7 +6,10 @@ is the reference's, walked from the port's schema
 (``repro_torch.models.schema.model_schema``): ``embed``, ``final_norm``,
 ``lm_head`` and one dict per pattern slot, for the dense decoder
 ``slot0_attn/{norm, wq (R, D, H, Dh), wk, wv, wo (R, H, Dh, D),
-ffn_norm, ffn_w_gate, ffn_w_up, ffn_w_down}``, for xLSTM
+ffn_norm, ffn_w_gate, ffn_w_up, ffn_w_down}`` (with ``bq``, ``bk``,
+``bv`` under ``qkv_bias``; an MoE decoder's FFN is ``ffn_{norm,
+router (R, D, E), we_gate (R, E, D, F), we_up, we_down}`` and, with
+shared experts, ``ffn_{ws_gate, ws_up, ws_down, shared_gate}``), for xLSTM
 ``slot0_mlstm/{norm, w_up, wq (R, Di, H, Dh), wk, wv, w_if, b_if,
 w_down}`` and ``slot1_slstm/{norm, w_gates (R, D, H, 4Dh), r_gates
 (R, H, Dh, 4Dh), b_gates, w_out}``.  A checkpoint the reference saved

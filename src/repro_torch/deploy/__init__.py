@@ -1,5 +1,6 @@
-"""Whole-model CIM deployment of the port (dense models, ideal or
-imperfect devices): the plan cache (``cache``), planning one matrix at
+"""Whole-model CIM deployment of the port (dense models on ideal or
+imperfect devices; MoE expert banks, one matrix an expert, on ideal
+devices): the plan cache (``cache``), planning one matrix at
 a time through it (``planner``) and packaging, with the devices' faults
 and variation injected, into the stacked deployments the serving path
 reads (``engine``), and the per-matrix lifetime state that ages and heals

@@ -1,13 +1,17 @@
 """Whole-model CIM deployment: model params -> stacked CimDeployments.
 
-Port of the dense part of ``repro.deploy.engine``: every parameter of
-every pattern slot whose name the reference deploys (attention and
-mLSTM q/k/v, attention o, SwiGLU projections) is quantised, planned
-(:mod:`repro_torch.deploy.planner`, one matrix at a time, through a
-plan cache when one is given) and packaged; each slot's deployments are
-stacked over its pattern repeats, the layout
+Port of ``repro.deploy.engine``: every parameter of every pattern slot
+whose name the reference deploys (attention and mLSTM q/k/v, attention
+o, SwiGLU projections) and, under an expert-axis partition (pipeline
+``mdm_expert``), every MoE expert bank, one matrix an expert, is
+quantised, planned (:mod:`repro_torch.deploy.planner`, one matrix at a
+time, through a plan cache when one is given, else each right before it
+is packaged) and packaged; each slot's deployments are stacked over its
+pattern repeats (an expert bank over repeats and experts), the layout
 ``repro_torch.models.model.apply_model`` walks.  Every other parameter
-stays digital and is recorded with the reference's reason.
+stays digital and is recorded with the reference's reason.  Expert
+banks deploy onto ideal devices only: their folded grouped form, which
+imperfect devices and lifetime state need, is a later slice.
 
 Imperfect devices (``nonideal``): every matrix's physical cells are
 drawn on the device from (seed, its traversal index) — one matrix at a
@@ -79,8 +83,7 @@ def spec_from_config(cfg: ModelConfig) -> CrossbarSpec:
 
 
 def _skip_reason(pname: str) -> str:
-    """Why a parameter stays digital: the reference's ``_skip_reason``
-    without an expert-axis partition (the port has none yet)."""
+    """Why a parameter stays digital: the reference's ``_skip_reason``."""
     if pname in MOE_EXPERT_NAMES:
         return ("moe-expert-bank: select an expert-axis partition "
                 "(e.g. pipeline 'mdm_expert') to deploy")
@@ -94,10 +97,21 @@ def _skip_reason(pname: str) -> str:
     return "no crossbar mapping for this parameter"
 
 
-def collect_model_matrices(params: dict, cfg: ModelConfig
+def collect_model_matrices(params: dict, cfg: ModelConfig, pipeline=None
                            ) -> tuple[dict[str, torch.Tensor], dict]:
-    """Every deployable matrix as ``"slot/param/repeat"`` -> (I, N) view,
-    in deterministic order, and a summary of what stays digital."""
+    """Every deployable matrix, in the reference's deterministic order,
+    and a summary of what stays digital.
+
+    ``mats`` maps ``"slot/param/repeat"`` (and, under an expert-axis
+    partition of ``pipeline``, default ``cfg.cim.mode``,
+    ``"slot/param/repeat/e{expert}"`` for the MoE banks) to an (I, N)
+    view of the parameter: in each slot the ``DEPLOYABLE`` names first,
+    then the expert banks, then the skip accounting, as the reference's
+    traversal.  ``summary``: ``{"deployed": [...], "skipped": {name:
+    reason}, "n_deployed": int, "n_skipped": int}``."""
+    pipe = resolve_pipeline(pipeline if pipeline is not None
+                            else cfg.cim.mode)
+    expert = getattr(pipe.partition, "expert_axis", False)
     mats: dict[str, torch.Tensor] = {}
     skipped: dict[str, str] = {}
     for top in params:
@@ -112,12 +126,33 @@ def collect_model_matrices(params: dict, cfg: ModelConfig
             stacked = slot_params[pname]
             for r in range(stacked.shape[0]):
                 mats[f"{slot}/{pname}/{r}"] = _as_matrix(pname, stacked[r])
+        for pname in MOE_EXPERT_NAMES:
+            if pname not in slot_params or not expert:
+                continue
+            stacked = slot_params[pname]                 # (R, E, I, N)
+            for r in range(stacked.shape[0]):
+                parts = pipe.partition.split(f"{slot}/{pname}/{r}",
+                                             stacked[r])
+                if parts is None:
+                    skipped[f"{slot}/{pname}"] = (
+                        f"partition {pipe.partition.name!r} cannot "
+                        f"split shape {tuple(stacked[r].shape)}")
+                    break
+                mats.update(parts)
         for pname in slot_params:
-            if pname not in DEPLOYABLE:
-                skipped[f"{slot}/{pname}"] = _skip_reason(pname)
+            if pname in DEPLOYABLE or (pname in MOE_EXPERT_NAMES and expert):
+                continue
+            skipped[f"{slot}/{pname}"] = _skip_reason(pname)
     summary = {"deployed": list(mats), "skipped": skipped,
                "n_deployed": len(mats), "n_skipped": len(skipped)}
     return mats, summary
+
+
+def _bank_index(name: str) -> tuple[str, str, tuple[int, ...]]:
+    """(slot, param, index into the stacked bank) of a matrix name:
+    (repeat,) or, for an expert, (repeat, expert)."""
+    slot, pname, r, *sub = name.split("/")
+    return slot, pname, (int(r),) + tuple(int(e[1:]) for e in sub)
 
 
 class StageClock:
@@ -250,13 +285,15 @@ class _LazyFaults(Mapping):
         return len(self._names)
 
 
-def _stack(reps: int, dep: CimDeployment, dev) -> CimDeployment:
-    """An empty stacked deployment shaped like ``dep`` over ``reps``."""
+def _stack(lead: tuple[int, ...], dep: CimDeployment,
+           dev) -> CimDeployment:
+    """An empty stacked deployment shaped like ``dep`` over ``lead``: the
+    repeats, or the repeats and experts of an expert bank."""
     new = lambda t, where: None if t is None else torch.empty(
-        (reps,) + tuple(t.shape), dtype=t.dtype, device=where)
+        lead + tuple(t.shape), dtype=t.dtype, device=where)
     return CimDeployment(
         codes=new(dep.codes, dev), pos=new(dep.pos, dev),
-        scale=torch.empty((reps,), dtype=torch.float32, device=dev),
+        scale=torch.empty(lead, dtype=torch.float32, device=dev),
         n_bits=dep.n_bits, wpt=dep.wpt, cols=dep.cols, eta=dep.eta,
         reversed_df=dep.reversed_df, in_dim=dep.in_dim, out_dim=dep.out_dim,
         gain=new(dep.gain, dev), col_pos=new(dep.col_pos, dev),
@@ -264,21 +301,23 @@ def _stack(reps: int, dep: CimDeployment, dev) -> CimDeployment:
         noise_tag=new(dep.noise_tag, "cpu"), sigma_read=dep.sigma_read)
 
 
-def _put(stacked: CimDeployment, r: int, dep: CimDeployment) -> None:
-    """Repeat ``r`` of ``stacked`` from ``dep``.  The folded W' * gain is
-    allocated at the slot's first served (non-degraded) repeat; a
-    degraded repeat's stays zero (its reads are digital)."""
+def _put(stacked: CimDeployment, idx: tuple[int, ...],
+         dep: CimDeployment) -> None:
+    """Entry ``idx`` (a repeat, or a repeat and an expert) of ``stacked``
+    from ``dep``.  The folded W' * gain is allocated at the slot's first
+    served (non-degraded) repeat; a degraded repeat's stays zero (its
+    reads are digital)."""
     for f in ("codes", "pos", "scale", "gain", "col_pos", "degraded",
               "noise_tag"):
         if getattr(dep, f) is not None:
-            getattr(stacked, f)[r].copy_(getattr(dep, f))
+            getattr(stacked, f)[idx].copy_(getattr(dep, f))
     if dep.folded is not None:
         if stacked.folded is None:
-            reps = stacked.codes.shape[0]
-            stacked.folded = torch.zeros((reps,) + tuple(dep.folded.shape),
+            lead = tuple(stacked.scale.shape)
+            stacked.folded = torch.zeros(lead + tuple(dep.folded.shape),
                                          dtype=torch.float32,
                                          device=dep.folded.device)
-        stacked.folded[r].copy_(dep.folded)
+        stacked.folded[idx].copy_(dep.folded)
 
 
 def deploy_model_params(params: dict, cfg: ModelConfig,
@@ -293,11 +332,16 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
 
     Returns (cim_tree, report): ``cim_tree[slot][param]`` is one
     :class:`CimDeployment` whose tensors are stacked over the slot's
-    pattern repeats.  The parameters must lie on ``device``;
-    quantisation, planning (of the cache's misses, with ``cache``) and
-    packaging run there, one matrix at a time.  ``pipeline`` (a
+    pattern repeats (an expert bank's over the repeats and its experts,
+    (R, E, ...)).  The parameters must lie on ``device``; quantisation,
+    planning (of the cache's misses, with ``cache``; without one each
+    matrix right before it is packaged, so one plan at a time is alive)
+    and packaging run there, one matrix at a time.  ``pipeline`` (a
     :class:`repro_torch.mapping.MappingPipeline`, a named pipeline or a
-    spec string) defaults to ``cfg.cim.mode``.
+    spec string) defaults to ``cfg.cim.mode``; an expert-axis partition
+    (``"mdm_expert"``) deploys the MoE expert banks, onto ideal devices
+    only (``nonideal`` or ``lifetime`` with expert banks raise
+    ``NotImplementedError``).
 
     ``nonideal`` deploys onto imperfect devices keyed by the int
     ``nonideal_key`` (default 0): each matrix's cells are drawn on the
@@ -326,8 +370,16 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
     check_supported(cfg)
     spec = spec_from_config(cfg)
     mode = pipeline if pipeline is not None else cfg.cim.mode
-    mats, summary = collect_model_matrices(params, cfg)
+    mats, summary = collect_model_matrices(params, cfg, mode)
     check_on(dev, **{name.replace("/", "_"): w for name, w in mats.items()})
+    experts = [n for n in mats if len(_bank_index(n)[2]) > 1]
+    if experts and ((nonideal is not None and not nonideal.is_ideal)
+                    or lifetime is not None):
+        raise NotImplementedError(
+            f"{len(experts)} MoE expert matrices: expert banks deploy onto "
+            "ideal devices only; imperfect devices and lifetime state on "
+            "an expert partition need the folded grouped cim_mvm form, a "
+            "later slice of the port")
     clock = StageClock(dev) if timed else _untimed
 
     cells_of = fault_maps = None
@@ -359,7 +411,8 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
             pipe = pipe.replace(rows=FaultAwareRows())
         mode = pipe
     with clock("plan"):
-        plans, report = plan_matrices(mats, spec, mode, cache, fault_maps)
+        plans, report = plan_matrices(mats, spec, mode, cache, fault_maps,
+                                      lazy=cache is None)
 
     nf_before = torch.zeros((), dtype=torch.float64, device=dev)
     nf_after = torch.zeros((), dtype=torch.float64, device=dev)
@@ -367,9 +420,9 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
     degraded: dict[str, int] = {}
     cim_tree: dict = {}
     for t, name in enumerate(mats):
-        slot, pname, r = name.split("/")
-        r = int(r)
-        plan = plans.pop(name)
+        slot, pname, idx = _bank_index(name)
+        with clock("plan"):
+            plan = plans.pop(name)
         c = None if cells_of is None else cells_of(name)
         if c is not None and c.stuck is not None:
             stuck_cells += int((c.stuck != 0).sum())
@@ -391,8 +444,9 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
         del plan, c
         slot_deps = cim_tree.setdefault(slot, {})
         if pname not in slot_deps:
-            slot_deps[pname] = _stack(params[slot][pname].shape[0], dep, dev)
-        _put(slot_deps[pname], r, dep)
+            lead = tuple(params[slot][pname].shape[:len(idx)])
+            slot_deps[pname] = _stack(lead, dep, dev)
+        _put(slot_deps[pname], idx, dep)
     for i, bt in enumerate(cfg.block_pattern):
         cim_tree.setdefault(f"slot{i}_{bt}", {})
     if capture:

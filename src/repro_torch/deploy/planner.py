@@ -14,6 +14,9 @@ probes in a thread pool, one manifest read for a checkpoint deployed
 before, else one probe an entry), plans only the misses and writes
 their entries and the manifest.  Keys and entries are the reference's.
 
+Without a cache, a deploy plans lazily (:class:`LazyPlans`): each
+matrix right before it is packaged.
+
 Fault maps (name -> (Ti, Tn, rows, cols) int8 physical cell states)
 feed the fault-consuming passes and enter each key as the reference's
 fault fingerprint; a mapping may produce them lazily (the deployment
@@ -25,6 +28,7 @@ the scale fixed, numpy, XLA and PyTorch agree on it bit for bit.
 """
 from __future__ import annotations
 
+import math
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Mapping
@@ -101,10 +105,25 @@ def _host_plan(plan: MdmPlan) -> MdmPlan:
         "col_perm", "col_position") if getattr(plan, f) is not None})
 
 
+class LazyPlans:
+    """name -> plan of an uncached deploy, each matrix planned when it is
+    popped (:func:`plan_matrices` with ``lazy``): the deploy packages a
+    matrix right after, so one plan is alive at a time (an MoE bank's
+    4,320 plans at once would hold ~12 GB of int32 permutations)."""
+
+    def __init__(self, mats, spec, pipe, fault_maps):
+        self._mats, self._spec = mats, spec
+        self._pipe, self._faults = pipe, fault_maps
+
+    def pop(self, name: str) -> MdmPlan:
+        fm = None if self._faults is None else self._faults.get(name)
+        return plan_matrix(self._mats[name], self._spec, self._pipe, fm)[0]
+
+
 def plan_matrices(mats: Mapping[str, torch.Tensor], spec: CrossbarSpec,
                   mode: str | MappingPipeline = "mdm",
                   cache: PlanCache | None = None,
-                  fault_maps: Mapping | None = None
+                  fault_maps: Mapping | None = None, lazy: bool = False
                   ) -> tuple[dict[str, MdmPlan], dict]:
     """Plan every (I, N) matrix of ``mats``, through ``cache`` if given.
 
@@ -117,6 +136,9 @@ def plan_matrices(mats: Mapping[str, torch.Tensor], spec: CrossbarSpec,
     device) steers the fault-consuming passes (the legacy sorting
     modes resolve to fault-aware rows) and keys their plans; a pipeline
     none of whose passes consumes faults drops them, as the reference's.
+    ``lazy`` (without a cache) returns a :class:`LazyPlans` instead,
+    which plans each matrix when the caller pops it; the report counts
+    the tiles those plans will cover.
     """
     pipe = resolve_pipeline(mode, fault_maps is not None)
     if not (pipe.rows.uses_faults or pipe.cols.uses_faults):
@@ -125,6 +147,12 @@ def plan_matrices(mats: Mapping[str, torch.Tensor], spec: CrossbarSpec,
         if w.ndim != 2:
             raise ValueError(f"{name}: expected a 2-D matrix, got "
                              f"{tuple(w.shape)}")
+    if lazy and cache is None:
+        tiles = sum(math.prod(spec.grid(*w.shape)) for w in mats.values())
+        return LazyPlans(mats, spec, pipe, fault_maps), {
+            "n_matrices": len(mats), "cache_hits": 0,
+            "cache_misses": len(mats), "manifest_hit": False,
+            "tiles_planned": tiles}
     plans: dict[str, MdmPlan] = {}
     keys: dict[str, str] = {}
     misses = list(mats)

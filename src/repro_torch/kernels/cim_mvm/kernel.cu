@@ -85,6 +85,12 @@
 //   exactly zero, so that product is skipped: two wgmma a k step.  The
 //   batched folded decode form (a group of members in one launch) stages
 //   Wg slabs the same way and runs its product on mma.sync tensor cores.
+//
+// Grouped ideal form (an MoE expert bank, cim_grouped_kernel below): the
+// counterpart of jax.vmap(cim_mvm) over the expert axis.  Each expert's
+// rows of a compact, expert-sorted x go through that expert's W',
+// expanded from its codes and pos a slab at a time; an expert without
+// rows reads nothing.
 // x may be f32 or bf16 (read directly, exact in f32); y is f32.
 //
 // Rounding.  M0 and M1 are exact (integers times 2^-K); the rest of the
@@ -119,16 +125,20 @@ constexpr int BT_STAGES = 4;   // batched: ring of staged slabs
 constexpr int BT_BLOCKS = 2;   // batched: blocks a SM it is built for
 constexpr int BT_WLD = BT_BN + 8;  // batched: a staged row of Wg (floats)
 constexpr int BT_XLD = BT_BK + 4;  // batched: a staged or split row of x
+constexpr int GR_BM = 32;      // grouped: rows of an expert a block
+constexpr int GR_BN = 128;     // grouped: columns a block
+constexpr int GR_BK = 32;      // grouped: rows of I a slab
 // Geom.form: the ideal decode and prefill forms, the folded ones, the fold,
-// the batched folded decode form.
+// the batched folded decode form, the grouped ideal form.
 constexpr int FORM_DECODE = 0, FORM_PREFILL = 1, FORM_DECODE_FOLDED = 2,
               FORM_PREFILL_FOLDED = 3, FORM_FOLD = 4,
-              FORM_DECODE_BATCHED = 5;
+              FORM_DECODE_BATCHED = 5, FORM_GROUPED = 6;
 
 // Launch geometry, computed by ops.py::cim_geometry / fold_geometry /
-// batched_geometry (same order).  ``gz``: the folded prefill form's split
-// of I (a cluster of gz blocks), the batched form's members, 1
-// elsewhere; the batched form's ``gx`` blocks are persistent, in
+// batched_geometry / grouped_geometry (same order).  ``gz``: the folded
+// prefill form's split of I (a cluster of gz blocks), the batched form's
+// members, the grouped form's experts, 1 elsewhere; the grouped form's
+// ``M`` is the most rows an expert computes (the capacity); the batched form's ``gx`` blocks are persistent, in
 // clusters of ``gy`` that split I; ``ld``: the row stride of Wg (folded
 // forms and the fold);
 // ``noise``: the read draws noise; ``rows``, ``n_ti``, ``cp_ti``,
@@ -1141,6 +1151,166 @@ cim_decode_batched_kernel(const void* __restrict__ x_all,
   tf32::cp_async_wait<0>();
 }
 
+// --------------------------------------------------------------- grouped
+
+// The grouped ideal form: the counterpart of the reference's
+// jax.vmap(cim_mvm) over the expert axis of an MoE bank
+// (src/repro/models/moe.py::_expert_mm over kernel.py::cim_mvm_pallas).
+// A deployment stacked over E experts (codes (E, I_pad, N_pad), pos (E,
+// I_pad, N_tiles), scale (E,)) and x (A, I) sorted by expert: expert e
+// owns the rows [offsets[e], min(offsets[e+1], offsets[e] + cap)) of x
+// and y (cap = geom M), and y rows = x rows @ W'_e.  The offsets stay on
+// the device (no host sync for the routing's counts); the grid, (N / BN,
+// cap / BM, E), comes from the host-known cap, and a block whose rows
+// are empty returns before it reads a byte, so an expert no token chose
+// reads none of its weights.  Bound by bytes at decode (2.5 bytes a
+// weight of every hit expert, a few rows each) and by the FMAs at
+// prefill.  A simple form: CUDA-core f32 FMAs in a fixed order (the
+// rows of I in ascending order, one sum an output), so two calls give
+// bit-identical results.
+//
+// Block: BM rows of one expert by BN columns, I in slabs of BK rows.  A
+// slab of W' (BK x BN) is expanded once a block into shared memory with
+// the ideal forms' rounded operations (the eta*M1 table on the 16-byte
+// path, so W' is bit-identical to the plain version's), beside the slab
+// of x transposed to [k][m]; the next slab's codes, pos and x are loaded
+// into registers while this slab's products run.  Thread t expands 8
+// columns of two slab rows and sums a 4 x 4 tile of y; a warp whose
+// rows lie past the expert's last row skips the products (at decode an
+// expert has a row or a few, so one warp computes).
+template <bool FAST>
+__global__ void __launch_bounds__(THREADS)
+cim_grouped_kernel(const void* __restrict__ x,
+                   const int16_t* __restrict__ codes,
+                   const int32_t* __restrict__ pos,
+                   const float* __restrict__ scale_ptr,
+                   const int32_t* __restrict__ offsets,
+                   float* __restrict__ out, long long cstride,
+                   long long pstride, Geom g, float eta) {
+  const int e = blockIdx.z;
+  const int a0 = offsets[e];
+  const int a1 = min(offsets[e + 1], a0 + g.M);
+  const int r0 = a0 + blockIdx.y * GR_BM;
+  if (r0 >= a1) return;                  // block-uniform: no row, no read
+  const int mrows = min(GR_BM, a1 - r0);
+
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* xs = smem;                      // [BK][BM] x, transposed
+  float* ws = xs + GR_BK * GR_BM;        // [BK][BN] W'
+  float* table = ws + GR_BK * GR_BN;     // [wpt][2^K] eta * M1   (FAST)
+  const int16_t* ce = codes + (size_t)e * cstride;
+  const int32_t* pe = pos + (size_t)e * pstride;
+  const float scale = scale_ptr[e];
+  const float unit = ldexpf(1.0f, -g.n_bits);
+  const int tid = threadIdx.x;
+  const int nb = blockIdx.x * GR_BN;
+  // Expansion: 8 columns dc.. of the block, slab rows dr and dr + 16.
+  const int dc = (tid % 16) * 8, dr = tid / 16;
+  const int n0 = nb + dc;
+  const bool col_ok = n0 < g.n_pad;
+  const int slot0 = n0 % g.wpt, tile_n = n0 / g.wpt;
+  // x: row xm of the block, slab columns xk .. xk + 3.
+  const int xm = tid % GR_BM, xk = (tid / GR_BM) * 4;
+  // Products: rows pr .. pr + 3 (one warp a row quad), columns pc .. +3.
+  const int pc = (tid % 32) * 4, pr = (tid / 32) * 4;
+  const bool active = pr < mrows;
+
+  if (FAST) build_table(table, g.wpt, g.n_bits, g.cols, g.reversed, eta,
+                        unit);
+
+  int4 cv[2];
+  int pv[2];
+  float xv[4];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = k0 + dr + 16 * u;
+      const bool ok = FAST && col_ok && i < g.I;
+      cv[u] = ok ? __ldg(reinterpret_cast<const int4*>(
+                       ce + (size_t)i * g.n_pad + n0))
+                 : make_int4(0, 0, 0, 0);
+      pv[u] = ok ? __ldg(pe + (size_t)i * g.n_tiles + tile_n) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + xk + j;
+      xv[j] = xm < mrows && k < g.I
+                  ? load_x(x, (size_t)(r0 + xm) * g.I + k, g.xbf16)
+                  : 0.0f;
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  load(0);
+  for (int k0 = 0; k0 < g.I; k0 += GR_BK) {
+    __syncthreads();                     // the last slab's products done
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int row = dr + 16 * u, i = k0 + row;
+      float w[8];
+      if (FAST) {
+        const float rf = row_factor(pv[u], eta);
+        const int words[4] = {cv[u].x, cv[u].y, cv[u].z, cv[u].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int lo = (int)(int16_t)(words[q] & 0xFFFF);
+          const int hi = words[q] >> 16;
+          w[2 * q] = expand_fast(
+              lo, rf, table_row(table, slot0 + 2 * q, g.n_bits), unit, scale);
+          w[2 * q + 1] = expand_fast(
+              hi, rf, table_row(table, slot0 + 2 * q + 1, g.n_bits), unit,
+              scale);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n = n0 + j;
+          const bool ok = n < g.n_pad && i < g.I;
+          const int code = ok ? ce[(size_t)i * g.n_pad + n] : 0;
+          const int p = ok ? pe[(size_t)i * g.n_tiles + n / g.wpt] : 0;
+          w[j] = expand_row(code, row_factor(p, eta), (n % g.wpt) * g.n_bits,
+                            unit, scale, eta, g.n_bits, g.cols, g.reversed);
+        }
+      }
+      float4* dst = reinterpret_cast<float4*>(ws + row * GR_BN + dc);
+      dst[0] = make_float4(w[0], w[1], w[2], w[3]);
+      dst[1] = make_float4(w[4], w[5], w[6], w[7]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) xs[(xk + j) * GR_BM + xm] = xv[j];
+    __syncthreads();
+    if (k0 + GR_BK < g.I) load(k0 + GR_BK);
+    if (active) {
+#pragma unroll 8
+      for (int k = 0; k < GR_BK; ++k) {
+        const float4 a = *reinterpret_cast<const float4*>(xs + k * GR_BM + pr);
+        const float4 b = *reinterpret_cast<const float4*>(ws + k * GR_BN + pc);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (pr + i >= mrows) break;
+    float* yr = out + (size_t)(r0 + pr + i) * g.N;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (nb + pc + j < g.N) yr[nb + pc + j] = acc[i][j];
+  }
+}
+
 // --------------------------------------------------------------- prefill
 
 // Both prefill forms: x (the B operand) in shared memory as TF32 hi and
@@ -1883,6 +2053,35 @@ extern "C" int cim_mvm_batched_launch(const void* x, const float* wf,
   return (int)err;
 }
 
+// The grouped ideal form (geom form 6, ops.py::grouped_geometry): expert
+// z of geom gz reads its codes at codes + z * cstride, its pos at pos +
+// z * pstride and scale[z], and computes the rows [offsets[z],
+// min(offsets[z + 1], offsets[z] + geom M)) of y (A, geom N) from those
+// rows of x (A, geom I; f32, or bf16 with geom xbf16).
+extern "C" int cim_mvm_grouped_launch(const void* x, const int16_t* codes,
+                                      const int32_t* pos, const float* scale,
+                                      const int32_t* offsets, float* out,
+                                      long long cstride, long long pstride,
+                                      const int* geom, float eta,
+                                      void* stream_ptr) {
+  Geom g;
+  memcpy(&g, geom, sizeof(Geom));
+  if (g.form != FORM_GROUPED || g.tile != GR_BN || g.M < 1 || g.I < 1 ||
+      g.gz < 1 || !offsets ||
+      (g.fast && ((reinterpret_cast<uintptr_t>(codes) & 15) || cstride % 8 ||
+                  g.n_pad % 8 || g.wpt % 8)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream_ptr;
+  cudaError_t err =
+      g.fast ? launch<cim_grouped_kernel<true>>(g, s, x, codes, pos, scale,
+                                                offsets, out, cstride,
+                                                pstride, g, eta)
+             : launch<cim_grouped_kernel<false>>(g, s, x, codes, pos, scale,
+                                                 offsets, out, cstride,
+                                                 pstride, g, eta);
+  return (int)err;
+}
+
 // Wg = W'(col_pos) * gain into ``wf`` (geom I = I_pad rows of geom ld
 // floats), once a deployment: ``gain`` and ``colp`` may be null.
 // Geometry from ops.py::fold_geometry (geom form 4).
@@ -1938,6 +2137,10 @@ extern "C" int cim_occupancy(const int* geom, int* out) {
                                : occupancy_batched<true, false>(g, out))
                     : (g.xbf16 ? occupancy_batched<false, true>(g, out)
                                : occupancy_batched<false, false>(g, out));
+      break;
+    case FORM_GROUPED:
+      err = g.fast ? occupancy<cim_grouped_kernel<true>>(g, 1, out)
+                   : occupancy<cim_grouped_kernel<false>>(g, 1, out);
       break;
     case FORM_FOLD:
       if (g.fast)

@@ -31,6 +31,7 @@ from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import runtime
 from repro_torch.kernels.cim_mvm.ref import (
     cim_mvm_batched_plain,
+    cim_mvm_grouped_plain,
     cim_mvm_plain,
     folded_weights,
 )
@@ -176,11 +177,14 @@ PREFILL_SPLITS = (8, 4, 2)         # folded prefill: splits of I, widest first
 # BATCHED_XLD floats, Wg at BATCHED_WLD.
 BATCHED_BN, BATCHED_BK, BATCHED_STAGES, BATCHED_BLOCKS = 128, 32, 4, 2
 BATCHED_WLD, BATCHED_XLD = BATCHED_BN + 8, BATCHED_BK + 4
+# The grouped ideal form: blocks of GROUPED_BM rows of an expert by
+# GROUPED_BN columns, I in slabs of GROUPED_BK rows.
+GROUPED_BM, GROUPED_BN, GROUPED_BK = 32, 128, 32
 SMEM_MAX = 227 * 1024
 # kernel.cu's Geom.form: the ideal forms, the folded forms, the fold, the
-# batched folded decode form.
+# batched folded decode form, the grouped ideal form.
 FORM_DECODE, FORM_PREFILL, FORM_DECODE_FOLDED, FORM_PREFILL_FOLDED, \
-    FORM_FOLD, FORM_DECODE_BATCHED = range(6)
+    FORM_FOLD, FORM_DECODE_BATCHED, FORM_GROUPED = range(7)
 # The fields of kernel.cu's ``Geom``, in order.
 _GEOM_FIELDS = ("form", "M", "I", "N", "n_pad", "n_tiles", "wpt", "n_bits",
                 "cols", "reversed", "fast", "tile", "rps", "gx", "gy", "gz",
@@ -350,6 +354,29 @@ def batched_geometry(members: int, M: int, I: int, N: int, i_pad: int,
 
 
 @functools.lru_cache(maxsize=None)
+def grouped_geometry(experts: int, cap: int, I: int, N: int, n_pad: int,
+                     wpt: int, n_bits: int, cols: int, reversed_df: bool,
+                     aligned: bool, xbf16: bool = False) -> runtime.Geometry:
+    """The grouped ideal form's launch: ``experts`` deployments of one
+    shape, each computing at most ``cap`` rows of x (A, I).  Grid
+    (ceil(N / 128), ceil(cap / 32), experts); shared memory holds a slab
+    of x (32 x 32), a slab of W' (32 x 128) and, on the 16-byte path
+    (``fast``: ``aligned`` codes, wpt and n_pad multiples of 8), the
+    eta*M1 table."""
+    fast = _fast(aligned, n_pad, wpt, n_bits)
+    floats = GROUPED_BK * (GROUPED_BM + GROUPED_BN)
+    g = dict(form=FORM_GROUPED, M=cap, I=I, N=N, n_pad=n_pad,
+             n_tiles=n_pad // wpt, wpt=wpt, n_bits=n_bits, cols=cols,
+             reversed=int(reversed_df), fast=int(fast), tile=GROUPED_BN,
+             rps=0, gx=math.ceil(N / GROUPED_BN),
+             gy=math.ceil(cap / GROUPED_BM), gz=experts,
+             smem=4 * (floats + (_table(wpt, n_bits) if fast else 0)),
+             off_t=floats, off_p=0, mt=0, xbf16=int(xbf16), ld=0, noise=0,
+             rows=0, n_ti=0, cp_ti=0, cp_tn=0)
+    return runtime.Geometry.of(_GEOM_FIELDS, g)
+
+
+@functools.lru_cache(maxsize=None)
 def fold_geometry(i_pad: int, n_pad: int, wpt: int, n_bits: int, cols: int,
                   reversed_df: bool, aligned: bool, rows: int = 0
                   ) -> runtime.Geometry:
@@ -387,7 +414,8 @@ def fold_geometry(i_pad: int, n_pad: int, wpt: int, n_bits: int, cols: int,
 
 def occupancy(geom: runtime.Geometry) -> dict:
     """Occupancy of the kernel that a launch with ``geom`` runs
-    (:func:`cim_geometry`, :func:`fold_geometry`), from the CUDA
+    (:func:`cim_geometry`, :func:`fold_geometry`, :func:`batched_geometry`,
+:func:`grouped_geometry`), from the CUDA
     runtime's occupancy calculator: ``blocks_per_sm`` resident blocks a
     SM and, for a cluster launch, ``clusters`` the card holds at once
     (else None)."""
@@ -605,6 +633,84 @@ def cim_mvm_batched(x: torch.Tensor, dep: CimDeployment,
     if dev.type == "cpu":
         return cim_mvm_batched_plain(x, dep, read_seed, reps)
     return _launch_batched(x, dep, read_seed, reps)
+
+
+def _launch_grouped(x: torch.Tensor, dep: CimDeployment,
+                    offsets: torch.Tensor, cap: int) -> torch.Tensor:
+    E, i_pad, n_pad = dep.codes.shape
+    codes, pos, scale = dep.codes, dep.pos, dep.scale
+    if codes.dtype != torch.int16 or pos.dtype != torch.int32 \
+            or scale.dtype != torch.float32 or pos.shape != (
+                E, i_pad, n_pad // dep.wpt) or scale.shape != (E,) \
+            or not (codes.is_contiguous() and pos.is_contiguous()
+                    and scale.is_contiguous()):
+        raise ValueError("the grouped cim_mvm form takes contiguous int16 "
+                         "codes (E, I_pad, N_pad), int32 pos (E, I_pad, "
+                         "N_tiles) and an f32 scale (E,)")
+    if dep.n_bits > 16 or dep.cols << dep.n_bits >= 1 << 24:
+        raise ValueError("cim_mvm kernel takes n_bits <= 16 and "
+                         "cols * 2^n_bits < 2^24 (exact integer moments)")
+    out = torch.zeros((x.shape[0], dep.out_dim), dtype=torch.float32,
+                      device=x.device)
+    if out.numel() == 0 or cap == 0:
+        return out
+    geom = grouped_geometry(E, cap, dep.in_dim, dep.out_dim, n_pad, dep.wpt,
+                            dep.n_bits, dep.cols, dep.reversed_df,
+                            codes.data_ptr() % 16 == 0,
+                            x.dtype == torch.bfloat16)
+    rc = runtime.library().cim_mvm_grouped_launch(
+        x.data_ptr(), codes.data_ptr(), pos.data_ptr(), scale.data_ptr(),
+        offsets.data_ptr(), out.data_ptr(), i_pad * n_pad,
+        i_pad * (n_pad // dep.wpt), geom.array, dep.eta,
+        runtime.stream_arg(out.device))
+    runtime.count_launch("cim_mvm_grouped")
+    runtime.check_status("cim_mvm_grouped", rc)
+    return out
+
+
+def cim_mvm_grouped(x: torch.Tensor, dep: CimDeployment,
+                    offsets: torch.Tensor, cap: int | None = None,
+                    device: str | torch.device = "cuda") -> torch.Tensor:
+    """Expert e's rows of y = those rows of x @ W'_e, in one launch: the
+    counterpart of the reference's ``jax.vmap(cim_mvm)`` over the expert
+    axis of an MoE bank (``repro.models.moe._expert_mm``).
+
+    x: (A, in_dim) f32 or bf16 (other types are cast to f32), its rows
+    sorted by expert; ``dep``: a deployment stacked over E experts (a
+    leading expert axis), ideal (no gain, col_pos or read noise: the
+    folded grouped form is a later slice); ``offsets``: (E + 1,) int32
+    on the device, expert e owning the rows [offsets[e], offsets[e+1]);
+    ``cap``: the most rows an expert computes (default A), its rows past
+    ``offsets[e] + cap`` dropped.  Returns (A, out_dim) f32, zero on
+    every row no expert computes: the grouped ideal form on CUDA, its
+    plain version (a loop of :func:`cim_mvm`'s over the experts) on the
+    CPU.  The offsets never go to the host: the launch is sized by
+    ``cap``, and an expert without rows reads no weight.
+    """
+    dev = resolve_device(device)
+    check_on(dev, x=x, codes=dep.codes, pos=dep.pos, scale=dep.scale,
+             offsets=offsets, gain=dep.gain, col_pos=dep.col_pos,
+             folded=dep.folded)
+    E = dep.codes.shape[0]
+    if dep.codes.ndim != 3 or x.ndim != 2 or x.shape[1] != dep.in_dim \
+            or offsets.shape != (E + 1,) or offsets.dtype != torch.int32:
+        raise ValueError(f"the grouped cim_mvm form takes x (A, "
+                         f"{dep.in_dim}), a deployment stacked over experts "
+                         f"and int32 offsets (E + 1,), not x "
+                         f"{tuple(x.shape)}, codes {tuple(dep.codes.shape)}, "
+                         f"offsets {tuple(offsets.shape)} {offsets.dtype}")
+    if needs_fold(dep) or dep.folded is not None:
+        raise NotImplementedError(
+            "the grouped cim_mvm form reads ideal deployments; a gain, "
+            "col_pos or read noise on an expert bank needs the folded "
+            "grouped form, a later slice of the port")
+    cap = x.shape[0] if cap is None else int(cap)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    x = x.contiguous()
+    if dev.type == "cpu":
+        return cim_mvm_grouped_plain(x, dep, offsets, cap)
+    return _launch_grouped(x, dep, offsets.contiguous(), cap)
 
 
 def cim_mvm(x: torch.Tensor, dep: CimDeployment, read_seed: int | None = None,

@@ -7,7 +7,8 @@ column permutation, gain and read noise applied in the reference's
 order, and multiplied with ``torch.matmul``.  The read noise comes from
 :func:`read_noise`, the kernel's Philox4x32-10 in int64 arithmetic.
 ``cim_mvm_ref`` is the independent oracle through the materialised
-Eq-17 path (``repro_torch.core.noise.noisy_magnitude``).
+Eq-17 path (``repro_torch.core.noise.noisy_magnitude``).  The batched
+and grouped forms' plain versions are loops of ``cim_mvm_plain``.
 """
 from __future__ import annotations
 
@@ -165,3 +166,21 @@ def cim_mvm_batched_plain(x: torch.Tensor, dep, read_seed: int | None = None,
     reps = range(dep.codes.shape[0]) if members is None else members
     return torch.stack([cim_mvm_plain(x[g], dep.layer(int(r)), read_seed)
                         for g, r in enumerate(reps)])
+
+
+def cim_mvm_grouped_plain(x: torch.Tensor, dep, offsets,
+                          cap: int | None = None) -> torch.Tensor:
+    """The grouped form's plain version: for x (A, in_dim) sorted by
+    expert and a deployment stacked over E experts, the rows [offsets[e],
+    min(offsets[e+1], offsets[e] + cap)) of y are :func:`cim_mvm_plain`
+    of those rows of x through expert e; every other row is 0.  Returns
+    (A, out_dim) f32."""
+    off = [int(o) for o in torch.as_tensor(offsets).tolist()]
+    cap = x.shape[0] if cap is None else int(cap)
+    y = torch.zeros((x.shape[0], dep.out_dim), dtype=torch.float32,
+                    device=x.device)
+    for e in range(dep.codes.shape[0]):
+        a, b = off[e], min(off[e + 1], off[e] + cap)
+        if b > a:
+            y[a:b] = cim_mvm_plain(x[a:b], dep.layer(e))
+    return y

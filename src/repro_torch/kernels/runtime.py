@@ -37,7 +37,8 @@ SOURCES = ("cim_mvm/kernel.cu", "flash_attention/kernel.cu",
 HEADERS = ("tf32_mma.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("cim_mvm", "cim_fold", "cim_mvm_batched", "flash_attention",
+KERNELS = ("cim_mvm", "cim_fold", "cim_mvm_batched", "cim_mvm_grouped",
+           "flash_attention",
            "manhattan_score", "slstm_scan", "bitslice_pack", "line_solve")
 
 _P = ctypes.c_void_p
@@ -51,6 +52,7 @@ _ARGTYPES = {
     "cim_mvm_launch": [_P] * 6 + [_F, _P, _U, _U, _F, _P],
     "cim_fold_launch": [_P] * 7 + [_F, _P],
     "cim_mvm_batched_launch": [_P, _P, _L] + [_P] * 5 + [_U, _F, _P],
+    "cim_mvm_grouped_launch": [_P] * 6 + [_L, _L, _P, _F, _P],
     "cim_occupancy": [_P, _P],
     "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _P, _P],
     "flash_occupancy": [_P, _I, _P],
@@ -177,6 +179,7 @@ def _self_check(lib: ctypes.CDLL) -> None:
         batched_geometry,
         cim_geometry,
         fold_geometry,
+        grouped_geometry,
     )
     from repro_torch.kernels.flash_attention.ops import flash_geometry
     from repro_torch.kernels.line_solve.ops import GEOM_FIELDS as LINE_FIELDS
@@ -218,6 +221,19 @@ def _self_check(lib: ctypes.CDLL) -> None:
                     x.data_ptr(), wf2.data_ptr(), 512, scale.data_ptr(),
                     reps.data_ptr(), tags.data_ptr(), out.data_ptr(),
                     geom.array, 0, 0.1 if noise else 0.0, stream)
+    # The grouped ideal form, both instances (16-byte codes or not), over
+    # two experts of 8 x 8 with offsets [0, 1, 3].
+    offs = torch.tensor([0, 1, 3], dtype=torch.int32, device=dev)
+    codes2, pos2, scale2 = (z(2, 8, 8, dt=torch.int16),
+                            z(2, 8, 1, dt=torch.int32), z(2))
+    for aligned in (True, False):
+        x, out = z(3, 8, dt=torch.bfloat16), z(3, 8)
+        geom = grouped_geometry(2, 2, 8, 8, 8, 8, 8, 64, False, aligned,
+                                True)
+        rc[f"cim_mvm_grouped fast={aligned}"] = lib.cim_mvm_grouped_launch(
+            x.data_ptr(), codes2.data_ptr(), pos2.data_ptr(),
+            scale2.data_ptr(), offs.data_ptr(), out.data_ptr(), 64, 8,
+            geom.array, 0.0, stream)
     # Both forms in f32 and in bf16, and the bf16 decode split over a
     # cluster of 2.
     for Sq, bf16, split in ((1, False, None), (17, False, None),

@@ -13,7 +13,10 @@ from repro_torch.mapping.columns import (  # noqa: F401
     SpareLineCols,
     XChangrCols,
 )
-from repro_torch.mapping.partition import DensePartition  # noqa: F401
+from repro_torch.mapping.partition import (  # noqa: F401
+    DensePartition,
+    ExpertPartition,
+)
 from repro_torch.mapping.pipeline import (  # noqa: F401
     LEGACY_MODES,
     MappingPipeline,

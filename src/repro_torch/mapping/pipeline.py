@@ -10,7 +10,8 @@ the historical mode string for exactly those combinations (with
 separately) and ``"pipe:df=...;row=...;col=..."`` from the pass
 fingerprints for every other one — the reference's tokens, so the two
 packages address the same plan-cache entries.  The named pipelines are
-the reference's, without ``mdm_expert`` (MoE comes later).
+the reference's; ``mdm_expert`` deploys MoE expert banks one expert a
+matrix (its token is MDM's: the partition never enters a plan key).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import dataclasses
 
 from repro_torch.mapping.base import Strategy, available, get_strategy
 from repro_torch.mapping.columns import IdentityCols, SpareLineCols, XChangrCols
-from repro_torch.mapping.partition import DensePartition
+from repro_torch.mapping.partition import DensePartition, ExpertPartition
 from repro_torch.mapping.rows import (
     FaultAwareRows,
     IdentityRows,
@@ -116,6 +117,7 @@ _NAMED = {
                                            cols=XChangrCols()),
     "spare_line": MappingPipeline(rows=SpareLineRows(),
                                   cols=SpareLineCols()),
+    "mdm_expert": MappingPipeline(partition=ExpertPartition()),
 }
 
 

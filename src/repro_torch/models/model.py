@@ -1,7 +1,8 @@
-"""Model assembly of the port: the dense ``"attn"`` decoder and the
-xLSTM ``("mlstm", "slstm")`` stack.
+"""Model assembly of the port: the ``"attn"`` decoder (SwiGLU MLP or
+routed MoE, optional q/k/v biases) and the xLSTM ``("mlstm", "slstm")``
+stack.
 
-Port of the dense and xLSTM paths of ``repro.models.model``.  The
+Port of the dense, MoE and xLSTM paths of ``repro.models.model``.  The
 reference scans its stacked layers with ``lax.scan``; here a Python loop
 walks ``for r in repeats: for slot in pattern`` (the reference's scan
 order) and takes each layer's views of the stacked parameters, decode
@@ -12,12 +13,14 @@ O(1) states (mLSTM ``S``/``n``, sLSTM ``h``/``c``).
 
 With a ``cim`` deployment tree (``cfg.cim.enabled`` serving, built by
 ``repro_torch.deploy.deploy_model_params``), every attention q/k/v/o
-and SwiGLU projection runs through ``cim_mvm`` and every attention
-through ``flash_attention``: the hand-written kernels on CUDA tensors.
+and SwiGLU projection runs through ``cim_mvm``, every deployed MoE
+expert bank through ``cim_mvm``'s grouped form (``models/moe.py``) and
+every attention through ``flash_attention``: the hand-written kernels on
+CUDA tensors.
 As in the reference, the mLSTM and sLSTM blocks take no deployment:
 their projections stay digital even where the deploy planned them.
-Every sLSTM recurrence runs through ``slstm_scan``.  Which three
-functions a forward calls is one :class:`Ops` triple handed to
+Every sLSTM recurrence runs through ``slstm_scan``.  Which four
+functions a forward calls is one :class:`Ops` tuple handed to
 :func:`apply_model`: :data:`KERNELS` (the default) or :data:`PLAIN`,
 the plain PyTorch versions, which validate the kernels on the card.
 
@@ -41,8 +44,11 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, check_supported
-from repro_torch.kernels.cim_mvm.ops import cim_mvm
-from repro_torch.kernels.cim_mvm.ref import cim_mvm_plain
+from repro_torch.kernels.cim_mvm.ops import cim_mvm, cim_mvm_grouped
+from repro_torch.kernels.cim_mvm.ref import (
+    cim_mvm_grouped_plain,
+    cim_mvm_plain,
+)
 from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
 from repro_torch.models import schema as sch
 from repro_torch.models.attention import (
@@ -51,6 +57,7 @@ from repro_torch.models.attention import (
     flash_attention_plain,
     rope,
 )
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.recurrent import (
     mlstm_decode,
     mlstm_mixer,
@@ -72,18 +79,22 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Ops(NamedTuple):
-    """The three kernels a forward pass calls.
+    """The four kernels a forward pass calls.
 
     ``matmul(x, dep, read_seed)``: x (..., in_dim) through one
     ``CimDeployment`` (``read_seed`` None: a noiseless read);
     ``attention(q, k, v, q_pos, k_pos, window, chunk)``: causal
     attention over absolute positions;
     ``slstm_scan(gx, r_gates, h0, c0) -> (hs, hT, cT)``: the sLSTM
-    recurrence.
+    recurrence;
+    ``grouped(x, dep, offsets, cap) -> y``: x (A, in_dim) sorted by
+    expert through an expert bank (``dep`` stacked over experts), expert
+    e's rows [offsets[e], min(offsets[e+1], offsets[e] + cap)) (f32).
     """
     matmul: Callable[..., torch.Tensor]
     attention: Callable[..., torch.Tensor]
     slstm_scan: Callable[..., tuple]
+    grouped: Callable[..., torch.Tensor]
 
 
 def _matmul_kernel(x: torch.Tensor, dep, read_seed=None) -> torch.Tensor:
@@ -100,8 +111,14 @@ def _attention_kernel(q, k, v, q_pos, k_pos, window, chunk):
                            window=window, chunk=chunk, device=q.device)
 
 
-KERNELS = Ops(_matmul_kernel, _attention_kernel, slstm_scan_kernel)
-PLAIN = Ops(_matmul_plain, flash_attention_plain, slstm_scan_plain)
+def _grouped_kernel(x, dep, offsets, cap):
+    return cim_mvm_grouped(x, dep, offsets, cap, device=x.device)
+
+
+KERNELS = Ops(_matmul_kernel, _attention_kernel, slstm_scan_kernel,
+              _grouped_kernel)
+PLAIN = Ops(_matmul_plain, flash_attention_plain, slstm_scan_plain,
+            cim_mvm_grouped_plain)
 
 
 def _cim_matmul(x: torch.Tensor, w: torch.Tensor, dep, ops: Ops,
@@ -133,7 +150,9 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """Attention sublayer.  ``cache`` holds one layer's ring buffers
     {k (B, C, Hkv, Dh), v, kpos (C,)}, written in place at
     ``positions % C``; with per-lane positions (B, S), ``kpos`` is
-    (B, C) and each lane writes its own slots.  Returns y (B, S, D)."""
+    (B, C) and each lane writes its own slots.  Under ``cfg.qkv_bias``
+    the q, k, v biases are added after the projections, before RoPE.
+    Returns y (B, S, D)."""
     c = (lambda n: None) if cim is None else cim.get
     B, S, _ = x.shape
 
@@ -144,9 +163,11 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
         return _cim_matmul(x, w, dep, ops, read_seed).reshape(
             B, S, *w.shape[-2:])
 
-    q = rope(qkv_proj("wq"), positions, cfg.rope_theta)
-    k = rope(qkv_proj("wk"), positions, cfg.rope_theta)
-    v = qkv_proj("wv")
+    q, k, v = qkv_proj("wq"), qkv_proj("wk"), qkv_proj("wv")
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
         k_all, v_all, k_pos = k, v, positions
@@ -184,8 +205,9 @@ def block_apply(bt: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                 cim: dict | None = None, ops: Ops = KERNELS,
                 read_seed: int | None = None) -> torch.Tensor:
     """One block of type ``bt``: pre-norm mixer, then (``"attn"`` only)
-    pre-norm SwiGLU.  ``state`` is the block's slice of the decode state,
-    advanced in place."""
+    the pre-norm FFN: the MoE with ``cfg.n_experts`` (its aux loss
+    dropped: serving ignores it), else the SwiGLU MLP.  ``state`` is the
+    block's slice of the decode state, advanced in place."""
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     if bt == "attn":
         y = attn_apply(p, h, cfg, positions, state, cim=cim, ops=ops,
@@ -210,7 +232,10 @@ def block_apply(bt: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
     x = x + y
     if bt == "attn" and cfg.mlp_type != "none":
         hf = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-        x = x + dense_mlp(p, hf, cim=cim, ops=ops, read_seed=read_seed)
+        if cfg.n_experts:
+            x = x + moe_ffn(p, hf, cfg, ops.grouped, cim=cim)[0]
+        else:
+            x = x + dense_mlp(p, hf, cim=cim, ops=ops, read_seed=read_seed)
     return x
 
 

@@ -1,12 +1,16 @@
 """Parameter schema of the served models: names, shapes, initialisation.
 
-Port of the ``"attn"``, ``"mlstm"`` and ``"slstm"`` parts of
-``repro.models.schema``.  Names and shapes map 1:1 onto the reference's
-parameter tree: ``embed``, ``final_norm``, ``lm_head`` and one
-``slot{i}_{block}`` dict per entry of the block pattern (for the dense
-decoder ``slot0_attn/{norm, wq, wk, wv, wo, ffn_norm, ffn_w_gate,
-ffn_w_up, ffn_w_down}``; for xLSTM ``slot0_mlstm`` and ``slot1_slstm``),
-the block parameters stacked over the pattern repeats.
+Port of the ``"attn"`` (dense or MoE FFN, optional q/k/v biases),
+``"mlstm"`` and ``"slstm"`` parts of ``repro.models.schema``.  Names
+and shapes map 1:1 onto the reference's parameter tree: ``embed``,
+``final_norm``, ``lm_head`` and one ``slot{i}_{block}`` dict per entry
+of the block pattern (for the dense decoder ``slot0_attn/{norm, wq,
+wk, wv, wo, ffn_norm, ffn_w_up, ffn_w_down, ffn_w_gate}``, with
+``bq``/``bk``/``bv`` under ``qkv_bias``; for an MoE decoder the FFN is
+``ffn_{norm, router, we_gate, we_up, we_down}`` and, with shared
+experts, ``ffn_{ws_gate, ws_up, ws_down, shared_gate}``; for xLSTM
+``slot0_mlstm`` and ``slot1_slstm``), the block parameters stacked
+over the pattern repeats.
 
 The init draws from an explicit ``torch.Generator`` (its numbers differ
 from JAX's for the same seed; reference weights reach the port through
@@ -14,8 +18,10 @@ from JAX's for the same seed; reference weights reach the port through
 reference's ``ParamSpec.stddev()`` exactly as the reference applies it
 to the *stacked* shapes: the repeat axis enters the fan-in, so ``wq``
 (R, D, H, Dh) gets (R*D*H)^-1/2 and the 3-D ``ffn_w_*`` (R, D, F) get
-R^-1/2 (so do the mLSTM ``wq``/``wk``/``wv`` and the sLSTM
-``w_gates``).  That is a reference quirk, kept here on purpose.
+R^-1/2 (so do the mLSTM ``wq``/``wk``/``wv``, the sLSTM ``w_gates``,
+the MoE router (R, D, E) and shared gate (R, D, 1)), while the 4-D
+expert banks (R, E, D, F) get (R*E*D)^-1/2.  That is a reference
+quirk, kept here on purpose.
 """
 from __future__ import annotations
 
@@ -46,19 +52,57 @@ class ParamSpec:
 
 
 def attn_block_schema(cfg: ModelConfig) -> dict:
+    """The ``"attn"`` block: attention (with q/k/v biases under
+    ``qkv_bias``), then its FFN: the routed MoE when ``n_experts`` is
+    set, else the SwiGLU MLP, each under the ``ffn_`` prefix."""
     D, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    Dh, F = cfg.resolved_head_dim, cfg.d_ff
-    return {
+    Dh = cfg.resolved_head_dim
+    s = {
         "norm": ParamSpec((D,), "ones"),
         "wq": ParamSpec((D, H, Dh)),
         "wk": ParamSpec((D, Hkv, Dh)),
         "wv": ParamSpec((D, Hkv, Dh)),
         "wo": ParamSpec((H, Dh, D)),
-        "ffn_norm": ParamSpec((D,), "ones"),
-        "ffn_w_up": ParamSpec((D, F)),
-        "ffn_w_down": ParamSpec((F, D)),
-        "ffn_w_gate": ParamSpec((D, F)),
     }
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec((H, Dh), "zeros")
+        s["bk"] = ParamSpec((Hkv, Dh), "zeros")
+        s["bv"] = ParamSpec((Hkv, Dh), "zeros")
+    ffn = moe_schema(cfg) if cfg.n_experts else mlp_schema(cfg)
+    s.update({f"ffn_{k}": v for k, v in ffn.items()})
+    return s
+
+
+def mlp_schema(cfg: ModelConfig) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    return {
+        "norm": ParamSpec((D,), "ones"),
+        "w_up": ParamSpec((D, F)),
+        "w_down": ParamSpec((F, D)),
+        "w_gate": ParamSpec((D, F)),
+    }
+
+
+def moe_schema(cfg: ModelConfig) -> dict:
+    """Router (D, E), the routed experts' banks (E, D, Fe) / (E, Fe, D)
+    and, with ``n_shared_experts``, the fused shared experts of width
+    ``d_ff`` and their gate (D, 1)."""
+    D, E = cfg.d_model, cfg.n_experts
+    Fe = cfg.moe_d_ff or cfg.d_ff
+    s = {
+        "norm": ParamSpec((D,), "ones"),
+        "router": ParamSpec((D, E)),
+        "we_gate": ParamSpec((E, D, Fe)),
+        "we_up": ParamSpec((E, D, Fe)),
+        "we_down": ParamSpec((E, Fe, D)),
+    }
+    if cfg.n_shared_experts:
+        F = cfg.d_ff
+        s["ws_gate"] = ParamSpec((D, F))
+        s["ws_up"] = ParamSpec((D, F))
+        s["ws_down"] = ParamSpec((F, D))
+        s["shared_gate"] = ParamSpec((D, 1))
+    return s
 
 
 def mlstm_schema(cfg: ModelConfig) -> dict:

@@ -6,7 +6,12 @@ engine deploys every projection matrix onto crossbars at init
 (``repro_torch.deploy.deploy_model_params``: quantise, plan, package, on
 the engine's device), and generation runs every deployed attention and
 MLP projection through ``cim_mvm`` and every attention through
-``flash_attention``.  An xLSTM model serves every sLSTM recurrence
+``flash_attention``.  An MoE model (``cfg.n_experts``) deployed under
+an expert-axis pipeline (``"mdm_expert"``) serves its expert banks
+through ``cim_mvm``'s grouped form, onto ideal devices only: imperfect
+devices (and with them ``health``) on an expert partition raise
+``NotImplementedError`` at deploy (the folded grouped form is a later
+slice).  An xLSTM model serves every sLSTM recurrence
 through ``slstm_scan``; its mLSTM q/k/v are deployed but, as in the
 reference, served digitally, and ``max_seq`` sizes nothing for it (the
 recurrent state is O(1) in the sequence).

@@ -6,6 +6,7 @@ importing the port leaves them out of ``sys.modules``; and its entry points run 
 card unless the caller asks for the CPU, raising where there is none.
 """
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -57,6 +58,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.kernels.slstm_scan, repro_torch.kernels.bitslice_pack\n"
         "import repro_torch.models.recurrent, repro_torch.configs.xlstm_13b\n"
         "import repro_torch.checkpoint, repro_torch.serve.continuous\n"
+        "import repro_torch.models.moe, repro_torch.configs.qwen2_moe_a27b\n"
+        "import repro_torch.configs.mixtral_8x7b, repro_torch.mapping\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n")
@@ -76,7 +79,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.convert import params_from_checkpoint, params_from_numpy
     from repro_torch.core.tiling import CrossbarSpec
     from repro_torch.deploy import deploy_model_params
-    from repro_torch.kernels.cim_mvm import cim_mvm, deploy
+    from repro_torch.kernels.cim_mvm import cim_mvm, cim_mvm_grouped, deploy
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.bitslice_pack import bitslice_pack
     from repro_torch.kernels.manhattan_score import manhattan_score
@@ -106,6 +109,9 @@ def test_entry_points_default_to_the_card():
     q = torch.randn(1, 2, 2, 16)
     pos = torch.arange(2, dtype=torch.int32)
     spec = CrossbarSpec(16, 16, 8)
+    grouped = dataclasses.replace(dep, codes=dep.codes[None], pos=dep.pos[None],
+                                  scale=dep.scale[None])
+    offsets = torch.tensor([0, 2], dtype=torch.int32)
     ideal, faulty = NonidealModel(), NonidealModel(p_stuck_off=0.1)
     calls = [
         lambda: ServeEngine(cfg, params, max_seq=8),
@@ -113,6 +119,7 @@ def test_entry_points_default_to_the_card():
         lambda: load_checkpoint("no-such-directory"),
         lambda: params_from_checkpoint("no-such-directory", cfg),
         lambda: cim_mvm(x, dep),
+        lambda: cim_mvm_grouped(x, grouped, offsets),
         lambda: flash_attention(q, q, q, q_positions=pos, k_positions=pos),
         lambda: manhattan_score(torch.zeros(1, 4, 4, dtype=torch.uint8)),
         lambda: deploy_model_params(params, cfg),
@@ -135,6 +142,7 @@ def test_entry_points_default_to_the_card():
             call()
     # The explicit CPU request runs the plain versions.
     assert cim_mvm(x, dep, device="cpu").shape == (2, 8)
+    assert cim_mvm_grouped(x, grouped, offsets, device="cpu").shape == (2, 8)
 
 
 def test_tensors_on_another_device_are_refused():

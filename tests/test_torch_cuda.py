@@ -996,3 +996,108 @@ def test_batched_solve_on_card_matches_dense_oracle(cuda, precision):
                                       spec)
         np.testing.assert_allclose(res.currents[i].cpu().numpy(), dense,
                                    rtol=1e-7)
+
+
+def _expert_bank(cuda, E, I, N, spec, seed):
+    """E deployments of random (I, N) weights stacked over experts."""
+    from repro_torch.kernels.cim_mvm.ops import CimDeployment
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    deps = [deploy(torch.randn((I, N), generator=g, device=cuda) * 0.02,
+                   CrossbarSpec(*spec), "mdm")[0] for _ in range(E)]
+    stacked = {f: torch.stack([getattr(d, f) for d in deps]).contiguous()
+               for f in ("codes", "pos", "scale")}
+    return dataclasses.replace(deps[0], **stacked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("I,N", [(2048, 1408), (1408, 2048), (200, 72)])
+@pytest.mark.parametrize("routing", ["prefill", "decode", "empty", "at_cap",
+                                     "dropped"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cim_mvm_grouped_vs_plain(cuda, I, N, routing, dtype):
+    """The grouped form at qwen2-moe's expert shapes (E = 60: a prefill
+    of 4 x 128 tokens top-4, capacity 128; a decode step of 4 tokens; an
+    expert with every row and the rest empty; one expert at exactly the
+    capacity; rows past the capacity dropped) and at a ragged shape
+    (spec (16, 16, 8): wpt 2, the general code path), against its plain
+    version: max|kernel - plain| <= 1e-5 * max|plain|, rows no expert
+    computes exactly 0, two calls bit-identical."""
+    from repro_torch.kernels.cim_mvm.ops import cim_mvm_grouped
+    from repro_torch.kernels.cim_mvm.ref import cim_mvm_grouped_plain
+
+    ragged = I == 200
+    E = 6 if ragged else 60
+    spec = (16, 16, 8) if ragged else (64, 64, 8)
+    dep = _expert_bank(cuda, E, I, N, spec, I + N)
+    rng = np.random.default_rng(len(routing))
+    T, K = {"prefill": (512, 4), "decode": (4, 4)}.get(routing, (512, 4))
+    cap = min(128, T * K) if routing != "dropped" else 40
+    if routing in ("prefill", "decode", "dropped"):
+        probs = rng.random((T, E)) ** 3          # uneven loads
+        top = np.argsort(-probs, axis=1, kind="stable")[:, :K]
+        counts = np.bincount(top.reshape(-1), minlength=E)
+        if routing != "dropped":
+            counts = np.minimum(counts, cap)
+    elif routing == "empty":
+        counts = np.zeros(E, np.int64)
+        counts[3] = cap
+    else:                                        # "at_cap"
+        counts = rng.integers(0, cap // 2, E)
+        counts[min(7, E - 1)] = cap
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                           dtype=torch.int32, device=cuda)
+    A = int(counts.sum()) + 1
+    x = torch.randn((A, I), generator=torch.Generator(
+        device=cuda).manual_seed(5), device=cuda).to(dtype)
+    y = cim_mvm_grouped(x, dep, offsets, cap, device=cuda)
+    want = cim_mvm_grouped_plain(x, dep, offsets, cap)
+    err = (y - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+    done = torch.zeros(A, dtype=torch.bool, device=cuda)
+    for e in range(E):
+        a = int(offsets[e])
+        done[a:min(int(offsets[e + 1]), a + cap)] = True
+    assert (y[~done] == 0).all()
+    assert torch.equal(y, cim_mvm_grouped(x, dep, offsets, cap, device=cuda))
+
+
+@pytest.mark.cuda
+def test_cim_mvm_grouped_counts_and_occupancy(cuda):
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.cim_mvm.ops import (
+        cim_mvm_grouped,
+        grouped_geometry,
+        occupancy,
+    )
+
+    dep = _expert_bank(cuda, 4, 128, 64, (64, 64, 8), 1)
+    offsets = torch.tensor([0, 2, 2, 5, 6], dtype=torch.int32, device=cuda)
+    runtime.reset_launch_counts()
+    cim_mvm_grouped(torch.randn((7, 128), device=cuda), dep, offsets, 4,
+                    device=cuda)
+    assert runtime.launch_counts()["cim_mvm_grouped"] == 1
+    occ = occupancy(grouped_geometry(60, 128, 2048, 1408, 1408, 8, 8, 64,
+                                     True, True, True))
+    assert occ["blocks_per_sm"] >= 1 and occ["clusters"] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,C", [(128, 160), (1, 160)])
+def test_flash_kernel_bf16_at_head_dim_128(cuda, Sq, C):
+    """qwen2-moe's attention (16 heads of 128, bf16): the Dh = 128 bf16
+    forms at the path's prefill and decode over a 160-slot cache whose
+    unwritten slots hold EMPTY_POS, against the plain version."""
+    q, k, v = (torch.from_numpy(a).to(cuda).to(torch.bfloat16)
+               for a in _qkv(4, Sq, C, 16, 16, 128, 3))
+    filled = 128 if Sq > 1 else C - 1
+    qpos = torch.arange(filled - Sq, filled, dtype=torch.int32, device=cuda)
+    kpos = torch.full((C,), EMPTY_POS, dtype=torch.int32, device=cuda)
+    kpos[:filled] = torch.arange(filled, dtype=torch.int32, device=cuda)
+    run = lambda: flash_attention(q, k, v, q_positions=qpos,
+                                  k_positions=kpos, device=cuda)
+    out = run()
+    ref = flash_attention_plain(q, k, v, qpos, kpos)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_RTOL,
+                               atol=2e-5)
+    assert torch.equal(out, run())

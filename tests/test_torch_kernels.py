@@ -478,6 +478,9 @@ def test_geometry_constants_mirror_the_kernels():
     assert _cu_constant(cim_cu, "BT_BK") == cim_ops.BATCHED_BK
     assert _cu_constant(cim_cu, "BT_STAGES") == cim_ops.BATCHED_STAGES
     assert _cu_constant(cim_cu, "BT_BLOCKS") == cim_ops.BATCHED_BLOCKS
+    assert _cu_constant(cim_cu, "GR_BM") == cim_ops.GROUPED_BM
+    assert _cu_constant(cim_cu, "GR_BN") == cim_ops.GROUPED_BN
+    assert _cu_constant(cim_cu, "GR_BK") == cim_ops.GROUPED_BK
     for name, base, value in (
             ("BT_WLD", "BT_BN", cim_ops.BATCHED_WLD - cim_ops.BATCHED_BN),
             ("BT_XLD", "BT_BK", cim_ops.BATCHED_XLD - cim_ops.BATCHED_BK)):
@@ -488,12 +491,13 @@ def test_geometry_constants_mirror_the_kernels():
         cim_ops.PREFILL_WLD - cim_ops.PREFILL_BN)
     forms = re.search(r"constexpr int FORM_DECODE = 0, FORM_PREFILL = 1, "
                       r"FORM_DECODE_FOLDED = 2,\s*FORM_PREFILL_FOLDED = 3, "
-                      r"FORM_FOLD = 4,\s*FORM_DECODE_BATCHED = 5;",
+                      r"FORM_FOLD = 4,\s*FORM_DECODE_BATCHED = 5, "
+                      r"FORM_GROUPED = 6;",
                       cim_cu.read_text())
     assert forms and (cim_ops.FORM_DECODE, cim_ops.FORM_PREFILL,
                       cim_ops.FORM_DECODE_FOLDED, cim_ops.FORM_PREFILL_FOLDED,
-                      cim_ops.FORM_FOLD, cim_ops.FORM_DECODE_BATCHED) == (
-                          0, 1, 2, 3, 4, 5)
+                      cim_ops.FORM_FOLD, cim_ops.FORM_DECODE_BATCHED,
+                      cim_ops.FORM_GROUPED) == (0, 1, 2, 3, 4, 5, 6)
     fields = re.search(r"struct Geom \{\s*int ([^;]*);",
                        cim_cu.read_text()).group(1)
     assert tuple(f.strip() for f in fields.split(",")) == \

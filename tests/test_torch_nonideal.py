@@ -270,7 +270,7 @@ def test_pipelines_fingerprints_and_tokens_match_reference():
             j_resolve(spec).cache_token()
     assert resolve_pipeline("mdm", True).rows == \
         resolve_pipeline("fault_aware").rows
-    assert set(named_pipelines()) == set(j) - {"mdm_expert"}
+    assert set(named_pipelines()) == set(j)
 
 
 # --------------------------------- cache ----------------------------------
