@@ -2878,17 +2878,27 @@ def _routing_stats(eng, prompts, steps: int = 3):
 
 
 def _check_grouped(eng, fw, g) -> dict:
-    """The grouped form against its plain version on layer 0's real
+    """The grouped forms against their plain version on layer 0's real
     calls (the prefill's and a decode step's gate and down products,
-    ``fw`` from :func:`_routing_stats`) and on two forced routings (one
+    ``fw`` from :func:`_routing_stats`) and on three forced routings (one
     expert with every row, the others empty; one expert at exactly the
-    capacity): CIM_TOL x max|y|, rows no expert computes exactly 0.  Its
-    device time cold (each call reads another layer's bank), beside the
-    byte / f32 bound of this call's hit experts and rows, the plain
-    version and ``torch.bmm`` of the (E, cap, I) capacity buffer on the
-    materialised f32 (E, I, N) W'."""
-    from repro_torch.kernels.cim_mvm.ops import cim_mvm_grouped, occupancy
-    from repro_torch.kernels.cim_mvm.ops import grouped_geometry
+    capacity; a continuous decode step, ``ContinuousEngine(capacity=8)``
+    x top-4: 32 rows, cap 32): CIM_TOL x max|y|, rows no expert computes
+    exactly 0, two calls bit-identical.  Its device time cold (each call
+    reads another layer's bank), beside the bound of this call's hit
+    experts and rows: bytes, or the operations of the form the call took
+    (the decode form's f32 FMAs at PEAK_F32; the prefill form's TF32
+    tensor-core products at PEAK_TF32, 2 a product with bf16 x and 3 with
+    f32), the plain version and ``torch.bmm`` of the (E, cap, I) capacity
+    buffer on the materialised f32 (E, I, N) W'; the form, its cluster
+    and its blocks a SM."""
+    from repro_torch.kernels.cim_mvm.ops import (
+        FORM_GROUPED_DECODE,
+        FORM_GROUPED_PREFILL,
+        cim_mvm_grouped,
+        grouped_geometry,
+        occupancy,
+    )
     from repro_torch.kernels.cim_mvm.ref import (
         cim_effective_weights,
         cim_mvm_grouped_plain,
@@ -2902,15 +2912,22 @@ def _check_grouped(eng, fw, g) -> dict:
             _, _, cap, x, offsets = f[j]
             cases.append((f"{regime} {pname}", pname, x, offsets, cap))
     cap = fw[0][0][2]
-    for regime, counts in (("one expert", [0] * 3 + [cap] + [0] * (E - 4)),
-                           ("at cap", [cap // 3] * 7 + [cap]
-                            + [cap // 5] * (E - 8))):
+    K = eng.cfg.n_experts_per_token
+    cont = [0] * E                 # 8 tokens, each on K distinct experts
+    for t in range(CAPACITY):
+        for e in torch.randperm(E, generator=torch.Generator().manual_seed(
+                t))[:K].tolist():
+            cont[e] += 1
+    for regime, counts, c in (
+            ("one expert", [0] * 3 + [cap] + [0] * (E - 4), cap),
+            ("at cap", [cap // 3] * 7 + [cap] + [cap // 5] * (E - 8), cap),
+            ("continuous decode", cont, CAPACITY * K)):
         offsets = torch.tensor([0] + list(itertools.accumulate(counts)),
                                dtype=torch.int32, device="cuda")
         A = sum(counts) + 1
         x = torch.randn((A, eng.cfg.d_model), generator=g,
                         device="cuda").to(torch.bfloat16)
-        cases.append((regime, "ffn_we_gate", x, offsets, cap))
+        cases.append((regime, "ffn_we_gate", x, offsets, c))
     regimes = {}
     w_eff = {}
     for regime, pname, x, offsets, cap in cases:
@@ -2949,12 +2966,20 @@ def _check_grouped(eng, fw, g) -> dict:
         per_expert = _bank_bytes(dep.layer(0))
         n_bytes = (hit * per_expert + x.numel() * x.element_size()
                    + x.shape[0] * dep.out_dim * 4 + (E + 1) * 4)
-        b_ms, b_by = bound(n_bytes, 2.0 * rows * dep.in_dim * dep.out_dim)
+        bf = x.dtype == torch.bfloat16
         geom = grouped_geometry(E, cap, dep.in_dim, dep.out_dim,
-                                dep.codes.shape[1], dep.wpt, dep.n_bits,
+                                dep.codes.shape[2], dep.wpt, dep.n_bits,
                                 dep.cols, dep.reversed_df,
-                                dep.codes.data_ptr() % 16 == 0,
-                                x.dtype == torch.bfloat16)
+                                dep.codes.data_ptr() % 16 == 0, bf,
+                                x.shape[0])
+        flops = 2.0 * rows * dep.in_dim * dep.out_dim
+        if geom.form == FORM_GROUPED_PREFILL:
+            b_ms, b_by = bound(n_bytes, (2 if bf else 3) * flops, PEAK_TF32)
+        else:
+            b_ms, b_by = bound(n_bytes, flops)
+        form = {FORM_GROUPED_DECODE: "decode", FORM_GROUPED_PREFILL:
+                "prefill"}.get(geom.form, "general")
+        split = geom.gy if form != "general" else 1
         occ = occupancy(geom)
         print(f"cim_mvm_grouped {regime} E={E} {dep.in_dim}x{dep.out_dim} "
               f"cap {cap}: {rows} rows on {hit} experts, max_abs_err "
@@ -2963,13 +2988,17 @@ def _check_grouped(eng, fw, g) -> dict:
               f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms cold (a layer "
               f"a call), plain {plain_ms:.4f} ms, bmm on W' {lib_ms:.4f} ms; "
               f"bound {b_ms:.4f} ms ({b_by}; {n_bytes / 1e6:.1f} MB, "
-              f"{100 * b_ms / ms:.1f}% of it); grid {geom.gx}x{geom.gy}x"
-              f"{geom.gz}, {occ['blocks_per_sm']} blocks a SM")
+              f"{100 * b_ms / ms:.1f}% of it); {form} form, grid "
+              f"{geom.gx}x{geom.gy}x{geom.gz}, cluster of {split}, "
+              f"{occ['blocks_per_sm']} blocks a SM"
+              + (f", {occ['clusters']} clusters at once"
+                 if occ["clusters"] else ""))
         if not ok:
             raise AssertionError(f"cim_mvm_grouped disagrees ({regime})")
         regimes[regime] = dict(rows=rows, hit=hit, cap=cap, max_abs_err=err,
                                ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=lib_ms,
+                               bound_by=b_by, library_ms=lib_ms, form=form,
+                               cluster=split,
                                blocks_per_sm=occ["blocks_per_sm"])
         del buf
     del w_eff

@@ -2,7 +2,8 @@
 """Time cim_mvm's or flash_attention's forms at phi3-mini's shapes in one
 checkout of the port.
 
-    python3 cim_ab.py [--src DIR] [--label NAME] [--flash | --batched]
+    python3 cim_ab.py [--src DIR] [--label NAME] [--flash | --batched |
+                      --grouped [--forms]]
 
 Imports ``repro_torch`` from ``DIR`` (default: the ``src`` beside this
 script), builds its kernels there and times its public ``cim_mvm`` on
@@ -31,6 +32,26 @@ the byte bound (every member's fold read once); ``round`` sums the
 round's seven launches (4, 2 and 1 of the three shapes); plus the
 checkout's batched kernels as its build reports them.
 
+With ``--grouped`` it times the public ``cim_mvm_grouped`` at
+qwen2-moe-a2.7b's expert banks (E = 60 random experts deployed under
+MDM, codes of 2048x1408 for the gate and 1408x2048 for the down
+product, bf16 x) in the routings of a serving run: a decode step (16
+rows on 14 experts, cap 16), a continuous decode step
+(``ContinuousEngine(capacity=8)`` x top-4: 32 rows, cap 32), a prefill
+(2,048 rows on 60 experts, cap 128), one expert at 128 rows, and one
+expert at the capacity beside 59 partly filled (chip_smoke's forced
+routings).  Cold: each call reads another of two copies of the bank
+(the decode calls' hit experts alone pass ``chip_smoke.COLD_BYTES``
+over the two).  Beside each time: its byte bound (every hit expert's
+codes, pos and scale, x, y and the offsets once), its TF32 bound (2
+products a product with bf16 x), ``torch.bmm`` of the (E, cap, I)
+capacity buffer on the materialised f32 (E, I, N) W' (the yardstick
+only), the kernel's max error against ``cim_mvm_grouped_plain`` over
+max|plain|, and the form its geometry took.  ``--forms`` also times each
+case with the decode form's capacity threshold forced to 0 and to
+1,000,000 (every call on the prefill form, or on the decode form), for
+a checkout that has the threshold.
+
 Prints one JSON line.  Run it for two checkouts in one call (parent,
 change, change, parent) to compare them on one card.
 """
@@ -44,8 +65,13 @@ import sys
 
 import torch
 
-from chip_smoke import (COLD_BYTES, _flash_cases, _nonideal_dep, bound,
-                        device_ms, phase_build)
+import inspect
+import itertools
+
+import numpy as np
+
+from chip_smoke import (COLD_BYTES, PEAK_BYTES, PEAK_TF32, _flash_cases,
+                        _nonideal_dep, bound, device_ms, phase_build)
 
 
 def copies(dep, nbytes: int) -> list:
@@ -123,6 +149,107 @@ def time_batched(out: dict) -> None:
         del bank, w_eff, want
 
 
+def _grouped_routings(E: int) -> list[tuple[str, list[int], int]]:
+    """(name, rows an expert, cap) of the grouped cases, from seed 0."""
+    rng = np.random.default_rng(0)
+
+    def routed(T, K, cap):
+        probs = rng.random((T, E)) ** 3              # uneven loads
+        top = np.argsort(-probs, axis=1, kind="stable")[:, :K]
+        return np.minimum(np.bincount(top.reshape(-1), minlength=E),
+                          cap).tolist()
+
+    decode = [0] * E
+    for e in rng.choice(E, 14, replace=False):
+        decode[e] = 1
+    for e in np.nonzero(decode)[0][:2]:
+        decode[e] += 1                  # 16 rows on 14 experts
+    cap = 128
+    return [("decode", decode, 16), ("continuous", routed(8, 4, 32), 32),
+            ("prefill", routed(512, 4, cap), cap),
+            ("one expert", [0] * 3 + [cap] + [0] * (E - 4), cap),
+            ("at cap", [cap // 3] * 7 + [cap] + [cap // 5] * (E - 8), cap)]
+
+
+def time_grouped(out: dict, forms: bool) -> None:
+    """cim_mvm_grouped at qwen2-moe's expert banks (module docstring)."""
+    from repro_torch.configs.qwen2_moe_a27b import CONFIG as QWEN
+    from repro_torch.deploy import spec_from_config
+    from repro_torch.kernels.cim_mvm import ops
+    from repro_torch.kernels.cim_mvm.ref import (
+        cim_effective_weights,
+        cim_mvm_grouped_plain,
+    )
+
+    built = phase_build()
+    out["kernels"] = {k: v for k, v in built.items() if "grouped" in k}
+    E, spec = QWEN.n_experts, spec_from_config(QWEN)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    takes_a = "assignments" in inspect.signature(
+        ops.grouped_geometry).parameters
+    out.update(bound_ms={}, tf32_ms={}, err={}, form={}, rows={})
+    for pname, (I, N) in (("gate", (QWEN.d_model, QWEN.moe_d_ff)),
+                          ("down", (QWEN.moe_d_ff, QWEN.d_model))):
+        deps = [ops.deploy(torch.randn((I, N), generator=g, device="cuda")
+                           * 0.02, spec, "mdm", eta=QWEN.cim.eta)[0]
+                for _ in range(E)]
+        bank = dataclasses.replace(deps[0], **{
+            f: torch.stack([getattr(d, f) for d in deps]).contiguous()
+            for f in ("codes", "pos", "scale")})
+        del deps
+        banks = [bank, dataclasses.replace(bank, **{
+            f: getattr(bank, f).clone() for f in ("codes", "pos", "scale")})]
+        per_expert = sum(getattr(bank, f)[0].numel()
+                         * getattr(bank, f).element_size()
+                         for f in ("codes", "pos", "scale"))
+        W = torch.stack([cim_effective_weights(
+            d.codes, d.pos, d.scale, n_bits=d.n_bits, wpt=d.wpt,
+            cols=d.cols, eta=d.eta, reversed_df=d.reversed_df)[:I, :N]
+            for d in (bank.layer(e) for e in range(E))])
+        for name, counts, cap in _grouped_routings(E):
+            key = f"{name} {pname}"
+            offsets = torch.tensor([0] + list(itertools.accumulate(counts)),
+                                   dtype=torch.int32, device="cuda")
+            A = sum(counts) + 1
+            x = torch.randn((A, I), generator=g, device="cuda").to(
+                torch.bfloat16)
+            run = lambda d: ops.cim_mvm_grouped(x, d, offsets, cap)
+            out["ms"][key] = device_ms(run, args=banks)
+            want = cim_mvm_grouped_plain(x, bank, offsets, cap)
+            out["err"][key] = ((run(bank) - want).abs().max()
+                               / want.abs().max()).item()
+            del want
+            geo = (bank.codes.shape[0], cap, I, N, bank.codes.shape[2],
+                   bank.wpt, bank.n_bits, bank.cols, bank.reversed_df,
+                   bank.codes.data_ptr() % 16 == 0, True)
+            out["form"][key] = ops.grouped_geometry(
+                *geo, *((A,) if takes_a else ())).form
+            if forms and hasattr(ops, "GROUPED_DECODE_MAX_CAP"):
+                keep = ops.GROUPED_DECODE_MAX_CAP
+                for tag, limit in (("prefill form", 0),
+                                   ("decode form", 1_000_000)):
+                    ops.GROUPED_DECODE_MAX_CAP = limit
+                    ops.grouped_geometry.cache_clear()
+                    out["ms"][f"{key} [{tag}]"] = device_ms(run, args=banks)
+                ops.GROUPED_DECODE_MAX_CAP = keep
+                ops.grouped_geometry.cache_clear()
+            buf = torch.zeros((E, cap, I), device="cuda")
+            for e in range(E):
+                a = int(offsets[e])
+                buf[e, :counts[e]] = x[a:a + counts[e]].float()
+            out["ms"][f"{key} bmm"] = device_ms(lambda: torch.bmm(buf, W))
+            del buf
+            rows = sum(counts)
+            hit = sum(1 for c in counts if c)
+            n_bytes = (hit * per_expert + x.numel() * 2 + A * N * 4
+                       + (E + 1) * 4)
+            out["rows"][key] = [rows, hit, cap]
+            out["bound_ms"][key] = n_bytes / PEAK_BYTES * 1e3
+            out["tf32_ms"][key] = bound(0.0, 2 * 2.0 * rows * I * N,
+                                        PEAK_TF32)[0]
+        del banks, bank, W
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(
@@ -132,6 +259,10 @@ def main() -> int:
                     help="time flash_attention's forms, not cim_mvm's")
     ap.add_argument("--batched", action="store_true",
                     help="time cim_mvm_batched at a probe round's shapes")
+    ap.add_argument("--grouped", action="store_true",
+                    help="time cim_mvm_grouped at qwen2-moe's expert banks")
+    ap.add_argument("--forms", action="store_true",
+                    help="with --grouped, also time each case on each form")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("cim_ab: no CUDA device", file=sys.stderr)
@@ -148,6 +279,10 @@ def main() -> int:
 
     if a.flash or a.batched:
         (time_flash if a.flash else time_batched)(out)
+        print(json.dumps(out))
+        return 0
+    if a.grouped:
+        time_grouped(out, a.forms)
         print(json.dumps(out))
         return 0
 

@@ -86,11 +86,13 @@
 //   batched folded decode form (a group of members in one launch) stages
 //   Wg slabs the same way and runs its product on mma.sync tensor cores.
 //
-// Grouped ideal form (an MoE expert bank, cim_grouped_kernel below): the
-// counterpart of jax.vmap(cim_mvm) over the expert axis.  Each expert's
-// rows of a compact, expert-sorted x go through that expert's W',
-// expanded from its codes and pos a slab at a time; an expert without
-// rows reads nothing.
+// Grouped ideal forms (an MoE expert bank, below): the counterpart of
+// jax.vmap(cim_mvm) over the expert axis.  Each expert's rows of a
+// compact, expert-sorted x go through that expert's W', expanded from its
+// codes and pos; an expert without rows reads nothing.  A streaming
+// decode form (a cluster splits I, W' in registers) for a few rows an
+// expert, a tensor-core prefill form (mma.sync 3xTF32) for many, and a
+// general CUDA-core form for the ragged spec.
 // x may be f32 or bf16 (read directly, exact in f32); y is f32.
 //
 // Rounding.  M0 and M1 are exact (integers times 2^-K); the rest of the
@@ -103,6 +105,7 @@
 #include <stdint.h>
 
 #include <cstring>
+#include <type_traits>
 
 #include "../tf32_mma.cuh"
 
@@ -125,28 +128,42 @@ constexpr int BT_STAGES = 4;   // batched: ring of staged slabs
 constexpr int BT_BLOCKS = 2;   // batched: blocks a SM it is built for
 constexpr int BT_WLD = BT_BN + 8;  // batched: a staged row of Wg (floats)
 constexpr int BT_XLD = BT_BK + 4;  // batched: a staged or split row of x
-constexpr int GR_BM = 32;      // grouped: rows of an expert a block
-constexpr int GR_BN = 128;     // grouped: columns a block
-constexpr int GR_BK = 32;      // grouped: rows of I a slab
+constexpr int GR_BM = 32;      // grouped general: rows of an expert a block
+constexpr int GR_BN = 128;     // grouped general: columns a block
+constexpr int GR_BK = 32;      // grouped general: rows of I a slab
+constexpr int GD_BN = 128;     // grouped decode: columns a block
+constexpr int GD_BK = 16;      // grouped decode: rows of I a slab (a row a thread)
+constexpr int GD_STAGES = 8;   // grouped decode: a thread's ring of staged rows
+constexpr int GD_RB = 4;       // grouped decode: rows of an expert a pass
+constexpr int GD_BLOCKS = 3;   // grouped decode: blocks a SM it is built for
+constexpr int GP_BN = 128;     // grouped prefill: columns a block
+constexpr int GP_BK = 32;      // grouped prefill: rows of I a slab
+constexpr int GP_STAGES = 4;   // grouped prefill: ring of staged slabs
+constexpr int GP_NT = 16;      // grouped prefill: 8-row tiles of x a pass
+constexpr int GP_KS = 2;       // grouped prefill: k steps a rounding group
 // Geom.form: the ideal decode and prefill forms, the folded ones, the fold,
-// the batched folded decode form, the grouped ideal form.
+// the batched folded decode form, the grouped forms (general, decode,
+// prefill).
 constexpr int FORM_DECODE = 0, FORM_PREFILL = 1, FORM_DECODE_FOLDED = 2,
               FORM_PREFILL_FOLDED = 3, FORM_FOLD = 4,
-              FORM_DECODE_BATCHED = 5, FORM_GROUPED = 6;
+              FORM_DECODE_BATCHED = 5, FORM_GROUPED = 6,
+              FORM_GROUPED_DECODE = 7, FORM_GROUPED_PREFILL = 8;
 
 // Launch geometry, computed by ops.py::cim_geometry / fold_geometry /
 // batched_geometry / grouped_geometry (same order).  ``gz``: the folded
 // prefill form's split of I (a cluster of gz blocks), the batched form's
-// members, the grouped form's experts, 1 elsewhere; the grouped form's
-// ``M`` is the most rows an expert computes (the capacity); the batched form's ``gx`` blocks are persistent, in
-// clusters of ``gy`` that split I; ``ld``: the row stride of Wg (folded
-// forms and the fold);
-// ``noise``: the read draws noise; ``rows``, ``n_ti``, ``cp_ti``,
-// ``cp_tn``: the fold's col_pos tiles.
+// members, the grouped forms' expert slots, 1 elsewhere; the grouped
+// forms' ``M`` is the most rows an expert computes (the capacity) and
+// ``experts`` the experts of the bank (0 elsewhere); the grouped decode
+// form's ``gy`` blocks are a cluster that splits I; the batched form's
+// ``gx`` blocks are persistent, in clusters of ``gy`` that split I;
+// ``ld``: the row stride of Wg (folded forms and the fold); ``noise``: the
+// read draws noise; ``rows``, ``n_ti``, ``cp_ti``, ``cp_tn``: the fold's
+// col_pos tiles.
 struct Geom {
   int form, M, I, N, n_pad, n_tiles, wpt, n_bits, cols, reversed, fast,
       tile, rps, gx, gy, gz, smem, off_t, off_p, mt, xbf16, ld, noise, rows,
-      n_ti, cp_ti, cp_tn;
+      n_ti, cp_ti, cp_tn, experts;
 };
 
 // The read noise: Philox4x32-10's round keys for key (read_seed, tag),
@@ -1153,32 +1170,587 @@ cim_decode_batched_kernel(const void* __restrict__ x_all,
 
 // --------------------------------------------------------------- grouped
 
-// The grouped ideal form: the counterpart of the reference's
-// jax.vmap(cim_mvm) over the expert axis of an MoE bank
-// (src/repro/models/moe.py::_expert_mm over kernel.py::cim_mvm_pallas).
-// A deployment stacked over E experts (codes (E, I_pad, N_pad), pos (E,
-// I_pad, N_tiles), scale (E,)) and x (A, I) sorted by expert: expert e
-// owns the rows [offsets[e], min(offsets[e+1], offsets[e] + cap)) of x
-// and y (cap = geom M), and y rows = x rows @ W'_e.  The offsets stay on
-// the device (no host sync for the routing's counts); the grid, (N / BN,
-// cap / BM, E), comes from the host-known cap, and a block whose rows
-// are empty returns before it reads a byte, so an expert no token chose
-// reads none of its weights.  Bound by bytes at decode (2.5 bytes a
-// weight of every hit expert, a few rows each) and by the FMAs at
-// prefill.  A simple form: CUDA-core f32 FMAs in a fixed order (the
-// rows of I in ascending order, one sum an output), so two calls give
-// bit-identical results.
+// The grouped forms: the counterpart of the reference's jax.vmap(cim_mvm)
+// over the expert axis of an MoE bank (src/repro/models/moe.py::
+// _expert_mm over kernel.py::cim_mvm_pallas).  A deployment stacked over
+// E experts (codes (E, I_pad, N_pad), pos (E, I_pad, N_tiles), scale (E,))
+// and x (A, I) sorted by expert: expert e owns the rows [offsets[e],
+// min(offsets[e+1], offsets[e] + cap)) of x and y (cap = geom M), and y
+// rows = x rows @ W'_e.  The offsets stay on the device (no host sync for
+// the routing's counts); the grid comes from the host-known cap and the
+// assignments, and a block reads its expert from the offsets and returns
+// before it reads a weight if it has none, so an expert no token chose
+// reads none of its weights.  Every sum runs in a fixed order and nothing
+// is atomic: two calls give bit-identical results.  ops.py::
+// grouped_geometry picks the form from cap:
 //
-// Block: BM rows of one expert by BN columns, I in slabs of BK rows.  A
-// slab of W' (BK x BN) is expanded once a block into shared memory with
-// the ideal forms' rounded operations (the eta*M1 table on the 16-byte
-// path, so W' is bit-identical to the plain version's), beside the slab
-// of x transposed to [k][m]; the next slab's codes, pos and x are loaded
-// into registers while this slab's products run.  Thread t expands 8
-// columns of two slab rows and sums a 4 x 4 tile of y; a warp whose
-// rows lie past the expert's last row skips the products (at decode an
-// expert has a row or a few, so one warp computes).
-template <bool FAST>
+// * the decode form (cap <= GROUPED_DECODE_MAX_CAP; a few rows an
+//   expert): bound by bytes, 2.5 a weight of every hit expert (qwen2-moe's
+//   decode gate call, 16 rows on 14 experts of 2048x1408: 101 MB, 0.030
+//   ms at 3.35 TB/s).  Replaces the general form on the 16-byte path,
+//   whose blocks (32 rows of an expert by 128 columns, all of I) left
+//   ~1.2 a SM busy at decode with one 32-row slab in flight each, and
+//   expanded each slab into shared memory for the one warp with rows.
+//   Measured on the H100 (PERF.md): ~53% of that bound, with ~100 KB in
+//   flight a SM; cutting a fifth of the expansion's instructions did not
+//   move it.
+// * the prefill form (larger cap; ~34 rows an expert at qwen2-moe's
+//   prefill): bound by bytes once the products run on tensor cores
+//   (0.135 ms for all 60 experts at 3.35 TB/s, against 0.048 ms of TF32
+//   products and 0.18 ms of CUDA-core f32 FMAs).  Measured: ~35% of it,
+//   bound by instruction issue at 16 warps a SM (PERF.md splits it: the
+//   expansion ~30% of the time, the products ~20%, the staging, waits
+//   and adds the rest).
+// * the general form (cim_grouped_kernel: any wpt, unaligned codes),
+//   the first, CUDA-core form of this bank matmul, kept for the ragged
+//   spec.
+//
+// Slots.  Grid z counts expert slots, min(E, A): slot z computes the
+// z-th expert, in ascending order, that has a row, so the launch does not
+// carry a block for each of the E experts when few are hit.  Each warp
+// finds it from the offsets with two ballots a 32 experts, no barrier.
+__device__ __forceinline__ int slot_expert(const int32_t* __restrict__ offsets,
+                                           int experts, int cap, int z,
+                                           int& a0, int& rows) {
+  const int lane = threadIdx.x % 32;
+  for (int base = 0; base < experts; base += 32) {
+    const int e = base + lane;
+    int a = 0, n = 0;
+    if (e < experts) {
+      a = __ldg(offsets + e);
+      n = min(__ldg(offsets + e + 1) - a, cap);
+    }
+    const unsigned has = __ballot_sync(0xFFFFFFFFu, n > 0);
+    const int cnt = __popc(has);
+    if (z < cnt) {
+      const bool me = n > 0 && __popc(has & ((1u << lane) - 1u)) == z;
+      const int src = __ffs(__ballot_sync(0xFFFFFFFFu, me)) - 1;
+      a0 = __shfl_sync(0xFFFFFFFFu, a, src);
+      rows = __shfl_sync(0xFFFFFFFFu, n, src);
+      return base + src;
+    }
+    z -= cnt;
+  }
+  return -1;
+}
+
+// One code of a packed 32-bit pair: the low (q even) or high int16.
+__device__ __forceinline__ int code_of(uint32_t pair, int q) {
+  return q & 1 ? (int)pair >> 16 : (int)(int16_t)(pair & 0xFFFFu);
+}
+
+// The decode form.  A cluster of gy blocks splits the n_slabs slabs of I
+// (GD_BK rows each) of one (expert, 128-column) item, rank r the slabs
+// [n_slabs r / gy, n_slabs (r + 1) / gy), so qwen2-moe's ~154 items at
+// decode run ~1,200 blocks, ~9 a SM.  No W' ever goes to shared memory:
+// thread t owns the 8 columns 8 (t % 16) of the item and the rows t / 16,
+// t / 16 + 16, ... of its rank, and expands its 8 weights of a row in
+// registers from one 16-byte code load and one pos word (one row factor
+// for the 8; the eta*M1 table, so W' is bit-identical to the plain
+// version's), then FMAs them against the expert's rows of x, staged once
+// a pass in shared memory and read as broadcasts.  Its codes and pos
+// stream through a ring of GD_STAGES rows in shared memory that the
+// thread fills itself by cp.async and reads back itself, so the stream
+// has no barrier and GD_STAGES - 1 rows stay in flight a thread (35 KB a
+// block, three blocks a SM) without registers.  An expert's row count is
+// block-uniform but known only on the device: a pass takes up to GD_RB
+// rows in registers, R = 1, 2 or 4 of them (compile-time accumulators),
+// and an expert with more rows takes more passes.  A pass sums its 16
+// row slices in slice order through shared memory, then the cluster's
+// ranks in rank order through distributed shared memory.
+constexpr int GD_COLS = GD_BN / 8;        // threads across an item's columns
+constexpr int GD_SLICES = THREADS / GD_COLS;   // row slices of a block
+
+template <int R>
+__device__ __forceinline__ void grouped_decode_pass(
+    const int16_t* __restrict__ ce, const int32_t* __restrict__ pe,
+    char* ring, const float* table, const float* xs, float* part,
+    float* __restrict__ out, const Geom& g, int nb, int k_lo, int k_hi,
+    int row0, int rc, float scale, float eta) {
+  const int tid = threadIdx.x, sl = tid / GD_COLS;
+  const int n0 = nb + 8 * (tid % GD_COLS);
+  const bool col_ok = n0 < g.n_pad;
+  const float unit = ldexpf(1.0f, -g.n_bits);
+  const float* tab[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    tab[q] = table_row(table, n0 % g.wpt + q, g.n_bits);
+  // The thread's ring: GD_STAGES slots of its 16 code bytes and its pos
+  // word, [slot][thread].
+  int4* rcode = reinterpret_cast<int4*>(ring);
+  int* rpos = reinterpret_cast<int*>(ring + GD_STAGES * THREADS * 16);
+  const int nj = col_ok && k_lo + sl < k_hi
+                     ? (k_hi - k_lo - sl + GD_SLICES - 1) / GD_SLICES
+                     : 0;
+  // Row j of the thread (i = k_lo + sl + 16 j) into slot j % GD_STAGES;
+  // one commit group, empty past its last row.
+  auto issue = [&](int j) {
+    if (j < nj) {
+      const int i = k_lo + sl + GD_SLICES * j, s = j % GD_STAGES;
+      tf32::cp_async16(rcode + s * THREADS + tid,
+                       ce + (size_t)i * g.n_pad + n0, 16);
+      tf32::cp_async4(rpos + s * THREADS + tid,
+                      pe + (size_t)i * g.n_tiles + n0 / g.wpt, 4);
+    }
+    tf32::cp_async_commit();
+  };
+
+  float acc[R][8];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[r][q] = 0.0f;
+
+#pragma unroll
+  for (int j = 0; j < GD_STAGES - 1; ++j) issue(j);
+  for (int j = 0; j < nj; ++j) {
+    tf32::cp_async_wait<GD_STAGES - 2>();   // row j has landed
+    issue(j + GD_STAGES - 1);               // into row j - 1's slot
+    const int s = j % GD_STAGES;
+    const int4 cv = rcode[s * THREADS + tid];
+    const float rf = row_factor(rpos[s * THREADS + tid], eta);
+    const uint32_t pair[4] = {(uint32_t)cv.x, (uint32_t)cv.y,
+                              (uint32_t)cv.z, (uint32_t)cv.w};
+    float w[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      w[q] = expand_fast(code_of(pair[q / 2], q), rf, tab[q], unit, scale);
+    const float* xr = xs + (sl + GD_SLICES * j) * GD_RB;
+    float xv[R];
+    if constexpr (R == GD_RB) {
+      const float4 v = *reinterpret_cast<const float4*>(xr);
+      xv[0] = v.x, xv[1] = v.y, xv[2] = v.z, xv[3] = v.w;
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) xv[r] = xr[r];
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[r][q] = fmaf(xv[r], w[q], acc[r][q]);
+  }
+
+  // The slices' sums through the ring (every thread is past its stream),
+  // [slice][R][GD_BN], added in slice order into ``part`` [R][GD_BN];
+  // then the ranks' parts added in rank order, rank r the elements r *
+  // 256 + tid (mod gy * 256).
+  tf32::cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float4* dst = reinterpret_cast<float4*>(red + (sl * R + r) * GD_BN +
+                                            n0 - nb);
+    dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+  }
+  __syncthreads();
+  for (int q = tid; q < R * GD_BN; q += THREADS) {
+    float v = red[q];
+#pragma unroll
+    for (int k = 1; k < GD_SLICES; ++k) v += red[k * R * GD_BN + q];
+    part[q] = v;
+  }
+  const int S = g.gy;
+  if (S == 1) {
+    __syncthreads();
+    for (int q = tid; q < rc * GD_BN; q += THREADS) {
+      const int n = nb + q % GD_BN;
+      if (n < g.N) out[(size_t)(row0 + q / GD_BN) * g.N + n] = part[q];
+    }
+    __syncthreads();   // no pass reuses part or the ring while it is read
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  cluster.sync();
+  for (int q = rank * THREADS + tid; q < rc * GD_BN; q += S * THREADS) {
+    const int n = nb + q % GD_BN;
+    if (n >= g.N) continue;
+    float v = *cluster.map_shared_rank(part + q, 0);
+    for (int r = 1; r < S; ++r) v += *cluster.map_shared_rank(part + q, r);
+    out[(size_t)(row0 + q / GD_BN) * g.N + n] = v;
+  }
+  cluster.sync();      // no block reuses its part while another reads it
+}
+
+// Grid (gx column tiles, gy ranks, gz expert slots) in clusters of (1,
+// gy, 1); shared memory: the threads' rings (later the slices' sums), the
+// eta*M1 table at off_t, the x slab [rps][GD_RB] at off_p (the rank's
+// rows of I, transposed), the part [GD_RB][GD_BN] after it.
+__global__ void __launch_bounds__(THREADS, GD_BLOCKS)
+cim_grouped_decode_kernel(const void* __restrict__ x,
+                          const int16_t* __restrict__ codes,
+                          const int32_t* __restrict__ pos,
+                          const float* __restrict__ scale_ptr,
+                          const int32_t* __restrict__ offsets,
+                          float* __restrict__ out, long long cstride,
+                          long long pstride, Geom g, float eta) {
+  int a0 = 0, rows = 0;
+  const int e = slot_expert(offsets, g.experts, g.M, blockIdx.z, a0, rows);
+  if (e < 0) return;                     // block-uniform: no row, no read
+  extern __shared__ float4 smem4[];
+  char* ring = reinterpret_cast<char*>(smem4);
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* table = smem + g.off_t;
+  float* xs = smem + g.off_p;
+  float* part = xs + g.rps * GD_RB;
+  const int n_slabs = (g.I + GD_BK - 1) / GD_BK;
+  const int rank = blockIdx.y, S = g.gy;
+  const int k_lo = n_slabs * rank / S * GD_BK;
+  const int k_hi = min(n_slabs * (rank + 1) / S * GD_BK, g.I);
+  const int span = k_hi - k_lo;
+  const int nb = blockIdx.x * GD_BN;
+  const int16_t* ce = codes + (size_t)e * cstride;
+  const int32_t* pe = pos + (size_t)e * pstride;
+  const float scale = scale_ptr[e];
+  build_table(table, g.wpt, g.n_bits, g.cols, g.reversed, eta,
+              ldexpf(1.0f, -g.n_bits));
+  for (int c0 = 0; c0 < rows; c0 += GD_RB) {
+    const int rc = min(GD_RB, rows - c0);
+    // The pass's rows of x over the rank's rows of I, transposed to
+    // [i][row]: coalesced reads along I; zeros past rc.
+    for (int q = threadIdx.x; q < GD_RB * span; q += THREADS) {
+      const int m = q / span, ii = q % span;
+      xs[ii * GD_RB + m] =
+          m < rc ? load_x(x, (size_t)(a0 + c0 + m) * g.I + k_lo + ii,
+                          g.xbf16)
+                 : 0.0f;
+    }
+    __syncthreads();                     // x and the table are in place
+    const int row0 = a0 + c0;
+    if (rc > 2)
+      grouped_decode_pass<4>(ce, pe, ring, table, xs, part, out, g, nb, k_lo,
+                             k_hi, row0, rc, scale, eta);
+    else if (rc > 1)
+      grouped_decode_pass<2>(ce, pe, ring, table, xs, part, out, g, nb, k_lo,
+                             k_hi, row0, rc, scale, eta);
+    else
+      grouped_decode_pass<1>(ce, pe, ring, table, xs, part, out, g, nb, k_lo,
+                             k_hi, row0, rc, scale, eta);
+  }
+}
+
+// The prefill form.  The product runs transposed, y^T = W'^T x^T, on
+// mma.sync m16n8k8 TF32 tensor cores (../tf32_mma.cuh): W'^T is the A
+// operand, expanded straight into registers from the staged codes and
+// pos (the eta*M1 table: bit-identical W') and split into TF32 hi and lo;
+// x^T is the B operand, 8 rows of x a tile, read by ldmatrix straight
+// from the staged raw x.  mma.sync, not wgmma: an expert's row count is
+// known only on the device and small (~34 at qwen2-moe's prefill), and
+// mma.sync's 8-row tiles take it in 16-row steps with B read as it was
+// staged, where wgmma would want x re-laid in its core-matrix layout and
+// a fixed N (N = 128 at ~34 rows would run ~4x the products); the form is
+// bound by the expansion's instructions, not by the tensor cores
+// (PERF.md).  bf16 x is exact in TF32 (its lo part is zero): two products
+// a product; f32 x three, split in registers.
+//
+// Block: one expert's 128 columns (8 warps of 16; lane (gq, tq) of warp w
+// the two adjacent columns 16w + 2gq and 16w + 2gq + 1 as A-fragment rows
+// gq and gq + 8, so one 4-byte code load and one row factor serve two
+// weights and each weight is expanded by one thread) by all of its rows
+// up to GP_NT * 8 = 128 in one pass, so W' is expanded once an (expert,
+// column tile) at qwen2-moe's capacity; an expert with more rows (cap >
+// 128) takes more passes.  A pass is specialised at run time by its pairs
+// of 8-row tiles, 1, 2, 3, 4 or 8 (up to 16, 32, 48, 64 or 128 rows).  I
+// runs in slabs of GP_BK rows through a ring
+// of GP_STAGES (codes, pos, raw x) slabs filled by cp.async, GP_STAGES -
+// 1 in flight, one barrier a slab; a slab row's 16 pos words come in
+// four 16-byte pieces where wpt is 8, into rows of GP_PLD words (the
+// lanes of a k step read four rows: no bank conflict).  Where the host
+// knows the rows could fill only a few experts (a prefill whose x holds
+// 128 rows: one expert at the capacity), a cluster of gy blocks splits
+// the slabs of I, rank r the slabs [s r / gy, s (r + 1) / gy), and the
+// ranks' sums meet through distributed shared memory, each block adding
+// 64 / gy of a thread's 64 outputs over the ranks in order (as the folded
+// prefill form does).  The k order inside a k step is free
+// as long as A and B agree: with bf16 x, k step rows 2tq and 2tq + 1 are
+// the fragments' k = tq and tq + 4, so one ldmatrix word (two bf16 of a
+// row of x) gives both B values by a shift and a mask; with f32 x, rows
+// tq and tq + 4, as the tensor core's layout has them.  As in the other
+// tensor-core forms, the tensor core truncates as it accumulates, so each
+// rounding group's products (GP_KS k steps of 8) start from zero and are
+// added to the running sums with round-to-nearest adds; the group's A
+// fragments stay in registers while the tiles, two at a time, run over
+// them.
+constexpr int GP_TILES = GP_BN / 8;    // pos words a staged slab row
+constexpr int GP_PLD = GP_TILES + 4;   // a staged pos row (words)
+constexpr int GP_CLD = GP_BN + 8;      // a staged codes row (int16)
+constexpr int GP_XLD = GP_BK + 4;      // a staged f32 x row (floats)
+constexpr int GP_XLDB = GP_BK + 8;     // a staged bf16 x row
+constexpr int GP_ROWS = GP_NT * 8;     // rows of x a pass
+
+template <bool XBF>
+struct GpLayout {
+  static constexpr int CODES = GP_BK * GP_CLD * 2;          // bytes
+  static constexpr int POS = GP_BK * GP_PLD * 4;
+  static constexpr int XROW = XBF ? GP_XLDB * 2 : GP_XLD * 4;
+  static constexpr int STAGE = CODES + POS + GP_ROWS * XROW;
+  // A split's partial sums, [4 GP_NT][THREADS], in the ring.
+  static_assert(GP_STAGES * STAGE >= 4 * GP_NT * THREADS * 4,
+                "the ring holds a split's sums");
+};
+
+static_assert(GP_KS == 2, "a bf16 ldmatrix word holds two k steps");
+
+template <bool XBF>
+__global__ void __launch_bounds__(THREADS, XBF ? 2 : 1)
+cim_grouped_prefill_kernel(const void* __restrict__ x,
+                           const int16_t* __restrict__ codes,
+                           const int32_t* __restrict__ pos,
+                           const float* __restrict__ scale_ptr,
+                           const int32_t* __restrict__ offsets,
+                           float* __restrict__ out, long long cstride,
+                           long long pstride, Geom g, float eta) {
+  using L = GpLayout<XBF>;
+  constexpr int xes = XBF ? 2 : 4;             // bytes a value of x
+  int a0 = 0, rows = 0;
+  const int e = slot_expert(offsets, g.experts, g.M, blockIdx.z, a0, rows);
+  if (e < 0) return;                     // block-uniform: no row, no read
+  extern __shared__ float4 smem4[];
+  char* ring = reinterpret_cast<char*>(smem4);
+  float* table = reinterpret_cast<float*>(ring + GP_STAGES * L::STAGE);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int nb = blockIdx.x * GP_BN;
+  const int c0 = 16 * warp + 2 * gq;     // the thread's columns c0, c0 + 1
+  const int16_t* ce = codes + (size_t)e * cstride;
+  const int32_t* pe = pos + (size_t)e * pstride;
+  const float scale = scale_ptr[e];
+  const float unit = ldexpf(1.0f, -g.n_bits);
+  const float* tab0 = table_row(table, (nb + c0) % g.wpt, g.n_bits);
+  const float* tab1 = table_row(table, (nb + c0) % g.wpt + 1, g.n_bits);
+  const int n_slabs = (g.I + GP_BK - 1) / GP_BK;
+  const int S = g.gy, rank = blockIdx.y;
+  const int kt0 = n_slabs * rank / S, n_steps = n_slabs * (rank + 1) / S;
+  const bool xvec = g.I % (16 / xes) == 0 &&
+                    (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool pos16 = g.wpt == 8 && g.n_tiles % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(pe) & 15) == 0;
+  const char* xb = reinterpret_cast<const char*>(x);
+  // The fragments' k rows of a k step, and this lane's ldmatrix row
+  // address in a tile pair (matrix j = lane / 8; bf16: tile j % 2 at k
+  // step j / 2; f32: tile j / 2 at k offset 4 (j % 2)).
+  const int kr0 = XBF ? 2 * tq : tq, kr1 = XBF ? 2 * tq + 1 : tq + 4;
+  const int b_off =
+      XBF ? ((lane / 8 % 2) * 8 + lane % 8) * L::XROW + 16 * (lane / 16)
+          : ((lane / 16) * 8 + lane % 8) * L::XROW + 16 * (lane / 8 % 2);
+
+  build_table(table, g.wpt, g.n_bits, g.cols, g.reversed, eta, unit);
+
+  // A pass over rows [m0, m0 + rc) of the expert, NP pairs of 8-row tiles
+  // (NP a compile-time 1, 2, 3, 4 or 8: no branch between the pairs, so
+  // their products interleave).
+  auto pass = [&](auto np_c, int m0) {
+    constexpr int NP = decltype(np_c)::value;
+    const int rc = min(GP_ROWS, rows - m0);
+    const int nt = 2 * NP;
+    const char* xrow = xb + (size_t)(a0 + m0) * g.I * xes;
+
+    // Slab kt's codes, pos and the pass's rows of x into its ring slot;
+    // zeros past I and n_pad (rows of x past rc are left as they are:
+    // they reach only outputs that are never stored).  One commit group,
+    // empty past the last slab.
+    auto stage = [&](int kt) {
+      if (kt < n_steps) {
+        char* st = ring + (kt % GP_STAGES) * L::STAGE;
+        int16_t* cst = reinterpret_cast<int16_t*>(st);
+        int32_t* pst = reinterpret_cast<int32_t*>(st + L::CODES);
+        char* xst = st + L::CODES + L::POS;
+        const int k0 = kt * GP_BK;
+#pragma unroll
+        for (int it = 0; it < GP_BK * GP_TILES / THREADS; ++it) {
+          const int q = tid + it * THREADS, r = q / GP_TILES,
+                    c8 = q % GP_TILES;
+          const int i = k0 + r, n = nb + 8 * c8;
+          const bool ok = i < g.I && n < g.n_pad;
+          tf32::cp_async16(cst + r * GP_CLD + 8 * c8,
+                           ok ? ce + (size_t)i * g.n_pad + n : ce,
+                           ok ? 16 : 0);
+          if (!pos16)
+            tf32::cp_async4(pst + r * GP_PLD + c8,
+                            ok ? pe + (size_t)i * g.n_tiles + n / g.wpt : pe,
+                            ok ? 4 : 0);
+        }
+        if (pos16 && tid < GP_BK * GP_TILES / 4) {
+          // Four words a piece, zeros past the row's n_tiles words.
+          const int r = tid / (GP_TILES / 4), t4 = 4 * (tid % (GP_TILES / 4));
+          const int i = k0 + r, t = nb / 8 + t4;
+          const int words = i < g.I ? min(4, max(g.n_tiles - t, 0)) : 0;
+          tf32::cp_async16(pst + r * GP_PLD + t4,
+                           words ? pe + (size_t)i * g.n_tiles + t : pe,
+                           4 * words);
+        }
+        if (xvec) {
+          constexpr int CH = GP_BK * xes / 16;     // 16-byte pieces a row
+          for (int q = tid; q < rc * CH; q += THREADS) {
+            const int m = q / CH, c = (q % CH) * (16 / xes);
+            const bool ok = k0 + c < g.I;
+            tf32::cp_async16(xst + m * L::XROW + c * xes,
+                             ok ? xrow + ((size_t)m * g.I + k0 + c) * xes
+                                : xb,
+                             ok ? 16 : 0);
+          }
+        } else {
+          for (int q = tid; q < rc * GP_BK; q += THREADS) {
+            const int m = q / GP_BK, c = q % GP_BK;
+            const bool ok = k0 + c < g.I;
+            const size_t at = (size_t)m * g.I + k0 + c;
+            if constexpr (XBF) {      // rows of odd length: plain loads
+              reinterpret_cast<__nv_bfloat16*>(xst + m * L::XROW)[c] =
+                  ok ? reinterpret_cast<const __nv_bfloat16*>(xrow)[at]
+                     : __float2bfloat16_rn(0.0f);
+            } else {
+              tf32::cp_async4(xst + m * L::XROW + c * 4,
+                              ok ? xrow + at * 4 : xb, ok ? 4 : 0);
+            }
+          }
+        }
+      }
+      tf32::cp_async_commit();
+    };
+
+    // The thread's A fragment of k step ks of the slab at ``st``:
+    // W'[k][c] for (c, k) = (c0, kr0), (c0 + 1, kr0), (c0, kr1), (c0 + 1,
+    // kr1), the k rows of the step.
+    auto expand = [&](const char* st, int ks, uint32_t (&ah)[4],
+                      uint32_t (&al)[4]) {
+      const int16_t* cst = reinterpret_cast<const int16_t*>(st);
+      const int32_t* pst = reinterpret_cast<const int32_t*>(st + L::CODES);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 8 * ks + (h ? kr1 : kr0);
+        const uint32_t pair =
+            *reinterpret_cast<const uint32_t*>(cst + k * GP_CLD + c0);
+        const float rf = row_factor(pst[k * GP_PLD + c0 / 8], eta);
+        split_b(expand_fast(code_of(pair, 0), rf, tab0, unit, scale),
+                ah[2 * h], al[2 * h]);
+        split_b(expand_fast(code_of(pair, 1), rf, tab1, unit, scale),
+                ah[2 * h + 1], al[2 * h + 1]);
+      }
+    };
+
+    float acc[2 * NP][4];
+#pragma unroll
+    for (int t = 0; t < 2 * NP; ++t)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[t][u] = 0.0f;
+
+    for (int kt = kt0; kt < kt0 + GP_STAGES - 1; ++kt) stage(kt);
+    for (int kt = kt0; kt < n_steps; ++kt) {
+      tf32::cp_async_wait<GP_STAGES - 2>();   // slab kt has landed
+      __syncthreads();                        // and slab kt - 1 is done
+      stage(kt + GP_STAGES - 1);              // into slab kt - 1's slot
+      const char* st = ring + (kt % GP_STAGES) * L::STAGE;
+      const char* xh = st + L::CODES + L::POS + b_off;
+#pragma unroll
+      for (int k0 = 0; k0 < GP_BK / 8; k0 += GP_KS) {
+        uint32_t ah[GP_KS][4], al[GP_KS][4];
+#pragma unroll
+        for (int kk = 0; kk < GP_KS; ++kk) expand(st, k0 + kk, ah[kk], al[kk]);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+          const char* bp = xh + 16 * p * L::XROW;
+          if constexpr (XBF) {
+            // Tiles 2p, 2p + 1 at k steps k0, k0 + 1: b0 and b1 of each
+            // from one word (its two bf16, widened exactly).
+            uint32_t r[4];
+            ldsm_x4(r, reinterpret_cast<const float*>(bp + 16 * k0));
+#pragma unroll
+            for (int kk = 0; kk < GP_KS; ++kk) {
+              const uint32_t w0 = r[2 * kk], w1 = r[2 * kk + 1];
+              const uint32_t b0[2] = {w0 << 16, w0 & 0xFFFF0000u};
+              const uint32_t b1[2] = {w1 << 16, w1 & 0xFFFF0000u};
+              tf32::mma(d0, al[kk], b0);
+              tf32::mma(d1, al[kk], b1);
+              tf32::mma(d0, ah[kk], b0);
+              tf32::mma(d1, ah[kk], b1);
+            }
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < GP_KS; ++kk) {
+              uint32_t r[4];
+              ldsm_x4(r, reinterpret_cast<const float*>(
+                             bp + 32 * (k0 + kk)));
+              uint32_t bh0[2], bl0[2], bh1[2], bl1[2];
+              split_b(__uint_as_float(r[0]), bh0[0], bl0[0]);
+              split_b(__uint_as_float(r[1]), bh0[1], bl0[1]);
+              split_b(__uint_as_float(r[2]), bh1[0], bl1[0]);
+              split_b(__uint_as_float(r[3]), bh1[1], bl1[1]);
+              tf32::mma(d0, ah[kk], bl0);
+              tf32::mma(d1, ah[kk], bl1);
+              tf32::mma(d0, al[kk], bh0);
+              tf32::mma(d1, al[kk], bh1);
+              tf32::mma(d0, ah[kk], bh0);
+              tf32::mma(d1, ah[kk], bh1);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc[2 * p][u] = __fadd_rn(acc[2 * p][u], d0[u]);
+            acc[2 * p + 1][u] = __fadd_rn(acc[2 * p + 1][u], d1[u]);
+          }
+        }
+      }
+    }
+    tf32::cp_async_wait<0>();
+    __syncthreads();             // a next pass restages only after this one
+
+    // acc[t][u] is D[c][m]: column c0 (u < 2) or c0 + 1, row 8t + 2tq + u
+    // % 2 of the pass.
+    auto store = [&](int i, float v) {
+      const int m = 8 * (i / 4) + 2 * tq + i % 2, n = nb + c0 + i % 4 / 2;
+      if (m < rc && n < g.N) out[(size_t)(a0 + m0 + m) * g.N + n] = v;
+    };
+    if (S == 1) {
+#pragma unroll
+      for (int t = 0; t < 2 * NP; ++t)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) store(4 * t + u, acc[t][u]);
+      return;
+    }
+    // The split's partial sums, [4 GP_NT][THREADS] in the (now free) ring;
+    // rank r adds outputs [r * 64 / S, (r + 1) * 64 / S) of each thread
+    // over the ranks 0 .. S-1 in order.
+    cg::cluster_group cluster = cg::this_cluster();
+    float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+    for (int t = 0; t < 2 * NP; ++t)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) part[(4 * t + u) * THREADS + tid] = acc[t][u];
+    cluster.sync();
+    const int share = 4 * GP_NT / S;
+    for (int i = rank * share; i < min((rank + 1) * share, 4 * nt); ++i) {
+      float v = *cluster.map_shared_rank(part + i * THREADS + tid, 0);
+      for (int r = 1; r < S; ++r)
+        v += *cluster.map_shared_rank(part + i * THREADS + tid, r);
+      store(i, v);
+    }
+    cluster.sync();   // no block restages or leaves while another reads
+  };
+  for (int m0 = 0; m0 < rows; m0 += GP_ROWS) {
+    switch ((min(GP_ROWS, rows - m0) + 15) / 16) {
+      case 1: pass(std::integral_constant<int, 1>{}, m0); break;
+      case 2: pass(std::integral_constant<int, 2>{}, m0); break;
+      case 3: pass(std::integral_constant<int, 3>{}, m0); break;
+      case 4: pass(std::integral_constant<int, 4>{}, m0); break;
+      default: pass(std::integral_constant<int, 8>{}, m0); break;
+    }
+  }
+}
+
+// The general form (any wpt and n_pad, codes on any alignment: the
+// ragged spec), the simple form the other two replace on the 16-byte
+// path: a block BM rows of one expert by BN
+// columns, I in slabs of BK rows; a slab of W' (BK x BN) expanded once a
+// block into shared memory with expand_row, beside the slab of x
+// transposed to [k][m]; the next slab's codes, pos and x loaded into
+// registers while this slab's products run (CUDA-core f32 FMAs, the rows
+// of I in ascending order, a 4 x 4 tile a thread).  Grid (N / BN, cap /
+// BM, E); a warp whose rows lie past the expert's last row skips the
+// products.
 __global__ void __launch_bounds__(THREADS)
 cim_grouped_kernel(const void* __restrict__ x,
                    const int16_t* __restrict__ codes,
@@ -1198,7 +1770,6 @@ cim_grouped_kernel(const void* __restrict__ x,
   float* smem = reinterpret_cast<float*>(smem4);
   float* xs = smem;                      // [BK][BM] x, transposed
   float* ws = xs + GR_BK * GR_BM;        // [BK][BN] W'
-  float* table = ws + GR_BK * GR_BN;     // [wpt][2^K] eta * M1   (FAST)
   const int16_t* ce = codes + (size_t)e * cstride;
   const int32_t* pe = pos + (size_t)e * pstride;
   const float scale = scale_ptr[e];
@@ -1208,30 +1779,14 @@ cim_grouped_kernel(const void* __restrict__ x,
   // Expansion: 8 columns dc.. of the block, slab rows dr and dr + 16.
   const int dc = (tid % 16) * 8, dr = tid / 16;
   const int n0 = nb + dc;
-  const bool col_ok = n0 < g.n_pad;
-  const int slot0 = n0 % g.wpt, tile_n = n0 / g.wpt;
   // x: row xm of the block, slab columns xk .. xk + 3.
   const int xm = tid % GR_BM, xk = (tid / GR_BM) * 4;
   // Products: rows pr .. pr + 3 (one warp a row quad), columns pc .. +3.
   const int pc = (tid % 32) * 4, pr = (tid / 32) * 4;
   const bool active = pr < mrows;
 
-  if (FAST) build_table(table, g.wpt, g.n_bits, g.cols, g.reversed, eta,
-                        unit);
-
-  int4 cv[2];
-  int pv[2];
   float xv[4];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int i = k0 + dr + 16 * u;
-      const bool ok = FAST && col_ok && i < g.I;
-      cv[u] = ok ? __ldg(reinterpret_cast<const int4*>(
-                       ce + (size_t)i * g.n_pad + n0))
-                 : make_int4(0, 0, 0, 0);
-      pv[u] = ok ? __ldg(pe + (size_t)i * g.n_tiles + tile_n) : 0;
-    }
+  auto load_xs = [&](int k0) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int k = k0 + xk + j;
@@ -1247,36 +1802,21 @@ cim_grouped_kernel(const void* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-  load(0);
+  load_xs(0);
   for (int k0 = 0; k0 < g.I; k0 += GR_BK) {
     __syncthreads();                     // the last slab's products done
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int row = dr + 16 * u, i = k0 + row;
       float w[8];
-      if (FAST) {
-        const float rf = row_factor(pv[u], eta);
-        const int words[4] = {cv[u].x, cv[u].y, cv[u].z, cv[u].w};
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int lo = (int)(int16_t)(words[q] & 0xFFFF);
-          const int hi = words[q] >> 16;
-          w[2 * q] = expand_fast(
-              lo, rf, table_row(table, slot0 + 2 * q, g.n_bits), unit, scale);
-          w[2 * q + 1] = expand_fast(
-              hi, rf, table_row(table, slot0 + 2 * q + 1, g.n_bits), unit,
-              scale);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int n = n0 + j;
-          const bool ok = n < g.n_pad && i < g.I;
-          const int code = ok ? ce[(size_t)i * g.n_pad + n] : 0;
-          const int p = ok ? pe[(size_t)i * g.n_tiles + n / g.wpt] : 0;
-          w[j] = expand_row(code, row_factor(p, eta), (n % g.wpt) * g.n_bits,
-                            unit, scale, eta, g.n_bits, g.cols, g.reversed);
-        }
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + j;
+        const bool ok = n < g.n_pad && i < g.I;
+        const int code = ok ? ce[(size_t)i * g.n_pad + n] : 0;
+        const int p = ok ? pe[(size_t)i * g.n_tiles + n / g.wpt] : 0;
+        w[j] = expand_row(code, row_factor(p, eta), (n % g.wpt) * g.n_bits,
+                          unit, scale, eta, g.n_bits, g.cols, g.reversed);
       }
       float4* dst = reinterpret_cast<float4*>(ws + row * GR_BN + dc);
       dst[0] = make_float4(w[0], w[1], w[2], w[3]);
@@ -1285,7 +1825,7 @@ cim_grouped_kernel(const void* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 4; ++j) xs[(xk + j) * GR_BM + xm] = xv[j];
     __syncthreads();
-    if (k0 + GR_BK < g.I) load(k0 + GR_BK);
+    if (k0 + GR_BK < g.I) load_xs(k0 + GR_BK);
     if (active) {
 #pragma unroll 8
       for (int k = 0; k < GR_BK; ++k) {
@@ -1973,7 +2513,7 @@ extern "C" int cim_mvm_launch(const void* x, const int16_t* codes,
                               const float* wf, unsigned seed, unsigned tag,
                               float nsig, void* stream_ptr) {
   Geom g;
-  static_assert(sizeof(Geom) == 27 * sizeof(int), "Geom is 27 ints");
+  static_assert(sizeof(Geom) == 28 * sizeof(int), "Geom is 28 ints");
   memcpy(&g, geom, sizeof(Geom));
   Noise e;
   for (int r = 0; r < PHILOX_ROUNDS; ++r) {
@@ -2053,11 +2593,13 @@ extern "C" int cim_mvm_batched_launch(const void* x, const float* wf,
   return (int)err;
 }
 
-// The grouped ideal form (geom form 6, ops.py::grouped_geometry): expert
-// z of geom gz reads its codes at codes + z * cstride, its pos at pos +
-// z * pstride and scale[z], and computes the rows [offsets[z],
-// min(offsets[z + 1], offsets[z] + geom M)) of y (A, geom N) from those
-// rows of x (A, geom I; f32, or bf16 with geom xbf16).
+// The grouped ideal forms (geom form 6, 7 or 8, ops.py::grouped_geometry):
+// expert e of the geom ``experts`` reads its codes at codes + e * cstride,
+// its pos at pos + e * pstride and scale[e], and computes the rows
+// [offsets[e], min(offsets[e + 1], offsets[e] + geom M)) of y (A, geom N)
+// from those rows of x (A, geom I; f32, or bf16 with geom xbf16).  The
+// decode and prefill forms take the 16-byte path only (codes on 16 bytes,
+// wpt and n_pad multiples of 8, the eta*M1 table); the general form any.
 extern "C" int cim_mvm_grouped_launch(const void* x, const int16_t* codes,
                                       const int32_t* pos, const float* scale,
                                       const int32_t* offsets, float* out,
@@ -2066,19 +2608,44 @@ extern "C" int cim_mvm_grouped_launch(const void* x, const int16_t* codes,
                                       void* stream_ptr) {
   Geom g;
   memcpy(&g, geom, sizeof(Geom));
-  if (g.form != FORM_GROUPED || g.tile != GR_BN || g.M < 1 || g.I < 1 ||
-      g.gz < 1 || !offsets ||
-      (g.fast && ((reinterpret_cast<uintptr_t>(codes) & 15) || cstride % 8 ||
-                  g.n_pad % 8 || g.wpt % 8)))
+  if (g.M < 1 || g.I < 1 || g.gz < 1 || g.experts < 1 || !offsets)
     return (int)cudaErrorInvalidValue;
+  const bool fast_ok = g.fast && !(reinterpret_cast<uintptr_t>(codes) & 15) &&
+                       cstride % 8 == 0 && g.n_pad % 8 == 0 && g.wpt % 8 == 0;
   cudaStream_t s = (cudaStream_t)stream_ptr;
-  cudaError_t err =
-      g.fast ? launch<cim_grouped_kernel<true>>(g, s, x, codes, pos, scale,
-                                                offsets, out, cstride,
-                                                pstride, g, eta)
-             : launch<cim_grouped_kernel<false>>(g, s, x, codes, pos, scale,
-                                                 offsets, out, cstride,
-                                                 pstride, g, eta);
+  cudaError_t err;
+  switch (g.form) {
+    case FORM_GROUPED:
+      if (g.tile != GR_BN || g.gz != g.experts)
+        return (int)cudaErrorInvalidValue;
+      err = launch<cim_grouped_kernel>(g, s, x, codes, pos, scale, offsets,
+                                       out, cstride, pstride, g, eta);
+      break;
+    case FORM_GROUPED_DECODE:
+      if (!fast_ok || g.tile != GD_BN || g.gy < 1 || g.gy > CLUSTER ||
+          g.mt != GD_RB)
+        return (int)cudaErrorInvalidValue;
+      err = launch_grid<cim_grouped_decode_kernel>(
+          dim3(g.gx, g.gy, g.gz), dim3(1, g.gy, 1), g.smem, s, x, codes, pos,
+          scale, offsets, out, cstride, pstride, g, eta);
+      break;
+    case FORM_GROUPED_PREFILL:
+      if (!fast_ok || g.tile != GP_BN || g.gy < 1 || g.gy > CLUSTER ||
+          (4 * GP_NT) % g.gy)
+        return (int)cudaErrorInvalidValue;
+      err = g.xbf16
+                ? launch_grid<cim_grouped_prefill_kernel<true>>(
+                      dim3(g.gx, g.gy, g.gz), dim3(1, g.gy, 1), g.smem, s, x,
+                      codes, pos, scale, offsets, out, cstride, pstride, g,
+                      eta)
+                : launch_grid<cim_grouped_prefill_kernel<false>>(
+                      dim3(g.gx, g.gy, g.gz), dim3(1, g.gy, 1), g.smem, s, x,
+                      codes, pos, scale, offsets, out, cstride, pstride, g,
+                      eta);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return (int)err;
 }
 
@@ -2109,7 +2676,7 @@ extern "C" int cim_fold_launch(const int16_t* codes, const int32_t* pos,
 // the fold's col_pos instantiation where geom rows > 0), from the CUDA
 // runtime's occupancy calculator: out[0] resident blocks a SM, out[1] clusters the card holds
 // at once for a cluster launch (the decode forms, a split folded
-// prefill), else 0.  A failed query leaves no error behind for the next
+// prefill, a split grouped form), else 0.  A failed query leaves no error behind for the next
 // launch's cudaGetLastError().
 extern "C" int cim_occupancy(const int* geom, int* out) {
   Geom g;
@@ -2139,8 +2706,19 @@ extern "C" int cim_occupancy(const int* geom, int* out) {
                                : occupancy_batched<false, false>(g, out));
       break;
     case FORM_GROUPED:
-      err = g.fast ? occupancy<cim_grouped_kernel<true>>(g, 1, out)
-                   : occupancy<cim_grouped_kernel<false>>(g, 1, out);
+      err = occupancy<cim_grouped_kernel>(g, 1, out);
+      break;
+    case FORM_GROUPED_DECODE:
+      err = occupancy<cim_grouped_decode_kernel>(
+          g, dim3(g.gx, g.gy, g.gz), dim3(1, g.gy, 1), false, out);
+      break;
+    case FORM_GROUPED_PREFILL:
+      err = g.xbf16 ? occupancy<cim_grouped_prefill_kernel<true>>(
+                          g, dim3(g.gx, g.gy, g.gz), dim3(1, g.gy, 1), false,
+                          out)
+                    : occupancy<cim_grouped_prefill_kernel<false>>(
+                          g, dim3(g.gx, g.gy, g.gz), dim3(1, g.gy, 1), false,
+                          out);
       break;
     case FORM_FOLD:
       if (g.fast)

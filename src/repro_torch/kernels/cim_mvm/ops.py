@@ -177,19 +177,36 @@ PREFILL_SPLITS = (8, 4, 2)         # folded prefill: splits of I, widest first
 # BATCHED_XLD floats, Wg at BATCHED_WLD.
 BATCHED_BN, BATCHED_BK, BATCHED_STAGES, BATCHED_BLOCKS = 128, 32, 4, 2
 BATCHED_WLD, BATCHED_XLD = BATCHED_BN + 8, BATCHED_BK + 4
-# The grouped ideal form: blocks of GROUPED_BM rows of an expert by
-# GROUPED_BN columns, I in slabs of GROUPED_BK rows.
+# The grouped forms.  General (the ragged spec): blocks of GROUPED_BM rows
+# of an expert by GROUPED_BN columns, I in slabs of GROUPED_BK rows.
+# Decode (cap <= GROUPED_DECODE_MAX_CAP): an (expert, GROUPED_DECODE_BN
+# columns) item's slabs of GROUPED_DECODE_BK rows (a row a thread) split
+# over a cluster of up to 8 blocks (GROUPED_SPLITS), each thread
+# streaming its rows through its own ring of GROUPED_DECODE_STAGES rows,
+# GROUPED_DECODE_RB rows of the expert a pass, built for
+# GROUPED_DECODE_BLOCKS blocks a SM.  Prefill: an (expert,
+# GROUPED_PREFILL_BN columns) item, all of I in slabs of GROUPED_PREFILL_BK
+# rows through a ring of GROUPED_PREFILL_STAGES, up to 8 x
+# GROUPED_PREFILL_NT rows a pass, GROUPED_PREFILL_KS k steps of 8 a
+# rounding group.
 GROUPED_BM, GROUPED_BN, GROUPED_BK = 32, 128, 32
+GROUPED_DECODE_BN, GROUPED_DECODE_BK, GROUPED_DECODE_STAGES = 128, 16, 8
+GROUPED_DECODE_RB, GROUPED_DECODE_BLOCKS = 4, 3
+GROUPED_PREFILL_BN, GROUPED_PREFILL_BK, GROUPED_PREFILL_STAGES = 128, 32, 4
+GROUPED_PREFILL_NT, GROUPED_PREFILL_KS = 16, 2
+GROUPED_SPLITS = (8, 4, 2)
+GROUPED_DECODE_MAX_CAP = 32
 SMEM_MAX = 227 * 1024
 # kernel.cu's Geom.form: the ideal forms, the folded forms, the fold, the
-# batched folded decode form, the grouped ideal form.
+# batched folded decode form, the grouped forms (general, decode, prefill).
 FORM_DECODE, FORM_PREFILL, FORM_DECODE_FOLDED, FORM_PREFILL_FOLDED, \
-    FORM_FOLD, FORM_DECODE_BATCHED, FORM_GROUPED = range(7)
+    FORM_FOLD, FORM_DECODE_BATCHED, FORM_GROUPED, FORM_GROUPED_DECODE, \
+    FORM_GROUPED_PREFILL = range(9)
 # The fields of kernel.cu's ``Geom``, in order.
 _GEOM_FIELDS = ("form", "M", "I", "N", "n_pad", "n_tiles", "wpt", "n_bits",
                 "cols", "reversed", "fast", "tile", "rps", "gx", "gy", "gz",
                 "smem", "off_t", "off_p", "mt", "xbf16", "ld", "noise",
-                "rows", "n_ti", "cp_ti", "cp_tn")
+                "rows", "n_ti", "cp_ti", "cp_tn", "experts")
 
 
 def _table(wpt: int, n_bits: int) -> int:
@@ -315,7 +332,7 @@ def cim_geometry(M: int, I: int, N: int, i_pad: int, n_pad: int, wpt: int,
     g.update(M=M, I=I, N=N, n_pad=n_pad, n_tiles=n_pad // wpt, wpt=wpt,
              n_bits=n_bits, cols=cols, reversed=int(reversed_df),
              xbf16=int(xbf16), ld=ld, noise=int(noise), rows=0, n_ti=0,
-             cp_ti=0, cp_tn=0)
+             cp_ti=0, cp_tn=0, experts=0)
     return runtime.Geometry.of(_GEOM_FIELDS, g)
 
 
@@ -349,30 +366,104 @@ def batched_geometry(members: int, M: int, I: int, N: int, i_pad: int,
              gx=min(items, slots // split) * split, gy=split, gz=members,
              smem=4 * floats, off_t=0, off_p=0, mt=DECODE_MAX_M,
              xbf16=int(xbf16), ld=folded_ld(n_pad), noise=int(noise),
-             rows=0, n_ti=0, cp_ti=0, cp_tn=0)
+             rows=0, n_ti=0, cp_ti=0, cp_tn=0, experts=0)
     return runtime.Geometry.of(_GEOM_FIELDS, g)
+
+
+def _grouped_decode_geometry(I: int, wpt: int, n_bits: int):
+    """The grouped decode form's split of I and shared memory, or None
+    where its x slab would not fit (a very long I)."""
+    bk, bn, rb = GROUPED_DECODE_BK, GROUPED_DECODE_BN, GROUPED_DECODE_RB
+    n_slabs = math.ceil(I / bk)
+    split = next((s for s in GROUPED_SPLITS if n_slabs >= 4 * s), 1)
+    rps = math.ceil(n_slabs / split) * bk
+    # The threads' rings (16 code bytes and a pos word a row), later the
+    # row slices' sums [16][RB][BN]; the eta*M1 table; the x slab
+    # [rps][RB]; the part [RB][BN] (offsets in floats).
+    off_t = GROUPED_DECODE_STAGES * THREADS * (16 + 4) // 4
+    off_p = off_t + runtime.round4(_table(wpt, n_bits))
+    smem = 4 * (off_p + rps * rb + rb * bn)
+    if smem > SMEM_MAX:
+        return None
+    return dict(form=FORM_GROUPED_DECODE, tile=bn, rps=rps, gy=split,
+                smem=smem, off_t=off_t, off_p=off_p, mt=rb)
+
+
+def _grouped_prefill_geometry(experts: int, cap: int, I: int, N: int,
+                              wpt: int, n_bits: int, xbf16: bool,
+                              assignments: int | None, sm_count: int):
+    """The grouped prefill form's split of I and shared memory: a ring of
+    (codes, pos, raw x) slabs, then the eta*M1 table.  The split: where x's
+    rows, each expert at its capacity, would fill fewer experts' column
+    tiles than the blocks the card holds at once (two a SM with bf16 x,
+    one with f32), the widest of 8, 4, 2 that still fits them, each rank
+    with two slabs."""
+    bk, bn, rows = (GROUPED_PREFILL_BK, GROUPED_PREFILL_BN,
+                    8 * GROUPED_PREFILL_NT)
+    x_row = (bk + 8) * 2 if xbf16 else (bk + 4) * 4
+    stage = bk * (bn + 8) * 2 + bk * (bn // 8 + 4) * 4 + rows * x_row
+    gx = math.ceil(N / bn)
+    fill = experts if assignments is None else min(
+        experts, max(1, math.ceil((assignments - 1) / cap)))
+    slots = (2 if xbf16 else 1) * sm_count
+    split = next((s for s in GROUPED_SPLITS if fill * gx * s <= slots
+                  and math.ceil(I / bk) >= 2 * s), 1)
+    return dict(form=FORM_GROUPED_PREFILL, tile=bn, rps=0, gy=split,
+                smem=GROUPED_PREFILL_STAGES * stage + 4 * _table(wpt, n_bits),
+                off_t=0, off_p=0, mt=0)
 
 
 @functools.lru_cache(maxsize=None)
 def grouped_geometry(experts: int, cap: int, I: int, N: int, n_pad: int,
                      wpt: int, n_bits: int, cols: int, reversed_df: bool,
-                     aligned: bool, xbf16: bool = False) -> runtime.Geometry:
-    """The grouped ideal form's launch: ``experts`` deployments of one
-    shape, each computing at most ``cap`` rows of x (A, I).  Grid
-    (ceil(N / 128), ceil(cap / 32), experts); shared memory holds a slab
-    of x (32 x 32), a slab of W' (32 x 128) and, on the 16-byte path
-    (``fast``: ``aligned`` codes, wpt and n_pad multiples of 8), the
-    eta*M1 table."""
+                     aligned: bool, xbf16: bool = False,
+                     assignments: int | None = None,
+                     sm_count: int = 132) -> runtime.Geometry:
+    """The grouped ideal forms' launch: ``experts`` deployments of one
+    shape, each computing at most ``cap`` rows of x (``assignments`` rows,
+    default unknown).  On the 16-byte path (``fast``: ``aligned`` codes,
+    wpt and n_pad multiples of 8, the eta*M1 table in shared memory):
+
+    * the decode form for cap <= GROUPED_DECODE_MAX_CAP (a few rows an
+      expert): grid (ceil(N / 128), gy, slots) in clusters of (1, gy, 1),
+      rank r of gy the slabs [s r / gy, s (r + 1) / gy) of the s slabs of
+      16 rows of I (gy the widest of 8, 4, 2 that leaves each rank four
+      slabs: four rows a thread), up to GROUPED_DECODE_RB rows of an
+      expert a pass;
+    * the prefill form above it: grid (ceil(N / 128), gy, slots) in
+      clusters of (1, gy, 1), a block all of an expert's rows (up to 128 a
+      pass) and rank r of gy the slabs [s r / gy, s (r + 1) / gy) of the s
+      slabs of 32 rows of I; gy > 1 only where the assignments, each
+      expert at its capacity, fill too few experts to occupy the card's
+      ``sm_count`` SMs (one expert at the capacity: gy = 8).
+
+    ``slots`` is min(experts, assignments): block z of a launch computes
+    the z-th expert that has a row.  The threshold: each routing of
+    ``cim_ab.py --grouped --forms`` forced onto each form at qwen2-moe's
+    expert shapes on the H100 (PERF.md, row 1g), the decode form took
+    about half the prefill form's time at cap 16 and 32, the prefill
+    form about a fifth of the decode form's at cap 128.
+    Elsewhere (the ragged spec) the general form: grid (ceil(N / 128),
+    ceil(cap / 32), experts), a slab of x (32 x 32) and of W' (32 x 128)
+    in shared memory."""
     fast = _fast(aligned, n_pad, wpt, n_bits)
-    floats = GROUPED_BK * (GROUPED_BM + GROUPED_BN)
-    g = dict(form=FORM_GROUPED, M=cap, I=I, N=N, n_pad=n_pad,
-             n_tiles=n_pad // wpt, wpt=wpt, n_bits=n_bits, cols=cols,
-             reversed=int(reversed_df), fast=int(fast), tile=GROUPED_BN,
-             rps=0, gx=math.ceil(N / GROUPED_BN),
-             gy=math.ceil(cap / GROUPED_BM), gz=experts,
-             smem=4 * (floats + (_table(wpt, n_bits) if fast else 0)),
-             off_t=floats, off_p=0, mt=0, xbf16=int(xbf16), ld=0, noise=0,
-             rows=0, n_ti=0, cp_ti=0, cp_tn=0)
+    slots = experts if assignments is None else min(experts, assignments)
+    g = _grouped_decode_geometry(I, wpt, n_bits) \
+        if fast and cap <= GROUPED_DECODE_MAX_CAP else None
+    if g is None and fast:
+        g = _grouped_prefill_geometry(experts, cap, I, N, wpt, n_bits, xbf16,
+                                      assignments, sm_count)
+    if g is None:
+        g = dict(form=FORM_GROUPED, tile=GROUPED_BN, rps=0,
+                 gy=math.ceil(cap / GROUPED_BM),
+                 smem=4 * GROUPED_BK * (GROUPED_BM + GROUPED_BN), off_t=0,
+                 off_p=0, mt=0)
+        slots = experts
+    g.update(M=cap, I=I, N=N, n_pad=n_pad, n_tiles=n_pad // wpt, wpt=wpt,
+             n_bits=n_bits, cols=cols, reversed=int(reversed_df),
+             fast=int(fast), gx=math.ceil(N / g["tile"]), gz=slots,
+             xbf16=int(xbf16), ld=0, noise=0, rows=0, n_ti=0, cp_ti=0,
+             cp_tn=0, experts=experts)
     return runtime.Geometry.of(_GEOM_FIELDS, g)
 
 
@@ -408,7 +499,7 @@ def fold_geometry(i_pad: int, n_pad: int, wpt: int, n_bits: int, cols: int,
              gx=math.ceil(ld / FOLD_COLS), gy=math.ceil(i_pad / rps), gz=1,
              smem=smem, off_t=0, off_p=0, mt=0, xbf16=0, ld=ld, noise=0,
              rows=rows, n_ti=i_pad // rows if colp else 0, cp_ti=cp_ti,
-             cp_tn=cp_tn)
+             cp_tn=cp_tn, experts=0)
     return runtime.Geometry.of(_GEOM_FIELDS, g)
 
 
@@ -657,7 +748,8 @@ def _launch_grouped(x: torch.Tensor, dep: CimDeployment,
     geom = grouped_geometry(E, cap, dep.in_dim, dep.out_dim, n_pad, dep.wpt,
                             dep.n_bits, dep.cols, dep.reversed_df,
                             codes.data_ptr() % 16 == 0,
-                            x.dtype == torch.bfloat16)
+                            x.dtype == torch.bfloat16, x.shape[0],
+                            _sm_count(x.device.index or 0))
     rc = runtime.library().cim_mvm_grouped_launch(
         x.data_ptr(), codes.data_ptr(), pos.data_ptr(), scale.data_ptr(),
         offsets.data_ptr(), out.data_ptr(), i_pad * n_pad,
@@ -682,10 +774,11 @@ def cim_mvm_grouped(x: torch.Tensor, dep: CimDeployment,
     on the device, expert e owning the rows [offsets[e], offsets[e+1]);
     ``cap``: the most rows an expert computes (default A), its rows past
     ``offsets[e] + cap`` dropped.  Returns (A, out_dim) f32, zero on
-    every row no expert computes: the grouped ideal form on CUDA, its
-    plain version (a loop of :func:`cim_mvm`'s over the experts) on the
-    CPU.  The offsets never go to the host: the launch is sized by
-    ``cap``, and an expert without rows reads no weight.
+    every row no expert computes: one of the grouped forms on CUDA
+    (:func:`grouped_geometry` picks it from ``cap``), the plain version (a
+    loop of :func:`cim_mvm`'s over the experts) on the CPU.  The offsets
+    never go to the host: the launch is sized by ``cap`` and A, and an
+    expert without rows reads no weight.
     """
     dev = resolve_device(device)
     check_on(dev, x=x, codes=dep.codes, pos=dep.pos, scale=dep.scale,

@@ -221,19 +221,25 @@ def _self_check(lib: ctypes.CDLL) -> None:
                     x.data_ptr(), wf2.data_ptr(), 512, scale.data_ptr(),
                     reps.data_ptr(), tags.data_ptr(), out.data_ptr(),
                     geom.array, 0, 0.1 if noise else 0.0, stream)
-    # The grouped ideal form, both instances (16-byte codes or not), over
-    # two experts of 8 x 8 with offsets [0, 1, 3].
+    # The grouped forms over two experts of I x 8 with offsets [0, 1, 3]:
+    # the decode form (cap 2) and the prefill form with bf16 and f32 x
+    # (cap 40), each also at I = 128 (split over a cluster of 2), the
+    # general form (codes taken as off 16 bytes).
     offs = torch.tensor([0, 1, 3], dtype=torch.int32, device=dev)
-    codes2, pos2, scale2 = (z(2, 8, 8, dt=torch.int16),
-                            z(2, 8, 1, dt=torch.int32), z(2))
-    for aligned in (True, False):
-        x, out = z(3, 8, dt=torch.bfloat16), z(3, 8)
-        geom = grouped_geometry(2, 2, 8, 8, 8, 8, 8, 64, False, aligned,
-                                True)
-        rc[f"cim_mvm_grouped fast={aligned}"] = lib.cim_mvm_grouped_launch(
-            x.data_ptr(), codes2.data_ptr(), pos2.data_ptr(),
-            scale2.data_ptr(), offs.data_ptr(), out.data_ptr(), 64, 8,
-            geom.array, 0.0, stream)
+    for I, cap, aligned, bf16 in ((8, 2, True, True), (128, 2, True, True),
+                                  (8, 40, True, True), (8, 40, True, False),
+                                  (128, 40, True, True), (8, 2, False, True)):
+        codes2, pos2, scale2 = (z(2, I, 8, dt=torch.int16),
+                                z(2, I, 1, dt=torch.int32), z(2))
+        x = z(3, I, dt=torch.bfloat16 if bf16 else torch.float32)
+        out = z(3, 8)
+        geom = grouped_geometry(2, cap, I, 8, 8, 8, 8, 64, False, aligned,
+                                bf16, 3)
+        rc[f"cim_mvm_grouped form={geom.form} I={I} bf16={bf16}"] = \
+            lib.cim_mvm_grouped_launch(
+                x.data_ptr(), codes2.data_ptr(), pos2.data_ptr(),
+                scale2.data_ptr(), offs.data_ptr(), out.data_ptr(), I * 8, I,
+                geom.array, 0.0, stream)
     # Both forms in f32 and in bf16, and the bf16 decode split over a
     # cluster of 2.
     for Sq, bf16, split in ((1, False, None), (17, False, None),

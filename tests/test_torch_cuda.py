@@ -1013,16 +1013,23 @@ def _expert_bank(cuda, E, I, N, spec, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("I,N", [(2048, 1408), (1408, 2048), (200, 72)])
 @pytest.mark.parametrize("routing", ["prefill", "decode", "empty", "at_cap",
-                                     "dropped"])
+                                     "dropped", "cap32", "straddle",
+                                     "over128"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cim_mvm_grouped_vs_plain(cuda, I, N, routing, dtype):
-    """The grouped form at qwen2-moe's expert shapes (E = 60: a prefill
-    of 4 x 128 tokens top-4, capacity 128; a decode step of 4 tokens; an
+    """The grouped forms at qwen2-moe's expert shapes (E = 60: a prefill
+    of 4 x 128 tokens top-4, capacity 128, on the tensor-core form, f32 x
+    in three products and bf16 x in two; a decode step of 4 tokens; an
     expert with every row and the rest empty; one expert at exactly the
-    capacity; rows past the capacity dropped) and at a ragged shape
-    (spec (16, 16, 8): wpt 2, the general code path), against its plain
-    version: max|kernel - plain| <= 1e-5 * max|plain|, rows no expert
-    computes exactly 0, two calls bit-identical."""
+    capacity; rows past the capacity dropped; a continuous decode step
+    of 8 tokens, capacity 32; experts of 0..9 rows at capacity 16,
+    straddling every row bucket of the decode form and taking two of its
+    passes; experts of 260 and 130 rows at capacity 300, three and two
+    passes of the prefill form) and at a ragged shape (spec (16, 16, 8): wpt 2, the general
+    form), against the plain version: max|kernel - plain| <= 1e-5 *
+    max|plain|, rows no expert computes exactly 0, two calls
+    bit-identical."""
+    from repro_torch.kernels.cim_mvm import ops
     from repro_torch.kernels.cim_mvm.ops import cim_mvm_grouped
     from repro_torch.kernels.cim_mvm.ref import cim_mvm_grouped_plain
 
@@ -1031,9 +1038,11 @@ def test_cim_mvm_grouped_vs_plain(cuda, I, N, routing, dtype):
     spec = (16, 16, 8) if ragged else (64, 64, 8)
     dep = _expert_bank(cuda, E, I, N, spec, I + N)
     rng = np.random.default_rng(len(routing))
-    T, K = {"prefill": (512, 4), "decode": (4, 4)}.get(routing, (512, 4))
-    cap = min(128, T * K) if routing != "dropped" else 40
-    if routing in ("prefill", "decode", "dropped"):
+    T, K = {"prefill": (512, 4), "decode": (4, 4),
+            "cap32": (8, 4)}.get(routing, (512, 4))
+    cap = {"dropped": 40, "straddle": 16,
+           "over128": 300}.get(routing, min(128, T * K))
+    if routing in ("prefill", "decode", "dropped", "cap32"):
         probs = rng.random((T, E)) ** 3          # uneven loads
         top = np.argsort(-probs, axis=1, kind="stable")[:, :K]
         counts = np.bincount(top.reshape(-1), minlength=E)
@@ -1042,6 +1051,11 @@ def test_cim_mvm_grouped_vs_plain(cuda, I, N, routing, dtype):
     elif routing == "empty":
         counts = np.zeros(E, np.int64)
         counts[3] = cap
+    elif routing == "straddle":
+        counts = np.arange(E) % 10
+    elif routing == "over128":
+        counts = np.zeros(E, np.int64)
+        counts[5], counts[min(9, E - 1)] = 260, 130
     else:                                        # "at_cap"
         counts = rng.integers(0, cap // 2, E)
         counts[min(7, E - 1)] = cap
@@ -1050,6 +1064,12 @@ def test_cim_mvm_grouped_vs_plain(cuda, I, N, routing, dtype):
     A = int(counts.sum()) + 1
     x = torch.randn((A, I), generator=torch.Generator(
         device=cuda).manual_seed(5), device=cuda).to(dtype)
+    geom = ops.grouped_geometry(E, cap, I, N, dep.codes.shape[2], dep.wpt,
+                                dep.n_bits, dep.cols, dep.reversed_df, True,
+                                dtype == torch.bfloat16, A)
+    assert geom.form == (ops.FORM_GROUPED if ragged
+                         else ops.FORM_GROUPED_DECODE if cap <= 32
+                         else ops.FORM_GROUPED_PREFILL)
     y = cim_mvm_grouped(x, dep, offsets, cap, device=cuda)
     want = cim_mvm_grouped_plain(x, dep, offsets, cap)
     err = (y - want).abs().max().item()
@@ -1066,6 +1086,7 @@ def test_cim_mvm_grouped_vs_plain(cuda, I, N, routing, dtype):
 def test_cim_mvm_grouped_counts_and_occupancy(cuda):
     from repro_torch.kernels import runtime
     from repro_torch.kernels.cim_mvm.ops import (
+        GROUPED_DECODE_BLOCKS,
         cim_mvm_grouped,
         grouped_geometry,
         occupancy,
@@ -1080,6 +1101,13 @@ def test_cim_mvm_grouped_counts_and_occupancy(cuda):
     occ = occupancy(grouped_geometry(60, 128, 2048, 1408, 1408, 8, 8, 64,
                                      True, True, True))
     assert occ["blocks_per_sm"] >= 1 and occ["clusters"] is None
+    # The decode form at qwen2-moe's decode step: a cluster of 8 splits I,
+    # as many blocks a SM as it is built for.
+    geom = grouped_geometry(60, 16, 2048, 1408, 1408, 8, 8, 64, False, True,
+                            True, 17)
+    occ = occupancy(geom)
+    assert geom.gy == 8 and occ["clusters"] >= 1
+    assert occ["blocks_per_sm"] >= GROUPED_DECODE_BLOCKS, occ
 
 
 @pytest.mark.cuda

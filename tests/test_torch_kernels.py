@@ -481,6 +481,24 @@ def test_geometry_constants_mirror_the_kernels():
     assert _cu_constant(cim_cu, "GR_BM") == cim_ops.GROUPED_BM
     assert _cu_constant(cim_cu, "GR_BN") == cim_ops.GROUPED_BN
     assert _cu_constant(cim_cu, "GR_BK") == cim_ops.GROUPED_BK
+    for name, value in (("GD_BN", cim_ops.GROUPED_DECODE_BN),
+                        ("GD_BK", cim_ops.GROUPED_DECODE_BK),
+                        ("GD_STAGES", cim_ops.GROUPED_DECODE_STAGES),
+                        ("GD_RB", cim_ops.GROUPED_DECODE_RB),
+                        ("GD_BLOCKS", cim_ops.GROUPED_DECODE_BLOCKS),
+                        ("GP_BN", cim_ops.GROUPED_PREFILL_BN),
+                        ("GP_BK", cim_ops.GROUPED_PREFILL_BK),
+                        ("GP_STAGES", cim_ops.GROUPED_PREFILL_STAGES),
+                        ("GP_NT", cim_ops.GROUPED_PREFILL_NT),
+                        ("GP_KS", cim_ops.GROUPED_PREFILL_KS)):
+        assert _cu_constant(cim_cu, name) == value, name
+    # The grouped decode form's split and the prefill form's layout.
+    text = cim_cu.read_text()
+    assert max(cim_ops.GROUPED_SPLITS) <= _cu_constant(cim_cu, "CLUSTER")
+    for name, base, value in (("GP_CLD", "GP_BN", 8), ("GP_XLD", "GP_BK", 4),
+                              ("GP_XLDB", "GP_BK", 8)):
+        assert re.search(rf"constexpr int {name} = {base} \+ (\d+);",
+                         text).group(1) == str(value)
     for name, base, value in (
             ("BT_WLD", "BT_BN", cim_ops.BATCHED_WLD - cim_ops.BATCHED_BN),
             ("BT_XLD", "BT_BK", cim_ops.BATCHED_XLD - cim_ops.BATCHED_BK)):
@@ -492,12 +510,14 @@ def test_geometry_constants_mirror_the_kernels():
     forms = re.search(r"constexpr int FORM_DECODE = 0, FORM_PREFILL = 1, "
                       r"FORM_DECODE_FOLDED = 2,\s*FORM_PREFILL_FOLDED = 3, "
                       r"FORM_FOLD = 4,\s*FORM_DECODE_BATCHED = 5, "
-                      r"FORM_GROUPED = 6;",
+                      r"FORM_GROUPED = 6,\s*FORM_GROUPED_DECODE = 7, "
+                      r"FORM_GROUPED_PREFILL = 8;",
                       cim_cu.read_text())
     assert forms and (cim_ops.FORM_DECODE, cim_ops.FORM_PREFILL,
                       cim_ops.FORM_DECODE_FOLDED, cim_ops.FORM_PREFILL_FOLDED,
                       cim_ops.FORM_FOLD, cim_ops.FORM_DECODE_BATCHED,
-                      cim_ops.FORM_GROUPED) == (0, 1, 2, 3, 4, 5, 6)
+                      cim_ops.FORM_GROUPED, cim_ops.FORM_GROUPED_DECODE,
+                      cim_ops.FORM_GROUPED_PREFILL) == tuple(range(9))
     fields = re.search(r"struct Geom \{\s*int ([^;]*);",
                        cim_cu.read_text()).group(1)
     assert tuple(f.strip() for f in fields.split(",")) == \
@@ -699,6 +719,204 @@ def test_cim_batched_geometry_split_by_shape():
     with pytest.raises(ValueError):
         cim_ops.batched_geometry(3, 17, 320, 200, 320, 200, 8, 8, 64, False,
                                  132)
+
+
+def _grouped_slots(offsets, cap, slots):
+    """kernel.cu's slot_expert: slot z computes the z-th expert, in
+    ascending order, that has a row: (expert, first row, rows), or None."""
+    live = [(e, offsets[e], min(offsets[e + 1] - offsets[e], cap))
+            for e in range(len(offsets) - 1)]
+    live = [t for t in live if t[2] > 0]
+    return [live[z] if z < len(live) else None for z in range(slots)]
+
+
+def _grouped_writes(geom, offsets, A):
+    """The times each grouped form's blocks write each y element (A, N),
+    and for each (item, pass) the rows of I that each rank (the decode
+    form's cluster; one block elsewhere) sums, in rank order: the
+    kernels' index loops restated."""
+    N, I = geom.N, geom.I
+    hits = np.zeros((A, N), np.int32)
+    spans = []
+    if geom.form == cim_ops.FORM_GROUPED:
+        bm, bn = cim_ops.GROUPED_BM, geom.tile
+        for e in range(geom.gz):
+            a0 = offsets[e]
+            a1 = min(offsets[e + 1], a0 + geom.M)
+            for by in range(geom.gy):
+                r0 = a0 + by * bm
+                if r0 >= a1:
+                    continue
+                for bx in range(geom.gx):
+                    hits[r0:min(r0 + bm, a1), bx * bn:(bx + 1) * bn] += 1
+                    spans.append([list(range(I))])
+        return hits, spans
+    slots = _grouped_slots(offsets, geom.M, geom.gz)
+    tid = np.arange(cim_ops.THREADS)
+    for item in slots:
+        if item is None:
+            continue
+        _, a0, rows = item
+        for bx in range(geom.gx):
+            nb = bx * geom.tile
+            if geom.form == cim_ops.FORM_GROUPED_DECODE:
+                bk, rb, S = cim_ops.GROUPED_DECODE_BK, geom.mt, geom.gy
+                n = -(-I // bk)
+                ranks = []
+                for r in range(S):
+                    s0, s1 = n * r // S, n * (r + 1) // S
+                    assert (s1 - s0) * bk <= geom.rps      # the x slab fits
+                    ranks.append([i for s in range(s0, s1)
+                                  for i in range(s * bk, min(s * bk + bk, I))])
+                for c0 in range(0, rows, rb):
+                    rc = min(rb, rows - c0)
+                    spans.append(ranks)
+                    for r in range(S):
+                        for base in range(r * cim_ops.THREADS, rc * geom.tile,
+                                          S * cim_ops.THREADS):
+                            q = base + tid
+                            q = q[q < rc * geom.tile]
+                            col = nb + q % geom.tile
+                            ok = col < N
+                            np.add.at(hits, (a0 + c0 + q[ok] // geom.tile,
+                                             col[ok]), 1)
+            else:
+                # Output i = 4t + u of lane (gq, tq) of warp w: row 8t +
+                # 2tq + u % 2, column 16w + 2gq + (u % 4) // 2; rank r of
+                # gy stores the outputs [r share, (r + 1) share), i < 4 nt.
+                bk, S = cim_ops.GROUPED_PREFILL_BK, geom.gy
+                per, n = 8 * cim_ops.GROUPED_PREFILL_NT, -(-I // bk)
+                share = 4 * cim_ops.GROUPED_PREFILL_NT // S
+                ranks = [[i for s in range(n * r // S, n * (r + 1) // S)
+                          for i in range(s * bk, min(s * bk + bk, I))]
+                         for r in range(S)]
+                for c0 in range(0, rows, per):
+                    rc = min(per, rows - c0)
+                    pairs = -(-rc // 16)          # specialised: 1-4 or 8
+                    nt = 2 * (pairs if pairs <= 4 else 8)
+                    spans.append(ranks)
+                    i, w, gq, tq = np.meshgrid(
+                        np.arange(4 * nt), np.arange(8), np.arange(8),
+                        np.arange(4), indexing="ij")
+                    for r in range(S):
+                        mine = (i >= r * share) & (i < (r + 1) * share)
+                        m = (8 * (i // 4) + 2 * tq + i % 2)[mine]
+                        col = (nb + 16 * w + 2 * gq + i % 4 // 2)[mine]
+                        ok = (m < rc) & (col < N)
+                        np.add.at(hits, (a0 + c0 + m[ok], col[ok]), 1)
+    return hits, spans
+
+
+def _grouped_counts(routing, E, cap, rng):
+    """Rows an expert for each routing of the grouped tests."""
+    if routing == "decode":            # 4 tokens top-4: one row an expert
+        counts = np.zeros(E, np.int64)
+        counts[rng.choice(E, min(E, 14), replace=False)] = 1
+        counts[:2] += 1
+    elif routing == "one expert":
+        counts = np.zeros(E, np.int64)
+        counts[3] = cap
+    elif routing == "at cap":
+        counts = rng.integers(0, cap // 2, E)
+        counts[min(7, E - 1)] = cap
+    elif routing == "straddle":        # 1..9 rows: every row bucket, 2 passes
+        counts = np.arange(E) % 10
+    else:                              # "prefill" / "dropped": uneven loads
+        counts = rng.poisson(34, E)
+        counts[0] = cap + 30
+    return counts
+
+
+@pytest.mark.parametrize("E,I,N,spec,cap,routing", [
+    (60, 2048, 1408, (64, 64, 8), 16, "decode"),
+    (60, 1408, 2048, (64, 64, 8), 16, "decode"),
+    (60, 2048, 1408, (64, 64, 8), 32, "at cap"),
+    (60, 2048, 1408, (64, 64, 8), 128, "prefill"),
+    (60, 1408, 2048, (64, 64, 8), 128, "at cap"),
+    (60, 2048, 1408, (64, 64, 8), 128, "one expert"),
+    (12, 200, 72, (16, 16, 8), 9, "straddle"),
+    (12, 200, 72, (16, 16, 8), 300, "dropped"),
+    (6, 200, 72, (16, 16, 2), 16, "decode"),
+    (6, 200, 72, (16, 16, 2), 128, "at cap"),
+])
+@pytest.mark.parametrize("xbf16", [False, True])
+def test_cim_grouped_geometry_covers_each_output_once(E, I, N, spec, cap,
+                                                      routing, xbf16):
+    """Each grouped form (decode, prefill, general) writes every (expert,
+    row below the capacity, column) of y exactly once and no other
+    element; each (item, pass) sums every row of I exactly once, over
+    the decode form's ranks in rank order, each rank with a slab; the
+    decode form splits I over a cluster of at most 8 blocks; the shared
+    memory fits (the decode form GROUPED_DECODE_BLOCKS blocks a SM, the
+    bf16 prefill form two, 228 KB an SM less 1 KB a block), and the
+    decode form's ring holds the warps' sums."""
+    rows, cols, bits = spec
+    wpt = cols // bits
+    n_pad = -(-N // wpt) * wpt
+    counts = _grouped_counts(routing, E, cap,
+                             np.random.default_rng(len(routing) + cap))
+    offsets = np.concatenate([[0], np.cumsum(counts)]).tolist()
+    A = offsets[-1] + 1
+    geom = cim_ops.grouped_geometry(E, cap, I, N, n_pad, wpt, bits, cols,
+                                    False, True, xbf16, A)
+    fast = wpt % 8 == 0
+    want = (cim_ops.FORM_GROUPED if not fast else cim_ops.FORM_GROUPED_DECODE
+            if cap <= cim_ops.GROUPED_DECODE_MAX_CAP
+            else cim_ops.FORM_GROUPED_PREFILL)
+    assert geom.form == want and geom.experts == E and geom.M == cap
+    assert geom.gz == (min(E, A) if fast else E)
+    assert geom.smem <= cim_ops.SMEM_MAX
+    hits, spans = _grouped_writes(geom, offsets, A)
+    done = np.zeros((A, N), bool)
+    for e in range(E):
+        done[offsets[e]:offsets[e] + min(counts[e], cap)] = True
+    assert (hits[done] == 1).all() and (hits[~done] == 0).all()
+    assert spans and all(all(len(r) > 0 for r in ranks) and
+                         [i for r in ranks for i in r] == list(range(I))
+                         for ranks in spans)
+    if geom.form == cim_ops.FORM_GROUPED_DECODE:
+        assert geom.gy in (1, 2, 4, 8) and geom.mt == \
+            cim_ops.GROUPED_DECODE_RB
+        assert cim_ops.GROUPED_DECODE_BLOCKS * (geom.smem + 1024) \
+            <= 228 * 1024
+        ring = 4 * geom.off_t
+        slices = cim_ops.THREADS // (geom.tile // 8)
+        assert slices * geom.mt * geom.tile * 4 <= ring
+        assert geom.off_p % 4 == 0 and geom.off_p - geom.off_t >= \
+            wpt << bits
+    if geom.form == cim_ops.FORM_GROUPED_PREFILL:
+        assert geom.gy in (1, 2, 4, 8)
+        # A split's sums, [64][256] floats, fit in the ring.
+        assert geom.smem - 4 * (wpt << bits) >= 64 * cim_ops.THREADS * 4
+        if xbf16:
+            assert 2 * (geom.smem + 1024) <= 228 * 1024
+
+
+def test_cim_grouped_form_by_capacity():
+    """The grouped forms' choice: the decode form up to a capacity of
+    GROUPED_DECODE_MAX_CAP = 32 (qwen2-moe's decode step, cap 16, and
+    ContinuousEngine(capacity=8) x top-4, cap 32), the tensor-core prefill
+    form above (qwen2-moe's prefill, cap 128); the general form off the
+    16-byte path (wpt not a multiple of 8, or codes off 16 bytes); the
+    decode form's I split 8 ways at qwen2-moe's 2048 and 1408 and less
+    for a short I; min(E, A) expert slots."""
+    g = lambda cap, A=None, I=2048, wpt=8, aligned=True: \
+        cim_ops.grouped_geometry(60, cap, I, 1408, 1408, wpt, 8, 8 * wpt,
+                                 False, aligned, True, A)
+    assert cim_ops.GROUPED_DECODE_MAX_CAP == 32
+    assert [g(c).form for c in (1, 16, 32, 33, 128, 512)] == [
+        cim_ops.FORM_GROUPED_DECODE] * 3 + [cim_ops.FORM_GROUPED_PREFILL] * 3
+    assert g(16, aligned=False).form == cim_ops.FORM_GROUPED
+    assert g(128, wpt=2).form == cim_ops.FORM_GROUPED
+    assert [g(16, I=I).gy for I in (2048, 1408, 256, 128, 64, 32)] == [
+        8, 8, 4, 2, 1, 1]
+    assert (g(16, 17).gz, g(128, 2049).gz, g(32).gz) == (17, 60, 60)
+    assert g(16, 17).gx == g(128).gx == 11
+    # The prefill form splits I only where the rows fill few experts: one
+    # expert at the capacity (A = 129) 8 ways, qwen2-moe's prefill (2,048
+    # rows, at least 16 experts' 11 column tiles) not at all.
+    assert [g(128, A).gy for A in (129, 257, 513, 2049)] == [8, 8, 4, 1]
+    assert g(128, 129, I=64).gy == 1
 
 
 @pytest.mark.parametrize("C", [1, 31, 32, 100, 160, 1000])
