@@ -181,7 +181,10 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                 "xlstm": ("slstm_scan", "manhattan_score"),
                 "phi3-circuit": ("line_solve", "manhattan_score"),
                 "qwen2-moe": ("cim_mvm", "cim_mvm_grouped",
-                              "flash_attention", "manhattan_score")}
+                              "flash_attention", "manhattan_score"),
+                "qwen2-moe-nonideal": ("cim_mvm", "cim_mvm_grouped_folded",
+                                       "cim_fold", "flash_attention",
+                                       "manhattan_score")}
 # The paths each kernel record's form runs on (its launches are its
 # kernel's launches there).
 RECORD_PATHS = {
@@ -191,13 +194,16 @@ RECORD_PATHS = {
     "slstm_scan": (),                 # the xlstm path now serves bf16
     "bitslice_pack": ("export",),
     "flash_attention[bf16]": ("phi3-nonideal", "phi3-health"),
-    "cim_fold": ("phi3-nonideal", "phi3-health"),
+    "cim_fold": ("phi3-nonideal", "phi3-health", "qwen2-moe-nonideal"),
     "cim_mvm_batched": ("phi3-health",),
     "slstm_scan[bf16]": ("xlstm",),
     "line_solve": ("phi3-circuit",),
     "cim_mvm_grouped": ("qwen2-moe",),
-    "flash_attention[bf16,Dh=128]": ("qwen2-moe",),
+    "flash_attention[bf16,Dh=128]": ("qwen2-moe", "qwen2-moe-nonideal"),
+    "cim_mvm_grouped_folded": ("qwen2-moe-nonideal",),
 }
+# The paths of every other record (cim_mvm's folded forms).
+NONIDEAL_PATHS = ("phi3-nonideal", "phi3-health", "qwen2-moe-nonideal")
 # Substrings of the port's CUDA kernel names, as the profiler shows them.
 PORT_KERNEL_NAMES = ("cim_decode", "cim_prefill", "cim_fold", "cim_grouped",
                      "flash_decode", "flash_prefill", "score_vec",
@@ -1341,7 +1347,11 @@ def _plain_ops():
     def matmul(x, dep, read_seed=None):
         return PLAIN.matmul(x, dataclasses.replace(dep), read_seed)
 
-    return Ops(matmul, PLAIN.attention, PLAIN.slstm_scan, PLAIN.grouped)
+    def grouped(x, dep, offsets, cap, read_seed=None):
+        return PLAIN.grouped(x, dataclasses.replace(dep), offsets, cap,
+                             read_seed)
+
+    return Ops(matmul, PLAIN.attention, PLAIN.slstm_scan, grouped)
 
 
 def phase_compare(eng, prompts, tokens):
@@ -1430,10 +1440,11 @@ def _checked_ops(worst: dict):
             held("slstm_scan", a, p, elementwise(SLSTM_TOL, p))
         return out
 
-    def grouped(x, dep, offsets, cap):
-        y = KERNELS.grouped(x, dep, offsets, cap)
-        p = plain.grouped(x, dep, offsets, cap)
-        held("cim_mvm_grouped", y, p,
+    def grouped(x, dep, offsets, cap, read_seed=None):
+        y = KERNELS.grouped(x, dep, offsets, cap, read_seed)
+        p = plain.grouped(x, dep, offsets, cap, read_seed)
+        held("cim_mvm_grouped_folded" if dep.folded is not None
+             else "cim_mvm_grouped", y, p,
              CIM_TOL * p.abs().max().clamp_min(1e-30))
         return y
 
@@ -2850,10 +2861,10 @@ class _GroupedCalls:
     def __init__(self, inner):
         self.inner, self.calls = inner, []
 
-    def __call__(self, x, dep, offsets, cap):
+    def __call__(self, x, dep, offsets, cap, read_seed=None):
         self.calls.append((x.shape[0] - 1, offsets.tolist(), cap, x,
-                           offsets))
-        return self.inner(x, dep, offsets, cap)
+                           offsets, read_seed))
+        return self.inner(x, dep, offsets, cap, read_seed)
 
 
 def _routing_stats(eng, prompts, steps: int = 3):
@@ -2909,7 +2920,7 @@ def _check_grouped(eng, fw, g) -> dict:
     cases = []
     for regime, f in (("prefill", fw[0]), ("decode", fw[1])):
         for j, pname in ((0, "ffn_we_gate"), (2, "ffn_we_down")):
-            _, _, cap, x, offsets = f[j]
+            _, _, cap, x, offsets, _ = f[j]
             cases.append((f"{regime} {pname}", pname, x, offsets, cap))
     cap = fw[0][0][2]
     K = eng.cfg.n_experts_per_token
@@ -3015,15 +3026,24 @@ def _check_grouped(eng, fw, g) -> dict:
 
 def _moe_f32_twin(eng, n_layers: int):
     """The engine at its first ``n_layers`` layers with f32 activations:
-    its params sliced and widened, its bank's first repeats (views)."""
+    its params sliced and widened, its bank's first repeats (views of
+    every field: the devices' state, the fold and the device tags)."""
     cfg = eng.cfg.replace(n_layers=n_layers, dtype="float32")
     params = {k: (v.float() if isinstance(v, torch.Tensor) else
                   {n: t[:n_layers].float() for n, t in v.items()})
               for k, v in eng.params.items()}
-    cim = {slot: {k: dataclasses.replace(d, codes=d.codes[:n_layers],
-                                         pos=d.pos[:n_layers],
-                                         scale=d.scale[:n_layers])
-                  for k, d in deps.items()}
+
+    def cut(d):
+        out = dataclasses.replace(d, **{
+            f: getattr(d, f)[:n_layers]
+            for f in ("codes", "pos", "scale", "gain", "col_pos",
+                      "degraded", "noise_tag") if getattr(d, f) is not None})
+        for f in ("folded", "device_tags"):
+            if getattr(d, f) is not None:
+                setattr(out, f, getattr(d, f)[:n_layers])
+        return out
+
+    cim = {slot: {k: cut(d) for k, d in deps.items()}
            for slot, deps in eng.cim.items()}
     twin = copy.copy(eng)
     twin.cfg, twin.params, twin.cim = cfg, params, cim
@@ -3232,6 +3252,355 @@ def phase_moe(records: list, built: dict, card: str) -> dict:
     return counts
 
 
+# qwen2-moe on imperfect devices: the depth the card holds (a served
+# expert weight costs ~11 B: int16 code 2, pos 0.5, f32 gain 4, col_pos
+# 0.5, f32 fold 4; 24 layers would take ~137 GB), the phi3-nonideal
+# devices without line opens (which would demote every full-width
+# expert), the spare-line mapping on the expert partition.
+MOE_NONIDEAL_LAYERS = 8
+MOE_NONIDEAL_PIPELINE = "part=expert,row=spare_line,col=spare_line"
+MOE_TF_STEPS = 2     # decode steps of its call-by-call check
+# Its forced demotion: moe_ffn of the kernel and plain paths in f32, three
+# grouped products (each at CIM_TOL of its own scale) through silu and the
+# combine.
+MOE_FFN_TOL = 1e-4
+
+
+def _bank_fields(eng) -> dict:
+    """Bytes of every field of the engine's banks: the expert banks'
+    and the attention projections' apart."""
+    out: dict = {}
+    for deps in eng.cim.values():
+        for pname, d in deps.items():
+            part = out.setdefault("experts" if pname.startswith("ffn_we")
+                                  else "attention", {})
+            for f in ("codes", "pos", "scale", "gain", "col_pos", "folded"):
+                t = getattr(d, f)
+                if t is not None:
+                    part[f] = part.get(f, 0) + t.numel() * t.element_size()
+    return out
+
+
+def _grouped_folded_record(eng, fw, built: dict) -> dict:
+    """The grouped folded form on layer 0's real gate calls (the
+    prefill's and a decode step's, at their read seeds) against its plain
+    version (CIM_TOL x max|y|, rows no expert computes 0, two calls
+    bit-identical), its device time cold (each call reads another layer's
+    bank) with and without the read's noise, the plain version, and
+    ``torch.bmm`` of the (E, cap, I) capacity buffer on the (E, I, N)
+    W_eff with this read's noise materialised; beside the bound of the
+    call's hit experts: their folds' bytes, or the operations of the
+    noise (NOISE_OPS a weight) and the products at PEAK_F32."""
+    from repro_torch.kernels.cim_mvm.ops import (
+        cim_mvm_grouped,
+        grouped_folded_geometry,
+    )
+    from repro_torch.kernels.cim_mvm.ref import (
+        cim_mvm_grouped_plain,
+        deployment_weights,
+    )
+
+    slot = eng.cim["slot0_attn"]
+    R, E = eng.cfg.pattern_repeats, eng.cfg.n_experts
+    per_weight = noise_ops(built)[0]
+    regimes = {}
+    for regime, f in (("prefill", fw[0]), ("decode", fw[1])):
+        _, off, cap, x, offsets, seed = f[0]
+        dep = slot["ffn_we_gate"].layer(0)
+        I, N = dep.in_dim, dep.out_dim
+        run = lambda d, s=seed: cim_mvm_grouped(x, d, offsets, cap, s,
+                                                device="cuda")
+        y = run(dep)
+        p = cim_mvm_grouped_plain(x, dep, offsets, cap, seed)
+        err = (y - p).abs().max().item()
+        ref = p.abs().max().item()
+        counts = [min(off[e + 1] - off[e], cap) for e in range(E)]
+        done = torch.zeros(x.shape[0], dtype=torch.bool, device="cuda")
+        for e in range(E):
+            done[off[e]:off[e] + counts[e]] = True
+        ok = (err <= CIM_TOL * ref and (y[~done] == 0).all().item()
+              and torch.equal(y, run(dep)))
+        banks = [slot["ffn_we_gate"].layer(r) for r in range(R)]
+        ms = device_ms(run, args=banks)
+        clean_ms = device_ms(lambda d: run(d, None), args=banks)
+        plain_ms = cuda_ms(lambda: cim_mvm_grouped_plain(
+            x, dep, offsets, cap, seed), iters=2)
+        W = torch.stack([deployment_weights(dep.layer(e), seed)[:I, :N]
+                         for e in range(E)])
+        buf = torch.zeros((E, cap, I), device="cuda")
+        for e in range(E):
+            buf[e, :counts[e]] = x[off[e]:off[e] + counts[e]].float()
+        lib_ms = device_ms(lambda: torch.bmm(buf, W))
+        del W, buf
+        hit = sum(1 for c in counts if c)
+        rows = sum(counts)
+        n_bytes = (hit * dep.folded[0].numel() * 4
+                   + x.numel() * x.element_size()
+                   + x.shape[0] * N * 4 + (E + 1) * 4 + E * 4)
+        b_ms, b_by = bound(n_bytes, hit * I * N * per_weight
+                           + 2.0 * rows * I * N)
+        bf = x.dtype == torch.bfloat16
+        geom = grouped_folded_geometry(E, cap, I, N, dep.codes.shape[2], bf,
+                                       True, x.shape[0])
+        occ = _occupancy(built, f"cim_grouped_folded_kernel<Lb1ELb{int(bf)}>",
+                         geom)
+        print(f"cim_mvm_grouped_folded {regime} (layer 0 gate, read seed "
+              f"{seed}) E={E} {I}x{N} cap {cap}: {rows} rows on {hit} "
+              f"experts, max_abs_err {err:.3e} (tol {CIM_TOL:g} x max|y| "
+              f"{ref:.3e}, rows no expert computes 0, two calls "
+              f"bit-identical) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms "
+              f"cold ({clean_ms:.4f} without the noise), plain {plain_ms:.4f} "
+              f"ms, bmm on W_eff {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
+              f"{n_bytes / 1e6:.1f} MB; {100 * b_ms / ms:.1f}% of it); grid "
+              f"{geom.gx}x{geom.gy}x{geom.gz}, {_occ_text(occ)}")
+        if not ok:
+            raise AssertionError(f"cim_mvm_grouped_folded disagrees "
+                                 f"({regime})")
+        regimes[regime] = dict(rows=rows, hit=hit, cap=cap, max_abs_err=err,
+                               ms=ms, ms_without_noise=clean_ms,
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=lib_ms,
+                               registers=occ["registers"],
+                               blocks_per_sm=occ["blocks_per_sm"])
+    top = regimes["decode"]
+    return dict(name="cim_mvm_grouped_folded", route="cuda",
+                source="src/repro_torch/kernels/cim_mvm/kernel.cu",
+                replaces="src/repro/kernels/cim_mvm/kernel.py:82",
+                vmapped_at="src/repro/models/moe.py:50-61",
+                max_abs_err=max(r["max_abs_err"] for r in regimes.values()),
+                **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+                regimes=regimes)
+
+
+def _forced_demotion(eng, seed: int) -> None:
+    """Layer 0's moe_ffn with its two most-hit experts of a random f32
+    input marked degraded in every bank (served digitally in f32), on
+    f32 activations: the kernel path against the plain path (which reads
+    no fold) at MOE_FFN_TOL x max|y|, and the demotion moving y."""
+    from repro_torch.models.model import KERNELS
+    from repro_torch.models.moe import _route, moe_ffn
+
+    cfg = eng.cfg.replace(dtype="float32")
+    p = {k: v[0].float() for k, v in eng.params["slot0_attn"].items()}
+    x = torch.randn((B, PROMPT, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(9))
+    _, _, idx = _route((x @ p["ffn_router"]).float(),
+                       cfg.n_experts_per_token)
+    hits = torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+    two = hits.topk(2).indices.tolist()
+    plain = _plain_ops()
+
+    def layer(demote):
+        out = {}
+        for k, d in eng.cim["slot0_attn"].items():
+            d = d.layer(0)
+            if k.startswith("ffn_we") and demote:
+                deg = d.degraded.clone()
+                deg[two] = 5
+                view = dataclasses.replace(d, degraded=deg)
+                view.folded, view.device_tags = d.folded, d.device_tags
+                d = view
+            out[k] = d
+        return out
+
+    ys, errs = {}, []
+    for demote in (False, True):
+        c = layer(demote)
+        yk, _ = moe_ffn(p, x, cfg, KERNELS.grouped, cim=c, read_seed=seed)
+        yp, _ = moe_ffn(p, x, cfg, plain.grouped, cim=c, read_seed=seed)
+        err = (yk - yp).abs().max().item()
+        ref = yp.abs().max().item()
+        ys[demote] = yk
+        errs.append(err)
+        print(f"  forced demotion ({'experts ' + str(two) + ' demoted' if demote else 'none'}"
+              f"; layer 0 moe_ffn, f32, {B}x{PROMPT} tokens, read seed "
+              f"{seed}): kernel vs plain path max_abs_err {err:.3e} "
+              f"({err / ref:.3e} of max|y| {ref:.3e}), tol {MOE_FFN_TOL:g} "
+              f"{'ok' if err <= MOE_FFN_TOL * ref else 'FAIL'}")
+        if err > MOE_FFN_TOL * ref:
+            raise AssertionError("moe_ffn kernel path disagrees with the "
+                                 "plain path (forced demotion)")
+    moved = (ys[True] - ys[False]).abs().max().item()
+    print(f"  the demotion of experts {two} ({hits[two].tolist()} rows) moves "
+          f"y by {moved:.3e} (10x the paths' largest difference: "
+          f"{10 * max(errs):.3e})")
+    if moved <= 10 * max(errs) or moved == 0.0:
+        raise AssertionError("the forced demotion did not change y beyond "
+                             "the kernel's error")
+
+
+def phase_moe_nonideal(records: list, built: dict) -> dict:
+    """qwen2-moe-a2.7b at full width and MOE_NONIDEAL_LAYERS layers in
+    bf16, random weights from seed 0, on imperfect devices (NONIDEAL
+    without line opens, NONIDEAL_SEED) under MOE_NONIDEAL_PIPELINE,
+    through ``ServeEngine`` with no plan cache (the deploy's stages
+    timed): every expert bank folded at deploy and read by cim_mvm's
+    grouped folded form with read noise, the attention projections by
+    its folded forms.  Then every served matrix's fold bit for bit
+    against its plain version, two generate calls bit-identical, every
+    kernel call of a teacher-forced pass (prefill and MOE_TF_STEPS decode
+    steps) against its plain version, the first MOE_F32_LAYERS layers
+    with f32 activations end to end against the plain path, a forced
+    demotion, and the new form's record."""
+    from repro_torch.configs import CimConfig
+    from repro_torch.configs.qwen2_moe_a27b import CONFIG as QWEN
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.cim_mvm.ref import folded_weights
+    from repro_torch.models.model import init_params
+    from repro_torch.nonideal import NonidealModel
+    from repro_torch.serve import ServeEngine
+
+    cfg = QWEN.replace(n_layers=MOE_NONIDEAL_LAYERS,
+                       cim=CimConfig(enabled=True, mode="mdm_expert"))
+    model = NonidealModel(**{k: v for k, v in NONIDEAL.items()
+                             if not k.startswith("p_open")})
+    E, L = cfg.n_experts, cfg.n_layers
+    n_exp = 3 * L * E * cfg.d_model * cfg.moe_d_ff
+    per = {"codes": 2, "pos": 0.5, "gain": 4, "col_pos": 0.5, "folded": 4}
+    print(f"  reckoned before the deploy: {n_exp / 1e9:.3f} G expert weights "
+          f"x {sum(per.values())} B = {n_exp * sum(per.values()) / 1e9:.1f} GB "
+          f"({ {f: round(n_exp * b / 1e9, 2) for f, b in per.items()} } GB); "
+          f"24 layers would be {3 * n_exp * sum(per.values()) / 1e9:.0f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launch_counts()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, params, max_seq=MAX_SEQ, plan_cache=False,
+                      nonideal=model, nonideal_seed=NONIDEAL_SEED,
+                      pipeline=MOE_NONIDEAL_PIPELINE, timed_deploy=True,
+                      device="cuda")
+    torch.cuda.synchronize()
+    t_deploy = time.perf_counter() - t0
+    rep = eng.deploy_report
+    n_mats = rep["n_matrices"]
+    print(f"phase deploy (qwen2-moe-nonideal): {cfg.dtype}, {L} of 24 layers, "
+          f"{model}, seed {NONIDEAL_SEED}, pipeline {MOE_NONIDEAL_PIPELINE}: "
+          f"{t_deploy:.2f} s uncached (by stage "
+          f"{ {k: round(v, 3) for k, v in rep['seconds'].items()} }): "
+          f"{n_mats} matrices, {rep['tiles']} tiles, {rep['stuck_cells']} "
+          f"stuck cells, n_degraded {rep['n_degraded']}, fault-aware "
+          f"{rep['fault_aware']}, NF reduction {100 * rep['nf_reduction']:.3f}%")
+    fields = _bank_fields(eng)
+    param_gb = sum(t.numel() * t.element_size() for t in _leaves(params))
+    for part, fb in fields.items():
+        print(f"  {part} bank {sum(fb.values()) / 1e9:.2f} GB "
+              f"({ {f: round(n / 1e9, 3) for f, n in fb.items()} })")
+    print(f"  params {param_gb / 1e9:.2f} GB; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}")
+
+    n_folds = 0
+    with _Uncounted():
+        for deps in eng.cim.values():
+            for d in deps.values():
+                lead = d.scale.shape
+                for idx in itertools.product(*map(range, lead)):
+                    view = d
+                    for i in idx:
+                        view = view.layer(i)
+                    if int(view.degraded):
+                        continue
+                    if view.folded is None or not torch.equal(
+                            view.folded, folded_weights(view)):
+                        raise AssertionError(f"a served matrix's fold "
+                                             f"differs from its plain "
+                                             f"version {idx}")
+                    n_folds += 1
+    if n_folds != n_mats - rep["n_degraded"]:
+        raise AssertionError(f"{n_folds} folds != {n_mats} matrices less "
+                             f"{rep['n_degraded']} degraded")
+    print(f"  the fold of every served matrix ({n_folds}: "
+          f"{n_folds - 4 * L} experts, {4 * L} attention) bit-identical to "
+          f"its plain version on the devices' state")
+
+    prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    eng.generate(prompts, 2)                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(prompts, 1)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompts, NEW)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    step = (t_all - t_prefill) / (NEW - 1)
+    print(f"phase serve (qwen2-moe-nonideal): B={B} prompt {PROMPT} new {NEW}, "
+          f"read noise armed: prefill {t_prefill * 1e3:.1f} ms, decode "
+          f"{step * 1e3:.2f} ms/step, {B * NEW / t_all:.1f} tokens/s (peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB)")
+    counts = _launches("qwen2-moe-nonideal")
+    forwards = 2 + 1 + NEW
+    live = n_mats - rep["n_degraded"]
+    if counts["cim_mvm_grouped_folded"] != 3 * L * forwards \
+            or counts["cim_mvm_grouped"] != 0 \
+            or counts["cim_mvm"] != 4 * L * forwards \
+            or counts["cim_fold"] != live:
+        raise AssertionError(f"launches {counts} != 3 grouped folded and 4 "
+                             f"cim_mvm a layer x {forwards} forwards, "
+                             f"{live} folds")
+    print(f"  cim_mvm_grouped_folded {counts['cim_mvm_grouped_folded']} "
+          f"launches = 3 expert banks x {L} layers x {forwards} forwards; "
+          f"cim_mvm {counts['cim_mvm']} = 4 attention projections x {L} x "
+          f"{forwards} (folded forms, read noise); cim_fold "
+          f"{counts['cim_fold']} = one a served matrix, at deploy")
+    phase_profile(eng, prompts, step * 1e3)
+    if not torch.equal(eng.generate(prompts, NEW), tokens):
+        raise AssertionError("two generate calls with the same sampling "
+                             "and read seeds gave different tokens")
+    print(f"  two generate calls (sampling seed 0, read seeds of nonideal "
+          f"seed {NONIDEAL_SEED}): tokens bit-identical ({tokens.numel()})")
+
+    _, _, fw = _routing_stats(eng, prompts)
+    records.append(_grouped_folded_record(eng, fw, built))
+    del fw
+    seq = torch.cat([prompts.cuda(), tokens.long()], 1)[:, :PROMPT + MOE_TF_STEPS]
+    lk = _check_calls(eng, seq, "qwen2-moe-nonideal", seed=5)
+    if not (torch.isfinite(lk).all()
+            and lk.shape == (B, MOE_TF_STEPS + 1, cfg.padded_vocab)):
+        raise AssertionError("non-finite or misshapen logits")
+    del lk
+    _forced_demotion(eng, 5)
+
+    # f32 activations at a depth cut: the bf16 params are freed first.
+    twin = _moe_f32_twin(eng, MOE_F32_LAYERS)
+    eng.params = None
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = copy.copy(twin)
+    plain.ops = _plain_ops()
+    seq = torch.cat([prompts.cuda(), tokens.long()], 1)[
+        :, :PROMPT + MOE_F32_NEW - 1]
+    V = cfg.vocab_size
+    lk = twin.teacher_forced_logits(seq, PROMPT, seed=5)[..., :V]
+    lp = plain.teacher_forced_logits(seq, PROMPT, seed=5)[..., :V]
+    err = (lk - lp).abs().max().item()
+    ref = lp.abs().max().item()
+    top2 = lp.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    flips = lk.argmax(-1) != lp.argmax(-1)
+    ok = err <= LOGIT_TOL * ref and bool((gap[flips] <= 2 * err).all())
+    print(f"  f32 activations, first {MOE_F32_LAYERS} of {L} layers (same "
+          f"bank, read seed 5): teacher-forced logits ({lk.shape[1]} steps) "
+          f"max_abs_err {err:.3e} ({err / ref:.3e} of max|logit| {ref:.3e}), "
+          f"tol {LOGIT_TOL:g} x max; argmax differs at {int(flips.sum())} of "
+          f"{flips.numel()} (plain top-2 gaps {gap[flips].tolist()[:8]}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("f32 kernel-path logits disagree with the "
+                             "plain path (qwen2-moe-nonideal)")
+    del twin, plain, eng, lk, lp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3328,10 +3697,13 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
 
     print("config qwen2-moe-a2.7b: MoE serving, alone on the card")
     by_path["qwen2-moe"] = phase_moe(records, built, card)
+    print(f"config qwen2-moe-a2.7b on imperfect devices, {MOE_NONIDEAL_LAYERS} "
+          f"of 24 layers, alone on the card")
+    by_path["qwen2-moe-nonideal"] = phase_moe_nonideal(records, built)
     for r in records:
         name = r["name"]
         kernel = name.split("[")[0]
-        paths = RECORD_PATHS.get(name, ("phi3-nonideal", "phi3-health"))
+        paths = RECORD_PATHS.get(name, NONIDEAL_PATHS)
         r["launches"] = sum(by_path[p][kernel] for p in paths)
         r["launches_by_path"] = {p: by_path[p][kernel] for p in paths
                                  if by_path[p][kernel]}

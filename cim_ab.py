@@ -50,7 +50,12 @@ only), the kernel's max error against ``cim_mvm_grouped_plain`` over
 max|plain|, and the form its geometry took.  ``--forms`` also times each
 case with the decode form's capacity threshold forced to 0 and to
 1,000,000 (every call on the prefill form, or on the decode form), for
-a checkout that has the threshold.
+a checkout that has the threshold.  For a checkout with the grouped
+folded form (``ops.grouped_folded_geometry``) each case is also timed on
+a folded bank of the same codes (expert e with a log-normal gain,
+sigma_read 0.01 and tag e, folded by ``ops.fold``), without and with
+read noise (keys ``[folded]``, ``[folded, noise]``; ``folded_bound_ms``
+reads every hit expert's fold once).
 
 Prints one JSON line.  Run it for two checkouts in one call (parent,
 change, change, parent) to compare them on one card.
@@ -206,6 +211,19 @@ def time_grouped(out: dict, forms: bool) -> None:
             d.codes, d.pos, d.scale, n_bits=d.n_bits, wpt=d.wpt,
             cols=d.cols, eta=d.eta, reversed_df=d.reversed_df)[:I, :N]
             for d in (bank.layer(e) for e in range(E))])
+        fbanks = []
+        if hasattr(ops, "grouped_folded_geometry"):
+            fb = dataclasses.replace(bank, sigma_read=0.01,
+                                     noise_tag=torch.arange(
+                                         E, dtype=torch.int32))
+            fb.folded = torch.stack([ops.fold(dataclasses.replace(
+                bank.layer(e), gain=torch.exp(0.05 * torch.randn(
+                    bank.codes.shape[1:], generator=g, device="cuda"))))
+                .folded for e in range(E)])
+            fb.device_tags = fb.noise_tag.to("cuda")
+            fb2 = dataclasses.replace(fb)
+            fb2.folded, fb2.device_tags = fb.folded.clone(), fb.device_tags
+            fbanks = [fb, fb2]
         for name, counts, cap in _grouped_routings(E):
             key = f"{name} {pname}"
             offsets = torch.tensor([0] + list(itertools.accumulate(counts)),
@@ -241,13 +259,28 @@ def time_grouped(out: dict, forms: bool) -> None:
             del buf
             rows = sum(counts)
             hit = sum(1 for c in counts if c)
+            for tag, seed in (("folded", None), ("folded, noise", 3)):
+                if not fbanks:
+                    break
+                frun = lambda d, s=seed: ops.cim_mvm_grouped(x, d, offsets,
+                                                             cap, s)
+                out["ms"][f"{key} [{tag}]"] = device_ms(frun, args=fbanks)
+                want = cim_mvm_grouped_plain(x, fbanks[0], offsets, cap,
+                                             seed)
+                out["err"][f"{key} [{tag}]"] = (
+                    (frun(fbanks[0]) - want).abs().max()
+                    / want.abs().max()).item()
+                del want
+                out.setdefault("folded_bound_ms", {})[key] = (
+                    hit * fbanks[0].folded[0].numel() * 4 + x.numel() * 2
+                    + A * N * 4 + (E + 1) * 4) / PEAK_BYTES * 1e3
             n_bytes = (hit * per_expert + x.numel() * 2 + A * N * 4
                        + (E + 1) * 4)
             out["rows"][key] = [rows, hit, cap]
             out["bound_ms"][key] = n_bytes / PEAK_BYTES * 1e3
             out["tf32_ms"][key] = bound(0.0, 2 * 2.0 * rows * I * N,
                                         PEAK_TF32)[0]
-        del banks, bank, W
+        del banks, bank, W, fbanks
 
 
 def main() -> int:

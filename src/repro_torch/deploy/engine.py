@@ -10,8 +10,9 @@ is packaged) and packaged; each slot's deployments are stacked over its
 pattern repeats (an expert bank over repeats and experts), the layout
 ``repro_torch.models.model.apply_model`` walks.  Every other parameter
 stays digital and is recorded with the reference's reason.  Expert
-banks deploy onto ideal devices only: their folded grouped form, which
-imperfect devices and lifetime state need, is a later slice.
+banks deploy onto ideal or imperfect devices, each expert a matrix of
+its own (its cells, noise tag and fold); lifetime state on them (aging
+and self-healing) is the next slice of the port.
 
 Imperfect devices (``nonideal``): every matrix's physical cells are
 drawn on the device from (seed, its traversal index) — one matrix at a
@@ -339,9 +340,11 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
     and packaging run there, one matrix at a time.  ``pipeline`` (a
     :class:`repro_torch.mapping.MappingPipeline`, a named pipeline or a
     spec string) defaults to ``cfg.cim.mode``; an expert-axis partition
-    (``"mdm_expert"``) deploys the MoE expert banks, onto ideal devices
-    only (``nonideal`` or ``lifetime`` with expert banks raise
-    ``NotImplementedError``).
+    (``"mdm_expert"``, or a spec with ``part=expert``) deploys the MoE
+    expert banks, each expert ``slot/param/r/e{k}`` a matrix of the
+    traversal (``lifetime`` with expert banks raises
+    ``NotImplementedError``: the next slice).  An expert bank that reads
+    folded gets ``device_tags``, its noise tags on the device.
 
     ``nonideal`` deploys onto imperfect devices keyed by the int
     ``nonideal_key`` (default 0): each matrix's cells are drawn on the
@@ -373,13 +376,12 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
     mats, summary = collect_model_matrices(params, cfg, mode)
     check_on(dev, **{name.replace("/", "_"): w for name, w in mats.items()})
     experts = [n for n in mats if len(_bank_index(n)[2]) > 1]
-    if experts and ((nonideal is not None and not nonideal.is_ideal)
-                    or lifetime is not None):
+    if experts and lifetime is not None:
         raise NotImplementedError(
-            f"{len(experts)} MoE expert matrices: expert banks deploy onto "
-            "ideal devices only; imperfect devices and lifetime state on "
-            "an expert partition need the folded grouped cim_mvm form, a "
-            "later slice of the port")
+            f"{len(experts)} MoE expert matrices: lifetime state (health=) "
+            "on an expert partition is the next slice of the port (a "
+            "capture per repeat and expert, the nested restack, probe "
+            "rounds over expert groups)")
     clock = StageClock(dev) if timed else _untimed
 
     cells_of = fault_maps = None
@@ -449,6 +451,10 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
         _put(slot_deps[pname], idx, dep)
     for i, bt in enumerate(cfg.block_pattern):
         cim_tree.setdefault(f"slot{i}_{bt}", {})
+    for slot_deps in cim_tree.values():
+        for bank in slot_deps.values():
+            if bank.noise_tag is not None and bank.noise_tag.ndim > 1:
+                bank.device_tags = bank.noise_tag.to(dev)
     if capture:
         for t, name in enumerate(mats):
             slot, pname, r = name.split("/")

@@ -92,7 +92,10 @@
 // codes and pos; an expert without rows reads nothing.  A streaming
 // decode form (a cluster splits I, W' in registers) for a few rows an
 // expert, a tensor-core prefill form (mma.sync 3xTF32) for many, and a
-// general CUDA-core form for the ragged spec.
+// general CUDA-core form for the ragged spec.  A bank on imperfect
+// devices is folded at deploy, one Wg an expert, and read by the grouped
+// folded form: the general form's blocks over Wg slabs, each expert's
+// read noise at its own tag.
 // x may be f32 or bf16 (read directly, exact in f32); y is f32.
 //
 // Rounding.  M0 and M1 are exact (integers times 2^-K); the rest of the
@@ -143,11 +146,12 @@ constexpr int GP_NT = 16;      // grouped prefill: 8-row tiles of x a pass
 constexpr int GP_KS = 2;       // grouped prefill: k steps a rounding group
 // Geom.form: the ideal decode and prefill forms, the folded ones, the fold,
 // the batched folded decode form, the grouped forms (general, decode,
-// prefill).
+// prefill, folded).
 constexpr int FORM_DECODE = 0, FORM_PREFILL = 1, FORM_DECODE_FOLDED = 2,
               FORM_PREFILL_FOLDED = 3, FORM_FOLD = 4,
               FORM_DECODE_BATCHED = 5, FORM_GROUPED = 6,
-              FORM_GROUPED_DECODE = 7, FORM_GROUPED_PREFILL = 8;
+              FORM_GROUPED_DECODE = 7, FORM_GROUPED_PREFILL = 8,
+              FORM_GROUPED_FOLDED = 9;
 
 // Launch geometry, computed by ops.py::cim_geometry / fold_geometry /
 // batched_geometry / grouped_geometry (same order).  ``gz``: the folded
@@ -1851,6 +1855,132 @@ cim_grouped_kernel(const void* __restrict__ x,
   }
 }
 
+// The grouped folded form (an expert bank on imperfect devices, folded
+// at deploy): the general form's blocks, products and order, the slab
+// of W' taken from expert e's fold (wf + e * wstride, rows of g.ld
+// floats) instead of expanded from codes.  With NOISE the read's noise
+// is added to the staged slab: eps at key (read_seed, tags[e]) and
+// counter (i, n >> 2), i the row of I and n the column of the bank (the
+// plain version's read_noise), one Philox call for four consecutive
+// columns, amplitude nsig * scale[e].  Blocks of one expert at other row
+// tiles draw the same noise: it is a function of (seed, tag, i, n)
+// alone.  Grid (N / BN, cap / BM, slots): slot z computes the z-th expert
+// that has a row (slot_expert).  The next slab's Wg and x are loaded into
+// registers while this slab's products run.
+template <bool NOISE, bool XBF>
+__global__ void __launch_bounds__(THREADS)
+cim_grouped_folded_kernel(const void* __restrict__ x,
+                          const float* __restrict__ wf, long long wstride,
+                          const float* __restrict__ scale_ptr,
+                          const int32_t* __restrict__ tags,
+                          const int32_t* __restrict__ offsets,
+                          float* __restrict__ out, Geom g, Noise ns) {
+  int a0 = 0, rows = 0;
+  const int e = slot_expert(offsets, g.experts, g.M, blockIdx.z, a0, rows);
+  const int r0 = a0 + blockIdx.y * GR_BM;
+  if (e < 0 || r0 >= a0 + rows) return;  // block-uniform: no row, no read
+  const int mrows = min(GR_BM, a0 + rows - r0);
+
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* xs = smem;                      // [BK][BM] x, transposed
+  float* ws = xs + GR_BK * GR_BM;        // [BK][BN] W_eff
+  const float* we = wf + (size_t)e * wstride;
+  const int tid = threadIdx.x;
+  const int nb = blockIdx.x * GR_BN;
+  // Staging: 8 columns dc.. of the block, slab rows dr and dr + 16.
+  const int dc = (tid % 16) * 8, dr = tid / 16;
+  const int n0 = nb + dc;
+  const bool col_ok = n0 < g.ld;
+  // x: row xm of the block, slab columns xk .. xk + 3.
+  const int xm = tid % GR_BM, xk = (tid / GR_BM) * 4;
+  // Products: rows pr .. pr + 3 (one warp a row quad), columns pc .. +3.
+  const int pc = (tid % 32) * 4, pr = (tid / 32) * 4;
+  const bool active = pr < mrows;
+  float nz = 0.0f;
+  uint32_t tag = 0;
+  if constexpr (NOISE) {
+    nz = __fmul_rn(ns.nsig, scale_ptr[e]);
+    tag = (uint32_t)tags[e];
+  }
+
+  float xv[4];
+  float4 wv[2][2];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + xk + j;
+      xv[j] = xm < mrows && k < g.I
+                  ? load_x(x, (size_t)(r0 + xm) * g.I + k, XBF)
+                  : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = k0 + dr + 16 * u;
+      const float4* src =
+          reinterpret_cast<const float4*>(we + (size_t)i * g.ld + n0);
+      const bool ok = col_ok && i < g.I;
+      wv[u][0] = ok ? __ldg(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+      wv[u][1] = ok ? __ldg(src + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  load(0);
+  for (int k0 = 0; k0 < g.I; k0 += GR_BK) {
+    __syncthreads();                     // the last slab's products done
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int row = dr + 16 * u, i = k0 + row;
+      float4 a = wv[u][0], b = wv[u][1];
+      if constexpr (NOISE) {
+        if (col_ok && i < g.I) {
+          float z[4];
+          philox_normal4_tag(ns, tag, (uint32_t)i, (uint32_t)n0 >> 2, z);
+          a = add_noise(a, nz, z);
+          philox_normal4_tag(ns, tag, (uint32_t)i, (uint32_t)(n0 + 4) >> 2,
+                             z);
+          b = add_noise(b, nz, z);
+        }
+      }
+      float4* dst = reinterpret_cast<float4*>(ws + row * GR_BN + dc);
+      dst[0] = a;
+      dst[1] = b;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) xs[(xk + j) * GR_BM + xm] = xv[j];
+    __syncthreads();
+    if (k0 + GR_BK < g.I) load(k0 + GR_BK);
+    if (active) {
+#pragma unroll 8
+      for (int k = 0; k < GR_BK; ++k) {
+        const float4 a = *reinterpret_cast<const float4*>(xs + k * GR_BM + pr);
+        const float4 b = *reinterpret_cast<const float4*>(ws + k * GR_BN + pc);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (pr + i >= mrows) break;
+    float* yr = out + (size_t)(r0 + pr + i) * g.N;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (nb + pc + j < g.N) yr[nb + pc + j] = acc[i][j];
+  }
+}
+
 // --------------------------------------------------------------- prefill
 
 // Both prefill forms: x (the B operand) in shared memory as TF32 hi and
@@ -2649,6 +2779,40 @@ extern "C" int cim_mvm_grouped_launch(const void* x, const int16_t* codes,
   return (int)err;
 }
 
+// The grouped folded form (geom form 9, ops.py::grouped_folded_geometry):
+// expert e of the geom ``experts`` reads its Wg at wf + e * wstride (rows
+// of geom ld floats) and scale[e], draws (with geom noise) read noise at
+// key (seed, tags[e]) and amplitude nsig * scale[e], and computes the rows
+// [offsets[e], min(offsets[e + 1], offsets[e] + geom M)) of y (A, geom N)
+// from those rows of x (A, geom I; f32, or bf16 with geom xbf16).
+extern "C" int cim_mvm_grouped_folded_launch(
+    const void* x, const float* wf, long long wstride, const float* scale,
+    const int32_t* tags, const int32_t* offsets, float* out, const int* geom,
+    unsigned seed, float nsig, void* stream_ptr) {
+  Geom g;
+  memcpy(&g, geom, sizeof(Geom));
+  Noise e;
+  for (int r = 0; r < PHILOX_ROUNDS; ++r) {
+    e.k0[r] = seed + (uint32_t)r * 0x9E3779B9u;
+    e.k1[r] = 0;
+  }
+  e.nsig = nsig;
+  if (g.form != FORM_GROUPED_FOLDED || g.tile != GR_BN || g.M < 1 ||
+      g.I < 1 || g.gz < 1 || g.experts < 1 || !offsets || !wf || !scale ||
+      (g.noise && !tags) || g.ld % 8 || wstride % 4 ||
+      (reinterpret_cast<uintptr_t>(wf) & 15))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream_ptr;
+  cudaError_t err;
+  if (g.noise)
+    err = g.xbf16 ? launch<cim_grouped_folded_kernel<true, true>>(g, s, x, wf, wstride, scale, tags, offsets, out, g, e)
+                  : launch<cim_grouped_folded_kernel<true, false>>(g, s, x, wf, wstride, scale, tags, offsets, out, g, e);
+  else
+    err = g.xbf16 ? launch<cim_grouped_folded_kernel<false, true>>(g, s, x, wf, wstride, scale, tags, offsets, out, g, e)
+                  : launch<cim_grouped_folded_kernel<false, false>>(g, s, x, wf, wstride, scale, tags, offsets, out, g, e);
+  return (int)err;
+}
+
 // Wg = W'(col_pos) * gain into ``wf`` (geom I = I_pad rows of geom ld
 // floats), once a deployment: ``gain`` and ``colp`` may be null.
 // Geometry from ops.py::fold_geometry (geom form 4).
@@ -2719,6 +2883,12 @@ extern "C" int cim_occupancy(const int* geom, int* out) {
                     : occupancy<cim_grouped_prefill_kernel<false>>(
                           g, dim3(g.gx, g.gy, g.gz), dim3(1, g.gy, 1), false,
                           out);
+      break;
+    case FORM_GROUPED_FOLDED:
+      err = g.noise ? (g.xbf16 ? occupancy<cim_grouped_folded_kernel<true, true>>(g, 1, out)
+                               : occupancy<cim_grouped_folded_kernel<true, false>>(g, 1, out))
+                    : (g.xbf16 ? occupancy<cim_grouped_folded_kernel<false, true>>(g, 1, out)
+                               : occupancy<cim_grouped_folded_kernel<false, false>>(g, 1, out));
       break;
     case FORM_FOLD:
       if (g.fast)

@@ -11,7 +11,9 @@ carries a per-weight ``gain``, a per-tile bitline permutation
 ``read_seed`` a call).  Such a deployment is folded once, when it is
 packaged (:func:`fold`): ``folded`` holds W'(col_pos) * gain in f32,
 computed by the fold kernel on the card (its plain version on the
-CPU), and the kernel's folded forms read it and add the read's noise.
+CPU), and the kernel's folded forms read it and add the read's noise;
+an MoE expert bank's folds, stacked over its experts, are read by the
+grouped folded form (:func:`cim_mvm_grouped`).
 """
 from __future__ import annotations
 
@@ -60,6 +62,10 @@ class CimDeployment:
            codes, pos, scale, gain and col_pos by :func:`fold`, never
            cached; not an init field, so ``dataclasses.replace`` drops it
            (a replaced deployment is folded again, never stale).
+    device_tags: an expert bank's ``noise_tag`` as int32 on the bank's
+           device (set at deploy; the grouped folded form reads each
+           expert's tag there, with no copy a call), or None; not an
+           init field either.
     A stacked deployment carries a leading repeat axis on every tensor;
     :meth:`layer` takes one repeat's views.
     """
@@ -81,6 +87,8 @@ class CimDeployment:
     sigma_read: float = 0.0
     folded: torch.Tensor | None = dataclasses.field(default=None,
                                                     init=False, repr=False)
+    device_tags: torch.Tensor | None = dataclasses.field(
+        default=None, init=False, repr=False)
     _layers: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False, compare=False)
 
@@ -97,6 +105,8 @@ class CimDeployment:
                    for f in ("gain", "col_pos", "degraded", "noise_tag")})
             if self.folded is not None:
                 view.folded = self.folded[r]
+            if self.device_tags is not None:
+                view.device_tags = self.device_tags[r]
         return view
 
 
@@ -198,10 +208,11 @@ GROUPED_SPLITS = (8, 4, 2)
 GROUPED_DECODE_MAX_CAP = 32
 SMEM_MAX = 227 * 1024
 # kernel.cu's Geom.form: the ideal forms, the folded forms, the fold, the
-# batched folded decode form, the grouped forms (general, decode, prefill).
+# batched folded decode form, the grouped forms (general, decode, prefill,
+# folded).
 FORM_DECODE, FORM_PREFILL, FORM_DECODE_FOLDED, FORM_PREFILL_FOLDED, \
     FORM_FOLD, FORM_DECODE_BATCHED, FORM_GROUPED, FORM_GROUPED_DECODE, \
-    FORM_GROUPED_PREFILL = range(9)
+    FORM_GROUPED_PREFILL, FORM_GROUPED_FOLDED = range(10)
 # The fields of kernel.cu's ``Geom``, in order.
 _GEOM_FIELDS = ("form", "M", "I", "N", "n_pad", "n_tiles", "wpt", "n_bits",
                 "cols", "reversed", "fast", "tile", "rps", "gx", "gy", "gz",
@@ -468,6 +479,31 @@ def grouped_geometry(experts: int, cap: int, I: int, N: int, n_pad: int,
 
 
 @functools.lru_cache(maxsize=None)
+def grouped_folded_geometry(experts: int, cap: int, I: int, N: int,
+                            n_pad: int, xbf16: bool = False,
+                            noise: bool = False,
+                            assignments: int | None = None
+                            ) -> runtime.Geometry:
+    """The grouped folded form's launch: ``experts`` folded deployments
+    of one shape (rows of ``folded_ld(n_pad)`` floats), each computing at
+    most ``cap`` rows of x (``assignments`` rows, default unknown); ``noise``
+    whether the read draws noise.  Grid (ceil(N / 128), ceil(cap / 32),
+    slots), slots = min(experts, assignments): block z computes the z-th
+    expert that has a row, 32 of its rows by 128 columns, a slab of x (32
+    x 32) and of W_eff (32 x 128) in shared memory."""
+    slots = experts if assignments is None else min(experts, assignments)
+    g = dict(form=FORM_GROUPED_FOLDED, M=cap, I=I, N=N, n_pad=n_pad,
+             n_tiles=0, wpt=0, n_bits=0, cols=0, reversed=0, fast=0,
+             tile=GROUPED_BN, rps=0, gx=math.ceil(N / GROUPED_BN),
+             gy=math.ceil(cap / GROUPED_BM), gz=slots,
+             smem=4 * GROUPED_BK * (GROUPED_BM + GROUPED_BN), off_t=0,
+             off_p=0, mt=0, xbf16=int(xbf16), ld=folded_ld(n_pad),
+             noise=int(noise), rows=0, n_ti=0, cp_ti=0, cp_tn=0,
+             experts=experts)
+    return runtime.Geometry.of(_GEOM_FIELDS, g)
+
+
+@functools.lru_cache(maxsize=None)
 def fold_geometry(i_pad: int, n_pad: int, wpt: int, n_bits: int, cols: int,
                   reversed_df: bool, aligned: bool, rows: int = 0
                   ) -> runtime.Geometry:
@@ -506,7 +542,7 @@ def fold_geometry(i_pad: int, n_pad: int, wpt: int, n_bits: int, cols: int,
 def occupancy(geom: runtime.Geometry) -> dict:
     """Occupancy of the kernel that a launch with ``geom`` runs
     (:func:`cim_geometry`, :func:`fold_geometry`, :func:`batched_geometry`,
-:func:`grouped_geometry`), from the CUDA
+    :func:`grouped_geometry`, :func:`grouped_folded_geometry`), from the CUDA
     runtime's occupancy calculator: ``blocks_per_sm`` resident blocks a
     SM and, for a cluster launch, ``clusters`` the card holds at once
     (else None)."""
@@ -726,8 +762,53 @@ def cim_mvm_batched(x: torch.Tensor, dep: CimDeployment,
     return _launch_batched(x, dep, read_seed, reps)
 
 
+def _launch_grouped_folded(x: torch.Tensor, dep: CimDeployment,
+                           offsets: torch.Tensor, cap: int,
+                           read_seed: int | None) -> torch.Tensor:
+    wf, scale = dep.folded, dep.scale
+    E, i_pad, n_pad = dep.codes.shape
+    ld = folded_ld(n_pad)
+    if wf.dtype != torch.float32 or wf.shape != (E, i_pad, ld) \
+            or not wf.is_contiguous() or wf.data_ptr() % 16 \
+            or scale.dtype != torch.float32 or scale.shape != (E,) \
+            or not scale.is_contiguous():
+        raise ValueError("the grouped folded cim_mvm form takes folded (E, "
+                         f"I_pad, ld) = {(E, i_pad, ld)} contiguous f32 on "
+                         "16 bytes and scale (E,) f32")
+    noise = noisy(dep, read_seed)
+    tags = dep.device_tags
+    if noise and (tags is None or tags.dtype != torch.int32
+                  or tags.shape != (E,) or not tags.is_contiguous()):
+        raise ValueError("a noisy read of an expert bank takes its tags on "
+                         "the device: device_tags (E,) int32, set at deploy")
+    out = torch.zeros((x.shape[0], dep.out_dim), dtype=torch.float32,
+                      device=x.device)
+    if out.numel() == 0 or cap == 0:
+        return out
+    geom = grouped_folded_geometry(E, cap, dep.in_dim, dep.out_dim, n_pad,
+                                   x.dtype == torch.bfloat16, noise,
+                                   x.shape[0])
+    rc = runtime.library().cim_mvm_grouped_folded_launch(
+        x.data_ptr(), wf.data_ptr(), i_pad * ld, scale.data_ptr(),
+        tags.data_ptr() if noise else None, offsets.data_ptr(),
+        out.data_ptr(), geom.array,
+        int(read_seed) & 0xFFFFFFFF if noise else 0,
+        read_noise_amplitude(dep) if noise else 0.0,
+        runtime.stream_arg(out.device))
+    runtime.count_launch("cim_mvm_grouped_folded")
+    runtime.check_status("cim_mvm_grouped_folded", rc)
+    return out
+
+
 def _launch_grouped(x: torch.Tensor, dep: CimDeployment,
-                    offsets: torch.Tensor, cap: int) -> torch.Tensor:
+                    offsets: torch.Tensor, cap: int,
+                    read_seed: int | None) -> torch.Tensor:
+    if dep.folded is not None:
+        return _launch_grouped_folded(x, dep, offsets, cap, read_seed)
+    if needs_fold(dep):
+        raise ValueError("the grouped cim_mvm form: a bank with a gain, a "
+                         "col_pos or read noise is read folded; fold it "
+                         "first (deploy_model_params folds it at deploy)")
     E, i_pad, n_pad = dep.codes.shape
     codes, pos, scale = dep.codes, dep.pos, dep.scale
     if codes.dtype != torch.int16 or pos.dtype != torch.int32 \
@@ -762,28 +843,34 @@ def _launch_grouped(x: torch.Tensor, dep: CimDeployment,
 
 def cim_mvm_grouped(x: torch.Tensor, dep: CimDeployment,
                     offsets: torch.Tensor, cap: int | None = None,
+                    read_seed: int | None = None,
                     device: str | torch.device = "cuda") -> torch.Tensor:
-    """Expert e's rows of y = those rows of x @ W'_e, in one launch: the
-    counterpart of the reference's ``jax.vmap(cim_mvm)`` over the expert
-    axis of an MoE bank (``repro.models.moe._expert_mm``).
+    """Expert e's rows of y = those rows of x @ W_effective of expert e,
+    in one launch: the counterpart of the reference's
+    ``jax.vmap(cim_mvm)`` over the expert axis of an MoE bank
+    (``repro.models.moe._expert_mm``).
 
     x: (A, in_dim) f32 or bf16 (other types are cast to f32), its rows
     sorted by expert; ``dep``: a deployment stacked over E experts (a
-    leading expert axis), ideal (no gain, col_pos or read noise: the
-    folded grouped form is a later slice); ``offsets``: (E + 1,) int32
-    on the device, expert e owning the rows [offsets[e], offsets[e+1]);
-    ``cap``: the most rows an expert computes (default A), its rows past
-    ``offsets[e] + cap`` dropped.  Returns (A, out_dim) f32, zero on
-    every row no expert computes: one of the grouped forms on CUDA
-    (:func:`grouped_geometry` picks it from ``cap``), the plain version (a
-    loop of :func:`cim_mvm`'s over the experts) on the CPU.  The offsets
-    never go to the host: the launch is sized by ``cap`` and A, and an
-    expert without rows reads no weight.
+    leading expert axis), ideal or, on imperfect devices, folded (a gain,
+    col_pos or read noise; ``repro_torch.deploy`` folds each expert at
+    deploy); ``offsets``: (E + 1,) int32 on the device, expert e owning
+    the rows [offsets[e], offsets[e+1]); ``cap``: the most rows an expert
+    computes (default A), its rows past ``offsets[e] + cap`` dropped;
+    ``read_seed``: this read's noise, each expert at its own tag, as
+    :func:`cim_mvm` (None: noiseless).  Returns (A, out_dim) f32, zero on
+    every row no expert computes: on CUDA one of the grouped ideal forms
+    (:func:`grouped_geometry` picks it from ``cap``) or, for a folded
+    bank, the grouped folded form (an unfolded bank with a gain, col_pos
+    or read noise raises ``ValueError``); on the CPU the plain version (a
+    loop of :func:`cim_mvm`'s over the experts).  The offsets never go to
+    the host: the launch is sized by ``cap`` and A, and an expert without
+    rows reads no weight.
     """
     dev = resolve_device(device)
     check_on(dev, x=x, codes=dep.codes, pos=dep.pos, scale=dep.scale,
              offsets=offsets, gain=dep.gain, col_pos=dep.col_pos,
-             folded=dep.folded)
+             folded=dep.folded, device_tags=dep.device_tags)
     E = dep.codes.shape[0]
     if dep.codes.ndim != 3 or x.ndim != 2 or x.shape[1] != dep.in_dim \
             or offsets.shape != (E + 1,) or offsets.dtype != torch.int32:
@@ -792,18 +879,13 @@ def cim_mvm_grouped(x: torch.Tensor, dep: CimDeployment,
                          f"and int32 offsets (E + 1,), not x "
                          f"{tuple(x.shape)}, codes {tuple(dep.codes.shape)}, "
                          f"offsets {tuple(offsets.shape)} {offsets.dtype}")
-    if needs_fold(dep) or dep.folded is not None:
-        raise NotImplementedError(
-            "the grouped cim_mvm form reads ideal deployments; a gain, "
-            "col_pos or read noise on an expert bank needs the folded "
-            "grouped form, a later slice of the port")
     cap = x.shape[0] if cap is None else int(cap)
     if x.dtype not in (torch.float32, torch.bfloat16):
         x = x.to(torch.float32)
     x = x.contiguous()
     if dev.type == "cpu":
-        return cim_mvm_grouped_plain(x, dep, offsets, cap)
-    return _launch_grouped(x, dep, offsets.contiguous(), cap)
+        return cim_mvm_grouped_plain(x, dep, offsets, cap, read_seed)
+    return _launch_grouped(x, dep, offsets.contiguous(), cap, read_seed)
 
 
 def cim_mvm(x: torch.Tensor, dep: CimDeployment, read_seed: int | None = None,

@@ -169,12 +169,14 @@ def cim_mvm_batched_plain(x: torch.Tensor, dep, read_seed: int | None = None,
 
 
 def cim_mvm_grouped_plain(x: torch.Tensor, dep, offsets,
-                          cap: int | None = None) -> torch.Tensor:
+                          cap: int | None = None,
+                          read_seed: int | None = None) -> torch.Tensor:
     """The grouped form's plain version: for x (A, in_dim) sorted by
     expert and a deployment stacked over E experts, the rows [offsets[e],
     min(offsets[e+1], offsets[e] + cap)) of y are :func:`cim_mvm_plain`
-    of those rows of x through expert e; every other row is 0.  Returns
-    (A, out_dim) f32."""
+    of those rows of x through expert e, read at ``read_seed`` (each
+    expert with its own fold and noise tag); every other row is 0.
+    Returns (A, out_dim) f32."""
     off = [int(o) for o in torch.as_tensor(offsets).tolist()]
     cap = x.shape[0] if cap is None else int(cap)
     y = torch.zeros((x.shape[0], dep.out_dim), dtype=torch.float32,
@@ -182,5 +184,5 @@ def cim_mvm_grouped_plain(x: torch.Tensor, dep, offsets,
     for e in range(dep.codes.shape[0]):
         a, b = off[e], min(off[e + 1], off[e] + cap)
         if b > a:
-            y[a:b] = cim_mvm_plain(x[a:b], dep.layer(e))
+            y[a:b] = cim_mvm_plain(x[a:b], dep.layer(e), read_seed)
     return y

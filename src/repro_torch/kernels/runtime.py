@@ -38,7 +38,7 @@ HEADERS = ("tf32_mma.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("cim_mvm", "cim_fold", "cim_mvm_batched", "cim_mvm_grouped",
-           "flash_attention",
+           "cim_mvm_grouped_folded", "flash_attention",
            "manhattan_score", "slstm_scan", "bitslice_pack", "line_solve")
 
 _P = ctypes.c_void_p
@@ -53,6 +53,7 @@ _ARGTYPES = {
     "cim_fold_launch": [_P] * 7 + [_F, _P],
     "cim_mvm_batched_launch": [_P, _P, _L] + [_P] * 5 + [_U, _F, _P],
     "cim_mvm_grouped_launch": [_P] * 6 + [_L, _L, _P, _F, _P],
+    "cim_mvm_grouped_folded_launch": [_P, _P, _L] + [_P] * 5 + [_U, _F, _P],
     "cim_occupancy": [_P, _P],
     "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _P, _P],
     "flash_occupancy": [_P, _I, _P],
@@ -179,6 +180,7 @@ def _self_check(lib: ctypes.CDLL) -> None:
         batched_geometry,
         cim_geometry,
         fold_geometry,
+        grouped_folded_geometry,
         grouped_geometry,
     )
     from repro_torch.kernels.flash_attention.ops import flash_geometry
@@ -240,6 +242,19 @@ def _self_check(lib: ctypes.CDLL) -> None:
                 x.data_ptr(), codes2.data_ptr(), pos2.data_ptr(),
                 scale2.data_ptr(), offs.data_ptr(), out.data_ptr(), I * 8, I,
                 geom.array, 0.0, stream)
+    # The grouped folded form's four instances (noise, bf16 x) over the
+    # same two experts' folds, I = 8, cap 2.
+    wf3, sc3, tags3 = z(2, 8, 8), z(2), z(2, dt=torch.int32)
+    for noise in (False, True):
+        for bf16 in (False, True):
+            x = z(3, 8, dt=torch.bfloat16 if bf16 else torch.float32)
+            out = z(3, 8)
+            geom = grouped_folded_geometry(2, 2, 8, 8, 8, bf16, noise, 3)
+            rc[f"cim_mvm_grouped_folded noise={noise} bf16={bf16}"] = \
+                lib.cim_mvm_grouped_folded_launch(
+                    x.data_ptr(), wf3.data_ptr(), 64, sc3.data_ptr(),
+                    tags3.data_ptr(), offs.data_ptr(), out.data_ptr(),
+                    geom.array, 0, 0.1 if noise else 0.0, stream)
     # Both forms in f32 and in bf16, and the bf16 decode split over a
     # cluster of 2.
     for Sq, bf16, split in ((1, False, None), (17, False, None),

@@ -87,9 +87,10 @@ class Ops(NamedTuple):
     attention over absolute positions;
     ``slstm_scan(gx, r_gates, h0, c0) -> (hs, hT, cT)``: the sLSTM
     recurrence;
-    ``grouped(x, dep, offsets, cap) -> y``: x (A, in_dim) sorted by
-    expert through an expert bank (``dep`` stacked over experts), expert
-    e's rows [offsets[e], min(offsets[e+1], offsets[e] + cap)) (f32).
+    ``grouped(x, dep, offsets, cap, read_seed) -> y``: x (A, in_dim)
+    sorted by expert through an expert bank (``dep`` stacked over
+    experts), expert e's rows [offsets[e], min(offsets[e+1], offsets[e] +
+    cap)) (f32), each expert read with its own noise tag.
     """
     matmul: Callable[..., torch.Tensor]
     attention: Callable[..., torch.Tensor]
@@ -111,8 +112,8 @@ def _attention_kernel(q, k, v, q_pos, k_pos, window, chunk):
                            window=window, chunk=chunk, device=q.device)
 
 
-def _grouped_kernel(x, dep, offsets, cap):
-    return cim_mvm_grouped(x, dep, offsets, cap, device=x.device)
+def _grouped_kernel(x, dep, offsets, cap, read_seed=None):
+    return cim_mvm_grouped(x, dep, offsets, cap, read_seed, device=x.device)
 
 
 KERNELS = Ops(_matmul_kernel, _attention_kernel, slstm_scan_kernel,
@@ -233,7 +234,8 @@ def block_apply(bt: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
     if bt == "attn" and cfg.mlp_type != "none":
         hf = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
         if cfg.n_experts:
-            x = x + moe_ffn(p, hf, cfg, ops.grouped, cim=cim)[0]
+            x = x + moe_ffn(p, hf, cfg, ops.grouped, cim=cim,
+                            read_seed=read_seed)[0]
         else:
             x = x + dense_mlp(p, hf, cim=cim, ops=ops, read_seed=read_seed)
     return x

@@ -18,9 +18,12 @@ compact block of rows with per-expert offsets on the device, and runs
 the three expert products through the grouped ``cim_mvm`` form: one
 launch a bank, no host sync for the routing's counts, no read of an
 expert no token chose.  Without a deployment the products are the
-reference's digital einsum over the capacity buffer.  An expert whose
-deployment is degraded (``degraded != 0``) is served digitally in f32,
-as the reference's ``_expert_mm``; the port decides that on the host.
+reference's digital einsum over the capacity buffer.  A bank on
+imperfect devices is read folded, each expert with its own read-noise
+tag under the forward's ``read_seed`` (the reference's ``read_key``).
+An expert whose deployment is degraded (``degraded != 0``) is served
+digitally in f32, as the reference's ``_expert_mm``; the port decides
+that on the host, from the bank's CPU ``degraded`` counts.
 
 A token's K contributions are summed in ascending expert order, the
 order of the reference's sorted scatter-add, in the activation dtype
@@ -108,12 +111,12 @@ def _combine(y_tok: torch.Tensor, topk_idx: torch.Tensor,
 
 
 def _expert_mm(x: torch.Tensor, w: torch.Tensor, dep, disp: Dispatch,
-               grouped) -> torch.Tensor:
+               grouped, read_seed: int | None = None) -> torch.Tensor:
     """Every expert's product on its kept assignments: x (N, in) in the
     dispatch's order, w (E, in, out) -> (N, out) in x's dtype, zero on a
     dropped assignment.  ``dep``: the bank stacked over experts, read
-    through ``grouped(x, dep, offsets, cap)`` (the grouped cim_mvm form),
-    or None for the reference's digital einsum."""
+    through ``grouped(x, dep, offsets, cap, read_seed)`` (the grouped
+    cim_mvm form), or None for the reference's digital einsum."""
     E = w.shape[0]
     n = x.shape[0]
     if dep is None:
@@ -122,23 +125,28 @@ def _expert_mm(x: torch.Tensor, w: torch.Tensor, dep, disp: Dispatch,
         ye = torch.einsum("ecd,edf->ecf", buf[:, :disp.bound], w)
         y = ye[disp.e, disp.r.clamp(max=max(disp.bound - 1, 0))]
         return torch.where(disp.keep[:, None], y, 0).to(x.dtype)
-    xc = x.new_empty((n + 1, x.shape[1]))
-    xc[disp.a] = x                   # dropped rows all land on row n
-    y = grouped(xc, dep, disp.offsets, disp.bound)[disp.a]
-    if dep.degraded is not None:
-        for e in torch.nonzero(dep.degraded.reshape(-1)).reshape(-1).tolist():
-            # Demoted expert: served digitally in f32 on its weights.
-            rows = disp.keep & (disp.e == e)
-            dig = x.to(torch.float32) @ w[e].to(torch.float32)
-            y = torch.where(rows[:, None], dig, y)
+    demoted = ([] if dep.degraded is None else
+               torch.nonzero(dep.degraded.reshape(-1)).reshape(-1).tolist())
+    if len(demoted) < E:
+        xc = x.new_empty((n + 1, x.shape[1]))
+        xc[disp.a] = x               # dropped rows all land on row n
+        y = grouped(xc, dep, disp.offsets, disp.bound, read_seed)[disp.a]
+    else:                            # no expert left on the crossbars
+        y = x.new_zeros((n, w.shape[2]), dtype=torch.float32)
+    for e in demoted:
+        # Demoted expert: served digitally in f32 on its weights.
+        rows = disp.keep & (disp.e == e)
+        dig = x.to(torch.float32) @ w[e].to(torch.float32)
+        y = torch.where(rows[:, None], dig, y)
     return y.to(x.dtype)
 
 
 def _experts(p: dict, xs: torch.Tensor, c, disp: Dispatch, grouped,
-             prefix: str) -> torch.Tensor:
+             prefix: str, read_seed: int | None) -> torch.Tensor:
     """The routed SwiGLU experts on the assignments' rows ``xs``."""
     g = lambda n: p[prefix + n]
-    mm = lambda a, n: _expert_mm(a, g(n), c(prefix + n), disp, grouped)
+    mm = lambda a, n: _expert_mm(a, g(n), c(prefix + n), disp, grouped,
+                                 read_seed)
     h = _silu(mm(xs, "we_gate")) * mm(xs, "we_up")
     return mm(h, "we_down")
 
@@ -153,17 +161,20 @@ def _shared(p: dict, x: torch.Tensor, out: torch.Tensor,
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, grouped,
-            prefix: str = "ffn_", cim: dict | None = None):
+            prefix: str = "ffn_", cim: dict | None = None,
+            read_seed: int | None = None):
     """x (B, S, D) -> (y (B, S, D), aux loss f32 scalar).
 
-    ``grouped(x, dep, offsets, cap)`` is the expert banks' matmul
-    (``repro_torch.models.model.Ops.grouped``); ``cim`` the layer's
-    deployments, the banks under ``ffn_we_{gate,up,down}`` stacked over
-    experts (pipeline ``mdm_expert``).  ``cfg.moe_dispatch="grouped"``
-    routes each sequence into its own capacity buckets
-    (:func:`moe_ffn_grouped`)."""
+    ``grouped(x, dep, offsets, cap, read_seed)`` is the expert banks'
+    matmul (``repro_torch.models.model.Ops.grouped``); ``cim`` the
+    layer's deployments, the banks under ``ffn_we_{gate,up,down}``
+    stacked over experts (pipeline ``mdm_expert``); ``read_seed`` this
+    forward's crossbar read (None: noiseless).
+    ``cfg.moe_dispatch="grouped"`` routes each sequence into its own
+    capacity buckets (:func:`moe_ffn_grouped`)."""
     if cfg.moe_dispatch == "grouped":
-        return moe_ffn_grouped(p, x, cfg, grouped, prefix, cim=cim)
+        return moe_ffn_grouped(p, x, cfg, grouped, prefix, cim=cim,
+                               read_seed=read_seed)
     c = (lambda n: None) if cim is None else cim.get
     B, S, D = x.shape
     T = B * S
@@ -189,7 +200,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, grouped,
     keep = pos < cap
     disp = _dispatch(e_s, pos, keep, torch.clamp(counts, max=cap), cap)
 
-    ys = _experts(p, xt[tok_s], c, disp, grouped, prefix)
+    ys = _experts(p, xt[tok_s], c, disp, grouped, prefix, read_seed)
     y_tok = ys * (keep * w_s)[:, None].to(ys.dtype)
     out = _combine(y_tok, topk_idx, order)
     if cfg.n_shared_experts:
@@ -198,7 +209,8 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, grouped,
 
 
 def moe_ffn_grouped(p: dict, x: torch.Tensor, cfg: ModelConfig, grouped,
-                    prefix: str = "ffn_", cim: dict | None = None):
+                    prefix: str = "ffn_", cim: dict | None = None,
+                    read_seed: int | None = None):
     """Group-local dispatch: each sequence routes its S tokens into its
     own capacity buckets (per-group capacity K*S*cf/E rounded to 8, the
     reference's).  The kept assignments of every group meet in one
@@ -240,7 +252,7 @@ def moe_ffn_grouped(p: dict, x: torch.Tensor, cfg: ModelConfig, grouped,
     tok_g = (tok_s + torch.arange(B, device=dev)[:, None] * S).reshape(-1)
     xt = x.reshape(B * S, D)
 
-    ys = _experts(p, xt[tok_g], c, disp, grouped, prefix)
+    ys = _experts(p, xt[tok_g], c, disp, grouped, prefix, read_seed)
     y_tok = ys * (keep.reshape(-1) * w_s.reshape(-1))[:, None].to(ys.dtype)
     out = _combine(y_tok, topk_idx.reshape(B * S, K), flat_order.reshape(-1))
     if cfg.n_shared_experts:

@@ -7,11 +7,13 @@ engine deploys every projection matrix onto crossbars at init
 the engine's device), and generation runs every deployed attention and
 MLP projection through ``cim_mvm`` and every attention through
 ``flash_attention``.  An MoE model (``cfg.n_experts``) deployed under
-an expert-axis pipeline (``"mdm_expert"``) serves its expert banks
-through ``cim_mvm``'s grouped form, onto ideal devices only: imperfect
-devices (and with them ``health``) on an expert partition raise
-``NotImplementedError`` at deploy (the folded grouped form is a later
-slice).  An xLSTM model serves every sLSTM recurrence
+an expert-axis pipeline (``"mdm_expert"``, or a spec with
+``part=expert``) serves its expert banks through ``cim_mvm``'s grouped
+forms, on ideal or imperfect devices (``nonideal``: each expert folded
+at deploy and read with its own noise tag, a degraded expert served
+digitally); ``health`` on an expert partition raises
+``NotImplementedError`` at deploy (lifetime state on expert banks is
+the next slice).  An xLSTM model serves every sLSTM recurrence
 through ``slstm_scan``; its mLSTM q/k/v are deployed but, as in the
 reference, served digitally, and ``max_seq`` sizes nothing for it (the
 recurrent state is O(1) in the sequence).

@@ -32,6 +32,7 @@ reordering would be held to), and the kernel-preconditioned batched
 solve against the dense oracle at the reference's rtol 1e-7.
 """
 import dataclasses
+import functools
 import itertools
 
 import numpy as np
@@ -1108,6 +1109,113 @@ def test_cim_mvm_grouped_counts_and_occupancy(cuda):
     occ = occupancy(geom)
     assert geom.gy == 8 and occ["clusters"] >= 1
     assert occ["blocks_per_sm"] >= GROUPED_DECODE_BLOCKS, occ
+
+
+@functools.lru_cache(maxsize=2)
+def _folded_bank(E, I, N, spec, seed):
+    """E deployments of random (I, N) weights on imperfect devices (a
+    gain, per-tile bitline permutations, read noise at sigma_read 0.05,
+    expert e's tag 10 + e), each folded by the fold kernel, stacked over
+    experts as ``repro_torch.deploy`` stacks an expert bank (its tags on
+    the device too)."""
+    cuda = torch.device("cuda")
+    deps = [fold(dataclasses.replace(
+        _nonideal_dep(cuda, I, N, spec, "all", seed + e),
+        noise_tag=torch.tensor(10 + e, dtype=torch.int32)))
+        for e in range(E)]
+    bank = dataclasses.replace(deps[0], **{
+        f: torch.stack([getattr(d, f) for d in deps]).contiguous()
+        for f in ("codes", "pos", "scale", "gain", "col_pos", "noise_tag")})
+    bank.folded = torch.stack([d.folded for d in deps]).contiguous()
+    bank.device_tags = bank.noise_tag.to(cuda)
+    return bank
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1, 4), (16, 4), (32, 8), (128, 512),
+                                  (4, None)],
+                         ids=["cap1", "cap16", "cap32", "cap128", "ragged"])
+@pytest.mark.parametrize("noise", [False, True], ids=["clean", "noisy"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("I,N,spec", [(2048, 1408, (64, 64, 8)),
+                                      (200, 72, (16, 16, 8))],
+                         ids=["qwen2-moe", "odd"])
+def test_cim_mvm_grouped_folded_vs_plain(cuda, case, noise, dtype, I, N,
+                                         spec):
+    """The grouped folded form on expert banks folded from imperfect
+    devices (qwen2-moe's gate shape with E = 60, and an odd shape with E
+    = 6), routed as a decode step (4 or 8 tokens top-4) at capacity 1, 16
+    and 32, as a prefill (512 tokens, capacity 128), and ragged (experts
+    of 0..9 rows at capacity 4: empty experts and dropped rows); with and
+    without read noise, f32 and bf16 x, against the plain version:
+    max|kernel - plain| <= 1e-5 * max|plain|, rows no expert computes
+    exactly 0, two calls bit-identical."""
+    from repro_torch.kernels.cim_mvm import ops
+    from repro_torch.kernels.cim_mvm.ref import cim_mvm_grouped_plain
+
+    E = 60 if I == 2048 else 6
+    bank = _folded_bank(E, I, N, spec, I + N)
+    cap, T = case
+    rng = np.random.default_rng(cap)
+    if T is None:
+        counts = np.arange(E) % 10
+    else:
+        probs = rng.random((T, E)) ** 3
+        top = np.argsort(-probs, axis=1, kind="stable")[:, :4]
+        counts = np.bincount(top.reshape(-1), minlength=E)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                           dtype=torch.int32, device=cuda)
+    A = int(counts.sum()) + 1
+    x = torch.randn((A, I), generator=torch.Generator(
+        device=cuda).manual_seed(5), device=cuda).to(dtype)
+    seed = 11 if noise else None
+    geom = ops.grouped_folded_geometry(E, cap, I, N, bank.codes.shape[2],
+                                       dtype == torch.bfloat16, noise, A)
+    assert geom.form == ops.FORM_GROUPED_FOLDED
+    y = ops.cim_mvm_grouped(x, bank, offsets, cap, seed, device=cuda)
+    want = cim_mvm_grouped_plain(x, bank, offsets, cap, seed)
+    err = (y - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+    done = torch.zeros(A, dtype=torch.bool, device=cuda)
+    for e in range(E):
+        a = int(offsets[e])
+        done[a:min(int(offsets[e + 1]), a + cap)] = True
+    assert (y[~done] == 0).all()
+    assert torch.equal(y, ops.cim_mvm_grouped(x, bank, offsets, cap, seed,
+                                              device=cuda))
+    if noise:       # the noise is there: the noiseless read differs
+        clean = ops.cim_mvm_grouped(x, bank, offsets, cap, device=cuda)
+        assert (clean - y).abs().max().item() > 1e-3 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cim_mvm_grouped_folded_counts_occupancy_and_refusal(cuda):
+    """One launch counted under its own name; the form's occupancy at
+    qwen2-moe's decode step; a bank with a gain, col_pos and read noise
+    but no fold raises on the card."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.cim_mvm.ops import (
+        cim_mvm_grouped,
+        grouped_folded_geometry,
+        occupancy,
+    )
+
+    bank = _folded_bank(6, 200, 72, (16, 16, 8), 272)
+    offsets = torch.tensor([0, 2, 2, 5, 6, 6, 9], dtype=torch.int32,
+                           device=cuda)
+    x = torch.randn((10, 200), device=cuda)
+    runtime.reset_launch_counts()
+    cim_mvm_grouped(x, bank, offsets, 4, 3, device=cuda)
+    counts = runtime.launch_counts()
+    assert counts["cim_mvm_grouped_folded"] == 1
+    assert counts["cim_mvm_grouped"] == 0
+    for noise in (False, True):
+        occ = occupancy(grouped_folded_geometry(60, 16, 2048, 1408, 1408,
+                                                True, noise, 17))
+        assert occ["blocks_per_sm"] >= 1 and occ["clusters"] is None
+    with pytest.raises(ValueError, match="fold it first"):
+        cim_mvm_grouped(x, dataclasses.replace(bank), offsets, 4, 3,
+                        device=cuda)
 
 
 @pytest.mark.cuda

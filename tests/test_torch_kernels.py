@@ -511,13 +511,14 @@ def test_geometry_constants_mirror_the_kernels():
                       r"FORM_DECODE_FOLDED = 2,\s*FORM_PREFILL_FOLDED = 3, "
                       r"FORM_FOLD = 4,\s*FORM_DECODE_BATCHED = 5, "
                       r"FORM_GROUPED = 6,\s*FORM_GROUPED_DECODE = 7, "
-                      r"FORM_GROUPED_PREFILL = 8;",
+                      r"FORM_GROUPED_PREFILL = 8,\s*FORM_GROUPED_FOLDED = 9;",
                       cim_cu.read_text())
     assert forms and (cim_ops.FORM_DECODE, cim_ops.FORM_PREFILL,
                       cim_ops.FORM_DECODE_FOLDED, cim_ops.FORM_PREFILL_FOLDED,
                       cim_ops.FORM_FOLD, cim_ops.FORM_DECODE_BATCHED,
                       cim_ops.FORM_GROUPED, cim_ops.FORM_GROUPED_DECODE,
-                      cim_ops.FORM_GROUPED_PREFILL) == tuple(range(9))
+                      cim_ops.FORM_GROUPED_PREFILL,
+                      cim_ops.FORM_GROUPED_FOLDED) == tuple(range(10))
     fields = re.search(r"struct Geom \{\s*int ([^;]*);",
                        cim_cu.read_text()).group(1)
     assert tuple(f.strip() for f in fields.split(",")) == \

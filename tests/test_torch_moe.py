@@ -50,7 +50,7 @@ from repro_torch.core.tiling import CrossbarSpec
 from repro_torch.deploy import PlanCache
 from repro_torch.deploy import collect_model_matrices, deploy_model_params
 from repro_torch.deploy import plan_matrices, spec_from_config
-from repro_torch.kernels.cim_mvm.ops import cim_mvm, cim_mvm_grouped, deploy
+from repro_torch.kernels.cim_mvm.ops import cim_mvm, cim_mvm_grouped, deploy, fold
 from repro_torch.kernels.cim_mvm.ref import cim_mvm_grouped_plain, cim_mvm_plain
 from repro_torch.mapping import DensePartition, ExpertPartition
 from repro_torch.mapping import resolve_pipeline
@@ -281,14 +281,25 @@ def test_expert_plan_cache_entries_read_both_ways(tmp_path):
 
 
 def test_expert_banks_refuse_imperfect_devices():
+    """What stays refused on an expert partition: lifetime state, and
+    with it ``health=`` on both engines (the next slice).  Imperfect
+    devices alone deploy (tests/test_torch_moe_nonideal.py)."""
+    from repro_torch.health import HealthConfig
+
     jcfg = smoke(J_QWEN)
     _, tp = _params(jcfg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        deploy_model_params(tp, port_config(jcfg), device="cpu",
-                            nonideal=NonidealModel(p_stuck_off=0.01))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServeEngine(port_config(jcfg), tp, max_seq=16, plan_cache=False,
-                    nonideal=NonidealModel(sigma_read=0.01), device="cpu")
+    tcfg = port_config(jcfg)
+    model = NonidealModel(p_stuck_off=0.01, sigma_read=0.01)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        deploy_model_params(tp, tcfg, device="cpu", nonideal=model,
+                            lifetime={})
+    for engine in (ServeEngine, ContinuousEngine):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            engine(tcfg, tp, max_seq=64, plan_cache=False, nonideal=model,
+                   health=HealthConfig(), device="cpu")
+    cim, rep = deploy_model_params(tp, tcfg, device="cpu", nonideal=model)
+    assert rep["nonideal"] and cim["slot0_attn"]["ffn_we_gate"].folded \
+        is not None
 
 
 # ------------------------------ moe_ffn -----------------------------------
@@ -620,17 +631,65 @@ def test_grouped_plain_is_a_loop_of_cim_mvm_plain(counts, cap, dtype):
     assert torch.equal(y, want)
     assert torch.equal(cim_mvm_grouped(x, bank, offsets, cap, device="cpu"),
                        want)
+    # The same loop over a folded bank on imperfect devices (a gain,
+    # per-tile bitline permutations, read noise at each expert's tag),
+    # read at one seed.
+    deps, bank = _folded_noisy_bank(deps, spec)
+    want = torch.zeros(A, 24)
+    for e, d in enumerate(deps):
+        a = int(offsets[e])
+        b = int(offsets[e + 1]) if cap is None else min(int(offsets[e + 1]),
+                                                        a + cap)
+        if b > a:
+            want[a:b] = cim_mvm_plain(x[a:b], d, 13)
+    assert torch.equal(cim_mvm_grouped_plain(x, bank, offsets, cap, 13),
+                       want)
+    assert torch.equal(cim_mvm_grouped(x, bank, offsets, cap, 13,
+                                       device="cpu"), want)
+
+
+def _folded_noisy_bank(deps, spec):
+    """Each of ``deps`` with a log-normal gain, random per-tile bitline
+    permutations and read noise (sigma 0.05, expert e's tag 20 + e),
+    folded, and their bank stacked as ``repro_torch.deploy`` stacks it."""
+    g = torch.Generator().manual_seed(4)
+    out = []
+    for e, d in enumerate(deps):
+        ti, tn = d.codes.shape[0] // spec.rows, d.pos.shape[1]
+        out.append(fold(dataclasses.replace(
+            d, gain=torch.exp(0.1 * torch.randn(d.codes.shape, generator=g)),
+            col_pos=torch.argsort(torch.rand((ti, tn, spec.cols),
+                                             generator=g), -1).to(torch.int32),
+            sigma_read=0.05, noise_tag=torch.tensor(20 + e,
+                                                    dtype=torch.int32))))
+    bank = dataclasses.replace(out[0], **{
+        f: torch.stack([getattr(d, f) for d in out])
+        for f in ("codes", "pos", "scale", "gain", "col_pos", "noise_tag")})
+    bank.folded = torch.stack([d.folded for d in out])
+    return out, bank
 
 
 def test_grouped_form_refuses_what_it_cannot_read():
+    """A bank with a gain (or col_pos, or read noise) is read folded: the
+    kernel path's launcher refuses it unfolded before it reaches the
+    card, and the folded bank reads as its plain version on the CPU."""
+    from repro_torch.kernels.cim_mvm.ops import _launch_grouped
+
     spec = CrossbarSpec(16, 16, 4)
-    _, bank = _bank(2, 16, 8, spec, 1)
+    deps, bank = _bank(2, 16, 8, spec, 1)
     offsets = torch.tensor([0, 1, 2], dtype=torch.int32)
     x = torch.zeros(2, 16)
-    with pytest.raises(NotImplementedError, match="folded grouped"):
-        cim_mvm_grouped(x, dataclasses.replace(
-            bank, gain=torch.ones_like(bank.codes, dtype=torch.float32)),
-            offsets, device="cpu")
+    for extra in (dict(gain=torch.ones_like(bank.codes, dtype=torch.float32)),
+                  dict(sigma_read=0.1, noise_tag=torch.tensor([3, 4]))):
+        with pytest.raises(ValueError, match="fold it first"):
+            _launch_grouped(x, dataclasses.replace(bank, **extra), offsets,
+                            2, 7)
+    fdeps, folded = _folded_noisy_bank(deps, spec)
+    x = torch.randn(2, 16, generator=torch.Generator().manual_seed(2))
+    want = torch.cat([cim_mvm_plain(x[e:e + 1], fdeps[e], 7)
+                      for e in range(2)])
+    assert torch.equal(cim_mvm_grouped(x, folded, offsets, read_seed=7,
+                                       device="cpu"), want)
     with pytest.raises(ValueError):
         cim_mvm_grouped(x, bank, offsets.to(torch.int64), device="cpu")
     with pytest.raises(ValueError):
