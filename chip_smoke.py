@@ -3282,16 +3282,24 @@ def _bank_fields(eng) -> dict:
 
 
 def _grouped_folded_record(eng, fw, built: dict) -> dict:
-    """The grouped folded form on layer 0's real gate calls (the
-    prefill's and a decode step's, at their read seeds) against its plain
-    version (CIM_TOL x max|y|, rows no expert computes 0, two calls
-    bit-identical), its device time cold (each call reads another layer's
-    bank) with and without the read's noise, the plain version, and
-    ``torch.bmm`` of the (E, cap, I) capacity buffer on the (E, I, N)
-    W_eff with this read's noise materialised; beside the bound of the
-    call's hit experts: their folds' bytes, or the operations of the
-    noise (NOISE_OPS a weight) and the products at PEAK_F32."""
+    """The grouped folded forms on layer 0's real gate calls (the
+    prefill's and a decode step's, at their read seeds) against their
+    plain version (CIM_TOL x max|y|, rows no expert computes 0, two calls
+    bit-identical), the device time of the form the geometry takes cold
+    (each call reads another layer's bank) with and without the read's
+    noise, of the first (general) form forced on the same call, of the
+    plain version, and of ``torch.bmm`` of the (E, cap, I) capacity
+    buffer on the (E, I, N) W_eff with this read's noise materialised;
+    beside the bound of the call's hit experts for the form taken: their
+    folds' bytes, or the operations on the pipe that does most (the
+    decode and general forms: the noise, NOISE_OPS a weight, and the
+    products on the f32 pipe; the prefill form: the noise on the f32 pipe
+    or the TF32 products, 2 a product with bf16 x, 3 with f32); with the
+    form's registers, spills and blocks a SM."""
     from repro_torch.kernels.cim_mvm.ops import (
+        FORM_GROUPED_FOLDED,
+        FORM_GROUPED_FOLDED_DECODE,
+        FORM_GROUPED_FOLDED_PREFILL,
         cim_mvm_grouped,
         grouped_folded_geometry,
     )
@@ -3300,6 +3308,11 @@ def _grouped_folded_record(eng, fw, built: dict) -> dict:
         deployment_weights,
     )
 
+    kernels = {FORM_GROUPED_FOLDED: ("general", "cim_grouped_folded_kernel"),
+               FORM_GROUPED_FOLDED_DECODE:
+                   ("decode", "cim_grouped_folded_decode_kernel"),
+               FORM_GROUPED_FOLDED_PREFILL:
+                   ("prefill", "cim_grouped_folded_prefill_kernel")}
     slot = eng.cim["slot0_attn"]
     R, E = eng.cfg.pattern_repeats, eng.cfg.n_experts
     per_weight = noise_ops(built)[0]
@@ -3308,8 +3321,8 @@ def _grouped_folded_record(eng, fw, built: dict) -> dict:
         _, off, cap, x, offsets, seed = f[0]
         dep = slot["ffn_we_gate"].layer(0)
         I, N = dep.in_dim, dep.out_dim
-        run = lambda d, s=seed: cim_mvm_grouped(x, d, offsets, cap, s,
-                                                device="cuda")
+        run = lambda d, s=seed, form=None: cim_mvm_grouped(
+            x, d, offsets, cap, s, device="cuda", form=form)
         y = run(dep)
         p = cim_mvm_grouped_plain(x, dep, offsets, cap, seed)
         err = (y - p).abs().max().item()
@@ -3320,9 +3333,14 @@ def _grouped_folded_record(eng, fw, built: dict) -> dict:
             done[off[e]:off[e] + counts[e]] = True
         ok = (err <= CIM_TOL * ref and (y[~done] == 0).all().item()
               and torch.equal(y, run(dep)))
+        general_err = (run(dep, form=FORM_GROUPED_FOLDED) - p).abs().max(
+        ).item()
+        ok = ok and general_err <= CIM_TOL * ref
         banks = [slot["ffn_we_gate"].layer(r) for r in range(R)]
         ms = device_ms(run, args=banks)
         clean_ms = device_ms(lambda d: run(d, None), args=banks)
+        general_ms = device_ms(lambda d: run(d, form=FORM_GROUPED_FOLDED),
+                               args=banks)
         plain_ms = cuda_ms(lambda: cim_mvm_grouped_plain(
             x, dep, offsets, cap, seed), iters=2)
         W = torch.stack([deployment_weights(dep.layer(e), seed)[:I, :N]
@@ -3334,34 +3352,49 @@ def _grouped_folded_record(eng, fw, built: dict) -> dict:
         del W, buf
         hit = sum(1 for c in counts if c)
         rows = sum(counts)
+        bf = x.dtype == torch.bfloat16
+        geom = grouped_folded_geometry(E, cap, I, N, dep.codes.shape[2], bf,
+                                       True, x.shape[0],
+                                       torch.cuda.get_device_properties(0)
+                                       .multi_processor_count)
         n_bytes = (hit * dep.folded[0].numel() * 4
                    + x.numel() * x.element_size()
                    + x.shape[0] * N * 4 + (E + 1) * 4 + E * 4)
-        b_ms, b_by = bound(n_bytes, hit * I * N * per_weight
-                           + 2.0 * rows * I * N)
-        bf = x.dtype == torch.bfloat16
-        geom = grouped_folded_geometry(E, cap, I, N, dep.codes.shape[2], bf,
-                                       True, x.shape[0])
-        occ = _occupancy(built, f"cim_grouped_folded_kernel<Lb1ELb{int(bf)}>",
-                         geom)
+        noise_n = hit * I * N * per_weight
+        if geom.form == FORM_GROUPED_FOLDED_PREFILL:
+            b_ms, b_by = max(bound(n_bytes, noise_n),
+                             bound(0.0, (2 if bf else 3) * 2.0 * rows * I
+                                   * N, PEAK_TF32))
+        else:
+            b_ms, b_by = bound(n_bytes, noise_n + 2.0 * rows * I * N)
+        form, kname = kernels[geom.form]
+        occ = _occupancy(built, f"{kname}<Lb1ELb{int(bf)}>", geom)
         print(f"cim_mvm_grouped_folded {regime} (layer 0 gate, read seed "
               f"{seed}) E={E} {I}x{N} cap {cap}: {rows} rows on {hit} "
-              f"experts, max_abs_err {err:.3e} (tol {CIM_TOL:g} x max|y| "
-              f"{ref:.3e}, rows no expert computes 0, two calls "
-              f"bit-identical) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms "
-              f"cold ({clean_ms:.4f} without the noise), plain {plain_ms:.4f} "
-              f"ms, bmm on W_eff {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
+              f"experts, {form} form, max_abs_err {err:.3e} (general form "
+              f"{general_err:.3e}; tol {CIM_TOL:g} x max|y| {ref:.3e}, rows "
+              f"no expert computes 0, two calls bit-identical) "
+              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms cold "
+              f"({clean_ms:.4f} without the noise; the first, general form "
+              f"forced {general_ms:.4f}), plain {plain_ms:.4f} ms, bmm on "
+              f"W_eff {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
               f"{n_bytes / 1e6:.1f} MB; {100 * b_ms / ms:.1f}% of it); grid "
-              f"{geom.gx}x{geom.gy}x{geom.gz}, {_occ_text(occ)}")
+              f"{geom.gx}x{geom.gy}x{geom.gz}"
+              f"{f' in clusters of {geom.gy}' if geom.gy > 1 and form != 'general' else ''}, "
+              f"{_occ_text(occ)}, {occ['spill_bytes']} B spilled")
         if not ok:
             raise AssertionError(f"cim_mvm_grouped_folded disagrees "
                                  f"({regime})")
-        regimes[regime] = dict(rows=rows, hit=hit, cap=cap, max_abs_err=err,
-                               ms=ms, ms_without_noise=clean_ms,
-                               plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=lib_ms,
+        regimes[regime] = dict(rows=rows, hit=hit, cap=cap, form=form,
+                               max_abs_err=err, ms=ms,
+                               ms_without_noise=clean_ms,
+                               general_ms=general_ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by,
+                               library_ms=lib_ms,
                                registers=occ["registers"],
-                               blocks_per_sm=occ["blocks_per_sm"])
+                               spill_bytes=occ["spill_bytes"],
+                               blocks_per_sm=occ["blocks_per_sm"],
+                               clusters=occ["clusters"])
     top = regimes["decode"]
     return dict(name="cim_mvm_grouped_folded", route="cuda",
                 source="src/repro_torch/kernels/cim_mvm/kernel.cu",
@@ -3436,13 +3469,14 @@ def phase_moe_nonideal(records: list, built: dict) -> dict:
     without line opens, NONIDEAL_SEED) under MOE_NONIDEAL_PIPELINE,
     through ``ServeEngine`` with no plan cache (the deploy's stages
     timed): every expert bank folded at deploy and read by cim_mvm's
-    grouped folded form with read noise, the attention projections by
-    its folded forms.  Then every served matrix's fold bit for bit
+    grouped folded forms with read noise (the decode form at a decode
+    step's capacity, the prefill form at the prefill's), the attention
+    projections by its folded forms.  Then every served matrix's fold bit for bit
     against its plain version, two generate calls bit-identical, every
     kernel call of a teacher-forced pass (prefill and MOE_TF_STEPS decode
     steps) against its plain version, the first MOE_F32_LAYERS layers
     with f32 activations end to end against the plain path, a forced
-    demotion, and the new form's record."""
+    demotion, and the grouped folded forms' record."""
     from repro_torch.configs import CimConfig
     from repro_torch.configs.qwen2_moe_a27b import CONFIG as QWEN
     from repro_torch.kernels import runtime

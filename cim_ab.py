@@ -3,7 +3,7 @@
 checkout of the port.
 
     python3 cim_ab.py [--src DIR] [--label NAME] [--flash | --batched |
-                      --grouped [--forms]]
+                      --grouped [--forms] [--folded]]
 
 Imports ``repro_torch`` from ``DIR`` (default: the ``src`` beside this
 script), builds its kernels there and times its public ``cim_mvm`` on
@@ -55,7 +55,11 @@ folded form (``ops.grouped_folded_geometry``) each case is also timed on
 a folded bank of the same codes (expert e with a log-normal gain,
 sigma_read 0.01 and tag e, folded by ``ops.fold``), without and with
 read noise (keys ``[folded]``, ``[folded, noise]``; ``folded_bound_ms``
-reads every hit expert's fold once).
+reads every hit expert's fold once; ``folded_form`` the form its
+geometry took); with ``--forms`` also forced onto each grouped folded
+form, for a checkout whose ``cim_mvm_grouped`` takes ``form`` (keys
+``[folded, ...] [general]``, ``[decode]``, ``[prefill]``).  ``--folded``
+times the folded banks only (no ideal bank, no ``torch.bmm``).
 
 Prints one JSON line.  Run it for two checkouts in one call (parent,
 change, change, parent) to compare them on one card.
@@ -176,7 +180,7 @@ def _grouped_routings(E: int) -> list[tuple[str, list[int], int]]:
             ("at cap", [cap // 3] * 7 + [cap] + [cap // 5] * (E - 8), cap)]
 
 
-def time_grouped(out: dict, forms: bool) -> None:
+def time_grouped(out: dict, forms: bool, folded_only: bool = False) -> None:
     """cim_mvm_grouped at qwen2-moe's expert banks (module docstring)."""
     from repro_torch.configs.qwen2_moe_a27b import CONFIG as QWEN
     from repro_torch.deploy import spec_from_config
@@ -192,6 +196,11 @@ def time_grouped(out: dict, forms: bool) -> None:
     g = torch.Generator(device="cuda").manual_seed(2)
     takes_a = "assignments" in inspect.signature(
         ops.grouped_geometry).parameters
+    folded_forms = ({"general": ops.FORM_GROUPED_FOLDED,
+                     "decode": ops.FORM_GROUPED_FOLDED_DECODE,
+                     "prefill": ops.FORM_GROUPED_FOLDED_PREFILL}
+                    if forms and "form" in inspect.signature(
+                        ops.cim_mvm_grouped).parameters else {})
     out.update(bound_ms={}, tf32_ms={}, err={}, form={}, rows={})
     for pname, (I, N) in (("gate", (QWEN.d_model, QWEN.moe_d_ff)),
                           ("down", (QWEN.moe_d_ff, QWEN.d_model))):
@@ -207,7 +216,7 @@ def time_grouped(out: dict, forms: bool) -> None:
         per_expert = sum(getattr(bank, f)[0].numel()
                          * getattr(bank, f).element_size()
                          for f in ("codes", "pos", "scale"))
-        W = torch.stack([cim_effective_weights(
+        W = None if folded_only else torch.stack([cim_effective_weights(
             d.codes, d.pos, d.scale, n_bits=d.n_bits, wpt=d.wpt,
             cols=d.cols, eta=d.eta, reversed_df=d.reversed_df)[:I, :N]
             for d in (bank.layer(e) for e in range(E))])
@@ -232,6 +241,41 @@ def time_grouped(out: dict, forms: bool) -> None:
             x = torch.randn((A, I), generator=g, device="cuda").to(
                 torch.bfloat16)
             run = lambda d: ops.cim_mvm_grouped(x, d, offsets, cap)
+            rows = sum(counts)
+            hit = sum(1 for c in counts if c)
+            if fbanks:
+                out.setdefault("folded_form", {})[key] = \
+                    ops.grouped_folded_geometry(E, cap, I, N,
+                                                bank.codes.shape[2], True,
+                                                True, A).form
+            for tag, seed in (("folded", None), ("folded, noise", 3)):
+                if not fbanks:
+                    break
+                frun = lambda d, s=seed: ops.cim_mvm_grouped(x, d, offsets,
+                                                             cap, s)
+                out["ms"][f"{key} [{tag}]"] = device_ms(frun, args=fbanks)
+                want = cim_mvm_grouped_plain(x, fbanks[0], offsets, cap,
+                                             seed)
+                out["err"][f"{key} [{tag}]"] = (
+                    (frun(fbanks[0]) - want).abs().max()
+                    / want.abs().max()).item()
+                for fname, form in folded_forms.items():
+                    out["ms"][f"{key} [{tag}] [{fname}]"] = device_ms(
+                        lambda d, s=seed, f=form: ops.cim_mvm_grouped(
+                            x, d, offsets, cap, s, form=f), args=fbanks)
+                    out["err"][f"{key} [{tag}] [{fname}]"] = (
+                        (ops.cim_mvm_grouped(x, fbanks[0], offsets, cap, seed,
+                                             form=form) - want).abs().max()
+                        / want.abs().max()).item()
+                del want
+                out.setdefault("folded_bound_ms", {})[key] = (
+                    hit * fbanks[0].folded[0].numel() * 4 + x.numel() * 2
+                    + A * N * 4 + (E + 1) * 4) / PEAK_BYTES * 1e3
+            out["rows"][key] = [rows, hit, cap]
+            out["tf32_ms"][key] = bound(0.0, 2 * 2.0 * rows * I * N,
+                                        PEAK_TF32)[0]
+            if folded_only:
+                continue
             out["ms"][key] = device_ms(run, args=banks)
             want = cim_mvm_grouped_plain(x, bank, offsets, cap)
             out["err"][key] = ((run(bank) - want).abs().max()
@@ -257,29 +301,9 @@ def time_grouped(out: dict, forms: bool) -> None:
                 buf[e, :counts[e]] = x[a:a + counts[e]].float()
             out["ms"][f"{key} bmm"] = device_ms(lambda: torch.bmm(buf, W))
             del buf
-            rows = sum(counts)
-            hit = sum(1 for c in counts if c)
-            for tag, seed in (("folded", None), ("folded, noise", 3)):
-                if not fbanks:
-                    break
-                frun = lambda d, s=seed: ops.cim_mvm_grouped(x, d, offsets,
-                                                             cap, s)
-                out["ms"][f"{key} [{tag}]"] = device_ms(frun, args=fbanks)
-                want = cim_mvm_grouped_plain(x, fbanks[0], offsets, cap,
-                                             seed)
-                out["err"][f"{key} [{tag}]"] = (
-                    (frun(fbanks[0]) - want).abs().max()
-                    / want.abs().max()).item()
-                del want
-                out.setdefault("folded_bound_ms", {})[key] = (
-                    hit * fbanks[0].folded[0].numel() * 4 + x.numel() * 2
-                    + A * N * 4 + (E + 1) * 4) / PEAK_BYTES * 1e3
             n_bytes = (hit * per_expert + x.numel() * 2 + A * N * 4
                        + (E + 1) * 4)
-            out["rows"][key] = [rows, hit, cap]
             out["bound_ms"][key] = n_bytes / PEAK_BYTES * 1e3
-            out["tf32_ms"][key] = bound(0.0, 2 * 2.0 * rows * I * N,
-                                        PEAK_TF32)[0]
         del banks, bank, W, fbanks
 
 
@@ -296,6 +320,8 @@ def main() -> int:
                     help="time cim_mvm_grouped at qwen2-moe's expert banks")
     ap.add_argument("--forms", action="store_true",
                     help="with --grouped, also time each case on each form")
+    ap.add_argument("--folded", action="store_true",
+                    help="with --grouped, time the folded banks only")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("cim_ab: no CUDA device", file=sys.stderr)
@@ -315,7 +341,7 @@ def main() -> int:
         print(json.dumps(out))
         return 0
     if a.grouped:
-        time_grouped(out, a.forms)
+        time_grouped(out, a.forms, a.folded)
         print(json.dumps(out))
         return 0
 

@@ -94,8 +94,11 @@
 // expert, a tensor-core prefill form (mma.sync 3xTF32) for many, and a
 // general CUDA-core form for the ragged spec.  A bank on imperfect
 // devices is folded at deploy, one Wg an expert, and read by the grouped
-// folded form: the general form's blocks over Wg slabs, each expert's
-// read noise at its own tag.
+// folded forms, each expert's read noise at its own tag: the same
+// streaming decode form over Wg with the noise drawn in registers, the
+// same tensor-core prefill form over staged Wg slabs with the noise
+// added to each slab once, and the first, general form (the general
+// form's blocks over Wg slabs) where those refuse the shape.
 // x may be f32 or bf16 (read directly, exact in f32); y is f32.
 //
 // Rounding.  M0 and M1 are exact (integers times 2^-K); the rest of the
@@ -144,14 +147,20 @@ constexpr int GP_BK = 32;      // grouped prefill: rows of I a slab
 constexpr int GP_STAGES = 4;   // grouped prefill: ring of staged slabs
 constexpr int GP_NT = 16;      // grouped prefill: 8-row tiles of x a pass
 constexpr int GP_KS = 2;       // grouped prefill: k steps a rounding group
+constexpr int GFD_STAGES = 4;  // grouped folded decode: a thread's ring of staged rows
+constexpr int GFD_BLOCKS = 3;  // grouped folded decode: blocks a SM it is built for
+constexpr int GFP_STAGES = 4;  // grouped folded prefill: ring of staged slabs
+constexpr int GFP_WLD = GP_BN + 8;   // grouped folded prefill: a staged Wg row, f32 x
+constexpr int GFP_WLDB = GP_BN + 4;  // the same with bf16 x
 // Geom.form: the ideal decode and prefill forms, the folded ones, the fold,
 // the batched folded decode form, the grouped forms (general, decode,
-// prefill, folded).
+// prefill), the grouped folded forms (general, decode, prefill).
 constexpr int FORM_DECODE = 0, FORM_PREFILL = 1, FORM_DECODE_FOLDED = 2,
               FORM_PREFILL_FOLDED = 3, FORM_FOLD = 4,
               FORM_DECODE_BATCHED = 5, FORM_GROUPED = 6,
               FORM_GROUPED_DECODE = 7, FORM_GROUPED_PREFILL = 8,
-              FORM_GROUPED_FOLDED = 9;
+              FORM_GROUPED_FOLDED = 9, FORM_GROUPED_FOLDED_DECODE = 10,
+              FORM_GROUPED_FOLDED_PREFILL = 11;
 
 // Launch geometry, computed by ops.py::cim_geometry / fold_geometry /
 // batched_geometry / grouped_geometry (same order).  ``gz``: the folded
@@ -1855,8 +1864,10 @@ cim_grouped_kernel(const void* __restrict__ x,
   }
 }
 
-// The grouped folded form (an expert bank on imperfect devices, folded
-// at deploy): the general form's blocks, products and order, the slab
+// The grouped folded general form (an expert bank on imperfect devices,
+// folded at deploy; the first form of this read, kept for shapes the
+// decode and prefill forms below refuse and as their yardstick): the
+// general form's blocks, products and order, the slab
 // of W' taken from expert e's fold (wf + e * wstride, rows of g.ld
 // floats) instead of expanded from codes.  With NOISE the read's noise
 // is added to the staged slab: eps at key (read_seed, tags[e]) and
@@ -1978,6 +1989,501 @@ cim_grouped_folded_kernel(const void* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       if (nb + pc + j < g.N) yr[nb + pc + j] = acc[i][j];
+  }
+}
+
+// The grouped folded decode form (cap <= GROUPED_FOLDED_DECODE_MAX_CAP in
+// ops.py; a few rows an expert): the grouped decode form's design
+// (cim_grouped_decode_kernel) over the fold.  Bound by bytes, 4 a weight
+// of every hit expert's fold (qwen2-moe's decode gate call, 16 rows on 13
+// experts of 2048x1408: 150 MB, 0.045 ms at 3.35 TB/s); the first form
+// (cim_grouped_folded_kernel) ran ~one block a SM there, each streaming a
+// 1 MB fold a 32-row slab at a time through registers, two barriers a
+// slab: bound by latency.  Here a cluster of gy blocks splits the slabs of
+// I (GD_BK rows each) of one (expert, 128-column) item, rank r the slabs
+// [s r / gy, s (r + 1) / gy).  Thread t owns the two 4-column pieces
+// from 4 (t % 16) and 64 + 4 (t % 16) of the item and the rows t / 16 +
+// 16 j of its rank, so each 16-byte cp.async of a warp reads 256
+// contiguous bytes of a row (cp.async bypasses L1: with a thread's 8
+// neighbouring columns each instruction would take half of every 32-byte
+// sector, and the sector would cross from L2 twice); a row's two pieces
+// stream through a ring of GFD_STAGES rows in shared memory that the
+// thread fills by cp.async and reads back itself (no barrier in the
+// stream, GFD_STAGES - 1 rows in flight a thread without registers).
+// With NOISE the row's noise is drawn in registers: one Philox call a
+// piece, at counter (i, n >> 2) of the piece's first column n, every
+// normal used, each weight's noise once a pass, added in the plain
+// version's order (add_noise).  CUDA-core FMAs take
+// the 8 weights against the pass's rows of x, staged once a pass in
+// shared memory and read as broadcasts.  A pass takes up to GD_RB rows of
+// the expert, R = 1, 2 or 4 in registers; an expert with more rows takes
+// more passes and draws its noise again.  The sums: the 16 row slices in
+// slice order through shared memory, then the ranks in rank order through
+// distributed shared memory, so two calls give bit-identical results.
+// Measured on the H100 (PERF.md, row 1h): ~63% of the byte bound with
+// noise at qwen2-moe's decode gate call; a split of 4 (ops.py) on a
+// 4-row ring at 3 blocks a SM came within ~4% of the best split, ring and
+// occupancy in every noisy case swept.
+constexpr int GFD_RING = GFD_STAGES * THREADS * 32;   // bytes of the rings
+static_assert(GFD_RING >= GD_SLICES * GD_RB * GD_BN * 4,
+              "the rings hold the slices' sums");
+
+template <int R, bool NOISE>
+__device__ __forceinline__ void grouped_folded_decode_pass(
+    const float* __restrict__ we, float4* ring, const float* xs, float* part,
+    float* __restrict__ out, const Geom& g, int nb, int k_lo, int k_hi,
+    int row0, int rc, uint32_t tag, float nz, const Noise& ns) {
+  const int tid = threadIdx.x, sl = tid / GD_COLS;
+  // The thread's pieces: columns c0 .. c0 + 3 and c1 .. c1 + 3 of the
+  // item; the second past ld (a ragged last tile) reads zeros, no noise.
+  const int c0 = 4 * (tid % GD_COLS), c1 = GD_BN / 2 + c0;
+  const bool on1 = nb + c1 < g.ld;
+  const int nj = nb + c0 < g.ld && k_lo + sl < k_hi
+                     ? (k_hi - k_lo - sl + GD_SLICES - 1) / GD_SLICES
+                     : 0;
+  // Row j of the thread (i = k_lo + sl + 16 j) into slot j % GFD_STAGES of
+  // its ring ([slot][piece][thread] float4s); one commit group, empty
+  // past its last row.
+  const float* src = we + (size_t)(k_lo + sl) * g.ld + nb + c0;
+  const size_t row_step = (size_t)GD_SLICES * g.ld;
+  auto issue = [&](int j) {
+    if (j < nj) {
+      float4* dst = ring + (j % GFD_STAGES) * 2 * THREADS + tid;
+      const float* s = src + j * row_step;
+      tf32::cp_async16(dst, s, 16);
+      tf32::cp_async16(dst + THREADS, on1 ? s + GD_BN / 2 : s, on1 ? 16 : 0);
+    }
+    tf32::cp_async_commit();
+  };
+
+  float acc[R][8];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[r][q] = 0.0f;
+
+#pragma unroll
+  for (int j = 0; j < GFD_STAGES - 1; ++j) issue(j);
+  for (int j = 0; j < nj; ++j) {
+    tf32::cp_async_wait<GFD_STAGES - 2>();   // row j has landed
+    issue(j + GFD_STAGES - 1);               // into row j - 1's slot
+    const float4* slot = ring + (j % GFD_STAGES) * 2 * THREADS + tid;
+    float4 a = slot[0], b = slot[THREADS];
+    if constexpr (NOISE) {
+      const uint32_t i = (uint32_t)(k_lo + sl + GD_SLICES * j);
+      float z[4];
+      philox_normal4_tag(ns, tag, i, (uint32_t)(nb + c0) >> 2, z);
+      a = add_noise(a, nz, z);
+      if (on1) {
+        philox_normal4_tag(ns, tag, i, (uint32_t)(nb + c1) >> 2, z);
+        b = add_noise(b, nz, z);
+      }
+    }
+    const float w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    const float* xr = xs + (sl + GD_SLICES * j) * GD_RB;
+    float xv[R];
+    if constexpr (R == GD_RB) {
+      const float4 v = *reinterpret_cast<const float4*>(xr);
+      xv[0] = v.x, xv[1] = v.y, xv[2] = v.z, xv[3] = v.w;
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) xv[r] = xr[r];
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[r][q] = fmaf(xv[r], w[q], acc[r][q]);
+  }
+
+  // The slices' sums through the rings (every thread is past its stream),
+  // [slice][R][GD_BN], added in slice order into ``part`` [R][GD_BN]; then
+  // the ranks' parts added in rank order, rank r the elements r * 256 +
+  // tid (mod gy * 256).
+  tf32::cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float* row = red + (sl * R + r) * GD_BN;
+    *reinterpret_cast<float4*>(row + c0) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    *reinterpret_cast<float4*>(row + c1) =
+        make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+  }
+  __syncthreads();
+  for (int q = tid; q < R * GD_BN; q += THREADS) {
+    float v = red[q];
+#pragma unroll
+    for (int k = 1; k < GD_SLICES; ++k) v += red[k * R * GD_BN + q];
+    part[q] = v;
+  }
+  const int S = g.gy;
+  if (S == 1) {
+    __syncthreads();
+    for (int q = tid; q < rc * GD_BN; q += THREADS) {
+      const int n = nb + q % GD_BN;
+      if (n < g.N) out[(size_t)(row0 + q / GD_BN) * g.N + n] = part[q];
+    }
+    __syncthreads();   // no pass reuses part or the rings while it is read
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  cluster.sync();
+  for (int q = rank * THREADS + tid; q < rc * GD_BN; q += S * THREADS) {
+    const int n = nb + q % GD_BN;
+    if (n >= g.N) continue;
+    float v = *cluster.map_shared_rank(part + q, 0);
+    for (int r = 1; r < S; ++r) v += *cluster.map_shared_rank(part + q, r);
+    out[(size_t)(row0 + q / GD_BN) * g.N + n] = v;
+  }
+  cluster.sync();      // no block reuses its part while another reads it
+}
+
+// Grid (gx column tiles, gy ranks, gz expert slots) in clusters of (1,
+// gy, 1); shared memory: the threads' rings (later the slices' sums), the
+// x slab [rps][GD_RB] at off_p (the rank's rows of I, transposed), the
+// part [GD_RB][GD_BN] after it.
+template <bool NOISE, bool XBF>
+__global__ void __launch_bounds__(THREADS, GFD_BLOCKS)
+cim_grouped_folded_decode_kernel(const void* __restrict__ x,
+                                 const float* __restrict__ wf,
+                                 long long wstride,
+                                 const float* __restrict__ scale_ptr,
+                                 const int32_t* __restrict__ tags,
+                                 const int32_t* __restrict__ offsets,
+                                 float* __restrict__ out, Geom g, Noise ns) {
+  int a0 = 0, rows = 0;
+  const int e = slot_expert(offsets, g.experts, g.M, blockIdx.z, a0, rows);
+  if (e < 0) return;                     // block-uniform: no row, no read
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4) + g.off_p;
+  float* part = xs + g.rps * GD_RB;
+  const int n_slabs = (g.I + GD_BK - 1) / GD_BK;
+  const int rank = blockIdx.y, S = g.gy;
+  const int k_lo = n_slabs * rank / S * GD_BK;
+  const int k_hi = min(n_slabs * (rank + 1) / S * GD_BK, g.I);
+  const int span = k_hi - k_lo;
+  const int nb = blockIdx.x * GD_BN;
+  const float* we = wf + (size_t)e * wstride;
+  float nz = 0.0f;
+  uint32_t tag = 0;
+  if constexpr (NOISE) {
+    nz = __fmul_rn(ns.nsig, scale_ptr[e]);
+    tag = (uint32_t)tags[e];
+  }
+  for (int c0 = 0; c0 < rows; c0 += GD_RB) {
+    const int rc = min(GD_RB, rows - c0);
+    // The pass's rows of x over the rank's rows of I, transposed to
+    // [i][row]: coalesced reads along I; zeros past rc.
+    for (int q = threadIdx.x; q < GD_RB * span; q += THREADS) {
+      const int m = q / span, ii = q % span;
+      xs[ii * GD_RB + m] =
+          m < rc ? load_x(x, (size_t)(a0 + c0 + m) * g.I + k_lo + ii, XBF)
+                 : 0.0f;
+    }
+    __syncthreads();                     // x is in place
+    const int row0 = a0 + c0;
+    if (rc > 2)
+      grouped_folded_decode_pass<4, NOISE>(we, smem4, xs, part, out, g, nb,
+                                           k_lo, k_hi, row0, rc, tag, nz, ns);
+    else if (rc > 1)
+      grouped_folded_decode_pass<2, NOISE>(we, smem4, xs, part, out, g, nb,
+                                           k_lo, k_hi, row0, rc, tag, nz, ns);
+    else
+      grouped_folded_decode_pass<1, NOISE>(we, smem4, xs, part, out, g, nb,
+                                           k_lo, k_hi, row0, rc, tag, nz, ns);
+  }
+}
+
+// The grouped folded prefill form (larger cap; ~34 rows an expert at
+// qwen2-moe's prefill): the grouped prefill form's design
+// (cim_grouped_prefill_kernel) over the fold.  Bound by bytes once the
+// products run on tensor cores and the noise is drawn once a weight
+// (qwen2-moe's prefill gate call, 60 experts: 0.21 ms of bytes at 3.35
+// TB/s, against 0.048 ms of TF32 products and 0.058 ms of noise on the
+// f32 pipe); the first form read an expert's fold and drew its noise once
+// for every 32-row tile of its rows, with CUDA-core FMAs.  A block takes
+// one (expert, 128-column) item and all of the expert's rows, up to
+// GP_ROWS a pass (so at qwen2-moe's capacity the fold is read and its
+// noise drawn once a call); I runs in GP_BK-row slabs through a ring of
+// GFP_STAGES (Wg slab, raw x) stages filled by 16-byte cp.async.  With
+// NOISE each slab, once landed, gets the read's noise in place, in the
+// plain version's order (add_noise): a thread four neighbouring columns
+// of a row from one Philox call at counter (i, n >> 2), four rows a slab,
+// while the products of the slab before run (one barrier a slab); only
+// then are its A fragments read.  The products run transposed, y^T = Wg^T
+// x^T, on mma.sync m16n8k8: lane (gq, tq) of warp w reads columns 16w +
+// 2gq and 16w + 2gq + 1 of the k step's rows kr0 and kr1 as one float2
+// each (rows of GFP_WLD floats with f32 x, GFP_WLDB with bf16 x: the k
+// rows of a step fall on distinct banks) and splits them into TF32 hi and
+// lo (split_b); x^T is read by ldmatrix from the staged raw x, with the
+// grouped prefill form's k order, tile pairs, rounding groups and split
+// of I over a cluster (where few experts can be hit).  bf16 x is exact in
+// TF32: two products a product; f32 x three.  Measured on the H100
+// (PERF.md, row 1h): ~74% of the byte bound without noise, ~43% with it
+// at qwen2-moe's prefill gate call, where the noise's instructions bound
+// it.
+template <bool XBF>
+struct GfpLayout {
+  static constexpr int WLD = XBF ? GFP_WLDB : GFP_WLD;     // floats
+  static constexpr int WS = GP_BK * WLD * 4;                // bytes
+  static constexpr int XROW = XBF ? GP_XLDB * 2 : GP_XLD * 4;
+  static constexpr int STAGE = WS + GP_ROWS * XROW;
+  // A split's partial sums, [4 GP_NT][THREADS], in the ring.
+  static_assert(GFP_STAGES * STAGE >= 4 * GP_NT * THREADS * 4,
+                "the ring holds a split's sums");
+  static_assert(WS % 16 == 0 && XROW % 16 == 0, "16-byte rows");
+};
+
+template <bool NOISE, bool XBF>
+__global__ void __launch_bounds__(THREADS, XBF ? 2 : 1)
+cim_grouped_folded_prefill_kernel(const void* __restrict__ x,
+                                  const float* __restrict__ wf,
+                                  long long wstride,
+                                  const float* __restrict__ scale_ptr,
+                                  const int32_t* __restrict__ tags,
+                                  const int32_t* __restrict__ offsets,
+                                  float* __restrict__ out, Geom g, Noise ns) {
+  using L = GfpLayout<XBF>;
+  constexpr int xes = XBF ? 2 : 4;             // bytes a value of x
+  constexpr int WLD = L::WLD;
+  int a0 = 0, rows = 0;
+  const int e = slot_expert(offsets, g.experts, g.M, blockIdx.z, a0, rows);
+  if (e < 0) return;                     // block-uniform: no row, no read
+  extern __shared__ float4 smem4[];
+  char* ring = reinterpret_cast<char*>(smem4);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int nb = blockIdx.x * GP_BN;
+  const int c0 = 16 * warp + 2 * gq;     // the thread's columns c0, c0 + 1
+  const float* we = wf + (size_t)e * wstride;
+  const int n_slabs = (g.I + GP_BK - 1) / GP_BK;
+  const int S = g.gy, rank = blockIdx.y;
+  const int kt0 = n_slabs * rank / S, n_steps = n_slabs * (rank + 1) / S;
+  const bool xvec = g.I % (16 / xes) == 0 &&
+                    (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const char* xb = reinterpret_cast<const char*>(x);
+  // The thread's staging and noise: slab rows wr + 8 it, the four
+  // columns from wc (a whole row a warp).
+  const int wr = tid / (GP_BN / 4), wc = 4 * (tid % (GP_BN / 4));
+  const bool wcol = nb + wc < g.ld;
+  float nz = 0.0f;
+  uint32_t tag = 0;
+  if constexpr (NOISE) {
+    nz = __fmul_rn(ns.nsig, scale_ptr[e]);
+    tag = (uint32_t)tags[e];
+  }
+  // The fragments' k rows of a k step, and this lane's ldmatrix row
+  // address in a tile pair (matrix j = lane / 8; bf16: tile j % 2 at k
+  // step j / 2; f32: tile j / 2 at k offset 4 (j % 2)).
+  const int kr0 = XBF ? 2 * tq : tq, kr1 = XBF ? 2 * tq + 1 : tq + 4;
+  const int b_off =
+      XBF ? ((lane / 8 % 2) * 8 + lane % 8) * L::XROW + 16 * (lane / 16)
+          : ((lane / 16) * 8 + lane % 8) * L::XROW + 16 * (lane / 8 % 2);
+
+  // Slab kt's noise, added in place to its landed Wg (rows of I and
+  // columns of the fold only).
+  auto noise = [&](int kt) {
+    float* ws = reinterpret_cast<float*>(ring + (kt % GFP_STAGES) * L::STAGE);
+    const int i0 = kt * GP_BK + wr;
+#pragma unroll
+    for (int it = 0; it < GP_BK * GP_BN / 4 / THREADS; ++it) {
+      if (wcol && i0 + 8 * it < g.I) {
+        float z[4];
+        philox_normal4_tag(ns, tag, (uint32_t)(i0 + 8 * it),
+                           (uint32_t)(nb + wc) >> 2, z);
+        float4* p = reinterpret_cast<float4*>(ws + (wr + 8 * it) * WLD + wc);
+        *p = add_noise(*p, nz, z);
+      }
+    }
+  };
+
+  // A pass over rows [m0, m0 + rc) of the expert, NP pairs of 8-row tiles
+  // (NP a compile-time 1, 2, 3, 4 or 8: no branch between the pairs, so
+  // their products interleave).
+  auto pass = [&](auto np_c, int m0) {
+    constexpr int NP = decltype(np_c)::value;
+    const int rc = min(GP_ROWS, rows - m0);
+    const int nt = 2 * NP;
+    const char* xrow = xb + (size_t)(a0 + m0) * g.I * xes;
+
+    // Slab kt's Wg and the pass's rows of x into its ring slot; zeros
+    // past I and ld (rows of x past rc are left as they are: they reach
+    // only outputs that are never stored).  One commit group, empty past
+    // the last slab.
+    auto stage = [&](int kt) {
+      if (kt < n_steps) {
+        char* st = ring + (kt % GFP_STAGES) * L::STAGE;
+        float* ws = reinterpret_cast<float*>(st);
+        char* xst = st + L::WS;
+        const int k0 = kt * GP_BK;
+        const float* src = we + (size_t)(k0 + wr) * g.ld + nb + wc;
+#pragma unroll
+        for (int it = 0; it < GP_BK * GP_BN / 4 / THREADS; ++it) {
+          const bool ok = wcol && k0 + wr + 8 * it < g.I;
+          tf32::cp_async16(ws + (wr + 8 * it) * WLD + wc,
+                           ok ? src + (size_t)8 * it * g.ld : we,
+                           ok ? 16 : 0);
+        }
+        if (xvec) {
+          constexpr int CH = GP_BK * xes / 16;     // 16-byte pieces a row
+          for (int q = tid; q < rc * CH; q += THREADS) {
+            const int m = q / CH, c = (q % CH) * (16 / xes);
+            const bool ok = k0 + c < g.I;
+            tf32::cp_async16(xst + m * L::XROW + c * xes,
+                             ok ? xrow + ((size_t)m * g.I + k0 + c) * xes
+                                : xb,
+                             ok ? 16 : 0);
+          }
+        } else {
+          for (int q = tid; q < rc * GP_BK; q += THREADS) {
+            const int m = q / GP_BK, c = q % GP_BK;
+            const bool ok = k0 + c < g.I;
+            const size_t at = (size_t)m * g.I + k0 + c;
+            if constexpr (XBF) {      // rows of odd length: plain loads
+              reinterpret_cast<__nv_bfloat16*>(xst + m * L::XROW)[c] =
+                  ok ? reinterpret_cast<const __nv_bfloat16*>(xrow)[at]
+                     : __float2bfloat16_rn(0.0f);
+            } else {
+              tf32::cp_async4(xst + m * L::XROW + c * 4,
+                              ok ? xrow + at * 4 : xb, ok ? 4 : 0);
+            }
+          }
+        }
+      }
+      tf32::cp_async_commit();
+    };
+
+    float acc[2 * NP][4];
+#pragma unroll
+    for (int t = 0; t < 2 * NP; ++t)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[t][u] = 0.0f;
+
+    for (int kt = kt0; kt < kt0 + GFP_STAGES - 1; ++kt) stage(kt);
+    tf32::cp_async_wait<GFP_STAGES - 2>();
+    __syncthreads();                           // slab kt0 has landed
+    if (NOISE && kt0 < n_steps) noise(kt0);
+    tf32::cp_async_wait<GFP_STAGES - 3>();
+    __syncthreads();              // slab kt0 + 1 has landed, kt0's noise in
+    for (int kt = kt0; kt < n_steps; ++kt) {
+      stage(kt + GFP_STAGES - 1);              // into slab kt - 1's slot
+      const char* st = ring + (kt % GFP_STAGES) * L::STAGE;
+      const float* wa = reinterpret_cast<const float*>(st) + c0;
+      const char* xh = st + L::WS + b_off;
+#pragma unroll
+      for (int k0 = 0; k0 < GP_BK / 8; k0 += GP_KS) {
+        // The group's A fragments: W[k][c] for (c, k) = (c0, kr0), (c0 +
+        // 1, kr0), (c0, kr1), (c0 + 1, kr1) of each k step.
+        uint32_t ah[GP_KS][4], al[GP_KS][4];
+#pragma unroll
+        for (int kk = 0; kk < GP_KS; ++kk) {
+          const int k = 8 * (k0 + kk);
+          const float2 v0 =
+              *reinterpret_cast<const float2*>(wa + (k + kr0) * WLD);
+          const float2 v1 =
+              *reinterpret_cast<const float2*>(wa + (k + kr1) * WLD);
+          split_b(v0.x, ah[kk][0], al[kk][0]);
+          split_b(v0.y, ah[kk][1], al[kk][1]);
+          split_b(v1.x, ah[kk][2], al[kk][2]);
+          split_b(v1.y, ah[kk][3], al[kk][3]);
+        }
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+          const char* bp = xh + 16 * p * L::XROW;
+          if constexpr (XBF) {
+            // Tiles 2p, 2p + 1 at k steps k0, k0 + 1: b0 and b1 of each
+            // from one word (its two bf16, widened exactly).
+            uint32_t r[4];
+            ldsm_x4(r, reinterpret_cast<const float*>(bp + 16 * k0));
+#pragma unroll
+            for (int kk = 0; kk < GP_KS; ++kk) {
+              const uint32_t w0 = r[2 * kk], w1 = r[2 * kk + 1];
+              const uint32_t b0[2] = {w0 << 16, w0 & 0xFFFF0000u};
+              const uint32_t b1[2] = {w1 << 16, w1 & 0xFFFF0000u};
+              tf32::mma(d0, al[kk], b0);
+              tf32::mma(d1, al[kk], b1);
+              tf32::mma(d0, ah[kk], b0);
+              tf32::mma(d1, ah[kk], b1);
+            }
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < GP_KS; ++kk) {
+              uint32_t r[4];
+              ldsm_x4(r, reinterpret_cast<const float*>(
+                             bp + 32 * (k0 + kk)));
+              uint32_t bh0[2], bl0[2], bh1[2], bl1[2];
+              split_b(__uint_as_float(r[0]), bh0[0], bl0[0]);
+              split_b(__uint_as_float(r[1]), bh0[1], bl0[1]);
+              split_b(__uint_as_float(r[2]), bh1[0], bl1[0]);
+              split_b(__uint_as_float(r[3]), bh1[1], bl1[1]);
+              tf32::mma(d0, ah[kk], bl0);
+              tf32::mma(d1, ah[kk], bl1);
+              tf32::mma(d0, al[kk], bh0);
+              tf32::mma(d1, al[kk], bh1);
+              tf32::mma(d0, ah[kk], bh0);
+              tf32::mma(d1, ah[kk], bh1);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc[2 * p][u] = __fadd_rn(acc[2 * p][u], d0[u]);
+            acc[2 * p + 1][u] = __fadd_rn(acc[2 * p + 1][u], d1[u]);
+          }
+        }
+      }
+      // The next slab's noise while other warps run this slab's products:
+      // its slot is neither staged into nor read this step.
+      if (NOISE && kt + 1 < n_steps) noise(kt + 1);
+      tf32::cp_async_wait<GFP_STAGES - 3>();   // slab kt + 2 has landed
+      __syncthreads();                         // and kt + 1's noise is in
+    }
+    tf32::cp_async_wait<0>();
+    __syncthreads();             // a next pass restages only after this one
+
+    // acc[t][u] is D[c][m]: column c0 (u < 2) or c0 + 1, row 8t + 2tq + u
+    // % 2 of the pass.
+    auto store = [&](int i, float v) {
+      const int m = 8 * (i / 4) + 2 * tq + i % 2, n = nb + c0 + i % 4 / 2;
+      if (m < rc && n < g.N) out[(size_t)(a0 + m0 + m) * g.N + n] = v;
+    };
+    if (S == 1) {
+#pragma unroll
+      for (int t = 0; t < 2 * NP; ++t)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) store(4 * t + u, acc[t][u]);
+      return;
+    }
+    // The split's partial sums, [4 GP_NT][THREADS] in the (now free) ring;
+    // rank r adds outputs [r * 64 / S, (r + 1) * 64 / S) of each thread
+    // over the ranks 0 .. S-1 in order.
+    cg::cluster_group cluster = cg::this_cluster();
+    float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+    for (int t = 0; t < 2 * NP; ++t)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) part[(4 * t + u) * THREADS + tid] = acc[t][u];
+    cluster.sync();
+    const int share = 4 * GP_NT / S;
+    for (int i = rank * share; i < min((rank + 1) * share, 4 * nt); ++i) {
+      float v = *cluster.map_shared_rank(part + i * THREADS + tid, 0);
+      for (int r = 1; r < S; ++r)
+        v += *cluster.map_shared_rank(part + i * THREADS + tid, r);
+      store(i, v);
+    }
+    cluster.sync();   // no block restages or leaves while another reads
+  };
+  for (int m0 = 0; m0 < rows; m0 += GP_ROWS) {
+    switch ((min(GP_ROWS, rows - m0) + 15) / 16) {
+      case 1: pass(std::integral_constant<int, 1>{}, m0); break;
+      case 2: pass(std::integral_constant<int, 2>{}, m0); break;
+      case 3: pass(std::integral_constant<int, 3>{}, m0); break;
+      case 4: pass(std::integral_constant<int, 4>{}, m0); break;
+      default: pass(std::integral_constant<int, 8>{}, m0); break;
+    }
   }
 }
 
@@ -2583,6 +3089,50 @@ cudaError_t occupancy_batched(const Geom& g, int* out) {
       g, dim3(g.gx), dim3(g.gy), false, out);
 }
 
+// The grouped folded forms (geom form 9, 10 or 11), template instance
+// (NOISE, x bf16): the general form on its own grid, the decode and
+// prefill forms in clusters of (1, gy, 1).
+template <bool NOISE, bool XBF>
+cudaError_t launch_grouped_folded(const Geom& g, const void* x,
+                                  const float* wf, long long wstride,
+                                  const float* scale, const int32_t* tags,
+                                  const int32_t* offsets, float* out,
+                                  const Noise& e, cudaStream_t s) {
+  const dim3 grid(g.gx, g.gy, g.gz), cluster(1, g.gy, 1);
+  switch (g.form) {
+    case FORM_GROUPED_FOLDED:
+      return launch<cim_grouped_folded_kernel<NOISE, XBF>>(
+          g, s, x, wf, wstride, scale, tags, offsets, out, g, e);
+    case FORM_GROUPED_FOLDED_DECODE:
+      return launch_grid<cim_grouped_folded_decode_kernel<NOISE, XBF>>(
+          grid, cluster, g.smem, s, x, wf, wstride, scale, tags, offsets,
+          out, g, e);
+    case FORM_GROUPED_FOLDED_PREFILL:
+      return launch_grid<cim_grouped_folded_prefill_kernel<NOISE, XBF>>(
+          grid, cluster, g.smem, s, x, wf, wstride, scale, tags, offsets,
+          out, g, e);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <bool NOISE, bool XBF>
+cudaError_t occupancy_grouped_folded(const Geom& g, int* out) {
+  const dim3 grid(g.gx, g.gy, g.gz), cluster(1, g.gy, 1);
+  switch (g.form) {
+    case FORM_GROUPED_FOLDED:
+      return occupancy<cim_grouped_folded_kernel<NOISE, XBF>>(g, 1, out);
+    case FORM_GROUPED_FOLDED_DECODE:
+      return occupancy<cim_grouped_folded_decode_kernel<NOISE, XBF>>(
+          g, grid, cluster, false, out);
+    case FORM_GROUPED_FOLDED_PREFILL:
+      return occupancy<cim_grouped_folded_prefill_kernel<NOISE, XBF>>(
+          g, grid, cluster, false, out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // The decode forms' occupancy: B is FAST (ideal) or NOISE (folded).
 template <bool B>
 cudaError_t occupancy_decode(const Geom& g, bool folded, int* out) {
@@ -2779,12 +3329,13 @@ extern "C" int cim_mvm_grouped_launch(const void* x, const int16_t* codes,
   return (int)err;
 }
 
-// The grouped folded form (geom form 9, ops.py::grouped_folded_geometry):
-// expert e of the geom ``experts`` reads its Wg at wf + e * wstride (rows
-// of geom ld floats) and scale[e], draws (with geom noise) read noise at
-// key (seed, tags[e]) and amplitude nsig * scale[e], and computes the rows
-// [offsets[e], min(offsets[e + 1], offsets[e] + geom M)) of y (A, geom N)
-// from those rows of x (A, geom I; f32, or bf16 with geom xbf16).
+// The grouped folded forms (geom form 9, 10 or 11, ops.py::
+// grouped_folded_geometry: general, decode, prefill): expert e of the geom
+// ``experts`` reads its Wg at wf + e * wstride (rows of geom ld floats)
+// and scale[e], draws (with geom noise) read noise at key (seed, tags[e])
+// and amplitude nsig * scale[e], and computes the rows [offsets[e],
+// min(offsets[e + 1], offsets[e] + geom M)) of y (A, geom N) from those
+// rows of x (A, geom I; f32, or bf16 with geom xbf16).
 extern "C" int cim_mvm_grouped_folded_launch(
     const void* x, const float* wf, long long wstride, const float* scale,
     const int32_t* tags, const int32_t* offsets, float* out, const int* geom,
@@ -2797,19 +3348,35 @@ extern "C" int cim_mvm_grouped_folded_launch(
     e.k1[r] = 0;
   }
   e.nsig = nsig;
-  if (g.form != FORM_GROUPED_FOLDED || g.tile != GR_BN || g.M < 1 ||
-      g.I < 1 || g.gz < 1 || g.experts < 1 || !offsets || !wf || !scale ||
-      (g.noise && !tags) || g.ld % 8 || wstride % 4 ||
+  if (g.M < 1 || g.I < 1 || g.gz < 1 || g.experts < 1 || !offsets || !wf ||
+      !scale || (g.noise && !tags) || g.ld % 8 || wstride % 4 ||
       (reinterpret_cast<uintptr_t>(wf) & 15))
     return (int)cudaErrorInvalidValue;
+  switch (g.form) {
+    case FORM_GROUPED_FOLDED:
+      if (g.tile != GR_BN) return (int)cudaErrorInvalidValue;
+      break;
+    case FORM_GROUPED_FOLDED_DECODE:
+      if (g.tile != GD_BN || g.gy < 1 || g.gy > CLUSTER || g.mt != GD_RB ||
+          4 * g.off_p < GFD_RING)
+        return (int)cudaErrorInvalidValue;
+      break;
+    case FORM_GROUPED_FOLDED_PREFILL:
+      if (g.tile != GP_BN || g.gy < 1 || g.gy > CLUSTER ||
+          (4 * GP_NT) % g.gy)
+        return (int)cudaErrorInvalidValue;
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = (cudaStream_t)stream_ptr;
   cudaError_t err;
   if (g.noise)
-    err = g.xbf16 ? launch<cim_grouped_folded_kernel<true, true>>(g, s, x, wf, wstride, scale, tags, offsets, out, g, e)
-                  : launch<cim_grouped_folded_kernel<true, false>>(g, s, x, wf, wstride, scale, tags, offsets, out, g, e);
+    err = g.xbf16 ? launch_grouped_folded<true, true>(g, x, wf, wstride, scale, tags, offsets, out, e, s)
+                  : launch_grouped_folded<true, false>(g, x, wf, wstride, scale, tags, offsets, out, e, s);
   else
-    err = g.xbf16 ? launch<cim_grouped_folded_kernel<false, true>>(g, s, x, wf, wstride, scale, tags, offsets, out, g, e)
-                  : launch<cim_grouped_folded_kernel<false, false>>(g, s, x, wf, wstride, scale, tags, offsets, out, g, e);
+    err = g.xbf16 ? launch_grouped_folded<false, true>(g, x, wf, wstride, scale, tags, offsets, out, e, s)
+                  : launch_grouped_folded<false, false>(g, x, wf, wstride, scale, tags, offsets, out, e, s);
   return (int)err;
 }
 
@@ -2840,7 +3407,7 @@ extern "C" int cim_fold_launch(const int16_t* codes, const int32_t* pos,
 // the fold's col_pos instantiation where geom rows > 0), from the CUDA
 // runtime's occupancy calculator: out[0] resident blocks a SM, out[1] clusters the card holds
 // at once for a cluster launch (the decode forms, a split folded
-// prefill, a split grouped form), else 0.  A failed query leaves no error behind for the next
+// prefill, the grouped decode and prefill forms), else 0.  A failed query leaves no error behind for the next
 // launch's cudaGetLastError().
 extern "C" int cim_occupancy(const int* geom, int* out) {
   Geom g;
@@ -2885,10 +3452,12 @@ extern "C" int cim_occupancy(const int* geom, int* out) {
                           out);
       break;
     case FORM_GROUPED_FOLDED:
-      err = g.noise ? (g.xbf16 ? occupancy<cim_grouped_folded_kernel<true, true>>(g, 1, out)
-                               : occupancy<cim_grouped_folded_kernel<true, false>>(g, 1, out))
-                    : (g.xbf16 ? occupancy<cim_grouped_folded_kernel<false, true>>(g, 1, out)
-                               : occupancy<cim_grouped_folded_kernel<false, false>>(g, 1, out));
+    case FORM_GROUPED_FOLDED_DECODE:
+    case FORM_GROUPED_FOLDED_PREFILL:
+      err = g.noise ? (g.xbf16 ? occupancy_grouped_folded<true, true>(g, out)
+                               : occupancy_grouped_folded<true, false>(g, out))
+                    : (g.xbf16 ? occupancy_grouped_folded<false, true>(g, out)
+                               : occupancy_grouped_folded<false, false>(g, out));
       break;
     case FORM_FOLD:
       if (g.fast)

@@ -206,13 +206,35 @@ GROUPED_PREFILL_BN, GROUPED_PREFILL_BK, GROUPED_PREFILL_STAGES = 128, 32, 4
 GROUPED_PREFILL_NT, GROUPED_PREFILL_KS = 16, 2
 GROUPED_SPLITS = (8, 4, 2)
 GROUPED_DECODE_MAX_CAP = 32
+# The grouped folded forms (a bank folded at deploy).  Decode (cap <=
+# GROUPED_FOLDED_DECODE_MAX_CAP): the grouped decode form's items, row
+# slices and passes over the fold, I split GROUPED_FOLDED_DECODE_SPLIT
+# ways, a thread's two 4-column Wg pieces of a row through its own ring of
+# GROUPED_FOLDED_DECODE_STAGES rows, built for
+# GROUPED_FOLDED_DECODE_BLOCKS blocks a SM.  Prefill (above): the grouped
+# prefill form's items, passes and split over the fold, a ring of
+# GROUPED_FOLDED_PREFILL_STAGES (Wg slab, raw x) stages, staged Wg rows of
+# GROUPED_FOLDED_PREFILL_WLD floats with f32 x, _WLDB with bf16 x.  The
+# first, general form where the decode form's x slab does not fit, and
+# for a noiseless read whose (expert, column tile) items alone fill the
+# card.
+GROUPED_FOLDED_DECODE_STAGES, GROUPED_FOLDED_DECODE_BLOCKS = 4, 3
+GROUPED_FOLDED_DECODE_SPLIT = 4    # its split of I (PERF.md, row 1h)
+GROUPED_FOLDED_PREFILL_STAGES = 4
+GROUPED_FOLDED_PREFILL_WLD = GROUPED_PREFILL_BN + 8
+GROUPED_FOLDED_PREFILL_WLDB = GROUPED_PREFILL_BN + 4
+GROUPED_FOLDED_DECODE_MAX_CAP = 32
 SMEM_MAX = 227 * 1024
+SM_SMEM = 228 * 1024      # an SM's shared memory, 1 KB of it reserved a block
 # kernel.cu's Geom.form: the ideal forms, the folded forms, the fold, the
-# batched folded decode form, the grouped forms (general, decode, prefill,
-# folded).
+# batched folded decode form, the grouped forms (general, decode,
+# prefill), the grouped folded forms (general, decode, prefill).
 FORM_DECODE, FORM_PREFILL, FORM_DECODE_FOLDED, FORM_PREFILL_FOLDED, \
     FORM_FOLD, FORM_DECODE_BATCHED, FORM_GROUPED, FORM_GROUPED_DECODE, \
-    FORM_GROUPED_PREFILL, FORM_GROUPED_FOLDED = range(10)
+    FORM_GROUPED_PREFILL, FORM_GROUPED_FOLDED, FORM_GROUPED_FOLDED_DECODE, \
+    FORM_GROUPED_FOLDED_PREFILL = range(12)
+GROUPED_FOLDED_FORMS = (FORM_GROUPED_FOLDED, FORM_GROUPED_FOLDED_DECODE,
+                        FORM_GROUPED_FOLDED_PREFILL)
 # The fields of kernel.cu's ``Geom``, in order.
 _GEOM_FIELDS = ("form", "M", "I", "N", "n_pad", "n_tiles", "wpt", "n_bits",
                 "cols", "reversed", "fast", "tile", "rps", "gx", "gy", "gz",
@@ -400,26 +422,41 @@ def _grouped_decode_geometry(I: int, wpt: int, n_bits: int):
                 smem=smem, off_t=off_t, off_p=off_p, mt=rb)
 
 
-def _grouped_prefill_geometry(experts: int, cap: int, I: int, N: int,
-                              wpt: int, n_bits: int, xbf16: bool,
-                              assignments: int | None, sm_count: int):
-    """The grouped prefill form's split of I and shared memory: a ring of
-    (codes, pos, raw x) slabs, then the eta*M1 table.  The split: where x's
-    rows, each expert at its capacity, would fill fewer experts' column
-    tiles than the blocks the card holds at once (two a SM with bf16 x,
-    one with f32), the widest of 8, 4, 2 that still fits them, each rank
-    with two slabs."""
-    bk, bn, rows = (GROUPED_PREFILL_BK, GROUPED_PREFILL_BN,
-                    8 * GROUPED_PREFILL_NT)
-    x_row = (bk + 8) * 2 if xbf16 else (bk + 4) * 4
-    stage = bk * (bn + 8) * 2 + bk * (bn // 8 + 4) * 4 + rows * x_row
-    gx = math.ceil(N / bn)
+def _grouped_prefill_split(experts: int, cap: int, I: int, N: int,
+                           xbf16: bool, assignments: int | None,
+                           sm_count: int) -> int:
+    """The grouped prefill forms' split of I: where x's rows, each expert
+    at its capacity, would fill fewer experts' column tiles than the
+    blocks the card holds at once (two a SM with bf16 x, one with f32),
+    the widest of 8, 4, 2 that still fits them, each rank with two
+    slabs; else 1."""
+    gx = math.ceil(N / GROUPED_PREFILL_BN)
     fill = experts if assignments is None else min(
         experts, max(1, math.ceil((assignments - 1) / cap)))
     slots = (2 if xbf16 else 1) * sm_count
-    split = next((s for s in GROUPED_SPLITS if fill * gx * s <= slots
-                  and math.ceil(I / bk) >= 2 * s), 1)
-    return dict(form=FORM_GROUPED_PREFILL, tile=bn, rps=0, gy=split,
+    return next((s for s in GROUPED_SPLITS if fill * gx * s <= slots
+                 and math.ceil(I / GROUPED_PREFILL_BK) >= 2 * s), 1)
+
+
+def _grouped_x_row(xbf16: bool) -> int:
+    """Bytes of a staged row of raw x in the grouped prefill forms."""
+    bk = GROUPED_PREFILL_BK
+    return (bk + 8) * 2 if xbf16 else (bk + 4) * 4
+
+
+def _grouped_prefill_geometry(experts: int, cap: int, I: int, N: int,
+                              wpt: int, n_bits: int, xbf16: bool,
+                              assignments: int | None, sm_count: int):
+    """The grouped prefill form's split of I (:func:`_grouped_prefill_split`)
+    and shared memory: a ring of (codes, pos, raw x) slabs, then the eta*M1
+    table."""
+    bk, bn, rows = (GROUPED_PREFILL_BK, GROUPED_PREFILL_BN,
+                    8 * GROUPED_PREFILL_NT)
+    stage = (bk * (bn + 8) * 2 + bk * (bn // 8 + 4) * 4
+             + rows * _grouped_x_row(xbf16))
+    return dict(form=FORM_GROUPED_PREFILL, tile=bn, rps=0,
+                gy=_grouped_prefill_split(experts, cap, I, N, xbf16,
+                                          assignments, sm_count),
                 smem=GROUPED_PREFILL_STAGES * stage + 4 * _table(wpt, n_bits),
                 off_t=0, off_p=0, mt=0)
 
@@ -478,26 +515,102 @@ def grouped_geometry(experts: int, cap: int, I: int, N: int, n_pad: int,
     return runtime.Geometry.of(_GEOM_FIELDS, g)
 
 
+def _grouped_folded_decode_geometry(I: int):
+    """The grouped folded decode form's split of I and shared memory, or
+    None where no split's x slab fits.  The split: the widest of 4 and 2
+    that leaves each rank four slabs (else 1), or 8 where that one's x
+    slab would not let GROUPED_FOLDED_DECODE_BLOCKS blocks share an SM."""
+    bk, bn, rb = GROUPED_DECODE_BK, GROUPED_DECODE_BN, GROUPED_DECODE_RB
+    n_slabs = math.ceil(I / bk)
+    splits = [s for s in GROUPED_SPLITS + (1,) if s == 1 or n_slabs >= 4 * s]
+    prefer = next(s for s in splits if s <= GROUPED_FOLDED_DECODE_SPLIT)
+    # The threads' rings (two 4-column Wg pieces a row), later the row
+    # slices' sums [16][RB][BN]; the x slab [rps][RB]; the part [RB][BN]
+    # (offsets in floats).
+    off_p = GROUPED_FOLDED_DECODE_STAGES * THREADS * 32 // 4
+    for split in sorted(s for s in splits if s >= prefer):
+        rps = math.ceil(n_slabs / split) * bk
+        smem = 4 * (off_p + rps * rb + rb * bn)
+        if GROUPED_FOLDED_DECODE_BLOCKS * (smem + 1024) <= SM_SMEM:
+            return dict(form=FORM_GROUPED_FOLDED_DECODE, tile=bn, rps=rps,
+                        gy=split, smem=smem, off_p=off_p, mt=rb)
+    return None
+
+
+def _grouped_folded_prefill_geometry(experts, cap, I, N, xbf16, assignments,
+                                     sm_count):
+    """The grouped folded prefill form's split of I (the grouped prefill
+    form's) and shared memory: a ring of (Wg slab, raw x) stages."""
+    bk, rows = GROUPED_PREFILL_BK, 8 * GROUPED_PREFILL_NT
+    wld = GROUPED_FOLDED_PREFILL_WLDB if xbf16 else GROUPED_FOLDED_PREFILL_WLD
+    stage = bk * wld * 4 + rows * _grouped_x_row(xbf16)
+    return dict(form=FORM_GROUPED_FOLDED_PREFILL, tile=GROUPED_PREFILL_BN,
+                rps=0, gy=_grouped_prefill_split(experts, cap, I, N, xbf16,
+                                                 assignments, sm_count),
+                smem=GROUPED_FOLDED_PREFILL_STAGES * stage, off_p=0, mt=0)
+
+
 @functools.lru_cache(maxsize=None)
 def grouped_folded_geometry(experts: int, cap: int, I: int, N: int,
                             n_pad: int, xbf16: bool = False,
                             noise: bool = False,
-                            assignments: int | None = None
-                            ) -> runtime.Geometry:
-    """The grouped folded form's launch: ``experts`` folded deployments
+                            assignments: int | None = None,
+                            sm_count: int = 132,
+                            form: int | None = None) -> runtime.Geometry:
+    """The grouped folded forms' launch: ``experts`` folded deployments
     of one shape (rows of ``folded_ld(n_pad)`` floats), each computing at
-    most ``cap`` rows of x (``assignments`` rows, default unknown); ``noise``
-    whether the read draws noise.  Grid (ceil(N / 128), ceil(cap / 32),
-    slots), slots = min(experts, assignments): block z computes the z-th
-    expert that has a row, 32 of its rows by 128 columns, a slab of x (32
-    x 32) and of W_eff (32 x 128) in shared memory."""
+    most ``cap`` rows of x (``assignments`` rows, default unknown);
+    ``noise`` whether the read draws noise.  ``slots`` = min(experts,
+    assignments): block z computes the z-th expert that has a row.
+
+    * the decode form for cap <= GROUPED_FOLDED_DECODE_MAX_CAP: grid
+      (ceil(N / 128), gy, slots) in clusters of (1, gy, 1), slabs of 16
+      rows of I split gy ways (:func:`_grouped_folded_decode_geometry`),
+      passes of up to 4 rows;
+    * the prefill form above it: grid (ceil(N / 128), gy, slots) in
+      clusters of (1, gy, 1), a block all of an expert's rows (up to 128
+      a pass) over slabs of 32 rows of I, split only where the rows fill
+      too few experts to occupy the card's ``sm_count`` SMs;
+    * the general (first) form where the decode form's x slab does not
+      fit, and at cap <= GROUPED_FOLDED_DECODE_MAX_CAP for a noiseless
+      read whose slots x column tiles fill the blocks the card holds of
+      the decode form (there it measured faster: PERF.md, row 1h): grid
+      (ceil(N / 128), ceil(cap / 32), slots) of 32-row by 128-column
+      blocks, a slab of x (32 x 32) and of W_eff (32 x 128) in shared
+      memory.
+
+    ``form`` forces one of GROUPED_FOLDED_FORMS (tests and A/B timing);
+    a forced form that refuses the shape raises ``ValueError``.  The
+    threshold: see ``PERF.md`` row 1h."""
     slots = experts if assignments is None else min(experts, assignments)
-    g = dict(form=FORM_GROUPED_FOLDED, M=cap, I=I, N=N, n_pad=n_pad,
-             n_tiles=0, wpt=0, n_bits=0, cols=0, reversed=0, fast=0,
-             tile=GROUPED_BN, rps=0, gx=math.ceil(N / GROUPED_BN),
-             gy=math.ceil(cap / GROUPED_BM), gz=slots,
-             smem=4 * GROUPED_BK * (GROUPED_BM + GROUPED_BN), off_t=0,
-             off_p=0, mt=0, xbf16=int(xbf16), ld=folded_ld(n_pad),
+    forced = form is not None
+    if not forced:
+        items = slots * math.ceil(N / GROUPED_DECODE_BN)
+        form = (FORM_GROUPED_FOLDED_PREFILL
+                if cap > GROUPED_FOLDED_DECODE_MAX_CAP
+                else FORM_GROUPED_FOLDED_DECODE
+                if noise or items < GROUPED_FOLDED_DECODE_BLOCKS * sm_count
+                else FORM_GROUPED_FOLDED)
+    if form not in GROUPED_FOLDED_FORMS:
+        raise ValueError(f"form {form} is not a grouped folded form "
+                         f"{GROUPED_FOLDED_FORMS}")
+    g = None
+    if form == FORM_GROUPED_FOLDED_DECODE:
+        g = _grouped_folded_decode_geometry(I)
+        if g is None and forced:
+            raise ValueError(f"the grouped folded decode form's x slab does "
+                             f"not fit in shared memory at I = {I}")
+    elif form == FORM_GROUPED_FOLDED_PREFILL:
+        g = _grouped_folded_prefill_geometry(experts, cap, I, N, xbf16,
+                                             assignments, sm_count)
+    if g is None:
+        g = dict(form=FORM_GROUPED_FOLDED, tile=GROUPED_BN, rps=0,
+                 gy=math.ceil(cap / GROUPED_BM),
+                 smem=4 * GROUPED_BK * (GROUPED_BM + GROUPED_BN), off_p=0,
+                 mt=0)
+    g.update(M=cap, I=I, N=N, n_pad=n_pad, n_tiles=0, wpt=0, n_bits=0,
+             cols=0, reversed=0, fast=0, gx=math.ceil(N / g["tile"]),
+             gz=slots, off_t=0, xbf16=int(xbf16), ld=folded_ld(n_pad),
              noise=int(noise), rows=0, n_ti=0, cp_ti=0, cp_tn=0,
              experts=experts)
     return runtime.Geometry.of(_GEOM_FIELDS, g)
@@ -764,7 +877,8 @@ def cim_mvm_batched(x: torch.Tensor, dep: CimDeployment,
 
 def _launch_grouped_folded(x: torch.Tensor, dep: CimDeployment,
                            offsets: torch.Tensor, cap: int,
-                           read_seed: int | None) -> torch.Tensor:
+                           read_seed: int | None,
+                           form: int | None = None) -> torch.Tensor:
     wf, scale = dep.folded, dep.scale
     E, i_pad, n_pad = dep.codes.shape
     ld = folded_ld(n_pad)
@@ -787,7 +901,8 @@ def _launch_grouped_folded(x: torch.Tensor, dep: CimDeployment,
         return out
     geom = grouped_folded_geometry(E, cap, dep.in_dim, dep.out_dim, n_pad,
                                    x.dtype == torch.bfloat16, noise,
-                                   x.shape[0])
+                                   x.shape[0], _sm_count(x.device.index or 0),
+                                   form)
     rc = runtime.library().cim_mvm_grouped_folded_launch(
         x.data_ptr(), wf.data_ptr(), i_pad * ld, scale.data_ptr(),
         tags.data_ptr() if noise else None, offsets.data_ptr(),
@@ -802,9 +917,10 @@ def _launch_grouped_folded(x: torch.Tensor, dep: CimDeployment,
 
 def _launch_grouped(x: torch.Tensor, dep: CimDeployment,
                     offsets: torch.Tensor, cap: int,
-                    read_seed: int | None) -> torch.Tensor:
+                    read_seed: int | None,
+                    form: int | None = None) -> torch.Tensor:
     if dep.folded is not None:
-        return _launch_grouped_folded(x, dep, offsets, cap, read_seed)
+        return _launch_grouped_folded(x, dep, offsets, cap, read_seed, form)
     if needs_fold(dep):
         raise ValueError("the grouped cim_mvm form: a bank with a gain, a "
                          "col_pos or read noise is read folded; fold it "
@@ -844,7 +960,8 @@ def _launch_grouped(x: torch.Tensor, dep: CimDeployment,
 def cim_mvm_grouped(x: torch.Tensor, dep: CimDeployment,
                     offsets: torch.Tensor, cap: int | None = None,
                     read_seed: int | None = None,
-                    device: str | torch.device = "cuda") -> torch.Tensor:
+                    device: str | torch.device = "cuda",
+                    form: int | None = None) -> torch.Tensor:
     """Expert e's rows of y = those rows of x @ W_effective of expert e,
     in one launch: the counterpart of the reference's
     ``jax.vmap(cim_mvm)`` over the expert axis of an MoE bank
@@ -861,10 +978,12 @@ def cim_mvm_grouped(x: torch.Tensor, dep: CimDeployment,
     :func:`cim_mvm` (None: noiseless).  Returns (A, out_dim) f32, zero on
     every row no expert computes: on CUDA one of the grouped ideal forms
     (:func:`grouped_geometry` picks it from ``cap``) or, for a folded
-    bank, the grouped folded form (an unfolded bank with a gain, col_pos
-    or read noise raises ``ValueError``); on the CPU the plain version (a
-    loop of :func:`cim_mvm`'s over the experts).  The offsets never go to
-    the host: the launch is sized by ``cap`` and A, and an expert without
+    bank, one of the grouped folded forms (:func:`grouped_folded_geometry`
+    picks it from ``cap``; ``form`` forces one of GROUPED_FOLDED_FORMS, for
+    tests and A/B timing; an unfolded bank with a gain, col_pos or read
+    noise raises ``ValueError``); on the CPU the plain version (a loop of
+    :func:`cim_mvm`'s over the experts).  The offsets never go to the
+    host: the launch is sized by ``cap`` and A, and an expert without
     rows reads no weight.
     """
     dev = resolve_device(device)
@@ -882,10 +1001,14 @@ def cim_mvm_grouped(x: torch.Tensor, dep: CimDeployment,
     cap = x.shape[0] if cap is None else int(cap)
     if x.dtype not in (torch.float32, torch.bfloat16):
         x = x.to(torch.float32)
+    if form is not None and dep.folded is None:
+        raise ValueError("the grouped cim_mvm form: ``form`` picks one of the "
+                         "grouped folded forms, for a folded bank only")
     x = x.contiguous()
     if dev.type == "cpu":
         return cim_mvm_grouped_plain(x, dep, offsets, cap, read_seed)
-    return _launch_grouped(x, dep, offsets.contiguous(), cap, read_seed)
+    return _launch_grouped(x, dep, offsets.contiguous(), cap, read_seed,
+                           form)
 
 
 def cim_mvm(x: torch.Tensor, dep: CimDeployment, read_seed: int | None = None,

@@ -177,6 +177,8 @@ def _self_check(lib: ctypes.CDLL) -> None:
     z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt,
                                                      device=dev)
     from repro_torch.kernels.cim_mvm.ops import (
+        FORM_GROUPED_FOLDED,
+        GROUPED_FOLDED_FORMS,
         batched_geometry,
         cim_geometry,
         fold_geometry,
@@ -242,19 +244,27 @@ def _self_check(lib: ctypes.CDLL) -> None:
                 x.data_ptr(), codes2.data_ptr(), pos2.data_ptr(),
                 scale2.data_ptr(), offs.data_ptr(), out.data_ptr(), I * 8, I,
                 geom.array, 0.0, stream)
-    # The grouped folded form's four instances (noise, bf16 x) over the
-    # same two experts' folds, I = 8, cap 2.
-    wf3, sc3, tags3 = z(2, 8, 8), z(2), z(2, dt=torch.int32)
-    for noise in (False, True):
-        for bf16 in (False, True):
-            x = z(3, 8, dt=torch.bfloat16 if bf16 else torch.float32)
-            out = z(3, 8)
-            geom = grouped_folded_geometry(2, 2, 8, 8, 8, bf16, noise, 3)
-            rc[f"cim_mvm_grouped_folded noise={noise} bf16={bf16}"] = \
-                lib.cim_mvm_grouped_folded_launch(
-                    x.data_ptr(), wf3.data_ptr(), 64, sc3.data_ptr(),
-                    tags3.data_ptr(), offs.data_ptr(), out.data_ptr(),
-                    geom.array, 0, 0.1 if noise else 0.0, stream)
+    # The grouped folded forms (general, decode, prefill), each in its four
+    # instances (noise, bf16 x), over the same two experts' folds at I =
+    # 8, cap 2; the decode and prefill forms also at I = 128, split over a
+    # cluster of 2.
+    sc3, tags3 = z(2), z(2, dt=torch.int32)
+    for form in GROUPED_FOLDED_FORMS:
+        for I in ((8,) if form == FORM_GROUPED_FOLDED else (8, 128)):
+            wf3 = z(2, I, 8)
+            for noise in (False, True):
+                for bf16 in (False, True):
+                    x = z(3, I, dt=torch.bfloat16 if bf16 else torch.float32)
+                    out = z(3, 8)
+                    geom = grouped_folded_geometry(2, 2, I, 8, 8, bf16, noise,
+                                                   3, form=form)
+                    rc[f"cim_mvm_grouped_folded form={form} I={I} "
+                       f"noise={noise} bf16={bf16}"] = \
+                        lib.cim_mvm_grouped_folded_launch(
+                            x.data_ptr(), wf3.data_ptr(), I * 8,
+                            sc3.data_ptr(), tags3.data_ptr(), offs.data_ptr(),
+                            out.data_ptr(), geom.array, 0,
+                            0.1 if noise else 0.0, stream)
     # Both forms in f32 and in bf16, and the bf16 decode split over a
     # cluster of 2.
     for Sq, bf16, split in ((1, False, None), (17, False, None),

@@ -1133,23 +1133,30 @@ def _folded_bank(E, I, N, spec, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(1, 4), (16, 4), (32, 8), (128, 512),
-                                  (4, None)],
-                         ids=["cap1", "cap16", "cap32", "cap128", "ragged"])
+                                  (4, None), (300, "over128")],
+                         ids=["cap1", "cap16", "cap32", "cap128", "ragged",
+                              "over128"])
 @pytest.mark.parametrize("noise", [False, True], ids=["clean", "noisy"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("I,N,spec", [(2048, 1408, (64, 64, 8)),
                                       (200, 72, (16, 16, 8))],
                          ids=["qwen2-moe", "odd"])
+@pytest.mark.parametrize("form", ["general", "decode", "prefill"])
 def test_cim_mvm_grouped_folded_vs_plain(cuda, case, noise, dtype, I, N,
-                                         spec):
-    """The grouped folded form on expert banks folded from imperfect
-    devices (qwen2-moe's gate shape with E = 60, and an odd shape with E
-    = 6), routed as a decode step (4 or 8 tokens top-4) at capacity 1, 16
-    and 32, as a prefill (512 tokens, capacity 128), and ragged (experts
-    of 0..9 rows at capacity 4: empty experts and dropped rows); with and
-    without read noise, f32 and bf16 x, against the plain version:
-    max|kernel - plain| <= 1e-5 * max|plain|, rows no expert computes
-    exactly 0, two calls bit-identical."""
+                                         spec, form):
+    """Each grouped folded form (forced: the general form, the decode
+    form, the prefill form) on expert banks folded from imperfect devices
+    (qwen2-moe's gate shape with E = 60, and an odd shape with E = 6),
+    routed as a decode step (4 or 8 tokens top-4) at capacity 1, 16 and
+    32, as a prefill (512 tokens, capacity 128), ragged (experts of 0..9
+    rows at capacity 4: empty experts and dropped rows) and with experts
+    of 260 and 130 rows at capacity 300 (several passes of every form);
+    with and without read noise, f32 and bf16 x, against the plain
+    version: max|kernel - plain| <= 1e-5 * max|plain|, rows no expert
+    computes exactly 0, two calls bit-identical; the geometry's own
+    choice is the decode form up to capacity 32 (the general form for a
+    noiseless read whose slots x column tiles fill the card), the prefill
+    form above."""
     from repro_torch.kernels.cim_mvm import ops
     from repro_torch.kernels.cim_mvm.ref import cim_mvm_grouped_plain
 
@@ -1159,6 +1166,9 @@ def test_cim_mvm_grouped_folded_vs_plain(cuda, case, noise, dtype, I, N,
     rng = np.random.default_rng(cap)
     if T is None:
         counts = np.arange(E) % 10
+    elif T == "over128":
+        counts = np.zeros(E, np.int64)
+        counts[5], counts[min(9, E - 1)] = 260, 130
     else:
         probs = rng.random((T, E)) ** 3
         top = np.argsort(-probs, axis=1, kind="stable")[:, :4]
@@ -1169,10 +1179,20 @@ def test_cim_mvm_grouped_folded_vs_plain(cuda, case, noise, dtype, I, N,
     x = torch.randn((A, I), generator=torch.Generator(
         device=cuda).manual_seed(5), device=cuda).to(dtype)
     seed = 11 if noise else None
-    geom = ops.grouped_folded_geometry(E, cap, I, N, bank.codes.shape[2],
-                                       dtype == torch.bfloat16, noise, A)
-    assert geom.form == ops.FORM_GROUPED_FOLDED
-    y = ops.cim_mvm_grouped(x, bank, offsets, cap, seed, device=cuda)
+    forced = {"general": ops.FORM_GROUPED_FOLDED,
+              "decode": ops.FORM_GROUPED_FOLDED_DECODE,
+              "prefill": ops.FORM_GROUPED_FOLDED_PREFILL}[form]
+    geo = (E, cap, I, N, bank.codes.shape[2], dtype == torch.bfloat16, noise,
+           A)
+    items = min(E, A) * -(-N // 128)
+    assert ops.grouped_folded_geometry(*geo).form == (
+        ops.FORM_GROUPED_FOLDED_PREFILL if cap > 32
+        else ops.FORM_GROUPED_FOLDED_DECODE if noise or items < 3 * 132
+        else ops.FORM_GROUPED_FOLDED)
+    assert ops.grouped_folded_geometry(*geo, form=forced).form == forced
+    run = lambda s=seed: ops.cim_mvm_grouped(x, bank, offsets, cap, s,
+                                             device=cuda, form=forced)
+    y = run()
     want = cim_mvm_grouped_plain(x, bank, offsets, cap, seed)
     err = (y - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item(), err
@@ -1181,20 +1201,25 @@ def test_cim_mvm_grouped_folded_vs_plain(cuda, case, noise, dtype, I, N,
         a = int(offsets[e])
         done[a:min(int(offsets[e + 1]), a + cap)] = True
     assert (y[~done] == 0).all()
-    assert torch.equal(y, ops.cim_mvm_grouped(x, bank, offsets, cap, seed,
-                                              device=cuda))
+    assert torch.equal(y, run())
     if noise:       # the noise is there: the noiseless read differs
-        clean = ops.cim_mvm_grouped(x, bank, offsets, cap, device=cuda)
+        clean = run(None)
         assert (clean - y).abs().max().item() > 1e-3 * want.abs().max().item()
 
 
 @pytest.mark.cuda
 def test_cim_mvm_grouped_folded_counts_occupancy_and_refusal(cuda):
-    """One launch counted under its own name; the form's occupancy at
-    qwen2-moe's decode step; a bank with a gain, col_pos and read noise
-    but no fold raises on the card."""
+    """One launch counted under its own name, whichever form; each form's
+    occupancy at qwen2-moe's decode step (cap 16, 17 rows) and prefill
+    (cap 128, 2,049 rows) with bf16 x, with and without noise: the decode
+    form in its cluster of 4 at GROUPED_FOLDED_DECODE_BLOCKS blocks a SM,
+    the prefill form unsplit at two, the general form at one at least; a
+    bank with a gain, col_pos and read noise but no fold raises on the
+    card, as does a form forced on an unfolded bank."""
     from repro_torch.kernels import runtime
     from repro_torch.kernels.cim_mvm.ops import (
+        GROUPED_FOLDED_DECODE_BLOCKS,
+        GROUPED_FOLDED_FORMS,
         cim_mvm_grouped,
         grouped_folded_geometry,
         occupancy,
@@ -1204,18 +1229,33 @@ def test_cim_mvm_grouped_folded_counts_occupancy_and_refusal(cuda):
     offsets = torch.tensor([0, 2, 2, 5, 6, 6, 9], dtype=torch.int32,
                            device=cuda)
     x = torch.randn((10, 200), device=cuda)
-    runtime.reset_launch_counts()
-    cim_mvm_grouped(x, bank, offsets, 4, 3, device=cuda)
-    counts = runtime.launch_counts()
-    assert counts["cim_mvm_grouped_folded"] == 1
-    assert counts["cim_mvm_grouped"] == 0
+    for form in (None, *GROUPED_FOLDED_FORMS):
+        runtime.reset_launch_counts()
+        cim_mvm_grouped(x, bank, offsets, 4, 3, device=cuda, form=form)
+        counts = runtime.launch_counts()
+        assert counts["cim_mvm_grouped_folded"] == 1
+        assert counts["cim_mvm_grouped"] == 0
     for noise in (False, True):
-        occ = occupancy(grouped_folded_geometry(60, 16, 2048, 1408, 1408,
-                                                True, noise, 17))
-        assert occ["blocks_per_sm"] >= 1 and occ["clusters"] is None
+        for form in GROUPED_FOLDED_FORMS:
+            dec = grouped_folded_geometry(60, 16, 2048, 1408, 1408, True,
+                                          noise, 17, form=form)
+            pre = grouped_folded_geometry(60, 128, 2048, 1408, 1408, True,
+                                          noise, 2049, form=form)
+            od, op = occupancy(dec), occupancy(pre)
+            assert od["blocks_per_sm"] >= 1 and op["blocks_per_sm"] >= 1
+            if form == GROUPED_FOLDED_FORMS[1]:
+                assert dec.gy == 4 and od["clusters"] >= 1
+                assert od["blocks_per_sm"] >= GROUPED_FOLDED_DECODE_BLOCKS, od
+            if form == GROUPED_FOLDED_FORMS[2]:
+                assert pre.gy == 1 and op["blocks_per_sm"] >= 2, op
+            if form == GROUPED_FOLDED_FORMS[0]:
+                assert od["clusters"] is None
     with pytest.raises(ValueError, match="fold it first"):
         cim_mvm_grouped(x, dataclasses.replace(bank), offsets, 4, 3,
                         device=cuda)
+    with pytest.raises(ValueError, match="folded bank only"):
+        cim_mvm_grouped(x, _expert_bank(cuda, 6, 200, 72, (16, 16, 8), 1),
+                        offsets, 4, device=cuda, form=GROUPED_FOLDED_FORMS[1])
 
 
 @pytest.mark.cuda

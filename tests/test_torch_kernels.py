@@ -490,13 +490,22 @@ def test_geometry_constants_mirror_the_kernels():
                         ("GP_BK", cim_ops.GROUPED_PREFILL_BK),
                         ("GP_STAGES", cim_ops.GROUPED_PREFILL_STAGES),
                         ("GP_NT", cim_ops.GROUPED_PREFILL_NT),
-                        ("GP_KS", cim_ops.GROUPED_PREFILL_KS)):
+                        ("GP_KS", cim_ops.GROUPED_PREFILL_KS),
+                        ("GFD_STAGES", cim_ops.GROUPED_FOLDED_DECODE_STAGES),
+                        ("GFD_BLOCKS", cim_ops.GROUPED_FOLDED_DECODE_BLOCKS),
+                        ("GFP_STAGES",
+                         cim_ops.GROUPED_FOLDED_PREFILL_STAGES)):
         assert _cu_constant(cim_cu, name) == value, name
     # The grouped decode form's split and the prefill form's layout.
     text = cim_cu.read_text()
     assert max(cim_ops.GROUPED_SPLITS) <= _cu_constant(cim_cu, "CLUSTER")
-    for name, base, value in (("GP_CLD", "GP_BN", 8), ("GP_XLD", "GP_BK", 4),
-                              ("GP_XLDB", "GP_BK", 8)):
+    for name, base, value in (
+            ("GP_CLD", "GP_BN", 8), ("GP_XLD", "GP_BK", 4),
+            ("GP_XLDB", "GP_BK", 8),
+            ("GFP_WLD", "GP_BN", cim_ops.GROUPED_FOLDED_PREFILL_WLD
+             - cim_ops.GROUPED_PREFILL_BN),
+            ("GFP_WLDB", "GP_BN", cim_ops.GROUPED_FOLDED_PREFILL_WLDB
+             - cim_ops.GROUPED_PREFILL_BN)):
         assert re.search(rf"constexpr int {name} = {base} \+ (\d+);",
                          text).group(1) == str(value)
     for name, base, value in (
@@ -511,14 +520,19 @@ def test_geometry_constants_mirror_the_kernels():
                       r"FORM_DECODE_FOLDED = 2,\s*FORM_PREFILL_FOLDED = 3, "
                       r"FORM_FOLD = 4,\s*FORM_DECODE_BATCHED = 5, "
                       r"FORM_GROUPED = 6,\s*FORM_GROUPED_DECODE = 7, "
-                      r"FORM_GROUPED_PREFILL = 8,\s*FORM_GROUPED_FOLDED = 9;",
+                      r"FORM_GROUPED_PREFILL = 8,\s*FORM_GROUPED_FOLDED = 9, "
+                      r"FORM_GROUPED_FOLDED_DECODE = 10,\s*"
+                      r"FORM_GROUPED_FOLDED_PREFILL = 11;",
                       cim_cu.read_text())
     assert forms and (cim_ops.FORM_DECODE, cim_ops.FORM_PREFILL,
                       cim_ops.FORM_DECODE_FOLDED, cim_ops.FORM_PREFILL_FOLDED,
                       cim_ops.FORM_FOLD, cim_ops.FORM_DECODE_BATCHED,
                       cim_ops.FORM_GROUPED, cim_ops.FORM_GROUPED_DECODE,
                       cim_ops.FORM_GROUPED_PREFILL,
-                      cim_ops.FORM_GROUPED_FOLDED) == tuple(range(10))
+                      cim_ops.FORM_GROUPED_FOLDED,
+                      cim_ops.FORM_GROUPED_FOLDED_DECODE,
+                      cim_ops.FORM_GROUPED_FOLDED_PREFILL) == tuple(range(12))
+    assert cim_ops.GROUPED_FOLDED_FORMS == (9, 10, 11)
     fields = re.search(r"struct Geom \{\s*int ([^;]*);",
                        cim_cu.read_text()).group(1)
     assert tuple(f.strip() for f in fields.split(",")) == \
@@ -731,25 +745,35 @@ def _grouped_slots(offsets, cap, slots):
     return [live[z] if z < len(live) else None for z in range(slots)]
 
 
+_DECODE_FORMS = (cim_ops.FORM_GROUPED_DECODE,
+                 cim_ops.FORM_GROUPED_FOLDED_DECODE)
+
+
 def _grouped_writes(geom, offsets, A):
     """The times each grouped form's blocks write each y element (A, N),
     and for each (item, pass) the rows of I that each rank (the decode
-    form's cluster; one block elsewhere) sums, in rank order: the
-    kernels' index loops restated."""
+    forms' cluster, a split prefill form's; one block elsewhere) sums, in
+    rank order: the kernels' index loops restated (the folded forms' are
+    the ideal forms' over the fold; the folded general form's blocks take
+    expert slots)."""
     N, I = geom.N, geom.I
     hits = np.zeros((A, N), np.int32)
     spans = []
-    if geom.form == cim_ops.FORM_GROUPED:
+    if geom.form in (cim_ops.FORM_GROUPED, cim_ops.FORM_GROUPED_FOLDED):
         bm, bn = cim_ops.GROUPED_BM, geom.tile
-        for e in range(geom.gz):
-            a0 = offsets[e]
-            a1 = min(offsets[e + 1], a0 + geom.M)
+        items = ([(offsets[e], min(offsets[e + 1] - offsets[e], geom.M))
+                  for e in range(geom.gz)]
+                 if geom.form == cim_ops.FORM_GROUPED else
+                 [s[1:] for s in _grouped_slots(offsets, geom.M, geom.gz)
+                  if s is not None])
+        for a0, rows in items:
             for by in range(geom.gy):
                 r0 = a0 + by * bm
-                if r0 >= a1:
+                if r0 >= a0 + rows:
                     continue
                 for bx in range(geom.gx):
-                    hits[r0:min(r0 + bm, a1), bx * bn:(bx + 1) * bn] += 1
+                    hits[r0:min(r0 + bm, a0 + rows),
+                         bx * bn:(bx + 1) * bn] += 1
                     spans.append([list(range(I))])
         return hits, spans
     slots = _grouped_slots(offsets, geom.M, geom.gz)
@@ -760,7 +784,7 @@ def _grouped_writes(geom, offsets, A):
         _, a0, rows = item
         for bx in range(geom.gx):
             nb = bx * geom.tile
-            if geom.form == cim_ops.FORM_GROUPED_DECODE:
+            if geom.form in _DECODE_FORMS:
                 bk, rb, S = cim_ops.GROUPED_DECODE_BK, geom.mt, geom.gy
                 n = -(-I // bk)
                 ranks = []
@@ -917,6 +941,218 @@ def test_cim_grouped_form_by_capacity():
     # expert at the capacity (A = 129) 8 ways, qwen2-moe's prefill (2,048
     # rows, at least 16 experts' 11 column tiles) not at all.
     assert [g(128, A).gy for A in (129, 257, 513, 2049)] == [8, 8, 4, 1]
+    assert g(128, 129, I=64).gy == 1
+
+
+def _folded_geometry(E, I, N, cap, routing, xbf16, form):
+    """A grouped folded launch at the routing of the grouped tests:
+    (geometry, offsets, rows an expert, A)."""
+    counts = _grouped_counts(routing, E, cap,
+                             np.random.default_rng(len(routing) + cap))
+    offsets = np.concatenate([[0], np.cumsum(counts)]).tolist()
+    A = offsets[-1] + 1
+    return (cim_ops.grouped_folded_geometry(E, cap, I, N, N, xbf16, True, A,
+                                            form=form),
+            offsets, counts, A)
+
+
+_FOLDED_CASES = [
+    (60, 2048, 1408, 16, "decode"), (60, 1408, 2048, 16, "decode"),
+    (60, 2048, 1408, 32, "at cap"), (60, 2048, 1408, 128, "prefill"),
+    (60, 1408, 2048, 128, "at cap"), (60, 2048, 1408, 128, "one expert"),
+    (12, 200, 72, 9, "straddle"), (12, 200, 72, 300, "dropped"),
+    (6, 200, 30, 16, "decode")]
+
+
+@pytest.mark.parametrize("E,I,N,cap,routing", _FOLDED_CASES)
+@pytest.mark.parametrize("form", [None, cim_ops.FORM_GROUPED_FOLDED,
+                                  cim_ops.FORM_GROUPED_FOLDED_DECODE,
+                                  cim_ops.FORM_GROUPED_FOLDED_PREFILL],
+                         ids=["auto", "general", "decode", "prefill"])
+@pytest.mark.parametrize("xbf16", [False, True])
+def test_cim_grouped_folded_geometry_covers_each_output_once(
+        E, I, N, cap, routing, form, xbf16):
+    """Each grouped folded form (its own choice, or forced) writes every
+    (expert, row below the capacity, column) of y exactly once and no
+    other element; each (item, pass) sums every row of I exactly once,
+    over the ranks of a split in rank order, each rank with a slab; the
+    split is a cluster of at most 8 blocks; rows of ld = n_pad rounded up
+    to 8 floats; min(E, A) expert slots."""
+    geom, offsets, counts, A = _folded_geometry(E, I, N, cap, routing, xbf16,
+                                                form)
+    want = form if form is not None else (
+        cim_ops.FORM_GROUPED_FOLDED_DECODE
+        if cap <= cim_ops.GROUPED_FOLDED_DECODE_MAX_CAP
+        else cim_ops.FORM_GROUPED_FOLDED_PREFILL)
+    assert geom.form == want and geom.experts == E and geom.M == cap
+    assert geom.gz == min(E, A) and geom.ld == cim_ops.folded_ld(N)
+    assert geom.smem <= cim_ops.SMEM_MAX and len(geom.array) == 28
+    if geom.form != cim_ops.FORM_GROUPED_FOLDED:
+        assert geom.gy in (1, 2, 4, 8)
+    hits, spans = _grouped_writes(geom, offsets, A)
+    done = np.zeros((A, N), bool)
+    for e in range(E):
+        done[offsets[e]:offsets[e] + min(counts[e], cap)] = True
+    assert (hits[done] == 1).all() and (hits[~done] == 0).all()
+    assert spans and all(all(len(r) > 0 for r in ranks) and
+                         [i for r in ranks for i in r] == list(range(I))
+                         for ranks in spans)
+
+
+def _folded_draws(geom, offsets):
+    """The read-noise counters (expert, row of I, column // 4) that one
+    call of a grouped folded form draws, with their counts: the decode
+    form's Philox call for each of a thread's two 4-column pieces of a row
+    (columns from 4 (t % 16) and 64 + 4 (t % 16) of the item, those past
+    ld not drawn), once a pass; the prefill form's one call for each four
+    columns of each slab row of I, once a pass; kernel.cu's loops
+    restated."""
+    E, I, S = geom.experts, geom.I, geom.gy
+    W = -(-geom.ld // 4)
+    draws = np.zeros((E, I * W), np.int64)
+    tid = np.arange(cim_ops.THREADS)
+    for item in _grouped_slots(offsets, geom.M, geom.gz):
+        if item is None:
+            continue
+        e, _, rows = item
+        rs, cs = [], []
+        for bx in range(geom.gx):
+            nb = bx * geom.tile
+            decode = geom.form == cim_ops.FORM_GROUPED_FOLDED_DECODE
+            bk = (cim_ops.GROUPED_DECODE_BK if decode
+                  else cim_ops.GROUPED_PREFILL_BK)
+            per = geom.mt if decode else 8 * cim_ops.GROUPED_PREFILL_NT
+            n = -(-I // bk)
+            for _ in range(0, rows, per):
+                for r in range(S):
+                    if decode:        # thread t: rows t // 16 + 16 j
+                        k_lo = n * r // S * bk
+                        k_hi = min(n * (r + 1) // S * bk, I)
+                        j, t, h = np.meshgrid(
+                            np.arange(-(-(k_hi - k_lo) // 16)), tid,
+                            np.arange(2), indexing="ij")
+                        i = k_lo + t // 16 + 16 * j
+                        col = nb + 4 * (t % 16) + 64 * h
+                        ok = (i < k_hi) & (col < geom.ld)
+                    else:             # thread t: rows t // 32 + 8 it
+                        kt, it, t = np.meshgrid(
+                            np.arange(n * r // S, n * (r + 1) // S),
+                            np.arange(4), tid, indexing="ij")
+                        i = kt * bk + t // 32 + 8 * it
+                        col = nb + 4 * (t % 32)
+                        ok = (col < geom.ld) & (i < I)
+                    rs.append(i[ok])
+                    cs.append(col[ok] >> 2)
+        draws[e] = np.bincount(np.concatenate(rs) * W + np.concatenate(cs),
+                               minlength=I * W)
+    return draws.reshape(E, I, W)
+
+
+@pytest.mark.parametrize("E,I,N,cap,routing", [
+    (60, 2048, 1408, 128, "prefill"), (60, 1408, 2048, 128, "at cap"),
+    (60, 2048, 1408, 128, "one expert"), (12, 200, 72, 300, "dropped"),
+    (60, 2048, 1408, 16, "decode"), (12, 200, 72, 9, "straddle")])
+def test_cim_grouped_folded_noise_drawn_once(E, I, N, cap, routing):
+    """Each weight's read noise is drawn once a pass of the form its
+    geometry takes: at qwen2-moe's capacity 128 (the prefill form, every
+    expert's rows in one pass) each (hit expert, row of I, group of four
+    columns of the fold) counter exactly once a call, and none of an
+    expert without rows; at decode (up to 4 rows a pass) once for each
+    pass of the expert's rows, as at a capacity of 300 on the prefill
+    form (128 rows a pass)."""
+    geom, offsets, counts, A = _folded_geometry(E, I, N, cap, routing, True,
+                                                None)
+    draws = _folded_draws(geom, offsets)
+    per = (geom.mt if geom.form == cim_ops.FORM_GROUPED_FOLDED_DECODE
+           else 8 * cim_ops.GROUPED_PREFILL_NT)
+    for e in range(E):
+        passes = -(-min(counts[e], cap) // per)
+        assert (draws[e] == passes).all(), (e, passes)
+    if cap == 128:
+        assert geom.form == cim_ops.FORM_GROUPED_FOLDED_PREFILL
+        assert draws.max() == 1
+
+
+@pytest.mark.parametrize("I,N", [(2048, 1408), (1408, 2048), (200, 72),
+                                 (5632, 2048)])
+@pytest.mark.parametrize("xbf16", [False, True])
+def test_cim_grouped_folded_shared_memory_fits(I, N, xbf16):
+    """Each new grouped folded form's shared memory fits the blocks a SM
+    it is built for (228 KB an SM less 1 KB a block): the decode form
+    GROUPED_FOLDED_DECODE_BLOCKS, the prefill form two with bf16 x and
+    one with f32 x; the decode form's rings (32 bytes a thread a stage)
+    hold the row slices' sums and end where the x slab starts; the
+    prefill form's ring holds a split's sums, [64][256] floats, and its
+    stages keep 16-byte rows."""
+    dec = cim_ops.grouped_folded_geometry(60, 16, I, N, N, xbf16, True, 17)
+    assert dec.form == cim_ops.FORM_GROUPED_FOLDED_DECODE
+    assert cim_ops.GROUPED_FOLDED_DECODE_BLOCKS * (dec.smem + 1024) \
+        <= 228 * 1024
+    ring = cim_ops.GROUPED_FOLDED_DECODE_STAGES * cim_ops.THREADS * 32
+    slices = cim_ops.THREADS // (dec.tile // 8)
+    assert 4 * dec.off_p == ring >= slices * dec.mt * dec.tile * 4
+    assert dec.smem == 4 * (dec.off_p + dec.rps * dec.mt + dec.mt * dec.tile)
+    pre = cim_ops.grouped_folded_geometry(60, 128, I, N, N, xbf16, True,
+                                          2049)
+    assert pre.form == cim_ops.FORM_GROUPED_FOLDED_PREFILL
+    assert (2 if xbf16 else 1) * (pre.smem + 1024) <= 228 * 1024
+    assert pre.smem >= 4 * cim_ops.GROUPED_PREFILL_NT * cim_ops.THREADS * 4
+    stage = pre.smem // cim_ops.GROUPED_FOLDED_PREFILL_STAGES
+    wld = (cim_ops.GROUPED_FOLDED_PREFILL_WLDB if xbf16
+           else cim_ops.GROUPED_FOLDED_PREFILL_WLD)
+    assert stage % 16 == 0 and (wld * 4) % 16 == 0
+    # The k rows a lane reads in a k step (bf16: 2tq, 2tq + 1; f32: tq,
+    # tq + 4) start on banks 8 tq apart, so a half-warp's float2 reads
+    # of 8 columns each meet no bank twice.
+    rows = [(2 * tq, 2 * tq + 1) if xbf16 else (tq, tq + 4)
+            for tq in range(4)]
+    for h in (0, 1):
+        banks = [(rows[tq][h] * wld + 2 * gq + u) % 32
+                 for tq in range(4) for gq in range(4) for u in (0, 1)]
+        assert len(set(banks)) == 32
+
+
+def test_cim_grouped_folded_form_by_capacity():
+    """The grouped folded forms' choice: the decode form up to a capacity
+    of GROUPED_FOLDED_DECODE_MAX_CAP (qwen2-moe's decode step, cap 16, and
+    ContinuousEngine(capacity=8) x top-4, cap 32), the tensor-core
+    prefill form above (qwen2-moe's prefill, cap 128); the general form
+    where the decode form's x slab does not fit (a very long I), for a
+    noiseless read at cap <= 32 whose slots x column tiles fill the
+    decode form's blocks on the card (the cap-32 down product: 33 x 16 >=
+    3 x 132), and wherever it is forced; a forced decode form that does
+    not fit raises, as does a form that is not a grouped folded form.
+    The decode form's I split 4 ways at qwen2-moe's 2048 and 1408, less
+    for a short I (four slabs of 16 rows a rank), 8 ways where a split
+    of 4 would leave an x slab too long for three blocks a SM; the
+    prefill form's only where the rows fill few experts; min(E, A)
+    expert slots."""
+    g = lambda cap, A=None, I=2048, bf=True, form=None: \
+        cim_ops.grouped_folded_geometry(60, cap, I, 1408, 1408, bf, True, A,
+                                        form=form)
+    assert cim_ops.GROUPED_FOLDED_DECODE_MAX_CAP == 32
+    assert [g(c).form for c in (1, 16, 32, 33, 128, 512)] == [
+        cim_ops.FORM_GROUPED_FOLDED_DECODE] * 3 + [
+        cim_ops.FORM_GROUPED_FOLDED_PREFILL] * 3
+    assert g(16, I=100_000).form == cim_ops.FORM_GROUPED_FOLDED
+    assert g(16, I=100_000).gy == 1
+    for f in cim_ops.GROUPED_FOLDED_FORMS:
+        assert g(16, form=f).form == g(128, form=f).form == f
+    with pytest.raises(ValueError, match="does not fit"):
+        g(16, I=100_000, form=cim_ops.FORM_GROUPED_FOLDED_DECODE)
+    with pytest.raises(ValueError, match="not a grouped folded form"):
+        g(16, form=cim_ops.FORM_GROUPED_DECODE)
+    assert [g(16, I=I).gy for I in (2048, 1408, 256, 128, 64, 32, 12000)
+            ] == [4, 4, 4, 2, 1, 1, 8]
+    down = lambda noise, A: cim_ops.grouped_folded_geometry(
+        60, 32, 1408, 2048, 2048, True, noise, A).form
+    assert (down(False, 33), down(True, 33), down(False, 17)) == (
+        cim_ops.FORM_GROUPED_FOLDED, cim_ops.FORM_GROUPED_FOLDED_DECODE,
+        cim_ops.FORM_GROUPED_FOLDED_DECODE)
+    assert (g(16, 17).gz, g(128, 2049).gz, g(32).gz) == (17, 60, 60)
+    assert g(16, 17).gx == g(128).gx == 11
+    assert [g(128, A).gy for A in (129, 257, 513, 2049)] == [8, 8, 4, 1]
+    assert [g(128, A, bf=False).gy for A in (129, 257, 2049)] == [8, 4, 1]
     assert g(128, 129, I=64).gy == 1
 
 

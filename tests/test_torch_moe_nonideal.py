@@ -416,19 +416,45 @@ def test_grouped_read_noise_statistics_match_model_and_reference():
     (60, 16, 2048, 1408, 1408, 17), (60, 128, 1408, 2048, 2048, 2049),
     (6, 4, 200, 72, 72, 46), (8, 1, 64, 30, 32, 3)])
 def test_grouped_folded_geometry(E, cap, I, N, n_pad, A):
-    """The grouped folded form's launch, pure Python: grid (ceil(N /
-    128), ceil(cap / 32), min(E, A)) of 32-row by 128-column blocks,
-    rows of ld = n_pad rounded up to 8 floats, a 32 x 32 slab of x and a
-    32 x 128 slab of W_eff in shared memory."""
+    """The grouped folded forms' launches, pure Python, each form at
+    each case (its own choice: the decode form up to cap 32, the prefill
+    form above): grid (ceil(N / 128), gy, min(E, A)) with rows of ld =
+    n_pad rounded up to 8 floats; the decode form's gy the cluster that
+    splits I's 16-row slabs 4 or 2 ways (four a rank at least), its shared
+    memory (the threads' rings, the rank's x slab, the part); the prefill
+    form's gy a split only where the rows fill few experts, and its ring
+    of (Wg slab, raw x) stages; the general form's gy = ceil(cap / 32)
+    row tiles and its 32 x 32 x slab and 32 x 128 W_eff slab."""
+    auto = (ops.FORM_GROUPED_FOLDED_DECODE if cap <= 32
+            else ops.FORM_GROUPED_FOLDED_PREFILL)
+    n_slabs = -(-I // 16)
+    split = next((s for s in (4, 2) if n_slabs >= 4 * s), 1)
     for bf16 in (False, True):
         for noise in (False, True):
-            g = ops.grouped_folded_geometry(E, cap, I, N, n_pad, bf16,
-                                            noise, A)
-            assert g.form == ops.FORM_GROUPED_FOLDED
-            assert (g.gx, g.gy, g.gz) == (-(-N // 128), -(-cap // 32),
-                                          min(E, A))
-            assert g.ld == -(-n_pad // 8) * 8 == ops.folded_ld(n_pad)
-            assert (g.M, g.I, g.N, g.experts) == (cap, I, N, E)
-            assert (g.xbf16, g.noise) == (int(bf16), int(noise))
-            assert g.smem == 4 * 32 * (32 + 128)
-            assert len(g.array) == 28
+            assert ops.grouped_folded_geometry(
+                E, cap, I, N, n_pad, bf16, noise, A).form == auto
+            for form in ops.GROUPED_FOLDED_FORMS:
+                g = ops.grouped_folded_geometry(E, cap, I, N, n_pad, bf16,
+                                                noise, A, form=form)
+                assert g.form == form
+                assert (g.gx, g.gz) == (-(-N // 128), min(E, A))
+                assert g.ld == -(-n_pad // 8) * 8 == ops.folded_ld(n_pad)
+                assert (g.M, g.I, g.N, g.experts) == (cap, I, N, E)
+                assert (g.xbf16, g.noise) == (int(bf16), int(noise))
+                assert len(g.array) == 28
+                if form == ops.FORM_GROUPED_FOLDED:
+                    assert g.gy == -(-cap // 32)
+                    assert g.smem == 4 * 32 * (32 + 128)
+                elif form == ops.FORM_GROUPED_FOLDED_DECODE:
+                    rps = -(-n_slabs // split) * 16
+                    assert (g.gy, g.rps, g.mt) == (split, rps, 4)
+                    assert g.off_p == 4 * 256 * 32 // 4
+                    assert g.smem == 4 * (g.off_p + rps * 4 + 4 * 128)
+                else:
+                    fill = min(E, -(-(A - 1) // cap))
+                    slots = (2 if bf16 else 1) * 132
+                    assert g.gy == next(
+                        (s for s in (8, 4, 2) if fill * g.gx * s <= slots
+                         and -(-I // 32) >= 2 * s), 1)
+                    wld, x_row = (132, 80) if bf16 else (136, 144)
+                    assert g.smem == 4 * (32 * wld * 4 + 128 * x_row)
