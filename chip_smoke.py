@@ -8,7 +8,8 @@ checkout and holds each against its plain PyTorch version at the shapes
 of the paths below: the five counterparts of the TPU kernels, cim_mvm's
 folded forms (gain, column permutation, in-kernel read noise, bf16 x)
 and the bf16 forms of flash_attention (its decode form also over a
-LONG_C-slot cache, split across a cluster) and slstm_scan included, and
+LONG_C-slot cache, split across a cluster) and slstm_scan's bf16 forms
+(its scan and decode forms beside the general form) included, and
 the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives seven paths
 through the entry points a user calls, each with the launch counts set
 to 0 just before it and read just after (a check's own launches inside
@@ -54,8 +55,8 @@ a path left out):
    solve; manhattan_score);
 7. xlstm-1.3b serving at its config dtype (bf16): random full-width
    weights (seed 0, all 48 layers), deploy (the reference deploys the
-   mLSTM q/k/v) and greedy generation (slstm_scan in bf16,
-   manhattan_score).
+   mLSTM q/k/v) and greedy generation (slstm_scan's scan form at the
+   prefill and its decode form at each decode step, manhattan_score).
 
 For each serving path it checks plans built on the card against the
 port's CPU mirror, the kernel path's logits and tokens against the
@@ -178,7 +179,8 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                                   "manhattan_score"),
                 "phi3-health": ("cim_mvm", "cim_fold", "cim_mvm_batched",
                                 "flash_attention", "manhattan_score"),
-                "xlstm": ("slstm_scan", "manhattan_score"),
+                "xlstm": ("slstm_scan_tc", "slstm_scan_decode",
+                          "manhattan_score"),
                 "phi3-circuit": ("line_solve", "manhattan_score"),
                 "qwen2-moe": ("cim_mvm", "cim_mvm_grouped",
                               "flash_attention", "manhattan_score"),
@@ -196,7 +198,9 @@ RECORD_PATHS = {
     "flash_attention[bf16]": ("phi3-nonideal", "phi3-health"),
     "cim_fold": ("phi3-nonideal", "phi3-health", "qwen2-moe-nonideal"),
     "cim_mvm_batched": ("phi3-health",),
-    "slstm_scan[bf16]": ("xlstm",),
+    "slstm_scan[bf16]": (),           # the xlstm path now takes the two
+    "slstm_scan_tc[bf16]": ("xlstm",),    # forms below
+    "slstm_scan_decode[bf16]": ("xlstm",),
     "line_solve": ("phi3-circuit",),
     "cim_mvm_grouped": ("qwen2-moe",),
     "flash_attention[bf16,Dh=128]": ("qwen2-moe", "qwen2-moe-nonideal"),
@@ -957,7 +961,7 @@ def phase_kernels(built: dict) -> list[dict]:
     records.append(_check_cim_fold(built))
     records += _check_cim_nonideal(g, built)
     records.append(_check_flash(g, torch.bfloat16, built))
-    records.append(_check_slstm_scan(g, torch.bfloat16))
+    records += _check_slstm_forms(g, built)
     return records
 
 
@@ -1049,11 +1053,11 @@ def phase_layer_deploy(eng):
           f"in {n} launches ({100 * score_us / busy_us:.1f}% of busy)")
 
 
-def _check_slstm_scan(g, dtype=torch.float32) -> dict:
-    """slstm_scan at xlstm-1.3b shapes: B lanes, H = 4, Dh = 512, the
-    prefill (T = PROMPT) and a decode step (T = 1); gx and R in
-    ``dtype``, the state f32 (the serving form: the outputs are f32, so
-    the f32 tolerance holds)."""
+def _check_slstm_scan(g) -> dict:
+    """slstm_scan with f32 gx, R and state at xlstm-1.3b shapes: B lanes,
+    H = 4, Dh = 512, the prefill (T = PROMPT) and a decode step (T = 1).
+    With f32 R every call takes the general form (row 5a);
+    :func:`_check_slstm_forms` checks bf16 R."""
     from repro_torch.kernels.slstm_scan.ops import (
         CLUSTER,
         max_active_clusters,
@@ -1063,10 +1067,8 @@ def _check_slstm_scan(g, dtype=torch.float32) -> dict:
     from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
 
     H, Dh = 4, 512
-    bf = dtype == torch.bfloat16
-    r = (torch.randn((H, Dh, 4 * Dh), generator=g, device="cuda")
-         * 0.02).to(dtype)
-    geom = slstm_geometry(B, Dh, bf)
+    r = torch.randn((H, Dh, 4 * Dh), generator=g, device="cuda") * 0.02
+    geom = slstm_geometry(B, Dh)
     print(f"slstm_scan launch (B={B}, Dh={Dh}): {H * geom.groups} clusters "
           f"of {CLUSTER} blocks, {geom.smem} bytes of shared memory a "
           f"block, R rows a slice: {geom.reg_rows} in registers, "
@@ -1075,8 +1077,7 @@ def _check_slstm_scan(g, dtype=torch.float32) -> dict:
           f"cudaOccupancyMaxActiveClusters {max_active_clusters(B, Dh)}")
     regimes = {}
     for name, T in (("prefill", PROMPT), ("decode", 1)):
-        gx = (torch.randn((B, T, H, 4 * Dh), generator=g, device="cuda")
-              * 0.5).to(dtype)
+        gx = torch.randn((B, T, H, 4 * Dh), generator=g, device="cuda") * 0.5
         h0 = torch.randn((B, H, Dh), generator=g, device="cuda") * 0.1
         c0 = torch.randn((B, H, Dh), generator=g, device="cuda") * 0.1
         got = slstm_scan(gx, r, h0, c0)
@@ -1087,12 +1088,11 @@ def _check_slstm_scan(g, dtype=torch.float32) -> dict:
                  for a, b in zip(got, want))
         ms = device_ms(lambda: slstm_scan(gx, r, h0, c0))
         plain_ms = cuda_ms(lambda: slstm_scan_plain(gx, r, h0, c0), iters=3)
-        n_bytes = ((2 if bf else 4) * (gx.numel() + r.numel())
-                   + 4 * (4 * h0.numel() + B * T * H * Dh))
+        n_bytes = 4 * (gx.numel() + r.numel() + 4 * h0.numel()
+                       + B * T * H * Dh)
         # h @ R per step (2 Dh ops a gate column), ~20 for the gates.
         b_ms, b_by = bound(n_bytes, B * T * H * (2.0 * Dh * 4 * Dh + 20 * Dh))
-        print(f"slstm_scan{'[bf16]' if bf else ''} {name} B={B} T={T} "
-              f"H={H} Dh={Dh}: max_abs_err "
+        print(f"slstm_scan {name} B={B} T={T} H={H} Dh={Dh}: max_abs_err "
               f"{err:.3e} (tol {SLSTM_TOL:g}(1+|ref|)) "
               f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -1106,11 +1106,142 @@ def _check_slstm_scan(g, dtype=torch.float32) -> dict:
           f"T=1), {1e3 * regimes['decode']['ms'] - step_us:.3f} us a launch "
           f"besides (R loaded on chip, state in and out)")
     rep = {k: v for k, v in regimes["prefill"].items() if k != "T"}
-    return dict(name="slstm_scan[bf16]" if bf else "slstm_scan",
-                route="cuda",
+    return dict(name="slstm_scan", route="cuda",
                 source="src/repro_torch/kernels/slstm_scan/kernel.cu",
                 replaces="src/repro/kernels/slstm_scan/kernel.py:66", **rep,
                 step_us=step_us, regimes=regimes)
+
+
+def _slstm_bounds(B: int, T: int, H: int, Dh: int) -> dict:
+    """The least time of slstm_scan's work at (B, T, H, Dh), bf16 gx and
+    R, f32 state: the bytes (each input once, each output once), h @ R
+    and the gates (~20 a dim) on the f32 pipe, and h @ R on the bf16
+    tensor cores as the scan form computes it (3 products a product: h
+    in three bf16 pieces)."""
+    n_bytes = 2 * (B * T * H * 4 * Dh + H * Dh * 4 * Dh) \
+        + 4 * (4 * B * H * Dh + B * T * H * Dh)
+    prod = 2.0 * B * T * H * Dh * 4 * Dh
+    return dict(bytes=n_bytes / PEAK_BYTES * 1e3,
+                f32=(prod + 20.0 * B * T * H * Dh) / PEAK_F32 * 1e3,
+                bf16=3 * prod / PEAK_BF16 * 1e3)
+
+
+def _slstm_built(built: dict, prefix: str, also: str = "") -> dict:
+    """The build's record (registers, spills, SASS, tensor-core counts) of
+    the kernel whose name starts with ``prefix`` (and holds ``also``)."""
+    for name, rec in built.items():
+        if name.startswith(prefix) and also in name:
+            return dict(kernel=name, **rec)
+    return {}
+
+
+def _check_slstm_forms(g, built: dict) -> list[dict]:
+    """slstm_scan with bf16 gx and R and an f32 state at xlstm-1.3b's
+    shape (B lanes, H = 4, Dh = 512), each form forced on the same
+    inputs: the scan form (tensor cores, R in registers) at T = PROMPT,
+    64 and 1, the decode form at T = 1, and the general form (the
+    first bf16 form) at the same T; each against the plain version at
+    SLSTM_TOL, timed warm and cold (rotating over copies of R larger than
+    L2 together), with its registers, spills and HMMA count, its
+    clusters on the card, and the bounds (bytes, f32 pipe, 3-piece bf16
+    tensor).  The scan form's step is the slope of T = PROMPT over T =
+    64.  Returns the records of the two new forms and of the general
+    form (its launches: none on the xlstm path now)."""
+    from repro_torch.kernels.slstm_scan import ops as scan_ops
+    from repro_torch.kernels.slstm_scan.ops import slstm_scan
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
+
+    H, Dh = 4, 512
+    r = (torch.randn((H, Dh, 4 * Dh), generator=g, device="cuda")
+         * 0.02).to(torch.bfloat16)
+    n_r = max(2, -(-COLD_BYTES // (r.numel() * 2)))
+    rs = [r] + [r.clone() for _ in range(n_r - 1)]
+    h0 = torch.randn((B, H, Dh), generator=g, device="cuda") * 0.1
+    c0 = torch.randn((B, H, Dh), generator=g, device="cuda") * 0.1
+    res: dict = {}
+    for T in (PROMPT, 64, 1):
+        gx = (torch.randn((B, T, H, 4 * Dh), generator=g, device="cuda")
+              * 0.5).to(torch.bfloat16)
+        want = slstm_scan_plain(gx, r, h0, c0)
+        plain_ms = (cuda_ms(lambda: slstm_scan_plain(gx, r, h0, c0), iters=3)
+                    if T != 64 else None)
+        forms = (("scan", "general") if T > 1
+                 else ("decode", "scan", "general"))
+        for form in forms:
+            got = slstm_scan(gx, r, h0, c0, form=form)
+            torch.cuda.synchronize()
+            err = max((a - w).abs().max().item() for a, w in zip(got, want))
+            ok = all(((a - w).abs() <= SLSTM_TOL * (1 + w.abs())).all().item()
+                     for a, w in zip(got, want))
+            again = slstm_scan(gx, r, h0, c0, form=form)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            warm = device_ms(lambda: slstm_scan(gx, r, h0, c0, form=form))
+            cold = device_ms(lambda a: slstm_scan(gx, a, h0, c0, form=form),
+                             args=rs)
+            res[form, T] = dict(T=T, max_abs_err=err, ms=warm, cold_ms=cold,
+                                plain_ms=plain_ms, same=same)
+            print(f"slstm_scan[bf16] {form} form B={B} T={T} H={H} Dh={Dh}: "
+                  f"max_abs_err {err:.3e} (tol {SLSTM_TOL:g}(1+|ref|)) "
+                  f"{'ok' if ok else 'FAIL'}, bit-identical across calls "
+                  f"{same}; {warm:.4f} ms warm, {cold:.4f} ms cold"
+                  + (f", plain {plain_ms:.4f} ms" if plain_ms else ""))
+            if not (ok and same):
+                raise AssertionError(f"slstm_scan's {form} form disagrees "
+                                     f"at T={T}")
+    records = []
+    for form, T, record in (("scan", PROMPT, "slstm_scan_tc[bf16]"),
+                            ("decode", 1, "slstm_scan_decode[bf16]"),
+                            ("general", PROMPT, "slstm_scan[bf16]")):
+        rec = res[form, T]
+        bounds = _slstm_bounds(B, T, H, Dh)
+        if form == "scan":
+            b_ms = max(bounds["bytes"], bounds["bf16"])
+            b_by = "bytes" if bounds["bytes"] >= bounds["bf16"] else \
+                "operations"
+        else:
+            b_ms = max(bounds["bytes"], bounds["f32"])
+            b_by = "bytes" if bounds["bytes"] >= bounds["f32"] else \
+                "operations"
+        geom = scan_ops.geometry(form, B, Dh, True)
+        info = _slstm_built(built, {"scan": "slstm_tc_kernel",
+                                    "decode": "slstm_decode_kernel",
+                                    "general": "slstm_kernel"}[form],
+                            "bfloat16" if form == "general" else "")
+        occ = scan_ops.max_active_clusters(B, Dh, True, form)
+        others = {f"{f}@T={t}": dict(ms=v["ms"], cold_ms=v["cold_ms"],
+                                     max_abs_err=v["max_abs_err"])
+                  for (f, t), v in res.items() if (f, t) != (form, T)}
+        print(f"  {record} ({form} form at T={T}): {rec['ms']:.4f} ms warm, "
+              f"{rec['cold_ms']:.4f} cold; bound {b_ms:.4f} ms ({b_by}; "
+              f"bytes {bounds['bytes']:.4f}, f32 {bounds['f32']:.4f}, bf16 "
+              f"tensor (3 products) {bounds['bf16']:.4f}); "
+              f"{info.get('regs', '?')} registers, {info.get('spill', '?')} "
+              f"bytes spilled, {info.get('mma') or 'no tensor-core'} "
+              f"instructions, {info.get('sass', '?')} SASS; geometry "
+              f"{geom.geom}; cudaOccupancyMaxActiveClusters {occ}")
+        records.append(dict(
+            name=record, route="cuda",
+            source="src/repro_torch/kernels/slstm_scan/kernel.cu",
+            replaces="src/repro/kernels/slstm_scan/kernel.py:66",
+            form=form, max_abs_err=rec["max_abs_err"],
+            ms=rec["cold_ms"] if form == "decode" else rec["ms"],
+            warm_ms=rec["ms"], cold_ms=rec["cold_ms"],
+            plain_ms=rec["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            bounds=bounds, library_ms=None, registers=info.get("regs"),
+            spill_bytes=info.get("spill"), mma=info.get("mma"),
+            clusters=occ, geometry=geom.geom, others=others))
+    step_us = 1e3 * (res["scan", PROMPT]["ms"] - res["scan", 64]["ms"]) \
+        / (PROMPT - 64)
+    g_step = 1e3 * (res["general", PROMPT]["ms"] - res["general", 64]["ms"]) \
+        / (PROMPT - 64)
+    print(f"  slstm_scan[bf16]: the scan form's step {step_us:.3f} us (slope "
+          f"of T={PROMPT} over T=64; the general form's {g_step:.3f} us on "
+          f"the same call); the decode form at T=1 {res['decode', 1]['ms']:.4f}"
+          f" ms warm against the scan form's {res['scan', 1]['ms']:.4f} and "
+          f"the general form's {res['general', 1]['ms']:.4f}")
+    records[0]["step_us"] = step_us
+    records[2]["step_us"] = g_step
+    return records
 
 
 def _launches(path: str) -> dict:
@@ -1435,9 +1566,13 @@ def _checked_ops(worst: dict):
         return o
 
     def scan(gx, r, h0, c0):
+        from repro_torch.kernels.slstm_scan import ops as scan_ops
+
         out = KERNELS.slstm_scan(gx, r, h0, c0)
+        form = scan_ops.slstm_form(gx.shape[0], gx.shape[1], r.shape[1],
+                                   r.dtype == torch.bfloat16)
         for a, p in zip(out, plain.slstm_scan(gx, r, h0, c0)):
-            held("slstm_scan", a, p, elementwise(SLSTM_TOL, p))
+            held(scan_ops.COUNTERS[form], a, p, elementwise(SLSTM_TOL, p))
         return out
 
     def grouped(x, dep, offsets, cap, read_seed=None):

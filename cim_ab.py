@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time cim_mvm's or flash_attention's forms at phi3-mini's shapes in one
+"""Time cim_mvm's, flash_attention's or slstm_scan's forms in one
 checkout of the port.
 
     python3 cim_ab.py [--src DIR] [--label NAME] [--flash | --batched |
-                      --grouped [--forms] [--folded]]
+                      --grouped [--forms] [--folded] |
+                      --slstm [--forms] [--serve]]
 
 Imports ``repro_torch`` from ``DIR`` (default: the ``src`` beside this
 script), builds its kernels there and times its public ``cim_mvm`` on
@@ -61,6 +62,22 @@ form, for a checkout whose ``cim_mvm_grouped`` takes ``form`` (keys
 ``[folded, ...] [general]``, ``[decode]``, ``[prefill]``).  ``--folded``
 times the folded banks only (no ideal bank, no ``torch.bmm``).
 
+With ``--slstm`` it times the public ``slstm_scan`` at xlstm-1.3b's
+sLSTM shape (B = 4 lanes, H = 4, Dh = 512, bf16 gx and R, f32 state,
+random from seed 0) at T = 128 (a prefill), 64 and 1 (a decode step),
+warm and cold (each call on another of enough copies of R to pass
+``chip_smoke.COLD_BYTES``), with the max error against that checkout's
+``slstm_scan_plain``, the step (the slope of T = 128 over T = 64) and
+the checkout's slstm kernels as its build reports them; ``--forms``
+also times each of its forms forced at each T it takes, for a checkout
+whose ``slstm_scan`` takes ``form`` (keys ``slstm[<form>] ...``).
+``--serve`` also serves xlstm-1.3b at full width and depth (bf16, random
+weights from seed 0, ``ServeEngine`` with ``chip_smoke``'s CIM config
+and a fresh plan cache) to B = 4 prompts of 128 tokens: the prefill's
+ms (median of 3), a decode step's ms (over 8 steps), and, under
+``torch.profiler`` over 3 decode steps, the card's busy ms a step and
+the slstm kernels' ms a step (keys ``xlstm ...``).
+
 Prints one JSON line.  Run it for two checkouts in one call (parent,
 change, change, parent) to compare them on one card.
 """
@@ -116,6 +133,106 @@ def time_flash(out: dict) -> None:
             out["ms"][f"flash{'[bf16]' if bf else ''} {name}"] = device_ms(
                 lambda: flash_attention(q, k, v, q_positions=qpos,
                                         k_positions=kpos))
+
+
+def time_slstm(out: dict, forms: bool) -> None:
+    """slstm_scan at xlstm-1.3b's sLSTM shape (module docstring)."""
+    from repro_torch.kernels.slstm_scan import ops
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
+
+    built = phase_build()
+    out["kernels"] = {k: v for k, v in built.items() if "slstm" in k}
+    out["err"] = {}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, H, Dh = 4, 4, 512
+    r = (torch.randn((H, Dh, 4 * Dh), generator=g, device="cuda")
+         * 0.02).to(torch.bfloat16)
+    rs = [r] + [r.clone() for _ in range(
+        max(2, -(-COLD_BYTES // (r.numel() * 2))) - 1)]
+    h0, c0 = (torch.randn((B, H, Dh), generator=g, device="cuda") * 0.1
+              for _ in range(2))
+    takes_form = "form" in inspect.signature(ops.slstm_scan).parameters
+    variants = [("", {})]
+    if forms and takes_form:
+        variants += [(f"[{f}]", {"form": f}) for f in ops.FORMS]
+    for T in (128, 64, 1):
+        gx = (torch.randn((B, T, H, 4 * Dh), generator=g, device="cuda")
+              * 0.5).to(torch.bfloat16)
+        want = slstm_scan_plain(gx, r, h0, c0)
+        for tag, kw in variants:
+            if kw.get("form") == "decode" and T > 1:
+                continue
+            key = f"slstm{tag} T={T}"
+            got = ops.slstm_scan(gx, r, h0, c0, **kw)
+            torch.cuda.synchronize()
+            out["err"][key] = max((a - w).abs().max().item()
+                                  for a, w in zip(got, want))
+            out["ms"][key] = device_ms(
+                lambda: ops.slstm_scan(gx, r, h0, c0, **kw))
+            out["ms"][f"{key} cold"] = device_ms(
+                lambda a: ops.slstm_scan(gx, a, h0, c0, **kw), args=rs)
+    for tag, kw in variants:
+        if f"slstm{tag} T=64" in out["ms"]:
+            out["ms"][f"slstm{tag} step_us"] = 1e3 * (
+                out["ms"][f"slstm{tag} T=128"]
+                - out["ms"][f"slstm{tag} T=64"]) / 64
+
+
+def serve_xlstm(out: dict) -> None:
+    """xlstm-1.3b served at full width (module docstring)."""
+    import tempfile
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import CimConfig
+    from repro_torch.configs.xlstm_13b import CONFIG
+    from repro_torch.deploy import PlanCache
+    from repro_torch.models.model import (apply_model, init_decode_state,
+                                          init_params)
+    from repro_torch.serve import ServeEngine
+
+    cfg = CONFIG.replace(cim=CimConfig(enabled=True, mode="mdm"))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (4, 128),
+                            generator=torch.Generator().manual_seed(1))
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    with tempfile.TemporaryDirectory(prefix="cim_ab_plans_") as d:
+        eng = ServeEngine(cfg, params, max_seq=160, plan_cache=PlanCache(d),
+                          device="cuda")
+        eng.generate(prompts, 2)
+        pre = sorted(wall(lambda: eng.generate(prompts, 1)) for _ in range(3))
+        out["ms"]["xlstm prefill"] = pre[1]
+        out["ms"]["xlstm decode step"] = (
+            wall(lambda: eng.generate(prompts, 9)) - pre[1]) / 8
+        state = init_decode_state(cfg, 4, 160, "cuda")
+        logits, state = apply_model(eng.params, cfg, prompts.to("cuda"),
+                                    state=state, cim=eng.cim)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                logits, state = apply_model(eng.params, cfg, tok, state=state,
+                                            decode=True, cim=eng.cim)
+                tok = logits[:, 0].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+    busy = slstm = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.self_device_time_total
+            if "slstm_" in e.key:
+                slstm += e.self_device_time_total
+    out["ms"]["xlstm busy a decode step"] = busy / 3e3
+    out["ms"]["xlstm slstm a decode step"] = slstm / 3e3
 
 
 def time_batched(out: dict) -> None:
@@ -318,8 +435,13 @@ def main() -> int:
                     help="time cim_mvm_batched at a probe round's shapes")
     ap.add_argument("--grouped", action="store_true",
                     help="time cim_mvm_grouped at qwen2-moe's expert banks")
+    ap.add_argument("--slstm", action="store_true",
+                    help="time slstm_scan at xlstm-1.3b's sLSTM shape")
+    ap.add_argument("--serve", action="store_true",
+                    help="with --slstm, also serve xlstm-1.3b at full width")
     ap.add_argument("--forms", action="store_true",
-                    help="with --grouped, also time each case on each form")
+                    help="with --grouped or --slstm, also time each case "
+                         "on each form")
     ap.add_argument("--folded", action="store_true",
                     help="with --grouped, time the folded banks only")
     a = ap.parse_args()
@@ -342,6 +464,12 @@ def main() -> int:
         return 0
     if a.grouped:
         time_grouped(out, a.forms, a.folded)
+        print(json.dumps(out))
+        return 0
+    if a.slstm:
+        time_slstm(out, a.forms)
+        if a.serve:
+            serve_xlstm(out)
         print(json.dumps(out))
         return 0
 

@@ -39,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("cim_mvm", "cim_fold", "cim_mvm_batched", "cim_mvm_grouped",
            "cim_mvm_grouped_folded", "flash_attention",
-           "manhattan_score", "slstm_scan", "bitslice_pack", "line_solve")
+           "manhattan_score", "slstm_scan", "slstm_scan_tc",
+           "slstm_scan_decode", "bitslice_pack", "line_solve")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,8 +59,8 @@ _ARGTYPES = {
     "flash_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _P, _P],
     "flash_occupancy": [_P, _I, _P],
     "manhattan_score_launch": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
-    "slstm_scan_launch": [_P] * 7 + [_I] * 4 + [_P, _I, _P],
-    "slstm_scan_max_clusters": [_I, _P],
+    "slstm_scan_launch": [_P] * 7 + [_I] * 5 + [_P, _I, _P],
+    "slstm_scan_max_clusters": [_I, _P, _I, _P],
     "bitslice_pack_launch": [_P, _I, _P, _L, _I, _I, _P],
     "line_solve_launch": [_P, _P, _P, _P, _L, _I, _I, _D, _P, _P],
     "line_solve_occupancy": [_P, _P],
@@ -188,7 +189,7 @@ def _self_check(lib: ctypes.CDLL) -> None:
     from repro_torch.kernels.flash_attention.ops import flash_geometry
     from repro_torch.kernels.line_solve.ops import GEOM_FIELDS as LINE_FIELDS
     from repro_torch.kernels.line_solve.ops import line_geometry
-    from repro_torch.kernels.slstm_scan.ops import slstm_geometry
+    from repro_torch.kernels.slstm_scan import ops as scan_ops
 
     codes, pos, scale = (z(8, 8, dt=torch.int16), z(8, 1, dt=torch.int32),
                          z(1))
@@ -284,18 +285,23 @@ def _self_check(lib: ctypes.CDLL) -> None:
         rc[f"manhattan_score form={form}"] = lib.manhattan_score_launch(
             m.data_ptr(), None, s.data_ptr(), n.data_ptr(), nf.data_ptr(),
             1, 4, 16, 0, 1.0, form, stream)
-    g, r = z(1, 1, 1, 16), z(1, 4, 16)
-    h, hs, hT, cT = z(1, 1, 4), z(1, 1, 1, 4), z(1, 1, 4), z(1, 1, 4)
-    rc["slstm_scan"] = lib.slstm_scan_launch(
-        g.data_ptr(), r.data_ptr(), h.data_ptr(), h.data_ptr(),
-        hs.data_ptr(), hT.data_ptr(), cT.data_ptr(), 1, 1, 1, 4,
-        slstm_geometry(1, 4).array, 0, stream)
-    gb, rb, hb = (t.to(torch.bfloat16) for t in (g, r, h))
-    hsb, hTb, cTb = (t.to(torch.bfloat16) for t in (hs, hT, cT))
-    rc["slstm_scan bf16"] = lib.slstm_scan_launch(
-        gb.data_ptr(), rb.data_ptr(), hb.data_ptr(), hb.data_ptr(),
-        hsb.data_ptr(), hTb.data_ptr(), cTb.data_ptr(), 1, 1, 1, 4,
-        slstm_geometry(1, 4, True).array, 7, stream)
+    # slstm_scan's general form in f32 and bf16 (Dh = 4), its scan form
+    # (bf16 R, Dh = 512, T = 2: a full cluster, one exchange) and its
+    # decode form (bf16 R, Dh = 16, T = 1).
+    bf = torch.bfloat16
+    for form, B, T, Dh, dt, flags in (
+            ("general", 1, 1, 4, torch.float32, 0),
+            ("general", 1, 1, 4, bf, 7), ("scan", 1, 2, 512, bf, 3),
+            ("decode", 1, 1, 16, bf, 3)):
+        g, r = z(B, T, 1, 4 * Dh, dt=dt), z(1, Dh, 4 * Dh, dt=dt)
+        st = dt if flags & scan_ops.STATE_BF16 else torch.float32
+        h, hT, cT = (z(B, 1, Dh, dt=st) for _ in range(3))
+        hs = z(B, T, 1, Dh, dt=st)
+        rc[f"slstm_scan {form} flags={flags}"] = lib.slstm_scan_launch(
+            g.data_ptr(), r.data_ptr(), h.data_ptr(), h.data_ptr(),
+            hs.data_ptr(), hT.data_ptr(), cT.data_ptr(), B, T, 1, Dh,
+            scan_ops.FORMS[form],
+            scan_ops.geometry(form, B, Dh, dt == bf).array, flags, stream)
     img = z(2, dt=torch.int64)
     rc["bitslice_pack"] = lib.bitslice_pack_launch(
         codes.data_ptr(), 2, img.data_ptr(), 2, 8, 0, stream)

@@ -52,6 +52,7 @@ from repro_torch.kernels.manhattan_score.ops import manhattan_score
 from repro_torch.kernels.bitslice_pack.ops import bitslice_pack
 from repro_torch.kernels.bitslice_pack.ref import bitslice_pack_plain
 from repro_torch.kernels.manhattan_score.ref import manhattan_score_plain
+from repro_torch.kernels.slstm_scan import ops as scan_ops
 from repro_torch.kernels.slstm_scan.ops import slstm_scan
 from repro_torch.kernels.line_solve.ops import line_solve
 from repro_torch.kernels.line_solve.ops import occupancy as line_occupancy
@@ -678,6 +679,101 @@ def test_slstm_scan_kernel_bf16_vs_plain(cuda, b, t, h, dh, seed, state):
         a, w = a.float(), w.float()
         assert ((a - w).abs() <= SLSTM_TOL + rtol * w.abs()).all(), \
             (a - w).abs().max().item()
+
+
+# slstm_scan's scan form (bf16 R, Dh = 512) and decode form (bf16 R, T =
+# 1): the bf16 test's shapes each takes, and more decode shapes.
+SCAN_FORM_CASES = [(4, 1, 4, 512, 7), (4, 128, 4, 512, 9), (5, 9, 4, 512, 10),
+                   (8, 2, 2, 512, 13)]
+DECODE_FORM_CASES = [(4, 1, 4, 512, 7), (1, 1, 1, 16, 20), (5, 1, 4, 16, 21),
+                     (2, 1, 3, 64, 22), (8, 1, 2, 512, 23), (3, 1, 4, 48, 24),
+                     (6, 1, 2, 160, 25)]
+# Each case forced onto its form, and routed where the shape routes there.
+FORM_CASES = [(form, case, forced)
+              for form, cases in (("scan", SCAN_FORM_CASES),
+                                  ("decode", DECODE_FORM_CASES))
+              for case in cases for forced in (True, False)
+              if forced or scan_ops.slstm_form(case[0], case[1], case[3], True)
+              == form]
+
+
+def _slstm_bf16_inputs(cuda, b, t, h, dh, seed, state="f32"):
+    rng = np.random.default_rng(seed)
+    f = lambda s, *shape: torch.from_numpy(
+        (rng.standard_normal(shape) * s).astype(np.float32)).to(cuda)
+    gx = f(0.5, b, t, h, 4 * dh).to(torch.bfloat16)
+    r = f(0.1, h, dh, 4 * dh).to(torch.bfloat16)
+    st = torch.float32 if state == "f32" else torch.bfloat16
+    return gx, r, f(0.1, b, h, dh).to(st), f(0.1, b, h, dh).to(st)
+
+
+def _held_to_plain(got, args, state):
+    want = slstm_scan_plain(*args)
+    rtol = SLSTM_TOL if state == "f32" else BF16_RTOL
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype
+        a, w = a.float(), w.float()
+        assert ((a - w).abs() <= SLSTM_TOL + rtol * w.abs()).all(), \
+            (a - w).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,case,forced", FORM_CASES)
+@pytest.mark.parametrize("state", ["f32", "bf16"])
+def test_slstm_scan_new_forms_vs_plain(cuda, form, case, forced, state):
+    """The scan and decode forms against the plain version, forced and
+    routed, with an f32 state (1e-5 (1 + |plain|)) and a bf16 state (the
+    bf16 bound); the launch counts under the form's name."""
+    from repro_torch.kernels import runtime
+
+    args = _slstm_bf16_inputs(cuda, *case, state)
+    runtime.reset_launch_counts()
+    got = slstm_scan(*args, device=cuda, form=form if forced else None)
+    assert runtime.launch_counts()[scan_ops.COUNTERS[form]] == 1
+    _held_to_plain(got, args, state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 64, 128, 129])
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 5, 8])
+def test_slstm_scan_xlstm_shapes_route_and_hold(cuda, T, B):
+    """xlstm-1.3b's head (H = 4, Dh = 512, bf16 gx and R, f32 state) at
+    T = 1 (the decode form) and T = 2-129 (the scan form, one or two lane
+    groups a head), routed, against the plain version."""
+    from repro_torch.kernels import runtime
+
+    args = _slstm_bf16_inputs(cuda, B, T, 4, 512, 100 * T + B)
+    runtime.reset_launch_counts()
+    got = slstm_scan(*args, device=cuda)
+    form = "decode" if T == 1 else "scan"
+    assert runtime.launch_counts()[scan_ops.COUNTERS[form]] == 1
+    _held_to_plain(got, args, "f32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,case", [("scan", (4, 128, 4, 512, 3)),
+                                       ("scan", (6, 17, 4, 512, 4)),
+                                       ("decode", (4, 1, 4, 512, 5)),
+                                       ("decode", (7, 1, 2, 96, 6))])
+def test_slstm_scan_new_forms_bit_identical_across_calls(cuda, form, case):
+    args = _slstm_bf16_inputs(cuda, *case)
+    first = slstm_scan(*args, device=cuda, form=form)
+    for a, b in zip(first, slstm_scan(*args, device=cuda, form=form)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,r_bf16,gx_bf16", [
+    ("general", False, False), ("general", True, True), ("scan", True, True),
+    ("scan", True, False), ("decode", True, True)])
+def test_slstm_scan_occupancy_of_each_form(cuda, form, r_bf16, gx_bf16):
+    """The occupancy query takes the form and the dtypes: each form's
+    launch at xlstm-1.3b's shape fits on the card at least once."""
+    n = scan_ops.max_active_clusters(4, 512, r_bf16, form, gx_bf16)
+    assert n >= 1
+    if form != "decode":               # a cluster of 16 blocks of one SM
+        assert n <= torch.cuda.get_device_properties(0).multi_processor_count \
+            // scan_ops.CLUSTER
 
 
 def _stacked_nonideal(cuda, G, I, N, seed, noise):

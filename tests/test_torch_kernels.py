@@ -1608,6 +1608,253 @@ def test_slstm_geometry_refuses_what_the_kernel_does_not_take(B, Dh):
         scan_ops.slstm_geometry(B, Dh)
 
 
+# ------------- slstm_scan's scan and decode forms (bf16 R) -------------
+
+def _cu_expr(path, name, env):
+    """The value of ``constexpr int name = <expr>;`` in a .cu file, its
+    C integer expression evaluated over ``env`` (the names it uses)."""
+    text = Path(path).read_text()
+    expr = re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
+    return eval(expr.replace("/", "//"), {}, dict(env))
+
+
+def test_slstm_form_constants_mirror_the_kernel():
+    cu = Path(scan_ops.__file__).with_name("kernel.cu")
+    env = {"CLUSTER": scan_ops.CLUSTER, "LANES": scan_ops.LANES}
+    for name in ("TC_DH", "TC_PER", "TC_COLS", "TC_MT", "TC_KH", "TC_THREADS",
+                 "TC_KT", "TC_LANES", "TC_PITCH", "TC_RING", "TC_ROW",
+                 "DC_DIMS", "DC_COLS", "DC_MAX_KS", "DC_MAX_THREADS",
+                 "DC_MAX_RPT", "DC_MAX_SPLIT", "DC_LANES", "DC_RED"):
+        env[name] = _cu_expr(cu, name, env)
+        assert env[name] == getattr(scan_ops, name), name
+    text = cu.read_text()
+    for struct, fields in (("TcGeom", scan_ops._TC_FIELDS),
+                           ("DcGeom", scan_ops._DC_FIELDS)):
+        got = re.search(rf"struct {struct} \{{\s*int ([^;]*);", text).group(1)
+        assert tuple(f.strip() for f in got.split(",")) == fields
+    ids = re.search(r"constexpr int FORM_GENERAL = (\d+), FORM_SCAN = (\d+), "
+                    r"FORM_DECODE = (\d+);", text).groups()
+    assert tuple(map(int, ids)) == (
+        scan_ops.FORMS["general"], scan_ops.FORMS["scan"],
+        scan_ops.FORMS["decode"])
+    # The two forms' shared memory, restated in ops.py.
+    tc = " ".join(re.search(r"constexpr int tc_smem\(int gx_bytes\) \{\s*"
+                            r"return ([^;]*);", text).group(1).split())
+    env.update(TC_R_BYTES=_cu_expr(cu, "TC_R_BYTES", env),
+               TC_SRC_BYTES=_cu_expr(cu, "TC_SRC_BYTES", env))
+    env.update(TC_H_BYTES=_cu_expr(cu, "TC_H_BYTES", env),
+               TC_PART=_cu_expr(cu, "TC_PART", env))
+    for gx_bytes in (2, 4):
+        assert eval(tc, {}, dict(env, gx_bytes=gx_bytes)) == \
+            scan_ops.tc_smem(gx_bytes == 2)
+    dc = " ".join(re.search(r"constexpr int dc_smem\(int ks, int kr, int "
+                            r"passes\) \{\s*return ([^;]*);", text).group(1)
+                  .split())
+    for ks, kr, passes in ((16, 128, 1), (32, 256, 2), (64, 512, 1)):
+        assert eval(dc, {}, dict(env, ks=ks, kr=kr, passes=passes)) == \
+            scan_ops.dc_smem(ks, kr, passes)
+
+
+@pytest.mark.parametrize("B", [1, 3, 4, 5, 8, 9, 33])
+def test_slstm_scan_form_fits_and_covers(B):
+    """The scan form: shared memory within a block's for bf16 and f32 gx;
+    R's fragments (TC_KT x 4 registers a thread) half of a thread's 128
+    at TC_THREADS; the warps' (m-tile, k half) cover the block's 128
+    columns and the head's 32 k-tiles once, the 16 ranks' dims cover
+    Dh once, the lane groups cover B once."""
+    for gx_bf16 in (True, False):
+        g = scan_ops.scan_geometry(B, scan_ops.TC_DH, gx_bf16)
+        assert g.smem == scan_ops.tc_smem(gx_bf16) <= scan_ops.SMEM_MAX
+        assert g.groups * scan_ops.TC_LANES >= B
+        assert (g.groups - 1) * scan_ops.TC_LANES < B
+    assert scan_ops.TC_KT * 4 <= 65536 // scan_ops.TC_THREADS // 2
+    cols, ktiles = [], []
+    for warp in range(scan_ops.TC_THREADS // 32):
+        mt, kh = warp % scan_ops.TC_MT, warp // scan_ops.TC_MT
+        if kh == 0:
+            cols += range(16 * mt, 16 * mt + 16)
+        if mt == 0:
+            ktiles += range(kh * scan_ops.TC_KT, (kh + 1) * scan_ops.TC_KT)
+    assert sorted(cols) == list(range(scan_ops.TC_COLS))
+    assert sorted(ktiles) == list(range(scan_ops.TC_DH // 16))
+    dims = [d for r in range(scan_ops.CLUSTER)
+            for d in range(r * scan_ops.TC_PER, (r + 1) * scan_ops.TC_PER)]
+    assert dims == list(range(scan_ops.TC_DH))
+    # A rank's two k-tiles are its own dims: its h is all a warp waits for.
+    assert scan_ops.TC_PER == 2 * 16
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 5, 8])
+def test_slstm_decode_form_fits_and_covers(B):
+    """The decode form, for every Dh a multiple of 16 up to 512 and every
+    split: shared memory and threads within a block's, at most
+    DC_MAX_RPT rows (4 DC_MAX_RPT registers of R) a thread, the ranks'
+    sub-slices' rows cover [0, Dh) once, the 16-dim tiles cover Dh, the
+    lane passes cover B."""
+    for Dh in range(16, scan_ops.DC_MAX_DH + 1, 16):
+        for split in (None, 1, 2, 4):
+            g = scan_ops.decode_geometry(B, Dh, split)
+            assert g.smem == scan_ops.dc_smem(g.ks, g.kr, g.passes)
+            assert g.smem <= scan_ops.SMEM_MAX
+            assert 16 <= g.ks <= scan_ops.DC_MAX_KS and g.ks & (g.ks - 1) == 0
+            assert 8 * g.ks <= scan_ops.DC_MAX_THREADS
+            assert 1 <= g.rpt <= scan_ops.DC_MAX_RPT and g.kr == g.ks * g.rpt
+            assert g.passes * scan_ops.LANES >= B
+            assert (g.passes - 1) * scan_ops.LANES < B
+            rows = [k for rank in range(g.split)
+                    for ks in range(g.ks) for i in range(g.rpt)
+                    for k in [rank * g.kr + ks + g.ks * i]
+                    if k < min(Dh, (rank + 1) * g.kr)]
+            assert sorted(rows) == list(range(Dh))
+            assert Dh % scan_ops.DC_DIMS == 0
+    assert scan_ops.decode_geometry(B, 512).split == scan_ops.DC_SPLIT
+
+
+@pytest.mark.parametrize("B,T,Dh,r_bf16,form", [
+    (4, 128, 512, True, "scan"),      # xlstm-1.3b's prefill
+    (4, 1, 512, True, "decode"),      # its decode step
+    (4, 2, 512, True, "scan"),
+    (8, 1, 512, True, "decode"),
+    (9, 1, 512, True, "scan"),        # more lanes than the decode form takes
+    (4, 128, 512, False, "general"),  # f32 R: row 5a's kernel
+    (4, 1, 512, False, "general"),
+    (4, 1, 100, True, "general"),     # Dh not a multiple of 16
+    (4, 9, 100, True, "general"),
+    (4, 9, 64, True, "general"),      # the scan form takes Dh = 512 only
+    (4, 1, 64, True, "decode"),
+])
+def test_slstm_form_routes_by_shape(B, T, Dh, r_bf16, form):
+    assert scan_ops.slstm_form(B, T, Dh, r_bf16) == form
+    # The form's geometry takes the shape; the launch counts under its name.
+    scan_ops.geometry(form, B, Dh, r_bf16)
+    assert scan_ops.COUNTERS[form] in __import__(
+        "repro_torch.kernels.runtime", fromlist=["KERNELS"]).KERNELS
+
+
+@pytest.mark.parametrize("form,B,Dh,r_bf16", [
+    ("scan", 4, 256, True), ("scan", 4, 512, False), ("decode", 9, 512, True),
+    ("decode", 4, 520, True), ("decode", 4, 40, True), ("decode", 4, 64, False),
+    ("nonesuch", 4, 512, True)])
+def test_slstm_forms_refuse_what_they_do_not_take(form, B, Dh, r_bf16):
+    with pytest.raises(ValueError, match="slstm_scan"):
+        scan_ops.geometry(form, B, Dh, r_bf16)
+
+
+def _split3(h):
+    """kernel.cu's split3 in torch: hi = bf16(h), mid = bf16(h - hi), lo =
+    bf16(h - hi - mid), each rounded to nearest even, the differences in
+    f32."""
+    bf = torch.bfloat16
+    hi = h.to(bf)
+    r1 = h - hi.float()
+    mid = r1.to(bf)
+    lo = (r1 - mid.float()).to(bf)
+    return hi, mid, lo
+
+
+def test_three_piece_split_is_exact():
+    """hi + mid + lo == h exactly (summed in f64) on random f32 over many
+    scales and signs, at the largest bf16-finite values, at 2^-110 (the
+    smallest scale whose 24 bits fit three bf16 pieces) and at +-0; below
+    that, down to the smallest normals, off by less than 2^-133 (bf16's
+    subnormal step); and the pieces pack into the kernel's words."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal(200_000) * np.exp2(
+        rng.integers(-100, 100, 200_000))).astype(np.float32)
+    edges = np.array([0.0, -0.0, 1.0, -1.0, 0.999999940, -0.5, 2.0 ** -110,
+                      -(2.0 ** -110) * 1.9999999, 3.3e38, -3.3e38,
+                      np.float32(1 + 2 ** -23), 0.1, -0.7], np.float32)
+    tiny = np.array([2.0 ** -126, -(2.0 ** -126) * 1.5, 2.0 ** -120 * 1.3,
+                     2.0 ** -111 * 1.7], np.float32)
+    h = torch.from_numpy(np.concatenate([x, edges, tiny]))
+    hi, mid, lo = _split3(h)
+    err = (hi.double() + mid.double() + lo.double() - h.double()).abs()
+    big = (h.abs() >= 2.0 ** -110) | (h == 0)
+    assert (err[big] == 0).all() and big.sum() > 150_000
+    assert (err[~big] < 2.0 ** -133).all() and (~big).sum() >= len(tiny)
+    assert torch.equal(torch.signbit(hi[h == 0]), torch.signbit(h[h == 0]))
+    # w0 = hi | mid << 16, w1 = lo: the halves as kernel.cu packs them.
+    bits = lambda t: t.view(torch.int16).to(torch.int64) & 0xFFFF
+    w0 = bits(hi) | bits(mid) << 16
+    assert torch.equal(w0 & 0xFFFF, bits(hi)) and torch.equal(w0 >> 16, bits(mid))
+
+
+def _tc_pre(h, r, gx):
+    """One step's pre-activations as the scan form sums them: h split in
+    three pieces, each k-tile's 16 exact products summed wide (f64) and
+    added in f32 to the k half's accumulator of its parity, the k-tiles
+    in order; then even + odd, hi + (mid + lo), half 0 + half 1, gx."""
+    B, Dh = h.shape
+    pieces = [p.double() for p in _split3(h)]
+    rr = r.double()
+    f32 = torch.float32
+    halves = []
+    for kh in range(scan_ops.TC_KH):
+        acc = torch.zeros((2, 3, B, r.shape[1]), dtype=f32)
+        for kt in range(scan_ops.TC_KT):
+            k0 = (kh * scan_ops.TC_KT + kt) * 16
+            for pc in range(3):
+                part = (pieces[pc][:, k0:k0 + 16] @ rr[k0:k0 + 16]).to(f32)
+                acc[kt % 2, pc] = acc[kt % 2, pc] + part
+        s = acc[0] + acc[1]
+        halves.append(s[0] + (s[1] + s[2]))
+    return (halves[0] + halves[1]) + gx
+
+
+def _dc_pre(h, r, gx, geom):
+    """One step's pre-activations as the decode form sums them: per rank
+    and sub-slice a thread's rows in order (f32 multiply-add), the
+    sub-slices in order, the ranks in order, then gx."""
+    B, Dh = h.shape
+    f32 = torch.float32
+    ranks = []
+    for rank in range(geom.split):
+        k0, k1 = rank * geom.kr, min(Dh, (rank + 1) * geom.kr)
+        total = torch.zeros((B, r.shape[1]), dtype=f32)
+        for ks in range(geom.ks):
+            acc = torch.zeros((B, r.shape[1]), dtype=f32)
+            for i in range(geom.rpt):
+                k = k0 + ks + geom.ks * i
+                if k < k1:
+                    acc = (acc.double() + h[:, k:k + 1].double()
+                           * r[k].double()).to(f32)
+            total = total + acc
+        ranks.append(total)
+    out = ranks[0]
+    for t in ranks[1:]:
+        out = out + t
+    return out + gx
+
+
+@pytest.mark.parametrize("form", ["scan", "decode"])
+def test_slstm_new_forms_sum_matches_the_plain_step(form):
+    """One step's gx + h @ R summed as the form sums it (bf16 R, f32 h and
+    gx) holds the plain version's product within the card bound."""
+    rng = np.random.default_rng(5)
+    B, Dh = 4, scan_ops.TC_DH
+    h = torch.from_numpy(np.tanh(rng.standard_normal((B, Dh))).astype(
+        np.float32))
+    r = torch.from_numpy((rng.standard_normal((Dh, 4 * Dh)) * 0.1).astype(
+        np.float32)).to(torch.bfloat16)
+    gx = torch.from_numpy((rng.standard_normal((B, 4 * Dh)) * 0.5).astype(
+        np.float32))
+    pre = (_tc_pre(h, r, gx) if form == "scan"
+           else _dc_pre(h, r, gx, scan_ops.decode_geometry(B, Dh)))
+    plain = gx + h @ r.float()
+    assert ((pre - plain).abs() <= 1e-5 * (1 + plain.abs())).all()
+
+
+def test_runtime_self_check_launches_every_slstm_form():
+    """The build's self-check (runtime._self_check) launches each form."""
+    import inspect
+
+    from repro_torch.kernels import runtime
+
+    src = inspect.getsource(runtime._self_check)
+    for form in scan_ops.FORMS:
+        assert f'("{form}",' in src, form
+
+
 # ------------------------ line_solve launch geometry ------------------------
 
 from repro_torch.kernels.line_solve import ops as line_ops
