@@ -10,7 +10,7 @@ folded forms (gain, column permutation, in-kernel read noise, bf16 x)
 and the bf16 forms of flash_attention (its decode form also over a
 LONG_C-slot cache, split across a cluster) and slstm_scan's bf16 forms
 (its scan and decode forms beside the general form) included, and
-the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives seven paths
+the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives ten paths
 through the entry points a user calls, each with the launch counts set
 to 0 just before it and read just after (a check's own launches inside
 a path left out):
@@ -56,7 +56,22 @@ a path left out):
 7. xlstm-1.3b serving at its config dtype (bf16): random full-width
    weights (seed 0, all 48 layers), deploy (the reference deploys the
    mLSTM q/k/v) and greedy generation (slstm_scan's scan form at the
-   prefill and its decode form at each decode step, manhattan_score).
+   prefill and its decode form at each decode step, manhattan_score);
+8. qwen2-moe: qwen2-moe-a2.7b at full width and depth in bf16 under
+   ``mdm_expert``, alone on the card (cim_mvm's grouped forms on the
+   expert banks, cim_mvm, flash_attention at Dh = 128,
+   manhattan_score);
+9. qwen2-moe-nonideal: MOE_NONIDEAL_LAYERS of its layers on imperfect
+   devices under the spare-line spec (cim_fold, the grouped folded
+   forms with read noise, cim_mvm's folded forms, flash_attention,
+   manhattan_score);
+10. qwen2-moe-health: MOE_HEALTH_LAYERS of its layers aged and healed
+   on ``HEALTH``'s devices, the arc on ``ServeEngine`` and
+   ``ContinuousEngine`` with one seed and a heal swap under load
+   (cim_mvm's batched form over each expert group's R x 60 members in
+   one launch, cim_fold at every refresh, the grouped folded forms for
+   the banks with a live expert, cim_mvm, flash_attention,
+   manhattan_score).
 
 For each serving path it checks plans built on the card against the
 port's CPU mirror, the kernel path's logits and tokens against the
@@ -79,8 +94,10 @@ The health path must give the two engines identical event histories,
 every refreshed fold bit-identical to its plain version, every batched
 probe read within the cim_mvm tolerance of its plain loop (with and
 without read noise), each recalibrated matrix a lower probe error, and
-after demotion no cim_mvm launch for a demoted matrix; a heal under
-load must leave the sequences in flight their tokens.  The circuit path
+after demotion no cim_mvm launch for a demoted matrix (on MoE, no
+grouped launch for a bank whose experts are all demoted, and no row of
+a demoted expert handed to the grouped form); a heal under load must
+leave the sequences in flight their tokens.  The circuit path
 must hold line_solve to its plain version (64x64, 32x32, 128x10 and
 128x128, f64 and f32), leave no tile unconverged (512 tiles of 128x128
 too),
@@ -186,7 +203,10 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                               "flash_attention", "manhattan_score"),
                 "qwen2-moe-nonideal": ("cim_mvm", "cim_mvm_grouped_folded",
                                        "cim_fold", "flash_attention",
-                                       "manhattan_score")}
+                                       "manhattan_score"),
+                "qwen2-moe-health": ("cim_mvm", "cim_mvm_grouped_folded",
+                                     "cim_fold", "cim_mvm_batched",
+                                     "flash_attention", "manhattan_score")}
 # The paths each kernel record's form runs on (its launches are its
 # kernel's launches there).
 RECORD_PATHS = {
@@ -196,18 +216,22 @@ RECORD_PATHS = {
     "slstm_scan": (),                 # the xlstm path now serves bf16
     "bitslice_pack": ("export",),
     "flash_attention[bf16]": ("phi3-nonideal", "phi3-health"),
-    "cim_fold": ("phi3-nonideal", "phi3-health", "qwen2-moe-nonideal"),
-    "cim_mvm_batched": ("phi3-health",),
+    "cim_fold": ("phi3-nonideal", "phi3-health", "qwen2-moe-nonideal",
+                 "qwen2-moe-health"),
+    "cim_mvm_batched": ("phi3-health", "qwen2-moe-health"),
+    "cim_mvm_batched[expert group]": ("qwen2-moe-health",),
     "slstm_scan[bf16]": (),           # the xlstm path now takes the two
     "slstm_scan_tc[bf16]": ("xlstm",),    # forms below
     "slstm_scan_decode[bf16]": ("xlstm",),
     "line_solve": ("phi3-circuit",),
     "cim_mvm_grouped": ("qwen2-moe",),
-    "flash_attention[bf16,Dh=128]": ("qwen2-moe", "qwen2-moe-nonideal"),
-    "cim_mvm_grouped_folded": ("qwen2-moe-nonideal",),
+    "flash_attention[bf16,Dh=128]": ("qwen2-moe", "qwen2-moe-nonideal",
+                                     "qwen2-moe-health"),
+    "cim_mvm_grouped_folded": ("qwen2-moe-nonideal", "qwen2-moe-health"),
 }
 # The paths of every other record (cim_mvm's folded forms).
-NONIDEAL_PATHS = ("phi3-nonideal", "phi3-health", "qwen2-moe-nonideal")
+NONIDEAL_PATHS = ("phi3-nonideal", "phi3-health", "qwen2-moe-nonideal",
+                  "qwen2-moe-health")
 # Substrings of the port's CUDA kernel names, as the profiler shows them.
 PORT_KERNEL_NAMES = ("cim_decode", "cim_prefill", "cim_fold", "cim_grouped",
                      "flash_decode", "flash_prefill", "score_vec",
@@ -2179,16 +2203,17 @@ class _Uncounted:
 
 
 def _health_groups(eng):
-    """(slot, pname) -> (stacked bank, probes (G, M, I), live repeats) of
-    the engine's live lifetimes."""
+    """(slot, pname) -> (stacked bank's flat view, probes (G, M, I), live
+    members) of the engine's live lifetimes: a dense group's members are
+    its repeats, an expert group's r * E + e."""
     groups = {}
     for name, lt in eng.lifetime.items():
         if lt.demoted:
             continue
         key = tuple(name.split("/")[:2])
-        bank, probes, reps = groups.setdefault(key, (lt.bank, [], []))
+        bank, probes, reps = groups.setdefault(key, (lt.bank.flat(), [], []))
         probes.append(eng.health.monitors[name].probes_dev)
-        reps.append(lt.rep)
+        reps.append(lt.flat_index)
     return {k: (b, torch.stack(p), r) for k, (b, p, r) in groups.items()}
 
 
@@ -2338,12 +2363,13 @@ def _round_launches(eng) -> None:
           f"{bound_total:.3f} ms")
 
 
-def _health_arc(eng, serve, check=None) -> dict:
+def _health_arc(eng, serve, check=None, peak=False) -> dict:
     """Drive HEALTH_ARC on ``eng``: ``serve(eng)`` serves a batch and
     returns (tokens, seconds); ``check(eng, what)`` runs after every
     advance and round.  Prints counters and events by kind after each
     round and the seconds of each step (and, with the engine's swap
-    clock, the swaps' draw, aged-gain and fold seconds).  Returns the
+    clock, the swaps' draw, aged-gain and fold seconds; with ``peak``,
+    the peak memory of each advance's heal swaps).  Returns the
     (matrix, event) history, the served runs, the rounds' times and each
     round's probe error a matrix."""
     clock = getattr(eng, "swap_clock", None)
@@ -2356,6 +2382,9 @@ def _health_arc(eng, serve, check=None) -> dict:
         if step:
             s0 = split()
             torch.cuda.synchronize()
+            if peak:
+                before = torch.cuda.memory_allocated() / 2 ** 30
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             eng.advance(step)
             torch.cuda.synchronize()
@@ -2364,7 +2393,11 @@ def _health_arc(eng, serve, check=None) -> dict:
             parts = ", ".join(f"{k} {s1[k] - s0.get(k, 0.0):.2f} s"
                               for k in s1)
             print(f"  advance({step:g}): {dt:.2f} s"
-                  + (f" ({parts})" if parts else ""))
+                  + (f" ({parts})" if parts else "")
+                  + (f"; heal swaps' peak "
+                     f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+                     f"GiB allocated ({before:.2f} GiB before)"
+                     if peak else ""))
             if check:
                 check(eng, f"advance({step:g})")
         n_ev = len(eng.health.events)
@@ -2392,6 +2425,49 @@ def _health_arc(eng, serve, check=None) -> dict:
     return dict(history=hist, served=served, rounds=rounds, errs=errs)
 
 
+def _serve_continuous_fn(prompts):
+    """``_health_arc``'s serve step on a ``ContinuousEngine``: the B
+    prompts as requests of NEW tokens, run to the end; no bank outlives
+    its sequences."""
+    def serve(e):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [e.submit(p.numpy(), max_tokens=NEW) for p in prompts]
+        e.run()
+        dt = time.perf_counter() - t0
+        if e.banks.keys() != {e.serving_epoch}:
+            raise AssertionError("an old bank outlived its sequences")
+        print(f"  serve (ContinuousEngine): {B} requests, {dt:.2f} s, "
+              f"{B * NEW / dt:.1f} tokens/s, epoch {e.serving_epoch}")
+        return dict(tokens=[e.results[r] for r in rids],
+                    tokens_per_s=B * NEW / dt)
+
+    return serve
+
+
+def _check_recalibration(e) -> None:
+    """The matrices recalibrated in the engine's last round, re-read at
+    that round's read seed: each one's probe error lower than the one
+    that tripped it."""
+    from repro_torch.health import probe_error
+    from repro_torch.serve.engine import probe_seed
+
+    tripped = [ev["matrix"] for ev in e.health.events
+               if ev["round"] == e.health.rounds
+               and ev["event"] == "recalibrate"]
+    live = [(n, e.lifetime[n]) for n in tripped]
+    ys = e.health._probe_reads(live, probe_seed(HEALTH_SEED,
+                                                e.health.rounds - 1))
+    worse = [n for n in tripped if probe_error(
+        ys[n], e.health.monitors[n].y_ref) >= e.health.monitors[n].last_err]
+    print(f"  recalibration: {len(tripped)} tripped matrices re-read at the "
+          f"round's read seed, probe error lower for "
+          f"{len(tripped) - len(worse)}")
+    if worse:
+        raise AssertionError(f"recalibration did not lower the probe error "
+                             f"of {worse[:4]}")
+
+
 def phase_health(cfg, built: dict, records: list) -> dict:
     """Full-width phi3-mini (bf16) ageing and healing on imperfect
     devices (``HEALTH``, ``spare_line``) through ``ServeEngine(health=)``
@@ -2406,7 +2482,7 @@ def phase_health(cfg, built: dict, records: list) -> dict:
     for the live matrices only.  Then one heal swap under load at full
     depth.  Returns the launch counts of the path (the three arcs and
     the run under load), less the checks'."""
-    from repro_torch.health import DetectorConfig, HealthConfig, probe_error
+    from repro_torch.health import DetectorConfig, HealthConfig
     from repro_torch.kernels import runtime
     from repro_torch.models.model import init_params
     from repro_torch.nonideal import NonidealModel
@@ -2474,23 +2550,6 @@ def phase_health(cfg, built: dict, records: list) -> dict:
                 _check_batched_reads(e, probe_seed(HEALTH_SEED, 5),
                                      "reprogrammed bank, with read noise")
 
-    def _check_recalibration(e):
-        tripped = [ev["matrix"] for ev in e.health.events
-                   if ev["round"] == e.health.rounds
-                   and ev["event"] == "recalibrate"]
-        live = [(n, e.lifetime[n]) for n in tripped]
-        ys = e.health._probe_reads(live, probe_seed(HEALTH_SEED,
-                                                    e.health.rounds - 1))
-        worse = [n for n in tripped if probe_error(
-            ys[n], e.health.monitors[n].y_ref)
-            >= e.health.monitors[n].last_err]
-        print(f"  recalibration: {len(tripped)} tripped matrices "
-              f"re-read at the round's read seed, probe error lower for "
-              f"{len(tripped) - len(worse)}")
-        if worse:
-            raise AssertionError(f"recalibration did not lower the probe "
-                                 f"error of {worse[:4]}")
-
     print(f"phase phi3-health (ServeEngine): the arc {HEALTH_ARC}")
     with _Uncounted():
         _round_launches(eng)
@@ -2520,22 +2579,9 @@ def phase_health(cfg, built: dict, records: list) -> dict:
     cont = ContinuousEngine(cfg_x, params_x, capacity=2 * B,
                             max_seq=MAX_SEQ, max_prompt=PROMPT, **kw)
 
-    def serve_cont(e):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rids = [e.submit(p.numpy(), max_tokens=NEW) for p in prompts]
-        e.run()
-        dt = time.perf_counter() - t0
-        if e.banks.keys() != {e.serving_epoch}:
-            raise AssertionError("an old bank outlived its sequences")
-        print(f"  serve (ContinuousEngine): {B} requests, {dt:.2f} s, "
-              f"{B * NEW / dt:.1f} tokens/s, epoch {e.serving_epoch}")
-        return dict(tokens=[e.results[r] for r in rids],
-                    tokens_per_s=B * NEW / dt)
-
     print(f"phase phi3-health (ContinuousEngine, {CROSS_LAYERS} layers, "
           f"same seed)")
-    cont_arc = _health_arc(cont, serve_cont, check)
+    cont_arc = _health_arc(cont, _serve_continuous_fn(prompts), check)
     if cont_arc["history"] != serve_arc["history"]:
         raise AssertionError("two same-seed engines gave different event "
                              "histories")
@@ -3541,11 +3587,13 @@ def _grouped_folded_record(eng, fw, built: dict) -> dict:
                 regimes=regimes)
 
 
-def _forced_demotion(eng, seed: int) -> None:
+def _forced_demotion(eng, seed: int, mark: int = 5) -> None:
     """Layer 0's moe_ffn with its two most-hit experts of a random f32
-    input marked degraded in every bank (served digitally in f32), on
-    f32 activations: the kernel path against the plain path (which reads
-    no fold) at MOE_FFN_TOL x max|y|, and the demotion moving y."""
+    input marked degraded (``mark``: an open-line count, or the health
+    ladder's -1) in every bank (served digitally in f32), on f32
+    activations: the kernel path against the plain path (which reads no
+    fold) at MOE_FFN_TOL x max|y|, the grouped form handed no row of
+    the two, and the demotion moving y."""
     from repro_torch.models.model import KERNELS
     from repro_torch.models.moe import _route, moe_ffn
 
@@ -3565,7 +3613,7 @@ def _forced_demotion(eng, seed: int) -> None:
             d = d.layer(0)
             if k.startswith("ffn_we") and demote:
                 deg = d.degraded.clone()
-                deg[two] = 5
+                deg[two] = mark
                 view = dataclasses.replace(d, degraded=deg)
                 view.folded, view.device_tags = d.folded, d.device_tags
                 d = view
@@ -3573,9 +3621,20 @@ def _forced_demotion(eng, seed: int) -> None:
         return out
 
     ys, errs = {}, []
+    handed = []
+
+    def grouped(xc, d, offsets, cap, read_seed):
+        off = offsets.tolist()
+        handed.append(sum(off[e + 1] - off[e] for e in two))
+        return KERNELS.grouped(xc, d, offsets, cap, read_seed)
+
     for demote in (False, True):
         c = layer(demote)
-        yk, _ = moe_ffn(p, x, cfg, KERNELS.grouped, cim=c, read_seed=seed)
+        handed.clear()
+        yk, _ = moe_ffn(p, x, cfg, grouped, cim=c, read_seed=seed)
+        if demote and any(handed):
+            raise AssertionError(f"the grouped form was handed {handed} "
+                                 f"rows of the demoted experts {two}")
         yp, _ = moe_ffn(p, x, cfg, plain.grouped, cim=c, read_seed=seed)
         err = (yk - yp).abs().max().item()
         ref = yp.abs().max().item()
@@ -3590,8 +3649,9 @@ def _forced_demotion(eng, seed: int) -> None:
             raise AssertionError("moe_ffn kernel path disagrees with the "
                                  "plain path (forced demotion)")
     moved = (ys[True] - ys[False]).abs().max().item()
-    print(f"  the demotion of experts {two} ({hits[two].tolist()} rows) moves "
-          f"y by {moved:.3e} (10x the paths' largest difference: "
+    print(f"  the demotion (degraded {mark}) of experts {two} "
+          f"({hits[two].tolist()} rows, none handed to the grouped form) "
+          f"moves y by {moved:.3e} (10x the paths' largest difference: "
           f"{10 * max(errs):.3e})")
     if moved <= 10 * max(errs) or moved == 0.0:
         raise AssertionError("the forced demotion did not change y beyond "
@@ -3769,6 +3829,247 @@ def phase_moe_nonideal(records: list, built: dict) -> dict:
     torch.cuda.empty_cache()
     return counts
 
+# The qwen2-moe-health path: qwen2-moe-a2.7b at full width, this many of
+# its 24 layers (368 matrices, 360 of them experts, at 2), for the run's
+# time limit: the arc refreshes every matrix about six times an engine.
+MOE_HEALTH_LAYERS = 2
+
+
+def _expert_batched_record(eng, built: dict) -> dict:
+    """The batched folded decode form over an expert group: one probe
+    read of layer 0..L-1's gate bank, G = L x 60 members of 2048x1408
+    through the bank's flat view, M = 16 f32 probes, with read noise at
+    round 0's probe seed (bound by bytes: every member's Wg read once):
+    device time with and without noise beside the byte bound, the plain
+    loop and ``torch.bmm`` on W_eff with the noise materialised."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.cim_mvm.ops import cim_mvm_batched
+    from repro_torch.kernels.cim_mvm.ref import (
+        cim_mvm_batched_plain,
+        deployment_weights,
+    )
+    from repro_torch.serve.engine import probe_seed
+
+    n_ops, _ = noise_ops(built)
+    bank, probes, reps = _health_groups(eng)[("slot0_attn", "ffn_we_gate")]
+    G, M, I = probes.shape
+    seed = probe_seed(HEALTH_SEED, 0)
+    dev = probes.device
+    run = lambda s: cim_mvm_batched(probes, bank, s, reps, dev)
+    y = run(seed)
+    want = cim_mvm_batched_plain(probes, bank, seed, reps)
+    err = (y - want).abs().max().item()
+    lim = CIM_TOL * want.abs().amax(dim=(1, 2))
+    worst = ((y - want).abs().amax(dim=(1, 2)) / lim).max().item()
+    ms = device_ms(lambda: run(seed), iters=5)
+    ms_clean = device_ms(lambda: run(None), iters=5)
+    plain_ms = cuda_ms(lambda: cim_mvm_batched_plain(probes, bank, seed,
+                                                     reps), iters=1)
+    i_pad, ld = bank.folded.shape[1:]
+    w_eff = torch.stack([deployment_weights(bank.layer(r), seed)
+                         for r in reps])
+    xp = F.pad(probes, (0, i_pad - I))
+    lib_ms = device_ms(lambda: torch.bmm(xp, w_eff), iters=5)
+    del w_eff, xp
+    N = bank.out_dim
+    n_bytes = G * i_pad * ld * 4 + probes.numel() * 4 + G * M * N * 4 + 4 * G
+    b_ms, b_by = bound(n_bytes, 2.0 * G * M * I * N + n_ops * G * I * N)
+    print(f"cim_mvm_batched over an expert group (ffn_we_gate, G = {G} = "
+          f"{G // 60} layers x 60 experts through the bank's flat view, "
+          f"M = {M}, {I}x{N}): max_abs_err {err:.3e} against the plain "
+          f"loop, worst member {worst:.3f} of {CIM_TOL:g} x its max|y|; "
+          f"kernel {ms:.4f} ms with read noise, {ms_clean:.4f} ms without; "
+          f"plain {plain_ms:.4f} ms; torch.bmm on W_eff {lib_ms:.4f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB)")
+    if worst > 1.0:
+        raise AssertionError("the batched form disagrees with its plain "
+                             "loop over an expert group")
+    return dict(name="cim_mvm_batched[expert group]", route="cuda",
+                source="src/repro_torch/kernels/cim_mvm/kernel.cu",
+                replaces="src/repro/kernels/cim_mvm/kernel.py:82 (vmapped "
+                         "over an expert group, src/repro/health/"
+                         "controller.py:155-163)",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, ms_noiseless=ms_clean,
+                G=G, M=M, I=I, N=N)
+
+
+def _moe_all_demoted(eng, seed: int) -> None:
+    """After the arc's demotion, layer 0's moe_ffn on the served bank
+    (every expert at the ladder's -1) with f32 activations: no grouped
+    launch, and y equal to the digital path's (the reference's
+    capacity-buffer einsum, f32 x @ w an expert) at MOE_FFN_TOL x
+    max|y|."""
+    from repro_torch.kernels import runtime
+    from repro_torch.models.model import KERNELS
+    from repro_torch.models.moe import moe_ffn
+
+    cfg = eng.cfg.replace(dtype="float32")
+    p = {k: v[0].float() for k, v in eng.params["slot0_attn"].items()}
+    c = {k: d.layer(0) for k, d in eng.cim["slot0_attn"].items()}
+    if not all((d.degraded != 0).all() for k, d in c.items()
+               if k.startswith("ffn_we")):
+        raise AssertionError("the arc left a live expert in layer 0")
+    x = torch.randn((B, PROMPT, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(8))
+    before = runtime.launch_counts()["cim_mvm_grouped_folded"]
+    yk, _ = moe_ffn(p, x, cfg, KERNELS.grouped, cim=c, read_seed=seed)
+    launched = runtime.launch_counts()["cim_mvm_grouped_folded"] - before
+    yd, _ = moe_ffn(p, x, cfg, KERNELS.grouped, cim=None)
+    err = (yk - yd).abs().max().item()
+    ref = yd.abs().max().item()
+    print(f"  after the demotion: layer 0 moe_ffn (f32, {B}x{PROMPT} "
+          f"tokens) on the all-demoted bank: {launched} grouped launches, "
+          f"max_abs_err {err:.3e} against the digital path ({err / ref:.3e}"
+          f" of max|y| {ref:.3e}, tol {MOE_FFN_TOL:g})")
+    if launched or err > MOE_FFN_TOL * ref:
+        raise AssertionError("a demoted expert was read through its "
+                             "crossbar or disagrees with x @ w")
+
+
+def phase_moe_health(records: list, built: dict) -> dict:
+    """qwen2-moe-a2.7b at full width and MOE_HEALTH_LAYERS of its 24
+    layers in bf16, random weights from seed 0, on phi3-health's devices
+    (HEALTH, HEALTH_SEED) under MOE_NONIDEAL_PIPELINE, no plan cache:
+    ``ServeEngine(health=)`` (stages and swaps timed) runs HEALTH_ARC,
+    then ``ContinuousEngine(health=)`` with the same seed; event
+    histories identical and each round's probe errors equal.  On each,
+    every refreshed fold bit for bit against its plain version, the
+    expert groups' batched probe reads (one launch a group over the
+    bank's flat view) against their plain loop with and without read
+    noise, recalibration lowering each tripped matrix's probe error,
+    launches of cim_mvm and the grouped folded forms for live matrices
+    and banks only; on the ServeEngine a health demotion of two hit
+    experts forced at the reprogrammed bank, and after the arc's
+    demotion layer 0 served digitally.  Then one heal swap under load.
+    Returns the path's launch counts, less the checks'."""
+    from repro_torch.configs import CimConfig
+    from repro_torch.configs.qwen2_moe_a27b import CONFIG as QWEN
+    from repro_torch.deploy import DEMOTED_RUNTIME
+    from repro_torch.health import DetectorConfig, HealthConfig
+    from repro_torch.kernels import runtime
+    from repro_torch.models.model import init_params
+    from repro_torch.nonideal import NonidealModel
+    from repro_torch.serve import ContinuousEngine, ServeEngine
+    from repro_torch.serve.engine import probe_seed
+
+    cfg = QWEN.replace(n_layers=MOE_HEALTH_LAYERS,
+                       cim=CimConfig(enabled=True, mode="mdm_expert"))
+    L = cfg.n_layers
+    model = NonidealModel(**HEALTH)
+    health = HealthConfig(n_probes=HEALTH_PROBES,
+                          max_reprograms=HEALTH_REPROGRAMS,
+                          detector=DetectorConfig(**HEALTH_DETECTOR))
+    kw = dict(nonideal=model, nonideal_seed=HEALTH_SEED,
+              pipeline=MOE_NONIDEAL_PIPELINE, health=health, plan_cache=False,
+              device="cuda")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launch_counts()
+    EXCLUDED.clear()
+    torch.cuda.synchronize()
+    t_path = t0 = time.perf_counter()
+    eng = ServeEngine(cfg, params, max_seq=MAX_SEQ, timed_deploy=True, **kw)
+    torch.cuda.synchronize()
+    n_exp = sum(len(lt.rep) == 2 for lt in eng.lifetime.values())
+    print(f"phase deploy (qwen2-moe-health): {cfg.dtype}, {L} of 24 layers "
+          f"(a cut for the run's time limit), {model}, seed {HEALTH_SEED}, "
+          f"{MOE_NONIDEAL_PIPELINE}, no plan cache: "
+          f"{time.perf_counter() - t0:.2f} s, {len(eng.lifetime)} lifetimes "
+          f"({n_exp} experts), {health}; stages "
+          f"{ {k: round(v, 2) for k, v in eng.deploy_report['seconds'].items()} }"
+          f"; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    with _Uncounted():
+        records.append(_expert_batched_record(eng, built))
+        _check_batched_reads(eng, None, "fresh bank, noiseless")
+        _check_batched_reads(eng, probe_seed(HEALTH_SEED, 0),
+                             "fresh bank, with read noise")
+        _round_launches(eng)
+
+    def serve(e):
+        e.generate(prompts, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = runtime.launch_counts()
+        tokens = e.generate(prompts, NEW)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = runtime.launch_counts()
+        n = {k: after[k] - before[k]
+             for k in ("cim_mvm", "cim_mvm_grouped_folded")}
+        live = [lt for lt in e.lifetime.values() if not lt.demoted]
+        dense = sum(len(lt.rep) == 1 for lt in live)
+        banks = len({(lt.name.split("/")[1], lt.rep[0]) for lt in live
+                     if len(lt.rep) == 2})
+        ok = n["cim_mvm"] == dense * NEW and \
+            n["cim_mvm_grouped_folded"] == banks * NEW
+        print(f"  serve: B={B} prompt {PROMPT} new {NEW}: {dt:.2f} s, "
+              f"{B * NEW / dt:.1f} tokens/s; cim_mvm {n['cim_mvm']} "
+              f"launches = {dense} live attention matrices x {NEW} forwards"
+              f", grouped folded {n['cim_mvm_grouped_folded']} = {banks} "
+              f"banks with a live expert x {NEW}{'' if ok else ' FAIL'}")
+        if not ok:
+            raise AssertionError("launches != live matrices and banks x "
+                                 "forwards")
+        if not torch.isfinite(e.teacher_forced_logits(torch.cat(
+                [prompts.to(e.device), tokens.long()], 1)[:, :PROMPT + 1],
+                PROMPT)).all():
+            raise AssertionError("non-finite logits")
+        return dict(tokens=tokens, tokens_per_s=B * NEW / dt)
+
+    def check(e, what):
+        if not (what.startswith("advance") or what in (
+                "round 5", "round 6", "round 7", "round 8")):
+            return                      # a round that changed nothing
+        with _Uncounted():
+            _check_refolds(e, what)
+            if what == "round 5":       # the recalibration round
+                _check_recalibration(e)
+            if what == "round 6":       # after the reprogram
+                _check_batched_reads(e, probe_seed(HEALTH_SEED, 5),
+                                     "reprogrammed bank, with read noise")
+                if hasattr(e, "cim"):
+                    _forced_demotion(e, 5, mark=DEMOTED_RUNTIME)
+
+    print(f"phase qwen2-moe-health (ServeEngine): the arc {HEALTH_ARC}")
+    serve_arc = _health_arc(eng, serve, check, peak=True)
+    rep = eng.health_report
+    print(f"  ServeEngine arc: counters {rep.counters}, flaps {rep.flaps}, "
+          f"tokens/s before the heals "
+          f"{serve_arc['served'][0]['tokens_per_s']:.1f}, after "
+          f"{serve_arc['served'][1]['tokens_per_s']:.1f}; probe rounds "
+          f"{[round(r * 1e3, 1) for r in serve_arc['rounds']]} ms")
+    with _Uncounted():
+        _moe_all_demoted(eng, 5)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    cont = ContinuousEngine(cfg, params, capacity=2 * B, max_seq=MAX_SEQ,
+                            max_prompt=PROMPT, **kw)
+    print("phase qwen2-moe-health (ContinuousEngine, same seed)")
+    cont_arc = _health_arc(cont, _serve_continuous_fn(prompts), check)
+    if cont_arc["history"] != serve_arc["history"]:
+        raise AssertionError("two same-seed engines gave different event "
+                             "histories")
+    _same_errors(serve_arc["errs"], cont_arc["errs"])
+    print(f"  event histories identical across the two engines "
+          f"({len(serve_arc['history'])} events: "
+          f"{ {k: sum(1 for h in serve_arc['history'] if h[2] == k) for k in ('trip', 'recalibrate', 'reprogram', 'demote', 'clear')} })")
+    del cont
+    gc.collect()
+    torch.cuda.empty_cache()
+    _health_under_load(cfg, params, kw)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  the qwen2-moe-health path: {time.perf_counter() - t_path:.1f} "
+          f"s")
+    return _launches("qwen2-moe-health")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3869,6 +4170,9 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
     print(f"config qwen2-moe-a2.7b on imperfect devices, {MOE_NONIDEAL_LAYERS} "
           f"of 24 layers, alone on the card")
     by_path["qwen2-moe-nonideal"] = phase_moe_nonideal(records, built)
+    print(f"config qwen2-moe-a2.7b ageing and self-healing, "
+          f"{MOE_HEALTH_LAYERS} of 24 layers, alone on the card")
+    by_path["qwen2-moe-health"] = phase_moe_health(records, built)
     for r in records:
         name = r["name"]
         kernel = name.split("[")[0]

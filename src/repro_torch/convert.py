@@ -132,7 +132,9 @@ def reference_draws(ref_lifetime, device="cuda") -> Callable[[int], tuple]:
 
 def take_reference_draws(lifetimes: Mapping, ref_lifetimes: Mapping) -> None:
     """Make every port lifetime of ``lifetimes`` read its cells from the
-    reference's lifetime of the same name (:func:`reference_draws`)."""
+    reference's lifetime of the same name (:func:`reference_draws`):
+    ``slot/pname/r``, or ``slot/pname/r/e{k}`` for an expert, the
+    reference's names for the same matrices."""
     for name, lt in lifetimes.items():
         lt.draws = reference_draws(ref_lifetimes[name], lt.dep.codes.device)
 

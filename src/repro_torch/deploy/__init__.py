@@ -1,9 +1,9 @@
-"""Whole-model CIM deployment of the port (dense models on ideal or
-imperfect devices; MoE expert banks, one matrix an expert, on ideal
-devices): the plan cache (``cache``), planning one matrix at
-a time through it (``planner``) and packaging, with the devices' faults
-and variation injected, into the stacked deployments the serving path
-reads (``engine``), and the per-matrix lifetime state that ages and heals
+"""Whole-model CIM deployment of the port (dense models and MoE expert
+banks, one matrix an expert, on ideal or imperfect devices): the plan
+cache (``cache``), planning one matrix at a time through it
+(``planner``) and packaging, with the devices' faults and variation
+injected, into the stacked deployments the serving path reads
+(``engine``), and the per-matrix lifetime state that ages and heals
 them while they serve (``lifetime``)."""
 from repro_torch.deploy.cache import (  # noqa: F401
     PLAN_CACHE_VERSION,
@@ -17,6 +17,7 @@ from repro_torch.deploy.cache import (  # noqa: F401
 from repro_torch.deploy.lifetime import (  # noqa: F401
     DEMOTED_RUNTIME,
     MatrixLifetime,
+    bank_index,
     group_key,
     pad_host_deployment,
     restack_group,

@@ -11,8 +11,7 @@ pattern repeats (an expert bank over repeats and experts), the layout
 ``repro_torch.models.model.apply_model`` walks.  Every other parameter
 stays digital and is recorded with the reference's reason.  Expert
 banks deploy onto ideal or imperfect devices, each expert a matrix of
-its own (its cells, noise tag and fold); lifetime state on them (aging
-and self-healing) is the next slice of the port.
+its own (its cells, noise tag, fold and lifetime state).
 
 Imperfect devices (``nonideal``): every matrix's physical cells are
 drawn on the device from (seed, its traversal index) — one matrix at a
@@ -44,7 +43,7 @@ from repro_torch.core.tiling import CrossbarSpec
 from repro_torch.deploy.cache import PlanCache
 from repro_torch.deploy.planner import plan_matrices
 from repro_torch.device import check_on, resolve_device
-from repro_torch.deploy.lifetime import MatrixLifetime, _untimed
+from repro_torch.deploy.lifetime import MatrixLifetime, _untimed, bank_index
 from repro_torch.kernels.cim_mvm.ops import CimDeployment, fold, package_padded
 from repro_torch.mapping import FaultAwareRows, MdmRows, resolve_pipeline
 from repro_torch.nonideal.inject import (
@@ -147,13 +146,6 @@ def collect_model_matrices(params: dict, cfg: ModelConfig, pipeline=None
     summary = {"deployed": list(mats), "skipped": skipped,
                "n_deployed": len(mats), "n_skipped": len(skipped)}
     return mats, summary
-
-
-def _bank_index(name: str) -> tuple[str, str, tuple[int, ...]]:
-    """(slot, param, index into the stacked bank) of a matrix name:
-    (repeat,) or, for an expert, (repeat, expert)."""
-    slot, pname, r, *sub = name.split("/")
-    return slot, pname, (int(r),) + tuple(int(e[1:]) for e in sub)
 
 
 class StageClock:
@@ -342,9 +334,8 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
     spec string) defaults to ``cfg.cim.mode``; an expert-axis partition
     (``"mdm_expert"``, or a spec with ``part=expert``) deploys the MoE
     expert banks, each expert ``slot/param/r/e{k}`` a matrix of the
-    traversal (``lifetime`` with expert banks raises
-    ``NotImplementedError``: the next slice).  An expert bank that reads
-    folded gets ``device_tags``, its noise tags on the device.
+    traversal.  An expert bank that reads folded gets ``device_tags``,
+    its noise tags on the device.
 
     ``nonideal`` deploys onto imperfect devices keyed by the int
     ``nonideal_key`` (default 0): each matrix's cells are drawn on the
@@ -363,10 +354,11 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
 
     ``lifetime`` (a dict, filled in place; with a non-ideal ``nonideal``
     only) captures a :class:`repro_torch.deploy.lifetime.MatrixLifetime`
-    a matrix: its key, traversal index, crossbar spec and model, a view
-    of its weight and its repeat of the stacked bank (whose codes,
-    ``pos`` and ``col_pos`` are what a refresh re-draws and gathers
-    through), aged at the model's ``drift_time``.  Every captured
+    a matrix, experts included: its key, traversal index, crossbar spec
+    and model, a view of its weight and its index into the stacked bank
+    ((repeat,) or (repeat, expert); the bank's codes, ``pos`` and
+    ``col_pos`` are what a refresh re-draws and gathers through), aged
+    at the model's ``drift_time``.  Every captured
     deployment carries a gain and ``degraded`` and is folded.
     """
     dev = resolve_device(device)
@@ -375,13 +367,6 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
     mode = pipeline if pipeline is not None else cfg.cim.mode
     mats, summary = collect_model_matrices(params, cfg, mode)
     check_on(dev, **{name.replace("/", "_"): w for name, w in mats.items()})
-    experts = [n for n in mats if len(_bank_index(n)[2]) > 1]
-    if experts and lifetime is not None:
-        raise NotImplementedError(
-            f"{len(experts)} MoE expert matrices: lifetime state (health=) "
-            "on an expert partition is the next slice of the port (a "
-            "capture per repeat and expert, the nested restack, probe "
-            "rounds over expert groups)")
     clock = StageClock(dev) if timed else _untimed
 
     cells_of = fault_maps = None
@@ -422,7 +407,7 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
     degraded: dict[str, int] = {}
     cim_tree: dict = {}
     for t, name in enumerate(mats):
-        slot, pname, idx = _bank_index(name)
+        slot, pname, idx = bank_index(name)
         with clock("plan"):
             plan = plans.pop(name)
         c = None if cells_of is None else cells_of(name)
@@ -457,12 +442,12 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
                 bank.device_tags = bank.noise_tag.to(dev)
     if capture:
         for t, name in enumerate(mats):
-            slot, pname, r = name.split("/")
+            slot, pname, idx = bank_index(name)
             bank = cim_tree[slot][pname]
             lifetime[name] = MatrixLifetime(
                 name=name, noise_tag=t, spec=spec, model=nonideal,
                 eta=cfg.cim.eta, key=key, w=mats[name],
-                dep=bank.layer(int(r)), bank=bank, rep=int(r),
+                dep=bank.member(idx), bank=bank, rep=idx,
                 cells=None if cells is None else cells_on(cells[name], dev),
                 age=float(nonideal.drift_time))
     b, a = float(nf_before), float(nf_after)

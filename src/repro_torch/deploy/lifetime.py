@@ -26,11 +26,12 @@ folds W' * gain with the fold kernel.  The post-stuck codes are the
 served bank's.
 
 **Refreshes land in the bank.**  A matrix served from a stacked bank
-(``bank``, repeat ``rep``) is refreshed by :func:`restack_group`, which
-builds the group's next stacked deployment (fresh ``gain``, ``folded``
-and ``degraded``; the codes, positions and scale shared with the old
-one, which nobody mutates), one fold launch a refreshed member; the
-engines swap it in as a fresh dict.  Until then the ladder only marks
+(``bank``, at ``rep``: its repeat, or its repeat and expert in an MoE
+expert bank) is refreshed by :func:`restack_group`, which builds the
+group's next stacked deployment (fresh ``gain``, ``folded`` and
+``degraded``; the codes, positions and scale shared with the old one,
+which nobody mutates), one fold launch a refreshed member; the engines
+swap it in as a fresh dict.  Until then the ladder only marks
 the matrix ``stale``.  A matrix with no bank (a hand-built lifetime) is
 refreshed at once into its own deployment.
 """
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Callable
 
 import numpy as np
@@ -74,8 +76,9 @@ def _untimed(stage: str):
 class MatrixLifetime:
     """Lifetime state of one deployed matrix.
 
-    ``dep`` is the served deployment (``bank.layer(rep)`` for a banked
-    matrix); ``noise_tag`` is its traversal index, its read-noise tag and
+    ``dep`` is the served deployment (``bank.member(rep)`` for a banked
+    matrix, ``rep`` its index into the bank: (repeat,) or (repeat,
+    expert)); ``noise_tag`` is its traversal index, its read-noise tag and
     the index its cells are drawn by under ``key``; ``w`` is a view of
     the served parameter (the probes' digital reference).  ``cells``:
     the deploy's physical cells where they were given rather than drawn
@@ -94,7 +97,7 @@ class MatrixLifetime:
     w: torch.Tensor
     dep: CimDeployment
     bank: CimDeployment | None = None
-    rep: int = 0
+    rep: tuple[int, ...] = (0,)
     cells: HostCells | None = None
     draws: Callable[[int], tuple] | None = None
     age: float = 1.0
@@ -116,6 +119,14 @@ class MatrixLifetime:
         self.stale = True
         if self.bank is None:
             self.refresh()
+
+    @property
+    def flat_index(self) -> int:
+        """This matrix's member of its bank's flat view
+        (``CimDeployment.flat``): r, or r * E + e for an expert."""
+        lead = self.bank.scale.shape
+        return sum(i * math.prod(lead[k + 1:])
+                   for k, i in enumerate(self.rep))
 
     @property
     def grid(self) -> tuple[int, int]:
@@ -261,6 +272,14 @@ def group_key(name: str) -> tuple[str, str]:
     return parts[0], parts[1]
 
 
+def bank_index(name: str) -> tuple[str, str, tuple[int, ...]]:
+    """(slot, param, index into the stacked bank) of a matrix name
+    ``slot/param/r``, or ``slot/param/r/e{k}`` for an expert: (r,) or
+    (r, k)."""
+    slot, pname, r, *sub = name.split("/")
+    return slot, pname, (int(r),) + tuple(int(e[1:]) for e in sub)
+
+
 def stack_deployments(deps: list[CimDeployment]) -> CimDeployment:
     """One stacked deployment (a leading member axis on every tensor,
     ``folded`` included: each member is folded where it is not) from
@@ -280,28 +299,34 @@ def restack_group(lifetimes: dict[str, MatrixLifetime], slot: str,
                   pname: str, clock=_untimed) -> CimDeployment:
     """The next stacked deployment of one (slot, pname) group.
 
-    Every member must be a repeat of one served stacked deployment (the
-    dense layout ``slot/pname/r``).  The result shares the old one's
-    codes, positions, scale, column layouts and noise tags; its
-    ``degraded`` marks the demoted members; where a member is stale its
-    ``gain`` and ``folded`` are fresh tensors with that member refreshed
-    (:meth:`MatrixLifetime.gain_into`, then one fold launch), else they
-    are the old ones.  The old deployment is not mutated, so the caller
-    swaps the result in as a fresh dict and a forward holding the old
-    tree keeps a consistent bank.  Members are re-pointed at the result.
-    ``clock`` (a :class:`repro_torch.deploy.engine.StageClock`) times
-    the stages "draw", "gain" and "fold".
+    Every member must be a matrix of one served stacked deployment, at
+    the index its name gives: the repeats of a dense bank
+    (``slot/pname/r``), or the repeats and experts of an MoE expert bank
+    (``slot/pname/r/e{k}``, the reference's nested case).  The result
+    shares the old one's codes, positions, scale, column layouts and
+    noise tags; its ``degraded`` marks the demoted members; where a
+    member is stale its ``gain`` and ``folded`` are fresh tensors with
+    that member refreshed (:meth:`MatrixLifetime.gain_into`, then one
+    fold launch of its view), else they are the old ones.  The old
+    deployment is not mutated, so the caller swaps the result in as a
+    fresh dict and a forward holding the old tree keeps a consistent
+    bank.  Members are re-pointed at the result's views.  ``clock`` (a
+    :class:`repro_torch.deploy.engine.StageClock`) times the stages
+    "draw", "gain" and "fold".
     """
     members = [lt for n, lt in lifetimes.items()
                if group_key(n) == (slot, pname)]
     old = members[0].bank if members else None
-    if old is None or any(lt.bank is not old or len(lt.name.split("/")) != 3
+    if old is None or any(lt.bank is not old
+                          or bank_index(lt.name)[2] != lt.rep
+                          or len(lt.rep) != old.scale.ndim
                           for lt in members):
-        raise ValueError(f"restack_group: {slot}/{pname} is not the repeats "
-                         "of one served stacked deployment")
+        raise ValueError(f"restack_group: {slot}/{pname} is not the "
+                         "matrices of one served stacked deployment")
     new = dataclasses.replace(old)
+    new.device_tags = old.device_tags
     new.degraded = (old.degraded.clone() if old.degraded is not None
-                    else torch.zeros(old.codes.shape[0], dtype=torch.int32))
+                    else torch.zeros(old.scale.shape, dtype=torch.int32))
     for lt in members:
         if lt.demoted:
             new.degraded[lt.rep] = DEMOTED_RUNTIME
@@ -312,7 +337,7 @@ def restack_group(lifetimes: dict[str, MatrixLifetime], slot: str,
         for lt in stale:
             lt.gain_into(new.gain[lt.rep], clock)
             with clock("fold"):
-                new.folded[lt.rep] = fold_weights(new.layer(lt.rep))
+                new.folded[lt.rep] = fold_weights(new.member(lt.rep))
     for lt in members:
-        lt.bank, lt.dep, lt.stale = new, new.layer(lt.rep), False
+        lt.bank, lt.dep, lt.stale = new, new.member(lt.rep), False
     return new

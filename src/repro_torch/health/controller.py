@@ -22,13 +22,14 @@ bank.
 
 A probe round reads every group in one launch of ``cim_mvm``'s batched
 form (:func:`repro_torch.kernels.cim_mvm.ops.cim_mvm_batched`): a group
-that is repeats of one served stacked deployment reads it in place (the
-live members by index), other groups of one shape are stacked, ragged
-groups are zero-drive padded to one shape, and groups whose static meta
-conflicts, singletons, and probe batches wider than the batched form's
-``DECODE_MAX_M`` rows read one matrix at a time.  Neither engine
+that is the matrices of one served stacked deployment reads it in place
+(the live members by index; an expert bank's R * E experts through its
+flat view, member r * E + e), other groups of one shape are stacked,
+ragged groups are zero-drive padded to one shape, and groups whose
+static meta conflicts, singletons, and probe batches wider than the
+batched form's ``DECODE_MAX_M`` rows read one matrix at a time.  Neither engine
 reaches the last three: ``deploy_model_params`` always banks, so every
-group an engine probes is repeats of one served stack.  They read
+group an engine probes is the matrices of one served stack.  They read
 lifetimes built outside the engines, as the parity tests build them
 against the reference's vmapped and sequential reads.  The reference's
 telemetry (histograms, counters, spans) is left out: the ``counters``,
@@ -143,8 +144,9 @@ class HealthController:
                 bank = members[0][1].bank
                 if bank is not None and all(lt.bank is bank
                                             for _, lt in members):
-                    ys = self._read(self._probes(members), bank, read_seed,
-                                    [lt.rep for _, lt in members])
+                    ys = self._read(self._probes(members), bank.flat(),
+                                    read_seed,
+                                    [lt.flat_index for _, lt in members])
                 elif self._stackable(members):
                     ys = self._read(
                         self._probes(members),

@@ -14,7 +14,11 @@ reference's.  The residuals and the recalibration fit run in numpy on
 the host, as the reference's do.  :class:`MatrixMonitor` computes the
 reference product once on the matrix's device, in f32, and keeps no copy
 of the weights (at phi3-mini's width the reference's host copies of
-every matrix would take 14.5 GB).
+every matrix would take 14.5 GB).  What it keeps is 4 * n_probes bytes
+an input on the device and an output on the host: with 16 probes,
+qwen2-moe-a2.7b's 184 matrices a layer (60 experts x 3, 4 attention
+projections) hold 21.7 MB of probes and 19.2 MB of references a
+layer, 0.17 and 0.15 GB at 8 layers.
 """
 from __future__ import annotations
 

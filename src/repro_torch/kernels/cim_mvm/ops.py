@@ -66,8 +66,10 @@ class CimDeployment:
            device (set at deploy; the grouped folded form reads each
            expert's tag there, with no copy a call), or None; not an
            init field either.
-    A stacked deployment carries a leading repeat axis on every tensor;
-    :meth:`layer` takes one repeat's views.
+    A stacked deployment carries a leading repeat axis on every tensor
+    (an expert bank two, repeats and experts); :meth:`layer` takes one
+    repeat's views, :meth:`member` one matrix's and :meth:`flat` an
+    expert bank's as one stack of R * E members.
     """
 
     codes: torch.Tensor
@@ -91,6 +93,32 @@ class CimDeployment:
         default=None, init=False, repr=False)
     _layers: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False, compare=False)
+
+    def member(self, idx: tuple[int, ...]) -> "CimDeployment":
+        """The matrix at ``idx`` of a stack, (repeat,) or (repeat,
+        expert): :meth:`layer` a level at a time, each view cached."""
+        view = self
+        for i in idx:
+            view = view.layer(i)
+        return view
+
+    def flat(self) -> "CimDeployment":
+        """This stack with its lead axes merged into one: an expert bank
+        (R, E, ...) as R * E members, member r * E + e (views of the
+        contiguous bank, no copy); a stack of repeats is its own flat
+        view."""
+        if self.scale.ndim <= 1:
+            return self
+        n = self.scale.numel()
+        merge = lambda t: None if t is None else t.view(
+            (n,) + tuple(t.shape[self.scale.ndim:]))
+        flat = dataclasses.replace(
+            self, **{f: merge(getattr(self, f))
+                     for f in ("codes", "pos", "scale", "gain", "col_pos",
+                               "degraded", "noise_tag")})
+        flat.folded = merge(self.folded)
+        flat.device_tags = merge(self.device_tags)
+        return flat
 
     def layer(self, r: int) -> "CimDeployment":
         """Repeat ``r`` of a stacked deployment (views, no copy), made
@@ -823,9 +851,16 @@ def _launch_batched(x: torch.Tensor, dep: CimDeployment,
     noise = noisy(dep, read_seed)
     seed = int(read_seed) & 0xFFFFFFFF if noise else 0
     dev = x.device
-    rep_t = torch.tensor(reps, dtype=torch.int32, device=dev)
-    tags = (dep.noise_tag.reshape(-1)[reps].to(dev, torch.int32)
-            if noise else None)
+    # The member list (and a dense stack's tags) go up from pinned
+    # memory without a stream sync, so a probe round's launches queue
+    # behind each other; an expert bank's tags are gathered on the card.
+    up = lambda t: t.pin_memory().to(dev, non_blocking=True)
+    rep_t = up(torch.tensor(reps, dtype=torch.int32))
+    tags = None
+    if noise:
+        tags = (dep.device_tags.reshape(-1).index_select(0, rep_t)
+                if dep.device_tags is not None
+                else up(dep.noise_tag.reshape(-1)[reps].to(torch.int32)))
     out = torch.empty((G, M, dep.out_dim), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
@@ -852,9 +887,10 @@ def cim_mvm_batched(x: torch.Tensor, dep: CimDeployment,
     over a stacked group.
 
     x: (G, M, in_dim) f32 or bf16 (other types are cast to f32), M <=
-    ``DECODE_MAX_M``; ``dep``: a stacked deployment (a leading repeat
-    axis), folded (:func:`fold`, or ``repro_torch.deploy`` at deploy);
-    ``members``: the G repeats read, in order (default all; need not be
+    ``DECODE_MAX_M``; ``dep``: a stacked deployment (a leading member
+    axis: repeats, or an expert bank's :meth:`CimDeployment.flat` view),
+    folded (:func:`fold`, or ``repro_torch.deploy`` at deploy);
+    ``members``: the G members read, in order (default all; need not be
     consecutive).  Each member reads with its own noise tag under one
     ``read_seed``, as :func:`cim_mvm` does.  Returns (G, M, out_dim) f32:
     the batched folded decode form on CUDA, its plain version (a loop of

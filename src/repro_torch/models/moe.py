@@ -21,9 +21,10 @@ expert no token chose.  Without a deployment the products are the
 reference's digital einsum over the capacity buffer.  A bank on
 imperfect devices is read folded, each expert with its own read-noise
 tag under the forward's ``read_seed`` (the reference's ``read_key``).
-An expert whose deployment is degraded (``degraded != 0``) is served
-digitally in f32, as the reference's ``_expert_mm``; the port decides
-that on the host, from the bank's CPU ``degraded`` counts.
+An expert whose deployment is degraded (``degraded != 0``: open lines,
+or demoted by the health ladder) is served digitally in f32, as the
+reference's ``_expert_mm``, and the grouped read skips it; the port
+decides that on the host, from the bank's CPU ``degraded`` counts.
 
 A token's K contributions are summed in ascending expert order, the
 order of the reference's sorted scatter-add, in the activation dtype
@@ -125,12 +126,25 @@ def _expert_mm(x: torch.Tensor, w: torch.Tensor, dep, disp: Dispatch,
         ye = torch.einsum("ecd,edf->ecf", buf[:, :disp.bound], w)
         y = ye[disp.e, disp.r.clamp(max=max(disp.bound - 1, 0))]
         return torch.where(disp.keep[:, None], y, 0).to(x.dtype)
+    # Demoted on ``degraded != 0``: an open-line count (> 0) or the
+    # health ladder's runtime sentinel (-1), as the dense path
+    # (``models/model.py::_cim_matmul``) and ``MatrixLifetime.demote``'s
+    # contract say.  The reference's expert path tests ``> 0``
+    # (src/repro/models/moe.py:55) and so keeps reading a health-demoted
+    # expert through its crossbar at its last gain.
     demoted = ([] if dep.degraded is None else
                torch.nonzero(dep.degraded.reshape(-1)).reshape(-1).tolist())
     if len(demoted) < E:
+        read = disp
+        if demoted:                  # the grouped read skips them
+            live = torch.ones(E, dtype=torch.bool, device=x.device)
+            live[demoted] = False
+            kept = (disp.offsets[1:] - disp.offsets[:-1]) * live
+            read = _dispatch(disp.e, disp.r, disp.keep & live[disp.e],
+                             kept, disp.bound)
         xc = x.new_empty((n + 1, x.shape[1]))
-        xc[disp.a] = x               # dropped rows all land on row n
-        y = grouped(xc, dep, disp.offsets, disp.bound, read_seed)[disp.a]
+        xc[read.a] = x               # dropped rows all land on row n
+        y = grouped(xc, dep, read.offsets, read.bound, read_seed)[read.a]
     else:                            # no expert left on the crossbars
         y = x.new_zeros((n, w.shape[2]), dtype=torch.float32)
     for e in demoted:

@@ -11,9 +11,9 @@ an expert-axis pipeline (``"mdm_expert"``, or a spec with
 ``part=expert``) serves its expert banks through ``cim_mvm``'s grouped
 forms, on ideal or imperfect devices (``nonideal``: each expert folded
 at deploy and read with its own noise tag, a degraded expert served
-digitally); ``health`` on an expert partition raises
-``NotImplementedError`` at deploy (lifetime state on expert banks is
-the next slice).  An xLSTM model serves every sLSTM recurrence
+digitally), ``health`` included: every expert has its lifetime state,
+and a probe round reads an expert bank's R * E experts in one launch.
+An xLSTM model serves every sLSTM recurrence
 through ``slstm_scan``; its mLSTM q/k/v are deployed but, as in the
 reference, served digitally, and ``max_seq`` sizes nothing for it (the
 recurrent state is O(1) in the sequence).

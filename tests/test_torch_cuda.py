@@ -1373,3 +1373,116 @@ def test_flash_kernel_bf16_at_head_dim_128(cuda, Sq, C):
     torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_RTOL,
                                atol=2e-5)
     assert torch.equal(out, run())
+
+
+@functools.lru_cache(maxsize=1)
+def _nested_bank(R, I, N):
+    """An MoE expert bank of R repeats x 60 experts of (I, N), as
+    ``repro_torch.deploy`` stacks one (R, E, ...): ``_folded_bank``'s 60
+    folded experts, repeat r's fold scaled by 1 + r / 64 (so every
+    repeat reads other weights), member (r, e)'s tag 10 + 60 r + e."""
+    base = _folded_bank(60, I, N, (64, 64, 8), 7)
+    rep = lambda t: torch.stack([t] * R).contiguous()
+    bank = dataclasses.replace(base, **{
+        f: rep(getattr(base, f))
+        for f in ("codes", "pos", "scale", "gain", "col_pos")})
+    bank.noise_tag = (10 + torch.arange(R * 60, dtype=torch.int32)).view(
+        R, 60)
+    bank.folded = rep(base.folded)
+    for r in range(R):
+        bank.folded[r].mul_(1.0 + r / 64)
+    bank.device_tags = bank.noise_tag.to(base.folded.device)
+    return bank
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [2, 8])
+@pytest.mark.parametrize("I,N", [(2048, 1408), (1408, 2048)],
+                         ids=["gate", "down"])
+@pytest.mark.parametrize("noise", [False, True], ids=["clean", "noisy"])
+def test_cim_mvm_batched_on_flat_expert_view(cuda, R, I, N, noise):
+    """A probe round's read of a qwen2-moe expert group: the batched
+    form, one launch over G = R x 60 members of the bank's flat view
+    (members r * 60 + e, all of them, and a subset in another order),
+    every member against its plain loop at 1e-5 x max|y|; the flat view
+    a view of the bank (no copy), its member r * 60 + e the bank's
+    member (r, e)."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.cim_mvm.ops import cim_mvm_batched
+    from repro_torch.kernels.cim_mvm.ref import cim_mvm_batched_plain
+
+    bank = _nested_bank(R, I, N)
+    flat = bank.flat()
+    assert flat.folded.data_ptr() == bank.folded.data_ptr()
+    assert flat.codes.shape[0] == R * 60 and flat.scale.shape == (R * 60,)
+    assert torch.equal(flat.layer(61).folded, bank.member((1, 1)).folded)
+    seed = 33 if noise else None
+    for members in (list(range(R * 60)), list(range(R * 60))[::-7]):
+        x = torch.randn((len(members), 16, I), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(
+                            len(members)))
+        runtime.reset_launch_counts()
+        y = cim_mvm_batched(x, flat, seed, members, device=cuda)
+        assert runtime.launch_counts()["cim_mvm_batched"] == 1
+        want = cim_mvm_batched_plain(x, flat, seed, members)
+        err = (y - want).abs().amax(dim=(1, 2))
+        assert (err <= 1e-5 * want.abs().amax(dim=(1, 2))).all(), err.max()
+
+
+@pytest.mark.cuda
+def test_nested_restack_refolds_bit_for_bit(cuda):
+    """A lifetime-captured MoE deploy on the card (expert banks under
+    ``mdm_expert``): every expert group restacked at the deploy's age
+    rebuilds the deployed fold bit for bit (the cells drawn again on the
+    card), then after a recalibration, a reprogram and an age advance
+    every refreshed expert's fold, one fold launch a member, is
+    bit-identical to the fold's plain version of its new gain; a
+    demoted expert keeps its fold and gets the sentinel."""
+    from repro_torch.configs import CimConfig, ModelConfig
+    from repro_torch.deploy import (
+        DEMOTED_RUNTIME,
+        deploy_model_params,
+        restack_group,
+    )
+    from repro_torch.kernels import runtime
+    from repro_torch.models.model import init_params
+    from repro_torch.nonideal import NonidealModel
+
+    cfg = ModelConfig(name="narrow-moe", family="moe", n_layers=2,
+                      d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                      vocab_size=256, dtype="float32", qkv_bias=True,
+                      n_experts=6, n_experts_per_token=2,
+                      n_shared_experts=1, moe_d_ff=96,
+                      cim=CimConfig(enabled=True, mode="mdm_expert",
+                                    rows=32, cols=32, n_bits=8))
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    model = NonidealModel(p_stuck_off=0.01, sigma_program=0.05,
+                          sigma_corr=0.05, drift_nu=0.05, drift_time=10.0,
+                          sigma_relax=0.08, sigma_read=0.01)
+    lifetime: dict = {}
+    cim, _ = deploy_model_params(params, cfg, device=cuda, nonideal=model,
+                                 lifetime=lifetime)
+    experts = ("ffn_we_gate", "ffn_we_up", "ffn_we_down")
+    deployed = {p: cim["slot0_attn"][p].folded.clone() for p in experts}
+    for lt in lifetime.values():
+        lt.stale = True
+    runtime.reset_launch_counts()
+    for p in experts:
+        new = restack_group(lifetime, "slot0_attn", p)
+        assert torch.equal(new.folded, deployed[p]) and new.folded.ndim == 4
+        assert new.device_tags is cim["slot0_attn"][p].device_tags
+    assert runtime.launch_counts()["cim_fold"] == 3 * 2 * 6
+    up = lifetime["slot0_attn/ffn_we_up/1/e4"]
+    up.recalibrate(np.linspace(0.9, 1.1, up.dep.out_dim))
+    lifetime["slot0_attn/ffn_we_gate/0/e2"].reprogram()
+    gone = lifetime["slot0_attn/ffn_we_down/1/e0"]
+    gone.demote()
+    for lt in lifetime.values():
+        lt.advance(1e4)
+    for p in experts:
+        restack_group(lifetime, "slot0_attn", p)
+    assert int(gone.bank.degraded[1, 0]) == DEMOTED_RUNTIME
+    for lt in lifetime.values():
+        assert lt.dep is lt.bank.member(lt.rep)
+        assert torch.equal(lt.dep.folded, folded_weights(lt.dep)), lt.name

@@ -153,7 +153,7 @@ def test_capture_matches_reference_lifetimes(reference, name):
     for n, jlt in jeng.lifetime.items():
         lt = lifetime[n]
         slot, pname, r = n.split("/")
-        assert lt.bank is cim[slot][pname] and lt.rep == int(r)
+        assert lt.bank is cim[slot][pname] and lt.rep == (int(r),)
         assert (lt.noise_tag, lt.age, lt.key) == (jlt.noise_tag, jlt.age, 3)
         np.testing.assert_array_equal(lt.dep.codes.abs().numpy(), jlt.codes)
         np.testing.assert_allclose(lt.dep.gain.numpy(),

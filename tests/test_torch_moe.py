@@ -281,25 +281,40 @@ def test_expert_plan_cache_entries_read_both_ways(tmp_path):
 
 
 def test_expert_banks_refuse_imperfect_devices():
-    """What stays refused on an expert partition: lifetime state, and
-    with it ``health=`` on both engines (the next slice).  Imperfect
-    devices alone deploy (tests/test_torch_moe_nonideal.py)."""
+    """Nothing is refused on an expert partition any more: ``lifetime``
+    captures one lifetime a matrix, every expert ``slot/param/r/e{k}``
+    at its (r, k) of the stacked bank, its view the bank's cached member
+    view carrying the fold and the noise tag on the device; both engines
+    arm ``health=``.  (tests/test_torch_moe_health.py holds the capture
+    and the ladder against the reference.)"""
     from repro_torch.health import HealthConfig
 
     jcfg = smoke(J_QWEN)
     _, tp = _params(jcfg)
     tcfg = port_config(jcfg)
     model = NonidealModel(p_stuck_off=0.01, sigma_read=0.01)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        deploy_model_params(tp, tcfg, device="cpu", nonideal=model,
-                            lifetime={})
+    lifetime: dict = {}
+    cim, rep = deploy_model_params(tp, tcfg, device="cpu", nonideal=model,
+                                   lifetime=lifetime)
+    assert list(lifetime) == rep["matrices"]["deployed"]
+    experts = [lt for lt in lifetime.values() if len(lt.rep) == 2]
+    assert len(experts) == 3 * jcfg.n_layers * jcfg.n_experts
+    for t, (name, lt) in enumerate(lifetime.items()):
+        slot, pname, r, *sub = name.split("/")
+        idx = (int(r),) + tuple(int(e[1:]) for e in sub)
+        bank = cim[slot][pname]
+        assert lt.bank is bank and lt.rep == idx and lt.noise_tag == t
+        assert lt.dep is bank.member(idx) and lt.dep.folded is not None
+        assert lt.dep.folded.data_ptr() == bank.folded[idx].data_ptr()
+        if sub:
+            assert lt.dep is bank.layer(idx[0]).layer(idx[1])
+            assert int(lt.dep.device_tags) == t
+            assert lt.flat_index == idx[0] * jcfg.n_experts + idx[1]
     for engine in (ServeEngine, ContinuousEngine):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            engine(tcfg, tp, max_seq=64, plan_cache=False, nonideal=model,
-                   health=HealthConfig(), device="cpu")
-    cim, rep = deploy_model_params(tp, tcfg, device="cpu", nonideal=model)
-    assert rep["nonideal"] and cim["slot0_attn"]["ffn_we_gate"].folded \
-        is not None
+        eng = engine(tcfg, tp, max_seq=64, plan_cache=False, nonideal=model,
+                     health=HealthConfig(), device="cpu")
+        assert eng.health is not None
+        assert set(eng.health.lifetimes) == set(lifetime)
 
 
 # ------------------------------ moe_ffn -----------------------------------
