@@ -10,7 +10,7 @@ folded forms (gain, column permutation, in-kernel read noise, bf16 x)
 and the bf16 forms of flash_attention (its decode form also over a
 LONG_C-slot cache, split across a cluster) and slstm_scan's bf16 forms
 (its scan and decode forms beside the general form) included, and
-the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives ten paths
+the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives twelve paths
 through the entry points a user calls, each with the launch counts set
 to 0 just before it and read just after (a check's own launches inside
 a path left out):
@@ -29,20 +29,22 @@ a path left out):
 3. the deployment-image export of phi3's ``lm_head``: quantise, signed
    codes, ``bitslice_pack`` (bitslice_pack);
 4. phi3-nonideal: full-width phi3-mini at its config dtype (bf16),
-   random weights from seed 0, on imperfect devices (stuck cells,
-   i.i.d. and correlated variation, drift, line opens, read noise;
-   ``NONIDEAL``) under the ``spare_line`` mapping, through
+   NONIDEAL_LAYERS of its 32 layers, random weights from seed 0, on
+   imperfect devices (stuck cells,
+   i.i.d. and correlated variation, drift, read noise; ``NONIDEAL``)
+   under the ``spare_line`` mapping, through
    ``ServeEngine`` (cim_fold once a served matrix at deploy, cim_mvm's
    folded forms with read noise and bf16 x, flash_attention in bf16,
    manhattan_score);
-5. phi3-health: the same model and devices without line opens, plus
-   relaxation (``HEALTH``), aging and healing through
-   ``ServeEngine(health=...)``, then at ``CROSS_LAYERS`` layers through
-   ``ServeEngine`` and ``ContinuousEngine(health=...)`` with the same
-   seed: the reference's escalation arc (warm-up probe
+5. phi3-health: the same model and devices, plus
+   relaxation (``HEALTH``), deployed at full depth through
+   ``ServeEngine(health=...)`` for the batched probe reads, then aged
+   and healed at ``CROSS_LAYERS`` layers through ``ServeEngine`` and
+   ``ContinuousEngine(health=...)`` with the same seed: the reference's
+   escalation arc (warm-up probe
    rounds, then advances of the drift clock that trip recalibration,
    reprogramming and demotion), with batches served between rounds,
-   and a heal swap under load at full depth (cim_mvm's batched
+   and a heal swap under load (cim_mvm's batched
    folded decode form for the probes, cim_fold at every refresh,
    cim_mvm's folded forms, flash_attention in bf16, manhattan_score);
 6. phi3-circuit: the circuit solver (the repo's SPICE replacement) on
@@ -57,15 +59,23 @@ a path left out):
    weights (seed 0, all 48 layers), deploy (the reference deploys the
    mLSTM q/k/v) and greedy generation (slstm_scan's scan form at the
    prefill and its decode form at each decode step, manhattan_score);
-8. qwen2-moe: qwen2-moe-a2.7b at full width and depth in bf16 under
+8. hymba: hymba-1.5b at full width and depth in bf16, every block's
+   attention (GQA 25/5 of 64, a window of 1024) and MLP through the
+   kernels, its mamba heads in plain PyTorch, 4 prompts of 992 tokens
+   and 64 greedy tokens, so that the ring wraps during decode (cim_mvm,
+   flash_attention in bf16, manhattan_score);
+9. deepseek: deepseek-coder-33b at full width, DEEPSEEK_LAYERS of its
+   62 layers, in bf16 (GQA 56/8 of 128, d_ff 19200; cim_mvm,
+   flash_attention in bf16, manhattan_score);
+10. qwen2-moe: qwen2-moe-a2.7b at full width and depth in bf16 under
    ``mdm_expert``, alone on the card (cim_mvm's grouped forms on the
    expert banks, cim_mvm, flash_attention at Dh = 128,
    manhattan_score);
-9. qwen2-moe-nonideal: MOE_NONIDEAL_LAYERS of its layers on imperfect
+11. qwen2-moe-nonideal: MOE_NONIDEAL_LAYERS of its layers on imperfect
    devices under the spare-line spec (cim_fold, the grouped folded
    forms with read noise, cim_mvm's folded forms, flash_attention,
    manhattan_score);
-10. qwen2-moe-health: MOE_HEALTH_LAYERS of its layers aged and healed
+12. qwen2-moe-health: MOE_HEALTH_LAYERS of its layers aged and healed
    on ``HEALTH``'s devices, the arc on ``ServeEngine`` and
    ``ContinuousEngine`` with one seed and a heal swap under load
    (cim_mvm's batched form over each expert group's R x 60 members in
@@ -170,23 +180,34 @@ LOGIT_TOL = 1e-3     # max|kernel - plain| logits <= LOGIT_TOL * max|plain|
 BF16_ULP = 2.0 ** -7
 # phi3-nonideal's bf16 logits against the plain path's, a fixed bound:
 # the plain path against itself with its crossbar products in f64 moved
-# them by 3.67e-2 x max|logit| on an H100 (no kernel involved), so a
+# them by 3.67e-2 x max|logit| on an H100 at all 32 layers (no kernel involved), so a
 # sound kernel path may differ by about that much; 5e-2 leaves margin.
 # xlstm's bf16 logits have no such bound: that floor is 0.39 there.
 NONIDEAL_BF16_LOGIT_TOL = 5e-2
-# The phi3-nonideal path's devices (the paper's setting beyond parasitic
-# resistance: stuck cells, i.i.d. and correlated programming variation,
-# drift to 10 t0, line opens, per-read noise), seed and mapping.  With
-# these line-open rates every full-width matrix keeps programmed bits on
-# an open line after the spare-line remap (its random weights leave no
-# all-zero row, and a dead wordline severs 8 weights), so every matrix
-# would serve digitally: the path deploys this model once to count the
-# demotions, and serves the same devices without line opens.
+# The imperfect devices of the card's nonideal paths (the paper's setting
+# beyond parasitic resistance: stuck cells, i.i.d. and correlated
+# programming variation, drift to 10 t0, per-read noise), seed and
+# mapping.  No line opens: at full width any open line leaves programmed
+# bits on it after the spare-line remap, so every matrix would be
+# demoted and served digitally (the CPU tests cover that demotion).
 NONIDEAL = dict(p_stuck_off=0.01, p_stuck_on=0.001, sigma_program=0.05,
                 sigma_corr=0.05, drift_nu=0.05, drift_time=10.0,
-                p_open_wordline=0.002, p_open_bitline=0.002, sigma_read=0.01)
+                sigma_read=0.01)
 NONIDEAL_SEED, NONIDEAL_PIPELINE = 0, "spare_line"
+# phi3-nonideal's depth, for the run's time limit: at all 32 layers its
+# deploy alone took 60 s of a 1,074 s run.
+NONIDEAL_LAYERS = 8
 TF_STEPS = 4         # decode steps of the kernel-vs-plain logits check
+# hymba-1.5b's traffic: prompts that fill 992 of its 1024-slot ring, then
+# greedy tokens to position 1055, so the ring wraps at decode step 32.
+HYMBA_B, HYMBA_PROMPT, HYMBA_NEW = 4, 992, 64
+# Decode steps of its kernel-vs-plain checks: the last two write
+# positions 1024 and 1025 into the wrapped ring.
+HYMBA_TF_STEPS = 34
+# deepseek-coder-33b at full width: the layers served (62 are 66.7 GB of
+# bf16 params before the bank) and the decode steps of its kernel-vs-plain
+# checks (each forward's plain cim_mvm expands 4.2 B weights).
+DEEPSEEK_LAYERS, DEEPSEEK_TF_STEPS = 8, 4
 # Kernels each path must launch.
 PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                 "phi3-continuous": ("cim_mvm", "flash_attention",
@@ -199,6 +220,8 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                 "xlstm": ("slstm_scan_tc", "slstm_scan_decode",
                           "manhattan_score"),
                 "phi3-circuit": ("line_solve", "manhattan_score"),
+                "hymba": ("cim_mvm", "flash_attention", "manhattan_score"),
+                "deepseek": ("cim_mvm", "flash_attention", "manhattan_score"),
                 "qwen2-moe": ("cim_mvm", "cim_mvm_grouped",
                               "flash_attention", "manhattan_score"),
                 "qwen2-moe-nonideal": ("cim_mvm", "cim_mvm_grouped_folded",
@@ -210,7 +233,8 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
 # The paths each kernel record's form runs on (its launches are its
 # kernel's launches there).
 RECORD_PATHS = {
-    "cim_mvm": ("phi3", "phi3-continuous", "qwen2-moe"),
+    "cim_mvm": ("phi3", "phi3-continuous", "qwen2-moe", "hymba", "deepseek"),
+    "cim_mvm[bf16 x, deepseek]": ("deepseek",),
     "flash_attention": ("phi3", "phi3-continuous"),
     "manhattan_score": tuple(PATH_KERNELS),
     "slstm_scan": (),                 # the xlstm path now serves bf16
@@ -228,6 +252,8 @@ RECORD_PATHS = {
     "flash_attention[bf16,Dh=128]": ("qwen2-moe", "qwen2-moe-nonideal",
                                      "qwen2-moe-health"),
     "cim_mvm_grouped_folded": ("qwen2-moe-nonideal", "qwen2-moe-health"),
+    "flash_attention[bf16,hymba]": ("hymba",),
+    "flash_attention[bf16,deepseek]": ("deepseek",),
 }
 # The paths of every other record (cim_mvm's folded forms).
 NONIDEAL_PATHS = ("phi3-nonideal", "phi3-health", "qwen2-moe-nonideal",
@@ -394,63 +420,89 @@ def _deploy_random(I: int, N: int, seed: int):
     return dep, plan
 
 
-def _check_cim(g) -> dict:
-    """cim_mvm at the three matrix shapes of phi3 and the paths' row
-    counts (ServeEngine's decode M = 1 and M = B and prefill M = B *
-    PROMPT; ContinuousEngine's decode M = CAPACITY and prefill M =
-    CONT_PROMPT): against its
-    plain version, device time warm and, at decode, cold (rotating over
-    copies of the deployment larger than L2 together, as a decode step
-    finds its weights), beside ``x @ W'`` on the materialised f32 W'
-    timed the same way."""
-    from repro_torch.kernels.cim_mvm.ops import DECODE_MAX_M, cim_mvm
+def _phi3_deps():
+    """(label, deployment) at phi3's three matrix shapes, random weights."""
+    for I, N in ((3072, 3072), (3072, 8192), (8192, 3072)):
+        yield f"{I}x{N}", _deploy_random(I, N, seed=I + N)[0]
+
+
+def _check_cim(g, deps=None, rows=(1, B, CAPACITY, CONT_PROMPT, B * PROMPT),
+               xdtype=torch.float32, name: str = "cim_mvm",
+               top: str = f"3072x8192 M={B}") -> dict:
+    """cim_mvm on ``deps`` ((label, deployment) pairs, one a shape; phi3's
+    by default) at ``rows`` (by default ServeEngine's decode M = 1 and
+    M = B and prefill M = B * PROMPT, ContinuousEngine's decode M =
+    CAPACITY and prefill M = CONT_PROMPT), x in ``xdtype``: the form
+    each takes, against its plain version, device time warm and, at
+    decode, cold (rotating over copies of the deployment larger than L2
+    together, as a decode step finds its weights), beside ``x @ W'`` on
+    the materialised f32 W' timed the same way; the bound (bytes and f32
+    operations at decode, the prefill form's TF32 products at prefill:
+    3 a product with f32 x, 2 with bf16 x).  The record reads regime
+    ``top``; the first deployment also times the wrapper's host cost."""
+    from repro_torch.kernels.cim_mvm.ops import (
+        FORM_DECODE,
+        _sm_count,
+        cim_geometry,
+        cim_mvm,
+    )
     from repro_torch.kernels.cim_mvm.ref import (
         cim_effective_weights,
         cim_mvm_plain,
     )
 
-    regimes = {}
-    for (I, N) in ((3072, 3072), (3072, 8192), (8192, 3072)):
-        dep, _ = _deploy_random(I, N, seed=I + N)
+    regimes, first = {}, True
+    for label, dep in deps or _phi3_deps():
+        I, N = dep.in_dim, dep.out_dim
         w_eff = cim_effective_weights(
             dep.codes, dep.pos, dep.scale, n_bits=dep.n_bits, wpt=dep.wpt,
-            cols=dep.cols, eta=dep.eta, reversed_df=dep.reversed_df)
+            cols=dep.cols, eta=dep.eta, reversed_df=dep.reversed_df)[:I, :N]
         dep_bytes = dep.codes.numel() * 2 + dep.pos.numel() * 4
         n_dep = max(2, -(-COLD_BYTES // dep_bytes))
-        deps = [dep] + [dataclasses.replace(
+        deps_cold = [dep] + [dataclasses.replace(
             dep, codes=dep.codes.clone(), pos=dep.pos.clone(),
             scale=dep.scale.clone()) for _ in range(n_dep - 1)]
         n_w = max(2, -(-COLD_BYTES // (w_eff.numel() * 4)))
         ws = [w_eff] + [w_eff.clone() for _ in range(n_w - 1)]
-        for M in (1, B, CAPACITY, CONT_PROMPT, B * PROMPT):
-            x = torch.randn((M, I), generator=g, device="cuda")
+        for M in rows:
+            x = torch.randn((M, I), generator=g, device="cuda").to(xdtype)
+            xw = x.float()
             y_k = cim_mvm(x, dep)
             y_p = cim_mvm_plain(x, dep)
             torch.cuda.synchronize()
             err = (y_k - y_p).abs().max().item()
             ref = y_p.abs().max().item()
             ok = err <= CIM_TOL * ref
+            bf = xdtype == torch.bfloat16
+            decode = cim_geometry(
+                M, I, N, *dep.codes.shape, dep.wpt, dep.n_bits, dep.cols,
+                dep.reversed_df, _sm_count(0),
+                dep.codes.data_ptr() % 16 == 0, bf).form == FORM_DECODE
             ms = device_ms(lambda: cim_mvm(x, dep))
             plain_ms = cuda_ms(lambda: cim_mvm_plain(x, dep), iters=5)
-            lib_ms = device_ms(lambda: x @ w_eff)
-            n_bytes = (x.numel() * 4 + dep_bytes + 4 + M * N * 4)
+            lib_ms = device_ms(lambda: xw @ w_eff)
+            n_bytes = (x.numel() * x.element_size() + dep_bytes + 4
+                       + M * N * 4)
             flops = 2.0 * M * I * N
             b_ms, b_by = bound(n_bytes, flops)
-            tc_ms, tc_by = bound(n_bytes, 3 * flops, PEAK_TF32)
+            tc_ms, tc_by = bound(n_bytes, (2 if bf else 3) * flops,
+                                 PEAK_TF32)
             bytes_ms = n_bytes / PEAK_BYTES * 1e3
-            line = (f"cim_mvm M={M:4d} I={I} N={N}: max_abs_err {err:.3e} "
-                    f"(tol {CIM_TOL:g} x max|y| {ref:.3e}) "
+            line = (f"{name} {label} M={M:4d} I={I} N={N}: "
+                    f"{'decode' if decode else 'prefill'} form; max_abs_err "
+                    f"{err:.3e} (tol {CIM_TOL:g} x max|y| {ref:.3e}) "
                     f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms warm, "
                     f"plain {plain_ms:.4f} ms, x @ W' {lib_ms:.4f} ms warm; "
                     f"bound {b_ms:.4f} ms ({b_by}, f32), {tc_ms:.4f} ms "
-                    f"({tc_by}, 3xTF32); bytes alone {bytes_ms:.4f} ms "
-                    f"({n_bytes / 1e6:.1f} MB)")
-            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    f"({tc_by}, {2 if bf else 3}xTF32); bytes alone "
+                    f"{bytes_ms:.4f} ms ({n_bytes / 1e6:.1f} MB)")
+            rec = dict(M=M, I=I, N=N, form="decode" if decode else "prefill",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                        bound_bytes_ms=bytes_ms)
-            if M <= DECODE_MAX_M:
-                cold = device_ms(lambda d: cim_mvm(x, d), args=deps)
-                lib_cold = device_ms(lambda w: x @ w, args=ws)
+            if decode:
+                cold = device_ms(lambda d: cim_mvm(x, d), args=deps_cold)
+                lib_cold = device_ms(lambda w: xw @ w, args=ws)
                 line += (f"; cold ({n_dep} copies): kernel {cold:.4f} ms, "
                          f"x @ W' {lib_cold:.4f} ms")
                 rec.update(ms=cold, library_ms=lib_cold, ms_warm=ms,
@@ -460,24 +512,21 @@ def _check_cim(g) -> dict:
                            bound_f32_ms=b_ms)
             print(line)
             if not ok:
-                raise AssertionError(f"cim_mvm disagrees at M={M} I={I} N={N}")
-            regime = {B: "decode", B * PROMPT: "prefill",
-                      CAPACITY: "decode_continuous",
-                      CONT_PROMPT: "prefill_continuous"}.get(M)
-            if (I, N) == (3072, 8192) and regime:
-                regimes[regime] = dict(M=M, I=I, N=N, **rec)
-        if (I, N) == (3072, 3072):
-            x = torch.randn((B, I), generator=g, device="cuda")
+                raise AssertionError(f"{name} disagrees at {label} M={M}")
+            regimes[f"{label} M={M}"] = rec
+        if first:
+            x = torch.randn((B, I), generator=g, device="cuda").to(xdtype)
             print(f"  cim_mvm wrapper host time (M={B}, {I}x{N}): "
                   f"{host_us(lambda: cim_mvm(x, dep)):.1f} us a call, of "
                   f"which the C launch alone "
                   f"{host_us(_bare_cim_launch(x, dep)):.1f} us")
-        del dep, deps, w_eff, ws
-    return dict(name="cim_mvm", route="cuda",
+            first = False
+        del dep, deps_cold, w_eff, ws
+    return dict(name=name, route="cuda",
                 source="src/repro_torch/kernels/cim_mvm/kernel.cu",
                 replaces="src/repro/kernels/cim_mvm/kernel.py:82",
-                **{k: v for k, v in regimes["decode"].items()
-                   if k not in ("M", "I", "N")},
+                **{k: v for k, v in regimes[top].items()
+                   if k not in ("M", "I", "N", "form")},
                 regimes=regimes)
 
 
@@ -491,7 +540,8 @@ def _bare_cim_launch(x, dep):
     geom = cim_geometry(x.shape[0], dep.in_dim, dep.out_dim,
                         *dep.codes.shape, dep.wpt, dep.n_bits, dep.cols,
                         dep.reversed_df, _sm_count(0),
-                        dep.codes.data_ptr() % 16 == 0)
+                        dep.codes.data_ptr() % 16 == 0,
+                        x.dtype == torch.bfloat16)
     args = (x.data_ptr(), dep.codes.data_ptr(), dep.pos.data_ptr(),
             dep.scale.data_ptr(), out.data_ptr(), geom.array, dep.eta,
             None, 0, 0, 0.0, runtime.stream_arg(out.device))
@@ -818,14 +868,16 @@ def _flash_cases(long: bool = False):
 def _flash_variants(run_geom, o_p, geom, built: dict, Dh: int) -> dict:
     """A bf16 form's launch ``geom`` (chosen by ``flash_geometry``) and,
     for the decode form, its other cluster splits (1 and 2 blocks, or 4
-    and 8): each one's device time, occupancy, registers and error
-    against the plain version ``o_p``, held to the same tolerance."""
+    and 8, and the chosen one): each one's device time, occupancy,
+    registers and error against the plain version ``o_p``, held to the
+    same tolerance."""
     from repro_torch.kernels.flash_attention import ops
 
     g = geom.geom
     pre = g["form"] == ops.FORM_PREFILL_BF16
     key, values = (("warps", (ops.BF16_PREFILL_WARPS,)) if pre else
-                   ("split", (1, 2) if g["gx"] <= 2 else (4, 8)))
+                   ("split", sorted({g["gx"], *((1, 2) if g["gx"] <= 2
+                                                else (4, 8))})))
     dc = -(-Dh // 32)
     out = {}
     for val in values:
@@ -850,10 +902,11 @@ def _flash_variants(run_geom, o_p, geom, built: dict, Dh: int) -> dict:
 
 def _check_flash(g, dtype=torch.float32, built: dict | None = None,
                  H: int = 32, Dh: int = 96, cases=None,
-                 name: str | None = None) -> dict:
-    """flash attention at the paths' shapes (``_flash_cases``, or those of
-    them named in ``cases``; bf16 also at a LONG_C-long cache), H heads of
-    Dh (phi3's 32 of 96 by default), q, k and v in ``dtype``, against
+                 name: str | None = None, Hkv: int | None = None,
+                 window: int = 0) -> dict:
+    """flash attention at ``cases`` (by default the paths' shapes,
+    ``_flash_cases``; bf16 also at a LONG_C-long cache), H query heads of Dh over Hkv KV heads (phi3's 32 of 96 over
+    32 by default) with ``window``, q, k and v in ``dtype``, against
     its plain version; device time beside SDPA on the same inputs, the
     byte bound and the tensor-core bound of the form's products.  bf16
     outputs: both sides round once from f32, so a value near a rounding
@@ -869,33 +922,39 @@ def _check_flash(g, dtype=torch.float32, built: dict | None = None,
 
     bf = dtype == torch.bfloat16
     esize = 2 if bf else 4
+    Hkv = Hkv or H
     regimes = {}
     record = name or ("flash_attention[bf16]" if bf else "flash_attention")
-    for name, Bq, Sq, C, qpos, kpos in _flash_cases(long=bf):
-        if cases is not None and name not in cases:
-            continue
-        k = torch.randn((Bq, C, H, Dh), generator=g, device="cuda").to(dtype)
-        v = torch.randn((Bq, C, H, Dh), generator=g, device="cuda").to(dtype)
+    for name, Bq, Sq, C, qpos, kpos in cases or _flash_cases(long=bf):
+        k = torch.randn((Bq, C, Hkv, Dh), generator=g,
+                        device="cuda").to(dtype)
+        v = torch.randn((Bq, C, Hkv, Dh), generator=g,
+                        device="cuda").to(dtype)
         q = torch.randn((Bq, Sq, H, Dh), generator=g,
                         device="cuda").to(dtype)
         run = lambda: flash_attention(q, k, v, q_positions=qpos,
-                                      k_positions=kpos)
+                                      k_positions=kpos, window=window)
         o_k = run().float()
-        o_p = flash_attention_plain(q, k, v, qpos, kpos).float()
+        o_p = flash_attention_plain(q, k, v, qpos, kpos,
+                                    window=window).float()
         torch.cuda.synchronize()
         err = (o_k - o_p).abs().max().item()
         excess = ((o_k - o_p).abs() - FLASH_TOL * (1 + o_p.abs())
                   - (BF16_ULP * o_p.abs() if bf else 0)).max()
         ok = excess.item() <= 0 and torch.equal(run(), run())
         ms = device_ms(run)
-        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, qpos, kpos),
-                           iters=3 if C > MAX_SEQ else 20)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(
+            q, k, v, qpos, kpos, window=window),
+            iters=3 if C > MAX_SEQ else 20)
         qp = qpos if qpos.ndim == 2 else qpos[None]
         kp = kpos if kpos.ndim == 2 else kpos[None]
         mask = (kp[:, None, :] <= qp[:, :, None])           # (b, Sq, C)
+        if window:
+            mask &= (qp[:, :, None] - kp[:, None, :]) < window
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        gqa = {"enable_gqa": True} if Hkv != H else {}
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask[:, None])
+            qt, kt, vt, attn_mask=mask[:, None], **gqa)
         lib_ms = device_ms(sdpa)
         pairs = int(mask.sum().item()) * H * (Bq if mask.shape[0] == 1
                                               else 1)
@@ -904,7 +963,7 @@ def _check_flash(g, dtype=torch.float32, built: dict | None = None,
         # need no read).
         seen = int(mask.any(1).sum().item()) * (Bq if mask.shape[0] == 1
                                                 else 1)
-        n_bytes = (2 * q.numel() + 2 * seen * H * Dh) * esize \
+        n_bytes = (2 * q.numel() + 2 * seen * Hkv * Dh) * esize \
             + (qpos.numel() + kpos.numel()) * 4
         # Q.K^T and P.V over the valid pairs, 2 Dh operations each.
         b_ms, b_by = bound(n_bytes, pairs * 4.0 * Dh)
@@ -914,7 +973,7 @@ def _check_flash(g, dtype=torch.float32, built: dict | None = None,
                            else (3 * pairs * 4.0 * Dh, PEAK_TF32))
         tc_ms, tc_by = bound(n_bytes, tc_ops, tc_peak)
         print(f"flash{'[bf16]' if bf else ''} {name} B={Bq} Sq={Sq} "
-              f"C={C} H={H} Dh={Dh} "
+              f"C={C} H={H} Hkv={Hkv} Dh={Dh} window={window} "
               f"positions {tuple(qpos.shape)}/{tuple(kpos.shape)}: "
               f"max_abs_err {err:.3e} (tol {FLASH_TOL:g}(1+|ref|)"
               f"{' + 2^-7|ref|' if bf else ''}, two calls bit-identical) "
@@ -942,11 +1001,12 @@ def _check_flash(g, dtype=torch.float32, built: dict | None = None,
         if bf:
             rec["bound_bf16_ms"] = tc_ms
             rec["bf16_products_ms"] = tc_ops / tc_peak * 1e3
-            geom = ops.flash_geometry(Sq, True, Bq, H, H, C, Dh)
+            geom = ops.flash_geometry(Sq, True, Bq, H, Hkv, C, Dh)
 
             def run_geom(**kw):
-                vg = ops.flash_geometry(Sq, True, Bq, H, H, C, Dh, **kw)
-                return vg, lambda: ops.launch(q, k, v, qpos, kpos, 0, vg)
+                vg = ops.flash_geometry(Sq, True, Bq, H, Hkv, C, Dh, **kw)
+                return vg, lambda: ops.launch(q, k, v, qpos, kpos, window,
+                                              vg)
 
             rec["geometry"] = geom.geom
             rec["variants"] = _flash_variants(run_geom, o_p, geom,
@@ -1283,10 +1343,12 @@ def _launches(path: str) -> dict:
     return counts
 
 
-def phase_serve(path: str, cfg, cache_dir: str):
+def phase_serve(path: str, cfg, cache_dir: str, batch: int = B,
+                prompt: int = PROMPT, new: int = NEW):
     """Init, deploy (through a plan cache in the fresh ``cache_dir``)
-    and serve a full-width model through the kernels; then the
-    uncached deploy alone, for comparison."""
+    and serve a full-width model through the kernels, ``batch`` prompts
+    of ``prompt`` tokens and ``new`` greedy tokens; then the uncached
+    deploy alone, for comparison."""
     from repro_torch.deploy import PlanCache, deploy_model_params
     from repro_torch.kernels import runtime
     from repro_torch.models.model import init_params
@@ -1299,7 +1361,7 @@ def phase_serve(path: str, cfg, cache_dir: str):
                          "cuda")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    eng = ServeEngine(cfg, params, max_seq=MAX_SEQ,
+    eng = ServeEngine(cfg, params, max_seq=prompt + new,
                       plan_cache=PlanCache(cache_dir), device="cuda")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -1317,7 +1379,7 @@ def phase_serve(path: str, cfg, cache_dir: str):
     print(f"  deploy summary: {summary['n_deployed']} deployed, "
           f"{summary['n_skipped']} skipped {reasons}")
 
-    prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT),
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                             generator=torch.Generator().manual_seed(1))
     eng.generate(prompts, 2)                      # warm-up
     torch.cuda.synchronize()
@@ -1326,14 +1388,14 @@ def phase_serve(path: str, cfg, cache_dir: str):
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     t0 = time.perf_counter()
-    tokens = eng.generate(prompts, NEW)
+    tokens = eng.generate(prompts, new)
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
-    step = (t_all - t_prefill) / (NEW - 1)
-    print(f"phase serve ({path}): B={B} prompt {PROMPT} new {NEW}: prefill "
-          f"{t_prefill * 1e3:.1f} ms, decode {step * 1e3:.2f} ms/step, "
-          f"{B * NEW / t_all:.1f} tokens/s "
-          f"(peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB)")
+    step = (t_all - t_prefill) / (new - 1)
+    print(f"phase serve ({path}): B={batch} prompt {prompt} new {new}: "
+          f"prefill {t_prefill * 1e3:.1f} ms, decode {step * 1e3:.2f} "
+          f"ms/step, {batch * new / t_all:.1f} tokens/s (peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB)")
     counts = _launches(path)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1344,8 +1406,8 @@ def phase_serve(path: str, cfg, cache_dir: str):
           f"(the deploy timed up to PR 14)")
     del cim
     if not torch.isfinite(eng.teacher_forced_logits(
-            torch.cat([prompts.cuda(), tokens.long()], 1)[:, :PROMPT + 1],
-            PROMPT)).all():
+            torch.cat([prompts.cuda(), tokens.long()], 1)[:, :prompt + 1],
+            prompt)).all():
         raise AssertionError("non-finite logits")
     phase_profile(eng, prompts, step * 1e3)
     return eng, prompts, tokens, counts, uncached_s
@@ -1360,7 +1422,7 @@ def phase_profile(eng, prompts, step_ms: float, steps: int = 3):
 
     cfg = eng.cfg
     read = getattr(eng, "_read", lambda seed, t: None)
-    state = init_decode_state(cfg, B, MAX_SEQ, "cuda")
+    state = init_decode_state(cfg, prompts.shape[0], eng.max_seq, "cuda")
     logits, state = apply_model(eng.params, cfg, prompts.cuda(), state=state,
                                 cim=eng.cim, read_seed=read(0, 0))
     tok = logits[:, -1].argmax(-1)[:, None]
@@ -1509,25 +1571,39 @@ def _plain_ops():
     return Ops(matmul, PLAIN.attention, PLAIN.slstm_scan, grouped)
 
 
-def phase_compare(eng, prompts, tokens):
-    """Kernel path vs plain path.  f32: teacher-forced logits within
-    LOGIT_TOL x max|logit|, greedy tokens listed.  bf16: every kernel
-    call of a teacher-forced pass against its plain version
+def phase_compare(eng, prompts, tokens, path: str,
+                  steps: int | None = None):
+    """Kernel path vs plain path over ``path``'s prompts and its first
+    ``steps`` + 1 tokens (default: all of them).  f32: teacher-forced
+    logits within LOGIT_TOL x max|logit|, greedy tokens listed.  bf16:
+    every kernel call of a teacher-forced pass against its plain version
     (:func:`_check_calls`), the same deployments served in f32 at
     LOGIT_TOL (:func:`_check_f32`), and the bf16 paths' logits and
     greedy tokens printed beside each other (no bound: module
-    constants)."""
+    constants), each also beside the plain path with f32 activations on
+    the same banks, the bf16 rounding's own reach."""
     plain_eng = copy.copy(eng)           # same params and deployments
     plain_eng.ops = _plain_ops()
-    seq = torch.cat([prompts.cuda(), tokens.long()], 1)[:, :PROMPT + NEW - 1]
+    n_prompt = prompts.shape[1]
+    steps = min(tokens.shape[1] - 1, steps or tokens.shape[1])
+    tokens = tokens[:, :steps + 1]
+    seq = torch.cat([prompts.cuda(), tokens.long()], 1)[:, :n_prompt + steps]
     V = eng.cfg.vocab_size       # padded columns sit at -1e9; left out
     f32 = eng.cfg.dtype == "float32"
     if f32:
-        lk = eng.teacher_forced_logits(seq, PROMPT)[..., :V].float()
+        lk = eng.teacher_forced_logits(seq, n_prompt)[..., :V].float()
     else:
-        lk = _check_calls(eng, seq, "xlstm")[..., :V].float()
-        _check_f32(eng, seq)
-    lp = plain_eng.teacher_forced_logits(seq, PROMPT)[..., :V].float()
+        lk = _check_calls(eng, seq, path, n_prompt=n_prompt)[..., :V].float()
+        l32 = _check_f32(eng, seq, n_prompt=n_prompt)
+    lp = plain_eng.teacher_forced_logits(seq, n_prompt)[..., :V].float()
+    if not f32:
+        ref32, top = l32.abs().max().item(), l32.argmax(-1)
+        print("  against the plain path with f32 activations (same banks): "
+              + "; ".join(
+                  f"{what} bf16 {(l - l32).abs().max().item() / ref32:.3e} "
+                  f"of max|logit|, argmax differs at "
+                  f"{int((l.argmax(-1) != top).sum())} of {top.numel()}"
+                  for what, l in (("plain", lp), ("kernel", lk))))
     err = (lk - lp).abs().max().item()
     ref = lp.abs().max().item()
     tol = LOGIT_TOL * ref
@@ -1538,13 +1614,16 @@ def phase_compare(eng, prompts, tokens):
                            if f32 else " (bf16: a reading, no bound)"))
     if f32 and not ok:
         raise AssertionError("kernel-path logits disagree with plain path")
-    plain_tokens = plain_eng.generate(prompts, NEW)
+    # The plain path's greedy choice at each step of the kernel path's
+    # tokens: its own generation's tokens up to each row's first flip.
+    plain_tokens = lp.argmax(-1)
     same = (plain_tokens == tokens)
     top2 = lp.topk(2, dim=-1).values
     gap = top2[..., 0] - top2[..., 1]
-    print(f"greedy tokens: {int(same.sum())}/{same.numel()} equal; "
+    print(f"greedy tokens (the plain path's argmax at each step of the "
+          f"kernel path's tokens): {int(same.sum())}/{same.numel()} equal; "
           f"smallest top-2 gap {gap.min().item():.3e}")
-    for b in range(B):
+    for b in range(prompts.shape[0]):
         bad = (~same[b]).nonzero()
         if len(bad):
             t = int(bad[0])
@@ -1610,7 +1689,8 @@ def _checked_ops(worst: dict):
     return Ops(matmul, attention, scan, grouped)
 
 
-def _check_calls(eng, seq, path: str, seed: int = 0) -> torch.Tensor:
+def _check_calls(eng, seq, path: str, seed: int = 0,
+                 n_prompt: int = PROMPT) -> torch.Tensor:
     """A teacher-forced pass of ``eng`` (prefill, then a decode step a
     token: both forms of every kernel) with every kernel call held
     against its plain version on its own inputs (:func:`_checked_ops`);
@@ -1619,11 +1699,11 @@ def _check_calls(eng, seq, path: str, seed: int = 0) -> torch.Tensor:
     worst: dict = {}
     checked = copy.copy(eng)
     checked.ops = _checked_ops(worst)
-    logits = checked.teacher_forced_logits(seq, PROMPT, seed=seed)
+    logits = checked.teacher_forced_logits(seq, n_prompt, seed=seed)
     want = [k for k in PATH_KERNELS[path]
             if k not in ("manhattan_score", "cim_fold")]   # deploy only
     print(f"  kernel calls of a teacher-forced pass ({eng.cfg.dtype}, "
-          f"{seq.shape[1] - PROMPT} decode steps), each against its plain "
+          f"{seq.shape[1] - n_prompt} decode steps), each against its plain "
           f"version on the same inputs: " + ", ".join(
               f"{k} {n} calls, worst |kernel - plain| {w:.3f} of its limit"
               for k, (n, w) in sorted(worst.items())))
@@ -1634,20 +1714,21 @@ def _check_calls(eng, seq, path: str, seed: int = 0) -> torch.Tensor:
     return logits
 
 
-def _check_f32(eng, seq, seed: int = 0) -> None:
+def _check_f32(eng, seq, seed: int = 0,
+               n_prompt: int = PROMPT) -> torch.Tensor:
     """The bf16 engine's deployments served with f32 activations (its
     params widened, the same banks and read seeds): kernel path vs plain
     path, teacher-forced logits within LOGIT_TOL x max|logit|, and the
     argmax flips listed with the plain path's top-2 gap (a flip needs a
-    gap within twice the error)."""
+    gap within twice the error).  Returns the plain path's logits."""
     twin = copy.copy(eng)
     twin.cfg = eng.cfg.replace(dtype="float32")
     twin.params = _widen(eng.params)
     plain = copy.copy(twin)
     plain.ops = _plain_ops()
     V = eng.cfg.vocab_size
-    lk = twin.teacher_forced_logits(seq, PROMPT, seed=seed)[..., :V]
-    lp = plain.teacher_forced_logits(seq, PROMPT, seed=seed)[..., :V]
+    lk = twin.teacher_forced_logits(seq, n_prompt, seed=seed)[..., :V]
+    lp = plain.teacher_forced_logits(seq, n_prompt, seed=seed)[..., :V]
     err = (lk - lp).abs().max().item()
     ref = lp.abs().max().item()
     top2 = lp.topk(2, dim=-1).values
@@ -1664,6 +1745,7 @@ def _check_f32(eng, seq, seed: int = 0) -> None:
     if not ok:
         raise AssertionError("f32 kernel-path logits disagree with the "
                              "plain path")
+    return lp
 
 
 def _widen(tree):
@@ -1674,43 +1756,26 @@ def _widen(tree):
 
 
 def phase_nonideal(cfg, cache_dir: str) -> dict:
-    """Full-width phi3-mini at its config dtype (bf16) on imperfect
-    devices (``NONIDEAL``) under the ``spare_line`` mapping: deploy
+    """Full-width phi3-mini at its config dtype (bf16) and ``cfg``'s
+    depth on imperfect devices (``NONIDEAL``) under the ``spare_line`` mapping: deploy
     through a cold plan cache (its stages timed), hold every served
     matrix's fold bit for bit against its plain version, serve greedily,
     and hold the kernel path against the plain path (which reads no
     fold) at one read seed, call by call in bf16, end to end in f32, and
     its bf16 logits within NONIDEAL_BF16_LOGIT_TOL x max|logit|."""
-    from repro_torch.deploy import PlanCache, deploy_model_params
+    from repro_torch.deploy import PlanCache
     from repro_torch.kernels import runtime
     from repro_torch.kernels.cim_mvm.ref import folded_weights
     from repro_torch.models.model import init_params
     from repro_torch.nonideal import NonidealModel
     from repro_torch.serve import ServeEngine
 
-    full = NonidealModel(**NONIDEAL)
-    model = dataclasses.replace(full, p_open_wordline=0.0,
-                                p_open_bitline=0.0)
+    model = NonidealModel(**NONIDEAL)
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_launch_counts()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cim, rep = deploy_model_params(params, cfg, device="cuda", nonideal=full,
-                                   nonideal_key=NONIDEAL_SEED,
-                                   pipeline=NONIDEAL_PIPELINE)
-    torch.cuda.synchronize()
-    t_full = time.perf_counter() - t0
-    print(f"phase deploy (phi3-nonideal, with line opens): {full}: "
-          f"{t_full:.2f} s uncached; n_degraded "
-          f"{rep['n_degraded']} of {rep['n_matrices']} matrices (programmed "
-          f"bits left on open lines after the {NONIDEAL_PIPELINE} remap, "
-          f"{sum(int(d.degraded.sum()) for sl in cim.values() for d in sl.values())} "
-          f"in all), {rep['stuck_cells']} stuck or open cells")
-    del cim
-    gc.collect()
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, params, max_seq=MAX_SEQ,
                       plan_cache=PlanCache(cache_dir), nonideal=model,
@@ -2085,7 +2150,7 @@ def phase_continuous(cfg, params, serve_eng, cache_dir: str,
     # manifest-hit deploy with nothing else running.
     mats, _ = collect_model_matrices(params, cfg)
     t0 = time.perf_counter()
-    fingerprint_matrices(mats, spec_from_config(cfg), cfg.cim.mode)
+    keys = fingerprint_matrices(mats, spec_from_config(cfg), cfg.cim.mode)
     fp_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2100,7 +2165,7 @@ def phase_continuous(cfg, params, serve_eng, cache_dir: str,
           f"manifest-hit deploy {warm_s:.2f} s, cold cached deploy "
           f"{cold_s:.2f} s")
     del warm
-    _cache_costs(mats, cfg, cache, cache_dir)
+    _cache_costs(mats, keys, cache, cache_dir)
     return counts
 
 
@@ -2108,15 +2173,15 @@ def _gb(mats) -> float:
     return sum(w.numel() * w.element_size() for w in mats.values()) / 1e9
 
 
-def _cache_costs(mats, cfg, cache, cache_dir: str) -> None:
+def _cache_costs(mats, keys, cache, cache_dir: str) -> None:
     """Where a cached deploy's host time goes: copy and hash rates on
     layer 0's matrices (pageable and pinned copies, blake2b on one
-    core), and over the whole plan set the manifest's read and decode,
-    the entries' encoding and their writing (to a scratch directory)."""
+    core), and over the whole plan set (``keys``, the matrices'
+    fingerprints) the manifest's read and decode, the entries' encoding
+    and their writing (to a scratch directory)."""
     import hashlib
 
-    from repro_torch.deploy import PlanCache, fingerprint_matrices
-    from repro_torch.deploy import spec_from_config
+    from repro_torch.deploy import PlanCache
     from repro_torch.deploy.cache import encode_plan
 
     layer0 = [w for k, w in mats.items() if k.endswith("/0")]
@@ -2136,7 +2201,6 @@ def _cache_costs(mats, cfg, cache, cache_dir: str) -> None:
         hashlib.blake2b(h.numpy().data, digest_size=32)
     hash_rate = n / (time.perf_counter() - t0)
     del host, pinned
-    keys = fingerprint_matrices(mats, spec_from_config(cfg), cfg.cim.mode)
     t0 = time.perf_counter()
     plans = cache.get_manifest(keys)
     read_s = time.perf_counter() - t0
@@ -2158,12 +2222,10 @@ def _cache_costs(mats, cfg, cache, cache_dir: str) -> None:
           f"{write_s:.2f} s")
 
 
-# The phi3-health path: phi3-nonideal's devices without line opens, plus
-# relaxation (so that the drift clock moves every gain); seed, mapping,
-# probe batch and endurance budget.
-HEALTH = dict(p_stuck_off=0.01, p_stuck_on=0.001, sigma_program=0.05,
-              sigma_corr=0.05, drift_nu=0.05, drift_time=10.0,
-              sigma_relax=0.08, sigma_read=0.01)
+# The phi3-health path: phi3-nonideal's devices plus relaxation (so that
+# the drift clock moves every gain); seed, mapping, probe batch and
+# endurance budget.
+HEALTH = dict(NONIDEAL, sigma_relax=0.08)
 HEALTH_SEED, HEALTH_PROBES, HEALTH_REPROGRAMS = 0, 16, 1
 # The detector of that reference test (warmup 3, z_trip 6, z_clear 2):
 # the default's warmup of 8 rounds would still be learning its baseline
@@ -2175,10 +2237,12 @@ HEALTH_DETECTOR = dict(warmup=3, z_trip=6.0, z_clear=2.0)
 # round alone, "serve" a batch served (B prompts, NEW tokens) between
 # rounds.
 HEALTH_ARC = (0, 0, 0, 0, 1e4, "serve", 1e8, 1e4, 1e8, "serve")
-# Depth of the cross-engine check (ServeEngine and ContinuousEngine with
-# one seed, the arc on each): the run's time limit.  The ServeEngine arc
-# and the heal swap under load run at full depth.
-CROSS_LAYERS = 8
+# Depth of phi3-health's arcs (ServeEngine and ContinuousEngine with one
+# seed) and its heal swap under load, for the run's time limit: at full
+# depth the arc alone took 90 s of a 1,074 s run, each arc about 30 s at
+# 8 layers.  The batched probe reads are checked and timed on a
+# full-depth deploy.
+CROSS_LAYERS = 4
 
 
 # Launches made by a check inside a path (a kernel against its plain
@@ -2470,18 +2534,20 @@ def _check_recalibration(e) -> None:
 
 def phase_health(cfg, built: dict, records: list) -> dict:
     """Full-width phi3-mini (bf16) ageing and healing on imperfect
-    devices (``HEALTH``, ``spare_line``) through ``ServeEngine(health=)``
-    at full depth, then at ``CROSS_LAYERS`` layers through
-    ``ServeEngine(health=)`` and ``ContinuousEngine(health=)`` with the
-    same seed: the reference's escalation arc on each, the two
-    same-depth event histories identical and each round's probe errors
-    equal; on each, every refreshed fold bit for bit
-    against its plain version, the batched probe reads against their
-    plain loop with and without read noise, recalibration lowering each
-    tripped matrix's probe error, and after demotion cim_mvm launched
-    for the live matrices only.  Then one heal swap under load at full
-    depth.  Returns the launch counts of the path (the three arcs and
-    the run under load), less the checks'."""
+    devices (``HEALTH``, ``spare_line``): ``ServeEngine(health=)``
+    deployed at full depth for the batched probe reads (the record at
+    G = 32, every group against its plain loop with and without read
+    noise, a round's launches timed), then at ``CROSS_LAYERS`` layers
+    through ``ServeEngine(health=)`` and ``ContinuousEngine(health=)``
+    with the same seed: the reference's escalation arc on each, the two
+    event histories identical and each round's probe errors equal; on
+    each, every refreshed fold bit for bit against its plain version,
+    the batched reads of the reprogrammed bank, recalibration lowering
+    each tripped matrix's probe error, and after demotion cim_mvm
+    launched for the live matrices only.  Then one heal swap under load
+    at ``CROSS_LAYERS`` layers.  Returns the launch counts of the path
+    (the deploy, the two arcs and the run under load), less the
+    checks'."""
     from repro_torch.health import DetectorConfig, HealthConfig
     from repro_torch.kernels import runtime
     from repro_torch.models.model import init_params
@@ -2517,6 +2583,7 @@ def phase_health(cfg, built: dict, records: list) -> dict:
         _check_batched_reads(eng, None, "fresh bank, noiseless")
         _check_batched_reads(eng, probe_seed(HEALTH_SEED, 0),
                              "fresh bank, with read noise")
+        _round_launches(eng)
 
     def serve(e):
         e.generate(prompts, 2)
@@ -2550,9 +2617,23 @@ def phase_health(cfg, built: dict, records: list) -> dict:
                 _check_batched_reads(e, probe_seed(HEALTH_SEED, 5),
                                      "reprogrammed bank, with read noise")
 
-    print(f"phase phi3-health (ServeEngine): the arc {HEALTH_ARC}")
-    with _Uncounted():
-        _round_launches(eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The arcs at CROSS_LAYERS layers: ServeEngine, then ContinuousEngine
+    # (its swaps landing between batches: no sequence in flight holds the
+    # old bank) with the same seed.
+    cfg_x = cfg.replace(n_layers=CROSS_LAYERS)
+    params_x = {k: {n: t[:CROSS_LAYERS].clone() for n, t in v.items()}
+                if k.startswith("slot") else v for k, v in params.items()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"phase phi3-health (ServeEngine, {CROSS_LAYERS} layers): the arc "
+          f"{HEALTH_ARC}")
+    eng = ServeEngine(cfg_x, params_x, max_seq=MAX_SEQ, **kw)
     serve_arc = _health_arc(eng, serve, check)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     rep = eng.health_report
@@ -2561,20 +2642,6 @@ def phase_health(cfg, built: dict, records: list) -> dict:
           f", after {serve_arc['served'][1]['tokens_per_s']:.1f}; probe "
           f"rounds {[round(r * 1e3, 1) for r in serve_arc['rounds']]} "
           f"ms; peak memory {peak:.1f} GiB")
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # The cross-engine check at CROSS_LAYERS layers: ServeEngine, then
-    # ContinuousEngine (its swaps landing between batches: no sequence in
-    # flight holds the old bank) with the same seed.
-    cfg_x = cfg.replace(n_layers=CROSS_LAYERS)
-    params_x = {k: {n: t[:CROSS_LAYERS] for n, t in v.items()}
-                if k.startswith("slot") else v for k, v in params.items()}
-    print(f"phase phi3-health (ServeEngine, {CROSS_LAYERS} layers, same "
-          f"seed)")
-    eng = ServeEngine(cfg_x, params_x, max_seq=MAX_SEQ, **kw)
-    serve_arc = _health_arc(eng, serve, check)
     del eng
     cont = ContinuousEngine(cfg_x, params_x, capacity=2 * B,
                             max_seq=MAX_SEQ, max_prompt=PROMPT, **kw)
@@ -2589,11 +2656,11 @@ def phase_health(cfg, built: dict, records: list) -> dict:
     print(f"  event histories identical across the two engines "
           f"({len(serve_arc['history'])} events: "
           f"{ {k: sum(1 for h in serve_arc['history'] if h[2] == k) for k in ('trip', 'recalibrate', 'reprogram', 'demote', 'clear')} })")
-    del cont, params_x
+    del cont
     gc.collect()
     torch.cuda.empty_cache()
-    _health_under_load(cfg, params, kw)
-    del params
+    _health_under_load(cfg_x, params_x, kw)
+    del params_x
     gc.collect()
     torch.cuda.empty_cache()
     return _launches("phi3-health")
@@ -2677,9 +2744,6 @@ PEAK_F64 = 34e12
 # pivot (2), one reciprocal, c (1), y (3) and the back sweep (2).
 LINE_OPS = 11
 LINE_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
-# The phi3-circuit path's Monte-Carlo devices: phi3-nonideal's without
-# line opens.
-CIRCUIT_MC = {k: v for k, v in NONIDEAL.items() if not k.startswith("p_open")}
 MIXED_TOL = 1e-6     # mixed vs f64 currents (tests/test_solver_shard.py:77)
 
 
@@ -3005,7 +3069,7 @@ def phase_circuit(w: torch.Tensor, built: dict, card: str):
     if rel > 1e-8:
         raise AssertionError("calibrate_eta's policies disagree")
 
-    model = NonidealModel(**CIRCUIT_MC)
+    model = NonidealModel(**NONIDEAL)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     mc = mc_nf(masks["mdm"][:512], spec, model, 4, 0, precision="mixed",
@@ -3383,7 +3447,7 @@ def phase_moe(records: list, built: dict, card: str) -> dict:
     del fw
     records.append(_check_flash(g, torch.bfloat16, built, H=cfg.n_heads,
                                 Dh=cfg.resolved_head_dim,
-                                cases=("prefill", "decode"),
+                                cases=_flash_cases()[:2],
                                 name="flash_attention[bf16,Dh=128]"))
     phase_plans(eng, [("slot0_attn", "ffn_we_gate", 7), ("slot0_attn", "wq")])
     seq = torch.cat([prompts.cuda(), tokens.long()], 1)[:, :PROMPT + TF_STEPS]
@@ -3436,9 +3500,8 @@ def phase_moe(records: list, built: dict, card: str) -> dict:
 # qwen2-moe on imperfect devices: the depth the card holds (a served
 # expert weight costs ~11 B: int16 code 2, pos 0.5, f32 gain 4, col_pos
 # 0.5, f32 fold 4; 24 layers would take ~137 GB), the phi3-nonideal
-# devices without line opens (which would demote every full-width
-# expert), the spare-line mapping on the expert partition.
-MOE_NONIDEAL_LAYERS = 8
+# devices, the spare-line mapping on the expert partition.
+MOE_NONIDEAL_LAYERS = 2     # for the run's time limit (78 s at 8 layers)
 MOE_NONIDEAL_PIPELINE = "part=expert,row=spare_line,col=spare_line"
 MOE_TF_STEPS = 2     # decode steps of its call-by-call check
 # Its forced demotion: moe_ffn of the kernel and plain paths in f32, three
@@ -3660,8 +3723,8 @@ def _forced_demotion(eng, seed: int, mark: int = 5) -> None:
 
 def phase_moe_nonideal(records: list, built: dict) -> dict:
     """qwen2-moe-a2.7b at full width and MOE_NONIDEAL_LAYERS layers in
-    bf16, random weights from seed 0, on imperfect devices (NONIDEAL
-    without line opens, NONIDEAL_SEED) under MOE_NONIDEAL_PIPELINE,
+    bf16, random weights from seed 0, on imperfect devices (NONIDEAL,
+    NONIDEAL_SEED) under MOE_NONIDEAL_PIPELINE,
     through ``ServeEngine`` with no plan cache (the deploy's stages
     timed): every expert bank folded at deploy and read by cim_mvm's
     grouped folded forms with read noise (the decode form at a decode
@@ -3669,7 +3732,7 @@ def phase_moe_nonideal(records: list, built: dict) -> dict:
     projections by its folded forms.  Then every served matrix's fold bit for bit
     against its plain version, two generate calls bit-identical, every
     kernel call of a teacher-forced pass (prefill and MOE_TF_STEPS decode
-    steps) against its plain version, the first MOE_F32_LAYERS layers
+    steps) against its plain version, its first MOE_F32_LAYERS layers (or all)
     with f32 activations end to end against the plain path, a forced
     demotion, and the grouped folded forms' record."""
     from repro_torch.configs import CimConfig
@@ -3682,15 +3745,14 @@ def phase_moe_nonideal(records: list, built: dict) -> dict:
 
     cfg = QWEN.replace(n_layers=MOE_NONIDEAL_LAYERS,
                        cim=CimConfig(enabled=True, mode="mdm_expert"))
-    model = NonidealModel(**{k: v for k, v in NONIDEAL.items()
-                             if not k.startswith("p_open")})
+    model = NonidealModel(**NONIDEAL)
     E, L = cfg.n_experts, cfg.n_layers
     n_exp = 3 * L * E * cfg.d_model * cfg.moe_d_ff
     per = {"codes": 2, "pos": 0.5, "gain": 4, "col_pos": 0.5, "folded": 4}
     print(f"  reckoned before the deploy: {n_exp / 1e9:.3f} G expert weights "
           f"x {sum(per.values())} B = {n_exp * sum(per.values()) / 1e9:.1f} GB "
           f"({ {f: round(n_exp * b / 1e9, 2) for f, b in per.items()} } GB); "
-          f"24 layers would be {3 * n_exp * sum(per.values()) / 1e9:.0f} GB")
+          f"24 layers would be {24 / L * n_exp * sum(per.values()) / 1e9:.0f} GB")
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_launch_counts()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -3797,7 +3859,8 @@ def phase_moe_nonideal(records: list, built: dict) -> dict:
     _forced_demotion(eng, 5)
 
     # f32 activations at a depth cut: the bf16 params are freed first.
-    twin = _moe_f32_twin(eng, MOE_F32_LAYERS)
+    n32 = min(MOE_F32_LAYERS, L)
+    twin = _moe_f32_twin(eng, n32)
     eng.params = None
     del params
     gc.collect()
@@ -3815,7 +3878,7 @@ def phase_moe_nonideal(records: list, built: dict) -> dict:
     gap = top2[..., 0] - top2[..., 1]
     flips = lk.argmax(-1) != lp.argmax(-1)
     ok = err <= LOGIT_TOL * ref and bool((gap[flips] <= 2 * err).all())
-    print(f"  f32 activations, first {MOE_F32_LAYERS} of {L} layers (same "
+    print(f"  f32 activations, first {n32} of {L} layers (same "
           f"bank, read seed 5): teacher-forced logits ({lk.shape[1]} steps) "
           f"max_abs_err {err:.3e} ({err / ref:.3e} of max|logit| {ref:.3e}), "
           f"tol {LOGIT_TOL:g} x max; argmax differs at {int(flips.sum())} of "
@@ -3830,9 +3893,10 @@ def phase_moe_nonideal(records: list, built: dict) -> dict:
     return counts
 
 # The qwen2-moe-health path: qwen2-moe-a2.7b at full width, this many of
-# its 24 layers (368 matrices, 360 of them experts, at 2), for the run's
-# time limit: the arc refreshes every matrix about six times an engine.
-MOE_HEALTH_LAYERS = 2
+# its 24 layers (184 matrices, 180 of them experts), for the run's time
+# limit: the arc refreshes every matrix about six times an engine (at 2
+# layers the path took 183 s of a 1,074 s run).
+MOE_HEALTH_LAYERS = 1
 
 
 def _expert_batched_record(eng, built: dict) -> dict:
@@ -4071,6 +4135,179 @@ def phase_moe_health(records: list, built: dict) -> dict:
     return _launches("qwen2-moe-health")
 
 
+class _Laps:
+    """Prints the seconds each stage of a path took."""
+
+    def __init__(self, path: str):
+        self.path, self.t = path, time.perf_counter()
+
+    def __call__(self, what: str) -> None:
+        now = time.perf_counter()
+        print(f"  [{self.path}] {what}: {now - self.t:.1f} s")
+        self.t = now
+
+
+def _ring_kpos(C: int, filled: int):
+    """kpos of a C-slot ring after positions 0..filled-1 were written at
+    position % C (EMPTY_POS where none was): unsorted once it wraps."""
+    from repro_torch.kernels.flash_attention.ref import EMPTY_POS
+
+    kpos = torch.full((C,), EMPTY_POS, dtype=torch.int32, device="cuda")
+    pos = torch.arange(max(0, filled - C), filled, dtype=torch.int32,
+                       device="cuda")
+    kpos[pos.long() % C] = pos
+    return kpos
+
+
+def _served_flash_cases(batch: int, prompt: int, C: int, last: int):
+    """The flash calls of a served path: the prefill of ``prompt`` tokens
+    into a C-slot ring, and the decode of position ``last`` (the ring
+    wrapped where last >= C)."""
+    ar = lambda a, b: torch.arange(a, b, dtype=torch.int32, device="cuda")
+    return [("prefill", batch, prompt, C, ar(0, prompt),
+             _ring_kpos(C, prompt)),
+            ("decode", batch, 1, C, ar(last, last + 1),
+             _ring_kpos(C, last + 1))]
+
+
+def _mamba_share(eng, prompts) -> None:
+    """The mamba mixers' share of a hymba prefill: every mixer call
+    timed with the card synchronised before and after it (plain
+    PyTorch: the reference has no kernel for it) inside one prefill,
+    itself timed whole; and layer 0's mixer alone in device time."""
+    from repro_torch.models import model as mdl
+
+    mixer, spent = mdl.mamba_mixer, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mixer(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    mdl.mamba_mixer = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompts, 1)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+    finally:
+        mdl.mamba_mixer = mixer
+    p0 = {k: v[0] for k, v in eng.params["slot0_hybrid"].items()}
+    x = torch.randn((*prompts.shape, eng.cfg.d_model), device="cuda").to(
+        eng.params["embed"].dtype)
+    one = cuda_ms(lambda: mixer(p0, x, None, eng.cfg.ssm_chunk, "ssm_"),
+                  iters=3)
+    print(f"  mamba share of a prefill (each mixer call synchronised): "
+          f"{len(spent)} calls {sum(spent) * 1e3:.1f} ms of "
+          f"{t_pre * 1e3:.1f} ms ({100 * sum(spent) / t_pre:.1f}%); layer "
+          f"0's mixer alone {one:.3f} ms device time (x "
+          f"{eng.cfg.n_layers} layers = {one * eng.cfg.n_layers:.1f} ms)")
+
+
+def phase_hymba(records: list, built: dict, tmp: str) -> dict:
+    """hymba-1.5b at full width and depth in bf16 (its config dtype),
+    random weights from seed 0: every hybrid block's attention (GQA 25/5
+    of 64, a window of 1024) and its MLP through the kernels, its mamba
+    heads in plain PyTorch, HYMBA_B prompts of HYMBA_PROMPT tokens and
+    HYMBA_NEW greedy tokens, so the ring wraps during decode.  Then the
+    plans against the CPU mirror, the kernel path against the plain
+    path, the mamba share, and bf16 flash at its heads."""
+    from repro_torch.configs import CimConfig
+    from repro_torch.configs.hymba_15b import CONFIG as HYMBA
+
+    cfg = HYMBA.replace(cim=CimConfig(enabled=True, mode="mdm"))
+    C, last = cfg.sliding_window, HYMBA_PROMPT + HYMBA_NEW - 1
+    if last < C:
+        raise AssertionError("the hymba path must wrap its ring")
+    print(f"config {cfg.name} ({cfg.dtype}): {cfg.n_layers} layers "
+          f"{cfg.block_pattern}, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}, "
+          f"window {C}, d_ff {cfg.d_ff}, ssm_state {cfg.ssm_state}, vocab "
+          f"{cfg.vocab_size} (padded {cfg.padded_vocab}); no depth cut; the "
+          f"ring of {C} wraps at decode step {C - HYMBA_PROMPT} (position "
+          f"{C}), last position {last}")
+    lap = _Laps("hymba")
+    eng, prompts, tokens, counts, _ = phase_serve(
+        "hymba", cfg, os.path.join(tmp, "hymba"), HYMBA_B, HYMBA_PROMPT,
+        HYMBA_NEW)
+    lap("serve")
+    n_w = {k: v.numel() for k, v in eng.params["slot0_hybrid"].items()}
+    dep = sum(n for k, n in n_w.items() if k.startswith(("attn_", "ffn_w")))
+    ssm = sum(n for k, n in n_w.items() if k.startswith("ssm_"))
+    print(f"  deployed weights {dep / 1e9:.3f} B ({dep / cfg.n_layers / 1e6:.2f}"
+          f" M a layer); the ssm parameters digital, {ssm / 1e9:.3f} B")
+    _mamba_share(eng, prompts)
+    lap("mamba share")
+    phase_plans(eng, [("slot0_hybrid", "attn_wq")])
+    lap("plans")
+    phase_compare(eng, prompts, tokens, "hymba", steps=HYMBA_TF_STEPS)
+    lap("compare")
+    del eng, prompts, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    records.append(_check_flash(
+        torch.Generator(device="cuda").manual_seed(3), torch.bfloat16, built,
+        H=cfg.n_heads, Dh=cfg.resolved_head_dim, Hkv=cfg.n_kv_heads,
+        window=C, name="flash_attention[bf16,hymba]",
+        cases=_served_flash_cases(HYMBA_B, HYMBA_PROMPT, C, last)))
+    lap("flash")
+    return counts
+
+
+def phase_deepseek(records: list, built: dict, tmp: str) -> dict:
+    """deepseek-coder-33b at full width, DEEPSEEK_LAYERS of its 62 layers,
+    bf16 (its config dtype), random weights from seed 0: GQA 56/8 of
+    128, d_ff 19200, B x PROMPT-token prompts and NEW greedy tokens
+    through the kernels.  Then each matrix shape's cim_mvm form, the
+    plans against the CPU mirror, the kernel path against the plain
+    path over DEEPSEEK_TF_STEPS decode steps, and bf16 flash at its
+    heads."""
+    from repro_torch.configs import CimConfig
+    from repro_torch.configs.deepseek_coder_33b import CONFIG as DEEPSEEK
+
+    full = DEEPSEEK
+    cfg = full.replace(n_layers=DEEPSEEK_LAYERS,
+                       cim=CimConfig(enabled=True, mode="mdm"))
+    D, F, Dh = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    layer = D * Dh * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) + 3 * D * F
+    all_gb = 2 * (full.n_layers * layer + 2 * D * full.padded_vocab) / 1e9
+    print(f"config {cfg.name} ({cfg.dtype}): {cfg.n_layers} of "
+          f"{full.n_layers} layers (the cut: {full.n_layers} layers are "
+          f"{all_gb:.1f} GB of bf16 params before the bank), d_model {D}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {Dh}, d_ff {F}, vocab "
+          f"{cfg.vocab_size} (padded {cfg.padded_vocab}); deployed weights "
+          f"{cfg.n_layers * layer / 1e9:.3f} B ({layer / 1e6:.1f} M a layer)")
+    lap = _Laps("deepseek")
+    eng, prompts, tokens, counts, _ = phase_serve(
+        "deepseek", cfg, os.path.join(tmp, "deepseek"))
+    lap("serve")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    shapes = {}                  # layer 0's deployments, one a shape
+    for k, d in eng.cim["slot0_attn"].items():
+        shapes.setdefault((d.in_dim, d.out_dim), (k, d.layer(0)))
+    records.append(_check_cim(
+        g, shapes.values(), (B, B * PROMPT), torch.bfloat16,
+        "cim_mvm[bf16 x, deepseek]", f"ffn_w_gate M={B}"))
+    lap("cim forms")
+    phase_plans(eng, [("slot0_attn", "wk")])
+    lap("plans")
+    phase_compare(eng, prompts, tokens, "deepseek", steps=DEEPSEEK_TF_STEPS)
+    lap("compare")
+    del eng, prompts, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    records.append(_check_flash(
+        g, torch.bfloat16, built, H=cfg.n_heads, Dh=Dh, Hkv=cfg.n_kv_heads,
+        name="flash_attention[bf16,deepseek]",
+        cases=_served_flash_cases(B, PROMPT, MAX_SEQ, MAX_SEQ - 1)))
+    lap("flash")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4086,7 +4323,9 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_card()
     built = phase_build()
+    lap = _Laps("main")
     records = phase_kernels(built)
+    lap("kernel checks")
     # Plan caches live in fresh directories under TMPDIR, so every
     # deploy here starts cold and nothing outlives the run.
     with tempfile.TemporaryDirectory(prefix="chip_smoke_plans_") as tmp:
@@ -4112,6 +4351,7 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
 
     cim = CimConfig(enabled=True, mode="mdm")
     by_path: dict = {}
+    lap = _Laps("paths")
     cfg = PHI3.replace(dtype="float32", cim=cim)
     print(f"config {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
@@ -4120,18 +4360,22 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
     eng, prompts, tokens, counts, uncached_s = phase_serve(
         "phi3", cfg, os.path.join(tmp, "phi3"))
     by_path["phi3"] = counts
+    lap("phi3")
     by_path["phi3-continuous"] = phase_continuous(
         cfg, eng.params, eng, os.path.join(tmp, "phi3-continuous"),
         uncached_s)
+    lap("phi3-continuous")
     for d in ("phi3", "phi3-continuous"):
         shutil.rmtree(os.path.join(tmp, d))
     phase_plans(eng, [("slot0_attn", "wq"), ("slot0_attn", "ffn_w_gate"),
                       ("slot0_attn", "ffn_w_down")])
     phase_layer_deploy(eng)
-    phase_compare(eng, prompts, tokens)
+    phase_compare(eng, prompts, tokens, "phi3")
+    lap("phi3 plans, layer deploy and compare")
     rec, counts = phase_export(eng)
     records.append(rec)
     by_path["export"] = counts
+    lap("export")
     w_gate = eng.params["slot0_attn"]["ffn_w_gate"][0].clone()
     del eng, prompts, tokens
     gc.collect()
@@ -4139,16 +4383,22 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
     rec, by_path["phi3-circuit"] = phase_circuit(w_gate, built, card)
     records.append(rec)
     del w_gate
+    lap("phi3-circuit")
 
     cfg = PHI3.replace(cim=cim)
     print(f"config {cfg.name} ({cfg.dtype}, its CONFIG dtype): imperfect "
-          f"devices; no depth cut")
+          f"devices; {NONIDEAL_LAYERS} of 32 layers (a cut for the run's "
+          f"time limit)")
     by_path["phi3-nonideal"] = phase_nonideal(
-        cfg, os.path.join(tmp, "phi3-nonideal"))
+        cfg.replace(n_layers=NONIDEAL_LAYERS),
+        os.path.join(tmp, "phi3-nonideal"))
     shutil.rmtree(os.path.join(tmp, "phi3-nonideal"), ignore_errors=True)
-    print(f"config {cfg.name} ({cfg.dtype}): ageing and self-healing; no "
-          f"depth cut")
+    lap("phi3-nonideal")
+    print(f"config {cfg.name} ({cfg.dtype}): ageing and self-healing; "
+          f"deployed at full depth, aged and healed at {CROSS_LAYERS} of 32 "
+          f"layers (a cut for the run's time limit)")
     by_path["phi3-health"] = phase_health(cfg, built, records)
+    lap("phi3-health")
 
     cfg = XLSTM.replace(cim=cim)
     print(f"config {cfg.name} ({cfg.dtype}): {cfg.n_layers} layers "
@@ -4160,19 +4410,28 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
         "xlstm", cfg, os.path.join(tmp, "xlstm"))
     by_path["xlstm"] = counts
     phase_plans(eng, [("slot0_mlstm", "wq")])
-    phase_compare(eng, prompts, tokens)
+    phase_compare(eng, prompts, tokens, "xlstm")
     del eng, prompts, tokens
     gc.collect()
     torch.cuda.empty_cache()
+    lap("xlstm")
+
+    by_path["hymba"] = phase_hymba(records, built, tmp)
+    lap("hymba")
+    by_path["deepseek"] = phase_deepseek(records, built, tmp)
+    lap("deepseek")
 
     print("config qwen2-moe-a2.7b: MoE serving, alone on the card")
     by_path["qwen2-moe"] = phase_moe(records, built, card)
+    lap("qwen2-moe")
     print(f"config qwen2-moe-a2.7b on imperfect devices, {MOE_NONIDEAL_LAYERS} "
           f"of 24 layers, alone on the card")
     by_path["qwen2-moe-nonideal"] = phase_moe_nonideal(records, built)
+    lap("qwen2-moe-nonideal")
     print(f"config qwen2-moe-a2.7b ageing and self-healing, "
           f"{MOE_HEALTH_LAYERS} of 24 layers, alone on the card")
     by_path["qwen2-moe-health"] = phase_moe_health(records, built)
+    lap("qwen2-moe-health")
     for r in records:
         name = r["name"]
         kernel = name.split("[")[0]

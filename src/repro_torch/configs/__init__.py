@@ -10,12 +10,16 @@ from repro_torch.configs.base import (  # noqa: F401
     check_supported,
 )
 
-# arch id -> module name; the reference's other six archs (mamba and
-# hybrid blocks, frontends) are still to be ported.
+# arch id -> module name; the reference's other two archs (frontends:
+# internvl2-76b, musicgen-medium) are still to be ported.
 ARCHS: dict[str, str] = {
     "mixtral-8x7b": "mixtral_8x7b",
     "qwen2-moe-a2.7b": "qwen2_moe_a27b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
     "phi3-mini-3.8b": "phi3_mini_38b",
+    "internlm2-20b": "internlm2_20b",
+    "qwen2.5-32b": "qwen25_32b",
+    "hymba-1.5b": "hymba_15b",
     "xlstm-1.3b": "xlstm_13b",
 }
 

@@ -36,10 +36,12 @@ class ModelConfig:
     """Decoder description (the reference's field names).
 
     ``block_pattern`` is the repeating unit of per-layer block types;
-    n_layers must be a multiple of its length.  The port serves
-    ``("attn",)`` with a SwiGLU MLP or, with ``n_experts``, a routed
-    SwiGLU MoE (plus fused shared experts), and ``("mlstm", "slstm")``
-    without an MLP (``mlp_type="none"``).
+    n_layers must be a multiple of its length.  The port serves any
+    pattern of ``"attn"``, ``"hybrid"`` (attention and mamba heads in
+    one block) and ``"mamba"`` blocks with a SwiGLU MLP on the attn and
+    hybrid blocks (on ``("attn",)``, with ``n_experts``, a routed
+    SwiGLU MoE plus fused shared experts instead), and ``("mlstm",
+    "slstm")`` without an MLP (``mlp_type="none"``).
     """
 
     name: str = "model"
@@ -67,7 +69,10 @@ class ModelConfig:
     moe_dispatch: str = "global"
     mlp_type: str = "swiglu"
     norm_eps: float = 1e-5
-    ssm_expand: int = 1          # mLSTM inner width = d_model * ssm_expand
+    ssm_state: int = 16          # mamba state width N
+    ssm_conv: int = 4            # mamba causal conv width K
+    ssm_expand: int = 1          # mamba / mLSTM inner width = d_model * this
+    ssm_chunk: int = 64          # mamba chunked-scan length
     mlstm_chunk: int = 128       # mLSTM chunkwise length
     dtype: str = "bfloat16"
     cim: CimConfig = field(default_factory=CimConfig)
@@ -92,26 +97,31 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-# Block patterns the port serves, each with the MLP type it takes.
-SUPPORTED_PATTERNS = {("attn",): "swiglu", ("mlstm", "slstm"): "none"}
+# Block types the port serves with a SwiGLU MLP, and the xLSTM pattern.
+SWIGLU_BLOCKS = ("attn", "hybrid", "mamba")
+XLSTM_PATTERN = ("mlstm", "slstm")
 MOE_DISPATCH = ("global", "grouped")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configurations outside the port's slices so far: the
-    mamba and hybrid blocks, frontends and other MLP types are still to
-    be ported."""
+    """Raise for configurations outside the port's slices so far:
+    frontends (internvl2-76b's vision, musicgen-medium's audio) and the
+    GELU MLP are the next slice."""
     pattern = tuple(cfg.block_pattern)
-    if pattern not in SUPPORTED_PATTERNS:
+    if pattern == XLSTM_PATTERN:
+        want = "none"
+    elif pattern and set(pattern) <= set(SWIGLU_BLOCKS):
+        want = "swiglu"
+    else:
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family!r}, block_pattern="
-            f"{cfg.block_pattern!r}: the port serves "
-            f"{sorted(SUPPORTED_PATTERNS)} so far; mamba and hybrid "
-            "blocks are still to be ported")
-    if cfg.mlp_type != SUPPORTED_PATTERNS[pattern]:
+            f"{cfg.block_pattern!r}: the port serves patterns of "
+            f"{SWIGLU_BLOCKS} and {XLSTM_PATTERN}")
+    if cfg.mlp_type != want:
         raise NotImplementedError(
             f"{cfg.name}: block_pattern={cfg.block_pattern!r} is served "
-            f"with mlp_type={SUPPORTED_PATTERNS[pattern]!r} so far")
+            f"with mlp_type={want!r}; the GELU MLP and the frontends "
+            "(musicgen-medium, internvl2-76b) are the next slice")
     moe = cfg.family == "moe" or cfg.n_experts
     if moe and (pattern != ("attn",) or cfg.n_experts < 1
                 or not 1 <= cfg.n_experts_per_token <= cfg.n_experts):
@@ -124,6 +134,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: moe_dispatch={cfg.moe_dispatch!r} not in "
             f"{MOE_DISPATCH}")
-    if cfg.qkv_bias and pattern != ("attn",):
+    if cfg.qkv_bias and not {"attn", "hybrid"} & set(pattern):
         raise NotImplementedError(
-            f"{cfg.name}: qkv bias is served on the ('attn',) pattern only")
+            f"{cfg.name}: qkv bias needs an attention block")

@@ -1,15 +1,17 @@
 """Model assembly of the port: the ``"attn"`` decoder (SwiGLU MLP or
-routed MoE, optional q/k/v biases) and the xLSTM ``("mlstm", "slstm")``
-stack.
+routed MoE, optional q/k/v biases), the ``"hybrid"`` and ``"mamba"``
+blocks and the xLSTM ``("mlstm", "slstm")`` stack.
 
-Port of the dense, MoE and xLSTM paths of ``repro.models.model``.  The
+Port of ``repro.models.model`` (its frontends aside).  The
 reference scans its stacked layers with ``lax.scan``; here a Python loop
 walks ``for r in repeats: for slot in pattern`` (the reference's scan
 order) and takes each layer's views of the stacked parameters, decode
 state and deployments.  One ``apply_model`` serves prefill (all prompt
 positions) and decode (one position, ``decode=True``): attention caches
 are ring buffers keyed by absolute positions, recurrent blocks carry
-O(1) states (mLSTM ``S``/``n``, sLSTM ``h``/``c``).
+O(1) states (mamba ``conv``/``ssm``, mLSTM ``S``/``n``, sLSTM
+``h``/``c``).  A hybrid block (hymba) averages its attention and mamba
+heads, ``0.5 * (attention + mamba)``, then runs its FFN.
 
 With a ``cim`` deployment tree (``cfg.cim.enabled`` serving, built by
 ``repro_torch.deploy.deploy_model_params``), every attention q/k/v/o
@@ -17,8 +19,10 @@ and SwiGLU projection runs through ``cim_mvm``, every deployed MoE
 expert bank through ``cim_mvm``'s grouped form (``models/moe.py``) and
 every attention through ``flash_attention``: the hand-written kernels on
 CUDA tensors.
-As in the reference, the mLSTM and sLSTM blocks take no deployment:
-their projections stay digital even where the deploy planned them.
+As in the reference, the mamba, mLSTM and sLSTM mixers take no
+deployment: their projections stay digital (mLSTM's even where the
+deploy planned them), and the mamba mixer is plain PyTorch on both
+devices (the reference has no kernel for it).
 Every sLSTM recurrence runs through ``slstm_scan``.  Which four
 functions a forward calls is one :class:`Ops` tuple handed to
 :func:`apply_model`: :data:`KERNELS` (the default) or :data:`PLAIN`,
@@ -59,6 +63,8 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.recurrent import (
+    mamba_decode,
+    mamba_mixer,
     mlstm_decode,
     mlstm_mixer,
     slstm_mixer,
@@ -147,18 +153,23 @@ def dense_mlp(p: dict, x: torch.Tensor, cim: dict | None = None,
 def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor, cache: dict | None,
                cim: dict | None = None, ops: Ops = KERNELS,
-               read_seed: int | None = None):
+               read_seed: int | None = None, prefix: str = ""):
     """Attention sublayer.  ``cache`` holds one layer's ring buffers
     {k (B, C, Hkv, Dh), v, kpos (C,)}, written in place at
     ``positions % C``; with per-lane positions (B, S), ``kpos`` is
-    (B, C) and each lane writes its own slots.  Under ``cfg.qkv_bias``
-    the q, k, v biases are added after the projections, before RoPE.
+    (B, C) and each lane writes its own slots.  A prefill longer than
+    the ring writes, and attends over, its last C keys only, as the
+    reference does.  Under ``cfg.qkv_bias`` the q, k, v biases are added
+    after the projections, before RoPE.  ``prefix`` names the
+    parameters and deployments (``attn_`` in a hybrid block).
     Returns y (B, S, D)."""
-    c = (lambda n: None) if cim is None else cim.get
+    cim = {} if cim is None else cim
+    c = lambda n: cim.get(prefix + n)
+    g = lambda n: p[prefix + n]
     B, S, _ = x.shape
 
     def qkv_proj(name):
-        w, dep = p[name], c(name)
+        w, dep = g(name), c(name)
         if dep is None:
             return torch.einsum("bsd,dhk->bshk", x, w)
         return _cim_matmul(x, w, dep, ops, read_seed).reshape(
@@ -166,7 +177,7 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     q, k, v = qkv_proj("wq"), qkv_proj("wk"), qkv_proj("wv")
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + g("bq"), k + g("bk"), v + g("bv")
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -196,23 +207,45 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     out = ops.attention(q, k_all, v_all, positions, k_pos,
                         cfg.sliding_window, cfg.attn_chunk)
     if c("wo") is None:
-        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return _cim_matmul(out.reshape(B, S, -1), p["wo"], c("wo"), ops,
+        return torch.einsum("bshk,hkd->bsd", out, g("wo"))
+    return _cim_matmul(out.reshape(B, S, -1), g("wo"), c("wo"), ops,
                        read_seed)
+
+
+def _mamba(p: dict, h: torch.Tensor, cfg: ModelConfig, state: dict | None,
+           decode: bool, prefix: str = "") -> torch.Tensor:
+    """The mamba mixer (one step when ``decode``), its conv and ssm
+    state advanced in place."""
+    st = None if state is None else (state["conv"], state["ssm"])
+    if decode:
+        y, new = mamba_decode(p, h, st, prefix=prefix)
+    else:
+        y, new = mamba_mixer(p, h, st, chunk=cfg.ssm_chunk, prefix=prefix)
+    if state is not None:
+        state["conv"].copy_(new[0])
+        state["ssm"].copy_(new[1])
+    return y
 
 
 def block_apply(bt: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, state: dict | None, decode: bool,
                 cim: dict | None = None, ops: Ops = KERNELS,
                 read_seed: int | None = None) -> torch.Tensor:
-    """One block of type ``bt``: pre-norm mixer, then (``"attn"`` only)
-    the pre-norm FFN: the MoE with ``cfg.n_experts`` (its aux loss
-    dropped: serving ignores it), else the SwiGLU MLP.  ``state`` is the
-    block's slice of the decode state, advanced in place."""
+    """One block of type ``bt``: pre-norm mixer, then (``"attn"`` and
+    ``"hybrid"``) the pre-norm FFN: the MoE with ``cfg.n_experts`` (its
+    aux loss dropped: serving ignores it), else the SwiGLU MLP.
+    ``state`` is the block's slice of the decode state, advanced in
+    place."""
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     if bt == "attn":
         y = attn_apply(p, h, cfg, positions, state, cim=cim, ops=ops,
                        read_seed=read_seed)
+    elif bt == "hybrid":
+        y_attn = attn_apply(p, h, cfg, positions, state, cim=cim, ops=ops,
+                            read_seed=read_seed, prefix="attn_")
+        y = 0.5 * (y_attn + _mamba(p, h, cfg, state, decode, "ssm_"))
+    elif bt == "mamba":
+        y = _mamba(p, h, cfg, state, decode)
     elif bt == "mlstm":
         st = None if state is None else (state["S"], state["n"])
         if decode:
@@ -231,7 +264,7 @@ def block_apply(bt: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         raise ValueError(f"unknown block type {bt}")
     x = x + y
-    if bt == "attn" and cfg.mlp_type != "none":
+    if bt in ("attn", "hybrid") and cfg.mlp_type != "none":
         hf = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
         if cfg.n_experts:
             x = x + moe_ffn(p, hf, cfg, ops.grouped, cim=cim,
@@ -251,7 +284,7 @@ def apply_model(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     the returned dict shares its tensors with a new ``pos``.  A shared
     clock ``pos`` is a Python int; a per-slot one (``per_slot=True``)
     a (B,) tensor, which gives lane b the positions ``pos[b] + arange(S)``.
-    ``decode`` selects the one-step mLSTM form (one token after a
+    ``decode`` selects the one-step mamba and mLSTM forms (one token after a
     prefill), as the reference's ``decode`` flag does.  ``read_seed``
     is this forward's crossbar read (None: noiseless).
     """
@@ -297,34 +330,42 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
     """Fresh decode state, one dict per pattern slot, stacked over the
     repeats R: ``"attn"`` ring buffers k, v (R, B, C, Hkv, Dh) with
     C = min(cache_len, sliding_window or cache_len) and ``kpos`` (R, C)
-    starting at EMPTY_POS (self-masking); mLSTM ``S`` (R, B, H, Dh, Dh)
-    and ``n`` (R, B, H, Dh) with Dh = d_model * ssm_expand / H; sLSTM
-    ``h`` and ``c`` (R, B, H, d_model / H); recurrent states f32 and
-    zero.  ``cache_len`` sizes only attention caches.  ``pos`` is 0.
+    starting at EMPTY_POS (self-masking); mamba ``conv`` (R, B, K-1, Di)
+    in the parameters' dtype and ``ssm`` (R, B, Di, N), Di = d_model *
+    ssm_expand (a hybrid block has both the ring and these); mLSTM ``S``
+    (R, B, H, Dh, Dh) and ``n`` (R, B, H, Dh) with Dh = d_model *
+    ssm_expand / H; sLSTM ``h`` and ``c`` (R, B, H, d_model / H);
+    recurrent states f32 and zero.  ``cache_len`` sizes only attention
+    caches.  ``pos`` is 0.
 
     ``per_slot=True`` is the slot-pool layout of continuous batching:
     ``pos`` is a (B,) int32 tensor of zeros and ``kpos`` (R, B, C), so
     each lane keeps its own clock and ring occupancy."""
     check_supported(cfg)
     R, H = cfg.pattern_repeats, cfg.n_heads
+    dtype = sch.param_dtype(cfg)
     zeros = lambda *shape, dtype=torch.float32: torch.zeros(
         (R, batch) + shape, dtype=dtype, device=device)
+    Di = cfg.d_model * cfg.ssm_expand
     state: ModelState = {}
     for i, bt in enumerate(cfg.block_pattern):
-        if bt == "attn":
+        st = {}
+        if bt in ("attn", "hybrid"):
             Hkv, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
             C = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
                  else cache_len)
-            dtype = sch.param_dtype(cfg)
             st = {"k": zeros(C, Hkv, Dh, dtype=dtype),
                   "v": zeros(C, Hkv, Dh, dtype=dtype),
                   "kpos": torch.full((R,) + ((batch,) if per_slot else ())
                                      + (C,), EMPTY_POS, dtype=torch.int32,
                                      device=device)}
+        if bt in ("hybrid", "mamba"):
+            st.update(conv=zeros(cfg.ssm_conv - 1, Di, dtype=dtype),
+                      ssm=zeros(Di, cfg.ssm_state))
         elif bt == "mlstm":
             Dh = cfg.d_model * cfg.ssm_expand // H
             st = {"S": zeros(H, Dh, Dh), "n": zeros(H, Dh)}
-        else:                                   # "slstm"
+        elif bt == "slstm":
             Dh = cfg.d_model // H
             st = {"h": zeros(H, Dh), "c": zeros(H, Dh)}
         state[f"slot{i}_{bt}"] = st

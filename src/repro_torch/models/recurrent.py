@@ -1,7 +1,15 @@
-"""Recurrent sequence mixers of the port: mLSTM and sLSTM (xLSTM).
+"""Recurrent sequence mixers of the port: the selective SSM (mamba),
+mLSTM and sLSTM (xLSTM).
 
-Port of the mLSTM and sLSTM parts of ``repro.models.recurrent`` (mamba
-is a later slice).  The mLSTM prefill is chunkwise: a Python loop carries
+Port of ``repro.models.recurrent``.  The mamba mixer is plain PyTorch on
+both devices: the reference runs it outside any kernel
+(``jax.lax.associative_scan`` and jnp ops), so it has no hand-written
+counterpart.  Its prefill walks chunks of ``chunk`` steps carrying the
+state (B, Di, N), with a doubling scan inside a chunk, in the
+reference's dtypes: ``w_in`` in the parameters' dtype, the conv, dt,
+B/C, the scan and ``w_out`` in f32, the output cast back.
+
+The mLSTM prefill is chunkwise: a Python loop carries
 the matrix state across chunks of ``chunk`` steps while the inside of a
 chunk is a decay-masked quasi-attention, as in the reference;
 ``mlstm_decode`` is the one-step form.  The two agree only to f32
@@ -25,6 +33,106 @@ from repro_torch.kernels.slstm_scan.ops import slstm_scan
 
 F32 = torch.float32
 
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+# ------------------------------ Mamba ------------------------------------
+
+def mamba_chunk_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """h_t = a_t * h_{t-1} + b_t along dim 1 (the chunk), from h0.
+
+    a, b (B, c, Di, N); h0 (B, Di, N).  Returns (h (B, c, Di, N),
+    h_last).  The prefix products and sums come from a doubling
+    (Hillis-Steele) scan, log2(c) steps; the closed form cumprod(a) *
+    cumsum(b / cumprod(a)) would divide by an underflowed product."""
+    c, d = a.shape[1], 1
+    while d < c:
+        b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:],
+                                               b[:, :-d])], 1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], 1)
+        d *= 2
+    h = a * h0[:, None] + b
+    return h, h[:, -1]
+
+
+def _ssm_inputs(g, xc: torch.Tensor):
+    """dt (softplus, f32), B and C of the selective SSM, and A, from the
+    conv output ``xc`` (f32)."""
+    dt = F.softplus(xc @ g("w_dt").to(F32) + g("b_dt")).to(F32)
+    b_ssm, c_ssm = (xc @ g("w_bc").to(F32)).chunk(2, dim=-1)
+    return dt, b_ssm, c_ssm, -torch.exp(g("a_log").to(F32))
+
+
+def _mamba_out(g, y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    y = y + xc * g("d_skip")
+    return ((y * _silu(z.to(F32))) @ g("w_out").to(F32)).to(dtype)
+
+
+def mamba_mixer(p: dict, x: torch.Tensor, state: tuple | None,
+                chunk: int = 64, prefix: str = ""):
+    """Selective SSM over x (B, S, D).  state = (conv (B, K-1, Di),
+    ssm (B, Di, N)) or None (zeros).  ``prefix`` names the parameters
+    (``ssm_`` in a hybrid block).  Returns (y (B, S, D), (conv, ssm))."""
+    g = lambda n: p[prefix + n]
+    B, S, _ = x.shape
+    K, Di = g("conv_w").shape
+    N = g("a_log").shape[-1]
+    x_in, z = (x @ g("w_in")).chunk(2, dim=-1)          # (B, S, Di)
+    conv_state = (torch.zeros((B, K - 1, Di), dtype=x_in.dtype,
+                              device=x.device)
+                  if state is None else state[0])
+    h = (torch.zeros((B, Di, N), dtype=F32, device=x.device)
+         if state is None else state[1])
+
+    x_pad = torch.cat([conv_state.to(x_in.dtype), x_in], dim=1)
+    xf, w = x_pad.to(F32), g("conv_w").to(F32)
+    conv = 0
+    for k in range(K):
+        conv = conv + xf[:, k:k + S] * w[k]
+    xc = _silu(conv + g("conv_b").to(F32))              # (B, S, Di) f32
+    new_conv = x_pad[:, S:][:, -(K - 1):] if K > 1 else conv_state
+    dt, b_ssm, c_ssm, A = _ssm_inputs(g, xc)
+
+    # Padded steps have dt = 0: a = 1 and b = 0 carry h unchanged.
+    chunk = min(chunk, S)
+    n_chunks = -(-S // chunk)
+    pad = n_chunks * chunk - S
+    padded = lambda t: F.pad(t, (0, 0, 0, pad)) if pad else t
+    xc_p, dt_p, b_p, c_p = map(padded, (xc, dt, b_ssm, c_ssm))
+    ys = []
+    for c0 in range(0, n_chunks * chunk, chunk):
+        dt_c = dt_p[:, c0:c0 + chunk]
+        a = torch.exp(dt_c[..., None] * A)              # (B, c, Di, N)
+        bx = ((dt_c * xc_p[:, c0:c0 + chunk])[..., None]
+              * b_p[:, c0:c0 + chunk, None, :])
+        h_all, h = mamba_chunk_scan(a, bx, h)
+        ys.append(torch.einsum("bcdn,bcn->bcd", h_all,
+                               c_p[:, c0:c0 + chunk]))
+    y = torch.cat(ys, dim=1)[:, :S]
+    return _mamba_out(g, y, xc, z, x.dtype), (new_conv, h)
+
+
+def mamba_decode(p: dict, x: torch.Tensor, state: tuple, prefix: str = ""):
+    """Single-token step.  x (B, 1, D); state = (conv, ssm)."""
+    g = lambda n: p[prefix + n]
+    conv_state, h = state
+    x_in, z = (x[:, 0] @ g("w_in")).chunk(2, dim=-1)    # (B, Di)
+    window = torch.cat([conv_state, x_in[:, None]], dim=1)  # (B, K, Di)
+    conv = torch.einsum("bkd,kd->bd", window.to(F32),
+                        g("conv_w").to(F32)) + g("conv_b")
+    xc = _silu(conv)
+    dt, b_ssm, c_ssm, A = _ssm_inputs(g, xc)
+    a = torch.exp(dt[..., None] * A)                    # (B, Di, N)
+    h_new = a * h + (dt * xc)[..., None] * b_ssm[:, None, :]
+    y = torch.einsum("bdn,bn->bd", h_new, c_ssm)
+    return (_mamba_out(g, y, xc, z, x.dtype)[:, None],
+            (window[:, 1:], h_new))
+
+
+# ------------------------------ mLSTM ------------------------------------
 
 def _qkv_gates(p: dict, xi: torch.Tensor, eq: str):
     """q, k (scaled by Dh^-1/2), v, input gate and the raw forget-gate

@@ -1,16 +1,20 @@
 """Parameter schema of the served models: names, shapes, initialisation.
 
 Port of the ``"attn"`` (dense or MoE FFN, optional q/k/v biases),
-``"mlstm"`` and ``"slstm"`` parts of ``repro.models.schema``.  Names
+``"hybrid"``, ``"mamba"``, ``"mlstm"`` and ``"slstm"`` parts of
+``repro.models.schema``.  Names
 and shapes map 1:1 onto the reference's parameter tree: ``embed``,
 ``final_norm``, ``lm_head`` and one ``slot{i}_{block}`` dict per entry
 of the block pattern (for the dense decoder ``slot0_attn/{norm, wq,
 wk, wv, wo, ffn_norm, ffn_w_up, ffn_w_down, ffn_w_gate}``, with
 ``bq``/``bk``/``bv`` under ``qkv_bias``; for an MoE decoder the FFN is
 ``ffn_{norm, router, we_gate, we_up, we_down}`` and, with shared
-experts, ``ffn_{ws_gate, ws_up, ws_down, shared_gate}``; for xLSTM
-``slot0_mlstm`` and ``slot1_slstm``), the block parameters stacked
-over the pattern repeats.
+experts, ``ffn_{ws_gate, ws_up, ws_down, shared_gate}``; a hybrid
+block ``slot0_hybrid/{norm, attn_wq, attn_wk, attn_wv, attn_wo, ssm_w_in,
+ssm_conv_w, ssm_conv_b, ssm_w_dt, ssm_b_dt, ssm_w_bc, ssm_a_log,
+ssm_d_skip, ssm_w_out}`` and its ``ffn_`` MLP; a mamba block the
+``ssm_`` names unprefixed and no FFN; for xLSTM ``slot0_mlstm`` and
+``slot1_slstm``), the block parameters stacked over the pattern repeats.
 
 The init draws from an explicit ``torch.Generator`` (its numbers differ
 from JAX's for the same seed; reference weights reach the port through
@@ -19,7 +23,8 @@ reference's ``ParamSpec.stddev()`` exactly as the reference applies it
 to the *stacked* shapes: the repeat axis enters the fan-in, so ``wq``
 (R, D, H, Dh) gets (R*D*H)^-1/2 and the 3-D ``ffn_w_*`` (R, D, F) get
 R^-1/2 (so do the mLSTM ``wq``/``wk``/``wv``, the sLSTM ``w_gates``,
-the MoE router (R, D, E) and shared gate (R, D, 1)), while the 4-D
+the mamba ``w_in``/``w_bc``/``w_out``, the MoE router (R, D, E) and
+shared gate (R, D, 1)), while the 4-D
 expert banks (R, E, D, F) get (R*E*D)^-1/2.  That is a reference
 quirk, kept here on purpose.
 """
@@ -51,10 +56,8 @@ class ParamSpec:
         return fan_in ** -0.5
 
 
-def attn_block_schema(cfg: ModelConfig) -> dict:
-    """The ``"attn"`` block: attention (with q/k/v biases under
-    ``qkv_bias``), then its FFN: the routed MoE when ``n_experts`` is
-    set, else the SwiGLU MLP, each under the ``ffn_`` prefix."""
+def attn_schema(cfg: ModelConfig) -> dict:
+    """Attention, with q/k/v biases under ``qkv_bias``."""
     D, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     Dh = cfg.resolved_head_dim
     s = {
@@ -68,8 +71,6 @@ def attn_block_schema(cfg: ModelConfig) -> dict:
         s["bq"] = ParamSpec((H, Dh), "zeros")
         s["bk"] = ParamSpec((Hkv, Dh), "zeros")
         s["bv"] = ParamSpec((Hkv, Dh), "zeros")
-    ffn = moe_schema(cfg) if cfg.n_experts else mlp_schema(cfg)
-    s.update({f"ffn_{k}": v for k, v in ffn.items()})
     return s
 
 
@@ -105,6 +106,33 @@ def moe_schema(cfg: ModelConfig) -> dict:
     return s
 
 
+def mamba_schema(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    Di = D * cfg.ssm_expand
+    N = cfg.ssm_state
+    return {
+        "norm": ParamSpec((D,), "ones"),
+        "w_in": ParamSpec((D, 2 * Di)),
+        "conv_w": ParamSpec((cfg.ssm_conv, Di), "normal", 0.5),
+        "conv_b": ParamSpec((Di,), "zeros"),
+        "w_dt": ParamSpec((Di, Di), "normal", 1e-3),
+        "b_dt": ParamSpec((Di,), "ones"),
+        "w_bc": ParamSpec((Di, 2 * N)),
+        "a_log": ParamSpec((Di, N), "zeros"),
+        "d_skip": ParamSpec((Di,), "ones"),
+        "w_out": ParamSpec((Di, D)),
+    }
+
+
+def hybrid_schema(cfg: ModelConfig) -> dict:
+    """Hymba's block: attention and mamba heads side by side."""
+    s = {f"attn_{k}": v for k, v in attn_schema(cfg).items() if k != "norm"}
+    s.update({f"ssm_{k}": v for k, v in mamba_schema(cfg).items()
+              if k != "norm"})
+    s["norm"] = ParamSpec((cfg.d_model,), "ones")
+    return s
+
+
 def mlstm_schema(cfg: ModelConfig) -> dict:
     D = cfg.d_model
     Di = D * cfg.ssm_expand
@@ -135,8 +163,20 @@ def slstm_schema(cfg: ModelConfig) -> dict:
     }
 
 
-_BLOCK_SCHEMAS = {"attn": attn_block_schema, "mlstm": mlstm_schema,
-                  "slstm": slstm_schema}
+_BLOCK_SCHEMAS = {"attn": attn_schema, "mamba": mamba_schema,
+                  "mlstm": mlstm_schema, "slstm": slstm_schema,
+                  "hybrid": hybrid_schema}
+
+
+def block_schema(cfg: ModelConfig, block_type: str) -> dict:
+    """One block's parameters; attn and hybrid blocks carry the FFN
+    under ``ffn_``: the routed MoE when ``n_experts`` is set, else the
+    SwiGLU MLP."""
+    s = dict(_BLOCK_SCHEMAS[block_type](cfg))
+    if block_type in ("attn", "hybrid") and cfg.mlp_type != "none":
+        ffn = moe_schema(cfg) if cfg.n_experts else mlp_schema(cfg)
+        s.update({f"ffn_{k}": v for k, v in ffn.items()})
+    return s
 
 
 def model_schema(cfg: ModelConfig) -> dict:
@@ -151,7 +191,7 @@ def model_schema(cfg: ModelConfig) -> dict:
     for i, bt in enumerate(cfg.block_pattern):
         schema[f"slot{i}_{bt}"] = {
             k: ParamSpec((R,) + s.shape, s.init, s.scale)
-            for k, s in _BLOCK_SCHEMAS[bt](cfg).items()}
+            for k, s in block_schema(cfg, bt).items()}
     return schema
 
 

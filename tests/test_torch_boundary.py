@@ -60,6 +60,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.checkpoint, repro_torch.serve.continuous\n"
         "import repro_torch.models.moe, repro_torch.configs.qwen2_moe_a27b\n"
         "import repro_torch.configs.mixtral_8x7b, repro_torch.mapping\n"
+        "import repro_torch.configs.hymba_15b, repro_torch.configs.qwen25_32b\n"
+        "import repro_torch.configs.deepseek_coder_33b\n"
+        "import repro_torch.configs.internlm2_20b\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n")

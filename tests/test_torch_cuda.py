@@ -1486,3 +1486,60 @@ def test_nested_restack_refolds_bit_for_bit(cuda):
     for lt in lifetime.values():
         assert lt.dep is lt.bank.member(lt.rep)
         assert torch.equal(lt.dep.folded, folded_weights(lt.dep)), lt.name
+
+
+def _ring_positions(C, filled, device):
+    """kpos of a ring of C slots after positions 0..filled-1 were written
+    at position % C (EMPTY_POS where none was): unsorted once it wraps."""
+    kpos = torch.full((C,), EMPTY_POS, dtype=torch.int32, device=device)
+    pos = torch.arange(max(0, filled - C), filled, dtype=torch.int32,
+                       device=device)
+    kpos[(pos % C).long()] = pos
+    return kpos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (4, 1, 1055, 1024, 25, 5, 64, 1024),    # hymba decode, ring wrapped
+    (4, 1, 1025, 1024, 25, 5, 64, 1024),    # one slot past the wrap
+    (4, 3, 1040, 1024, 25, 5, 64, 1024),    # decode form, Sq = 3
+    (4, 992, 992, 1024, 25, 5, 64, 1024),   # hymba prefill
+    (1, 40, 1064, 1024, 25, 5, 64, 1024),   # prefill form past C
+    (4, 128, 128, 160, 56, 8, 128, 0),      # deepseek prefill
+    (4, 1, 159, 160, 56, 8, 128, 0),        # deepseek decode
+])
+def test_flash_bf16_at_the_served_gqa_geometries(cuda, case):
+    """The bf16 forms at hymba's heads (25 of 64 over 5 KV heads, G = 5,
+    a window of 1024 on a ring of 1024 that wraps, so kpos is not
+    sorted) and deepseek-coder-33b's (56 of 128 over 8, G = 7), queries
+    the last Sq positions written: against the plain version,
+    bit-identical across two calls."""
+    B, Sq, filled, C, H, Hkv, Dh, win = case
+    q, k, v = (torch.from_numpy(a).to(cuda).to(torch.bfloat16)
+               for a in _qkv(B, Sq, C, H, Hkv, Dh, filled))
+    kpos = _ring_positions(C, filled, cuda)
+    qpos = torch.arange(filled - Sq, filled, dtype=torch.int32, device=cuda)
+    run = lambda: flash_attention(q, k, v, q_positions=qpos,
+                                  k_positions=kpos, window=win, device=cuda)
+    out = run()
+    ref = flash_attention_plain(q, k, v, qpos, kpos, window=win)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_RTOL,
+                               atol=2e-5)
+    assert torch.equal(out, run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("I,N", [(7168, 19200), (19200, 7168)])
+@pytest.mark.parametrize("M", [4, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cim_mvm_at_deepseek_ffn_shapes(cuda, I, N, M, dtype):
+    """deepseek-coder-33b's FFN matrices in both forms (the decode form's
+    x slab at I = 19200 is 2400 rows a cluster rank), x in f32 and bf16."""
+    g = torch.Generator(device=cuda).manual_seed(I + M)
+    w = torch.randn((I, N), generator=g, device=cuda) * 0.02
+    x = torch.randn((M, I), generator=g, device=cuda).to(dtype)
+    dep, _ = deploy(w, CrossbarSpec(64, 64, 8), "mdm")
+    y = cim_mvm(x, dep, device=cuda)
+    y_plain = cim_mvm_plain(x, dep)
+    err = (y - y_plain).abs().max().item()
+    assert err <= 1e-5 * y_plain.abs().max().item(), err

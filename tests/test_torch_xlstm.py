@@ -210,8 +210,10 @@ def test_xlstm_schema_and_state_mirror_reference():
 
 def test_supported_patterns():
     check_supported(T_XLSTM)
-    for bad in (T_XLSTM.replace(block_pattern=("mamba",)),
-                T_XLSTM.replace(block_pattern=("attn", "hybrid")),
+    for bad in (T_XLSTM.replace(block_pattern=("mamba",), mlp_type="gelu"),
+                T_XLSTM.replace(block_pattern=("hybrid",),
+                                mlp_type="swiglu", n_experts=4,
+                                n_experts_per_token=2),
                 T_XLSTM.replace(mlp_type="swiglu"),
                 ModelConfig(family="moe")):
         with pytest.raises(NotImplementedError):
