@@ -10,7 +10,7 @@ folded forms (gain, column permutation, in-kernel read noise, bf16 x)
 and the bf16 forms of flash_attention (its decode form also over a
 LONG_C-slot cache, split across a cluster) and slstm_scan's bf16 forms
 (its scan and decode forms beside the general form) included, and
-the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives twelve paths
+the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives fifteen paths
 through the entry points a user calls, each with the launch counts set
 to 0 just before it and read just after (a check's own launches inside
 a path left out):
@@ -61,21 +61,33 @@ a path left out):
    prefill and its decode form at each decode step, manhattan_score);
 8. hymba: hymba-1.5b at full width and depth in bf16, every block's
    attention (GQA 25/5 of 64, a window of 1024) and MLP through the
-   kernels, its mamba heads in plain PyTorch, 4 prompts of 992 tokens
+   kernels, its mamba heads in plain PyTorch, 4 prompts of 1016 tokens
    and 64 greedy tokens, so that the ring wraps during decode (cim_mvm,
    flash_attention in bf16, manhattan_score);
 9. deepseek: deepseek-coder-33b at full width, DEEPSEEK_LAYERS of its
    62 layers, in bf16 (GQA 56/8 of 128, d_ff 19200; cim_mvm,
    flash_attention in bf16, manhattan_score);
-10. qwen2-moe: qwen2-moe-a2.7b at full width and depth in bf16 under
+10. internvl2: internvl2-76b at full width, INTERNVL_LAYERS of its 80
+   layers, in bf16, its prompts the vision stub's (B, PROMPT, 8192)
+   embeddings (GQA 64/8 of 128, d_ff 28672; cim_mvm, flash_attention
+   in bf16, manhattan_score);
+11. musicgen: musicgen-medium at full width and depth in bf16, its
+   prompts the audio stub's embeddings, decoding codec tokens (MHA 24
+   of 64, the GELU MLP; cim_mvm, flash_attention in bf16,
+   manhattan_score);
+12. qwen2-moe: qwen2-moe-a2.7b at full width and depth in bf16 under
    ``mdm_expert``, alone on the card (cim_mvm's grouped forms on the
    expert banks, cim_mvm, flash_attention at Dh = 128,
    manhattan_score);
-11. qwen2-moe-nonideal: MOE_NONIDEAL_LAYERS of its layers on imperfect
+13. mixtral: mixtral-8x7b at full width, MIXTRAL_LAYERS of its 32
+   layers, in bf16 under ``mdm_expert``, alone on the card (8 experts
+   top-2 of 4096x14336: cim_mvm's grouped forms, cim_mvm,
+   flash_attention at GQA 32/8 of 128, manhattan_score);
+14. qwen2-moe-nonideal: MOE_NONIDEAL_LAYERS of its layers on imperfect
    devices under the spare-line spec (cim_fold, the grouped folded
    forms with read noise, cim_mvm's folded forms, flash_attention,
    manhattan_score);
-12. qwen2-moe-health: MOE_HEALTH_LAYERS of its layers aged and healed
+15. qwen2-moe-health: MOE_HEALTH_LAYERS of its layers aged and healed
    on ``HEALTH``'s devices, the arc on ``ServeEngine`` and
    ``ContinuousEngine`` with one seed and a heal swap under load
    (cim_mvm's batched form over each expert group's R x 60 members in
@@ -198,16 +210,27 @@ NONIDEAL_SEED, NONIDEAL_PIPELINE = 0, "spare_line"
 # deploy alone took 60 s of a 1,074 s run.
 NONIDEAL_LAYERS = 8
 TF_STEPS = 4         # decode steps of the kernel-vs-plain logits check
-# hymba-1.5b's traffic: prompts that fill 992 of its 1024-slot ring, then
-# greedy tokens to position 1055, so the ring wraps at decode step 32.
-HYMBA_B, HYMBA_PROMPT, HYMBA_NEW = 4, 992, 64
+# hymba-1.5b's traffic: prompts that fill 1016 of its 1024-slot ring, then
+# greedy tokens to position 1079, so the ring wraps at decode step 8 (a
+# short run to the wrap keeps the checks below inside the time limit).
+HYMBA_B, HYMBA_PROMPT, HYMBA_NEW = 4, 1016, 64
 # Decode steps of its kernel-vs-plain checks: the last two write
 # positions 1024 and 1025 into the wrapped ring.
-HYMBA_TF_STEPS = 34
+HYMBA_TF_STEPS = 10
 # deepseek-coder-33b at full width: the layers served (62 are 66.7 GB of
 # bf16 params before the bank) and the decode steps of its kernel-vs-plain
 # checks (each forward's plain cim_mvm expands 4.2 B weights).
 DEEPSEEK_LAYERS, DEEPSEEK_TF_STEPS = 8, 4
+# internvl2-76b at full width: the layers served (80 are 141 GB of bf16
+# params) and the decode steps of its kernel-vs-plain checks (2, for the
+# run's time limit); its prompts are the vision stub's embeddings.
+INTERNVL_LAYERS, INTERNVL_TF_STEPS = 4, 2
+# musicgen-medium at full width and depth (GELU MLP, MHA 24 of 64):
+# decode steps of its checks; its prompts are the audio stub's embeddings.
+MUSICGEN_TF_STEPS = 2
+# mixtral-8x7b at full width under mdm_expert: the layers served (32 are
+# 93 GB of bf16 params) and the layers of its f32 end-to-end check.
+MIXTRAL_LAYERS, MIXTRAL_F32_LAYERS = 4, 4
 # Kernels each path must launch.
 PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                 "phi3-continuous": ("cim_mvm", "flash_attention",
@@ -222,6 +245,11 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                 "phi3-circuit": ("line_solve", "manhattan_score"),
                 "hymba": ("cim_mvm", "flash_attention", "manhattan_score"),
                 "deepseek": ("cim_mvm", "flash_attention", "manhattan_score"),
+                "internvl2": ("cim_mvm", "flash_attention",
+                              "manhattan_score"),
+                "musicgen": ("cim_mvm", "flash_attention", "manhattan_score"),
+                "mixtral": ("cim_mvm", "cim_mvm_grouped", "flash_attention",
+                            "manhattan_score"),
                 "qwen2-moe": ("cim_mvm", "cim_mvm_grouped",
                               "flash_attention", "manhattan_score"),
                 "qwen2-moe-nonideal": ("cim_mvm", "cim_mvm_grouped_folded",
@@ -233,8 +261,11 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
 # The paths each kernel record's form runs on (its launches are its
 # kernel's launches there).
 RECORD_PATHS = {
-    "cim_mvm": ("phi3", "phi3-continuous", "qwen2-moe", "hymba", "deepseek"),
+    "cim_mvm": ("phi3", "phi3-continuous", "qwen2-moe", "hymba", "deepseek",
+                "internvl2", "musicgen", "mixtral"),
     "cim_mvm[bf16 x, deepseek]": ("deepseek",),
+    "cim_mvm[bf16 x, internvl2]": ("internvl2",),
+    "cim_mvm[bf16 x, musicgen]": ("musicgen",),
     "flash_attention": ("phi3", "phi3-continuous"),
     "manhattan_score": tuple(PATH_KERNELS),
     "slstm_scan": (),                 # the xlstm path now serves bf16
@@ -249,11 +280,15 @@ RECORD_PATHS = {
     "slstm_scan_decode[bf16]": ("xlstm",),
     "line_solve": ("phi3-circuit",),
     "cim_mvm_grouped": ("qwen2-moe",),
+    "cim_mvm_grouped[mixtral]": ("mixtral",),
     "flash_attention[bf16,Dh=128]": ("qwen2-moe", "qwen2-moe-nonideal",
                                      "qwen2-moe-health"),
     "cim_mvm_grouped_folded": ("qwen2-moe-nonideal", "qwen2-moe-health"),
     "flash_attention[bf16,hymba]": ("hymba",),
     "flash_attention[bf16,deepseek]": ("deepseek",),
+    "flash_attention[bf16,internvl2]": ("internvl2",),
+    "flash_attention[bf16,musicgen]": ("musicgen",),
+    "flash_attention[bf16,mixtral]": ("mixtral",),
 }
 # The paths of every other record (cim_mvm's folded forms).
 NONIDEAL_PATHS = ("phi3-nonideal", "phi3-health", "qwen2-moe-nonideal",
@@ -1343,12 +1378,42 @@ def _launches(path: str) -> dict:
     return counts
 
 
-def phase_serve(path: str, cfg, cache_dir: str, batch: int = B,
+def _prompts(cfg, batch: int, prompt: int):
+    """A path's prompts from seed 1: (batch, prompt) token ids, or for a
+    stub frontend (batch, prompt, d_model) embeddings on the card."""
+    from repro_torch.models.frontend import synthetic_embeddings
+
+    if cfg.frontend:
+        return synthetic_embeddings(
+            cfg, batch, prompt, torch.Generator(device="cuda").manual_seed(1))
+    return torch.randint(0, cfg.vocab_size, (batch, prompt),
+                         generator=torch.Generator().manual_seed(1))
+
+
+def _forced(prompts, tokens):
+    """The teacher-forced input of a path: its prompts and ``tokens``
+    (B, T) decoded after them, as one (B, S) id tensor, or for a stub
+    frontend the pair (embeddings, tokens) (:func:`_tf`)."""
+    if prompts.is_floating_point():
+        return prompts, tokens.long().cuda()
+    return torch.cat([prompts.cuda(), tokens.long().cuda()], 1)
+
+
+def _tf(eng, seq, n_prompt: int, seed: int = 0) -> torch.Tensor:
+    """``eng.teacher_forced_logits`` over ``seq`` from :func:`_forced`."""
+    if isinstance(seq, tuple):
+        return eng.teacher_forced_logits(seq[0], n_prompt, seed=seed,
+                                         decode_tokens=seq[1])
+    return eng.teacher_forced_logits(seq, n_prompt, seed=seed)
+
+
+def phase_serve(path: str, cfg, cache_dir: str | None, batch: int = B,
                 prompt: int = PROMPT, new: int = NEW):
     """Init, deploy (through a plan cache in the fresh ``cache_dir``)
     and serve a full-width model through the kernels, ``batch`` prompts
-    of ``prompt`` tokens and ``new`` greedy tokens; then the uncached
-    deploy alone, for comparison."""
+    of ``prompt`` tokens (a stub frontend's: embeddings) and ``new``
+    greedy tokens; then the uncached deploy alone, for comparison.  With
+    ``cache_dir`` None the engine's own deploy is the uncached one."""
     from repro_torch.deploy import PlanCache, deploy_model_params
     from repro_torch.kernels import runtime
     from repro_torch.models.model import init_params
@@ -1361,14 +1426,18 @@ def phase_serve(path: str, cfg, cache_dir: str, batch: int = B,
                          "cuda")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    cached = cache_dir is not None
     eng = ServeEngine(cfg, params, max_seq=prompt + new,
-                      plan_cache=PlanCache(cache_dir), device="cuda")
+                      plan_cache=PlanCache(cache_dir) if cached else False,
+                      device="cuda")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     rep = eng.deploy_report
     print(f"phase deploy ({path}): init {t1 - t0:.2f} s, deploy "
-          f"{t2 - t1:.2f} s through a cold plan cache "
-          f"({rep['cache_misses']} misses): {rep['n_matrices']} matrices, "
+          f"{t2 - t1:.2f} s "
+          + (f"through a cold plan cache ({rep['cache_misses']} misses)"
+             if cached else "uncached")
+          + f": {rep['n_matrices']} matrices, "
           f"{rep['tiles_planned']} tiles, mean NF reduction "
           f"{100 * rep['nf_reduction']:.3f}% (NF {rep['nf_before']:.6g} "
           f"-> {rep['nf_after']:.6g})")
@@ -1379,8 +1448,7 @@ def phase_serve(path: str, cfg, cache_dir: str, batch: int = B,
     print(f"  deploy summary: {summary['n_deployed']} deployed, "
           f"{summary['n_skipped']} skipped {reasons}")
 
-    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
-                            generator=torch.Generator().manual_seed(1))
+    prompts = _prompts(cfg, batch, prompt)
     eng.generate(prompts, 2)                      # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1392,22 +1460,25 @@ def phase_serve(path: str, cfg, cache_dir: str, batch: int = B,
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
     step = (t_all - t_prefill) / (new - 1)
-    print(f"phase serve ({path}): B={batch} prompt {prompt} new {new}: "
-          f"prefill {t_prefill * 1e3:.1f} ms, decode {step * 1e3:.2f} "
-          f"ms/step, {batch * new / t_all:.1f} tokens/s (peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB)")
+    print(f"phase serve ({path}): B={batch} prompt {prompt}"
+          + (f" ({cfg.frontend} embeddings)" if cfg.frontend else "")
+          + f" new {new}: prefill {t_prefill * 1e3:.1f} ms, decode "
+          f"{step * 1e3:.2f} ms/step, {batch * new / t_all:.1f} tokens/s "
+          f"(peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          f"GiB)")
     counts = _launches(path)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cim, _ = deploy_model_params(params, cfg, device="cuda")
-    torch.cuda.synchronize()
-    uncached_s = time.perf_counter() - t0
-    print(f"  uncached deploy_model_params ({path}): {uncached_s:.2f} s "
-          f"(the deploy timed up to PR 14)")
-    del cim
-    if not torch.isfinite(eng.teacher_forced_logits(
-            torch.cat([prompts.cuda(), tokens.long()], 1)[:, :prompt + 1],
-            prompt)).all():
+    uncached_s = t2 - t1
+    if cached:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cim, _ = deploy_model_params(params, cfg, device="cuda")
+        torch.cuda.synchronize()
+        uncached_s = time.perf_counter() - t0
+        print(f"  uncached deploy_model_params ({path}): {uncached_s:.2f} s "
+              f"(no plan cache)")
+        del cim
+    if not torch.isfinite(_tf(eng, _forced(prompts, tokens[:, :1]),
+                              prompt)).all():
         raise AssertionError("non-finite logits")
     phase_profile(eng, prompts, step * 1e3)
     return eng, prompts, tokens, counts, uncached_s
@@ -1423,8 +1494,10 @@ def phase_profile(eng, prompts, step_ms: float, steps: int = 3):
     cfg = eng.cfg
     read = getattr(eng, "_read", lambda seed, t: None)
     state = init_decode_state(cfg, prompts.shape[0], eng.max_seq, "cuda")
-    logits, state = apply_model(eng.params, cfg, prompts.cuda(), state=state,
-                                cim=eng.cim, read_seed=read(0, 0))
+    kw = ({"embeds": prompts} if cfg.frontend
+          else {"tokens": prompts.cuda()})
+    logits, state = apply_model(eng.params, cfg, state=state, cim=eng.cim,
+                                read_seed=read(0, 0), **kw)
     tok = logits[:, -1].argmax(-1)[:, None]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1587,15 +1660,15 @@ def phase_compare(eng, prompts, tokens, path: str,
     n_prompt = prompts.shape[1]
     steps = min(tokens.shape[1] - 1, steps or tokens.shape[1])
     tokens = tokens[:, :steps + 1]
-    seq = torch.cat([prompts.cuda(), tokens.long()], 1)[:, :n_prompt + steps]
+    seq = _forced(prompts, tokens[:, :steps])
     V = eng.cfg.vocab_size       # padded columns sit at -1e9; left out
     f32 = eng.cfg.dtype == "float32"
     if f32:
-        lk = eng.teacher_forced_logits(seq, n_prompt)[..., :V].float()
+        lk = _tf(eng, seq, n_prompt)[..., :V].float()
     else:
         lk = _check_calls(eng, seq, path, n_prompt=n_prompt)[..., :V].float()
         l32 = _check_f32(eng, seq, n_prompt=n_prompt)
-    lp = plain_eng.teacher_forced_logits(seq, n_prompt)[..., :V].float()
+    lp = _tf(plain_eng, seq, n_prompt)[..., :V].float()
     if not f32:
         ref32, top = l32.abs().max().item(), l32.argmax(-1)
         print("  against the plain path with f32 activations (same banks): "
@@ -1699,11 +1772,11 @@ def _check_calls(eng, seq, path: str, seed: int = 0,
     worst: dict = {}
     checked = copy.copy(eng)
     checked.ops = _checked_ops(worst)
-    logits = checked.teacher_forced_logits(seq, n_prompt, seed=seed)
+    logits = _tf(checked, seq, n_prompt, seed=seed)
     want = [k for k in PATH_KERNELS[path]
             if k not in ("manhattan_score", "cim_fold")]   # deploy only
     print(f"  kernel calls of a teacher-forced pass ({eng.cfg.dtype}, "
-          f"{seq.shape[1] - n_prompt} decode steps), each against its plain "
+          f"{logits.shape[1] - 1} decode steps), each against its plain "
           f"version on the same inputs: " + ", ".join(
               f"{k} {n} calls, worst |kernel - plain| {w:.3f} of its limit"
               for k, (n, w) in sorted(worst.items())))
@@ -1727,8 +1800,8 @@ def _check_f32(eng, seq, seed: int = 0,
     plain = copy.copy(twin)
     plain.ops = _plain_ops()
     V = eng.cfg.vocab_size
-    lk = twin.teacher_forced_logits(seq, n_prompt, seed=seed)[..., :V]
-    lp = plain.teacher_forced_logits(seq, n_prompt, seed=seed)[..., :V]
+    lk = _tf(twin, seq, n_prompt, seed=seed)[..., :V]
+    lp = _tf(plain, seq, n_prompt, seed=seed)[..., :V]
     err = (lk - lp).abs().max().item()
     ref = lp.abs().max().item()
     top2 = lp.topk(2, dim=-1).values
@@ -3133,7 +3206,7 @@ def _routing_stats(eng, prompts, steps: int = 3):
     return drop, hits, fw
 
 
-def _check_grouped(eng, fw, g) -> dict:
+def _check_grouped(eng, fw, g, name: str = "cim_mvm_grouped") -> dict:
     """The grouped forms against their plain version on layer 0's real
     calls (the prefill's and a decode step's gate and down products,
     ``fw`` from :func:`_routing_stats`) and on three forced routings (one
@@ -3259,7 +3332,7 @@ def _check_grouped(eng, fw, g) -> dict:
         del buf
     del w_eff
     top = regimes["decode ffn_we_gate"]
-    return dict(name="cim_mvm_grouped", route="cuda",
+    return dict(name=name, route="cuda",
                 source="src/repro_torch/kernels/cim_mvm/kernel.cu",
                 replaces="src/repro/kernels/cim_mvm/kernel.py:82",
                 vmapped_at="src/repro/models/moe.py:50-61",
@@ -3295,19 +3368,22 @@ def _moe_f32_twin(eng, n_layers: int):
     return twin
 
 
-def phase_moe(records: list, built: dict, card: str) -> dict:
-    """qwen2-moe-a2.7b at full width and depth in its config dtype
-    (bf16), random weights from seed 0, through ``ServeEngine`` with
-    ``mdm_expert`` (every expert bank deployed, one matrix an expert; no
-    plan cache: one deploy, its stages timed), B x PROMPT-token prompts
-    and NEW greedy tokens: the attention projections through cim_mvm's
-    ideal forms, the expert banks through its grouped form, attention
-    through flash in bf16 at Dh = 128.  Then the grouped form against its
-    plain version on real and forced routings, flash's Dh = 128 bf16
-    forms, every kernel call of a teacher-forced pass against its plain
-    version, one expert's plan against the CPU mirror, and the first
-    MOE_F32_LAYERS layers with f32 activations end to end against the
-    plain path."""
+def phase_moe(records: list, built: dict, card: str, path: str = "qwen2-moe",
+              full=None, layers: int | None = None,
+              f32_layers: int = MOE_F32_LAYERS) -> dict:
+    """An MoE config (qwen2-moe-a2.7b by default, at full depth; else
+    ``full`` at ``layers`` of its layers) at full width in its config
+    dtype (bf16), random weights from seed 0, through ``ServeEngine``
+    with ``mdm_expert`` (every expert bank deployed, one matrix an
+    expert; no plan cache: one deploy, its stages timed), B x
+    PROMPT-token prompts and NEW greedy tokens: the attention
+    projections through cim_mvm's ideal forms, the expert banks through
+    its grouped form, attention through flash in bf16 at Dh = 128.  Then
+    the grouped form against its plain version on real and forced
+    routings, flash's Dh = 128 bf16 forms, every kernel call of a
+    teacher-forced pass against its plain version, one expert's plan
+    against the CPU mirror, and the first ``f32_layers`` layers with f32
+    activations end to end against the plain path."""
     from repro_torch.configs import CimConfig
     from repro_torch.configs.qwen2_moe_a27b import CONFIG as QWEN
     from repro_torch.kernels import runtime
@@ -3315,14 +3391,18 @@ def phase_moe(records: list, built: dict, card: str) -> dict:
     from repro_torch.models.model import init_params
     from repro_torch.serve import ServeEngine
 
-    cfg = QWEN.replace(cim=CimConfig(enabled=True, mode="mdm_expert"))
+    full = full or QWEN
+    cfg = full.replace(n_layers=layers or full.n_layers,
+                       cim=CimConfig(enabled=True, mode="mdm_expert"))
     E, K = cfg.n_experts, cfg.n_experts_per_token
+    Fe = cfg.moe_d_ff or cfg.d_ff
     print(f"config {cfg.name} ({cfg.dtype}, its CONFIG dtype): "
-          f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}, "
-          f"{E} experts top-{K} of width {cfg.moe_d_ff}, "
+          f"{cfg.n_layers} of {full.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+          f"{cfg.resolved_head_dim}, {E} experts top-{K} of width {Fe}, "
           f"{cfg.n_shared_experts} fused shared experts of {cfg.d_ff}, qkv "
-          f"bias, vocab {cfg.vocab_size}; pipeline mdm_expert; no depth cut")
+          f"bias {cfg.qkv_bias}, window {cfg.sliding_window or 'none'}, "
+          f"vocab {cfg.vocab_size}; pipeline mdm_expert")
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3340,7 +3420,7 @@ def phase_moe(records: list, built: dict, card: str) -> dict:
     for reason in summary["skipped"].values():
         reasons[reason] = reasons.get(reason, 0) + 1
     n_exp = sum(1 for n in summary["deployed"] if "/e" in n)
-    print(f"phase deploy (qwen2-moe): init {t1 - t0:.2f} s, deploy "
+    print(f"phase deploy ({path}): init {t1 - t0:.2f} s, deploy "
           f"{t2 - t1:.2f} s uncached (by stage "
           f"{ {k: round(v, 3) for k, v in rep['seconds'].items()} }): "
           f"{summary['n_deployed']} matrices deployed ({n_exp} expert, "
@@ -3363,8 +3443,7 @@ def phase_moe(records: list, built: dict, card: str) -> dict:
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB, "
           f"reserved {torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB")
 
-    prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT),
-                            generator=torch.Generator().manual_seed(1))
+    prompts = _prompts(cfg, B, PROMPT)
     eng.generate(prompts, 2)                      # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3376,13 +3455,13 @@ def phase_moe(records: list, built: dict, card: str) -> dict:
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
     step = (t_all - t_prefill) / (NEW - 1)
-    print(f"phase serve (qwen2-moe): B={B} prompt {PROMPT} new {NEW}: "
+    print(f"phase serve ({path}): B={B} prompt {PROMPT} new {NEW}: "
           f"prefill {t_prefill * 1e3:.1f} ms, decode {step * 1e3:.2f} "
           f"ms/step, {B * NEW / t_all:.1f} tokens/s (peak "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB, reserved "
           f"{torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB of "
           f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f})")
-    counts = _launches("qwen2-moe")
+    counts = _launches(path)
     forwards = 2 + 1 + NEW
     if counts["cim_mvm_grouped"] != 3 * cfg.n_layers * forwards \
             or counts["cim_mvm"] != 4 * cfg.n_layers * forwards:
@@ -3392,9 +3471,8 @@ def phase_moe(records: list, built: dict, card: str) -> dict:
           f"expert banks x {cfg.n_layers} layers x {forwards} forwards; "
           f"cim_mvm {counts['cim_mvm']} = 4 attention projections x "
           f"{cfg.n_layers} x {forwards}")
-    if not torch.isfinite(eng.teacher_forced_logits(
-            torch.cat([prompts.cuda(), tokens.long()], 1)[:, :PROMPT + 1],
-            PROMPT)).all():
+    if not torch.isfinite(_tf(eng, _forced(prompts, tokens[:, :1]),
+                              PROMPT)).all():
         raise AssertionError("non-finite logits")
     busy = phase_profile(eng, prompts, step * 1e3)
 
@@ -3443,33 +3521,38 @@ def phase_moe(records: list, built: dict, card: str) -> dict:
           + (f"{busy:.2f} ms a step" if busy else "not measured"))
 
     g = torch.Generator(device="cuda").manual_seed(3)
-    records.append(_check_grouped(eng, fw, g))
+    qwen = path == "qwen2-moe"
+    records.append(_check_grouped(
+        eng, fw, g, "cim_mvm_grouped" if qwen
+        else f"cim_mvm_grouped[{path}]"))
     del fw
-    records.append(_check_flash(g, torch.bfloat16, built, H=cfg.n_heads,
-                                Dh=cfg.resolved_head_dim,
-                                cases=_flash_cases()[:2],
-                                name="flash_attention[bf16,Dh=128]"))
-    phase_plans(eng, [("slot0_attn", "ffn_we_gate", 7), ("slot0_attn", "wq")])
-    seq = torch.cat([prompts.cuda(), tokens.long()], 1)[:, :PROMPT + TF_STEPS]
-    lk = _check_calls(eng, seq, "qwen2-moe")
+    records.append(_check_flash(
+        g, torch.bfloat16, built, H=cfg.n_heads, Dh=cfg.resolved_head_dim,
+        Hkv=cfg.n_kv_heads, window=cfg.sliding_window,
+        cases=_flash_cases()[:2],
+        name="flash_attention[bf16,Dh=128]" if qwen
+        else f"flash_attention[bf16,{path}]"))
+    phase_plans(eng, [("slot0_attn", "ffn_we_gate", min(7, E - 1)),
+                      ("slot0_attn", "wq")])
+    seq = _forced(prompts, tokens[:, :TF_STEPS])
+    lk = _check_calls(eng, seq, path)
     if not (torch.isfinite(lk).all()
             and lk.shape == (B, TF_STEPS + 1, cfg.padded_vocab)):
         raise AssertionError("non-finite or misshapen logits")
     del lk
 
     # f32 activations at a depth cut: the bf16 params are freed first.
-    twin = _moe_f32_twin(eng, MOE_F32_LAYERS)
+    twin = _moe_f32_twin(eng, f32_layers)
     eng.params = None
     del params
     gc.collect()
     torch.cuda.empty_cache()
     plain = copy.copy(twin)
     plain.ops = _plain_ops()
-    seq = torch.cat([prompts.cuda(), tokens.long()], 1)[
-        :, :PROMPT + MOE_F32_NEW - 1]
+    seq = _forced(prompts, tokens[:, :MOE_F32_NEW - 1])
     V = cfg.vocab_size
-    lk = twin.teacher_forced_logits(seq, PROMPT)[..., :V]
-    lp = plain.teacher_forced_logits(seq, PROMPT)[..., :V]
+    lk = _tf(twin, seq, PROMPT)[..., :V]
+    lp = _tf(plain, seq, PROMPT)[..., :V]
     err = (lk - lp).abs().max().item()
     ref = lp.abs().max().item()
     ok = err <= LOGIT_TOL * ref
@@ -3479,7 +3562,9 @@ def phase_moe(records: list, built: dict, card: str) -> dict:
     gap = top2[..., 0] - top2[..., 1]
     flips = [(b, t, int(tk[b, t]), int(tp[b, t]), gap[b, t].item())
              for b, t in (tk != tp).nonzero().tolist()]
-    print(f"  f32 activations, first {MOE_F32_LAYERS} of {cfg.n_layers} "
+    print(f"  peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB "
+          f"over the path (the f32 twin included)")
+    print(f"  f32 activations, first {f32_layers} of {cfg.n_layers} "
           f"layers (same bank): teacher-forced logits ({lk.shape[1]} steps) "
           f"max_abs_err {err:.3e} ({err / ref:.3e} of max|logit| "
           f"{ref:.3e}), tol {LOGIT_TOL:g} x max {'ok' if ok else 'FAIL'}; "
@@ -3488,9 +3573,9 @@ def phase_moe(records: list, built: dict, card: str) -> dict:
              if flips else ""))
     if not ok:
         raise AssertionError("f32 kernel-path logits disagree with the "
-                             "plain path (qwen2-moe)")
+                             f"plain path ({path})")
     if flips:
-        raise AssertionError(f"qwen2-moe f32 greedy tokens flip: {flips}")
+        raise AssertionError(f"{path} f32 greedy tokens flip: {flips}")
     del twin, plain, eng, lk, lp
     gc.collect()
     torch.cuda.empty_cache()
@@ -4258,51 +4343,58 @@ def phase_hymba(records: list, built: dict, tmp: str) -> dict:
     return counts
 
 
-def phase_deepseek(records: list, built: dict, tmp: str) -> dict:
-    """deepseek-coder-33b at full width, DEEPSEEK_LAYERS of its 62 layers,
-    bf16 (its config dtype), random weights from seed 0: GQA 56/8 of
-    128, d_ff 19200, B x PROMPT-token prompts and NEW greedy tokens
-    through the kernels.  Then each matrix shape's cim_mvm form, the
-    plans against the CPU mirror, the kernel path against the plain
-    path over DEEPSEEK_TF_STEPS decode steps, and bf16 flash at its
-    heads."""
+def phase_dense(records: list, built: dict, path: str, full, layers: int,
+                tf_steps: int, cache_dir: str | None) -> dict:
+    """A dense ``("attn",)`` config at full width, ``layers`` of its
+    layers, in its config dtype (bf16), random weights from seed 0: B x
+    PROMPT-token prompts (a stub frontend's: embeddings) and NEW greedy
+    tokens through the kernels, deployed through a plan cache in
+    ``cache_dir`` (None: uncached).  Then each matrix shape's cim_mvm
+    form, the plans against the CPU mirror, the kernel path against the
+    plain path over ``tf_steps`` decode steps, and bf16 flash at its
+    heads.  deepseek-coder-33b, internvl2-76b and musicgen-medium."""
     from repro_torch.configs import CimConfig
-    from repro_torch.configs.deepseek_coder_33b import CONFIG as DEEPSEEK
 
-    full = DEEPSEEK
-    cfg = full.replace(n_layers=DEEPSEEK_LAYERS,
+    cfg = full.replace(n_layers=layers,
                        cim=CimConfig(enabled=True, mode="mdm"))
     D, F, Dh = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
-    layer = D * Dh * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) + 3 * D * F
+    n_mlp = 3 if cfg.mlp_type == "swiglu" else 2
+    layer = D * Dh * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) + n_mlp * D * F
     all_gb = 2 * (full.n_layers * layer + 2 * D * full.padded_vocab) / 1e9
-    print(f"config {cfg.name} ({cfg.dtype}): {cfg.n_layers} of "
-          f"{full.n_layers} layers (the cut: {full.n_layers} layers are "
-          f"{all_gb:.1f} GB of bf16 params before the bank), d_model {D}, "
-          f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {Dh}, d_ff {F}, vocab "
-          f"{cfg.vocab_size} (padded {cfg.padded_vocab}); deployed weights "
-          f"{cfg.n_layers * layer / 1e9:.3f} B ({layer / 1e6:.1f} M a layer)")
-    lap = _Laps("deepseek")
-    eng, prompts, tokens, counts, _ = phase_serve(
-        "deepseek", cfg, os.path.join(tmp, "deepseek"))
+    cut = (f"{cfg.n_layers} of {full.n_layers} layers (the cut: "
+           f"{full.n_layers} layers are {all_gb:.1f} GB of bf16 params "
+           f"before the bank)" if layers < full.n_layers
+           else f"{cfg.n_layers} layers, no depth cut")
+    print(f"config {cfg.name} ({cfg.dtype}): {cut}, d_model {D}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {Dh}, {cfg.mlp_type} MLP "
+          f"d_ff {F}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab})"
+          + (f", {cfg.frontend} stub frontend" if cfg.frontend else "")
+          + f"; deployed weights {cfg.n_layers * layer / 1e9:.3f} B "
+          f"({layer / 1e6:.1f} M a layer)")
+    lap = _Laps(path)
+    eng, prompts, tokens, counts, _ = phase_serve(path, cfg, cache_dir)
     lap("serve")
     g = torch.Generator(device="cuda").manual_seed(4)
     shapes = {}                  # layer 0's deployments, one a shape
     for k, d in eng.cim["slot0_attn"].items():
         shapes.setdefault((d.in_dim, d.out_dim), (k, d.layer(0)))
+    top = "ffn_w_gate" if cfg.mlp_type == "swiglu" else "ffn_w_up"
     records.append(_check_cim(
         g, shapes.values(), (B, B * PROMPT), torch.bfloat16,
-        "cim_mvm[bf16 x, deepseek]", f"ffn_w_gate M={B}"))
+        f"cim_mvm[bf16 x, {path}]", f"{top} M={B}"))
     lap("cim forms")
     phase_plans(eng, [("slot0_attn", "wk")])
     lap("plans")
-    phase_compare(eng, prompts, tokens, "deepseek", steps=DEEPSEEK_TF_STEPS)
+    phase_compare(eng, prompts, tokens, path, steps=tf_steps)
     lap("compare")
+    print(f"  peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB "
+          f"over the path (the f32 check's widened params included)")
     del eng, prompts, tokens
     gc.collect()
     torch.cuda.empty_cache()
     records.append(_check_flash(
         g, torch.bfloat16, built, H=cfg.n_heads, Dh=Dh, Hkv=cfg.n_kv_heads,
-        name="flash_attention[bf16,deepseek]",
+        name=f"flash_attention[bf16,{path}]",
         cases=_served_flash_cases(B, PROMPT, MAX_SEQ, MAX_SEQ - 1)))
     lap("flash")
     return counts
@@ -4346,6 +4438,10 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
     """Drive every path, each with the launch counts set to 0 just
     before it and read just after; record each kernel's launches."""
     from repro_torch.configs import CimConfig
+    from repro_torch.configs.deepseek_coder_33b import CONFIG as DEEPSEEK
+    from repro_torch.configs.internvl2_76b import CONFIG as INTERNVL
+    from repro_torch.configs.mixtral_8x7b import CONFIG as MIXTRAL
+    from repro_torch.configs.musicgen_medium import CONFIG as MUSICGEN
     from repro_torch.configs.phi3_mini_38b import CONFIG as PHI3
     from repro_torch.configs.xlstm_13b import CONFIG as XLSTM
 
@@ -4418,12 +4514,27 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
 
     by_path["hymba"] = phase_hymba(records, built, tmp)
     lap("hymba")
-    by_path["deepseek"] = phase_deepseek(records, built, tmp)
+    by_path["deepseek"] = phase_dense(
+        records, built, "deepseek", DEEPSEEK, DEEPSEEK_LAYERS,
+        DEEPSEEK_TF_STEPS, os.path.join(tmp, "deepseek"))
     lap("deepseek")
+    by_path["internvl2"] = phase_dense(
+        records, built, "internvl2", INTERNVL, INTERNVL_LAYERS,
+        INTERNVL_TF_STEPS, None)
+    lap("internvl2")
+    by_path["musicgen"] = phase_dense(
+        records, built, "musicgen", MUSICGEN, MUSICGEN.n_layers,
+        MUSICGEN_TF_STEPS, None)
+    lap("musicgen")
 
     print("config qwen2-moe-a2.7b: MoE serving, alone on the card")
     by_path["qwen2-moe"] = phase_moe(records, built, card)
     lap("qwen2-moe")
+    print(f"config mixtral-8x7b: MoE serving at {MIXTRAL_LAYERS} of 32 "
+          f"layers (32 are 93 GB of bf16 params), alone on the card")
+    by_path["mixtral"] = phase_moe(records, built, card, "mixtral", MIXTRAL,
+                                   MIXTRAL_LAYERS, MIXTRAL_F32_LAYERS)
+    lap("mixtral")
     print(f"config qwen2-moe-a2.7b on imperfect devices, {MOE_NONIDEAL_LAYERS} "
           f"of 24 layers, alone on the card")
     by_path["qwen2-moe-nonideal"] = phase_moe_nonideal(records, built)

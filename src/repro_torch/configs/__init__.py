@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the archs it serves, by the
-reference's ids (``repro.configs.ARCHS``)."""
+"""Architecture registry of the port: the reference's ten archs
+(``repro.configs.ARCHS``), by its ids."""
 from __future__ import annotations
 
 import importlib
@@ -10,9 +10,9 @@ from repro_torch.configs.base import (  # noqa: F401
     check_supported,
 )
 
-# arch id -> module name; the reference's other two archs (frontends:
-# internvl2-76b, musicgen-medium) are still to be ported.
+# arch id -> module name.
 ARCHS: dict[str, str] = {
+    "internvl2-76b": "internvl2_76b",
     "mixtral-8x7b": "mixtral_8x7b",
     "qwen2-moe-a2.7b": "qwen2_moe_a27b",
     "deepseek-coder-33b": "deepseek_coder_33b",
@@ -20,6 +20,7 @@ ARCHS: dict[str, str] = {
     "internlm2-20b": "internlm2_20b",
     "qwen2.5-32b": "qwen25_32b",
     "hymba-1.5b": "hymba_15b",
+    "musicgen-medium": "musicgen_medium",
     "xlstm-1.3b": "xlstm_13b",
 }
 

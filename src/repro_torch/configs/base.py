@@ -3,9 +3,10 @@
 The port's own copy of ``repro.configs.base``: the field names and
 defaults match the reference, so a reference config converts field by
 field.  Only the fields the port's serving paths read are kept: the
-``"attn"`` decoder (dense or MoE, with or without qkv bias) and the
-xLSTM stack; the mamba / hybrid, frontend and sharding knobs arrive
-with the slices that port those paths.
+``"attn"`` decoder (dense or MoE, with or without qkv bias, SwiGLU or
+GELU MLP, token or stub-frontend inputs), the mamba / hybrid blocks and
+the xLSTM stack; the sharding, remat and training knobs arrive with the
+slices that port those paths.
 """
 from __future__ import annotations
 
@@ -39,9 +40,13 @@ class ModelConfig:
     n_layers must be a multiple of its length.  The port serves any
     pattern of ``"attn"``, ``"hybrid"`` (attention and mamba heads in
     one block) and ``"mamba"`` blocks with a SwiGLU MLP on the attn and
-    hybrid blocks (on ``("attn",)``, with ``n_experts``, a routed
-    SwiGLU MoE plus fused shared experts instead), and ``("mlstm",
-    "slstm")`` without an MLP (``mlp_type="none"``).
+    hybrid blocks (on ``("attn",)`` also a GELU MLP or, with
+    ``n_experts``, a routed SwiGLU MoE plus fused shared experts), and
+    ``("mlstm", "slstm")`` without an MLP (``mlp_type="none"``).
+    ``frontend`` ("vision" or "audio", on ``("attn",)``) marks a model
+    whose prompts are precomputed (B, S, d_model) embeddings from a stub
+    frontend (``repro_torch.models.frontend``); its decode steps feed
+    tokens.
     """
 
     name: str = "model"
@@ -67,7 +72,8 @@ class ModelConfig:
     # "global" sorts all B*S tokens into one capacity space; "grouped"
     # sorts each sequence on its own (models/moe.py).
     moe_dispatch: str = "global"
-    mlp_type: str = "swiglu"
+    frontend: str = ""           # "" | "vision" | "audio" (stub frontends)
+    mlp_type: str = "swiglu"     # swiglu | gelu | none
     norm_eps: float = 1e-5
     ssm_state: int = 16          # mamba state width N
     ssm_conv: int = 4            # mamba causal conv width K
@@ -101,27 +107,38 @@ class ModelConfig:
 SWIGLU_BLOCKS = ("attn", "hybrid", "mamba")
 XLSTM_PATTERN = ("mlstm", "slstm")
 MOE_DISPATCH = ("global", "grouped")
+FRONTENDS = ("", "vision", "audio")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configurations outside the port's slices so far:
-    frontends (internvl2-76b's vision, musicgen-medium's audio) and the
-    GELU MLP are the next slice."""
+    """Raise ``NotImplementedError`` for a configuration the port does
+    not serve, naming what it refuses.  Served: patterns of
+    ``SWIGLU_BLOCKS`` with the SwiGLU MLP, ``("attn",)`` also with the
+    GELU MLP, the routed MoE on ``("attn",)``, the xLSTM pattern with no
+    MLP, and a stub frontend (``FRONTENDS``) on ``("attn",)``."""
     pattern = tuple(cfg.block_pattern)
     if pattern == XLSTM_PATTERN:
-        want = "none"
+        want = ("none",)
+    elif pattern == ("attn",):
+        want = ("swiglu", "gelu")
     elif pattern and set(pattern) <= set(SWIGLU_BLOCKS):
-        want = "swiglu"
+        want = ("swiglu",)
     else:
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family!r}, block_pattern="
             f"{cfg.block_pattern!r}: the port serves patterns of "
             f"{SWIGLU_BLOCKS} and {XLSTM_PATTERN}")
-    if cfg.mlp_type != want:
+    if cfg.mlp_type not in want:
         raise NotImplementedError(
-            f"{cfg.name}: block_pattern={cfg.block_pattern!r} is served "
-            f"with mlp_type={want!r}; the GELU MLP and the frontends "
-            "(musicgen-medium, internvl2-76b) are the next slice")
+            f"{cfg.name}: mlp_type={cfg.mlp_type!r} on block_pattern="
+            f"{cfg.block_pattern!r}: the port serves it with mlp_type in "
+            f"{want}")
+    if cfg.frontend not in FRONTENDS or (cfg.frontend
+                                         and pattern != ("attn",)):
+        raise NotImplementedError(
+            f"{cfg.name}: frontend={cfg.frontend!r} on block_pattern="
+            f"{cfg.block_pattern!r}: the port serves the stub frontends "
+            f"{FRONTENDS[1:]} on the ('attn',) pattern")
     moe = cfg.family == "moe" or cfg.n_experts
     if moe and (pattern != ("attn",) or cfg.n_experts < 1
                 or not 1 <= cfg.n_experts_per_token <= cfg.n_experts):

@@ -1,8 +1,8 @@
 """mixtral-8x7b [moe]: 32L d_model=4096 32H (GQA kv=8) d_ff=14336
 vocab=32000, MoE 8 experts top-2, sliding-window attention.
 [arXiv:2401.04088; hf]
-At its bf16 width (93 GB) it does not fit one 80 GB card: the port
-serves it at SMOKE width until a multi-card path exists.
+At its bf16 width (93 GB) it does not fit one 80 GB card whole: the
+card runs it at full width and a cut depth (``chip_smoke.py``).
 """
 from repro_torch.configs.base import ModelConfig
 

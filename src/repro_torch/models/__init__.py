@@ -1,1 +1,2 @@
-"""Dense decoder of the port (``"attn"`` blocks, SwiGLU MLP)."""
+"""Models of the port: the ``"attn"`` decoder (SwiGLU or GELU MLP, routed
+MoE), hybrid, mamba and xLSTM blocks, and the stub frontends."""

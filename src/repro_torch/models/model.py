@@ -1,8 +1,10 @@
-"""Model assembly of the port: the ``"attn"`` decoder (SwiGLU MLP or
-routed MoE, optional q/k/v biases), the ``"hybrid"`` and ``"mamba"``
-blocks and the xLSTM ``("mlstm", "slstm")`` stack.
+"""Model assembly of the port: the ``"attn"`` decoder (SwiGLU or GELU
+MLP or routed MoE, optional q/k/v biases), the ``"hybrid"`` and
+``"mamba"`` blocks and the xLSTM ``("mlstm", "slstm")`` stack.
 
-Port of ``repro.models.model`` (its frontends aside).  The
+Port of ``repro.models.model``.  A forward takes tokens or, for a stub
+frontend (``cfg.frontend``), precomputed (B, S, d_model) embeddings in
+place of the token lookup.  The
 reference scans its stacked layers with ``lax.scan``; here a Python loop
 walks ``for r in repeats: for slot in pattern`` (the reference's scan
 order) and takes each layer's views of the stacked parameters, decode
@@ -15,7 +17,7 @@ heads, ``0.5 * (attention + mamba)``, then runs its FFN.
 
 With a ``cim`` deployment tree (``cfg.cim.enabled`` serving, built by
 ``repro_torch.deploy.deploy_model_params``), every attention q/k/v/o
-and SwiGLU projection runs through ``cim_mvm``, every deployed MoE
+and MLP projection runs through ``cim_mvm``, every deployed MoE
 expert bank through ``cim_mvm``'s grouped form (``models/moe.py``) and
 every attention through ``flash_attention``: the hand-written kernels on
 CUDA tensors.
@@ -143,10 +145,15 @@ def _cim_matmul(x: torch.Tensor, w: torch.Tensor, dep, ops: Ops,
 def dense_mlp(p: dict, x: torch.Tensor, cim: dict | None = None,
               ops: Ops = KERNELS, read_seed: int | None = None
               ) -> torch.Tensor:
-    """SwiGLU MLP: silu(x Wg) * (x Wu), then Wd."""
+    """The MLP, by its parameters: SwiGLU, silu(x Wg) * (x Wu), where
+    there is an ``ffn_w_gate``, else GELU, gelu(x Wu) in the tanh form
+    (``jax.nn.gelu``'s default); then Wd."""
     c = (lambda n: None) if cim is None else cim.get
     mm = lambda a, n: _cim_matmul(a, p[n], c(n), ops, read_seed)
-    h = _silu(mm(x, "ffn_w_gate")) * mm(x, "ffn_w_up")
+    if "ffn_w_gate" in p:
+        h = _silu(mm(x, "ffn_w_gate")) * mm(x, "ffn_w_up")
+    else:
+        h = torch.nn.functional.gelu(mm(x, "ffn_w_up"), approximate="tanh")
     return mm(h, "ffn_w_down")
 
 
@@ -233,7 +240,7 @@ def block_apply(bt: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                 read_seed: int | None = None) -> torch.Tensor:
     """One block of type ``bt``: pre-norm mixer, then (``"attn"`` and
     ``"hybrid"``) the pre-norm FFN: the MoE with ``cfg.n_experts`` (its
-    aux loss dropped: serving ignores it), else the SwiGLU MLP.
+    aux loss dropped: serving ignores it), else the dense MLP.
     ``state`` is the block's slice of the decode state, advanced in
     place."""
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
@@ -274,11 +281,15 @@ def block_apply(bt: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def apply_model(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+def apply_model(params: dict, cfg: ModelConfig,
+                tokens: torch.Tensor | None = None, *,
+                embeds: torch.Tensor | None = None,
                 state: ModelState | None = None, decode: bool = False,
                 cim: dict | None = None, ops: Ops = KERNELS,
                 read_seed: int | None = None):
-    """tokens (B, S) -> (logits (B, S, V) f32, new_state).
+    """tokens (B, S), or embeds (B, S, D) in place of the token lookup
+    (cast to ``cfg.dtype``; exactly one of the two) -> (logits (B, S, V)
+    f32, new_state).
 
     ``state`` (from :func:`init_decode_state`) is advanced in place;
     the returned dict shares its tensors with a new ``pos``.  A shared
@@ -289,7 +300,12 @@ def apply_model(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     is this forward's crossbar read (None: noiseless).
     """
     check_supported(cfg)
-    x = params["embed"][tokens.to(torch.int64)]
+    if (tokens is None) == (embeds is None):
+        raise ValueError("apply_model takes tokens or embeds, exactly one")
+    if embeds is None:
+        x = params["embed"][tokens.to(torch.int64)]
+    else:
+        x = embeds.to(sch.param_dtype(cfg))
     S = x.shape[1]
     pos0 = 0 if state is None else state["pos"]
     if isinstance(pos0, torch.Tensor):          # per-slot clocks (B,)

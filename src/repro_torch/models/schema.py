@@ -7,7 +7,8 @@ and shapes map 1:1 onto the reference's parameter tree: ``embed``,
 ``final_norm``, ``lm_head`` and one ``slot{i}_{block}`` dict per entry
 of the block pattern (for the dense decoder ``slot0_attn/{norm, wq,
 wk, wv, wo, ffn_norm, ffn_w_up, ffn_w_down, ffn_w_gate}``, with
-``bq``/``bk``/``bv`` under ``qkv_bias``; for an MoE decoder the FFN is
+``bq``/``bk``/``bv`` under ``qkv_bias`` and no ``ffn_w_gate`` under
+the GELU MLP; for an MoE decoder the FFN is
 ``ffn_{norm, router, we_gate, we_up, we_down}`` and, with shared
 experts, ``ffn_{ws_gate, ws_up, ws_down, shared_gate}``; a hybrid
 block ``slot0_hybrid/{norm, attn_wq, attn_wk, attn_wv, attn_wo, ssm_w_in,
@@ -75,13 +76,16 @@ def attn_schema(cfg: ModelConfig) -> dict:
 
 
 def mlp_schema(cfg: ModelConfig) -> dict:
+    """The SwiGLU MLP's up, down and gate; the GELU MLP has no gate."""
     D, F = cfg.d_model, cfg.d_ff
-    return {
+    s = {
         "norm": ParamSpec((D,), "ones"),
         "w_up": ParamSpec((D, F)),
         "w_down": ParamSpec((F, D)),
-        "w_gate": ParamSpec((D, F)),
     }
+    if cfg.mlp_type == "swiglu":
+        s["w_gate"] = ParamSpec((D, F))
+    return s
 
 
 def moe_schema(cfg: ModelConfig) -> dict:
@@ -171,7 +175,7 @@ _BLOCK_SCHEMAS = {"attn": attn_schema, "mamba": mamba_schema,
 def block_schema(cfg: ModelConfig, block_type: str) -> dict:
     """One block's parameters; attn and hybrid blocks carry the FFN
     under ``ffn_``: the routed MoE when ``n_experts`` is set, else the
-    SwiGLU MLP."""
+    SwiGLU or GELU MLP."""
     s = dict(_BLOCK_SCHEMAS[block_type](cfg))
     if block_type in ("attn", "hybrid") and cfg.mlp_type != "none":
         ffn = moe_schema(cfg) if cfg.n_experts else mlp_schema(cfg)

@@ -148,6 +148,9 @@ class ContinuousEngine:
                  nonideal=None, nonideal_seed: int = 0,
                  fault_aware: bool = True, pipeline=None, health=None,
                  cim=None, device: str | torch.device = "cuda"):
+        if cfg.frontend:
+            raise ValueError("ContinuousEngine serves token frontends "
+                             "only (embedding prompts are not paged)")
         self.device = resolve_device(device)
         check_supported(cfg)
         if cim is not None and health is not None:

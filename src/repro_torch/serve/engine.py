@@ -13,6 +13,10 @@ forms, on ideal or imperfect devices (``nonideal``: each expert folded
 at deploy and read with its own noise tag, a degraded expert served
 digitally), ``health`` included: every expert has its lifetime state,
 and a probe round reads an expert bank's R * E experts in one launch.
+A model with a stub frontend (``cfg.frontend``: internvl2-76b's vision,
+musicgen-medium's audio) takes its prompts as (B, S, d_model)
+embeddings (``repro_torch.models.frontend``) and feeds its sampled
+tokens to the decode steps, as the reference does.
 An xLSTM model serves every sLSTM recurrence
 through ``slstm_scan``; its mLSTM q/k/v are deployed but, as in the
 reference, served digitally, and ``max_seq`` sizes nothing for it (the
@@ -266,30 +270,43 @@ class ServeEngine:
         return read_seed(self.nonideal_seed, seed, t) if self.read_noise \
             else None
 
-    def _prompts(self, prompts) -> torch.Tensor:
+    def _prompts(self, prompts) -> tuple[str, torch.Tensor]:
+        """The prefill's input and its ``apply_model`` keyword: (B, S, D)
+        float embeddings for a frontend config, else (B, S) token ids;
+        raises on the other kind."""
         p = torch.as_tensor(prompts)
-        if p.ndim != 2:
+        if self.cfg.frontend:
+            if p.ndim != 3 or p.shape[-1] != self.cfg.d_model \
+                    or not p.is_floating_point():
+                raise ValueError(
+                    f"{self.cfg.name} (frontend {self.cfg.frontend!r}) takes "
+                    f"(B, S, {self.cfg.d_model}) float embeddings as prompts, "
+                    f"got {tuple(p.shape)} {p.dtype}")
+            return "embeds", p.to(self.device)
+        if p.ndim != 2 or p.is_floating_point():
             raise ValueError(f"prompts must be (B, S) token ids, got "
-                             f"{tuple(p.shape)}")
-        return p.to(device=self.device, dtype=torch.int64)
+                             f"{tuple(p.shape)} {p.dtype}")
+        return "tokens", p.to(device=self.device, dtype=torch.int64)
 
     @torch.no_grad()
     def generate(self, prompts, n_tokens: int,
                  seed: int = 0) -> torch.Tensor:
-        """prompts (B, S) token ids -> (B, n_tokens) int32 generated ids.
+        """prompts (B, S) token ids, or (B, S, D) embeddings for a
+        frontend config -> (B, n_tokens) int32 generated ids.
 
         The cim tree is taken once at entry (a swap never mutates it).
         With ``health.age_per_token > 0`` the served tokens advance the
         drift clock after the batch."""
-        prompts = self._prompts(prompts)
+        kind, prompts = self._prompts(prompts)
         cim = self.cim
         B = prompts.shape[0]
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         state = init_decode_state(self.cfg, B, self.max_seq, self.device)
-        logits, state = apply_model(self.params, self.cfg, prompts,
-                                    state=state, cim=cim, ops=self.ops,
-                                    read_seed=self._read(seed, 0))
+        logits, state = apply_model(self.params, self.cfg, state=state,
+                                    cim=cim, ops=self.ops,
+                                    read_seed=self._read(seed, 0),
+                                    **{kind: prompts})
         tok = sample_tokens(logits[:, -1], self.temperature, gen)
         out = [tok]
         for t in range(1, n_tokens):
@@ -304,30 +321,45 @@ class ServeEngine:
         return torch.stack(out, dim=1)
 
     @torch.no_grad()
-    def teacher_forced_logits(self, tokens, n_prompt: int,
-                              seed: int = 0) -> torch.Tensor:
+    def teacher_forced_logits(self, tokens, n_prompt: int, seed: int = 0,
+                              decode_tokens=None) -> torch.Tensor:
         """Per-step logits through the serving path with given tokens.
 
         Prefills ``tokens[:, :n_prompt]``, then decodes the remaining
         tokens one at a time, reading the crossbars as
-        ``generate(seed=seed)`` does.  Returns (B, S - n_prompt + 1, V):
-        the prefill's last-position logits, then one row per decode step.
+        ``generate(seed=seed)`` does.  For a frontend config ``tokens``
+        is the (B, n_prompt, D) embeddings prompt and ``decode_tokens``
+        (B, T) the token ids decoded after it (None elsewhere).  Returns
+        (B, 1 + decode steps, V): the prefill's last-position logits,
+        then one row per decode step.
         """
-        tokens = self._prompts(tokens)
+        kind, prompt = self._prompts(tokens)
+        if self.cfg.frontend:
+            if prompt.shape[1] != n_prompt or decode_tokens is None:
+                raise ValueError(
+                    f"a frontend config prefills (B, {n_prompt}, D) "
+                    f"embeddings, got {tuple(prompt.shape)}, and decodes "
+                    f"decode_tokens (B, T)")
+            follow = torch.as_tensor(decode_tokens).to(
+                device=self.device, dtype=torch.int64)
+        else:
+            if decode_tokens is not None:
+                raise ValueError("decode_tokens is for a frontend config; "
+                                 "a token config decodes tokens[:, n_prompt:]")
+            prompt, follow = prompt[:, :n_prompt], prompt[:, n_prompt:]
         cim = self.cim
-        B, S = tokens.shape
+        B = prompt.shape[0]
         state = init_decode_state(self.cfg, B, self.max_seq, self.device)
-        logits, state = apply_model(self.params, self.cfg,
-                                    tokens[:, :n_prompt], state=state,
+        logits, state = apply_model(self.params, self.cfg, state=state,
                                     cim=cim, ops=self.ops,
-                                    read_seed=self._read(seed, 0))
+                                    read_seed=self._read(seed, 0),
+                                    **{kind: prompt})
         rows = [logits[:, -1]]
-        for t in range(n_prompt, S):
+        for t in range(follow.shape[1]):
             logits, state = apply_model(self.params, self.cfg,
-                                        tokens[:, t:t + 1], state=state,
+                                        follow[:, t:t + 1], state=state,
                                         decode=True, cim=cim,
                                         ops=self.ops,
-                                        read_seed=self._read(
-                                            seed, t - n_prompt + 1))
+                                        read_seed=self._read(seed, t + 1))
             rows.append(logits[:, 0])
         return torch.stack(rows, dim=1)

@@ -1543,3 +1543,99 @@ def test_cim_mvm_at_deepseek_ffn_shapes(cuda, I, N, M, dtype):
     y_plain = cim_mvm_plain(x, dep)
     err = (y - y_plain).abs().max().item()
     assert err <= 1e-5 * y_plain.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("I,N", [(8192, 28672), (28672, 8192), (1536, 6144),
+                                 (6144, 1536)],
+                         ids=["internvl2-up", "internvl2-down",
+                              "musicgen-up", "musicgen-down"])
+@pytest.mark.parametrize("M", [4, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cim_mvm_at_frontend_ffn_shapes(cuda, I, N, M, dtype):
+    """internvl2-76b's FFN matrices (I = 28672: the decode form's x slab
+    is 3584 rows a cluster rank) and musicgen-medium's GELU MLP, both
+    forms, x in f32 and bf16: max|kernel - plain| <= 1e-5 * max|plain|,
+    two calls bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(I + M)
+    w = torch.randn((I, N), generator=g, device=cuda) * 0.02
+    x = torch.randn((M, I), generator=g, device=cuda).to(dtype)
+    dep, _ = deploy(w, CrossbarSpec(64, 64, 8), "mdm")
+    y = cim_mvm(x, dep, device=cuda)
+    y_plain = cim_mvm_plain(x, dep)
+    err = (y - y_plain).abs().max().item()
+    assert err <= 1e-5 * y_plain.abs().max().item(), err
+    assert torch.equal(y, cim_mvm(x, dep, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (4, 128, 128, 160, 64, 8, 128, 0),      # internvl2 prefill
+    (4, 1, 159, 160, 64, 8, 128, 0),        # internvl2 decode
+    (4, 128, 128, 160, 24, 24, 64, 0),      # musicgen prefill (MHA)
+    (4, 1, 159, 160, 24, 24, 64, 0),        # musicgen decode
+    (4, 128, 128, 160, 32, 8, 128, 4096),   # mixtral prefill, window 4096
+    (4, 1, 159, 160, 32, 8, 128, 4096),     # mixtral decode
+])
+def test_flash_bf16_at_the_frontend_and_mixtral_heads(cuda, case):
+    """The bf16 forms at internvl2-76b's heads (64 of 128 over 8, G = 8),
+    musicgen-medium's (24 of 64, G = 1) and mixtral-8x7b's (32 of 128
+    over 8, G = 4, a window of 4096 that does not bind at 160 slots):
+    against the plain version, bit-identical across two calls."""
+    B, Sq, filled, C, H, Hkv, Dh, win = case
+    q, k, v = (torch.from_numpy(a).to(cuda).to(torch.bfloat16)
+               for a in _qkv(B, Sq, C, H, Hkv, Dh, filled))
+    kpos = _ring_positions(C, filled, cuda)
+    qpos = torch.arange(filled - Sq, filled, dtype=torch.int32, device=cuda)
+    run = lambda: flash_attention(q, k, v, q_positions=qpos,
+                                  k_positions=kpos, window=win, device=cuda)
+    out = run()
+    ref = flash_attention_plain(q, k, v, qpos, kpos, window=win)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_RTOL,
+                               atol=2e-5)
+    assert torch.equal(out, run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("I,N", [(4096, 14336), (14336, 4096)],
+                         ids=["gate", "down"])
+@pytest.mark.parametrize("routing", ["prefill", "decode", "cap32"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cim_mvm_grouped_at_mixtral_expert_shapes(cuda, I, N, routing, dtype):
+    """The grouped forms at mixtral-8x7b's experts (E = 8, top-2): a
+    prefill of 4 x 128 tokens (capacity 256, the prefill form), a decode
+    step of 4 tokens (capacity 8) and 16 tokens at the decode form's
+    largest capacity, 32: max|kernel - plain| <= 1e-5 *
+    max|plain|, rows no expert computes exactly 0, two calls
+    bit-identical."""
+    from repro_torch.kernels.cim_mvm import ops
+    from repro_torch.kernels.cim_mvm.ops import cim_mvm_grouped
+    from repro_torch.kernels.cim_mvm.ref import cim_mvm_grouped_plain
+
+    E, K = 8, 2
+    dep = _expert_bank(cuda, E, I, N, (64, 64, 8), I + N)
+    T, cap = {"prefill": (512, 256), "decode": (4, 8),
+              "cap32": (16, 32)}[routing]
+    rng = np.random.default_rng(len(routing))
+    top = np.argsort(-rng.random((T, E)) ** 3, axis=1, kind="stable")[:, :K]
+    counts = np.bincount(top.reshape(-1), minlength=E)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                           dtype=torch.int32, device=cuda)
+    A = int(counts.sum()) + 1
+    x = torch.randn((A, I), generator=torch.Generator(
+        device=cuda).manual_seed(5), device=cuda).to(dtype)
+    geom = ops.grouped_geometry(E, cap, I, N, dep.codes.shape[2], dep.wpt,
+                                dep.n_bits, dep.cols, dep.reversed_df, True,
+                                dtype == torch.bfloat16, A)
+    assert geom.form == (ops.FORM_GROUPED_DECODE if cap <= 32
+                         else ops.FORM_GROUPED_PREFILL)
+    y = cim_mvm_grouped(x, dep, offsets, cap, device=cuda)
+    want = cim_mvm_grouped_plain(x, dep, offsets, cap)
+    err = (y - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+    done = torch.zeros(A, dtype=torch.bool, device=cuda)
+    for e in range(E):
+        a = int(offsets[e])
+        done[a:min(int(offsets[e + 1]), a + cap)] = True
+    assert (y[~done] == 0).all()
+    assert torch.equal(y, cim_mvm_grouped(x, dep, offsets, cap, device=cuda))

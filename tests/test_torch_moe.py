@@ -142,7 +142,7 @@ def test_configs_and_support():
             if f.name != "cim":
                 assert getattr(t, f.name) == getattr(j, f.name), f.name
     with pytest.raises(KeyError):
-        get_config("musicgen-medium")
+        get_config("no-such-arch")
     for bad in (ModelConfig(family="moe"),
                 ModelConfig(n_experts=4, n_experts_per_token=5),
                 ModelConfig(n_experts=4, n_experts_per_token=2,
