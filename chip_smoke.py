@@ -10,7 +10,7 @@ folded forms (gain, column permutation, in-kernel read noise, bf16 x)
 and the bf16 forms of flash_attention (its decode form also over a
 LONG_C-slot cache, split across a cluster) and slstm_scan's bf16 forms
 (its scan and decode forms beside the general form) included, and
-the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives fifteen paths
+the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives seventeen paths
 through the entry points a user calls, each with the launch counts set
 to 0 just before it and read just after (a check's own launches inside
 a path left out):
@@ -20,8 +20,9 @@ a path left out):
    package every projection on the card, through a plan cache) and
    greedy generation for a batch of prompts (cim_mvm, flash_attention,
    manhattan_score);
-2. phi3-continuous: the same weights through ``ContinuousEngine``
-   (capacity 8, a cold deploy through a fresh plan cache), 16 requests
+2. phi3-continuous: the first CONT_LAYERS layers of the same weights
+   through ``ContinuousEngine`` (capacity 8, a cold deploy through a
+   fresh plan cache), held against a ServeEngine of that depth, 16 requests
    of mixed lengths, half greedy, served three times: in order,
    reversed on a fresh engine over the same bank, and with a hot swap
    to the same checkpoint (cim_mvm, per-lane flash_attention,
@@ -53,8 +54,10 @@ a path left out):
    checked batched PCG in mixed and f64 precision, one of the solves
    profiled by kernel; then 512-tile throughput up to the paper's
    128x128 crossbar (a checked mixed solve there), calibrate_eta and a
-   Monte-Carlo NF ensemble (line_solve, the line preconditioner's chain
-   solve; manhattan_score);
+   Monte-Carlo NF ensemble; the sharded solve
+   (``distributed/solver_shard.py``) over ``tile_mesh()`` and over two
+   shards of one card, and the ensemble over a tile mesh (line_solve,
+   the line preconditioner's chain solve; manhattan_score);
 7. xlstm-1.3b serving at its config dtype (bf16): random full-width
    weights (seed 0, all 48 layers), deploy (the reference deploys the
    mLSTM q/k/v) and greedy generation (slstm_scan's scan form at the
@@ -64,30 +67,38 @@ a path left out):
    kernels, its mamba heads in plain PyTorch, 4 prompts of 1016 tokens
    and 64 greedy tokens, so that the ring wraps during decode (cim_mvm,
    flash_attention in bf16, manhattan_score);
-9. deepseek: deepseek-coder-33b at full width, DEEPSEEK_LAYERS of its
+9. hymba-nonideal: hymba-1.5b at HYMBA_NONIDEAL_LAYERS of its 32
+   layers on phi3-nonideal's devices, seed, mapping and traffic
+   (cim_fold, cim_mvm's folded forms with read noise, flash_attention
+   in bf16, manhattan_score);
+10. hymba-health: one health round trip on that bank (warm-up probe
+   rounds, an advance of the drift clock, the round that recalibrates,
+   a batch served: cim_mvm's batched folded decode form for the probes,
+   cim_fold at every refresh, cim_mvm's folded forms, flash_attention);
+11. deepseek: deepseek-coder-33b at full width, DEEPSEEK_LAYERS of its
    62 layers, in bf16 (GQA 56/8 of 128, d_ff 19200; cim_mvm,
    flash_attention in bf16, manhattan_score);
-10. internvl2: internvl2-76b at full width, INTERNVL_LAYERS of its 80
+12. internvl2: internvl2-76b at full width, INTERNVL_LAYERS of its 80
    layers, in bf16, its prompts the vision stub's (B, PROMPT, 8192)
    embeddings (GQA 64/8 of 128, d_ff 28672; cim_mvm, flash_attention
    in bf16, manhattan_score);
-11. musicgen: musicgen-medium at full width and depth in bf16, its
+13. musicgen: musicgen-medium at full width and depth in bf16, its
    prompts the audio stub's embeddings, decoding codec tokens (MHA 24
    of 64, the GELU MLP; cim_mvm, flash_attention in bf16,
    manhattan_score);
-12. qwen2-moe: qwen2-moe-a2.7b at full width and depth in bf16 under
+14. qwen2-moe: qwen2-moe-a2.7b at full width and depth in bf16 under
    ``mdm_expert``, alone on the card (cim_mvm's grouped forms on the
    expert banks, cim_mvm, flash_attention at Dh = 128,
    manhattan_score);
-13. mixtral: mixtral-8x7b at full width, MIXTRAL_LAYERS of its 32
+15. mixtral: mixtral-8x7b at full width, MIXTRAL_LAYERS of its 32
    layers, in bf16 under ``mdm_expert``, alone on the card (8 experts
    top-2 of 4096x14336: cim_mvm's grouped forms, cim_mvm,
    flash_attention at GQA 32/8 of 128, manhattan_score);
-14. qwen2-moe-nonideal: MOE_NONIDEAL_LAYERS of its layers on imperfect
+16. qwen2-moe-nonideal: MOE_NONIDEAL_LAYERS of its layers on imperfect
    devices under the spare-line spec (cim_fold, the grouped folded
    forms with read noise, cim_mvm's folded forms, flash_attention,
    manhattan_score);
-15. qwen2-moe-health: MOE_HEALTH_LAYERS of its layers aged and healed
+17. qwen2-moe-health: MOE_HEALTH_LAYERS of its layers aged and healed
    on ``HEALTH``'s devices, the arc on ``ServeEngine`` and
    ``ContinuousEngine`` with one seed and a heal swap under load
    (cim_mvm's batched form over each expert group's R x 60 members in
@@ -174,8 +185,12 @@ COLD_BYTES = 150 * 2 ** 20
 
 B, PROMPT, NEW = 4, 128, 32          # requests served in each path
 MAX_SEQ = PROMPT + NEW
-# The continuous-batching path: slots, padded prompt length, requests.
+# The continuous-batching path: slots, padded prompt length, requests,
+# and its depth (a cut for the run's time limit: all 32 layers took 96.3
+# s of an 892.7 s run on an H100, mostly the plan cache's hashing and
+# writes).
 CAPACITY, CONT_PROMPT, N_REQUESTS = 8, 128, 16
+CONT_LAYERS = 16
 CIM_TOL = 1e-5       # max|kernel - plain| <= CIM_TOL * max|plain|
 FLASH_TOL = 2e-5     # |kernel - plain| <= FLASH_TOL * (1 + |plain|)
 SLSTM_TOL = 1e-5     # |kernel - plain| <= SLSTM_TOL * (1 + |plain|)
@@ -217,6 +232,11 @@ HYMBA_B, HYMBA_PROMPT, HYMBA_NEW = 4, 1016, 64
 # Decode steps of its kernel-vs-plain checks: the last two write
 # positions 1024 and 1025 into the wrapped ring.
 HYMBA_TF_STEPS = 10
+# hymba-nonideal's depth: phi3-nonideal's devices and traffic (B x PROMPT
+# tokens, NEW greedy), then one health round trip (hymba-health).  xlstm
+# gets no such path: its deployed matrices (the mLSTM q/k/v) are served
+# digitally, so imperfect devices change nothing it reads.
+HYMBA_NONIDEAL_LAYERS = 32
 # deepseek-coder-33b at full width: the layers served (62 are 66.7 GB of
 # bf16 params before the bank) and the decode steps of its kernel-vs-plain
 # checks (each forward's plain cim_mvm expands 4.2 B weights).
@@ -238,6 +258,10 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                 "export": ("bitslice_pack",),
                 "phi3-nonideal": ("cim_mvm", "cim_fold", "flash_attention",
                                   "manhattan_score"),
+                "hymba-nonideal": ("cim_mvm", "cim_fold", "flash_attention",
+                                   "manhattan_score"),
+                "hymba-health": ("cim_mvm", "cim_fold", "cim_mvm_batched",
+                                 "flash_attention"),
                 "phi3-health": ("cim_mvm", "cim_fold", "cim_mvm_batched",
                                 "flash_attention", "manhattan_score"),
                 "xlstm": ("slstm_scan_tc", "slstm_scan_decode",
@@ -272,8 +296,8 @@ RECORD_PATHS = {
     "bitslice_pack": ("export",),
     "flash_attention[bf16]": ("phi3-nonideal", "phi3-health"),
     "cim_fold": ("phi3-nonideal", "phi3-health", "qwen2-moe-nonideal",
-                 "qwen2-moe-health"),
-    "cim_mvm_batched": ("phi3-health", "qwen2-moe-health"),
+                 "qwen2-moe-health", "hymba-nonideal", "hymba-health"),
+    "cim_mvm_batched": ("phi3-health", "qwen2-moe-health", "hymba-health"),
     "cim_mvm_batched[expert group]": ("qwen2-moe-health",),
     "slstm_scan[bf16]": (),           # the xlstm path now takes the two
     "slstm_scan_tc[bf16]": ("xlstm",),    # forms below
@@ -284,7 +308,8 @@ RECORD_PATHS = {
     "flash_attention[bf16,Dh=128]": ("qwen2-moe", "qwen2-moe-nonideal",
                                      "qwen2-moe-health"),
     "cim_mvm_grouped_folded": ("qwen2-moe-nonideal", "qwen2-moe-health"),
-    "flash_attention[bf16,hymba]": ("hymba",),
+    "flash_attention[bf16,hymba]": ("hymba", "hymba-nonideal",
+                                    "hymba-health"),
     "flash_attention[bf16,deepseek]": ("deepseek",),
     "flash_attention[bf16,internvl2]": ("internvl2",),
     "flash_attention[bf16,musicgen]": ("musicgen",),
@@ -292,7 +317,7 @@ RECORD_PATHS = {
 }
 # The paths of every other record (cim_mvm's folded forms).
 NONIDEAL_PATHS = ("phi3-nonideal", "phi3-health", "qwen2-moe-nonideal",
-                  "qwen2-moe-health")
+                  "qwen2-moe-health", "hymba-nonideal", "hymba-health")
 # Substrings of the port's CUDA kernel names, as the profiler shows them.
 PORT_KERNEL_NAMES = ("cim_decode", "cim_prefill", "cim_fold", "cim_grouped",
                      "flash_decode", "flash_prefill", "score_vec",
@@ -1828,14 +1853,20 @@ def _widen(tree):
     return tree.float() if tree.is_floating_point() else tree
 
 
-def phase_nonideal(cfg, cache_dir: str) -> dict:
-    """Full-width phi3-mini at its config dtype (bf16) and ``cfg``'s
-    depth on imperfect devices (``NONIDEAL``) under the ``spare_line`` mapping: deploy
-    through a cold plan cache (its stages timed), hold every served
-    matrix's fold bit for bit against its plain version, serve greedily,
-    and hold the kernel path against the plain path (which reads no
-    fold) at one read seed, call by call in bf16, end to end in f32, and
-    its bf16 logits within NONIDEAL_BF16_LOGIT_TOL x max|logit|."""
+def phase_nonideal(path: str, cfg, cache_dir: str,
+                   bf16_tol: float | None = NONIDEAL_BF16_LOGIT_TOL,
+                   health_path: str | None = None) -> dict:
+    """A full-width model at its config dtype (bf16) and ``cfg``'s depth
+    on imperfect devices (``NONIDEAL``) under the ``spare_line``
+    mapping: deploy through a cold plan cache (its stages timed), hold
+    every served matrix's fold bit for bit against its plain version,
+    serve greedily, and hold the kernel path against the plain path
+    (which reads no fold) at one read seed, call by call in bf16, end to
+    end in f32, and its bf16 logits within ``bf16_tol`` x max|logit|
+    (None: printed, no bound).  phi3-mini and hymba-1.5b.  With
+    ``health_path`` the engine also carries ``health=`` and, after the
+    checks, drives one health round trip on the same bank
+    (:func:`_health_round_trip`).  Returns the launch counts by path."""
     from repro_torch.deploy import PlanCache
     from repro_torch.kernels import runtime
     from repro_torch.kernels.cim_mvm.ref import folded_weights
@@ -1854,13 +1885,14 @@ def phase_nonideal(cfg, cache_dir: str) -> dict:
                       plan_cache=PlanCache(cache_dir), nonideal=model,
                       nonideal_seed=NONIDEAL_SEED,
                       pipeline=NONIDEAL_PIPELINE, timed_deploy=True,
+                      health=_health_config() if health_path else None,
                       device="cuda")
     torch.cuda.synchronize()
     t_deploy = time.perf_counter() - t0
     rep = eng.deploy_report
     n_mats = rep["n_matrices"]
     sec = rep["seconds"]
-    print(f"phase deploy (phi3-nonideal, served): {cfg.dtype}, {model}, seed "
+    print(f"phase deploy ({path}, served): {cfg.dtype}, {model}, seed "
           f"{NONIDEAL_SEED}, pipeline {NONIDEAL_PIPELINE}: {t_deploy:.2f} s "
           f"through a cold plan cache ({rep['cache_misses']} misses): "
           f"{n_mats} matrices, {rep['tiles_planned']} tiles, "
@@ -1921,11 +1953,11 @@ def phase_nonideal(cfg, cache_dir: str) -> dict:
     t_all = time.perf_counter() - t0
     step = (t_all - t_prefill) / (NEW - 1)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"phase serve (phi3-nonideal): B={B} prompt {PROMPT} new {NEW}: "
+    print(f"phase serve ({path}): B={B} prompt {PROMPT} new {NEW}: "
           f"prefill {t_prefill * 1e3:.1f} ms, decode {step * 1e3:.2f} "
           f"ms/step, {B * NEW / t_all:.1f} tokens/s (peak memory "
           f"{peak:.1f} GiB)")
-    counts = _launches("phi3-nonideal")
+    counts = _launches(path)
     forwards = 2 + 1 + NEW
     live = n_mats - rep["n_degraded"]
     if counts["cim_mvm"] != live * forwards:
@@ -1952,29 +1984,34 @@ def phase_nonideal(cfg, cache_dir: str) -> dict:
     seq = torch.cat([prompts.cuda(), tokens.long()], 1)[
         :, :PROMPT + TF_STEPS]
     V = cfg.vocab_size
-    lk = _check_calls(eng, seq, "phi3-nonideal", seed=5)[..., :V].float()
+    lk = _check_calls(eng, seq, path, seed=5,
+                      n_prompt=PROMPT)[..., :V].float()
     if not (torch.isfinite(lk).all() and lk.shape == (B, TF_STEPS + 1, V)):
         raise AssertionError("non-finite or misshapen logits")
-    _check_f32(eng, seq, seed=5)
+    _check_f32(eng, seq, seed=5, n_prompt=PROMPT)
     plain_eng = copy.copy(eng)
     plain_eng.ops = _plain_ops()
     lp = plain_eng.teacher_forced_logits(seq, PROMPT, seed=5)[..., :V].float()
     err = (lk - lp).abs().max().item()
     ref = lp.abs().max().item()
-    ok = err <= NONIDEAL_BF16_LOGIT_TOL * ref
+    ok = bf16_tol is None or err <= bf16_tol * ref
     flips = int((lk.argmax(-1) != lp.argmax(-1)).sum())
     print(f"teacher-forced logits, kernel vs plain path at read seed 5 "
           f"({lk.shape[1]} steps, bf16): max_abs_err {err:.3e} "
-          f"({err / ref:.3e} of max|logit| {ref:.3e}), tol "
-          f"{NONIDEAL_BF16_LOGIT_TOL:g} x max {'ok' if ok else 'FAIL'}; "
-          f"argmax differs at {flips} of {lk.shape[0] * lk.shape[1]}")
+          f"({err / ref:.3e} of max|logit| {ref:.3e}), "
+          + ("a reading, no bound (bf16 at depth)" if bf16_tol is None else
+             f"tol {bf16_tol:g} x max {'ok' if ok else 'FAIL'}")
+          + f"; argmax differs at {flips} of {lk.shape[0] * lk.shape[1]}")
     if not ok:
         raise AssertionError("nonideal bf16 kernel-path logits disagree")
-    del plain_eng, lk, lp, eng
-    del params
+    del plain_eng, lk, lp
+    out = {path: counts}
+    if health_path:
+        out[health_path] = _health_round_trip(health_path, eng, prompts)
+    del eng, params
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return out
 
 
 def _leaves(tree):
@@ -2125,6 +2162,13 @@ def _check_greedy_parity(cont, serve_eng, reqs, tokens_by_request) -> None:
               f"({'within' if ok else 'OUTSIDE'} {LOGIT_TOL:g} x max|logit|)")
     if not all(f[-1] for f in flips):
         raise AssertionError("a greedy flip outside the logits' tolerance")
+
+
+def _cut_params(params: dict, n_layers: int) -> dict:
+    """A params tree's first ``n_layers`` layers (copies of each slot's
+    stacked leaves; the embedding and head shared)."""
+    return {k: {n: t[:n_layers].clone() for n, t in v.items()}
+            if k.startswith("slot") else v for k, v in params.items()}
 
 
 def phase_continuous(cfg, params, serve_eng, cache_dir: str,
@@ -2500,8 +2544,9 @@ def _round_launches(eng) -> None:
           f"{bound_total:.3f} ms")
 
 
-def _health_arc(eng, serve, check=None, peak=False) -> dict:
-    """Drive HEALTH_ARC on ``eng``: ``serve(eng)`` serves a batch and
+def _health_arc(eng, serve, check=None, peak=False,
+                arc=HEALTH_ARC) -> dict:
+    """Drive ``arc`` on ``eng``: ``serve(eng)`` serves a batch and
     returns (tokens, seconds); ``check(eng, what)`` runs after every
     advance and round.  Prints counters and events by kind after each
     round and the seconds of each step (and, with the engine's swap
@@ -2512,7 +2557,7 @@ def _health_arc(eng, serve, check=None, peak=False) -> dict:
     clock = getattr(eng, "swap_clock", None)
     split = lambda: dict(getattr(clock, "seconds", {}))
     served, rounds, errs = [], [], []
-    for i, step in enumerate(HEALTH_ARC):
+    for step in arc:
         if step == "serve":
             served.append(serve(eng))
             continue
@@ -2605,6 +2650,92 @@ def _check_recalibration(e) -> None:
                              f"of {worse[:4]}")
 
 
+def _health_config():
+    """The health paths' configuration: HEALTH_PROBES probes, an
+    endurance of HEALTH_REPROGRAMS, HEALTH_DETECTOR's detector."""
+    from repro_torch.health import DetectorConfig, HealthConfig
+
+    return HealthConfig(n_probes=HEALTH_PROBES,
+                        max_reprograms=HEALTH_REPROGRAMS,
+                        detector=DetectorConfig(**HEALTH_DETECTOR))
+
+
+def _serve_checked(prompts):
+    """``_health_arc``'s serve step on a dense ``ServeEngine``: ``prompts``
+    and NEW greedy tokens, cim_mvm launched once a forward for every
+    live matrix, the logits finite."""
+    from repro_torch.kernels import runtime
+
+    def serve(e):
+        e.generate(prompts, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = runtime.launch_counts()["cim_mvm"]
+        tokens = e.generate(prompts, NEW)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = runtime.launch_counts()["cim_mvm"] - before
+        live = sum(not lt.demoted for lt in e.lifetime.values())
+        n, p = prompts.shape
+        print(f"  serve: B={n} prompt {p} new {NEW}: {dt:.2f} s, "
+              f"{n * NEW / dt:.1f} tokens/s; cim_mvm {launches} launches = "
+              f"{live} live matrices x {NEW} forwards"
+              f"{'' if launches == live * NEW else ' FAIL'}")
+        if launches != live * NEW:
+            raise AssertionError("cim_mvm launches != live matrices x "
+                                 "forwards")
+        if not torch.isfinite(e.teacher_forced_logits(torch.cat(
+                [prompts.to(e.device), tokens.long()], 1)[:, :p + 1],
+                p)).all():
+            raise AssertionError("non-finite logits")
+        return dict(tokens=tokens, tokens_per_s=n * NEW / dt)
+
+    return serve
+
+
+def _dense_check(e, what: str) -> None:
+    """``_health_arc``'s check on a dense bank (a check's launches left
+    out): every live fold after each step, recalibration lowering the
+    probe error in round 5, the reprogrammed bank's batched reads in
+    round 6."""
+    from repro_torch.serve.engine import probe_seed
+
+    with _Uncounted():
+        _check_refolds(e, what)
+        if what == "round 5":       # the recalibration round
+            _check_recalibration(e)
+        if what == "round 6":       # after the reprogram
+            _check_batched_reads(e, probe_seed(HEALTH_SEED, 5),
+                                 "reprogrammed bank, with read noise")
+
+
+# hymba-health's round trip on hymba-nonideal's bank: warm-up rounds for
+# the detector, one advance of the drift clock, the round that
+# recalibrates, a batch served.
+ROUND_TRIP = (0, 0, 0, 0, 1e4, "serve")
+
+
+def _health_round_trip(path: str, eng, prompts) -> dict:
+    """One health round trip (ROUND_TRIP) on ``eng``'s bank, the launch
+    counts set to 0 before it: advance, recalibrate (at least one
+    matrix must trip), and the checks of :func:`_dense_check`; then a
+    batch served.  Returns the path's launch counts."""
+    from repro_torch.kernels import runtime
+
+    runtime.reset_launch_counts()
+    print(f"phase {path}: {len(eng.lifetime)} lifetimes, {eng.health.cfg}; "
+          f"the round trip {ROUND_TRIP}")
+    arc = _health_arc(eng, _serve_checked(prompts), _dense_check,
+                      arc=ROUND_TRIP)
+    rep = eng.health_report
+    print(f"  round trip: counters {rep.counters}, probe rounds "
+          f"{[round(r * 1e3, 1) for r in arc['rounds']]} ms, tokens/s "
+          f"after {arc['served'][0]['tokens_per_s']:.1f}")
+    if not rep.counters["recalibrations"]:
+        raise AssertionError("the round trip recalibrated no matrix")
+    return _launches(path)
+
+
 def phase_health(cfg, built: dict, records: list) -> dict:
     """Full-width phi3-mini (bf16) ageing and healing on imperfect
     devices (``HEALTH``, ``spare_line``): ``ServeEngine(health=)``
@@ -2621,7 +2752,6 @@ def phase_health(cfg, built: dict, records: list) -> dict:
     at ``CROSS_LAYERS`` layers.  Returns the launch counts of the path
     (the deploy, the two arcs and the run under load), less the
     checks'."""
-    from repro_torch.health import DetectorConfig, HealthConfig
     from repro_torch.kernels import runtime
     from repro_torch.models.model import init_params
     from repro_torch.nonideal import NonidealModel
@@ -2629,9 +2759,7 @@ def phase_health(cfg, built: dict, records: list) -> dict:
     from repro_torch.serve.engine import probe_seed
 
     model = NonidealModel(**HEALTH)
-    health = HealthConfig(n_probes=HEALTH_PROBES,
-                          max_reprograms=HEALTH_REPROGRAMS,
-                          detector=DetectorConfig(**HEALTH_DETECTOR))
+    health = _health_config()
     kw = dict(nonideal=model, nonideal_seed=HEALTH_SEED,
               pipeline=NONIDEAL_PIPELINE, health=health, plan_cache=False,
               device="cuda")
@@ -2658,37 +2786,7 @@ def phase_health(cfg, built: dict, records: list) -> dict:
                              "fresh bank, with read noise")
         _round_launches(eng)
 
-    def serve(e):
-        e.generate(prompts, 2)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        before = runtime.launch_counts()["cim_mvm"]
-        tokens = e.generate(prompts, NEW)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = runtime.launch_counts()["cim_mvm"] - before
-        live = sum(not lt.demoted for lt in e.lifetime.values())
-        print(f"  serve: B={B} prompt {PROMPT} new {NEW}: {dt:.2f} s, "
-              f"{B * NEW / dt:.1f} tokens/s; cim_mvm {launches} launches = "
-              f"{live} live matrices x {NEW} forwards"
-              f"{'' if launches == live * NEW else ' FAIL'}")
-        if launches != live * NEW:
-            raise AssertionError("cim_mvm launches != live matrices x "
-                                 "forwards")
-        if not torch.isfinite(e.teacher_forced_logits(torch.cat(
-                [prompts.to(e.device), tokens.long()], 1)[:, :PROMPT + 1],
-                PROMPT)).all():
-            raise AssertionError("non-finite logits")
-        return dict(tokens=tokens, tokens_per_s=B * NEW / dt)
-
-    def check(e, what):
-        with _Uncounted():
-            _check_refolds(e, what)
-            if what == "round 5":       # the recalibration round
-                _check_recalibration(e)
-            if what == "round 6":       # after the reprogram
-                _check_batched_reads(e, probe_seed(HEALTH_SEED, 5),
-                                     "reprogrammed bank, with read noise")
+    serve, check = _serve_checked(prompts), _dense_check
 
     del eng
     gc.collect()
@@ -2698,8 +2796,7 @@ def phase_health(cfg, built: dict, records: list) -> dict:
     # (its swaps landing between batches: no sequence in flight holds the
     # old bank) with the same seed.
     cfg_x = cfg.replace(n_layers=CROSS_LAYERS)
-    params_x = {k: {n: t[:CROSS_LAYERS].clone() for n, t in v.items()}
-                if k.startswith("slot") else v for k, v in params.items()}
+    params_x = _cut_params(params, CROSS_LAYERS)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2986,6 +3083,72 @@ def _profile_solve(masks, spec, seconds: float, iters: int, card: str):
                      for ms, n, key in rows[:10]])
 
 
+# The sharded solve against the batched engine on the same tiles: same
+# arithmetic, same per-tile trajectory (tests/test_solver_shard.py).
+SHARD_TOL = 1e-12
+
+
+def _timed(fn):
+    """(fn(), seconds), the card synchronised around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _check_sharded(mdm: torch.Tensor, spec, card: str) -> dict:
+    """The sharded solve (``distributed/solver_shard.py``) on the
+    MDM-placed population in MIXED, each against ``measured_nf_batched``
+    on the same tiles and timed beside it: one shard over ``tile_mesh()``
+    (every visible card), and two shards on cuda:0 over all tiles but the
+    last (the padding, each shard's own exit).  Currents within
+    SHARD_TOL, unconverged equal, iterations equal (one shard) or not
+    above the batched loop's (two: each shard's f32 loop and f64 polish
+    stop at its own tiles)."""
+    from repro_torch.crossbar import measured_nf_batched, tile_converged
+    from repro_torch.distributed import (
+        ShardingCtx,
+        measured_nf_sharded,
+        tile_mesh,
+    )
+
+    T = mdm.shape[0]
+    base, t_base = _timed(lambda: measured_nf_batched(
+        mdm, spec, precision="mixed", device="cuda"))
+    failed = ~tile_converged(base, 1e-12)
+    print(f"  sharded solve, MDM mixed: the batched engine {t_base:.3f} s "
+          f"({base.iterations} iterations, {int(failed.sum())} unconverged)"
+          f" [{card}]")
+    out = dict(batched_s=t_base, batched_iterations=base.iterations)
+    for name, mesh, n in (("1 shard", tile_mesh(), T),
+                          ("2 shards on cuda:0", tile_mesh(2, "cuda:0"),
+                           T - 1)):
+        res, dt = _timed(lambda: measured_nf_sharded(
+            mdm[:n], spec, precision="mixed", ctx=ShardingCtx(mesh=mesh),
+            device="cuda"))
+        want = base.currents[:n]
+        rel = ((res.currents - want).abs() / want.abs()).max().item()
+        unconv = int(failed[:n].sum())
+        iters_ok = (res.iterations == base.iterations
+                    if mesh.shape["tiles"] == 1
+                    else res.iterations <= base.iterations)
+        ok = rel <= SHARD_TOL and res.unconverged == unconv and iters_ok
+        print(f"  sharded solve, {name} ({mesh.shape}) over {n} tiles: "
+              f"{dt:.3f} s ({t_base:.3f} s batched), {res.iterations} "
+              f"iterations ({base.iterations} batched), unconverged "
+              f"{res.unconverged} ({unconv}); currents within {rel:.3e} of "
+              f"the batched solve (limit {SHARD_TOL:g}) "
+              f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            raise AssertionError(f"the sharded solve ({name}) disagrees "
+                                 "with the batched engine")
+        out[name] = dict(tiles=n, seconds=dt, iterations=res.iterations,
+                         unconverged=res.unconverged, max_rel=rel)
+        del res
+    return out
+
+
 def phase_circuit(w: torch.Tensor, built: dict, card: str):
     """phi3-circuit: the circuit solver on the placed masks of one
     full-width phi3 projection (layer 0's ffn_w_gate, 3072x8192, the f32
@@ -3007,6 +3170,7 @@ def phase_circuit(w: torch.Tensor, built: dict, card: str):
         measured_nf_batched_checked,
         measured_nf_sequential,
     )
+    from repro_torch.distributed import tile_sharding_ctx
     from repro_torch.kernels import runtime
     from repro_torch.nonideal import NonidealModel, mc_nf, summarize
 
@@ -3081,6 +3245,7 @@ def phase_circuit(w: torch.Tensor, built: dict, card: str):
     mdm = solves["mdm mixed"]
     prof = _profile_solve(masks["mdm"], spec, mdm["seconds"],
                           mdm["iterations"], card)
+    sharded = _check_sharded(masks["mdm"], spec, card)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for J in (32, 64, 128):
@@ -3155,9 +3320,27 @@ def phase_circuit(w: torch.Tensor, built: dict, card: str):
           f"{summarize(mc.weighted_err)} [{card}]")
     if mc.unconverged:
         raise AssertionError("mc_nf left tiles unconverged")
+    mc_s, dt_s = _timed(lambda: mc_nf(
+        masks["mdm"][:512], spec, model, 4, 0, precision="mixed",
+        ctx=tile_sharding_ctx(), device="cuda"))
+    _, dt = _timed(lambda: mc_nf(masks["mdm"][:512], spec, model, 4, 0,
+                                 precision="mixed", device="cuda"))
+    rel = max(((getattr(mc_s, f) - getattr(mc, f)).abs()
+               / getattr(mc, f).abs().clamp_min(1e-300)).max().item()
+              for f in ("nf_total", "weighted_err", "residual"))
+    ok = rel <= SHARD_TOL and mc_s.unconverged == mc.unconverged
+    print(f"  mc_nf(ctx=tile_sharding_ctx()): {dt_s:.3f} s ({dt:.3f} s "
+          f"without, warm), {mc_s.iterations} iterations, unconverged "
+          f"{mc_s.unconverged}; nf_total, weighted error and residual "
+          f"within {rel:.3e} of the unsharded ensemble (limit "
+          f"{SHARD_TOL:g}) {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError("mc_nf over a tile mesh disagrees")
+    sharded["mc_nf"] = dict(seconds=dt_s, unsharded_s=dt, max_rel=rel)
     counts = _launches("phi3-circuit")
     rec.update(solves=solves, sum_nf=total, nf_correlation=corr,
-               eta=etas[None], eta_mixed=etas["mixed"], profile=prof)
+               eta=etas[None], eta_mixed=etas["mixed"], profile=prof,
+               sharded=sharded)
     return rec, counts
 
 
@@ -4096,7 +4279,6 @@ def phase_moe_health(records: list, built: dict) -> dict:
     from repro_torch.configs import CimConfig
     from repro_torch.configs.qwen2_moe_a27b import CONFIG as QWEN
     from repro_torch.deploy import DEMOTED_RUNTIME
-    from repro_torch.health import DetectorConfig, HealthConfig
     from repro_torch.kernels import runtime
     from repro_torch.models.model import init_params
     from repro_torch.nonideal import NonidealModel
@@ -4107,9 +4289,7 @@ def phase_moe_health(records: list, built: dict) -> dict:
                        cim=CimConfig(enabled=True, mode="mdm_expert"))
     L = cfg.n_layers
     model = NonidealModel(**HEALTH)
-    health = HealthConfig(n_probes=HEALTH_PROBES,
-                          max_reprograms=HEALTH_REPROGRAMS,
-                          detector=DetectorConfig(**HEALTH_DETECTOR))
+    health = _health_config()
     kw = dict(nonideal=model, nonideal_seed=HEALTH_SEED,
               pipeline=MOE_NONIDEAL_PIPELINE, health=health, plan_cache=False,
               device="cuda")
@@ -4439,11 +4619,13 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
     before it and read just after; record each kernel's launches."""
     from repro_torch.configs import CimConfig
     from repro_torch.configs.deepseek_coder_33b import CONFIG as DEEPSEEK
+    from repro_torch.configs.hymba_15b import CONFIG as HYMBA
     from repro_torch.configs.internvl2_76b import CONFIG as INTERNVL
     from repro_torch.configs.mixtral_8x7b import CONFIG as MIXTRAL
     from repro_torch.configs.musicgen_medium import CONFIG as MUSICGEN
     from repro_torch.configs.phi3_mini_38b import CONFIG as PHI3
     from repro_torch.configs.xlstm_13b import CONFIG as XLSTM
+    from repro_torch.serve import ServeEngine
 
     cim = CimConfig(enabled=True, mode="mdm")
     by_path: dict = {}
@@ -4457,9 +4639,23 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
         "phi3", cfg, os.path.join(tmp, "phi3"))
     by_path["phi3"] = counts
     lap("phi3")
+    # phi3-continuous at CONT_LAYERS layers, held against a ServeEngine of
+    # the same depth (deployed uncached, as its cold deploy's yardstick).
+    cont_cfg = cfg.replace(n_layers=CONT_LAYERS)
+    cont_params = _cut_params(eng.params, CONT_LAYERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cont_serve = ServeEngine(cont_cfg, cont_params, max_seq=MAX_SEQ,
+                             plan_cache=False, device="cuda")
+    torch.cuda.synchronize()
+    print(f"config {cfg.name} through ContinuousEngine: {CONT_LAYERS} of "
+          f"{cfg.n_layers} layers (a cut for the run's time limit)")
     by_path["phi3-continuous"] = phase_continuous(
-        cfg, eng.params, eng, os.path.join(tmp, "phi3-continuous"),
-        uncached_s)
+        cont_cfg, cont_params, cont_serve,
+        os.path.join(tmp, "phi3-continuous"), time.perf_counter() - t0)
+    del cont_serve, cont_params
+    gc.collect()
+    torch.cuda.empty_cache()
     lap("phi3-continuous")
     for d in ("phi3", "phi3-continuous"):
         shutil.rmtree(os.path.join(tmp, d))
@@ -4485,9 +4681,9 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
     print(f"config {cfg.name} ({cfg.dtype}, its CONFIG dtype): imperfect "
           f"devices; {NONIDEAL_LAYERS} of 32 layers (a cut for the run's "
           f"time limit)")
-    by_path["phi3-nonideal"] = phase_nonideal(
-        cfg.replace(n_layers=NONIDEAL_LAYERS),
-        os.path.join(tmp, "phi3-nonideal"))
+    by_path.update(phase_nonideal(
+        "phi3-nonideal", cfg.replace(n_layers=NONIDEAL_LAYERS),
+        os.path.join(tmp, "phi3-nonideal")))
     shutil.rmtree(os.path.join(tmp, "phi3-nonideal"), ignore_errors=True)
     lap("phi3-nonideal")
     print(f"config {cfg.name} ({cfg.dtype}): ageing and self-healing; "
@@ -4514,6 +4710,14 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
 
     by_path["hymba"] = phase_hymba(records, built, tmp)
     lap("hymba")
+    cfg = HYMBA.replace(cim=cim, n_layers=HYMBA_NONIDEAL_LAYERS)
+    print(f"config {cfg.name} ({cfg.dtype}): imperfect devices and one "
+          f"health round trip; {cfg.n_layers} of {HYMBA.n_layers} layers")
+    by_path.update(phase_nonideal(
+        "hymba-nonideal", cfg, os.path.join(tmp, "hymba-nonideal"),
+        bf16_tol=None, health_path="hymba-health"))
+    shutil.rmtree(os.path.join(tmp, "hymba-nonideal"), ignore_errors=True)
+    lap("hymba-nonideal and hymba-health")
     by_path["deepseek"] = phase_dense(
         records, built, "deepseek", DEEPSEEK, DEEPSEEK_LAYERS,
         DEEPSEEK_TF_STEPS, os.path.join(tmp, "deepseek"))

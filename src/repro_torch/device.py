@@ -26,6 +26,17 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether ``a`` and ``b`` name one device: a CUDA device without an
+    index is the current one, and the CPU is one device."""
+    def key(d):
+        if d.type != "cuda":
+            return d.type, None
+        return d.type, torch.cuda.current_device() if d.index is None \
+            else d.index
+    return key(a) == key(b)
+
+
 def check_on(dev: torch.device, **tensors) -> None:
     """Raise unless every named tensor lies on ``dev`` (type and index)."""
     for name, t in tensors.items():

@@ -32,7 +32,7 @@ from repro_torch.crossbar.batched import (
     measured_nf_conductances_checked,
 )
 from repro_torch.crossbar.solver import as_tensor
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, same_device
 from repro_torch.nonideal.models import (
     CellSample,
     NonidealModel,
@@ -125,25 +125,37 @@ def mc_nf(masks, spec, model: NonidealModel, n_samples: int, key: int, *,
     call, whose watchdog escalates failed tiles and reports the rest in
     ``unconverged`` and ``report``.  ``col_weights``: global (cols,) or
     per-tile (..., cols) weights (per tile under column-permuted
-    pipelines).  ``ctx`` (a sharded solve over a device mesh) is not
-    ported yet and raises."""
-    if ctx is not None:
-        raise NotImplementedError(
-            "mc_nf over a device mesh (ctx) needs the sharded solver, "
-            "which the port does not have yet")
+    pipelines).  With ``ctx`` the ensemble is solved sharded over the
+    ctx's logical "tiles" mesh (``repro_torch.distributed.solver_shard``),
+    each shard its slice of the sample x tile axis; the mesh's first
+    device must be ``device``, where the ensemble is drawn."""
     dev = resolve_device(device)
+    if ctx is not None and ctx.mesh is not None and \
+            not same_device(ctx.mesh.devices[0], dev):
+        raise ValueError(f"mc_nf: the ensemble is drawn on {dev}, but the "
+                         f"ctx's mesh solves on {ctx.mesh.devices[0]}")
     batch_shape, flat, stuck, col_weights = _flat(masks, stuck, col_weights,
                                                   dev)
     g, g_ref = mc_samples(key, flat, spec, model, n_samples, stuck,
                           device=dev)
-    res, report = measured_nf_conductances_checked(
-        g, spec, g_ref=g_ref, maxiter=maxiter, precision=precision,
-        chain_impl=chain_impl, device=dev)
+    if ctx is not None:
+        from repro_torch.distributed.solver_shard import (
+            measured_nf_conductances_sharded_checked,
+        )
+        res, report = measured_nf_conductances_sharded_checked(
+            g, spec, g_ref=g_ref, maxiter=maxiter, precision=precision,
+            ctx=ctx, chain_impl=chain_impl, device=dev)
+        unconverged = res.unconverged
+    else:
+        res, report = measured_nf_conductances_checked(
+            g, spec, g_ref=g_ref, maxiter=maxiter, precision=precision,
+            chain_impl=chain_impl, device=dev)
+        unconverged = report.n_failed
     werr = _weighted_err(res.currents, res.ideal, col_weights)
     shape = (n_samples,) + tuple(batch_shape)
     return McNfResult(res.nf_total.reshape(shape), werr.reshape(shape),
                       res.residual.reshape(shape), res.iterations,
-                      report.n_failed, report)
+                      unconverged, report)
 
 
 def mc_nf_oracle(masks, spec, model: NonidealModel, n_samples: int,

@@ -29,11 +29,17 @@ solver's line preconditioner): max|kernel - plain| <= 1e-12 * max|plain|
 in f64 and 1e-5 * max|plain| in f32 (the kernel rounds every step as the
 plain version does, so they agree bit for bit; the bounds are what a
 reordering would be held to), and the kernel-preconditioned batched
-solve against the dense oracle at the reference's rtol 1e-7.
+solve against the dense oracle at the reference's rtol 1e-7.  The
+sharded circuit solve across two or more cards (a host thread a card,
+and a process a card over NCCL; skipped below two): currents within
+1e-12 of the batched engine's on one card, unconverged equal,
+iterations not above the batched loop's.  Run with ``-s`` it prints
+the times beside the batched solve's.
 """
 import dataclasses
 import functools
 import itertools
+import time
 
 import numpy as np
 import pytest
@@ -1639,3 +1645,93 @@ def test_cim_mvm_grouped_at_mixtral_expert_shapes(cuda, I, N, routing, dtype):
         done[a:min(int(offsets[e + 1]), a + cap)] = True
     assert (y[~done] == 0).all()
     assert torch.equal(y, cim_mvm_grouped(x, dep, offsets, cap, device=cuda))
+
+
+SHARD_T, SHARD_SPEC = 49151, CrossbarSpec(64, 64, 8)
+
+
+def _shard_masks(dev):
+    """49,151 random 64x64 masks at 20% density (seed 0): a padded tile
+    axis on any card count."""
+    g = torch.Generator().manual_seed(0)
+    return (torch.rand((SHARD_T, 64, 64), generator=g) < 0.2).to(
+        torch.float32).to(dev)
+
+
+def _timed_solve(fn, dev):
+    """(fn(), seconds) of its second call, the card synchronised."""
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def _nccl_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One process a card: the tile axis spans the ranks; every rank
+    saves the whole population it got back, and its time."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import ShardingCtx, measured_nf_sharded
+    from repro_torch.distributed import tile_mesh
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        m, ctx = _shard_masks(dev), ShardingCtx(mesh=tile_mesh(device=dev))
+        res, dt = _timed_solve(lambda: measured_nf_sharded(
+            m, SHARD_SPEC, precision="mixed", ctx=ctx, device=dev), dev)
+        torch.save(dict(currents=res.currents.cpu(), seconds=dt,
+                        iterations=res.iterations,
+                        unconverged=res.unconverged,
+                        size=ctx.mesh.shape["tiles"]),
+                   f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["threads", "nccl"])
+def test_sharded_solve_across_cards(cuda, route, tmp_path):
+    """The sharded solve over every visible card against the batched
+    engine on cuda:0, MIXED: currents within 1e-12, unconverged equal,
+    iterations not above the batched loop's (each shard stops at its
+    own tiles)."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.crossbar import measured_nf_batched, tile_converged
+    from repro_torch.distributed import measured_nf_sharded
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more cards")
+    dev = torch.device("cuda", 0)
+    m = _shard_masks(dev)
+    base, t_base = _timed_solve(lambda: measured_nf_batched(
+        m, SHARD_SPEC, precision="mixed", device=dev), dev)
+    unconv = int((~tile_converged(base, 1e-12)).sum())
+    if route == "threads":
+        res, dt = _timed_solve(lambda: measured_nf_sharded(
+            m, SHARD_SPEC, precision="mixed", device="cuda"), dev)
+        got = [dict(currents=res.currents, seconds=dt, size=world,
+                    iterations=res.iterations, unconverged=res.unconverged)]
+    else:
+        del m
+        mp.spawn(_nccl_rank, args=(world, str(tmp_path / "store"),
+                                   str(tmp_path)), nprocs=world, join=True)
+        got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)]
+    for r, g in enumerate(got):
+        rel = ((g["currents"].to(dev) - base.currents).abs()
+               / base.currents.abs()).max().item()
+        print(f"sharded solve, {route}, {world} cards ({r}): "
+              f"{g['seconds']:.3f} s beside the batched {t_base:.3f} s on "
+              f"one card [{torch.cuda.get_device_name(0)}]; currents within "
+              f"{rel:.3e}, iterations {g['iterations']} "
+              f"({base.iterations} batched)")
+        assert g["size"] == world
+        assert rel <= 1e-12
+        assert g["unconverged"] == unconv
+        assert g["iterations"] <= base.iterations

@@ -28,6 +28,8 @@ import torch
 
 from repro.configs.base import CimConfig as JCim
 from repro.configs.base import ModelConfig as JModel
+from repro.configs.hymba_15b import SMOKE as J_HYMBA_SMOKE
+from repro.configs.xlstm_13b import SMOKE as J_XLSTM_SMOKE
 from repro.core.tiling import CrossbarSpec as JSpec
 from repro.deploy import PlanCache as JPlanCache
 from repro.deploy.engine import collect_model_matrices as j_collect
@@ -74,6 +76,8 @@ VOCAB = 128
 READ_RTOL, READ_ATOL = 1e-5, 1e-6     # the reference's three-way bound
 GAIN_RTOL = 1e-6
 _AGING = dict(drift_nu=0.1, sigma_relax=0.08, sigma_program=0.03)
+SMOKES = {"hybrid": J_HYMBA_SMOKE, "xlstm": J_XLSTM_SMOKE}
+LIFETIMES = {"attn": 14, "hybrid": 14, "xlstm": 3}
 
 
 @pytest.fixture(autouse=True)
@@ -153,12 +157,17 @@ def test_probe_vectors_and_residual_fits_bit_identical(tag):
 
 # ------------------------------ the engines -------------------------------
 
-def _jcfg() -> JModel:
+def _jcfg(pattern: str = "attn") -> JModel:
+    """The reference test's ("attn",) model, or the SMOKE hymba
+    (("hybrid",)) or xlstm (("mlstm", "slstm")) at its tiles."""
+    cim = JCim(enabled=True, mode="mdm", rows=16, cols=16, n_bits=4)
+    if pattern != "attn":
+        return SMOKES[pattern].replace(dtype="float32", remat="none",
+                                       cim=cim)
     return JModel(
         name="cim-health-test", n_layers=2, d_model=32, n_heads=2,
         n_kv_heads=2, d_ff=64, vocab_size=VOCAB, block_pattern=("attn",),
-        remat="none", dtype="float32", attn_chunk=32,
-        cim=JCim(enabled=True, mode="mdm", rows=16, cols=16, n_bits=4))
+        remat="none", dtype="float32", attn_chunk=32, cim=cim)
 
 
 def _tcfg(jcfg: JModel) -> ModelConfig:
@@ -188,12 +197,13 @@ def _reference_cells(tree, jcfg, jm, key):
     return j_sample_cells(jax.random.PRNGKey(key), grids, spec, jm)
 
 
-def _pair(tmp_path, tier="serve", jh=None, seed=3, model=_AGING):
+def _pair(tmp_path, tier="serve", jh=None, seed=3, model=_AGING,
+          pattern="attn"):
     """A reference engine and the port's, the port's bank deployed from
     the reference's cells and its lifetimes reading the reference's
     draws."""
     jh = jh or _jhealth()
-    jcfg = _jcfg()
+    jcfg = _jcfg(pattern)
     jp, tree = _tree(jcfg)
     jm, tm = JNonideal(**model), NonidealModel(**model)
     th = health_config_from_reference(jh)
@@ -250,14 +260,25 @@ def _held(jeng, teng, step: str) -> None:
                                    rtol=1e-4, err_msg=name)
 
 
-@pytest.mark.parametrize("tier", ["serve", "continuous"])
-def test_escalation_ladder_matches_reference(tmp_path, tier):
+@pytest.mark.parametrize("tier,pattern", [
+    pytest.param("serve", "attn", id="serve"),
+    pytest.param("continuous", "attn", id="continuous"),
+    pytest.param("serve", "hybrid", id="serve-hybrid"),
+    pytest.param("serve", "xlstm", id="serve-xlstm")])
+def test_escalation_ladder_matches_reference(tmp_path, tier, pattern):
     """The reference test's full arc, both packages in lockstep: warm-up
     (no trips), advance 1e4 -> recalibrate, 1e8 -> reprogram (clock
-    reset), 1e4 -> recalibrate, 1e8 -> demote; every step held."""
-    jeng, teng = _pair(tmp_path, tier)
+    reset), 1e4 -> recalibrate, 1e8 -> demote; every step held, greedy
+    tokens after the demotion equal.  Also on SMOKE hymba (14 lifetimes:
+    attention and MLP of each hybrid layer) and SMOKE xlstm, whose 3
+    lifetimes (the mLSTM q/k/v) are served digitally: there every
+    demotion leaves the tokens as they were."""
+    jeng, teng = _pair(tmp_path, tier, pattern=pattern)
     n = len(teng.lifetime)
-    assert n == len(jeng.lifetime) > 0
+    assert n == len(jeng.lifetime) == LIFETIMES[pattern]
+    p = np.random.default_rng(1).integers(0, VOCAB, (2, 8))
+    fresh = teng.generate(torch.from_numpy(p), 3).numpy() \
+        if tier == "serve" else None
     for r in range(4):
         jeng.check_health()
         teng.check_health()
@@ -275,13 +296,31 @@ def test_escalation_ladder_matches_reference(tmp_path, tier):
     assert all(m["demoted"] for m in rep.matrices.values())
     assert rep.flaps == 0
     if tier == "serve":
-        p = np.random.default_rng(1).integers(0, VOCAB, (2, 8))
         out = teng.generate(torch.from_numpy(p), 3).numpy()
         np.testing.assert_array_equal(
             out, np.asarray(jeng.generate(jnp.asarray(p, jnp.int32), 3)))
+        if pattern == "xlstm":
+            np.testing.assert_array_equal(out, fresh)
     else:                                  # every heal landed as an epoch
         assert teng.serving_epoch > 0 and list(teng.banks) == [
             teng.serving_epoch]
+
+
+@pytest.mark.parametrize("pattern", ["hybrid", "xlstm"])
+def test_continuous_health_refuses_recurrent_patterns(tmp_path, pattern):
+    """``ContinuousEngine(health=)`` refuses the recurrent patterns, as
+    it does without health: its padded prefill would feed pad tokens to
+    the state."""
+    jcfg = _jcfg(pattern)
+    _, tree = _tree(jcfg)
+    tcfg = _tcfg(jcfg)
+    with pytest.raises(NotImplementedError, match="attn"):
+        ContinuousEngine(tcfg, params_from_numpy(tree, tcfg, CPU),
+                         capacity=2, max_seq=64, max_prompt=16,
+                         plan_cache=PlanCache(str(tmp_path)),
+                         nonideal=NonidealModel(**_AGING), nonideal_seed=3,
+                         health=health_config_from_reference(_jhealth()),
+                         device=CPU)
 
 
 def test_recalibration_restores_probe_error(tmp_path):

@@ -30,6 +30,7 @@ from repro_torch.core import noise as tnoise
 from repro_torch.core.tiling import CrossbarSpec
 from repro_torch.crossbar import measured_nf_batched, \
     measured_nf_conductances_checked
+from repro_torch.distributed import tile_sharding_ctx
 from repro_torch.nonideal import models as tm
 from repro_torch.nonideal import montecarlo as tmc
 
@@ -159,8 +160,15 @@ def test_mc_per_tile_weights_and_summary_and_ctx():
     np.testing.assert_allclose(a.weighted_err.numpy(), b.weighted_err,
                                rtol=1e-9)
     assert tmc.summarize(a.nf_total) == jmc.summarize(a.nf_total.numpy())
-    with pytest.raises(NotImplementedError, match="ctx"):
-        tmc.mc_nf(masks, SPEC, model, 2, 3, ctx=object(), device=CPU)
+    # Over a 3-shard host mesh (8 ensemble tiles padded to 9): the same
+    # ensemble as the fused solve (tests/test_torch_solver_shard.py).
+    c = tmc.mc_nf(masks, SPEC, model, 2, 3, col_weights=w, device=CPU,
+                  ctx=tile_sharding_ctx(3, device=CPU))
+    for f in ("nf_total", "weighted_err", "residual"):
+        np.testing.assert_allclose(getattr(c, f).numpy(),
+                                   getattr(a, f).numpy(), rtol=1e-12,
+                                   err_msg=f)
+    assert c.unconverged == a.unconverged == 0
 
 
 # ------------------------------ calibrate_eta -----------------------------

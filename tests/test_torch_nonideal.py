@@ -31,7 +31,9 @@ import pytest
 import torch
 
 from repro.configs.base import CimConfig as JCim
+from repro.configs.hymba_15b import SMOKE as J_HYMBA_SMOKE
 from repro.configs.phi3_mini_38b import SMOKE as J_SMOKE
+from repro.configs.xlstm_13b import SMOKE as J_XLSTM_SMOKE
 from repro.core.mdm import plan_from_masks as j_plan_from_masks
 from repro.core.tiling import CrossbarSpec as JSpec
 from repro.deploy import PlanCache as JPlanCache
@@ -89,12 +91,16 @@ def _port_cfg(jcfg) -> ModelConfig:
     return ModelConfig(**kw, cim=CimConfig(**dataclasses.asdict(jcfg.cim)))
 
 
-def _smoke(spec=(64, 64, 8)):
-    """The reference's phi3 SMOKE (2 layers, d_model 64) in f32 with CIM
-    enabled."""
-    return J_SMOKE.replace(
+SMOKES = {"phi3": J_SMOKE, "hymba": J_HYMBA_SMOKE, "xlstm": J_XLSTM_SMOKE}
+
+
+def _smoke(spec=(64, 64, 8), arch="phi3", enabled=True):
+    """The reference's SMOKE of ``arch`` (phi3: 2 layers of ("attn",);
+    hymba: 2 of ("hybrid",); xlstm: ("mlstm", "slstm") x 2; d_model 64)
+    in f32 with CIM enabled."""
+    return SMOKES[arch].replace(
         dtype="float32", remat="none", attn_chunk=MAX_SEQ,
-        cim=JCim(enabled=True, mode="mdm", rows=spec[0], cols=spec[1],
+        cim=JCim(enabled=enabled, mode="mdm", rows=spec[0], cols=spec[1],
                  n_bits=spec[2]))
 
 
@@ -538,14 +544,15 @@ def test_read_noise_statistics_match_model_and_reference():
 
 # ------------------------------ the slice ---------------------------------
 
-def test_nonideal_slice_matches_reference(tmp_path):
-    """SMOKE phi3 on imperfect devices under ``spare_line``, the
-    reference's cells moved across, no read noise: the deploy report's
-    degraded matrices equal, teacher-forced logits within the f32 bound,
-    greedy tokens equal."""
-    kw = dict(p_stuck_off=0.02, sigma_program=0.05, p_open_wordline=0.05)
+_SLICE_DEVICES = dict(p_stuck_off=0.02, sigma_program=0.05,
+                      p_open_wordline=0.05)
+
+
+def _slice_pair(tmp_path, arch, kw=_SLICE_DEVICES):
+    """The reference's engine on imperfect devices under ``spare_line``
+    and the port's, deployed from the reference's cells."""
     jm, tm = _model_pair(**kw)
-    jcfg = _smoke()
+    jcfg = _smoke(arch=arch)
     jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
     tree = jax.tree_util.tree_map(np.asarray, jparams)
     jeng = JEngine(jcfg, jparams, max_seq=MAX_SEQ,
@@ -559,31 +566,69 @@ def test_nonideal_slice_matches_reference(tmp_path):
     teng.cim, teng.deploy_report = deploy_model_params(
         tparams, tcfg, device=CPU, nonideal=tm, pipeline="spare_line",
         cells=_reference_cells(tree, jcfg, jm, "spare_line"))
+    return jeng, teng, tree
+
+
+def _j_teacher_forced(jeng, seq, n_prompt, cim):
+    cfg, ctx = jeng.cfg, ShardingCtx()
+    state = jmodel.init_decode_state(cfg, seq.shape[0], MAX_SEQ)
+    logits, state, _ = jmodel.apply_model(
+        jeng.params, cfg, ctx, tokens=jnp.asarray(seq[:, :n_prompt]),
+        state=state, cim=cim)
+    rows = [np.asarray(logits[:, -1])]
+    for t in range(n_prompt, seq.shape[1]):
+        logits, state, _ = jmodel.apply_model(
+            jeng.params, cfg, ctx, tokens=jnp.asarray(seq[:, t:t + 1]),
+            state=state, decode=True, cim=cim)
+        rows.append(np.asarray(logits[:, 0]))
+    return np.stack(rows, axis=1)
+
+
+@pytest.mark.parametrize("arch", list(SMOKES))
+def test_nonideal_slice_matches_reference(tmp_path, arch):
+    """SMOKE phi3, hymba and xlstm on imperfect devices under
+    ``spare_line``, the reference's cells moved across, no read noise:
+    the deploy report's degraded matrices and stuck cells equal,
+    teacher-forced logits within the f32 bound, greedy tokens equal."""
+    jeng, teng, _ = _slice_pair(tmp_path, arch)
     for k in ("n_degraded", "degraded", "stuck_cells"):
         assert teng.deploy_report[k] == jeng.deploy_report[k], k
+    assert teng.deploy_report["n_matrices"] == \
+        jeng.deploy_report["n_matrices"] > 0
 
     rng = np.random.default_rng(1)
-    prompts = rng.integers(0, jcfg.vocab_size, (2, 8)).astype(np.int32)
+    prompts = rng.integers(0, jeng.cfg.vocab_size, (2, 8)).astype(np.int32)
     j_tok = np.asarray(jeng.generate(jnp.asarray(prompts), 6))
     t_tok = teng.generate(torch.from_numpy(prompts), 6).numpy()
     seq = np.concatenate([prompts, j_tok[:, :-1]], axis=1)
-    cfg, ctx = jeng.cfg, ShardingCtx()
-    state = jmodel.init_decode_state(cfg, 2, MAX_SEQ)
-    logits, state, _ = jmodel.apply_model(
-        jeng.params, cfg, ctx, tokens=jnp.asarray(seq[:, :8]), state=state,
-        cim=jeng.cim)
-    rows = [np.asarray(logits[:, -1])]
-    for t in range(8, seq.shape[1]):
-        logits, state, _ = jmodel.apply_model(
-            jeng.params, cfg, ctx, tokens=jnp.asarray(seq[:, t:t + 1]),
-            state=state, decode=True, cim=jeng.cim)
-        rows.append(np.asarray(logits[:, 0]))
-    j_logits = np.stack(rows, axis=1)
+    j_logits = _j_teacher_forced(jeng, seq, 8, jeng.cim)
     t_logits = teng.teacher_forced_logits(torch.from_numpy(seq), 8).numpy()
-    V = jcfg.vocab_size
+    V = jeng.cfg.vocab_size
     err = np.abs(t_logits[..., :V] - j_logits[..., :V]).max()
     assert err <= LOGIT_RTOL * np.abs(j_logits[..., :V]).max(), err
     np.testing.assert_array_equal(t_tok, j_tok)
+
+
+def test_xlstm_imperfect_devices_serve_the_digital_logits(tmp_path):
+    """The xLSTM caveat on both packages: its only deployed matrices are
+    the mLSTM q/k/v, which are served digitally, so its logits on
+    imperfect devices are the ideal digital logits bit for bit."""
+    jeng, teng, tree = _slice_pair(tmp_path, "xlstm", dict(
+        _SLICE_DEVICES, sigma_read=0.05, drift_nu=0.1, drift_time=10.0))
+    assert {n.split("/")[1] for n in jeng.deploy_report["matrices"][
+        "deployed"]} == {"wq", "wk", "wv"}
+    seq = np.random.default_rng(2).integers(
+        0, jeng.cfg.vocab_size, (2, 12)).astype(np.int32)
+    j_digital = _j_teacher_forced(jeng, seq, 8, None)
+    np.testing.assert_array_equal(
+        _j_teacher_forced(jeng, seq, 8, jeng.cim), j_digital)
+    tcfg = _port_cfg(_smoke(arch="xlstm", enabled=False))
+    digital = ServeEngine(tcfg, params_from_numpy(tree, tcfg, CPU),
+                          max_seq=MAX_SEQ, plan_cache=False, device=CPU)
+    assert digital.cim is None
+    t_digital = digital.teacher_forced_logits(torch.from_numpy(seq), 8)
+    assert torch.equal(teng.teacher_forced_logits(torch.from_numpy(seq), 8),
+                       t_digital)
 
 
 def test_engine_read_seeds_repeat_per_generate_call(tmp_path):
