@@ -10,7 +10,7 @@ folded forms (gain, column permutation, in-kernel read noise, bf16 x)
 and the bf16 forms of flash_attention (its decode form also over a
 LONG_C-slot cache, split across a cluster) and slstm_scan's bf16 forms
 (its scan and decode forms beside the general form) included, and
-the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives seventeen paths
+the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives eighteen paths
 through the entry points a user calls, each with the launch counts set
 to 0 just before it and read just after (a check's own launches inside
 a path left out):
@@ -104,7 +104,15 @@ a path left out):
    (cim_mvm's batched form over each expert group's R x 60 members in
    one launch, cim_fold at every refresh, the grouped folded forms for
    the banks with a live expert, cim_mvm, flash_attention,
-   manhattan_score).
+   manhattan_score);
+18. phi3-train: phi3-mini at full width and depth in bf16 trained alone
+   on the card (``Trainer``: TRAIN_STEPS AdamW steps on the synthetic
+   token stream, ``remat="full"``; digital, as the reference trains, so
+   no kernel), its peak memory beside the reckoning, one step on the
+   card against the CPU at full width and 1 layer (loss and every
+   gradient), a restart arc at 1 layer (resume, injected failure), and
+   the trained weights deployed and served through ``ServeEngine``
+   (cim_mvm, flash_attention in bf16, manhattan_score).
 
 For each serving path it checks plans built on the card against the
 port's CPU mirror, the kernel path's logits and tokens against the
@@ -281,12 +289,14 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                                        "manhattan_score"),
                 "qwen2-moe-health": ("cim_mvm", "cim_mvm_grouped_folded",
                                      "cim_fold", "cim_mvm_batched",
-                                     "flash_attention", "manhattan_score")}
+                                     "flash_attention", "manhattan_score"),
+                "phi3-train": ("cim_mvm", "flash_attention",
+                               "manhattan_score")}
 # The paths each kernel record's form runs on (its launches are its
 # kernel's launches there).
 RECORD_PATHS = {
     "cim_mvm": ("phi3", "phi3-continuous", "qwen2-moe", "hymba", "deepseek",
-                "internvl2", "musicgen", "mixtral"),
+                "internvl2", "musicgen", "mixtral", "phi3-train"),
     "cim_mvm[bf16 x, deepseek]": ("deepseek",),
     "cim_mvm[bf16 x, internvl2]": ("internvl2",),
     "cim_mvm[bf16 x, musicgen]": ("musicgen",),
@@ -294,7 +304,7 @@ RECORD_PATHS = {
     "manhattan_score": tuple(PATH_KERNELS),
     "slstm_scan": (),                 # the xlstm path now serves bf16
     "bitslice_pack": ("export",),
-    "flash_attention[bf16]": ("phi3-nonideal", "phi3-health"),
+    "flash_attention[bf16]": ("phi3-nonideal", "phi3-health", "phi3-train"),
     "cim_fold": ("phi3-nonideal", "phi3-health", "qwen2-moe-nonideal",
                  "qwen2-moe-health", "hymba-nonideal", "hymba-health"),
     "cim_mvm_batched": ("phi3-health", "qwen2-moe-health", "hymba-health"),
@@ -4580,6 +4590,299 @@ def phase_dense(records: list, built: dict, path: str, full, layers: int,
     return counts
 
 
+# phi3-train: the full-width, full-depth run (B x S tokens of the
+# synthetic stream, seed 0; lr 0 at step 0 of the warmup, as the
+# reference's schedule gives), the card-against-CPU step (1 layer, f32,
+# TRAIN_CHECK_B x TRAIN_CHECK_S) and the restart arc's depth.
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP = 4, 128, 8, 2
+TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 64
+RESTART_LAYERS, RESTART_STEPS = 1, 4
+# Card against CPU, one step at f32: the loss at rtol TRAIN_LOSS_RTOL,
+# every gradient leaf within TRAIN_GRAD_TOL x its max|g| (summation
+# orders differ; the CPU parity tests hold the port to the reference at
+# the same bounds).  The restart arc's losses at the reference's own
+# rtol (tests/test_train.py:45).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+RESTART_RTOL = 1e-5
+
+
+def _train_reckoning(cfg) -> dict:
+    """Bytes of the training state: bf16 params and grads, f32 m, v and
+    master; the AdamW update's two f32 temporaries of the largest leaf
+    (``optim/adamw.py``); the logits (B, S, V) in f32."""
+    from repro_torch.models.schema import model_schema
+
+    def leaves(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                yield from leaves(v)
+        else:
+            yield math.prod(node.shape)
+
+    sizes = list(leaves(model_schema(cfg)))
+    n = sum(sizes)
+    el = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    return {"params": n, "state": n * (2 * el + 12),
+            "largest": max(sizes), "temp": 8 * max(sizes),
+            "logits": 4 * TRAIN_B * TRAIN_S * cfg.padded_vocab}
+
+
+def _train_busy(tr) -> None:
+    """One more training step under torch.profiler: the kernels' device
+    time against the step's wall time (the busy share), the largest
+    kernels and host ops, and the caching allocator's device mallocs,
+    frees and retries in the step; then one step split by hand into its
+    loss and gradients and its AdamW update, each synchronised."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.optim.schedule import cosine_schedule
+    from repro_torch.train.step import loss_and_grads
+
+    keys = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run(tr.step + 1)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    after = torch.cuda.memory_stats()
+    ev = prof.key_averages()
+    dev = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in ev
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 reverse=True)
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in ev
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  reverse=True)
+    busy = sum(r[0] for r in dev)
+    print(f"  profiled step: device busy {busy:.1f} ms of {wall:.1f} ms -> "
+          f"busy share {100 * min(1.0, busy / wall):.1f}%; allocator in "
+          f"the step: " + ", ".join(
+              f"{k} {after.get(k, 0) - before.get(k, 0)}" for k in keys))
+    for what, rows in (("kernels", dev), ("host ops (self CPU)", host)):
+        print(f"  largest {what}: " + "; ".join(
+            f"{ms:.1f} ms {n}x {key[:48]}" for ms, n, key in rows[:6]))
+    batch = tr._device_batch(tr.step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, _ = loss_and_grads(tr.params, tr.cfg, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lr = cosine_schedule(tr.opt_state.step, peak_lr=tr.tcfg.learning_rate,
+                         warmup_steps=tr.tcfg.warmup_steps,
+                         total_steps=tr.tcfg.total_steps)
+    tr.params, tr.opt_state, _ = adamw_update(grads, tr.opt_state,
+                                              tr.params, lr=lr)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"  a step split by hand: loss and gradients "
+          f"{1e3 * (t1 - t0):.1f} ms, AdamW {1e3 * (t2 - t1):.1f} ms")
+
+
+def _train_vs_cpu(full) -> None:
+    """One step's loss and every gradient leaf, on the card and on the
+    CPU from the same f32 params (full width, 1 layer) and batch, before
+    any optimizer update."""
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = full.replace(n_layers=1, dtype="float32")
+    cpu = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    card = tree_map(lambda t: t.cuda(), cpu)
+    toks = torch.from_numpy(SyntheticTokenDataset(
+        cfg.vocab_size, TRAIN_CHECK_S, TRAIN_CHECK_B, seed=1).batch_at(0))
+    t0 = time.perf_counter()
+    g_card, m_card = loss_and_grads(card, cfg, {"tokens": toks.cuda()})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g_cpu, m_cpu = loss_and_grads(cpu, cfg, {"tokens": toks})
+    t2 = time.perf_counter()
+    worst = 0.0
+    for a, b in zip(g_card, g_cpu):
+        lim = TRAIN_GRAD_TOL * b.abs().max().clamp_min(1e-30)
+        worst = max(worst, ((a.cpu() - b).abs().max() / lim).item())
+    lc, lp = float(m_card["loss"]), float(m_cpu["loss"])
+    ok = abs(lc - lp) <= TRAIN_LOSS_RTOL * abs(lp) and worst <= 1.0
+    print(f"  card against CPU, one step (full width, 1 layer, f32, "
+          f"B={TRAIN_CHECK_B} x {TRAIN_CHECK_S}): loss {lc:.7f} / {lp:.7f} "
+          f"(rel {abs(lc - lp) / abs(lp):.2e}, tol {TRAIN_LOSS_RTOL:g}); "
+          f"{len(g_cpu)} gradient leaves, worst |card - cpu| "
+          f"{worst:.3f} of {TRAIN_GRAD_TOL:g} x max|g| "
+          f"{'ok' if ok else 'FAIL'} (card {1e3 * (t1 - t0):.0f} ms with "
+          f"its first call, CPU {1e3 * (t2 - t1):.0f} ms)")
+    if not ok:
+        raise AssertionError("the card's training step disagrees with the "
+                             "CPU's")
+
+
+def _restart_arc(full, tmp: str) -> None:
+    """RESTART_LAYERS of phi3 trained RESTART_STEPS steps with a
+    checkpoint every 2: a fresh Trainer resumes at step 2 and steps 3-4
+    give the uninterrupted run's losses; so does a run with a failure
+    injected at step 3.  Checkpoints are deleted afterwards."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.train import Trainer
+
+    cfg = full.replace(n_layers=RESTART_LAYERS)
+    ds = SyntheticTokenDataset(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+
+    def trainer(d):
+        tcfg = TrainConfig(warmup_steps=TRAIN_WARMUP,
+                           total_steps=RESTART_STEPS, checkpoint_every=2,
+                           log_every=1, checkpoint_dir=d)
+        return Trainer(cfg, tcfg, ds, device="cuda",
+                       clock=time.perf_counter)
+
+    def losses(log):
+        return {m["step"]: m["loss"] for m in log}
+
+    d = os.path.join(tmp, "a")
+    t0 = time.perf_counter()
+    tr = trainer(d)
+    tr.init_state()
+    ref = losses(tr.run())
+    t_run = time.perf_counter() - t0
+    ck = os.path.join(d, "step_00000002")
+    n_bytes = sum(os.path.getsize(os.path.join(ck, f))
+                  for f in os.listdir(ck))
+    del tr
+    shutil.rmtree(os.path.join(d, f"step_{RESTART_STEPS:08d}"))
+    t0 = time.perf_counter()
+    tr = trainer(d)
+    if not tr.resume_or_init() or tr.step != 2:
+        raise AssertionError("the restart did not resume at step 2")
+    resumed = losses(tr.run())
+    t_resume = time.perf_counter() - t0
+    del tr
+    shutil.rmtree(d)
+    t0 = time.perf_counter()
+    tr = trainer(os.path.join(tmp, "b"))
+    tr.init_state()
+    failed = losses(tr.run(fail_at={3}))
+    t_fail = time.perf_counter() - t0
+    del tr
+    shutil.rmtree(os.path.join(tmp, "b"))
+    worst = max(abs(got[s] - ref[s]) / abs(ref[s])
+                for got in (resumed, failed) for s in (3, 4))
+    ok = worst <= RESTART_RTOL and set(resumed) == {3, 4}
+    print(f"  restart arc ({cfg.n_layers} of {full.n_layers} layers, "
+          f"{RESTART_STEPS} steps, a checkpoint every 2 of "
+          f"{n_bytes / 1e9:.3f} GB, deleted after): losses "
+          f"{[round(ref[s], 6) for s in sorted(ref)]}; resumed at step 2 "
+          f"{[round(resumed[s], 6) for s in (3, 4)]}; failure at step 3 "
+          f"{[round(failed[s], 6) for s in (3, 4)]}; worst rel "
+          f"{worst:.2e} (tol {RESTART_RTOL:g}) {'ok' if ok else 'FAIL'} "
+          f"(run {t_run:.1f} s, resume {t_resume:.1f} s, with the failure "
+          f"{t_fail:.1f} s)")
+    if not ok:
+        raise AssertionError("the restart arc's losses differ")
+
+
+def phase_train(card: str, tmp: str) -> dict:
+    """phi3-mini at full width and depth in bf16, trained TRAIN_STEPS
+    steps on the card from random weights (``Trainer``, seed 0), then
+    its trained weights served through the kernels; the card against
+    the CPU at one step and a restart arc first and last."""
+    from repro_torch.configs import CimConfig, TrainConfig
+    from repro_torch.configs.phi3_mini_38b import CONFIG as PHI3
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.kernels import runtime
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import Trainer
+
+    cfg = PHI3
+    lap = _Laps("phi3-train")
+    _train_vs_cpu(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("card against CPU")
+
+    rk = _train_reckoning(cfg)
+    gb = lambda n: f"{n / 1e9:.2f} GB ({n / 2 ** 30:.2f} GiB)"
+    print(f"  {cfg.name} training: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+          f"{cfg.padded_vocab}), {rk['params'] / 1e9:.3f} B params, "
+          f"{cfg.dtype}, remat={cfg.remat}; no depth cut; B={TRAIN_B} x "
+          f"{TRAIN_S} tokens a step; reckoning: params, grads, f32 m, v "
+          f"and master {gb(rk['state'])}, plus AdamW's two f32 "
+          f"temporaries of the largest leaf ({rk['largest'] / 1e6:.1f} M "
+          f"elements) {gb(rk['temp'])} and the logits {gb(rk['logits'])}")
+    runtime.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
+                       log_every=1, checkpoint_every=10 ** 9,
+                       checkpoint_dir=os.path.join(tmp, "full"))
+    ds = SyntheticTokenDataset(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+    tr = Trainer(cfg, tcfg, ds, device="cuda", clock=time.perf_counter)
+    t0 = time.perf_counter()
+    tr.init_state()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    log = tr.run()
+    peak = torch.cuda.max_memory_allocated()
+    loss = [m["loss"] for m in log]
+    gnorm = [m["grad_norm"] for m in log]
+    dts = [m["dt"] for m in log]
+    if not all(math.isfinite(x) for x in loss + gnorm):
+        raise AssertionError(f"non-finite training metrics: {loss} {gnorm}")
+    if not loss[-1] < loss[0]:
+        raise AssertionError(f"the loss did not fall: {loss}")
+    step_ms = 1e3 * sum(dts[1:]) / len(dts[1:])
+    # The step's least time: its matmul operations (fwd 2, bwd 4 and the
+    # full remat's recompute 2 a weight a token) at the bf16 peak, plus
+    # the optimizer's bytes (bf16 params and grads read, params written;
+    # f32 m, v, master read and written) at the memory rate.
+    flop = 8 * (rk["params"] - cfg.padded_vocab * cfg.d_model) \
+        * TRAIN_B * TRAIN_S
+    opt_bytes = rk["params"] * (3 * 2 + 2 * 12)
+    bound_ms = 1e3 * (flop / PEAK_BF16 + opt_bytes / PEAK_BYTES)
+    print(f"phase train (phi3-train; {card}): init {t_init:.2f} s; "
+          f"{len(log)} steps, losses {[round(x, 4) for x in loss]}, grad "
+          f"norms {[round(x, 3) for x in gnorm]}, lr "
+          f"{[float(format(m['lr'], '.3g')) for m in log]}; step ms "
+          f"{[round(1e3 * x, 1) for x in dts]} (the first with its "
+          f"warm-up): {step_ms:.1f} ms a step after the first, "
+          f"{TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} tokens/s; bound "
+          f"{bound_ms:.1f} ms ({flop / 1e12:.1f} TFLOP at the bf16 peak + "
+          f"{opt_bytes / 1e9:.1f} GB of optimizer bytes); peak "
+          f"{peak / 2 ** 30:.2f} GiB against the reckoning "
+          f"{(rk['state'] + rk['temp'] + rk['logits']) / 2 ** 30:.2f} GiB; "
+          f"watchdog stragglers {tr.watchdog.stragglers}")
+    _train_busy(tr)
+    params = tr.params
+    del tr, log
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("train")
+
+    # The paper's post-training mapping on the weights the port trained.
+    scfg = cfg.replace(cim=CimConfig(enabled=True, mode="mdm"))
+    t0 = time.perf_counter()
+    eng = ServeEngine(scfg, params, max_seq=PROMPT + 3, plan_cache=False,
+                      device="cuda")
+    torch.cuda.synchronize()
+    t_deploy = time.perf_counter() - t0
+    prompts = _prompts(scfg, B, PROMPT)
+    tokens = eng.generate(prompts, 3)
+    torch.cuda.synchronize()
+    print(f"  trained weights served (mdm, bf16): deploy {t_deploy:.2f} s "
+          f"uncached, one prefill and 2 decode steps")
+    counts = _launches("phi3-train")
+    phase_compare(eng, prompts, tokens, "phi3-train", steps=2)
+    del eng, params, prompts, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("serve")
+    _restart_arc(cfg, tmp)
+    lap("restart arc")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4747,6 +5050,10 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
           f"{MOE_HEALTH_LAYERS} of 24 layers, alone on the card")
     by_path["qwen2-moe-health"] = phase_moe_health(records, built)
     lap("qwen2-moe-health")
+    print(f"config phi3-mini-3.8b trained: {PHI3.n_layers} layers at full "
+          f"width in {PHI3.dtype}, alone on the card")
+    by_path["phi3-train"] = phase_train(card, os.path.join(tmp, "train"))
+    lap("phi3-train")
     for r in records:
         name = r["name"]
         kernel = name.split("[")[0]

@@ -1,2 +1,8 @@
-"""Checkpoints of the port: the read side of the reference's format."""
-from repro_torch.checkpoint.ckpt import latest_step, load_checkpoint  # noqa: F401
+"""Checkpoints of the port, in the reference's format both ways."""
+from repro_torch.checkpoint.ckpt import (  # noqa: F401
+    CheckpointManager,
+    latest_step,
+    load_checkpoint,
+    restore_into,
+    save_checkpoint,
+)

@@ -7,6 +7,7 @@ import importlib
 from repro_torch.configs.base import (  # noqa: F401
     CimConfig,
     ModelConfig,
+    TrainConfig,
     check_supported,
 )
 

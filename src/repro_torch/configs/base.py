@@ -2,11 +2,12 @@
 
 The port's own copy of ``repro.configs.base``: the field names and
 defaults match the reference, so a reference config converts field by
-field.  Only the fields the port's serving paths read are kept: the
-``"attn"`` decoder (dense or MoE, with or without qkv bias, SwiGLU or
-GELU MLP, token or stub-frontend inputs), the mamba / hybrid blocks and
-the xLSTM stack; the sharding, remat and training knobs arrive with the
-slices that port those paths.
+field.  Only the fields the port's paths read are kept: the ``"attn"``
+decoder (dense or MoE, with or without qkv bias, SwiGLU or GELU MLP,
+token or stub-frontend inputs), the mamba / hybrid blocks and the xLSTM
+stack, the two knobs training reads (``remat``, ``loss_chunk``) and
+:class:`TrainConfig`; the reference's sharding and TPU-layout knobs are
+not ported.
 """
 from __future__ import annotations
 
@@ -81,6 +82,8 @@ class ModelConfig:
     ssm_chunk: int = 64          # mamba chunked-scan length
     mlstm_chunk: int = 128       # mLSTM chunkwise length
     dtype: str = "bfloat16"
+    remat: str = "full"          # full | dots | none (training only)
+    loss_chunk: int = 0          # 0 = unchunked cross-entropy
     cim: CimConfig = field(default_factory=CimConfig)
 
     @property
@@ -101,6 +104,27 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule, data-parallel and checkpoint settings of a
+    training run (the reference's fields and defaults)."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    microbatches: int = 1        # grad-accumulation factor
+    seed: int = 0
+    checkpoint_every: int = 200
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    async_checkpoint: bool = True
+    grad_compression: str = ""   # "" | "int8_ef" (cross-pod error-feedback)
+    log_every: int = 10
 
 
 # Block types the port serves with a SwiGLU MLP, and the xLSTM pattern.

@@ -22,7 +22,9 @@ lifetime draws (:func:`take_reference_draws`): JAX's ``fold_in`` streams
 cannot be reproduced in torch, so a parity test makes the port's
 lifetimes read the reference's logical cell fields instead of drawing
 their own.  So do Monte-Carlo cell samples
-(:func:`cell_sample_from_reference`).
+(:func:`cell_sample_from_reference`).  So does a trainer's optimizer
+state (:func:`opt_state_from_numpy`), so that both packages' trainers
+start from the same params and moments.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from repro_torch.device import resolve_device
 from repro_torch.health import DetectorConfig, HealthConfig
 from repro_torch.models.schema import ParamSpec, model_schema, param_dtype
 from repro_torch.nonideal.models import CellSample
+from repro_torch.optim.adamw import AdamWState
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
@@ -51,9 +54,13 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     reference (an ml_dtypes array, from ``np.asarray(jax_array)``)
     crosses as its uint16 bits, so no ``ml_dtypes`` import is needed.
     """
-    dev = resolve_device(device)
-    dtype = param_dtype(cfg)
+    return _schema_tree(tree, cfg, resolve_device(device), param_dtype(cfg))
 
+
+def _schema_tree(tree: Mapping, cfg: ModelConfig, dev: torch.device,
+                 dtype: torch.dtype) -> dict:
+    """``tree`` checked against the port's schema, leaf by leaf on
+    ``dev`` in ``dtype``."""
     def walk(spec, node, path):
         if isinstance(spec, ParamSpec):
             a = node if isinstance(node, torch.Tensor) else _tensor(node)
@@ -70,6 +77,22 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                 for k in spec}
 
     return walk(model_schema(cfg), tree, "")
+
+
+def opt_state_from_numpy(state, cfg: ModelConfig,
+                         device: str | torch.device = "cuda") -> AdamWState:
+    """The reference's ``AdamWState`` with numpy leaves (e.g.
+    ``jax.tree_util.tree_map(np.asarray, opt_state)``) as the port's on
+    ``device``: step int32, m, v, master and ef_error (or None) f32,
+    each tree checked against the schema as :func:`params_from_numpy`
+    checks params."""
+    dev = resolve_device(device)
+    tree = lambda t: None if t is None else _schema_tree(
+        t, cfg, dev, torch.float32)
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=dev)
+    return AdamWState(step, tree(state.m), tree(state.v), tree(state.master),
+                      tree(state.ef_error))
 
 
 def _tensor(a) -> torch.Tensor:

@@ -42,12 +42,27 @@ that carries read noise (each with its own tag).
 Unlike the reference's pure functions, the decode state is updated in
 place: the cache write of each step and each new recurrent state goes
 into the state's tensors, so a step never copies the whole state.
+
+Training (:func:`train_loss`) runs the same forward digitally, as the
+reference's does: no deployment, :data:`PLAIN` ops (the plain attention
+and sLSTM scan, differentiable under autograd), each pattern repeat
+recomputed in the backward under ``cfg.remat`` (the reference's
+``jax.checkpoint`` around its scan body), and the MoE's aux loss summed
+over the layers.  Each stacked parameter is split into its per-layer
+views once a forward (``unbind``), so the backward stacks a leaf's
+gradient in one pass instead of materialising the whole stacked leaf
+for every layer's ``select``.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.kernels.cim_mvm.ops import cim_mvm, cim_mvm_grouped
@@ -237,12 +252,13 @@ def _mamba(p: dict, h: torch.Tensor, cfg: ModelConfig, state: dict | None,
 def block_apply(bt: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, state: dict | None, decode: bool,
                 cim: dict | None = None, ops: Ops = KERNELS,
-                read_seed: int | None = None) -> torch.Tensor:
+                read_seed: int | None = None):
     """One block of type ``bt``: pre-norm mixer, then (``"attn"`` and
-    ``"hybrid"``) the pre-norm FFN: the MoE with ``cfg.n_experts`` (its
-    aux loss dropped: serving ignores it), else the dense MLP.
-    ``state`` is the block's slice of the decode state, advanced in
-    place."""
+    ``"hybrid"``) the pre-norm FFN: the MoE with ``cfg.n_experts``, else
+    the dense MLP.  ``state`` is the block's slice of the decode state,
+    advanced in place.  Returns (x, aux): the MoE's load-balancing loss
+    (f32 scalar), 0.0 for a block without one."""
+    aux = 0.0
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     if bt == "attn":
         y = attn_apply(p, h, cfg, positions, state, cim=cim, ops=ops,
@@ -274,11 +290,37 @@ def block_apply(bt: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
     if bt in ("attn", "hybrid") and cfg.mlp_type != "none":
         hf = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
         if cfg.n_experts:
-            x = x + moe_ffn(p, hf, cfg, ops.grouped, cim=cim,
-                            read_seed=read_seed)[0]
+            yf, aux = moe_ffn(p, hf, cfg, ops.grouped, cim=cim,
+                              read_seed=read_seed)
+            x = x + yf
         else:
             x = x + dense_mlp(p, hf, cim=cim, ops=ops, read_seed=read_seed)
-    return x
+    return x, aux
+
+
+# Matmul outputs, the tensors ``remat="dots"`` keeps for the backward
+# (the reference's ``checkpoint_dots`` policy saves every dot_general).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, remat: str) -> Callable:
+    """``fn`` recomputed in the backward: everything (``"full"``), all
+    but its matmul outputs (``"dots"``), or nothing (``"none"``)."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if remat == "dots":
+        ctx = lambda: create_selective_checkpoint_contexts(_save_dots)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=ctx)
+    raise ValueError(f"remat={remat!r} not in ('full', 'dots', 'none')")
 
 
 def apply_model(params: dict, cfg: ModelConfig,
@@ -286,7 +328,7 @@ def apply_model(params: dict, cfg: ModelConfig,
                 embeds: torch.Tensor | None = None,
                 state: ModelState | None = None, decode: bool = False,
                 cim: dict | None = None, ops: Ops = KERNELS,
-                read_seed: int | None = None):
+                read_seed: int | None = None, return_hidden: bool = False):
     """tokens (B, S), or embeds (B, S, D) in place of the token lookup
     (cast to ``cfg.dtype``; exactly one of the two) -> (logits (B, S, V)
     f32, new_state).
@@ -298,6 +340,12 @@ def apply_model(params: dict, cfg: ModelConfig,
     ``decode`` selects the one-step mamba and mLSTM forms (one token after a
     prefill), as the reference's ``decode`` flag does.  ``read_seed``
     is this forward's crossbar read (None: noiseless).
+
+    ``return_hidden`` returns (hidden (B, S, D) after the final norm,
+    new_state, aux) instead: ``aux`` is the MoE's aux loss summed over
+    the layers (0.0 without experts).  A stateless forward with autograd
+    on recomputes each pattern repeat in the backward as ``cfg.remat``
+    says (the reference's training forward).
     """
     check_supported(cfg)
     if (tokens is None) == (embeds is None):
@@ -315,18 +363,33 @@ def apply_model(params: dict, cfg: ModelConfig,
         positions = torch.arange(pos0, pos0 + S, dtype=torch.int32,
                                  device=x.device)
     slots = [f"slot{i}_{bt}" for i, bt in enumerate(cfg.block_pattern)]
-    for r in range(cfg.pattern_repeats):
+    layers = {slot: {k: v.unbind(0) for k, v in params[slot].items()}
+              for slot in slots}
+
+    def repeat(x: torch.Tensor, r: int):
+        aux = 0.0
         for bt, slot in zip(cfg.block_pattern, slots):
-            p = {k: v[r] for k, v in params[slot].items()}
+            p = {k: v[r] for k, v in layers[slot].items()}
             ci = None if cim is None else {
                 k: d.layer(r) for k, d in cim.get(slot, {}).items()}
             st = (None if state is None
                   else {k: v[r] for k, v in state[slot].items()})
-            x = block_apply(bt, p, x, cfg, positions, st, decode, cim=ci,
-                            ops=ops, read_seed=read_seed)
+            x, a = block_apply(bt, p, x, cfg, positions, st, decode, cim=ci,
+                               ops=ops, read_seed=read_seed)
+            aux = aux + a
+        return x, aux
+
+    if state is None and torch.is_grad_enabled():
+        repeat = _remat(repeat, cfg.remat)
+    aux = 0.0
+    for r in range(cfg.pattern_repeats):
+        x, a = repeat(x, r)
+        aux = aux + a
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     new_state = None if state is None else dict(state, pos=pos0 + S)
+    if return_hidden:
+        return x, new_state, aux
     return lm_logits(params, cfg, x), new_state
 
 
@@ -396,3 +459,59 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``schema``)."""
     return sch.materialize(cfg, generator, device)
 
+
+
+# -------------------------------- loss -----------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean CE; labels < 0 are masked."""
+    ce, n = _ce_sum(logits, labels)
+    return ce / torch.clamp(n, min=1)
+
+
+def _ce_sum(logits: torch.Tensor, labels: torch.Tensor):
+    """(sum of the valid tokens' CE, their count)."""
+    valid = labels >= 0
+    safe = torch.clamp(labels, min=0).to(torch.int64)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def train_loss(params: dict, cfg: ModelConfig, batch: dict,
+               cim: dict | None = None):
+    """batch: {"tokens": (B, S+1)} or {"embeds": (B, S, D), "labels":
+    (B, S)} -> (loss, {"ce", "aux"}), f32 scalars; loss = ce + 0.01 aux.
+
+    Digital, as the reference's: the plain ops (:data:`PLAIN`) and no
+    deployment (``cim`` is refused).  With ``cfg.loss_chunk`` dividing
+    S, the logits and CE go ``loss_chunk`` positions at a time, each
+    chunk recomputed in the backward (the reference's checkpointed
+    ``chunk_ce``), so the (B, S, V) logits never exist whole."""
+    if cim is not None:
+        raise ValueError("train_loss trains digitally, as the reference's: "
+                         "it takes no cim deployment")
+    if "embeds" in batch:
+        hidden, _, aux = apply_model(params, cfg, embeds=batch["embeds"],
+                                     ops=PLAIN, return_hidden=True)
+        labels = batch["labels"]
+    else:
+        toks = batch["tokens"]
+        hidden, _, aux = apply_model(params, cfg, toks[:, :-1], ops=PLAIN,
+                                     return_hidden=True)
+        labels = toks[:, 1:]
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=hidden.device)
+
+    S = hidden.shape[1]
+    if cfg.loss_chunk and S % cfg.loss_chunk == 0:
+        chunk_ce = lambda h, l: _ce_sum(lm_logits(params, cfg, h), l)
+        tot, cnt = 0.0, 0
+        for c0 in range(0, S, cfg.loss_chunk):
+            sl = slice(c0, c0 + cfg.loss_chunk)
+            s, n = checkpoint(chunk_ce, hidden[:, sl], labels[:, sl],
+                              use_reentrant=False)
+            tot, cnt = tot + s, cnt + n
+        ce = tot / torch.clamp(cnt, min=1)
+    else:
+        ce = cross_entropy(lm_logits(params, cfg, hidden), labels)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}

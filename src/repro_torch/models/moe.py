@@ -9,7 +9,8 @@ its residual path); the routed SwiGLU experts run on the kept rows and
 each token sums its K weighted outputs; fused shared experts with a
 sigmoid gate add to every token.  Routing, gating and the shared
 experts stay digital, as in the reference.  The load-balancing aux loss
-(Switch form) is returned; serving ignores it.
+(Switch form) is returned: training adds it to the loss (through
+``models/model.py::block_apply``), serving ignores it.
 
 The reference builds a zero-padded (E, cap + 1, D) buffer and runs
 ``jax.vmap(cim_mvm)`` over the expert axis.  With deployed expert banks
