@@ -10,7 +10,7 @@ folded forms (gain, column permutation, in-kernel read noise, bf16 x)
 and the bf16 forms of flash_attention (its decode form also over a
 LONG_C-slot cache, split across a cluster) and slstm_scan's bf16 forms
 (its scan and decode forms beside the general form) included, and
-the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives eighteen paths
+the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives twenty-one paths
 through the entry points a user calls, each with the launch counts set
 to 0 just before it and read just after (a check's own launches inside
 a path left out):
@@ -20,6 +20,12 @@ a path left out):
    package every projection on the card, through a plan cache) and
    greedy generation for a batch of prompts (cim_mvm, flash_attention,
    manhattan_score);
+1a. phi3-telemetry: the same engine serving the same batch with
+   telemetry off and on (``repro_torch.telemetry``, a span sink open):
+   tokens bit for bit, decode ms a step side by side, the span table;
+   then a telemetry-on cold deploy of its first TELEMETRY_DEPLOY_LAYERS
+   layers through a fresh plan cache, its ``deploy/*`` self-times and
+   cache counters (cim_mvm, flash_attention, manhattan_score);
 2. phi3-continuous: the first CONT_LAYERS layers of the same weights
    through ``ContinuousEngine`` (capacity 8, a cold deploy through a
    fresh plan cache), held against a ServeEngine of that depth, 16 requests
@@ -58,6 +64,11 @@ a path left out):
    (``distributed/solver_shard.py``) over ``tile_mesh()`` and over two
    shards of one card, and the ensemble over a tile mesh (line_solve,
    the line preconditioner's chain solve; manhattan_score);
+6a. phi3-launch: ``python -m repro_torch.launch.serve``'s ``main`` on
+   phi3-mini at its CONFIG (full width and depth, bf16, digital) with
+   ``--trace``: coverage >= 0.95, one request of B x NEW tokens counted,
+   its tokens equal to a telemetry-off ``ServeEngine`` on the same
+   params, its span table (flash_attention in bf16);
 7. xlstm-1.3b serving at its config dtype (bf16): random full-width
    weights (seed 0, all 48 layers), deploy (the reference deploys the
    mLSTM q/k/v) and greedy generation (slstm_scan's scan form at the
@@ -113,6 +124,10 @@ a path left out):
    gradient), a restart arc at 1 layer (resume, injected failure), and
    the trained weights deployed and served through ``ServeEngine``
    (cim_mvm, flash_attention in bf16, manhattan_score).
+19. phi3-train-launch: ``python -m repro_torch.launch.train``'s ``main``
+   on SMOKE phi3-mini, 4 steps on the card at the launcher's log
+   cadence (the last step logged): a finite loss, dt > 0 (no kernel:
+   training is digital).
 
 For each serving path it checks plans built on the card against the
 port's CPU mirror, the kernel path's logits and tokens against the
@@ -154,6 +169,7 @@ of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -291,20 +307,26 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                                      "cim_fold", "cim_mvm_batched",
                                      "flash_attention", "manhattan_score"),
                 "phi3-train": ("cim_mvm", "flash_attention",
-                               "manhattan_score")}
+                               "manhattan_score"),
+                "phi3-telemetry": ("cim_mvm", "flash_attention",
+                                   "manhattan_score"),
+                "phi3-launch": ("flash_attention",),
+                "phi3-train-launch": ()}
 # The paths each kernel record's form runs on (its launches are its
 # kernel's launches there).
 RECORD_PATHS = {
     "cim_mvm": ("phi3", "phi3-continuous", "qwen2-moe", "hymba", "deepseek",
-                "internvl2", "musicgen", "mixtral", "phi3-train"),
+                "internvl2", "musicgen", "mixtral", "phi3-train",
+                "phi3-telemetry"),
     "cim_mvm[bf16 x, deepseek]": ("deepseek",),
     "cim_mvm[bf16 x, internvl2]": ("internvl2",),
     "cim_mvm[bf16 x, musicgen]": ("musicgen",),
-    "flash_attention": ("phi3", "phi3-continuous"),
+    "flash_attention": ("phi3", "phi3-continuous", "phi3-telemetry"),
     "manhattan_score": tuple(PATH_KERNELS),
     "slstm_scan": (),                 # the xlstm path now serves bf16
     "bitslice_pack": ("export",),
-    "flash_attention[bf16]": ("phi3-nonideal", "phi3-health", "phi3-train"),
+    "flash_attention[bf16]": ("phi3-nonideal", "phi3-health", "phi3-train",
+                              "phi3-launch"),
     "cim_fold": ("phi3-nonideal", "phi3-health", "qwen2-moe-nonideal",
                  "qwen2-moe-health", "hymba-nonideal", "hymba-health"),
     "cim_mvm_batched": ("phi3-health", "qwen2-moe-health", "hymba-health"),
@@ -4735,8 +4757,7 @@ def _restart_arc(full, tmp: str) -> None:
         tcfg = TrainConfig(warmup_steps=TRAIN_WARMUP,
                            total_steps=RESTART_STEPS, checkpoint_every=2,
                            log_every=1, checkpoint_dir=d)
-        return Trainer(cfg, tcfg, ds, device="cuda",
-                       clock=time.perf_counter)
+        return Trainer(cfg, tcfg, ds, device="cuda")
 
     def losses(log):
         return {m["step"]: m["loss"] for m in log}
@@ -4818,7 +4839,7 @@ def phase_train(card: str, tmp: str) -> dict:
                        log_every=1, checkpoint_every=10 ** 9,
                        checkpoint_dir=os.path.join(tmp, "full"))
     ds = SyntheticTokenDataset(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
-    tr = Trainer(cfg, tcfg, ds, device="cuda", clock=time.perf_counter)
+    tr = Trainer(cfg, tcfg, ds, device="cuda")
     t0 = time.perf_counter()
     tr.init_state()
     torch.cuda.synchronize()
@@ -4883,6 +4904,236 @@ def phase_train(card: str, tmp: str) -> dict:
     return counts
 
 
+# The telemetry-on deploy's depth on the phi3-telemetry path (a cut for
+# the run's time limit: a cold cached deploy of 16 layers took 7.60-10.65
+# s on an H100 80GB HBM3 at 700 W).
+TELEMETRY_DEPLOY_LAYERS = CONT_LAYERS
+
+
+def _trace_stats(path: str) -> tuple[dict, float, float, str]:
+    """(per-phase stats, root wall s, coverage, table) of a trace file,
+    through the port's report."""
+    from repro_torch.telemetry.report import (
+        aggregate,
+        coverage,
+        format_table,
+        load_spans,
+    )
+
+    spans = load_spans(path)
+    stats, wall = aggregate(spans)
+    return stats, wall, coverage(spans), format_table(stats, wall)
+
+
+def _metric_values(name: str) -> dict:
+    """A metric of the port's registry: label values -> value (a
+    histogram's: (count, sum))."""
+    from repro_torch import telemetry as tm
+
+    entry = tm.registry().snapshot()[name]
+    out = {}
+    for v in entry["values"]:
+        key = tuple(v["labels"].values())
+        out[key] = (v["count"], v["sum"]) if entry["kind"] == "histogram" \
+            else v["value"]
+    return out
+
+
+@contextlib.contextmanager
+def _traced(path: str):
+    """Telemetry on and a sink at ``path`` for the block, the port's
+    registry zeroed first; off and closed after."""
+    from repro_torch import telemetry as tm
+
+    tm.registry().reset()
+    tm.enable()
+    tm.trace_to(path)
+    try:
+        yield
+    finally:
+        tm.trace_stop()
+        tm.disable()
+
+
+def phase_telemetry(eng, prompts, tokens, tmp: str) -> dict:
+    """phi3-telemetry: the phi3 path's f32 mdm engine serving the same
+    batch with telemetry off and on (a span sink open), tokens bit for
+    bit and decode ms a step side by side; then a telemetry-on cold
+    deploy of its first TELEMETRY_DEPLOY_LAYERS layers through a fresh
+    plan cache, its ``deploy/*`` self-times and cache counters."""
+    from repro_torch.deploy import PlanCache, deploy_model_params
+    from repro_torch.kernels import runtime
+
+    runtime.reset_launch_counts()
+    os.makedirs(tmp, exist_ok=True)
+    path = os.path.join(tmp, "serve.jsonl")
+    runs = []
+    # Off, on, on, off: host times drift within a call, so each side is
+    # read twice around the other.  Both sides are timed alike: the host
+    # clock around a 1-token and a NEW-token generate, each ended by one
+    # sync, the decode step the difference over NEW - 1; telemetry on
+    # adds its own syncs (one a step) inside that span.
+    for on in (False, True, True, False):
+        traced = (lambda: _traced(path)) if on else contextlib.nullcontext
+        torch.cuda.synchronize()
+        with traced():
+            t0 = time.perf_counter()
+            eng.generate(prompts, 1)
+            torch.cuda.synchronize()
+            pre = time.perf_counter() - t0
+        with traced():
+            t0 = time.perf_counter()
+            out = eng.generate(prompts, NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        hist = None
+        if on:
+            n_dec, s_dec = _metric_values("repro_serve_decode_step_seconds")[()]
+            n_pre, _ = _metric_values("repro_serve_prefill_seconds")[()]
+            if (n_dec, n_pre) != (NEW - 1, 1) or _metric_values(
+                    "repro_serve_tokens_total")[()] != B * NEW:
+                raise AssertionError("phi3-telemetry: wrong serve counts")
+            hist = s_dec / n_dec
+        if not torch.equal(out, tokens):
+            raise AssertionError("phi3-telemetry: tokens moved with "
+                                 "telemetry on (or between two off calls)")
+        runs.append((on, (wall - pre) / (NEW - 1), pre, wall, hist))
+    stats, wall, cov, table = _trace_stats(path)
+    fmt = lambda on: ", ".join(
+        f"{1e3 * st:.3f} ms a step (prefill {1e3 * pr:.2f} ms, generate "
+        f"{w:.4f} s)" for o, st, pr, w, _ in runs if o == on)
+    step = lambda on: sum(r[1] for r in runs if r[0] == on) / 2
+    print(f"phase telemetry (phi3-telemetry): B={B} prompt {PROMPT} new "
+          f"{NEW}, f32 mdm, run off, on, on, off; tokens bit-identical in "
+          f"all four; decode (host clock, both sides alike) off "
+          f"{fmt(False)}; on {fmt(True)}; on less off "
+          f"{1e3 * (step(True) - step(False)):.3f} ms a step (the means of "
+          f"two); the decode-step histogram's mean with telemetry on "
+          f"{', '.join(f'{1e3 * r[4]:.3f}' for r in runs if r[0])} ms; "
+          f"the last on run's trace coverage {cov:.4f}")
+    print(table)
+    if cov < 0.95:
+        raise AssertionError(f"phi3-telemetry: coverage {cov}")
+
+    n = TELEMETRY_DEPLOY_LAYERS
+    cfg = eng.cfg.replace(n_layers=n)
+    params = _cut_params(eng.params, n)
+    path = os.path.join(tmp, "deploy.jsonl")
+    with _traced(path):
+        cim, rep = deploy_model_params(
+            params, cfg, cache=PlanCache(os.path.join(tmp, "plans")),
+            device="cuda")
+    del cim, params
+    stats, wall, cov, table = _trace_stats(path)
+    counters = {m: _metric_values(m) for m in (
+        "repro_plan_cache_probes_total",
+        "repro_plan_cache_manifest_probes_total",
+        "repro_plan_cache_puts_total", "repro_plan_cache_read_bytes_total",
+        "repro_deploy_matrices_total", "repro_plan_tiles_total")}
+    selfs = {k: round(v["self"], 4) for k, v in sorted(stats.items())}
+    print(f"  telemetry-on cold deploy ({n} of {eng.cfg.n_layers} layers "
+          f"through a fresh plan cache): {wall:.2f} s; deploy/* self "
+          f"seconds {selfs}; counters {counters}")
+    print(table)
+    n_mat = rep["n_matrices"]
+    if counters["repro_plan_cache_puts_total"][()] != n_mat or \
+            counters["repro_plan_cache_probes_total"].get(("miss",)) != \
+            n_mat or counters["repro_plan_tiles_total"][()] != \
+            rep["tiles_planned"] or cov < 0.95:
+        raise AssertionError("phi3-telemetry: deploy counters or coverage")
+    shutil.rmtree(tmp)
+    return _launches("phi3-telemetry")
+
+
+def phase_launch(tmp: str) -> dict:
+    """phi3-launch: ``python -m repro_torch.launch.serve``'s ``main`` on
+    phi3-mini at its CONFIG (full width and depth, bf16, digital) with
+    ``--trace``; coverage >= 0.95, one request of B x NEW tokens counted,
+    and its tokens equal a telemetry-off ``ServeEngine.generate`` on the
+    same params."""
+    from repro_torch import telemetry as tm
+    from repro_torch.configs.phi3_mini_38b import CONFIG as PHI3
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServeEngine
+
+    os.makedirs(tmp, exist_ok=True)
+    path = os.path.join(tmp, "launch.jsonl")
+    tm.registry().reset()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = lserve.main(["--arch", "phi3-mini-3.8b", "--batch", str(B),
+                       "--prompt-len", str(PROMPT), "--gen", str(NEW),
+                       "--device", "cuda", "--trace", path])
+    t_launch = time.perf_counter() - t0
+    counts = _launches("phi3-launch")
+    req = _metric_values("repro_serve_requests_total")[()]
+    toks = _metric_values("repro_serve_tokens_total")[()]
+    n_dec, s_dec = _metric_values("repro_serve_decode_step_seconds")[()]
+    stats, wall, cov, _ = _trace_stats(path)
+    print(f"phase launch (phi3-launch): {PHI3.name} {PHI3.n_layers} layers "
+          f"{PHI3.dtype}, cim {PHI3.cim.enabled}; launcher {t_launch:.2f} s "
+          f"(params, engine, generate), requests {req:g}, tokens {toks:g}, "
+          f"decode ms a step {1e3 * s_dec / n_dec:.3f} (synced), coverage "
+          f"{cov:.4f}")
+    if req != 1 or toks != B * NEW or cov < 0.95:
+        raise AssertionError(f"phi3-launch: requests {req}, tokens {toks}, "
+                             f"coverage {cov}")
+    params = init_params(PHI3, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    eng = ServeEngine(PHI3, params, max_seq=PROMPT + NEW + 1, device="cuda")
+    prompts = torch.from_numpy(SyntheticTokenDataset(
+        PHI3.vocab_size, PROMPT, B).batch_at(0)[:, :PROMPT])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = eng.generate(prompts, NEW).cpu()
+    t_gen = time.perf_counter() - t0
+    if not torch.equal(got, want):
+        raise AssertionError("phi3-launch: the launcher's tokens differ "
+                             "from a telemetry-off ServeEngine's")
+    print(f"  launcher tokens equal a telemetry-off ServeEngine.generate on "
+          f"the same params ({t_gen:.4f} s, the second call of the run)")
+    phase_profile(eng, prompts, 1e3 * s_dec / n_dec)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    return counts
+
+
+def phase_train_launch(tmp: str) -> dict:
+    """phi3-train-launch: ``python -m repro_torch.launch.train``'s
+    ``main`` on SMOKE phi3-mini, 4 steps on the card at the launcher's
+    log cadence (``TrainConfig.log_every``, so the last step): a finite
+    loss, dt > 0, the metrics file equal to the log."""
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import train as ltrain
+
+    runtime.reset_launch_counts()
+    out = os.path.join(tmp, "metrics.json")
+    os.makedirs(tmp, exist_ok=True)
+    t0 = time.perf_counter()
+    log = ltrain.main(["--arch", "phi3-mini-3.8b", "--smoke", "--steps",
+                       "4", "--device", "cuda",
+                       "--ckpt-dir", os.path.join(tmp, "ckpt"),
+                       "--metrics-out", out])
+    t_run = time.perf_counter() - t0
+    counts = _launches("phi3-train-launch")
+    with open(out) as f:
+        written = json.load(f)
+    print(f"phase train launch (phi3-train-launch): {t_run:.2f} s; steps "
+          f"{[m['step'] for m in log]}, losses "
+          f"{[round(m['loss'], 4) for m in log]}, dt ms "
+          f"{[round(1e3 * m['dt'], 2) for m in log]}")
+    if [m["step"] for m in log] != [4] or written != log or not \
+            all(math.isfinite(m["loss"]) and m["dt"] > 0 for m in log):
+        raise AssertionError(f"phi3-train-launch: bad log {log}")
+    shutil.rmtree(tmp)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4942,6 +5193,9 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
         "phi3", cfg, os.path.join(tmp, "phi3"))
     by_path["phi3"] = counts
     lap("phi3")
+    by_path["phi3-telemetry"] = phase_telemetry(
+        eng, prompts, tokens, os.path.join(tmp, "phi3-telemetry"))
+    lap("phi3-telemetry")
     # phi3-continuous at CONT_LAYERS layers, held against a ServeEngine of
     # the same depth (deployed uncached, as its cold deploy's yardstick).
     cont_cfg = cfg.replace(n_layers=CONT_LAYERS)
@@ -4979,6 +5233,8 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
     records.append(rec)
     del w_gate
     lap("phi3-circuit")
+    by_path["phi3-launch"] = phase_launch(os.path.join(tmp, "launch"))
+    lap("phi3-launch")
 
     cfg = PHI3.replace(cim=cim)
     print(f"config {cfg.name} ({cfg.dtype}, its CONFIG dtype): imperfect "
@@ -5054,6 +5310,9 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
           f"width in {PHI3.dtype}, alone on the card")
     by_path["phi3-train"] = phase_train(card, os.path.join(tmp, "train"))
     lap("phi3-train")
+    by_path["phi3-train-launch"] = phase_train_launch(
+        os.path.join(tmp, "train-launch"))
+    lap("phi3-train-launch")
     for r in records:
         name = r["name"]
         kernel = name.split("[")[0]

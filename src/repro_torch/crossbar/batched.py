@@ -27,9 +27,10 @@ whole (T, 2, J, K) stack of tiles.
 
 The ``*_checked`` entry points add the convergence watchdog: a NaN-aware
 per-tile check and a bounded escalation ladder for failed tiles.  They
-return the :class:`SolverReport` and record no metrics (the port has no
-telemetry yet).  Entry points take ``device`` (default the card);
-tensor inputs must lie there.
+return the :class:`SolverReport`, and only they record it in the
+solver counters (:func:`record_solver_report`, the reference's names),
+so an escalated rerun is not counted twice.  Entry points take
+``device`` (default the card); tensor inputs must lie there.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import telemetry as tm
 from repro_torch.core.tiling import CrossbarSpec
 from repro_torch.crossbar.solver import (
     F64 as _F64,
@@ -134,6 +136,35 @@ class SolverReport(NamedTuple):
     @property
     def all_converged(self) -> bool:
         return bool(self.converged.all())
+
+
+_C_SOLVES = tm.counter(
+    "repro_solver_solves_total",
+    "Checked batched circuit solves (one per *_checked call).")
+_C_SOLVE_ITERS = tm.counter(
+    "repro_solver_iterations_total",
+    "Shared PCG iterations across all solve stages.")
+_C_SOLVE_ESC = tm.counter(
+    "repro_solver_escalations_total",
+    "Watchdog escalation rungs actually run.")
+_C_SOLVE_FAILED = tm.counter(
+    "repro_solver_failed_tiles_total",
+    "Tiles still unconverged after the full escalation ladder.")
+
+
+def record_solver_report(report: SolverReport) -> None:
+    """Fold one watchdog verdict into the solver counters.
+
+    Called only by the ``*_checked`` front doors (here and in
+    :mod:`repro_torch.distributed.solver_shard`), never by the inner
+    stages, so escalated reruns are not counted twice.  The ``int()``
+    coercions run only while telemetry is on."""
+    if not tm.enabled():
+        return
+    _C_SOLVES.inc()
+    _C_SOLVE_ITERS.inc(int(report.iterations))
+    _C_SOLVE_ESC.inc(int(report.escalations))
+    _C_SOLVE_FAILED.inc(int(report.n_failed))
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -471,6 +502,7 @@ def measured_nf_conductances_checked(g, spec: CrossbarSpec, g_ref=None,
     else:
         conv = tile_converged(res, tol)
         report = SolverReport(conv, res.iterations, 0, int((~conv).sum()))
+    record_solver_report(report)
     lead = g.shape[:-2]
     return (_unflatten(res, lead),
             report._replace(converged=report.converged.reshape(lead)))

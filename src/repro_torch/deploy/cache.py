@@ -40,11 +40,28 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch import telemetry as tm
 from repro_torch.core.mdm import MdmPlan
 from repro_torch.core.tiling import CrossbarSpec
 
 # The reference's format version; entries of another version miss.
 PLAN_CACHE_VERSION = 1
+
+# The cache's traffic on the port's registry (the reference's four
+# counters, by name); no-ops while telemetry is off.
+_M_PROBES = tm.counter(
+    "repro_plan_cache_probes_total",
+    "Plan-cache entry probes by result (hit/miss).", labels=("result",))
+_M_MANIFEST_PROBES = tm.counter(
+    "repro_plan_cache_manifest_probes_total",
+    "Whole-checkpoint manifest probes by result (hit/miss).",
+    labels=("result",))
+_M_PUTS = tm.counter(
+    "repro_plan_cache_puts_total", "Plan entries written.")
+_M_READ_BYTES = tm.counter(
+    "repro_plan_cache_read_bytes_total",
+    "Bytes read by plan-cache hits (entries and manifests).")
+
 _HEADER = 17
 
 
@@ -204,11 +221,15 @@ class PlanCache:
     def get(self, key: str) -> MdmPlan | None:
         try:
             with open(self._path(key), "rb") as f:
-                plan = decode_plan(f.read())
+                buf = f.read()
+            plan = decode_plan(buf)
         except (ValueError, OSError):
             self._count("misses")
+            _M_PROBES.labels(result="miss").inc()
             return None
         self._count("hits")
+        _M_PROBES.labels(result="hit").inc()
+        _M_READ_BYTES.inc(len(buf))
         return plan
 
     def put(self, key: str, plan: MdmPlan | bytes) -> None:
@@ -216,6 +237,7 @@ class PlanCache:
         blob = plan if isinstance(plan, bytes) else encode_plan(plan)
         if self._atomic_write(self._path(key), blob):
             self._count("puts")
+            _M_PUTS.inc()
 
     def _atomic_write(self, path: str, payload: bytes) -> bool:
         try:
@@ -260,8 +282,11 @@ class PlanCache:
                      for name, _, off, length in entries}
         except (ValueError, KeyError, TypeError, OSError):
             self._count("manifest_misses")
+            _M_MANIFEST_PROBES.labels(result="miss").inc()
             return None
         self._count("manifest_hits")
+        _M_MANIFEST_PROBES.labels(result="hit").inc()
+        _M_READ_BYTES.inc(len(buf))
         return plans
 
     def put_manifest(self, keys, plans) -> None:

@@ -26,16 +26,23 @@ served matrix's W'(col_pos) * gain once (``CimDeployment.folded``, the
 fold kernel on the card), which its reads take instead of the codes.
 With ``lifetime`` it captures what serving-time aging and self-healing
 need (:mod:`repro_torch.deploy.lifetime`), as the reference does.
+
+Telemetry (``repro_torch.telemetry``, the reference's names): a deploy
+observes ``repro_deploy_seconds``, counts its matrices in
+``repro_deploy_matrices_total{status}`` (deployed, skipped, degraded)
+and opens the spans ``deploy/collect``, ``deploy/plan`` and
+``deploy/package``, the card synchronised before the last closes while
+telemetry is on.
 """
 from __future__ import annotations
 
 import contextlib
-import time
 from collections.abc import Mapping
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import telemetry as tm
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.core.bitslice import quantize_magnitude
 from repro_torch.core.mdm import MdmPlan
@@ -65,6 +72,13 @@ _OUT_NAMES = ("wo", "attn_wo")
 _MLP_NAMES = ("ffn_w_gate", "ffn_w_up", "ffn_w_down")
 DEPLOYABLE = _QKV_NAMES + _OUT_NAMES + _MLP_NAMES
 MOE_EXPERT_NAMES = ("ffn_we_gate", "ffn_we_up", "ffn_we_down")
+
+_H_DEPLOY = tm.histogram(
+    "repro_deploy_seconds",
+    "End-to-end deploy_model_params wall time (collect+plan+package).")
+_C_DEPLOY = tm.counter(
+    "repro_deploy_matrices_total",
+    "Model matrices per deployment outcome.", labels=("status",))
 
 
 def _as_matrix(name: str, w: torch.Tensor) -> torch.Tensor:
@@ -163,7 +177,7 @@ class StageClock:
         """The host clock once the device has drained its queue."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return time.perf_counter()  # reprolint: disable=RPL006 -- the port imports nothing of repro, whose telemetry owns the clocks
+        return tm.monotonic()
 
     @contextlib.contextmanager
     def __call__(self, stage: str):
@@ -361,11 +375,13 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
     at the model's ``drift_time``.  Every captured
     deployment carries a gain and ``degraded`` and is folded.
     """
+    t0 = tm.monotonic()
     dev = resolve_device(device)
     check_supported(cfg)
     spec = spec_from_config(cfg)
     mode = pipeline if pipeline is not None else cfg.cim.mode
-    mats, summary = collect_model_matrices(params, cfg, mode)
+    with tm.span("deploy/collect"):
+        mats, summary = collect_model_matrices(params, cfg, mode)
     check_on(dev, **{name.replace("/", "_"): w for name, w in mats.items()})
     clock = StageClock(dev) if timed else _untimed
 
@@ -397,65 +413,73 @@ def deploy_model_params(params: dict, cfg: ModelConfig,
         if isinstance(pipe.rows, MdmRows):
             pipe = pipe.replace(rows=FaultAwareRows())
         mode = pipe
-    with clock("plan"):
+    with tm.span("deploy/plan", matrices=len(mats)), clock("plan"):
         plans, report = plan_matrices(mats, spec, mode, cache, fault_maps,
                                       lazy=cache is None)
 
-    nf_before = torch.zeros((), dtype=torch.float64, device=dev)
-    nf_after = torch.zeros((), dtype=torch.float64, device=dev)
-    tiles = stuck_cells = 0
-    degraded: dict[str, int] = {}
-    cim_tree: dict = {}
-    for t, name in enumerate(mats):
-        slot, pname, idx = bank_index(name)
-        with clock("plan"):
-            plan = plans.pop(name)
-        c = None if cells_of is None else cells_of(name)
-        if c is not None and c.stuck is not None:
-            stuck_cells += int((c.stuck != 0).sum())
-        stats: dict = {}
-        col_position = (None if plan.col_position is None
-                        else plan.col_position.to(dev))
-        with clock("package"):
-            dep = package_deployment_host(
-                mats[name], spec, mode, cfg.cim.eta,
-                plan._replace(row_position=plan.row_position.to(dev),
-                              col_position=col_position),
-                cells=c, nonideal=nonideal, noise_tag=t, stats=stats,
-                clock=clock, capture=capture)
-        if stats.get("open_bits"):
-            degraded[name] = stats["open_bits"]
-        nf_before += plan.nf_before.sum(dtype=torch.float64).to(dev)
-        nf_after += plan.nf_after.sum(dtype=torch.float64).to(dev)
-        tiles += plan.nf_before.numel()
-        del plan, c
-        slot_deps = cim_tree.setdefault(slot, {})
-        if pname not in slot_deps:
-            lead = tuple(params[slot][pname].shape[:len(idx)])
-            slot_deps[pname] = _stack(lead, dep, dev)
-        _put(slot_deps[pname], idx, dep)
-    for i, bt in enumerate(cfg.block_pattern):
-        cim_tree.setdefault(f"slot{i}_{bt}", {})
-    for slot_deps in cim_tree.values():
-        for bank in slot_deps.values():
-            if bank.noise_tag is not None and bank.noise_tag.ndim > 1:
-                bank.device_tags = bank.noise_tag.to(dev)
-    if capture:
+    with tm.span("deploy/package", matrices=len(mats)):
+        nf_before = torch.zeros((), dtype=torch.float64, device=dev)
+        nf_after = torch.zeros((), dtype=torch.float64, device=dev)
+        tiles = stuck_cells = 0
+        degraded: dict[str, int] = {}
+        cim_tree: dict = {}
         for t, name in enumerate(mats):
             slot, pname, idx = bank_index(name)
-            bank = cim_tree[slot][pname]
-            lifetime[name] = MatrixLifetime(
-                name=name, noise_tag=t, spec=spec, model=nonideal,
-                eta=cfg.cim.eta, key=key, w=mats[name],
-                dep=bank.member(idx), bank=bank, rep=idx,
-                cells=None if cells is None else cells_on(cells[name], dev),
-                age=float(nonideal.drift_time))
+            with clock("plan"):
+                plan = plans.pop(name)
+            c = None if cells_of is None else cells_of(name)
+            if c is not None and c.stuck is not None:
+                stuck_cells += int((c.stuck != 0).sum())
+            stats: dict = {}
+            col_position = (None if plan.col_position is None
+                            else plan.col_position.to(dev))
+            with clock("package"):
+                dep = package_deployment_host(
+                    mats[name], spec, mode, cfg.cim.eta,
+                    plan._replace(row_position=plan.row_position.to(dev),
+                                  col_position=col_position),
+                    cells=c, nonideal=nonideal, noise_tag=t, stats=stats,
+                    clock=clock, capture=capture)
+            if stats.get("open_bits"):
+                degraded[name] = stats["open_bits"]
+            nf_before += plan.nf_before.sum(dtype=torch.float64).to(dev)
+            nf_after += plan.nf_after.sum(dtype=torch.float64).to(dev)
+            tiles += plan.nf_before.numel()
+            del plan, c
+            slot_deps = cim_tree.setdefault(slot, {})
+            if pname not in slot_deps:
+                lead = tuple(params[slot][pname].shape[:len(idx)])
+                slot_deps[pname] = _stack(lead, dep, dev)
+            _put(slot_deps[pname], idx, dep)
+        for i, bt in enumerate(cfg.block_pattern):
+            cim_tree.setdefault(f"slot{i}_{bt}", {})
+        for slot_deps in cim_tree.values():
+            for bank in slot_deps.values():
+                if bank.noise_tag is not None and bank.noise_tag.ndim > 1:
+                    bank.device_tags = bank.noise_tag.to(dev)
+        if capture:
+            for t, name in enumerate(mats):
+                slot, pname, idx = bank_index(name)
+                bank = cim_tree[slot][pname]
+                lifetime[name] = MatrixLifetime(
+                    name=name, noise_tag=t, spec=spec, model=nonideal,
+                    eta=cfg.cim.eta, key=key, w=mats[name],
+                    dep=bank.member(idx), bank=bank, rep=idx,
+                    cells=(None if cells is None
+                           else cells_on(cells[name], dev)),
+                    age=float(nonideal.drift_time))
+        if tm.enabled():
+            tm.sync(dev)
     b, a = float(nf_before), float(nf_after)
     report.update(tiles=tiles, nf_before=b, nf_after=a,
                   nf_reduction=(b - a) / max(b, 1e-30),
                   matrices=summary, n_slots=len(cim_tree))
     if timed:
         report["seconds"] = dict(clock.seconds)
+    _H_DEPLOY.observe(tm.monotonic() - t0)
+    _C_DEPLOY.labels(status="deployed").inc(summary["n_deployed"])
+    _C_DEPLOY.labels(status="skipped").inc(summary["n_skipped"])
+    _C_DEPLOY.labels(status="degraded").inc(len(degraded))
     if cells_of is not None:
         report["nonideal"] = True
         report["fault_aware"] = (fault_maps is not None

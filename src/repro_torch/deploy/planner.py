@@ -17,6 +17,14 @@ their entries and the manifest.  Keys and entries are the reference's.
 Without a cache, a deploy plans lazily (:class:`LazyPlans`): each
 matrix right before it is packaged.
 
+Telemetry (``repro_torch.telemetry``, the reference's names):
+``repro_plan_seconds`` a :func:`plan_matrices` call, the tiles it plans
+in ``repro_plan_tiles_total``, and the spans ``deploy/plan_lookup``
+(fingerprints and probes) and ``deploy/plan_fused`` (the misses'
+planning; a lazy deploy's one a matrix, where it is popped, so its
+``repro_plan_seconds`` holds the lookup alone).  With telemetry on the
+device is synchronised before a planning span closes.
+
 Fault maps (name -> (Ti, Tn, rows, cols) int8 physical cell states)
 feed the fault-consuming passes and enter each key as the reference's
 fault fingerprint; a mapping may produce them lazily (the deployment
@@ -36,6 +44,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch import telemetry as tm
 from repro_torch.core.bitslice import codes_to_bits, quantize_magnitude
 from repro_torch.core.mdm import MdmPlan, plan_from_bits
 from repro_torch.core.tiling import CrossbarSpec
@@ -46,6 +55,13 @@ from repro_torch.deploy.cache import (
     weight_fingerprint,
 )
 from repro_torch.mapping import MappingPipeline, resolve_pipeline
+
+_H_PLAN = tm.histogram(
+    "repro_plan_seconds",
+    "Wall time of one plan_matrices pass (lookup + planning).")
+_C_PLAN_TILES = tm.counter(
+    "repro_plan_tiles_total",
+    "Crossbar tiles planned (cache misses only).")
 
 
 def quantize_codes_host(w: np.ndarray, scale: np.float32,
@@ -117,7 +133,12 @@ class LazyPlans:
 
     def pop(self, name: str) -> MdmPlan:
         fm = None if self._faults is None else self._faults.get(name)
-        return plan_matrix(self._mats[name], self._spec, self._pipe, fm)[0]
+        w = self._mats[name]
+        with tm.span("deploy/plan_fused", matrices=1):
+            plan = plan_matrix(w, self._spec, self._pipe, fm)[0]
+            if tm.enabled():
+                tm.sync(w.device)
+        return plan
 
 
 def plan_matrices(mats: Mapping[str, torch.Tensor], spec: CrossbarSpec,
@@ -140,6 +161,7 @@ def plan_matrices(mats: Mapping[str, torch.Tensor], spec: CrossbarSpec,
     which plans each matrix when the caller pops it; the report counts
     the tiles those plans will cover.
     """
+    t0 = tm.monotonic()
     pipe = resolve_pipeline(mode, fault_maps is not None)
     if not (pipe.rows.uses_faults or pipe.cols.uses_faults):
         fault_maps = None
@@ -148,7 +170,11 @@ def plan_matrices(mats: Mapping[str, torch.Tensor], spec: CrossbarSpec,
             raise ValueError(f"{name}: expected a 2-D matrix, got "
                              f"{tuple(w.shape)}")
     if lazy and cache is None:
-        tiles = sum(math.prod(spec.grid(*w.shape)) for w in mats.values())
+        with tm.span("deploy/plan_lookup", matrices=len(mats)):
+            tiles = sum(math.prod(spec.grid(*w.shape))
+                        for w in mats.values())
+        _H_PLAN.observe(tm.monotonic() - t0)
+        _C_PLAN_TILES.inc(tiles)
         return LazyPlans(mats, spec, pipe, fault_maps), {
             "n_matrices": len(mats), "cache_hits": 0,
             "cache_misses": len(mats), "manifest_hit": False,
@@ -157,33 +183,38 @@ def plan_matrices(mats: Mapping[str, torch.Tensor], spec: CrossbarSpec,
     keys: dict[str, str] = {}
     misses = list(mats)
     manifest_hit = False
-    if cache is not None:
-        keys = fingerprint_matrices(mats, spec, pipe, fault_maps)
-        hit_all = cache.get_manifest(keys)
-        if hit_all is not None:
-            plans, misses, manifest_hit = hit_all, [], True
-        else:
-            workers = max(1, min(os.cpu_count() or 1, len(keys)))
-            with ThreadPoolExecutor(max_workers=workers) as ex:
-                hits = list(ex.map(cache.get, keys.values()))
-            misses = []
-            for name, hit in zip(keys, hits):
-                if hit is None:
-                    misses.append(name)
-                else:
-                    plans[name] = hit
+    with tm.span("deploy/plan_lookup", matrices=len(mats)):
+        if cache is not None:
+            keys = fingerprint_matrices(mats, spec, pipe, fault_maps)
+            hit_all = cache.get_manifest(keys)
+            if hit_all is not None:
+                plans, misses, manifest_hit = hit_all, [], True
+            else:
+                workers = max(1, min(os.cpu_count() or 1, len(keys)))
+                with ThreadPoolExecutor(max_workers=workers) as ex:
+                    hits = list(ex.map(cache.get, keys.values()))
+                misses = []
+                for name, hit in zip(keys, hits):
+                    if hit is None:
+                        misses.append(name)
+                    else:
+                        plans[name] = hit
 
     tiles = 0
     blobs: dict[str, bytes] = {}
-    for name in misses:
-        fm = None if fault_maps is None else fault_maps.get(name)
-        plan = plan_matrix(mats[name], spec, pipe, fm)[0]
-        tiles += plan.nf_before.numel()
-        if cache is not None:
-            plan = _host_plan(plan)
-            blobs[name] = encode_plan(plan)
-            cache.put(keys[name], blobs[name])
-        plans[name] = plan
+    if misses:
+        with tm.span("deploy/plan_fused", matrices=len(misses)):
+            for name in misses:
+                fm = None if fault_maps is None else fault_maps.get(name)
+                plan = plan_matrix(mats[name], spec, pipe, fm)[0]
+                tiles += plan.nf_before.numel()
+                if cache is not None:
+                    plan = _host_plan(plan)
+                    blobs[name] = encode_plan(plan)
+                    cache.put(keys[name], blobs[name])
+                plans[name] = plan
+            if tm.enabled():
+                tm.sync(mats[misses[-1]].device)
     if cache is not None and not manifest_hit and plans:
         cache.put_manifest(keys, {name: blobs.get(name, plans[name])
                                   for name in keys})
@@ -191,4 +222,6 @@ def plan_matrices(mats: Mapping[str, torch.Tensor], spec: CrossbarSpec,
               "cache_hits": len(mats) - len(misses),
               "cache_misses": len(misses), "manifest_hit": manifest_hit,
               "tiles_planned": tiles}
+    _H_PLAN.observe(tm.monotonic() - t0)
+    _C_PLAN_TILES.inc(tiles)
     return {name: plans[name] for name in mats}, report

@@ -25,6 +25,9 @@ tile axis, so it scales out by splitting the tile batch over a mesh:
 * a shard is given only its slice of a broadcast clean reference, never
   the whole ensemble's.
 
+The checked front door records its verdict in the solver counters
+(``crossbar.batched.record_solver_report``), as the reference's does.
+
 Entry points run on the card unless the caller asks for the CPU:
 ``device`` picks the default mesh; tensor inputs lie on the mesh's
 first device of this process, where the results come back.
@@ -47,6 +50,7 @@ from repro_torch.crossbar.batched import (
     _escalate_failed,
     _solve_core,
     _solve_core_g,
+    record_solver_report,
     resolve_precision,
     tile_converged,
 )
@@ -382,8 +386,10 @@ def measured_nf_conductances_sharded_checked(
         res.iterations)
     if not escalate:
         conv = tile_converged(flat, tol)
-        return res, SolverReport(conv.reshape(dims), res.iterations, 0,
-                                 int((~conv).sum()))
+        report = SolverReport(conv.reshape(dims), res.iterations, 0,
+                              int((~conv).sum()))
+        record_solver_report(report)
+        return res, report
     ref, ref_lead = _ref_tiles(
         None if g_ref is None else as_tensor(g_ref, lead), g)
     v = _drive(v_in, J, spec, lead)
@@ -402,4 +408,5 @@ def measured_nf_conductances_sharded_checked(
     out = ShardedSolveResult(
         *(f.reshape(tuple(dims) + f.shape[1:]) for f in bres[:5]),
         bres.iterations, report.n_failed)
+    record_solver_report(report)
     return out, report._replace(converged=report.converged.reshape(dims))

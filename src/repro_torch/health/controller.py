@@ -31,15 +31,22 @@ batched form's ``DECODE_MAX_M`` rows read one matrix at a time.  Neither engine
 reaches the last three: ``deploy_model_params`` always banks, so every
 group an engine probes is the matrices of one served stack.  They read
 lifetimes built outside the engines, as the parity tests build them
-against the reference's vmapped and sequential reads.  The reference's
-telemetry (histograms, counters, spans) is left out: the ``counters``,
-``events`` and :meth:`report` carry the same information.
+against the reference's vmapped and sequential reads.
+
+Telemetry (``repro_torch.telemetry``, the reference's names): a probe
+round observes ``repro_health_probe_round_seconds`` and opens the span
+``health/probe_round``; every probe read counts in
+``repro_health_probes_total`` and every event in
+``repro_health_events_total{event}``.  The round's reads come back to
+the host, so the round's time holds the card's work with telemetry on
+or off.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import telemetry as tm
 from repro_torch.deploy.lifetime import (
     MatrixLifetime,
     group_key,
@@ -62,6 +69,16 @@ from repro_torch.kernels.cim_mvm.ops import (
 _TENSORS = ("codes", "pos", "scale", "gain", "col_pos", "degraded",
             "noise_tag", "folded")
 _META = ("n_bits", "wpt", "cols", "eta", "reversed_df", "sigma_read")
+
+_H_PROBE_ROUND = tm.histogram(
+    "repro_health_probe_round_seconds",
+    "Wall time of one full probe round (all live matrices).")
+_C_PROBES = tm.counter(
+    "repro_health_probes_total", "Per-matrix calibration probe reads.")
+_C_EVENTS = tm.counter(
+    "repro_health_events_total",
+    "Health events by kind (trip/clear/recalibrate/reprogram/demote).",
+    labels=("event",))
 
 
 class HealthController:
@@ -102,29 +119,36 @@ class HealthController:
         matrix with its own tag), as a forward does.  Returns the dirty
         swap groups of every matrix a remediation changed.
         """
-        self.rounds += 1
-        live = [(name, lt) for name, lt in self.lifetimes.items()
-                if not lt.demoted]
-        results = self._probe_reads(live, read_seed)
-        dirty: set[tuple[str, str]] = set()
-        for name, lt in live:
-            mon = self.monitors[name]
-            y = results[name]
-            self.counters["probes"] += 1
-            det = mon.detector
-            clears_before = det.n_clears
-            tripped = mon.observe(y)
-            if det.n_clears > clears_before:
-                self.counters["spontaneous_clears"] += (
-                    det.n_clears - clears_before)
-                self._log(name, "clear", f"z={det.z:.2f}")
-            if tripped:
-                self.counters["trips"] += 1
-                self._log(name, "trip",
-                          f"err={mon.last_err:.4g} z={det.z:.2f} "
-                          f"cusum={det.cusum:.4g}")
-                self._remediate(name, lt, mon, y)
-                dirty.add(group_key(name))
+        t0 = tm.monotonic()
+        with tm.span("health/probe_round", round=self.rounds + 1):
+            self.rounds += 1
+            live = [(name, lt) for name, lt in self.lifetimes.items()
+                    if not lt.demoted]
+            results = self._probe_reads(live, read_seed)
+            dirty: set[tuple[str, str]] = set()
+            for name, lt in live:
+                mon = self.monitors[name]
+                y = results[name]
+                self.counters["probes"] += 1
+                _C_PROBES.inc()
+                det = mon.detector
+                clears_before = det.n_clears
+                tripped = mon.observe(y)
+                if det.n_clears > clears_before:
+                    self.counters["spontaneous_clears"] += (
+                        det.n_clears - clears_before)
+                    _C_EVENTS.labels(event="clear").inc(
+                        det.n_clears - clears_before)
+                    self._log(name, "clear", f"z={det.z:.2f}")
+                if tripped:
+                    self.counters["trips"] += 1
+                    _C_EVENTS.labels(event="trip").inc()
+                    self._log(name, "trip",
+                              f"err={mon.last_err:.4g} z={det.z:.2f} "
+                              f"cusum={det.cusum:.4g}")
+                    self._remediate(name, lt, mon, y)
+                    dirty.add(group_key(name))
+        _H_PROBE_ROUND.observe(tm.monotonic() - t0)
         return dirty
 
     def _probes(self, members: list) -> torch.Tensor:
@@ -220,17 +244,20 @@ class HealthController:
             recal = estimate_recal(y_cim, mon.y_ref, self.cfg.recal_limit)
             lt.recalibrate(recal)
             self.counters["recalibrations"] += 1
+            _C_EVENTS.labels(event="recalibrate").inc()
             self._log(name, "recalibrate",
                       f"median_alpha={float(np.median(recal)):.4f} "
                       f"age={lt.age:.3g}")
         elif lt.reprograms < self.cfg.max_reprograms:
             lt.reprogram()
             self.counters["reprograms"] += 1
+            _C_EVENTS.labels(event="reprogram").inc()
             self._log(name, "reprogram",
                       f"epoch={lt.reprograms} clock_reset age=1")
         else:
             lt.demote()
             self.counters["demotions"] += 1
+            _C_EVENTS.labels(event="demote").inc()
             self._log(name, "demote",
                       f"endurance_exhausted reprograms={lt.reprograms}"
                       f" -> digital fallback")

@@ -19,6 +19,12 @@ per-sample computation as a Python loop over single-sample solves, with
 the same draws bit for bit.  JAX's split keys cannot be reproduced in
 torch, so parity with the reference moves its sampled cells across
 (``repro_torch.convert.cell_sample_from_reference``).
+
+Telemetry (``repro_torch.telemetry``, the reference's names): an
+:func:`mc_nf` sweep opens the span ``nonideal/mc_nf`` and observes
+``repro_mc_sweep_seconds``; while telemetry is on it also copies the
+NF back to count the samples and unconverged tiles and set the mean
+and p95 gauges.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry as tm
 from repro_torch.crossbar.batched import (
     measured_nf_conductances,
     measured_nf_conductances_checked,
@@ -41,6 +48,18 @@ from repro_torch.nonideal.models import (
     derive_key,
     sample_cell_state,
 )
+
+_H_MC_SWEEP = tm.histogram(
+    "repro_mc_sweep_seconds", "Wall time of one mc_nf ensemble solve.")
+_C_MC_SAMPLES = tm.counter(
+    "repro_mc_samples_total", "Monte-Carlo samples solved (S x tiles).")
+_C_MC_UNCONV = tm.counter(
+    "repro_mc_unconverged_total",
+    "Ensemble tiles unconverged after escalation.")
+_G_MC_NF_MEAN = tm.gauge(
+    "repro_mc_nf_mean", "Mean NF of the most recent mc_nf sweep.")
+_G_MC_NF_P95 = tm.gauge(
+    "repro_mc_nf_p95", "95th-percentile NF of the most recent sweep.")
 
 
 class McNfResult(NamedTuple):
@@ -134,28 +153,40 @@ def mc_nf(masks, spec, model: NonidealModel, n_samples: int, key: int, *,
             not same_device(ctx.mesh.devices[0], dev):
         raise ValueError(f"mc_nf: the ensemble is drawn on {dev}, but the "
                          f"ctx's mesh solves on {ctx.mesh.devices[0]}")
-    batch_shape, flat, stuck, col_weights = _flat(masks, stuck, col_weights,
-                                                  dev)
-    g, g_ref = mc_samples(key, flat, spec, model, n_samples, stuck,
-                          device=dev)
-    if ctx is not None:
-        from repro_torch.distributed.solver_shard import (
-            measured_nf_conductances_sharded_checked,
-        )
-        res, report = measured_nf_conductances_sharded_checked(
-            g, spec, g_ref=g_ref, maxiter=maxiter, precision=precision,
-            ctx=ctx, chain_impl=chain_impl, device=dev)
-        unconverged = res.unconverged
-    else:
-        res, report = measured_nf_conductances_checked(
-            g, spec, g_ref=g_ref, maxiter=maxiter, precision=precision,
-            chain_impl=chain_impl, device=dev)
-        unconverged = report.n_failed
-    werr = _weighted_err(res.currents, res.ideal, col_weights)
-    shape = (n_samples,) + tuple(batch_shape)
-    return McNfResult(res.nf_total.reshape(shape), werr.reshape(shape),
-                      res.residual.reshape(shape), res.iterations,
-                      unconverged, report)
+    t0 = tm.monotonic()
+    with tm.span("nonideal/mc_nf", samples=n_samples):
+        batch_shape, flat, stuck, col_weights = _flat(masks, stuck,
+                                                      col_weights, dev)
+        g, g_ref = mc_samples(key, flat, spec, model, n_samples, stuck,
+                              device=dev)
+        if ctx is not None:
+            from repro_torch.distributed.solver_shard import (
+                measured_nf_conductances_sharded_checked,
+            )
+            res, report = measured_nf_conductances_sharded_checked(
+                g, spec, g_ref=g_ref, maxiter=maxiter, precision=precision,
+                ctx=ctx, chain_impl=chain_impl, device=dev)
+            unconverged = res.unconverged
+        else:
+            res, report = measured_nf_conductances_checked(
+                g, spec, g_ref=g_ref, maxiter=maxiter, precision=precision,
+                chain_impl=chain_impl, device=dev)
+            unconverged = report.n_failed
+        werr = _weighted_err(res.currents, res.ideal, col_weights)
+        shape = (n_samples,) + tuple(batch_shape)
+        out = McNfResult(res.nf_total.reshape(shape), werr.reshape(shape),
+                         res.residual.reshape(shape), res.iterations,
+                         unconverged, report)
+        if tm.enabled():
+            # A telemetry-only host copy (it syncs the card); the
+            # computed numbers are untouched.
+            nf = out.nf_total.cpu().numpy().astype(np.float64)
+            _C_MC_SAMPLES.inc(nf.size)
+            _C_MC_UNCONV.inc(int(unconverged))
+            _G_MC_NF_MEAN.set(float(nf.mean()))
+            _G_MC_NF_P95.set(float(np.percentile(nf, 95.0)))
+    _H_MC_SWEEP.observe(tm.monotonic() - t0)
+    return out
 
 
 def mc_nf_oracle(masks, spec, model: NonidealModel, n_samples: int,

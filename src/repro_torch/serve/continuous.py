@@ -55,6 +55,13 @@ group while one pinned by sequences in flight keeps its bank.
 ``begin_redeploy(..., health=)`` captures fresh lifetime state for the
 new checkpoint.
 
+**Telemetry** (``repro_torch.telemetry``, the reference's names): the
+spans ``serve/iteration``, ``serve/admit``, ``serve/decode_batch``,
+``serve/swap`` and ``serve/redeploy`` (in the redeploy thread), each
+iteration's occupancy, each decode step's seconds (its tokens' host
+copy syncs the card, telemetry or not), the hot-swapped groups and
+the installed redeploys.
+
 The ``"attn"`` pattern only: a recurrent pattern would run the padded
 prefill's pad tokens through its state (a defect of the reference's
 tier, which the port does not mirror).
@@ -68,12 +75,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import telemetry as tm
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.deploy import PlanCache, restack_group
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import runtime
 from repro_torch.models.model import KERNELS, Ops, apply_model
 from repro_torch.serve.engine import (
+    _C_SWAPS,
+    _H_DECODE,
     deploy_serving_bank,
     probe_seed,
     read_seed,
@@ -83,6 +93,13 @@ from repro_torch.serve.engine import (
 from repro_torch.serve.kvcache import SignatureCounter, SlotPool
 from repro_torch.serve.scheduler import Request, RequestScheduler
 
+_H_OCCUPANCY = tm.histogram(
+    "repro_serve_batch_occupancy",
+    "Live slots / capacity per scheduler iteration.",
+    buckets=(0.0625, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
+_C_REDEPLOYS = tm.counter(
+    "repro_serve_redeploys_total",
+    "Async checkpoint redeploys installed into the serving loop.")
 
 _UNSET = object()
 
@@ -238,11 +255,17 @@ class ContinuousEngine:
     def step(self) -> None:
         """One scheduler iteration: install pending bank -> admit ->
         batched decode -> stream -> evict."""
-        self._install_pending()
-        while self.scheduler.queue and self.pool.n_free:
-            self._admit(self.scheduler.pop_admission())
-        if self.scheduler.live:
-            self._decode_iteration()
+        with tm.span("serve/iteration", it=self.iterations,
+                     live=self.pool.n_live,
+                     queued=self.scheduler.queue_depth):
+            self._install_pending()
+            while self.scheduler.queue and self.pool.n_free:
+                req = self.scheduler.pop_admission()
+                with tm.span("serve/admit", rid=req.rid):
+                    self._admit(req)
+            _H_OCCUPANCY.observe(self.pool.n_live / self.capacity)
+            if self.scheduler.live:
+                self._decode_iteration()
         self.iterations += 1
 
     # -- admission -----------------------------------------------------
@@ -302,7 +325,13 @@ class ContinuousEngine:
 
     def _decode_iteration(self) -> None:
         live = self.scheduler.live
-        tok_host = self._decode_all_banks()
+        t_on = tm.enabled()
+        t0 = tm.monotonic() if t_on else 0.0
+        with tm.span("serve/decode_batch", live=len(live),
+                     epochs=len(self.scheduler.epochs_live())):
+            tok_host = self._decode_all_banks()   # a host copy: synced
+        if t_on:
+            _H_DECODE.observe(tm.monotonic() - t0)
         finished = []
         for slot in sorted(live):
             t = int(tok_host[slot])
@@ -377,11 +406,15 @@ class ContinuousEngine:
     def _swap(self, dirty: set) -> None:
         """Restack each refreshed group into a new bank epoch of its own
         (fresh dicts; in-flight sequences keep their admission epoch)."""
-        for slot, pname in sorted(dirty):
-            cur = self.banks[self.serving_epoch]
-            cim = {s: dict(sub) for s, sub in cur.cim.items()}
-            cim[slot][pname] = restack_group(self.lifetime, slot, pname)
-            self._install_bank(cur.params, cim)
+        if not dirty:
+            return
+        with tm.span("serve/swap", groups=len(dirty)):
+            for slot, pname in sorted(dirty):
+                cur = self.banks[self.serving_epoch]
+                cim = {s: dict(sub) for s, sub in cur.cim.items()}
+                cim[slot][pname] = restack_group(self.lifetime, slot, pname)
+                self._install_bank(cur.params, cim)
+        _C_SWAPS.inc(len(dirty))
 
     def advance(self, dt: float) -> None:
         """Advance the drift clock; heal-swaps land as new epochs."""
@@ -432,7 +465,7 @@ class ContinuousEngine:
 
         def work():
             try:
-                with torch.no_grad():
+                with torch.no_grad(), tm.span("serve/redeploy"):
                     pending = (params, *deploy_serving_bank(
                         self.cfg, params, self.plan_cache, self.device,
                         deploy[0], int(deploy[1]), *deploy[2:], False,
@@ -464,6 +497,7 @@ class ContinuousEngine:
         self.deploy_report = report
         # The old lifetime state describes the retired checkpoint.
         self.lifetime, self.health = lifetime, controller
+        _C_REDEPLOYS.inc()
 
 
 def _seed64(seed: int) -> int:

@@ -57,11 +57,18 @@ claimed for them.  :func:`sample_tokens_batch` is the row-independent
 sampler of continuous batching: a counter-based hash of (request seed,
 token count, vocabulary index) gives each row its own Gumbel noise,
 the same integers on the CPU and on the card.
+
+Telemetry (``repro_torch.telemetry``, the reference's names): each
+``generate`` counts a request and its B x n tokens, observes its
+prefill and each decode step (the card synchronised first, only while
+telemetry is on) and opens the spans ``serve/generate``,
+``serve/prefill`` and ``serve/decode``; a hot swap counts its groups.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import telemetry as tm
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.deploy import PlanCache, deploy_model_params, restack_group
 from repro_torch.deploy.engine import StageClock, _untimed
@@ -71,6 +78,20 @@ from repro_torch.models.model import KERNELS, apply_model, init_decode_state
 from repro_torch.nonideal.models import derive_key
 
 _M32 = 0xFFFFFFFF
+
+_H_PREFILL = tm.histogram(
+    "repro_serve_prefill_seconds",
+    "Prefill wall time per generate() call (synced when telemetry on).")
+_H_DECODE = tm.histogram(
+    "repro_serve_decode_step_seconds",
+    "Per-step decode wall time (synced when telemetry on).")
+_C_REQUESTS = tm.counter(
+    "repro_serve_requests_total", "generate() calls served.")
+_C_TOKENS = tm.counter(
+    "repro_serve_tokens_total", "Tokens generated (batch x steps).")
+_C_SWAPS = tm.counter(
+    "repro_serve_hot_swaps_total",
+    "Deployment groups hot-swapped into the serving tree.")
 
 
 def sample_tokens(logits: torch.Tensor, temperature: float = 0.0,
@@ -239,6 +260,7 @@ class ServeEngine:
             cim[slot][pname] = restack_group(self.lifetime, slot, pname,
                                              self.swap_clock)
             self.cim = cim
+        _C_SWAPS.inc(len(dirty))
 
     def advance(self, dt: float) -> None:
         """Advance the drift clock by ``dt`` (t0 units): every live
@@ -303,21 +325,41 @@ class ServeEngine:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         state = init_decode_state(self.cfg, B, self.max_seq, self.device)
-        logits, state = apply_model(self.params, self.cfg, state=state,
-                                    cim=cim, ops=self.ops,
-                                    read_seed=self._read(seed, 0),
-                                    **{kind: prompts})
-        tok = sample_tokens(logits[:, -1], self.temperature, gen)
-        out = [tok]
-        for t in range(1, n_tokens):
-            logits, state = apply_model(self.params, self.cfg, tok[:, None],
-                                        state=state, decode=True,
-                                        cim=cim, ops=self.ops,
-                                        read_seed=self._read(seed, t))
-            tok = sample_tokens(logits[:, 0], self.temperature, gen)
-            out.append(tok)
-        if self.health is not None and self.health.cfg.age_per_token > 0.0:
-            self.advance(n_tokens * self.health.cfg.age_per_token)
+        # Telemetry syncs the card so that the latency histograms hold
+        # the step's device time; the values are the same either way,
+        # and with telemetry off this is the bare asynchronous loop.
+        t_on = tm.enabled()
+        with tm.span("serve/generate", batch=B, n_tokens=n_tokens):
+            t0 = tm.monotonic() if t_on else 0.0
+            with tm.span("serve/prefill", batch=B):
+                logits, state = apply_model(self.params, self.cfg,
+                                            state=state, cim=cim,
+                                            ops=self.ops,
+                                            read_seed=self._read(seed, 0),
+                                            **{kind: prompts})
+                tok = sample_tokens(logits[:, -1], self.temperature, gen)
+                if t_on:
+                    tm.sync(self.device)
+            if t_on:
+                _H_PREFILL.observe(tm.monotonic() - t0)
+            out = [tok]
+            with tm.span("serve/decode", steps=n_tokens - 1):
+                for t in range(1, n_tokens):
+                    t0 = tm.monotonic() if t_on else 0.0
+                    logits, state = apply_model(
+                        self.params, self.cfg, tok[:, None], state=state,
+                        decode=True, cim=cim, ops=self.ops,
+                        read_seed=self._read(seed, t))
+                    tok = sample_tokens(logits[:, 0], self.temperature, gen)
+                    if t_on:
+                        tm.sync(self.device)
+                        _H_DECODE.observe(tm.monotonic() - t0)
+                    out.append(tok)
+            _C_REQUESTS.inc()
+            _C_TOKENS.inc(B * n_tokens)
+            if self.health is not None \
+                    and self.health.cfg.age_per_token > 0.0:
+                self.advance(n_tokens * self.health.cfg.age_per_token)
         return torch.stack(out, dim=1)
 
     @torch.no_grad()

@@ -1,6 +1,6 @@
 """Iteration-level request scheduling for continuous batching.
 
-Port of ``repro.serve.scheduler`` without its telemetry.  Orca-style
+Port of ``repro.serve.scheduler``.  Orca-style
 admission: the scheduler owns an open FIFO queue of :class:`Request`\\ s
 and the per-slot :class:`Sequence` bookkeeping of everything in flight.
 The engine (:class:`repro_torch.serve.continuous.ContinuousEngine`)
@@ -8,7 +8,9 @@ drives one iteration at a time: admit queued requests into free slots,
 one batched decode step for every live slot, stream the new tokens,
 evict the sequences that reached their budget.  A request waits for a
 slot, never for a batch.  Pure host-side policy: the device state lives
-in :class:`repro_torch.serve.kvcache.SlotPool`.
+in :class:`repro_torch.serve.kvcache.SlotPool`.  Its telemetry is the
+reference's: the queue depth gauge (set on submit and admit) and the
+admitted and evicted counters.
 """
 from __future__ import annotations
 
@@ -17,6 +19,16 @@ from collections import deque
 from typing import Callable
 
 import numpy as np
+
+from repro_torch import telemetry as tm
+
+_G_QUEUE = tm.gauge(
+    "repro_serve_queue_depth",
+    "Requests waiting for a slot (updated on submit/admit).")
+_C_ADMITTED = tm.counter(
+    "repro_serve_admitted_total", "Requests admitted into a slot.")
+_C_EVICTED = tm.counter(
+    "repro_serve_evicted_total", "Finished sequences evicted from slots.")
 
 TokenCallback = Callable[[int, int, bool], None]
 
@@ -77,6 +89,7 @@ class RequestScheduler:
         self._next_rid += 1
         self.queue.append(Request(rid, prompt, max_tokens,
                                   float(temperature), int(seed), on_token))
+        _G_QUEUE.set(len(self.queue))
         return rid
 
     @property
@@ -90,7 +103,11 @@ class RequestScheduler:
 
     def pop_admission(self) -> Request | None:
         """Next queued request (FIFO), or None."""
-        return self.queue.popleft() if self.queue else None
+        if not self.queue:
+            return None
+        req = self.queue.popleft()
+        _G_QUEUE.set(len(self.queue))
+        return req
 
     def start(self, req: Request, slot: int, epoch: int) -> Sequence:
         """Register an admitted request as live in ``slot``."""
@@ -98,6 +115,7 @@ class RequestScheduler:
             raise ValueError(f"slot {slot} already occupied")
         seq = Sequence(req, slot, epoch)
         self.live[slot] = seq
+        _C_ADMITTED.inc()
         return seq
 
     def record_token(self, slot: int, token: int) -> bool:
@@ -116,6 +134,7 @@ class RequestScheduler:
         """Evict a finished sequence; its tokens land in ``results``."""
         seq = self.live.pop(slot)
         self.results[seq.req.rid] = list(seq.tokens)
+        _C_EVICTED.inc()
         return seq
 
     def epochs_live(self) -> list[int]:

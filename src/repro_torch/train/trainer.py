@@ -11,17 +11,14 @@ Port of ``repro.train.trainer``:
     reloads the latest checkpoint and goes on (bounded retries);
   * the watchdog tracks a step-time EMA and flags outliers.
 
-Library code here reads no clock (the repo's lint keeps ``time.*`` to
-its telemetry module): the caller hands the trainer its step clock
-(``clock``, e.g. ``time.perf_counter``); without one, steps are not
-timed and the watchdog sees nothing.
+Every step is timed on ``repro_torch.telemetry.monotonic``, its
+metrics copied back to the host first, so ``dt`` holds the card's work.
 """
 from __future__ import annotations
 
-from typing import Callable
-
 import torch
 
+from repro_torch import telemetry as tm
 from repro_torch.checkpoint.ckpt import (
     CheckpointManager,
     latest_step,
@@ -56,17 +53,14 @@ class Watchdog:
 class Trainer:
     """Trains ``cfg`` on ``dataset`` (anything with ``batch_at(step)`` ->
     (B, S+1) int tokens) on ``device`` (default the card; raises where
-    there is none).  ``clock``: a zero-argument seconds clock that
-    times each step for the watchdog and the log (None: untimed)."""
+    there is none)."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, dataset,
                  ctx: ShardingCtx | None = None, *,
-                 device: str | torch.device = "cuda",
-                 clock: Callable[[], float] | None = None):
+                 device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.cfg, self.tcfg, self.dataset = cfg, tcfg, dataset
         self.ctx = ctx or ShardingCtx()
-        self.clock = clock
         self.watchdog = Watchdog()
         self.ckpt = CheckpointManager(tcfg.checkpoint_dir,
                                       async_save=tcfg.async_checkpoint)
@@ -125,7 +119,7 @@ class Trainer:
         retries = 0
         while self.step < n_steps:
             try:
-                t0 = self.clock() if self.clock else None
+                t0 = tm.monotonic()
                 batch = self._device_batch(self.step)
                 if fail_at and self.step in fail_at:
                     fail_at = set(fail_at) - {self.step}
@@ -133,10 +127,8 @@ class Trainer:
                 self.params, self.opt_state, metrics = self._step(
                     self.params, self.opt_state, batch)
                 metrics = {k: float(v) for k, v in metrics.items()}
-                dt = None
-                if self.clock:
-                    dt = self.clock() - t0
-                    self.watchdog.observe(self.step, dt)
+                dt = tm.monotonic() - t0
+                self.watchdog.observe(self.step, dt)
                 self.step += 1
                 if self.step % self.tcfg.log_every == 0 or \
                         self.step == n_steps:

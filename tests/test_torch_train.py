@@ -18,7 +18,6 @@ at the reference's rtol 1e-4 and (rtol 1e-2, atol 1e-3) for params
 """
 import dataclasses
 import functools
-import time
 
 import jax
 import jax.numpy as jnp
@@ -323,13 +322,13 @@ def test_trainer_matches_reference_from_carried_state(tmp_path):
 # --------------------------- trainer contracts ----------------------------
 # The reference's own (tests/test_train.py), on the port.
 
-def make_trainer(d, clock=None, **kw):
+def make_trainer(d, **kw):
     cfg = get_config(PHI3, smoke=True)
     tcfg = TrainConfig(**dict(dict(
         total_steps=10, checkpoint_every=4, checkpoint_dir=str(d),
         log_every=2, learning_rate=1e-3, async_checkpoint=False), **kw))
     ds = SyntheticTokenDataset(cfg.vocab_size, 32, 8, seed=3)
-    return Trainer(cfg, tcfg, ds, device="cpu", clock=clock)
+    return Trainer(cfg, tcfg, ds, device="cpu")
 
 
 def test_restart_reproduces_trajectory(tmp_path):
@@ -379,12 +378,11 @@ def test_microbatch_grad_accumulation_equivalence():
 
 
 def test_loss_decreases(tmp_path):
-    tr = make_trainer(tmp_path, clock=time.perf_counter)
+    tr = make_trainer(tmp_path)
     tr.init_state()
     log = tr.run(10)
     assert log[-1]["loss"] < log[0]["loss"] + 0.05
     assert all(m["dt"] > 0 for m in log)
-    assert make_trainer(tmp_path / "x").clock is None
 
 
 def test_watchdog_flags_stragglers():
