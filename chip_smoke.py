@@ -10,7 +10,7 @@ folded forms (gain, column permutation, in-kernel read noise, bf16 x)
 and the bf16 forms of flash_attention (its decode form also over a
 LONG_C-slot cache, split across a cluster) and slstm_scan's bf16 forms
 (its scan and decode forms beside the general form) included, and
-the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives twenty-one paths
+the fold kernel (W' * gain, once a deployment) bit for bit.  Then it drives twenty-two paths
 through the entry points a user calls, each with the launch counts set
 to 0 just before it and read just after (a check's own launches inside
 a path left out):
@@ -26,6 +26,12 @@ a path left out):
    then a telemetry-on cold deploy of its first TELEMETRY_DEPLOY_LAYERS
    layers through a fresh plan cache, its ``deploy/*`` self-times and
    cache counters (cim_mvm, flash_attention, manhattan_score);
+1b. phi3-cost: the same engine's prefill and a decode step counted by
+   ``repro_torch.launch.op_cost`` (each kernel by its cost rule, each
+   aten op as it runs), equal to the same forwards traced on ``meta``
+   tensors, then profiled: each kernel's and the top aten ops' device
+   time beside their counted bound; the dry-run's phi3 cells
+   (cim_mvm, flash_attention);
 2. phi3-continuous: the first CONT_LAYERS layers of the same weights
    through ``ContinuousEngine`` (capacity 8, a cold deploy through a
    fresh plan cache), held against a ServeEngine of that depth, 16 requests
@@ -173,6 +179,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import importlib.util
 import itertools
 import json
 import math
@@ -188,15 +195,29 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
-# f32 operations/s outside the tensor cores.
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-# Dense TF32 tensor-core operations/s; a 3xTF32 product counts 3.
-PEAK_TF32 = 495e12
-# Dense bf16 tensor-core operations/s; flash's bf16 prefill form counts 1
-# product for Q.K^T and 3 for P.V (P in three bf16 pieces).
-PEAK_BF16 = 989e12
+
+def _load_roofline():
+    """``src/repro_torch/launch/roofline.py`` of this checkout, loaded by
+    its path: the card's published peaks live there alone.  Loaded
+    without importing the package, because ``cim_ab.py`` imports this
+    module before it puts the checkout it times on the path."""
+    path = os.path.join(ROOT, "src", "repro_torch", "launch", "roofline.py")
+    spec = importlib.util.spec_from_file_location("_chip_smoke_roofline",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM3
+# bytes/s, f32 and f64 operations/s outside the tensor cores, dense TF32
+# (a 3xTF32 product counts 3) and bf16 (flash's bf16 prefill form counts 1
+# product for Q.K^T and 3 for P.V) tensor-core operations/s.
+ROOFLINE = _load_roofline()
+PEAK_BYTES, PEAK_F32, PEAK_F64, PEAK_TF32, PEAK_BF16 = (
+    ROOFLINE.PEAK_BYTES, ROOFLINE.PEAK_F32, ROOFLINE.PEAK_F64,
+    ROOFLINE.PEAK_TF32, ROOFLINE.PEAK_BF16)
 # The long-cache decode case of the bf16 flash check: a cache this long
 # splits over a cluster (about 200 MB of K/V at phi3's heads).
 LONG_C = 4096
@@ -310,6 +331,7 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
                                "manhattan_score"),
                 "phi3-telemetry": ("cim_mvm", "flash_attention",
                                    "manhattan_score"),
+                "phi3-cost": ("cim_mvm", "flash_attention"),
                 "phi3-launch": ("flash_attention",),
                 "phi3-train-launch": ()}
 # The paths each kernel record's form runs on (its launches are its
@@ -317,11 +339,12 @@ PATH_KERNELS = {"phi3": ("cim_mvm", "flash_attention", "manhattan_score"),
 RECORD_PATHS = {
     "cim_mvm": ("phi3", "phi3-continuous", "qwen2-moe", "hymba", "deepseek",
                 "internvl2", "musicgen", "mixtral", "phi3-train",
-                "phi3-telemetry"),
+                "phi3-telemetry", "phi3-cost"),
     "cim_mvm[bf16 x, deepseek]": ("deepseek",),
     "cim_mvm[bf16 x, internvl2]": ("internvl2",),
     "cim_mvm[bf16 x, musicgen]": ("musicgen",),
-    "flash_attention": ("phi3", "phi3-continuous", "phi3-telemetry"),
+    "flash_attention": ("phi3", "phi3-continuous", "phi3-telemetry",
+                        "phi3-cost"),
     "manhattan_score": tuple(PATH_KERNELS),
     "slstm_scan": (),                 # the xlstm path now serves bf16
     "bitslice_pack": ("export",),
@@ -408,8 +431,16 @@ def host_us(fn, iters: int = 200) -> float:
 
 def bound(n_bytes: float, n_ops: float,
           peak_ops: float = PEAK_F32) -> tuple[float, str]:
-    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / peak_ops
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+    """``roofline.bound`` in ms."""
+    t, by = ROOFLINE.bound(n_ops, n_bytes, peak_ops)
+    return t * 1e3, by
+
+
+def cost_ms(cost) -> tuple[float, str]:
+    """A kernel rule's ``Cost`` (each kernel's ``ops.cost``) as (bound
+    ms, the term that sets it)."""
+    t, by = cost.bound()
+    return t * 1e3, by
 
 
 def phase_card() -> str:
@@ -538,6 +569,7 @@ def _check_cim(g, deps=None, rows=(1, B, CAPACITY, CONT_PROMPT, B * PROMPT),
         cim_geometry,
         cim_mvm,
     )
+    from repro_torch.kernels.cim_mvm.ops import cost as cim_cost
     from repro_torch.kernels.cim_mvm.ref import (
         cim_effective_weights,
         cim_mvm_plain,
@@ -573,12 +605,13 @@ def _check_cim(g, deps=None, rows=(1, B, CAPACITY, CONT_PROMPT, B * PROMPT),
             ms = device_ms(lambda: cim_mvm(x, dep))
             plain_ms = cuda_ms(lambda: cim_mvm_plain(x, dep), iters=5)
             lib_ms = device_ms(lambda: xw @ w_eff)
-            n_bytes = (x.numel() * x.element_size() + dep_bytes + 4
-                       + M * N * 4)
+            rule = cim_cost(M, dep, bf)
+            n_bytes = rule.bytes
             flops = 2.0 * M * I * N
             b_ms, b_by = bound(n_bytes, flops)
             tc_ms, tc_by = bound(n_bytes, (2 if bf else 3) * flops,
                                  PEAK_TF32)
+            r_ms, r_by = cost_ms(rule)       # the form's bound
             bytes_ms = n_bytes / PEAK_BYTES * 1e3
             line = (f"{name} {label} M={M:4d} I={I} N={N}: "
                     f"{'decode' if decode else 'prefill'} form; max_abs_err "
@@ -590,7 +623,7 @@ def _check_cim(g, deps=None, rows=(1, B, CAPACITY, CONT_PROMPT, B * PROMPT),
                     f"{bytes_ms:.4f} ms ({n_bytes / 1e6:.1f} MB)")
             rec = dict(M=M, I=I, N=N, form="decode" if decode else "prefill",
                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                       bound_ms=r_ms, bound_by=r_by, library_ms=lib_ms,
                        bound_bytes_ms=bytes_ms)
             if decode:
                 cold = device_ms(lambda d: cim_mvm(x, d), args=deps_cold)
@@ -600,8 +633,7 @@ def _check_cim(g, deps=None, rows=(1, B, CAPACITY, CONT_PROMPT, B * PROMPT),
                 rec.update(ms=cold, library_ms=lib_cold, ms_warm=ms,
                            library_ms_warm=lib_ms)
             else:
-                rec.update(bound_ms=tc_ms, bound_by=tc_by,
-                           bound_f32_ms=b_ms)
+                rec.update(bound_f32_ms=b_ms)
             print(line)
             if not ok:
                 raise AssertionError(f"{name} disagrees at {label} M={M}")
@@ -730,7 +762,11 @@ def _check_cim_fold(built: dict) -> dict:
     three matrix shapes with every operand: bit for bit against its plain
     version, device time a matrix beside its byte bound and the plain
     version's time.  No single PyTorch call computes it."""
-    from repro_torch.kernels.cim_mvm.ops import fold_geometry, fold_weights
+    from repro_torch.kernels.cim_mvm.ops import (
+        fold_cost,
+        fold_geometry,
+        fold_weights,
+    )
     from repro_torch.kernels.cim_mvm.ref import folded_weights
 
     regimes = {}
@@ -742,8 +778,8 @@ def _check_cim_fold(built: dict) -> dict:
         exact = torch.equal(got, want)
         ms = device_ms(lambda: fold_weights(dep))
         plain_ms = cuda_ms(lambda: folded_weights(dep), iters=3)
-        n_bytes = _operand_bytes(dep) + 4 + got.numel() * 4
-        b_ms, b_by = bound(n_bytes, 0.0)
+        n_bytes = fold_cost(dep).bytes
+        b_ms, b_by = cost_ms(fold_cost(dep))
         rows = dep.codes.shape[0] // dep.col_pos.shape[0]
         geom = fold_geometry(*dep.codes.shape, dep.wpt, dep.n_bits,
                              dep.cols, dep.reversed_df, True, rows)
@@ -788,6 +824,7 @@ def _check_cim_nonideal(g, built: dict) -> list[dict]:
         cim_mvm,
         fold,
     )
+    from repro_torch.kernels.cim_mvm.ops import cost as cim_cost
     from repro_torch.kernels.cim_mvm.ref import (
         cim_mvm_plain,
         deployment_weights,
@@ -828,20 +865,21 @@ def _check_cim_nonideal(g, built: dict) -> list[dict]:
                 plain_ms = cuda_ms(lambda: cim_mvm_plain(x, raw, seed),
                                    iters=3)
                 lib_ms = device_ms(lambda: xf @ w_eff)
-                io = x.numel() * 2 + 4 + M * N * 4
-                n_bytes, unf_bytes = io + dep_bytes, io + old_bytes
-                flops = 2.0 * M * I * N
-                extra_ops = n_ops * I * N if dep.sigma_read else 0.0
-                b_ms, b_by = bound(n_bytes, flops + extra_ops)
-                # Prefill: the products on the tensor cores (3xTF32 with
-                # f32 x; bf16 x has no lo part: 2 TF32 products), the
-                # noise on the CUDA cores beside them.
-                t_b, t_tc, t_alu = (n_bytes / PEAK_BYTES,
-                                    2 * flops / PEAK_TF32,
-                                    extra_ops / PEAK_F32)
-                tc_ms = max(t_b, t_tc, t_alu) * 1e3
-                tc_by = "bytes" if t_b >= max(t_tc, t_alu) else "operations"
+                # The rule (cim_mvm/ops.py::cost): the decode form's
+                # products and noise on the f32 pipe; the prefill form's
+                # products on the tensor cores (bf16 x has no lo part: 2
+                # TF32 products), the noise on the CUDA cores beside them.
                 decode = M <= DECODE_MAX_M
+                noisy = bool(dep.sigma_read)
+                rule = cim_cost(M, dep, True, noisy, n_ops)
+                n_bytes = rule.bytes
+                unf_bytes = n_bytes - dep.folded.numel() * 4 + old_bytes
+                flops = 2.0 * M * I * N
+                extra_ops = n_ops * I * N if noisy else 0.0
+                b_ms, b_by = bound(n_bytes, flops + extra_ops)
+                tc_ms, tc_by = cost_ms(rule._replace(
+                    flops=2 * flops, peak=PEAK_TF32, f32_ops=extra_ops))
+                r_ms, r_by = cost_ms(rule)   # the form's bound
                 geom = cim_geometry(M, I, N, *dep.codes.shape, dep.wpt,
                                     dep.n_bits, dep.cols, dep.reversed_df,
                                     _sm_count(0), True, True, True,
@@ -862,7 +900,7 @@ def _check_cim_nonideal(g, built: dict) -> list[dict]:
                         f"{tc_ms:.4f} ms ({tc_by}, TF32 products); "
                         f"{_occ_text(occ)}")
                 rec = dict(M=M, I=I, N=N, max_abs_err=err, ms=ms,
-                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           plain_ms=plain_ms, bound_ms=r_ms, bound_by=r_by,
                            library_ms=lib_ms,
                            bound_unfolded_bytes_ms=unf_bytes / PEAK_BYTES
                            * 1e3,
@@ -875,8 +913,7 @@ def _check_cim_nonideal(g, built: dict) -> list[dict]:
                     rec.update(ms=cold, library_ms=lib_cold, ms_warm=ms,
                                library_ms_warm=lib_ms)
                 else:
-                    rec.update(bound_ms=tc_ms, bound_by=tc_by,
-                               bound_f32_ms=b_ms)
+                    rec.update(bound_f32_ms=b_ms)
                 print(line)
                 if not ok:
                     raise AssertionError(f"cim_mvm[{form}] disagrees at "
@@ -1055,12 +1092,14 @@ def _check_flash(g, dtype=torch.float32, built: dict | None = None,
         # need no read).
         seen = int(mask.any(1).sum().item()) * (Bq if mask.shape[0] == 1
                                                 else 1)
-        n_bytes = (2 * q.numel() + 2 * seen * Hkv * Dh) * esize \
-            + (qpos.numel() + kpos.numel()) * 4
-        # Q.K^T and P.V over the valid pairs, 2 Dh operations each.
+        # The rule (flash_attention/ops.py::cost) at these pairs and key
+        # slots: the decode forms' f32 operations, the prefill forms'
+        # tensor-core products (f32 3xTF32: 3 a product; bf16 1 for
+        # Q.K^T and 3 for P.V).
+        rule = ops.cost(Bq, Sq, H, Hkv, Dh, bf, pairs // H, seen,
+                        qpos.numel() + kpos.numel())
+        n_bytes = rule.bytes
         b_ms, b_by = bound(n_bytes, pairs * 4.0 * Dh)
-        # Tensor-core products: f32 3xTF32 (3 a product); bf16 1 for
-        # Q.K^T and 3 for P.V.
         tc_ops, tc_peak = ((2 * pairs * 4.0 * Dh, PEAK_BF16) if bf
                            else (3 * pairs * 4.0 * Dh, PEAK_TF32))
         tc_ms, tc_by = bound(n_bytes, tc_ops, tc_peak)
@@ -1084,9 +1123,9 @@ def _check_flash(g, dtype=torch.float32, built: dict | None = None,
         # The prefill forms run their products on tensor cores, the
         # decode forms in f32 on the CUDA cores.
         pre = Sq > DECODE_MAX_SQ
+        r_ms, r_by = cost_ms(rule)
         rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=tc_ms if pre else b_ms,
-                   bound_by=tc_by if pre else b_by, library_ms=lib_ms,
+                   bound_ms=r_ms, bound_by=r_by, library_ms=lib_ms,
                    bound_bytes_ms=n_bytes / PEAK_BYTES * 1e3)
         if pre:
             rec["bound_f32_ms"] = b_ms
@@ -1148,6 +1187,7 @@ def _check_manhattan(g) -> dict:
     version, device time of each beside its byte bound."""
     from repro_torch.core.bitslice import codes_to_bits, quantize_magnitude
     from repro_torch.core.tiling import CrossbarSpec, tile_masks
+    from repro_torch.kernels.manhattan_score.ops import cost as score_cost
     from repro_torch.kernels.manhattan_score.ops import manhattan_score
     from repro_torch.kernels.manhattan_score.ref import manhattan_score_plain
 
@@ -1172,9 +1212,7 @@ def _check_manhattan(g) -> dict:
         plain_ms = cuda_ms(lambda: manhattan_score_plain(masks, spec.nf_unit,
                                                          rev, rp), iters=5)
         # Masks in, scores and counts and NF out (and the placement in).
-        n_bytes = (masks.numel() + T * 64 * 4 * 2 + T * 4
-                   + (0 if rp is None else rp.numel() * 4))
-        b_ms, b_by = bound(n_bytes, 3.0 * masks.numel())
+        b_ms, b_by = cost_ms(score_cost(T, 64, 64, rp is not None))
         forms[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by)
         print(f"manhattan_score {name} T={T} 64x64: kernel {ms:.4f} ms, "
@@ -1240,6 +1278,7 @@ def _check_slstm_scan(g) -> dict:
         slstm_geometry,
         slstm_scan,
     )
+    from repro_torch.kernels.slstm_scan.ops import cost as slstm_cost
     from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
 
     H, Dh = 4, 512
@@ -1264,10 +1303,8 @@ def _check_slstm_scan(g) -> dict:
                  for a, b in zip(got, want))
         ms = device_ms(lambda: slstm_scan(gx, r, h0, c0))
         plain_ms = cuda_ms(lambda: slstm_scan_plain(gx, r, h0, c0), iters=3)
-        n_bytes = 4 * (gx.numel() + r.numel() + 4 * h0.numel()
-                       + B * T * H * Dh)
         # h @ R per step (2 Dh ops a gate column), ~20 for the gates.
-        b_ms, b_by = bound(n_bytes, B * T * H * (2.0 * Dh * 4 * Dh + 20 * Dh))
+        b_ms, b_by = cost_ms(slstm_cost(B, T, H, Dh))
         print(f"slstm_scan {name} B={B} T={T} H={H} Dh={Dh}: max_abs_err "
               f"{err:.3e} (tol {SLSTM_TOL:g}(1+|ref|)) "
               f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
@@ -1290,16 +1327,17 @@ def _check_slstm_scan(g) -> dict:
 
 def _slstm_bounds(B: int, T: int, H: int, Dh: int) -> dict:
     """The least time of slstm_scan's work at (B, T, H, Dh), bf16 gx and
-    R, f32 state: the bytes (each input once, each output once), h @ R
-    and the gates (~20 a dim) on the f32 pipe, and h @ R on the bf16
-    tensor cores as the scan form computes it (3 products a product: h
-    in three bf16 pieces)."""
-    n_bytes = 2 * (B * T * H * 4 * Dh + H * Dh * 4 * Dh) \
-        + 4 * (4 * B * H * Dh + B * T * H * Dh)
-    prod = 2.0 * B * T * H * Dh * 4 * Dh
-    return dict(bytes=n_bytes / PEAK_BYTES * 1e3,
-                f32=(prod + 20.0 * B * T * H * Dh) / PEAK_F32 * 1e3,
-                bf16=3 * prod / PEAK_BF16 * 1e3)
+    R, f32 state, from its rule (slstm_scan/ops.py::cost): the bytes
+    (each input once, each output once), h @ R and the gates (~20 a dim)
+    on the f32 pipe, and h @ R on the bf16 tensor cores as the scan form
+    computes it (3 products a product: h in three bf16 pieces)."""
+    from repro_torch.kernels.slstm_scan.ops import FORM_SCAN, cost
+
+    f32, scan = cost(B, T, H, Dh, 2, 2, 4), cost(B, T, H, Dh, 2, 2, 4,
+                                                 FORM_SCAN)
+    return dict(bytes=f32.bytes / PEAK_BYTES * 1e3,
+                f32=f32.flops / PEAK_F32 * 1e3,
+                bf16=scan.flops / PEAK_BF16 * 1e3)
 
 
 def _slstm_built(built: dict, prefix: str, also: str = "") -> dict:
@@ -1639,6 +1677,7 @@ def phase_export(eng) -> tuple[dict, dict]:
     from repro_torch.deploy import spec_from_config
     from repro_torch.kernels import runtime
     from repro_torch.kernels.bitslice_pack import bitslice_pack
+    from repro_torch.kernels.bitslice_pack.ops import cost as pack_cost
     from repro_torch.kernels.bitslice_pack.ref import bitslice_pack_plain
     from repro_torch.mapping import resolve_pipeline
 
@@ -1670,9 +1709,8 @@ def phase_export(eng) -> tuple[dict, dict]:
     ms = cuda_ms(lambda: bitslice_pack(signed, K, rev))
     ms16 = cuda_ms(lambda: bitslice_pack(c16, K, rev))
     plain_ms = cuda_ms(lambda: bitslice_pack_plain(signed, K, rev), iters=3)
-    n = signed.numel()
     # Integer shift/and/or per plane, counted at the f32 rate.
-    b_ms, b_by = bound(n * 4 + n * K, 3.0 * K * n)
+    b_ms, b_by = cost_ms(pack_cost(signed.numel(), K, 4))
     print(f"bitslice_pack {tuple(signed.shape)} K={K}: exact in both "
           f"orientations, int32 and int16 codes; kernel {ms:.4f} ms "
           f"(int16 codes {ms16:.4f} ms), plain {plain_ms:.4f} ms, bound "
@@ -2489,6 +2527,7 @@ def _batched_record(eng, built: dict) -> dict:
     noise, beside the earlier form's."""
     from repro_torch.kernels.cim_mvm.ops import (
         _sm_count,
+        batched_cost,
         batched_geometry,
         cim_mvm_batched,
     )
@@ -2514,10 +2553,10 @@ def _batched_record(eng, built: dict) -> dict:
                          for r in reps])
     lib_ms = device_ms(lambda: torch.bmm(probes, w_eff))
     del w_eff
-    i_pad, ld = bank.folded.shape[1:]
     N = bank.out_dim
-    n_bytes = G * i_pad * ld * 4 + probes.numel() * 4 + G * M * N * 4 + 4 * G
-    b_ms, b_by = bound(n_bytes, 2.0 * G * M * I * N + n_ops * G * I * N)
+    rule = batched_cost(G, M, bank, False, True, n_ops)
+    n_bytes = rule.bytes
+    b_ms, b_by = cost_ms(rule)
     occs = {}
     for noise in (True, False):
         geom = batched_geometry(G, M, I, N, *bank.codes.shape[1:], bank.wpt,
@@ -2939,23 +2978,17 @@ def _health_under_load(cfg, params, kw) -> None:
 
 # ---------------------------------------------------------------- circuit
 
-# Published f64 peak of one H100 SXM outside the tensor cores (NVIDIA
-# data sheet); the line-solve kernel's arithmetic runs there.
-PEAK_F64 = 34e12
-# Operations a node of the line solve takes: its diagonal (2), the
-# pivot (2), one reciprocal, c (1), y (3) and the back sweep (2).
-LINE_OPS = 11
 LINE_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 MIXED_TOL = 1e-6     # mixed vs f64 currents (tests/test_solver_shard.py:77)
 
 
 def _line_bound(T: int, J: int, K: int, dtype) -> tuple[float, str]:
-    """r (two planes) and g read once, z (two planes) written once; the
-    operations at the f64 (or f32) rate outside the tensor cores."""
-    n = T * J * K
-    f64 = dtype == torch.float64
-    return bound(5 * n * (8 if f64 else 4), 2 * n * LINE_OPS,
-                 PEAK_F64 if f64 else PEAK_F32)
+    """``line_solve/ops.py::cost``: r (two planes) and g read once, z
+    (two planes) written once; the operations at the f64 (or f32) rate
+    outside the tensor cores."""
+    from repro_torch.kernels.line_solve.ops import cost
+
+    return cost_ms(cost(T, J, K, dtype))
 
 
 def _line_kernel(geom: dict) -> str:
@@ -3440,6 +3473,7 @@ def _check_grouped(eng, fw, g, name: str = "cim_mvm_grouped") -> dict:
         FORM_GROUPED_DECODE,
         FORM_GROUPED_PREFILL,
         cim_mvm_grouped,
+        grouped_cost,
         grouped_geometry,
         occupancy,
     )
@@ -3507,20 +3541,16 @@ def _check_grouped(eng, fw, g, name: str = "cim_mvm_grouped") -> dict:
         lib_ms = device_ms(lambda: torch.bmm(buf, W))
         hit = sum(1 for c in counts if c)
         rows = sum(counts)
-        per_expert = _bank_bytes(dep.layer(0))
-        n_bytes = (hit * per_expert + x.numel() * x.element_size()
-                   + x.shape[0] * dep.out_dim * 4 + (E + 1) * 4)
         bf = x.dtype == torch.bfloat16
         geom = grouped_geometry(E, cap, dep.in_dim, dep.out_dim,
                                 dep.codes.shape[2], dep.wpt, dep.n_bits,
                                 dep.cols, dep.reversed_df,
                                 dep.codes.data_ptr() % 16 == 0, bf,
                                 x.shape[0])
-        flops = 2.0 * rows * dep.in_dim * dep.out_dim
-        if geom.form == FORM_GROUPED_PREFILL:
-            b_ms, b_by = bound(n_bytes, (2 if bf else 3) * flops, PEAK_TF32)
-        else:
-            b_ms, b_by = bound(n_bytes, flops)
+        # The rule (cim_mvm/ops.py::grouped_cost) at this call's hits.
+        rule = grouped_cost(x.shape[0], cap, rows, hit, dep, bf)
+        n_bytes = rule.bytes
+        b_ms, b_by = cost_ms(rule)
         form = {FORM_GROUPED_DECODE: "decode", FORM_GROUPED_PREFILL:
                 "prefill"}.get(geom.form, "general")
         split = geom.gy if form != "general" else 1
@@ -3845,6 +3875,7 @@ def _grouped_folded_record(eng, fw, built: dict) -> dict:
         FORM_GROUPED_FOLDED_DECODE,
         FORM_GROUPED_FOLDED_PREFILL,
         cim_mvm_grouped,
+        grouped_cost,
         grouped_folded_geometry,
     )
     from repro_torch.kernels.cim_mvm.ref import (
@@ -3901,16 +3932,11 @@ def _grouped_folded_record(eng, fw, built: dict) -> dict:
                                        True, x.shape[0],
                                        torch.cuda.get_device_properties(0)
                                        .multi_processor_count)
-        n_bytes = (hit * dep.folded[0].numel() * 4
-                   + x.numel() * x.element_size()
-                   + x.shape[0] * N * 4 + (E + 1) * 4 + E * 4)
-        noise_n = hit * I * N * per_weight
-        if geom.form == FORM_GROUPED_FOLDED_PREFILL:
-            b_ms, b_by = max(bound(n_bytes, noise_n),
-                             bound(0.0, (2 if bf else 3) * 2.0 * rows * I
-                                   * N, PEAK_TF32))
-        else:
-            b_ms, b_by = bound(n_bytes, noise_n + 2.0 * rows * I * N)
+        # The rule (cim_mvm/ops.py::grouped_cost) at this call's hits.
+        rule = grouped_cost(x.shape[0], cap, rows, hit, dep, bf, True,
+                            per_weight)
+        n_bytes = rule.bytes
+        b_ms, b_by = cost_ms(rule)
         form, kname = kernels[geom.form]
         occ = _occupancy(built, f"{kname}<Lb1ELb{int(bf)}>", geom)
         print(f"cim_mvm_grouped_folded {regime} (layer 0 gate, read seed "
@@ -4208,7 +4234,7 @@ def _expert_batched_record(eng, built: dict) -> dict:
     loop and ``torch.bmm`` on W_eff with the noise materialised."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.cim_mvm.ops import cim_mvm_batched
+    from repro_torch.kernels.cim_mvm.ops import batched_cost, cim_mvm_batched
     from repro_torch.kernels.cim_mvm.ref import (
         cim_mvm_batched_plain,
         deployment_weights,
@@ -4237,8 +4263,9 @@ def _expert_batched_record(eng, built: dict) -> dict:
     lib_ms = device_ms(lambda: torch.bmm(xp, w_eff), iters=5)
     del w_eff, xp
     N = bank.out_dim
-    n_bytes = G * i_pad * ld * 4 + probes.numel() * 4 + G * M * N * 4 + 4 * G
-    b_ms, b_by = bound(n_bytes, 2.0 * G * M * I * N + n_ops * G * I * N)
+    rule = batched_cost(G, M, bank, False, True, n_ops)
+    n_bytes = rule.bytes
+    b_ms, b_by = cost_ms(rule)
     print(f"cim_mvm_batched over an expert group (ffn_we_gate, G = {G} = "
           f"{G // 60} layers x 60 experts through the bank's flat view, "
           f"M = {M}, {I}x{N}): max_abs_err {err:.3e} against the plain "
@@ -4955,6 +4982,211 @@ def _traced(path: str):
         tm.disable()
 
 
+# phi3-cost: the compiled names of each hand kernel of the main path
+# (the profiler's kernel events), the aten ops shown beside them, and the
+# most a row's counted bound may exceed its device time.
+COST_KERNELS = {"cim_mvm": ("cim_decode", "cim_prefill"),
+                "flash_attention": ("flash_decode", "flash_prefill")}
+COST_TOP_OPS = 8
+SHARE_MAX = 1.05
+
+
+def _cost_steps(cfg, params, cim, x, ops, dev):
+    """The counts (``op_cost.Result``) of one prefill of ``x`` from
+    position 0 and of the greedy decode step after it, each forward under
+    its own counter."""
+    from repro_torch.launch import op_cost
+    from repro_torch.models.model import apply_model, init_decode_state
+
+    state = init_decode_state(cfg, x.shape[0], MAX_SEQ, dev)
+    with op_cost.OpCost(0) as c:
+        logits, state = apply_model(params, cfg, x, state=state, cim=cim,
+                                    ops=ops)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        pre = c.result()
+    with op_cost.OpCost(x.shape[1]) as c:
+        apply_model(params, cfg, tok, state=state, decode=True, cim=cim,
+                    ops=ops)
+        dec = c.result()
+    return pre, dec
+
+
+def _same_counts(card, meta, what: str) -> None:
+    for part in ("kernels", "ops"):
+        a = {k: r.as_tuple() for k, r in getattr(card, part).items()}
+        b = {k: r.as_tuple() for k, r in getattr(meta, part).items()}
+        if a != b:
+            diff = {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
+                    if a.get(k) != b.get(k)}
+            raise AssertionError(f"phi3-cost {what}: the card's counted "
+                                 f"{part} differ from the meta trace's: "
+                                 f"{diff}")
+
+
+def _cost_table(what: str, res, fn, reps: int, wall_ms: float) -> dict:
+    """``fn`` (one forward) ``reps`` times under torch.profiler: each hand
+    kernel (its kernel events) and the top aten ops by counted bound
+    (their CPU events' device time), with counted and profiled launches,
+    device ms, counted GFLOP and GB, the bound and the share of it the
+    row reaches; then the forward's counted bound against its device
+    busy time and its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    cuda = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in cuda) / reps / 1e3
+    cpu = {e.key: e for e in events
+           if e.device_type != torch.autograd.DeviceType.CUDA}
+    rows = []
+    for name, r in res.kernels.items():
+        hits = [e for e in cuda if any(p in e.key
+                                       for p in COST_KERNELS[name])]
+        rows.append((name, r, sum(e.count for e in hits) / reps,
+                     sum(e.self_device_time_total for e in hits) / reps
+                     / 1e3))
+    for name, r in sorted(res.ops.items(), key=lambda kv: -kv[1].bound_s
+                          )[:COST_TOP_OPS]:
+        e = cpu.get(f"aten::{name}")
+        rows.append((name, r, e.count / reps if e else 0,
+                     e.device_time_total / reps / 1e3 if e else 0.0))
+    table, worst = {}, 0.0
+    print(f"  {what}: {'row':18s} {'counted':>8s} {'profiled':>8s} "
+          f"{'device ms':>10s} {'GFLOP':>9s} {'GB':>8s} {'bound ms':>9s} "
+          f"share")
+    for name, r, n, ms in rows:
+        bound_ms = r.bound_s * 1e3
+        share = bound_ms / ms if ms else None
+        if share is not None and share > worst:
+            worst = share
+        print(f"  {what}: {name:18s} {r.count:8d} {n:8.0f} "
+              f"{ms:10.4f} {r.flops / 1e9:9.3f} {r.bytes / 1e9:8.4f} "
+              f"{bound_ms:9.4f} "
+              + (f"{share:.3f}" if share is not None else "not measured"))
+        table[name] = dict(counted=r.count, profiled=n, device_ms=ms,
+                           gflop=r.flops / 1e9, gb=r.bytes / 1e9,
+                           bound_ms=bound_ms, share=share)
+    bound_ms = sum(r.bound_s for r in list(res.ops.values())
+                   + list(res.kernels.values())) * 1e3
+    bytes_ms = res.bytes_accessed / PEAK_BYTES * 1e3
+    print(f"  {what}: the forward's counted work {res.flops / 1e9:.3f} "
+          f"GFLOP and {res.bytes_accessed / 1e9:.4f} GB; its bound "
+          f"{bound_ms:.4f} ms (bytes alone {bytes_ms:.4f} ms); wall "
+          f"{wall_ms:.3f} ms ({wall_ms / bytes_ms:.1f}x its byte bound); "
+          + (f"device busy {busy:.4f} ms ({100 * bound_ms / busy:.1f}% of "
+             f"it the bound), idle {100 * max(0.0, 1 - busy / wall_ms):.1f}%"
+             if busy else "device busy not measured (no device events)"))
+    return dict(rows=table, bound_ms=bound_ms, bytes_ms=bytes_ms,
+                busy_ms=busy, wall_ms=wall_ms, worst_share=worst,
+                forward_share=bound_ms / busy if busy else None)
+
+
+def phase_cost(eng, prompts, tmp: str) -> dict:
+    """phi3-cost: the main path's counted work beside its device time.
+
+    One prefill of the B x PROMPT prompts and one decode step on the f32
+    mdm engine at full width and depth, counted by
+    ``repro_torch.launch.op_cost`` through ``counted(KERNELS)`` (each hand
+    kernel by its rule, ``ops.cost``; every aten op as it runs); the same
+    forwards traced on ``meta`` tensors with ``COST_OPS`` must count the
+    same operations and bytes, kernel by kernel and op by op.  Then each
+    forward under torch.profiler: a row for each kernel and the top aten
+    ops, beside its ``roofline.bound``; no kernel's share of its bound,
+    nor the forward's, may exceed SHARE_MAX (a bound above what the card
+    did is a count too high).  Last, the dry-run's phi3 prefill_32k and
+    decode_32k cells on ``meta``."""
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.models.model import (
+        KERNELS,
+        apply_model,
+        init_decode_state,
+    )
+
+    cfg, params, cim = eng.cfg, eng.params, eng.cim
+    x = prompts.cuda()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    pre, dec = _cost_steps(cfg, params, cim, x, op_cost.counted(KERNELS),
+                           "cuda")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mpre, mdec = _cost_steps(cfg, op_cost.to_meta(params),
+                             op_cost.to_meta(cim), x.to("meta"),
+                             op_cost.COST_OPS, "meta")
+    t_meta = time.perf_counter() - t0
+    _same_counts(pre, mpre, "prefill")
+    _same_counts(dec, mdec, "decode")
+    print(f"phase cost (phi3-cost): counted on the card (counted(KERNELS), "
+          f"{t_card:.2f} s) and on meta (COST_OPS, {t_meta:.2f} s): equal, "
+          f"kernel by kernel and op by op (prefill {len(pre.ops)} ops, "
+          f"decode {len(dec.ops)}); live bytes allocated, peak: prefill "
+          f"{pre.peak_bytes / 1e9:.3f} GB (meta {mpre.peak_bytes / 1e9:.3f}"
+          f"), decode {dec.peak_bytes / 1e6:.2f} MB (meta "
+          f"{mdec.peak_bytes / 1e6:.2f})")
+
+    state = init_decode_state(cfg, x.shape[0], MAX_SEQ, "cuda")
+    prefill = lambda: apply_model(params, cfg, x, state=state, cim=cim)
+    logits, after = prefill()
+    tok = logits[:, -1].argmax(-1)[:, None]
+    decode = lambda: apply_model(params, cfg, tok, state=after,
+                                 decode=True, cim=cim)
+    walls = {}
+    for what, fn, n in (("prefill", prefill, 3), ("decode", decode, 10)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        walls[what] = (time.perf_counter() - t0) / n * 1e3
+    out = {"prefill": _cost_table("prefill", pre, prefill, 2,
+                                  walls["prefill"]),
+           "decode": _cost_table("decode", dec, decode, 5, walls["decode"])}
+    counts = _launches("phi3-cost")
+    for what, t in out.items():
+        # The gate: the hand kernels (their weights stream from HBM) and
+        # the whole forward.  An aten row's bytes are at the HBM rate,
+        # which an op whose operands the card keeps in its 50 MB L2 may
+        # beat: such a row is printed, not held.
+        over = {k: r["share"] for k, r in t["rows"].items()
+                if k in COST_KERNELS and r["share"] is not None
+                and r["share"] > SHARE_MAX}
+        if t["forward_share"] is not None and t["forward_share"] > SHARE_MAX:
+            over["the forward"] = t["forward_share"]
+        if over:
+            raise AssertionError(f"phi3-cost {what}: shares of the bound "
+                                 f"above {SHARE_MAX}: {over}")
+        l2 = {k: round(r["share"], 3) for k, r in t["rows"].items()
+              if k not in COST_KERNELS and r["share"] is not None
+              and r["share"] > SHARE_MAX}
+        if l2:
+            print(f"  {what}: aten rows past their HBM-rate bound (operands "
+                  f"served from L2): {l2}")
+    for shape in ("prefill_32k", "decode_32k"):
+        rec = dryrun.run_cell(cfg.name, shape, out_dir=os.path.join(
+            tmp, "dryrun"))
+        print(f"  dry-run {dryrun.summary(rec)}")
+        if not rec["ok"]:
+            raise AssertionError(f"dry-run {shape} failed: {rec['error']}")
+        r, m = rec["roofline"], rec["memory"]
+        print(f"    {shape}: {r['flops'] / 1e12:.2f} TFLOP, "
+              f"{r['bytes'] / 1e9:.1f} GB counted; compute "
+              f"{r['t_compute_s'] * 1e3:.1f} ms, memory "
+              f"{r['t_memory_s'] * 1e3:.1f} ms; arguments "
+              f"{m['argument_bytes'] / 1e9:.1f} GB, peak "
+              f"{m['peak_bytes'] / 1e9:.1f} GB; kernels {rec['kernels']}")
+    return counts
+
+
 def phase_telemetry(eng, prompts, tokens, tmp: str) -> dict:
     """phi3-telemetry: the phi3 path's f32 mdm engine serving the same
     batch with telemetry off and on (a span sink open), tokens bit for
@@ -5196,6 +5428,8 @@ def phase_paths(records: list[dict], built: dict, tmp: str,
     by_path["phi3-telemetry"] = phase_telemetry(
         eng, prompts, tokens, os.path.join(tmp, "phi3-telemetry"))
     lap("phi3-telemetry")
+    by_path["phi3-cost"] = phase_cost(eng, prompts, tmp)
+    lap("phi3-cost")
     # phi3-continuous at CONT_LAYERS layers, held against a ServeEngine of
     # the same depth (deployed uncached, as its cold deploy's yardstick).
     cont_cfg = cfg.replace(n_layers=CONT_LAYERS)

@@ -5,8 +5,10 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
     CimConfig,
     ModelConfig,
+    ShapeConfig,
     TrainConfig,
     check_supported,
 )
@@ -32,3 +34,11 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
                        f"{sorted(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def arch_shape_cells() -> list[tuple[str, str]]:
+    """The (arch x shape) cells of the dry-run, in the reference's order:
+    long_500k only for an arch that supports long context."""
+    return [(arch, shape) for arch in ARCHS for shape in SHAPES
+            if shape != "long_500k"
+            or get_config(arch).supports_long_context]

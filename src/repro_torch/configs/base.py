@@ -5,8 +5,9 @@ defaults match the reference, so a reference config converts field by
 field.  Only the fields the port's paths read are kept: the ``"attn"``
 decoder (dense or MoE, with or without qkv bias, SwiGLU or GELU MLP,
 token or stub-frontend inputs), the mamba / hybrid blocks and the xLSTM
-stack, the two knobs training reads (``remat``, ``loss_chunk``) and
-:class:`TrainConfig`; the reference's sharding and TPU-layout knobs are
+stack, the two knobs training reads (``remat``, ``loss_chunk``),
+:class:`TrainConfig` and the dry-run's :class:`ShapeConfig` cells
+(``SHAPES``); the reference's sharding and TPU-layout knobs are
 not ported.
 """
 from __future__ import annotations
@@ -102,8 +103,39 @@ class ModelConfig:
         """Vocab padded to a 128 multiple; padded logits are masked."""
         return ((self.vocab_size + 127) // 128) * 128
 
+    @property
+    def is_recurrent_only(self) -> bool:
+        return all(b in ("mamba", "mlstm", "slstm")
+                   for b in self.block_pattern)
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Decode state O(1) in context (recurrent) or windowed attention:
+        the long_500k eligibility rule."""
+        has_global_attn = any(b in ("attn", "hybrid")
+                              for b in self.block_pattern)
+        return (not has_global_attn) or self.sliding_window > 0
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell of the dry-run (the reference's)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

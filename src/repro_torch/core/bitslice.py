@@ -97,3 +97,25 @@ def unbitslice(sliced: SlicedWeights) -> torch.Tensor:
     codes = bits_to_codes(sliced.bits)
     mag = codes.to(torch.float32) * (sliced.scale / (1 << sliced.n_bits))
     return mag * sliced.sign.to(torch.float32)
+
+
+def quantization_error_bound(scale: torch.Tensor, n_bits: int
+                             ) -> torch.Tensor:
+    """Max absolute rounding error of the bit-sliced representation."""
+    return scale * 0.5 * 2.0 ** (-n_bits)
+
+
+def column_density(bits: torch.Tensor) -> torch.Tensor:
+    """Fraction of active cells a bit plane, (K,) f32: the p_k estimate
+    of Theorem 1 (``core/theory.py``).  The mean is the sum times 1/n
+    rounded to f32, as XLA computes ``jnp.mean``."""
+    return mean_f32(bits.reshape(-1, bits.shape[-1]).to(torch.float32), 0)
+
+
+def mean_f32(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """``jnp.mean`` of f32 ``x`` bit for bit where the sum is exact: the
+    sum times the f32 reciprocal of the count (``torch.mean`` divides,
+    one ulp apart at times)."""
+    n = x.numel() if dim is None else x.shape[dim]
+    s = x.sum() if dim is None else x.sum(dim)
+    return s * (1.0 / n)

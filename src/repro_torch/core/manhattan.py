@@ -80,6 +80,19 @@ def optimal_row_order(active: torch.Tensor) -> torch.Tensor:
                                active.shape[-1])
 
 
+def placement_cost(active: torch.Tensor) -> torch.Tensor:
+    """NF-proportional cost of the current row placement: sum_j j n_j
+    (the permutable term) plus the placement-independent sum_jk
+    delta_jk k, i.e. :func:`aggregate_distance`."""
+    return aggregate_distance(active)
+
+
+def antidiagonal_mirror(active: torch.Tensor) -> torch.Tensor:
+    """(j, k) -> (k, j) of a square tile: every anti-diagonal j + k maps
+    onto itself, so the mirrored tile has the same Eq 16 NF (Fig 2)."""
+    return active.transpose(-1, -2)
+
+
 def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
     """position[..., perm[..., p]] = p (int32), the inverse of a batch of
     permutations along the last axis."""

@@ -191,3 +191,11 @@ def placed_masks(bits: torch.Tensor, plan: MdmPlan,
         masks = torch.gather(masks, -1, cidx)
     idx = plan.row_perm.to(torch.int64)[..., None].expand_as(masks)
     return torch.gather(masks, -2, idx)
+
+
+def permute_inputs(x_tile: torch.Tensor, plan: MdmPlan, ti: int,
+                   tn: int) -> torch.Tensor:
+    """The digital input mux: the activations (..., rows) feeding tile
+    (ti, tn), in physical-row order.  Row sums are order-free, so the
+    tile's column outputs are unchanged (MDM preserves the matmul)."""
+    return x_tile[..., plan.row_perm[ti, tn].to(torch.int64)]

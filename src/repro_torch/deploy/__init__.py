@@ -25,6 +25,8 @@ from repro_torch.deploy.lifetime import (  # noqa: F401
 from repro_torch.deploy.engine import (  # noqa: F401
     DEPLOYABLE,
     collect_model_matrices,
+    collect_projection_matrices,
+    deploy_matrices,
     deploy_model_params,
     package_deployment_host,
     spec_from_config,
@@ -33,5 +35,6 @@ from repro_torch.deploy.planner import (  # noqa: F401
     fingerprint_matrices,
     plan_matrices,
     plan_matrix,
+    plan_model_tiles,
     quantize_codes_host,
 )

@@ -46,6 +46,7 @@ from repro_torch import telemetry as tm
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.core.bitslice import quantize_magnitude
 from repro_torch.core.mdm import MdmPlan
+from repro_torch.core.noise import PAPER_ETA
 from repro_torch.core.tiling import CrossbarSpec
 from repro_torch.deploy.cache import PlanCache
 from repro_torch.deploy.planner import plan_matrices
@@ -160,6 +161,29 @@ def collect_model_matrices(params: dict, cfg: ModelConfig, pipeline=None
     summary = {"deployed": list(mats), "skipped": skipped,
                "n_deployed": len(mats), "n_skipped": len(skipped)}
     return mats, summary
+
+
+def collect_projection_matrices(params: dict, cfg: ModelConfig
+                                ) -> dict[str, torch.Tensor]:
+    """The deployable matrices alone, under the dense ``"mdm"``
+    partition (the reference's back-compat view of
+    :func:`collect_model_matrices`)."""
+    return collect_model_matrices(params, cfg, "mdm")[0]
+
+
+def deploy_matrices(mats: dict[str, torch.Tensor], spec: CrossbarSpec,
+                    mode="mdm", eta: float | None = None,
+                    cache: PlanCache | None = None
+                    ) -> tuple[dict[str, CimDeployment], dict]:
+    """Plan a named set of (I, N) matrices (:func:`plan_matrices`,
+    through ``cache`` if given) and package each as a deploy does:
+    ({name: CimDeployment}, the planner's report), each deployment on
+    its matrix's device."""
+    eta = PAPER_ETA if eta is None else eta
+    plans, report = plan_matrices(mats, spec, mode, cache=cache)
+    deps = {name: package_deployment_host(w, spec, mode, eta, plans[name])
+            for name, w in mats.items()}
+    return deps, report
 
 
 class StageClock:

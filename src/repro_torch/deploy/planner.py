@@ -91,6 +91,12 @@ def plan_matrix(w: torch.Tensor, spec: CrossbarSpec,
     return plan, codes, sign, scale
 
 
+def plan_model_tiles(mats: Mapping[str, torch.Tensor],
+                     spec: CrossbarSpec) -> int:
+    """Crossbar tiles of a matrix set (the planning workload)."""
+    return sum(math.prod(spec.grid(*w.shape)) for w in mats.values())
+
+
 def _f32_fingerprint(w: torch.Tensor) -> str:
     return weight_fingerprint(w if w.dtype == torch.float32
                               else w.to(torch.float32))
@@ -171,8 +177,7 @@ def plan_matrices(mats: Mapping[str, torch.Tensor], spec: CrossbarSpec,
                              f"{tuple(w.shape)}")
     if lazy and cache is None:
         with tm.span("deploy/plan_lookup", matrices=len(mats)):
-            tiles = sum(math.prod(spec.grid(*w.shape))
-                        for w in mats.values())
+            tiles = plan_model_tiles(mats, spec)
         _H_PLAN.observe(tm.monotonic() - t0)
         _C_PLAN_TILES.inc(tiles)
         return LazyPlans(mats, spec, pipe, fault_maps), {

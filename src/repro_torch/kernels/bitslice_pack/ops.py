@@ -6,8 +6,16 @@ import torch
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import runtime
 from repro_torch.kernels.bitslice_pack.ref import bitslice_pack_plain
+from repro_torch.launch.roofline import PEAK_F32, Cost
 
 _CODE_BYTES = {torch.int16: 2, torch.int32: 4}
+
+
+def cost(n: int, n_bits: int, code_bytes: int = 4) -> Cost:
+    """The work of one :func:`bitslice_pack` of n codes: the codes read
+    and the n x n_bits image written, once; a shift, an and and an or a
+    plane, counted at the f32 rate."""
+    return Cost(3.0 * n_bits * n, PEAK_F32, n * code_bytes + n * n_bits)
 
 
 def bitslice_pack(codes: torch.Tensor, n_bits: int,

@@ -31,6 +31,12 @@ from repro_torch.core.noise import PAPER_ETA
 from repro_torch.core.tiling import CrossbarSpec
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import runtime
+from repro_torch.launch.roofline import (
+    PEAK_F32,
+    PEAK_TF32,
+    SM_COUNT,
+    Cost,
+)
 from repro_torch.kernels.cim_mvm.ref import (
     cim_mvm_batched_plain,
     cim_mvm_grouped_plain,
@@ -696,6 +702,92 @@ def occupancy(geom: runtime.Geometry) -> dict:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The read noise's instructions a weight, on the f32 pipe: the folded
+# forms' SASS with noise less without, over the weights drawn (PERF.md
+# section 6; chip_smoke.noise_ops reads it from each build).
+NOISE_OPS = 26.1
+
+
+def _member_bytes(dep: CimDeployment) -> int:
+    """Bytes one matrix of ``dep`` (a member of a stack) gives a read:
+    its folded W' (f32) where folded, else its codes and pos; and its
+    scale."""
+    t = (dep.folded,) if dep.folded is not None else (dep.codes, dep.pos)
+    n = dep.scale.numel()
+    return sum(x.numel() * x.element_size() for x in t) // n + 4
+
+
+def cost(M: int, dep: CimDeployment, xbf16: bool = False,
+         noise: bool = False, noise_ops: float = NOISE_OPS) -> Cost:
+    """The work of one :func:`cim_mvm` of x (M, in_dim) through one
+    deployment, from shapes: x, the matrix (:func:`_member_bytes`) and
+    y (f32) moved once; 2 M I N products and, with ``noise``,
+    ``noise_ops`` a weight.  The decode forms do both on the f32 pipe;
+    the prefill forms do the products as 3xTF32 on the tensor cores (2
+    with bf16 x, which has no low part) and the noise beside them."""
+    I, N = dep.in_dim, dep.out_dim
+    n_bytes = M * I * (2 if xbf16 else 4) + _member_bytes(dep) + M * N * 4
+    flops = 2.0 * M * I * N
+    extra = noise_ops * I * N if noise else 0.0
+    geom = cim_geometry(M, I, N, *dep.codes.shape[-2:], dep.wpt, dep.n_bits,
+                        dep.cols, dep.reversed_df, SM_COUNT, True, xbf16,
+                        dep.folded is not None, noise)
+    if geom.form in (FORM_DECODE, FORM_DECODE_FOLDED):
+        return Cost(flops + extra, PEAK_F32, n_bytes)
+    return Cost((2 if xbf16 else 3) * flops, PEAK_TF32, n_bytes, extra)
+
+
+def grouped_cost(A: int, cap: int, rows: int, hit: int, dep: CimDeployment,
+                 xbf16: bool = False, noise: bool = False,
+                 noise_ops: float = NOISE_OPS) -> Cost:
+    """The work of one :func:`cim_mvm_grouped` of x (A, in_dim) through
+    an expert bank at ``cap``, ``rows`` of x computed on ``hit`` experts:
+    x, y (f32) and the offsets moved once, each hit expert's matrix read
+    once (and, with ``noise``, the bank's tags); 2 rows I N products and
+    ``noise_ops`` a weight of a hit expert.  The prefill forms do the
+    products on the tensor cores (3xTF32, 2 with bf16 x), the decode and
+    general forms on the f32 pipe."""
+    E = dep.codes.shape[0]
+    I, N = dep.in_dim, dep.out_dim
+    n_bytes = (hit * _member_bytes(dep) + A * I * (2 if xbf16 else 4)
+               + A * N * 4 + (E + 1) * 4 + (E * 4 if noise else 0))
+    flops = 2.0 * rows * I * N
+    extra = noise_ops * hit * I * N if noise else 0.0
+    n_pad = dep.codes.shape[-1]
+    if dep.folded is not None:
+        form = grouped_folded_geometry(E, cap, I, N, n_pad, xbf16, noise, A,
+                                       SM_COUNT).form
+    else:
+        form = grouped_geometry(E, cap, I, N, n_pad, dep.wpt, dep.n_bits,
+                                dep.cols, dep.reversed_df, True, xbf16, A,
+                                SM_COUNT).form
+    if form in (FORM_GROUPED_PREFILL, FORM_GROUPED_FOLDED_PREFILL):
+        return Cost((2 if xbf16 else 3) * flops, PEAK_TF32, n_bytes, extra)
+    return Cost(flops + extra, PEAK_F32, n_bytes)
+
+
+def batched_cost(G: int, M: int, dep: CimDeployment, xbf16: bool = False,
+                 noise: bool = False,
+                 noise_ops: float = NOISE_OPS) -> Cost:
+    """The work of one :func:`cim_mvm_batched` of x (G, M, in_dim) over
+    G members of a stack: each member's fold and scale, x and y moved
+    once; 2 G M I N products and the noise on the f32 pipe."""
+    I, N = dep.in_dim, dep.out_dim
+    n_bytes = (G * _member_bytes(dep) + G * M * I * (2 if xbf16 else 4)
+               + G * M * N * 4)
+    return Cost(2.0 * G * M * I * N + (noise_ops * G * I * N if noise
+                                       else 0.0), PEAK_F32, n_bytes)
+
+
+def fold_cost(dep: CimDeployment) -> Cost:
+    """The work of :func:`fold_weights`: the unfolded operands (codes,
+    pos, gain, col_pos) and the scale read, the fold written, once."""
+    i_pad, n_pad = dep.codes.shape
+    n_bytes = sum(t.numel() * t.element_size() for t in (
+        dep.codes, dep.pos, dep.gain, dep.col_pos) if t is not None)
+    return Cost(0.0, PEAK_F32, n_bytes + 4 + i_pad * folded_ld(n_pad) * 4)
 
 
 def read_noise_amplitude(dep: CimDeployment) -> float:

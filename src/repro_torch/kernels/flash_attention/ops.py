@@ -10,6 +10,12 @@ import torch
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.launch.roofline import (
+    PEAK_BF16,
+    PEAK_F32,
+    PEAK_TF32,
+    Cost,
+)
 
 
 # Launch geometry of kernel.cu.  f32: the decode form for Sq <=
@@ -118,6 +124,40 @@ def occupancy(geom: runtime.Geometry, Dh: int) -> dict:
     rc = runtime.library().flash_occupancy(geom.array, Dh, out)
     runtime.check_status("flash_attention occupancy", rc)
     return dict(blocks_per_sm=out[0], clusters=out[1] or None)
+
+
+@functools.lru_cache(maxsize=None)
+def visible(pos0: int, S: int, C: int, window: int = 0) -> tuple[int, int]:
+    """(pairs, seen) of one lane: the (query, key) pairs that S queries
+    at positions pos0 .. pos0 + S - 1 attend over a ring of C slots
+    filled from position 0 (the serving engines' cache; a stateless
+    forward is the ring C = S), under ``window``, and the key slots
+    some query reads.  A query older than the ring's oldest key attends
+    to none (a prefill longer than the ring)."""
+    lo = max(0, pos0 + S - C)            # the oldest key the ring holds
+    pairs = sum(max(0, i - (max(lo, i - window + 1) if window else lo) + 1)
+                for i in range(pos0, pos0 + S))
+    first = max(lo, pos0 - window + 1) if window else lo
+    return pairs, max(0, pos0 + S - first)
+
+
+def cost(B: int, Sq: int, H: int, Hkv: int, Dh: int, bf16: bool,
+         pairs: int, seen: int, pos_elems: int = 0) -> Cost:
+    """The work of one :func:`flash_attention` from shapes and the
+    positions' counts: ``pairs`` (query, key) pairs a head and ``seen``
+    key slots read, each summed over the lanes (:func:`visible`); q read
+    and o written once, K and V at the seen slots, and ``pos_elems``
+    int32 positions.  Q.K^T and P.V take 2 Dh operations a pair each:
+    the decode forms on the f32 pipe, the prefill forms on the tensor
+    cores (3xTF32 in f32; in bf16 1 product for Q.K^T and 3 for P.V)."""
+    esize = 2 if bf16 else 4
+    n_bytes = (2 * B * Sq * H * Dh + 2 * seen * Hkv * Dh) * esize \
+        + pos_elems * 4
+    ops = 4.0 * Dh * pairs * H
+    if Sq <= DECODE_MAX_SQ:
+        return Cost(ops, PEAK_F32, n_bytes)
+    return Cost(2 * ops, PEAK_BF16, n_bytes) if bf16 \
+        else Cost(3 * ops, PEAK_TF32, n_bytes)
 
 
 def _pos_rows(p: torch.Tensor, B: int, S: int, name: str):

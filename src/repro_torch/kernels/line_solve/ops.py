@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.kernels import runtime
 from repro_torch.kernels.line_solve.ref import line_solve_plain
+from repro_torch.launch.roofline import PEAK_F32, PEAK_F64, Cost
 
 # A block's shared memory on Hopper (227 KB); the longest chain a family
 # (a thread a chain, 8 warps a family).
@@ -23,6 +24,20 @@ SHORT_ROW = 16
 GEOM_FIELDS = ("f64", "form", "reg_len", "stages", "pitch", "vec_load",
                "vec_store", "threads", "smem", "chunk", "grid")
 FORMS = ("fast", "stream")
+# Operations a node of a chain: its diagonal (2), the pivot (2), one
+# reciprocal, c (1), y (3) and the back sweep (2).
+LINE_OPS = 11
+
+
+def cost(T: int, J: int, K: int, dtype=torch.float64) -> Cost:
+    """The work of one :func:`line_solve` over T tiles of J x K: r (two
+    planes) and g read and z (two planes) written once; LINE_OPS a node
+    of each of the two chain families, at the f64 (or f32) rate outside
+    the tensor cores."""
+    n = T * J * K
+    f64 = dtype == torch.float64
+    return Cost(2.0 * n * LINE_OPS, PEAK_F64 if f64 else PEAK_F32,
+                5 * n * (8 if f64 else 4))
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,6 +6,7 @@ import torch
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import runtime
 from repro_torch.kernels.manhattan_score.ref import manhattan_score_plain
+from repro_torch.launch.roofline import PEAK_F32, Cost
 
 # The forms of kernel.cu: one byte at a time, or 16-byte loads and SIMD
 # byte arithmetic (packed column indices must fit a byte; a row's lanes
@@ -18,6 +19,15 @@ def score_form(cols: int, aligned: bool) -> int:
     """The kernel form for tiles of ``cols`` columns (any row count);
     ``aligned`` says whether the masks start on 16 bytes."""
     return VECTOR_FORM if aligned and cols in VECTOR_COLS else BYTE_FORM
+
+
+def cost(T: int, R: int, C: int, placed: bool = False) -> Cost:
+    """The work of one :func:`manhattan_score` over T tiles of R x C:
+    the masks (and a placement) read, scores, counts and NF written,
+    once; 3 operations a cell."""
+    n_bytes = T * R * C + T * R * 4 * 2 + T * 4 + (T * R * 4 if placed
+                                                      else 0)
+    return Cost(3.0 * T * R * C, PEAK_F32, n_bytes)
 
 
 def manhattan_score(masks: torch.Tensor, nf_unit: float = 1.0, *,

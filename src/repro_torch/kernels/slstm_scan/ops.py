@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import runtime
+from repro_torch.launch.roofline import PEAK_BF16, PEAK_F32, Cost
 from repro_torch.kernels.slstm_scan.ref import slstm_scan_plain
 
 # Launch geometry of kernel.cu: a cluster of CLUSTER blocks of THREADS
@@ -205,6 +206,25 @@ def slstm_form(B: int, T: int, Dh: int, r_bf16: bool) -> str:
             and DC_DIMS <= Dh <= DC_MAX_DH and 1 <= B <= DC_LANES:
         return FORM_DECODE
     return FORM_SCAN if Dh == TC_DH else FORM_GENERAL
+
+
+def cost(B: int, T: int, H: int, Dh: int, gx_bytes: int = 4,
+         r_bytes: int = 4, state_bytes: int = 4,
+         form: str = FORM_GENERAL) -> Cost:
+    """The work of one :func:`slstm_scan` from shapes (element sizes in
+    bytes): gx and R read, h0 and c0 read and hT, cT and hs written,
+    once; h @ R (2 Dh operations a gate column a step) and ~20 a dim a
+    step for the gates.  The scan form does h @ R on the bf16 tensor
+    cores as 3 products (h in three bf16 pieces), the gates beside it
+    on the f32 pipe; the general and decode forms all on the f32
+    pipe."""
+    n_bytes = (gx_bytes * B * T * H * 4 * Dh + r_bytes * H * Dh * 4 * Dh
+               + state_bytes * (4 * B * H * Dh + B * T * H * Dh))
+    prod = 2.0 * B * T * H * Dh * 4 * Dh
+    gates = 20.0 * B * T * H * Dh
+    if form == FORM_SCAN:
+        return Cost(3 * prod, PEAK_BF16, n_bytes, gates)
+    return Cost(prod + gates, PEAK_F32, n_bytes)
 
 
 def geometry(form: str, B: int, Dh: int, r_bf16: bool,

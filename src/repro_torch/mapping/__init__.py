@@ -21,6 +21,7 @@ from repro_torch.mapping.pipeline import (  # noqa: F401
     LEGACY_MODES,
     MappingPipeline,
     named_pipelines,
+    register_pipeline,
     resolve_pipeline,
 )
 from repro_torch.mapping.rows import (  # noqa: F401

@@ -121,6 +121,19 @@ _NAMED = {
 }
 
 
+def register_pipeline(name: str, pipe: MappingPipeline,
+                      override: bool = False) -> MappingPipeline:
+    """Register a named pipeline; a duplicate name raises unless
+    ``override=True`` (silent replacement would change what a config's
+    ``mode`` means)."""
+    if not override and name in _NAMED:
+        raise ValueError(f"pipeline {name!r} is already registered "
+                         f"({_NAMED[name].fingerprint()}); pass "
+                         "override=True to replace it")
+    _NAMED[name] = pipe
+    return pipe
+
+
 def named_pipelines() -> dict[str, MappingPipeline]:
     return dict(_NAMED)
 

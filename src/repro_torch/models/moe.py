@@ -72,10 +72,18 @@ def _route(logits: torch.Tensor, K: int):
     return probs, topk_w, topk_idx
 
 
+def _counts(idx: torch.Tensor, E: int) -> torch.Tensor:
+    """(E,) int64 occurrences of each expert in ``idx``: ``bincount``'s
+    counts with a shape known from E alone, so a step on ``meta``
+    tensors (the dry-run) runs it."""
+    return torch.zeros(E, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx.to(torch.int64), torch.ones_like(idx, dtype=torch.int64))
+
+
 def _aux_loss(probs: torch.Tensor, topk_idx: torch.Tensor,
               E: int) -> torch.Tensor:
     """E * sum(dispatch fraction * mean router probability)."""
-    frac = torch.bincount(topk_idx.reshape(-1), minlength=E).to(
+    frac = _counts(topk_idx.reshape(-1), E).to(
         torch.float32) / topk_idx.numel()
     return E * torch.sum(frac * probs.reshape(-1, E).mean(0))
 
@@ -209,7 +217,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, grouped,
     w_flat = topk_w.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     e_s, tok_s, w_s = e_flat[order], tok_flat[order], w_flat[order]
-    counts = torch.bincount(e_flat, minlength=E)
+    counts = _counts(e_flat, E)
     offsets = torch.cumsum(counts, 0) - counts                   # exclusive
     pos = torch.arange(T * K, device=dev) - offsets[e_s]
     keep = pos < cap

@@ -226,3 +226,18 @@ def materialize(cfg: ModelConfig, generator: torch.Generator,
         return {k: walk(v) for k, v in node.items()}
 
     return walk(model_schema(cfg))
+
+
+def abstract_params(cfg: ModelConfig, dtype: torch.dtype | None = None
+                    ) -> dict:
+    """The parameter dict of :func:`model_schema` as ``meta`` tensors in
+    ``dtype`` (default ``cfg.dtype``): shapes for the dry-run, nothing
+    allocated (the reference's ``ShapeDtypeStruct`` tree)."""
+    dtype = dtype or param_dtype(cfg)
+
+    def walk(node):
+        if isinstance(node, ParamSpec):
+            return torch.empty(node.shape, dtype=dtype, device="meta")
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(model_schema(cfg))
